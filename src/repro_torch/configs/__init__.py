@@ -1,0 +1,25 @@
+"""Architecture registry of the port: ``get_config("internlm2-1.8b")``.
+
+Only the archs whose path the port runs are registered; any other id
+raises, naming it (the JAX package's registry knows them all)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig, ScanGroup, reduced  # noqa: F401
+
+_MODULES = {
+    "internlm2-1.8b": "internlm2_1_8b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    key = name.replace("_", "-")
+    if key not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
+                       f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
+                       f"Queue 1, item 6 (the other LM families)")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[key]}").CONFIG

@@ -1,0 +1,87 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes) under ``build/repro_torch_kernels/`` at the
+repository root, which ``.gitignore`` lists.  The library's file name
+carries a hash of its source and flags, so an edited source rebuilds and
+an unchanged one is reused.  All sources that need building are compiled
+by concurrent ``nvcc`` processes.  A build failure raises; nothing falls
+back to a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("paged_attention.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: nvcc's output per source from the last build in this process (ptxas
+#: prints each kernel's registers, shared memory and spills with -v)
+BUILD_LOG: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "CUDA kernels of repro_torch build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, all ``nvcc``
+    processes started together; returns source -> library path."""
+    pending = [s for s in SOURCES if not library_path(s).exists()]
+    if pending:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for source in pending:
+            out = library_path(source)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+            procs.append((source, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for source, tmp, out, proc in procs:     # wait for every nvcc
+            BUILD_LOG[source] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{source} (exit {proc.returncode}):\n"
+                              f"{BUILD_LOG[source]}")
+            else:
+                os.replace(tmp, out)             # atomic publish
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    return {s: library_path(s) for s in SOURCES}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<source>`` (built first if
+    needed)."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(str(build_all()[source]))
+        return lib

@@ -1,0 +1,71 @@
+"""Plain PyTorch versions of the paged attention kernels (the port of
+``repro.kernels.ref``, ``ref.py:34-96``).
+
+They are the ground truth the CUDA kernels in ``csrc/paged_attention.cu``
+are held against, and what :mod:`repro_torch.kernels.ops` runs for a
+tensor on the CPU.  All math is fp32; masked scores take the finite
+``NEG_INF`` so a fully masked row never produces a NaN.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def decode_attention_ref(q, k, v, lengths):
+    """q: (B,H,hd) single query; k,v: (B,L,KV,hd); lengths: (B,) valid
+    prefix.  Returns (B,H,hd)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) / math.sqrt(hd)
+    L = k.shape[1]
+    ok = torch.arange(L, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def _gather(pool, block_tables):
+    """(B, nb*bs, KV, hd) virtual caches materialized through the table."""
+    B, nb = block_tables.shape
+    bs = pool.shape[1]
+    return pool[block_tables.long()].reshape(B, nb * bs, *pool.shape[2:])
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
+    """Single-query decode attention through a block table.
+
+    q: (B,H,hd); k_pool/v_pool: (num_blocks, bs, KV, hd); block_tables:
+    (B, nb) physical block ids (padded with the null block); lengths: (B,)
+    valid prefix length.  Returns (B,H,hd)."""
+    return decode_attention_ref(q, _gather(k_pool, block_tables),
+                                _gather(v_pool, block_tables), lengths)
+
+
+def paged_extend_attention_ref(q, k_pool, v_pool, block_tables, pos0):
+    """Suffix-extend attention through a block table.
+
+    q: (B,S,H,hd) queries at absolute positions ``pos0 + s``; pools and
+    tables as in :func:`paged_decode_attention_ref`; pos0: (B,).  Key at
+    virtual position p is visible to query s iff ``p <= pos0 + s``.
+    Returns (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    KV = k_pool.shape[2]
+    G = H // KV
+    k = _gather(k_pool, block_tables)
+    v = _gather(v_pool, block_tables)
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    L = k.shape[1]
+    positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]
+    ok = torch.arange(L, device=q.device)[None, None, :] <= positions[:, :, None]
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)

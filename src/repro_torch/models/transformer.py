@@ -1,0 +1,194 @@
+"""Decoder LM of the port, kind-``A`` paged path (``repro.models.transformer``).
+
+Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
+[pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
+Python loop over the repeats takes the place of ``lax.scan``.  Paged caches
+mirror it: ``caches[gi][pi] = {"kp", "vp"}`` of ``(repeats, num_blocks+1,
+bs, KV, hd)``.
+
+In place, unlike JAX: the decode and extend passes write K/V into the pool
+tensors they are given, and :func:`decode_loop` advances the loop state
+tensors (``pos``, ``last``, ``active``, ``remaining``) where they lie.
+Each returns its inputs, so call sites read like the JAX ones.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, embed, mask_padded_logits,
+                                       rms_norm, unembed)
+
+_NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item {}"
+
+
+def apply_norm(p, x, cfg):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm={cfg.norm!r} " +
+                                  _NOT_PORTED.format("6 (the other LM "
+                                                     "families)"))
+    return rms_norm(x, p["w"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
+
+
+def paged_supported(cfg, max_len: int) -> bool:
+    """Can this arch serve from a paged KV block pool?  (``transformer.py:
+    86-105``): SSM/RG-LRU state, MLA caches and ring windows cannot."""
+    for g in cfg.groups:
+        for kind in g.pattern:
+            if kind in ("S", "R"):
+                return False
+            if kind == "M" and cfg.kv_lora_rank:
+                return False
+            if kind == "L" and cfg.window and cfg.window < max_len:
+                return False
+    return True
+
+
+def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
+    """One shared ``(repeats, num_blocks+1, bs, KV, hd)`` K/V pool per
+    (group, pattern position); row 0 of each pool is the null block."""
+    if not paged_supported(cfg, max_len=1 << 30):
+        raise ValueError(f"{cfg.name}: family holds non-pageable state "
+                         f"(SSM/RG-LRU/MLA/ring)")
+    caches = []
+    for g in cfg.groups:
+        pos_caches = []
+        for _ in g.pattern:
+            c = attn.init_paged_kv_cache(cfg, num_blocks, block_size, device)
+            pos_caches.append({k: v[None].repeat(g.repeats, 1, 1, 1, 1)
+                               for k, v in c.items()})
+        caches.append(pos_caches)
+    return caches
+
+
+def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt):
+    """One kind-``A`` layer over a paged cache in ``decode`` or ``extend``
+    mode (``transformer.py:130-210``).  Returns ``(x, cache)``; the JAX
+    function's aux loss is zero for these layers and is dropped."""
+    if kind != "A":
+        raise NotImplementedError(f"layer kind {kind!r} " +
+                                  _NOT_PORTED.format("6 (the other LM "
+                                                     "families)"))
+    h = apply_norm(p["ln1"], x, cfg)
+    if mode == "decode":
+        mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
+                                            cfg, kind="causal")
+    elif mode == "extend":
+        mix, cache = attn.paged_attn_extend(p["mixer"], h, cache, pos, bt,
+                                            cfg, kind="causal")
+    else:
+        raise NotImplementedError(f"mode {mode!r} " + _NOT_PORTED.format(
+            "2 (the dense fused engine)"))
+    x = x + mix
+    h2 = apply_norm(p["ln2"], x, cfg)
+    return x + apply_mlp(p["ffn"], h2, cfg), cache
+
+
+def _take(tree, r: int):
+    """Repeat ``r`` of a stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _take(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def run_backbone(params, x, cfg, mode: str, caches, pos, bt):
+    """x: (B,S,d) embedded input -> (x, caches), caches updated in place.
+    ``bt``: (B, nb) int32 block table."""
+    for gi, g in enumerate(cfg.groups):
+        gp, gc = params["groups"][gi], caches[gi]
+        for r in range(g.repeats):
+            for pi, kind in enumerate(g.pattern):
+                layer_cache = {"kp": gc[pi]["kp"][r], "vp": gc[pi]["vp"][r]}
+                x, _ = apply_layer(_take(gp[pi], r), x, cfg, kind, mode,
+                                   layer_cache, pos, bt)
+    return x, caches
+
+
+def _head(params, x, cfg):
+    if cfg.tie_embeddings:
+        return unembed(params["embedding"], x, cfg)
+    logits = x @ params["lm_head"]
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return mask_padded_logits(logits, cfg)
+
+
+def decode_step(params, cfg, tokens, caches, pos, bt):
+    """tokens: (B,1) int32; pos: (B,) int32 absolute write position; bt:
+    (B, nb) int32.  Returns ``(logits (B,1,V), caches)``."""
+    x = embed(params["embedding"], tokens, cfg)
+    x, caches = run_backbone(params, x, cfg, "decode", caches, pos, bt)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _head(params, x, cfg), caches
+
+
+def extend_paged(params, cfg, tokens, caches, pos0, bt, last_index):
+    """Paged admit pass: append ``tokens (B,S)`` to sequences whose first
+    ``pos0 (B,)`` positions are cached in the pool, writing the suffix K/V
+    through ``bt`` and returning ``(logits (B,1,V) at per-row
+    last_index, caches)``.  With ``pos0 == 0`` it is a full prefill."""
+    x = embed(params["embedding"], tokens, cfg)
+    x, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
+    rows = torch.arange(x.shape[0], device=x.device)
+    x = x[rows, last_index.long()][:, None]
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _head(params, x, cfg), caches
+
+
+def sample_tokens(logits, temperature: float = 0.0, generator=None):
+    """logits: (B, V) -> (B,) int32.  ``temperature`` 0 is greedy argmax,
+    which takes the first index on ties as ``jnp.argmax`` does; otherwise
+    categorical sampling by the Gumbel-max trick with noise drawn from
+    ``generator`` (it matches JAX only in distribution)."""
+    if temperature and temperature > 0.0:
+        if generator is None:
+            raise ValueError("temperature sampling needs a torch.Generator")
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device, dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(logits.float() / temperature + gumbel,
+                            dim=-1).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def decode_fused(params, cfg, tokens, caches, pos, *, temperature=0.0,
+                 generator=None, bt):
+    """One decode step that returns only the ``(B,)`` sampled token ids."""
+    logits, caches = decode_step(params, cfg, tokens, caches, pos, bt)
+    return sample_tokens(logits[:, 0], temperature, generator), caches
+
+
+def decode_loop(params, cfg, caches, pos, last, active, remaining,
+                generator=None, *, k: int, max_len: int,
+                temperature: float = 0.0, bt):
+    """K decode steps over a paged pool, read through ``bt`` at every
+    step (``transformer.py:511-563``, the per-step pool path).
+
+    Loop state lives on the device and is advanced in place: ``pos`` (B,)
+    next write position, ``last`` (B,) last sampled token, ``active`` (B,)
+    bool liveness, ``remaining`` (B,) decode budget.  Per-slot stop is
+    exact by masking: an exhausted slot's pos/last/budget freeze and its
+    tokens stop being emitted while the batch keeps stepping, and a slot
+    that goes inactive feeds token 0.  Returns ``(out (B,k) int32, emitted
+    (B,) int32, caches, pos, last, active, remaining)``; ``out[s,
+    :emitted[s]]`` are slot s's tokens."""
+    if bt is None:
+        raise NotImplementedError("decode_loop without a block table " +
+                                  _NOT_PORTED.format("2 (the dense fused "
+                                                     "engine)"))
+    B = pos.shape[0]
+    out = torch.zeros((B, k), dtype=torch.int32, device=pos.device)
+    emitted = torch.zeros((B,), dtype=torch.int32, device=pos.device)
+    for i in range(k):
+        nxt, caches = decode_fused(params, cfg, last[:, None], caches, pos,
+                                   temperature=temperature,
+                                   generator=generator, bt=bt)
+        nxt = torch.where(active, nxt, last)
+        out[:, i] = nxt
+        live = active.to(torch.int32)
+        emitted += live
+        pos += live
+        remaining -= live
+        active &= (remaining > 0) & (pos < max_len - 1)
+        last.copy_(torch.where(active, nxt, 0))
+    return out, emitted, caches, pos, last, active, remaining
