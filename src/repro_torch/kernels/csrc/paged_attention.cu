@@ -33,8 +33,9 @@
 // rescaling of (m, l, acc).
 //
 // paged_extend_mma_kernel (extend in bf16), on the tensor cores; see its
-// own comment below.  P is rounded to bf16 before P.V, as the plain mha
-// of the model does; everything else accumulates in fp32.
+// own comment below.  As in the TPU kernel, P stays fp32 for P.V: the
+// bf16 mma takes it as a bf16 pair hi + lo (relative error <= 2^-18), and
+// everything accumulates in fp32.
 //
 // In both, the loop stops at the last key any row of the CTA can see,
 // which skips the fully masked blocks the TPU kernel walked through with
@@ -101,6 +102,15 @@ __device__ __forceinline__ void bf2_to_f(uint32_t w, float* x) {
 __device__ __forceinline__ uint32_t f_to_bf2(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (a, b) = hi + lo with hi = bf16(a, b) and lo = bf16((a, b) - hi)
+__device__ __forceinline__ void split_bf2(float a, float b, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = f_to_bf2(a - f.x, b - f.y);
 }
 
 template <int N>
@@ -326,7 +336,11 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
 // V rows from the pool (through the block table) into shared memory with
 // 16-byte loads, then each warp computes S = Q K^T for its rows, applies
 // the causal mask key <= pos0 + s, updates its online softmax (m, l) in
-// the log2 domain, rounds P to bf16 and accumulates P V.  Rows padded to
+// the log2 domain and accumulates P V.  The mma takes bf16 operands, so
+// the fp32 P goes in as two parts, hi = bf16(P) and lo = bf16(P - hi),
+// each multiplied into the same fp32 accumulator: P keeps ~16 of its 24
+// bits (the TPU kernel's p @ v is fp32), at twice the mma of a bf16 P.
+// V is bf16 in the pool and exact as an operand.  Rows padded to
 // 8 extra bf16 per shared-memory row keep the fragment loads free of
 // bank conflicts.  A warp whose rows see no key of a tile skips it.
 constexpr int XW = 4;            // warps per CTA
@@ -458,7 +472,7 @@ __global__ void __launch_bounds__(XW * 32) paged_extend_mma_kernel(
       o[nd][0] *= corr[0]; o[nd][1] *= corr[0];
       o[nd][2] *= corr[1]; o[nd][3] *= corr[1];
     }
-    // P (bf16) V: XK / 16 k-steps of 16 keys
+    // P V with P = hi + lo: XK / 16 k-steps of 16 keys
 #pragma unroll
     for (int kk = 0; kk < XK / 16; ++kk) {
       float p[2][4];
@@ -472,10 +486,11 @@ __global__ void __launch_bounds__(XW * 32) paged_extend_mma_kernel(
           p[half][j] = e;
           l[h] += e;
         }
-      const uint32_t pa[4] = {f_to_bf2(p[0][0], p[0][1]),
-                              f_to_bf2(p[0][2], p[0][3]),
-                              f_to_bf2(p[1][0], p[1][1]),
-                              f_to_bf2(p[1][2], p[1][3])};
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_bf2(p[j >> 1][2 * (j & 1)], p[j >> 1][2 * (j & 1) + 1], ph[j],
+                  pl[j]);
       const int k0 = kk * 16 + 2 * tq;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
@@ -486,7 +501,8 @@ __global__ void __launch_bounds__(XW * 32) paged_extend_mma_kernel(
         const uint32_t b1 =
             (uint32_t)__bfloat16_as_ushort(vs[k0 + 8][d]) |
             ((uint32_t)__bfloat16_as_ushort(vs[k0 + 9][d]) << 16);
-        mma_bf16(o[nd], pa, b0, b1);
+        mma_bf16(o[nd], pl, b0, b1);
+        mma_bf16(o[nd], ph, b0, b1);
       }
     }
   }

@@ -3,9 +3,10 @@
 (``ops.py:48-83``): queries in the model's ``(B, [S,] H, hd)`` layout.
 
 The device of the tensors decides the route: a CUDA tensor launches the
-Hopper kernel (``paged_attention.*_bkgd``) or raises; a CPU tensor runs the
-plain version from :mod:`repro_torch.kernels.ref`, counted in
-:data:`PLAIN_CALLS`.  Any other device raises.
+Hopper kernel (``paged_attention.*_bkgd``, which checks the arguments) or
+raises; a CPU tensor runs the plain version from
+:mod:`repro_torch.kernels.ref` after the same checks, counted in
+:data:`PLAIN_CALLS`.  Any other device raises.  Each call is checked once.
 """
 from __future__ import annotations
 
@@ -48,11 +49,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """q: (B,H,hd); k_pool/v_pool: (num_blocks, bs, KV, hd) shared pools;
     block_tables: (B, nb) int32; lengths: (B,) int32 -> (B,H,hd)."""
     name = "paged_decode_attention"
-    pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, H, hd), got {tuple(q.shape)}")
     G = _heads(name, q, k_pool)
     if not _route(name, q):
+        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
         return ref.paged_decode_attention_ref(q, k_pool, v_pool,
                                               block_tables, lengths)
     B, H, hd = q.shape
@@ -67,12 +68,12 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
     scattered in; block_tables: (B, nb) int32; pos0: (B,) int32
     -> (B,S,H,hd).  Key p is visible to query s iff ``p <= pos0 + s``."""
     name = "paged_extend_attention"
-    pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, S, H, hd), got "
                          f"{tuple(q.shape)}")
     G = _heads(name, q, k_pool)
     if not _route(name, q):
+        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
         return ref.paged_extend_attention_ref(q, k_pool, v_pool,
                                               block_tables, pos0)
     B, S, H, hd = q.shape

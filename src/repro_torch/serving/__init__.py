@@ -1,6 +1,6 @@
 from repro_torch.serving.engine import (Engine, EngineFns, Request,  # noqa: F401
                                         ServeConfig, SessionSnapshot,
-                                        make_engine_fns, pad_tolerant)
+                                        pad_tolerant)
 from repro_torch.serving.kvpool import (BlockAllocator, PoolExhausted,  # noqa: F401
                                         hash_token_blocks,
                                         hash_token_blocks_memo,

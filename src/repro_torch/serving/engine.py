@@ -260,14 +260,9 @@ class EngineFns:
         return caches
 
 
-def make_engine_fns(cfg, scfg: ServeConfig) -> EngineFns:
-    return EngineFns(cfg, scfg)
-
-
 class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
-                 metrics: Optional[MetricsRegistry] = None,
-                 shared_fns: Optional[EngineFns] = None, device="cuda"):
+                 metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
         if not scfg.paged:
             raise _not_ported("ServeConfig(paged=False)", _DENSE)
@@ -276,8 +271,7 @@ class Engine:
         if not tfm.paged_supported(cfg, scfg.max_len) or cfg.family != "dense":
             raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
         self.params, self.cfg, self.scfg = params, cfg, scfg
-        self.fns = shared_fns if shared_fns is not None \
-            else make_engine_fns(cfg, scfg)
+        self.fns = EngineFns(cfg, scfg)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         bs = scfg.block_size
         self.nb_max = scfg.max_len // bs

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny shapes: one thread is faster and leaves
+                           # the cores to the other test workers
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -29,6 +31,7 @@ from repro.models import api  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import ServeConfig as JServeConfig  # noqa: E402
+from repro.serving import make_engine_fns  # noqa: E402
 from repro_torch.cluster import tracing  # noqa: E402
 from repro_torch.configs import ScanGroup, get_config, reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -37,6 +40,11 @@ from repro_torch.models import weights  # noqa: E402
 from repro_torch.serving import Engine, ServeConfig  # noqa: E402
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)     # fp32 whole-model logits
+
+# the JAX side jitted whole: one compile per shape, not one per operation
+_jext = jax.jit(jtfm.extend_paged, static_argnums=1)
+_jdec = jax.jit(jtfm.decode_step, static_argnums=1)
+_JFNS = {}                                  # JAX engine fns per ServeConfig
 
 
 def _cfgs(**kw):
@@ -54,7 +62,7 @@ def _flat_numpy(params):
 @pytest.fixture(scope="module")
 def model():
     jcfg, tcfg = _cfgs()
-    jparams, _ = api.init(jax.random.PRNGKey(0), jcfg)
+    jparams = jax.jit(lambda k: api.init(k, jcfg)[0])(jax.random.PRNGKey(0))
     tparams = weights.params_from_numpy(_flat_numpy(jparams), tcfg,
                                         device="cpu")
     return jcfg, tcfg, jparams, tparams
@@ -83,25 +91,25 @@ def test_extend_and_decode_logits(model):
     # full prefill of row 0, a right-padded prefill of row 1 (5 real tokens)
     toks = rng.randint(0, tcfg.vocab, size=(2, 8)).astype(np.int32)
     pos0, last = np.zeros(2, np.int32), np.array([7, 4], np.int32)
-    both(lambda c: jtfm.extend_paged(jparams, jcfg, jnp.asarray(toks), c,
-                                     jnp.asarray(pos0), jnp.asarray(bt),
-                                     jnp.asarray(last)),
+    both(lambda c: _jext(jparams, jcfg, jnp.asarray(toks), c,
+                         jnp.asarray(pos0), jnp.asarray(bt),
+                         jnp.asarray(last)),
          lambda c: ttfm.extend_paged(tparams, tcfg, _t(toks), c, _t(pos0),
                                      _t(bt), _t(last)))
     # suffix extend after a cached prefix (pos0 > 0), over the pad rows
     toks = rng.randint(0, tcfg.vocab, size=(2, 4)).astype(np.int32)
     pos0, last = np.array([8, 5], np.int32), np.array([3, 2], np.int32)
-    both(lambda c: jtfm.extend_paged(jparams, jcfg, jnp.asarray(toks), c,
-                                     jnp.asarray(pos0), jnp.asarray(bt),
-                                     jnp.asarray(last)),
+    both(lambda c: _jext(jparams, jcfg, jnp.asarray(toks), c,
+                         jnp.asarray(pos0), jnp.asarray(bt),
+                         jnp.asarray(last)),
          lambda c: ttfm.extend_paged(tparams, tcfg, _t(toks), c, _t(pos0),
                                      _t(bt), _t(last)))
     # two decode steps through the block table
     for pos in ([12, 8], [13, 9]):
         tok = rng.randint(0, tcfg.vocab, size=(2, 1)).astype(np.int32)
         pos = np.asarray(pos, np.int32)
-        both(lambda c: jtfm.decode_step(jparams, jcfg, jnp.asarray(tok), c,
-                                        jnp.asarray(pos), bt=jnp.asarray(bt)),
+        both(lambda c: _jdec(jparams, jcfg, jnp.asarray(tok), c,
+                             jnp.asarray(pos), bt=jnp.asarray(bt)),
              lambda c: ttfm.decode_step(tparams, tcfg, _t(tok), c, _t(pos),
                                         _t(bt)))
     # every real pool block holds the same K/V on both sides
@@ -123,9 +131,8 @@ def test_decode_loop_tokens_exact(model):
     last_idx = np.array([11, 6], np.int32)
     jc = jtfm.init_paged_caches(jcfg, n_blocks, bs)
     tc = ttfm.init_paged_caches(tcfg, n_blocks, bs, "cpu")
-    lj, jc = jtfm.extend_paged(jparams, jcfg, jnp.asarray(toks), jc,
-                               jnp.asarray(pos0), jnp.asarray(bt),
-                               jnp.asarray(last_idx))
+    lj, jc = _jext(jparams, jcfg, jnp.asarray(toks), jc, jnp.asarray(pos0),
+                   jnp.asarray(bt), jnp.asarray(last_idx))
     lt, tc = ttfm.extend_paged(tparams, tcfg, _t(toks), tc, _t(pos0), _t(bt),
                                _t(last_idx))
     first = np.asarray(jtfm.sample_tokens(lj[:, 0]))
@@ -160,7 +167,11 @@ def _serve_both(model, scfg_kw, batches, max_new):
     before the next is submitted); returns (jax_engine, jax_reqs,
     port_engine, port_reqs)."""
     jcfg, tcfg, jparams, tparams = model
-    jeng = JEngine(jparams, jcfg, JServeConfig(**scfg_kw))
+    jscfg = JServeConfig(**scfg_kw)
+    key = tuple(sorted(scfg_kw.items()))
+    if key not in _JFNS:
+        _JFNS[key] = make_engine_fns(jcfg, jscfg)
+    jeng = JEngine(jparams, jcfg, jscfg, shared_fns=_JFNS[key])
     teng = Engine(tparams, tcfg, ServeConfig(**scfg_kw), device="cpu")
     jreqs, treqs = [], []
     for prompts in batches:
@@ -303,9 +314,10 @@ def test_engine_fork_and_kv_export_raise(model):
 # ----------------------------------------------------------------------
 # weights: checkpoint read, seeded init
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_load_checkpoint_is_exact(tmp_path, dtype):
-    jcfg, tcfg = _cfgs(param_dtype=dtype)
-    jparams, _ = api.init(jax.random.PRNGKey(4), jcfg)
+def test_load_checkpoint_is_exact(model, tmp_path, dtype):
+    _, tcfg = _cfgs(param_dtype=dtype)
+    jparams = jax.jit(lambda t: jax.tree_util.tree_map(
+        lambda x: x.astype(dtype), t))(model[2])
     Checkpointer(str(tmp_path)).save(3, jparams)
     port = weights.load_checkpoint(str(tmp_path / "step_3"), tcfg, "cpu")
     flat = _flat_numpy(jparams)

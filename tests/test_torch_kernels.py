@@ -8,6 +8,7 @@ only on the card, where ``chip_smoke.py`` holds them against these plain
 versions.  Tolerances as tests/test_kernels.py:16: fp32 ``2e-5``, bf16
 ``3e-2`` (bf16 output rounding).
 """
+import functools
 import os
 import stat
 
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny shapes: one thread is faster and leaves
+                           # the cores to the other test workers
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
@@ -26,6 +30,15 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+
+# the JAX oracles and Pallas kernels (interpret mode) jitted whole: one
+# compile per shape, not one per operation
+_jref_decode = jax.jit(jref.paged_decode_attention_ref)
+_jref_extend = jax.jit(jref.paged_extend_attention_ref)
+_jpallas_decode = jax.jit(functools.partial(jops.paged_decode_attention,
+                                            interpret=True))
+_jpallas_extend = jax.jit(functools.partial(jops.paged_extend_attention,
+                                            interpret=True))
 
 
 def _pair(a, dtype):
@@ -69,10 +82,9 @@ def test_paged_decode_attention(B, nb_seq, bs, H, KV, hd, dtype):
     ln = (torch.from_numpy(lengths), jnp.asarray(lengths))
     out = ops.paged_decode_attention(q[0], kp[0], vp[0], bt[0], ln[0])
     assert out.shape == (B, H, hd) and out.dtype == q[0].dtype
-    want = jref.paged_decode_attention_ref(q[1], kp[1], vp[1], bt[1], ln[1])
+    want = _jref_decode(q[1], kp[1], vp[1], bt[1], ln[1])
     np.testing.assert_allclose(_f32(out), _f32(want), **TOL[dtype])
-    pallas = jops.paged_decode_attention(q[1], kp[1], vp[1], bt[1], ln[1],
-                                         interpret=True)
+    pallas = _jpallas_decode(q[1], kp[1], vp[1], bt[1], ln[1])
     np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
 
 
@@ -90,10 +102,9 @@ def test_paged_extend_attention(B, S, nb_seq, bs, H, KV, hd, dtype):
     p0 = (torch.from_numpy(pos0), jnp.asarray(pos0))
     out = ops.paged_extend_attention(q[0], kp[0], vp[0], bt[0], p0[0])
     assert out.shape == (B, S, H, hd) and out.dtype == q[0].dtype
-    want = jref.paged_extend_attention_ref(q[1], kp[1], vp[1], bt[1], p0[1])
+    want = _jref_extend(q[1], kp[1], vp[1], bt[1], p0[1])
     np.testing.assert_allclose(_f32(out), _f32(want), **TOL[dtype])
-    pallas = jops.paged_extend_attention(q[1], kp[1], vp[1], bt[1], p0[1],
-                                         interpret=True)
+    pallas = _jpallas_extend(q[1], kp[1], vp[1], bt[1], p0[1])
     np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
 
 

@@ -4,11 +4,16 @@ Inputs come from a seeded numpy generator and go through both sides as
 numpy arrays.  Everything here is fp32; tolerances follow
 tests/test_kernels.py:16 (fp32 ``atol = rtol = 2e-5``).
 """
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny shapes: one thread is faster and leaves
+                           # the cores to the other test workers
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
@@ -30,6 +35,12 @@ def _cfgs(**kw):
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _jit_attn(fn, jcfg):
+    """A JAX paged attention layer jitted whole: one compile, not one per
+    operation."""
+    return jax.jit(functools.partial(fn, cfg=jcfg, kind="causal"))
 
 
 def _close(port, jax_out, **tol):
@@ -100,10 +111,10 @@ def test_project_qkv_and_mha():
     qt, kt, vt = tattn._project_qkv({k: _t(v) for k, v in p.items()}, _t(x),
                                     _t(x), tcfg, _t(pos), _t(pos),
                                     tcfg.rope_base)
-    qj, kj, vj = jattn._project_qkv({k: jnp.asarray(v) for k, v in p.items()},
-                                    jnp.asarray(x), jnp.asarray(x), jcfg,
-                                    jnp.asarray(pos), jnp.asarray(pos),
-                                    jcfg.rope_base)
+    qj, kj, vj = jax.jit(lambda p, x, pos: jattn._project_qkv(
+        p, x, x, jcfg, pos, pos, jcfg.rope_base))(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+            jnp.asarray(pos))
     for a, b in ((qt, qj), (kt, kj), (vt, vj)):
         _close(a, b, atol=1e-5, rtol=1e-5)
     mask = np.tril(np.ones((9, 9), bool))[None, None]
@@ -159,10 +170,10 @@ def test_paged_attn_decode():
         {k: _t(v) for k, v in p.items()}, _t(x),
         {"kp": _t(kp.copy()), "vp": _t(vp.copy())}, _t(pos), _t(bt), tcfg,
         kind="causal")
-    out_j, c_j = jattn.paged_attn_decode(
+    out_j, c_j = _jit_attn(jattn.paged_attn_decode, jcfg)(
         {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
         {"kp": jnp.asarray(kp), "vp": jnp.asarray(vp)}, jnp.asarray(pos),
-        jnp.asarray(bt), jcfg, kind="causal")
+        jnp.asarray(bt))
     _close(out_t, out_j, atol=1e-5, rtol=1e-5)
     _close(c_t["kp"], c_j["kp"], atol=1e-5, rtol=1e-5)
     # on the CPU the op took its plain version
@@ -183,9 +194,9 @@ def test_paged_attn_extend(pos0):
         {k: _t(v) for k, v in p.items()}, _t(x),
         {"kp": _t(kp.copy()), "vp": _t(vp.copy())}, _t(pos0), _t(bt), tcfg,
         kind="causal")
-    out_j, c_j = jattn.paged_attn_extend(
+    out_j, c_j = _jit_attn(jattn.paged_attn_extend, jcfg)(
         {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
         {"kp": jnp.asarray(kp), "vp": jnp.asarray(vp)}, jnp.asarray(pos0),
-        jnp.asarray(bt), jcfg, kind="causal")
+        jnp.asarray(bt))
     _close(out_t, out_j, atol=1e-5, rtol=1e-5)
     _close(c_t["vp"], c_j["vp"], atol=1e-5, rtol=1e-5)
