@@ -2,26 +2,32 @@
 
     python3 chip_smoke.py
 
-It drives the port's main path, the paged serving engine on the Hopper
-paged attention kernels, and holds every kernel against its plain PyTorch
-version.  One line per phase:
+It drives the port's two serving paths, the paged engine on the Hopper
+paged attention kernels and the dense fused engine (the serve driver's
+default) on the flash attention and split-K decode kernels, and holds
+every kernel against its plain PyTorch version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
-   build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` (timed);
+   build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
+   process per source, all started together (timed);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
-   the main path's shapes in bf16 (H=16, KV=8, hd=128, bs=16, ragged
-   lengths up to 2048, an extend of S=256 at pos0 > 0), plus a small grid
-   over every head_dim and dtype the kernels are built for, each held
+   the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
+   ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
+   causal flash prefill of B=3, S=512, a decode of B=8 over L=2048 at
+   ragged lengths), plus a small grid over every head_dim and dtype the
+   kernels are built for (and flash's three mask modes), each held
    against the plain version's fp32 result on the same inputs, with a
    control (P rounded to bf16) that the bf16 limit must reject; kernel,
-   plain and library (SDPA on the gathered K/V) times and the bound;
-3. token-exact: the two-layer fp32 reduced config served twice on the
-   card, through the kernels and forced through the plain versions;
-4. full-width serve: internlm2-1.8b (24 layers, bf16, seeded random
-   weights), 8 slots, max_len 2048, block_size 16, K=8, 8 requests of
-   16-512 tokens, two sharing a 256-token prefix, max_new 32; the kernel
-   launch counts of this phase, which must be > 0 with no plain calls;
-   then one profiled decode sync;
+   plain and library (SDPA) times and the bound;
+3. token-exact: the two-layer fp32 reduced config served on the card by
+   the paged and the dense engine, each through the kernels and forced
+   through the plain versions; all four runs give the same tokens;
+4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
+   weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
+   sharing a 256-token prefix, max_new 32, first paged (block_size 16),
+   then dense; each path's kernel launch counts, read right after its own
+   run, must be > 0 with no plain calls; then one profiled decode sync of
+   each;
 5. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -30,6 +36,7 @@ result.  The whole ``nvcc`` output goes to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -98,6 +105,8 @@ def main():
 def phase_device() -> str:
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,7 +118,8 @@ def phase_device() -> str:
           f"count={torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.build_all()
-    pa._library()
+    for module in (pa, fa, da):
+        module._library()
     build_s = time.perf_counter() - t0
     usage = [ln.strip() for log in build.BUILD_LOG.values()
              for ln in log.splitlines() if "registers" in ln]
@@ -219,30 +229,41 @@ def _compare(name, out, want):
     return max_err, share
 
 
+def _rounded_p(q, k, v, keep):
+    """The control: plain attention of q (B,S,H,hd) over k/v (B,L,KV,hd)
+    where keep (B,S,L) allows, with P rounded to bf16 before P.V, as the
+    model's plain mha does."""
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd).float()
+    sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    sc = sc.masked_fill(~keep[:, None, None], -2e38)
+    p = torch.softmax(sc, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
+        B, S, H, hd)
+
+
 def _plain_rounded_p(q, kp, vp, bt, pos0):
-    """The control: the plain extend (q (B,S,H,hd), queries at pos0 + s)
-    with P rounded to bf16 before P.V, as the model's plain mha does."""
+    """The control of the paged extend (q (B,S,H,hd), queries at
+    pos0 + s), on the K/V gathered through the table."""
     import torch
     B, S, H, hd = q.shape
     nb = bt.shape[1]
     bs, KV = kp.shape[1:3]
-    k = kp[bt.long()].reshape(B, nb * bs, KV, hd).float()
-    v = vp[bt.long()].reshape(B, nb * bs, KV, hd).float()
-    qg = q.reshape(B, S, KV, H // KV, hd).float()
-    sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k) / math.sqrt(hd)
+    k = kp[bt.long()].reshape(B, nb * bs, KV, hd)
+    v = vp[bt.long()].reshape(B, nb * bs, KV, hd)
     qpos = pos0[:, None].long() + torch.arange(S, device=q.device)[None]
     keep = (torch.arange(nb * bs, device=q.device)[None, None, :] <=
             qpos[:, :, None])
-    sc = sc.masked_fill(~keep[:, None, None], -2e38)
-    p = torch.softmax(sc, dim=-1).to(torch.bfloat16).float()
-    return torch.einsum("bkgqs,bskh->bqkgh", p, v).reshape(B, S, H, hd)
+    return _rounded_p(q, k, v, keep)
 
 
-def _check_control(name, q, kp, vp, bt, pos0, want):
-    """The control must differ from the rounded fp32 result in more than
-    BF16_MISMATCH of its elements."""
+def _check_control(name, ctl, want):
+    """The control ``ctl`` must differ from the rounded fp32 result in
+    more than BF16_MISMATCH of its elements."""
     import torch
-    ctl = _plain_rounded_p(q, kp, vp, bt, pos0).reshape(want.shape)
+    ctl = ctl.reshape(want.shape)
     share = (ctl.to(torch.bfloat16) != want.to(torch.bfloat16)
              ).float().mean().item()
     check(share > BF16_MISMATCH,
@@ -293,11 +314,14 @@ def phase_kernels():
                      ref.paged_extend_attention_ref(*_f32(qs, kp, vp), bt,
                                                     pos0))
             n += 2
+            n += _dense_grid(gen, dtype, dname, hd, dev)
     torch.cuda.synchronize()
     print(f"[kernels] grid: {n} checks over hd 16/32/64/128 x fp32 "
           f"(atol=rtol={FP32_TOL}) and bf16 (within one ulp + {BF16_ATOL}, "
           f"<= {BF16_MISMATCH:.0%} of elements off the rounded fp32 plain "
-          f"result) passed")
+          f"result) passed: paged decode and extend; flash at S 37 and 192 "
+          f"x causal / window 64 / bidirectional; split-K decode at "
+          f"lengths 1..L")
 
     # main-path shapes, bf16; 3 copies of the inputs for cold-L2 timing
     B, H, KV, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
@@ -312,7 +336,8 @@ def phase_kernels():
     want = ref.paged_decode_attention_ref(*_f32(q, kp, vp), bt, lengths)
     err, share = _compare("decode main-path", out, want)
     shares["paged_decode_attention"] = (share, _check_control(
-        "decode main-path", q[:, None], kp, vp, bt, lengths - 1, want))
+        "decode main-path", _plain_rounded_p(q[:, None], kp, vp, bt,
+                                             lengths - 1), want))
     keep = (torch.arange(max_len, device=dev)[None, :] <
             lengths[:, None].long())[:, None, None, :]
     sd = [_sdpa_args(s[0][:, :, None], s[1], s[2], s[3], keep) for s in sets]
@@ -344,7 +369,7 @@ def phase_kernels():
     want = ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0)
     err, share = _compare("extend main-path", out, want)
     shares["paged_extend_attention"] = (share, _check_control(
-        "extend main-path", q, kp, vp, bt, pos0, want))
+        "extend main-path", _plain_rounded_p(q, kp, vp, bt, pos0), want))
     qpos = pos0[:, None].long() + torch.arange(S, device=dev)[None, :]
     keep = (torch.arange(max_len, device=dev)[None, None, :] <=
             qpos[:, :, None])[:, None]
@@ -367,6 +392,7 @@ def phase_kernels():
             s[0], s[1], s[2], s[3], pos0) for s in esets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+    _dense_main_path(gen, dev, stats, shares, issue)
     print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
           f"the plain version's fp32 result on the same inputs, and at most "
           f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
@@ -386,6 +412,116 @@ def phase_kernels():
     return stats
 
 
+def _randn(gen, shape, dtype, dev):
+    import torch
+    return torch.randn(*shape, generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+def _dense_grid(gen, dtype, dname, hd, dev):
+    """Flash attention and split-K decode at small shapes for one head
+    dim and dtype; returns the number of checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    n = 0
+    B, H, KV = 2, 8, 2
+    for S in (37, 192):
+        q = _randn(gen, (B, S, H, hd), dtype, dev)
+        k, v = (_randn(gen, (B, S, KV, hd), dtype, dev) for _ in range(2))
+        for causal, window in ((True, 0), (True, 64), (False, 0)):
+            _compare(f"flash hd={hd} {dname} S={S} causal={causal} "
+                     f"window={window}",
+                     ops.flash_attention(q, k, v, causal=causal,
+                                         window=window),
+                     ref.flash_attention_ref(*_f32(q, k, v), causal=causal,
+                                             window=window))
+            n += 1
+    L = 96
+    lengths = torch.tensor([1, 37, L], dtype=torch.int32, device=dev)
+    for H_, KV_ in ((8, 2), (8, 1)):
+        q = _randn(gen, (3, H_, hd), dtype, dev)
+        k, v = (_randn(gen, (3, L, KV_, hd), dtype, dev) for _ in range(2))
+        _compare(f"split-K decode hd={hd} {dname} G={H_ // KV_}",
+                 ops.decode_attention(q, k, v, lengths),
+                 ref.decode_attention_ref(*_f32(q, k, v), lengths))
+        n += 1
+    return n
+
+
+def _dense_main_path(gen, dev, stats, shares, issue):
+    """Flash attention and split-K decode at the dense path's shapes, bf16:
+    a causal prefill of B=3, S=512 and a decode of B=8 over L=2048 at
+    ragged lengths, each on 3 copies of its inputs for cold-L2 timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    H, KV, hd, esz, bf = 16, 8, 128, 2, torch.bfloat16
+
+    B, S = 3, 512
+    fsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+             for _ in range(3)]
+    q, k, v = fsets[0]
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
+    err, share = _compare("flash main-path", out, want)
+    keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    shares["flash_attention"] = (share, _check_control(
+        "flash main-path", _rounded_p(q, k, v, keep.expand(B, S, S)), want))
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0], is_causal=True, enable_gqa=True).transpose(1, 2)
+    _library_close("flash", lib_out, want)
+    by = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz   # q, k, v, out
+    ops_n = 4 * hd * H * B * S * (S + 1) // 2    # QK^T and PV, causal half
+    issue["flash_attention"] = _issue_ms(
+        lambda: ops.flash_attention(q, k, v, causal=True))
+    stats["flash_attention"] = _stats(
+        err, by, ops_n, "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s, causal=True)
+                  for s in fsets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True)
+                  for s in fsets]),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True) for a in sd]))
+
+    B, L = 8, 2048
+    lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
+                           dtype=torch.int32, device=dev)
+    dsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+             for _ in range(3)]
+    q, k, v = dsets[0]
+    out = ops.decode_attention(q, k, v, lengths)
+    want = ref.decode_attention_ref(*_f32(q, k, v), lengths)
+    err, share = _compare("split-K decode main-path", out, want)
+    keep = (torch.arange(L, device=dev)[None, :] <
+            lengths[:, None].long())[:, None]           # (B, 1, L)
+    shares["decode_attention"] = (share, _check_control(
+        "split-K decode main-path", _rounded_p(q[:, None], k, v, keep),
+        want))
+    sd = [(st[0][:, :, None], st[1].transpose(1, 2).contiguous(),
+           st[2].transpose(1, 2).contiguous(), keep[:, None])
+          for st in dsets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
+    _library_close("split-K decode", lib_out, want)
+    n_tok = int(lengths.sum())
+    by = (2 * n_tok * KV * hd * esz                 # K and V rows needed
+          + 2 * B * H * hd * esz + 4 * B)           # q in, out, lengths
+    ops_n = 4 * H * hd * n_tok                      # QK^T and PV
+    issue["decode_attention"] = _issue_ms(
+        lambda: ops.decode_attention(q, k, v, lengths))
+    stats["decode_attention"] = _stats(
+        err, by, ops_n, "bfloat16",
+        _time_ms([lambda s=s: ops.decode_attention(*s, lengths)
+                  for s in dsets]),
+        _time_ms([lambda s=s: ref.decode_attention_ref(*s, lengths)
+                  for s in dsets]),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+
+
 def _stats(err, nbytes, n_ops, dtype, ms, plain_ms, library_ms):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
@@ -401,13 +537,18 @@ def _drain(eng, prompts, max_new):
     return reqs
 
 
+PAGED_KERNELS = ("paged_decode_attention", "paged_extend_attention")
+DENSE_KERNELS = ("flash_attention", "decode_attention")
+
+
 def phase_token_exact():
-    """fp32, two-layer reduced config: kernel path == plain path."""
+    """fp32, two-layer reduced config: on each path the kernels give the
+    plain versions' tokens, and the dense path the paged path's."""
     import numpy as np
     import torch
+    from repro_torch import kernels
     from repro_torch.configs import ScanGroup, get_config, reduced
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.weights import init_params
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda", 0)
@@ -421,55 +562,86 @@ def phase_token_exact():
                for n in (5, 9, 7, 12, 6)]
     prompts += [np.concatenate([common, rng.randint(0, cfg.vocab, n)])
                 .astype(np.int32) for n in (4, 3)]
-    scfg = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
-                       block_size=8)
 
     def plain_route(name, q):
         ops.PLAIN_CALLS[name] += 1
         return False
 
-    ops.reset_counts()
-    kern = _drain(Engine(params, cfg, scfg, device=dev), prompts, 6)
-    k_launch = dict(pa.LAUNCHES)
-    check(min(k_launch.values()) > 0 and not any(ops.PLAIN_CALLS.values()),
-          f"kernel run: launches {k_launch}, plain {ops.PLAIN_CALLS}")
-    ops.reset_counts()
-    with mock.patch.object(ops, "_route", plain_route):
-        plain = _drain(Engine(params, cfg, scfg, device=dev), prompts, 6)
-    check(min(ops.PLAIN_CALLS.values()) > 0 and
-          not any(pa.LAUNCHES.values()),
-          f"plain run: launches {pa.LAUNCHES}, plain {ops.PLAIN_CALLS}")
-    for i, (a, b) in enumerate(zip(kern, plain)):
-        check(a.out_tokens == b.out_tokens and
-              a.finish_reason == b.finish_reason,
-              f"request {i}: kernel {a.out_tokens} ({a.finish_reason}) != "
-              f"plain {b.out_tokens} ({b.finish_reason})")
-    n_tok = sum(len(r.out_tokens) for r in kern)
+    def run(scfg, plain):
+        ops.reset_counts()
+        with mock.patch.object(ops, "_route", plain_route) if plain \
+                else contextlib.nullcontext():
+            reqs = _drain(Engine(params, cfg, scfg, device=dev), prompts, 6)
+        return reqs, dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+
+    tokens, used = {}, {}
+    for label, keys, scfg in (
+            ("paged", PAGED_KERNELS, ServeConfig(
+                max_len=64, slots=2, sync_every=4, paged=True,
+                block_size=8)),
+            ("dense", DENSE_KERNELS, ServeConfig(max_len=64, slots=2,
+                                                 sync_every=4))):
+        kern, k_launch, k_plain = run(scfg, plain=False)
+        check(all(k_launch[k] > 0 for k in keys) and
+              sum(k_launch.values()) == sum(k_launch[k] for k in keys) and
+              not any(k_plain.values()),
+              f"{label} kernel run: launches {k_launch}, plain {k_plain}")
+        plain, p_launch, p_plain = run(scfg, plain=True)
+        check(all(p_plain[k] > 0 for k in keys) and
+              not any(p_launch.values()),
+              f"{label} plain run: launches {p_launch}, plain {p_plain}")
+        for i, (a, b) in enumerate(zip(kern, plain)):
+            check(a.out_tokens == b.out_tokens and
+                  a.finish_reason == b.finish_reason,
+                  f"{label} request {i}: kernel {a.out_tokens} "
+                  f"({a.finish_reason}) != plain {b.out_tokens} "
+                  f"({b.finish_reason})")
+        tokens[label] = [(r.out_tokens, r.finish_reason) for r in kern]
+        used[label] = {k: k_launch[k] for k in keys}
+    check(tokens["dense"] == tokens["paged"],
+          f"dense tokens {tokens['dense']} != paged {tokens['paged']}")
+    n_tok = sum(len(t) for t, _ in tokens["dense"])
     print(f"[token-exact] fp32 2-layer reduced: {len(prompts)} requests, "
-          f"{n_tok} tokens identical through the kernels "
-          f"({k_launch}) and the plain versions")
+          f"{n_tok} tokens identical through the kernels and the plain "
+          f"versions on the paged path ({used['paged']}) and the dense path "
+          f"({used['dense']}), and between the two paths")
 
 
 # ----------------------------------------------------------------------
 def phase_serve():
-    """internlm2-1.8b at full width through the paged kernel path."""
+    """internlm2-1.8b at full width through the paged path, then through
+    the dense path; returns each kernel's launches in its path's run."""
+    launches = {}
+    for paged in (True, False):
+        launches.update(_serve_path(paged))
+    return launches
+
+
+def _serve_path(paged: bool):
+    import gc
+
     import numpy as np
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import build_engine
     dev = torch.device("cuda", 0)
+    label = "paged" if paged else "dense"
+    keys = PAGED_KERNELS if paged else DENSE_KERNELS
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     eng = build_engine("internlm2-1.8b", max_len=2048, slots=8,
-                       sync_every=8, block_size=16, seed=0, device=dev)
+                       sync_every=8, paged=paged, block_size=16, seed=0,
+                       device=dev)
     torch.cuda.synchronize()
     cfg = eng.cfg
     check(cfg.n_layers == 24 and cfg.d_model == 2048 and
-          eng.params["lm_head"].dtype == torch.bfloat16,
-          "not the full-width bf16 config")
-    print(f"[serve] built internlm2-1.8b (24 layers, d_model 2048, bf16, "
-          f"pool {eng.alloc.num_blocks} blocks x 16) in "
-          f"{time.perf_counter() - t0:.1f}s; device memory "
+          eng.params["lm_head"].dtype == torch.bfloat16 and
+          eng.paged == paged, "not the full-width bf16 config")
+    kv = (f"pool {eng.alloc.num_blocks} blocks x 16" if paged else
+          "dense caches 8 x 2048")
+    print(f"[serve {label}] built internlm2-1.8b (24 layers, d_model 2048, "
+          f"bf16, {kv}) in {time.perf_counter() - t0:.1f}s; device memory "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     rng = np.random.RandomState(1)
     tok = lambda n: rng.randint(0, cfg.vocab, n).astype(np.int32)  # noqa
@@ -489,32 +661,38 @@ def phase_serve():
     reqs = _drain(eng, prompts, max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain = dict(pa.LAUNCHES), dict(ops.PLAIN_CALLS)
+    launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
     hits = eng.metrics.counter("engine.prefix_hit_blocks").value - hits0
     for r in reqs:
         check(r.finish_reason == "max_new" and
               len(r.out_tokens) == max_new + 1 and
               all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.rid}: {r.finish_reason}, {r.out_tokens}")
-    check(min(launches.values()) > 0, f"kernels not launched: {launches}")
+    check(all(launches[k] > 0 for k in keys) and
+          sum(launches.values()) == sum(launches[k] for k in keys),
+          f"{label}: kernels not launched, or another path's: {launches}")
     check(not any(plain.values()), f"plain versions ran: {plain}")
-    check(hits >= 16, f"prefix cache hit {hits} blocks, expected >= 16")
-    check(eng.alloc.free_blocks + eng.alloc.cached_blocks ==
-          eng.alloc.num_blocks, "blocks leaked")
+    if paged:
+        check(hits >= 16, f"prefix cache hit {hits} blocks, expected >= 16")
+        check(eng.alloc.free_blocks + eng.alloc.cached_blocks ==
+              eng.alloc.num_blocks, "blocks leaked")
     gen = sum(r.decoded for r in reqs)
     ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
-    print(f"[serve] internlm2-1.8b {len(reqs)} requests "
+    print(f"[serve {label}] internlm2-1.8b {len(reqs)} requests "
           f"({sum(len(p) for p in prompts)} prompt tokens) max_new={max_new}"
           f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
           f"ttft_max={ttft[-1]:.3f}s prefix_hit_blocks={hits} "
           f"launches={launches} plain_calls={plain} "
           f"prefill_batches={eng.metrics.counter('engine.prefill_batches').value}"
           f" peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
-    _profile_decode_sync(eng, tok)
-    return launches
+    _profile_decode_sync(eng, tok, label)
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in keys}
 
 
-def _profile_decode_sync(eng, tok):
+def _profile_decode_sync(eng, tok, label):
     """One K=8 decode sync of 8 slots timed on the host clock, then the
     next one under ``torch.profiler``: device time by kernel and the
     device's idle share of that sync's wall time."""
@@ -553,17 +731,18 @@ def _profile_decode_sync(eng, tok):
     rows = sorted(((us, n, k) for k, (us, n) in by_name.items()),
                   reverse=True)
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.txt").write_text("\n".join(
+    (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text("\n".join(
         f"{us / 1e3:10.3f} ms {n:6d}x  {key}" for us, n, key in rows))
     top = "; ".join(f"{key[:40]} {us / 1e3:.2f}ms/{n}x"
                     for us, n, key in rows[:5])
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:8]
-    print("[profile] host self time under the profiler, top: " + "; ".join(
-        f"{e.key[:36]} {e.self_cpu_time_total / 1e3:.1f}ms/{e.count}x"
-        for e in host))
-    print(f"[profile] one decode sync (K=8, 8 slots, ~300-token contexts):"
-          f" unprofiled wall={step_ms:.2f}ms; profiled wall={wall_ms:.2f}ms"
+    print(f"[profile {label}] host self time under the profiler, top: " +
+          "; ".join(f"{e.key[:36]} {e.self_cpu_time_total / 1e3:.1f}ms/"
+                    f"{e.count}x" for e in host))
+    print(f"[profile {label}] one decode sync (K=8, 8 slots, ~300-token "
+          f"contexts): unprofiled wall={step_ms:.2f}ms; profiled "
+          f"wall={wall_ms:.2f}ms"
           f" device_busy={busy_us / 1e3:.2f}ms idle_share="
           f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
           f"{sum(n for _, n, _ in rows)}; top: {top}")
@@ -571,17 +750,24 @@ def _profile_decode_sync(eng, tok):
 
 # ----------------------------------------------------------------------
 def phase_list(stats, launches, smi):
-    src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
+    source = {"paged_decode_attention": csrc + "paged_attention.cu",
+              "paged_extend_attention": csrc + "paged_attention.cu",
+              "flash_attention": csrc + "flash_attention.cu",
+              "decode_attention": csrc + "decode_attention.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
-                "src/repro/kernels/paged_attention.py:178"}
-    kernels = [dict(name=name, route="cuda", source=src,
+                "src/repro/kernels/paged_attention.py:178",
+                "flash_attention": "src/repro/kernels/flash_attention.py:74",
+                "decode_attention":
+                "src/repro/kernels/decode_attention.py:40"}
+    kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
-               for name in ("paged_decode_attention", "paged_extend_attention")]
+               for name in PAGED_KERNELS + DENSE_KERNELS]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -4,24 +4,27 @@ Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes) under ``build/repro_torch_kernels/`` at the
 repository root, which ``.gitignore`` lists.  The library's file name
-carries a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused.  All sources that need building are compiled
-by concurrent ``nvcc`` processes.  A build failure raises; nothing falls
-back to a plain version.
+carries a hash of its source, every ``csrc/`` header it includes (directly
+or through another header) and the flags, so an edited source or shared
+header rebuilds and an unchanged one is reused.  All sources that need
+building are compiled by concurrent ``nvcc`` processes.  A build failure
+raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu",
+           "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,10 +46,28 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_includes(source: str) -> List[str]:
+    """The ``csrc/`` files ``source`` includes with ``#include "..."``,
+    directly or through another of them, in the order first reached."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall((CSRC / todo.pop()).read_bytes()):
+            name = name.decode()
+            if name not in seen and (CSRC / name).is_file():
+                seen.append(name)
+                todo.append(name)
+    return seen
+
+
 def library_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source, *local_includes(source)]:
+        digest.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

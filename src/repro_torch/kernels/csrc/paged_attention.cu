@@ -56,101 +56,14 @@
 // loaded, then used), no wgmma (mma.sync reaches only part of the tensor
 // cores' rate), and no split-K across CTAs, so a long context with few
 // sequences leaves most SMs idle.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -2.0e38f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NW = 8;          // warps per CTA
 constexpr int NT = NW * 32;    // threads per CTA
-
-// N consecutive elements <-> fp32 registers, in 16-byte (8-byte for 4
-// bf16) loads and stores; N is a multiple of 4 and the address is
-// aligned to the access (the wrapper checks 16-byte base alignment).
-template <typename T, int N>
-struct Vec;
-
-template <int N>
-struct Vec<float, N> {
-  static __device__ __forceinline__ void load(const float* p, float* x) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + c);
-      x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
-    }
-  }
-  static __device__ __forceinline__ void store(float* p, const float* x) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4)
-      *reinterpret_cast<float4*>(p + c) =
-          make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-  }
-};
-
-__device__ __forceinline__ void bf2_to_f(uint32_t w, float* x) {
-  __nv_bfloat162 h;
-  *reinterpret_cast<uint32_t*>(&h) = w;
-  const float2 f = __bfloat1622float2(h);
-  x[0] = f.x; x[1] = f.y;
-}
-
-__device__ __forceinline__ uint32_t f_to_bf2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (a, b) = hi + lo with hi = bf16(a, b) and lo = bf16((a, b) - hi)
-__device__ __forceinline__ void split_bf2(float a, float b, uint32_t& hi,
-                                          uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = f_to_bf2(a - f.x, b - f.y);
-}
-
-template <int N>
-struct Vec<__nv_bfloat16, N> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* x) {
-    if constexpr (N % 8 == 0) {
-#pragma unroll
-      for (int c = 0; c < N; c += 8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p + c);
-        bf2_to_f(v.x, x + c); bf2_to_f(v.y, x + c + 2);
-        bf2_to_f(v.z, x + c + 4); bf2_to_f(v.w, x + c + 6);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < N; c += 4) {
-        const uint2 v = *reinterpret_cast<const uint2*>(p + c);
-        bf2_to_f(v.x, x + c); bf2_to_f(v.y, x + c + 2);
-      }
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* x) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      uint2 v;
-      v.x = f_to_bf2(x[c], x[c + 1]);
-      v.y = f_to_bf2(x[c + 2], x[c + 3]);
-      *reinterpret_cast<uint2*>(p + c) = v;
-    }
-  }
-};
-
-// Lanes that share one key: fewer lanes per key mean fewer shuffles and
-// exponentials per key, more head dims (registers) per lane.
-template <int HD, int GR>
-__host__ __device__ constexpr int lanes_per_key() {
-  const int want = GR <= 2 ? 8 : 16;
-  return want < HD / 4 ? want : HD / 4;
-}
 
 // Rows row0 .. row0+GR-1 of the S*G rows of (b, kvh).  Row r = s*G + g
 // reads q[b, s, kvh, g, :] and writes out[b, s, kvh, g, :]; both are
@@ -271,23 +184,8 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
     }
   }
 
-  // merge the groups of a warp (lanes lane ^ o hold the same dims)
-#pragma unroll
-  for (int o = LPK; o < 32; o <<= 1)
-#pragma unroll
-    for (int i = 0; i < GR; ++i) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], o);
-      const float mn = fmaxf(m[i], mo);
-      const float a = exp2f(m[i] - mn), c = exp2f(mo - mn);
-      l[i] = l[i] * a + lo * c;
-#pragma unroll
-      for (int d = 0; d < VEC; ++d) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[i][d], o);
-        acc[i][d] = acc[i][d] * a + ao * c;
-      }
-      m[i] = mn;
-    }
+  // merge the groups of a warp
+  merge_lane_groups<GR, VEC, LPK>(m, l, acc);
 
   // merge the warps through shared memory and write the rows
   __shared__ float m_s[NW][GR], l_s[NW][GR];
@@ -346,15 +244,6 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
 constexpr int XW = 4;            // warps per CTA
 constexpr int XR = 16 * XW;      // rows per CTA
 constexpr int XK = 32;           // keys per shared-memory tile
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int HD>
 __global__ void __launch_bounds__(XW * 32) paged_extend_mma_kernel(

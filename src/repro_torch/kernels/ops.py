@@ -1,10 +1,10 @@
-"""Public paged attention ops of the port, with the contracts of
-``repro.kernels.ops.paged_decode_attention`` / ``paged_extend_attention``
-(``ops.py:48-83``): queries in the model's ``(B, [S,] H, hd)`` layout.
+"""Public attention ops of the port, with the contracts of
+``repro.kernels.ops`` (``ops.py:22-83``): queries in the model's
+``(B, [S,] H, hd)`` layout.
 
 The device of the tensors decides the route: a CUDA tensor launches the
-Hopper kernel (``paged_attention.*_bkgd``, which checks the arguments) or
-raises; a CPU tensor runs the plain version from
+Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
+check the arguments) or raises; a CPU tensor runs the plain version from
 :mod:`repro_torch.kernels.ref` after the same checks, counted in
 :data:`PLAIN_CALLS`.  Any other device raises.  Each call is checked once.
 """
@@ -12,17 +12,19 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
 #: plain-version calls per op (the CPU route)
-PLAIN_CALLS: Dict[str, int] = {"paged_decode_attention": 0,
-                               "paged_extend_attention": 0}
+PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_counts() -> None:
     """Zero the kernel launch counts and the plain-version call counts."""
-    for counts in (pa.LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -43,6 +45,26 @@ def _route(name: str, q) -> bool:
         PLAIN_CALLS[name] += 1
         return False
     raise ValueError(f"{name}: no route for device {q.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (B,S,H,hd).  Query s sees key t
+    iff ``t <= s`` when ``causal`` and ``t > s - window`` when ``window``;
+    ``causal=False, window=0`` is bidirectional."""
+    if not _route("flash_attention", q):
+        fa.check_args(q, k, v, window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
+    """q: (B,H,hd); k/v: (B,L,KV,hd) caches; lengths: (B,) int32 valid
+    prefix -> (B,H,hd).  ``n_splits`` splits the cache length across
+    CTAs on the kernel route."""
+    if not _route("decode_attention", q):
+        da.check_args(q, k, v, lengths, n_splits)
+        return ref.decode_attention_ref(q, k, v, lengths)
+    return da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):

@@ -6,25 +6,18 @@ the TPU wrappers' ``(B, [S,] KV, G, hd)`` query layout.  They take CUDA
 tensors only: each checks its arguments, allocates the output, launches
 its kernel on PyTorch's current stream without synchronising, raises if
 the launch reports an error, and adds one to its count in
-:data:`LAUNCHES`.  The plain versions live in :mod:`repro_torch.kernels.ref`
-and :mod:`repro_torch.kernels.ops` chooses between the two by device.
+:data:`repro_torch.kernels.LAUNCHES`.  The plain versions live in
+:mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops` chooses
+between the two by device.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
-
 import torch
 
-from repro_torch.kernels import build
-
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-#: kernel launches per wrapper, counted where each kernel is launched
-LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
-                            "paged_extend_attention": 0}
+from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
+                                 check_tensors)
 
 _lib = None
 
@@ -52,27 +45,15 @@ def check_args(name: str, q, k_pool, v_pool, block_tables, index):
     """Validate a paged attention call whose query is ``(B, ..., hd)`` with
     ``H = KV * G`` heads folded somewhere in the middle; raises
     ``ValueError`` on anything the kernels do not take."""
-    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
-               "block_tables": block_tables, _index_name(name): index}
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: all tensors must share one device, got "
-                         f"{sorted(str(d) for d in devices)}")
-    for key, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name}: dtype {q.dtype} not supported "
-                         f"(float32, bfloat16)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"{name}: q, k_pool and v_pool must share one dtype")
+    check_tensors(name, {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+                         "block_tables": block_tables,
+                         _index_name(name): index},
+                  floats=("q", "k_pool", "v_pool"))
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: pools must both be (num_blocks, bs, KV, "
                          f"hd), got {tuple(k_pool.shape)} and "
                          f"{tuple(v_pool.shape)}")
     hd = q.shape[-1]
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     if k_pool.shape[-1] != hd:
         raise ValueError(f"{name}: pool head_dim {k_pool.shape[-1]} != "
                          f"query head_dim {hd}")
@@ -90,14 +71,7 @@ def _index_name(name: str) -> str:
 
 
 def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims):
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn_name}: the kernel takes CUDA tensors, got "
-                         f"{q.device}; the plain version is in "
-                         f"repro_torch.kernels.ref")
-    for key, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 16:            # the kernel loads 4 dims at once
-            raise ValueError(f"{fn_name}: {key} must start on a 16-byte "
-                             f"boundary")
+    check_cuda(fn_name, {"q": q, "k_pool": k_pool, "v_pool": v_pool})
     out = torch.empty_like(q)
     hd = q.shape[-1]
     n_pool_rows, bs = k_pool.shape[0], k_pool.shape[1]
@@ -105,7 +79,7 @@ def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_library(), f"repro_{fn_name}")(
-            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_pool.data_ptr(),
+            DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_tables.data_ptr(), index.data_ptr(),
             out.data_ptr(), *dims, nb, bs, n_pool_rows,
             1.0 / math.sqrt(hd), stream)

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the paged attention kernels (the port of
-``repro.kernels.ref``, ``ref.py:34-96``).
+"""Plain PyTorch versions of the attention kernels (the port of
+``repro.kernels.ref``, ``ref.py:13-96``).
 
-They are the ground truth the CUDA kernels in ``csrc/paged_attention.cu``
-are held against, and what :mod:`repro_torch.kernels.ops` runs for a
-tensor on the CPU.  All math is fp32; masked scores take the finite
+They are the ground truth the CUDA kernels in ``csrc/*.cu`` are held
+against, and what :mod:`repro_torch.kernels.ops` runs for a tensor on the
+CPU.  All math is fp32; masked scores take the finite
 ``NEG_INF`` so a fully masked row never produces a NaN.
 """
 from __future__ import annotations
@@ -13,6 +13,28 @@ import math
 import torch
 
 NEG_INF = -2.0e38
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,S,H,hd)  k,v: (B,S,KV,hd).  Masked full attention: query s
+    sees key t iff ``t <= s`` (causal) and ``t > s - window`` (window).
+    Returns (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qi = torch.arange(S, device=q.device)[:, None]
+    si = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= si <= qi
+    if window:
+        ok &= si > qi - window
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths):

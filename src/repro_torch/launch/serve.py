@@ -1,8 +1,10 @@
-"""Serving driver of the port: one paged engine on one device, the
-single-replica path of ``repro.launch.serve``.
+"""Serving driver of the port: one engine on one device, the
+single-replica path of ``repro.launch.serve``.  It serves the dense fused
+engine by default, and the paged engine (block pool, prefix cache) with
+``--paged``, as the JAX driver does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --requests 8
+        --requests 8 [--paged]
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduce --requests 3 --max-new 4 --slots 2 --max-len 64
 
@@ -28,11 +30,13 @@ from repro_torch.serving import Engine, ServeConfig
 
 def build_engine(arch: str = "internlm2-1.8b", *, reduce: bool = False,
                  max_len: int = 256, slots: int = 4, sync_every: int = 8,
-                 temperature: float = 0.0, block_size: int = 16,
-                 kv_blocks: int = 0, seed: int = 0, device="cuda",
+                 temperature: float = 0.0, paged: bool = False,
+                 block_size: int = 16, kv_blocks: int = 0, seed: int = 0,
+                 device="cuda",
                  metrics: Optional[MetricsRegistry] = None) -> Engine:
-    """A paged engine over seeded random weights.  ``reduce`` picks the
-    tiny ``reduced()`` config; the default is the arch at full width."""
+    """A fused engine over seeded random weights, dense unless ``paged``
+    (``cluster/backends.py:127-133``).  ``reduce`` picks the tiny
+    ``reduced()`` config; the default is the arch at full width."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduce:
@@ -42,7 +46,7 @@ def build_engine(arch: str = "internlm2-1.8b", *, reduce: bool = False,
     params = init_params(cfg, gen, device)
     scfg = ServeConfig(max_len=max_len, slots=slots, fused=True,
                        sync_every=sync_every, temperature=temperature,
-                       seed=seed, paged=True, block_size=block_size,
+                       seed=seed, paged=paged, block_size=block_size,
                        kv_blocks=kv_blocks)
     return Engine(params, cfg, scfg, metrics=metrics, device=device)
 
@@ -59,10 +63,14 @@ def main(argv=None):
                     help="K: decode steps per host sync")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: per-layer block pool + block "
+                         "tables + prefix cache (default: dense)")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="tokens per KV block")
+                    help="tokens per KV block (paged)")
     ap.add_argument("--kv-blocks", type=int, default=0,
-                    help="usable pool blocks; 0 = slots * max_len/block_size")
+                    help="usable pool blocks (paged); 0 = slots * "
+                         "max_len/block_size")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--reduce", action="store_true",
@@ -72,7 +80,7 @@ def main(argv=None):
 
     eng = build_engine(args.arch, reduce=args.reduce, max_len=args.max_len,
                        slots=args.slots, sync_every=args.sync_every,
-                       temperature=args.temperature,
+                       temperature=args.temperature, paged=args.paged,
                        block_size=args.block_size, kv_blocks=args.kv_blocks,
                        seed=args.seed, device=args.device)
     rng = np.random.RandomState(args.seed)
@@ -85,7 +93,8 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in reqs)
     lats = [r.done_t - r.submit_t for r in reqs]
-    print(f"[serve] arch={args.arch} device={eng.device} reqs={len(prompts)} "
+    print(f"[serve] arch={args.arch} device={eng.device} "
+          f"kv={'paged' if eng.paged else 'dense'} reqs={len(prompts)} "
           f"tokens={toks} tok/s={toks / wall:.1f} "
           f"p50={np.median(lats):.2f}s p99={np.percentile(lats, 99):.2f}s")
 

@@ -1,15 +1,21 @@
-"""Attention of the port, GQA paged subset (``repro.models.attention``).
+"""Attention of the port, the GQA subset of ``repro.models.attention``:
+full-sequence causal prefill, dense-cache decode, and the paged decode and
+extend steps.
 
-K/V live in one shared block pool per layer, ``(num_blocks + 1, bs, KV,
+Dense caches are ``{"k", "v"}`` of ``(B, L, KV, hd)`` per layer.  Paged
+caches are one shared block pool per layer, ``(num_blocks + 1, bs, KV,
 hd)``, addressed through per-sequence block tables; physical block 0 is the
-reserved null block that absorbs pad and stale writes.  The paged decode
-and extend steps always run their attention through
-:mod:`repro_torch.kernels.ops`: the Hopper kernels on CUDA tensors, the
-plain versions on the CPU.
+reserved null block that absorbs pad and stale writes.  Every attention of
+these paths runs through :mod:`repro_torch.kernels.ops`: the Hopper
+kernels on CUDA tensors, the plain versions on the CPU.  Unlike the JAX
+package, which sends prefills shorter than 128 tokens to its plain
+``mha``, every causal prefill goes through ``flash_attention``, so no
+plain attention runs on the card.
 
-In place, unlike JAX: :func:`_paged_scatter` writes K/V rows into the pool
-tensors it is given (``index_put_``), so the decode and extend steps
-update the engine's pools where they lie and return the same dict.
+In place, unlike JAX: :func:`batched_cache_update`, :func:`prefill_into_cache`
+and :func:`_paged_scatter` write K/V rows into the cache tensors they are
+given, so the decode, prefill and extend steps update the engine's caches
+where they lie and return the same dict.
 """
 from __future__ import annotations
 
@@ -58,6 +64,85 @@ def mha(q, k, v, mask, softcap: float = 0.0):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def causal_mask(Sq: int, Skv: int, offset: int = 0):
+    """mask[q, s] = s <= q + offset (offset = Skv - Sq for suffix queries)
+    (``attention.py:78-82``)."""
+    qi = torch.arange(Sq)[:, None]
+    si = torch.arange(Skv)[None, :]
+    return si <= qi + offset
+
+
+_NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item 6 (the " \
+              "other LM families)"
+
+
+def _check_kind(kind: str, cfg):
+    if kind not in ("causal", "global"):
+        raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
+    if cfg.attn_softcap:
+        raise NotImplementedError(f"attn_softcap {_NOT_PORTED}")
+
+
+def attn_forward(params, x, cfg, *, kind: str, positions=None, qkv=None):
+    """Full-sequence causal attention (``attention.py:256-301``) for kinds
+    ``causal`` and ``global``, through ``kops.flash_attention`` at every
+    S.  x: (B,S,d); ``qkv`` reuses projections the caller already made."""
+    _check_kind(kind, cfg)
+    B, S, _ = x.shape
+    if qkv is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        qkv = _project_qkv(params, x, x, cfg, positions, positions,
+                           cfg.rope_base)
+    q, k, v = (t.contiguous() for t in qkv)
+    out = kops.flash_attention(q, k, v, causal=True, window=0)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device):
+    """Dense per-slot K/V stripes, ``(batch, max_len, KV, hd)`` zeros
+    (``attention.py:350-359``, without the ring cache)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
+
+
+def batched_cache_update(cache_arr, new_row, slot):
+    """cache_arr: (B, L, ...); new_row: (B, ...); slot: (B,).  Writes row b
+    at ``slot[b]`` in place, the start clamped to ``[0, L - 1]`` as
+    ``dynamic_update_slice`` clamps it (``attention.py:374-383``)."""
+    B, L = cache_arr.shape[:2]
+    rows = torch.arange(B, device=cache_arr.device)
+    cache_arr[rows, slot.long().clamp(0, L - 1)] = new_row.to(cache_arr.dtype)
+    return cache_arr
+
+
+def attn_decode(params, x, cache, pos, cfg, *, kind: str):
+    """Single decode step over a dense cache (``attention.py:386-408``).
+    x: (B,1,d); pos: (B,) int32 absolute write position.  Keys ``<= pos``
+    are visible: the attention is ``kops.decode_attention`` with
+    ``lengths = pos + 1``."""
+    _check_kind(kind, cfg)
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, x, cfg, pos[:, None], pos[:, None],
+                           cfg.rope_base)
+    batched_cache_update(cache["k"], k[:, 0], pos)
+    batched_cache_update(cache["v"], v[:, 0], pos)
+    out = kops.decode_attention(q[:, 0].contiguous(), cache["k"],
+                                cache["v"], pos + 1)
+    return out.reshape(B, 1, -1) @ params["wo"], cache
+
+
+def prefill_into_cache(params_unused, k, v, cache, cfg, *, kind: str):
+    """Write full-sequence K/V (B,S,KV,hd) into rows ``[0, S)`` of a
+    cache, in place (``attention.py:437-456``, without the ring cache)."""
+    _check_kind(kind, cfg)
+    S = k.shape[1]
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return cache
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, device):

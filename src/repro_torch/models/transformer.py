@@ -1,15 +1,16 @@
-"""Decoder LM of the port, kind-``A`` paged path (``repro.models.transformer``).
+"""Decoder LM of the port, kind ``A`` (``repro.models.transformer``):
+dense prefill and decode, paged decode and extend.
 
 Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
 [pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
-Python loop over the repeats takes the place of ``lax.scan``.  Paged caches
-mirror it: ``caches[gi][pi] = {"kp", "vp"}`` of ``(repeats, num_blocks+1,
-bs, KV, hd)``.
+Python loop over the repeats takes the place of ``lax.scan``.  Caches
+mirror it: dense ``caches[gi][pi] = {"k", "v"}`` of ``(repeats, B, L, KV,
+hd)``, paged ``{"kp", "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``.
 
-In place, unlike JAX: the decode and extend passes write K/V into the pool
-tensors they are given, and :func:`decode_loop` advances the loop state
-tensors (``pos``, ``last``, ``active``, ``remaining``) where they lie.
-Each returns its inputs, so call sites read like the JAX ones.
+In place, unlike JAX: the prefill, decode and extend passes write K/V into
+the cache tensors they are given, and :func:`decode_loop` advances the
+loop state tensors (``pos``, ``last``, ``active``, ``remaining``) where
+they lie.  Each returns its inputs, so call sites read like the JAX ones.
 """
 from __future__ import annotations
 
@@ -44,6 +45,34 @@ def paged_supported(cfg, max_len: int) -> bool:
     return True
 
 
+def _check_kind(kind: str):
+    if kind != "A":
+        raise NotImplementedError(f"layer kind {kind!r} " +
+                                  _NOT_PORTED.format("6 (the other LM "
+                                                     "families)"))
+
+
+def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
+    """Dense K/V cache of one layer (``transformer.py:75-83``, kind
+    ``A``)."""
+    _check_kind(kind)
+    return attn.init_kv_cache(cfg, batch, max_len, device)
+
+
+def init_caches(cfg, batch: int, max_len: int, device):
+    """Dense caches, one ``(repeats, batch, max_len, KV, hd)`` K/V pair
+    per (group, pattern position) (``transformer.py:250-260``)."""
+    caches = []
+    for g in cfg.groups:
+        pos_caches = []
+        for kind in g.pattern:
+            c = init_layer_cache(cfg, kind, batch, max_len, device)
+            pos_caches.append({k: v[None].repeat(g.repeats, 1, 1, 1, 1)
+                               for k, v in c.items()})
+        caches.append(pos_caches)
+    return caches
+
+
 def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
     """One shared ``(repeats, num_blocks+1, bs, KV, hd)`` K/V pool per
     (group, pattern position); row 0 of each pool is the null block."""
@@ -61,24 +90,40 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
     return caches
 
 
-def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt):
-    """One kind-``A`` layer over a paged cache in ``decode`` or ``extend``
-    mode (``transformer.py:130-210``).  Returns ``(x, cache)``; the JAX
-    function's aux loss is zero for these layers and is dropped."""
-    if kind != "A":
-        raise NotImplementedError(f"layer kind {kind!r} " +
-                                  _NOT_PORTED.format("6 (the other LM "
-                                                     "families)"))
+def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
+    """One kind-``A`` layer (``transformer.py:130-210``): ``prefill`` into
+    a dense cache, ``decode`` over a dense or paged cache, ``extend`` over
+    a paged cache.  ``bt`` is the (B, nb) block table of a paged cache.
+    Returns ``(x, cache)``; the JAX function's aux loss is zero for these
+    layers and is dropped."""
+    _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg)
-    if mode == "decode":
+    paged = attn.is_paged_cache(cache)
+    if mode == "decode" and paged:
         mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
                                             cfg, kind="causal")
-    elif mode == "extend":
+    elif mode == "extend" and paged:
         mix, cache = attn.paged_attn_extend(p["mixer"], h, cache, pos, bt,
                                             cfg, kind="causal")
+    elif mode == "decode":
+        mix, cache = attn.attn_decode(p["mixer"], h, cache, pos, cfg,
+                                      kind="causal")
+    elif mode == "prefill":
+        S = h.shape[1]
+        positions = torch.arange(S, device=h.device)[None, :]
+        q, k, v = attn._project_qkv(p["mixer"], h, h, cfg, positions,
+                                    positions, cfg.rope_base)
+        cache = attn.prefill_into_cache(None, k, v, cache, cfg,
+                                        kind="causal")
+        mix = attn.attn_forward(p["mixer"], h, cfg, kind="causal",
+                                qkv=(q, k, v))
     else:
-        raise NotImplementedError(f"mode {mode!r} " + _NOT_PORTED.format(
-            "2 (the dense fused engine)"))
+        # dense extend is the speculative verify window
+        raise NotImplementedError(f"mode {mode!r} over a "
+                                  f"{'paged' if paged else 'dense'} cache " +
+                                  _NOT_PORTED.format(
+                                      "3 (fork, speculative decode, KV "
+                                      "swap and export/import)"))
     x = x + mix
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + apply_mlp(p["ffn"], h2, cfg), cache
@@ -91,14 +136,14 @@ def _take(tree, r: int):
     return tree[r]
 
 
-def run_backbone(params, x, cfg, mode: str, caches, pos, bt):
+def run_backbone(params, x, cfg, mode: str, caches, pos, bt=None):
     """x: (B,S,d) embedded input -> (x, caches), caches updated in place.
-    ``bt``: (B, nb) int32 block table."""
+    ``bt``: (B, nb) int32 block table of paged caches, None for dense."""
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][gi], caches[gi]
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
-                layer_cache = {"kp": gc[pi]["kp"][r], "vp": gc[pi]["vp"][r]}
+                layer_cache = {key: t[r] for key, t in gc[pi].items()}
                 x, _ = apply_layer(_take(gp[pi], r), x, cfg, kind, mode,
                                    layer_cache, pos, bt)
     return x, caches
@@ -113,9 +158,26 @@ def _head(params, x, cfg):
     return mask_padded_logits(logits, cfg)
 
 
-def decode_step(params, cfg, tokens, caches, pos, bt):
+def prefill(params, cfg, tokens, caches, last_index=None):
+    """Fill dense caches with a full pass over ``tokens (B,S)``; returns
+    ``(logits (B,1,V) at last_index, caches)`` (``transformer.py:327-351``).
+    ``last_index`` is None (the final position) or (B,) per-row last
+    positions of right-padded prompts."""
+    x = embed(params["embedding"], tokens, cfg)
+    x, caches = run_backbone(params, x, cfg, "prefill", caches, None)
+    if last_index is None:
+        x = x[:, -1:]
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x = x[rows, last_index.long()][:, None]
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _head(params, x, cfg), caches
+
+
+def decode_step(params, cfg, tokens, caches, pos, bt=None):
     """tokens: (B,1) int32; pos: (B,) int32 absolute write position; bt:
-    (B, nb) int32.  Returns ``(logits (B,1,V), caches)``."""
+    (B, nb) int32 for paged caches, None for dense.  Returns ``(logits
+    (B,1,V), caches)``."""
     x = embed(params["embedding"], tokens, cfg)
     x, caches = run_backbone(params, x, cfg, "decode", caches, pos, bt)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -152,7 +214,7 @@ def sample_tokens(logits, temperature: float = 0.0, generator=None):
 
 
 def decode_fused(params, cfg, tokens, caches, pos, *, temperature=0.0,
-                 generator=None, bt):
+                 generator=None, bt=None):
     """One decode step that returns only the ``(B,)`` sampled token ids."""
     logits, caches = decode_step(params, cfg, tokens, caches, pos, bt)
     return sample_tokens(logits[:, 0], temperature, generator), caches
@@ -160,9 +222,10 @@ def decode_fused(params, cfg, tokens, caches, pos, *, temperature=0.0,
 
 def decode_loop(params, cfg, caches, pos, last, active, remaining,
                 generator=None, *, k: int, max_len: int,
-                temperature: float = 0.0, bt):
-    """K decode steps over a paged pool, read through ``bt`` at every
-    step (``transformer.py:511-563``, the per-step pool path).
+                temperature: float = 0.0, bt=None):
+    """K decode steps over dense caches, or over a paged pool read through
+    ``bt`` at every step (``transformer.py:511-563``, the per-step pool
+    path).
 
     Loop state lives on the device and is advanced in place: ``pos`` (B,)
     next write position, ``last`` (B,) last sampled token, ``active`` (B,)
@@ -172,10 +235,6 @@ def decode_loop(params, cfg, caches, pos, last, active, remaining,
     that goes inactive feeds token 0.  Returns ``(out (B,k) int32, emitted
     (B,) int32, caches, pos, last, active, remaining)``; ``out[s,
     :emitted[s]]`` are slot s's tokens."""
-    if bt is None:
-        raise NotImplementedError("decode_loop without a block table " +
-                                  _NOT_PORTED.format("2 (the dense fused "
-                                                     "engine)"))
     B = pos.shape[0]
     out = torch.zeros((B, k), dtype=torch.int32, device=pos.device)
     emitted = torch.zeros((B,), dtype=torch.int32, device=pos.device)

@@ -1,13 +1,21 @@
-"""LM serving engine of the port: the paged, fused path of
-``repro.serving.engine`` with continuous batching.
+"""LM serving engine of the port: ``repro.serving.engine`` with continuous
+batching, on three paths.
 
-K/V live in a shared per-layer block pool addressed through per-slot block
-tables (``serving/kvpool.py`` holds the host bookkeeping).  An admit runs
-one batched suffix extend per prefill bucket, reusing prompt blocks a
-content-hashed prefix cache already holds; decode runs ``sync_every`` (K)
-steps on the device per host sync, reading the pool through the block
-tables at every step.  On CUDA both passes run the Hopper paged attention
-kernels.
+* Dense fused (``paged=False``, the default): K/V live in one dense
+  ``max_len`` stripe per slot.  An admit prefills the queue's longest
+  same-bucket prefix in one right-padded batch and replaces each admitted
+  slot's cache row; decode runs ``sync_every`` (K) steps on the device per
+  host sync.  On CUDA the prefill runs the flash attention kernel and the
+  decode the split-K decode kernel.
+* Paged (``paged=True``): K/V live in a shared per-layer block pool
+  addressed through per-slot block tables (``serving/kvpool.py`` holds the
+  host bookkeeping).  An admit runs one batched suffix extend per prefill
+  bucket, reusing prompt blocks a content-hashed prefix cache already
+  holds; decode reads the pool through the block tables at every step.  On
+  CUDA both passes run the paged attention kernels.
+* Reference (``fused=False``, dense): one exact-length batch-1 prefill per
+  admit and one host round trip per decoded token, greedy only: the parity
+  oracle of the other two.
 
 Differences from the JAX engine, all confined to the device calls:
 
@@ -19,9 +27,9 @@ Differences from the JAX engine, all confined to the device calls:
 * Sampling draws from the engine's ``torch.Generator``; temperature > 0
   matches JAX in distribution only.
 
-What the JAX engine also does and this slice does not — the dense fused
-and reference engines, speculation, KV swap, fork and KV export/import —
-raises ``NotImplementedError`` naming the ROADMAP.md item that adds it.
+What the JAX engine also does and the port does not yet — speculation,
+KV swap, fork and KV export/import, the other model families — raises
+``NotImplementedError`` naming the ROADMAP.md item that adds it.
 """
 from __future__ import annotations
 
@@ -186,7 +194,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"Queue 1, {item}")
 
 
-_DENSE = "item 2 (the dense fused and reference engines)"
 _LIFECYCLE = "item 3 (fork, speculative decode, KV swap and export/import)"
 _FAMILIES = "item 6 (the other LM families)"
 
@@ -197,9 +204,10 @@ class _PromptTooLong(ValueError):
 
 
 class EngineFns:
-    """The paged engine's device functions for one ``(cfg, scfg)``: the
-    batched admit, the K-step decode loop and the copy-on-write block
-    copy.  They update the engine's device state in place."""
+    """The engine's device functions for one ``(cfg, scfg)``: the dense and
+    paged batched admits, the K-step decode loop, the copy-on-write block
+    copy and the reference path's prefill and decode.  They update the
+    engine's device state in place."""
 
     def __init__(self, cfg, scfg: ServeConfig):
         self.cfg, self.scfg = cfg, scfg
@@ -211,6 +219,60 @@ class EngineFns:
             return plen                       # exact-length path
         return min(max(_next_pow2(plen), self.scfg.min_bucket),
                    self.scfg.max_len)
+
+    @staticmethod
+    def insert_rows(caches, small, slots):
+        """Replace the cache rows of ``slots`` with the prefilled rows of
+        ``small`` (``(repeats, n, S, KV, hd)`` per layer), then zeros, in
+        place: a whole-row insert, as the JAX admit writes a fresh
+        ``max_len`` cache (``engine.py:431-441``)."""
+        for group, small_group in zip(caches, small):
+            for c, sc in zip(group, small_group):
+                for key, big in c.items():
+                    S = sc[key].shape[2]
+                    big[:, slots, :S] = sc[key]
+                    big[:, slots, S:] = 0
+        return caches
+
+    def admit(self, params, tokens, meta, caches, pos, last, active,
+              remaining, generator):
+        """Prefill ``n`` right-padded prompts in one batch, sample their
+        first tokens, insert their caches into their slots and set the
+        slots' loop state (``engine.py:423-457``).
+
+        tokens (n, bucket) · meta (3, n) = [last_idx prompt-local last
+        index; slot_idx; budget].  Caches and state update in place;
+        returns the first tokens (n,)."""
+        scfg = self.scfg
+        last_idx, slot_idx, budget = meta.unbind(0)
+        n, bucket = tokens.shape
+        small = tfm.init_caches(self.cfg, n, bucket, tokens.device)
+        logits, small = tfm.prefill(params, self.cfg, tokens, small,
+                                    last_index=last_idx)
+        toks = tfm.sample_tokens(logits[:, 0], scfg.temperature, generator)
+        s = slot_idx.long()
+        self.insert_rows(caches, small, s)
+        nxt = last_idx + 1                      # next write position
+        act = (budget > 0) & (nxt < scfg.max_len - 1)
+        pos[s] = nxt
+        # an immediately exhausted admit parks its slot on token 0
+        last[s] = torch.where(act, toks, 0)
+        remaining[s] = budget
+        active[s] = act
+        return toks
+
+    def prefill(self, params, tokens):
+        """Exact-length batch-1 prefill of the reference path
+        (``engine.py:527-538``): tokens (1, plen) -> (logits (1,1,V),
+        caches of length plen)."""
+        caches = tfm.init_caches(self.cfg, 1, tokens.shape[1], tokens.device)
+        return tfm.prefill(params, self.cfg, tokens, caches)
+
+    def decode(self, params, tokens, caches, pos):
+        """One decode step of the reference path over the dense caches
+        (``engine.py:268-269``): tokens (slots, 1), pos (slots,) ->
+        (logits (slots,1,V), caches)."""
+        return tfm.decode_step(params, self.cfg, tokens, caches, pos)
 
     def paged_admit(self, params, tokens, meta, bt, caches, pos, last,
                     active, remaining, generator):
@@ -237,17 +299,19 @@ class EngineFns:
         active[s] = act
         return toks
 
-    def paged_decode_loop(self, params, bt, caches, pos, last, active,
-                          remaining, generator):
-        """K decode steps through the block pool; returns the packed
-        ``[tokens | emitted]`` (slots, K+1) tensor so the host sync is one
-        device-to-host copy (``engine.py:289-301``)."""
+    def decode_loop(self, params, bt, caches, pos, last, active, remaining,
+                    generator):
+        """K decode steps over the dense caches (``bt`` None) or through
+        the block pool (``engine.py:280-301``); returns the packed
+        ``[tokens | emitted | active | remaining]`` (slots, K+3) tensor so
+        the host sync is one device-to-host copy."""
         scfg = self.scfg
         out, em, *_ = tfm.decode_loop(
             params, self.cfg, caches, pos, last, active, remaining,
             generator, k=scfg.sync_every, max_len=scfg.max_len,
             temperature=scfg.temperature, bt=bt)
-        return torch.cat([out, em[:, None]], dim=1)
+        return torch.cat([out, em[:, None], active[:, None].to(out.dtype),
+                          remaining[:, None]], dim=1)
 
     @staticmethod
     def cow(caches, src, dst):
@@ -264,8 +328,6 @@ class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
                  metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
-        if not scfg.paged:
-            raise _not_ported("ServeConfig(paged=False)", _DENSE)
         if scfg.speculative or scfg.kv_swap:
             raise _not_ported("speculative decode and KV swap", _LIFECYCLE)
         if not tfm.paged_supported(cfg, scfg.max_len) or cfg.family != "dense":
@@ -273,37 +335,47 @@ class Engine:
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.fns = EngineFns(cfg, scfg)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        bs = scfg.block_size
-        self.nb_max = scfg.max_len // bs
-        n_blocks = scfg.kv_blocks or scfg.slots * self.nb_max
-        self.caches = tfm.init_paged_caches(cfg, n_blocks, bs, self.device)
-        self.alloc = BlockAllocator(n_blocks, bs)
-        self.alloc.on_evict = lambda bid: current_recorder().record(
-            "kv_evict", block=bid)
-        self._seq_of_slot: List[Optional[int]] = [None] * scfg.slots
-        self._bt = np.zeros((scfg.slots, self.nb_max), np.int32)
-        self._pos_h = np.zeros((scfg.slots,), np.int64)
-        self._rem_h = np.zeros((scfg.slots,), np.int64)
-        self._act_h = np.zeros((scfg.slots,), bool)
-        # device copy of the block table, cut to the bucketed width that
-        # covers every position the next sync can write; host mutations set
-        # the dirty flag and the next sync re-uploads
-        self._bt_dev = None
-        self._bt_width = 0
-        self._bt_dirty = True
-        self.metrics.gauge("engine.kv_blocks_total").set(n_blocks)
-        self._kv_gauges()
+        self.paged = scfg.paged
+        if self.paged:
+            bs = scfg.block_size
+            self.nb_max = scfg.max_len // bs
+            n_blocks = scfg.kv_blocks or scfg.slots * self.nb_max
+            self.caches = tfm.init_paged_caches(cfg, n_blocks, bs,
+                                                self.device)
+            self.alloc = BlockAllocator(n_blocks, bs)
+            self.alloc.on_evict = lambda bid: current_recorder().record(
+                "kv_evict", block=bid)
+            self._seq_of_slot: List[Optional[int]] = [None] * scfg.slots
+            self._bt = np.zeros((scfg.slots, self.nb_max), np.int32)
+            self._pos_h = np.zeros((scfg.slots,), np.int64)
+            self._rem_h = np.zeros((scfg.slots,), np.int64)
+            self._act_h = np.zeros((scfg.slots,), bool)
+            # device copy of the block table, cut to the bucketed width
+            # that covers every position the next sync can write; host
+            # mutations set the dirty flag and the next sync re-uploads
+            self._bt_dev = None
+            self._bt_width = 0
+            self._bt_dirty = True
+            self.metrics.gauge("engine.kv_blocks_total").set(n_blocks)
+            self._kv_gauges()
+        else:
+            self.caches = tfm.init_caches(cfg, scfg.slots, scfg.max_len,
+                                          self.device)
         self.active: List[Optional[Request]] = [None] * scfg.slots
         self.queue: Deque[Request] = deque()
         self.finished: List[Request] = []
-        # device-resident loop state, advanced in place by EngineFns
-        z = dict(device=self.device)
-        self._pos = torch.zeros((scfg.slots,), dtype=torch.int32, **z)
-        self._last = torch.zeros((scfg.slots,), dtype=torch.int32, **z)
-        self._active = torch.zeros((scfg.slots,), dtype=torch.bool, **z)
-        self._remaining = torch.zeros((scfg.slots,), dtype=torch.int32, **z)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(scfg.seed)
+        if scfg.fused:
+            # device-resident loop state, advanced in place by EngineFns
+            z = dict(device=self.device)
+            self._pos = torch.zeros((scfg.slots,), dtype=torch.int32, **z)
+            self._last = torch.zeros((scfg.slots,), dtype=torch.int32, **z)
+            self._active = torch.zeros((scfg.slots,), dtype=torch.bool, **z)
+            self._remaining = torch.zeros((scfg.slots,), dtype=torch.int32,
+                                          **z)
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(scfg.seed)
+        else:
+            self.pos = np.zeros((scfg.slots,), np.int32)
         # monotonic request ids, never reused
         self._rids = itertools.count(1000)
         # flipped by the first submit carrying a deadline or cancel_cb;
@@ -323,7 +395,7 @@ class Engine:
                       cancel_cb=cancel_cb)
         if deadline_s is not None or cancel_cb is not None:
             self._watch_early = True
-        if self.scfg.prefix_cache:
+        if self.paged and self.scfg.prefix_cache:
             # sha256 prefix-chain hashing runs here, off the admit path,
             # memoized across identical prompts
             req.block_hashes = hash_token_blocks_memo(
@@ -368,18 +440,19 @@ class Engine:
         self._close_span(req)
         self.finished.append(req)
         self.active[slot] = None
-        # release the sequence's blocks (cached prefix blocks survive via
-        # the prefix cache's own reference) and null the table row so the
-        # still-stepping device loop can write nothing real; the freed
-        # blocks may be re-allocated in this very sync, so the device copy
-        # of the table must be re-uploaded
-        sid = self._seq_of_slot[slot]
-        if sid is not None:
-            self.alloc.free_seq(sid)
-            self._seq_of_slot[slot] = None
-            self._bt[slot] = NULL_BLOCK
-            self._bt_dirty = True
-        self._kv_gauges()
+        if self.paged:
+            # release the sequence's blocks (cached prefix blocks survive
+            # via the prefix cache's own reference) and null the table row
+            # so the still-stepping device loop can write nothing real; the
+            # freed blocks may be re-allocated in this very sync, so the
+            # device copy of the table must be re-uploaded
+            sid = self._seq_of_slot[slot]
+            if sid is not None:
+                self.alloc.free_seq(sid)
+                self._seq_of_slot[slot] = None
+                self._bt[slot] = NULL_BLOCK
+                self._bt_dirty = True
+            self._kv_gauges()
         self.metrics.counter("engine.requests").inc()
         self.metrics.counter("engine.tokens").inc(req.decoded)
         if reason == "max_len":
@@ -388,6 +461,19 @@ class Engine:
             req.first_token_t - req.submit_t)
         self.metrics.histogram("engine.latency_s").observe(
             req.done_t - req.submit_t)
+
+    def _seat(self, slot: int, req: Request, tok: int, now: float):
+        """Seat an admitted request in its slot with its first token; it
+        finishes at once when it has no budget or its prompt fills the
+        cache (``engine.py:778-786``)."""
+        req.out_tokens.append(tok)
+        req.first_token_t = now
+        self.active[slot] = req
+        if req.max_new <= 0:
+            self._finish(slot, "max_new")
+        elif len(req.prompt) >= self.scfg.max_len - 1:
+            self._finish(slot, "max_len")
+        self._emit(req, req.out_tokens[-1:], req.done)
 
     def _batch_ctx(self):
         """Trace parent for a decode-sync span: the first traced active
@@ -530,14 +616,7 @@ class Engine:
                     n_full = plen // scfg.block_size
                     self.alloc.prefix_insert(hashes[:n_full],
                                              self.alloc.table(sid)[:n_full])
-                req.out_tokens.append(int(toks_h[j]))
-                req.first_token_t = now
-                self.active[slot] = req
-                if req.max_new <= 0:
-                    self._finish(slot, "max_new")
-                elif plen >= scfg.max_len - 1:
-                    self._finish(slot, "max_len")
-                self._emit(req, req.out_tokens[-1:], req.done)
+                self._seat(slot, req, int(toks_h[j]), now)
             asp.end()
             self.metrics.counter("engine.prefill_batches").inc()
             self._kv_gauges()
@@ -572,12 +651,14 @@ class Engine:
         return None
 
     def _finish_early(self, slot: int, reason: str):
-        """End an *active* slot mid-decode with ``reason``, freeing its
-        blocks inside the current sync."""
+        """End an *active* slot mid-decode with ``reason``; on the paged
+        path this frees its blocks inside the current sync."""
         req = self.active[slot]
-        self._active[slot] = False
-        self._last[slot] = 0
-        self._act_h[slot] = False
+        if self.scfg.fused:
+            self._active[slot] = False
+            self._last[slot] = 0
+        if self.paged:
+            self._act_h[slot] = False
         self._finish(slot, reason)
         self._emit(req, [], True)
 
@@ -683,19 +764,32 @@ class Engine:
             self._bt_width = nbw
             self._bt_dirty = False
         with annotate("decode_loop"):
-            packed = self.fns.paged_decode_loop(
+            packed = self.fns.decode_loop(
                 self.params, self._bt_dev, self.caches, self._pos,
                 self._last, self._active, self._remaining, self._gen)
             hsp = current_tracer().span("engine.host_sync", parent=dsp)
-            # ONE device fetch: [tokens | emitted]; liveness, positions and
-            # budgets advance host-side by exactly the emitted counts
+            # ONE device fetch; liveness, positions and budgets advance
+            # host-side by exactly the emitted counts
             packed_h = packed.cpu().numpy()
-            out_h, em_h = packed_h[:, :-1], packed_h[:, -1]
+            out_h, em_h = self._unpack(packed_h)[:2]
             self._pos_h += em_h.astype(np.int64)
             self._rem_h -= em_h.astype(np.int64)
             self._act_h &= (self._rem_h > 0) & \
                 (self._pos_h < scfg.max_len - 1)
             hsp.end()
+        self._emit_sync(dsp, out_h, em_h, self._act_h, self._rem_h)
+        return True
+
+    def _unpack(self, packed_h):
+        """(tokens (slots, K), emitted, active, remaining) of a packed
+        decode-loop result (:meth:`EngineFns.decode_loop`)."""
+        k = self.scfg.sync_every
+        return (packed_h[:, :k], packed_h[:, k], packed_h[:, k + 1] != 0,
+                packed_h[:, k + 2])
+
+    def _emit_sync(self, dsp, out_h, em_h, act_h, rem_h):
+        """Hand each active slot the tokens of the sync that just ended
+        and finish the slots that went inactive (``engine.py:816-830``)."""
         esp = current_tracer().span("engine.stream_emit", parent=dsp) \
             if any(r is not None and r.on_tokens is not None
                    for r in self.active) else NULL_SPAN
@@ -704,12 +798,119 @@ class Engine:
                 continue
             new = [int(t) for t in out_h[s, :em_h[s]]]
             req.out_tokens.extend(new)
-            if not self._act_h[s]:
-                self._finish(s, "max_new" if self._rem_h[s] <= 0
-                             else "max_len")
+            if not act_h[s]:
+                self._finish(s, "max_new" if rem_h[s] <= 0 else "max_len")
             self._emit(req, new, req.done)
         esp.end()
         dsp.end()
+        self.metrics.counter("engine.steps").inc()
+
+    # ------------------------------------------------------------------
+    # dense fused path (``engine.py:717-830``)
+    def _admit_fused(self):
+        scfg = self.scfg
+        free = [s for s in range(scfg.slots) if self.active[s] is None]
+        while free and self.queue:
+            # longest same-bucket prefix of the queue (strict FIFO), up to
+            # the number of free slots, prefilled as one padded batch
+            bucket = self.fns.bucket(len(self.queue[0].prompt))
+            batch = [self.queue.popleft()]
+            while self.queue and len(batch) < len(free) and \
+                    self.fns.bucket(len(self.queue[0].prompt)) == bucket:
+                batch.append(self.queue.popleft())
+            n = len(batch)
+            slots_idx, free = free[:n], free[n:]
+            tokens = np.zeros((n, bucket), np.int32)
+            meta = np.zeros((3, n), np.int32)   # last_idx, slot, budget
+            for j, req in enumerate(batch):
+                plen = len(req.prompt)
+                tokens[j, :plen] = req.prompt
+                meta[:, j] = (plen - 1, slots_idx[j], max(req.max_new, 0))
+            rids = [r.rid for r in batch]
+            asp = current_tracer().span(
+                "engine.admit",
+                parent=next((r.trace_ctx for r in batch
+                             if r.trace_ctx is not None), None),
+                bucket=bucket, n=n, n_pad=n, rids=rids)
+            current_recorder().record("admit", rids=rids, bucket=bucket, n=n)
+            _qh = self.metrics.histogram("engine.queue_wait_s")
+            _now = time.perf_counter()
+            for r in batch:
+                _qh.observe(_now - r.submit_t)
+            psp = current_tracer().span("engine.prefill", parent=asp,
+                                        bucket=bucket, n_pad=n)
+            with annotate("prefill"):
+                dev = self.device
+                toks = self.fns.admit(
+                    self.params, torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(meta).to(dev), self.caches, self._pos,
+                    self._last, self._active, self._remaining, self._gen)
+                toks_h = toks.cpu().numpy()
+            psp.end()
+            now = time.perf_counter()
+            for j, req in enumerate(batch):
+                self._seat(slots_idx[j], req, int(toks_h[j]), now)
+            asp.end()
+            self.metrics.counter("engine.prefill_batches").inc()
+
+    def _step_fused(self) -> bool:
+        self._admit_fused()
+        if not any(r is not None for r in self.active):
+            return False
+        dsp = current_tracer().span(
+            "engine.decode_sync", parent=self._batch_ctx(),
+            k=self.scfg.sync_every,
+            n_active=sum(r is not None for r in self.active))
+        with annotate("decode_loop"):
+            packed = self.fns.decode_loop(
+                self.params, None, self.caches, self._pos, self._last,
+                self._active, self._remaining, self._gen)
+            # one host sync per K decode steps (sampling ran on the device)
+            hsp = current_tracer().span("engine.host_sync", parent=dsp)
+            out_h, em_h, act_h, rem_h = self._unpack(packed.cpu().numpy())
+            hsp.end()
+        self._emit_sync(dsp, out_h, em_h, act_h, rem_h)
+        return True
+
+    # ------------------------------------------------------------------
+    # reference path (``engine.py:1669-1711``): one exact-length batch-1
+    # prefill per admit, one host round trip per decoded token, greedy
+    def _admit_reference(self):
+        for slot in range(self.scfg.slots):
+            if self.active[slot] is None and self.queue:
+                req = self.queue.popleft()
+                plen = len(req.prompt)
+                logits, small = self.fns.prefill(
+                    self.params,
+                    torch.from_numpy(req.prompt[None]).to(self.device))
+                self.fns.insert_rows(self.caches, small, [slot])
+                self.pos[slot] = plen                 # next write position
+                self._seat(slot, req, int(torch.argmax(logits[0, -1])),
+                           time.perf_counter())
+
+    def _step_reference(self) -> bool:
+        self._admit_reference()
+        if not any(r is not None for r in self.active):
+            return False
+        toks = np.zeros((self.scfg.slots, 1), np.int32)
+        for s, req in enumerate(self.active):
+            if req is not None:
+                toks[s, 0] = req.out_tokens[-1]
+        dev = self.device
+        logits, self.caches = self.fns.decode(
+            self.params, torch.from_numpy(toks).to(dev), self.caches,
+            torch.from_numpy(self.pos).to(dev))
+        nxt = tfm.sample_tokens(logits[:, 0]).cpu().numpy()
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.pos[s] += 1
+            req.out_tokens.append(int(nxt[s]))
+            if req.decoded >= req.max_new:
+                self._finish(s, "max_new")
+            elif self.pos[s] >= self.scfg.max_len - 1:
+                self._finish(s, "max_len")
+            self._emit(req, req.out_tokens[-1:], req.done)
         self.metrics.counter("engine.steps").inc()
         return True
 
@@ -725,11 +926,16 @@ class Engine:
 
     # ------------------------------------------------------------------
     def step(self):
-        """One engine iteration: admit, then ``sync_every`` decode steps
-        with one host sync."""
+        """One engine iteration: admit, then decode — ``sync_every`` steps
+        with one host sync on the fused and paged paths, a single step on
+        the reference path."""
         if self._watch_early:
             self._sweep_expired()
-        return self._step_paged()
+        if self.paged:
+            return self._step_paged()
+        if self.scfg.fused:
+            return self._step_fused()
+        return self._step_reference()
 
     def run_until_drained(self, max_steps: int = 10_000):
         steps = 0

@@ -1,11 +1,11 @@
-"""PyTorch port vs the JAX package: the model and the paged engine.
+"""PyTorch port vs the JAX package: the model and the dense fused,
+reference and paged engines.
 
 Both sides run the two-layer variant of the reduced internlm2-1.8b config
 (``R = 2`` exercises the stacked ``(repeats, ...)`` layout).  The JAX
 weights are carried over with ``params_from_numpy``; the port runs on the
-CPU, where its paged attention takes the plain versions.  The JAX side
-runs its own plain paged path (``cfg.use_kernels`` off), as its serving
-tests do.  Tolerance: whole-model logits ``atol = rtol = 1e-4`` (fp32,
+CPU, where its attention takes the plain versions.  The JAX side runs its
+own plain path (``cfg.use_kernels`` off), as its serving tests do.  Tolerance: whole-model logits ``atol = rtol = 1e-4`` (fp32,
 tests/test_kernels.py:16); tokens and finish reasons must be equal.
 """
 import io
@@ -24,6 +24,7 @@ import ml_dtypes  # noqa: E402
 
 from repro.checkpoint.checkpointer import (Checkpointer,  # noqa: E402
                                            _flatten_with_paths)
+from repro.cluster import tracing as jtracing  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import ScanGroup as JScanGroup  # noqa: E402
 from repro.configs.base import reduced as jax_reduced  # noqa: E402
@@ -44,6 +45,7 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)     # fp32 whole-model logits
 # the JAX side jitted whole: one compile per shape, not one per operation
 _jext = jax.jit(jtfm.extend_paged, static_argnums=1)
 _jdec = jax.jit(jtfm.decode_step, static_argnums=1)
+_jpre = jax.jit(jtfm.prefill, static_argnums=1)
 _JFNS = {}                                  # JAX engine fns per ServeConfig
 
 
@@ -153,6 +155,62 @@ def test_decode_loop_tokens_exact(model):
     assert tout[1].tolist() == [3, 3]        # max_len (0), budget (1)
 
 
+def test_prefill_and_dense_decode_logits(model):
+    """Dense prefill of right-padded rows with per-row last_index, then
+    dense decode steps: logits and caches equal the JAX model's."""
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.RandomState(3)
+    B, S, L = 2, 8, 16
+    toks = rng.randint(0, tcfg.vocab, size=(B, S)).astype(np.int32)
+    last = np.array([7, 4], np.int32)
+    jc = api.init_caches(jcfg, B, L)
+    tc = ttfm.init_caches(tcfg, B, L, "cpu")
+    lj, jc = _jpre(jparams, jcfg, jnp.asarray(toks), jc,
+                   last_index=jnp.asarray(last))
+    lt, tc = ttfm.prefill(tparams, tcfg, _t(toks), tc, last_index=_t(last))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGIT_TOL)
+    # decode over the pad rows of row 1 (positions 5.. overwrite them)
+    for pos in ([8, 5], [9, 6]):
+        tok = rng.randint(0, tcfg.vocab, size=(B, 1)).astype(np.int32)
+        pos = np.asarray(pos, np.int32)
+        lj, jc = _jdec(jparams, jcfg, jnp.asarray(tok), jc, jnp.asarray(pos))
+        lt, tc = ttfm.decode_step(tparams, tcfg, _t(tok), tc, _t(pos))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOGIT_TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[0][0][key].numpy(),
+                                   np.asarray(jc[0][0][key]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_dense_decode_loop_tokens_exact(model):
+    """The K-step loop over dense caches, with a stop by max_len (slot 0)
+    and by budget (slot 1) inside the loop."""
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.RandomState(4)
+    max_len, k = 16, 6
+    toks = rng.randint(0, tcfg.vocab, size=(2, 12)).astype(np.int32)
+    last_idx = np.array([11, 6], np.int32)
+    jc = api.init_caches(jcfg, 2, max_len)
+    tc = ttfm.init_caches(tcfg, 2, max_len, "cpu")
+    lj, jc = _jpre(jparams, jcfg, jnp.asarray(toks), jc,
+                   last_index=jnp.asarray(last_idx))
+    lt, tc = ttfm.prefill(tparams, tcfg, _t(toks), tc,
+                          last_index=_t(last_idx))
+    first = np.asarray(jtfm.sample_tokens(lj[:, 0]))
+    np.testing.assert_array_equal(ttfm.sample_tokens(lt[:, 0]).numpy(), first)
+    pos, rem = last_idx + 1, np.array([6, 3], np.int32)
+    active = np.ones(2, bool)
+    jout = jtfm.decode_loop(jparams, jcfg, jc, jnp.asarray(pos),
+                            jnp.asarray(first), jnp.asarray(active),
+                            jnp.asarray(rem), jax.random.PRNGKey(0), k=k,
+                            max_len=max_len)
+    tout = ttfm.decode_loop(tparams, tcfg, tc, _t(pos), _t(first),
+                            _t(active), _t(rem), k=k, max_len=max_len)
+    for j_arr, t_arr in zip(jout[:2] + jout[3:7], tout[:2] + tout[3:7]):
+        np.testing.assert_array_equal(t_arr.numpy(), np.asarray(j_arr))
+    assert tout[1].tolist() == [3, 3]        # max_len (0), budget (1)
+
+
 def test_sample_tokens_greedy_takes_first_max():
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [5.0, 5.0, 5.0, 5.0]])
     assert ttfm.sample_tokens(logits).tolist() == \
@@ -162,10 +220,11 @@ def test_sample_tokens_greedy_takes_first_max():
 
 # ----------------------------------------------------------------------
 # engine: token-exact against the JAX paged engine
-def _serve_both(model, scfg_kw, batches, max_new):
+def _serve_both(model, scfg_kw, batches, max_new, submit_kw=None):
     """Run both engines over ``batches`` (lists of prompts, each drained
-    before the next is submitted); returns (jax_engine, jax_reqs,
-    port_engine, port_reqs)."""
+    before the next is submitted); ``submit_kw(i)`` gives request i's extra
+    ``submit`` arguments, one call per engine.  Returns (jax_engine,
+    jax_reqs, port_engine, port_reqs)."""
     jcfg, tcfg, jparams, tparams = model
     jscfg = JServeConfig(**scfg_kw)
     key = tuple(sorted(scfg_kw.items()))
@@ -173,19 +232,24 @@ def _serve_both(model, scfg_kw, batches, max_new):
         _JFNS[key] = make_engine_fns(jcfg, jscfg)
     jeng = JEngine(jparams, jcfg, jscfg, shared_fns=_JFNS[key])
     teng = Engine(tparams, tcfg, ServeConfig(**scfg_kw), device="cpu")
+    extra = submit_kw or (lambda i: {})
     jreqs, treqs = [], []
     for prompts in batches:
-        jreqs += [jeng.submit(p, max_new=max_new) for p in prompts]
-        treqs += [teng.submit(p, max_new=max_new) for p in prompts]
+        n = len(jreqs)
+        jreqs += [jeng.submit(p, max_new=max_new, **extra(n + i))
+                  for i, p in enumerate(prompts)]
+        treqs += [teng.submit(p, max_new=max_new, **extra(n + i))
+                  for i, p in enumerate(prompts)]
         jeng.run_until_drained()
         teng.run_until_drained()
-    assert jeng.paged
+    assert jeng.paged == teng.paged == scfg_kw.get("paged", False)
     for i, (a, b) in enumerate(zip(jreqs, treqs)):
         assert b.out_tokens == a.out_tokens, i
         assert b.finish_reason == a.finish_reason, i
-    # every request's blocks were released at finish
-    assert teng.alloc.free_blocks + teng.alloc.cached_blocks == \
-        teng.alloc.num_blocks
+    if teng.paged:
+        # every request's blocks were released at finish
+        assert teng.alloc.free_blocks + teng.alloc.cached_blocks == \
+            teng.alloc.num_blocks
     # counters and gauges agree; histograms hold wall times
     assert _levels(teng.metrics.snapshot()) == \
         _levels(jeng.metrics.snapshot())
@@ -239,6 +303,93 @@ def test_engine_shared_prefix_parity(model):
         jeng.metrics.counter("engine.prefill_tokens_saved").value
 
 
+_DENSE_KW = [dict(fused=True), dict(fused=False)]
+_DENSE_IDS = ["fused", "reference"]
+
+
+@pytest.mark.parametrize("kw", _DENSE_KW, ids=_DENSE_IDS)
+def test_dense_engine_refill_parity(model, kw):
+    """tests/test_serving_fused.py's refill case on the dense engines: 5
+    requests through 2 slots, completions mid-K-loop and refills.  The
+    port's dense tokens also equal its paged tokens."""
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, size=n).astype(np.int32)
+               for n in (5, 9, 7, 12, 6)]
+    _, jreqs, _, treqs = _serve_both(
+        model, dict(max_len=64, slots=2, sync_every=4, **kw), [prompts],
+        max_new=6)
+    assert {r.finish_reason for r in jreqs} == {"max_new"}
+    _, tcfg, _, tparams = model
+    paged = Engine(tparams, tcfg, ServeConfig(max_len=64, slots=2,
+                                              sync_every=4, paged=True,
+                                              block_size=8), device="cpu")
+    preqs = [paged.submit(p, max_new=6) for p in prompts]
+    paged.run_until_drained()
+    assert [r.out_tokens for r in preqs] == [r.out_tokens for r in treqs]
+
+
+@pytest.mark.parametrize("kw", _DENSE_KW, ids=_DENSE_IDS)
+def test_dense_engine_truncation_parity(model, kw):
+    """max_len truncation (mid-K-loop on the fused engine), and a prompt
+    that fills the cache finishes at its admit."""
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 256, size=n).astype(np.int32)
+               for n in (4, 9, 31)]
+    _, jreqs, _, _ = _serve_both(
+        model, dict(max_len=32, slots=2, sync_every=8, **kw), [prompts],
+        max_new=100)
+    assert {r.finish_reason for r in jreqs} == {"max_len"}
+    assert len(jreqs[2].out_tokens) == 1
+
+
+def test_dense_engine_bucketed_multi_admit_parity(model):
+    """Four queued prompts of one bucket (9-16 tokens) admit as one padded
+    batch into four free slots, then a second bucket; the batch-1 exact-
+    length reference engine gives the same tokens."""
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 256, size=n).astype(np.int32)
+               for n in (9, 16, 12, 10, 3, 5)]
+    kw = dict(max_len=48, slots=4, sync_every=4)
+    jeng, jreqs, teng, treqs = _serve_both(model, dict(fused=True, **kw),
+                                           [prompts], max_new=5)
+    assert teng.metrics.counter("engine.prefill_batches").value == \
+        jeng.metrics.counter("engine.prefill_batches").value == 2
+    # whole-row slot inserts and every decode write, junk rows included,
+    # leave the same caches on both sides
+    for key in ("k", "v"):
+        np.testing.assert_allclose(teng.caches[0][0][key].numpy(),
+                                   np.asarray(jeng.caches[0][0][key]),
+                                   atol=1e-5, rtol=1e-5)
+    _, _, _, rreqs = _serve_both(model, dict(fused=False, **kw), [prompts],
+                                 max_new=5)
+    assert [r.out_tokens for r in rreqs] == [r.out_tokens for r in treqs]
+
+
+@pytest.mark.parametrize("kw", _DENSE_KW, ids=_DENSE_IDS)
+def test_dense_engine_cancel_and_deadline_parity(model, kw):
+    """A request cancelled after its third poll and one whose deadline
+    has passed end early with their partial tokens; the slot refills and
+    the rest decode on, on both sides alike."""
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 256, size=n).astype(np.int32)
+               for n in (6, 8, 5, 7)]
+
+    def extra(i):
+        if i == 0:
+            polls = iter(range(100))
+            return dict(cancel_cb=lambda: next(polls) >= 2)
+        if i == 2:
+            return dict(deadline_s=0.0)      # expires in the queue
+        return {}
+
+    _, jreqs, _, _ = _serve_both(
+        model, dict(max_len=48, slots=2, sync_every=4, **kw), [prompts],
+        max_new=12, submit_kw=extra)
+    assert [r.finish_reason for r in jreqs] == \
+        ["cancelled", "max_new", "deadline", "max_new"]
+    assert 1 < len(jreqs[0].out_tokens) < 13 and jreqs[2].out_tokens == []
+
+
 def test_engine_temperature_is_seeded(model):
     """Temperature sampling matches JAX only in distribution; the port's
     own draws repeat for one seed."""
@@ -288,15 +439,54 @@ def test_engine_spans_and_flight_recorder(model):
         sorted(r.rid for r in reqs)
 
 
+@pytest.mark.parametrize("kw", _DENSE_KW, ids=_DENSE_IDS)
+def test_dense_engine_spans_equal_the_jax_engine(model, kw):
+    """The dense engines record the JAX engine's spans (names, and the
+    parent of each by name) and flight-recorder admits."""
+    jcfg, tcfg, jparams, tparams = model
+    scfg_kw = dict(max_len=32, slots=2, sync_every=4, **kw)
+    key = tuple(sorted(scfg_kw.items()))
+    if key not in _JFNS:
+        _JFNS[key] = make_engine_fns(jcfg, JServeConfig(**scfg_kw))
+    trees = []
+    for trc, make in (
+            (jtracing, lambda: JEngine(jparams, jcfg, JServeConfig(**scfg_kw),
+                                       shared_fns=_JFNS[key])),
+            (tracing, lambda: Engine(tparams, tcfg, ServeConfig(**scfg_kw),
+                                     device="cpu"))):
+        tracer = trc.Tracer()
+        trc.set_tracer(tracer)
+        try:
+            eng = make()
+            seq0 = trc.current_recorder().last_seq
+            for n in (3, 6, 9):
+                eng.submit(np.arange(n, dtype=np.int32), max_new=5)
+            eng.run_until_drained()
+        finally:
+            trc.set_tracer(None)
+        spans = tracer.spans()
+        by_id = {sp["span"]: sp["name"] for sp in spans}
+        admits = [e["n"] for e in trc.current_recorder().events()
+                  if e["seq"] > seq0 and e["kind"] == "admit"]
+        trees.append((sorted({(sp["name"], by_id.get(sp["parent"]))
+                              for sp in spans}, key=str), admits))
+    assert trees[1] == trees[0]
+    if kw["fused"]:
+        assert {"engine.admit", "engine.prefill", "engine.decode_sync",
+                "engine.host_sync"} <= {name for name, _ in trees[0][0]}
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(paged=False), "paged=False"),
+    (dict(paged=False, family="moe"), "other LM families"),
     (dict(paged=True, speculative=True), "speculative"),
     (dict(paged=True, kv_swap=True), "KV swap"),
 ])
 def test_engine_outside_slice_raises(model, kw, what):
     _, tcfg, _, tparams = model
+    kw = dict(kw)
+    cfg = tcfg.replace(family=kw.pop("family", tcfg.family))
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        Engine(tparams, tcfg, ServeConfig(max_len=32, block_size=8, **kw),
+        Engine(tparams, cfg, ServeConfig(max_len=32, block_size=8, **kw),
                device="cpu")
     assert what in str(e.value)
 
@@ -364,6 +554,22 @@ def test_init_params_full_width_shapes_and_scale():
     assert abs(wq.std().item() * np.sqrt(64) - 1.0) < 0.05
     assert abs(p[0]["embedding"]["table"].std().item() - 1.0) < 0.05
     assert torch.equal(p[0]["final_norm"]["w"], torch.ones(64))
+
+
+def test_serve_driver_paged_flag():
+    """``--paged`` serves the block pool, the default the dense engine;
+    greedy tokens are the same."""
+    lines = []
+    for extra in ([], ["--paged", "--block-size", "8"]):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            serve.main(["--device", "cpu", "--reduce", "--requests", "2",
+                        "--max-new", "3", "--slots", "2", "--max-len", "32",
+                        *extra])
+        lines.append(out.getvalue().strip().splitlines()[-1])
+    assert "kv=dense" in lines[0] and "kv=paged" in lines[1]
+    assert all("tokens=8" in ln for ln in lines)
+    assert not serve.build_engine(reduce=True, device="cpu").paged
 
 
 def test_serve_driver_on_cpu():

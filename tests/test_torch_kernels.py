@@ -1,9 +1,10 @@
-"""PyTorch port vs the JAX package: the paged attention kernel modules.
+"""PyTorch port vs the JAX package: the attention kernel modules (flash,
+split-K decode, paged decode and paged extend).
 
 On the CPU the port's ops take their plain versions
 (``repro_torch.kernels.ref``); they are held against the JAX oracles
 (``repro.kernels.ref``) and the Pallas kernels in interpret mode on the
-grids of tests/test_kernels.py:60-137.  The CUDA kernels themselves run
+grids of tests/test_kernels.py:21-137.  The CUDA kernels themselves run
 only on the card, where ``chip_smoke.py`` holds them against these plain
 versions.  Tolerances as tests/test_kernels.py:16: fp32 ``2e-5``, bf16
 ``3e-2`` (bf16 output rounding).
@@ -25,7 +26,10 @@ import ml_dtypes  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -33,6 +37,15 @@ TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
 
 # the JAX oracles and Pallas kernels (interpret mode) jitted whole: one
 # compile per shape, not one per operation
+_jref_flash = jax.jit(jref.flash_attention_ref,
+                      static_argnames=("causal", "window"))
+_jref_dense_decode = jax.jit(jref.decode_attention_ref)
+_jpallas_flash = jax.jit(functools.partial(
+    jops.flash_attention, block_q=64, block_kv=64, interpret=True),
+    static_argnames=("causal", "window"))
+_jpallas_dense_decode = jax.jit(functools.partial(jops.decode_attention,
+                                                  interpret=True),
+                                static_argnames=("n_splits",))
 _jref_decode = jax.jit(jref.paged_decode_attention_ref)
 _jref_extend = jax.jit(jref.paged_extend_attention_ref)
 _jpallas_decode = jax.jit(functools.partial(jops.paged_decode_attention,
@@ -66,6 +79,76 @@ def _paged_inputs(seed, B, nb_seq, bs, KV, hd, q_shape, dtype):
     bt = (rng.permutation(num_blocks - 1) + 1).reshape(B, nb_seq)
     bt = bt.astype(np.int32)
     return rng, q, kp, vp, (torch.from_numpy(bt), jnp.asarray(bt))
+
+
+def _dense_inputs(seed, dtype, *shapes):
+    rng = np.random.RandomState(seed)
+    return rng, [_pair(rng.randn(*s).astype(np.float32), dtype)
+                 for s in shapes]
+
+
+_FLASH_SHAPES = [
+    (1, 128, 4, 4, 64),     # MHA
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 512, 4, 1, 128),    # MQA
+    (1, 192, 6, 2, 32),     # ragged seq (the TPU kernel's pad path)
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", _FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_attention(B, S, H, KV, hd, dtype, causal, window):
+    """tests/test_kernels.py:21-38: the plain flash attention against the
+    JAX oracle."""
+    _, (q, k, v) = _dense_inputs(42, dtype, (B, S, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd))
+    out = ops.flash_attention(q[0], k[0], v[0], causal=causal, window=window)
+    assert out.shape == (B, S, H, hd) and out.dtype == q[0].dtype
+    want = _jref_flash(q[1], k[1], v[1], causal=causal, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 64, 4, 2, 32),
+                                         (1, 192, 6, 2, 32)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_attention_vs_pallas(B, S, H, KV, hd, causal, window):
+    """The plain flash attention against the Pallas kernel in interpret
+    mode (64-blocks, so S = 192 walks the pad path), fp32."""
+    _, (q, k, v) = _dense_inputs(43, "float32", (B, S, H, hd),
+                                 (B, S, KV, hd), (B, S, KV, hd))
+    out = ops.flash_attention(q[0], k[0], v[0], causal=causal, window=window)
+    want = _jpallas_flash(q[1], k[1], v[1], causal=causal, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd,n_splits", [
+    (2, 256, 8, 2, 64, 4),
+    (1, 512, 4, 4, 128, 8),
+    (3, 128, 4, 1, 64, 2),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention(B, L, H, KV, hd, n_splits, dtype):
+    """tests/test_kernels.py:41-55: the plain split-K decode against the
+    JAX oracle and the Pallas kernel in interpret mode."""
+    rng, (q, k, v) = _dense_inputs(7, dtype, (B, H, hd), (B, L, KV, hd),
+                                   (B, L, KV, hd))
+    lengths = rng.randint(1, L + 1, size=B).astype(np.int32)
+    ln = (torch.from_numpy(lengths), jnp.asarray(lengths))
+    out = ops.decode_attention(q[0], k[0], v[0], ln[0], n_splits=n_splits)
+    assert out.shape == (B, H, hd) and out.dtype == q[0].dtype
+    want = _jref_dense_decode(q[1], k[1], v[1], ln[1])
+    np.testing.assert_allclose(_f32(out), _f32(want), **TOL[dtype])
+    pallas = _jpallas_dense_decode(q[1], k[1], v[1], ln[1],
+                                   n_splits=n_splits)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("L,n_splits,want", [
+    (2048, 8, 8), (256, 4, 4), (40, 8, 8), (36, 8, 4), (7, 8, 1), (6, 1, 1)])
+def test_decode_split_count_follows_the_tpu_wrapper(L, n_splits, want):
+    """decode_attention.py:46-48: n_splits halves until it divides L."""
+    assert da.num_splits(L, n_splits) == want
 
 
 @pytest.mark.parametrize("B,nb_seq,bs,H,KV,hd,dtype", [
@@ -189,6 +272,57 @@ def test_wrapper_rejects_unroutable_device():
         ops.paged_decode_attention(**meta)
 
 
+def _flash_args(**over):
+    B, S, H, KV, hd = 2, 5, 4, 2, 16
+    args = dict(q=torch.zeros(B, S, H, hd), k=torch.zeros(B, S, KV, hd),
+                v=torch.zeros(B, S, KV, hd))
+    args.update(over)
+    return args
+
+
+def _dense_decode_args(**over):
+    B, L, H, KV, hd = 2, 12, 4, 2, 16
+    args = dict(q=torch.zeros(B, H, hd), k=torch.zeros(B, L, KV, hd),
+                v=torch.zeros(B, L, KV, hd),
+                lengths=torch.ones(B, dtype=torch.int32))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q=torch.zeros(2, 5, 4, 48), k=torch.zeros(2, 5, 2, 48),
+         v=torch.zeros(2, 5, 2, 48)),                      # head_dim 48
+    dict(q=torch.zeros(2, 5, 4, 16, dtype=torch.float16)),  # dtype
+    dict(k=torch.zeros(2, 5, 2, 16, dtype=torch.bfloat16)),  # mixed
+    dict(k=torch.zeros(2, 6, 2, 16)),                      # S differs
+    dict(q=torch.zeros(2, 4, 5, 16).transpose(1, 2)),      # non-contiguous
+    dict(q=torch.zeros(2, 5, 3, 16)),                      # 3 heads / 2 kv
+    dict(q=torch.zeros(2, 5, 4, 16, device="meta")),       # device mix
+    dict(window=-1),
+])
+def test_flash_wrapper_rejects(bad):
+    window = bad.pop("window", 0)
+    with pytest.raises(ValueError):
+        ops.flash_attention(**_flash_args(**bad), window=window)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q=torch.zeros(2, 4, 48), k=torch.zeros(2, 12, 2, 48),
+         v=torch.zeros(2, 12, 2, 48)),                     # head_dim 48
+    dict(q=torch.zeros(2, 4, 16, dtype=torch.float16)),    # dtype
+    dict(v=torch.zeros(2, 12, 2, 16, dtype=torch.bfloat16)),  # mixed
+    dict(lengths=torch.ones(2, dtype=torch.int64)),        # int64
+    dict(lengths=torch.ones(3, dtype=torch.int32)),        # shape
+    dict(k=torch.zeros(2, 12, 2, 16)[:, ::2]),             # non-contiguous
+    dict(q=torch.zeros(2, 3, 16)),                         # 3 heads / 2 kv
+    dict(n_splits=0),
+])
+def test_decode_wrapper_rejects(bad):
+    n_splits = bad.pop("n_splits", 8)
+    with pytest.raises(ValueError):
+        ops.decode_attention(**_dense_decode_args(**bad), n_splits=n_splits)
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
     a = _decode_args()
     q4 = a["q"].view(2, 2, 2, 16)
@@ -199,6 +333,10 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         pa.paged_extend_attention_bkgd(q4.view(2, 1, 2, 2, 16), a["k_pool"],
                                        a["v_pool"], a["block_tables"],
                                        a["lengths"])
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bshd(**_flash_args())
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_bhd(**_dense_decode_args())
 
 
 def test_cpu_route_counts_plain_calls_only():
@@ -207,10 +345,13 @@ def test_cpu_route_counts_plain_calls_only():
     a = _decode_args()
     ops.paged_extend_attention(a["q"][:, None].contiguous(), a["k_pool"],
                                a["v_pool"], a["block_tables"], a["lengths"])
+    ops.flash_attention(**_flash_args())
+    ops.decode_attention(**_dense_decode_args())
     assert ops.PLAIN_CALLS == {"paged_decode_attention": 1,
-                               "paged_extend_attention": 1}
-    assert pa.LAUNCHES == {"paged_decode_attention": 0,
-                           "paged_extend_attention": 0}
+                               "paged_extend_attention": 1,
+                               "flash_attention": 1, "decode_attention": 1}
+    assert set(kernels.LAUNCHES.values()) == {0}
+    assert pa.LAUNCHES is kernels.LAUNCHES
     ops.reset_counts()
     assert set(ops.PLAIN_CALLS.values()) == {0}
 
@@ -225,6 +366,50 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no such target"):
         build.build_all()
     assert not any(p.suffix == ".so" for p in (tmp_path / "out").iterdir())
+
+
+def _fake_nvcc(tmp_path):
+    """An nvcc that logs each call and writes the library it is asked
+    for."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(f'#!/bin/sh\necho call >> "{tmp_path}/calls"\n'
+                    'while [ "$#" -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then touch "$2"; fi\n'
+                    '  shift\ndone\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    return fake
+
+
+def test_build_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header that a source includes, directly or through
+    another header, renames the library and rebuilds it; an unchanged
+    tree reuses it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "x.cuh"\nint a;\n')
+    (csrc / "x.cuh").write_text('#pragma once\n  #  include "y.cuh"\n')
+    (csrc / "y.cuh").write_text("// v1\n")
+    (csrc / "z.cuh").write_text("// not included\n")
+    fake = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "SOURCES", ("a.cu",))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build.shutil, "which", lambda name: str(fake))
+    assert build.local_includes("a.cu") == ["x.cuh", "y.cuh"]
+    calls = lambda: (tmp_path / "calls").read_text().count("call")  # noqa
+    first = build.build_all()["a.cu"]
+    assert first.exists() and calls() == 1
+    (csrc / "z.cuh").write_text("// edited, still not included\n")
+    assert build.build_all()["a.cu"] == first and calls() == 1
+    (csrc / "y.cuh").write_text("// v2\n")
+    second = build.build_all()["a.cu"]
+    assert second != first and second.exists() and calls() == 2
+
+
+def test_port_sources_share_the_common_header():
+    for source in build.SOURCES:
+        assert "common.cuh" in build.local_includes(source), source
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX package: layers and paged attention.
+"""PyTorch port vs the JAX package: layers, dense and paged attention.
 
 Inputs come from a seeded numpy generator and go through both sides as
 numpy arrays.  Everything here is fp32; tolerances follow
@@ -200,3 +200,103 @@ def test_paged_attn_extend(pos0):
         jnp.asarray(bt))
     _close(out_t, out_j, atol=1e-5, rtol=1e-5)
     _close(c_t["vp"], c_j["vp"], atol=1e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# dense attention: prefill (flash) and decode (split-K) paths
+def test_causal_mask():
+    for sq, skv, off in ((4, 4, 0), (3, 7, 4), (5, 2, 0)):
+        np.testing.assert_array_equal(
+            tattn.causal_mask(sq, skv, off).numpy(),
+            np.asarray(jattn.causal_mask(sq, skv, off)))
+
+
+@pytest.mark.parametrize("S", [20, 128])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_attn_forward(S, use_kernels):
+    """The port routes every S through flash attention; the JAX side runs
+    mha (use_kernels off, or S < 128) or the Pallas flash kernel in
+    interpret mode (use_kernels on, S >= 128)."""
+    jcfg, tcfg = _cfgs()
+    jcfg = jcfg.replace(use_kernels=use_kernels)
+    rng = np.random.RandomState(8)
+    p = _attn_params(rng, tcfg)
+    x = rng.randn(2, S, 64).astype(np.float32)
+    before = ops.PLAIN_CALLS["flash_attention"]
+    out_t = tattn.attn_forward({k: _t(v) for k, v in p.items()}, _t(x), tcfg,
+                               kind="causal")
+    out_j = jax.jit(functools.partial(jattn.attn_forward, cfg=jcfg,
+                                      kind="causal"))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    _close(out_t, out_j, atol=1e-5, rtol=1e-5)
+    assert ops.PLAIN_CALLS["flash_attention"] == before + 1
+
+
+def _dense_cache(rng, cfg, B, L):
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return (rng.randn(B, L, KV, hd).astype(np.float32),
+            rng.randn(B, L, KV, hd).astype(np.float32))
+
+
+def test_attn_decode():
+    """Dense decode: the write at pos and the attention over keys <= pos
+    (the port's split-K decode with lengths = pos + 1, the JAX side's
+    masked mha); pos L - 1 is the last row."""
+    jcfg, tcfg = _cfgs()
+    rng = np.random.RandomState(9)
+    B, L = 3, 24
+    k, v = _dense_cache(rng, tcfg, B, L)
+    p = _attn_params(rng, tcfg)
+    x = rng.randn(B, 1, 64).astype(np.float32)
+    pos = np.array([0, 13, L - 1], np.int32)
+    before = ops.PLAIN_CALLS["decode_attention"]
+    out_t, c_t = tattn.attn_decode(
+        {k_: _t(v_) for k_, v_ in p.items()}, _t(x),
+        {"k": _t(k.copy()), "v": _t(v.copy())}, _t(pos), tcfg, kind="causal")
+    out_j, c_j = _jit_attn(jattn.attn_decode, jcfg)(
+        {k_: jnp.asarray(v_) for k_, v_ in p.items()}, jnp.asarray(x),
+        {"k": jnp.asarray(k), "v": jnp.asarray(v)}, jnp.asarray(pos))
+    _close(out_t, out_j, atol=1e-5, rtol=1e-5)
+    for key in ("k", "v"):
+        _close(c_t[key], c_j[key], atol=1e-5, rtol=1e-5)
+    assert ops.PLAIN_CALLS["decode_attention"] == before + 1
+
+
+def test_batched_cache_update_clamps_like_dynamic_update_slice():
+    """A start past the end clamps to the last row, as
+    ``dynamic_update_slice`` does; the write is in place."""
+    rng = np.random.RandomState(10)
+    cache = rng.randn(3, 5, 2).astype(np.float32)
+    row = rng.randn(3, 2).astype(np.float32)
+    slot = np.array([0, 4, 9], np.int32)
+    t_cache = _t(cache.copy())
+    out = tattn.batched_cache_update(t_cache, _t(row), _t(slot))
+    assert out is t_cache
+    _close(out, jattn.batched_cache_update(jnp.asarray(cache),
+                                           jnp.asarray(row),
+                                           jnp.asarray(slot)))
+
+
+def test_prefill_into_cache():
+    jcfg, tcfg = _cfgs()
+    rng = np.random.RandomState(11)
+    B, L, S = 2, 16, 6
+    ck, cv = _dense_cache(rng, tcfg, B, L)
+    k, v = (a[:, :S] for a in _dense_cache(rng, tcfg, B, L))
+    c_t = tattn.prefill_into_cache(None, _t(k), _t(v),
+                                   {"k": _t(ck.copy()), "v": _t(cv.copy())},
+                                   tcfg, kind="causal")
+    c_j = jattn.prefill_into_cache(None, jnp.asarray(k), jnp.asarray(v),
+                                   {"k": jnp.asarray(ck),
+                                    "v": jnp.asarray(cv)}, jcfg,
+                                   kind="causal")
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(c_t[key].numpy(), np.asarray(c_j[key]))
+
+
+@pytest.mark.parametrize("kind", ["local", "bidir", "cross"])
+def test_dense_attention_outside_slice_raises(kind):
+    _, tcfg = _cfgs()
+    x = torch.zeros(1, 4, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tattn.attn_forward({}, x, tcfg, kind=kind)
