@@ -4,8 +4,10 @@
 
 It drives the port's two serving paths, the paged engine on the Hopper
 paged attention kernels and the dense fused engine (the serve driver's
-default) on the flash attention and split-K decode kernels, and holds
-every kernel against its plain PyTorch version.  One line per phase:
+default) on the flash attention and split-K decode kernels, and the
+paper's MARGOT pipeline (batch and stream) on the pair-score kernel, and
+holds every kernel against its plain PyTorch version.  One line per
+phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -15,10 +17,14 @@ every kernel against its plain PyTorch version.  One line per phase:
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
    causal flash prefill of B=3, S=512, a decode of B=8 over L=2048 at
    ragged lengths), plus a small grid over every head_dim and dtype the
-   kernels are built for (and flash's three mask modes), each held
-   against the plain version's fp32 result on the same inputs, with a
-   control (P rounded to bf16) that the bf16 limit must reject; kernel,
-   plain and library (SDPA) times and the bound;
+   kernels are built for (and flash's three mask modes, and a decode row
+   of length 0), each held against the plain version's fp32 result on
+   the same inputs, with a control (P rounded to bf16) that the bf16
+   limit must reject; the pair score at the batch shape (256, 512, 1024)
+   and the stream's (1024, 1024, 1024) on MARGOT features and on random
+   inputs, and on a small grid in fp32 and bf16, each held against the
+   plain version in fp64, with a TF32 control that the limit must
+   reject; kernel, plain and library times and the bound;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens;
@@ -28,7 +34,12 @@ every kernel against its plain PyTorch version.  One line per phase:
    then dense; each path's kernel launch counts, read right after its own
    run, must be > 0 with no plain calls; then one profiled decode sync of
    each;
-5. the ``{"kernels": [...]}`` line.
+5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
+   the kernel and through the plain version (equal link sets), the DS2
+   batch through ``repro_torch.launch.argmining`` (its launch counts read
+   right after it), DS1 with M3's 30,363 support vectors, the stream's
+   rate ramp in both scopes, and one profiled batch partition;
+6. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -68,6 +79,14 @@ BF16_MISMATCH = 0.01
 # the library call rounds P to bf16 itself; this looser check only shows
 # that it computes the same function, so that its time is a fair yardstick
 LIBRARY_TOL = 3e-2
+# The pair score is held against its plain version run in fp64 on the same
+# inputs: max |kernel - fp64| <= PAIR_REL * max |fp64|.  The kernel sums d
+# fp32 products per output (about 2e-7 of the largest score, measured on
+# an emulation of the kernel on the CPU); TF32 keeps 10 mantissa bits, so
+# its products are off by up to 2^-11 and its scores by ~1e-4 of the
+# largest, which the control (the plain version in fp32 with TF32 on)
+# shows by failing the limit at the batch and stream shapes.
+PAIR_REL = 1e-5
 
 
 def fail(msg: str):
@@ -95,6 +114,7 @@ def main():
     stats = phase_kernels()
     phase_token_exact()
     launches = phase_serve()
+    launches.update(phase_margot())
     phase_list(stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -107,6 +127,7 @@ def phase_device() -> str:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pair_score as ps
     from repro_torch.kernels import paged_attention as pa
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,7 +139,7 @@ def phase_device() -> str:
           f"count={torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.build_all()
-    for module in (pa, fa, da):
+    for module in (pa, fa, da, ps):
         module._library()
     build_s = time.perf_counter() - t0
     usage = [ln.strip() for log in build.BUILD_LOG.values()
@@ -321,7 +342,7 @@ def phase_kernels():
           f"<= {BF16_MISMATCH:.0%} of elements off the rounded fp32 plain "
           f"result) passed: paged decode and extend; flash at S 37 and 192 "
           f"x causal / window 64 / bidirectional; split-K decode at "
-          f"lengths 1..L")
+          f"lengths 0, 1, 37, L")
 
     # main-path shapes, bf16; 3 copies of the inputs for cold-L2 timing
     B, H, KV, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
@@ -393,6 +414,7 @@ def phase_kernels():
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
     _dense_main_path(gen, dev, stats, shares, issue)
+    _pair_score_checks(gen, dev, stats, issue)
     print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
           f"the plain version's fp32 result on the same inputs, and at most "
           f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
@@ -400,6 +422,8 @@ def phase_kernels():
           f"the output rounding separate them); control: the plain version "
           f"with P rounded to bf16 must exceed the {BF16_MISMATCH:.0%}")
     for name, st in stats.items():
+        if name not in shares:
+            continue
         print(f"[kernels] {name}: max_abs_err={st['max_abs_err']:.3e} "
               f"off_rounded={shares[name][0]:.4%} "
               f"(control with bf16 P: {shares[name][1]:.4%}) "
@@ -437,10 +461,11 @@ def _dense_grid(gen, dtype, dname, hd, dev):
                                              window=window))
             n += 1
     L = 96
-    lengths = torch.tensor([1, 37, L], dtype=torch.int32, device=dev)
+    # length 0 sees no key: the mean of V, as the TPU kernel gives
+    lengths = torch.tensor([0, 1, 37, L], dtype=torch.int32, device=dev)
     for H_, KV_ in ((8, 2), (8, 1)):
-        q = _randn(gen, (3, H_, hd), dtype, dev)
-        k, v = (_randn(gen, (3, L, KV_, hd), dtype, dev) for _ in range(2))
+        q = _randn(gen, (4, H_, hd), dtype, dev)
+        k, v = (_randn(gen, (4, L, KV_, hd), dtype, dev) for _ in range(2))
         _compare(f"split-K decode hd={hd} {dname} G={H_ // KV_}",
                  ops.decode_attention(q, k, v, lengths),
                  ref.decode_attention_ref(*_f32(q, k, v), lengths))
@@ -522,6 +547,137 @@ def _dense_main_path(gen, dev, stats, shares, issue):
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
 
 
+def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):
+    """Random pair-score inputs: claims (N, d) and evidence (M, d)
+    N(0, 1), W N(0, 1)/sqrt(d), w N(0, 1), bias 0.3."""
+    import torch
+    wdtype = wdtype or dtype
+    W = _randn(gen, (d, d), torch.float32, dev) / math.sqrt(d)
+    return (_randn(gen, (N, d), dtype, dev), _randn(gen, (M, d), dtype, dev),
+            W.to(wdtype), _randn(gen, (2 * d,), wdtype, dev),
+            torch.tensor(0.3, device=dev))
+
+
+def _margot_pair_inputs(dev, N, M):
+    """MARGOT's own pair-score inputs at d = 1024: L2-normalized hashed
+    bag-of-words rows of the synthetic corpus (claims the first N, evidence
+    the next M) and the MARGOT link model."""
+    import torch
+    from repro_torch.configs.margot_svm import PIPELINE
+    from repro_torch.data.text import margot_models
+    from repro_torch.launch.argmining import make_corpus
+    X = torch.from_numpy(make_corpus(N + M, PIPELINE.feat_dim)[0]).to(dev)
+    link = margot_models(PIPELINE, device=dev)["link"]
+    return (X[:N].contiguous(), X[N:].contiguous(), link["W"], link["w"],
+            link["bias"])
+
+
+def _pair_check(name, C, E, W, w, b, control=False):
+    """The kernel's pair score against the plain version run in fp64 on
+    the same inputs, at max |kernel - fp64| <= PAIR_REL * max |fp64|; with
+    ``control``, the plain version in fp32 with TF32 on must fail that
+    limit.  Returns (max abs error, its share of max |fp64|, the
+    control's share or None)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    d = C.shape[1]
+    out = ops.pair_score({"W": W, "w": w, "bias": b}, C, E)
+    check(out.dtype == torch.float32 and
+          tuple(out.shape) == (C.shape[0], E.shape[0]) and
+          bool(torch.isfinite(out).all()), f"{name}: bad output")
+    want = ref.pair_score_ref(*(t.double() for t in (C, E, W, w[:d], w[d:],
+                                                     b)))
+    scale = want.abs().max().item()
+    err = (out.double() - want).abs().max().item()
+    check(err <= PAIR_REL * scale, f"{name}: max |kernel - fp64| {err:.3e} "
+          f"is {err / scale:.3e} of max |score|, limit {PAIR_REL}")
+    ctl = None
+    if control:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = ref.pair_score_ref(C, E, W, w[:d], w[d:], b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ctl = (tf32.double() - want).abs().max().item() / scale
+        check(ctl > PAIR_REL, f"{name}: the TF32 control is off by only "
+              f"{ctl:.3e} of max |score|: the limit {PAIR_REL} cannot see "
+              f"TF32")
+    return err, err / scale, ctl
+
+
+def _pair_library(C, E, W, w, b):
+    """The yardstick: the same function as cuBLAS and elementwise calls
+    (no single PyTorch call computes it), TF32 off."""
+    d = C.shape[1]
+    return (C @ W) @ E.T + (C @ w[:d])[:, None] + (E @ w[d:])[None, :] + b
+
+
+def _pair_score_checks(gen, dev, stats, issue):
+    """The pair score against its plain version in fp64: a grid of small
+    shapes in fp32 and bf16, then the batch path's shape (256, 512, 1024)
+    and the stream's (1024, 1024, 1024) in fp32 on MARGOT's features and on
+    random inputs, each with the TF32 control; times at both shapes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for N, M, d in ((64, 128, 256), (100, 60, 128), (128, 128, 512),
+                    (1, 1, 1024), (257, 513, 130)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, rel, _ = _pair_check(f"pair_score ({N}, {M}, {d}) {dtype}",
+                                    *_pair_inputs(gen, dev, N, M, d, dtype))
+            worst = max(worst, rel)
+    _, rel, _ = _pair_check("pair_score bf16 claims, fp32 W",
+                            *_pair_inputs(gen, dev, 100, 60, 128,
+                                          torch.bfloat16, torch.float32))
+    worst = max(worst, rel)
+    print(f"[kernels] pair_score grid: 11 checks over (64, 128, 256), "
+          f"(100, 60, 128), (128, 128, 512), (1, 1, 1024), (257, 513, 130) "
+          f"x fp32 / bf16 inputs (+ bf16 claims with fp32 W) passed: max "
+          f"|kernel - fp64| <= {worst:.3e} of max |score| (limit "
+          f"{PAIR_REL})")
+    d = 1024
+    for label, N, M in (("batch", 256, 512), ("stream", 1024, 1024)):
+        read = {}
+        for kind, args in (("margot", _margot_pair_inputs(dev, N, M)),
+                           ("random", _pair_inputs(gen, dev, N, M, d,
+                                                   torch.float32))):
+            read[kind] = _pair_check(f"pair_score {label} {kind}", *args,
+                                     control=True)
+        sets = [_pair_inputs(gen, dev, N, M, d, torch.float32)
+                for _ in range(3)]
+        link = lambda s: {"W": s[2], "w": s[3], "bias": s[4]}  # noqa
+        C, E, W, w, b = sets[0]
+        check(torch.allclose(_pair_library(C, E, W, w, b),
+                             ref.pair_score_ref(C, E, W, w[:d], w[d:], b),
+                             atol=1e-4, rtol=1e-4),
+              "pair_score: the yardstick computes another function")
+        by = 4 * (N * d + M * d + d * d + 2 * d + N * M + 1)
+        n_ops = 2 * N * d * (d + M) + 2 * (N + M) * d
+        st = _stats(
+            read["random"][0], by, n_ops, "float32",
+            _time_ms([lambda s=s: ops.pair_score(link(s), s[0], s[1])
+                      for s in sets]),
+            _time_ms([lambda s=s: ref.pair_score_ref(
+                s[0], s[1], s[2], s[3][:d], s[3][d:], s[4]) for s in sets]),
+            _time_ms([lambda s=s: _pair_library(*s) for s in sets]))
+        iss = _issue_ms(lambda: ops.pair_score(link(sets[0]), C, E))
+        print(f"[kernels] pair_score {label} ({N}, {M}, {d}) fp32: "
+              f"|kernel - fp64| / max|score| margot={read['margot'][1]:.3e} "
+              f"random={read['random'][1]:.3e}, TF32 control "
+              f"margot={read['margot'][2]:.3e} random={read['random'][2]:.3e} "
+              f"(limit {PAIR_REL}); max_abs_err={st['max_abs_err']:.3e} "
+              f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+              f"library_ms={st['library_ms']:.4f} (cuBLAS GEMMs + "
+              f"elementwise, several calls) bound_ms={st['bound_ms']:.4f} "
+              f"({st['bound_by']}); issued one by one from Python: "
+              f"{iss:.4f} ms per call")
+        if label == "batch":
+            # no one PyTorch call computes this function: the JSON line's
+            # library_ms is null, the yardstick is printed above
+            stats["pair_score"] = dict(st, library_ms=None)
+            issue["pair_score"] = iss
+
+
 def _stats(err, nbytes, n_ops, dtype, ms, plain_ms, library_ms):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
@@ -539,6 +695,19 @@ def _drain(eng, prompts, max_new):
 
 PAGED_KERNELS = ("paged_decode_attention", "paged_extend_attention")
 DENSE_KERNELS = ("flash_attention", "decode_attention")
+
+
+def _forced_plain(plain: bool):
+    """A context in which every op takes its plain version on the card
+    (counted in ``ops.PLAIN_CALLS``), if ``plain``."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+
+    def plain_route(name, q):
+        kernels.count(ops.PLAIN_CALLS, name)
+        return False
+    return mock.patch.object(ops, "_route", plain_route) if plain else \
+        contextlib.nullcontext()
 
 
 def phase_token_exact():
@@ -563,14 +732,9 @@ def phase_token_exact():
     prompts += [np.concatenate([common, rng.randint(0, cfg.vocab, n)])
                 .astype(np.int32) for n in (4, 3)]
 
-    def plain_route(name, q):
-        ops.PLAIN_CALLS[name] += 1
-        return False
-
     def run(scfg, plain):
         ops.reset_counts()
-        with mock.patch.object(ops, "_route", plain_route) if plain \
-                else contextlib.nullcontext():
+        with _forced_plain(plain):
             reqs = _drain(Engine(params, cfg, scfg, device=dev), prompts, 6)
         return reqs, dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
 
@@ -692,28 +856,11 @@ def _serve_path(paged: bool):
     return {k: launches[k] for k in keys}
 
 
-def _profile_decode_sync(eng, tok, label):
-    """One K=8 decode sync of 8 slots timed on the host clock, then the
-    next one under ``torch.profiler``: device time by kernel and the
-    device's idle share of that sync's wall time."""
-    import torch
+def _device_time(prof, label):
+    """From a profile: the device's busy time (the union of its kernels'
+    intervals, us), (us, count, name) rows by kernel, written to
+    ``OUT_DIR / chip_smoke_profile_<label>.txt``, and the top five."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for p in [tok(300) for _ in range(8)]:
-        eng.submit(p, max_new=24)
-    eng.step()                          # admit + first sync
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.step()                          # second sync, unprofiled
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()                      # third sync, profiled
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run_until_drained()
     by_name, spans = {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA or \
@@ -735,6 +882,31 @@ def _profile_decode_sync(eng, tok, label):
         f"{us / 1e3:10.3f} ms {n:6d}x  {key}" for us, n, key in rows))
     top = "; ".join(f"{key[:40]} {us / 1e3:.2f}ms/{n}x"
                     for us, n, key in rows[:5])
+    return busy_us, rows, top
+
+
+def _profile_decode_sync(eng, tok, label):
+    """One K=8 decode sync of 8 slots timed on the host clock, then the
+    next one under ``torch.profiler``: device time by kernel and the
+    device's idle share of that sync's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for p in [tok(300) for _ in range(8)]:
+        eng.submit(p, max_new=24)
+    eng.step()                          # admit + first sync
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()                          # second sync, unprofiled
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()                      # third sync, profiled
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    busy_us, rows, top = _device_time(prof, label)
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:8]
     print(f"[profile {label}] host self time under the profiler, top: " +
@@ -749,25 +921,169 @@ def _profile_decode_sync(eng, tok, label):
 
 
 # ----------------------------------------------------------------------
+def _links(res):
+    return {(c, e): s for c, e, s in res.links}
+
+
+def phase_margot():
+    """The paper's pipeline at d = 1024 through the port's argmining
+    driver; returns the pair score's launches in the DS2 batch."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.margot_svm import DATASETS, PIPELINE
+    from repro_torch.data.text import margot_models
+    from repro_torch.kernels import ops
+    from repro_torch.launch import argmining
+    dev = torch.device("cuda", 0)
+    others = [k for k in kernels.LAUNCHES if k != "pair_score"]
+
+    def counts():
+        return dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+
+    # (a) DS1 through the kernel, then forced onto the plain version
+    X, keys, _ = argmining.make_corpus(DATASETS["DS1"], PIPELINE.feat_dim)
+    models = margot_models(PIPELINE, device=dev)
+    runs = {}
+    for label, plain in (("kernel", False), ("plain", True)):
+        ops.reset_counts()
+        with _forced_plain(plain):
+            res = argmining.run_batch(models, X, keys, PIPELINE, 12, 2, dev)
+        launches, calls = counts()
+        used, unused = (calls, launches) if plain else (launches, calls)
+        check(res.n_dropped == 0 and used["pair_score"] == res.launched and
+              not any(unused.values()) and
+              not any(launches[k] for k in others),
+              f"DS1 {label} run: n_dropped {res.n_dropped}, launched "
+              f"{res.launched}, launches {launches}, plain {calls}")
+        runs[label] = _links(res)
+    kern, plain = runs["kernel"], runs["plain"]
+    limit = PAIR_REL * max(abs(x) for x in [*kern.values(), *plain.values()])
+    only = {p: (kern.get(p), plain.get(p)) for p in kern.keys() ^ plain.keys()}
+    check(all(abs(a if a is not None else b) <= limit
+              for a, b in only.values()),
+          f"DS1: links differ beyond |score| {limit:.3e}: {only}")
+    diff = max(abs(kern[p] - plain[p]) for p in kern.keys() & plain.keys())
+    check(diff <= limit, f"DS1: common links' scores differ by {diff:.3e}, "
+          f"limit {limit:.3e}")
+    print(f"[margot DS1] {len(X)} sentences, {len(kern)} links through the "
+          f"kernel, {len(plain)} through the plain version on the card: "
+          f"{len(only)} pairs in one set only (each |score| <= {limit:.3e}),"
+          f" common scores within {diff:.3e} (limit {PAIR_REL} x max "
+          f"|score|)")
+
+    # (b) the DS2 batch through the entry point
+    ops.reset_counts()
+    res = argmining.main(["batch", "--device", "cuda", "--dataset", "DS2",
+                          "--workers", "2"])
+    launches, calls = counts()
+    check(res.n_dropped == 0, f"DS2: n_dropped {res.n_dropped}")
+    check(launches["pair_score"] == res.launched and
+          not any(launches[k] for k in others) and not any(calls.values()),
+          f"DS2: launches {launches}, plain {calls}, partition runs "
+          f"{res.launched}")
+    print(f"[margot DS2] pair_score launches={launches['pair_score']} "
+          f"(partitions={res.partitions}, speculated={res.speculated}) "
+          f"plain_calls={sum(calls.values())} links={len(res.links)} "
+          f"n_dropped=0 wall={res.wall_s:.3f}s sentences/s="
+          f"{DATASETS['DS2'] / res.wall_s:.1f}")
+    ds2_launches = launches["pair_score"]
+
+    # (c) Table 2's largest model, M3, on DS1
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_counts()
+    res = argmining.main(["batch", "--device", "cuda", "--dataset", "DS1",
+                          "--model-sv", "M3", "--workers", "2"])
+    launches, calls = counts()
+    check(launches["pair_score"] == res.launched and
+          not any(calls.values()), f"M3: launches {launches}, plain {calls}")
+    print(f"[margot M3] DS1 with 30,363 support vectors per SVM: wall="
+          f"{res.wall_s:.3f}s n_dropped={res.n_dropped} links="
+          f"{len(res.links)} pair_score launches={launches['pair_score']} "
+          f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
+
+    # (d) the stream's rate ramp, scope-window then scope-file
+    for scope in ("window", "file"):
+        ops.reset_counts()
+        rt, rate = argmining.main(["stream", "--device", "cuda", "--scope",
+                                   scope])
+        launches, calls = counts()
+        check(launches["pair_score"] > 0 and
+              not any(launches[k] for k in others) and
+              not any(calls.values()) and rate > 0,
+              f"stream {scope}: rate {rate}, launches {launches}, plain "
+              f"{calls}")
+        busy = statistics.median(st.busy_s for st in rt.stats)
+        print(f"[margot stream {scope}] max sustainable rate {rate:.0f} "
+              f"inst/s; pair_score launches={launches['pair_score']} "
+              f"plain_calls=0; steady micro-batch (64 instances, one 1024-row"
+              f" chunk) busy median {busy * 1e3:.2f}ms")
+
+    _profile_partition(models, X, keys)
+    return {"pair_score": ds2_launches}
+
+
+def _profile_partition(models, X, keys):
+    """One batch partition (12 documents of DS1) on the host clock, then
+    under ``torch.profiler``: device busy time, idle share, kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.margot_svm import PIPELINE
+    from repro_torch.core.pipeline import extract_links, make_batch_step
+    from repro_torch.launch.argmining import partition_bounds
+    dev = torch.device("cuda", 0)
+    s, e = partition_bounds(keys, 12)[0]
+    step = make_batch_step(PIPELINE)
+
+    def part():
+        out = step(models, torch.from_numpy(X[s:e]).to(dev),
+                   torch.from_numpy(keys[s:e]).to(dev))
+        return extract_links(out)
+
+    part()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, rows, top = _device_time(prof, "margot_partition")
+    print(f"[profile margot] one batch partition ({e - s} sentences, "
+          f"capacities {PIPELINE.claim_capacity}/{PIPELINE.evid_capacity}): "
+          f"unprofiled wall={step_ms:.2f}ms; profiled wall={wall_ms:.2f}ms "
+          f"device_busy={busy_us / 1e3:.3f}ms idle_share="
+          f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
+          f"{sum(n for _, n, _ in rows)}; top: {top}")
+
+
+# ----------------------------------------------------------------------
 def phase_list(stats, launches, smi):
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"paged_decode_attention": csrc + "paged_attention.cu",
               "paged_extend_attention": csrc + "paged_attention.cu",
               "flash_attention": csrc + "flash_attention.cu",
-              "decode_attention": csrc + "decode_attention.cu"}
+              "decode_attention": csrc + "decode_attention.cu",
+              "pair_score": csrc + "pair_score.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
                 "src/repro/kernels/paged_attention.py:178",
                 "flash_attention": "src/repro/kernels/flash_attention.py:74",
                 "decode_attention":
-                "src/repro/kernels/decode_attention.py:40"}
+                "src/repro/kernels/decode_attention.py:40",
+                "pair_score": "src/repro/kernels/pair_score.py:41"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
-               for name in PAGED_KERNELS + DENSE_KERNELS]
+               for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",)]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

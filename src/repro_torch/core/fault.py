@@ -1,0 +1,105 @@
+"""Straggler mitigation for the batch driver, the port of
+``repro.core.fault`` (paper §3: "autonomous fault-tolerant mechanisms").
+
+  * speculative_map: partitions whose latency exceeds ``straggler_factor``
+    x the running median are speculatively re-dispatched; the first
+    completion wins (Spark's ``spark.speculation``).  Worker failures
+    (exceptions) are retried on other workers up to ``max_retries``.
+
+Plain Python threads, copied with two repairs.  A straggler's latency
+is counted from when its attempt starts running, where the JAX copy
+counts from submission, so every partition queued behind the workers
+(more partitions than workers) looked like a straggler and ran again;
+and at most two attempts of a partition are in flight, which the JAX
+copy meant (``list(set).count(i) < 2`` is always true).  ``ReplayLog``
+and ``ElasticRunner`` wait for the multi-device port (ROADMAP.md,
+Queue 1, item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
+from typing import Any, Callable, Dict, List, Sequence
+
+
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class SpecStats:
+    launched: int = 0
+    speculated: int = 0
+    retried_failures: int = 0
+    wasted_completions: int = 0
+
+
+def speculative_map(fn: Callable[[Any], Any], partitions: Sequence[Any],
+                    n_workers: int, *, straggler_factor: float = 3.0,
+                    min_median_s: float = 1e-4, max_retries: int = 2,
+                    poll_s: float = 0.005) -> tuple[List[Any], SpecStats]:
+    """Run fn over partitions on a worker pool with straggler re-dispatch
+    and failure retry.  Returns (results in order, stats)."""
+    stats = SpecStats()
+    results: List[Any] = [None] * len(partitions)
+    done = [False] * len(partitions)
+    attempts: Dict[int, int] = {i: 0 for i in range(len(partitions))}
+    durations: List[float] = []
+    lock = threading.Lock()
+    started: Dict[int, float] = {}         # attempt id -> when it started
+
+    def run_one(i, aid):
+        t0 = started[aid] = time.perf_counter()
+        out = fn(partitions[i])
+        return i, out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        futures: Dict[Future, tuple[int, int]] = {}
+
+        def launch(i):
+            attempts[i] += 1
+            stats.launched += 1
+            futures[ex.submit(run_one, i, stats.launched)] = (i,
+                                                              stats.launched)
+
+        for i in range(len(partitions)):
+            launch(i)
+
+        while futures:
+            finished, _ = wait(list(futures), timeout=poll_s,
+                               return_when=FIRST_COMPLETED)
+            for f in finished:
+                i, _ = futures.pop(f)
+                try:
+                    idx, out, dur = f.result()
+                except Exception:
+                    stats.retried_failures += 1
+                    if attempts[i] <= max_retries:
+                        launch(i)
+                    else:
+                        raise
+                    continue
+                with lock:
+                    durations.append(dur)
+                    if done[idx]:
+                        stats.wasted_completions += 1
+                    else:
+                        results[idx] = out
+                        done[idx] = True
+            # speculate on stragglers: attempts that have run (not waited
+            # in the pool's queue) longer than the cutoff, at most two
+            # attempts of a partition in flight
+            if durations:
+                med = sorted(durations)[len(durations) // 2]
+                cutoff = max(med * straggler_factor, min_median_s)
+                now = time.perf_counter()
+                inflight = [i for (i, _) in futures.values()]
+                for f, (i, aid) in list(futures.items()):
+                    t_start = started.get(aid)
+                    if not done[i] and t_start is not None and \
+                            now - t_start > cutoff and \
+                            inflight.count(i) < 2 and \
+                            attempts[i] <= max_retries:
+                        stats.speculated += 1
+                        inflight.append(i)
+                        launch(i)
+    return results, stats

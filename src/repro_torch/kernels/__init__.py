@@ -1,4 +1,5 @@
 """Hopper kernels of the port, their launch wrappers and plain versions."""
+import threading
 from typing import Dict, Sequence
 
 import torch
@@ -10,19 +11,27 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per wrapper, counted where each wrapper launches its
 #: kernel (one call of ``decode_attention`` is its split pass and its merge
-#: pass, counted once)
+#: pass, and one of ``pair_score`` its projection and its score pass, each
+#: counted once)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_extend_attention": 0,
                             "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0,
+                            "pair_score": 0}
+
+_count_lock = threading.Lock()
 
 
-def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
-                  floats: Sequence[str]) -> None:
-    """The checks every kernel op makes on both routes: the tensors share
-    one device and are contiguous, the ``floats`` share a dtype the kernels
-    are built for, and the first of them ends in a head dim they are built
-    for.  Raises ``ValueError``."""
+def count(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``; safe from the batch driver's worker
+    threads, where ``+=`` on a dict item could lose an update."""
+    with _count_lock:
+        counts[name] += 1
+
+
+def check_placement(name: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """The tensors share one device and are contiguous; raises
+    ``ValueError``."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: all tensors must share one device, got "
@@ -30,6 +39,15 @@ def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
     for key, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
+                  floats: Sequence[str]) -> None:
+    """The checks every attention op makes on both routes: the tensors
+    share one device and are contiguous, the ``floats`` share a dtype the
+    kernels are built for, and the first of them ends in a head dim they
+    are built for.  Raises ``ValueError``."""
+    check_placement(name, tensors)
     dtype = tensors[floats[0]].dtype
     if dtype not in DTYPE_CODE:
         raise ValueError(f"{name}: dtype {dtype} not supported "

@@ -27,9 +27,11 @@
 // out = sum_s acc_s * 2^(m_s - m) / max(sum_s l_s * 2^(m_s - m), 1e-30).
 // A split with no live key writes nothing and is left out of the merge;
 // the TPU kernel gives it m = NEG_INF and weight 2^(NEG_INF - m) = 0, so
-// both give the same result for every length >= 1.  At length 0 this
-// gives 0 where the TPU kernel gives the mean of V; the engine never asks
-// for it (lengths = pos + 1).
+// both give the same result for every length >= 1.  A row of length 0
+// sees no key: every score of the TPU kernel is then NEG_INF, its softmax
+// is uniform over all L rows and it returns the mean of V, as the plain
+// versions do; the merge computes that mean from V for such a row (the
+// engine never asks for one: lengths = pos + 1).
 //
 // Bound on the card: memory bandwidth.  One query costs ~4 * G * hd flops
 // per key against 2 * hd * sizeof(T) bytes of K and V, far below the ~295
@@ -205,10 +207,22 @@ __global__ void __launch_bounds__(DT) decode_split_kernel(
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD / 4) decode_merge_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-    const int* __restrict__ lengths, T* __restrict__ out, int L, int H,
-    int n_splits) {
+    const int* __restrict__ lengths, const T* __restrict__ v,
+    T* __restrict__ out, int L, int KV, int G, int n_splits) {
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x * 4;
-  const int length = live_length(lengths, b, L);
+  const int length = live_length(lengths, b, L), H = KV * G;
+  if (length == 0) {                  // the mean of V over all L rows
+    float o[4] = {0.f, 0.f, 0.f, 0.f}, x[4];
+    for (int t = 0; t < L; ++t) {
+      Vec<T, 4>::load(v + (((int64_t)b * L + t) * KV + h / G) * HD + d, x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] += x[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] /= (float)max(L, 1);
+    Vec<T, 4>::store(out + ((int64_t)b * H + h) * HD + d, o);
+    return;
+  }
   const int64_t row0 = ((int64_t)b * H + h) * n_splits;
   float mx = NEG_INF;
   for (int s = 0; s < n_splits; ++s) {
@@ -244,7 +258,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   decode_merge_kernel<T, HD><<<dim3(B, KV * G), HD / 4, 0, stream>>>(
-      ws_acc, ws_ml, (const int*)lengths, (T*)out, L, KV * G, n_splits);
+      ws_acc, ws_ml, (const int*)lengths, (const T*)v, (T*)out, L, KV, G,
+      n_splits);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-"""Public attention ops of the port, with the contracts of
-``repro.kernels.ops`` (``ops.py:22-83``): queries in the model's
-``(B, [S,] H, hd)`` layout.
+"""Public kernel ops of the port, with the contracts of
+``repro.kernels.ops`` (``ops.py:22-95``): attention queries in the
+model's ``(B, [S,] H, hd)`` layout, and the phase-2 pair score.
 
 The device of the tensors decides the route: a CUDA tensor launches the
 Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
@@ -12,9 +12,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import pair_score as ps
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -42,7 +43,7 @@ def _route(name: str, q) -> bool:
     if q.device.type == "cuda":
         return True
     if q.device.type == "cpu":
-        PLAIN_CALLS[name] += 1
+        count(PLAIN_CALLS, name)
         return False
     raise ValueError(f"{name}: no route for device {q.device}")
 
@@ -102,3 +103,26 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
     out = pa.paged_extend_attention_bkgd(q.view(B, S, H // G, G, hd),
                                          k_pool, v_pool, block_tables, pos0)
     return out.view(B, S, H, hd)
+
+
+def pair_score(link_params, claims, evidence):
+    """Bilinear pair scoring of claims (N, d) against evidence (M, d) ->
+    (N, M) fp32; the contract of ``svm.link_score_matrix`` in its
+    full-rank form: ``link_params`` holds ``W`` (d, d), ``w`` (2d,) (the
+    claim half, then the evidence half) and ``bias``."""
+    name = "pair_score"
+    if "W" not in link_params:
+        raise ValueError(f"{name}: takes the full-rank link model (W, w, "
+                         f"bias), got keys {sorted(link_params)}; the "
+                         f"low-rank U/V form is scored by "
+                         f"svm.link_score_matrix")
+    W, w, bias = link_params["W"], link_params["w"], link_params["bias"]
+    d = claims.shape[-1]
+    if tuple(w.shape) != (2 * d,):
+        raise ValueError(f"{name}: w must be ({2 * d},), got "
+                         f"{tuple(w.shape)}")
+    w_c, w_e = w[:d], w[d:]
+    if not _route(name, claims):
+        ps.check_args(claims, evidence, W, w_c, w_e, bias)
+        return ref.pair_score_ref(claims, evidence, W, w_c, w_e, bias)
+    return ps.pair_score_blocked(claims, evidence, W, w_c, w_e, bias)

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the attention kernels (the port of
-``repro.kernels.ref``, ``ref.py:13-96``).
+"""Plain PyTorch versions of the kernels (the port of
+``repro.kernels.ref``, ``ref.py:13-103``).
 
 They are the ground truth the CUDA kernels in ``csrc/*.cu`` are held
 against, and what :mod:`repro_torch.kernels.ops` runs for a tensor on the
-CPU.  All math is fp32; masked scores take the finite
-``NEG_INF`` so a fully masked row never produces a NaN.
+CPU.  All math is fp32 (fp64 inputs stay fp64 in :func:`pair_score_ref`);
+masked scores take the finite ``NEG_INF`` so a fully masked row never
+produces a NaN.
 """
 from __future__ import annotations
 
@@ -91,3 +92,14 @@ def paged_extend_attention_ref(q, k_pool, v_pool, block_tables, pos0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def pair_score_ref(claims, evidence, W, w_c, w_e, bias):
+    """The paper's phase-2 Cartesian scoring: claims (N,d) x evidence
+    (M,d) -> (N,M), ``(C W) E^T + (C w_c)[:, None] + (E w_e)[None, :] +
+    bias``, with every input cast to at least fp32 first."""
+    f = lambda t: t.to(torch.promote_types(t.dtype, torch.float32))  # noqa
+    c, e = f(claims), f(evidence)
+    bil = (c @ f(W)) @ e.T
+    lin = (c @ f(w_c))[:, None] + (e @ f(w_e))[None, :]
+    return bil + lin + bias

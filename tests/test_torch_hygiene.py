@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import argmining, serve  # noqa: E402
 from repro_torch.models import weights  # noqa: E402
 from repro_torch.serving import Engine, ServeConfig  # noqa: E402
 
@@ -30,6 +30,12 @@ def test_importing_every_module_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert "repro_torch.serving.engine" in names and len(names) > 15
+    assert {"repro_torch.core.pipeline", "repro_torch.core.stream",
+            "repro_torch.core.filtering", "repro_torch.core.joins",
+            "repro_torch.core.fault", "repro_torch.data.text",
+            "repro_torch.models.svm", "repro_torch.kernels.pair_score",
+            "repro_torch.configs.margot_svm",
+            "repro_torch.launch.argmining"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -82,6 +88,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                         block_size=8))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduce", "--requests", "1"])
+    for mode in ("batch", "stream"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            argmining.main([mode])
 
 
 def test_unknown_arch_is_named():
