@@ -4,7 +4,8 @@
 
 It drives the port's two serving paths, the paged engine on the Hopper
 paged attention kernels and the dense fused engine (the serve driver's
-default) on the flash attention and split-K decode kernels, and the
+default) on the flash attention and split-K decode kernels, the dense
+engine on the Mamba-1 family on the selective-scan kernel, and the
 paper's MARGOT pipeline (batch and stream) on the pair-score kernel, and
 holds every kernel against its plain PyTorch version.  One line per
 phase:
@@ -24,16 +25,29 @@ phase:
    and the stream's (1024, 1024, 1024) on MARGOT features and on random
    inputs, and on a small grid in fp32 and bf16, each held against the
    plain version in fp64, with a TF32 control that the limit must
-   reject; kernel, plain and library times and the bound;
+   reject; the selective scan at the Mamba serve's admit shapes (4, 512,
+   8192, 16), (1, 1000, 8192, 16), (1, 100, 8192, 16) and on a small grid
+   (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view), each
+   held against the plain version at atol = rtol = 1e-4, with a control
+   (the carry zeroed at every 64-step chunk) that the limit must reject;
+   kernel, plain and library times and the bound;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
-   through the plain versions; all four runs give the same tokens;
+   through the plain versions; all four runs give the same tokens; then
+   the two-layer fp32 reduced falcon-mamba-7b through the dense engine,
+   through the kernel and forced through the plain version, with prompts
+   of 130 and 100 tokens among them: both give the same tokens;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
    then dense; each path's kernel launch counts, read right after its own
    run, must be > 0 with no plain calls; then one profiled decode sync of
-   each;
+   each.  Then, with those engines freed, falcon-mamba-7b (64 layers,
+   d_model 4096, d_inner 8192, bf16, seeded random weights), 8 slots,
+   max_len 2048, K=8, 8 requests (4 x 512, 1000, 2 x 256, 100 tokens,
+   same lengths adjacent), max_new 32: ``ssm_scan`` launches must be 64 a
+   prefill batch (256) with no plain calls; then one profiled decode sync
+   and one profiled admit;
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -87,6 +101,15 @@ LIBRARY_TOL = 3e-2
 # largest, which the control (the plain version in fp32 with TF32 on)
 # shows by failing the limit at the batch and stream shapes.
 PAIR_REL = 1e-5
+# The selective scan is held against its plain version (fp32, one step at
+# a time) at the repo's scan tolerance, atol = rtol = 1e-4
+# (tests/test_kernels.py:199-200).  The kernel runs the same recurrence
+# with one FMA a step, so only rounding separates them.  The control, the
+# plain version with the carry zeroed at every 64-step chunk (what a
+# chunked kernel that lost its carry would give), must fail the limit, or
+# the check could not see the carry across chunks.
+SCAN_TOL = 1e-4
+SCAN_CHUNK = 64
 
 
 def fail(msg: str):
@@ -129,6 +152,7 @@ def phase_device() -> str:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pair_score as ps
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssm_scan as ss
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -139,7 +163,7 @@ def phase_device() -> str:
           f"count={torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.build_all()
-    for module in (pa, fa, da, ps):
+    for module in (pa, fa, da, ps, ss):
         module._library()
     build_s = time.perf_counter() - t0
     usage = [ln.strip() for log in build.BUILD_LOG.values()
@@ -415,6 +439,7 @@ def phase_kernels():
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
     _dense_main_path(gen, dev, stats, shares, issue)
     _pair_score_checks(gen, dev, stats, issue)
+    _ssm_scan_checks(gen, dev, stats, issue)
     print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
           f"the plain version's fp32 result on the same inputs, and at most "
           f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
@@ -678,6 +703,115 @@ def _pair_score_checks(gen, dev, stats, issue):
             issue["pair_score"] = iss
 
 
+def _scan_inputs(gen, dev, B, S, D, N):
+    """Stable dynamics as tests/test_kernels.py:189-194: a in (0, 1), b
+    small, h0 nonzero; fp32."""
+    import torch
+    a = torch.sigmoid(_randn(gen, (B, S, D, N), torch.float32, dev))
+    b = _randn(gen, (B, S, D, N), torch.float32, dev) * 0.1
+    return a, b, _randn(gen, (B, D, N), torch.float32, dev)
+
+
+def _chunk_zeroed(a, b, h0):
+    """The control: the plain recurrence with the carry zeroed at every
+    SCAN_CHUNK-step chunk boundary."""
+    import torch
+    hs, h = torch.empty_like(b), h0
+    for t in range(a.shape[1]):
+        if t and t % SCAN_CHUNK == 0:
+            h = torch.zeros_like(h)
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    return hs, h
+
+
+def _scan_check(name, a, b, h0, control=False):
+    """The kernel's (h_seq, h_final) against the plain version's on the
+    same inputs at atol = rtol = SCAN_TOL; with ``control`` the chunk-
+    zeroed recurrence must fail that limit.  Returns (max abs error of
+    both outputs, the control's max abs error or None)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    hs, hT = ss.ssm_scan_blocked(a, b, h0)
+    torch.cuda.synchronize()
+    want = ref.ssm_scan_ref(a, b, h0)
+    err = 0.0
+    for got, w, what in ((hs, want[0], "h_seq"), (hT, want[1], "h_final")):
+        check(got.shape == w.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: bad output")
+        err = max(err, (got - w).abs().max().item())
+        check(torch.allclose(got, w, atol=SCAN_TOL, rtol=SCAN_TOL),
+              f"{name} {what}: max_abs_err {err:.3e} beyond atol=rtol="
+              f"{SCAN_TOL}")
+    ctl = None
+    if control:
+        zs, zT = _chunk_zeroed(a, b, h0)
+        ctl = max((zs - want[0]).abs().max().item(),
+                  (zT - want[1]).abs().max().item())
+        check(not (torch.allclose(zs, want[0], atol=SCAN_TOL, rtol=SCAN_TOL)
+                   and torch.allclose(zT, want[1], atol=SCAN_TOL,
+                                      rtol=SCAN_TOL)),
+              f"{name}: the chunk-zeroed control passes the limit "
+              f"{SCAN_TOL}: the check cannot see the carry")
+    return err, ctl
+
+
+def _ssm_scan_checks(gen, dev, stats, issue):
+    """The selective scan against its plain version: a grid of small
+    shapes (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view,
+    which take the kernel's one-channel threads), then the Mamba serve's
+    admit shapes with the chunk-zeroed control and times."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    worst = 0.0
+    grid = [(2, S, 64, N) for N in (8, 16) for S in (1, 37, 130)]
+    grid += [(3, 9, 5, 3)]
+    for B, S, D, N in grid:
+        err, _ = _scan_check(f"ssm_scan ({B}, {S}, {D}, {N})",
+                             *_scan_inputs(gen, dev, B, S, D, N))
+        worst = max(worst, err)
+    a, b, h0 = _scan_inputs(gen, dev, 2, 37, 64, 8)
+    buf = torch.empty(a.numel() + 1, device=dev)
+    buf[1:].copy_(a.reshape(-1))
+    err, _ = _scan_check("ssm_scan misaligned view",
+                         buf[1:].view(a.shape), b, h0)
+    worst = max(worst, err)
+    print(f"[kernels] ssm_scan grid: {len(grid) + 1} checks over (B, S, D, "
+          f"N) in {grid} and a view starting 4 bytes past a 16-byte "
+          f"boundary passed: max |kernel - plain| {worst:.3e} (limit atol="
+          f"rtol={SCAN_TOL})")
+    for B, S in ((4, 512), (1, 1000), (1, 100)):
+        D, N = 8192, 16
+        a, b, h0 = _scan_inputs(gen, dev, B, S, D, N)
+        err, ctl = _scan_check(f"ssm_scan ({B}, {S}, {D}, {N})", a, b, h0,
+                               control=True)
+        n_el = B * S * D * N
+        by = 4 * (3 * n_el + 2 * B * D * N)    # a, b in; h_seq, h0, h_final
+        st = _stats(err, by, 2 * n_el, "float32",
+                    _time_ms([lambda: ss.ssm_scan_blocked(a, b, h0)],
+                             iters=5),
+                    _time_ms([lambda: ref.ssm_scan_ref(a, b, h0)], iters=2),
+                    _time_ms([lambda: torch.cumsum(b, dim=1)], iters=5))
+        iss = _issue_ms(lambda: ss.ssm_scan_blocked(a, b, h0), iters=10)
+        print(f"[kernels] ssm_scan ({B}, {S}, {D}, {N}) fp32: "
+              f"max_abs_err={err:.3e} (limit atol=rtol={SCAN_TOL}; control "
+              f"with the carry zeroed every {SCAN_CHUNK} steps: "
+              f"{ctl:.3e}) ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+              f"yardstick torch.cumsum(b_bar, dim=1) ms="
+              f"{st['library_ms']:.4f} (one tensor read, one written: 2/3 "
+              f"of the scan's bytes; no PyTorch call computes the "
+              f"recurrence) bound_ms={st['bound_ms']:.4f} "
+              f"({st['bound_by']}); issued one by one from Python: "
+              f"{iss:.4f} ms per call")
+        if (B, S) == (4, 512):
+            stats["ssm_scan"] = dict(st, library_ms=None)
+            issue["ssm_scan"] = iss
+        del a, b, h0
+    torch.cuda.empty_cache()
+
+
 def _stats(err, nbytes, n_ops, dtype, ms, plain_ms, library_ms):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
@@ -695,6 +829,7 @@ def _drain(eng, prompts, max_new):
 
 PAGED_KERNELS = ("paged_decode_attention", "paged_extend_attention")
 DENSE_KERNELS = ("flash_attention", "decode_attention")
+SSM_KERNELS = ("ssm_scan",)
 
 
 def _forced_plain(plain: bool):
@@ -769,6 +904,55 @@ def phase_token_exact():
           f"{n_tok} tokens identical through the kernels and the plain "
           f"versions on the paged path ({used['paged']}) and the dense path "
           f"({used['dense']}), and between the two paths")
+    _token_exact_mamba()
+
+
+def _token_exact_mamba():
+    """fp32, two-layer reduced falcon-mamba-7b on the dense engine: the
+    scan kernel gives the plain version's tokens, on prompts of 130 tokens
+    (at and past the JAX kernel gate, S >= 128) and of 100 (not a
+    multiple of the TPU kernel's 64-step chunk)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving import Engine, ServeConfig
+    dev = torch.device("cuda", 0)
+    cfg = reduced(get_config("falcon-mamba-7b")).replace(
+        n_layers=2, groups=(ScanGroup(("S",), 2),))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (130, 5, 100, 9, 7, 7)]
+    scfg = ServeConfig(max_len=256, slots=2, sync_every=4)
+    runs = {}
+    for label, plain in (("kernel", False), ("plain", True)):
+        ops.reset_counts()
+        with _forced_plain(plain):
+            eng = Engine(params, cfg, scfg, device=dev)
+            reqs = _drain(eng, prompts, 6)
+        launches, calls = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+        batches = eng.metrics.counter("engine.prefill_batches").value
+        used, unused = (calls, launches) if plain else (launches, calls)
+        check(used["ssm_scan"] == 2 * batches and
+              sum(used.values()) == used["ssm_scan"] and
+              not any(unused.values()),
+              f"mamba {label} run: launches {launches}, plain {calls}, "
+              f"prefill batches {batches}")
+        runs[label] = [(r.out_tokens, r.finish_reason) for r in reqs]
+        if not plain:
+            n_launch = launches["ssm_scan"]
+    check(runs["kernel"] == runs["plain"],
+          f"mamba: kernel tokens {runs['kernel']} != plain {runs['plain']}")
+    print(f"[token-exact] fp32 2-layer reduced falcon-mamba-7b, dense "
+          f"engine: {len(prompts)} requests of "
+          f"{[len(p) for p in prompts]} tokens, "
+          f"{sum(len(t) for t, _ in runs['kernel'])} tokens identical "
+          f"through the scan kernel ({n_launch} launches in "
+          f"{batches} prefill batches) and the plain version")
 
 
 # ----------------------------------------------------------------------
@@ -778,6 +962,7 @@ def phase_serve():
     launches = {}
     for paged in (True, False):
         launches.update(_serve_path(paged))
+    launches.update(_serve_mamba())
     return launches
 
 
@@ -854,6 +1039,138 @@ def _serve_path(paged: bool):
     gc.collect()
     torch.cuda.empty_cache()
     return {k: launches[k] for k in keys}
+
+
+def _serve_mamba():
+    """falcon-mamba-7b at full width on the dense engine, after the
+    internlm2 engines are freed; returns the scan's launches in the run."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated(dev) < 2**30,
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+          f"allocated before the Mamba serve")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = build_engine("falcon-mamba-7b", max_len=2048, slots=8,
+                       sync_every=8, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, mixer = eng.cfg, eng.params["groups"][0][0]["mixer"]
+    check(cfg.n_layers == 64 and cfg.d_model == 4096 and
+          cfg.d_inner == 8192 and cfg.ssm_state == 16 and
+          cfg.dt_rank == 256 and cfg.conv_k == 4 and cfg.vocab == 65024 and
+          cfg.tie_embeddings and "lm_head" not in eng.params and
+          mixer["in_proj"].shape == (64, 4096, 16384) and
+          mixer["in_proj"].dtype == torch.bfloat16 and
+          mixer["A_log"].dtype == torch.float32 and not eng.paged,
+          "not the full-width bf16 falcon-mamba-7b on the dense engine")
+    print(f"[serve mamba] built falcon-mamba-7b (64 layers, d_model 4096, "
+          f"d_inner 8192, state 16, bf16, dense state 8 slots) in "
+          f"{build_s:.1f}s; device memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, peak during "
+          f"the init {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    rng = np.random.RandomState(1)
+    tok = lambda n: rng.randint(0, cfg.vocab, n).astype(np.int32)  # noqa
+    _drain(eng, [tok(40)], 8)           # warm-up (cuBLAS, allocator)
+    # same lengths adjacent, so each group shares one exact-length admit
+    prompts = [tok(512) for _ in range(4)] + [tok(1000), tok(256), tok(256),
+                                             tok(100)]
+    max_new = 32
+    b0 = eng.metrics.counter("engine.prefill_batches").value
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = _drain(eng, prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+    batches = eng.metrics.counter("engine.prefill_batches").value - b0
+    for r in reqs:
+        check(r.finish_reason == "max_new" and
+              len(r.out_tokens) == max_new + 1 and
+              all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"request {r.rid}: {r.finish_reason}, {r.out_tokens}")
+    check(batches == 4 and launches["ssm_scan"] == 64 * batches and
+          sum(launches.values()) == launches["ssm_scan"],
+          f"mamba: launches {launches} in {batches} prefill batches, "
+          f"expected ssm_scan = 64 x 4 and no other kernel")
+    check(not any(plain.values()), f"plain versions ran: {plain}")
+    gen = sum(r.decoded for r in reqs)
+    ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
+    print(f"[serve mamba] falcon-mamba-7b {len(reqs)} requests "
+          f"({sum(len(p) for p in prompts)} prompt tokens) max_new={max_new}"
+          f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
+          f"ttft_max={ttft[-1]:.3f}s launches={launches} plain_calls={plain} "
+          f"prefill_batches={batches} "
+          f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
+    _profile_decode_sync(eng, tok, "mamba")
+    _profile_admit(eng, tok)
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ssm_scan": launches["ssm_scan"]}
+
+
+def _profile_admit(eng, tok):
+    """One admit of 4 x 512 tokens (64 layers) on the host clock, then the
+    next one under ``torch.profiler``: the scan kernel's device time
+    against what runs around it in torch: the broadcast multiplies that
+    build a_bar and b_bar, the exp of a_bar, the C contraction (a batched
+    GEMV), the projection GEMMs and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def admit():
+        for _ in range(4):
+            eng.submit(tok(512), max_new=1)
+        eng._admit_fused()
+        torch.cuda.synchronize()
+        eng.run_until_drained()
+
+    admit()
+    t0 = time.perf_counter()
+    admit()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.submit(tok(512), max_new=1)
+        eng._admit_fused()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    busy_us, rows, top = _device_time(prof, "mamba_admit")
+    share = dict.fromkeys(("scan", "mul", "exp", "gemv", "gemm", "other"),
+                          0.0)
+    for us, _, name in rows:
+        low = name.lower()
+        kind = ("scan" if "ssm_scan" in low else
+                "mul" if "mulfunctor<float> > >" in low and
+                "binaryfunctor<float" in low else
+                "exp" if "exp_kernel" in low else
+                "gemv" if "gemv" in low else
+                "gemm" if any(k in low for k in ("nvjet", "gemm", "cutlass",
+                                                 "xmma")) else
+                "other")
+        share[kind] += us / 1e3
+    print(f"[profile mamba admit] one admit of 4 x 512 tokens (64 layers): "
+          f"unprofiled wall {host_ms:.2f}ms with its one-token drain; "
+          f"profiled admit wall={wall_ms:.2f}ms device_busy="
+          f"{busy_us / 1e3:.2f}ms idle_share="
+          f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: " +
+          ", ".join(f"{k} {v:.2f}" for k, v in share.items()) +
+          f"; top: {top}")
 
 
 def _device_time(prof, label):
@@ -1069,7 +1386,8 @@ def phase_list(stats, launches, smi):
               "paged_extend_attention": csrc + "paged_attention.cu",
               "flash_attention": csrc + "flash_attention.cu",
               "decode_attention": csrc + "decode_attention.cu",
-              "pair_score": csrc + "pair_score.cu"}
+              "pair_score": csrc + "pair_score.cu",
+              "ssm_scan": csrc + "ssm_scan.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
@@ -1077,13 +1395,15 @@ def phase_list(stats, launches, smi):
                 "flash_attention": "src/repro/kernels/flash_attention.py:74",
                 "decode_attention":
                 "src/repro/kernels/decode_attention.py:40",
-                "pair_score": "src/repro/kernels/pair_score.py:41"}
+                "pair_score": "src/repro/kernels/pair_score.py:41",
+                "ssm_scan": "src/repro/kernels/ssm_scan.py:44"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
-               for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",)]
+               for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",) +
+               SSM_KERNELS]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_config("internlm2-1.8b")``.
+"""Architecture registry of the port: ``get_config("internlm2-1.8b")``,
+``get_config("falcon-mamba-7b")``.
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -10,6 +11,7 @@ from repro_torch.configs.base import ArchConfig, ScanGroup, reduced  # noqa: F40
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

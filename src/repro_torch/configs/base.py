@@ -8,7 +8,7 @@ dtype properties differ: ``cfg.dtype`` / ``cfg.param_dtype`` strings map to
 
 Kind codes (see the JAX module): ``A`` full causal attention, ``L`` local
 sliding-window, ``G`` global, ``R`` RG-LRU, ``M`` MoE, ``S`` Mamba-1,
-``D`` dense block in a MoE model.  This slice of the port runs ``A`` only.
+``D`` dense block in a MoE model.  The port runs ``A`` and ``S``.
 """
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_extend_attention": 0,
                             "flash_attention": 0,
                             "decode_attention": 0,
-                            "pair_score": 0}
+                            "pair_score": 0,
+                            "ssm_scan": 0}
 
 _count_lock = threading.Lock()
 

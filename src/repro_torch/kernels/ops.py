@@ -1,6 +1,7 @@
 """Public kernel ops of the port, with the contracts of
-``repro.kernels.ops`` (``ops.py:22-95``): attention queries in the
-model's ``(B, [S,] H, hd)`` layout, and the phase-2 pair score.
+``repro.kernels.ops`` (``ops.py:22-111``): attention queries in the
+model's ``(B, [S,] H, hd)`` layout, the phase-2 pair score and the Mamba
+selective scan.
 
 The device of the tensors decides the route: a CUDA tensor launches the
 Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
@@ -12,12 +13,15 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import pair_score as ps
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as ss
 
 #: plain-version calls per op (the CPU route)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
@@ -126,3 +130,24 @@ def pair_score(link_params, claims, evidence):
         ps.check_args(claims, evidence, W, w_c, w_e, bias)
         return ref.pair_score_ref(claims, evidence, W, w_c, w_e, bias)
     return ps.pair_score_blocked(claims, evidence, W, w_c, w_e, bias)
+
+
+def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
+    """The selective scan with the contract of ``models.ssm.selective_scan``
+    (``repro.kernels.ops.ssm_scan``, ``ops.py:98-111``): xc, dt (B,S,di),
+    Bc, Cc (B,S,N), A (di,N), D (di,), h0 (B,di,N) or None, all fp32 ->
+    (y (B,S,di), h_final (B,di,N)).  The discretisation (``a_bar``,
+    ``b_bar``) and the ``C`` contraction run in torch around the scan, as
+    they run outside the Pallas kernel in JAX."""
+    a_bar = (dt[..., None] * A).exp_()                  # (B,S,di,N)
+    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]    # (B,S,di,N)
+    if h0 is None:
+        h0 = torch.zeros((xc.shape[0], xc.shape[2], A.shape[-1]),
+                         dtype=torch.float32, device=xc.device)
+    if _route("ssm_scan", a_bar):
+        h_seq, h_fin = ss.ssm_scan_blocked(a_bar, b_bar, h0)
+    else:
+        ss.check_args(a_bar, b_bar, h0)
+        h_seq, h_fin = ref.ssm_scan_ref(a_bar, b_bar, h0)
+    y = torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D
+    return y, h_fin

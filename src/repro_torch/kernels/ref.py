@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels (the port of
-``repro.kernels.ref``, ``ref.py:13-103``).
+``repro.kernels.ref``, ``ref.py:13-115``).
 
 They are the ground truth the CUDA kernels in ``csrc/*.cu`` are held
 against, and what :mod:`repro_torch.kernels.ops` runs for a tensor on the
@@ -103,3 +103,15 @@ def pair_score_ref(claims, evidence, W, w_c, w_e, bias):
     bil = (c @ f(W)) @ e.T
     lin = (c @ f(w_c))[:, None] + (e @ f(w_e))[None, :]
     return bil + lin + bias
+
+
+def ssm_scan_ref(a_bar, b_bar, h0):
+    """Diagonal SSM recurrence ``h_t = a_t * h_{t-1} + b_t``, one step at a
+    time (``ref.py:106-115``).  a_bar, b_bar: (B,S,D,N) fp32; h0: (B,D,N).
+    Returns (h_seq (B,S,D,N), h_final (B,D,N))."""
+    h_seq = torch.empty_like(b_bar)
+    h = h0
+    for t in range(a_bar.shape[1]):
+        h = a_bar[:, t] * h + b_bar[:, t]
+        h_seq[:, t] = h
+    return h_seq, h

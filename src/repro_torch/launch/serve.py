@@ -1,10 +1,12 @@
 """Serving driver of the port: one engine on one device, the
 single-replica path of ``repro.launch.serve``.  It serves the dense fused
 engine by default, and the paged engine (block pool, prefix cache) with
-``--paged``, as the JAX driver does.
+``--paged``, as the JAX driver does.  ``--arch falcon-mamba-7b`` serves
+the Mamba-1 family, which has no K/V to page: with ``--paged`` it serves
+dense and prints ``kv=dense``, as the JAX driver would.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --requests 8 [--paged]
+        --requests 8 [--paged] [--arch falcon-mamba-7b]
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduce --requests 3 --max-new 4 --slots 2 --max-len 64
 

@@ -1,22 +1,27 @@
-"""Decoder LM of the port, kind ``A`` (``repro.models.transformer``):
-dense prefill and decode, paged decode and extend.
+"""Decoder LM of the port (``repro.models.transformer``), kinds ``A``
+(attention: dense prefill and decode, paged decode and extend) and ``S``
+(Mamba-1: prefill and decode over a recurrent state).
 
 Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
 [pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
 Python loop over the repeats takes the place of ``lax.scan``.  Caches
 mirror it: dense ``caches[gi][pi] = {"k", "v"}`` of ``(repeats, B, L, KV,
-hd)``, paged ``{"kp", "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``.
+hd)``, paged ``{"kp", "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``,
+SSM state ``{"conv", "h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats,
+B, di, N)``.
 
-In place, unlike JAX: the prefill, decode and extend passes write K/V into
-the cache tensors they are given, and :func:`decode_loop` advances the
-loop state tensors (``pos``, ``last``, ``active``, ``remaining``) where
-they lie.  Each returns its inputs, so call sites read like the JAX ones.
+In place, unlike JAX: the prefill, decode and extend passes write K/V and
+SSM state into the cache tensors they are given, and :func:`decode_loop`
+advances the loop state tensors (``pos``, ``last``, ``active``,
+``remaining``) where they lie.  Each returns its inputs, so call sites
+read like the JAX ones.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, embed, mask_padded_logits,
                                        rms_norm, unembed)
 
@@ -46,28 +51,31 @@ def paged_supported(cfg, max_len: int) -> bool:
 
 
 def _check_kind(kind: str):
-    if kind != "A":
+    if kind not in ("A", "S"):
         raise NotImplementedError(f"layer kind {kind!r} " +
                                   _NOT_PORTED.format("6 (the other LM "
                                                      "families)"))
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
-    """Dense K/V cache of one layer (``transformer.py:75-83``, kind
-    ``A``)."""
+    """Dense cache of one layer (``transformer.py:75-83``): K/V for kind
+    ``A``, the recurrent state for kind ``S``."""
     _check_kind(kind)
+    if kind == "S":
+        return ssm.init_ssm_state(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_len, device)
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
-    """Dense caches, one ``(repeats, batch, max_len, KV, hd)`` K/V pair
-    per (group, pattern position) (``transformer.py:250-260``)."""
+    """Dense caches per (group, pattern position), each leaf stacked to
+    ``(repeats, batch, ...)`` (``transformer.py:250-260``)."""
     caches = []
     for g in cfg.groups:
         pos_caches = []
         for kind in g.pattern:
             c = init_layer_cache(cfg, kind, batch, max_len, device)
-            pos_caches.append({k: v[None].repeat(g.repeats, 1, 1, 1, 1)
+            pos_caches.append({k: v[None].repeat(g.repeats,
+                                                 *([1] * v.dim()))
                                for k, v in c.items()})
         caches.append(pos_caches)
     return caches
@@ -91,13 +99,24 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
 
 
 def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
-    """One kind-``A`` layer (``transformer.py:130-210``): ``prefill`` into
-    a dense cache, ``decode`` over a dense or paged cache, ``extend`` over
-    a paged cache.  ``bt`` is the (B, nb) block table of a paged cache.
-    Returns ``(x, cache)``; the JAX function's aux loss is zero for these
-    layers and is dropped."""
+    """One layer (``transformer.py:130-210``).  Kind ``A``: ``prefill``
+    into a dense cache, ``decode`` over a dense or paged cache, ``extend``
+    over a paged cache; ``bt`` is the (B, nb) block table of a paged cache.
+    Kind ``S`` (``:136-143``): a Mamba mixer and no MLP; ``prefill`` runs
+    the whole prompt from a zero state and ``decode`` one step from
+    ``cache``, each returning the new state.  Returns ``(x, cache)``; the
+    JAX function's aux loss is zero for these layers and is dropped."""
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg)
+    if kind == "S":
+        if mode == "decode":
+            mix, cache = ssm.ssm_decode(p["mixer"], h, cache, cfg)
+        elif mode == "prefill":
+            mix, cache = ssm.ssm_forward(p["mixer"], h, cfg, state=None)
+        else:
+            raise NotImplementedError(f"mode {mode!r} over an SSM state: "
+                                      f"the family serves dense")
+        return x + mix, cache
     paged = attn.is_paged_cache(cache)
     if mode == "decode" and paged:
         mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
@@ -138,14 +157,19 @@ def _take(tree, r: int):
 
 def run_backbone(params, x, cfg, mode: str, caches, pos, bt=None):
     """x: (B,S,d) embedded input -> (x, caches), caches updated in place.
-    ``bt``: (B, nb) int32 block table of paged caches, None for dense."""
+    ``bt``: (B, nb) int32 block table of paged caches, None for dense.
+    Attention writes K/V into its repeat's views itself; a layer that
+    returns new tensors (the SSM state) has them copied into its views."""
     for gi, g in enumerate(cfg.groups):
         gp, gc = params["groups"][gi], caches[gi]
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
                 layer_cache = {key: t[r] for key, t in gc[pi].items()}
-                x, _ = apply_layer(_take(gp[pi], r), x, cfg, kind, mode,
-                                   layer_cache, pos, bt)
+                x, new = apply_layer(_take(gp[pi], r), x, cfg, kind, mode,
+                                     layer_cache, pos, bt)
+                for key, view in layer_cache.items():
+                    if new[key] is not view:
+                        view.copy_(new[key])
     return x, caches
 
 

@@ -10,8 +10,11 @@ init_params``), with torch tensors at the leaves::
                   "ln2": {"w"}, "ffn": {"w_gate", "w_up", "w_down"}}]],
      "lm_head": (d, padded_vocab)}
 
-Layer leaves are stacked ``(repeats, ...)``.  Flat keys are the tree paths
-``checkpointer.py:25-31`` writes: ``groups/0/0/mixer/wq`` and so on.
+A kind-``S`` (Mamba-1) layer is ``{"ln1": {"w"}, "mixer": {"in_proj",
+"conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
+"out_proj"}}`` (``ssm.py:21-36``).  Layer leaves are stacked ``(repeats,
+...)``.  Flat keys are the tree paths ``checkpointer.py:25-31`` writes:
+``groups/0/0/mixer/wq`` and so on.
 """
 from __future__ import annotations
 
@@ -24,8 +27,12 @@ import torch
 
 from repro_torch.device import resolve_device
 
-# (per-layer shape, init): "normal" is N(0,1) / sqrt(fan_in), "embedding"
-# N(0,1) (scale 1.0), "ones" the norm weights (layers.py:15-26)
+# (per-layer shape, init) with the JAX package's inits (layers.py:15-26,
+# ssm.py:21-36): "normal" is N(0,1) / sqrt(fan_in), "embedding" N(0,1)
+# (scale 1.0), "conv" N(0,1) * 0.5 (dense_init's scale is the std),
+# "ones" and "zeros" constants, "a_log" the deterministic log(1..N) tiled
+# over d_inner.  Every leaf is in cfg.param_dtype except "a_log", which
+# stays fp32 (spec_dtype).
 _Spec = Tuple[Tuple[int, ...], str]
 
 
@@ -38,13 +45,17 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
              "final_norm/w": (0, ((d,), norm_init))}
     for gi, g in enumerate(cfg.groups):
         for pi, kind in enumerate(g.pattern):
+            pre, R = f"groups/{gi}/{pi}", g.repeats
+            if kind == "S" and cfg.norm == "rmsnorm":
+                specs.update(_ssm_specs(cfg, pre, R, norm_init))
+                continue
             if kind != "A" or cfg.qk_norm or cfg.mlp != "swiglu" or \
                     cfg.norm != "rmsnorm":
                 raise NotImplementedError(
                     f"{cfg.name}: only plain kind-A layers (rmsnorm, "
-                    f"swiglu, no qk-norm) are in the port yet: ROADMAP.md, "
-                    f"Queue 1, item 6 (the other LM families)")
-            pre, R = f"groups/{gi}/{pi}", g.repeats
+                    f"swiglu, no qk-norm) and kind-S layers are in the "
+                    f"port yet: ROADMAP.md, Queue 1, item 6 (the other LM "
+                    f"families)")
             specs.update({
                 f"{pre}/ln1/w": (R, ((d,), norm_init)),
                 f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
@@ -59,6 +70,30 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = (0, ((d, cfg.padded_vocab), "normal"))
     return specs
+
+
+def _ssm_specs(cfg, pre: str, R: int, norm_init: str):
+    """The specs of one stacked kind-``S`` layer (``ssm.py:21-36``)."""
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, K = cfg.dt_rank, cfg.conv_k
+    return {
+        f"{pre}/ln1/w": (R, ((d,), norm_init)),
+        f"{pre}/mixer/in_proj": (R, ((d, 2 * di), "normal")),
+        f"{pre}/mixer/conv_w": (R, ((K, di), "conv")),
+        f"{pre}/mixer/conv_b": (R, ((di,), "zeros")),
+        f"{pre}/mixer/x_proj": (R, ((di, dtr + 2 * N), "normal")),
+        f"{pre}/mixer/dt_proj": (R, ((dtr, di), "normal")),
+        f"{pre}/mixer/dt_bias": (R, ((di,), "zeros")),
+        f"{pre}/mixer/A_log": (R, ((di, N), "a_log")),
+        f"{pre}/mixer/D": (R, ((di,), "ones")),
+        f"{pre}/mixer/out_proj": (R, ((di, d), "normal")),
+    }
+
+
+def spec_dtype(spec, cfg) -> torch.dtype:
+    """The dtype of a leaf: fp32 for ``A_log`` (the JAX init keeps it
+    fp32), else ``cfg.param_dtype``."""
+    return torch.float32 if spec[1][1] == "a_log" else cfg.p_dtype
 
 
 def _full_shape(spec) -> Tuple[int, ...]:
@@ -101,7 +136,8 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree: Mapping[str, np.ndarray], cfg, device="cuda"):
     """The JAX package's parameters, as numpy arrays keyed by tree path,
-    -> the port's parameter tree on ``device`` in ``cfg.param_dtype``."""
+    -> the port's parameter tree on ``device``, each leaf in its spec's
+    dtype (:func:`spec_dtype`)."""
     device = resolve_device(device)
     flat = {}
     for key, spec in param_specs(cfg).items():
@@ -111,7 +147,7 @@ def params_from_numpy(tree: Mapping[str, np.ndarray], cfg, device="cuda"):
         if tuple(t.shape) != _full_shape(spec):
             raise ValueError(f"parameter {key!r} has shape "
                              f"{tuple(t.shape)}, expected {_full_shape(spec)}")
-        flat[key] = t.to(device=device, dtype=cfg.p_dtype)
+        flat[key] = t.to(device=device, dtype=spec_dtype(spec, cfg))
     return _unflatten(flat)
 
 
@@ -124,23 +160,32 @@ def load_checkpoint(step_dir: str, cfg, device="cuda"):
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
-    """The port's own seeded init, with the JAX package's distributions:
-    weights N(0,1) / sqrt(fan_in) (fan_in = the per-layer input width),
-    the embedding N(0,1), norms ones.  Draws come from ``generator``,
-    which must live on ``device``; JAX's ``PRNGKey`` draws cannot be
-    reproduced, so parity tests carry JAX weights over with
+    """The port's own seeded init, with the JAX package's distributions
+    (the inits above): weights N(0,1) / sqrt(fan_in) (fan_in = the
+    per-layer input width), the embedding N(0,1), norms ones.  Draws come
+    from ``generator``, which must live on ``device``, one repeat at a time
+    in fp32, so the largest transient is one layer's leaf (falcon-mamba-
+    7b's in_proj is 17 GB in fp32 when stacked).  JAX's ``PRNGKey`` draws
+    cannot be reproduced, so parity tests carry JAX weights over with
     :func:`params_from_numpy` instead."""
     device = resolve_device(device)
     flat = {}
     for key, spec in param_specs(cfg).items():
         shape, init = spec[1]
-        full = _full_shape(spec)
+        dtype = spec_dtype(spec, cfg)
+        out = torch.empty(_full_shape(spec), dtype=dtype, device=device)
         if init in ("ones", "zeros"):
-            fill = torch.ones if init == "ones" else torch.zeros
-            flat[key] = fill(full, dtype=cfg.p_dtype, device=device)
-            continue
-        std = 1.0 if init == "embedding" else 1.0 / math.sqrt(shape[0])
-        w = torch.randn(full, generator=generator, device=device,
-                        dtype=torch.float32)
-        flat[key] = (w * std).to(cfg.p_dtype)
+            out.fill_(1.0 if init == "ones" else 0.0)
+        elif init == "a_log":
+            n = torch.arange(1, shape[1] + 1, dtype=torch.float32,
+                             device=device)
+            out.copy_(torch.log(n).expand(out.shape))
+        else:
+            std = {"embedding": 1.0, "conv": 0.5}.get(
+                init, 1.0 / math.sqrt(shape[0]))
+            for view in (out if spec[0] else out[None]):
+                w = torch.randn(shape, generator=generator, device=device,
+                                dtype=torch.float32)
+                view.copy_(w * std)
+        flat[key] = out
     return _unflatten(flat)

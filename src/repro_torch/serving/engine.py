@@ -1,5 +1,6 @@
 """LM serving engine of the port: ``repro.serving.engine`` with continuous
-batching, on three paths.
+batching, on three paths, for the dense GQA family (``internlm2-1.8b``)
+and the Mamba-1 family (``falcon-mamba-7b``).
 
 * Dense fused (``paged=False``, the default): K/V live in one dense
   ``max_len`` stripe per slot.  An admit prefills the queue's longest
@@ -16,6 +17,13 @@ batching, on three paths.
 * Reference (``fused=False``, dense): one exact-length batch-1 prefill per
   admit and one host round trip per decoded token, greedy only: the parity
   oracle of the other two.
+
+The Mamba family keeps a recurrent state per slot instead of K/V, so it
+serves dense: ``paged=True`` falls back to the dense engine, as in JAX
+(``engine.paged`` is False and ``engine.paged_fallback_dense`` counts it),
+and its admits take exact-length buckets (pads would enter the state),
+where same-length prompts still share one batch.  On CUDA each SSM layer's
+prefill runs the selective-scan kernel.
 
 Differences from the JAX engine, all confined to the device calls:
 
@@ -222,10 +230,12 @@ class EngineFns:
 
     @staticmethod
     def insert_rows(caches, small, slots):
-        """Replace the cache rows of ``slots`` with the prefilled rows of
-        ``small`` (``(repeats, n, S, KV, hd)`` per layer), then zeros, in
-        place: a whole-row insert, as the JAX admit writes a fresh
-        ``max_len`` cache (``engine.py:431-441``)."""
+        """Replace the whole cache rows of ``slots`` with the prefilled
+        rows of ``small``, in place, as the JAX admit writes a fresh cache
+        (``engine.py:431-441``).  A leaf of ``small`` is ``(repeats, n,
+        ...)``; where it is shorter than the engine's along axis 2 (K/V of
+        a ``bucket`` against ``max_len``) the rest of the row is zeroed,
+        and a state leaf (``conv``, ``h``) fills its row."""
         for group, small_group in zip(caches, small):
             for c, sc in zip(group, small_group):
                 for key, big in c.items():
@@ -330,12 +340,16 @@ class Engine:
         self.device = resolve_device(device)
         if scfg.speculative or scfg.kv_swap:
             raise _not_ported("speculative decode and KV swap", _LIFECYCLE)
-        if not tfm.paged_supported(cfg, scfg.max_len) or cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.fns = EngineFns(cfg, scfg)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        self.paged = scfg.paged
+        # only families whose whole cache is position-addressed K/V page;
+        # the SSM state serves dense, observably (``engine.py:556-561``)
+        self.paged = scfg.paged and tfm.paged_supported(cfg, scfg.max_len)
+        if scfg.paged and not self.paged:
+            self.metrics.counter("engine.paged_fallback_dense").inc()
         if self.paged:
             bs = scfg.block_size
             self.nb_max = scfg.max_len // bs

@@ -35,7 +35,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.core.fault", "repro_torch.data.text",
             "repro_torch.models.svm", "repro_torch.kernels.pair_score",
             "repro_torch.configs.margot_svm",
-            "repro_torch.launch.argmining"} <= set(names)
+            "repro_torch.launch.argmining",
+            "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.kernels.ssm_scan",
+            "repro_torch.models.ssm"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

@@ -376,10 +376,13 @@ def test_cpu_route_counts_plain_calls_only():
     ops.flash_attention(**_flash_args())
     ops.decode_attention(**_dense_decode_args())
     ops.pair_score(*_pair_args())
+    xc = torch.rand(1, 3, 4)
+    ops.ssm_scan(xc, xc, torch.rand(1, 3, 2), torch.rand(1, 3, 2),
+                 -torch.rand(4, 2), torch.rand(4))
     assert ops.PLAIN_CALLS == {"paged_decode_attention": 1,
                                "paged_extend_attention": 1,
                                "flash_attention": 1, "decode_attention": 1,
-                               "pair_score": 1}
+                               "pair_score": 1, "ssm_scan": 1}
     assert set(kernels.LAUNCHES.values()) == {0}
     assert pa.LAUNCHES is kernels.LAUNCHES
     ops.reset_counts()
