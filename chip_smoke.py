@@ -12,17 +12,24 @@ phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
-   process per source, all started together (timed);
+   process per source, all started together (timed), and ptxas's
+   registers and spills for the two wgmma attention kernels (a spill
+   fails the run);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
    causal flash prefill of B=3, S=512, a decode of B=8 over L=2048 at
    ragged lengths), plus a small grid over every head_dim and dtype the
    kernels are built for (and flash's three mask modes, and a decode row
-   of length 0), each held against the plain version's fp32 result on
-   the same inputs, with a control (P rounded to bf16) that the bf16
-   limit must reject; the pair score at the batch shape (256, 512, 1024)
-   and the stream's (1024, 1024, 1024) on MARGOT features and on random
+   of length 0), and the wgmma kernels' tile edges (flash at S 63, 64,
+   65, 129, 200 and G 1, 4, 8; the extend at bs 8 and 16 with pages
+   straddled and a row past the table; a long-prefix extend of 2,048
+   keys; an extend whose unseen pool rows hold NaN), each
+   held against the plain version's fp32 result on the
+   same inputs, with a control (P rounded to bf16) that the bf16 limit
+   must reject; flash also at (1, 2048), above the bf16 ridge; the pair
+   score at the batch shape (256, 512, 1024) and the stream's (1024,
+   1024, 1024) on MARGOT features and on random
    inputs, and on a small grid in fp32 and bf16, each held against the
    plain version in fp64, with a TF32 control that the limit must
    reject; the selective scan at the Mamba serve's admit shapes (4, 512,
@@ -55,7 +62,9 @@ phase:
    rate ramp in both scopes, and one profiled batch partition;
 6. the ``{"kernels": [...]}`` line.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+The last line is ``{"ok": true, "device": {...}}``.  With
+``--kernels-only`` it runs phases 1 and 2 alone (the build and every
+kernel check and time) and prints no result lines.  Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.  The whole ``nvcc`` output goes to ``chiprun_out/``.
 """
@@ -64,6 +73,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +133,10 @@ def check(cond: bool, msg: str):
 
 
 def main():
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        fail(f"usage: python3 chip_smoke.py [--kernels-only]; got "
+             f"{sys.argv[1:]}")
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch not found beside chip_smoke.py: run it from "
              "the root of a checkout of the repository")
@@ -135,6 +149,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     stats = phase_kernels()
+    if kernels_only:
+        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-6 and "
+              "the result lines skipped")
+        return
     phase_token_exact()
     launches = phase_serve()
     launches.update(phase_margot())
@@ -172,6 +190,11 @@ def phase_device() -> str:
             f"ptxas: {len(usage)} kernels, e.g. "
             f"{usage[-1] if usage else '-'}")
     print(line)
+    for source, module in (("flash_attention.cu", fa),
+                           ("paged_attention.cu", pa)):
+        smem = module._library().repro_attention_sm90_smem(128)
+        print(f"[build] {source} "
+              f"{_sm90_usage(build.BUILD_LOG, source, smem)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -180,6 +203,31 @@ def phase_device() -> str:
 
 
 # ----------------------------------------------------------------------
+def _sm90_usage(logs, source, smem) -> str:
+    """ptxas's registers, stack and spills for the wgmma kernel of
+    ``source`` at every head dim (a spill, or a head dim without a report,
+    fails the run), shown for hd = 128 beside ``smem``, the dynamic shared
+    memory it asks for at launch (``Tile<128>::SMEM`` in
+    csrc/attention_sm90.cuh).  ``logs`` is ``build.BUILD_LOG``, which holds
+    the report kept beside a library built by an earlier process too."""
+    check(source in logs, f"{source}: no nvcc report for its library")
+    lines = logs[source].splitlines()
+    found = {}
+    for i, ln in enumerate(lines):
+        hd = re.search(r"attention_sm90_kernelILi(\d+)E", ln)
+        if "Compiling entry function" in ln and hd:
+            info = " ".join(x.split("info    :")[-1].strip()
+                            for x in lines[i + 2:i + 4])
+            check("0 bytes spill stores, 0 bytes spill loads" in info,
+                  f"{source}: the wgmma kernel spills at hd {hd[1]}: {info}")
+            found[int(hd[1])] = info
+    check(sorted(found) == [16, 32, 64, 128],
+          f"{source}: ptxas reported attention_sm90_kernel at head dims "
+          f"{sorted(found)}, not 16, 32, 64, 128")
+    return (f"attention_sm90_kernel<128>: {found[128]}; dynamic shared "
+            f"memory {smem} bytes; no spills at hd 16, 32, 64, 128")
+
+
 def _time_ms(fns, iters: int = 20) -> float:
     """Device ms per call: ``iters`` calls cycling through ``fns`` (each on
     its own copy of the inputs, so the 50 MB L2 holds no earlier call's
@@ -367,6 +415,7 @@ def phase_kernels():
           f"result) passed: paged decode and extend; flash at S 37 and 192 "
           f"x causal / window 64 / bidirectional; split-K decode at "
           f"lengths 0, 1, 37, L")
+    _attention_edges(gen, dev)
 
     # main-path shapes, bf16; 3 copies of the inputs for cold-L2 timing
     B, H, KV, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
@@ -498,6 +547,95 @@ def _dense_grid(gen, dtype, dname, hd, dev):
     return n
 
 
+# The edge shapes of the wgmma design's 64-row, 64-key tiles, as
+# tests/test_torch_attention_sm90.py holds the plain versions against the
+# JAX oracles and the Pallas kernels at them: flash at S one short of, at
+# and one past a tile, two tiles and one past, and 200; G 1, 4 and 8; the
+# extend at bs 8 and 16 with pos0 mid-page (the suffix and the last
+# visible key straddle pages) and a row past the table's end.
+FLASH_EDGE_S = (63, 64, 65, 129, 200)
+FLASH_EDGE_G = ((8, 8), (16, 4), (16, 2))
+EXTEND_EDGES = ((8, 12, 37, (5, 21, 60)), (16, 6, 37, (13, 50, 70)),
+                (8, 6, 20, (3, 40, 45)), (16, 4, 20, (0, 31, 60)))
+
+
+def _attention_edges(gen, dev):
+    """The bf16 flash and extend kernels at the edge shapes above (hd 32
+    and 128), a long-prefix extend (one admit of 256 tokens after 1,792
+    cached), then an extend whose pool rows that no row may see hold
+    NaN, held against the plain version on the same pool with those rows
+    zeroed (bs 16, 8, and 12, which the producer warp copies without
+    TMA); each against the plain version's fp32 result at the bf16
+    limits."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bf, n = torch.bfloat16, 0
+    for hd in (32, 128):
+        for S in FLASH_EDGE_S:
+            q = _randn(gen, (2, S, 8, hd), bf, dev)
+            k, v = (_randn(gen, (2, S, 2, hd), bf, dev) for _ in range(2))
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                _compare(f"flash edge hd={hd} S={S} causal={causal} "
+                         f"window={window}",
+                         ops.flash_attention(q, k, v, causal=causal,
+                                             window=window),
+                         ref.flash_attention_ref(*_f32(q, k, v),
+                                                 causal=causal,
+                                                 window=window))
+                n += 1
+        for H, KV in FLASH_EDGE_G:
+            q = _randn(gen, (2, 129, H, hd), bf, dev)
+            k, v = (_randn(gen, (2, 129, KV, hd), bf, dev) for _ in range(2))
+            _compare(f"flash edge hd={hd} G={H // KV}",
+                     ops.flash_attention(q, k, v, causal=True),
+                     ref.flash_attention_ref(*_f32(q, k, v), causal=True))
+            n += 1
+        for bs, nb, S, p0 in EXTEND_EDGES:
+            for H, KV in ((8, 2), (8, 8)):
+                q, kp, vp, bt = _paged_inputs(gen, len(p0), nb, bs, KV, hd,
+                                              (len(p0), S, H, hd), bf, dev)
+                pos0 = torch.tensor(p0, dtype=torch.int32, device=dev)
+                _compare(f"extend edge hd={hd} bs={bs} pos0={p0} G="
+                         f"{H // KV}",
+                         ops.paged_extend_attention(q, kp, vp, bt, pos0),
+                         ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt,
+                                                        pos0))
+                n += 1
+    # one long-prefix admit: 64 CTAs, each walking 1,824-2,048 keys
+    q, kp, vp, bt = _paged_inputs(gen, 1, 128, 16, 8, 128, (1, 256, 16, 128),
+                                  bf, dev)
+    pos0 = torch.tensor([1792], dtype=torch.int32, device=dev)
+    _compare("extend long prefix",
+             ops.paged_extend_attention(q, kp, vp, bt, pos0),
+             ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0))
+    n += 1
+    for bs in (16, 8, 12):
+        B, nb, S, H, KV, hd = 4, 96 // bs, 37, 16, 8, 128
+        q, kp, vp, bt = _paged_inputs(gen, B, nb, bs, KV, hd, (B, S, H, hd),
+                                      bf, dev)
+        pos0 = torch.tensor([5, 21, 44, 70], dtype=torch.int32, device=dev)
+        last = (pos0.long() + S - 1).clamp(max=nb * bs - 1)   # per sequence
+        seen = torch.zeros(kp.shape[:2], dtype=torch.bool, device=dev)
+        key = torch.arange(nb * bs, device=dev)
+        for b in range(B):
+            rows = key[key <= last[b]]
+            seen[bt[b].long()[rows // bs], rows % bs] = True
+        nan_k, nan_v = kp.clone(), vp.clone()
+        nan_k[~seen], nan_v[~seen] = float("nan"), float("nan")
+        kp[~seen], vp[~seen] = 0, 0
+        out = ops.paged_extend_attention(q, nan_k, nan_v, bt, pos0)
+        _compare(f"extend NaN pool bs={bs}", out,
+                 ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0))
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] attention edges: {n} checks passed: flash at S "
+          f"{FLASH_EDGE_S} x causal / window 64 / bidirectional and G 1, 4, "
+          f"8 at S 129; extend at (bs, nb, S, pos0) {EXTEND_EDGES} x G 4, "
+          f"1; hd 32 and 128; a long-prefix extend (1, 256) at pos0 1792; "
+          f"an extend whose unseen pool rows hold NaN (bs 16, "
+          f"8, 12) equal to the plain version with them zeroed")
+
+
 def _dense_main_path(gen, dev, stats, shares, issue):
     """Flash attention and split-K decode at the dense path's shapes, bf16:
     a causal prefill of B=3, S=512 and a decode of B=8 over L=2048 at
@@ -534,6 +672,7 @@ def _dense_main_path(gen, dev, stats, shares, issue):
                   for s in fsets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a, is_causal=True, enable_gqa=True) for a in sd]))
+    _flash_long(gen, dev)
 
     B, L = 8, 2048
     lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
@@ -570,6 +709,36 @@ def _dense_main_path(gen, dev, stats, shares, issue):
                   for s in dsets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+
+
+def _flash_long(gen, dev):
+    """Flash at (B=1, S=2048) causal, above the bf16 ridge: checked, and
+    timed beside its bound, plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, S, H, KV, hd, bf = 1, 2048, 16, 8, 128, torch.bfloat16
+    fsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+             for _ in range(3)]
+    q, k, v = fsets[0]
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
+    err, share = _compare("flash (1, 2048)",
+                          ops.flash_attention(q, k, v, causal=True), want)
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
+    by = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2
+    st = _stats(
+        err, by, 4 * hd * H * B * S * (S + 1) // 2, "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s, causal=True)
+                  for s in fsets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True)
+                  for s in fsets], iters=3),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True) for a in sd]))
+    print(f"[kernels] flash_attention (1, 2048) causal bf16: max_abs_err="
+          f"{err:.3e} off_rounded={share:.4%} ms={st['ms']:.4f} plain_ms="
+          f"{st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+          f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']})")
 
 
 def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):

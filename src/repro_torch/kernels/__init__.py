@@ -71,3 +71,20 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor]) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
                              f"boundary")
+
+
+#: what the attention kernels' C entry points return besides a CUDA error
+LAUNCH_ERRORS = {
+    -1: "no kernel for this dtype and head_dim",
+    -2: "cuTensorMapEncodeTiled could not be found through the CUDA "
+        "runtime's driver entry point (cudaGetDriverEntryPoint); the TMA "
+        "tensor maps need a driver that provides it (CUDA 12 or later)",
+    -3: "cuTensorMapEncodeTiled refused a TMA tensor map for these "
+        "tensors"}
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise ``RuntimeError`` for a C entry point's nonzero return code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{LAUNCH_ERRORS.get(rc, f'CUDA error {rc}')}")

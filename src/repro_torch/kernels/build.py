@@ -6,9 +6,12 @@ takes seconds, not minutes) under ``build/repro_torch_kernels/`` at the
 repository root, which ``.gitignore`` lists.  The library's file name
 carries a hash of its source, every ``csrc/`` header it includes (directly
 or through another header) and the flags, so an edited source or shared
-header rebuilds and an unchanged one is reused.  All sources that need
-building are compiled by concurrent ``nvcc`` processes.  A build failure
-raises; nothing falls back to a plain version.
+header rebuilds and an unchanged one is reused.  Beside each library lies
+``nvcc``'s report of its build (the same name ending in ``.log``), so a
+reused library still has its ptxas report; a library without one is
+rebuilt.  All sources that need building are compiled by concurrent
+``nvcc`` processes.  A build failure raises; nothing falls back to a plain
+version.
 """
 from __future__ import annotations
 
@@ -29,8 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: nvcc's output per source from the last build in this process (ptxas
-#: prints each kernel's registers, shared memory and spills with -v)
+#: nvcc's output per source of the libraries in use, from this process's
+#: build or from the report kept beside a reused library (ptxas prints
+#: each kernel's registers, shared memory and spills with -v)
 BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
@@ -70,10 +74,18 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(source: str) -> Path:
+    """Where ``nvcc``'s report of the build of ``library_path(source)``
+    is kept."""
+    return library_path(source).with_suffix(".log")
+
+
 def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing, all ``nvcc``
-    processes started together; returns source -> library path."""
-    pending = [s for s in SOURCES if not library_path(s).exists()]
+    """Compile every source whose library or report is missing, all
+    ``nvcc`` processes started together, and fill :data:`BUILD_LOG`;
+    returns source -> library path."""
+    pending = [s for s in SOURCES
+               if not (library_path(s).exists() and log_path(s).exists())]
     if pending:
         nvcc = nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,9 +104,14 @@ def build_all() -> Dict[str, Path]:
                 failed.append(f"{source} (exit {proc.returncode}):\n"
                               f"{BUILD_LOG[source]}")
             else:
+                log_tmp = tmp.with_suffix(".log.tmp")
+                log_tmp.write_text(BUILD_LOG[source])
+                os.replace(log_tmp, log_path(source))
                 os.replace(tmp, out)             # atomic publish
         if failed:
             raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    for s in SOURCES:
+        BUILD_LOG[s] = log_path(s).read_text()
     return {s: library_path(s) for s in SOURCES}
 
 

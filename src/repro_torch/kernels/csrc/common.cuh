@@ -1,8 +1,8 @@
 // Helpers shared by the port's attention kernels (paged_attention.cu,
 // flash_attention.cu, decode_attention.cu): fp32 <-> element loads and
 // stores, bf16 pair packing, the hi + lo split that keeps P near fp32 in a
-// bf16 mma, the mma.sync.m16n8k16 wrapper, and the lane-group pieces of
-// the kernels that run on the CUDA cores.  Each .cu file compiles into its
+// bf16 wgmma, and the lane-group pieces of the kernels that run on the
+// CUDA cores.  Each .cu file compiles into its
 // own shared library, so everything here has internal linkage.
 #pragma once
 
@@ -89,17 +89,6 @@ struct Vec<__nv_bfloat16, N> {
     }
   }
 };
-
-// c += a * b on the tensor cores: a is a 16x16 bf16 row-major fragment,
-// b a 16x8 bf16 column-major fragment, c a 16x8 fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Lanes that share one key in the lane-group kernels: fewer lanes per key
 // mean fewer shuffles and exponentials per key, more head dims (registers)

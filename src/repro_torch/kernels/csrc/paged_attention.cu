@@ -32,16 +32,25 @@
 // by shuffles and the warps merge through shared memory, by the usual
 // rescaling of (m, l, acc).
 //
-// paged_extend_mma_kernel (extend in bf16), on the tensor cores; see its
-// own comment below.  As in the TPU kernel, P stays fp32 for P.V: the
-// bf16 mma takes it as a bf16 pair hi + lo (relative error <= 2^-18), and
-// everything accumulates in fp32.
+// attention_sm90_kernel (extend in bf16; attention_sm90.cuh) with
+// PagedSrc below, on the tensor cores with wgmma, K/V tiles brought in by
+// TMA into a ring of mbarrier-guarded stages.  A tensor map spans the
+// pool as (n_pool_rows, bs, KV, hd); the producer warp reads bt[b, key /
+// bs] (clamped, as the fp32 kernel does) and issues one box per page of a
+// 64-key tile (pages of 8 rows or more; a page larger than the tile gives
+// a 64-row box).  Pages whose row count is not a multiple of 8 are copied
+// by the producer warp with 16-byte loads instead.  As in the TPU kernel,
+// P stays fp32 for P.V: it enters as a bf16 pair hi + lo (relative error
+// <= 2^-18), and everything accumulates in fp32.  A CTA walks all the
+// keys its rows see, so the longest sequence of a batch sets the time.
 //
 // In both, the loop stops at the last key any row of the CTA can see,
 // which skips the fully masked blocks the TPU kernel walked through with
-// pl.when.  Masked scores are the finite NEG_INF = -2e38 and masked keys
-// add p = 0, so a row that sees no key gives 0, never a NaN.  The output
-// is acc / max(l, 1e-30), as on the TPU.
+// pl.when (the bf16 extend also zeroes V rows past that key in its last
+// tile: a page-granular copy reads whatever the pool holds there).
+// Masked scores are the finite NEG_INF = -2e38 and masked keys add
+// p = 0, so a row that sees no key gives 0, never a NaN.  The output is
+// acc / max(l, 1e-30), as on the TPU.
 //
 // Bound on the card: memory bandwidth.  Decode costs ~4 * G * hd flops
 // per key against 2 * hd * sizeof(T) bytes of K and V, far below the
@@ -52,13 +61,9 @@
 // the same least time, the bytes slightly more; the fp32 variant on the
 // CUDA cores is bound by its instructions.
 //
-// Left for later: no TMA and no cp.async staging (each K/V tile is
-// loaded, then used), no wgmma (mma.sync reaches only part of the tensor
-// cores' rate), and no split-K across CTAs, so a long context with few
-// sequences leaves most SMs idle.
-#include <type_traits>
-
-#include "common.cuh"
+// Left for later in the decode kernel: no TMA staging and no split-K
+// across CTAs, so a long context with few sequences leaves most SMs idle.
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -226,204 +231,90 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
 }
 
 // ---------------------------------------------------------------------
-// bf16 extend on the tensor cores (mma.sync m16n8k16, fp32 accumulate).
-// One CTA of XW warps owns XR = 16 * XW consecutive (query, head) rows of
-// one (b, kv head); each warp owns 16 of them and keeps their Q fragments
-// and the fp32 output accumulator in registers.  The CTA walks the keys
-// the rows can see in tiles of XK keys: all threads copy the tile's K and
-// V rows from the pool (through the block table) into shared memory with
-// 16-byte loads, then each warp computes S = Q K^T for its rows, applies
-// the causal mask key <= pos0 + s, updates its online softmax (m, l) in
-// the log2 domain and accumulates P V.  The mma takes bf16 operands, so
-// the fp32 P goes in as two parts, hi = bf16(P) and lo = bf16(P - hi),
-// each multiplied into the same fp32 accumulator: P keeps ~16 of its 24
-// bits (the TPU kernel's p @ v is fp32), at twice the mma of a bf16 P.
-// V is bf16 in the pool and exact as an operand.  Rows padded to
-// 8 extra bf16 per shared-memory row keep the fragment loads free of
-// bank conflicts.  A warp whose rows see no key of a tile skips it.
-constexpr int XW = 4;            // warps per CTA
-constexpr int XR = 16 * XW;      // rows per CTA
-constexpr int XK = 32;           // keys per shared-memory tile
+// bf16 extend: attention_sm90_kernel (attention_sm90.cuh) with PagedSrc,
+// whose key tiles are pool pages read through the block table.
+struct PagedSrc {
+  // query s sees keys t <= pos0 + s, capped at the table's span
+  static __device__ __forceinline__ int2 bounds(const AttnParams& p, int b,
+                                                int s) {
+    return make_int2(0, min(p.pos0[b] + s, p.nb * p.bs - 1));
+  }
+  // (pool row, row in the page) of key `key`: table entries past nb
+  // repeat the last (those keys are past every row's last key), and
+  // out-of-range entries clamp, as a gather does in JAX
+  static __device__ __forceinline__ int2 page(const AttnParams& p, int b,
+                                              int key) {
+    const int j = key / p.bs, jt = min(j, p.nb - 1);
+    const int phys = min(max(p.bt[(int64_t)b * p.nb + jt], 0),
+                         p.n_pool_rows - 1);
+    return make_int2(phys, key - j * p.bs);
+  }
+  template <int HD>
+  static __device__ __forceinline__ void load_tile(
+      const AttnParams& p, const CUtensorMap* kmap, const CUtensorMap* vmap,
+      int b, int kvh, int key0, uint32_t k_s, uint32_t v_s, uint32_t full,
+      uint8_t* smem0, int lane) {
+    using T = Tile<HD>;
+    if (p.box_rows) {
+      // one box of box_rows keys (a page, or the part of one in the tile)
+      // per 64-column block of K and of V, spread over the lanes
+      const int per = TILE / p.box_rows, n = 2 * T::NCB * per;
+      if (lane == 0) mbar_expect_tx(full, 2 * T::BYTES);
+      __syncwarp();
+      for (int i = lane; i < n; i += 32) {
+        const int t = i / (T::NCB * per), rest = i - t * (T::NCB * per);
+        const int cb = rest / per, bx = rest - cb * per;
+        const int2 pg = page(p, b, key0 + bx * p.box_rows);
+        tma_load_4d((t ? v_s : k_s) + cb * T::BLOCK + bx * p.box_rows * T::SWB,
+                    t ? vmap : kmap, full, cb * T::BW, kvh, pg.y, pg.x);
+      }
+    } else {
+      // pages whose row count is not a multiple of 8: a box of fewer rows
+      // would not start on a swizzle atom, so the warp copies the tile
+      for (int i = lane; i < 2 * TILE * (HD / 8); i += 32) {
+        const int t = i / (TILE * (HD / 8)), rest = i - t * (TILE * (HD / 8));
+        const int r = rest / (HD / 8), col = (rest - r * (HD / 8)) * 8;
+        const int2 pg = page(p, b, key0 + r);
+        const int cb = col / T::BW;
+        *reinterpret_cast<uint4*>(
+            smem0 + (t ? v_s : k_s) + cb * T::BLOCK +
+            swizzle<T::SWB>(r * T::SWB + (col - cb * T::BW) * 2)) =
+            *reinterpret_cast<const uint4*>(
+                (t ? p.v : p.k) +
+                (((int64_t)pg.x * p.bs + pg.y) * p.KV + kvh) * HD + col);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full);
+    }
+  }
+};
 
 template <int HD>
-__global__ void __launch_bounds__(XW * 32) paged_extend_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ bt,
-    const int* __restrict__ pos0s, __nv_bfloat16* __restrict__ out, int S,
-    int KV, int G, int nb, int bs, int n_pool_rows, float scale) {
-  constexpr int KS = HD / 16;              // k-steps of Q K^T
-  constexpr int ND = HD / 8;               // n-tiles of P V
-  constexpr int LD = HD + 8;               // padded shared row (bf16)
-  constexpr int CH = HD / 8;               // 16-byte chunks per key row
-  __shared__ __align__(16) __nv_bfloat16 ks[XK][LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[XK][LD];
-
-  const int b = blockIdx.x, kvh = blockIdx.y, row0 = blockIdx.z * XR;
-  const int n_rows = S * G;
-  const int rows = min(XR, n_rows - row0);
-  const int pos0 = pos0s[b];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;  // mma group / thread in group
-  const int* bt_row = bt + (int64_t)b * nb;
-  const float qscale = scale * LOG2E;
-
-  // this thread's two rows: gq and gq + 8 of the warp's 16
-  int lim[2];
-  bool ok[2];
-  int64_t qoff[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + warp * 16 + gq + 8 * h;
-    ok[h] = r < n_rows;
-    const int rr = ok[h] ? r : 0, s = rr / G, g = rr - s * G;
-    lim[h] = ok[h] ? pos0 + s : -1;
-    qoff[h] = ((((int64_t)b * S + s) * KV + kvh) * G + g) * HD;
-  }
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kc = 0; kc < KS; ++kc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int h = j & 1, col = kc * 16 + 2 * tq + 8 * (j >> 1);
-      qa[kc][j] = ok[h] ? *reinterpret_cast<const uint32_t*>(q + qoff[h] + col)
-                        : 0u;
-    }
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[nd][j] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  // the last key any row here may see, capped at the table's span
-  const int n_keys = min(pos0 + (row0 + rows - 1) / G + 1, nb * bs);
-  // the last key any row of this warp may see (max over the 8 groups)
-  int warp_last = max(lim[0], lim[1]);
-#pragma unroll
-  for (int o = 4; o < 32; o <<= 1)
-    warp_last = max(warp_last, __shfl_xor_sync(0xffffffffu, warp_last, o));
-  const int64_t key_stride = (int64_t)KV * HD;
-
-  for (int kb = 0; kb < n_keys; kb += XK) {
-    __syncthreads();                       // the last tile is consumed
-    for (int c = threadIdx.x; c < XK * CH; c += XW * 32) {
-      const int t = c / CH, d = (c - t * CH) * 8, key = kb + t;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (key < n_keys) {
-        const int j = key / bs;
-        const int phys = min(max(bt_row[j], 0), n_pool_rows - 1);
-        const int64_t off = ((int64_t)phys * bs + (key - j * bs)) * key_stride
-                            + (int64_t)kvh * HD + d;
-        kv4 = *reinterpret_cast<const uint4*>(k_pool + off);
-        vv4 = *reinterpret_cast<const uint4*>(v_pool + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[t][d]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[t][d]) = vv4;
-    }
-    __syncthreads();
-    if (kb > warp_last) continue;          // no row of this warp sees it
-
-    // S = Q K^T over the tile: XK / 8 n-tiles of 8 keys
-    float sc[XK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < XK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-      const __nv_bfloat16* krow = &ks[nt * 8 + gq][2 * tq];
-#pragma unroll
-      for (int kc = 0; kc < KS; ++kc)
-        mma_bf16(sc[nt], qa[kc],
-                 *reinterpret_cast<const uint32_t*>(krow + kc * 16),
-                 *reinterpret_cast<const uint32_t*>(krow + kc * 16 + 8));
-    }
-    // mask, running max, rescale
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < XK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = j >> 1, key = kb + nt * 8 + 2 * tq + (j & 1);
-        const bool vis = key < n_keys && key <= lim[h];
-        sc[nt][j] = vis ? sc[nt][j] * qscale : NEG_INF;
-        mx[h] = fmaxf(mx[h], sc[nt][j]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      corr[h] = exp2f(m[h] - mx[h]);
-      m[h] = mx[h];
-      l[h] *= corr[h];
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= corr[0]; o[nd][1] *= corr[0];
-      o[nd][2] *= corr[1]; o[nd][3] *= corr[1];
-    }
-    // P V with P = hi + lo: XK / 16 k-steps of 16 keys
-#pragma unroll
-    for (int kk = 0; kk < XK / 16; ++kk) {
-      float p[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int h = j >> 1;
-          const float x = sc[2 * kk + half][j];
-          const float e = x > NEG_INF ? exp2f(x - m[h]) : 0.f;
-          p[half][j] = e;
-          l[h] += e;
-        }
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_bf2(p[j >> 1][2 * (j & 1)], p[j >> 1][2 * (j & 1) + 1], ph[j],
-                  pl[j]);
-      const int k0 = kk * 16 + 2 * tq;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        const int d = nd * 8 + gq;
-        const uint32_t b0 =
-            (uint32_t)__bfloat16_as_ushort(vs[k0][d]) |
-            ((uint32_t)__bfloat16_as_ushort(vs[k0 + 1][d]) << 16);
-        const uint32_t b1 =
-            (uint32_t)__bfloat16_as_ushort(vs[k0 + 8][d]) |
-            ((uint32_t)__bfloat16_as_ushort(vs[k0 + 9][d]) << 16);
-        mma_bf16(o[nd], pl, b0, b1);
-        mma_bf16(o[nd], ph, b0, b1);
-      }
-    }
-  }
-
-  // finish: the quad's partial sums of l, then acc / max(l, 1e-30)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!ok[h]) continue;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(out + qoff[h] + nd * 8 + 2 * tq) =
-          f_to_bf2(o[nd][2 * h] * inv[h], o[nd][2 * h + 1] * inv[h]);
-  }
-}
-
-template <int HD>
-int launch_extend_mma(const void* q, const void* k_pool, const void* v_pool,
-                      const void* bt, const void* pos0, void* out, int B,
-                      int S, int KV, int G, int nb, int bs, int n_pool_rows,
-                      float scale, cudaStream_t stream) {
-  const dim3 grid(B, KV, (S * G + XR - 1) / XR);
-  paged_extend_mma_kernel<HD><<<grid, XW * 32, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-      (const __nv_bfloat16*)v_pool, (const int*)bt, (const int*)pos0,
-      (__nv_bfloat16*)out, S, KV, G, nb, bs, n_pool_rows, scale);
-  return (int)cudaGetLastError();
+int launch_extend_bf16(const void* q, const void* k_pool, const void* v_pool,
+                       const void* bt, const void* pos0, void* out, int B,
+                       int S, int KV, int G, int nb, int bs,
+                       int n_pool_rows, float scale, cudaStream_t stream) {
+  int box = TILE;                          // gcd(bs, TILE)
+  while (bs % box) box >>= 1;
+  box = box >= 8 ? box : 0;                // 0: the warp copies
+  CUtensorMap kmap, vmap;
+  int rc = encode_map<HD>(&kmap, k_pool, KV, bs, n_pool_rows, box ? box : 1);
+  if (rc == 0)
+    rc = encode_map<HD>(&vmap, v_pool, KV, bs, n_pool_rows, box ? box : 1);
+  if (rc != 0) return rc;
+  AttnParams p = {};
+  p.q = (const __nv_bfloat16*)q;
+  p.out = (__nv_bfloat16*)out;
+  p.k = (const __nv_bfloat16*)k_pool;
+  p.v = (const __nv_bfloat16*)v_pool;
+  p.bt = (const int*)bt;
+  p.pos0 = (const int*)pos0;
+  p.S = S; p.KV = KV; p.G = G;
+  p.nb = nb; p.bs = bs; p.n_pool_rows = n_pool_rows; p.box_rows = box;
+  p.scale = scale;
+  p.n_row_tiles = (S * G + TILE - 1) / TILE;
+  return launch_attention<HD, PagedSrc>(kmap, vmap, p, B, stream);
 }
 
 template <typename T, int HD, int GR>
@@ -438,19 +329,13 @@ int launch(int decode, const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// bf16 extend goes to the tensor cores; otherwise rows per CTA are the G
-// heads of one kv head for decode (the smallest instantiated count that
-// holds them) and 8 rows for fp32 extend
+// rows per CTA are the G heads of one kv head for decode (the smallest
+// instantiated count that holds them) and 8 rows for fp32 extend
 template <typename T, int HD>
 int launch_rows(int decode, const void* q, const void* k_pool,
                 const void* v_pool, const void* bt, const void* idx, void* out,
                 int B, int S, int KV, int G, int nb, int bs, int n_pool_rows,
                 float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (!decode)
-      return launch_extend_mma<HD>(q, k_pool, v_pool, bt, idx, out, B, S, KV,
-                                   G, nb, bs, n_pool_rows, scale, stream);
-  }
   const int want = decode ? G : 8;
 #define REPRO_LAUNCH(GR_)                                                    \
   return launch<T, HD, GR_>(decode, q, k_pool, v_pool, bt, idx, out, B, S,  \
@@ -498,7 +383,9 @@ int dispatch(int dtype, int hd, int decode, const void* q, const void* k_pool,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success), or -1 for a dtype / head_dim it has no kernel for.
+// launch (0 on success), -1 for a dtype / head_dim it has no kernel for,
+// -2 if cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor
+// map.
 extern "C" int repro_paged_decode_attention(
     int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
     const void* bt, const void* lengths, void* out, int B, int KV, int G,
@@ -511,6 +398,21 @@ extern "C" int repro_paged_extend_attention(
     int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
     const void* bt, const void* pos0, void* out, int B, int S, int KV, int G,
     int nb, int bs, int n_pool_rows, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1) {
+#define REPRO_HD(HD_)                                                        \
+  return launch_extend_bf16<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S,    \
+                                 KV, G, nb, bs, n_pool_rows, scale, st)
+    switch (hd) {
+      case 16: REPRO_HD(16);
+      case 32: REPRO_HD(32);
+      case 64: REPRO_HD(64);
+      case 128: REPRO_HD(128);
+      default: return -1;
+    }
+#undef REPRO_HD
+  }
   return dispatch(dtype, hd, 0, q, k_pool, v_pool, bt, pos0, out, B, S, KV,
                   G, nb, bs, n_pool_rows, scale, stream);
 }
+

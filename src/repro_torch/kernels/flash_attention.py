@@ -19,7 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
-                                 check_tensors)
+                                 check_launch, check_tensors)
 
 _lib = None
 
@@ -76,8 +76,6 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
             DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, S, KV, H // KV, int(causal),
             int(window), 1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"CUDA error {rc}")
+    check_launch("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out

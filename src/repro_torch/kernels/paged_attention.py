@@ -17,7 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
-                                 check_tensors)
+                                 check_launch, check_tensors)
 
 _lib = None
 
@@ -83,9 +83,7 @@ def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims):
             v_pool.data_ptr(), block_tables.data_ptr(), index.data_ptr(),
             out.data_ptr(), *dims, nb, bs, n_pool_rows,
             1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA "
-                           f"error {rc}")
+    check_launch(fn_name, rc)
     LAUNCHES[fn_name] += 1
     return out
 
