@@ -13,8 +13,9 @@ phase:
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    process per source, all started together (timed), and ptxas's
-   registers and spills for the two wgmma attention kernels (a spill
-   fails the run);
+   registers and spills for the two wgmma attention kernels and the
+   split-key decode kernel of both decode sources (a spill fails the
+   run);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -24,10 +25,16 @@ phase:
    of length 0), and the wgmma kernels' tile edges (flash at S 63, 64,
    65, 129, 200 and G 1, 4, 8; the extend at bs 8 and 16 with pages
    straddled and a row past the table; a long-prefix extend of 2,048
-   keys; an extend whose unseen pool rows hold NaN), each
+   keys; an extend whose unseen pool rows hold NaN), and the split-key
+   decode's edges in fp32 and bf16 (lengths around one and two
+   128-key chunks, pages of 8, 16, 32, 12 and 128 rows, G 1 to 16, a length past
+   the table and table entries past the pool, rows of length 0, caches
+   whose rows past every live key hold NaN), each
    held against the plain version's fp32 result on the
    same inputs, with a control (P rounded to bf16) that the bf16 limit
-   must reject; flash also at (1, 2048), above the bf16 ridge; the pair
+   must reject; flash also at (1, 2048), above the bf16 ridge; both
+   decodes also at the serves' shape (B=8, lengths 301-329) and at a tiny
+   one (B=1, length 8), with the host's issue time; the pair
    score at the batch shape (256, 512, 1024) and the stream's (1024,
    1024, 1024) on MARGOT features and on random
    inputs, and on a small grid in fp32 and bf16, each held against the
@@ -195,6 +202,8 @@ def phase_device() -> str:
         smem = module._library().repro_attention_sm90_smem(128)
         print(f"[build] {source} "
               f"{_sm90_usage(build.BUILD_LOG, source, smem)}")
+    for source in ("paged_attention.cu", "decode_attention.cu"):
+        print(f"[build] {source} {_decode_usage(build.BUILD_LOG, source)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -203,24 +212,33 @@ def phase_device() -> str:
 
 
 # ----------------------------------------------------------------------
-def _sm90_usage(logs, source, smem) -> str:
-    """ptxas's registers, stack and spills for the wgmma kernel of
-    ``source`` at every head dim (a spill, or a head dim without a report,
-    fails the run), shown for hd = 128 beside ``smem``, the dynamic shared
-    memory it asks for at launch (``Tile<128>::SMEM`` in
-    csrc/attention_sm90.cuh).  ``logs`` is ``build.BUILD_LOG``, which holds
-    the report kept beside a library built by an earlier process too."""
+def _ptxas_reports(logs, source, kernel):
+    """ptxas's report (stack, spills, registers, shared memory) of every
+    instantiation of ``kernel`` in ``source``'s build, by its mangled
+    template arguments; a spill, or no report for ``source``, fails the
+    run.  ``logs`` is ``build.BUILD_LOG``, which holds the report kept
+    beside a library built by an earlier process too."""
     check(source in logs, f"{source}: no nvcc report for its library")
     lines = logs[source].splitlines()
     found = {}
     for i, ln in enumerate(lines):
-        hd = re.search(r"attention_sm90_kernelILi(\d+)E", ln)
-        if "Compiling entry function" in ln and hd:
+        args = re.search(kernel + r"I(\w+?)EEv", ln)
+        if "Compiling entry function" in ln and args:
             info = " ".join(x.split("info    :")[-1].strip()
                             for x in lines[i + 2:i + 4])
             check("0 bytes spill stores, 0 bytes spill loads" in info,
-                  f"{source}: the wgmma kernel spills at hd {hd[1]}: {info}")
-            found[int(hd[1])] = info
+                  f"{source}: {kernel}<{args[1]}> spills: {info}")
+            found[args[1]] = info
+    return found
+
+
+def _sm90_usage(logs, source, smem) -> str:
+    """The wgmma kernel of ``source`` at every head dim (each must have a
+    report), shown for hd = 128 beside ``smem``, the dynamic shared
+    memory it asks for at launch (``Tile<128>::SMEM`` in
+    csrc/attention_sm90.cuh)."""
+    found = {int(re.match(r"Li(\d+)E", k)[1]): v for k, v in
+             _ptxas_reports(logs, source, "attention_sm90_kernel").items()}
     check(sorted(found) == [16, 32, 64, 128],
           f"{source}: ptxas reported attention_sm90_kernel at head dims "
           f"{sorted(found)}, not 16, 32, 64, 128")
@@ -228,18 +246,50 @@ def _sm90_usage(logs, source, smem) -> str:
             f"memory {smem} bytes; no spills at hd 16, 32, 64, 128")
 
 
+def _decode_usage(logs, source) -> str:
+    """The split-key decode kernel of ``source`` at every instantiation
+    (fp32 and bf16, hd 16-128, 1-8 rows a CTA; each must have a report),
+    shown at 2 rows a CTA (the main path's G) for each head dim."""
+    found = {}
+    for k, info in _ptxas_reports(logs, source, "decode_sm90_kernel").items():
+        m = re.match(r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", k)
+        smem = re.search(r"(\d+) bytes smem", info)
+        found[(m[1], int(m[2]), int(m[3]))] = (
+            int(re.search(r"Used (\d+) registers", info)[1]),
+            int(smem[1]) if smem else 0)
+    want = {(t, hd, gr) for t in ("f", "13__nv_bfloat16")
+            for hd in (16, 32, 64, 128) for gr in (1, 2, 4, 8)}
+    check(set(found) == want, f"{source}: ptxas reported decode_sm90_kernel "
+          f"for {sorted(found)}, not every dtype x head dim x rows")
+    show = "; ".join(
+        f"{dn} " + ", ".join(f"hd {hd} {found[(t, hd, 2)][0]} registers "
+                             f"{found[(t, hd, 2)][1]} B" for hd in
+                             (16, 32, 64, 128))
+        for t, dn in (("13__nv_bfloat16", "bf16"), ("f", "fp32")))
+    most = max(r for r, _ in found.values())
+    return (f"decode_sm90_kernel at 2 rows a CTA: {show} (static shared "
+            f"memory); up to {most} registers at 8 rows; no spills in "
+            f"{len(found)} instantiations")
+
+
 def _time_ms(fns, iters: int = 20) -> float:
     """Device ms per call: ``iters`` calls cycling through ``fns`` (each on
     its own copy of the inputs, so the 50 MB L2 holds no earlier call's
     K/V, as on the main path where 24 layers take turns) are captured in
     one CUDA graph, and a replay of the graph is timed with CUDA events,
-    so the host's time to issue each call is left out."""
+    so the host's time to issue each call is left out.  The warm-up calls
+    run on the capturing stream, as PyTorch's graph warm-up does, so what
+    a kernel keeps per stream (the decode's ticket counters) exists before
+    the capture."""
     import torch
-    for f in fns:
-        f()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for f in fns:
+            f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fns[i % len(fns)]()
     graph.replay()
@@ -254,21 +304,27 @@ def _time_ms(fns, iters: int = 20) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
-def _issue_ms(fn, iters: int = 50) -> float:
+def _issue_ms(fn, iters: int = 20, batches: int = 5) -> float:
     """Host ms per call of ``fn`` issued back to back from Python and
-    timed with CUDA events: where the device is faster than the host, this
-    is the host's cost to issue one call."""
+    timed with CUDA events, the median of ``batches`` batches of ``iters``
+    calls (the host's time moves between batches): where the device is
+    faster than the host, this is the host's cost to issue one call."""
+    import statistics
+
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(batches):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def _paged_inputs(gen, B, nb, bs, KV, hd, q_shape, dtype, dev):
@@ -416,6 +472,7 @@ def phase_kernels():
           f"x causal / window 64 / bidirectional; split-K decode at "
           f"lengths 0, 1, 37, L")
     _attention_edges(gen, dev)
+    _decode_edges(gen, dev)
 
     # main-path shapes, bf16; 3 copies of the inputs for cold-L2 timing
     B, H, KV, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
@@ -487,6 +544,10 @@ def phase_kernels():
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
     _dense_main_path(gen, dev, stats, shares, issue)
+    for label, lengths, max_len in DECODE_SHAPES[1:]:
+        for name, st in _decode_bench(gen, dev, lengths, max_len).items():
+            print(f"[kernels] {name} at {label}: "
+                  f"{_decode_row(st, lengths, max_len)}")
     _pair_score_checks(gen, dev, stats, issue)
     _ssm_scan_checks(gen, dev, stats, issue)
     print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
@@ -634,6 +695,207 @@ def _attention_edges(gen, dev):
           f"1; hd 32 and 128; a long-prefix extend (1, 256) at pos0 1792; "
           f"an extend whose unseen pool rows hold NaN (bs 16, "
           f"8, 12) equal to the plain version with them zeroed")
+
+
+# The edge shapes of the split-key decode (chunks of decode_plan.CHUNK_KEYS
+# keys a CTA), as tests/test_torch_decode_sm90.py holds the plain versions
+# at them: lengths one short of, at and one past a chunk, one past two
+# chunks, the longest row and a short row whose later chunks exit at once;
+# pages (bs, nb) of 8, 16 and 32 rows, of 12 (straddling chunk ends) and
+# of 128 (spanning two chunks); G 1, 4, 8 and 16 (two row groups).
+DECODE_EDGE_PAGES = ((8, 40), (16, 20), (32, 10), (12, 27), (128, 3))
+DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (32, 2))
+
+
+def _edge_lengths(max_keys):
+    from repro_torch.kernels import decode_plan
+    c = decode_plan.CHUNK_KEYS
+    return [c - 1, c, c + 1, 2 * c + 1, max_keys, 3]
+
+
+def _paged_decode_case(gen, dev, name, bs, nb, H, KV, hd, dtype, lengths,
+                       table=None, nan=False):
+    """The paged decode kernel against the plain version's fp32 result on
+    the same inputs.  ``table`` edits the block table (the plain version
+    reads it clamped into the pool, as the kernel does); ``nan`` fills the
+    pool rows no live key reads with NaN (the plain version reads them
+    zeroed).  A row of length 0 must give 0; returns the number of
+    checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    B = len(lengths)
+    q, kp, vp, bt = _paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd), dtype,
+                                  dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if table is not None:
+        table(bt, kp.shape[0])
+    read_bt = bt.clamp(0, kp.shape[0] - 1)
+    k_in, v_in = kp, vp
+    if nan:
+        seen = torch.zeros(kp.shape[:2], dtype=torch.bool, device=dev)
+        for b, n_live in enumerate(lengths):
+            t = torch.arange(min(n_live, nb * bs), device=dev)
+            seen[read_bt[b].long()[t // bs], t % bs] = True
+        k_in, v_in = kp.clone(), vp.clone()
+        k_in[~seen], v_in[~seen] = float("nan"), float("nan")
+        kp[~seen], vp[~seen] = 0, 0
+    out = ops.paged_decode_attention(q, k_in, v_in, bt, ln)
+    want = ref.paged_decode_attention_ref(*_f32(q, kp, vp), read_bt, ln)
+    zero = [b for b, n_live in enumerate(lengths) if n_live == 0]
+    check(all(bool((out[b] == 0).all()) for b in zero),
+          f"{name}: a row of length 0 must give 0")
+    live = [b for b in range(B) if b not in zero]
+    _compare(name, out[live], want[live])
+    return 1
+
+
+def _dense_decode_case(gen, dev, name, L, H, KV, hd, dtype, lengths,
+                       nan=False):
+    """The split-K decode kernel against the plain version's fp32 result
+    on the same inputs (a row of length 0 gives the mean of V in both);
+    ``nan`` fills the cache rows past each row's live keys with NaN (the
+    plain version reads them zeroed)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    B = len(lengths)
+    q = _randn(gen, (B, H, hd), dtype, dev)
+    k, v = (_randn(gen, (B, L, KV, hd), dtype, dev) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    k_in, v_in = k, v
+    if nan:
+        past = torch.arange(L, device=dev)[None, :] >= ln[:, None].long()
+        k_in, v_in = k.clone(), v.clone()
+        k_in[past], v_in[past] = float("nan"), float("nan")
+        k[past], v[past] = 0, 0
+    _compare(name, ops.decode_attention(q, k_in, v_in, ln),
+             ref.decode_attention_ref(*_f32(q, k, v), ln))
+    return 1
+
+
+def _decode_edges(gen, dev):
+    """Both decode kernels at the edge shapes above, fp32 and bf16, hd 32
+    and 128; then at hd 128: a paged length past nb * bs with table
+    entries past the pool, rows of length 0 (paged: 0; dense: the mean of
+    V), and caches whose rows past every live key hold NaN."""
+    import torch
+
+    def past_the_pool(bt, n):
+        bt[0, 1], bt[2, 0], bt[3, -1] = n, n + 5, 2 ** 30
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for hd in (32, 128):
+            for bs, nb in DECODE_EDGE_PAGES:
+                n += _paged_decode_case(
+                    gen, dev, f"paged decode edge {dn} hd={hd} bs={bs}", bs,
+                    nb, 4, 2, hd, dtype, _edge_lengths(nb * bs))
+            for H, KV in DECODE_EDGE_G:
+                n += _paged_decode_case(
+                    gen, dev, f"paged decode edge {dn} hd={hd} G={H // KV}",
+                    16, 20, H, KV, hd, dtype, _edge_lengths(320))
+                n += _dense_decode_case(
+                    gen, dev, f"split-K decode edge {dn} hd={hd} "
+                    f"G={H // KV}", 320, H, KV, hd, dtype, _edge_lengths(320))
+        n += _paged_decode_case(
+            gen, dev, f"paged decode clamped {dn}", 16, 9, 16, 8, 128, dtype,
+            [100, 144, 145, 1000], table=past_the_pool)
+        n += _paged_decode_case(gen, dev, f"paged decode length 0 {dn}", 16,
+                                16, 16, 8, 128, dtype, [0, 200, 5, 0])
+        n += _dense_decode_case(gen, dev, f"split-K decode length 0 {dn}",
+                                256, 16, 8, 128, dtype, [0, 200, 5, 0])
+        nan_lengths = [1, 127, 129, 257, 383]
+        for bs in (16, 12):
+            n += _paged_decode_case(
+                gen, dev, f"paged decode NaN pool {dn} bs={bs}", bs,
+                384 // bs, 16, 8, 128, dtype, nan_lengths, nan=True)
+        n += _dense_decode_case(gen, dev, f"split-K decode NaN cache {dn}",
+                                384, 16, 8, 128, dtype, nan_lengths, nan=True)
+    torch.cuda.synchronize()
+    print(f"[kernels] decode edges: {n} checks passed, fp32 and bf16: "
+          f"lengths {_edge_lengths('max_keys')} over paged (bs, nb) "
+          f"{DECODE_EDGE_PAGES} at G 2 and G 1, 4, 8, 16 (bs 16; dense "
+          f"L 320), hd 32 and 128; a paged length past nb * bs with table "
+          f"entries past the pool (read clamped); rows of length 0 (paged "
+          f"0, dense the mean of V); caches whose rows past every live key "
+          f"hold NaN (paged bs 16 and 12, dense) equal to the plain version "
+          f"with them zeroed")
+
+
+# (label, lengths, rows of a table or stripe): phase 2's ragged decode,
+# the serves' decode syncs (8 slots at ~300-330-token contexts), and one
+# short row, where the device time is a few microseconds and the host's
+# issue time is the host's cost alone
+DECODE_SHAPES = (
+    ("phase 2's shape (B 8, lengths 2048 ... 64)",
+     (2048, 1, 1537, 300, 16, 977, 2000, 64), 2048),
+    ("the serves' shape (B 8, lengths 301-329)", tuple(range(301, 330, 4)),
+     2048),
+    ("a tiny shape (B 1, length 8)", (8,), 64))
+
+
+def _decode_bench(gen, dev, lengths, max_len):
+    """Both decode kernels in bf16 at the main path's widths (H 16, KV 8,
+    hd 128; paged bs 16) for rows of ``lengths`` keys in tables or stripes
+    of ``max_len`` rows: each held against its plain version at the bf16
+    limits, then device ms (3 input copies), the plain version's and
+    SDPA's ms, the bound and the host's issue ms.  Returns name -> stats.
+    (scripts/attention_ab.py runs it on older checkouts too.)"""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    H, KV, hd, bs, bf = 16, 8, 128, 16, torch.bfloat16
+    B, nb = len(lengths), max_len // bs
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    keep = (torch.arange(max_len, device=dev)[None, :] <
+            ln[:, None].long())[:, None, None, :]
+    n_tok = sum(lengths)
+    kv_bytes = 2 * n_tok * KV * hd * 2 + 2 * B * H * hd * 2 + 4 * B
+    ops_n = 4 * H * hd * n_tok
+    psets = [_paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd), bf, dev)
+             for _ in range(3)]
+    dsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((B, H, hd), (B, max_len, KV, hd), (B, max_len, KV, hd))]
+             for _ in range(3)]
+    cases = {
+        "paged_decode_attention": (
+            psets, ops.paged_decode_attention, ref.paged_decode_attention_ref,
+            [_sdpa_args(s[0][:, :, None], s[1], s[2], s[3], keep)
+             for s in psets],
+            kv_bytes + 4 * sum(-(-x // bs) for x in lengths)),
+        "decode_attention": (
+            dsets, ops.decode_attention, ref.decode_attention_ref,
+            [(s[0][:, :, None], s[1].transpose(1, 2).contiguous(),
+              s[2].transpose(1, 2).contiguous(), keep) for s in dsets],
+            kv_bytes)}
+    out = {}
+    for name, (sets, kernel, plain, sd, nbytes) in cases.items():
+        err, _ = _compare(f"{name} {lengths}", kernel(*sets[0], ln),
+                          plain(*_f32(*sets[0][:3]), *sets[0][3:], ln))
+        st = _stats(
+            err, nbytes, ops_n, "bfloat16",
+            _time_ms([lambda s=s: kernel(*s, ln) for s in sets]),
+            _time_ms([lambda s=s: plain(*s, ln) for s in sets]),
+            _time_ms([lambda a=a: F.scaled_dot_product_attention(
+                *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+        st["issue_ms"] = _issue_ms(lambda: kernel(*sets[0], ln))
+        out[name] = st
+    return out
+
+
+def _decode_row(st, lengths, max_len) -> str:
+    """A _decode_bench row, with the CTAs of the split plan that hold live
+    keys among those launched (the main path's H 16, KV 8)."""
+    from repro_torch.kernels import decode_plan
+    c = decode_plan.CHUNK_KEYS
+    n_chunks = decode_plan.split_plan(len(lengths), 16, 8, 128,
+                                      max_len).n_chunks
+    return (f"max_abs_err={st['max_abs_err']:.3e} ms={st['ms']:.4f} "
+            f"plain_ms={st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+            f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}) issue_ms="
+            f"{st['issue_ms']:.4f} live_ctas="
+            f"{8 * sum(-(-x // c) for x in lengths)} of "
+            f"{8 * len(lengths) * n_chunks}")
 
 
 def _dense_main_path(gen, dev, stats, shares, issue):
@@ -1404,6 +1666,11 @@ def _profile_decode_sync(eng, tok, label):
           f" device_busy={busy_us / 1e3:.2f}ms idle_share="
           f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
           f"{sum(n for _, n, _ in rows)}; top: {top}")
+    decode = [f"{key[:60]} {us / 1e3:.3f}ms/{n}x ({us / n:.2f}us a call)"
+              for us, n, key in rows if "decode" in key.lower()]
+    if decode:
+        print(f"[profile {label}] decode attention kernels: " +
+              "; ".join(decode))
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Time the port's bf16 flash and paged extend kernels of one or more
-checkouts in turns, on one CUDA card.
+"""Time the port's bf16 attention kernels of one or more checkouts in
+turns, on one CUDA card.
 
     python3 scripts/attention_ab.py [TREE ...]
 
@@ -8,19 +8,23 @@ one); give trees in the order to run them, e.g. ``parent change change
 parent``, so that two versions are compared within one call on one card.
 Each tree runs in its own process, builds its kernels into its own
 ``build/`` and prints, beside the card's name and power limit: flash at
-the dense path's prefill (B=3, S=512) and at (1, 2048), causal, and the
-paged extend at the paged path's admit (B=4, S=256, pos0 16/256/768/1792,
-bs=16) and at one long-prefix admit (B=1, S=256, pos0 1792), each as
-device ms per call from a CUDA-graph replay (``chip_smoke._time_ms``),
-with SDPA's time on the same inputs for flash, and the host's time to
-issue one call from Python (``issue_ms``, ``chip_smoke._issue_ms``: the
-wrapper, the tensor maps, the launch).  Where a call's device time is
-above its issue time, calls issued back to back wait on the card and
-``issue_ms`` tracks the device; so both kernels are also issued at a
-tiny shape (S=8, B=1, pos0 0 for the extend) whose device time is a few
-microseconds, where ``issue_ms`` is the host's cost alone.  Every timed
-kernel is first held against its plain version at chip_smoke's bf16
-limits.  Without a card it exits non-zero.
+the dense path's prefill (B=3, S=512) and at (1, 2048), causal; the
+paged extend at the paged path's admit (B=4, S=256, pos0
+16/256/768/1792, bs=16) and at one long-prefix admit (B=1, S=256, pos0
+1792); and the paged and split-K decode at ``chip_smoke.DECODE_SHAPES``:
+phase 2's ragged lengths (B=8, up to 2048), the serves' decode (B=8,
+lengths 301-329, tables and stripes of 2048 rows) and a tiny shape (B=1,
+length 8).  Each is given as device ms per call from a CUDA-graph replay
+(``chip_smoke._time_ms``), with SDPA's time on the same inputs for flash
+and the decodes, and the host's time to issue one call from Python
+(``issue_ms``, ``chip_smoke._issue_ms``: the wrapper, its scratch and
+tensor maps, the launch).  Where a call's device time is above its issue
+time, calls issued back to back wait on the card and ``issue_ms`` tracks
+the device; so flash and the extend are also issued at a tiny shape (S=8,
+B=1, pos0 0 for the extend), as the decodes are at (B=1, length 8),
+whose device time is a few microseconds, where ``issue_ms`` is the
+host's cost alone.  Every timed kernel is first held against its plain
+version at chip_smoke's bf16 limits.  Without a card it exits non-zero.
 """
 from __future__ import annotations
 
@@ -83,6 +87,10 @@ def run_tree(tree: Path, label: str) -> None:
             lambda s=s: ops.paged_extend_attention(*s, pos0) for s in sets]),
             None, cs._issue_ms(
                 lambda: ops.paged_extend_attention(*sets[0], pos0))))
+    for shape, lengths, max_len in cs.DECODE_SHAPES:
+        for name, st in cs._decode_bench(gen, dev, lengths, max_len).items():
+            rows.append((f"{name} at {shape}", st["ms"], st["library_ms"],
+                         st["issue_ms"]))
     for name, ms, sdpa, issue in rows:
         print(f"[ab] {label} {name}: ms={ms:.4f}" +
               (f" sdpa_ms={sdpa:.4f}" if sdpa else "") +

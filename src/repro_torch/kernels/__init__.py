@@ -10,9 +10,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per wrapper, counted where each wrapper launches its
-#: kernel (one call of ``decode_attention`` is its split pass and its merge
-#: pass, and one of ``pair_score`` its projection and its score pass, each
-#: counted once)
+#: kernel (one call of ``pair_score`` is its projection and its score
+#: pass, counted once)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_extend_attention": 0,
                             "flash_attention": 0,

@@ -48,74 +48,16 @@
 // CTAs.
 #pragma once
 
-#include <cuda.h>
 #include <limits.h>
 
 #include "common.cuh"
+#include "sm90_ptx.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------
-// PTX wrappers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-      ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-      ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory become visible to TMA and wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// 2^x on the special-function unit (flushes results below 2^-126 to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the 128 consumer threads only (barrier 0 is __syncthreads)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
+// PTX wrappers (the mbarrier, proxy-fence, named-barrier, exp2 and TMA
+// ones are in sm90_ptx.cuh)
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -495,35 +437,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_sm90_kernel(
 }
 
 // ---------------------------------------------------------------------
-// Host side.  cuTensorMapEncodeTiled is a driver-API function; it is
-// looked up once through the runtime's driver entry point, so the
-// libraries link no libcuda.
-constexpr int ERR_NO_ENCODER = -2;   // cuTensorMapEncodeTiled not found
-constexpr int ERR_BAD_MAP = -3;      // the driver refused a tensor map
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
+// Host side (the lookup of the tensor-map encoder is in sm90_ptx.cuh).
 // A map over a contiguous bf16 tensor of dims (d3, d2, d1, HD), boxes of
 // {BW columns, 1, box_rows, 1} in the tile's swizzle; coordinates past a
 // dim's end read as zeros.

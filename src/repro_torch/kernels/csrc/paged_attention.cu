@@ -14,56 +14,59 @@
 // p <= pos0 + s, the keys living in pool block bt[b, p / bs] at row
 // p % bs.  Decode is the case S = 1, pos0 = length - 1.
 //
-// Two kernels carry the two entry points:
+// Three kernels carry the two entry points:
 //
-// paged_attention_kernel (decode, all dtypes; extend in fp32), on the CUDA
-// cores.  One CTA of NW warps owns GR (query, head) rows of one
-// (sequence b, kv head); the grid is (B, KV, ceil(S*G / GR)), so decode
-// launches one CTA per (b, kv head) whenever G <= 8.  The TPU kernel's
-// sequential grid axis over blocks becomes a loop inside the CTA, which
-// reads bt[b, p / bs] itself (no scalar prefetch).  A key is read by a
-// group of LPK lanes (8 for the decode rows, 16 for extend's 8-row tiles;
-// fewer for small head dims), each holding HD/LPK of its head dims, so a
-// warp reads 32/LPK keys at once and every group streams its own keys
-// straight from device memory, U keys per step in 16-byte loads, with no
-// barrier inside the loop.  Each group keeps its own online softmax
-// (m, l, acc) in fp32 registers for the GR rows; the dot products finish
-// with shuffles inside the group.  At the end the groups of a warp merge
-// by shuffles and the warps merge through shared memory, by the usual
-// rescaling of (m, l, acc).
+// decode_sm90_kernel (decode, fp32 and bf16; decode_sm90.cuh) with
+// PagedRows below: the split-key design shared with the dense decode, its
+// keys split over CTAs in chunks, K/V rows brought in by TMA boxes into an
+// mbarrier ring, the chunks merged in the same launch.  PagedRows says
+// where key t lives (pool row bt[b, t / bs], clamped, row t % bs; a box
+// is a page piece of gcd(bs, 16) rows) and how many keys are live,
+// min(lengths[b], nb * bs); a row of
+// length 0 sees no key and gives 0, as the TPU kernel does (l = 0, so
+// acc / max(l, 1e-30) = 0).
 //
 // attention_sm90_kernel (extend in bf16; attention_sm90.cuh) with
 // PagedSrc below, on the tensor cores with wgmma, K/V tiles brought in by
 // TMA into a ring of mbarrier-guarded stages.  A tensor map spans the
 // pool as (n_pool_rows, bs, KV, hd); the producer warp reads bt[b, key /
-// bs] (clamped, as the fp32 kernel does) and issues one box per page of a
-// 64-key tile (pages of 8 rows or more; a page larger than the tile gives
-// a 64-row box).  Pages whose row count is not a multiple of 8 are copied
-// by the producer warp with 16-byte loads instead.  As in the TPU kernel,
-// P stays fp32 for P.V: it enters as a bf16 pair hi + lo (relative error
-// <= 2^-18), and everything accumulates in fp32.  A CTA walks all the
-// keys its rows see, so the longest sequence of a batch sets the time.
+// bs] (clamped) and issues one box per page of a 64-key tile (pages of 8
+// rows or more; a page larger than the tile gives a 64-row box).  Pages
+// whose row count is not a multiple of 8 are copied by the producer warp
+// with 16-byte loads instead.  As in the TPU kernel, P stays fp32 for
+// P.V: it enters as a bf16 pair hi + lo (relative error <= 2^-18), and
+// everything accumulates in fp32.  A CTA walks all the keys its rows see,
+// so the longest sequence of a batch sets the time.
 //
-// In both, the loop stops at the last key any row of the CTA can see,
-// which skips the fully masked blocks the TPU kernel walked through with
-// pl.when (the bf16 extend also zeroes V rows past that key in its last
-// tile: a page-granular copy reads whatever the pool holds there).
-// Masked scores are the finite NEG_INF = -2e38 and masked keys add
-// p = 0, so a row that sees no key gives 0, never a NaN.  The output is
-// acc / max(l, 1e-30), as on the TPU.
+// paged_attention_kernel (extend in fp32, the parity runs), on the CUDA
+// cores.  One CTA of NW warps owns 8 (query, head) rows of one (sequence
+// b, kv head); the grid is (B, KV, ceil(S*G / 8)).  The TPU kernel's
+// sequential grid axis over blocks becomes a loop inside the CTA, which
+// reads bt[b, p / bs] itself (no scalar prefetch).  A key is read by a
+// group of LPK lanes, each holding HD/LPK of its head dims, so a warp
+// reads 32/LPK keys at once and every group streams its own keys straight
+// from device memory, U keys per step in 16-byte loads, with no barrier
+// inside the loop.  Each group keeps its own online softmax (m, l, acc)
+// in fp32 registers for the 8 rows; the dot products finish with shuffles
+// inside the group.  At the end the groups of a warp merge by shuffles and
+// the warps merge through shared memory, by the usual rescaling of
+// (m, l, acc).
 //
-// Bound on the card: memory bandwidth.  Decode costs ~4 * G * hd flops
-// per key against 2 * hd * sizeof(T) bytes of K and V, far below the
-// ~295 flops per byte where an H100 turns compute-bound, so the least
-// time is the K/V bytes the sequences need over 3.35 TB/s.  Extend at
-// the main path's shapes (S = 256 after a cached prefix) sits at the bf16
-// ridge: its bytes (q, K/V, out) and its tensor-core operations give about
-// the same least time, the bytes slightly more; the fp32 variant on the
-// CUDA cores is bound by its instructions.
+// In both extend kernels the loop stops at the last key any row of the
+// CTA can see, which skips the fully masked blocks the TPU kernel walked
+// through with pl.when (the bf16 extend also zeroes V rows past that key
+// in its last tile: a page-granular copy reads whatever the pool holds
+// there).  Masked scores are the finite NEG_INF = -2e38 and masked keys
+// add p = 0, so a row that sees no key gives 0, never a NaN.  The output
+// is acc / max(l, 1e-30), as on the TPU.
 //
-// Left for later in the decode kernel: no TMA staging and no split-K
-// across CTAs, so a long context with few sequences leaves most SMs idle.
+// Bound on the card: memory bandwidth for the decode (decode_sm90.cuh).
+// Extend at the main path's shapes (S = 256 after a cached prefix) sits
+// at the bf16 ridge: its bytes (q, K/V, out) and its tensor-core
+// operations give about the same least time, the bytes slightly more; the
+// fp32 variant on the CUDA cores is bound by its instructions.
 #include "attention_sm90.cuh"
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -73,15 +76,15 @@ constexpr int NT = NW * 32;    // threads per CTA
 // Rows row0 .. row0+GR-1 of the S*G rows of (b, kvh).  Row r = s*G + g
 // reads q[b, s, kvh, g, :] and writes out[b, s, kvh, g, :]; both are
 // (B, S, KV, G, HD) contiguous.  Pools are (n_pool_rows, bs, KV, HD)
-// contiguous; bt is (B, nb).  idx is lengths (decode) or pos0 (extend).
+// contiguous; bt is (B, nb); query s of sequence b sits at pos0[b] + s.
 // Scores live in the log2 domain (q is scaled by scale * log2 e) so the
 // softmax runs on exp2f; the result is the same softmax.
 template <typename T, int HD, int GR>
 __global__ void __launch_bounds__(NT) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ bt,
-    const int* __restrict__ idx, T* __restrict__ out, int decode, int S,
-    int KV, int G, int nb, int bs, int n_pool_rows, float scale) {
+    const int* __restrict__ pos0s, T* __restrict__ out, int S, int KV,
+    int G, int nb, int bs, int n_pool_rows, float scale) {
   constexpr int LPK = lanes_per_key<HD, GR>();  // lanes per key
   constexpr int VEC = HD / LPK;                 // head dims per lane
   constexpr int KPW = 32 / LPK;                 // keys a warp reads at once
@@ -93,7 +96,7 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
 
   const int b = blockIdx.x, kvh = blockIdx.y, row0 = blockIdx.z * GR;
   const int rows = min(GR, S * G - row0);
-  const int pos0 = decode ? idx[b] - 1 : idx[b];
+  const int pos0 = pos0s[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % LPK, gi = lane / LPK, d0 = sub * VEC;
   const int* bt_row = bt + (int64_t)b * nb;
@@ -317,102 +320,98 @@ int launch_extend_bf16(const void* q, const void* k_pool, const void* v_pool,
   return launch_attention<HD, PagedSrc>(kmap, vmap, p, B, stream);
 }
 
-template <typename T, int HD, int GR>
-int launch(int decode, const void* q, const void* k_pool, const void* v_pool,
-           const void* bt, const void* idx, void* out, int B, int S, int KV,
-           int G, int nb, int bs, int n_pool_rows, float scale,
-           cudaStream_t stream) {
-  const dim3 grid(B, KV, (S * G + GR - 1) / GR);
-  paged_attention_kernel<T, HD, GR><<<grid, NT, 0, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)bt,
-      (const int*)idx, (T*)out, decode, S, KV, G, nb, bs, n_pool_rows, scale);
+// fp32 extend: paged_attention_kernel, 8 rows a CTA
+template <int HD>
+int launch_extend_f32(const void* q, const void* k_pool, const void* v_pool,
+                      const void* bt, const void* pos0, void* out, int B,
+                      int S, int KV, int G, int nb, int bs, int n_pool_rows,
+                      float scale, cudaStream_t stream) {
+  const dim3 grid(B, KV, (S * G + 7) / 8);
+  paged_attention_kernel<float, HD, 8><<<grid, NT, 0, stream>>>(
+      (const float*)q, (const float*)k_pool, (const float*)v_pool,
+      (const int*)bt, (const int*)pos0, (float*)out, S, KV, G, nb, bs,
+      n_pool_rows, scale);
   return (int)cudaGetLastError();
 }
 
-// rows per CTA are the G heads of one kv head for decode (the smallest
-// instantiated count that holds them) and 8 rows for fp32 extend
-template <typename T, int HD>
-int launch_rows(int decode, const void* q, const void* k_pool,
-                const void* v_pool, const void* bt, const void* idx, void* out,
-                int B, int S, int KV, int G, int nb, int bs, int n_pool_rows,
-                float scale, cudaStream_t stream) {
-  const int want = decode ? G : 8;
-#define REPRO_LAUNCH(GR_)                                                    \
-  return launch<T, HD, GR_>(decode, q, k_pool, v_pool, bt, idx, out, B, S,  \
-                            KV, G, nb, bs, n_pool_rows, scale, stream)
-  if (want <= 1) REPRO_LAUNCH(1);
-  if (want <= 2) REPRO_LAUNCH(2);
-  if (want <= 4) REPRO_LAUNCH(4);
-  REPRO_LAUNCH(8);
-#undef REPRO_LAUNCH
-}
-
-template <typename T>
-int launch_hd(int hd, int decode, const void* q, const void* k_pool,
-              const void* v_pool, const void* bt, const void* idx, void* out,
-              int B, int S, int KV, int G, int nb, int bs, int n_pool_rows,
-              float scale, cudaStream_t stream) {
-#define REPRO_HD(HD_)                                                        \
-  return launch_rows<T, HD_>(decode, q, k_pool, v_pool, bt, idx, out, B, S, \
-                             KV, G, nb, bs, n_pool_rows, scale, stream)
-  switch (hd) {
-    case 16: REPRO_HD(16);
-    case 32: REPRO_HD(32);
-    case 64: REPRO_HD(64);
-    case 128: REPRO_HD(128);
-    default: return -1;
+// ---------------------------------------------------------------------
+// decode: decode_sm90_kernel (decode_sm90.cuh) with PagedRows, whose key
+// rows are pool rows read through the block table.
+struct PagedRows {
+  // keys 0 .. min(lengths[b], nb * bs) - 1
+  static __device__ __forceinline__ int live(const DecodeParams& p, int b) {
+    return min(max(p.lengths[b], 0), p.nb * p.bs);
   }
-#undef REPRO_HD
-}
-
-int dispatch(int dtype, int hd, int decode, const void* q, const void* k_pool,
-             const void* v_pool, const void* bt, const void* idx, void* out,
-             int B, int S, int KV, int G, int nb, int bs, int n_pool_rows,
-             float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_hd<float>(hd, decode, q, k_pool, v_pool, bt, idx, out, B,
-                            S, KV, G, nb, bs, n_pool_rows, scale, st);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, decode, q, k_pool, v_pool, bt, idx,
-                                    out, B, S, KV, G, nb, bs, n_pool_rows,
-                                    scale, st);
-  return -1;
-}
+  // the (row in the page, pool row) of the box starting at live key t,
+  // which lies in one page (box_rows divides bs); out-of-range table
+  // entries clamp, as a gather does in JAX
+  static __device__ __forceinline__ int2 box(const DecodeParams& p, int b,
+                                             int t) {
+    const int j = t / p.bs;
+    const int phys = min(max(p.bt[(int64_t)b * p.nb + j], 0),
+                         p.n_pool_rows - 1);
+    return make_int2(t - j * p.bs, phys);
+  }
+  // a row of length 0 sees no key: 0
+  template <typename T, int HD>
+  static __device__ void no_keys(const DecodeParams& p, int b, int kvh,
+                                 int g0, int rows) {
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    T* out = (T*)p.out + ((int64_t)b * p.KV * p.G + kvh * p.G + g0) * HD;
+    for (int e = 4 * threadIdx.x; e < rows * HD; e += 4 * blockDim.x)
+      Vec<T, 4>::store(out + e, zero);
+  }
+};
 
 }  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  q and out are (B, KV * G, hd); ws is
+// an fp32 workspace of B * KV * G * n_chunks * (hd + 2) floats and tickets
+// B * KV * ceil(G / 8) int32 counters, zero before the first call (the
+// kernel leaves them zero); n_chunks = ceil(nb * bs / DECODE_CHUNK).
+// Returns cudaGetLastError() after the launch (0 on success), -1 for a
+// dtype / head_dim it has no kernel for, -2 if cuTensorMapEncodeTiled
+// cannot be found, -3 if it refuses a tensor map.
+extern "C" int repro_paged_decode_attention(
+    int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
+    const void* bt, const void* lengths, void* out, void* ws, void* tickets,
+    int B, int KV, int G, int nb, int bs, int n_pool_rows, int n_chunks,
+    float scale, void* stream) {
+  DecodeParams p = {};
+  p.q = q; p.k = k_pool; p.v = v_pool; p.out = out;
+  p.lengths = (const int*)lengths;
+  p.bt = (const int*)bt;
+  p.ws = (float*)ws;
+  p.tickets = (int*)tickets;
+  p.B = B; p.KV = KV; p.G = G; p.n_chunks = n_chunks;
+  p.nb = nb; p.bs = bs; p.n_pool_rows = n_pool_rows;
+  p.scale = scale;
+  return launch_decode<PagedRows>(dtype, hd, p, bs, n_pool_rows, bs, stream);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
 // launch (0 on success), -1 for a dtype / head_dim it has no kernel for,
 // -2 if cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor
 // map.
-extern "C" int repro_paged_decode_attention(
-    int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
-    const void* bt, const void* lengths, void* out, int B, int KV, int G,
-    int nb, int bs, int n_pool_rows, float scale, void* stream) {
-  return dispatch(dtype, hd, 1, q, k_pool, v_pool, bt, lengths, out, B, 1,
-                  KV, G, nb, bs, n_pool_rows, scale, stream);
-}
-
 extern "C" int repro_paged_extend_attention(
     int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
     const void* bt, const void* pos0, void* out, int B, int S, int KV, int G,
     int nb, int bs, int n_pool_rows, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
 #define REPRO_HD(HD_)                                                        \
-  return launch_extend_bf16<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S,    \
-                                 KV, G, nb, bs, n_pool_rows, scale, st)
-    switch (hd) {
-      case 16: REPRO_HD(16);
-      case 32: REPRO_HD(32);
-      case 64: REPRO_HD(64);
-      case 128: REPRO_HD(128);
-      default: return -1;
-    }
-#undef REPRO_HD
+  case HD_:                                                                  \
+    return dtype == 1                                                        \
+        ? launch_extend_bf16<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S,    \
+                                  KV, G, nb, bs, n_pool_rows, scale, st)     \
+        : launch_extend_f32<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S, KV, \
+                                 G, nb, bs, n_pool_rows, scale, st)
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (hd) {
+    REPRO_HD(16);
+    REPRO_HD(32);
+    REPRO_HD(64);
+    REPRO_HD(128);
+    default: return -1;
   }
-  return dispatch(dtype, hd, 0, q, k_pool, v_pool, bt, pos0, out, B, S, KV,
-                  G, nb, bs, n_pool_rows, scale, stream);
+#undef REPRO_HD
 }
-

@@ -1,15 +1,15 @@
 """Launch wrapper for the Hopper split-K decode kernel
-(``csrc/decode_attention.cu``), the port of
-``repro.kernels.decode_attention.decode_attention_bhd``.
+(``csrc/decode_attention.cu`` on the shared ``csrc/decode_sm90.cuh``), the
+port of ``repro.kernels.decode_attention.decode_attention_bhd``.
 
 :func:`decode_attention_bhd` takes q ``(B, H, hd)`` and the caches in the
 model's ``(B, L, KV, hd)`` layout (the TPU wrapper transposed them to
 ``(B, KV, L, hd)``).  It takes CUDA tensors only: it allocates the output
-and the fp32 split workspace, launches the split pass and the merge pass
-on PyTorch's current stream without synchronising, raises if a launch
-reports an error, and adds one to its count in
-:data:`repro_torch.kernels.LAUNCHES`.  :func:`check_args` validates a call
-for both routes; the plain version is
+and the scratch of :mod:`repro_torch.kernels.decode_plan`, launches the
+kernel (split and merge in one launch) on PyTorch's current stream
+without synchronising, raises if the launch reports an error, and adds
+one to its count in :data:`repro_torch.kernels.LAUNCHES`.
+:func:`check_args` validates a call for both routes; the plain version is
 :func:`repro_torch.kernels.ref.decode_attention_ref`.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
-                                 check_tensors)
+                                 check_launch, check_tensors, decode_plan)
 
 _lib = None
 
@@ -30,12 +30,13 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("decode_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, q, k, v, lengths, out, ws, B, L, KV, G, n_splits,
-        #  scale, stream)
+        # (dtype, hd, q, k, v, lengths, out, ws, tickets, B, L, KV, G,
+        #  n_chunks, scale, stream)
         lib.repro_decode_attention.argtypes = [
-            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            ctypes.c_float, ptr]
+            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+            i32, ctypes.c_float, ptr]
         lib.repro_decode_attention.restype = i32
+        decode_plan.check_library(lib, "decode_attention")
         _lib = lib
     return _lib
 
@@ -65,33 +66,26 @@ def check_args(q, k, v, lengths, n_splits: int):
         raise ValueError(f"{name}: n_splits must be >= 1, got {n_splits}")
 
 
-def num_splits(L: int, n_splits: int) -> int:
-    """The TPU wrapper's split count: ``n_splits`` halved until it divides
-    the cache length ``L``."""
-    while n_splits > 1 and L % n_splits:
-        n_splits //= 2
-    return max(n_splits, 1)
-
-
 def decode_attention_bhd(q, k, v, lengths, *, n_splits: int = 8):
     """q: (B,H,hd); k/v: (B,L,KV,hd) caches; lengths: (B,) int32 valid
-    prefix -> (B,H,hd)."""
+    prefix -> (B,H,hd).  ``n_splits`` is the TPU wrapper's contract
+    (``repro.kernels.ops.decode_attention``) and is checked, but the
+    kernel plans its own split: chunks of ``decode_plan.CHUNK_KEYS`` keys,
+    from the shapes alone."""
     check_args(q, k, v, lengths, n_splits)
     check_cuda("decode_attention", {"q": q, "k": k, "v": v})
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
-    ns = num_splits(L, n_splits)
+    plan = decode_plan.split_plan(B, H, KV, hd, L)
     out = torch.empty_like(q)
-    ws = torch.empty(B * H * ns * (hd + 2), dtype=torch.float32,
-                     device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws, tickets = decode_plan.scratch(plan, q.device, stream)
         rc = _library().repro_decode_attention(
             DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            B, L, KV, H // KV, ns, 1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention: kernel launch failed with "
-                           f"CUDA error {rc}")
+            tickets.data_ptr(), B, L, KV, H // KV, plan.n_chunks,
+            1.0 / math.sqrt(hd), stream)
+    check_launch("decode_attention", rc)
     LAUNCHES["decode_attention"] += 1
     return out

@@ -64,8 +64,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
     """q: (B,H,hd); k/v: (B,L,KV,hd) caches; lengths: (B,) int32 valid
-    prefix -> (B,H,hd).  ``n_splits`` splits the cache length across
-    CTAs on the kernel route."""
+    prefix -> (B,H,hd).  ``n_splits`` is the TPU wrapper's contract and
+    is checked; the kernel plans its own split of the keys over CTAs
+    (:mod:`repro_torch.kernels.decode_plan`)."""
     if not _route("decode_attention", q):
         da.check_args(q, k, v, lengths, n_splits)
         return ref.decode_attention_ref(q, k, v, lengths)

@@ -3,9 +3,10 @@
 
 ``paged_decode_attention_bkgd`` and ``paged_extend_attention_bkgd`` keep
 the TPU wrappers' ``(B, [S,] KV, G, hd)`` query layout.  They take CUDA
-tensors only: each checks its arguments, allocates the output, launches
-its kernel on PyTorch's current stream without synchronising, raises if
-the launch reports an error, and adds one to its count in
+tensors only: each checks its arguments, allocates the output (the decode
+also the scratch of :mod:`repro_torch.kernels.decode_plan`), launches its
+kernel on PyTorch's current stream without synchronising, raises if the
+launch reports an error, and adds one to its count in
 :data:`repro_torch.kernels.LAUNCHES`.  The plain versions live in
 :mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops` chooses
 between the two by device.
@@ -17,7 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
-                                 check_launch, check_tensors)
+                                 check_launch, check_tensors, decode_plan)
 
 _lib = None
 
@@ -27,16 +28,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("paged_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, q, k_pool, v_pool, bt, lengths|pos0, out, B, [S,] KV,
-        #  G, nb, bs, n_pool_rows, scale, stream)
+        # decode: (dtype, hd, q, k_pool, v_pool, bt, lengths, out, ws,
+        #  tickets, B, KV, G, nb, bs, n_pool_rows, n_chunks, scale, stream)
         lib.repro_paged_decode_attention.argtypes = [
-            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        # extend: (dtype, hd, q, k_pool, v_pool, bt, pos0, out, B, S, KV,
+        #  G, nb, bs, n_pool_rows, scale, stream)
         lib.repro_paged_extend_attention.argtypes = [
             i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
         lib.repro_paged_decode_attention.restype = i32
         lib.repro_paged_extend_attention.restype = i32
+        decode_plan.check_library(lib, "paged_attention")
         _lib = lib
     return _lib
 
@@ -70,7 +74,10 @@ def _index_name(name: str) -> str:
     return "lengths" if "decode" in name else "pos0"
 
 
-def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims):
+def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims,
+            plan=None):
+    """Launch ``repro_<fn_name>``; the decode's split ``plan`` adds its
+    scratch and chunk count to the call."""
     check_cuda(fn_name, {"q": q, "k_pool": k_pool, "v_pool": v_pool})
     out = torch.empty_like(q)
     hd = q.shape[-1]
@@ -78,10 +85,15 @@ def _launch(fn_name: str, q, k_pool, v_pool, block_tables, index, dims):
     nb = block_tables.shape[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch, n_chunks = (), ()
+        if plan is not None:
+            ws, tickets = decode_plan.scratch(plan, q.device, stream)
+            scratch = (ws.data_ptr(), tickets.data_ptr())
+            n_chunks = (plan.n_chunks,)
         rc = getattr(_library(), f"repro_{fn_name}")(
             DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_tables.data_ptr(), index.data_ptr(),
-            out.data_ptr(), *dims, nb, bs, n_pool_rows,
+            out.data_ptr(), *scratch, *dims, nb, bs, n_pool_rows, *n_chunks,
             1.0 / math.sqrt(hd), stream)
     check_launch(fn_name, rc)
     LAUNCHES[fn_name] += 1
@@ -97,8 +109,10 @@ def paged_decode_attention_bkgd(q, k_pool, v_pool, block_tables, lengths):
     if k_pool.shape[2] != KV:
         raise ValueError(f"paged_decode_attention: q has {KV} kv heads, "
                          f"pools {k_pool.shape[2]}")
+    plan = decode_plan.split_plan(B, KV * G, KV, q.shape[-1],
+                                  block_tables.shape[1] * k_pool.shape[1])
     return _launch("paged_decode_attention", q, k_pool, v_pool,
-                   block_tables, lengths, (B, KV, G))
+                   block_tables, lengths, (B, KV, G), plan)
 
 
 def paged_extend_attention_bkgd(q, k_pool, v_pool, block_tables, pos0):

@@ -117,18 +117,22 @@ def test_sources_share_the_sm90_attention_header(source):
 
 
 def test_sm90_header_holds_the_wgmma_and_tma_design():
-    text = (build.CSRC / "attention_sm90.cuh").read_text()
+    text = "".join((build.CSRC / n).read_text() for n in
+                   ["attention_sm90.cuh",
+                    *build.local_includes("attention_sm90.cuh")])
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
                    "mbarrier.try_wait.parity", "cuTensorMapEncodeTiled"):
         assert needle in text, needle
 
 
 def test_sm90_design_has_no_build_time_options():
-    """One design, no switch between variants: the only conditional
-    compilation in the header and its two sources picks the CUDA runtime's
-    entry-point lookup."""
-    for name in ("attention_sm90.cuh", "flash_attention.cu",
-                 "paged_attention.cu"):
+    """One design each, no switch between variants: the only conditional
+    compilation in the two Hopper headers (the wgmma attention and the
+    split-key decode), the PTX header they share and their three sources
+    picks the CUDA runtime's entry-point lookup."""
+    for name in ("attention_sm90.cuh", "decode_sm90.cuh", "sm90_ptx.cuh",
+                 "flash_attention.cu", "paged_attention.cu",
+                 "decode_attention.cu"):
         text = (build.CSRC / name).read_text()
         conds = re.findall(r"^\s*#\s*(?:if|ifdef|ifndef|elif)\b(.*)$", text,
                            re.M)

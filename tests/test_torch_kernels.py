@@ -168,13 +168,6 @@ def test_decode_attention_length_zero_is_the_mean_of_v():
     np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL["float32"])
 
 
-@pytest.mark.parametrize("L,n_splits,want", [
-    (2048, 8, 8), (256, 4, 4), (40, 8, 8), (36, 8, 4), (7, 8, 1), (6, 1, 1)])
-def test_decode_split_count_follows_the_tpu_wrapper(L, n_splits, want):
-    """decode_attention.py:46-48: n_splits halves until it divides L."""
-    assert da.num_splits(L, n_splits) == want
-
-
 @pytest.mark.parametrize("B,nb_seq,bs,H,KV,hd,dtype", [
     (2, 4, 16, 8, 2, 64, "float32"),     # GQA 4:1
     (1, 3, 32, 4, 4, 128, "float32"),    # MHA
