@@ -13,9 +13,9 @@ phase:
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    process per source, all started together (timed), and ptxas's
-   registers and spills for the two wgmma attention kernels and the
-   split-key decode kernel of both decode sources (a spill fails the
-   run);
+   registers and spills for the two wgmma attention kernels, the
+   split-key decode kernel of both decode sources and the pair score's
+   3xTF32 wgmma kernel (a spill fails the run);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -36,10 +36,13 @@ phase:
    decodes also at the serves' shape (B=8, lengths 301-329) and at a tiny
    one (B=1, length 8), with the host's issue time; the pair
    score at the batch shape (256, 512, 1024) and the stream's (1024,
-   1024, 1024) on MARGOT features and on random
-   inputs, and on a small grid in fp32 and bf16, each held against the
-   plain version in fp64, with a TF32 control that the limit must
-   reject; the selective scan at the Mamba serve's admit shapes (4, 512,
+   1024, 1024) on MARGOT features and on random inputs, on the 3xTF32
+   wgmma route, and on a small grid in fp32 and bf16 over both routes
+   (wgmma: fp32 with d % 4 == 0, with its edges: N and M off its tiles, a
+   ragged last depth chunk, d off its 32-deep stages; the CUDA cores: bf16
+   or d % 4 != 0), each held against the plain version in fp64 and
+   repeated for bit-identical scores, with a TF32 control that the limit
+   must reject; the selective scan at the Mamba serve's admit shapes (4, 512,
    8192, 16), (1, 1000, 8192, 16), (1, 100, 8192, 16) and on a small grid
    (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view), each
    held against the plain version at atol = rtol = 1e-4, with a control
@@ -90,9 +93,12 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16/fp32 ops/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and ops/s in bf16
+# and TF32 on the tensor cores and fp32 on the CUDA cores; "tf32x3" is the
+# rate of fp32-accurate products made of three TF32 ones (the pair score's
+# wgmma route)
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 # Tolerances.  Each kernel is held against its plain version run in fp32
 # on the same inputs.  fp32: atol = rtol = 2e-5 (tests/test_kernels.py:16).
 # bf16: the kernels keep scores and P in fp32, as the TPU kernels do, so
@@ -111,12 +117,13 @@ BF16_MISMATCH = 0.01
 # that it computes the same function, so that its time is a fair yardstick
 LIBRARY_TOL = 3e-2
 # The pair score is held against its plain version run in fp64 on the same
-# inputs: max |kernel - fp64| <= PAIR_REL * max |fp64|.  The kernel sums d
-# fp32 products per output (about 2e-7 of the largest score, measured on
-# an emulation of the kernel on the CPU); TF32 keeps 10 mantissa bits, so
-# its products are off by up to 2^-11 and its scores by ~1e-4 of the
-# largest, which the control (the plain version in fp32 with TF32 on)
-# shows by failing the limit at the batch and stream shapes.
+# inputs: max |kernel - fp64| <= PAIR_REL * max |fp64|.  The fp32 route
+# sums three TF32 products a term (3xTF32: hi and lo parts of both
+# operands), the other route d fp32 products; both land at ~2e-7 to 9e-7
+# of the largest score on an H100 (PERF.md, section 6).  TF32 keeps 10
+# mantissa bits, so one TF32 product is off by up to 2^-11 and its scores
+# by ~1e-4 of the largest, which the control (the plain version in fp32
+# with TF32 on) shows by failing the limit at the batch and stream shapes.
 PAIR_REL = 1e-5
 # The selective scan is held against its plain version (fp32, one step at
 # a time) at the repo's scan tolerance, atol = rtol = 1e-4
@@ -204,6 +211,7 @@ def phase_device() -> str:
               f"{_sm90_usage(build.BUILD_LOG, source, smem)}")
     for source in ("paged_attention.cu", "decode_attention.cu"):
         print(f"[build] {source} {_decode_usage(build.BUILD_LOG, source)}")
+    print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -270,6 +278,24 @@ def _decode_usage(logs, source) -> str:
     return (f"decode_sm90_kernel at 2 rows a CTA: {show} (static shared "
             f"memory); up to {most} registers at 8 rows; no spills in "
             f"{len(found)} instantiations")
+
+
+def _pair_usage(logs, ps) -> str:
+    """The pair score's wgmma kernel, both instantiations (projection and
+    score; each must have a report and no spill), beside the dynamic
+    shared memory it asks for, and ptxas's warnings that it serialised
+    the kernel's wgmma, if any."""
+    from repro_torch.kernels import pair_plan
+    found = {re.match(r"Lb([01])", k)[1]: v for k, v in _ptxas_reports(
+        logs, "pair_score.cu", "pair_sm90_kernel").items()}
+    check(sorted(found) == ["0", "1"], f"pair_score.cu: ptxas reported "
+          f"pair_sm90_kernel for {sorted(found)}, not both instantiations")
+    serial = [ln.strip() for ln in logs["pair_score.cu"].splitlines()
+              if "serialized" in ln]
+    return (f"pair_sm90_kernel projection: {found['1']}; score: "
+            f"{found['0']}; dynamic shared memory "
+            f"{pair_plan.smem_bytes(ps._library())} bytes; wgmma "
+            f"serialised: {serial[0] if serial else 'no'}")
 
 
 def _time_ms(fns, iters: int = 20) -> float:
@@ -1028,25 +1054,33 @@ def _margot_pair_inputs(dev, N, M):
             link["bias"])
 
 
-def _pair_check(name, C, E, W, w, b, control=False):
+def _pair_check(name, C, E, W, w, b, control=False, route=None):
     """The kernel's pair score against the plain version run in fp64 on
-    the same inputs, at max |kernel - fp64| <= PAIR_REL * max |fp64|; with
+    the same inputs, at max |kernel - fp64| <= PAIR_REL * max |fp64|, on
+    the route the plan gives (which must be ``route`` when given); a
+    second call on the same inputs must give the same bits; with
     ``control``, the plain version in fp32 with TF32 on must fail that
     limit.  Returns (max abs error, its share of max |fp64|, the
     control's share or None)."""
     import torch
-    from repro_torch.kernels import ops, ref
-    d = C.shape[1]
-    out = ops.pair_score({"W": W, "w": w, "bias": b}, C, E)
+    from repro_torch.kernels import ops, pair_plan, ref
+    N, d = C.shape
+    got = pair_plan.plan(N, E.shape[0], d, C.dtype, W.dtype).route
+    check(route is None or got == route,
+          f"{name}: planned on the {got} route, not {route}")
+    link = {"W": W, "w": w, "bias": b}
+    out = ops.pair_score(link, C, E)
     check(out.dtype == torch.float32 and
           tuple(out.shape) == (C.shape[0], E.shape[0]) and
           bool(torch.isfinite(out).all()), f"{name}: bad output")
+    check(torch.equal(ops.pair_score(link, C, E), out),
+          f"{name}: two calls on the same inputs differ")
     want = ref.pair_score_ref(*(t.double() for t in (C, E, W, w[:d], w[d:],
                                                      b)))
     scale = want.abs().max().item()
     err = (out.double() - want).abs().max().item()
-    check(err <= PAIR_REL * scale, f"{name}: max |kernel - fp64| {err:.3e} "
-          f"is {err / scale:.3e} of max |score|, limit {PAIR_REL}")
+    check(err <= PAIR_REL * scale, f"{name} ({got}): max |kernel - fp64| "
+          f"{err:.3e} is {err / scale:.3e} of max |score|, limit {PAIR_REL}")
     ctl = None
     if control:
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -1070,27 +1104,42 @@ def _pair_library(C, E, W, w, b):
 
 def _pair_score_checks(gen, dev, stats, issue):
     """The pair score against its plain version in fp64: a grid of small
-    shapes in fp32 and bf16, then the batch path's shape (256, 512, 1024)
-    and the stream's (1024, 1024, 1024) in fp32 on MARGOT's features and on
-    random inputs, each with the TF32 control; times at both shapes."""
+    shapes in fp32 and bf16 on both routes (the wgmma route's edges: N and
+    M not multiples of its 128 x 128 tiles, a depth split with a ragged
+    last chunk, d = 4k but not a multiple of 32), then the batch path's
+    shape (256, 512, 1024) and the stream's (1024, 1024, 1024) in fp32 on
+    MARGOT's features and on random inputs, each with the TF32 control;
+    every call repeated for bit-identical scores; times at both shapes."""
     import torch
-    from repro_torch.kernels import ops, ref
-    worst = 0.0
+    from repro_torch.kernels import ops, pair_plan, ref
+    worst = {"wgmma": 0.0, "simt": 0.0}
+    n = 0
     for N, M, d in ((64, 128, 256), (100, 60, 128), (128, 128, 512),
-                    (1, 1, 1024), (257, 513, 130)):
+                    (1, 1, 1024), (257, 513, 130), (100, 60, 132),
+                    (257, 513, 1028)):
         for dtype in (torch.float32, torch.bfloat16):
-            _, rel, _ = _pair_check(f"pair_score ({N}, {M}, {d}) {dtype}",
-                                    *_pair_inputs(gen, dev, N, M, d, dtype))
-            worst = max(worst, rel)
+            route = ("wgmma" if dtype == torch.float32 and d % 4 == 0
+                     else "simt")
+            name = f"pair_score ({N}, {M}, {d}) {str(dtype)[6:]}"
+            _, rel, _ = _pair_check(
+                name, *_pair_inputs(gen, dev, N, M, d, dtype), route=route)
+            pl = pair_plan.plan(N, M, d, dtype, dtype)
+            split = (f" (splits {pl.project.split} x {pl.project.per_split}"
+                     f" / {pl.score.split} x {pl.score.per_split} steps)"
+                     if pl.project else "")
+            print(f"[kernels] {name}: route {route}{split}, |kernel - "
+                  f"fp64| / max|score| {rel:.3e}")
+            worst[route] = max(worst[route], rel)
+            n += 1
     _, rel, _ = _pair_check("pair_score bf16 claims, fp32 W",
                             *_pair_inputs(gen, dev, 100, 60, 128,
-                                          torch.bfloat16, torch.float32))
-    worst = max(worst, rel)
-    print(f"[kernels] pair_score grid: 11 checks over (64, 128, 256), "
-          f"(100, 60, 128), (128, 128, 512), (1, 1, 1024), (257, 513, 130) "
-          f"x fp32 / bf16 inputs (+ bf16 claims with fp32 W) passed: max "
-          f"|kernel - fp64| <= {worst:.3e} of max |score| (limit "
-          f"{PAIR_REL})")
+                                          torch.bfloat16, torch.float32),
+                            route="simt")
+    worst["simt"] = max(worst["simt"], rel)
+    print(f"[kernels] pair_score grid: {n + 1} checks (+ bf16 claims with "
+          f"fp32 W on the simt route), each repeated bit for bit, passed: "
+          f"max |kernel - fp64| <= {worst['wgmma']:.3e} (wgmma), "
+          f"{worst['simt']:.3e} (simt) of max |score| (limit {PAIR_REL})")
     d = 1024
     for label, N, M in (("batch", 256, 512), ("stream", 1024, 1024)):
         read = {}
@@ -1098,7 +1147,7 @@ def _pair_score_checks(gen, dev, stats, issue):
                            ("random", _pair_inputs(gen, dev, N, M, d,
                                                    torch.float32))):
             read[kind] = _pair_check(f"pair_score {label} {kind}", *args,
-                                     control=True)
+                                     control=True, route="wgmma")
         sets = [_pair_inputs(gen, dev, N, M, d, torch.float32)
                 for _ in range(3)]
         link = lambda s: {"W": s[2], "w": s[3], "bias": s[4]}  # noqa
@@ -1110,23 +1159,29 @@ def _pair_score_checks(gen, dev, stats, issue):
         by = 4 * (N * d + M * d + d * d + 2 * d + N * M + 1)
         n_ops = 2 * N * d * (d + M) + 2 * (N + M) * d
         st = _stats(
-            read["random"][0], by, n_ops, "float32",
+            read["random"][0], by, n_ops, "tf32x3",
             _time_ms([lambda s=s: ops.pair_score(link(s), s[0], s[1])
                       for s in sets]),
             _time_ms([lambda s=s: ref.pair_score_ref(
                 s[0], s[1], s[2], s[3][:d], s[3][d:], s[4]) for s in sets]),
             _time_ms([lambda s=s: _pair_library(*s) for s in sets]))
         iss = _issue_ms(lambda: ops.pair_score(link(sets[0]), C, E))
-        print(f"[kernels] pair_score {label} ({N}, {M}, {d}) fp32: "
-              f"|kernel - fp64| / max|score| margot={read['margot'][1]:.3e} "
-              f"random={read['random'][1]:.3e}, TF32 control "
-              f"margot={read['margot'][2]:.3e} random={read['random'][2]:.3e} "
-              f"(limit {PAIR_REL}); max_abs_err={st['max_abs_err']:.3e} "
-              f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
-              f"library_ms={st['library_ms']:.4f} (cuBLAS GEMMs + "
-              f"elementwise, several calls) bound_ms={st['bound_ms']:.4f} "
-              f"({st['bound_by']}); issued one by one from Python: "
-              f"{iss:.4f} ms per call")
+        core_ms = n_ops / PEAK_OPS["float32"] * 1e3
+        pl = pair_plan.plan(N, M, d, torch.float32, torch.float32)
+        print(f"[kernels] pair_score {label} ({N}, {M}, {d}) fp32, route "
+              f"wgmma ({pl.project.ctas} + {pl.score.ctas} CTAs, splits "
+              f"{pl.project.split} / {pl.score.split}), repeat calls bit-"
+              f"identical: |kernel - fp64| / max|score| "
+              f"margot={read['margot'][1]:.3e} random={read['random'][1]:.3e}"
+              f", TF32 control margot={read['margot'][2]:.3e} "
+              f"random={read['random'][2]:.3e} (limit {PAIR_REL}); "
+              f"max_abs_err={st['max_abs_err']:.3e} ms={st['ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} library_ms="
+              f"{st['library_ms']:.4f} (cuBLAS GEMMs + elementwise, several "
+              f"calls) bound_ms={st['bound_ms']:.4f} ({st['bound_by']}, "
+              f"3xTF32 at 495/3 TFLOP/s; on the CUDA cores' 67 TFLOP/s "
+              f"{core_ms:.4f}); issued one by one from Python: {iss:.4f} ms "
+              f"per call")
         if label == "batch":
             # no one PyTorch call computes this function: the JSON line's
             # library_ms is null, the yardstick is printed above

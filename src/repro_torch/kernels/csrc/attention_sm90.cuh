@@ -56,37 +56,8 @@
 namespace {
 
 // ---------------------------------------------------------------------
-// PTX wrappers (the mbarrier, proxy-fence, named-barrier, exp2 and TMA
-// ones are in sm90_ptx.cuh)
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma's registers
-// across the fence / wait that orders them
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// A shared-memory matrix descriptor: start address, the byte stride
-// between 8-row groups (given as both the leading and the stride offset:
-// each wgmma here spans one swizzle atom along the other axis, so the
-// field that axis would use is never read), and the swizzle.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
-                                              uint64_t swizzle_code) {
-  const uint64_t s = (sbo >> 4) & 0x3FFF;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (s << 16) | (s << 32) |
-         (swizzle_code << 62);
-}
+// PTX wrappers are in sm90_ptx.cuh (mbarriers, proxy fence, named
+// barrier, exp2, TMA, wgmma fence / commit / wait, smem_desc).
 
 // ---------------------------------------------------------------------
 // wgmma m64nNk16, bf16 in, fp32 accumulate.  ss: d (+)= A B with A

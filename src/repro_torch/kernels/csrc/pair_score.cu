@@ -6,49 +6,49 @@
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/pair_score.py:pair_score_blocked
-//     (body _pair_kernel)                                -> repro_pair_score
+//     (body _pair_kernel)        -> repro_pair_score_sm90, repro_pair_score
 //
 // claims C (N, d), evidence E (M, d), W (d, d), w_c and w_e (d,), each
 // contiguous, fp32 or bf16 (C and E share one type; W, w_c and w_e
 // another); bias is one fp32 value in device memory; out (N, M) is fp32.
-// Every element is converted to fp32 on load, and every product and sum
-// is an fp32 FMA on the CUDA cores, as _pair_kernel casts to fp32 and
-// accumulates in fp32.  No TF32 and no tensor cores: TF32 keeps about
-// three decimal digits, which moves scores near 0 across it and so
-// changes which links exist.
+// The TPU kernel keeps CW = C_blk W in VMEM across its sequential
+// evidence axis; CTAs cannot carry it from one to the next, so here the
+// projection P = C W is one launch into an fp32 workspace (N x d, then
+// lin = [C w_c ; E w_e], N + M), and out = P E^T + lin + b a second.
+// kernels/pair_plan.py picks the route from the shapes and dtypes:
 //
-// Design.  The TPU grid is (N / 128, M / 128), with CW = C_blk W kept in
-// VMEM across the sequential evidence axis.  At the batch path's N = 256
-// that is 2 claim blocks, for a card of 132 SMs, and CTAs cannot carry
-// CW from one to the next.  So the two chained products are two launches:
-//   project_kernel: P = C W into an fp32 workspace (N, d); the CTAs past
-//     the tiles compute lin[0:N] = C w_c and lin[N:N+M] = E w_e, one warp
-//     per row with a shuffle reduction;
-//   score_kernel: out = P E^T + lin[i] + lin[N + j] + b, summed in the
-//     TPU kernel's order.
-// A tile is a 32 x 32 block of outputs for one CTA of 256 threads: four
-// depth groups of 64 threads, each thread holding 4 x 4 outputs in
-// registers.  Group g walks the depth steps g, g + 4, g + 8, ... of 32,
-// staging both operand tiles in its own shared memory, k-major, so that a
-// thread reads its 4 rows and its 4 columns as two float4 per step (the
-// transposed writes hit 32 distinct banks), and
-// holding the next step's elements in registers while it computes on the
-// current one; at the end the groups' partial sums are added in shared
-// memory.  The CTA counts stay those of one 32 x 32 tile each, which the
-// batch path's small N needs, while four times the warps hide the load
-// latency.  Loads are scalar, neighbouring threads on neighbouring
-// addresses, and the ragged edges (any N, M, d >= 1) are masked on load
-// and on store, so nothing is padded and no alignment beyond the
-// element's is needed.  CTAs: 256 tile + 96 lin for project and 128 for
-// score at N = 256, M = 512, d = 1024 (the batch path); 1024 + 256 for
-// project and 1024 for score at the stream's 1024 x 1024 x 1024.
-//
-// Bound on the card: operations.  2 N d (d + M) + 2 (N + M) d flops
-// against (N d + M d + d^2 + 2 d + N M) * 4 bytes: at N = 256, M = 512,
-// d = 1024, 0.807 GFLOP, 0.012 ms at the fp32 CUDA-core peak of 67
-// TFLOP/s, against 7.9 MB, 0.0023 ms at 3.35 TB/s.  The SIMT tiles reach
-// a fraction of that peak; 3xTF32 on wgmma is a later design.
+// 1. fp32 inputs with d % 4 == 0 (MARGOT's batch and stream, d = 1024):
+//    3xTF32 on wgmma with a TMA ring and the depth split over a cluster,
+//    pair_sm90.cuh (repro_pair_score_sm90).  Bound on the card:
+//    operations, 2 N d (d + M) + 2 (N + M) d flops as three TF32 products
+//    each at 495 TFLOP/s against (N d + M d + d^2 + 2 d + N M) * 4 bytes
+//    at 3.35 TB/s: at N = 256, M = 512, d = 1024, 3 x 0.807 GFLOP, 0.0049
+//    ms (7.9 MB, 0.0023 ms); at 1024^3, 0.0260 ms (16.8 MB, 0.0050 ms).
+//    (On the CUDA cores, the fp32 peak of 67 TFLOP/s, the same work would
+//    take 0.0120 and 0.0641 ms.)  One TF32 product keeps about three
+//    decimal digits, which moves scores near 0 across it and so changes
+//    which links exist; three (hi and lo parts of both operands) keep
+//    fp32's.
+// 2. bf16 inputs, or d % 4 != 0 (TMA needs 16-byte rows): the kernels
+//    below on the CUDA cores (repro_pair_score).  Every element is
+//    converted to fp32 on load and every product and sum is an fp32 FMA,
+//    as _pair_kernel casts to fp32 and accumulates in fp32.
+//      project_kernel: P = C W into the workspace; the CTAs past the tiles
+//        compute lin, one warp per row with a shuffle reduction;
+//      score_kernel: out = P E^T + lin[i] + lin[N + j] + b.
+//    A tile is a 32 x 32 block of outputs for one CTA of 256 threads: four
+//    depth groups of 64 threads, each thread holding 4 x 4 outputs in
+//    registers.  Group g walks the depth steps g, g + 4, g + 8, ... of 32,
+//    staging both operand tiles in its own shared memory, k-major, so that
+//    a thread reads its 4 rows and its 4 columns as two float4 per step
+//    (the transposed writes hit 32 distinct banks), and holding the next
+//    step's elements in registers while it computes on the current one; at
+//    the end the groups' partial sums are added in shared memory.  Loads
+//    are scalar, neighbouring threads on neighbouring addresses, and the
+//    ragged edges (any N, M, d >= 1) are masked on load and on store, so
+//    nothing is padded and no alignment beyond the element's is needed.
 #include "common.cuh"
+#include "pair_sm90.cuh"
 
 namespace {
 
@@ -280,4 +280,33 @@ extern "C" int repro_pair_score(int c_dtype, int w_dtype, const void* C,
     return launch_w<__nv_bfloat16>(w_dtype, C, E, W, w_c, w_e, bias, out,
                                    (float*)ws, N, M, d, st);
   return -1;
+}
+
+// The fp32 route (C, E, W, w_c, w_e fp32, d % 4 == 0, every base 16-byte
+// aligned): ws as for repro_pair_score; the projection's and the score's
+// depth splits (CTAs a cluster) and chunks (steps of PAIR_BK a CTA) come
+// from kernels/pair_plan.py.  Returns 0, -1 for a plan that does not cover
+// the depth once, -2 / -3 for a tensor map, or a CUDA error.
+extern "C" int repro_pair_score_sm90(const void* C, const void* E,
+                                     const void* W, const void* w_c,
+                                     const void* w_e, const void* bias,
+                                     void* out, void* ws, int N, int M, int d,
+                                     int proj_split, int proj_per,
+                                     int score_split, int score_per,
+                                     void* stream) {
+  return pair_sm90((const float*)C, (const float*)E, (const float*)W,
+                   (const float*)w_c, (const float*)w_e, (const float*)bias,
+                   (float*)out, (float*)ws, N, M, d, proj_split, proj_per,
+                   score_split, score_per, (cudaStream_t)stream);
+}
+
+// The fp32 route's tiles, for kernels/pair_plan.py, which checks them when
+// it loads the library: rows, columns and depth of a CTA's tile, the
+// largest split, and the dynamic shared memory a CTA asks for.
+extern "C" void repro_pair_sm90_config(int* cfg) {
+  cfg[0] = PAIR_BM;
+  cfg[1] = PAIR_BN;
+  cfg[2] = PAIR_BK;
+  cfg[3] = PAIR_MAX_SPLIT;
+  cfg[4] = PAIR_SMEM;
 }

@@ -1,8 +1,11 @@
-// What the port's two Hopper designs share, the wgmma attention
-// (attention_sm90.cuh) and the split-key decode (decode_sm90.cuh): PTX
-// wrappers for mbarriers, the proxy fence, the consumers' named barrier,
-// 2^x and the TMA tile copy, and the lookup of the tensor-map encoder.
-// Everything has internal linkage, as in common.cuh.
+// What the port's Hopper designs share, the wgmma attention
+// (attention_sm90.cuh), the split-key decode (decode_sm90.cuh) and the
+// 3xTF32 pair score (pair_sm90.cuh): PTX wrappers for mbarriers, the proxy
+// fence, the consumers' named barrier, 2^x, the TMA tile copies, wgmma's
+// fence / commit / wait and shared-memory descriptor, the TF32 split and
+// the TF32 wgmma, the cluster barrier and distributed shared memory, and
+// the lookup of the tensor-map encoder.  Everything has internal linkage,
+// as in common.cuh.
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +60,7 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
+
 // 2^x on the special-function unit (flushes results below 2^-126 to 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -74,6 +78,160 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------
+// wgmma: ordering, and the shared-memory matrix descriptor
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of wgmma's registers
+// across the fence / wait that orders them
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor: start address, the byte stride
+// between 8-row groups (given as both the leading and the stride offset:
+// each wgmma here spans one swizzle atom along the other axis, so the
+// field that axis would use is never read), and the swizzle.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
+                                              uint64_t swizzle_code) {
+  const uint64_t s = (sbo >> 4) & 0x3FFF;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (s << 16) | (s << 32) |
+         (swizzle_code << 62);
+}
+
+// ---------------------------------------------------------------------
+// TF32 on the tensor cores
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds, on the bit pattern: half a TF32 unit
+// added to the magnitude, then the low 13 bits cleared (a carry out of the
+// mantissa moves to the next binade, as rounding up should).  x is finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + (|x| 2^-22 at most): hi = tf32(x), lo = tf32(x - hi);
+// x - hi is exact in fp32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// wgmma m64n128k8, TF32 in, fp32 accumulate: d = A B, or d += A B with
+// `accumulate`, with A (64 x 8) in registers (four TF32 values a thread:
+// rows gq and gq + 8 of the warp's 16, columns tq and tq + 4) and B
+// (8 x 128) K-major in shared memory.  TF32 takes no transpose: a
+// shared-memory operand must be K-major.
+__device__ __forceinline__ void wgmma_tf32_m64n128_rs(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------
+// Thread-block clusters and distributed shared memory
+
+// every thread of every CTA of the cluster arrives, then waits; the
+// shared-memory accesses before its arrival are done, for the whole
+// cluster, after its wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// a shared-memory address of this CTA as the same offset in CTA `rank` of
+// the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// Programmatic dependent launch: the next kernel of the stream, launched
+// with cudaLaunchAttributeProgrammaticStreamSerialization, may start once
+// every CTA of this one has called launch_dependents (or exited); in it,
+// grid_dependency_wait returns once this kernel has completed and its
+// writes are visible.  Without the attribute both are no-ops.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------

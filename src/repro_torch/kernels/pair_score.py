@@ -1,18 +1,22 @@
-"""Launch wrapper for the Hopper pair-score kernel (``csrc/pair_score.cu``),
+"""Launch wrapper for the Hopper pair-score kernels (``csrc/pair_score.cu``),
 the port of ``repro.kernels.pair_score.pair_score_blocked``.
 
 :func:`pair_score_blocked` takes claims ``(N, d)``, evidence ``(M, d)``,
 ``W (d, d)``, ``w_c`` and ``w_e`` ``(d,)`` and a bias, and returns the
 fp32 ``(N, M)`` scores ``c_i^T W e_j + w_c . c_i + w_e . e_j + b``.  It
-takes no block sizes: the kernel masks its ragged edges itself, so
+takes no block sizes: the kernels mask their ragged edges themselves, so
 nothing is padded.  It takes CUDA tensors only: it allocates the output
 and the fp32 workspace (``C W`` and the two linear terms), launches the
-projection pass and the score pass on PyTorch's current stream without
+projection and the score on PyTorch's current stream without
 synchronising, raises if a launch reports an error, and adds one to
-``LAUNCHES["pair_score"]``.  The kernel loads one element at a time, so
-it needs no alignment beyond the element's (``w_c`` and ``w_e`` are views
-into ``w``).  :func:`check_args` validates a call for both
-routes; the plain version is :func:`repro_torch.kernels.ref.pair_score_ref`.
+``LAUNCHES["pair_score"]``.  :func:`repro_torch.kernels.pair_plan.plan`
+picks the route from the shapes and dtypes: fp32 with ``d % 4 == 0`` runs
+3xTF32 on ``wgmma`` (its tensors must start on 16-byte boundaries, as TMA
+reads them; ``w_c`` and ``w_e`` are views into ``w``, so ``d % 4 == 0``
+keeps ``w_e`` aligned), anything else the CUDA-core kernels, which load
+one element at a time and need no alignment beyond the element's.
+:func:`check_args` validates a call for both routes; the plain version is
+:func:`repro_torch.kernels.ref.pair_score_ref`.
 """
 from __future__ import annotations
 
@@ -20,11 +24,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build,
-                                 check_placement, count)
+from repro_torch.kernels import (DTYPE_CODE, LAUNCH_ERRORS, LAUNCHES,
+                                 build, check_placement, count, pair_plan)
 
 NAME = "pair_score"
 _lib = None
+#: what the C entry points return besides a CUDA error
+_ERRORS = {**LAUNCH_ERRORS,
+           -1: "no kernel for these dtypes, or a plan that does not cover "
+               "the depth once"}
 
 
 def _library() -> ctypes.CDLL:
@@ -38,6 +46,13 @@ def _library() -> ctypes.CDLL:
             i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
             ptr]
         lib.repro_pair_score.restype = i32
+        # (C, E, W, w_c, w_e, bias, out, ws, N, M, d, proj_split,
+        #  proj_per, score_split, score_per, stream)
+        lib.repro_pair_score_sm90.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        lib.repro_pair_score_sm90.restype = i32
+        lib.repro_pair_sm90_config.argtypes = [ptr]
+        lib.repro_pair_sm90_config.restype = None
+        pair_plan.check_library(lib, NAME)
         _lib = lib
     return _lib
 
@@ -79,31 +94,52 @@ def check_args(claims, evidence, W, w_c, w_e, bias) -> None:
                              f"dtype")
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def pair_score_blocked(claims, evidence, W, w_c, w_e, bias):
     """claims: (N, d), evidence: (M, d), W: (d, d), w_c/w_e: (d,), bias:
     a number or a one-element tensor -> (N, M) fp32 scores."""
     check_args(claims, evidence, W, w_c, w_e, bias)
-    for key, t in (("claims", claims), ("evidence", evidence), ("W", W),
-                   ("w_c", w_c), ("w_e", w_e)):
-        if t.device.type != "cuda":
+    tensors = {"claims": claims, "evidence": evidence, "W": W, "w_c": w_c,
+               "w_e": w_e}
+    for key, t in tensors.items():
+        if not _on_card(t):
             raise ValueError(f"{NAME}: the kernel takes CUDA tensors, got "
                              f"{key} on {t.device}; the plain version is in "
                              f"repro_torch.kernels.ref")
     N, d = claims.shape
     M = evidence.shape[0]
+    plan = pair_plan.plan(N, M, d, claims.dtype, W.dtype)
+    if plan.route == "wgmma":
+        for key, t in tensors.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{NAME}: {key} must start on a 16-byte "
+                                 f"boundary (TMA reads the fp32 route's "
+                                 f"tensors)")
     dev = claims.device
     b = torch.as_tensor(bias, dtype=torch.float32, device=dev).reshape(1)
     out = torch.empty((N, M), dtype=torch.float32, device=dev)
-    ws = torch.empty(N * d + N + M, dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().repro_pair_score(
-            DTYPE_CODE[claims.dtype], DTYPE_CODE[W.dtype], claims.data_ptr(),
-            evidence.data_ptr(), W.data_ptr(), w_c.data_ptr(),
-            w_e.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), N,
-            M, d, stream)
+        lib = _library()
+        if plan.route == "wgmma":
+            rc = lib.repro_pair_score_sm90(
+                claims.data_ptr(), evidence.data_ptr(), W.data_ptr(),
+                w_c.data_ptr(), w_e.data_ptr(), b.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), N, M, d, plan.project.split,
+                plan.project.per_split, plan.score.split,
+                plan.score.per_split, stream)
+        else:
+            rc = lib.repro_pair_score(
+                DTYPE_CODE[claims.dtype], DTYPE_CODE[W.dtype],
+                claims.data_ptr(), evidence.data_ptr(), W.data_ptr(),
+                w_c.data_ptr(), w_e.data_ptr(), b.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), N, M, d, stream)
     if rc != 0:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{NAME}: kernel launch failed: "
+                           f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     count(LAUNCHES, NAME)
     return out
