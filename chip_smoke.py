@@ -5,10 +5,11 @@
 It drives the port's two serving paths, the paged engine on the Hopper
 paged attention kernels and the dense fused engine (the serve driver's
 default) on the flash attention and split-K decode kernels, the dense
-engine on the Mamba-1 family on the selective-scan kernel, and the
-paper's MARGOT pipeline (batch and stream) on the pair-score kernel, and
-holds every kernel against its plain PyTorch version.  One line per
-phase:
+engine on the Mamba-1 family on the selective-scan kernel, the paper's
+MARGOT pipeline (batch and stream) on the pair-score kernel, and the
+paper's service architecture (``MLaaSService`` -> ``Router`` -> thread
+and process replicas of the engines and of the stream), and holds every
+kernel against its plain PyTorch version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -70,7 +71,25 @@ phase:
    batch through ``repro_torch.launch.argmining`` (its launch counts read
    right after it), DS1 with M3's 30,363 support vectors, the stream's
    rate ramp in both scopes, and one profiled batch partition;
-6. the ``{"kernels": [...]}`` line.
+6. cluster: (a) fp32 reduced internlm2-1.8b, dense then paged, through
+   ``MLaaSService`` over a ``Router`` of 2 process replicas, token for
+   token equal to an in-process engine on the same seeded weights;
+   (b) internlm2-1.8b at full width (as phase 4; 16 requests of 16-512
+   prompt tokens, 32 new tokens each) through the service, over 2 thread
+   replicas sharing one copy of the weights (paged; the parent's kernel
+   launch counts, reset just before), then over 2 process replicas
+   (dense; spawn times, the engines' counters and kernel launches over
+   the heartbeats), the same requests timed straight into the Router
+   (tok/s, TTFT p50/p99), one replica SIGKILLed at the first token (every
+   request completes exactly once, on the survivor), and the requests
+   again on the survivor alone; (c) the MARGOT stream at phase 5's
+   settings on 1 process replica, bit-identical to an in-process runtime
+   on the same micro-batches, then on 2 replicas (every micro-batch
+   acks); (d) the partition autotuner: ``measure_step`` of the MARGOT
+   batch step at 3-48 documents a partition, the fitted cost model and
+   ``choose_partition_size`` for a 0.25 s budget, beside the fixed 12;
+   the build directory must be unchanged (the workers only load);
+7. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -134,6 +153,9 @@ PAIR_REL = 1e-5
 # the check could not see the carry across chunks.
 SCAN_TOL = 1e-4
 SCAN_CHUNK = 64
+# the partition autotuner's latency budget: the stream's period
+# (configs/margot_svm.py, STREAM)
+STREAM_BUDGET_S = 0.25
 
 
 def fail(msg: str):
@@ -170,6 +192,7 @@ def main():
     phase_token_exact()
     launches = phase_serve()
     launches.update(phase_margot())
+    phase_cluster()
     phase_list(stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1868,6 +1891,411 @@ def _profile_partition(models, X, keys):
           f"device_busy={busy_us / 1e3:.3f}ms idle_share="
           f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
           f"{sum(n for _, n, _ in rows)}; top: {top}")
+
+
+# ----------------------------------------------------------------------
+# internlm2-1.8b at full width, as phase 4 serves it; 16 prompts of 16-512
+# tokens and 32 new tokens each (the first from the prefill)
+CLUSTER_LM = dict(arch="internlm2-1.8b", reduce=False, max_len=2048,
+                  slots=8, sync_every=8, seed=0)
+CLUSTER_PROMPTS = (16, 512, 100, 300, 64, 200, 33, 450, 128, 256, 40, 380,
+                   90, 500, 20, 160)
+CLUSTER_NEW = 32
+
+
+def phase_cluster():
+    """The paper's service architecture on the card: ``MLaaSService`` in
+    front of a ``Router`` over thread and process replicas of the port's
+    engines and of the MARGOT stream, a replica SIGKILLed mid-run, and
+    the partition autotuner fitted on the card.  The worker processes only
+    load the libraries phase 1 built: the build directory is unchanged."""
+    from repro_torch.kernels import build
+    before = {p.name: p.stat().st_mtime_ns
+              for p in build.BUILD_DIR.iterdir()}
+    _cluster_parity()
+    _cluster_threads()
+    _cluster_processes()
+    _cluster_stream()
+    _cluster_autotuner()
+    after = {p.name: p.stat().st_mtime_ns for p in build.BUILD_DIR.iterdir()}
+    check(after == before, f"the workers rebuilt kernels: build directory "
+          f"{sorted(before)} became {sorted(after)}")
+    print(f"[cluster] every worker loaded the {len(build.SOURCES)} "
+          f"libraries phase 1 built; no nvcc ran after phase 1")
+
+
+def _spawn(router, spec, n, cfg):
+    """Add ``n`` process replicas of ``spec`` to ``router``, spawned
+    together; returns them and each one's seconds to ready (the worker's
+    torch import, CUDA context and backend build)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def add(_):
+        t0 = time.perf_counter()
+        w = router.add_replica(spec=spec, cfg=cfg, transport="process")
+        return w, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(n) as pool:
+        done = list(pool.map(add, range(n)))
+    return [w for w, _ in done], [s for _, s in done]
+
+
+def _worker_launches(router, keys):
+    """Kernel launches the process replicas counted and shipped over
+    their heartbeats (``kernels.launches.<name>``); after ``stop()``
+    the departed replicas' last snapshots hold them."""
+    from repro_torch import kernels
+    snap = router.cluster_snapshot()
+    got = {k: int(snap.get(f"kernels.launches.{k}", 0))
+           for k in kernels.LAUNCHES}
+    check(all(got[k] > 0 for k in keys) and
+          sum(got.values()) == sum(got[k] for k in keys),
+          f"worker kernel launches {got}, expected only {keys}")
+    return {k: got[k] for k in keys}, snap
+
+
+def _cluster_parity():
+    """fp32 reduced internlm2-1.8b, dense then paged: the service over a
+    Router of 2 process replicas gives an in-process engine's greedy
+    tokens on the same seeded weights, token for token."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster import ReplicaConfig, Router, engine_spec
+    from repro_torch.cluster.backends import make_engine
+    from repro_torch.core.service import MLaaSService
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(4)
+    for paged in (False, True):
+        kw = dict(arch="internlm2-1.8b", reduce=True, max_len=64, slots=2,
+                  sync_every=4, paged=paged, block_size=8, seed=0)
+        eng = make_engine(device=dev, **kw)
+        prompts = [rng.randint(0, eng.cfg.vocab, n).astype(np.int32)
+                   for n in (5, 9, 7, 12, 6, 3, 17, 30)]
+        want = [r.out_tokens for r in _drain(eng, prompts, 6)]
+        del eng
+        router = Router(policy="round_robin")
+        workers, spawn_s = _spawn(router, engine_spec(device="cuda", **kw),
+                                  2, ReplicaConfig(max_batch=8))
+        svc = MLaaSService(router=router, capacity=len(prompts)).start()
+        reqs = [svc.submit((p, 6), timeout_s=120.0) for p in prompts]
+        check(all(q.done.wait(180.0) for q in reqs), "parity: a request "
+              "never finished")
+        svc.stop()
+        router.stop()
+        label = "paged" if paged else "dense"
+        check([q.result for q in reqs] == want,
+              f"parity {label}: process replicas gave "
+              f"{[q.result for q in reqs]}, the in-process engine {want}")
+        check(all(w.processed > 0 for w in workers),
+              f"parity {label}: a replica served nothing")
+        used, _ = _worker_launches(
+            router, PAGED_KERNELS if paged else DENSE_KERNELS)
+        print(f"[cluster parity {label}] fp32 reduced internlm2-1.8b: "
+              f"{len(prompts)} requests through MLaaSService -> Router -> 2 "
+              f"process replicas ({[w.processed for w in workers]} each, "
+              f"spawned in {', '.join(f'{s:.1f}' for s in spawn_s)}s) give "
+              f"the in-process engine's {sum(map(len, want))} tokens "
+              f"exactly; worker launches {used}")
+
+
+def _service_run(router, prompts, label):
+    """The 16 requests through ``MLaaSService(router=...)``: every one
+    completes with its 32 tokens; returns the wall seconds."""
+    from repro_torch.core.service import MLaaSService
+    svc = MLaaSService(router=router, capacity=len(prompts)).start()
+    t0 = time.perf_counter()
+    reqs = [svc.submit((p, CLUSTER_NEW - 1), timeout_s=120.0)
+            for p in prompts]
+    check(all(q.done.wait(300.0) for q in reqs),
+          f"{label}: a request never finished")
+    wall = time.perf_counter() - t0
+    svc.stop()
+    for i, q in enumerate(reqs):
+        check(isinstance(q.result, list) and len(q.result) == CLUSTER_NEW
+              and not q.missed_deadline,
+              f"{label}: request {i} gave {q.result!r}")
+    return wall
+
+
+def _lm_prompts(vocab):
+    import numpy as np
+    rng = np.random.RandomState(5)
+    return [rng.randint(0, vocab, n).astype(np.int32)
+            for n in CLUSTER_PROMPTS]
+
+
+def _cluster_threads():
+    """Full width, paged, 2 thread replicas sharing one copy of the
+    weights behind the service; the parent counts the kernel launches."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.cluster import (EngineBackend, ReplicaConfig, Router,
+                                     Status)
+    from repro_torch.cluster.backends import make_engine
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    dev = torch.device("cuda", 0)
+    first = make_engine(device=dev, paged=True, block_size=16, **CLUSTER_LM)
+    check(first.cfg.n_layers == 24 and first.cfg.d_model == 2048 and
+          first.params["lm_head"].dtype == torch.bfloat16 and first.paged,
+          "not the full-width bf16 config")
+    engines = [first, Engine(first.params, first.cfg, first.scfg,
+                             device=dev)]
+    router = Router(policy="round_robin")
+    workers = [router.add_replica(EngineBackend(e), ReplicaConfig(max_batch=8))
+               for e in engines]
+    prompts = _lm_prompts(first.cfg.vocab)
+    warm = [router.submit((p[:40], 8), timeout_s=120.0) for p in prompts[:2]]
+    check(all(router.wait(q, 180.0) is not None and q.status is Status.OK
+              for q in warm), "threads: warm-up failed")
+    served = [w.processed for w in workers]
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    wall = _service_run(router, prompts, "threads")
+    torch.cuda.synchronize()
+    launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+    served = [w.processed - s for w, s in zip(workers, served)]
+    router.stop()
+    check(all(n >= 1 for n in served), f"threads: served {served}")
+    check(all(launches[k] > 0 for k in PAGED_KERNELS) and
+          sum(launches.values()) == sum(launches[k] for k in PAGED_KERNELS)
+          and not any(plain.values()),
+          f"threads: launches {launches}, plain {plain}")
+    n_tok = len(prompts) * CLUSTER_NEW
+    print(f"[cluster threads] internlm2-1.8b full width, paged, "
+          f"MLaaSService -> Router -> 2 thread replicas (one copy of the "
+          f"weights): {len(prompts)} requests of {min(CLUSTER_PROMPTS)}-"
+          f"{max(CLUSTER_PROMPTS)} prompt tokens, {CLUSTER_NEW} new tokens "
+          f"each, all OK; served {served}; wall={wall:.3f}s "
+          f"tok/s={n_tok / wall:.1f}; launches "
+          f"{ {k: launches[k] for k in PAGED_KERNELS} } plain_calls=0")
+    del engines, first, workers, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_run(router, prompts, label):
+    """The 16 requests straight into the Router, each with a partial-
+    result callback: (tok/s, TTFT p50, TTFT p99) on the host clock, TTFT
+    from submission to the first token's frame.  With one replica of 8
+    slots the second 8 requests wait for the first 8 to finish."""
+    import numpy as np
+    from repro_torch.cluster import Status
+    first = {}
+    reqs = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        reqs.append(router.submit(
+            (p, CLUSTER_NEW - 1), cost=CLUSTER_NEW, timeout_s=300.0,
+            on_partial=lambda f, i=i: first.setdefault(i, time.monotonic())))
+    outs = [router.wait(q, 400.0) for q in reqs]
+    wall = time.perf_counter() - t0
+    check(all(q.status is Status.OK and len(o) == CLUSTER_NEW
+              for q, o in zip(reqs, outs)) and len(first) == len(reqs),
+          f"{label}: statuses {[q.status for q in reqs]}")
+    ttft = [first[i] - q.submitted_s for i, q in enumerate(reqs)]
+    return (len(reqs) * CLUSTER_NEW / wall, float(np.percentile(ttft, 50)),
+            float(np.percentile(ttft, 99)))
+
+
+def _cluster_processes():
+    """Full width, dense, 2 process replicas (each its own CUDA context,
+    weights and KV): the service run, the same requests timed on 2
+    replicas, a SIGKILL of one replica mid-run (every request completes
+    exactly once, on the survivor), then the same requests on the
+    survivor alone.  The engines' counters arrive over the heartbeats."""
+    import threading
+
+    from repro_torch.cluster import (MetricsRegistry, ReplicaConfig, Router,
+                                     Status, engine_spec)
+    from repro_torch.cluster.replica import ClusterRequest
+    from repro_torch.configs import get_config
+    m = MetricsRegistry()
+    router = Router(policy="round_robin", metrics=m, max_retries=3)
+    cfg = ReplicaConfig(max_batch=8)
+    workers, spawn_s = _spawn(
+        router, engine_spec(device="cuda", paged=False, **CLUSTER_LM), 2,
+        cfg)
+    check(max(spawn_s) < cfg.spawn_timeout_s, f"spawn took {spawn_s}s")
+    print(f"[cluster processes] 2 process replicas of internlm2-1.8b (full "
+          f"width, bf16, dense) spawned together, ready in "
+          f"{', '.join(f'{s:.1f}' for s in spawn_s)}s (torch import, CUDA "
+          f"context, seeded weights on the card; limit "
+          f"{cfg.spawn_timeout_s:.0f}s)")
+    prompts = _lm_prompts(get_config("internlm2-1.8b").vocab)
+    warm = [router.submit((p[:40], 8), timeout_s=120.0) for p in prompts[:2]]
+    check(all(router.wait(q, 180.0) is not None and q.status is Status.OK
+              for q in warm), "processes: warm-up failed")
+    served = [w.processed for w in workers]
+    wall = _service_run(router, prompts, "processes")
+    served = [w.processed - s for w, s in zip(workers, served)]
+    check(all(n >= 1 for n in served), f"processes: served {served}")
+    print(f"[cluster processes] MLaaSService -> Router -> 2 process "
+          f"replicas: {len(prompts)} requests, {CLUSTER_NEW} new tokens "
+          f"each, all OK; served {served}; wall={wall:.3f}s "
+          f"tok/s={len(prompts) * CLUSTER_NEW / wall:.1f}")
+    two = [_timed_run(router, prompts, "2 replicas") for _ in range(2)]
+
+    # a replica SIGKILLed as the first token arrives: no replica can have
+    # acked yet (a batch acks when its last request ends), so every
+    # request must complete exactly once, on the survivor
+    victim, survivor = workers
+    counts, lock, orig = {}, threading.Lock(), ClusterRequest.complete
+
+    def counting(req, result, replica_rid):
+        with lock:
+            counts[id(req)] = counts.get(id(req), 0) + 1
+        return orig(req, result, replica_rid)
+
+    started = threading.Event()
+    with mock.patch.object(ClusterRequest, "complete", counting):
+        reqs = [router.submit((p, CLUSTER_NEW - 1), cost=CLUSTER_NEW,
+                              timeout_s=300.0,
+                              on_partial=lambda f: started.set())
+                for p in prompts]
+        check(started.wait(120.0), "kill: no first token")
+        victim.inject_crash()               # SIGKILL
+        outs = [router.wait(q, 400.0) for q in reqs]
+    check(all(q.status is Status.OK and len(o) == CLUSTER_NEW and
+              counts.get(id(q)) == 1 and q.replica_rid == survivor.rid
+              for q, o in zip(reqs, outs)),
+          f"kill: statuses {[q.status for q in reqs]}, completions "
+          f"{[counts.get(id(q)) for q in reqs]}, replicas "
+          f"{[q.replica_rid for q in reqs]}")
+    check(not victim.alive and router.n_alive() == 1, "kill: victim alive")
+    snap = m.snapshot()
+    print(f"[cluster kill] SIGKILL of replica {victim.rid} at the first "
+          f"token: {len(reqs)} requests each completed exactly once, all "
+          f"on replica {survivor.rid}; replica.crashes="
+          f"{snap.get('replica.crashes', 0):.0f} router.requeued="
+          f"{snap.get('router.requeued', 0):.0f} router.failed="
+          f"{snap.get('router.failed', 0):.0f}")
+    one = [_timed_run(router, prompts, "1 replica") for _ in range(2)]
+    router.stop()
+    used, snap = _worker_launches(router, DENSE_KERNELS)
+    check(snap.get("engine.requests", 0) >= 2 * len(prompts) and
+          snap.get("engine.tokens", 0) > 0,
+          f"engine counters over the heartbeats: requests "
+          f"{snap.get('engine.requests')}, tokens {snap.get('engine.tokens')}")
+    runs = lambda rs: "; ".join(  # noqa: E731
+        f"tok/s={r[0]:.1f} TTFT p50={r[1]:.3f}s p99={r[2]:.3f}s" for r in rs)
+    print(f"[cluster processes] same {len(prompts)} requests straight into "
+          f"the Router, twice each: 1 process replica {runs(one)}; 2 process "
+          f"replicas {runs(two)}; over the "
+          f"heartbeats: engine.requests={snap['engine.requests']:.0f} "
+          f"engine.tokens={snap['engine.tokens']:.0f} "
+          f"engine.prefill_batches="
+          f"{snap.get('engine.prefill_batches', 0):.0f}, worker launches "
+          f"{used}")
+
+
+def _cluster_stream():
+    """The MARGOT stream at phase 5's settings behind the Router: one
+    process replica gives an in-process runtime's links on the same
+    micro-batches; then 2 replicas, where every micro-batch acks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.cluster import ReplicaConfig, Router, Status, stream_spec
+    from repro_torch.configs.margot_svm import PIPELINE, STREAM
+    from repro_torch.core.stream import StreamRuntime
+    from repro_torch.data.text import (corpus_arrays, margot_models,
+                                       synthetic_corpus)
+    dev = torch.device("cuda", 0)
+    kw = dict(feat_dim=PIPELINE.feat_dim,
+              claim_capacity=PIPELINE.claim_capacity,
+              evid_capacity=PIPELINE.evid_capacity,
+              **{f.name: getattr(STREAM, f.name)
+                 for f in dataclasses.fields(STREAM)})
+    X, keys, _ = corpus_arrays(synthetic_corpus(8, 64, seed=1),
+                               dim=PIPELINE.feat_dim)
+    rng = np.random.RandomState(0)
+    n = STREAM.capacity
+
+    def mb(i):
+        idx = rng.randint(0, len(keys), n)
+        ts = i * STREAM.period + np.linspace(
+            0, STREAM.period, n, endpoint=False).astype(np.float32)
+        return X[idx], keys[idx], ts
+
+    mbs = [mb(i) for i in range(6)]
+    rt = StreamRuntime(margot_models(PIPELINE, device=dev), PIPELINE, STREAM)
+    want = [rt.process_microbatch(*b) for b in mbs]
+    router = Router(policy="round_robin")
+    cfg = ReplicaConfig(max_batch=8)
+    _, spawn_s = _spawn(router, stream_spec(device="cuda", **kw), 1, cfg)
+    reqs = [router.submit(b, cost=n, timeout_s=120.0) for b in mbs]
+    outs = [router.wait(q, 180.0) for q in reqs]
+    check(all(q.status is Status.OK for q in reqs),
+          f"stream: statuses {[q.status for q in reqs]}")
+    links = 0
+    for i, ((sc, ok), (wsc, wok)) in enumerate(zip(outs, want)):
+        check(isinstance(sc, np.ndarray) and np.array_equal(ok, wok) and
+              np.array_equal(sc, wsc),
+              f"stream micro-batch {i}: the replica's links differ from "
+              f"the in-process runtime's")
+        links += int(ok.sum())
+    more, more_s = _spawn(router, stream_spec(device="cuda", **kw), 1, cfg)
+    reqs = [router.submit(mb(6 + i), cost=n, timeout_s=120.0)
+            for i in range(8)]
+    outs = [router.wait(q, 180.0) for q in reqs]
+    check(all(q.status is Status.OK and o[0].shape == want[0][0].shape
+              for q, o in zip(reqs, outs)),
+          f"stream, 2 replicas: statuses {[q.status for q in reqs]}")
+    router.stop()
+    used, _ = _worker_launches(router, ("pair_score",))
+    print(f"[cluster stream] MARGOT stream (d={PIPELINE.feat_dim}, "
+          f"{n}-row chunks, period {STREAM.period}s, window "
+          f"{STREAM.window}s) on 1 process replica (ready in "
+          f"{spawn_s[0]:.1f}s): {len(mbs)} micro-batches, scores and "
+          f"{links} links bit-identical to the in-process runtime's; then "
+          f"2 replicas (the second ready in {more_s[0]:.1f}s): 8 "
+          f"micro-batches, all acked; worker launches {used}")
+
+
+def _cluster_autotuner():
+    """``measure_step`` over the port's MARGOT batch step at 3-48
+    documents a partition, the fitted cost model and the size it picks
+    for a 0.25 s budget, beside ``launch/argmining.py``'s fixed 12.  A
+    finding, not a check; the claim capacity caps a partition."""
+    import torch
+    from repro_torch.configs.margot_svm import PIPELINE
+    from repro_torch.core.partitioner import (choose_partition_size,
+                                              measure_step)
+    from repro_torch.core.pipeline import extract_links, make_batch_step
+    from repro_torch.data.text import margot_models
+    from repro_torch.launch import argmining
+    dev = torch.device("cuda", 0)
+    sizes = (3, 6, 12, 24, 48)
+    spd = argmining.SENTENCES_PER_DOC
+    X, keys, _ = argmining.make_corpus(max(sizes) * spd, PIPELINE.feat_dim)
+    models = margot_models(PIPELINE, device=dev)
+    step = make_batch_step(PIPELINE)
+    dropped = {}
+
+    def step_fn(m):
+        n = m * spd
+        out = step(models, torch.from_numpy(X[:n]).to(dev),
+                   torch.from_numpy(keys[:n]).to(dev))
+        extract_links(out)              # reads the result: synchronizes
+        dropped[m] = int(out.n_dropped)
+
+    model = measure_step(step_fn, sizes, warmup=1, repeats=5)
+    chosen = choose_partition_size(model, latency_budget_s=STREAM_BUDGET_S)
+    fits = max(m for m in sizes if dropped[m] == 0)
+    print(f"[cluster autotuner] MARGOT batch step at {list(sizes)} documents "
+          f"a partition ({spd} sentences each, capacities "
+          f"{PIPELINE.claim_capacity}/{PIPELINE.evid_capacity}): fitted "
+          f"overhead={model.overhead_s * 1e3:.4f}ms per_doc="
+          f"{model.per_item_s * 1e3:.4f}ms r2={model.r2:.4f}; "
+          f"choose_partition_size(budget {STREAM_BUDGET_S}s, efficiency "
+          f"0.8) = {chosen} documents; dropped rows by size "
+          f"{dropped}, so the capacities cap a partition at {fits} of "
+          f"these sizes; launch/argmining.py runs "
+          f"{argmining.DOCS_PER_PARTITION}")
 
 
 # ----------------------------------------------------------------------

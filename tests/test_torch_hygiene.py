@@ -38,7 +38,15 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.launch.argmining",
             "repro_torch.configs.falcon_mamba_7b",
             "repro_torch.kernels.ssm_scan",
-            "repro_torch.models.ssm"} <= set(names)
+            "repro_torch.models.ssm",
+            "repro_torch.core.service", "repro_torch.core.partitioner",
+            "repro_torch.cluster.admission", "repro_torch.cluster.framing",
+            "repro_torch.cluster.overload", "repro_torch.cluster.replica",
+            "repro_torch.cluster.backends", "repro_torch.cluster.wire",
+            "repro_torch.cluster.artifacts",
+            "repro_torch.cluster.transport",
+            "repro_torch.cluster.worker_main",
+            "repro_torch.cluster.router"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -94,6 +102,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     for mode in ("batch", "stream"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             argmining.main([mode])
+
+
+def build_module_report(**engine_kw):
+    """A replica builder for the spawned-worker check below: it builds the
+    port's LM backend (the whole engine stack loads in the worker), then
+    serves the names of the JAX and ``repro`` modules the worker holds."""
+    import sys as worker_sys
+
+    from repro_torch.cluster.backends import build_engine
+    from repro_torch.cluster.replica import FnBackend
+    build_engine(**engine_kw)
+    return FnBackend(lambda ps: [sorted(
+        m for m in worker_sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "repro"))] * len(ps))
+
+
+def test_spawned_process_replica_loads_no_jax():
+    """A process replica of the port, spawned from this process (which
+    holds JAX), builds a port engine and has no JAX in its interpreter."""
+    import jax  # noqa: F401  the parent holds JAX: spawn, not fork
+
+    from repro_torch.cluster import BackendSpec, Router
+    r = Router()
+    r.add_replica(spec=BackendSpec(f"{__name__}:build_module_report",
+                                   dict(device="cpu", max_len=32)),
+                  transport="process")
+    req = r.submit("which modules?")
+    assert r.wait(req, 60.0) == []
+    r.stop()
 
 
 def test_unknown_arch_is_named():
