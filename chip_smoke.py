@@ -8,8 +8,11 @@ default) on the flash attention and split-K decode kernels, the dense
 engine on the Mamba-1 family on the selective-scan kernel, the paper's
 MARGOT pipeline (batch and stream) on the pair-score kernel, and the
 paper's service architecture (``MLaaSService`` -> ``Router`` -> thread
-and process replicas of the engines and of the stream), and holds every
-kernel against its plain PyTorch version.  One line per phase:
+and process replicas of the engines and of the stream), and the paged
+engine's KV lifecycle (speculative decode verified by the paged extend
+kernel, copy-on-write forks, KV swap, export/import, brownout and a
+migrating drain behind the Router), and holds every kernel against its
+plain PyTorch version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -48,10 +51,15 @@ kernel against its plain PyTorch version.  One line per phase:
    (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view), each
    held against the plain version at atol = rtol = 1e-4, with a control
    (the carry zeroed at every 64-step chunk) that the limit must reject;
-   kernel, plain and library times and the bound;
+   kernel, plain and library times and the bound; and the paged extend
+   at the speculative verify's shape (B 8, S 4, pos0 301-329 not
+   block-aligned and one window past a 512-key table), with the bf16
+   rule and its control, kernel, plain and SDPA times and the bound;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
-   through the plain versions; all four runs give the same tokens; then
+   through the plain versions; all four runs give the same tokens, and so
+   does the paged engine with ``speculative=True`` (d=3) both ways, on
+   the paged extend alone; then
    the two-layer fp32 reduced falcon-mamba-7b through the dense engine,
    through the kernel and forced through the plain version, with prompts
    of 130 and 100 tokens among them: both give the same tokens;
@@ -89,7 +97,24 @@ kernel against its plain PyTorch version.  One line per phase:
    batch step at 3-48 documents a partition, the fitted cost model and
    ``choose_partition_size`` for a 0.25 s budget, beside the fixed 12;
    the build directory must be unchanged (the workers only load);
-7. the ``{"kernels": [...]}`` line.
+7. lifecycle: internlm2-1.8b at phase 4's width (paged, bs 16, 8 slots,
+   max_len 2048, K=8, phase 4's 8 requests, max_new 32): (a) speculative
+   decode (d=3): its tokens' agreement with phase 4's paged run (bf16, not
+   a gate), the acceptance rate, tok/s and TTFT; the paged extend must
+   launch 24 x (admit batches + 8 x syncs) times and nothing else;
+   (b) a 300-token request forked 3 ways at its first token: each child's
+   tokens equal the parent's, with COW copies; (c) KV swap on both tiers
+   on an 80-block pool: every request completes once, ``kv_swap_out ==
+   kv_swap_in > 0``, no pool exhaustion, each restore re-read bit for bit
+   against the bytes swapped out; (d) engine A serves the two requests
+   sharing the prefix and exports, engine B imports (its re-export equal
+   to A's frame byte for byte) and serves a new prompt on that prefix
+   from 16 cached blocks; (e) 2 thread replicas (paged, speculative)
+   behind the Router: brownout L1 turns speculation off on both (the spec
+   counters stop, every request completes) and a drain with
+   ``migrate=True`` ships KV (sessions migrated, the survivor imported
+   blocks); the phase's wall time;
+8. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -186,13 +211,14 @@ def main():
     smi = phase_device()
     stats = phase_kernels()
     if kernels_only:
-        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-6 and "
+        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-7 and "
               "the result lines skipped")
         return
     phase_token_exact()
-    launches = phase_serve()
+    launches, paged_tokens = phase_serve()
     launches.update(phase_margot())
     phase_cluster()
+    phase_lifecycle(paged_tokens)
     phase_list(stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -592,6 +618,7 @@ def phase_kernels():
             s[0], s[1], s[2], s[3], pos0) for s in esets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+    _verify_shape(gen, dev)
     _dense_main_path(gen, dev, stats, shares, issue)
     for label, lengths, max_len in DECODE_SHAPES[1:]:
         for name, st in _decode_bench(gen, dev, lengths, max_len).items():
@@ -618,6 +645,64 @@ def phase_kernels():
               f"device ms from a CUDA graph replay; issued one by one "
               f"from Python: {issue[name]:.4f} ms per call")
     return stats
+
+
+#: the speculative verify's shape at phase 7's serve: 8 windows of d+1 = 4
+#: queries at ragged positions 301-329 that are not block-aligned (318 and
+#: 329 straddle a 16-row page), and one at 510 whose last two queries lie
+#: past the table's 512 keys
+VERIFY_POS0 = (301, 307, 314, 318, 322, 325, 329, 510)
+VERIFY_NB = 32
+
+
+def _verify_shape(gen, dev):
+    """The paged extend at the verify shape (B 8, S 4, H 16, KV 8, hd 128,
+    bs 16, a table of 32 blocks) against its plain version with the bf16
+    rule and its control, with kernel, plain and SDPA times, the host's
+    issue time and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, S, H, KV, hd, bs, nb = 8, 4, 16, 8, 128, 16, VERIFY_NB
+    L = nb * bs
+    pos0 = torch.tensor(VERIFY_POS0, dtype=torch.int32, device=dev)
+    sets = [_paged_inputs(gen, B, nb, bs, KV, hd, (B, S, H, hd),
+                          torch.bfloat16, dev) for _ in range(3)]
+    q, kp, vp, bt = sets[0]
+    out = ops.paged_extend_attention(q, kp, vp, bt, pos0)
+    want = ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0)
+    err, share = _compare("extend verify shape", out, want)
+    ctl = _check_control("extend verify shape",
+                         _plain_rounded_p(q, kp, vp, bt, pos0), want)
+    qpos = pos0[:, None].long() + torch.arange(S, device=dev)[None, :]
+    keep = (torch.arange(L, device=dev)[None, None, :] <=
+            qpos[:, :, None])[:, None]
+    sd = [_sdpa_args(s[0].transpose(1, 2).contiguous(), s[1], s[2], s[3],
+                     keep) for s in sets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True).transpose(1, 2)
+    _library_close("extend verify shape", lib_out, want)
+    seen = [min(p + s + 1, L) for p in VERIFY_POS0 for s in range(S)]
+    rows = [min(p + S, L) for p in VERIFY_POS0]     # keys each row needs
+    by = (2 * sum(rows) * KV * hd * 2 + 2 * B * S * H * hd * 2
+          + 4 * sum(-(-k // bs) for k in rows) + 4 * B)
+    st = _stats(
+        err, by, 4 * H * hd * sum(seen), "bfloat16",
+        _time_ms([lambda s=s: ops.paged_extend_attention(
+            s[0], s[1], s[2], s[3], pos0) for s in sets]),
+        _time_ms([lambda s=s: ref.paged_extend_attention_ref(
+            s[0], s[1], s[2], s[3], pos0) for s in sets]),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+    issue = _issue_ms(lambda: ops.paged_extend_attention(q, kp, vp, bt, pos0))
+    print(f"[kernels] paged_extend_attention at the verify shape (B 8, S 4, "
+          f"pos0 {list(VERIFY_POS0)}, {L} keys a table, the last window "
+          f"past it): max_abs_err={st['max_abs_err']:.3e} "
+          f"off_rounded={share:.4%} (control with bf16 P: {ctl:.4%}) "
+          f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+          f"library_ms={st['library_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
+          f"({st['bound_by']}); issued one by one from Python: "
+          f"{issue:.4f} ms per call")
 
 
 def _randn(gen, shape, dtype, dev):
@@ -1413,6 +1498,26 @@ def phase_token_exact():
           f"{n_tok} tokens identical through the kernels and the plain "
           f"versions on the paged path ({used['paged']}) and the dense path "
           f"({used['dense']}), and between the two paths")
+    # speculative decode: every verify window runs the paged extend, and
+    # greedy tokens are the non-speculative ones on either route
+    spec = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
+                       block_size=8, speculative=True)
+    for plain in (False, True):
+        reqs, launch, calls = run(spec, plain)
+        used, unused = (calls, launch) if plain else (launch, calls)
+        label = "plain" if plain else "kernel"
+        check(used["paged_extend_attention"] > 0 and
+              sum(used.values()) == used["paged_extend_attention"] and
+              not any(unused.values()),
+              f"speculative {label} run: launches {launch}, plain {calls}")
+        got = [(r.out_tokens, r.finish_reason) for r in reqs]
+        check(got == tokens["paged"],
+              f"speculative {label} tokens {got} != paged {tokens['paged']}")
+        if not plain:
+            n_ext = launch["paged_extend_attention"]
+    print(f"[token-exact] fp32 2-layer reduced, paged speculative (d=3): "
+          f"the same {n_tok} tokens through the kernels ({n_ext} paged "
+          f"extend launches, no paged decode) and the plain versions")
     _token_exact_mamba()
 
 
@@ -1467,18 +1572,34 @@ def _token_exact_mamba():
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
-    the dense path; returns each kernel's launches in its path's run."""
-    launches = {}
-    for paged in (True, False):
-        launches.update(_serve_path(paged))
+    the dense path; returns each kernel's launches in its path's run, and
+    the paged run's tokens."""
+    launches, paged_tokens = _serve_path(True)
+    launches.update(_serve_path(False)[0])
     launches.update(_serve_mamba())
-    return launches
+    return launches, paged_tokens
+
+
+def _serve_prompts(vocab):
+    """Phase 4's requests, drawn from one seeded stream: ``tok(n)`` draws
+    n more tokens; a warm-up prompt, then 8 prompts of 16-512 tokens, two
+    sharing a 256-token prefix.  A request of another bucket sits between
+    those two, so the second is admitted after the first published the
+    prefix."""
+    import numpy as np
+    rng = np.random.RandomState(1)
+    tok = lambda n: rng.randint(0, vocab, n).astype(np.int32)  # noqa
+    warm = tok(40)
+    prefix = tok(256)
+    prompts = [np.concatenate([prefix, tok(44)]), tok(16),
+               np.concatenate([prefix, tok(100)]), tok(64), tok(512),
+               tok(200), tok(33), tok(128)]
+    return tok, warm, prompts
 
 
 def _serve_path(paged: bool):
     import gc
 
-    import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
@@ -1501,16 +1622,9 @@ def _serve_path(paged: bool):
     print(f"[serve {label}] built internlm2-1.8b (24 layers, d_model 2048, "
           f"bf16, {kv}) in {time.perf_counter() - t0:.1f}s; device memory "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-    rng = np.random.RandomState(1)
-    tok = lambda n: rng.randint(0, cfg.vocab, n).astype(np.int32)  # noqa
+    tok, warm, prompts = _serve_prompts(cfg.vocab)
     # warm-up request (cuBLAS handles, allocator), then the measured run
-    _drain(eng, [tok(40)], 8)
-    prefix = tok(256)
-    # a request of another bucket sits between the two that share the
-    # prefix, so the second is admitted after the first published it
-    prompts = [np.concatenate([prefix, tok(44)]), tok(16),
-               np.concatenate([prefix, tok(100)]), tok(64), tok(512),
-               tok(200), tok(33), tok(128)]
+    _drain(eng, [warm], 8)
     max_new = 32
     hits0 = eng.metrics.counter("engine.prefix_hit_blocks").value
     ops.reset_counts()
@@ -1544,10 +1658,11 @@ def _serve_path(paged: bool):
           f"prefill_batches={eng.metrics.counter('engine.prefill_batches').value}"
           f" peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
     _profile_decode_sync(eng, tok, label)
+    tokens = [r.out_tokens for r in reqs]
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in keys}
+    return {k: launches[k] for k in keys}, tokens
 
 
 def _serve_mamba():
@@ -2296,6 +2411,302 @@ def _cluster_autotuner():
           f"{dropped}, so the capacities cap a partition at {fits} of "
           f"these sizes; launch/argmining.py runs "
           f"{argmining.DOCS_PER_PARTITION}")
+
+
+# ----------------------------------------------------------------------
+# internlm2-1.8b at phase 4's full width on the paged engine: bs 16, 8
+# slots, max_len 2048, K=8, phase 4's 8 requests, max_new 32
+LIFECYCLE = dict(max_len=2048, slots=8, sync_every=8, paged=True,
+                 block_size=16, seed=0)
+#: phase 7's swap pool: the 8 prompts take 87 blocks of 16 rows once the
+#: shared prefix is cached, and 103 with their 32 new tokens; in 80
+#: blocks admits wait for room and two sessions swap out as the others
+#: grow (the host's decisions depend on lengths alone: a CPU run of the
+#: reduced config at these lengths swaps the same two)
+SWAP_BLOCKS = 80
+
+
+def phase_lifecycle(paged_tokens):
+    """The paged engine's KV lifecycle at full width: speculative decode
+    through the paged extend kernel, a greedy fork, KV swap on both
+    tiers, export/import between two engines, and 2 thread replicas
+    behind the Router through brownout L1 and a migrating drain."""
+    import gc
+
+    import torch
+    from repro_torch.launch.serve import build_engine
+    t0 = time.perf_counter()
+    base = build_engine("internlm2-1.8b", device=torch.device("cuda", 0),
+                        **LIFECYCLE)
+    check(base.cfg.n_layers == 24 and base.cfg.d_model == 2048 and
+          base.params["lm_head"].dtype == torch.bfloat16 and base.paged,
+          "not the full-width bf16 config")
+    tok, warm, prompts = _serve_prompts(base.cfg.vocab)
+    _lifecycle_spec(base, warm, prompts, paged_tokens)
+    _lifecycle_fork(base, prompts)
+    for tier in ("host", "artifact"):
+        _lifecycle_swap(base, prompts, paged_tokens, tier)
+    _lifecycle_export(base, prompts, tok)
+    _lifecycle_cluster(base, prompts)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lifecycle] phase 7 wall {time.perf_counter() - t0:.1f}s")
+
+
+def _variant(base, **changes):
+    """An engine on ``base``'s weights with its ServeConfig changed."""
+    import dataclasses
+
+    from repro_torch.serving import Engine
+    return Engine(base.params, base.cfg,
+                  dataclasses.replace(base.scfg, **changes),
+                  device=base.device)
+
+
+def _agreement(got, want):
+    """Share of equal tokens, and each request's first differing index
+    (None where equal)."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    first = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                  None if len(g) == len(w) else min(len(g), len(w)))
+             for g, w in zip(got, want)]
+    return same / sum(len(w) for w in want), first
+
+
+def _check_served(reqs, vocab, label):
+    for r in reqs:
+        check(r.finish_reason == "max_new" and len(r.out_tokens) == 33 and
+              all(0 <= t < vocab for t in r.out_tokens),
+              f"{label}: request {r.rid} {r.finish_reason}, {r.out_tokens}")
+
+
+def _lifecycle_spec(base, warm, prompts, paged_tokens):
+    """(a) Speculative decode, d=3: every verify window and admit runs the
+    paged extend (24 launches a pass), no paged decode and no plain
+    version; tokens against phase 4's paged run (bf16: not a gate)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    eng = _variant(base, speculative=True, spec_draft=3)
+    check(eng.speculative, "speculation fell back")
+    _drain(eng, [warm], 8)
+    keys = ("engine.prefill_batches", "engine.steps", "engine.spec_proposed",
+            "engine.spec_accepted")
+    before = {k: eng.metrics.counter(k).value for k in keys}
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = _drain(eng, prompts, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+    n = {k: eng.metrics.counter(k).value - v for k, v in before.items()}
+    _check_served(reqs, eng.cfg.vocab, "spec")
+    want = eng.cfg.n_layers * (n["engine.prefill_batches"] +
+                               eng.scfg.sync_every * n["engine.steps"])
+    check(launches["paged_extend_attention"] == want and
+          sum(launches.values()) == want and not any(plain.values()),
+          f"spec: launches {launches} (expected {want} paged extends "
+          f"alone), plain {plain}")
+    share, first = _agreement([r.out_tokens for r in reqs], paged_tokens)
+    gen = sum(r.decoded for r in reqs)
+    ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
+    print(f"[lifecycle spec] d=3: {len(reqs)} requests, {gen} decoded in "
+          f"{n['engine.steps']} syncs and {n['engine.prefill_batches']} "
+          f"admit batches, wall={wall:.3f}s tok/s={gen / wall:.1f} "
+          f"ttft_p50={ttft[len(ttft) // 2]:.3f}s ttft_max={ttft[-1]:.3f}s; "
+          f"accepted {n['engine.spec_accepted']} of "
+          f"{n['engine.spec_proposed']} drafts "
+          f"({n['engine.spec_accepted'] / n['engine.spec_proposed']:.4f}); "
+          f"paged extend launches {launches['paged_extend_attention']} = "
+          f"24 x ({n['engine.prefill_batches']} + 8 x {n['engine.steps']}), "
+          f"paged decode 0, plain 0; tokens equal to phase 4's paged run: "
+          f"{share:.4f} (bf16; first differing index per request {first})")
+    del eng
+
+
+def _lifecycle_fork(base, prompts):
+    """(b) A greedy fork 3 ways at the first token: parent and children
+    decode one context in one batch, so every child's tokens are the
+    parent's, in bf16 too."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    eng = _variant(base)
+    children = []
+
+    def fork_at_first(req, toks, done):
+        if len(req.out_tokens) == 1 and not children:
+            children.extend(eng.fork(req, max_new=req.max_new)
+                            for _ in range(3))
+
+    ops.reset_counts()
+    parent = eng.submit(prompts[0], max_new=32, on_tokens=fork_at_first)
+    eng.run_until_drained()
+    launches = dict(kernels.LAUNCHES)
+    check(len(children) == 3, f"fork: {len(children)} children, stream "
+          f"errors {eng.metrics.counter('engine.stream_errors').value}")
+    _check_served([parent] + children, eng.cfg.vocab, "fork")
+    for i, c in enumerate(children):
+        diff = _agreement([c.out_tokens], [parent.out_tokens])[1][0]
+        check(diff is None, f"fork: child {i} differs from the parent at "
+              f"token {diff}: a row-dependent result")
+    cow = eng.metrics.counter("engine.kv_cow_copies").value
+    check(cow > 0 and eng.alloc.free_blocks + eng.alloc.cached_blocks ==
+          eng.alloc.num_blocks, f"fork: {cow} COW copies, or blocks leaked")
+    check(launches["paged_decode_attention"] > 0 and
+          launches["paged_extend_attention"] > 0, f"fork: {launches}")
+    print(f"[lifecycle fork] {len(prompts[0])}-token prompt forked 3 ways "
+          f"at its first token: parent and children decode 32 tokens each, "
+          f"all 3 children equal to the parent; {cow} COW copies; launches "
+          f"{ {k: launches[k] for k in PAGED_KERNELS} }")
+    del eng
+
+
+def _lifecycle_swap(base, prompts, paged_tokens, tier):
+    """(c) KV swap on a pool that holds the prompts but not their decode
+    growth: every request completes once, swaps out and in as often, no
+    pool exhaustion, and each restore writes back exactly the bytes the
+    swap-out read."""
+    eng = _variant(base, kv_blocks=SWAP_BLOCKS, kv_swap=True,
+                   swap_tier=tier)
+    trips = []                          # (bytes equal, frame bytes, tokens)
+    restore = eng._try_restore
+
+    def checked_restore(free):
+        req = eng.queue[0]
+        snap = req.kv_snapshot
+        done = restore(free)
+        slot = next((s for s, r in enumerate(eng.active) if r is req), None)
+        if slot is not None and snap.n_blocks:
+            data = snap.data if snap.data is not None else \
+                eng._swap_payload_store().read_bytes(snap.digest)
+            table = eng.alloc.table(eng._seq_of_slot[slot])
+            trips.append((eng._gather_block_rows(
+                table[:snap.n_blocks]) == data, len(data), snap.pos))
+        return done
+
+    eng._try_restore = checked_restore
+    t0 = time.perf_counter()
+    reqs = _drain(eng, prompts, 32)
+    wall = time.perf_counter() - t0
+    snap = eng.metrics.snapshot()
+    _check_served(reqs, eng.cfg.vocab, f"swap {tier}")
+    out, back = snap.get("engine.kv_swap_out", 0), \
+        snap.get("engine.kv_swap_in", 0)
+    check(sorted(r.rid for r in eng.finished) == sorted(r.rid for r in reqs),
+          f"swap {tier}: finished {[r.rid for r in eng.finished]}")
+    check(out == back > 0 and not snap.get("engine.kv_pool_exhausted", 0),
+          f"swap {tier}: out {out}, in {back}, exhausted "
+          f"{snap.get('engine.kv_pool_exhausted', 0)}")
+    check(trips and all(t[0] for t in trips),
+          f"swap {tier}: {sum(not t[0] for t in trips)} of {len(trips)} "
+          f"restores wrote other bytes than the swap-out read")
+    check(eng.alloc.free_blocks + eng.alloc.cached_blocks ==
+          eng.alloc.num_blocks, f"swap {tier}: blocks leaked")
+    share, _ = _agreement([r.out_tokens for r in reqs], paged_tokens)
+    nbytes, ntok = sum(t[1] for t in trips), sum(t[2] for t in trips)
+    print(f"[lifecycle swap {tier}] pool {SWAP_BLOCKS} blocks x 16: "
+          f"{len(reqs)} requests all complete once, wall={wall:.3f}s; "
+          f"kv_swap_out = kv_swap_in = {out}, "
+          f"{snap.get('engine.kv_swapped_blocks', 0)} blocks swapped, "
+          f"kv_pool_exhausted 0; {len(trips)} restores re-read bit for "
+          f"bit; {nbytes} frame bytes for {ntok} tokens "
+          f"({nbytes / max(ntok, 1) / 1024:.2f} KiB a token); tokens equal "
+          f"to phase 4's paged run: {share:.4f} (bf16, other batches)")
+    del eng
+
+
+def _lifecycle_export(base, prompts, tok):
+    """(d) Engine A serves the two requests sharing the 256-token prefix
+    and exports its prefix cache; engine B imports the frame, holds A's
+    rows bit for bit, and serves a new prompt on that prefix from 16
+    cached blocks."""
+    import numpy as np
+    a = _variant(base)
+    _drain(a, [prompts[0], prompts[2]], 32)
+    state = a.export_kv_state()
+    check(state is not None and len(state["hashes"]) == 24,
+          f"export: {None if state is None else len(state['hashes'])} "
+          f"blocks, expected 18 + 6 full prompt blocks")
+    b = _variant(base)
+    n = b.import_kv_state(state)
+    again = b.export_kv_state()
+    check(n == 24 and again["hashes"] == state["hashes"] and
+          again["data"] == state["data"],
+          f"import: adopted {n}; the re-export differs from A's frame")
+    prompt = np.concatenate([prompts[0][:256], tok(60)])
+    (rb,) = _drain(b, [prompt], 32)
+    (ra,) = _drain(a, [prompt], 32)
+    hits = b.metrics.counter("engine.prefix_hit_blocks").value
+    check(hits == 16, f"import: B hit {hits} blocks, expected 16")
+    _check_served([ra, rb], b.cfg.vocab, "export")
+    print(f"[lifecycle export] A exported {len(state['hashes'])} blocks "
+          f"({len(state['data'])} bytes); B adopted {n}, its re-export "
+          f"equal to A's frame byte for byte; a new prompt on the 256-token "
+          f"prefix hit 16 blocks on B; B's tokens equal A's for it: "
+          f"{rb.out_tokens == ra.out_tokens}")
+    del a, b
+
+
+def _lifecycle_cluster(base, prompts):
+    """(e) 2 thread replicas (paged, speculative) behind the Router with
+    session affinity: brownout L1 turns speculation off on both (the spec
+    counters stop) with every request completing, then a drain with
+    ``migrate=True`` ships the drained replica's KV to the survivor."""
+    import numpy as np
+    from repro_torch.cluster import (EngineBackend, MetricsRegistry,
+                                     ReplicaConfig, Router, Status)
+    engines = [_variant(base, speculative=True) for _ in range(2)]
+    router = Router(policy="session_affinity", metrics=MetricsRegistry())
+    workers = [router.add_replica(EngineBackend(e), ReplicaConfig(max_batch=8),
+                                  kind="lm") for e in engines]
+
+    def run(items, label):
+        qs = [router.submit((p, n), session_key=key, kind="lm",
+                            timeout_s=300.0) for key, p, n in items]
+        outs = [router.wait(q, 400.0) for q in qs]
+        check(all(q.status is Status.OK and isinstance(o, list) and
+                  len(o) == n + 1 for q, o, (_, _, n) in
+                  zip(qs, outs, items)),
+              f"cluster {label}: {[q.status for q in qs]}")
+        return qs, outs
+
+    def proposed():
+        return [e.metrics.counter("engine.spec_proposed").value
+                for e in engines]
+
+    items = [(f"s{i}", p, 31) for i, p in enumerate(prompts)]
+    qs, outs = run(items, "L0")
+    spec0 = proposed()
+    check(sum(spec0) > 0, "cluster: no verify window ran")
+    for w in router.alive_replicas():
+        w.set_brownout(1)
+    run(items, "L1")
+    check(not any(e.speculative for e in engines) and proposed() == spec0,
+          f"cluster L1: speculative {[e.speculative for e in engines]}, "
+          f"proposed {spec0} -> {proposed()}")
+    home = qs[0].replica_rid
+    router.remove_replica(home, drain=True, migrate=True)
+    moved = [i for i, q in enumerate(qs) if q.replica_rid == home]
+    run([(f"s{i}", np.concatenate([prompts[i], np.asarray(outs[i],
+                                                          np.int32)]), 8)
+         for i in moved], "after the drain")
+    survivor = next(w for w in workers if w.rid != home)
+    imported = survivor.backend.engine.metrics.counter(
+        "engine.kv_import_blocks").value
+    migrated = router.metrics.snapshot().get("router.sessions_migrated", 0)
+    router.stop()
+    check(migrated > 0 and imported > 0,
+          f"cluster drain: sessions_migrated {migrated}, survivor imported "
+          f"{imported} blocks")
+    print(f"[lifecycle cluster] 2 thread replicas (paged, speculative) "
+          f"behind the Router: {len(items)} requests OK with {sum(spec0)} "
+          f"drafts proposed; brownout L1: speculative off on both, the "
+          f"same requests OK with no draft proposed; drain with migrate: "
+          f"{migrated:.0f} sessions migrated, the survivor adopted "
+          f"{imported} blocks and served the {len(moved)} continuations")
+    del engines, workers, router
 
 
 # ----------------------------------------------------------------------

@@ -169,8 +169,8 @@ def make_engine(arch: str = "internlm2-1.8b", max_len: int = 64,
     ``weights_path`` (a ``Checkpointer`` directory, its ``LATEST`` step)
     when given, else from the port's seeded init at ``seed``.  The
     ``ServeConfig`` knobs are plain scalars, so a spec of them pickles
-    across process and socket workers; ``speculative`` and ``kv_swap``
-    raise in the port's engine (ROADMAP.md, Queue 1, item 3)."""
+    across process and socket workers, the speculative decode and KV swap
+    knobs included."""
     import torch
 
     from repro_torch.configs import get_config, reduced

@@ -28,16 +28,16 @@ numpy arrays), never a CUDA tensor: the port's engine emits Python ints
 and its stream runtime returns numpy, so a result pickles across a pipe
 or socket without touching the card.
 
-Two lifecycle pieces of the JAX engine are not in the port's engine yet
-(ROADMAP.md, Queue 1, item 3), and a replica of it behaves as follows:
+The port's paged engine has the JAX engine's KV lifecycle, so a replica
+of it behaves as a JAX replica does:
 
-  * brownout L1 turns speculative decode off; the port's engine has no
-    ``speculative`` attribute, so :meth:`EngineBackend.set_brownout`'s
-    ``hasattr`` guard makes L1 a no-op (L2's halved ``max_new`` applies);
-  * the drain-time KV hand-off is best-effort: the port's
-    ``Engine.export_kv_state`` raises ``NotImplementedError``, which
-    :func:`run_replica_loop` catches, so a drained replica ships no KV and
-    no ``KV_IMPORT_TAG`` payload is ever made for a port replica.
+  * brownout L1 turns speculative decode off through
+    :meth:`EngineBackend.set_brownout` (the engine's ``speculative``
+    attribute), and a lower level turns it back on;
+  * on a graceful drain :func:`run_replica_loop` exports the engine's
+    published KV blocks (``Engine.export_kv_state``), and the router ships
+    them to the drained sessions' new homes as ``KV_IMPORT_TAG`` payloads,
+    so ``Router.remove_replica(..., migrate=True)`` moves sessions warm.
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 one device, or, with ``--replicas N`` (N > 1), a Router fanning requests
 out over N engine replicas with admission control and unified metrics.
 It serves the dense fused engine by default, and the paged engine (block
-pool, prefix cache) with ``--paged``, as the JAX driver does.
+pool, prefix cache) with ``--paged``, as the JAX driver does; on the paged
+engine ``--speculative`` decodes speculatively and ``--kv-swap`` swaps
+sessions out under pool pressure.
 ``--arch falcon-mamba-7b`` serves the Mamba-1 family, which has no K/V to
 page: with ``--paged`` it serves dense and prints ``kv=dense``, as the JAX
 driver would.
@@ -26,6 +28,10 @@ driver would.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduce --replicas 2 --transport process --requests 4 \
         --max-new 4 --slots 2 --max-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduce --paged --block-size 8 --speculative [--kv-swap \
+        --kv-blocks 6 --swap-tier artifact] --requests 8 --slots 8 \
+        --max-len 32 --max-new 12
 
 Weights come from the port's seeded init (``--seed``); ``--reduce`` serves
 the tiny ``reduced()`` config instead of the full-width one.  It prints
@@ -123,6 +129,24 @@ def main(argv=None):
     ap.add_argument("--kv-blocks", type=int, default=0,
                     help="usable pool blocks (paged); 0 = slots * "
                          "max_len/block_size")
+    ap.add_argument("--kv-swap", action="store_true",
+                    help="KV lifecycle swap (paged): under pool pressure "
+                         "preempt whole lowest-priority sessions to the "
+                         "swap tier and restore them block-exact at "
+                         "re-admit instead of completing them early as "
+                         "kv_pool_exhausted victims")
+    ap.add_argument("--swap-tier", default="host",
+                    choices=("host", "artifact"),
+                    help="where swapped KV blocks live: host memory "
+                         "(inline bytes) or the content-addressed "
+                         "artifact store")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative multi-token decode on the paged path: "
+                         "an n-gram draft proposes spec-draft tokens per "
+                         "step and one batched paged extend verifies them "
+                         "(greedy only; requires --paged)")
+    ap.add_argument("--spec-draft", type=int, default=3,
+                    help="draft tokens proposed per speculative step")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--reduce", action="store_true",
@@ -158,7 +182,10 @@ def main(argv=None):
                      sync_every=args.sync_every,
                      temperature=args.temperature, paged=args.paged,
                      block_size=args.block_size, kv_blocks=args.kv_blocks,
-                     seed=args.seed, device=args.device)
+                     speculative=args.speculative,
+                     spec_draft=args.spec_draft, kv_swap=args.kv_swap,
+                     swap_tier=args.swap_tier, seed=args.seed,
+                     device=args.device)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:

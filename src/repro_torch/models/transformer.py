@@ -137,12 +137,15 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
         mix = attn.attn_forward(p["mixer"], h, cfg, kind="causal",
                                 qkv=(q, k, v))
     else:
-        # dense extend is the speculative verify window
-        raise NotImplementedError(f"mode {mode!r} over a "
-                                  f"{'paged' if paged else 'dense'} cache " +
-                                  _NOT_PORTED.format(
-                                      "3 (fork, speculative decode, KV "
-                                      "swap and export/import)"))
+        # JAX's dense extend (``attention.py:411-434``) verifies speculative
+        # windows on a gathered dense copy of the pool; the port verifies
+        # them on the pool itself (:func:`verify_extend`), so no plain
+        # attention runs on the card and nothing dense is kept
+        raise NotImplementedError(
+            f"mode {mode!r} over a {'paged' if paged else 'dense'} cache: "
+            f"the port extends only a paged cache, through the paged "
+            f"extend kernel; the speculative verify reads the block pool "
+            f"(verify_extend)")
     x = x + mix
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + apply_mlp(p["ffn"], h2, cfg), cache
@@ -275,3 +278,113 @@ def decode_loop(params, cfg, caches, pos, last, active, remaining,
         active &= (remaining > 0) & (pos < max_len - 1)
         last.copy_(torch.where(active, nxt, 0))
     return out, emitted, caches, pos, last, active, remaining
+
+
+# ----------------------------------------------------------------------
+# Speculative multi-token decode (paged engines, greedy only)
+def ngram_draft(hist, pos, last, d: int):
+    """Bigram draft (``transformer.py:568-584``): find the most recent
+    earlier occurrence of the (previous token, last token) bigram in the
+    token history ``hist (B, L)`` and propose the ``d`` tokens that
+    followed it; with no match, repeat the last token.  A read past the
+    row (a slot parked at ``pos = L``) is clamped into it where JAX's
+    gather fills it; such a slot is inactive and emits nothing."""
+    B, L = hist.shape
+    dev = hist.device
+    prev = torch.gather(hist, 1, (pos.long() - 1).clamp(0, L - 1)[:, None])
+    i = torch.arange(1, L, device=dev)
+    ok = (hist[:, :-1] == prev) & (hist[:, 1:] == last[:, None]) & \
+        (i[None, :] < pos[:, None])
+    m = torch.where(ok, i[None, :], -1).amax(dim=1)
+    cont = torch.where(m >= 0, m + 1, pos.long())
+    idx = torch.minimum(cont[:, None] + torch.arange(d, device=dev)[None, :],
+                        pos.long()[:, None])
+    return torch.gather(hist, 1, idx.clamp(0, L - 1))
+
+
+def write_window(rows, start, vals):
+    """``rows (B, L)`` with ``vals (B, W)`` written at columns ``start[b]
+    + j``, in place; columns past the row are dropped, as JAX's
+    ``.at[...].set(mode="drop")`` drops them.  A masked select over the
+    whole row, so no write can land on a clamped column."""
+    L, W = rows.shape[1], vals.shape[1]
+    j = torch.arange(L, device=rows.device)[None, :] - start.long()[:, None]
+    hit = (j >= 0) & (j < W)
+    picked = torch.gather(vals.to(rows.dtype), 1, j.clamp(0, W - 1))
+    return rows.copy_(torch.where(hit, picked, rows))
+
+
+def verify_extend(params, cfg, tokens, caches, pos0, bt):
+    """Speculative verify (``transformer.py:587-602``) over the paged pool:
+    one batched extend of the ``(B, d+1)`` window ``[last] ++ draft`` at
+    absolute positions ``pos0 + j`` through the block table ``bt``, its
+    K/V written into the pool and its attention run by the paged extend
+    kernel.  Returns the greedy targets at every window position ``(B,
+    d+1)`` and the caches.  Position j's logits see exactly the tokens a
+    non-speculative loop would have cached when sampling position ``pos0
+    + j + 1``, provided tokens[0..j] are what that loop emitted: the
+    accepted prefix the caller keeps.  Window rows past the table's span
+    go to the null block, and their queries see the whole table, as
+    JAX's dense extend drops such writes and caps its mask at the cache
+    length."""
+    x = embed(params["embedding"], tokens, cfg)
+    x, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = _head(params, x, cfg)
+    return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+
+def spec_decode_loop(params, cfg, caches, hist, pos, last, active, remaining,
+                     *, k: int, d: int, max_len: int, bt, draft_fn=None):
+    """K speculative verify iterations over a paged cache, one host sync
+    (``transformer.py:605-692``).  Each drafts ``d`` tokens
+    (``draft_fn(hist, pos, last, d)``, default :func:`ngram_draft`),
+    verifies ``[last] ++ draft`` in one batched extend through the pool
+    (:func:`verify_extend`) and emits the accepted draft prefix plus the
+    first correction: 1 to d+1 tokens a backbone pass.  Token-exact
+    against :func:`decode_loop` under greedy decoding, since acceptance
+    stops at the first draft/target mismatch.
+
+    Unlike JAX, the pool is the only copy of the K/V: nothing is gathered
+    before the loop or scattered back after it.  ``hist (B, max_len)`` is
+    the token history (``hist[s, p]`` the token at position p for every
+    ``p <= pos[s]``); it and the loop state advance in place.  Returns
+    ``(out (B, k*(d+1)), emitted (B,), stats (2,) int32 [extra tokens
+    accepted, drafts proposed], caches, hist, pos, last, active,
+    remaining)``; ``out[s, :emitted[s]]`` are slot s's tokens."""
+    draft_fn = draft_fn or ngram_draft
+    B, dev = pos.shape[0], pos.device
+    W = k * (d + 1)
+    out = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    cols = torch.arange(d + 1, device=dev)[None, :]
+    for _ in range(k):
+        draft = draft_fn(hist, pos, last, d).to(torch.int32)      # (B, d)
+        window = torch.cat([last[:, None], draft], dim=1)
+        targets, caches = verify_extend(params, cfg, window, caches, pos, bt)
+        match = (draft == targets[:, :d]).to(torch.int32)
+        a = torch.cumprod(match, dim=1).sum(dim=1)
+        cap = torch.minimum(remaining, (max_len - 1 - pos).clamp(min=0))
+        e = torch.where(active, torch.minimum(a + 1, cap),
+                        0).to(torch.int32)
+        # the whole window lands at column `emitted`, its start clamped as
+        # dynamic_update_slice clamps it; columns past the accepted count
+        # are junk that the next window (starting at the new `emitted`)
+        # overwrites
+        start = emitted.long().clamp(0, W - (d + 1))[:, None]
+        out.scatter_(1, start + cols, targets)
+        # history rows pos+1 .. pos+d+1 get the targets; rows past the
+        # accepted count lie above the new pos, unread by the draft and
+        # rewritten before pos reaches them; rows past max_len are dropped
+        write_window(hist, pos + 1, targets)
+        stats[0] += torch.where(active, e - 1, 0).sum().to(torch.int32)
+        stats[1] += active.to(torch.int32).sum() * d
+        emitted += e
+        pos += e
+        remaining -= e
+        active &= (remaining > 0) & (pos < max_len - 1)
+        last_new = torch.gather(targets, 1,
+                                (e.long() - 1).clamp(min=0)[:, None])[:, 0]
+        last.copy_(torch.where(active, last_new, 0))
+    return out, emitted, stats, caches, hist, pos, last, active, remaining

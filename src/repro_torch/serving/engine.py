@@ -13,7 +13,12 @@ and the Mamba-1 family (``falcon-mamba-7b``).
   host bookkeeping).  An admit runs one batched suffix extend per prefill
   bucket, reusing prompt blocks a content-hashed prefix cache already
   holds; decode reads the pool through the block tables at every step.  On
-  CUDA both passes run the paged attention kernels.
+  CUDA both passes run the paged attention kernels.  The paged engine also
+  decodes speculatively (``speculative=True``: n-gram drafts verified by
+  one batched extend through the pool, so the paged extend kernel runs at
+  S = d+1), forks sessions copy-on-write, swaps whole sessions out under
+  pool pressure (``kv_swap=True``) and exports / imports its prefix
+  cache's blocks as ``KVB1`` frames.
 * Reference (``fused=False``, dense): one exact-length batch-1 prefill per
   admit and one host round trip per decoded token, greedy only: the parity
   oracle of the other two.
@@ -34,15 +39,23 @@ Differences from the JAX engine, all confined to the device calls:
   compiles).
 * Sampling draws from the engine's ``torch.Generator``; temperature > 0
   matches JAX in distribution only.
+* The block pool is the only copy of the K/V.  JAX's speculative path
+  verifies on a resident dense copy of the pool and writes it back
+  lazily (``engine.py:1046``); the port's verify reads and writes the
+  pool itself, so there is nothing to flush (:meth:`Engine.flush_kv` is
+  a no-op) and a swap or export reads the pool as it stands.
+* ``KVB1`` frames carry a bf16 leaf as JAX writes it, the 2-byte payload
+  under ``ml_dtypes``' dtype string ``<V2``; the port reads such rows
+  back by their bits, without ``ml_dtypes``.
 
-What the JAX engine also does and the port does not yet — speculation,
-KV swap, fork and KV export/import, the other model families — raises
-``NotImplementedError`` naming the ROADMAP.md item that adds it.
+The other model families raise ``NotImplementedError`` naming the
+ROADMAP.md item that adds them.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import struct
 import time
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
@@ -57,7 +70,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kvpool import (NULL_BLOCK, BlockAllocator,
                                         PoolExhausted, hash_token_blocks_memo,
-                                        padded_table)
+                                        pack_block_arrays, padded_table,
+                                        unpack_block_arrays)
 
 
 @dataclasses.dataclass
@@ -171,7 +185,7 @@ class Request:
 class SessionSnapshot:
     """Everything a preempted session needs to resume block-exact: pool
     rows covering ``[0, pos)`` (inline ``data`` or an artifact ``digest``)
-    and the loop scalars.  Kept for the KV lifecycle slice."""
+    and the loop scalars."""
     pos: int
     rem: int
     last_tok: int
@@ -202,8 +216,38 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"Queue 1, {item}")
 
 
-_LIFECYCLE = "item 3 (fork, speculative decode, KV swap and export/import)"
 _FAMILIES = "item 6 (the other LM families)"
+
+#: the dtype string of a bf16 leaf in a ``KVB1`` frame: ``ml_dtypes``'
+#: bfloat16, as numpy names it in a JAX export; plain numpy has no dtype
+#: that prints so (a 2-byte void is ``|V2``)
+_BF16_TAG = b"<V2"
+
+
+def _pack_rows(rows) -> bytes:
+    """:func:`pack_block_arrays` of pool rows (CPU tensors, one per cache
+    leaf), byte for byte the frame the JAX engine writes for the same
+    rows: a bf16 leaf goes as its 2-byte payload, packed as ``<i2`` and
+    retagged ``<V2`` (an entry starts with its dtype string's 2-byte
+    length, then the string)."""
+    entries = []
+    for t in rows:
+        if t.dtype == torch.bfloat16:
+            e = pack_block_arrays([t.view(torch.int16).numpy()])[8:]
+            e = e[:2] + _BF16_TAG + e[2 + len(_BF16_TAG):]
+        else:
+            e = pack_block_arrays([t.numpy()])[8:]
+        entries.append(e)
+    return pack_block_arrays([])[:4] + struct.pack("<I", len(entries)) + \
+        b"".join(entries)
+
+
+def _rows_tensor(a: np.ndarray) -> torch.Tensor:
+    """A frame's array as a tensor: a 2-byte void array (a bf16 leaf read
+    without ``ml_dtypes``) becomes bfloat16 by its bits."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class _PromptTooLong(ValueError):
@@ -213,9 +257,10 @@ class _PromptTooLong(ValueError):
 
 class EngineFns:
     """The engine's device functions for one ``(cfg, scfg)``: the dense and
-    paged batched admits, the K-step decode loop, the copy-on-write block
-    copy and the reference path's prefill and decode.  They update the
-    engine's device state in place."""
+    paged batched admits, the K-step decode loop and its speculative form,
+    the copy-on-write block copy, the KV rows' export and import, and the
+    reference path's prefill and decode.  They update the engine's device
+    state in place."""
 
     def __init__(self, cfg, scfg: ServeConfig):
         self.cfg, self.scfg = cfg, scfg
@@ -285,15 +330,16 @@ class EngineFns:
         return tfm.decode_step(params, self.cfg, tokens, caches, pos)
 
     def paged_admit(self, params, tokens, meta, bt, caches, pos, last,
-                    active, remaining, generator):
+                    active, remaining, generator, hist=None):
         """Extend ``n`` sequences by their (padded) suffix tokens through
         their block tables, sample first tokens, and set the admitted
         slots' loop state (``engine.py:473-517``).
 
         tokens (n, bucket) · meta (4, n) = [pos0 cached-prefix length;
         last_idx suffix-local last index; slot_idx; budget] · bt (n,
-        nb_max).  Pools and state update in place; returns the first
-        tokens (n,)."""
+        nb_max) · hist: the speculative draft's (slots, max_len) token
+        history, or None.  Pools and state update in place; returns the
+        first tokens (n,)."""
         scfg = self.scfg
         pos0, last_idx, slot_idx, budget = meta.unbind(0)
         logits, _ = tfm.extend_paged(params, self.cfg, tokens, caches, pos0,
@@ -302,6 +348,14 @@ class EngineFns:
         nxt = pos0 + last_idx + 1               # next write position
         act = (budget > 0) & (nxt < scfg.max_len - 1)
         s = slot_idx.long()
+        if hist is not None:
+            # seed the history with the suffix at its absolute positions,
+            # then the first token at nxt; bucket pads land above the
+            # row's position and are rewritten before a draft reads them,
+            # positions past max_len are dropped, and a prefix hit's rows
+            # below pos0 are backfilled by the engine
+            rows = tfm.write_window(hist[s], pos0, tokens)
+            hist[s] = tfm.write_window(rows, nxt, toks[:, None])
         pos[s] = nxt
         # an immediately exhausted admit parks its slot on token 0
         last[s] = torch.where(act, toks, 0)
@@ -323,14 +377,47 @@ class EngineFns:
         return torch.cat([out, em[:, None], active[:, None].to(out.dtype),
                           remaining[:, None]], dim=1)
 
+    def spec_decode_loop(self, params, bt, caches, hist, pos, last, active,
+                         remaining):
+        """K speculative verify iterations through the block pool
+        (``engine.py:343-356``); returns the packed ``[tokens | emitted |
+        accepted | proposed]`` (slots, K*(d+1)+3) tensor, the two stats
+        broadcast down their columns, so the host sync stays one
+        device-to-host copy."""
+        scfg = self.scfg
+        out, em, stats, *_ = tfm.spec_decode_loop(
+            params, self.cfg, caches, hist, pos, last, active, remaining,
+            k=scfg.sync_every, d=scfg.spec_draft, max_len=scfg.max_len,
+            bt=bt)
+        return torch.cat([out, em[:, None],
+                          stats[None, :].expand(out.shape[0], 2)], dim=1)
+
     @staticmethod
     def cow(caches, src, dst):
         """Copy-on-write, in place: ``pool[dst[i]] = pool[src[i]]`` for
         every layer's K/V pool (``engine.py:364-372``)."""
-        for group in caches:
-            for c in group:
-                for pool in c.values():
-                    pool[:, dst] = pool[:, src]
+        for pool in EngineFns.pools(caches):
+            pool[:, dst] = pool[:, src]
+        return caches
+
+    @staticmethod
+    def pools(caches):
+        """Every K/V pool in ``jax.tree_util.tree_leaves`` order: groups,
+        then pattern positions, then ``"kp"`` before ``"vp"``."""
+        return [c[key] for group in caches for c in group for key in sorted(c)]
+
+    @staticmethod
+    def kv_export(caches, ids):
+        """Pool rows ``ids`` of every pool, one ``(repeats, len(ids), bs,
+        KV, hd)`` tensor a leaf (``engine.py:374-382``)."""
+        return [pool[:, ids] for pool in EngineFns.pools(caches)]
+
+    @staticmethod
+    def kv_import(caches, ids, rows):
+        """Write ``rows`` (one tensor a leaf) into pool rows ``ids``, in
+        place and cast to the pool's dtype (``engine.py:383-391``)."""
+        for pool, r in zip(EngineFns.pools(caches), rows):
+            pool[:, ids] = r.to(pool.dtype)
         return caches
 
 
@@ -338,8 +425,6 @@ class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
                  metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
-        if scfg.speculative or scfg.kv_swap:
-            raise _not_ported("speculative decode and KV swap", _LIFECYCLE)
         if cfg.family not in ("dense", "ssm"):
             raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
         self.params, self.cfg, self.scfg = params, cfg, scfg
@@ -370,11 +455,27 @@ class Engine:
             self._bt_dev = None
             self._bt_width = 0
             self._bt_dirty = True
+            # swap_tier="artifact": the content-addressed store of swapped
+            # block payloads, made at first use (the host tier keeps the
+            # bytes in the request)
+            self._swap_store = None
             self.metrics.gauge("engine.kv_blocks_total").set(n_blocks)
             self._kv_gauges()
         else:
             self.caches = tfm.init_caches(cfg, scfg.slots, scfg.max_len,
                                           self.device)
+        # speculative decode needs the paged pool (the port's families
+        # couple no batch rows); a fallback is silent but counted
+        # (``engine.py:598-606``).  Brownout L1 clears the attribute at
+        # run time; the history stays and keeps being seeded at admits.
+        self.speculative = self.paged and scfg.speculative
+        if scfg.speculative and not self.speculative:
+            self.metrics.counter("engine.spec_fallback").inc()
+        # the n-gram draft's token history: row s holds slot s's sequence
+        # at its absolute positions
+        self._hist = torch.zeros((scfg.slots, scfg.max_len),
+                                 dtype=torch.int32, device=self.device) \
+            if self.speculative else None
         self.active: List[Optional[Request]] = [None] * scfg.slots
         self.queue: Deque[Request] = deque()
         self.finished: List[Request] = []
@@ -538,6 +639,14 @@ class Engine:
         scfg = self.scfg
         free = [s for s in range(scfg.slots) if self.active[s] is None]
         while free and self.queue:
+            if self.queue[0].kv_snapshot is not None:
+                # a preempted session resumes by block import, never by
+                # prefill; deferring it keeps FIFO (nothing behind it may
+                # overtake the resume)
+                if self._try_restore(free):
+                    continue
+                self.metrics.counter("engine.admit_deferred_kv").inc()
+                break
             try:
                 prep = self._prep_paged(self.queue[0])
             except _PromptTooLong as e:
@@ -577,8 +686,11 @@ class Engine:
                 rows.append((req, slot, sid, hashes, n_cached_tok,
                              suffix_len))
                 try:
+                    # a snapshot-carrying head never joins a prefill
+                    # batch: the outer loop restores it
                     prep = self._prep_paged(self.queue[0]) \
-                        if self.queue else None
+                        if self.queue and \
+                        self.queue[0].kv_snapshot is None else None
                 except _PromptTooLong:
                     # the head of the next admit loop rejects it, after
                     # this batch's extend has run
@@ -617,13 +729,19 @@ class Engine:
                     self.params, torch.from_numpy(tokens).to(dev),
                     torch.from_numpy(meta).to(dev),
                     torch.from_numpy(bt).to(dev), self.caches, self._pos,
-                    self._last, self._active, self._remaining, self._gen)
+                    self._last, self._active, self._remaining, self._gen,
+                    self._hist)
                 toks_h = toks.cpu().numpy()
             psp.end()
             now = time.perf_counter()
             for j, (req, slot, sid, hashes, n_cached_tok, suffix_len) in \
                     enumerate(rows):
                 plen = len(req.prompt)
+                if self._hist is not None and n_cached_tok:
+                    # a prefix hit skips the extend for the cached tokens,
+                    # so the admit's seeding never saw them
+                    self._hist[slot, :n_cached_tok] = torch.from_numpy(
+                        req.prompt[:n_cached_tok]).to(dev)
                 if scfg.prefix_cache:
                     # every *full* prompt block is now written and
                     # immutable (decode writes start at plen) — publish it
@@ -717,23 +835,254 @@ class Engine:
             self._finish_early(s, reason)
 
     # ------------------------------------------------------------------
-    def _wave_hi(self, s: int, adv: int) -> int:
-        """Highest position (exclusive) slot ``s`` can write this sync."""
-        lo = int(self._pos_h[s])
-        return min(lo + min(adv, int(self._rem_h[s])), self.scfg.max_len)
+    # KV lifecycle (``engine.py:1183-1441``): preemption and swap under
+    # pool pressure (ServeConfig.kv_swap) and the drain-time export /
+    # import of the prefix cache.  Both pin the blocks, gather their rows
+    # from the pool in one call and pack them as one KVB1 frame; the pool
+    # is always current, so nothing is flushed first.
+    def _swap_payload_store(self):
+        if self._swap_store is None:
+            # imported here: artifacts -> backends -> engine is a cycle at
+            # module scope
+            from repro_torch.cluster.artifacts import ArtifactStore
+            self._swap_store = ArtifactStore()
+        return self._swap_store
 
+    def _gather_block_rows(self, blocks: List[int]) -> bytes:
+        """Serialize pool rows ``blocks`` (the caller pinned them)."""
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        return _pack_rows([r.cpu() for r in
+                           self.fns.kv_export(self.caches, ids)])
+
+    def _scatter_block_rows(self, blocks: List[int], arrays) -> None:
+        """Write serialized rows (one array per cache leaf, block axis 1)
+        into pool blocks ``blocks``."""
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        self.fns.kv_import(self.caches, ids,
+                           [_rows_tensor(a).to(self.device) for a in arrays])
+
+    def _wave_hi(self, s: int, adv: int, d: int) -> int:
+        """Highest position (exclusive) slot ``s`` can write this sync;
+        under speculation the last verify window writes up to d+1 rows
+        past the final emitted position."""
+        max_len = self.scfg.max_len
+        hi = int(self._pos_h[s]) + min(adv, int(self._rem_h[s]))
+        if d:
+            return min(min(hi, max_len - 1) + d + 1, max_len)
+        return min(hi, max_len)
+
+    def _swap_demand(self, s: int, adv: int, d: int) -> int:
+        """Blocks slot ``s`` will claim this sync: fresh allocations plus
+        COW copies of shared blocks in its write range."""
+        bs = self.scfg.block_size
+        table = self.alloc.table(self._seq_of_slot[s])
+        lo = int(self._pos_h[s])
+        hi = self._wave_hi(s, adv, d)
+        fresh = max(-(-hi // bs) - len(table), 0)
+        shared = sum(1 for j in range(lo // bs, min(-(-hi // bs),
+                                                    len(table)))
+                     if self.alloc.refcount(table[j]) > 1)
+        return fresh + shared
+
+    def _swap_out(self, slot: int):
+        """Preempt ``slot``: serialize its blocks off the card, free them,
+        and requeue the request at the queue's front with a
+        :class:`SessionSnapshot`, so it resumes ahead of requests never
+        admitted as soon as headroom returns."""
+        req = self.active[slot]
+        sid = self._seq_of_slot[slot]
+        pos = int(self._pos_h[slot])
+        blocks = self.alloc.table(sid)[:-(-pos // self.scfg.block_size)] \
+            if pos else []
+        snap = SessionSnapshot(
+            pos=pos, rem=int(self._rem_h[slot]),
+            last_tok=req.out_tokens[-1] if req.out_tokens else 0,
+            n_blocks=len(blocks))
+        if blocks:
+            self.alloc.pin(blocks)
+            try:
+                data = self._gather_block_rows(blocks)
+            finally:
+                self.alloc.unpin(blocks)
+            if self.scfg.swap_tier == "artifact":
+                snap.digest = self._swap_payload_store().put_bytes(data)
+            else:
+                snap.data = data
+        req.kv_snapshot = snap
+        self.queue.appendleft(req)
+        self.active[slot] = None
+        self.alloc.free_seq(sid)
+        self._seq_of_slot[slot] = None
+        self._bt[slot] = NULL_BLOCK
+        self._bt_dirty = True
+        self._act_h[slot] = False
+        self._active[slot] = False
+        self._last[slot] = 0
+        self.metrics.counter("engine.kv_swap_out").inc()
+        self.metrics.counter("engine.kv_swapped_blocks").inc(len(blocks))
+        current_recorder().record("kv_swap_out", rid=req.rid, slot=slot,
+                                  pos=pos, blocks=len(blocks))
+        self._kv_gauges()
+
+    def _preempt_for_headroom(self, adv: int, d: int):
+        """While this sync's worst-case block demand exceeds the pool,
+        preempt the lowest ``(priority, -rid)`` active session (lowest
+        priority first; ties to the newest request).  Runs before any
+        table changes, so exports see consistent tables and no COW pair
+        names a freed block.  A lone survivor is never preempted: if it
+        still cannot fit, :meth:`_exhaust_victim` applies."""
+        while True:
+            live = [(r.priority, -r.rid, s)
+                    for s, r in enumerate(self.active) if r is not None]
+            if len(live) <= 1:
+                return
+            demand = sum(self._swap_demand(s, adv, d) for _, _, s in live)
+            if demand <= self.alloc.available_blocks:
+                return
+            self._swap_out(min(live)[2])
+
+    def _try_restore(self, free: List[int]) -> bool:
+        """The queue's head is a swapped-out session: re-admit it by
+        importing its blocks.  True: handled (restored into a slot, or
+        finished as unrestorable); False: deferred on pool pressure, the
+        queue intact."""
+        req = self.queue[0]
+        snap = req.kv_snapshot
+        need = snap.n_blocks + 1            # +1 decode-ahead block
+        if need > self.alloc.num_blocks:
+            # no state of this pool can restore it: finish it alone
+            self.queue.popleft()
+            req.kv_snapshot = None
+            self.metrics.counter("engine.kv_pool_exhausted").inc()
+            current_recorder().record("kv_pool_exhausted", rid=req.rid,
+                                      pos=snap.pos, at="restore")
+            req.done = True
+            req.finish_reason = "kv_pool_exhausted"
+            req.done_t = time.perf_counter()
+            self._close_span(req)
+            self.finished.append(req)
+            self._emit(req, [], True)
+            return True
+        if need > self.alloc.available_blocks:
+            return False
+        slot = free.pop(0)
+        self.queue.popleft()
+        data = snap.data if snap.data is not None \
+            else self._swap_payload_store().read_bytes(snap.digest)
+        sid = self.alloc.new_seq()
+        self.alloc.extend_to(sid, snap.pos)
+        table = self.alloc.table(sid)
+        if snap.n_blocks:
+            self._scatter_block_rows(table, unpack_block_arrays(data))
+        self._seq_of_slot[slot] = sid
+        self._bt[slot] = padded_table(table, self.nb_max)
+        self._bt_dirty = True
+        pos = snap.pos
+        self._pos_h[slot] = pos
+        self._rem_h[slot] = snap.rem
+        alive = snap.rem > 0 and pos < self.scfg.max_len - 1
+        self._act_h[slot] = alive
+        self._pos[slot] = pos
+        self._last[slot] = snap.last_tok if alive else 0
+        self._remaining[slot] = max(snap.rem, 0)
+        self._active[slot] = alive
+        if self._hist is not None:
+            # rebuild the draft history: the prompt, then every token
+            # emitted so far (hist[pos] == last_tok)
+            toks = np.concatenate(
+                [req.prompt, np.asarray(req.out_tokens, np.int32)]
+            )[:self.scfg.max_len]
+            self._hist[slot, :len(toks)] = torch.from_numpy(toks).to(
+                self.device)
+        self.active[slot] = req
+        req.kv_snapshot = None
+        self.metrics.counter("engine.kv_swap_in").inc()
+        current_recorder().record("kv_swap_in", rid=req.rid, slot=slot,
+                                  pos=pos, blocks=snap.n_blocks)
+        if not alive:
+            self._finish(slot, "max_new" if snap.rem <= 0 else "max_len")
+        self._kv_gauges()
+        return True
+
+    # ------------------------------------------------------------------
+    # warm migration: the drain-time hand-off of the prefix cache's
+    # published blocks to a session's new home (the router ships the
+    # frame; the replica loop calls these between batches)
+    def export_kv_state(self) -> Optional[dict]:
+        """The prefix cache, ``(chained hash, block rows)`` in LRU order,
+        as one picklable frame, or None when there is nothing to ship
+        (dense engine, empty cache).  Published blocks are immutable
+        (decode copies before writing), and pins keep eviction away while
+        the rows are read."""
+        if not self.paged:
+            return None
+        items = self.alloc.prefix_items()
+        if not items:
+            return None
+        blocks = [b for _, b in items]
+        self.alloc.pin(blocks)
+        try:
+            data = self._gather_block_rows(blocks)
+        finally:
+            self.alloc.unpin(blocks)
+        self.metrics.counter("engine.kv_export_blocks").inc(len(blocks))
+        current_recorder().record("kv_export", blocks=len(blocks))
+        return {"kind": "kv_blocks", "block_size": self.scfg.block_size,
+                "hashes": [h for h, _ in items], "data": data}
+
+    def import_kv_state(self, state) -> int:
+        """Adopt a migrated replica's prefix blocks: every unseen hash
+        binds a free block (never evicting, so admission headroom never
+        shrinks) and the shipped rows are written into the pool.
+        Idempotent: cached hashes are skipped.  Returns the number of
+        adopted blocks."""
+        if not self.paged or not isinstance(state, dict) \
+                or state.get("kind") != "kv_blocks" \
+                or state.get("block_size") != self.scfg.block_size:
+            return 0
+        arrays = unpack_block_arrays(state["data"])
+        ids: List[int] = []
+        cols: List[int] = []
+        for i, h in enumerate(state["hashes"]):
+            b = self.alloc.import_cached(h)
+            if b is None:
+                continue
+            ids.append(b)
+            cols.append(i)
+        if not ids:
+            return 0
+        sel = np.asarray(cols, np.intp)
+        self._scatter_block_rows(ids, [a[:, sel] for a in arrays])
+        self.metrics.counter("engine.kv_import_blocks").inc(len(ids))
+        current_recorder().record("kv_import", blocks=len(ids))
+        self._kv_gauges()
+        return len(ids)
+
+    def flush_kv(self):
+        """Make the pool current for every live sequence: a no-op here,
+        since the port's decode and verify write the pool itself (the
+        JAX engine flushes its resident dense view, ``engine.py:1074``).
+        Kept so callers that read ``engine.caches`` read as on JAX."""
+
+    # ------------------------------------------------------------------
     def _step_paged(self) -> bool:
         self._admit_paged()
         if not any(r is not None for r in self.active):
             return False
         scfg = self.scfg
+        d = scfg.spec_draft if self.speculative else 0
+        adv = scfg.sync_every * (d + 1)   # most tokens one sync emits
         dsp = current_tracer().span(
             "engine.decode_sync", parent=self._batch_ctx(),
             k=scfg.sync_every,
             n_active=sum(r is not None for r in self.active))
+        if scfg.kv_swap:
+            # make room by preempting whole sessions before any table
+            # changes below
+            self._preempt_for_headroom(adv, d)
         # host pre-work: every active slot needs writable private blocks
         # covering every position this loop can write — allocate ahead,
-        # COW any block shared with the prefix cache
+        # COW any block shared with the prefix cache or a fork
         cow_src: List[int] = []
         cow_dst: List[int] = []
         max_hi = 1
@@ -742,7 +1091,7 @@ class Engine:
                 continue
             sid = self._seq_of_slot[s]
             lo = int(self._pos_h[s])
-            hi = self._wave_hi(s, scfg.sync_every)
+            hi = self._wave_hi(s, adv, d)
             pairs = self.alloc.cow_targets(sid, lo, hi)
             try:
                 fresh = self.alloc.extend_to(sid, hi)
@@ -769,7 +1118,8 @@ class Engine:
             current_recorder().record("cow", n=len(cow_src))
         # cut the device table to the power-of-two block width that covers
         # every position this sync can write; the kernels walk only the
-        # blocks a sequence's length needs
+        # blocks a sequence's length needs, and a verify window never
+        # reaches past it except at max_len, where the table is whole
         need = -(-max_hi // scfg.block_size)
         nbw = min(_next_pow2(need) if need > 1 else 1, self.nb_max)
         if self._bt_dirty or nbw != self._bt_width:
@@ -778,18 +1128,31 @@ class Engine:
             self._bt_width = nbw
             self._bt_dirty = False
         with annotate("decode_loop"):
-            packed = self.fns.decode_loop(
-                self.params, self._bt_dev, self.caches, self._pos,
-                self._last, self._active, self._remaining, self._gen)
+            if self.speculative:
+                ssp = current_tracer().span("engine.spec_decode",
+                                            parent=dsp, draft_len=d)
+                packed = self.fns.spec_decode_loop(
+                    self.params, self._bt_dev, self.caches, self._hist,
+                    self._pos, self._last, self._active, self._remaining)
+            else:
+                packed = self.fns.decode_loop(
+                    self.params, self._bt_dev, self.caches, self._pos,
+                    self._last, self._active, self._remaining, self._gen)
             hsp = current_tracer().span("engine.host_sync", parent=dsp)
             # ONE device fetch; liveness, positions and budgets advance
             # host-side by exactly the emitted counts
             packed_h = packed.cpu().numpy()
-            out_h, em_h = self._unpack(packed_h)[:2]
+            out_h, em_h = packed_h[:, :-3], packed_h[:, -3]
             self._pos_h += em_h.astype(np.int64)
             self._rem_h -= em_h.astype(np.int64)
             self._act_h &= (self._rem_h > 0) & \
                 (self._pos_h < scfg.max_len - 1)
+            if self.speculative:
+                acc, prop = int(packed_h[0, -2]), int(packed_h[0, -1])
+                self.metrics.counter("engine.spec_proposed").inc(prop)
+                self.metrics.counter("engine.spec_accepted").inc(acc)
+                ssp.tag(proposed=prop, accepted=acc)
+                ssp.end()
             hsp.end()
         self._emit_sync(dsp, out_h, em_h, self._act_h, self._rem_h)
         return True
@@ -930,13 +1293,52 @@ class Engine:
 
     def fork(self, parent: Request, max_new: int,
              on_tokens: Optional[Callable] = None) -> Request:
-        raise _not_ported("Engine.fork", _LIFECYCLE)
-
-    def export_kv_state(self, *args, **kwargs):
-        raise _not_ported("Engine.export_kv_state", _LIFECYCLE)
-
-    def import_kv_state(self, *args, **kwargs):
-        raise _not_ported("Engine.import_kv_state", _LIFECYCLE)
+        """Branch an active request into a new session that shares all of
+        its KV blocks copy-on-write (parallel sampling, n-best;
+        ``engine.py:1609-1663``).  The child continues from the parent's
+        position; a shared block splits when either side writes it.
+        Paged engines only; needs a free slot."""
+        if not self.paged:
+            raise RuntimeError("fork requires a paged engine "
+                               "(ServeConfig.paged=True on a supported "
+                               "family)")
+        try:
+            pslot = next(s for s, r in enumerate(self.active)
+                         if r is parent)
+        except StopIteration:
+            raise ValueError(f"request {parent.rid} is not active "
+                             f"(finished or still queued)") from None
+        try:
+            slot = next(s for s, r in enumerate(self.active) if r is None)
+        except StopIteration:
+            raise RuntimeError("no free slot to fork into") from None
+        child = Request(rid=next(self._rids), prompt=parent.prompt.copy(),
+                        max_new=max_new,
+                        out_tokens=list(parent.out_tokens),
+                        submit_t=time.perf_counter(), on_tokens=on_tokens)
+        child.first_token_t = child.submit_t
+        sid = self.alloc.fork(self._seq_of_slot[pslot])
+        self._seq_of_slot[slot] = sid
+        self._bt[slot] = padded_table(self.alloc.table(sid), self.nb_max)
+        self._bt_dirty = True
+        pos = int(self._pos_h[pslot])
+        self._pos_h[slot] = pos
+        self._rem_h[slot] = max(max_new, 0)
+        last_tok = parent.out_tokens[-1] if parent.out_tokens else 0
+        alive = max_new > 0 and pos < self.scfg.max_len - 1
+        self._act_h[slot] = alive
+        self._pos[slot] = pos
+        self._last[slot] = last_tok if alive else 0
+        self._remaining[slot] = max(max_new, 0)
+        self._active[slot] = alive
+        if self._hist is not None:
+            self._hist[slot] = self._hist[pslot]
+        self.active[slot] = child
+        self.metrics.counter("engine.forks").inc()
+        if not alive:
+            self._finish(slot, "max_new" if max_new <= 0 else "max_len")
+        self._kv_gauges()
+        return child
 
     # ------------------------------------------------------------------
     def step(self):

@@ -243,18 +243,35 @@ def test_router_brownout_ladder_under_queue_pressure(pkg):
 
 
 def test_engine_backend_brownout_on_the_port_engine():
-    """The port's engine has no speculative decode: L1 finds nothing to
-    switch off (the ``hasattr`` guard), and L2 still halves ``max_new``."""
+    """L1 turns the port engine's speculative decode off and L0 back on;
+    L2 also halves ``max_new``, and the spec counters stand still while
+    speculation is off.  An engine without the attribute is left alone
+    (the ``hasattr`` guard), and one built without speculation stays
+    without."""
     eng = types.SimpleNamespace()
-    be = EngineBackend(eng)
-    be.set_brownout(1)
+    EngineBackend(eng).set_brownout(1)
     assert not hasattr(eng, "speculative")
-    port = make_engine(device="cpu", max_len=32, slots=2, sync_every=4)
-    assert not hasattr(port, "speculative")
+    port = make_engine(device="cpu", max_len=32, slots=2, sync_every=4,
+                       paged=True, block_size=8, speculative=True)
     be = EngineBackend(port)
+    assert port.speculative
+    be.set_brownout(1)
+    assert not port.speculative
+    be.set_brownout(0)
+    assert port.speculative
     be.set_brownout(2)
+    assert not port.speculative
     (toks,) = be.process([(np.arange(5, dtype=np.int32), 8)])
     assert len(toks) == 4 + 1, "L2 serves max_new // 2 after the first"
+    assert port.metrics.counter("engine.spec_proposed").value == 0
+    be.set_brownout(0)
+    be.process([(np.arange(7, dtype=np.int32), 8)])
+    assert port.metrics.counter("engine.spec_proposed").value > 0
+    plain = make_engine(device="cpu", max_len=32, slots=2, sync_every=4)
+    be = EngineBackend(plain)
+    be.set_brownout(1)
+    be.set_brownout(0)
+    assert not plain.speculative
 
 
 def _scenario(pkg):
@@ -403,3 +420,49 @@ def test_profiling_hooks_write_a_torch_trace(tmp_path):
     path = tracing.stop_profiling()
     assert path is not None and tracing.stop_profiling() is None
     assert "engine.decode_sync" in open(path).read()
+
+
+# ----------------------------------------------------------------------
+# drain-time warm migration through the Router
+# (tests/test_kv_lifecycle.py:225-306, on the port's engines)
+WARM = ServeConfig(max_len=48, slots=2, sync_every=4, paged=True,
+                   block_size=8, kv_blocks=24, prefix_cache=True)
+
+
+@pytest.mark.parametrize("migrate", [True, False], ids=["warm", "cold"])
+def test_drained_session_moves_to_its_new_home(lm, migrate):
+    """``remove_replica(home, drain=True, migrate=...)`` over 3 thread
+    replicas with session affinity: with ``migrate`` the drained
+    replica's prefix blocks ship to the session's new home, which decodes
+    the continuation warm (prefix hits > 0); without it the new home
+    decodes cold.  Either way the tokens are an uninterrupted engine's."""
+    cfg = reduced(get_config("internlm2-1.8b"))
+    params = weights.params_from_numpy(lm["flat"], cfg, device="cpu")
+    r = Router(policy="session_affinity", metrics=MetricsRegistry())
+    workers = [r.add_replica(
+        EngineBackend(Engine(params, cfg, WARM, device="cpu")),
+        ReplicaConfig(max_batch=2), kind="lm") for _ in range(3)]
+    prompt = np.random.RandomState(17).randint(
+        0, cfg.vocab, size=17).astype(np.int32)
+    q = r.submit((prompt.copy(), 8), session_key="sess-1", kind="lm",
+                 timeout_s=60.0)
+    toks = r.wait(q, 60.0)
+    home = q.replica_rid
+    cont = np.concatenate([prompt, np.asarray(toks, np.int32)])
+    oracle = Engine(params, cfg, WARM, device="cpu")
+    want = oracle.submit(cont.copy(), max_new=6)
+    oracle.run_until_drained()
+    r.remove_replica(home, drain=True, migrate=migrate)
+    snap = r.metrics.snapshot()
+    assert (snap.get("router.sessions_migrated", 0) >= 1) == migrate, snap
+    assert (snap.get("router.kv_migrations", 0) >= 1) == migrate, snap
+    q2 = r.submit((cont.copy(), 6), session_key="sess-1", kind="lm",
+                  timeout_s=60.0)
+    toks2 = r.wait(q2, 60.0)
+    assert q2.replica_rid != home, "session not remapped off the drain"
+    new_home = next(w for w in workers if w.rid == q2.replica_rid)
+    got = new_home.backend.engine.metrics.snapshot()
+    assert (got.get("engine.prefix_hit_blocks", 0) > 0) == migrate
+    assert (got.get("engine.kv_import_blocks", 0) > 0) == migrate
+    assert toks2 == list(want.out_tokens)
+    r.stop()

@@ -478,8 +478,6 @@ def test_dense_engine_spans_equal_the_jax_engine(model, kw):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(paged=False, family="moe"), "other LM families"),
-    (dict(paged=True, speculative=True), "speculative"),
-    (dict(paged=True, kv_swap=True), "KV swap"),
 ])
 def test_engine_outside_slice_raises(model, kw, what):
     _, tcfg, _, tparams = model
@@ -489,16 +487,6 @@ def test_engine_outside_slice_raises(model, kw, what):
         Engine(tparams, cfg, ServeConfig(max_len=32, block_size=8, **kw),
                device="cpu")
     assert what in str(e.value)
-
-
-def test_engine_fork_and_kv_export_raise(model):
-    _, tcfg, _, tparams = model
-    eng = Engine(tparams, tcfg, ServeConfig(max_len=32, paged=True,
-                                            block_size=8), device="cpu")
-    for call in (lambda: eng.fork(None, 4), eng.export_kv_state,
-                 lambda: eng.import_kv_state({})):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
 
 
 # ----------------------------------------------------------------------

@@ -4,9 +4,11 @@ refused at the door), the standalone ``worker_main --connect`` worker, a
 SIGKILLed process replica spilling with nothing lost, one randomized
 thread-pool chaos episode (never lose, never double), the control plane
 without msgpack (the card's machine has none), and wire compatibility
-with the JAX package's frames.
+with the JAX package's frames, and the drain-time KV hand-off between two
+process replicas of the paged engine.
 
-Workers here run echo backends, so a spawned worker imports no torch.
+Workers here run echo backends, so a spawned worker imports no torch,
+except the KV hand-off's, which run the port's engine on the CPU.
 The chaos pieces are copied from ``tests/chaos.py``, which imports the
 JAX package.
 """
@@ -28,8 +30,9 @@ pytest.importorskip("torch")
 from repro.cluster import framing as jframing  # noqa: E402
 from repro.cluster import wire as jwire  # noqa: E402
 from repro_torch.cluster import (MetricsRegistry, ReplicaConfig,  # noqa: E402
-                                 Router, Status, echo_spec, framing,
-                                 spec_fingerprint, wire)
+                                 Router, Status, echo_spec, engine_spec,
+                                 framing, spec_fingerprint, wire)
+from repro_torch.cluster.backends import make_engine  # noqa: E402
 from repro_torch.cluster.replica import ClusterRequest  # noqa: E402
 from repro_torch.cluster.transport import SocketTransport  # noqa: E402
 from repro_torch.cluster.wire import (PROTOCOL_VERSION,  # noqa: E402
@@ -240,6 +243,48 @@ def test_replica_kill_dumps_flight_events_to_artifact_store():
         if e["kind"] == "spill" and e.get("replica") == workers[0].rid:
             assert set(e["rids"]) <= {q.rid for q in reqs}
     r.stop()
+
+
+# ----------------------------------------------------------------------
+# the drain-time KV hand-off over a real process boundary
+# (tests/test_kv_lifecycle.py:309-340)
+
+def test_process_drain_publishes_kv_state_and_migrates():
+    """A drained process replica of the paged engine publishes its prefix
+    blocks before it leaves, and the router ships them to the session's
+    new home: that worker adopts them (its counters arrive over the
+    heartbeats) and serves the continuation warm, with the tokens of an
+    in-process engine on the same seeded weights."""
+    kw = dict(max_len=48, slots=2, sync_every=4, paged=True, block_size=8,
+              kv_blocks=24, prefix_cache=True)
+    r = Router(policy="session_affinity", metrics=MetricsRegistry())
+    cfg = ReplicaConfig(max_batch=2, spawn_timeout_s=120.0)
+    workers = [r.add_replica(spec=engine_spec(device="cpu", **kw), cfg=cfg,
+                             transport="process", kind="lm")
+               for _ in range(2)]
+    prompt = np.random.RandomState(23).randint(0, 256, size=17).astype(
+        np.int32)
+    q = r.submit((prompt.copy(), 8), session_key="sess-3", kind="lm",
+                 timeout_s=120.0)
+    toks = r.wait(q, 120.0)
+    assert isinstance(toks, list)
+    home = q.replica_rid
+    r.remove_replica(home, drain=True, migrate=True)
+    assert r.metrics.snapshot().get("router.sessions_migrated", 0) >= 1
+    cont = np.concatenate([prompt, np.asarray(toks, np.int32)])
+    q2 = r.submit((cont.copy(), 6), session_key="sess-3", kind="lm",
+                  timeout_s=120.0)
+    toks2 = r.wait(q2, 120.0)
+    assert isinstance(toks2, list) and q2.replica_rid != home
+    assert _wait_until(
+        lambda: r.cluster_snapshot().get("engine.kv_import_blocks", 0) > 0
+        and r.cluster_snapshot().get("engine.prefix_hit_blocks", 0) > 0)
+    r.stop()
+    eng = make_engine(device="cpu", **kw)
+    want = eng.submit(cont.copy(), max_new=6)
+    eng.run_until_drained()
+    assert toks2 == want.out_tokens
+    assert not any(w.alive for w in workers)
 
 
 # ----------------------------------------------------------------------
