@@ -11,8 +11,11 @@ paper's service architecture (``MLaaSService`` -> ``Router`` -> thread
 and process replicas of the engines and of the stream), and the paged
 engine's KV lifecycle (speculative decode verified by the paged extend
 kernel, copy-on-write forks, KV swap, export/import, brownout and a
-migrating drain behind the Router), and holds every kernel against its
-plain PyTorch version.  One line per phase:
+migrating drain behind the Router), starcoder2-3b (LayerNorm, a GELU MLP,
+24 query heads over 2 kv heads: G 12) on both attention paths, and the
+telemetry (time series, SLO engine, stats server, autoscaler) over
+process replicas, and holds every kernel against its plain PyTorch
+version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -27,13 +30,13 @@ plain PyTorch version.  One line per phase:
    ragged lengths), plus a small grid over every head_dim and dtype the
    kernels are built for (and flash's three mask modes, and a decode row
    of length 0), and the wgmma kernels' tile edges (flash at S 63, 64,
-   65, 129, 200 and G 1, 4, 8; the extend at bs 8 and 16 with pages
+   65, 129, 200 and G 1, 4, 8, 12; the extend at bs 8 and 16 with pages
    straddled and a row past the table; a long-prefix extend of 2,048
    keys; an extend whose unseen pool rows hold NaN), and the split-key
    decode's edges in fp32 and bf16 (lengths around one and two
-   128-key chunks, pages of 8, 16, 32, 12 and 128 rows, G 1 to 16, a length past
-   the table and table entries past the pool, rows of length 0, caches
-   whose rows past every live key hold NaN), each
+   128-key chunks, pages of 8, 16, 32, 12 and 128 rows, G 1 to 16, a
+   length past the table and table entries past the pool, rows of length
+   0, caches whose rows past every live key hold NaN), each
    held against the plain version's fp32 result on the
    same inputs, with a control (P rounded to bf16) that the bf16 limit
    must reject; flash also at (1, 2048), above the bf16 ridge; both
@@ -54,7 +57,10 @@ plain PyTorch version.  One line per phase:
    kernel, plain and library times and the bound; and the paged extend
    at the speculative verify's shape (B 8, S 4, pos0 301-329 not
    block-aligned and one window past a 512-key table), with the bf16
-   rule and its control, kernel, plain and SDPA times and the bound;
+   rule and its control, kernel, plain and SDPA times and the bound; then
+   the four attention kernels again at the main paths' shapes and lengths
+   with starcoder2-3b's heads (H 24, KV 2, G 12), each with the bf16 rule,
+   its control, its times, bound and SDPA's time;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -62,13 +68,19 @@ plain PyTorch version.  One line per phase:
    the paged extend alone; then
    the two-layer fp32 reduced falcon-mamba-7b through the dense engine,
    through the kernel and forced through the plain version, with prompts
-   of 130 and 100 tokens among them: both give the same tokens;
+   of 130 and 100 tokens among them: both give the same tokens; and the
+   two-layer fp32 reduced starcoder2-3b, paged and dense, kernel and
+   plain, four times the same tokens;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
    then dense; each path's kernel launch counts, read right after its own
    run, must be > 0 with no plain calls; then one profiled decode sync of
-   each.  Then, with those engines freed, falcon-mamba-7b (64 layers,
+   each.  Then starcoder2-3b the same two ways at full width (30 layers,
+   d_model 3072, 24 heads over 2, d_ff 12288, LayerNorm, GELU MLP, tied,
+   bf16, seeded random weights, 3.0 B parameters), its launch counts and
+   a profiled decode sync on each path.  Then, with those engines freed,
+   falcon-mamba-7b (64 layers,
    d_model 4096, d_inner 8192, bf16, seeded random weights), 8 slots,
    max_len 2048, K=8, 8 requests (4 x 512, 1000, 2 x 256, 100 tokens,
    same lengths adjacent), max_new 32: ``ssm_scan`` launches must be 64 a
@@ -114,7 +126,21 @@ plain PyTorch version.  One line per phase:
    counters stop, every request completes) and a drain with
    ``migrate=True`` ships KV (sessions migrated, the survivor imported
    blocks); the phase's wall time;
-8. the ``{"kernels": [...]}`` line.
+8. telemetry: (a) internlm2-1.8b at full width (dense) on 1 process
+   replica behind a least-loaded Router, with the serve driver's stats
+   stack on its cluster snapshot (a ``TelemetrySampler`` every 0.25 s, an
+   ``SLOEngine`` wired into ``router.slo``, a ``StatsServer`` on port 0)
+   and an ``Autoscaler`` (1-3 replicas, its factory an ``engine_spec``)
+   ticked every 0.25 s: a burst of 96 requests, one every 0.125 s, each
+   completing exactly once; at least one scale-up while it lasts (each
+   event printed with the seconds its tick took, the spawn), a scale-down
+   once the pool is idle; tok/s before and after the first new replica is
+   ready; the four routes fetched over HTTP and parsed, ``/metrics``
+   carrying the workers' kernel launches; (b) the sampler's overhead: one
+   engine, 16 requests with the stats stack off, on, on, off; (c)
+   ``python -m repro_torch.launch.serve --stats-dump`` in a process of its
+   own; the phase's wall time;
+9. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -211,7 +237,7 @@ def main():
     smi = phase_device()
     stats = phase_kernels()
     if kernels_only:
-        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-7 and "
+        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-8 and "
               "the result lines skipped")
         return
     phase_token_exact()
@@ -219,6 +245,7 @@ def main():
     launches.update(phase_margot())
     phase_cluster()
     phase_lifecycle(paged_tokens)
+    phase_telemetry()
     phase_list(stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -550,9 +577,48 @@ def phase_kernels():
     _decode_edges(gen, dev)
 
     # main-path shapes, bf16; 3 copies of the inputs for cold-L2 timing
-    B, H, KV, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
+    stats, shares, issue = {}, {}, {}
+    _paged_main_path(gen, dev, MAIN_HEADS, stats, shares, issue)
+    _verify_shape(gen, dev)
+    _dense_main_path(gen, dev, MAIN_HEADS, stats, shares, issue)
+    _flash_long(gen, dev)
+    for label, lengths, max_len in DECODE_SHAPES[1:]:
+        for name, st in _decode_bench(gen, dev, lengths, max_len).items():
+            print(f"[kernels] {name} at {label}: "
+                  f"{_decode_row(st, lengths, max_len)}")
+    _pair_score_checks(gen, dev, stats, issue)
+    _ssm_scan_checks(gen, dev, stats, issue)
+    print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
+          f"the plain version's fp32 result on the same inputs, and at most "
+          f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
+          f"(the kernels keep P in fp32, so only fp32 summation order and "
+          f"the output rounding separate them); control: the plain version "
+          f"with P rounded to bf16 must exceed the {BF16_MISMATCH:.0%}")
+    _print_main_path(stats, shares, issue, "")
+    _starcoder2_heads(gen, dev)
+    return stats
+
+
+#: (H, KV) of the main path's attention (internlm2-1.8b: 16 query heads
+#: over 8 kv heads, G 2) and of starcoder2-3b (24 over 2, G 12: a 64-row
+#: wgmma tile holds 5 1/3 query positions, and the decode's 8-row groups
+#: take 12 heads as one full group and one half-full)
+MAIN_HEADS = (16, 8)
+SC2_HEADS = (24, 2)
+
+
+def _paged_main_path(gen, dev, heads, stats, shares, issue):
+    """The paged decode and extend at phase 2's shapes, bf16, hd 128, bs
+    16, for ``heads`` = (H, KV): a decode of B=8 at ragged lengths up to
+    2048 and an extend of (4, 256) at pos0 16-1792, each against its plain
+    version with the bf16 rule and its control, SDPA, and 3 copies of its
+    inputs for cold-L2 timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (H, KV), hd, bs, max_len = heads, 128, 16, 2048
+    B, at = 8, f" H={H} KV={KV}"
     nb, esz = max_len // bs, 2
-    stats, shares = {}, {}
     lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
                            dtype=torch.int32, device=dev)
     sets = [_paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd),
@@ -560,23 +626,23 @@ def phase_kernels():
     q, kp, vp, bt = sets[0]
     out = ops.paged_decode_attention(q, kp, vp, bt, lengths)
     want = ref.paged_decode_attention_ref(*_f32(q, kp, vp), bt, lengths)
-    err, share = _compare("decode main-path", out, want)
+    err, share = _compare("decode main-path" + at, out, want)
     shares["paged_decode_attention"] = (share, _check_control(
-        "decode main-path", _plain_rounded_p(q[:, None], kp, vp, bt,
+        "decode main-path" + at, _plain_rounded_p(q[:, None], kp, vp, bt,
                                              lengths - 1), want))
     keep = (torch.arange(max_len, device=dev)[None, :] <
             lengths[:, None].long())[:, None, None, :]
     sd = [_sdpa_args(s[0][:, :, None], s[1], s[2], s[3], keep) for s in sets]
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
-    _library_close("decode", lib_out, want)
+    _library_close("decode" + at, lib_out, want)
     n_tok = int(lengths.sum())
     by = (2 * n_tok * KV * hd * esz                 # K and V rows needed
           + 2 * B * H * hd * esz                    # q in, out
           + 4 * sum(-(-int(x) // bs) for x in lengths) + 4 * B)  # bt, len
     ops_n = 4 * H * hd * n_tok                      # QK^T and PV
-    issue = {"paged_decode_attention": _issue_ms(
-        lambda: ops.paged_decode_attention(q, kp, vp, bt, lengths))}
+    issue["paged_decode_attention"] = _issue_ms(
+        lambda: ops.paged_decode_attention(q, kp, vp, bt, lengths))
     stats["paged_decode_attention"] = _stats(
         err, by, ops_n, "bfloat16",
         _time_ms([lambda s=s: ops.paged_decode_attention(
@@ -593,9 +659,9 @@ def phase_kernels():
     q, kp, vp, bt = esets[0]
     out = ops.paged_extend_attention(q, kp, vp, bt, pos0)
     want = ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0)
-    err, share = _compare("extend main-path", out, want)
+    err, share = _compare("extend main-path" + at, out, want)
     shares["paged_extend_attention"] = (share, _check_control(
-        "extend main-path", _plain_rounded_p(q, kp, vp, bt, pos0), want))
+        "extend main-path" + at, _plain_rounded_p(q, kp, vp, bt, pos0), want))
     qpos = pos0[:, None].long() + torch.arange(S, device=dev)[None, :]
     keep = (torch.arange(max_len, device=dev)[None, None, :] <=
             qpos[:, :, None])[:, None]
@@ -603,7 +669,7 @@ def phase_kernels():
                      keep) for s in esets]
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True).transpose(1, 2)
-    _library_close("extend", lib_out, want)
+    _library_close("extend" + at, lib_out, want)
     n_keys = [int(p) + S for p in pos0]             # keys each row needs
     by = (2 * sum(n_keys) * KV * hd * esz + 2 * Be * S * H * hd * esz
           + 4 * sum(-(-k // bs) for k in n_keys) + 4 * Be)
@@ -618,24 +684,13 @@ def phase_kernels():
             s[0], s[1], s[2], s[3], pos0) for s in esets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
-    _verify_shape(gen, dev)
-    _dense_main_path(gen, dev, stats, shares, issue)
-    for label, lengths, max_len in DECODE_SHAPES[1:]:
-        for name, st in _decode_bench(gen, dev, lengths, max_len).items():
-            print(f"[kernels] {name} at {label}: "
-                  f"{_decode_row(st, lengths, max_len)}")
-    _pair_score_checks(gen, dev, stats, issue)
-    _ssm_scan_checks(gen, dev, stats, issue)
-    print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
-          f"the plain version's fp32 result on the same inputs, and at most "
-          f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
-          f"(the kernels keep P in fp32, so only fp32 summation order and "
-          f"the output rounding separate them); control: the plain version "
-          f"with P rounded to bf16 must exceed the {BF16_MISMATCH:.0%}")
+
+
+def _print_main_path(stats, shares, issue, label):
     for name, st in stats.items():
         if name not in shares:
             continue
-        print(f"[kernels] {name}: max_abs_err={st['max_abs_err']:.3e} "
+        print(f"[kernels] {name}{label}: max_abs_err={st['max_abs_err']:.3e} "
               f"off_rounded={shares[name][0]:.4%} "
               f"(control with bf16 P: {shares[name][1]:.4%}) "
               f"ms={st['ms']:.4f} "
@@ -644,7 +699,17 @@ def phase_kernels():
               f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}); "
               f"device ms from a CUDA graph replay; issued one by one "
               f"from Python: {issue[name]:.4f} ms per call")
-    return stats
+
+
+def _starcoder2_heads(gen, dev):
+    """The four attention kernels at starcoder2-3b's heads (H 24, KV 2,
+    G 12, hd 128, bf16) and phase 2's shapes and lengths, each held to the
+    bf16 rule with its control and timed beside its bound and SDPA."""
+    stats, shares, issue = {}, {}, {}
+    _paged_main_path(gen, dev, SC2_HEADS, stats, shares, issue)
+    _dense_main_path(gen, dev, SC2_HEADS, stats, shares, issue)
+    _print_main_path(stats, shares, issue,
+                     " at starcoder2-3b's heads (H 24, KV 2, G 12)")
 
 
 #: the speculative verify's shape at phase 7's serve: 8 windows of d+1 = 4
@@ -745,11 +810,13 @@ def _dense_grid(gen, dtype, dname, hd, dev):
 # The edge shapes of the wgmma design's 64-row, 64-key tiles, as
 # tests/test_torch_attention_sm90.py holds the plain versions against the
 # JAX oracles and the Pallas kernels at them: flash at S one short of, at
-# and one past a tile, two tiles and one past, and 200; G 1, 4 and 8; the
-# extend at bs 8 and 16 with pos0 mid-page (the suffix and the last
-# visible key straddle pages) and a row past the table's end.
+# and one past a tile, two tiles and one past, and 200; G 1, 4, 8 and 12
+# (a tile's rows end inside a query position); the extend at bs 8 and 16
+# with pos0 mid-page (the suffix and the last visible key straddle pages)
+# and a row past the table's end, at G 4, 1 and 12.
 FLASH_EDGE_S = (63, 64, 65, 129, 200)
-FLASH_EDGE_G = ((8, 8), (16, 4), (16, 2))
+FLASH_EDGE_G = ((8, 8), (16, 4), (16, 2), (24, 2))
+EXTEND_EDGE_G = ((8, 2), (8, 8), (24, 2))
 EXTEND_EDGES = ((8, 12, 37, (5, 21, 60)), (16, 6, 37, (13, 50, 70)),
                 (8, 6, 20, (3, 40, 45)), (16, 4, 20, (0, 31, 60)))
 
@@ -786,7 +853,7 @@ def _attention_edges(gen, dev):
                      ref.flash_attention_ref(*_f32(q, k, v), causal=True))
             n += 1
         for bs, nb, S, p0 in EXTEND_EDGES:
-            for H, KV in ((8, 2), (8, 8)):
+            for H, KV in EXTEND_EDGE_G:
                 q, kp, vp, bt = _paged_inputs(gen, len(p0), nb, bs, KV, hd,
                                               (len(p0), S, H, hd), bf, dev)
                 pos0 = torch.tensor(p0, dtype=torch.int32, device=dev)
@@ -825,8 +892,9 @@ def _attention_edges(gen, dev):
     torch.cuda.synchronize()
     print(f"[kernels] attention edges: {n} checks passed: flash at S "
           f"{FLASH_EDGE_S} x causal / window 64 / bidirectional and G 1, 4, "
-          f"8 at S 129; extend at (bs, nb, S, pos0) {EXTEND_EDGES} x G 4, "
-          f"1; hd 32 and 128; a long-prefix extend (1, 256) at pos0 1792; "
+          f"8, 12 at S 129; extend at (bs, nb, S, pos0) {EXTEND_EDGES} x G "
+          f"4, 1, 12; hd 32 and 128; a long-prefix extend (1, 256) at pos0 "
+          f"1792; "
           f"an extend whose unseen pool rows hold NaN (bs 16, "
           f"8, 12) equal to the plain version with them zeroed")
 
@@ -836,9 +904,10 @@ def _attention_edges(gen, dev):
 # at them: lengths one short of, at and one past a chunk, one past two
 # chunks, the longest row and a short row whose later chunks exit at once;
 # pages (bs, nb) of 8, 16 and 32 rows, of 12 (straddling chunk ends) and
-# of 128 (spanning two chunks); G 1, 4, 8 and 16 (two row groups).
+# of 128 (spanning two chunks); G 1, 4, 8, 12 (one full row group and one
+# half-full) and 16 (two).
 DECODE_EDGE_PAGES = ((8, 40), (16, 20), (32, 10), (12, 27), (128, 3))
-DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (32, 2))
+DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (24, 2), (32, 2))
 
 
 def _edge_lengths(max_keys):
@@ -948,7 +1017,7 @@ def _decode_edges(gen, dev):
     torch.cuda.synchronize()
     print(f"[kernels] decode edges: {n} checks passed, fp32 and bf16: "
           f"lengths {_edge_lengths('max_keys')} over paged (bs, nb) "
-          f"{DECODE_EDGE_PAGES} at G 2 and G 1, 4, 8, 16 (bs 16; dense "
+          f"{DECODE_EDGE_PAGES} at G 2 and G 1, 4, 8, 12, 16 (bs 16; dense "
           f"L 320), hd 32 and 128; a paged length past nb * bs with table "
           f"entries past the pool (read clamped); rows of length 0 (paged "
           f"0, dense the mean of V); caches whose rows past every live key "
@@ -1032,14 +1101,16 @@ def _decode_row(st, lengths, max_len) -> str:
             f"{8 * len(lengths) * n_chunks}")
 
 
-def _dense_main_path(gen, dev, stats, shares, issue):
-    """Flash attention and split-K decode at the dense path's shapes, bf16:
-    a causal prefill of B=3, S=512 and a decode of B=8 over L=2048 at
-    ragged lengths, each on 3 copies of its inputs for cold-L2 timing."""
+def _dense_main_path(gen, dev, heads, stats, shares, issue):
+    """Flash attention and split-K decode at the dense path's shapes, bf16,
+    hd 128, for ``heads`` = (H, KV): a causal prefill of B=3, S=512 and a
+    decode of B=8 over L=2048 at ragged lengths, each on 3 copies of its
+    inputs for cold-L2 timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    H, KV, hd, esz, bf = 16, 8, 128, 2, torch.bfloat16
+    (H, KV), hd, esz, bf = heads, 128, 2, torch.bfloat16
+    at = f" H={H} KV={KV}"
 
     B, S = 3, 512
     fsets = [[_randn(gen, sh, bf, dev) for sh in
@@ -1048,14 +1119,15 @@ def _dense_main_path(gen, dev, stats, shares, issue):
     q, k, v = fsets[0]
     out = ops.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
-    err, share = _compare("flash main-path", out, want)
+    err, share = _compare("flash main-path" + at, out, want)
     keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     shares["flash_attention"] = (share, _check_control(
-        "flash main-path", _rounded_p(q, k, v, keep.expand(B, S, S)), want))
+        "flash main-path" + at, _rounded_p(q, k, v, keep.expand(B, S, S)),
+        want))
     sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
     lib_out = F.scaled_dot_product_attention(
         *sd[0], is_causal=True, enable_gqa=True).transpose(1, 2)
-    _library_close("flash", lib_out, want)
+    _library_close("flash" + at, lib_out, want)
     by = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz   # q, k, v, out
     ops_n = 4 * hd * H * B * S * (S + 1) // 2    # QK^T and PV, causal half
     issue["flash_attention"] = _issue_ms(
@@ -1068,7 +1140,6 @@ def _dense_main_path(gen, dev, stats, shares, issue):
                   for s in fsets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
             *a, is_causal=True, enable_gqa=True) for a in sd]))
-    _flash_long(gen, dev)
 
     B, L = 8, 2048
     lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
@@ -1079,18 +1150,18 @@ def _dense_main_path(gen, dev, stats, shares, issue):
     q, k, v = dsets[0]
     out = ops.decode_attention(q, k, v, lengths)
     want = ref.decode_attention_ref(*_f32(q, k, v), lengths)
-    err, share = _compare("split-K decode main-path", out, want)
+    err, share = _compare("split-K decode main-path" + at, out, want)
     keep = (torch.arange(L, device=dev)[None, :] <
             lengths[:, None].long())[:, None]           # (B, 1, L)
     shares["decode_attention"] = (share, _check_control(
-        "split-K decode main-path", _rounded_p(q[:, None], k, v, keep),
+        "split-K decode main-path" + at, _rounded_p(q[:, None], k, v, keep),
         want))
     sd = [(st[0][:, :, None], st[1].transpose(1, 2).contiguous(),
            st[2].transpose(1, 2).contiguous(), keep[:, None])
           for st in dsets]
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
-    _library_close("split-K decode", lib_out, want)
+    _library_close("split-K decode" + at, lib_out, want)
     n_tok = int(lengths.sum())
     by = (2 * n_tok * KV * hd * esz                 # K and V rows needed
           + 2 * B * H * hd * esz + 4 * B)           # q in, out, lengths
@@ -1439,21 +1510,32 @@ def _forced_plain(plain: bool):
         contextlib.nullcontext()
 
 
-def phase_token_exact():
-    """fp32, two-layer reduced config: on each path the kernels give the
-    plain versions' tokens, and the dense path the paged path's."""
+def _reduced_two_layers(arch):
+    """``arch``'s fp32 reduced config, two layers deep, and its seeded
+    weights on the card."""
+    import torch
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    from repro_torch.models.weights import init_params
+    dev = torch.device("cuda", 0)
+    kind = get_config(arch).groups[0].pattern
+    cfg = reduced(get_config(arch)).replace(
+        n_layers=2, groups=(ScanGroup(kind, 2),))
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+
+
+def _token_exact_paths(arch):
+    """fp32, two-layer reduced ``arch`` on the paged and the dense engine,
+    each through the kernels and forced through the plain versions: the
+    same tokens four ways.  Returns the runner (``run(scfg, plain)`` ->
+    requests, launches, plain calls), the paged tokens and their count."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import ScanGroup, get_config, reduced
     from repro_torch.kernels import ops
-    from repro_torch.models.weights import init_params
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda", 0)
-    cfg = reduced(get_config("internlm2-1.8b")).replace(
-        n_layers=2, groups=(ScanGroup(("A",), 2),))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
+    cfg, params = _reduced_two_layers(arch)
     rng = np.random.RandomState(0)
     common = rng.randint(0, cfg.vocab, 16).astype(np.int32)
     prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
@@ -1478,26 +1560,41 @@ def phase_token_exact():
         check(all(k_launch[k] > 0 for k in keys) and
               sum(k_launch.values()) == sum(k_launch[k] for k in keys) and
               not any(k_plain.values()),
-              f"{label} kernel run: launches {k_launch}, plain {k_plain}")
+              f"{arch} {label} kernel run: launches {k_launch}, plain "
+              f"{k_plain}")
         plain, p_launch, p_plain = run(scfg, plain=True)
         check(all(p_plain[k] > 0 for k in keys) and
               not any(p_launch.values()),
-              f"{label} plain run: launches {p_launch}, plain {p_plain}")
+              f"{arch} {label} plain run: launches {p_launch}, plain "
+              f"{p_plain}")
         for i, (a, b) in enumerate(zip(kern, plain)):
             check(a.out_tokens == b.out_tokens and
                   a.finish_reason == b.finish_reason,
-                  f"{label} request {i}: kernel {a.out_tokens} "
+                  f"{arch} {label} request {i}: kernel {a.out_tokens} "
                   f"({a.finish_reason}) != plain {b.out_tokens} "
                   f"({b.finish_reason})")
         tokens[label] = [(r.out_tokens, r.finish_reason) for r in kern]
         used[label] = {k: k_launch[k] for k in keys}
     check(tokens["dense"] == tokens["paged"],
-          f"dense tokens {tokens['dense']} != paged {tokens['paged']}")
+          f"{arch}: dense tokens {tokens['dense']} != paged "
+          f"{tokens['paged']}")
     n_tok = sum(len(t) for t, _ in tokens["dense"])
-    print(f"[token-exact] fp32 2-layer reduced: {len(prompts)} requests, "
-          f"{n_tok} tokens identical through the kernels and the plain "
-          f"versions on the paged path ({used['paged']}) and the dense path "
-          f"({used['dense']}), and between the two paths")
+    print(f"[token-exact] {arch} fp32 2-layer reduced (H {cfg.n_heads}, KV "
+          f"{cfg.n_kv_heads}, {cfg.norm}, {cfg.mlp}): {len(prompts)} "
+          f"requests, {n_tok} tokens identical through the kernels and the "
+          f"plain versions on the paged path ({used['paged']}) and the dense "
+          f"path ({used['dense']}), and between the two paths")
+    return run, tokens["paged"], n_tok
+
+
+def phase_token_exact():
+    """fp32, two-layer reduced configs: on each path the kernels give the
+    plain versions' tokens, and the dense path the paged path's; for
+    internlm2-1.8b also the speculative paged engine, for falcon-mamba-7b
+    the scan."""
+    from repro_torch.serving import ServeConfig
+    run, paged_tokens, n_tok = _token_exact_paths("internlm2-1.8b")
+    _token_exact_paths("starcoder2-3b")
     # speculative decode: every verify window runs the paged extend, and
     # greedy tokens are the non-speculative ones on either route
     spec = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
@@ -1511,8 +1608,8 @@ def phase_token_exact():
               not any(unused.values()),
               f"speculative {label} run: launches {launch}, plain {calls}")
         got = [(r.out_tokens, r.finish_reason) for r in reqs]
-        check(got == tokens["paged"],
-              f"speculative {label} tokens {got} != paged {tokens['paged']}")
+        check(got == paged_tokens,
+              f"speculative {label} tokens {got} != paged {paged_tokens}")
         if not plain:
             n_ext = launch["paged_extend_attention"]
     print(f"[token-exact] fp32 2-layer reduced, paged speculative (d=3): "
@@ -1529,15 +1626,10 @@ def _token_exact_mamba():
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import ScanGroup, get_config, reduced
     from repro_torch.kernels import ops
-    from repro_torch.models.weights import init_params
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda", 0)
-    cfg = reduced(get_config("falcon-mamba-7b")).replace(
-        n_layers=2, groups=(ScanGroup(("S",), 2),))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
+    cfg, params = _reduced_two_layers("falcon-mamba-7b")
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
                for n in (130, 5, 100, 9, 7, 7)]
@@ -1572,10 +1664,13 @@ def _token_exact_mamba():
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
-    the dense path; returns each kernel's launches in its path's run, and
-    the paged run's tokens."""
+    the dense path, then starcoder2-3b the same two ways (G 12); returns
+    each kernel's launches in internlm2's run of its path, and the paged
+    run's tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
+    for paged in (True, False):
+        _serve_path(paged, "starcoder2-3b")
     launches.update(_serve_mamba())
     return launches, paged_tokens
 
@@ -1597,30 +1692,40 @@ def _serve_prompts(vocab):
     return tok, warm, prompts
 
 
-def _serve_path(paged: bool):
+def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
+    """``arch`` at full width (bf16, seeded weights) through the paged or
+    the dense engine at phase 4's settings: the requests, the path's
+    launch counts read right after them (> 0, no other kernel, no plain
+    call), then one profiled decode sync; returns (launches, tokens)."""
     import gc
 
     import torch
     from repro_torch import kernels
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
     dev = torch.device("cuda", 0)
     label = "paged" if paged else "dense"
+    if arch != "internlm2-1.8b":
+        label = f"{arch} {label}"
     keys = PAGED_KERNELS if paged else DENSE_KERNELS
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = build_engine("internlm2-1.8b", max_len=2048, slots=8,
-                       sync_every=8, paged=paged, block_size=16, seed=0,
-                       device=dev)
+    eng = build_engine(arch, max_len=2048, slots=8, sync_every=8,
+                       paged=paged, block_size=16, seed=0, device=dev)
     torch.cuda.synchronize()
     cfg = eng.cfg
-    check(cfg.n_layers == 24 and cfg.d_model == 2048 and
-          eng.params["lm_head"].dtype == torch.bfloat16 and
-          eng.paged == paged, "not the full-width bf16 config")
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    check(cfg == get_config(arch) and
+          eng.params["embedding"]["table"].dtype == torch.bfloat16 and
+          eng.paged == paged, f"{arch}: not the full-width bf16 config")
     kv = (f"pool {eng.alloc.num_blocks} blocks x 16" if paged else
           "dense caches 8 x 2048")
-    print(f"[serve {label}] built internlm2-1.8b (24 layers, d_model 2048, "
-          f"bf16, {kv}) in {time.perf_counter() - t0:.1f}s; device memory "
+    print(f"[serve {label}] built {arch} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+          f"heads, d_ff {cfg.d_ff}, {cfg.norm}, {cfg.mlp}, "
+          f"{n_params / 1e9:.3f} B parameters, bf16, {kv}) in "
+          f"{time.perf_counter() - t0:.1f}s; device memory "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     tok, warm, prompts = _serve_prompts(cfg.vocab)
     # warm-up request (cuBLAS handles, allocator), then the measured run
@@ -1643,17 +1748,18 @@ def _serve_path(paged: bool):
     check(all(launches[k] > 0 for k in keys) and
           sum(launches.values()) == sum(launches[k] for k in keys),
           f"{label}: kernels not launched, or another path's: {launches}")
-    check(not any(plain.values()), f"plain versions ran: {plain}")
+    check(not any(plain.values()), f"{label}: plain versions ran: {plain}")
     if paged:
         check(hits >= 16, f"prefix cache hit {hits} blocks, expected >= 16")
         check(eng.alloc.free_blocks + eng.alloc.cached_blocks ==
               eng.alloc.num_blocks, "blocks leaked")
     gen = sum(r.decoded for r in reqs)
     ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
-    print(f"[serve {label}] internlm2-1.8b {len(reqs)} requests "
+    print(f"[serve {label}] {arch} {len(reqs)} requests "
           f"({sum(len(p) for p in prompts)} prompt tokens) max_new={max_new}"
           f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
-          f"ttft_max={ttft[-1]:.3f}s prefix_hit_blocks={hits} "
+          f"ttft_p50={ttft[len(ttft) // 2]:.3f}s ttft_max={ttft[-1]:.3f}s "
+          f"prefix_hit_blocks={hits} "
           f"launches={launches} plain_calls={plain} "
           f"prefill_batches={eng.metrics.counter('engine.prefill_batches').value}"
           f" peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
@@ -1663,6 +1769,15 @@ def _serve_path(paged: bool):
     gc.collect()
     torch.cuda.empty_cache()
     return {k: launches[k] for k in keys}, tokens
+
+
+def _leaves(tree):
+    """The tensors of a nested parameter tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def _serve_mamba():
@@ -1819,7 +1934,8 @@ def _device_time(prof, label):
     rows = sorted(((us, n, k) for k, (us, n) in by_name.items()),
                   reverse=True)
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text("\n".join(
+    name = label.replace(" ", "_")
+    (OUT_DIR / f"chip_smoke_profile_{name}.txt").write_text("\n".join(
         f"{us / 1e3:10.3f} ms {n:6d}x  {key}" for us, n, key in rows))
     top = "; ".join(f"{key[:40]} {us / 1e3:.2f}ms/{n}x"
                     for us, n, key in rows[:5])
@@ -2707,6 +2823,288 @@ def _lifecycle_cluster(base, prompts):
           f"{migrated:.0f} sessions migrated, the survivor adopted "
           f"{imported} blocks and served the {len(moved)} continuations")
     del engines, workers, router
+
+
+# ----------------------------------------------------------------------
+#: phase 8's burst: phase 6's prompts (16-512 tokens) cycled into 96
+#: requests of 32 new tokens, one every 0.125 s (8 a second for 12 s).
+#: One process replica of internlm2-1.8b serves 160-194 tok/s, ~6 such
+#: requests a second (PERF.md, section 5), and a new replica is ready in
+#: ~6.3 s, so the burst outlasts a spawn and the scaled-up pool serves
+#: its second half.
+BURST_REQUESTS = 96
+BURST_GAP_S = 0.125
+#: the scaler: up when a replica's outstanding cost passes its 8 slots x
+#: 32 tokens (requests queue behind full slots), down after 4 idle ticks
+#: (1 s), at most one action every 2 s, 1-3 replicas
+SCALER = dict(min_replicas=1, max_replicas=3, scale_up_depth=256.0,
+              scale_down_depth=1.0, cooldown_s=2.0, idle_ticks_to_drain=4)
+SCALER_TICK_S = 0.25
+#: the sampler's period in the serve driver's default (--stats-period)
+STATS_PERIOD_S = 0.25
+
+
+def phase_telemetry():
+    """The port's telemetry over full-width internlm2-1.8b behind the
+    Router: an autoscaled burst on process replicas with the sampler, the
+    SLO engine and the stats server on; the sampler's overhead on one
+    engine; the serve driver's ``--stats-dump`` in a process of its own."""
+    t0 = time.perf_counter()
+    _telemetry_burst()
+    _telemetry_overhead()
+    _telemetry_driver()
+    print(f"[telemetry] phase 8 wall {time.perf_counter() - t0:.1f}s")
+
+
+def _fetch_routes(server):
+    """The four stats routes over HTTP, each parsed (Prometheus text into
+    name -> value); the bodies go to ``OUT_DIR``."""
+    import urllib.request
+    got = {}
+    for route, ext in (("/metrics", "txt"), ("/timeseries.json", "json"),
+                       ("/slo.json", "json"), ("/dash", "html")):
+        with urllib.request.urlopen(server.url + route, timeout=30) as resp:
+            check(resp.status == 200, f"{route}: HTTP {resp.status}")
+            body = resp.read().decode()
+        (OUT_DIR / f"chip_smoke_stats{route.split('.')[0].replace('/', '_')}"
+                   f".{ext}").write_text(body)
+        got[route] = body
+    prom = {}
+    for ln in got["/metrics"].splitlines():
+        if ln and not ln.startswith("#"):
+            name, value = ln.split()
+            prom[name] = float(value)
+    check(got["/dash"].startswith("<!DOCTYPE html>"), "/dash: not a page")
+    return (prom, json.loads(got["/timeseries.json"]),
+            json.loads(got["/slo.json"]))
+
+
+def _telemetry_burst():
+    """One process replica of full-width internlm2-1.8b (dense, the serve
+    driver's default) behind a least-loaded Router, the serve driver's
+    stats stack on its cluster snapshot (sampler, SLO engine wired into
+    ``router.slo``, stats server on port 0) and an ``Autoscaler`` (1-3
+    replicas, its factory an ``engine_spec``) ticked every 0.25 s, each
+    tick timed (a scale-up's tick spans the spawn).  The burst: every
+    request completes exactly once with its tokens; at least one scale-up
+    while it lasts, then a scale-down once the pool is idle; tok/s before
+    and after the first new replica is ready; all four routes parse, and
+    ``/metrics`` carries the kernel launches the workers shipped."""
+    import threading
+
+    from repro_torch.cluster import (Autoscaler, AutoscalerConfig,
+                                     MetricsRegistry, ReplicaConfig, Router,
+                                     SLOEngine, SLOObjective, StatsServer,
+                                     Status, TelemetrySampler,
+                                     TimeSeriesStore, engine_spec)
+    from repro_torch.cluster.replica import ClusterRequest
+    from repro_torch.configs import get_config
+    m = MetricsRegistry()
+    router = Router(policy="least_loaded", metrics=m)
+    # an inbox that holds the whole burst: a slow spawn makes requests
+    # wait, never sheds them
+    rcfg = ReplicaConfig(max_batch=8, inbox_capacity=BURST_REQUESTS)
+    spec = engine_spec(device="cuda", paged=False, **CLUSTER_LM)
+    store = TimeSeriesStore()
+    slo = SLOEngine([SLOObjective(kind="any")], m)
+    router.slo = slo
+    sampler = TelemetrySampler(router.cluster_snapshot, store, registry=m,
+                               slo=slo, period_s=STATS_PERIOD_S)
+    scaler = Autoscaler(router, lambda: spec, AutoscalerConfig(
+        replica_cfg=rcfg, **SCALER), metrics=m, transport="process")
+    server = None
+    stop = threading.Event()
+    ticks = []                          # (event, seconds the tick took)
+
+    def scale_loop():
+        while not stop.wait(SCALER_TICK_S):
+            t = time.perf_counter()
+            ev = scaler.tick()
+            if ev is not None:
+                ticks.append((ev, time.perf_counter() - t, time.monotonic()))
+
+    loop = threading.Thread(target=scale_loop, name="smoke-scaler",
+                            daemon=True)
+    prompts = _lm_prompts(get_config("internlm2-1.8b").vocab)
+    counts, frames, lock = {}, [], threading.Lock()
+    orig = ClusterRequest.complete
+
+    def counting(req, result, replica_rid):
+        with lock:
+            counts[id(req)] = counts.get(id(req), 0) + 1
+        return orig(req, result, replica_rid)
+
+    def on_partial(frame):
+        if isinstance(frame, tuple) and frame and isinstance(frame[0], list):
+            with lock:
+                frames.append((time.monotonic(), len(frame[0])))
+
+    try:
+        t_spawn = time.perf_counter()
+        router.add_replica(spec=spec, cfg=rcfg, transport="process")
+        first_s = time.perf_counter() - t_spawn
+        warm = router.submit((prompts[0][:40], 8), timeout_s=120.0)
+        check(router.wait(warm, 180.0) is not None and
+              warm.status is Status.OK, "telemetry: warm-up failed")
+        sampler.start()
+        server = StatsServer(router.cluster_snapshot, store, slo=slo,
+                             port=0).start()
+        loop.start()
+        reqs = []
+        t_burst = time.monotonic()
+        with mock.patch.object(ClusterRequest, "complete", counting):
+            for i in range(BURST_REQUESTS):
+                reqs.append(router.submit(
+                    (prompts[i % len(prompts)], CLUSTER_NEW - 1),
+                    cost=CLUSTER_NEW, timeout_s=600.0,
+                    on_partial=on_partial))
+                time.sleep(BURST_GAP_S)
+            t_arrived = time.monotonic()
+            outs = [router.wait(q, 600.0) for q in reqs]
+        t_done = time.monotonic()
+        check(all(q.status is Status.OK and isinstance(o, list) and
+                  len(o) == CLUSTER_NEW and counts.get(id(q)) == 1
+                  for q, o in zip(reqs, outs)),
+              f"telemetry burst: statuses {[q.status for q in reqs]}, "
+              f"completions {[counts.get(id(q)) for q in reqs]}")
+        ups = [(ev, s, t) for ev, s, t in ticks if ev.action == "up"]
+        check(any(t < t_done for _, _, t in ups),
+              f"telemetry: no replica was added while the burst lasted: "
+              f"{[(e.action, e.n_replicas, e.reason) for e, _, _ in ticks]}")
+        deadline = time.monotonic() + 90.0
+        while router.n_alive() > SCALER["min_replicas"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.25)
+        check(any(ev.action == "down" for ev, _, _ in ticks) and
+              router.n_alive() == SCALER["min_replicas"],
+              f"telemetry: the idle pool was not drained: "
+              f"{[(ev.action, ev.n_replicas) for ev, _, _ in ticks]}")
+        stop.set()
+        loop.join(60.0)
+        check(not loop.is_alive(), "telemetry: the scaler loop hangs")
+        sampler.tick()
+        prom, ts, slo_doc = _fetch_routes(server)
+    finally:
+        stop.set()
+        sampler.stop()
+        if server is not None:
+            server.stop()
+        router.stop()
+    launched = {k: prom.get(f"repro_kernels_launches_{k}", 0.0)
+                for k in DENSE_KERNELS}
+    check(all(v > 0 for v in launched.values()),
+          f"/metrics: kernel launches {launched}")
+    used, _ = _worker_launches(router, DENSE_KERNELS)
+    ready = ups[0][2]
+
+    def tok_s(a, b):
+        n = sum(k for t, k in frames if a <= t < b)
+        return n / (b - a) if b > a else float("nan")
+
+    served = {}
+    for q in reqs:
+        served[q.replica_rid] = served.get(q.replica_rid, 0) + 1
+    events = "; ".join(
+        f"{ev.action} to {ev.n_replicas} at +{ev.t - t_burst:.2f}s "
+        f"({ev.reason}; the tick took {s:.2f}s)" for ev, s, _ in ticks)
+    alerts = {sub: (a["state"], a["fired_count"])
+              for o in slo_doc["objectives"] for sub, a in o["alerts"].items()}
+    print(f"[telemetry burst] internlm2-1.8b full width, dense, process "
+          f"replicas behind a least-loaded Router; the first ready in "
+          f"{first_s:.1f}s; {len(reqs)} requests of "
+          f"{min(CLUSTER_PROMPTS)}-{max(CLUSTER_PROMPTS)} prompt tokens, "
+          f"{CLUSTER_NEW} new tokens each, one every {BURST_GAP_S}s "
+          f"(arrivals over {t_arrived - t_burst:.2f}s, done at "
+          f"+{t_done - t_burst:.2f}s): all OK, each completed exactly once; "
+          f"served by replica {served}; scale events: {events}")
+    print(f"[telemetry burst] tok/s from the token frames: "
+          f"{tok_s(t_burst, ready):.1f} before the first new replica was "
+          f"ready (+{ready - t_burst:.2f}s), {tok_s(ready, t_done):.1f} "
+          f"after it, {tok_s(t_burst, t_done):.1f} over the burst; worker "
+          f"launches {used}")
+    print(f"[telemetry routes] /metrics {len(prom)} samples, kernel "
+          f"launches {launched}; /timeseries.json {ts['n_keys']} keys, "
+          f"{ts['n_points']}/{ts['max_points']} points, arrival EWMA "
+          f"{ts['gauges'].get('timeseries.arrival_rate_hz', {}).get('ewma')}"
+          f"; /slo.json {slo_doc['ticks']} ticks, alerts {alerts}, pressure "
+          f"{slo_doc['pressure']:.3f}; /dash parsed; sampler ticks "
+          f"{sampler.ticks}; bodies in {OUT_DIR.name}/")
+
+
+def _telemetry_overhead():
+    """The sampler's cost: one full-width internlm2-1.8b dense engine in
+    this process serves phase 6's 16 requests four times, with the serve
+    driver's stats stack (``--stats-period 0.25``, the sampler over the
+    engine's registry, the SLO engine) off, on, on, off; tok/s of each."""
+    import argparse
+    import gc
+
+    import torch
+    from repro_torch.cluster import MetricsRegistry
+    from repro_torch.cluster.backends import make_engine
+    from repro_torch.launch import serve
+    dev = torch.device("cuda", 0)
+    metrics = MetricsRegistry()
+    eng = make_engine(device=dev, paged=False, metrics=metrics, **CLUSTER_LM)
+    prompts = _lm_prompts(eng.cfg.vocab)
+    _drain(eng, [prompts[0][:40]], 8)
+    args = argparse.Namespace(stats_period=STATS_PERIOD_S, stats_port=None,
+                              stats_dump=None, stats_host="127.0.0.1",
+                              watch=False)
+    runs = []
+    for on in (False, True, True, False):
+        finalize = serve._start_telemetry(args, metrics.snapshot, metrics) \
+            if on else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = _drain(eng, prompts, CLUSTER_NEW - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if finalize is not None:
+            finalize()
+        check(all(len(r.out_tokens) == CLUSTER_NEW for r in reqs),
+              "telemetry overhead: short requests")
+        runs.append((on, sum(r.decoded for r in reqs) / wall))
+    off = [r for on, r in runs if not on]
+    on_ = [r for on, r in runs if on]
+    print(f"[telemetry overhead] one dense engine, {len(prompts)} requests x "
+          f"{CLUSTER_NEW} tokens, the stats stack off/on/on/off: tok/s "
+          + ", ".join(f"{'on' if on else 'off'} {r:.1f}" for on, r in runs)
+          + f"; mean on / mean off = {sum(on_) / sum(off):.4f}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _telemetry_driver():
+    """``python -m repro_torch.launch.serve --stats-dump PREFIX`` at its
+    defaults (full-width internlm2-1.8b on the card) in a process of its
+    own: it prints its ``[stats]`` and ``[serve]`` lines and the four
+    files parse."""
+    import os
+    OUT_DIR.mkdir(exist_ok=True)
+    prefix = OUT_DIR / "chip_smoke_serve_stats"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "8",
+         "--stats-dump", str(prefix)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and lines and lines[-1].startswith("[serve]")
+          and any(ln.startswith("[stats] dumped 4 routes") for ln in lines),
+          f"serve --stats-dump: rc {out.returncode}, stdout {out.stdout!r}, "
+          f"stderr {out.stderr[-2000:]!r}")
+    for name in ("timeseries", "slo"):
+        json.loads(Path(f"{prefix}.{name}.json").read_text())
+    metrics = Path(f"{prefix}.metrics.txt").read_text()
+    check("repro_engine_tokens" in metrics and
+          Path(f"{prefix}.dash.html").read_text().startswith("<!DOCTYPE"),
+          "serve --stats-dump: the dumped routes")
+    print(f"[telemetry driver] python -m repro_torch.launch.serve "
+          f"--requests 8 --stats-dump: {lines[-1]} (process wall "
+          f"{wall:.1f}s); 4 routes dumped and parsed")
 
 
 # ----------------------------------------------------------------------

@@ -16,8 +16,11 @@ objects (``replica.StreamBackend``) or rebuilt from a serializable
 ``backends.BackendSpec`` inside worker processes.  Nothing here imports
 torch at module import: a worker of a pure-Python backend never loads it.
 
-The JAX package's telemetry modules (autoscaler, time series, SLO engine,
-dashboard) are not ported yet (ROADMAP.md, Queue 1, item 12).
+Telemetry rides on ``Router.cluster_snapshot()``: a ``TelemetrySampler``
+samples it into a ``TimeSeriesStore``, an ``SLOEngine`` turns windowed
+burn rates into alerts (and into brownout pressure through
+``Router.slo``), a ``StatsServer`` serves them over HTTP, and an
+``Autoscaler`` adds and drains replicas under queue pressure.
 """
 from repro_torch.cluster.admission import (AdmissionConfig,  # noqa: F401
                                            AdmissionController, Rejected,
@@ -25,9 +28,13 @@ from repro_torch.cluster.admission import (AdmissionConfig,  # noqa: F401
 from repro_torch.cluster.artifacts import (ArtifactStore,  # noqa: F401
                                            artifact_ref, fetch_with_retry,
                                            resolve_spec, spec_fingerprint)
+from repro_torch.cluster.autoscaler import (Autoscaler,  # noqa: F401
+                                            AutoscalerConfig, ScaleEvent)
 from repro_torch.cluster.backends import (BackendSpec,  # noqa: F401
                                           echo_spec, engine_spec,
                                           stream_spec)
+from repro_torch.cluster.dashboard import (StatsServer,  # noqa: F401
+                                           render_dash, render_watch)
 from repro_torch.cluster.metrics import (Counter, Gauge,  # noqa: F401
                                          Histogram, MetricsRegistry,
                                          merge_snapshots)
@@ -41,6 +48,12 @@ from repro_torch.cluster.replica import (ClusterRequest,  # noqa: F401
                                          Status, StreamBackend, Terminal,
                                          WaitTimeout)
 from repro_torch.cluster.router import POLICIES, Router  # noqa: F401
+from repro_torch.cluster.slo import (BurnWindow, SLOEngine,  # noqa: F401
+                                     SLOObjective, test_scaled_objective)
+from repro_torch.cluster.timeseries import (EwmaRate,  # noqa: F401
+                                            StageAttributor,
+                                            TelemetrySampler,
+                                            TimeSeriesStore)
 from repro_torch.cluster.tracing import (FlightRecorder, Span,  # noqa: F401
                                          TraceContext, Tracer,
                                          current_recorder, current_tracer,

@@ -1,5 +1,5 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``,
-``get_config("falcon-mamba-7b")``.
+``get_config("falcon-mamba-7b")``, ``get_config("starcoder2-3b")``.
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -12,6 +12,7 @@ from repro_torch.configs.base import ArchConfig, ScanGroup, reduced  # noqa: F40
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "starcoder2-3b": "starcoder2_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

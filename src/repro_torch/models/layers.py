@@ -21,6 +21,17 @@ def rms_norm(x, weight, eps: float = 1e-6, plus_one: bool = False):
     return (x * w).to(dt)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """fp32 statistics with the population variance, weight and bias in
+    fp32, the result cast back to ``x``'s dtype (``layers.py:42-48``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def rope_freqs(head_dim: int, base: float, device=None):
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
@@ -41,14 +52,18 @@ def apply_rope(x, positions, base: float):
 
 
 def apply_mlp(params, x, cfg):
-    """SwiGLU MLP (``layers.py:91-99``); the other MLP kinds come with the
-    families that use them."""
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"mlp={cfg.mlp!r} is not in the port yet: ROADMAP.md, Queue 1, "
-            f"item 6 (the other LM families)")
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    """The SwiGLU MLP, or the plain two-layer MLP with biases and the tanh
+    GELU (``jax.nn.gelu(approximate=True)``) (``layers.py:91-104``); the
+    other MLP kinds come with the families that use them."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        return h @ params["w_down"]
+    if cfg.mlp == "gelu_mlp":
+        h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+        return h @ params["w_down"] + params["b_down"]
+    raise NotImplementedError(
+        f"mlp={cfg.mlp!r} is not in the port yet: ROADMAP.md, Queue 1, "
+        f"item 6 (the other LM families)")
 
 
 def embed(params, tokens, cfg):

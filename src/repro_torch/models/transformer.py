@@ -22,13 +22,16 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.layers import (apply_mlp, embed, mask_padded_logits,
-                                       rms_norm, unembed)
+from repro_torch.models.layers import (apply_mlp, embed, layer_norm,
+                                       mask_padded_logits, rms_norm, unembed)
 
 _NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item {}"
 
 
 def apply_norm(p, x, cfg):
+    """RMSNorm, or LayerNorm with its bias (``transformer.py:43-46``)."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm={cfg.norm!r} " +
                                   _NOT_PORTED.format("6 (the other LM "

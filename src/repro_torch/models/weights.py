@@ -10,7 +10,9 @@ init_params``), with torch tensors at the leaves::
                   "ln2": {"w"}, "ffn": {"w_gate", "w_up", "w_down"}}]],
      "lm_head": (d, padded_vocab)}
 
-A kind-``S`` (Mamba-1) layer is ``{"ln1": {"w"}, "mixer": {"in_proj",
+A LayerNorm config adds a bias ``"b"`` beside each norm's ``"w"``, and
+the plain GELU MLP is ``{"w_up", "b_up", "w_down", "b_down"}``
+(``layers.py:83-88``, ``transformer.py:36-40``).  A kind-``S`` (Mamba-1) layer is ``{"ln1": {"w"}, "mixer": {"in_proj",
 "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
 "out_proj"}}`` (``ssm.py:21-36``).  Layer leaves are stacked ``(repeats,
 ...)``.  Flat keys are the tree paths ``checkpointer.py:25-31`` writes:
@@ -41,35 +43,56 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
     d, H, KV, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     norm_init = "zeros" if cfg.rms_plus_one else "ones"
-    specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding")),
-             "final_norm/w": (0, ((d,), norm_init))}
+    specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding"))}
+    specs.update(_norm_specs(cfg, "final_norm", 0, norm_init))
     for gi, g in enumerate(cfg.groups):
         for pi, kind in enumerate(g.pattern):
             pre, R = f"groups/{gi}/{pi}", g.repeats
             if kind == "S" and cfg.norm == "rmsnorm":
                 specs.update(_ssm_specs(cfg, pre, R, norm_init))
                 continue
-            if kind != "A" or cfg.qk_norm or cfg.mlp != "swiglu" or \
-                    cfg.norm != "rmsnorm":
+            if kind != "A" or cfg.qk_norm or \
+                    cfg.mlp not in ("swiglu", "gelu_mlp") or \
+                    cfg.norm not in ("rmsnorm", "layernorm"):
                 raise NotImplementedError(
-                    f"{cfg.name}: only plain kind-A layers (rmsnorm, "
-                    f"swiglu, no qk-norm) and kind-S layers are in the "
-                    f"port yet: ROADMAP.md, Queue 1, item 6 (the other LM "
-                    f"families)")
+                    f"{cfg.name}: only plain kind-A layers (rmsnorm or "
+                    f"layernorm, swiglu or gelu_mlp, no qk-norm) and kind-S "
+                    f"layers are in the port yet: ROADMAP.md, Queue 1, item "
+                    f"6 (the other LM families)")
+            specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
             specs.update({
-                f"{pre}/ln1/w": (R, ((d,), norm_init)),
                 f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
                 f"{pre}/mixer/wk": (R, ((d, KV * hd), "normal")),
                 f"{pre}/mixer/wv": (R, ((d, KV * hd), "normal")),
                 f"{pre}/mixer/wo": (R, ((H * hd, d), "normal")),
-                f"{pre}/ln2/w": (R, ((d,), norm_init)),
-                f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
-                f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
-                f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
             })
+            specs.update(_norm_specs(cfg, f"{pre}/ln2", R, norm_init))
+            if cfg.mlp == "swiglu":
+                specs.update({
+                    f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
+                    f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
+                    f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
+                })
+            else:
+                specs.update({
+                    f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
+                    f"{pre}/ffn/b_up": (R, ((f,), "zeros")),
+                    f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
+                    f"{pre}/ffn/b_down": (R, ((d,), "zeros")),
+                })
     if not cfg.tie_embeddings:
         specs["lm_head"] = (0, ((d, cfg.padded_vocab), "normal"))
     return specs
+
+
+def _norm_specs(cfg, pre: str, R: int, norm_init: str):
+    """A norm's weight, and for LayerNorm its bias (ones and zeros, as
+    ``transformer.init_norm`` draws them)."""
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {f"{pre}/w": (R, ((d,), "ones")),
+                f"{pre}/b": (R, ((d,), "zeros"))}
+    return {f"{pre}/w": (R, ((d,), norm_init))}
 
 
 def _ssm_specs(cfg, pre: str, R: int, norm_init: str):

@@ -74,9 +74,11 @@ def test_flash_row_and_key_tile_edges(S, causal, window):
     _flash_case(S, 8, 2, 32, causal, window, seed=S)
 
 
-@pytest.mark.parametrize("H,KV", [(8, 8), (16, 4), (16, 2)])
+@pytest.mark.parametrize("H,KV", [(8, 8), (16, 4), (16, 2), (24, 2)])
 def test_flash_group_sizes(H, KV):
-    """G = 1, 4 and 8 query heads per kv head share a tile's rows."""
+    """G = 1, 4, 8 and 12 (starcoder2-3b's, where a tile's 64 rows end
+    inside a query position) query heads per kv head share a tile's
+    rows."""
     _flash_case(129, H, KV, 16, True, 0, seed=H * KV)
 
 
@@ -89,7 +91,7 @@ _EXTEND = [(8, 12, 37, [5, 21, 60]),
 
 
 @pytest.mark.parametrize("bs,nb,S,pos0", _EXTEND)
-@pytest.mark.parametrize("H,KV", [(8, 2), (8, 8)])
+@pytest.mark.parametrize("H,KV", [(8, 2), (8, 8), (24, 2)])
 def test_extend_page_and_table_edges(bs, nb, S, pos0, H, KV):
     B, hd = len(pos0), 32
     rng = np.random.RandomState(bs * nb + S)

@@ -77,9 +77,11 @@ def test_paged_decode_chunk_and_page_edges(bs, nb):
     _paged_case(bs, nb, 4, 2, _lengths(nb * bs), seed=bs)
 
 
-@pytest.mark.parametrize("H,KV", [(2, 2), (8, 2), (16, 2), (32, 2)])
+@pytest.mark.parametrize("H,KV", [(2, 2), (8, 2), (16, 2), (24, 2),
+                                  (32, 2)])
 def test_paged_decode_group_sizes(H, KV):
-    """G = 1, 4 and 8 heads in one row group, and G = 16 in two."""
+    """G = 1, 4 and 8 heads in one row group, G = 12 in one full and one
+    half-full, and G = 16 in two."""
     _paged_case(16, 20, H, KV, _lengths(320), seed=H)
 
 
@@ -95,10 +97,11 @@ def test_paged_decode_clamps_lengths_and_table_entries():
                 table=past_the_pool)                    # 144: two chunks
 
 
-@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2), (16, 2), (32, 2)])
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2), (16, 2), (24, 2),
+                                  (32, 2)])
 def test_dense_decode_chunk_edges(H, KV):
     """The dense decode at lengths around one and two chunks and at L,
-    G 1, 2, 8 and 16, against the oracle and the Pallas kernel."""
+    G 1, 2, 8, 12 and 16, against the oracle and the Pallas kernel."""
     rng = np.random.RandomState(H)
     L, hd = 320, 16
     lengths = np.asarray(_lengths(L), np.int32)

@@ -46,7 +46,11 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.cluster.artifacts",
             "repro_torch.cluster.transport",
             "repro_torch.cluster.worker_main",
-            "repro_torch.cluster.router"} <= set(names)
+            "repro_torch.cluster.router",
+            "repro_torch.cluster.timeseries", "repro_torch.cluster.slo",
+            "repro_torch.cluster.dashboard",
+            "repro_torch.cluster.autoscaler",
+            "repro_torch.configs.starcoder2_3b"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
