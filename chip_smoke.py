@@ -12,10 +12,11 @@ and process replicas of the engines and of the stream), and the paged
 engine's KV lifecycle (speculative decode verified by the paged extend
 kernel, copy-on-write forks, KV swap, export/import, brownout and a
 migrating drain behind the Router), starcoder2-3b (LayerNorm, a GELU MLP,
-24 query heads over 2 kv heads: G 12) on both attention paths, and the
-telemetry (time series, SLO engine, stats server, autoscaler) over
-process replicas, and holds every kernel against its plain PyTorch
-version.  One line per phase:
+24 query heads over 2 kv heads: G 12), internvl2-1b's decoder (G 7, hd 64)
+and the MoE family (qwen3-moe-30b-a3b: 128 experts top-8, qk-norm, G 8)
+on both attention paths, and the telemetry (time series, SLO engine,
+stats server, autoscaler) over process replicas, and holds every kernel
+against its plain PyTorch version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -59,8 +60,9 @@ version.  One line per phase:
    block-aligned and one window past a 512-key table), with the bf16
    rule and its control, kernel, plain and SDPA times and the bound; then
    the four attention kernels again at the main paths' shapes and lengths
-   with starcoder2-3b's heads (H 24, KV 2, G 12), each with the bf16 rule,
-   its control, its times, bound and SDPA's time;
+   with starcoder2-3b's heads (H 24, KV 2, G 12), qwen3-moe-30b-a3b's (H
+   32, KV 4, G 8) and internvl2-1b's (H 14, KV 2, G 7, hd 64), each with
+   the bf16 rule, its control, its times, bound and SDPA's time;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -69,23 +71,40 @@ version.  One line per phase:
    the two-layer fp32 reduced falcon-mamba-7b through the dense engine,
    through the kernel and forced through the plain version, with prompts
    of 130 and 100 tokens among them: both give the same tokens; and the
-   two-layer fp32 reduced starcoder2-3b, paged and dense, kernel and
-   plain, four times the same tokens;
+   two-layer fp32 reduced starcoder2-3b and internvl2-1b, paged and dense,
+   kernel and plain, four times the same tokens; and the two-layer fp32
+   reduced qwen3-moe-30b-a3b (8 experts, top-2), paged and dense, kernel
+   and plain, the same tokens on each path (paged against dense is not a
+   gate for MoE: a prefix hit's admit extends only the suffix, which
+   changes the experts' capacity), every admit batch-1, then with
+   ``speculative=True``: it falls back (``spec_fallback`` 1) and gives the
+   paged tokens; and one MoE FFN call under CUDA's sync debug mode
+   ``error`` (nothing reads back to the host);
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
    then dense; each path's kernel launch counts, read right after its own
-   run, must be > 0 with no plain calls; then one profiled decode sync of
-   each.  Then starcoder2-3b the same two ways at full width (30 layers,
-   d_model 3072, 24 heads over 2, d_ff 12288, LayerNorm, GELU MLP, tied,
-   bf16, seeded random weights, 3.0 B parameters), its launch counts and
-   a profiled decode sync on each path.  Then, with those engines freed,
-   falcon-mamba-7b (64 layers,
+   run, must be one a layer per admit batch (extend, flash) and per
+   decode step (paged, split-K decode), with no plain calls; then one
+   profiled decode sync of each.  Then starcoder2-3b the same two ways at
+   full width (30 layers, d_model 3072, 24 heads over 2, d_ff 12288,
+   LayerNorm, GELU MLP, tied, bf16, seeded random weights, 3.0 B
+   parameters) and internvl2-1b's decoder (24 layers, d_model 896, 14
+   heads over 2, hd 64, tied, vocab 151,655 padded to 151,680), their
+   launch counts and a profiled decode sync on each path.  Then, with
+   those engines freed, falcon-mamba-7b (64 layers,
    d_model 4096, d_inner 8192, bf16, seeded random weights), 8 slots,
    max_len 2048, K=8, 8 requests (4 x 512, 1000, 2 x 256, 100 tokens,
    same lengths adjacent), max_new 32: ``ssm_scan`` launches must be 64 a
    prefill batch (256) with no plain calls; then one profiled decode sync
-   and one profiled admit;
+   and one profiled admit.  Last, each engine alone on the card,
+   qwen3-moe-30b-a3b at full width (48 layers, d_model 2048, 32 heads
+   over 4, hd 128, 128 experts top-8, expert d_ff 768, qk-norm, vocab
+   151,936, bf16, seeded random weights, 30.53 B parameters, no cut),
+   paged then dense, as internlm2: parameter count, memory after the init
+   and peak per serve, launch counts (48 a decode step and 48 an admit),
+   every admit batch-1, tok/s and TTFT, and a profiled decode sync with
+   the expert products' device time beside the attention kernels';
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -595,7 +614,11 @@ def phase_kernels():
           f"the output rounding separate them); control: the plain version "
           f"with P rounded to bf16 must exceed the {BF16_MISMATCH:.0%}")
     _print_main_path(stats, shares, issue, "")
-    _starcoder2_heads(gen, dev)
+    for arch, heads, hd in OTHER_HEADS:
+        _other_heads(gen, dev, arch, heads, hd)
+    for arch, heads, hd in (("internlm2-1.8b", MAIN_HEADS, 128),) + \
+            OTHER_HEADS:
+        _serve_admits(gen, dev, arch, heads, hd)
     return stats
 
 
@@ -604,20 +627,27 @@ def phase_kernels():
 #: wgmma tile holds 5 1/3 query positions, and the decode's 8-row groups
 #: take 12 heads as one full group and one half-full)
 MAIN_HEADS = (16, 8)
-SC2_HEADS = (24, 2)
+
+#: (arch, (H, KV), hd) of the other archs phase 4 serves, whose head
+#: layouts phase 2 checks at its shapes: starcoder2-3b (G 12),
+#: qwen3-moe-30b-a3b (32 over 4, G 8: one full decode row group) and
+#: internvl2-1b (14 over 2 at hd 64, G 7: a row group one row short)
+OTHER_HEADS = (("starcoder2-3b", (24, 2), 128),
+               ("qwen3-moe-30b-a3b", (32, 4), 128),
+               ("internvl2-1b", (14, 2), 64))
 
 
-def _paged_main_path(gen, dev, heads, stats, shares, issue):
-    """The paged decode and extend at phase 2's shapes, bf16, hd 128, bs
-    16, for ``heads`` = (H, KV): a decode of B=8 at ragged lengths up to
-    2048 and an extend of (4, 256) at pos0 16-1792, each against its plain
-    version with the bf16 rule and its control, SDPA, and 3 copies of its
-    inputs for cold-L2 timing."""
+def _paged_main_path(gen, dev, heads, stats, shares, issue, hd=128):
+    """The paged decode and extend at phase 2's shapes, bf16, bs 16, for
+    ``heads`` = (H, KV) and head dim ``hd``: a decode of B=8 at ragged
+    lengths up to 2048 and an extend of (4, 256) at pos0 16-1792, each
+    against its plain version with the bf16 rule and its control, SDPA,
+    and 3 copies of its inputs for cold-L2 timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    (H, KV), hd, bs, max_len = heads, 128, 16, 2048
-    B, at = 8, f" H={H} KV={KV}"
+    (H, KV), bs, max_len = heads, 16, 2048
+    B, at = 8, f" H={H} KV={KV} hd={hd}"
     nb, esz = max_len // bs, 2
     lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
                            dtype=torch.int32, device=dev)
@@ -701,15 +731,70 @@ def _print_main_path(stats, shares, issue, label):
               f"from Python: {issue[name]:.4f} ms per call")
 
 
-def _starcoder2_heads(gen, dev):
-    """The four attention kernels at starcoder2-3b's heads (H 24, KV 2,
-    G 12, hd 128, bf16) and phase 2's shapes and lengths, each held to the
-    bf16 rule with its control and timed beside its bound and SDPA."""
+def _other_heads(gen, dev, arch, heads, hd):
+    """The four attention kernels at ``arch``'s heads and head dim, bf16,
+    at phase 2's shapes and lengths, each held to the bf16 rule with its
+    control and timed beside its bound and SDPA."""
     stats, shares, issue = {}, {}, {}
-    _paged_main_path(gen, dev, SC2_HEADS, stats, shares, issue)
-    _dense_main_path(gen, dev, SC2_HEADS, stats, shares, issue)
+    _paged_main_path(gen, dev, heads, stats, shares, issue, hd)
+    _dense_main_path(gen, dev, heads, stats, shares, issue, hd)
+    H, KV = heads
     _print_main_path(stats, shares, issue,
-                     " at starcoder2-3b's heads (H 24, KV 2, G 12)")
+                     f" at {arch}'s heads (H {H}, KV {KV}, G {H // KV}, "
+                     f"hd {hd})")
+
+
+def _admit_shapes(arch, paged):
+    """(S, pos0) of each admit of phase 4's 8 requests on ``arch``'s paged
+    or dense engine, in order: every admit is batch-1 (phase 4 checks it),
+    its S the engine's bucket for the prompt, or on the paged path for the
+    suffix past a prefix hit: the third request extends past the 256
+    tokens it shares with the first, at pos0 256."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeConfig
+    from repro_torch.serving.engine import EngineFns
+    fns = EngineFns(get_config(arch), ServeConfig(max_len=2048))
+    _, _, prompts = _serve_prompts(2)       # the lengths alone are used
+    pos0 = [256 if paged and i == 2 else 0 for i in range(len(prompts))]
+    return [(fns.bucket(len(p) - p0), p0) for p, p0 in zip(prompts, pos0)]
+
+
+def _serve_admits(gen, dev, arch, heads, hd):
+    """Flash and the paged extend (bs 16) at the admit shapes of ``arch``'s
+    phase-4 serves, bf16, each held to the bf16 rule with its control: at
+    G 8 and G 7 most of them leave the last 64-row tile of S x G query
+    rows partly filled."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    (H, KV), bf = heads, torch.bfloat16
+    at = f"{arch} admit (H {H}, KV {KV}, hd {hd})"
+    errs, ctls = [], []
+    flash = sorted({S for S, _ in _admit_shapes(arch, False)})
+    for S in flash:
+        q = _randn(gen, (1, S, H, hd), bf, dev)
+        k, v = (_randn(gen, (1, S, KV, hd), bf, dev) for _ in range(2))
+        want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
+        name = f"flash {at} S={S}"
+        errs.append(_compare(name, ops.flash_attention(q, k, v, causal=True),
+                             want)[0])
+        keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None]
+        ctls.append(_check_control(name, _rounded_p(q, k, v, keep), want))
+    extend = sorted(set(_admit_shapes(arch, True)))
+    for S, p0 in extend:
+        q, kp, vp, bt = _paged_inputs(gen, 1, -(-(p0 + S) // 16), 16, KV, hd,
+                                      (1, S, H, hd), bf, dev)
+        pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+        want = ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt, pos0)
+        name = f"extend {at} S={S} pos0={p0}"
+        errs.append(_compare(name, ops.paged_extend_attention(
+            q, kp, vp, bt, pos0), want)[0])
+        ctls.append(_check_control(
+            name, _plain_rounded_p(q, kp, vp, bt, pos0), want))
+    print(f"[kernels] {at}: flash at B 1, S {flash} and the paged extend at "
+          f"B 1, (S, pos0) {extend}, the shapes phase 4's serves admit: "
+          f"max_abs_err={max(errs):.3e}, each within the bf16 rule; the "
+          f"bf16-P controls off the rounded result in {min(ctls):.4%} to "
+          f"{max(ctls):.4%} of elements, each rejected")
 
 
 #: the speculative verify's shape at phase 7's serve: 8 windows of d+1 = 4
@@ -810,20 +895,21 @@ def _dense_grid(gen, dtype, dname, hd, dev):
 # The edge shapes of the wgmma design's 64-row, 64-key tiles, as
 # tests/test_torch_attention_sm90.py holds the plain versions against the
 # JAX oracles and the Pallas kernels at them: flash at S one short of, at
-# and one past a tile, two tiles and one past, and 200; G 1, 4, 8 and 12
-# (a tile's rows end inside a query position); the extend at bs 8 and 16
+# and one past a tile, two tiles and one past, and 200; G 1, 4, 8 (over 2
+# and over 4 kv heads, qwen3-moe-30b-a3b's), 12 and 7 (internvl2-1b's; a
+# tile's rows end inside a query position); the extend at bs 8 and 16
 # with pos0 mid-page (the suffix and the last visible key straddle pages)
-# and a row past the table's end, at G 4, 1 and 12.
+# and a row past the table's end, at G 4, 1, 12, 8 and 7.
 FLASH_EDGE_S = (63, 64, 65, 129, 200)
-FLASH_EDGE_G = ((8, 8), (16, 4), (16, 2), (24, 2))
-EXTEND_EDGE_G = ((8, 2), (8, 8), (24, 2))
+FLASH_EDGE_G = ((8, 8), (16, 4), (16, 2), (24, 2), (32, 4), (14, 2))
+EXTEND_EDGE_G = ((8, 2), (8, 8), (24, 2), (32, 4), (14, 2))
 EXTEND_EDGES = ((8, 12, 37, (5, 21, 60)), (16, 6, 37, (13, 50, 70)),
                 (8, 6, 20, (3, 40, 45)), (16, 4, 20, (0, 31, 60)))
 
 
 def _attention_edges(gen, dev):
-    """The bf16 flash and extend kernels at the edge shapes above (hd 32
-    and 128), a long-prefix extend (one admit of 256 tokens after 1,792
+    """The bf16 flash and extend kernels at the edge shapes above (hd 32,
+    64 and 128), a long-prefix extend (one admit of 256 tokens after 1,792
     cached), then an extend whose pool rows that no row may see hold
     NaN, held against the plain version on the same pool with those rows
     zeroed (bs 16, 8, and 12, which the producer warp copies without
@@ -832,7 +918,7 @@ def _attention_edges(gen, dev):
     import torch
     from repro_torch.kernels import ops, ref
     bf, n = torch.bfloat16, 0
-    for hd in (32, 128):
+    for hd in (32, 64, 128):
         for S in FLASH_EDGE_S:
             q = _randn(gen, (2, S, 8, hd), bf, dev)
             k, v = (_randn(gen, (2, S, 2, hd), bf, dev) for _ in range(2))
@@ -891,10 +977,10 @@ def _attention_edges(gen, dev):
         n += 1
     torch.cuda.synchronize()
     print(f"[kernels] attention edges: {n} checks passed: flash at S "
-          f"{FLASH_EDGE_S} x causal / window 64 / bidirectional and G 1, 4, "
-          f"8, 12 at S 129; extend at (bs, nb, S, pos0) {EXTEND_EDGES} x G "
-          f"4, 1, 12; hd 32 and 128; a long-prefix extend (1, 256) at pos0 "
-          f"1792; "
+          f"{FLASH_EDGE_S} x causal / window 64 / bidirectional and (H, KV) "
+          f"{FLASH_EDGE_G} at S 129; extend at (bs, nb, S, pos0) "
+          f"{EXTEND_EDGES} x (H, KV) {EXTEND_EDGE_G}; hd 32, 64 and 128; a "
+          f"long-prefix extend (1, 256) at pos0 1792; "
           f"an extend whose unseen pool rows hold NaN (bs 16, "
           f"8, 12) equal to the plain version with them zeroed")
 
@@ -904,10 +990,12 @@ def _attention_edges(gen, dev):
 # at them: lengths one short of, at and one past a chunk, one past two
 # chunks, the longest row and a short row whose later chunks exit at once;
 # pages (bs, nb) of 8, 16 and 32 rows, of 12 (straddling chunk ends) and
-# of 128 (spanning two chunks); G 1, 4, 8, 12 (one full row group and one
-# half-full) and 16 (two).
+# of 128 (spanning two chunks); G 1, 4, 8 (one full row group, over 2 and
+# over 4 kv heads), 12 (one full and one half-full), 16 (two) and 7 (one
+# row short of a group).
 DECODE_EDGE_PAGES = ((8, 40), (16, 20), (32, 10), (12, 27), (128, 3))
-DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (24, 2), (32, 2))
+DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (24, 2), (32, 2), (32, 4),
+                 (14, 2))
 
 
 def _edge_lengths(max_keys):
@@ -976,8 +1064,8 @@ def _dense_decode_case(gen, dev, name, L, H, KV, hd, dtype, lengths,
 
 
 def _decode_edges(gen, dev):
-    """Both decode kernels at the edge shapes above, fp32 and bf16, hd 32
-    and 128; then at hd 128: a paged length past nb * bs with table
+    """Both decode kernels at the edge shapes above, fp32 and bf16, hd 32,
+    64 and 128; then at hd 128: a paged length past nb * bs with table
     entries past the pool, rows of length 0 (paged: 0; dense: the mean of
     V), and caches whose rows past every live key hold NaN."""
     import torch
@@ -988,7 +1076,7 @@ def _decode_edges(gen, dev):
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for hd in (32, 128):
+        for hd in (32, 64, 128):
             for bs, nb in DECODE_EDGE_PAGES:
                 n += _paged_decode_case(
                     gen, dev, f"paged decode edge {dn} hd={hd} bs={bs}", bs,
@@ -1017,8 +1105,8 @@ def _decode_edges(gen, dev):
     torch.cuda.synchronize()
     print(f"[kernels] decode edges: {n} checks passed, fp32 and bf16: "
           f"lengths {_edge_lengths('max_keys')} over paged (bs, nb) "
-          f"{DECODE_EDGE_PAGES} at G 2 and G 1, 4, 8, 12, 16 (bs 16; dense "
-          f"L 320), hd 32 and 128; a paged length past nb * bs with table "
+          f"{DECODE_EDGE_PAGES} at G 2 and (H, KV) {DECODE_EDGE_G} (bs 16; "
+          f"dense L 320), hd 32, 64 and 128; a paged length past nb * bs with table "
           f"entries past the pool (read clamped); rows of length 0 (paged "
           f"0, dense the mean of V); caches whose rows past every live key "
           f"hold NaN (paged bs 16 and 12, dense) equal to the plain version "
@@ -1101,16 +1189,16 @@ def _decode_row(st, lengths, max_len) -> str:
             f"{8 * len(lengths) * n_chunks}")
 
 
-def _dense_main_path(gen, dev, heads, stats, shares, issue):
+def _dense_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     """Flash attention and split-K decode at the dense path's shapes, bf16,
-    hd 128, for ``heads`` = (H, KV): a causal prefill of B=3, S=512 and a
-    decode of B=8 over L=2048 at ragged lengths, each on 3 copies of its
-    inputs for cold-L2 timing."""
+    for ``heads`` = (H, KV) and head dim ``hd``: a causal prefill of B=3,
+    S=512 and a decode of B=8 over L=2048 at ragged lengths, each on 3
+    copies of its inputs for cold-L2 timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    (H, KV), hd, esz, bf = heads, 128, 2, torch.bfloat16
-    at = f" H={H} KV={KV}"
+    (H, KV), esz, bf = heads, 2, torch.bfloat16
+    at = f" H={H} KV={KV} hd={hd}"
 
     B, S = 3, 512
     fsets = [[_randn(gen, sh, bf, dev) for sh in
@@ -1527,8 +1615,15 @@ def _reduced_two_layers(arch):
 def _token_exact_paths(arch):
     """fp32, two-layer reduced ``arch`` on the paged and the dense engine,
     each through the kernels and forced through the plain versions: the
-    same tokens four ways.  Returns the runner (``run(scfg, plain)`` ->
-    requests, launches, plain calls), the paged tokens and their count."""
+    same tokens on each path both ways, and the same on both paths.  An
+    MoE arch's paths agree on all but the last request, the one admitted
+    after a prefix hit: the paged admit extends only its suffix, so the
+    experts' capacity sees other rows, and it decodes beside a finished
+    slot, whose token-0 row reads the finished sequence's stale cache on
+    the dense path and the slot's nulled table row on the paged path, and
+    takes capacity on both.  The others are admitted in pairs of equal
+    ``max_new`` that finish together.  Returns the runner (``run(scfg, plain)`` -> requests,
+    launches, plain calls, engine), the paged tokens and their count."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1546,8 +1641,9 @@ def _token_exact_paths(arch):
     def run(scfg, plain):
         ops.reset_counts()
         with _forced_plain(plain):
-            reqs = _drain(Engine(params, cfg, scfg, device=dev), prompts, 6)
-        return reqs, dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+            eng = Engine(params, cfg, scfg, device=dev)
+            reqs = _drain(eng, prompts, 6)
+        return reqs, dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS), eng
 
     tokens, used = {}, {}
     for label, keys, scfg in (
@@ -1556,13 +1652,13 @@ def _token_exact_paths(arch):
                 block_size=8)),
             ("dense", DENSE_KERNELS, ServeConfig(max_len=64, slots=2,
                                                  sync_every=4))):
-        kern, k_launch, k_plain = run(scfg, plain=False)
+        kern, k_launch, k_plain, _ = run(scfg, plain=False)
         check(all(k_launch[k] > 0 for k in keys) and
               sum(k_launch.values()) == sum(k_launch[k] for k in keys) and
               not any(k_plain.values()),
               f"{arch} {label} kernel run: launches {k_launch}, plain "
               f"{k_plain}")
-        plain, p_launch, p_plain = run(scfg, plain=True)
+        plain, p_launch, p_plain, _ = run(scfg, plain=True)
         check(all(p_plain[k] > 0 for k in keys) and
               not any(p_launch.values()),
               f"{arch} {label} plain run: launches {p_launch}, plain "
@@ -1575,15 +1671,22 @@ def _token_exact_paths(arch):
                   f"({b.finish_reason})")
         tokens[label] = [(r.out_tokens, r.finish_reason) for r in kern]
         used[label] = {k: k_launch[k] for k in keys}
-    check(tokens["dense"] == tokens["paged"],
-          f"{arch}: dense tokens {tokens['dense']} != paged "
-          f"{tokens['paged']}")
+    coupled = any(k == "M" for g in cfg.groups for k in g.pattern)
+    agree = len(prompts) - 1 if coupled else len(prompts)
+    check(tokens["dense"][:agree] == tokens["paged"][:agree],
+          f"{arch}: dense tokens {tokens['dense'][:agree]} != paged "
+          f"{tokens['paged'][:agree]}")
     n_tok = sum(len(t) for t, _ in tokens["dense"])
+    between = "and between the two paths" if not coupled else \
+        f"and on the first {agree} requests between the two paths (the " \
+        f"last, after a prefix hit: paged == dense " \
+        f"{tokens['dense'][-1] == tokens['paged'][-1]}, not a gate)"
     print(f"[token-exact] {arch} fp32 2-layer reduced (H {cfg.n_heads}, KV "
-          f"{cfg.n_kv_heads}, {cfg.norm}, {cfg.mlp}): {len(prompts)} "
-          f"requests, {n_tok} tokens identical through the kernels and the "
-          f"plain versions on the paged path ({used['paged']}) and the dense "
-          f"path ({used['dense']}), and between the two paths")
+          f"{cfg.n_kv_heads}, {cfg.norm}, {cfg.mlp}, {cfg.family}): "
+          f"{len(prompts)} requests, {n_tok} tokens identical through the "
+          f"kernels and the plain versions on the paged path "
+          f"({used['paged']}) and the dense path ({used['dense']}), "
+          f"{between}")
     return run, tokens["paged"], n_tok
 
 
@@ -1595,12 +1698,14 @@ def phase_token_exact():
     from repro_torch.serving import ServeConfig
     run, paged_tokens, n_tok = _token_exact_paths("internlm2-1.8b")
     _token_exact_paths("starcoder2-3b")
+    _token_exact_paths("internvl2-1b")
+    _token_exact_moe()
     # speculative decode: every verify window runs the paged extend, and
     # greedy tokens are the non-speculative ones on either route
     spec = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
                        block_size=8, speculative=True)
     for plain in (False, True):
-        reqs, launch, calls = run(spec, plain)
+        reqs, launch, calls, _ = run(spec, plain)
         used, unused = (calls, launch) if plain else (launch, calls)
         label = "plain" if plain else "kernel"
         check(used["paged_extend_attention"] > 0 and
@@ -1616,6 +1721,63 @@ def phase_token_exact():
           f"the same {n_tok} tokens through the kernels ({n_ext} paged "
           f"extend launches, no paged decode) and the plain versions")
     _token_exact_mamba()
+
+
+def _token_exact_moe():
+    """fp32, two-layer reduced qwen3-moe-30b-a3b (8 experts, top-2, qk-norm)
+    paged and dense, kernel against plain, with every admit batch-1; then
+    the paged engine with ``speculative=True``: it falls back (counted
+    once) and gives the paged tokens through the kernels."""
+    from repro_torch.cluster import tracing
+    from repro_torch.serving import ServeConfig
+    arch = "qwen3-moe-30b-a3b"
+    seq0 = tracing.current_recorder().last_seq
+    run, paged_tokens, n_tok = _token_exact_paths(arch)
+    admits = [e["n"] for e in tracing.current_recorder().events()
+              if e["seq"] > seq0 and e["kind"] == "admit"]
+    check(admits and set(admits) == {1},
+          f"{arch}: admit batches {admits}, expected all batch-1")
+    spec = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
+                       block_size=8, speculative=True)
+    reqs, launch, calls, eng = run(spec, False)
+    got = [(r.out_tokens, r.finish_reason) for r in reqs]
+    fallback = eng.metrics.counter("engine.spec_fallback").value
+    check(eng.paged and not eng.speculative and fallback == 1 and
+          launch["paged_decode_attention"] > 0 and not any(calls.values()),
+          f"{arch} speculative: paged {eng.paged}, speculative "
+          f"{eng.speculative}, spec_fallback {fallback}, launches {launch}, "
+          f"plain {calls}")
+    check(got == paged_tokens,
+          f"{arch} speculative tokens {got} != paged {paged_tokens}")
+    print(f"[token-exact] {arch} with speculative=True: falls back to "
+          f"paged decode (engine.speculative False, spec_fallback "
+          f"{fallback}), the same {n_tok} tokens; {len(admits)} admits, "
+          f"all batch-1")
+    _moe_never_syncs(arch)
+
+
+def _moe_never_syncs(arch):
+    """One MoE FFN call at an 8-slot decode's shape with CUDA's sync
+    debug mode set to error: the router, the dispatch and the combine
+    read nothing back to the host, so a decode step stays capturable."""
+    import torch
+    from repro_torch.models import moe
+    cfg, params = _reduced_two_layers(arch)
+    ffn = {k: v[0] for k, v in params["groups"][0][0]["ffn"].items()}
+    x = torch.randn(8, 1, cfg.d_model, device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.apply_moe(ffn, x, cfg)
+    except RuntimeError as e:
+        fail(f"apply_moe synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux)),
+          "apply_moe gave non-finite values")
+    print(f"[token-exact] {arch} apply_moe at (8, 1, {cfg.d_model}) under "
+          f"torch.cuda.set_sync_debug_mode('error'): no synchronising op "
+          f"detected")
 
 
 def _token_exact_mamba():
@@ -1664,14 +1826,19 @@ def _token_exact_mamba():
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
-    the dense path, then starcoder2-3b the same two ways (G 12); returns
-    each kernel's launches in internlm2's run of its path, and the paged
-    run's tokens."""
+    the dense path, then starcoder2-3b (G 12) and internvl2-1b (G 7, hd
+    64) the same two ways, falcon-mamba-7b, and qwen3-moe-30b-a3b (G 8,
+    128 experts) both ways; returns each kernel's launches in internlm2's
+    run of its path, and the paged run's tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
-    for paged in (True, False):
-        _serve_path(paged, "starcoder2-3b")
+    for arch in ("starcoder2-3b", "internvl2-1b"):
+        for paged in (True, False):
+            _serve_path(paged, arch)
     launches.update(_serve_mamba())
+    # 57 GiB of weights: served last, each engine alone on the card
+    for paged in (True, False):
+        _serve_path(paged, "qwen3-moe-30b-a3b")
     return launches, paged_tokens
 
 
@@ -1695,12 +1862,15 @@ def _serve_prompts(vocab):
 def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     """``arch`` at full width (bf16, seeded weights) through the paged or
     the dense engine at phase 4's settings: the requests, the path's
-    launch counts read right after them (> 0, no other kernel, no plain
-    call), then one profiled decode sync; returns (launches, tokens)."""
+    launch counts read right after them (one a layer per admit batch and
+    per decode step, no other kernel, no plain call; an MoE arch's admits
+    all batch-1), then one profiled decode sync; returns (launches,
+    tokens)."""
     import gc
 
     import torch
     from repro_torch import kernels
+    from repro_torch.cluster import tracing
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
@@ -1709,6 +1879,11 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     if arch != "internlm2-1.8b":
         label = f"{arch} {label}"
     keys = PAGED_KERNELS if paged else DENSE_KERNELS
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated(dev) < 2**30,
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+          f"allocated before the {label} serve")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     eng = build_engine(arch, max_len=2048, slots=8, sync_every=8,
@@ -1721,17 +1896,25 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           eng.paged == paged, f"{arch}: not the full-width bf16 config")
     kv = (f"pool {eng.alloc.num_blocks} blocks x 16" if paged else
           "dense caches 8 x 2048")
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}, expert d_ff "
+           f"{cfg.expert_d_ff}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
     print(f"[serve {label}] built {arch} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
-          f"heads, d_ff {cfg.d_ff}, {cfg.norm}, {cfg.mlp}, "
-          f"{n_params / 1e9:.3f} B parameters, bf16, {kv}) in "
-          f"{time.perf_counter() - t0:.1f}s; device memory "
-          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+          f"heads, hd {cfg.head_dim}, {ffn}, {cfg.norm}, {cfg.mlp}, "
+          f"qk_norm {cfg.qk_norm}, vocab {cfg.vocab}, tied "
+          f"{cfg.tie_embeddings}, {n_params / 1e9:.3f} B parameters, bf16, "
+          f"{kv}) in {time.perf_counter() - t0:.1f}s; device memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, peak during "
+          f"the init {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     tok, warm, prompts = _serve_prompts(cfg.vocab)
     # warm-up request (cuBLAS handles, allocator), then the measured run
     _drain(eng, [warm], 8)
     max_new = 32
-    hits0 = eng.metrics.counter("engine.prefix_hit_blocks").value
+    counter = lambda name: eng.metrics.counter(name).value  # noqa: E731
+    hits0, syncs0, batches0 = (counter(f"engine.{k}") for k in (
+        "prefix_hit_blocks", "steps", "prefill_batches"))
+    seq0 = tracing.current_recorder().last_seq
+    torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1739,16 +1922,35 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
-    hits = eng.metrics.counter("engine.prefix_hit_blocks").value - hits0
+    hits = counter("engine.prefix_hit_blocks") - hits0
+    syncs = counter("engine.steps") - syncs0
+    batches = counter("engine.prefill_batches") - batches0
+    admits = [(e["n"], e["bucket"]) for e in tracing.current_recorder()
+              .events() if e["seq"] > seq0 and e["kind"] == "admit"]
+    shapes = [(1, S) for S, _ in _admit_shapes(arch, paged)]
+    check(admits == shapes,
+          f"{label}: admits (n, bucket) {admits}, expected {shapes}, the "
+          f"shapes phase 2 held the kernels to")
+    admits = [n for n, _ in admits]
     for r in reqs:
         check(r.finish_reason == "max_new" and
               len(r.out_tokens) == max_new + 1 and
               all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.rid}: {r.finish_reason}, {r.out_tokens}")
-    check(all(launches[k] > 0 for k in keys) and
+    # one launch a layer for each admit batch (extend or flash) and for
+    # each of the 8 decode steps of a sync (paged or split-K decode)
+    want = {keys[0 if paged else 1]: cfg.n_layers * 8 * syncs,
+            keys[1 if paged else 0]: cfg.n_layers * batches}
+    check(all(launches[k] == want[k] for k in keys) and
           sum(launches.values()) == sum(launches[k] for k in keys),
-          f"{label}: kernels not launched, or another path's: {launches}")
+          f"{label}: launches {launches}, expected {want} ({syncs} syncs, "
+          f"{batches} admit batches) and no other kernel")
     check(not any(plain.values()), f"{label}: plain versions ran: {plain}")
+    check(len(admits) == batches and sum(admits) == len(reqs),
+          f"{label}: admit events {admits} against {batches} admit batches")
+    if eng.fns.row_coupled:
+        check(set(admits) == {1}, f"{label}: MoE admits {admits} are not "
+              f"all batch-1")
     if paged:
         check(hits >= 16, f"prefix cache hit {hits} blocks, expected >= 16")
         check(eng.alloc.free_blocks + eng.alloc.cached_blocks ==
@@ -1760,9 +1962,10 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
           f"ttft_p50={ttft[len(ttft) // 2]:.3f}s ttft_max={ttft[-1]:.3f}s "
           f"prefix_hit_blocks={hits} "
-          f"launches={launches} plain_calls={plain} "
-          f"prefill_batches={eng.metrics.counter('engine.prefill_batches').value}"
-          f" peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
+          f"launches={launches} (= {cfg.n_layers} layers x {syncs} syncs x "
+          f"8 steps, x {batches} admit batches) plain_calls={plain} "
+          f"admit batch sizes={admits} "
+          f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
     _profile_decode_sync(eng, tok, label)
     tokens = [r.out_tokens for r in reqs]
     del eng, reqs
@@ -1980,6 +2183,23 @@ def _profile_decode_sync(eng, tok, label):
     if decode:
         print(f"[profile {label}] decode attention kernels: " +
               "; ".join(decode))
+    if eng.cfg.n_experts:
+        # device time of each op's kernels: the expert products are the
+        # MoE's three bmm a layer, the other GEMMs the projections and head
+        by_op = {e.key: e for e in prof.key_averages()}
+        parts = []
+        for op, what in (("aten::bmm", "expert products"),
+                         ("aten::mm", "other GEMMs"),
+                         ("aten::topk", "router top-k"),
+                         ("aten::sort", "dispatch sort")):
+            e = by_op.get(op)
+            us = getattr(e, "device_time_total", 0.0) if e else 0.0
+            parts.append(f"{what} ({op}) {us / 1e3:.3f}ms/"
+                         f"{e.count if e else 0}x")
+        attn_us = sum(us for us, _, key in rows if "decode" in key.lower())
+        print(f"[profile {label}] device time by op: " + "; ".join(parts) +
+              f"; decode attention kernels {attn_us / 1e3:.3f}ms; busy "
+              f"{busy_us / 1e3:.2f}ms")
 
 
 # ----------------------------------------------------------------------

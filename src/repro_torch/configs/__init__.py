@@ -1,5 +1,7 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``,
-``get_config("falcon-mamba-7b")``, ``get_config("starcoder2-3b")``.
+``get_config("falcon-mamba-7b")``, ``get_config("starcoder2-3b")``,
+``get_config("qwen3-moe-30b-a3b")`` (MoE) and ``get_config("internvl2-1b")``
+(its token path).
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -13,6 +15,8 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "starcoder2-3b": "starcoder2_3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)

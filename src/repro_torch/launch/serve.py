@@ -7,7 +7,10 @@ engine ``--speculative`` decodes speculatively and ``--kv-swap`` swaps
 sessions out under pool pressure.
 ``--arch falcon-mamba-7b`` serves the Mamba-1 family, which has no K/V to
 page: with ``--paged`` it serves dense and prints ``kv=dense``, as the JAX
-driver would.
+driver would.  ``--arch qwen3-moe-30b-a3b`` serves the MoE family: its
+admits are batch-1 and ``--speculative`` falls back to plain paged
+decode, as in JAX; one copy of its full-width weights takes 57 GiB of
+the card, so it serves as one engine, not as process replicas.
 
 ``--transport`` picks replica placement:
 

@@ -1,6 +1,13 @@
 """Decoder LM of the port (``repro.models.transformer``), kinds ``A``
-(attention: dense prefill and decode, paged decode and extend) and ``S``
-(Mamba-1: prefill and decode over a recurrent state).
+(attention: dense prefill and decode, paged decode and extend), ``M``
+(the same attention, qk-norm where the config asks for it, and the MoE
+FFN of ``models/moe.py``; MLA, ``kv_lora_rank``, is not in the port) and
+``S`` (Mamba-1: prefill and decode over a recurrent state).
+
+Expert capacity couples the rows of a kind-``M`` batch, so every pass
+keeps every row of its batch: an inactive slot of the decode loop feeds
+token 0 at its frozen position, as JAX's does (``transformer.py:553-556``),
+and its row still enters the experts' capacity.
 
 Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
 [pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
@@ -21,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import (apply_mlp, embed, layer_norm,
                                        mask_padded_logits, rms_norm, unembed)
 
@@ -53,17 +60,19 @@ def paged_supported(cfg, max_len: int) -> bool:
     return True
 
 
-def _check_kind(kind: str):
-    if kind not in ("A", "S"):
-        raise NotImplementedError(f"layer kind {kind!r} " +
+def _check_kind(kind: str, cfg):
+    if kind not in ("A", "S", "M") or (kind == "M" and cfg.kv_lora_rank):
+        what = "MLA (kind 'M' with kv_lora_rank)" if kind == "M" else \
+            f"layer kind {kind!r}"
+        raise NotImplementedError(f"{what} " +
                                   _NOT_PORTED.format("6 (the other LM "
                                                      "families)"))
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
-    """Dense cache of one layer (``transformer.py:75-83``): K/V for kind
-    ``A``, the recurrent state for kind ``S``."""
-    _check_kind(kind)
+    """Dense cache of one layer (``transformer.py:75-83``): K/V for kinds
+    ``A`` and ``M``, the recurrent state for kind ``S``."""
+    _check_kind(kind, cfg)
     if kind == "S":
         return ssm.init_ssm_state(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_len, device)
@@ -102,14 +111,17 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
 
 
 def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
-    """One layer (``transformer.py:130-210``).  Kind ``A``: ``prefill``
-    into a dense cache, ``decode`` over a dense or paged cache, ``extend``
-    over a paged cache; ``bt`` is the (B, nb) block table of a paged cache.
-    Kind ``S`` (``:136-143``): a Mamba mixer and no MLP; ``prefill`` runs
-    the whole prompt from a zero state and ``decode`` one step from
-    ``cache``, each returning the new state.  Returns ``(x, cache)``; the
-    JAX function's aux loss is zero for these layers and is dropped."""
-    _check_kind(kind)
+    """One layer (``transformer.py:130-210``).  Kinds ``A`` and ``M``:
+    ``prefill`` into a dense cache, ``decode`` over a dense or paged cache,
+    ``extend`` over a paged cache; ``bt`` is the (B, nb) block table of a
+    paged cache.  Kind ``M`` runs the same causal attention and the MoE
+    FFN (``:204-205``).  Kind ``S`` (``:136-143``): a Mamba mixer and no
+    MLP; ``prefill`` runs the whole prompt from a zero state and
+    ``decode`` one step from ``cache``, each returning the new state.
+    Returns ``(x, cache)``.  The JAX function also returns the aux loss,
+    zero but for kind ``M``'s router loss, which serving drops as JAX's
+    engine does."""
+    _check_kind(kind, cfg)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "S":
         if mode == "decode":
@@ -151,6 +163,8 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
             f"(verify_extend)")
     x = x + mix
     h2 = apply_norm(p["ln2"], x, cfg)
+    if kind == "M":
+        return x + moe.apply_moe(p["ffn"], h2, cfg)[0], cache
     return x + apply_mlp(p["ffn"], h2, cfg), cache
 
 

@@ -12,11 +12,15 @@ init_params``), with torch tensors at the leaves::
 
 A LayerNorm config adds a bias ``"b"`` beside each norm's ``"w"``, and
 the plain GELU MLP is ``{"w_up", "b_up", "w_down", "b_down"}``
-(``layers.py:83-88``, ``transformer.py:36-40``).  A kind-``S`` (Mamba-1) layer is ``{"ln1": {"w"}, "mixer": {"in_proj",
-"conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
-"out_proj"}}`` (``ssm.py:21-36``).  Layer leaves are stacked ``(repeats,
-...)``.  Flat keys are the tree paths ``checkpointer.py:25-31`` writes:
-``groups/0/0/mixer/wq`` and so on.
+(``layers.py:83-88``, ``transformer.py:36-40``).  qk-norm adds
+``"q_norm"`` and ``"k_norm"`` (hd,) to the mixer, and a kind-``M`` (MoE)
+layer's ``"ffn"`` is ``{"router" (d, E), "w_gate", "w_up" (E, d, f),
+"w_down" (E, f, d)}`` (``moe.py:16-24``).  A kind-``S`` (Mamba-1) layer
+is ``{"ln1": {"w"}, "mixer": {"in_proj", "conv_w", "conv_b", "x_proj",
+"dt_proj", "dt_bias", "A_log", "D", "out_proj"}}`` (``ssm.py:21-36``).
+Layer leaves are stacked ``(repeats, ...)``.  Flat keys are the tree
+paths ``checkpointer.py:25-31`` writes: ``groups/0/0/mixer/wq`` and so
+on.
 """
 from __future__ import annotations
 
@@ -30,8 +34,9 @@ import torch
 from repro_torch.device import resolve_device
 
 # (per-layer shape, init) with the JAX package's inits (layers.py:15-26,
-# ssm.py:21-36): "normal" is N(0,1) / sqrt(fan_in), "embedding" N(0,1)
-# (scale 1.0), "conv" N(0,1) * 0.5 (dense_init's scale is the std),
+# ssm.py:21-36, moe.py:16-24): "normal" is N(0,1) / sqrt(fan_in) with
+# fan_in = shape[0], "embedding" N(0,1) (scale 1.0), "conv" N(0,1) * 0.5
+# and "router" N(0,1) * 0.02 (dense_init's scale is the std),
 # "ones" and "zeros" constants, "a_log" the deterministic log(1..N) tiled
 # over d_inner.  Every leaf is in cfg.param_dtype except "a_log", which
 # stays fp32 (spec_dtype).
@@ -51,12 +56,16 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
             if kind == "S" and cfg.norm == "rmsnorm":
                 specs.update(_ssm_specs(cfg, pre, R, norm_init))
                 continue
-            if kind != "A" or cfg.qk_norm or \
+            routed = kind == "M" and not (cfg.kv_lora_rank or
+                                          cfg.n_shared_experts)
+            if not (kind == "A" or routed) or \
+                    (cfg.qk_norm and not routed) or \
                     cfg.mlp not in ("swiglu", "gelu_mlp") or \
                     cfg.norm not in ("rmsnorm", "layernorm"):
                 raise NotImplementedError(
                     f"{cfg.name}: only plain kind-A layers (rmsnorm or "
-                    f"layernorm, swiglu or gelu_mlp, no qk-norm) and kind-S "
+                    f"layernorm, swiglu or gelu_mlp, no qk-norm), kind-M "
+                    f"layers without MLA or shared experts, and kind-S "
                     f"layers are in the port yet: ROADMAP.md, Queue 1, item "
                     f"6 (the other LM families)")
             specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
@@ -66,8 +75,13 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
                 f"{pre}/mixer/wv": (R, ((d, KV * hd), "normal")),
                 f"{pre}/mixer/wo": (R, ((H * hd, d), "normal")),
             })
+            if cfg.qk_norm:
+                specs.update({f"{pre}/mixer/q_norm": (R, ((hd,), "ones")),
+                              f"{pre}/mixer/k_norm": (R, ((hd,), "ones"))})
             specs.update(_norm_specs(cfg, f"{pre}/ln2", R, norm_init))
-            if cfg.mlp == "swiglu":
+            if routed:
+                specs.update(_moe_specs(cfg, pre, R))
+            elif cfg.mlp == "swiglu":
                 specs.update({
                     f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
                     f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
@@ -93,6 +107,20 @@ def _norm_specs(cfg, pre: str, R: int, norm_init: str):
         return {f"{pre}/w": (R, ((d,), "ones")),
                 f"{pre}/b": (R, ((d,), "zeros"))}
     return {f"{pre}/w": (R, ((d,), norm_init))}
+
+
+def _moe_specs(cfg, pre: str, R: int):
+    """The routed experts of one stacked kind-``M`` layer (``moe.py:
+    16-24``): the router at std 0.02 and the experts' SwiGLU weights.  As
+    in JAX's ``dense_init``, an expert leaf's fan-in is its first axis,
+    the expert count E, not the width it multiplies (d or expert_d_ff)."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    return {
+        f"{pre}/ffn/router": (R, ((d, E), "router")),
+        f"{pre}/ffn/w_gate": (R, ((E, d, f), "normal")),
+        f"{pre}/ffn/w_up": (R, ((E, d, f), "normal")),
+        f"{pre}/ffn/w_down": (R, ((E, f, d), "normal")),
+    }
 
 
 def _ssm_specs(cfg, pre: str, R: int, norm_init: str):
@@ -185,12 +213,14 @@ def load_checkpoint(step_dir: str, cfg, device="cuda"):
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """The port's own seeded init, with the JAX package's distributions
     (the inits above): weights N(0,1) / sqrt(fan_in) (fan_in = the
-    per-layer input width), the embedding N(0,1), norms ones.  Draws come
-    from ``generator``, which must live on ``device``, one repeat at a time
-    in fp32, so the largest transient is one layer's leaf (falcon-mamba-
-    7b's in_proj is 17 GB in fp32 when stacked).  JAX's ``PRNGKey`` draws
-    cannot be reproduced, so parity tests carry JAX weights over with
-    :func:`params_from_numpy` instead."""
+    per-layer leaf's first axis: the input width, or E for an expert
+    leaf), the router N(0,1) * 0.02, the embedding N(0,1), norms ones.
+    Draws come from ``generator``, which must live on ``device``, one
+    repeat at a time in fp32, so the largest transient is one layer's leaf
+    (falcon-mamba-7b's in_proj is 17 GB in fp32 when stacked; a
+    qwen3-moe-30b-a3b expert leaf, (128, 2048, 768), 0.8 GB).  JAX's
+    ``PRNGKey`` draws cannot be reproduced, so parity tests carry JAX
+    weights over with :func:`params_from_numpy` instead."""
     device = resolve_device(device)
     flat = {}
     for key, spec in param_specs(cfg).items():
@@ -204,11 +234,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
                              device=device)
             out.copy_(torch.log(n).expand(out.shape))
         else:
-            std = {"embedding": 1.0, "conv": 0.5}.get(
+            std = {"embedding": 1.0, "conv": 0.5, "router": 0.02}.get(
                 init, 1.0 / math.sqrt(shape[0]))
             for view in (out if spec[0] else out[None]):
                 w = torch.randn(shape, generator=generator, device=device,
                                 dtype=torch.float32)
-                view.copy_(w * std)
+                view.copy_(w.mul_(std))
         flat[key] = out
     return _unflatten(flat)

@@ -1,6 +1,8 @@
 """LM serving engine of the port: ``repro.serving.engine`` with continuous
-batching, on three paths, for the dense GQA family (``internlm2-1.8b``)
-and the Mamba-1 family (``falcon-mamba-7b``).
+batching, on three paths, for the dense GQA family (``internlm2-1.8b``,
+``starcoder2-3b``), the MoE family (``qwen3-moe-30b-a3b``), the token path
+of the VLM family (``internvl2-1b``'s decoder; its patch prefix is not in
+the port) and the Mamba-1 family (``falcon-mamba-7b``).
 
 * Dense fused (``paged=False``, the default): K/V live in one dense
   ``max_len`` stripe per slot.  An admit prefills the queue's longest
@@ -29,6 +31,11 @@ serves dense: ``paged=True`` falls back to the dense engine, as in JAX
 and its admits take exact-length buckets (pads would enter the state),
 where same-length prompts still share one batch.  On CUDA each SSM layer's
 prefill runs the selective-scan kernel.
+
+The MoE family's expert capacity couples the rows of a batch, so, as in
+JAX, its admits are batch-1 at exact length, speculation falls back to
+plain paged decode (``engine.spec_fallback`` counts it) and an inactive
+slot keeps feeding token 0 through every decode step.
 
 Differences from the JAX engine, all confined to the device calls:
 
@@ -265,6 +272,13 @@ class EngineFns:
     def __init__(self, cfg, scfg: ServeConfig):
         self.cfg, self.scfg = cfg, scfg
         self.pad_ok = pad_tolerant(cfg, scfg.max_len)
+        # MoE expert capacity couples batch rows: admitting several
+        # prompts at once would change each one's routing against the
+        # reference path's batch-1 prefill, so MoE admits stay batch-1,
+        # and speculation, whose verify windows would change the decode
+        # batch, is off (``engine.py:262-267``, ``:336-341``)
+        self.row_coupled = any(k == "M" for g in cfg.groups
+                               for k in g.pattern)
 
     def bucket(self, plen: int) -> int:
         """Prefill bucket for a prompt (suffix) of length ``plen``."""
@@ -425,7 +439,7 @@ class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
                  metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "moe", "vlm"):
             raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.fns = EngineFns(cfg, scfg)
@@ -464,11 +478,12 @@ class Engine:
         else:
             self.caches = tfm.init_caches(cfg, scfg.slots, scfg.max_len,
                                           self.device)
-        # speculative decode needs the paged pool (the port's families
-        # couple no batch rows); a fallback is silent but counted
+        # speculative decode needs the paged pool and a family whose
+        # batch rows do not couple; a fallback is silent but counted
         # (``engine.py:598-606``).  Brownout L1 clears the attribute at
         # run time; the history stays and keeps being seeded at admits.
-        self.speculative = self.paged and scfg.speculative
+        self.speculative = self.paged and scfg.speculative and \
+            not self.fns.row_coupled
         if scfg.speculative and not self.speculative:
             self.metrics.counter("engine.spec_fallback").inc()
         # the n-gram draft's token history: row s holds slot s's sequence
@@ -657,10 +672,11 @@ class Engine:
                 self.metrics.counter("engine.admit_deferred_kv").inc()
                 break
             bucket = self.fns.bucket(prep[3])
+            max_admit = 1 if self.fns.row_coupled else len(free)
             # pop-and-commit one request at a time so each headroom probe
             # sees the blocks its batch-mates already claimed
             rows = []
-            while prep is not None and len(rows) < len(free) and \
+            while prep is not None and len(rows) < max_admit and \
                     self.fns.bucket(prep[3]) == bucket:
                 req = self.queue.popleft()
                 hashes, hits, n_cached_tok, suffix_len = prep
@@ -1192,7 +1208,10 @@ class Engine:
             # the number of free slots, prefilled as one padded batch
             bucket = self.fns.bucket(len(self.queue[0].prompt))
             batch = [self.queue.popleft()]
-            while self.queue and len(batch) < len(free) and \
+            # MoE rows couple through expert capacity: batch-1 admits,
+            # as the reference path's
+            max_admit = 1 if self.fns.row_coupled else len(free)
+            while self.queue and len(batch) < max_admit and \
                     self.fns.bucket(len(self.queue[0].prompt)) == bucket:
                 batch.append(self.queue.popleft())
             n = len(batch)
