@@ -14,16 +14,19 @@ kernel, copy-on-write forks, KV swap, export/import, brownout and a
 migrating drain behind the Router), starcoder2-3b (LayerNorm, a GELU MLP,
 24 query heads over 2 kv heads: G 12), internvl2-1b's decoder (G 7, hd 64)
 and the MoE family (qwen3-moe-30b-a3b: 128 experts top-8, qk-norm, G 8)
-on both attention paths, and the telemetry (time series, SLO engine,
-stats server, autoscaler) over process replicas, and holds every kernel
-against its plain PyTorch version.  One line per phase:
+on both attention paths, gemma-7b (head dim 256, MHA, GeGLU) on both and
+gemma3-4b (head dim 256, local layers over rings of their window, global
+layers, qk-norm) on the dense one, and the telemetry (time series, SLO
+engine, stats server, autoscaler) over process replicas, and holds every
+kernel against its plain PyTorch version.  One line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    process per source, all started together (timed), and ptxas's
-   registers and spills for the two wgmma attention kernels, the
-   split-key decode kernel of both decode sources and the pair score's
-   3xTF32 wgmma kernel (a spill fails the run);
+   registers and spills for the two wgmma attention kernels, the fp32
+   flash and extend kernels on the CUDA cores, the split-key decode
+   kernel of both decode sources (each at hd 16-256) and the pair
+   score's 3xTF32 wgmma kernel (a spill fails the run);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -62,7 +65,14 @@ against its plain PyTorch version.  One line per phase:
    the four attention kernels again at the main paths' shapes and lengths
    with starcoder2-3b's heads (H 24, KV 2, G 12), qwen3-moe-30b-a3b's (H
    32, KV 4, G 8) and internvl2-1b's (H 14, KV 2, G 7, hd 64), each with
-   the bf16 rule, its control, its times, bound and SDPA's time;
+   the bf16 rule, its control, its times, bound and SDPA's time; last,
+   after every check above (so their inputs stay those of earlier runs),
+   hd 256: the grid in fp32 and bf16, the wgmma tile edges, the decode's
+   edges at G 1, 2, 10 and 16, the four kernels at the main paths'
+   shapes with gemma-7b's heads (H 16, KV 16, G 1) and gemma3-4b's (H 8,
+   KV 4, G 2), flash at gemma3's window 1024 over S 2048, and flash and
+   the extend at the admit shapes of the gemma serves, with the bf16
+   rule, controls, times, bounds and SDPA;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -79,7 +89,11 @@ against its plain PyTorch version.  One line per phase:
    changes the experts' capacity), every admit batch-1, then with
    ``speculative=True``: it falls back (``spec_fallback`` 1) and gives the
    paged tokens; and one MoE FFN call under CUDA's sync debug mode
-   ``error`` (nothing reads back to the host);
+   ``error`` (nothing reads back to the host); and at head dims 16 and
+   256, the two-layer fp32 reduced gemma-7b, paged and dense, kernel and
+   plain (four times the same tokens), and the ten-layer fp32 reduced
+   gemma3-4b (window 16) dense, kernel and plain, with prompts past the
+   window (flash's window mask, rings wrapped in prefill and decode);
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
@@ -104,7 +118,15 @@ against its plain PyTorch version.  One line per phase:
    paged then dense, as internlm2: parameter count, memory after the init
    and peak per serve, launch counts (48 a decode step and 48 an admit),
    every admit batch-1, tok/s and TTFT, and a profiled decode sync with
-   the expert products' device time beside the attention kernels';
+   the expert products' device time beside the attention kernels'.
+   Before the Mamba serve: gemma-7b (28 layers, d_model 3072, 16 heads
+   MHA, hd 256, d_ff 24,576, GeGLU, vocab 256,000, tied, 8.54 B) paged
+   and dense, and gemma3-4b (34 layers: 29 local with window 1024 over
+   1,024-row rings, 5 global; 8 heads over 4, hd 256, d_ff 10,240,
+   vocab 262,144, tied, 3.88 B) asked for the paged engine: it serves
+   dense and counts the fallback, with a ninth request of 1,100 tokens
+   past the window; each with its launch counts, tok/s, TTFT, memory
+   after the init and at peak, and a profiled decode sync;
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -301,9 +323,11 @@ def phase_device() -> str:
     print(line)
     for source, module in (("flash_attention.cu", fa),
                            ("paged_attention.cu", pa)):
-        smem = module._library().repro_attention_sm90_smem(128)
+        smem = {hd: module._library().repro_attention_sm90_smem(hd)
+                for hd in (128, 256)}
         print(f"[build] {source} "
               f"{_sm90_usage(build.BUILD_LOG, source, smem)}")
+    print(f"[build] {_simt_usage(build.BUILD_LOG)}")
     for source in ("paged_attention.cu", "decode_attention.cu"):
         print(f"[build] {source} {_decode_usage(build.BUILD_LOG, source)}")
     print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
@@ -337,22 +361,45 @@ def _ptxas_reports(logs, source, kernel):
 
 def _sm90_usage(logs, source, smem) -> str:
     """The wgmma kernel of ``source`` at every head dim (each must have a
-    report), shown for hd = 128 beside ``smem``, the dynamic shared
-    memory it asks for at launch (``Tile<128>::SMEM`` in
+    report), shown for hd = 128 and 256 beside ``smem[hd]``, the dynamic
+    shared memory it asks for at launch (``Tile<hd>::SMEM`` in
     csrc/attention_sm90.cuh)."""
+    from repro_torch.kernels import HEAD_DIMS
     found = {int(re.match(r"Li(\d+)E", k)[1]): v for k, v in
              _ptxas_reports(logs, source, "attention_sm90_kernel").items()}
-    check(sorted(found) == [16, 32, 64, 128],
+    check(sorted(found) == list(HEAD_DIMS),
           f"{source}: ptxas reported attention_sm90_kernel at head dims "
-          f"{sorted(found)}, not 16, 32, 64, 128")
-    return (f"attention_sm90_kernel<128>: {found[128]}; dynamic shared "
-            f"memory {smem} bytes; no spills at hd 16, 32, 64, 128")
+          f"{sorted(found)}, not {HEAD_DIMS}")
+    return "; ".join(f"attention_sm90_kernel<{hd}>: {found[hd]}; dynamic "
+                     f"shared memory {smem[hd]} bytes" for hd in smem) + \
+        f"; no spills at hd {HEAD_DIMS}"
+
+
+def _simt_usage(logs) -> str:
+    """The fp32 flash and extend kernels on the CUDA cores at every head
+    dim (each must have a report and no spill), shown at hd 128 and 256
+    (hd 256 takes 32 lanes a key and its 64 KiB merge buffer is dynamic
+    shared memory, which ptxas does not count)."""
+    from repro_torch.kernels import HEAD_DIMS
+    parts = []
+    for source, kernel in (("flash_attention.cu", "flash_simt_kernel"),
+                           ("paged_attention.cu", "paged_attention_kernel")):
+        found = {int(re.search(r"Li(\d+)E", k)[1]): v for k, v in
+                 _ptxas_reports(logs, source, kernel).items()}
+        check(sorted(found) == list(HEAD_DIMS),
+              f"{source}: ptxas reported {kernel} at head dims "
+              f"{sorted(found)}, not {HEAD_DIMS}")
+        parts += [f"{kernel}<{hd}>: {found[hd]}" for hd in (128, 256)]
+    return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS}"
 
 
 def _decode_usage(logs, source) -> str:
     """The split-key decode kernel of ``source`` at every instantiation
-    (fp32 and bf16, hd 16-128, 1-8 rows a CTA; each must have a report),
-    shown at 2 rows a CTA (the main path's G) for each head dim."""
+    (fp32 and bf16, hd 16-256, 1-8 rows a CTA; each must have a report),
+    shown at 2 rows a CTA (the main path's G) for each head dim, and at
+    hd 256 for every row count (its 64 KiB ring is dynamic shared memory,
+    which ptxas does not count)."""
+    from repro_torch.kernels import HEAD_DIMS
     found = {}
     for k, info in _ptxas_reports(logs, source, "decode_sm90_kernel").items():
         m = re.match(r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", k)
@@ -361,18 +408,23 @@ def _decode_usage(logs, source) -> str:
             int(re.search(r"Used (\d+) registers", info)[1]),
             int(smem[1]) if smem else 0)
     want = {(t, hd, gr) for t in ("f", "13__nv_bfloat16")
-            for hd in (16, 32, 64, 128) for gr in (1, 2, 4, 8)}
+            for hd in HEAD_DIMS for gr in (1, 2, 4, 8)}
     check(set(found) == want, f"{source}: ptxas reported decode_sm90_kernel "
           f"for {sorted(found)}, not every dtype x head dim x rows")
     show = "; ".join(
         f"{dn} " + ", ".join(f"hd {hd} {found[(t, hd, 2)][0]} registers "
                              f"{found[(t, hd, 2)][1]} B" for hd in
-                             (16, 32, 64, 128))
+                             HEAD_DIMS)
+        for t, dn in (("13__nv_bfloat16", "bf16"), ("f", "fp32")))
+    wide = "; ".join(
+        f"{dn} " + ", ".join(f"{gr} rows {found[(t, 256, gr)][0]}"
+                             for gr in (1, 2, 4, 8))
         for t, dn in (("13__nv_bfloat16", "bf16"), ("f", "fp32")))
     most = max(r for r, _ in found.values())
     return (f"decode_sm90_kernel at 2 rows a CTA: {show} (static shared "
-            f"memory); up to {most} registers at 8 rows; no spills in "
-            f"{len(found)} instantiations")
+            f"memory); registers at hd 256 by rows a CTA: {wide}; up to "
+            f"{most} registers at 8 rows; no spills in {len(found)} "
+            f"instantiations")
 
 
 def _pair_usage(logs, ps) -> str:
@@ -562,29 +614,13 @@ def phase_kernels():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    # every head_dim x dtype the kernels are built for, small shapes
+    # every head_dim x dtype the kernels are built for, small shapes (hd
+    # 256 in _hd256_checks, after every check of the smaller head dims, so
+    # that their inputs stay the draws of earlier runs)
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
         for hd in (16, 32, 64, 128):
-            B, H, KV, bs, nb, S = 3, 8, 2, 8, 6, 7
-            q, kp, vp, bt = _paged_inputs(gen, B, nb, bs, KV, hd,
-                                          (B, H, hd), dtype, dev)
-            lengths = torch.tensor([1, 17, nb * bs], dtype=torch.int32,
-                                   device=dev)
-            _compare(f"decode hd={hd} {dname}",
-                     ops.paged_decode_attention(q, kp, vp, bt, lengths),
-                     ref.paged_decode_attention_ref(*_f32(q, kp, vp), bt,
-                                                    lengths))
-            qs = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
-            pos0 = torch.tensor([0, 9, nb * bs - 3], dtype=torch.int32,
-                                device=dev)     # row 2 runs past the table
-            _compare(f"extend hd={hd} {dname}",
-                     ops.paged_extend_attention(qs, kp, vp, bt, pos0),
-                     ref.paged_extend_attention_ref(*_f32(qs, kp, vp), bt,
-                                                    pos0))
-            n += 2
-            n += _dense_grid(gen, dtype, dname, hd, dev)
+            n += _grid_case(gen, dtype, hd, dev)
     torch.cuda.synchronize()
     print(f"[kernels] grid: {n} checks over hd 16/32/64/128 x fp32 "
           f"(atol=rtol={FP32_TOL}) and bf16 (within one ulp + {BF16_ATOL}, "
@@ -619,7 +655,61 @@ def phase_kernels():
     for arch, heads, hd in (("internlm2-1.8b", MAIN_HEADS, 128),) + \
             OTHER_HEADS:
         _serve_admits(gen, dev, arch, heads, hd)
+    _hd256_checks(gen, dev)
     return stats
+
+
+def _grid_case(gen, dtype, hd, dev):
+    """The small-shape checks at one head dim and dtype: the paged decode
+    and extend (a row past the table's end), flash in its three mask
+    modes and the split-K decode; returns the number of checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dname = str(dtype).split(".")[1]
+    B, H, KV, bs, nb, S = 3, 8, 2, 8, 6, 7
+    q, kp, vp, bt = _paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd), dtype,
+                                  dev)
+    lengths = torch.tensor([1, 17, nb * bs], dtype=torch.int32, device=dev)
+    _compare(f"decode hd={hd} {dname}",
+             ops.paged_decode_attention(q, kp, vp, bt, lengths),
+             ref.paged_decode_attention_ref(*_f32(q, kp, vp), bt, lengths))
+    qs = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    pos0 = torch.tensor([0, 9, nb * bs - 3], dtype=torch.int32,
+                        device=dev)     # row 2 runs past the table
+    _compare(f"extend hd={hd} {dname}",
+             ops.paged_extend_attention(qs, kp, vp, bt, pos0),
+             ref.paged_extend_attention_ref(*_f32(qs, kp, vp), bt, pos0))
+    return 2 + _dense_grid(gen, dtype, dname, hd, dev)
+
+
+#: (arch, (H, KV), hd) of the head-dim-256 serves of phase 4: gemma-7b (16
+#: heads over 16, G 1: MHA) and gemma3-4b (8 over 4, G 2)
+GEMMA_HEADS = (("gemma-7b", (16, 16), 256), ("gemma3-4b", (8, 4), 256))
+
+
+def _hd256_checks(gen, dev):
+    """Every kernel check of the smaller head dims at hd 256: the grid in
+    fp32 and bf16, the wgmma tile edges, the split-key decode's edges at
+    G 1, 2, 10 and 16 (and its clamped table, rows of length 0 and NaN
+    rows); then the four attention kernels at the main paths' shapes and
+    lengths with gemma-7b's and gemma3-4b's heads, flash at gemma3-4b's
+    window 1024 over S 2048, and flash and the paged extend at the admit
+    shapes of their phase-4 serves, each held to the bf16 rule with its
+    control and timed beside its bound and SDPA."""
+    import torch
+    n = sum(_grid_case(gen, dtype, 256, dev)
+            for dtype in (torch.float32, torch.bfloat16))
+    torch.cuda.synchronize()
+    print(f"[kernels] grid at hd 256: {n} checks over fp32 and bf16 passed "
+          f"(the hd 16-128 grid's shapes and limits)")
+    _attention_edges(gen, dev, hds=(256,), extras=False)
+    _decode_edges(gen, dev, hds=(256,), heads=DECODE_EDGE_G_256,
+                  extra_hd=256)
+    for arch, heads, hd in GEMMA_HEADS:
+        _other_heads(gen, dev, arch, heads, hd)
+    _flash_window(gen, dev, "gemma3-4b", (8, 4), 256, 1024, 2048)
+    for arch, heads, hd in GEMMA_HEADS:
+        _serve_admits(gen, dev, arch, heads, hd)
 
 
 #: (H, KV) of the main path's attention (internlm2-1.8b: 16 query heads
@@ -745,41 +835,74 @@ def _other_heads(gen, dev, arch, heads, hd):
 
 
 def _admit_shapes(arch, paged):
-    """(S, pos0) of each admit of phase 4's 8 requests on ``arch``'s paged
-    or dense engine, in order: every admit is batch-1 (phase 4 checks it),
-    its S the engine's bucket for the prompt, or on the paged path for the
-    suffix past a prefix hit: the third request extends past the 256
-    tokens it shares with the first, at pos0 256."""
+    """(S, pos0) of each admit of phase 4's requests on ``arch``'s paged
+    or dense engine, in order (``paged`` asks for the paged engine; an
+    arch that cannot page serves dense): every admit is batch-1 (phase 4
+    checks it), its S the engine's bucket for the prompt, or on the paged
+    path for the suffix past a prefix hit: the third request extends past
+    the 256 tokens it shares with the first, at pos0 256.  gemma3-4b adds
+    a ninth request past its window (SERVE_LONG)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving import ServeConfig
     from repro_torch.serving.engine import EngineFns
-    fns = EngineFns(get_config(arch), ServeConfig(max_len=2048))
-    _, _, prompts = _serve_prompts(2)       # the lengths alone are used
+    cfg = get_config(arch)
+    paged = paged and tfm.paged_supported(cfg, 2048)
+    fns = EngineFns(cfg, ServeConfig(max_len=2048))
+    # the lengths alone are used
+    _, _, prompts = _serve_prompts(2, SERVE_LONG.get(arch, 0))
     pos0 = [256 if paged and i == 2 else 0 for i in range(len(prompts))]
     return [(fns.bucket(len(p) - p0), p0) for p, p0 in zip(prompts, pos0)]
+
+
+def _window_keep(S, window, dev):
+    """(1, S, S) causal mask, with ``t > s - window`` where ``window``."""
+    import torch
+    keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    if window:
+        keep &= torch.ones(S, S, dtype=torch.bool, device=dev).triu(
+            1 - window)
+    return keep[None]
+
+
+def _local_window(arch) -> int:
+    """The window of ``arch``'s local layers, 0 if it has none."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    local = any(k == "L" for g in cfg.groups for k in g.pattern)
+    return cfg.window if local else 0
 
 
 def _serve_admits(gen, dev, arch, heads, hd):
     """Flash and the paged extend (bs 16) at the admit shapes of ``arch``'s
     phase-4 serves, bf16, each held to the bf16 rule with its control: at
     G 8 and G 7 most of them leave the last 64-row tile of S x G query
-    rows partly filled."""
+    rows partly filled.  An arch with local layers runs flash also at
+    their window where a prompt is longer than it; one that cannot page
+    (gemma3-4b's rings) has no extend admits."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tfm
     (H, KV), bf = heads, torch.bfloat16
     at = f"{arch} admit (H {H}, KV {KV}, hd {hd})"
     errs, ctls = [], []
     flash = sorted({S for S, _ in _admit_shapes(arch, False)})
+    wl = _local_window(arch)
     for S in flash:
         q = _randn(gen, (1, S, H, hd), bf, dev)
         k, v = (_randn(gen, (1, S, KV, hd), bf, dev) for _ in range(2))
-        want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
-        name = f"flash {at} S={S}"
-        errs.append(_compare(name, ops.flash_attention(q, k, v, causal=True),
-                             want)[0])
-        keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None]
-        ctls.append(_check_control(name, _rounded_p(q, k, v, keep), want))
-    extend = sorted(set(_admit_shapes(arch, True)))
+        for window in (0, wl) if wl and S > wl else (0,):
+            want = ref.flash_attention_ref(*_f32(q, k, v), causal=True,
+                                           window=window)
+            name = f"flash {at} S={S} window={window}"
+            errs.append(_compare(name, ops.flash_attention(
+                q, k, v, causal=True, window=window), want)[0])
+            ctls.append(_check_control(
+                name, _rounded_p(q, k, v, _window_keep(S, window, dev)),
+                want))
+    paged = tfm.paged_supported(get_config(arch), 2048)
+    extend = sorted(set(_admit_shapes(arch, True))) if paged else []
     for S, p0 in extend:
         q, kp, vp, bt = _paged_inputs(gen, 1, -(-(p0 + S) // 16), 16, KV, hd,
                                       (1, S, H, hd), bf, dev)
@@ -790,8 +913,10 @@ def _serve_admits(gen, dev, arch, heads, hd):
             q, kp, vp, bt, pos0), want)[0])
         ctls.append(_check_control(
             name, _plain_rounded_p(q, kp, vp, bt, pos0), want))
-    print(f"[kernels] {at}: flash at B 1, S {flash} and the paged extend at "
-          f"B 1, (S, pos0) {extend}, the shapes phase 4's serves admit: "
+    windows = f" (and window {wl} past it)" if wl else ""
+    print(f"[kernels] {at}: flash at B 1, S {flash}{windows} and the paged "
+          f"extend at B 1, (S, pos0) {extend}, the shapes phase 4's serves "
+          f"admit: "
           f"max_abs_err={max(errs):.3e}, each within the bf16 rule; the "
           f"bf16-P controls off the rounded result in {min(ctls):.4%} to "
           f"{max(ctls):.4%} of elements, each rejected")
@@ -803,6 +928,48 @@ def _serve_admits(gen, dev, arch, heads, hd):
 #: past the table's 512 keys
 VERIFY_POS0 = (301, 307, 314, 318, 322, 325, 329, 510)
 VERIFY_NB = 32
+
+
+def _flash_window(gen, dev, arch, heads, hd, window, S):
+    """Flash at ``arch``'s local layers' sliding window over one prompt of
+    ``S`` tokens, bf16: the bf16 rule, its control, kernel, plain and SDPA
+    times (SDPA with the band as a boolean mask) and the bound, counting
+    only the (query, key) pairs the window lets through."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (H, KV), bf = heads, torch.bfloat16
+    fsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((1, S, H, hd), (1, S, KV, hd), (1, S, KV, hd))]
+             for _ in range(3)]
+    q, k, v = fsets[0]
+    name = f"flash {arch} window {window} (1, {S}) H={H} KV={KV} hd={hd}"
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=True,
+                                   window=window)
+    err, share = _compare(name, ops.flash_attention(q, k, v, causal=True,
+                                                    window=window), want)
+    keep = _window_keep(S, window, dev)
+    ctl = _check_control(name, _rounded_p(q, k, v, keep), want)
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0], attn_mask=keep[:, None], enable_gqa=True).transpose(1, 2)
+    _library_close(name, lib_out, want)
+    pairs = sum(min(s + 1, window) for s in range(S))
+    st = _stats(
+        err, (2 * S * H * hd + 2 * S * KV * hd) * 2, 4 * hd * H * pairs,
+        "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s, causal=True,
+                                                  window=window)
+                  for s in fsets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True,
+                                                      window=window)
+                  for s in fsets], iters=3),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, attn_mask=keep[:, None], enable_gqa=True) for a in sd]))
+    print(f"[kernels] {name}: max_abs_err={err:.3e} off_rounded="
+          f"{share:.4%} (control with bf16 P: {ctl:.4%}) ms={st['ms']:.4f} "
+          f"plain_ms={st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+          f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']})")
 
 
 def _verify_shape(gen, dev):
@@ -907,18 +1074,18 @@ EXTEND_EDGES = ((8, 12, 37, (5, 21, 60)), (16, 6, 37, (13, 50, 70)),
                 (8, 6, 20, (3, 40, 45)), (16, 4, 20, (0, 31, 60)))
 
 
-def _attention_edges(gen, dev):
-    """The bf16 flash and extend kernels at the edge shapes above (hd 32,
-    64 and 128), a long-prefix extend (one admit of 256 tokens after 1,792
-    cached), then an extend whose pool rows that no row may see hold
-    NaN, held against the plain version on the same pool with those rows
-    zeroed (bs 16, 8, and 12, which the producer warp copies without
-    TMA); each against the plain version's fp32 result at the bf16
-    limits."""
+def _attention_edges(gen, dev, hds=(32, 64, 128), extras=True):
+    """The bf16 flash and extend kernels at the edge shapes above (head
+    dims ``hds``), and with ``extras`` a long-prefix extend (one admit of
+    256 tokens after 1,792 cached), then an extend whose pool rows that no
+    row may see hold NaN, held against the plain version on the same pool
+    with those rows zeroed (bs 16, 8, and 12, which the producer warp
+    copies without TMA); each against the plain version's fp32 result at
+    the bf16 limits."""
     import torch
     from repro_torch.kernels import ops, ref
     bf, n = torch.bfloat16, 0
-    for hd in (32, 64, 128):
+    for hd in hds:
         for S in FLASH_EDGE_S:
             q = _randn(gen, (2, S, 8, hd), bf, dev)
             k, v = (_randn(gen, (2, S, 2, hd), bf, dev) for _ in range(2))
@@ -949,6 +1116,14 @@ def _attention_edges(gen, dev):
                          ref.paged_extend_attention_ref(*_f32(q, kp, vp), bt,
                                                         pos0))
                 n += 1
+    if not extras:
+        torch.cuda.synchronize()
+        print(f"[kernels] attention edges at hd {hds}: {n} checks passed: "
+              f"flash at S {FLASH_EDGE_S} x causal / window 64 / "
+              f"bidirectional and (H, KV) {FLASH_EDGE_G} at S 129; extend "
+              f"at (bs, nb, S, pos0) {EXTEND_EDGES} x (H, KV) "
+              f"{EXTEND_EDGE_G}")
+        return
     # one long-prefix admit: 64 CTAs, each walking 1,824-2,048 keys
     q, kp, vp, bt = _paged_inputs(gen, 1, 128, 16, 8, 128, (1, 256, 16, 128),
                                   bf, dev)
@@ -996,6 +1171,9 @@ def _attention_edges(gen, dev):
 DECODE_EDGE_PAGES = ((8, 40), (16, 20), (32, 10), (12, 27), (128, 3))
 DECODE_EDGE_G = ((2, 2), (8, 2), (16, 2), (24, 2), (32, 2), (32, 4),
                  (14, 2))
+#: hd 256: G 1 (gemma-7b), 2 (gemma3-4b), 10 (recurrentgemma-2b's MQA: one
+#: full row group and one of 2) and 16 (two full groups)
+DECODE_EDGE_G_256 = ((2, 2), (4, 2), (20, 2), (32, 2))
 
 
 def _edge_lengths(max_keys):
@@ -1063,11 +1241,13 @@ def _dense_decode_case(gen, dev, name, L, H, KV, hd, dtype, lengths,
     return 1
 
 
-def _decode_edges(gen, dev):
-    """Both decode kernels at the edge shapes above, fp32 and bf16, hd 32,
-    64 and 128; then at hd 128: a paged length past nb * bs with table
-    entries past the pool, rows of length 0 (paged: 0; dense: the mean of
-    V), and caches whose rows past every live key hold NaN."""
+def _decode_edges(gen, dev, hds=(32, 64, 128), heads=DECODE_EDGE_G,
+                  extra_hd=128):
+    """Both decode kernels at the edge shapes above, fp32 and bf16, head
+    dims ``hds`` and (H, KV) ``heads``; then at ``extra_hd``: a paged
+    length past nb * bs with table entries past the pool, rows of length 0
+    (paged: 0; dense: the mean of V), and caches whose rows past every
+    live key hold NaN."""
     import torch
 
     def past_the_pool(bt, n):
@@ -1076,41 +1256,45 @@ def _decode_edges(gen, dev):
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for hd in (32, 64, 128):
+        for hd in hds:
             for bs, nb in DECODE_EDGE_PAGES:
                 n += _paged_decode_case(
                     gen, dev, f"paged decode edge {dn} hd={hd} bs={bs}", bs,
                     nb, 4, 2, hd, dtype, _edge_lengths(nb * bs))
-            for H, KV in DECODE_EDGE_G:
+            for H, KV in heads:
                 n += _paged_decode_case(
                     gen, dev, f"paged decode edge {dn} hd={hd} G={H // KV}",
                     16, 20, H, KV, hd, dtype, _edge_lengths(320))
                 n += _dense_decode_case(
                     gen, dev, f"split-K decode edge {dn} hd={hd} "
                     f"G={H // KV}", 320, H, KV, hd, dtype, _edge_lengths(320))
+        xh = extra_hd
         n += _paged_decode_case(
-            gen, dev, f"paged decode clamped {dn}", 16, 9, 16, 8, 128, dtype,
-            [100, 144, 145, 1000], table=past_the_pool)
-        n += _paged_decode_case(gen, dev, f"paged decode length 0 {dn}", 16,
-                                16, 16, 8, 128, dtype, [0, 200, 5, 0])
-        n += _dense_decode_case(gen, dev, f"split-K decode length 0 {dn}",
-                                256, 16, 8, 128, dtype, [0, 200, 5, 0])
+            gen, dev, f"paged decode clamped {dn} hd={xh}", 16, 9, 16, 8, xh,
+            dtype, [100, 144, 145, 1000], table=past_the_pool)
+        n += _paged_decode_case(
+            gen, dev, f"paged decode length 0 {dn} hd={xh}", 16, 16, 16, 8,
+            xh, dtype, [0, 200, 5, 0])
+        n += _dense_decode_case(
+            gen, dev, f"split-K decode length 0 {dn} hd={xh}", 256, 16, 8,
+            xh, dtype, [0, 200, 5, 0])
         nan_lengths = [1, 127, 129, 257, 383]
         for bs in (16, 12):
             n += _paged_decode_case(
-                gen, dev, f"paged decode NaN pool {dn} bs={bs}", bs,
-                384 // bs, 16, 8, 128, dtype, nan_lengths, nan=True)
-        n += _dense_decode_case(gen, dev, f"split-K decode NaN cache {dn}",
-                                384, 16, 8, 128, dtype, nan_lengths, nan=True)
+                gen, dev, f"paged decode NaN pool {dn} bs={bs} hd={xh}", bs,
+                384 // bs, 16, 8, xh, dtype, nan_lengths, nan=True)
+        n += _dense_decode_case(
+            gen, dev, f"split-K decode NaN cache {dn} hd={xh}", 384, 16, 8,
+            xh, dtype, nan_lengths, nan=True)
     torch.cuda.synchronize()
     print(f"[kernels] decode edges: {n} checks passed, fp32 and bf16: "
           f"lengths {_edge_lengths('max_keys')} over paged (bs, nb) "
-          f"{DECODE_EDGE_PAGES} at G 2 and (H, KV) {DECODE_EDGE_G} (bs 16; "
-          f"dense L 320), hd 32, 64 and 128; a paged length past nb * bs with table "
-          f"entries past the pool (read clamped); rows of length 0 (paged "
-          f"0, dense the mean of V); caches whose rows past every live key "
-          f"hold NaN (paged bs 16 and 12, dense) equal to the plain version "
-          f"with them zeroed")
+          f"{DECODE_EDGE_PAGES} at G 2 and (H, KV) {heads} (bs 16; "
+          f"dense L 320), hd {hds}; at hd {xh} a paged length past nb * bs "
+          f"with table entries past the pool (read clamped); rows of length "
+          f"0 (paged 0, dense the mean of V); caches whose rows past every "
+          f"live key hold NaN (paged bs 16 and 12, dense) equal to the "
+          f"plain version with them zeroed")
 
 
 # (label, lengths, rows of a table or stripe): phase 2's ragged decode,
@@ -1598,24 +1782,31 @@ def _forced_plain(plain: bool):
         contextlib.nullcontext()
 
 
-def _reduced_two_layers(arch):
-    """``arch``'s fp32 reduced config, two layers deep, and its seeded
-    weights on the card."""
+def _reduced_two_layers(arch, **over):
+    """``arch``'s fp32 reduced config, two layers deep (an arch of several
+    layer kinds keeps reduced()'s groups: gemma3-4b's ten layers, local
+    and global, in two scan groups), with the fields ``over`` replaced,
+    and its seeded weights on the card."""
     import torch
     from repro_torch.configs import ScanGroup, get_config, reduced
     from repro_torch.models.weights import init_params
     dev = torch.device("cuda", 0)
-    kind = get_config(arch).groups[0].pattern
-    cfg = reduced(get_config(arch)).replace(
-        n_layers=2, groups=(ScanGroup(kind, 2),))
+    full = get_config(arch)
+    cfg = reduced(full)
+    if len(full.groups) == 1 and len(full.groups[0].pattern) == 1:
+        cfg = cfg.replace(n_layers=2,
+                          groups=(ScanGroup(full.groups[0].pattern, 2),))
+    cfg = cfg.replace(**over)
     return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
 
 
-def _token_exact_paths(arch):
-    """fp32, two-layer reduced ``arch`` on the paged and the dense engine,
-    each through the kernels and forced through the plain versions: the
-    same tokens on each path both ways, and the same on both paths.  An
+def _token_exact_paths(arch, paths=("paged", "dense"), extra=(), **over):
+    """fp32, two-layer reduced ``arch`` (fields ``over`` replaced) on the
+    paged and the dense engine (``paths``), each through the kernels and
+    forced through the plain versions: the same tokens on each path both
+    ways, and the same on both paths; ``extra`` adds prompts of those
+    lengths after the others.  An
     MoE arch's paths agree on all but the last request, the one admitted
     after a prefix hit: the paged admit extends only its suffix, so the
     experts' capacity sees other rows, and it decodes beside a finished
@@ -1630,13 +1821,15 @@ def _token_exact_paths(arch):
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda", 0)
-    cfg, params = _reduced_two_layers(arch)
+    cfg, params = _reduced_two_layers(arch, **over)
     rng = np.random.RandomState(0)
     common = rng.randint(0, cfg.vocab, 16).astype(np.int32)
     prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
                for n in (5, 9, 7, 12, 6)]
     prompts += [np.concatenate([common, rng.randint(0, cfg.vocab, n)])
                 .astype(np.int32) for n in (4, 3)]
+    prompts += [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
+                for n in extra]
 
     def run(scfg, plain):
         ops.reset_counts()
@@ -1652,6 +1845,8 @@ def _token_exact_paths(arch):
                 block_size=8)),
             ("dense", DENSE_KERNELS, ServeConfig(max_len=64, slots=2,
                                                  sync_every=4))):
+        if label not in paths:
+            continue
         kern, k_launch, k_plain, _ = run(scfg, plain=False)
         check(all(k_launch[k] > 0 for k in keys) and
               sum(k_launch.values()) == sum(k_launch[k] for k in keys) and
@@ -1673,21 +1868,26 @@ def _token_exact_paths(arch):
         used[label] = {k: k_launch[k] for k in keys}
     coupled = any(k == "M" for g in cfg.groups for k in g.pattern)
     agree = len(prompts) - 1 if coupled else len(prompts)
-    check(tokens["dense"][:agree] == tokens["paged"][:agree],
-          f"{arch}: dense tokens {tokens['dense'][:agree]} != paged "
-          f"{tokens['paged'][:agree]}")
-    n_tok = sum(len(t) for t, _ in tokens["dense"])
+    if len(paths) == 2:
+        check(tokens["dense"][:agree] == tokens["paged"][:agree],
+              f"{arch}: dense tokens {tokens['dense'][:agree]} != paged "
+              f"{tokens['paged'][:agree]}")
+    n_tok = sum(len(t) for t, _ in tokens[paths[-1]])
     between = "and between the two paths" if not coupled else \
         f"and on the first {agree} requests between the two paths (the " \
         f"last, after a prefix hit: paged == dense " \
         f"{tokens['dense'][-1] == tokens['paged'][-1]}, not a gate)"
-    print(f"[token-exact] {arch} fp32 2-layer reduced (H {cfg.n_heads}, KV "
-          f"{cfg.n_kv_heads}, {cfg.norm}, {cfg.mlp}, {cfg.family}): "
-          f"{len(prompts)} requests, {n_tok} tokens identical through the "
-          f"kernels and the plain versions on the paged path "
-          f"({used['paged']}) and the dense path ({used['dense']}), "
-          f"{between}")
-    return run, tokens["paged"], n_tok
+    if len(paths) == 1:
+        between = f"(the {paths[0]} path alone)"
+    window = f", window {cfg.window}" if cfg.window else ""
+    print(f"[token-exact] {arch} fp32 {cfg.n_layers}-layer reduced (H "
+          f"{cfg.n_heads}, KV {cfg.n_kv_heads}, hd {cfg.head_dim}{window}, "
+          f"{cfg.norm}, {cfg.mlp}, {cfg.family}): {len(prompts)} requests "
+          f"of {[len(p) for p in prompts]} tokens, {n_tok} tokens identical "
+          f"through the kernels and the plain versions on " +
+          " and ".join(f"the {p} path ({used[p]})" for p in paths) +
+          f", {between}")
+    return run, tokens.get("paged"), n_tok
 
 
 def phase_token_exact():
@@ -1699,6 +1899,7 @@ def phase_token_exact():
     run, paged_tokens, n_tok = _token_exact_paths("internlm2-1.8b")
     _token_exact_paths("starcoder2-3b")
     _token_exact_paths("internvl2-1b")
+    _token_exact_gemma()
     _token_exact_moe()
     # speculative decode: every verify window runs the paged extend, and
     # greedy tokens are the non-speculative ones on either route
@@ -1721,6 +1922,21 @@ def phase_token_exact():
           f"the same {n_tok} tokens through the kernels ({n_ext} paged "
           f"extend launches, no paged decode) and the plain versions")
     _token_exact_mamba()
+
+
+def _token_exact_gemma():
+    """fp32 reduced gemma-7b (two layers, GeGLU, MHA) paged and dense, and
+    gemma3-4b (its ten local and global layers, window 16) dense, each
+    kernel against plain, at the reduced head dim 16 and at 256, so that
+    the fp32 kernels run at hd 256 on a real path.  gemma3's prompts of
+    19, 20 and 40 tokens pass its window, so flash's window mask and the
+    local layers' rings wrap in the prefill, and decoding past 16
+    positions wraps them in the decode; with 2 slots, later requests reuse
+    the slots of longer ones."""
+    for hd in (16, 256):
+        _token_exact_paths("gemma-7b", head_dim=hd)
+        _token_exact_paths("gemma3-4b", paths=("dense",), extra=(40,),
+                           head_dim=hd)
 
 
 def _token_exact_moe():
@@ -1826,15 +2042,20 @@ def _token_exact_mamba():
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
-    the dense path, then starcoder2-3b (G 12) and internvl2-1b (G 7, hd
-    64) the same two ways, falcon-mamba-7b, and qwen3-moe-30b-a3b (G 8,
-    128 experts) both ways; returns each kernel's launches in internlm2's
-    run of its path, and the paged run's tokens."""
+    the dense path, then starcoder2-3b (G 12), internvl2-1b (G 7, hd 64)
+    and gemma-7b (G 1, hd 256) the same two ways, gemma3-4b (G 2, hd 256)
+    asked for the paged engine (it serves dense), falcon-mamba-7b, and
+    qwen3-moe-30b-a3b (G 8, 128 experts) both ways; returns each kernel's
+    launches in internlm2's run of its path, and the paged run's
+    tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
-    for arch in ("starcoder2-3b", "internvl2-1b"):
+    for arch in ("starcoder2-3b", "internvl2-1b", "gemma-7b"):
         for paged in (True, False):
             _serve_path(paged, arch)
+    # gemma3-4b's rings cannot page: asked for the paged engine, it serves
+    # dense, counted in engine.paged_fallback_dense
+    _serve_path(True, "gemma3-4b")
     launches.update(_serve_mamba())
     # 57 GiB of weights: served last, each engine alone on the card
     for paged in (True, False):
@@ -1842,12 +2063,18 @@ def phase_serve():
     return launches, paged_tokens
 
 
-def _serve_prompts(vocab):
+#: phase 4's ninth request, by arch: gemma3-4b's prompt past its 1,024-key
+#: window, so that flash's window bites at full width and the local
+#: layers' rings wrap in the prefill and in the decode
+SERVE_LONG = {"gemma3-4b": 1100}
+
+
+def _serve_prompts(vocab, long=0):
     """Phase 4's requests, drawn from one seeded stream: ``tok(n)`` draws
     n more tokens; a warm-up prompt, then 8 prompts of 16-512 tokens, two
-    sharing a 256-token prefix.  A request of another bucket sits between
-    those two, so the second is admitted after the first published the
-    prefix."""
+    sharing a 256-token prefix, and with ``long`` a ninth of ``long``
+    tokens.  A request of another bucket sits between those two, so the
+    second is admitted after the first published the prefix."""
     import numpy as np
     rng = np.random.RandomState(1)
     tok = lambda n: rng.randint(0, vocab, n).astype(np.int32)  # noqa
@@ -1856,6 +2083,8 @@ def _serve_prompts(vocab):
     prompts = [np.concatenate([prefix, tok(44)]), tok(16),
                np.concatenate([prefix, tok(100)]), tok(64), tok(512),
                tok(200), tok(33), tok(128)]
+    if long:
+        prompts.append(tok(long))
     return tok, warm, prompts
 
 
@@ -1865,7 +2094,8 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     launch counts read right after them (one a layer per admit batch and
     per decode step, no other kernel, no plain call; an MoE arch's admits
     all batch-1), then one profiled decode sync; returns (launches,
-    tokens)."""
+    tokens).  An arch that cannot page (gemma3-4b's rings) asked for the
+    paged engine must serve dense and count the fallback once."""
     import gc
 
     import torch
@@ -1874,8 +2104,13 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
+    from repro_torch.models import transformer as tfm
     dev = torch.device("cuda", 0)
+    asked, paged = paged, paged and tfm.paged_supported(get_config(arch),
+                                                         2048)
     label = "paged" if paged else "dense"
+    if asked and not paged:
+        label = "dense fallback"
     if arch != "internlm2-1.8b":
         label = f"{arch} {label}"
     keys = PAGED_KERNELS if paged else DENSE_KERNELS
@@ -1887,15 +2122,23 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     eng = build_engine(arch, max_len=2048, slots=8, sync_every=8,
-                       paged=paged, block_size=16, seed=0, device=dev)
+                       paged=asked, block_size=16, seed=0, device=dev)
     torch.cuda.synchronize()
+    init_mem = torch.cuda.memory_allocated(dev)
     cfg = eng.cfg
     n_params = sum(t.numel() for t in _leaves(eng.params))
+    fallback = eng.metrics.counter("engine.paged_fallback_dense").value
     check(cfg == get_config(arch) and
           eng.params["embedding"]["table"].dtype == torch.bfloat16 and
-          eng.paged == paged, f"{arch}: not the full-width bf16 config")
+          eng.paged == paged and fallback == int(asked and not paged),
+          f"{arch}: not the full-width bf16 config on the {label} engine "
+          f"(engine.paged {eng.paged}, paged_fallback_dense {fallback})")
+    rings = sorted({c["k"].shape[2] for g in eng.caches for c in g
+                    if "pos" in c}) if not paged else []
     kv = (f"pool {eng.alloc.num_blocks} blocks x 16" if paged else
-          "dense caches 8 x 2048")
+          "dense caches 8 x 2048" +
+          (f", local layers' rings of {rings} rows" if rings else "") +
+          (f", paged_fallback_dense {fallback}" if asked else ""))
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}, expert d_ff "
            f"{cfg.expert_d_ff}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
     print(f"[serve {label}] built {arch} ({cfg.n_layers} layers, d_model "
@@ -1904,9 +2147,9 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           f"qk_norm {cfg.qk_norm}, vocab {cfg.vocab}, tied "
           f"{cfg.tie_embeddings}, {n_params / 1e9:.3f} B parameters, bf16, "
           f"{kv}) in {time.perf_counter() - t0:.1f}s; device memory "
-          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, peak during "
+          f"{init_mem / 2**30:.2f} GiB, peak during "
           f"the init {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    tok, warm, prompts = _serve_prompts(cfg.vocab)
+    tok, warm, prompts = _serve_prompts(cfg.vocab, SERVE_LONG.get(arch, 0))
     # warm-up request (cuBLAS handles, allocator), then the measured run
     _drain(eng, [warm], 8)
     max_new = 32

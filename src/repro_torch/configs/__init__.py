@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``,
 ``get_config("falcon-mamba-7b")``, ``get_config("starcoder2-3b")``,
-``get_config("qwen3-moe-30b-a3b")`` (MoE) and ``get_config("internvl2-1b")``
-(its token path).
+``get_config("qwen3-moe-30b-a3b")`` (MoE), ``get_config("internvl2-1b")``
+(its token path), ``get_config("gemma-7b")`` and ``get_config("gemma3-4b")``
+(head dim 256; gemma3's local and global layers).
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -17,6 +18,8 @@ _MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "internvl2-1b": "internvl2_1b",
+    "gemma-7b": "gemma_7b",
+    "gemma3-4b": "gemma3_4b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -27,6 +30,7 @@ def get_config(name: str) -> ArchConfig:
     if key not in _MODULES:
         raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
                        f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
-                       f"Queue 1, item 6 (the other LM families)")
+                       f"Queue 1, item 6 (the other LM families: "
+                       f"recurrentgemma-2b next, then MLA and encdec)")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[key]}").CONFIG

@@ -6,7 +6,7 @@ import torch
 
 #: what every kernel of the port is built for: head dims, and the dtype
 #: codes of their C interfaces
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per wrapper, counted where each wrapper launches its

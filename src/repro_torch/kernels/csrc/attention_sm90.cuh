@@ -24,7 +24,11 @@
 // The producer is one warp, not a warpgroup, so no setmaxnreg.  Two CTAs
 // fit an SM (the 82,976 bytes of shared memory at hd = 128, and the
 // registers, which __launch_bounds__ caps at 204 a thread for two CTAs),
-// so one CTA's softmax overlaps the other's wgmma.
+// so one CTA's softmax overlaps the other's wgmma.  At hd = 256 one CTA
+// fits: Q and two K/V stages are 164,896 bytes, and the O accumulator
+// alone is 128 fp32 registers a thread, so the launch bounds ask for one
+// CTA an SM (up to 255 registers) and P V stays four column blocks of
+// m64n64k16.
 //
 // What bounds it: at hd = 128 a 64-key tile is ~768 clocks of tensor work
 // (S, then P V twice for hi and lo), and the softmax on the CUDA cores
@@ -194,7 +198,8 @@ struct AttnParams {
 // thread (warp, gq, tq) holds rows row0 + 16 * warp + gq + 8 * h (h = 0,
 // 1) of the mma layout.
 template <int HD, class Src>
-__global__ void __launch_bounds__(THREADS, 2) attention_sm90_kernel(
+__global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
+    attention_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const AttnParams p) {
   using T = Tile<HD>;
@@ -457,6 +462,7 @@ extern "C" int repro_attention_sm90_smem(int hd) {
     case 32: return Tile<32>::SMEM;
     case 64: return Tile<64>::SMEM;
     case 128: return Tile<128>::SMEM;
+    case 256: return Tile<256>::SMEM;
     default: return 0;
   }
 }

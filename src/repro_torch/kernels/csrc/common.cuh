@@ -92,11 +92,52 @@ struct Vec<__nv_bfloat16, N> {
 
 // Lanes that share one key in the lane-group kernels: fewer lanes per key
 // mean fewer shuffles and exponentials per key, more head dims (registers)
-// per lane.
+// per lane.  At hd 256 a whole warp takes a key, 8 dims a lane, so q and
+// acc of 8 rows stay at 128 registers.
 template <int HD, int GR>
 __host__ __device__ constexpr int lanes_per_key() {
-  const int want = GR <= 2 ? 8 : 16;
+  const int want = HD >= 256 ? 32 : GR <= 2 ? 8 : 16;
   return want < HD / 4 ? want : HD / 4;
+}
+
+// A kernel's shared buffer of BYTES bytes, 128-byte aligned: a static
+// array up to STATIC_SMEM bytes (what every head dim up to 128 asks for,
+// leaving room under the 48 KiB static limit for the kernel's other
+// arrays), past it the kernel's dynamic shared memory, which the launch
+// opts into with cudaFuncSetAttribute and passes (dyn_smem_bytes<BYTES>()).
+constexpr int STATIC_SMEM = 32768;
+
+template <int BYTES>
+__host__ __device__ constexpr int dyn_smem_bytes() {
+  return BYTES <= STATIC_SMEM ? 0 : BYTES + 128;
+}
+
+template <int BYTES>
+__device__ __forceinline__ uint8_t* smem_buffer() {
+  if constexpr (dyn_smem_bytes<BYTES>() == 0) {
+    __shared__ __align__(128) uint8_t buf[BYTES];
+    return buf;
+  } else {
+    extern __shared__ uint8_t dyn_smem[];
+    const uint32_t at = (uint32_t)__cvta_generic_to_shared(dyn_smem);
+    return dyn_smem + ((128u - (at & 127u)) & 127u);
+  }
+}
+
+// Launch ``kernel`` with dyn_smem_bytes<BYTES>() of dynamic shared memory,
+// opted in first where it passes the 48 KiB default; returns the CUDA
+// error of the attribute or of the launch.
+template <int BYTES, typename Kernel, typename... Args>
+int launch_with_smem(Kernel kernel, dim3 grid, int threads,
+                     cudaStream_t stream, Args... args) {
+  constexpr int dyn = dyn_smem_bytes<BYTES>();
+  if (dyn > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, dyn, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // Merge the online softmax states (m, l, acc) of the lane groups of a

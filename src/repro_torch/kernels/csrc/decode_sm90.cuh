@@ -37,8 +37,10 @@
 //    of 16 rows, not a 1-D bulk copy a key row: at 256 B a copy, the
 //    number of copies, not their bytes, sets the time.  The maps are
 //    encoded once per (tensor, shape) and kept (decode_map), so a call
-//    adds no encoding work.  The ring holds up to DECODE_RING bytes, 64
-//    keys at bf16 hd 128 (a whole chunk at hd 64 and below): the producer
+//    adds no encoding work.  The ring holds up to decode_ring_bytes(HD)
+//    bytes: 32 KiB up to hd 128, 64 keys at bf16 hd 128 (a whole chunk at
+//    hd 64 and below); 64 KiB at hd 256 (64 keys in bf16, 32 in fp32),
+//    dynamic shared memory there, which the launch opts into: the producer
 //    refills a stage as soon as the consumers free it, so half a chunk is
 //    in flight while the other half is computed.  Boxes wholly past the
 //    live keys are not issued; the rows of a box past them (and past L)
@@ -48,7 +50,9 @@
 //    wgmma M of 64 would be 97% padding).  DECODE_WARPS warps share the G
 //    rows of one kv head (GR <= 8 rows a CTA, more row groups beyond
 //    that); a key is read from shared memory by LPK lanes of 16 bytes
-//    each, so every lane group of a warp takes its own keys of a stage.
+//    each (32 bytes, two loads, where a key row passes 512 bytes: fp32 at
+//    hd 256, so a key still fits a warp), so every lane group of a warp
+//    takes its own keys of a stage.
 //    The instructions a key costs set the loop's time (it is issue-bound
 //    with several CTAs an SM), so a full stage runs without per-key tests.
 //    Each group keeps an online softmax (m, l, acc) per row in fp32
@@ -77,7 +81,7 @@ namespace {
 
 constexpr int DECODE_CHUNK = 128;     // keys a CTA owns
 constexpr int DECODE_STAGE = 16;      // key rows of K (and of V) a stage
-constexpr int DECODE_RING = 32768;    // bytes of the ring, at most
+constexpr int DECODE_RING = 32768;    // bytes of the ring up to hd 128
 constexpr int DECODE_WARPS = 4;       // consumer warps (128 threads)
 constexpr int DECODE_THREADS = (DECODE_WARPS + 1) * 32;
 constexpr int DECODE_ROWS = 8;        // query rows a CTA, at most
@@ -99,6 +103,13 @@ struct DecodeParams {
   float scale;
 };
 
+// The ring's bytes at most: 64 KiB at hd 256, where a 16-row bf16 stage
+// is 16 KiB (two stages in 32 KiB would leave no room for the warps'
+// merge) and an fp32 one 32 KiB.
+constexpr int decode_ring_bytes(int hd) {
+  return hd <= 128 ? DECODE_RING : 2 * DECODE_RING;
+}
+
 // A stage holds DECODE_STAGE key rows of K, then of V, as boxes of
 // box_rows rows in slots of max(box_rows * ROW, 128) bytes (a TMA tile
 // lands on a 128-byte boundary); ROW and box_rows are powers of two, so
@@ -109,25 +120,37 @@ struct DecodeRing {
   static constexpr int PITCH = ROW < 128 ? 128 : ROW;
   static constexpr int STAGE = 2 * DECODE_STAGE * PITCH;
   static constexpr int PER_CHUNK = DECODE_CHUNK / DECODE_STAGE;
-  static constexpr int FIT = DECODE_RING / STAGE;
+  static constexpr int FIT = decode_ring_bytes(HD) / STAGE;
   static constexpr int NST = FIT < PER_CHUNK ? FIT : PER_CHUNK;
+  static constexpr int BYTES = NST * STAGE;
   static_assert(NST >= 2 && (ROW & (ROW - 1)) == 0, "ring");
   // the warps' merge reuses the drained ring
-  static_assert(DECODE_WARPS * DECODE_ROWS * (HD + 2) * 4 <= NST * STAGE,
+  static_assert(DECODE_WARPS * DECODE_ROWS * (HD + 2) * 4 <= BYTES,
                 "merge space");
 };
 
+// CTAs an SM the launch bounds promise: five (80 registers) for up to 2
+// rows, the main path's G, where the 32 KiB ring lets five fit; three at
+// hd 256, where the 64 KiB ring lets three fit (136 registers); one for
+// more rows.
+template <int HD, int GR>
+constexpr int decode_min_ctas() {
+  return GR > 2 ? 1 : HD <= 128 ? 5 : 3;
+}
+
 // Both launch bounds are given, so ptxas may use registers up to the limit
 // they set (with the thread count alone it spills to cross an occupancy
-// step): five CTAs an SM (80 registers) for up to 2 rows, the main path's
-// G, one for more rows.
+// step).
 template <typename T, int HD, int GR, class Src>
-__global__ void __launch_bounds__(DECODE_THREADS, GR <= 2 ? 5 : 1)
+__global__ void __launch_bounds__(DECODE_THREADS, decode_min_ctas<HD, GR>())
     decode_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const DecodeParams p) {
   using R = DecodeRing<T, HD>;
-  constexpr int VEC = 16 / (int)sizeof(T);   // head dims a lane loads
+  // head dims a lane loads: 16 bytes, or 32 where a key row passes 512
+  // bytes (32 lanes a key at most)
+  constexpr int VEC =
+      (HD * (int)sizeof(T) > 512 ? 32 : 16) / (int)sizeof(T);
   constexpr int LPK = HD / VEC;              // lanes per key
   constexpr int KPW = 32 / LPK;              // keys a warp takes at once
   constexpr int GROUPS = DECODE_WARPS * KPW;  // lane groups of the CTA
@@ -140,7 +163,7 @@ __global__ void __launch_bounds__(DECODE_THREADS, GR <= 2 ? 5 : 1)
   constexpr bool SPARE = GROUPS * PER > DECODE_STAGE;
   static_assert(HD % VEC == 0 && 32 % LPK == 0 && GR <= DECODE_ROWS, "shape");
 
-  __shared__ __align__(128) uint8_t ring[R::NST * R::STAGE];
+  uint8_t* const ring = smem_buffer<R::BYTES>();
   __shared__ __align__(8) uint64_t bars[2 * R::NST];
   __shared__ int last;
 
@@ -458,9 +481,9 @@ int launch_decode_rows(const CUtensorMap& kmap, const CUtensorMap& vmap,
 #define REPRO_LAUNCH(GR_)                                                  \
   {                                                                        \
     const dim3 grid(p.KV * ((p.G + GR_ - 1) / GR_), p.B, p.n_chunks);      \
-    decode_sm90_kernel<T, HD, GR_, Src>                                    \
-        <<<grid, DECODE_THREADS, 0, stream>>>(kmap, vmap, p);              \
-    return (int)cudaGetLastError();                                        \
+    return launch_with_smem<DecodeRing<T, HD>::BYTES>(                     \
+        decode_sm90_kernel<T, HD, GR_, Src>, grid, DECODE_THREADS, stream, \
+        kmap, vmap, p);                                                    \
   }
   if (p.G <= 1) REPRO_LAUNCH(1);
   if (p.G <= 2) REPRO_LAUNCH(2);
@@ -479,7 +502,7 @@ template <class Src>
 int launch_decode(int dtype, int hd, DecodeParams p, uint64_t rows,
                   uint64_t outer, int page_rows, void* stream) {
   if ((dtype != 0 && dtype != 1) ||
-      (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256))
     return -1;
   p.box_rows = DECODE_STAGE;
   while (page_rows % p.box_rows) p.box_rows >>= 1;
@@ -495,11 +518,13 @@ int launch_decode(int dtype, int hd, DecodeParams p, uint64_t rows,
     switch (hd) {
       REPRO_HD(float, 16); REPRO_HD(float, 32);
       REPRO_HD(float, 64); REPRO_HD(float, 128);
+      REPRO_HD(float, 256);
     }
   }
   switch (hd) {
     REPRO_HD(__nv_bfloat16, 16); REPRO_HD(__nv_bfloat16, 32);
     REPRO_HD(__nv_bfloat16, 64); REPRO_HD(__nv_bfloat16, 128);
+    REPRO_HD(__nv_bfloat16, 256);
   }
   return -1;
 #undef REPRO_HD

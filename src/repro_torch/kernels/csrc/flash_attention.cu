@@ -198,9 +198,11 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   // merge the groups of a warp
   merge_lane_groups<GR, VEC, LPK>(m, l, acc);
 
-  // merge the warps through shared memory and write the rows
+  // merge the warps through shared memory and write the rows (a_s is
+  // dynamic shared memory at hd 256: 64 KiB)
   __shared__ float m_s[NW][GR], l_s[NW][GR];
-  __shared__ float a_s[NW][GR][HD];
+  float(*a_s)[GR][HD] = reinterpret_cast<float(*)[GR][HD]>(
+      smem_buffer<NW * GR * HD * 4>());
   if (lane < LPK) {
 #pragma unroll
     for (int i = 0; i < GR; ++i) {
@@ -254,10 +256,10 @@ int launch(int dtype, const void* q, const void* k, const void* v,
     return launch_attention<HD, DenseSrc>(kmap, vmap, p, B, stream);
   }
   const dim3 grid(B, KV, (S * G + GR - 1) / GR);
-  flash_simt_kernel<HD><<<grid, NT, 0, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, KV,
-      G, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_with_smem<NW * GR * HD * 4>(
+      flash_simt_kernel<HD>, grid, NT, stream, (const float*)q,
+      (const float*)k, (const float*)v, (float*)out, S, KV, G, causal,
+      window, scale);
 }
 
 }  // namespace
@@ -280,6 +282,8 @@ extern "C" int repro_flash_attention(int dtype, int hd, const void* q,
     case 64: return launch<64>(dtype, q, k, v, out, B, S, KV, G, causal,
                                window, scale, st);
     case 128: return launch<128>(dtype, q, k, v, out, B, S, KV, G, causal,
+                                 window, scale, st);
+    case 256: return launch<256>(dtype, q, k, v, out, B, S, KV, G, causal,
                                  window, scale, st);
     default: return -1;
   }

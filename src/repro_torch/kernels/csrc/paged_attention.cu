@@ -195,9 +195,11 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
   // merge the groups of a warp
   merge_lane_groups<GR, VEC, LPK>(m, l, acc);
 
-  // merge the warps through shared memory and write the rows
+  // merge the warps through shared memory and write the rows (a_s is
+  // dynamic shared memory at hd 256: 64 KiB)
   __shared__ float m_s[NW][GR], l_s[NW][GR];
-  __shared__ float a_s[NW][GR][HD];
+  float(*a_s)[GR][HD] = reinterpret_cast<float(*)[GR][HD]>(
+      smem_buffer<NW * GR * HD * 4>());
   if (lane < LPK) {
 #pragma unroll
     for (int i = 0; i < GR; ++i) {
@@ -327,11 +329,11 @@ int launch_extend_f32(const void* q, const void* k_pool, const void* v_pool,
                       int S, int KV, int G, int nb, int bs, int n_pool_rows,
                       float scale, cudaStream_t stream) {
   const dim3 grid(B, KV, (S * G + 7) / 8);
-  paged_attention_kernel<float, HD, 8><<<grid, NT, 0, stream>>>(
+  return launch_with_smem<NW * 8 * HD * 4>(
+      paged_attention_kernel<float, HD, 8>, grid, NT, stream,
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)bt, (const int*)pos0, (float*)out, S, KV, G, nb, bs,
       n_pool_rows, scale);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
@@ -411,6 +413,7 @@ extern "C" int repro_paged_extend_attention(
     REPRO_HD(32);
     REPRO_HD(64);
     REPRO_HD(128);
+    REPRO_HD(256);
     default: return -1;
   }
 #undef REPRO_HD

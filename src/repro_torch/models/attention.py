@@ -1,8 +1,18 @@
 """Attention of the port, the GQA subset of ``repro.models.attention``:
 full-sequence causal prefill, dense-cache decode, and the paged decode and
-extend steps.
+extend steps, for kinds ``causal``, ``global`` and ``local`` (a sliding
+window of ``cfg.window`` keys, RoPE at ``cfg.rope_local_base``).
 
-Dense caches are ``{"k", "v"}`` of ``(B, L, KV, hd)`` per layer.  Paged
+Dense caches are ``{"k", "v"}`` of ``(B, L, KV, hd)`` per layer.  A local
+layer whose window is shorter than the cache keeps a ring instead
+(``attention.py:350-359``): ``L = window`` rows, position ``p`` in row
+``p % L``, and a ``"pos"`` leaf ``(B, L)`` int32 of the position each row
+holds (-1 for none).  Every path writes a ring in position order from 0
+(exact-length prefills, then one row a decode step), so after position
+``pos`` is written its visible rows, JAX's ``0 <= pos_row``, ``pos_row >
+pos - window`` and ``pos_row <= pos``, are exactly rows ``0 ..
+min(pos + 1, L) - 1``: the decode runs the split-K decode kernel over the
+ring with ``lengths = min(pos + 1, L)``.  Paged
 caches are one shared block pool per layer, ``(num_blocks + 1, bs, KV,
 hd)``, addressed through per-sequence block tables; physical block 0 is the
 reserved null block that absorbs pad and stale writes.  Every attention of
@@ -79,34 +89,54 @@ _NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item 6 (the " \
 
 
 def _check_kind(kind: str, cfg):
-    if kind not in ("causal", "global"):
+    if kind not in ("causal", "global", "local"):
         raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
     if cfg.attn_softcap:
         raise NotImplementedError(f"attn_softcap {_NOT_PORTED}")
 
 
+def _rope_base(cfg, kind: str) -> float:
+    """gemma3's dual base: local layers rotate at ``rope_local_base``
+    (``attention.py:262-263``)."""
+    return cfg.rope_local_base if kind == "local" else cfg.rope_base
+
+
 def attn_forward(params, x, cfg, *, kind: str, positions=None, qkv=None):
     """Full-sequence causal attention (``attention.py:256-301``) for kinds
-    ``causal`` and ``global``, through ``kops.flash_attention`` at every
-    S.  x: (B,S,d); ``qkv`` reuses projections the caller already made."""
+    ``causal``, ``global`` and ``local`` (query s sees keys ``t > s -
+    window`` too), through ``kops.flash_attention`` at every S.  x:
+    (B,S,d); ``qkv`` reuses projections the caller already made."""
     _check_kind(kind, cfg)
     B, S, _ = x.shape
     if qkv is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
         qkv = _project_qkv(params, x, x, cfg, positions, positions,
-                           cfg.rope_base)
+                           _rope_base(cfg, kind))
     q, k, v = (t.contiguous() for t in qkv)
-    out = kops.flash_attention(q, k, v, causal=True, window=0)
+    window = cfg.window if kind == "local" else 0
+    out = kops.flash_attention(q, k, v, causal=True, window=window)
     return out.reshape(B, S, -1) @ params["wo"]
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, device):
-    """Dense per-slot K/V stripes, ``(batch, max_len, KV, hd)`` zeros
-    (``attention.py:350-359``, without the ring cache)."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
+def init_kv_cache(cfg, batch: int, max_len: int, device, *,
+                  ring: bool = False):
+    """Dense per-slot K/V stripes, ``(batch, max_len, KV, hd)`` zeros, or
+    with ``ring`` (a local layer's window shorter than ``max_len``) a ring
+    of ``min(max_len, window)`` rows and its ``"pos"`` leaf at -1
+    (``attention.py:350-359``)."""
+    L = min(max_len, cfg.window) if ring and cfg.window else max_len
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+         "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
+    if ring:
+        c["pos"] = torch.full((batch, L), -1, dtype=torch.int32,
+                              device=device)
+    return c
+
+
+def is_ring_cache(cache) -> bool:
+    return "pos" in cache
 
 
 def batched_cache_update(cache_arr, new_row, slot):
@@ -123,23 +153,42 @@ def attn_decode(params, x, cache, pos, cfg, *, kind: str):
     """Single decode step over a dense cache (``attention.py:386-408``).
     x: (B,1,d); pos: (B,) int32 absolute write position.  Keys ``<= pos``
     are visible: the attention is ``kops.decode_attention`` with
-    ``lengths = pos + 1``."""
+    ``lengths = pos + 1``.  A ring writes row ``pos % L`` and its ``"pos"``
+    entry, and sees its first ``min(pos + 1, L)`` rows (the module
+    docstring says why that is JAX's ring mask)."""
     _check_kind(kind, cfg)
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, x, cfg, pos[:, None], pos[:, None],
-                           cfg.rope_base)
-    batched_cache_update(cache["k"], k[:, 0], pos)
-    batched_cache_update(cache["v"], v[:, 0], pos)
+                           _rope_base(cfg, kind))
+    if is_ring_cache(cache):
+        L = cache["k"].shape[1]
+        slot = pos % L
+        batched_cache_update(cache["pos"], pos, slot)
+        lengths = torch.clamp(pos + 1, max=L)
+    else:
+        slot, lengths = pos, pos + 1
+    batched_cache_update(cache["k"], k[:, 0], slot)
+    batched_cache_update(cache["v"], v[:, 0], slot)
     out = kops.decode_attention(q[:, 0].contiguous(), cache["k"],
-                                cache["v"], pos + 1)
+                                cache["v"], lengths)
     return out.reshape(B, 1, -1) @ params["wo"], cache
 
 
 def prefill_into_cache(params_unused, k, v, cache, cfg, *, kind: str):
     """Write full-sequence K/V (B,S,KV,hd) into rows ``[0, S)`` of a
-    cache, in place (``attention.py:437-456``, without the ring cache)."""
+    cache, in place; a ring keeps the last ``min(S, L)`` positions, ``p``
+    in row ``p % L`` (``attention.py:437-456``)."""
     _check_kind(kind, cfg)
     S = k.shape[1]
+    if is_ring_cache(cache):
+        L = cache["k"].shape[1]
+        take = min(S, L)
+        pos = torch.arange(S - take, S, device=k.device)
+        slots = pos % L
+        cache["k"][:, slots] = k[:, S - take:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, S - take:].to(cache["v"].dtype)
+        cache["pos"][:, slots] = pos.to(torch.int32)
+        return cache
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
     return cache
@@ -180,10 +229,6 @@ def _paged_gather(cache, bt):
     k = cache["kp"][idx].reshape(B, nb * bs, *cache["kp"].shape[2:])
     v = cache["vp"][idx].reshape(B, nb * bs, *cache["vp"].shape[2:])
     return k, v
-
-
-def _rope_base(cfg, kind: str) -> float:
-    return cfg.rope_local_base if kind == "local" else cfg.rope_base
 
 
 def paged_attn_decode(params, x, cache, pos, bt, cfg, *, kind: str):

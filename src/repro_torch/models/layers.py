@@ -52,18 +52,19 @@ def apply_rope(x, positions, base: float):
 
 
 def apply_mlp(params, x, cfg):
-    """The SwiGLU MLP, or the plain two-layer MLP with biases and the tanh
-    GELU (``jax.nn.gelu(approximate=True)``) (``layers.py:91-104``); the
-    other MLP kinds come with the families that use them."""
-    if cfg.mlp == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-        return h @ params["w_down"]
+    """The gated MLPs, SwiGLU and GeGLU (the gate through the tanh GELU,
+    ``jax.nn.gelu(approximate=True)``), or the plain two-layer MLP with
+    biases and the tanh GELU (``layers.py:91-104``)."""
+    if cfg.mlp in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"]
+        gate = F.silu(gate) if cfg.mlp == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        return (gate * (x @ params["w_up"])) @ params["w_down"]
     if cfg.mlp == "gelu_mlp":
         h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
         return h @ params["w_down"] + params["b_down"]
-    raise NotImplementedError(
-        f"mlp={cfg.mlp!r} is not in the port yet: ROADMAP.md, Queue 1, "
-        f"item 6 (the other LM families)")
+    raise ValueError(f"mlp={cfg.mlp!r}: not an MLP kind of the JAX package "
+                     f"(swiglu, geglu, gelu_mlp)")
 
 
 def embed(params, tokens, cfg):

@@ -1,8 +1,11 @@
 """Decoder LM of the port (``repro.models.transformer``), kinds ``A``
-(attention: dense prefill and decode, paged decode and extend), ``M``
-(the same attention, qk-norm where the config asks for it, and the MoE
-FFN of ``models/moe.py``; MLA, ``kv_lora_rank``, is not in the port) and
-``S`` (Mamba-1: prefill and decode over a recurrent state).
+(attention: dense prefill and decode, paged decode and extend), ``L`` and
+``G`` (gemma3's sliding-window local attention, over a ring cache where
+the window is shorter than the cache, and its global attention, each at
+its own RoPE base), ``M`` (the same attention, qk-norm where the config
+asks for it, and the MoE FFN of ``models/moe.py``; MLA, ``kv_lora_rank``,
+is not in the port) and ``S`` (Mamba-1: prefill and decode over a
+recurrent state).
 
 Expert capacity couples the rows of a kind-``M`` batch, so every pass
 keeps every row of its batch: an inactive slot of the decode loop feeds
@@ -13,9 +16,9 @@ Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
 [pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
 Python loop over the repeats takes the place of ``lax.scan``.  Caches
 mirror it: dense ``caches[gi][pi] = {"k", "v"}`` of ``(repeats, B, L, KV,
-hd)``, paged ``{"kp", "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``,
-SSM state ``{"conv", "h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats,
-B, di, N)``.
+hd)`` (a ring adds ``"pos"`` of ``(repeats, B, L)``), paged ``{"kp",
+"vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``, SSM state ``{"conv",
+"h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats, B, di, N)``.
 
 In place, unlike JAX: the prefill, decode and extend passes write K/V and
 SSM state into the cache tensors they are given, and :func:`decode_loop`
@@ -60,8 +63,13 @@ def paged_supported(cfg, max_len: int) -> bool:
     return True
 
 
+#: attention kind of each attention layer kind (``transformer.py:162-163``)
+_ATTN_KIND = {"A": "causal", "M": "causal", "L": "local", "G": "global"}
+
+
 def _check_kind(kind: str, cfg):
-    if kind not in ("A", "S", "M") or (kind == "M" and cfg.kv_lora_rank):
+    if kind not in ("A", "L", "G", "S", "M") or \
+            (kind == "M" and cfg.kv_lora_rank):
         what = "MLA (kind 'M' with kv_lora_rank)" if kind == "M" else \
             f"layer kind {kind!r}"
         raise NotImplementedError(f"{what} " +
@@ -70,12 +78,14 @@ def _check_kind(kind: str, cfg):
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
-    """Dense cache of one layer (``transformer.py:75-83``): K/V for kinds
-    ``A`` and ``M``, the recurrent state for kind ``S``."""
+    """Dense cache of one layer (``transformer.py:75-83``): K/V for the
+    attention kinds, a ring for kind ``L`` whose window is shorter than
+    ``max_len``, the recurrent state for kind ``S``."""
     _check_kind(kind, cfg)
     if kind == "S":
         return ssm.init_ssm_state(cfg, batch, device)
-    return attn.init_kv_cache(cfg, batch, max_len, device)
+    ring = kind == "L" and bool(cfg.window) and cfg.window < max_len
+    return attn.init_kv_cache(cfg, batch, max_len, device, ring=ring)
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
@@ -133,23 +143,23 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
                                       f"the family serves dense")
         return x + mix, cache
     paged = attn.is_paged_cache(cache)
+    akind = _ATTN_KIND[kind]
     if mode == "decode" and paged:
         mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
-                                            cfg, kind="causal")
+                                            cfg, kind=akind)
     elif mode == "extend" and paged:
         mix, cache = attn.paged_attn_extend(p["mixer"], h, cache, pos, bt,
-                                            cfg, kind="causal")
+                                            cfg, kind=akind)
     elif mode == "decode":
         mix, cache = attn.attn_decode(p["mixer"], h, cache, pos, cfg,
-                                      kind="causal")
+                                      kind=akind)
     elif mode == "prefill":
         S = h.shape[1]
         positions = torch.arange(S, device=h.device)[None, :]
         q, k, v = attn._project_qkv(p["mixer"], h, h, cfg, positions,
-                                    positions, cfg.rope_base)
-        cache = attn.prefill_into_cache(None, k, v, cache, cfg,
-                                        kind="causal")
-        mix = attn.attn_forward(p["mixer"], h, cfg, kind="causal",
+                                    positions, attn._rope_base(cfg, akind))
+        cache = attn.prefill_into_cache(None, k, v, cache, cfg, kind=akind)
+        mix = attn.attn_forward(p["mixer"], h, cfg, kind=akind,
                                 qkv=(q, k, v))
     else:
         # JAX's dense extend (``attention.py:411-434``) verifies speculative

@@ -12,7 +12,9 @@ init_params``), with torch tensors at the leaves::
 
 A LayerNorm config adds a bias ``"b"`` beside each norm's ``"w"``, and
 the plain GELU MLP is ``{"w_up", "b_up", "w_down", "b_down"}``
-(``layers.py:83-88``, ``transformer.py:36-40``).  qk-norm adds
+(``layers.py:83-88``, ``transformer.py:36-40``); GeGLU has SwiGLU's
+leaves.  Kinds ``L`` and ``G`` (gemma3's local and global layers) have
+kind ``A``'s.  qk-norm adds
 ``"q_norm"`` and ``"k_norm"`` (hd,) to the mixer, and a kind-``M`` (MoE)
 layer's ``"ffn"`` is ``{"router" (d, E), "w_gate", "w_up" (E, d, f),
 "w_down" (E, f, d)}`` (``moe.py:16-24``).  A kind-``S`` (Mamba-1) layer
@@ -58,16 +60,17 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
                 continue
             routed = kind == "M" and not (cfg.kv_lora_rank or
                                           cfg.n_shared_experts)
-            if not (kind == "A" or routed) or \
-                    (cfg.qk_norm and not routed) or \
-                    cfg.mlp not in ("swiglu", "gelu_mlp") or \
+            if not (kind in ("A", "L", "G") or routed) or \
+                    cfg.mlp not in ("swiglu", "geglu", "gelu_mlp") or \
                     cfg.norm not in ("rmsnorm", "layernorm"):
                 raise NotImplementedError(
-                    f"{cfg.name}: only plain kind-A layers (rmsnorm or "
-                    f"layernorm, swiglu or gelu_mlp, no qk-norm), kind-M "
-                    f"layers without MLA or shared experts, and kind-S "
-                    f"layers are in the port yet: ROADMAP.md, Queue 1, item "
-                    f"6 (the other LM families)")
+                    f"{cfg.name}: only attention layers of kinds A, L and G "
+                    f"(rmsnorm or layernorm, swiglu, geglu or gelu_mlp, "
+                    f"qk-norm or not), kind-M layers without MLA or shared "
+                    f"experts, and kind-S layers are in the port yet: "
+                    f"ROADMAP.md, Queue 1, item 6 (the other LM families: "
+                    f"recurrentgemma-2b's kind R next, then MLA and "
+                    f"encdec)")
             specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
             specs.update({
                 f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
@@ -81,7 +84,7 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
             specs.update(_norm_specs(cfg, f"{pre}/ln2", R, norm_init))
             if routed:
                 specs.update(_moe_specs(cfg, pre, R))
-            elif cfg.mlp == "swiglu":
+            elif cfg.mlp in ("swiglu", "geglu"):
                 specs.update({
                     f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
                     f"{pre}/ffn/w_up": (R, ((d, f), "normal")),

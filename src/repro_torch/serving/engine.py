@@ -1,8 +1,13 @@
 """LM serving engine of the port: ``repro.serving.engine`` with continuous
 batching, on three paths, for the dense GQA family (``internlm2-1.8b``,
-``starcoder2-3b``), the MoE family (``qwen3-moe-30b-a3b``), the token path
-of the VLM family (``internvl2-1b``'s decoder; its patch prefix is not in
-the port) and the Mamba-1 family (``falcon-mamba-7b``).
+``starcoder2-3b``, and at head dim 256 ``gemma-7b`` and ``gemma3-4b``), the
+MoE family (``qwen3-moe-30b-a3b``), the token path of the VLM family
+(``internvl2-1b``'s decoder; its patch prefix is not in the port) and the
+Mamba-1 family (``falcon-mamba-7b``).
+
+gemma3-4b's local layers keep a ring of ``window`` rows at ``max_len``
+2048, so, as in JAX, it serves dense (``paged=True`` falls back, counted)
+with exact-length admits (a pad would take a ring row).
 
 * Dense fused (``paged=False``, the default): K/V live in one dense
   ``max_len`` stripe per slot.  An admit prefills the queue's longest
@@ -294,13 +299,23 @@ class EngineFns:
         (``engine.py:431-441``).  A leaf of ``small`` is ``(repeats, n,
         ...)``; where it is shorter than the engine's along axis 2 (K/V of
         a ``bucket`` against ``max_len``) the rest of the row is zeroed,
-        and a state leaf (``conv``, ``h``) fills its row."""
+        and a state leaf (``conv``, ``h``) fills its row.  A ring's
+        ``"pos"`` row past the prefill is -1 (no position); a prefill
+        shorter than the ring made a plain stripe with no ``"pos"`` leaf,
+        whose rows hold positions ``0 .. S-1``, as JAX's ring prefill of
+        a fresh ring writes them (``attention.py:441-452``)."""
         for group, small_group in zip(caches, small):
             for c, sc in zip(group, small_group):
                 for key, big in c.items():
+                    if key == "pos" and key not in sc:
+                        S = sc["k"].shape[2]
+                        row = torch.arange(big.shape[2], dtype=big.dtype,
+                                           device=big.device)
+                        big[:, slots] = torch.where(row < S, row, -1)
+                        continue
                     S = sc[key].shape[2]
                     big[:, slots, :S] = sc[key]
-                    big[:, slots, S:] = 0
+                    big[:, slots, S:] = -1 if key == "pos" else 0
         return caches
 
     def admit(self, params, tokens, meta, caches, pos, last, active,

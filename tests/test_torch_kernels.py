@@ -98,6 +98,7 @@ _FLASH_SHAPES = [
     (2, 256, 8, 2, 64),     # GQA 4:1
     (1, 512, 4, 1, 128),    # MQA
     (1, 192, 6, 2, 32),     # ragged seq (the TPU kernel's pad path)
+    (1, 128, 4, 2, 256),    # head dim 256 (gemma), GQA 2:1
 ]
 
 
@@ -116,7 +117,8 @@ def test_flash_attention(B, S, H, KV, hd, dtype, causal, window):
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [(1, 64, 4, 2, 32),
-                                         (1, 192, 6, 2, 32)])
+                                         (1, 192, 6, 2, 32),
+                                         (1, 64, 4, 4, 256)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
 def test_flash_attention_vs_pallas(B, S, H, KV, hd, causal, window):
     """The plain flash attention against the Pallas kernel in interpret
@@ -132,6 +134,7 @@ def test_flash_attention_vs_pallas(B, S, H, KV, hd, causal, window):
     (2, 256, 8, 2, 64, 4),
     (1, 512, 4, 4, 128, 8),
     (3, 128, 4, 1, 64, 2),
+    (2, 128, 4, 2, 256, 2),      # head dim 256 (gemma)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention(B, L, H, KV, hd, n_splits, dtype):
@@ -174,6 +177,8 @@ def test_decode_attention_length_zero_is_the_mean_of_v():
     (3, 5, 8, 4, 1, 64, "float32"),      # MQA, small blocks
     (2, 4, 16, 8, 2, 64, "bfloat16"),
     (3, 5, 8, 4, 1, 64, "bfloat16"),
+    (2, 3, 16, 4, 4, 256, "float32"),    # head dim 256 (gemma-7b: MHA)
+    (2, 3, 16, 4, 4, 256, "bfloat16"),
 ])
 def test_paged_decode_attention(B, nb_seq, bs, H, KV, hd, dtype):
     rng, q, kp, vp, bt = _paged_inputs(13, B, nb_seq, bs, KV, hd,
@@ -194,6 +199,8 @@ def test_paged_decode_attention(B, nb_seq, bs, H, KV, hd, dtype):
     (3, 3, 5, 8, 4, 1, 64, "float32"),     # MQA, small blocks, odd suffix
     (2, 16, 2, 16, 8, 2, 64, "float32"),   # suffix spanning whole blocks
     (2, 4, 4, 16, 8, 2, 64, "bfloat16"),
+    (2, 5, 3, 16, 4, 4, 256, "float32"),   # head dim 256 (gemma-7b: MHA)
+    (2, 5, 3, 16, 4, 4, 256, "bfloat16"),
 ])
 def test_paged_extend_attention(B, S, nb_seq, bs, H, KV, hd, dtype):
     rng, q, kp, vp, bt = _paged_inputs(17, B, nb_seq, bs, KV, hd,

@@ -132,11 +132,26 @@ def test_gelu_mlp_matches_jax(model):
 
 
 def test_other_mlp_kinds_still_raise():
+    """Every MLP kind of the JAX package is in the port: GeGLU takes
+    SwiGLU's leaves (gate, up, down) and its gate through the tanh GELU;
+    a kind the JAX package does not have raises."""
     cfg = reduced(get_config(ARCH)).replace(mlp="geglu")
+    specs = weights.param_specs(cfg)
+    assert {k.rsplit("/", 1)[1] for k in specs if "/ffn/" in k} == \
+        {"w_gate", "w_up", "w_down"}
+    rng = np.random.RandomState(2)
+    ffn = {k.rsplit("/", 1)[1]: _t(rng.standard_normal(shape)
+                                   .astype(np.float32))
+           for k, (_, (shape, _)) in specs.items()
+           if k.startswith("groups/0/0/ffn/")}
+    x = _t(rng.standard_normal((3, 64)).astype(np.float32))
+    want = (torch.nn.functional.gelu(x @ ffn["w_gate"], approximate="tanh")
+            * (x @ ffn["w_up"])) @ ffn["w_down"]
+    assert torch.allclose(layers.apply_mlp(ffn, x, cfg), want, **LAYER_TOL)
+    with pytest.raises(ValueError, match="reglu"):
+        layers.apply_mlp(ffn, x, cfg.replace(mlp="reglu"))
     with pytest.raises(NotImplementedError, match="item 6"):
-        layers.apply_mlp({}, torch.zeros(1, 64), cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        weights.param_specs(cfg)
+        weights.param_specs(cfg.replace(mlp="reglu"))
 
 
 # ----------------------------------------------------------------------
