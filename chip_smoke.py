@@ -16,7 +16,9 @@ migrating drain behind the Router), starcoder2-3b (LayerNorm, a GELU MLP,
 and the MoE family (qwen3-moe-30b-a3b: 128 experts top-8, qk-norm, G 8)
 on both attention paths, gemma-7b (head dim 256, MHA, GeGLU) on both and
 gemma3-4b (head dim 256, local layers over rings of their window, global
-layers, qk-norm) on the dense one, and the telemetry (time series, SLO
+layers, qk-norm) on the dense one, recurrentgemma-2b (RG-LRU layers, their
+recurrence on the scan kernel at N = 1, and MQA local attention at G 10,
+hd 256) on the dense one, and the telemetry (time series, SLO
 engine, stats server, autoscaler) over process replicas, and holds every
 kernel against its plain PyTorch version.  One line per phase:
 
@@ -72,7 +74,14 @@ kernel against its plain PyTorch version.  One line per phase:
    shapes with gemma-7b's heads (H 16, KV 16, G 1) and gemma3-4b's (H 8,
    KV 4, G 2), flash at gemma3's window 1024 over S 2048, and flash and
    the extend at the admit shapes of the gemma serves, with the bf16
-   rule, controls, times, bounds and SDPA;
+   rule, controls, times, bounds and SDPA; after those, recurrentgemma-2b:
+   flash and the split-K decode at its heads (H 10, KV 1, G 10, hd 256)
+   at the main paths' shapes, flash at its window 2048 over S 2,200 and
+   at its serve's admit shapes, with the bf16 rule, controls, times,
+   bounds and SDPA, and the scan kernel at N = 1 (the RG-LRU recurrence,
+   B 1, w 2560) at every admit length of its serve against the plain
+   version with the chunk-zeroed control, timed at S 512 and 2,200 beside
+   its bound and the ``torch.cumsum`` yardstick;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -94,6 +103,11 @@ kernel against its plain PyTorch version.  One line per phase:
    plain (four times the same tokens), and the ten-layer fp32 reduced
    gemma3-4b (window 16) dense, kernel and plain, with prompts past the
    window (flash's window mask, rings wrapped in prefill and decode);
+   and the eight-layer fp32 reduced recurrentgemma-2b ((R, R, L) x 2 +
+   (R, R), window 16, max_len 48) dense, kernel and plain, with prompts
+   of 1, 2, 3 and past 16 tokens (flash 2, scan 6 a prefill batch), then
+   asked for the paged engine: the same tokens, served dense, the
+   fallback counted;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
@@ -126,7 +140,15 @@ kernel against its plain PyTorch version.  One line per phase:
    vocab 262,144, tied, 3.88 B) asked for the paged engine: it serves
    dense and counts the fallback, with a ninth request of 1,100 tokens
    past the window; each with its launch counts, tok/s, TTFT, memory
-   after the init and at peak, and a profiled decode sync;
+   after the init and at peak, and a profiled decode sync.  After
+   gemma3-4b, recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local over
+   2,048-row rings at max_len 4096; 10 heads over 1, hd 256, d_ff 7,680,
+   vocab 256,000, tied, 2.89 B, ``lambda`` fp32) asked for the paged
+   engine: it serves dense and counts the fallback, with a ninth request
+   of 2,200 tokens; launches exact (flash 8 and the scan 18 a prefill
+   batch, the split-K decode 8 a step), a profiled decode sync and
+   profiled 2,200-token admit with device time by kind, and the gates of
+   one layer alone;
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -656,6 +678,7 @@ def phase_kernels():
             OTHER_HEADS:
         _serve_admits(gen, dev, arch, heads, hd)
     _hd256_checks(gen, dev)
+    _recurrentgemma_checks(gen, dev)
     return stats
 
 
@@ -710,6 +733,85 @@ def _hd256_checks(gen, dev):
     _flash_window(gen, dev, "gemma3-4b", (8, 4), 256, 1024, 2048)
     for arch, heads, hd in GEMMA_HEADS:
         _serve_admits(gen, dev, arch, heads, hd)
+
+
+#: recurrentgemma-2b's local attention: 10 query heads over 1 kv head (MQA,
+#: G 10: the decodes' 8-row groups take 10 heads as 8 + 2) at hd 256
+RG_HEADS = ("recurrentgemma-2b", (10, 1), 256)
+
+
+def _recurrentgemma_checks(gen, dev):
+    """After every earlier check, so that their inputs stay those of
+    earlier runs: flash and the split-K decode at recurrentgemma-2b's
+    heads at phase 2's main-path shapes; flash at its window 2048 over S
+    2,200, the serve's long admit, and at the admit shapes of its phase-4
+    serve; and the scan kernel at N = 1 at the serve's admit shapes, the
+    RG-LRU recurrence."""
+    arch, heads, hd = RG_HEADS
+    stats, shares, issue = {}, {}, {}
+    _dense_main_path(gen, dev, heads, stats, shares, issue, hd)
+    H, KV = heads
+    _print_main_path(stats, shares, issue,
+                     f" at {arch}'s heads (H {H}, KV {KV}, G {H // KV}, "
+                     f"hd {hd})")
+    _flash_window(gen, dev, arch, heads, hd, _local_window(arch),
+                  SERVE_LONG[arch])
+    _serve_admits(gen, dev, arch, heads, hd)
+    _linear_scan_checks(gen, dev)
+
+
+def _linear_scan_checks(gen, dev):
+    """The scan kernel at N = 1, as the RG-LRU recurrence runs it
+    (``ops.linear_scan``: (B, S, w) viewed as (B, S, w, 1)), at every
+    admit shape of phase 4's recurrentgemma-2b serve (B 1, w 2560) against
+    the plain version with the chunk-zeroed control, then kernel, plain
+    and yardstick times and the bound at S 512 and 2,200."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as ss
+    arch = RG_HEADS[0]
+    w = get_config(arch).lru_width
+    lengths = sorted({S for S, _ in _admit_shapes(arch, False)})
+    worst, ctls = 0.0, []
+    for S in lengths:
+        a, b, h0 = _scan_inputs(gen, dev, 1, S, w, 1)
+        err, ctl = _scan_check(f"ssm_scan N=1 (1, {S}, {w})", a, b, h0,
+                               control=S > SCAN_CHUNK)
+        # the op the model calls: (B, S, w) in, the same launch
+        hs, hT = ss.ssm_scan_blocked(a, b, h0)
+        os_, oT = ops.linear_scan(a[..., 0], b[..., 0], h0[..., 0])
+        check(torch.equal(os_, hs[..., 0]) and torch.equal(oT, hT[..., 0]),
+              f"ops.linear_scan at (1, {S}, {w}) differs from the kernel "
+              f"at N = 1")
+        worst = max(worst, err)
+        if ctl is not None:
+            ctls.append(ctl)
+    print(f"[kernels] ssm_scan at N = 1 ({arch}'s RG-LRU recurrence, B 1, "
+          f"w {w}) at its serve's admit lengths {lengths}: max |kernel - "
+          f"plain| {worst:.3e} (limit atol=rtol={SCAN_TOL}); the controls "
+          f"with the carry zeroed every {SCAN_CHUNK} steps off by "
+          f"{min(ctls):.3e} to {max(ctls):.3e}, each rejected")
+    for S in (512, SERVE_LONG[arch]):
+        sets = [_scan_inputs(gen, dev, 1, S, w, 1) for _ in range(3)]
+        a, b, h0 = sets[0]
+        err, _ = _scan_check(f"ssm_scan N=1 (1, {S}, {w}) timed", a, b, h0)
+        by = 12 * S * w + 8 * w    # a, b in, h_seq out; h0 in, h_final out
+        st = _stats(err, by, 2 * S * w, "float32",
+                    _time_ms([lambda s=s: ss.ssm_scan_blocked(*s)
+                              for s in sets]),
+                    _time_ms([lambda: ref.ssm_scan_ref(a, b, h0)], iters=2),
+                    _time_ms([lambda s=s: torch.cumsum(s[1], dim=1)
+                              for s in sets]))
+        iss = _issue_ms(lambda: ss.ssm_scan_blocked(a, b, h0), iters=10)
+        print(f"[kernels] ssm_scan N=1 (1, {S}, {w}, 1) fp32: "
+              f"max_abs_err={err:.3e} ms={st['ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} yardstick "
+              f"torch.cumsum(b, dim=1) ms={st['library_ms']:.4f} "
+              f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}: 12 bytes "
+              f"a step-channel, 8 a channel); {-(-w // 512)} CTAs of 128 "
+              f"threads on the card's SMs; issued one by one from Python: "
+              f"{iss:.4f} ms per call")
 
 
 #: (H, KV) of the main path's attention (internlm2-1.8b: 16 query heads
@@ -848,7 +950,7 @@ def _admit_shapes(arch, paged):
     from repro_torch.serving.engine import EngineFns
     cfg = get_config(arch)
     paged = paged and tfm.paged_supported(cfg, 2048)
-    fns = EngineFns(cfg, ServeConfig(max_len=2048))
+    fns = EngineFns(cfg, ServeConfig(max_len=SERVE_MAX_LEN.get(arch, 2048)))
     # the lengths alone are used
     _, _, prompts = _serve_prompts(2, SERVE_LONG.get(arch, 0))
     pos0 = [256 if paged and i == 2 else 0 for i in range(len(prompts))]
@@ -1922,6 +2024,7 @@ def phase_token_exact():
           f"the same {n_tok} tokens through the kernels ({n_ext} paged "
           f"extend launches, no paged decode) and the plain versions")
     _token_exact_mamba()
+    _token_exact_recurrentgemma()
 
 
 def _token_exact_gemma():
@@ -2039,12 +2142,85 @@ def _token_exact_mamba():
           f"{batches} prefill batches) and the plain version")
 
 
+def _token_exact_recurrentgemma():
+    """fp32 reduced recurrentgemma-2b with its first scan group at 2
+    repeats, ``(R, R, L) x 2 + (R, R) x 1`` (6 RG-LRU and 2 local layers,
+    R > 1 for both kinds; MQA, hd 16, window 16), max_len 48, on the dense
+    engine through the kernels and forced through the plain versions: the
+    same tokens, with flash 2 and ``ssm_scan`` 6 a prefill batch and the
+    split-K decode 2 a step.  Prompts of 1, 2 and 3 tokens (shorter than
+    the conv's K-1 = 3, or equal) and past the window, same lengths
+    adjacent; then the paged engine asked for once: it serves dense, with
+    the same tokens and the fallback counted."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving import Engine, ServeConfig
+    dev = torch.device("cuda", 0)
+    arch = RG_HEADS[0]
+    cfg = reduced(get_config(arch)).replace(
+        n_layers=8, groups=(ScanGroup(("R", "R", "L"), 2),
+                            ScanGroup(("R", "R"), 1)))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (20, 20, 1, 2, 3, 3, 25, 1, 40)]
+    n_attn = sum(k == "L" for g in cfg.groups for k in g.pattern * g.repeats)
+    n_scan = cfg.n_layers - n_attn
+    runs = {}
+    for label, plain, extra in (("kernel", False, {}), ("plain", True, {}),
+                                ("paged asked", False,
+                                 dict(paged=True, block_size=8))):
+        ops.reset_counts()
+        with _forced_plain(plain):
+            eng = Engine(params, cfg, ServeConfig(max_len=48, slots=2,
+                                                  sync_every=4, **extra),
+                         device=dev)
+            reqs = _drain(eng, prompts, 8)
+        launches, calls = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
+        batches = eng.metrics.counter("engine.prefill_batches").value
+        fallback = eng.metrics.counter("engine.paged_fallback_dense").value
+        used, unused = (calls, launches) if plain else (launches, calls)
+        check(used["flash_attention"] == n_attn * batches and
+              used["ssm_scan"] == n_scan * batches and
+              used["decode_attention"] > 0 and
+              used["decode_attention"] % n_attn == 0 and
+              sum(used.values()) == sum(used[k] for k in
+                                        DENSE_KERNELS + SSM_KERNELS) and
+              not any(unused.values()) and not eng.paged and
+              fallback == int("paged" in extra),
+              f"{arch} {label} run: launches {launches}, plain {calls}, "
+              f"prefill batches {batches}, paged {eng.paged}, "
+              f"paged_fallback_dense {fallback}")
+        runs[label] = [(r.out_tokens, r.finish_reason) for r in reqs]
+        if label == "kernel":
+            counts = {k: launches[k] for k in DENSE_KERNELS + SSM_KERNELS}
+    for label in ("plain", "paged asked"):
+        check(runs[label] == runs["kernel"],
+              f"{arch}: {label} tokens {runs[label]} != kernel "
+              f"{runs['kernel']}")
+    print(f"[token-exact] {arch} fp32 {cfg.n_layers}-layer reduced ((R, R, "
+          f"L) x 2 + (R, R); H {cfg.n_heads}, KV {cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, window {cfg.window}, lru_width "
+          f"{cfg.lru_width}), dense engine, max_len 48: {len(prompts)} "
+          f"requests of {[len(p) for p in prompts]} tokens, "
+          f"{sum(len(t) for t, _ in runs['kernel'])} tokens identical "
+          f"through the kernels ({counts} in {batches} prefill batches) and "
+          f"the plain versions, and asked for the paged engine (served "
+          f"dense, paged_fallback_dense 1)")
+
+
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
     the dense path, then starcoder2-3b (G 12), internvl2-1b (G 7, hd 64)
     and gemma-7b (G 1, hd 256) the same two ways, gemma3-4b (G 2, hd 256)
-    asked for the paged engine (it serves dense), falcon-mamba-7b, and
+    and recurrentgemma-2b (G 10, hd 256, RG-LRU) asked for the paged
+    engine (they serve dense), falcon-mamba-7b, and
     qwen3-moe-30b-a3b (G 8, 128 experts) both ways; returns each kernel's
     launches in internlm2's run of its path, and the paged run's
     tokens."""
@@ -2056,6 +2232,8 @@ def phase_serve():
     # gemma3-4b's rings cannot page: asked for the paged engine, it serves
     # dense, counted in engine.paged_fallback_dense
     _serve_path(True, "gemma3-4b")
+    # nor can recurrentgemma-2b's RG-LRU state and rings (max_len 4096)
+    _serve_path(True, "recurrentgemma-2b")
     launches.update(_serve_mamba())
     # 57 GiB of weights: served last, each engine alone on the card
     for paged in (True, False):
@@ -2066,7 +2244,11 @@ def phase_serve():
 #: phase 4's ninth request, by arch: gemma3-4b's prompt past its 1,024-key
 #: window, so that flash's window bites at full width and the local
 #: layers' rings wrap in the prefill and in the decode
-SERVE_LONG = {"gemma3-4b": 1100}
+SERVE_LONG = {"gemma3-4b": 1100, "recurrentgemma-2b": 2200}
+
+#: phase 4's max_len, by arch (2048 for the others): recurrentgemma-2b's
+#: local layers keep rings only where the window (2048) is shorter
+SERVE_MAX_LEN = {"recurrentgemma-2b": 4096}
 
 
 def _serve_prompts(vocab, long=0):
@@ -2093,9 +2275,12 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     the dense engine at phase 4's settings: the requests, the path's
     launch counts read right after them (one a layer per admit batch and
     per decode step, no other kernel, no plain call; an MoE arch's admits
-    all batch-1), then one profiled decode sync; returns (launches,
-    tokens).  An arch that cannot page (gemma3-4b's rings) asked for the
-    paged engine must serve dense and count the fallback once."""
+    all batch-1; a recurrent layer's scan once per admit batch), then one
+    profiled decode sync (and for an RG-LRU arch its long admit); returns
+    (launches, tokens).  An arch that cannot page (gemma3-4b's rings,
+    recurrentgemma-2b's state) asked for the paged engine must serve dense
+    and count the fallback once.  max_len is 2048, or the arch's
+    SERVE_MAX_LEN."""
     import gc
 
     import torch
@@ -2106,14 +2291,20 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import transformer as tfm
     dev = torch.device("cuda", 0)
+    max_len = SERVE_MAX_LEN.get(arch, 2048)
     asked, paged = paged, paged and tfm.paged_supported(get_config(arch),
-                                                         2048)
+                                                         max_len)
     label = "paged" if paged else "dense"
     if asked and not paged:
         label = "dense fallback"
     if arch != "internlm2-1.8b":
         label = f"{arch} {label}"
-    keys = PAGED_KERNELS if paged else DENSE_KERNELS
+    # layers of a recurrent kind (RG-LRU) scan their admits on the scan
+    # kernel; the others run attention
+    n_scan = sum(k in ("R", "S") for g in get_config(arch).groups
+                 for k in g.pattern * g.repeats)
+    keys = (PAGED_KERNELS if paged else DENSE_KERNELS) + \
+        (SSM_KERNELS if n_scan else ())
     gc.collect()
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated(dev) < 2**30,
@@ -2121,23 +2312,30 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           f"allocated before the {label} serve")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = build_engine(arch, max_len=2048, slots=8, sync_every=8,
+    eng = build_engine(arch, max_len=max_len, slots=8, sync_every=8,
                        paged=asked, block_size=16, seed=0, device=dev)
     torch.cuda.synchronize()
     init_mem = torch.cuda.memory_allocated(dev)
     cfg = eng.cfg
     n_params = sum(t.numel() for t in _leaves(eng.params))
     fallback = eng.metrics.counter("engine.paged_fallback_dense").value
+    fp32 = sorted({k for g in eng.params["groups"] for layer in g
+                   for k, t in layer["mixer"].items()
+                   if t.dtype == torch.float32})
     check(cfg == get_config(arch) and
           eng.params["embedding"]["table"].dtype == torch.bfloat16 and
+          fp32 == (["lambda"] if cfg.lru_width else []) and
           eng.paged == paged and fallback == int(asked and not paged),
           f"{arch}: not the full-width bf16 config on the {label} engine "
-          f"(engine.paged {eng.paged}, paged_fallback_dense {fallback})")
+          f"(engine.paged {eng.paged}, paged_fallback_dense {fallback}, "
+          f"fp32 mixer leaves {fp32})")
     rings = sorted({c["k"].shape[2] for g in eng.caches for c in g
                     if "pos" in c}) if not paged else []
     kv = (f"pool {eng.alloc.num_blocks} blocks x 16" if paged else
-          "dense caches 8 x 2048" +
+          f"dense caches 8 x {max_len}" +
           (f", local layers' rings of {rings} rows" if rings else "") +
+          (f", {n_scan} RG-LRU layers' fp32 state, lambda fp32"
+           if cfg.lru_width else "") +
           (f", paged_fallback_dense {fallback}" if asked else ""))
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}, expert d_ff "
            f"{cfg.expert_d_ff}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
@@ -2180,10 +2378,14 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
               len(r.out_tokens) == max_new + 1 and
               all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.rid}: {r.finish_reason}, {r.out_tokens}")
-    # one launch a layer for each admit batch (extend or flash) and for
-    # each of the 8 decode steps of a sync (paged or split-K decode)
-    want = {keys[0 if paged else 1]: cfg.n_layers * 8 * syncs,
-            keys[1 if paged else 0]: cfg.n_layers * batches}
+    # one launch an attention layer for each admit batch (extend or flash)
+    # and for each of the 8 decode steps of a sync (paged or split-K
+    # decode), one a recurrent layer for each admit batch (the scan)
+    n_attn = cfg.n_layers - n_scan
+    want = {keys[0 if paged else 1]: n_attn * 8 * syncs,
+            keys[1 if paged else 0]: n_attn * batches}
+    if n_scan:
+        want["ssm_scan"] = n_scan * batches
     check(all(launches[k] == want[k] for k in keys) and
           sum(launches.values()) == sum(launches[k] for k in keys),
           f"{label}: launches {launches}, expected {want} ({syncs} syncs, "
@@ -2205,11 +2407,15 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
           f"ttft_p50={ttft[len(ttft) // 2]:.3f}s ttft_max={ttft[-1]:.3f}s "
           f"prefix_hit_blocks={hits} "
-          f"launches={launches} (= {cfg.n_layers} layers x {syncs} syncs x "
-          f"8 steps, x {batches} admit batches) plain_calls={plain} "
+          f"launches={launches} (= {n_attn} attention layers x {syncs} "
+          f"syncs x 8 steps, x {batches} admit batches" +
+          (f"; {n_scan} RG-LRU layers x {batches} admit batches"
+           if n_scan else "") + f") plain_calls={plain} "
           f"admit batch sizes={admits} "
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
     _profile_decode_sync(eng, tok, label)
+    if cfg.lru_width:
+        _profile_long_admit(eng, tok, label)
     tokens = [r.out_tokens for r in reqs]
     del eng, reqs
     gc.collect()
@@ -2358,6 +2564,90 @@ def _profile_admit(eng, tok):
           f"; top: {top}")
 
 
+def _kind_ms(rows):
+    """Device ms of a profile's kernel rows by kind: the scan kernel,
+    flash, the decode attention kernels, fp32 GEMMs (the RG-LRU gate
+    products: cuBLAS's fp32 kernels, TF32 off; a CUDA-core ``sgemm`` at
+    an admit, a ``gemvx`` over floats at a decode step), the other GEMMs
+    (bf16), copies (the casts, among them the gates' fp32 copies of
+    ``w_a`` and ``w_i``) and the rest."""
+    kinds = dict.fromkeys(("scan", "flash", "decode attention",
+                           "fp32 GEMMs", "bf16 GEMMs", "copies/casts",
+                           "other"), 0.0)
+    for us, _, name in rows:
+        low = name.lower()
+        gemm = any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma",
+                                      "gemv"))
+        fp32 = any(k in low for k in ("sgemm", "f32f32_f32f32", "nvjet_sss",
+                                      "kernel<int, int, float,"))
+        kind = ("scan" if "ssm_scan" in low else
+                "flash" if "flash" in low or "attention_sm90" in low else
+                "decode attention" if "decode" in low else
+                "fp32 GEMMs" if gemm and fp32 else
+                "bf16 GEMMs" if gemm else
+                "copies/casts" if "copy" in low else "other")
+        kinds[kind] += us / 1e3
+    return kinds
+
+
+def _profile_long_admit(eng, tok, label):
+    """The serve's long admit (one prompt of SERVE_LONG tokens, past the
+    2,048-key window) on the host clock, then the next one under
+    ``torch.profiler``: device ms by kind (:func:`_kind_ms`); then the
+    RG-LRU gates of one layer alone (``rglru._gates``: the two fp32
+    products with their fp32 copies of ``w_a`` and ``w_i``) at the
+    admit's and a decode step's shapes, device ms from a CUDA graph, and
+    the bytes those copies move."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import rglru
+    S = SERVE_LONG[RG_HEADS[0]]
+
+    def admit():
+        eng.submit(tok(S), max_new=1)
+        eng._admit_fused()
+        torch.cuda.synchronize()
+
+    admit()
+    eng.run_until_drained()
+    t0 = time.perf_counter()
+    admit()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        admit()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    busy_us, rows, top = _device_time(prof, f"{label} long admit")
+    print(f"[profile {label} admit] one admit of {S} tokens (batch 1): "
+          f"unprofiled wall {host_ms:.2f}ms; profiled wall={wall_ms:.2f}ms "
+          f"device_busy={busy_us / 1e3:.2f}ms idle_share="
+          f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in _kind_ms(rows).items()) +
+          f"; top: {top}")
+    cfg, dev = eng.cfg, eng.device
+    mixer = {k: v[0] for k, v in eng.params["groups"][0][0]["mixer"].items()}
+    w = cfg.lru_width
+    n_r = sum(k == "R" for g in cfg.groups for k in g.pattern * g.repeats)
+    parts = []
+    for shape in ((1, S, w), (8, 1, w)):
+        xs = [torch.randn(shape, device=dev).to(cfg.act_dtype)
+              for _ in range(3)]
+        ms = _time_ms([lambda x=x: rglru._gates(mixer, x) for x in xs],
+                      iters=5)
+        parts.append(f"{shape}: {ms:.4f} ms a layer, {n_r * ms:.3f} ms over "
+                     f"{n_r} layers")
+    copy_gb = 2 * w * w * (2 + 4 + 4) / 1e9   # read bf16, write and read fp32
+    print(f"[profile {label} gates] rglru._gates of one layer (two fp32 "
+          f"products over fp32 copies of w_a and w_i made at every call): "
+          + "; ".join(parts) + f"; the copies move {copy_gb:.3f} GB a layer "
+          f"and call, {n_r * copy_gb:.2f} GB a decode step over {n_r} "
+          f"layers")
+
+
 def _device_time(prof, label):
     """From a profile: the device's busy time (the union of its kernels'
     intervals, us), (us, count, name) rows by kernel, written to
@@ -2426,6 +2716,10 @@ def _profile_decode_sync(eng, tok, label):
     if decode:
         print(f"[profile {label}] decode attention kernels: " +
               "; ".join(decode))
+    if eng.cfg.lru_width:
+        print(f"[profile {label}] device ms by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in _kind_ms(rows).items()) +
+            f"; busy {busy_us / 1e3:.2f}ms")
     if eng.cfg.n_experts:
         # device time of each op's kernels: the expert products are the
         # MoE's three bmm a layer, the other GEMMs the projections and head

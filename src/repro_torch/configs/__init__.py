@@ -2,7 +2,9 @@
 ``get_config("falcon-mamba-7b")``, ``get_config("starcoder2-3b")``,
 ``get_config("qwen3-moe-30b-a3b")`` (MoE), ``get_config("internvl2-1b")``
 (its token path), ``get_config("gemma-7b")`` and ``get_config("gemma3-4b")``
-(head dim 256; gemma3's local and global layers).
+(head dim 256; gemma3's local and global layers) and
+``get_config("recurrentgemma-2b")`` (RG-LRU layers and MQA local
+attention).
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -20,6 +22,7 @@ _MODULES = {
     "internvl2-1b": "internvl2_1b",
     "gemma-7b": "gemma_7b",
     "gemma3-4b": "gemma3_4b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -31,6 +34,7 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
                        f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
                        f"Queue 1, item 6 (the other LM families: "
-                       f"recurrentgemma-2b next, then MLA and encdec)")
+                       f"deepseek-v2-lite (MLA) next, then whisper-base "
+                       f"(encdec))")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[key]}").CONFIG

@@ -1,7 +1,8 @@
 """Public kernel ops of the port, with the contracts of
 ``repro.kernels.ops`` (``ops.py:22-111``): attention queries in the
 model's ``(B, [S,] H, hd)`` layout, the phase-2 pair score and the Mamba
-selective scan.
+selective scan; and :func:`linear_scan`, the RG-LRU recurrence on the
+scan kernel at N = 1.
 
 The device of the tensors decides the route: a CUDA tensor launches the
 Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
@@ -152,3 +153,22 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
         h_seq, h_fin = ref.ssm_scan_ref(a_bar, b_bar, h0)
     y = torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D
     return y, h_fin
+
+
+def linear_scan(a, b, h0):
+    """The diagonal recurrence ``h_t = a_t * h_{t-1} + b_t`` of the RG-LRU
+    block (``models.rglru.diag_scan``): a, b (B,S,w) and h0 (B,w), fp32 ->
+    (h_seq (B,S,w), h_final (B,w)).  It is the contract of the TPU kernel
+    ``ssm_scan_blocked`` at N = 1, so the inputs are viewed as (B,S,w,1)
+    and take the scan kernel's route, counted under ``"ssm_scan"``.  JAX
+    computes it in plain ``jnp`` (chunked ``associative_scan``); the
+    kernel scans in order, so fp32 results agree up to summation order."""
+    B, S, w = a.shape
+    a4, b4 = a.contiguous().view(B, S, w, 1), b.contiguous().view(B, S, w, 1)
+    h4 = h0.contiguous().view(B, w, 1)
+    if _route("ssm_scan", a4):
+        h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
+    else:
+        ss.check_args(a4, b4, h4)
+        h_seq, h_fin = ref.ssm_scan_ref(a4, b4, h4)
+    return h_seq.view(B, S, w), h_fin.view(B, w)

@@ -11,6 +11,10 @@ driver would.  ``--arch qwen3-moe-30b-a3b`` serves the MoE family: its
 admits are batch-1 and ``--speculative`` falls back to plain paged
 decode, as in JAX; one copy of its full-width weights takes 57 GiB of
 the card, so it serves as one engine, not as process replicas.
+``--arch recurrentgemma-2b`` serves the Griffin hybrid family (RG-LRU
+layers and MQA local attention): like Mamba it holds recurrent state, so
+``--paged`` serves dense; give it ``--max-len`` above its 2,048-key
+window for its local layers to keep rings.
 
 ``--transport`` picks replica placement:
 
@@ -26,6 +30,11 @@ the card, so it serves as one engine, not as process replicas.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --requests 8 [--paged] [--arch falcon-mamba-7b]
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+        --arch recurrentgemma-2b --requests 8 --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduce --arch recurrentgemma-2b --requests 3 --max-new 4 \
+        --slots 2 --max-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduce --requests 3 --max-new 4 --slots 2 --max-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \

@@ -1,0 +1,114 @@
+"""RG-LRU recurrent block of the port (``repro.models.rglru``,
+RecurrentGemma / Griffin).
+
+Temporal mixing: x -> {branch: linear -> causal conv(k=4) -> RG-LRU,
+gate: linear -> gelu} -> elementwise product -> out projection.
+The RG-LRU recurrence is diagonal:  h_t = a_t * h_{t-1} + sqrt(1-a_t^2) * (i_t * x_t)
+with a_t = exp(-c * softplus(Lambda) * sigmoid(W_a x_t + b_a)), c = 8.
+
+Every full-sequence pass (:func:`rglru_forward`) runs the recurrence
+through :func:`repro_torch.kernels.ops.linear_scan`: the Hopper scan
+kernel at N = 1 on a CUDA tensor, the plain sequential recurrence on the
+CPU.  JAX computes it in plain ``jnp`` (a chunked ``associative_scan``);
+both compute the same recurrence.  A single-token step
+(:func:`rglru_decode`) is one multiply-add in torch, as in JAX.
+
+The gates are fp32 whatever the model's dtype, in JAX's order of
+operations; ``lambda`` stays fp32 in a bf16 tree.  State per layer:
+``{"conv": (B, K-1, w), "h": (B, w)}``, both fp32; ``conv`` holds values
+already rounded to the activation dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+RG_C = 8.0
+
+
+def _conv1d_causal(x, w, b, prev=None):
+    """x: (B,S,w), depthwise causal conv, kernel (K,w), in the activation
+    dtype (``rglru.py:39-46``; the K taps summed in the same order).  With
+    ``prev`` (B,K-1,w) the conv continues from it, else from zeros."""
+    K, S = w.shape[0], x.shape[1]
+    if prev is not None:
+        x_ext = torch.cat([prev.to(x.dtype), x], dim=1)
+    else:
+        x_ext = F.pad(x, (0, 0, K - 1, 0))
+    out = x_ext[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + x_ext[:, i:i + S] * w[i]
+    return out + b
+
+
+def _gates(params, xc):
+    """a_t and the gated input, fp32 (``rglru.py:49-57``).  xc: (B,S,w)."""
+    xf = xc.float()
+    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
+    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
+    lam = params["lambda"]
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
+    log_a = -RG_C * softplus * r                               # (B,S,w)
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    return a, gated
+
+
+def diag_scan(a, b, h0=None):
+    """h_t = a_t h_{t-1} + b_t, elementwise.  a, b: (B,S,w) fp32; h0:
+    (B,w) or None for zeros.  Returns (h_seq (B,S,w), h_final (B,w))
+    (``rglru.py:60-96``), through the scan kernel's route."""
+    if h0 is None:
+        h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                         device=a.device)
+    return kops.linear_scan(a, b, h0)
+
+
+def rglru_forward(params, x, cfg, state=None):
+    """x: (B,S,d) -> (out, new_state) (``rglru.py:99-117``); with
+    ``state`` the conv continues from ``state["conv"]`` and the scan from
+    ``state["h"]``."""
+    S = x.shape[1]
+    K = cfg.conv_k_rg
+    xb = x @ params["in_x"]
+    gate = x @ params["in_gate"]
+    xc = _conv1d_causal(xb, params["conv_w"], params["conv_b"],
+                        prev=state["conv"] if state is not None else None)
+    a, gated = _gates(params, xc)
+    h0 = state["h"] if state is not None else None
+    h_seq, h_fin = diag_scan(a, gated, h0)
+    y = h_seq.to(x.dtype) * F.gelu(gate, approximate="tanh")
+    out = y @ params["out"]
+    if S >= K - 1:
+        conv = xb[:, -(K - 1):]
+    elif state is not None:
+        conv = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)[:, -(K - 1):]
+    else:
+        conv = F.pad(xb, (0, 0, K - 1 - S, 0))
+    return out, {"conv": conv.float(), "h": h_fin}
+
+
+def init_rglru_state(cfg, batch: int, device):
+    return {
+        "conv": torch.zeros((batch, cfg.conv_k_rg - 1, cfg.lru_width),
+                            dtype=torch.float32, device=device),
+        "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def rglru_decode(params, x, state, cfg):
+    """Single-token step (``rglru.py:127-137``).  x: (B,1,d) -> (out
+    (B,1,d), new_state)."""
+    xb = x @ params["in_x"]
+    gate = x @ params["in_gate"]
+    conv_in = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)  # (B,K,w)
+    xc = (torch.einsum("bkw,kw->bw", conv_in, params["conv_w"]) +
+          params["conv_b"])[:, None]
+    a, gated = _gates(params, xc)
+    h = a[:, 0] * state["h"] + gated[:, 0]
+    y = h[:, None].to(x.dtype) * F.gelu(gate, approximate="tanh")
+    out = y @ params["out"]
+    return out, {"conv": conv_in[:, 1:].float(), "h": h}

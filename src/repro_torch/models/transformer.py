@@ -4,8 +4,9 @@
 the window is shorter than the cache, and its global attention, each at
 its own RoPE base), ``M`` (the same attention, qk-norm where the config
 asks for it, and the MoE FFN of ``models/moe.py``; MLA, ``kv_lora_rank``,
-is not in the port) and ``S`` (Mamba-1: prefill and decode over a
-recurrent state).
+is not in the port), ``S`` (Mamba-1: prefill and decode over a
+recurrent state) and ``R`` (recurrentgemma's RG-LRU block,
+``models/rglru.py``, over a recurrent state, then the MLP).
 
 Expert capacity couples the rows of a kind-``M`` batch, so every pass
 keeps every row of its batch: an inactive slot of the decode loop feeds
@@ -18,7 +19,9 @@ Python loop over the repeats takes the place of ``lax.scan``.  Caches
 mirror it: dense ``caches[gi][pi] = {"k", "v"}`` of ``(repeats, B, L, KV,
 hd)`` (a ring adds ``"pos"`` of ``(repeats, B, L)``), paged ``{"kp",
 "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``, SSM state ``{"conv",
-"h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats, B, di, N)``.
+"h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats, B, di, N)``, RG-LRU
+state ``{"conv", "h"}`` of ``(repeats, B, K-1, w)`` and ``(repeats, B,
+w)``, all fp32.
 
 In place, unlike JAX: the prefill, decode and extend passes write K/V and
 SSM state into the cache tensors they are given, and :func:`decode_loop`
@@ -31,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, ssm
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, embed, layer_norm,
                                        mask_padded_logits, rms_norm, unembed)
 
@@ -68,7 +71,7 @@ _ATTN_KIND = {"A": "causal", "M": "causal", "L": "local", "G": "global"}
 
 
 def _check_kind(kind: str, cfg):
-    if kind not in ("A", "L", "G", "S", "M") or \
+    if kind not in ("A", "L", "G", "S", "R", "M") or \
             (kind == "M" and cfg.kv_lora_rank):
         what = "MLA (kind 'M' with kv_lora_rank)" if kind == "M" else \
             f"layer kind {kind!r}"
@@ -80,10 +83,12 @@ def _check_kind(kind: str, cfg):
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
     """Dense cache of one layer (``transformer.py:75-83``): K/V for the
     attention kinds, a ring for kind ``L`` whose window is shorter than
-    ``max_len``, the recurrent state for kind ``S``."""
+    ``max_len``, the recurrent state for kinds ``S`` and ``R``."""
     _check_kind(kind, cfg)
     if kind == "S":
         return ssm.init_ssm_state(cfg, batch, device)
+    if kind == "R":
+        return rglru.init_rglru_state(cfg, batch, device)
     ring = kind == "L" and bool(cfg.window) and cfg.window < max_len
     return attn.init_kv_cache(cfg, batch, max_len, device, ring=ring)
 
@@ -128,6 +133,8 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     FFN (``:204-205``).  Kind ``S`` (``:136-143``): a Mamba mixer and no
     MLP; ``prefill`` runs the whole prompt from a zero state and
     ``decode`` one step from ``cache``, each returning the new state.
+    Kind ``R`` (``:145-150``): the RG-LRU mixer the same way, then, unlike
+    kind ``S``, ``ln2`` and the MLP.
     Returns ``(x, cache)``.  The JAX function also returns the aux loss,
     zero but for kind ``M``'s router loss, which serving drops as JAX's
     engine does."""
@@ -143,8 +150,16 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
                                       f"the family serves dense")
         return x + mix, cache
     paged = attn.is_paged_cache(cache)
-    akind = _ATTN_KIND[kind]
-    if mode == "decode" and paged:
+    akind = _ATTN_KIND.get(kind)
+    if kind == "R":
+        if mode == "decode":
+            mix, cache = rglru.rglru_decode(p["mixer"], h, cache, cfg)
+        elif mode == "prefill":
+            mix, cache = rglru.rglru_forward(p["mixer"], h, cfg, state=None)
+        else:
+            raise NotImplementedError(f"mode {mode!r} over an RG-LRU "
+                                      f"state: the family serves dense")
+    elif mode == "decode" and paged:
         mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
                                             cfg, kind=akind)
     elif mode == "extend" and paged:

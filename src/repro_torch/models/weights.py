@@ -19,7 +19,10 @@ kind ``A``'s.  qk-norm adds
 layer's ``"ffn"`` is ``{"router" (d, E), "w_gate", "w_up" (E, d, f),
 "w_down" (E, f, d)}`` (``moe.py:16-24``).  A kind-``S`` (Mamba-1) layer
 is ``{"ln1": {"w"}, "mixer": {"in_proj", "conv_w", "conv_b", "x_proj",
-"dt_proj", "dt_bias", "A_log", "D", "out_proj"}}`` (``ssm.py:21-36``).
+"dt_proj", "dt_bias", "A_log", "D", "out_proj"}}`` (``ssm.py:21-36``),
+and a kind-``R`` (RG-LRU) layer is ``{"ln1": {"w"}, "mixer": {"in_x",
+"in_gate", "conv_w", "conv_b", "w_a", "b_a", "w_i", "b_i", "lambda",
+"out"}, "ln2": {"w"}, "ffn"}`` (``rglru.py:20-36``).
 Layer leaves are stacked ``(repeats, ...)``.  Flat keys are the tree
 paths ``checkpointer.py:25-31`` writes: ``groups/0/0/mixer/wq`` and so
 on.
@@ -36,12 +39,14 @@ import torch
 from repro_torch.device import resolve_device
 
 # (per-layer shape, init) with the JAX package's inits (layers.py:15-26,
-# ssm.py:21-36, moe.py:16-24): "normal" is N(0,1) / sqrt(fan_in) with
-# fan_in = shape[0], "embedding" N(0,1) (scale 1.0), "conv" N(0,1) * 0.5
-# and "router" N(0,1) * 0.02 (dense_init's scale is the std),
-# "ones" and "zeros" constants, "a_log" the deterministic log(1..N) tiled
-# over d_inner.  Every leaf is in cfg.param_dtype except "a_log", which
-# stays fp32 (spec_dtype).
+# ssm.py:21-36, moe.py:16-24, rglru.py:20-36): "normal" is N(0,1) /
+# sqrt(fan_in) with fan_in = shape[0], "embedding" N(0,1) (scale 1.0),
+# "conv" N(0,1) * 0.5 and "router" N(0,1) * 0.02 (dense_init's scale is
+# the std), "ones" and "zeros" constants, "a_log" the deterministic
+# log(1..N) tiled over d_inner, "lambda" the deterministic
+# log(expm1(linspace(0.9, 0.999, w)) ** (1/8)).  Every leaf is in
+# cfg.param_dtype except "a_log" and "lambda", which stay fp32
+# (spec_dtype), as the JAX init makes them.
 _Spec = Tuple[Tuple[int, ...], str]
 
 
@@ -58,6 +63,9 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
             if kind == "S" and cfg.norm == "rmsnorm":
                 specs.update(_ssm_specs(cfg, pre, R, norm_init))
                 continue
+            if kind == "R" and cfg.norm == "rmsnorm" and cfg.mlp == "geglu":
+                specs.update(_rglru_specs(cfg, pre, R, norm_init))
+                continue
             routed = kind == "M" and not (cfg.kv_lora_rank or
                                           cfg.n_shared_experts)
             if not (kind in ("A", "L", "G") or routed) or \
@@ -67,10 +75,10 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
                     f"{cfg.name}: only attention layers of kinds A, L and G "
                     f"(rmsnorm or layernorm, swiglu, geglu or gelu_mlp, "
                     f"qk-norm or not), kind-M layers without MLA or shared "
-                    f"experts, and kind-S layers are in the port yet: "
-                    f"ROADMAP.md, Queue 1, item 6 (the other LM families: "
-                    f"recurrentgemma-2b's kind R next, then MLA and "
-                    f"encdec)")
+                    f"experts, and kind-S and kind-R layers are in the port "
+                    f"yet: ROADMAP.md, Queue 1, item 6 (the other LM "
+                    f"families: deepseek-v2-lite's MLA next, then "
+                    f"whisper-base's encdec)")
             specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
             specs.update({
                 f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
@@ -144,10 +152,45 @@ def _ssm_specs(cfg, pre: str, R: int, norm_init: str):
     }
 
 
+def _rglru_specs(cfg, pre: str, R: int, norm_init: str):
+    """The specs of one stacked kind-``R`` layer (``rglru.py:20-36`` and
+    ``transformer.py:52-70``): the norms, the RG-LRU mixer and the GeGLU
+    FFN."""
+    d, w, f, K = cfg.d_model, cfg.lru_width, cfg.d_ff, cfg.conv_k_rg
+    return {
+        f"{pre}/ln1/w": (R, ((d,), norm_init)),
+        f"{pre}/mixer/in_x": (R, ((d, w), "normal")),
+        f"{pre}/mixer/in_gate": (R, ((d, w), "normal")),
+        f"{pre}/mixer/conv_w": (R, ((K, w), "conv")),
+        f"{pre}/mixer/conv_b": (R, ((w,), "zeros")),
+        f"{pre}/mixer/w_a": (R, ((w, w), "normal")),
+        f"{pre}/mixer/b_a": (R, ((w,), "zeros")),
+        f"{pre}/mixer/w_i": (R, ((w, w), "normal")),
+        f"{pre}/mixer/b_i": (R, ((w,), "zeros")),
+        f"{pre}/mixer/lambda": (R, ((w,), "lambda")),
+        f"{pre}/mixer/out": (R, ((w, d), "normal")),
+        f"{pre}/ln2/w": (R, ((d,), norm_init)),
+        f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
+        f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
+        f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
+    }
+
+
+def rglru_lambda(w: int) -> torch.Tensor:
+    """The RG-LRU's ``lambda`` (``rglru.py:24``), softplus^-1 of
+    ``linspace(0.9, 0.999, w) ** (1/8)`` in log space: computed in fp64 on
+    the host and rounded to fp32, the same on every device.  JAX computes
+    it in fp32, and its eager and jitted inits differ from each other by
+    up to 6e-8."""
+    x = torch.linspace(0.9, 0.999, w, dtype=torch.float64)
+    return torch.log(torch.expm1(x) ** (1.0 / 8)).float()
+
+
 def spec_dtype(spec, cfg) -> torch.dtype:
-    """The dtype of a leaf: fp32 for ``A_log`` (the JAX init keeps it
-    fp32), else ``cfg.param_dtype``."""
-    return torch.float32 if spec[1][1] == "a_log" else cfg.p_dtype
+    """The dtype of a leaf: fp32 for ``A_log`` and ``lambda`` (the JAX
+    init keeps them fp32), else ``cfg.param_dtype``."""
+    return torch.float32 if spec[1][1] in ("a_log", "lambda") else \
+        cfg.p_dtype
 
 
 def _full_shape(spec) -> Tuple[int, ...]:
@@ -217,8 +260,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     """The port's own seeded init, with the JAX package's distributions
     (the inits above): weights N(0,1) / sqrt(fan_in) (fan_in = the
     per-layer leaf's first axis: the input width, or E for an expert
-    leaf), the router N(0,1) * 0.02, the embedding N(0,1), norms ones.
-    Draws come from ``generator``, which must live on ``device``, one
+    leaf), the router N(0,1) * 0.02, the embedding N(0,1), norms ones
+    (zeros under ``rms_plus_one``), ``A_log`` and ``lambda`` deterministic
+    and fp32.  Draws come from ``generator``, which must live on ``device``, one
     repeat at a time in fp32, so the largest transient is one layer's leaf
     (falcon-mamba-7b's in_proj is 17 GB in fp32 when stacked; a
     qwen3-moe-30b-a3b expert leaf, (128, 2048, 768), 0.8 GB).  JAX's
@@ -236,6 +280,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
             n = torch.arange(1, shape[1] + 1, dtype=torch.float32,
                              device=device)
             out.copy_(torch.log(n).expand(out.shape))
+        elif init == "lambda":
+            out.copy_(rglru_lambda(shape[0]).expand(out.shape))
         else:
             std = {"embedding": 1.0, "conv": 0.5, "router": 0.02}.get(
                 init, 1.0 / math.sqrt(shape[0]))

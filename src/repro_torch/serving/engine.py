@@ -2,8 +2,9 @@
 batching, on three paths, for the dense GQA family (``internlm2-1.8b``,
 ``starcoder2-3b``, and at head dim 256 ``gemma-7b`` and ``gemma3-4b``), the
 MoE family (``qwen3-moe-30b-a3b``), the token path of the VLM family
-(``internvl2-1b``'s decoder; its patch prefix is not in the port) and the
-Mamba-1 family (``falcon-mamba-7b``).
+(``internvl2-1b``'s decoder; its patch prefix is not in the port), the
+Mamba-1 family (``falcon-mamba-7b``) and the Griffin hybrid family
+(``recurrentgemma-2b``: RG-LRU layers and MQA local attention).
 
 gemma3-4b's local layers keep a ring of ``window`` rows at ``max_len``
 2048, so, as in JAX, it serves dense (``paged=True`` falls back, counted)
@@ -35,7 +36,10 @@ serves dense: ``paged=True`` falls back to the dense engine, as in JAX
 (``engine.paged`` is False and ``engine.paged_fallback_dense`` counts it),
 and its admits take exact-length buckets (pads would enter the state),
 where same-length prompts still share one batch.  On CUDA each SSM layer's
-prefill runs the selective-scan kernel.
+prefill runs the selective-scan kernel.  The hybrid family serves the same
+way: its RG-LRU layers keep a recurrent state (their prefill runs the scan
+kernel at N = 1) and its local layers rings of ``window`` rows where the
+window is shorter than ``max_len``.
 
 The MoE family's expert capacity couples the rows of a batch, so, as in
 JAX, its admits are batch-1 at exact length, speculation falls back to
@@ -454,7 +458,7 @@ class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
                  metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
-        if cfg.family not in ("dense", "ssm", "moe", "vlm"):
+        if cfg.family not in ("dense", "ssm", "moe", "vlm", "hybrid"):
             raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.fns = EngineFns(cfg, scfg)
