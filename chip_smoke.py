@@ -5,7 +5,8 @@
 It drives the port's two serving paths, the paged engine on the Hopper
 paged attention kernels and the dense fused engine (the serve driver's
 default) on the flash attention and split-K decode kernels, the dense
-engine on the Mamba-1 family on the selective-scan kernel, the paper's
+engine on the Mamba-1 family on the fused selective-scan kernel, the
+paper's
 MARGOT pipeline (batch and stream) on the pair-score kernel, and the
 paper's service architecture (``MLaaSService`` -> ``Router`` -> thread
 and process replicas of the engines and of the stream), and the paged
@@ -27,8 +28,10 @@ kernel against its plain PyTorch version.  One line per phase:
    process per source, all started together (timed), and ptxas's
    registers and spills for the two wgmma attention kernels, the fp32
    flash and extend kernels on the CUDA cores, the split-key decode
-   kernel of both decode sources (each at hd 16-256) and the pair
-   score's 3xTF32 wgmma kernel (a spill fails the run);
+   kernel of both decode sources (each at hd 16-256), the pair
+   score's 3xTF32 wgmma kernel and the three scan kernels (the single
+   walk, the chunked scan, the fused selective scan; a spill fails the
+   run);
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -55,12 +58,20 @@ kernel against its plain PyTorch version.  One line per phase:
    ragged last depth chunk, d off its 32-deep stages; the CUDA cores: bf16
    or d % 4 != 0), each held against the plain version in fp64 and
    repeated for bit-identical scores, with a TF32 control that the limit
-   must reject; the selective scan at the Mamba serve's admit shapes (4, 512,
-   8192, 16), (1, 1000, 8192, 16), (1, 100, 8192, 16) and on a small grid
-   (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view), each
-   held against the plain version at atol = rtol = 1e-4, with a control
-   (the carry zeroed at every 64-step chunk) that the limit must reject;
-   kernel, plain and library times and the bound; and the paged extend
+   must reject; the scan kernel at the Mamba serve's admit shapes (4,
+   512, 8192, 16), (1, 1000, 8192, 16), (2, 256, 8192, 16), (1, 100, 8192,
+   16) (the single walk; phase 4 checks that the serve admits exactly
+   these) and on a small grid (N 8 and 16, S 1 and ragged, an odd D N and
+   a misaligned view: the chunked scan), each held against the plain
+   version at atol = rtol = 1e-4, with a control (the carry zeroed at
+   every 64-step chunk) that the limit must reject; kernel, plain and
+   library times and the bound; the fused selective scan
+   (``ops.ssm_scan``) on the CPU tests' grid (N 3, 8, 16 x S 1, 37, 130,
+   with and without h0, B and C as strided views) and at the Mamba admit
+   shapes, held against ``ref.selective_scan_ref`` at the same tolerance
+   with a control (the carry zeroed every 32 steps), its exponential's
+   error, the peak memory of a call, kernel, plain and replaced-route
+   times and the bound (bytes or exponentials); and the paged extend
    at the speculative verify's shape (B 8, S 4, pos0 301-329 not
    block-aligned and one window past a 512-key table), with the bf16
    rule and its control, kernel, plain and SDPA times and the bound; then
@@ -78,10 +89,12 @@ kernel against its plain PyTorch version.  One line per phase:
    flash and the split-K decode at its heads (H 10, KV 1, G 10, hd 256)
    at the main paths' shapes, flash at its window 2048 over S 2,200 and
    at its serve's admit shapes, with the bf16 rule, controls, times,
-   bounds and SDPA, and the scan kernel at N = 1 (the RG-LRU recurrence,
-   B 1, w 2560) at every admit length of its serve against the plain
-   version with the chunk-zeroed control, timed at S 512 and 2,200 beside
-   its bound and the ``torch.cumsum`` yardstick;
+   bounds and SDPA, and the scan kernel at N = 1 (the RG-LRU recurrence)
+   at the split plan's edges (S 1, a chunk - 1, + 0, + 1 at the smallest
+   and largest chunk, B 2, w % 4 != 0, a misaligned view) and at every
+   admit length of its serve (B 1, w 2560) against the plain version, with
+   the control's carry zeroed every chunk of the plan, timed at S 512 and
+   2,200 beside its bound and the ``torch.cumsum`` yardstick;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -123,9 +136,12 @@ kernel against its plain PyTorch version.  One line per phase:
    those engines freed, falcon-mamba-7b (64 layers,
    d_model 4096, d_inner 8192, bf16, seeded random weights), 8 slots,
    max_len 2048, K=8, 8 requests (4 x 512, 1000, 2 x 256, 100 tokens,
-   same lengths adjacent), max_new 32: ``ssm_scan`` launches must be 64 a
-   prefill batch (256) with no plain calls; then one profiled decode sync
-   and one profiled admit.  Last, each engine alone on the card,
+   same lengths adjacent), max_new 32: ``ssm_scan`` launches (the fused
+   kernel) must be 64 a prefill batch (256) with no plain calls; then one
+   profiled decode sync and one profiled 4 x 512 admit on the fused kernel
+   and one on the route it replaced (a_bar, b_bar, the scan kernel,
+   einsum), each with its device memory before and at peak and the scan
+   kernel its profile names.  Last, each engine alone on the card,
    qwen3-moe-30b-a3b at full width (48 layers, d_model 2048, 32 heads
    over 4, hd 128, 128 experts top-8, expert d_ff 768, qk-norm, vocab
    151,936, bf16, seeded random weights, 30.53 B parameters, no cut),
@@ -147,8 +163,8 @@ kernel against its plain PyTorch version.  One line per phase:
    engine: it serves dense and counts the fallback, with a ninth request
    of 2,200 tokens; launches exact (flash 8 and the scan 18 a prefill
    batch, the split-K decode 8 a step), a profiled decode sync and
-   profiled 2,200-token admit with device time by kind, and the gates of
-   one layer alone;
+   profiled 2,200-token admit with device time by kind (its scan must be
+   the chunked kernel), and the gates of one layer alone;
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -214,6 +230,7 @@ result.  The whole ``nvcc`` output goes to ``chiprun_out/``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -336,6 +353,7 @@ def phase_device() -> str:
     build.build_all()
     for module in (pa, fa, da, ps, ss):
         module._library()
+    ss._fused_library()
     build_s = time.perf_counter() - t0
     usage = [ln.strip() for log in build.BUILD_LOG.values()
              for ln in log.splitlines() if "registers" in ln]
@@ -353,6 +371,7 @@ def phase_device() -> str:
     for source in ("paged_attention.cu", "decode_attention.cu"):
         print(f"[build] {source} {_decode_usage(build.BUILD_LOG, source)}")
     print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
+    print(f"[build] {_scan_usage(build.BUILD_LOG)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -467,6 +486,48 @@ def _pair_usage(logs, ps) -> str:
             f"serialised: {serial[0] if serial else 'no'}")
 
 
+def _scan_usage(logs) -> str:
+    """ptxas's report of the scan kernels: the single walk at V = 4 and 1
+    and the chunked scan with 16- and 4-byte staging (ssm_scan.cu), and
+    the fused selective scan at each lane count (selective_scan.cu); each
+    must have a report and no spill."""
+    parts = []
+    for source, kernels in (("ssm_scan.cu", ("ssm_scan_kernel",
+                                             "ssm_scan_chunked_kernel")),
+                            ("selective_scan.cu", ("ssm_scan_fused_kernel",))):
+        check(source in logs, f"{source}: no nvcc report for its library")
+        lines = logs[source].splitlines()
+        for kernel in kernels:
+            found = []
+            for i, ln in enumerate(lines):
+                m = re.search(r"Compiling entry function '(\w+)'", ln)
+                if m and re.search(kernel + r"(I|E)", m[1]):
+                    info = " ".join(x.split("info    :")[-1].strip()
+                                    for x in lines[i + 2:i + 4])
+                    check("0 bytes spill stores, 0 bytes spill loads" in
+                          info, f"{source}: {kernel} spills: {info}")
+                    found.append(re.search(r"Used (\d+) registers",
+                                           info)[1])
+            check(found, f"{source}: ptxas reported no {kernel}")
+            parts.append(f"{kernel} {'/'.join(found)} registers")
+    return "scan kernels: " + ", ".join(parts) + "; no spills"
+
+
+#: the side stream every timing captures on (made at its first use)
+_TIMING_STREAM = []
+
+
+def _timing_stream():
+    """One side stream for every capture of :func:`_time_ms`: PyTorch
+    keeps a cuBLAS workspace for each stream cuBLAS runs on for the life of
+    the process, so a new stream a timing left one behind each time (~1
+    GiB allocated, and no tensor alive, by the end of phase 3)."""
+    import torch
+    if not _TIMING_STREAM:
+        _TIMING_STREAM.append(torch.cuda.Stream())
+    return _TIMING_STREAM[0]
+
+
 def _time_ms(fns, iters: int = 20) -> float:
     """Device ms per call: ``iters`` calls cycling through ``fns`` (each on
     its own copy of the inputs, so the 50 MB L2 holds no earlier call's
@@ -477,7 +538,7 @@ def _time_ms(fns, iters: int = 20) -> float:
     a kernel keeps per stream (the decode's ticket counters) exists before
     the capture."""
     import torch
-    stream = torch.cuda.Stream()
+    stream = _timing_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for f in fns:
@@ -665,6 +726,9 @@ def phase_kernels():
                   f"{_decode_row(st, lengths, max_len)}")
     _pair_score_checks(gen, dev, stats, issue)
     _ssm_scan_checks(gen, dev, stats, issue)
+    # its own generator, so that the checks after it keep their inputs
+    _fused_scan_checks(torch.Generator(device=dev).manual_seed(24), dev,
+                       stats, issue)
     print(f"[kernels] bf16 tolerance: within one bf16 ulp + {BF16_ATOL} of "
           f"the plain version's fp32 result on the same inputs, and at most "
           f"{BF16_MISMATCH:.0%} of elements off that result rounded to bf16 "
@@ -678,7 +742,7 @@ def phase_kernels():
             OTHER_HEADS:
         _serve_admits(gen, dev, arch, heads, hd)
     _hd256_checks(gen, dev)
-    _recurrentgemma_checks(gen, dev)
+    _recurrentgemma_checks(gen, dev, stats)
     return stats
 
 
@@ -740,7 +804,7 @@ def _hd256_checks(gen, dev):
 RG_HEADS = ("recurrentgemma-2b", (10, 1), 256)
 
 
-def _recurrentgemma_checks(gen, dev):
+def _recurrentgemma_checks(gen, dev, scan_stats):
     """After every earlier check, so that their inputs stay those of
     earlier runs: flash and the split-K decode at recurrentgemma-2b's
     heads at phase 2's main-path shapes; flash at its window 2048 over S
@@ -757,27 +821,62 @@ def _recurrentgemma_checks(gen, dev):
     _flash_window(gen, dev, arch, heads, hd, _local_window(arch),
                   SERVE_LONG[arch])
     _serve_admits(gen, dev, arch, heads, hd)
-    _linear_scan_checks(gen, dev)
+    _linear_scan_checks(gen, dev, scan_stats)
 
 
-def _linear_scan_checks(gen, dev):
+#: the chunked scan's edges at N = 1, (B, S, w, misaligned): S 1, the
+#: plan's smallest chunk - 1, the chunk, + 1 (single walk, single walk, two
+#: chunks), its largest chunk - 1, the chunk and + 1 over 19 chunks
+#: (ragged last chunks of 95 and 1 steps), B 2, w % 4 != 0 and a view
+#: 4 bytes past a 16-byte boundary (the staging's 4-byte copies)
+LINEAR_EDGES = ((1, 1, 2560, False), (1, 15, 2560, False),
+                (1, 16, 2560, False), (1, 17, 2560, False),
+                (1, 1823, 2560, False), (1, 1824, 2560, False),
+                (1, 1825, 2560, False), (2, 600, 2560, False),
+                (1, 300, 2559, False), (1, 300, 2560, True))
+
+
+def _linear_scan_checks(gen, dev, stats):
     """The scan kernel at N = 1, as the RG-LRU recurrence runs it
-    (``ops.linear_scan``: (B, S, w) viewed as (B, S, w, 1)), at every
-    admit shape of phase 4's recurrentgemma-2b serve (B 1, w 2560) against
-    the plain version with the chunk-zeroed control, then kernel, plain
-    and yardstick times and the bound at S 512 and 2,200."""
+    (``ops.linear_scan``: (B, S, w) viewed as (B, S, w, 1)): the plan's
+    edges (LINEAR_EDGES), then every admit shape of phase 4's
+    recurrentgemma-2b serve (B 1, w 2560), each against the plain version
+    with the chunk-zeroed control at the plan's chunk; then kernel, plain
+    and yardstick times and the bound at S 512 and 2,200 beside the single
+    walk's earlier record on an H100 80GB HBM3 at 700 W."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, scan_plan
     from repro_torch.kernels import ssm_scan as ss
     arch = RG_HEADS[0]
     w = get_config(arch).lru_width
+    worst, ctls, plans = 0.0, [], []
+    for B, S, width, misaligned in LINEAR_EDGES:
+        a, b, h0 = _scan_inputs(gen, dev, B, S, width, 1)
+        if misaligned:
+            buf = torch.empty(a.numel() + 1, device=dev)
+            buf[1:].copy_(a.reshape(-1))
+            a = buf[1:].view(a.shape)
+        plan = scan_plan.split_plan(B, S, width, 1)
+        err, ctl = _scan_check(f"ssm_scan N=1 edge ({B}, {S}, {width})"
+                               f"{' misaligned' if misaligned else ''}",
+                               a, b, h0, control=plan.n_chunks > 1)
+        worst = max(worst, err)
+        ctls += [ctl] if ctl is not None else []
+        plans.append((B, S, width) + tuple(plan[:2]))
+    print(f"[kernels] ssm_scan N = 1 plan edges, (B, S, w, chunk, "
+          f"n_chunks): {plans}, the last two on the one-channel threads (w "
+          f"% 4 != 0; a view 4 bytes past a 16-byte boundary): max |kernel "
+          f"- plain| {worst:.3e} (limit atol=rtol={SCAN_TOL}); the controls "
+          f"(carry zeroed every chunk of the plan) off by {min(ctls):.3e} "
+          f"to {max(ctls):.3e}, each rejected")
     lengths = sorted({S for S, _ in _admit_shapes(arch, False)})
     worst, ctls = 0.0, []
     for S in lengths:
         a, b, h0 = _scan_inputs(gen, dev, 1, S, w, 1)
+        split = scan_plan.split_plan(1, S, w, 1).n_chunks > 1
         err, ctl = _scan_check(f"ssm_scan N=1 (1, {S}, {w})", a, b, h0,
-                               control=S > SCAN_CHUNK)
+                               control=split or S > SCAN_CHUNK)
         # the op the model calls: (B, S, w) in, the same launch
         hs, hT = ss.ssm_scan_blocked(a, b, h0)
         os_, oT = ops.linear_scan(a[..., 0], b[..., 0], h0[..., 0])
@@ -790,8 +889,10 @@ def _linear_scan_checks(gen, dev):
     print(f"[kernels] ssm_scan at N = 1 ({arch}'s RG-LRU recurrence, B 1, "
           f"w {w}) at its serve's admit lengths {lengths}: max |kernel - "
           f"plain| {worst:.3e} (limit atol=rtol={SCAN_TOL}); the controls "
-          f"with the carry zeroed every {SCAN_CHUNK} steps off by "
-          f"{min(ctls):.3e} to {max(ctls):.3e}, each rejected")
+          f"with the carry zeroed every chunk (the plan's, or "
+          f"{SCAN_CHUNK} steps on the single walk) off by {min(ctls):.3e} "
+          f"to {max(ctls):.3e}, each rejected")
+    before = {512: 0.0759, SERVE_LONG[arch]: 0.3234}
     for S in (512, SERVE_LONG[arch]):
         sets = [_scan_inputs(gen, dev, 1, S, w, 1) for _ in range(3)]
         a, b, h0 = sets[0]
@@ -804,14 +905,20 @@ def _linear_scan_checks(gen, dev):
                     _time_ms([lambda s=s: torch.cumsum(s[1], dim=1)
                               for s in sets]))
         iss = _issue_ms(lambda: ss.ssm_scan_blocked(a, b, h0), iters=10)
+        plan = scan_plan.split_plan(1, S, w, 1)
         print(f"[kernels] ssm_scan N=1 (1, {S}, {w}, 1) fp32: "
-              f"max_abs_err={err:.3e} ms={st['ms']:.4f} "
-              f"plain_ms={st['plain_ms']:.4f} yardstick "
-              f"torch.cumsum(b, dim=1) ms={st['library_ms']:.4f} "
-              f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}: 12 bytes "
-              f"a step-channel, 8 a channel); {-(-w // 512)} CTAs of 128 "
-              f"threads on the card's SMs; issued one by one from Python: "
-              f"{iss:.4f} ms per call")
+              f"max_abs_err={err:.3e} ms={st['ms']:.4f} (the single walk "
+              f"in 5 CTAs: {before[S]}) plain_ms={st['plain_ms']:.4f} "
+              f"yardstick torch.cumsum(b, dim=1) ms="
+              f"{st['library_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
+              f"({st['bound_by']}: 12 bytes a step-channel, 8 a channel); "
+              f"plan: {plan.n_chunks} chunks of {plan.chunk} steps x "
+              f"{plan.n_tiles} tiles of {scan_plan.TILE} channels = "
+              f"{plan.n_chunks * plan.n_tiles} CTAs of 128 threads; issued "
+              f"one by one from Python: {iss:.4f} ms per call")
+        if S == SERVE_LONG[arch]:
+            # library_ms is null, the yardstick is printed above
+            stats["ssm_scan"] = dict(st, library_ms=None)
 
 
 #: (H, KV) of the main path's attention (internlm2-1.8b: 16 query heads
@@ -1751,58 +1858,98 @@ def _scan_inputs(gen, dev, B, S, D, N):
     return a, b, _randn(gen, (B, D, N), torch.float32, dev)
 
 
-def _chunk_zeroed(a, b, h0):
+def _chunk_zeroed(a, b, h0, period):
     """The control: the plain recurrence with the carry zeroed at every
-    SCAN_CHUNK-step chunk boundary."""
+    ``period``-step chunk boundary."""
     import torch
     hs, h = torch.empty_like(b), h0
     for t in range(a.shape[1]):
-        if t and t % SCAN_CHUNK == 0:
+        if t and t % period == 0:
             h = torch.zeros_like(h)
         h = a[:, t] * h + b[:, t]
         hs[:, t] = h
     return hs, h
 
 
-def _scan_check(name, a, b, h0, control=False):
-    """The kernel's (h_seq, h_final) against the plain version's on the
-    same inputs at atol = rtol = SCAN_TOL; with ``control`` the chunk-
-    zeroed recurrence must fail that limit.  Returns (max abs error of
-    both outputs, the control's max abs error or None)."""
+def _control_period(shape):
+    """The control's period for a scan of ``shape``: the plan's chunk where
+    the chunked kernel runs (a lost carry there fails the limit), else
+    SCAN_CHUNK, the TPU kernel's chunk."""
+    from repro_torch.kernels import scan_plan
+    plan = scan_plan.split_plan(*shape)
+    return plan.chunk if plan.n_chunks > 1 else SCAN_CHUNK
+
+
+def _within(name, pairs):
+    """Each (got, want) pair finite, of one shape and within atol = rtol =
+    SCAN_TOL; returns the largest |got - want|."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssm_scan as ss
-    hs, hT = ss.ssm_scan_blocked(a, b, h0)
-    torch.cuda.synchronize()
-    want = ref.ssm_scan_ref(a, b, h0)
     err = 0.0
-    for got, w, what in ((hs, want[0], "h_seq"), (hT, want[1], "h_final")):
+    for got, w, what in pairs:
         check(got.shape == w.shape and bool(torch.isfinite(got).all()),
               f"{name} {what}: bad output")
         err = max(err, (got - w).abs().max().item())
         check(torch.allclose(got, w, atol=SCAN_TOL, rtol=SCAN_TOL),
               f"{name} {what}: max_abs_err {err:.3e} beyond atol=rtol="
               f"{SCAN_TOL}")
+    return err
+
+
+def _rejected(name, pairs):
+    """The control's pairs must fail the SCAN_TOL limit, or the check could
+    not see a lost carry; returns the control's largest error."""
+    import torch
+    check(not all(torch.allclose(c, w, atol=SCAN_TOL, rtol=SCAN_TOL)
+                  for c, w in pairs),
+          f"{name}: the chunk-zeroed control passes the limit {SCAN_TOL}: "
+          f"the check cannot see the carry")
+    return max((c - w).abs().max().item() for c, w in pairs)
+
+
+def _scan_check(name, a, b, h0, control=False):
+    """The kernel's (h_seq, h_final) against the plain version's on the
+    same inputs at atol = rtol = SCAN_TOL; with ``control`` the
+    chunk-zeroed recurrence (period: :func:`_control_period`) must fail
+    that limit.  Returns (max abs error of both outputs, the control's max
+    abs error or None)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    hs, hT = ss.ssm_scan_blocked(a, b, h0)
+    torch.cuda.synchronize()
+    want = ref.ssm_scan_ref(a, b, h0)
+    err = _within(name, ((hs, want[0], "h_seq"), (hT, want[1], "h_final")))
     ctl = None
     if control:
-        zs, zT = _chunk_zeroed(a, b, h0)
-        ctl = max((zs - want[0]).abs().max().item(),
-                  (zT - want[1]).abs().max().item())
-        check(not (torch.allclose(zs, want[0], atol=SCAN_TOL, rtol=SCAN_TOL)
-                   and torch.allclose(zT, want[1], atol=SCAN_TOL,
-                                      rtol=SCAN_TOL)),
-              f"{name}: the chunk-zeroed control passes the limit "
-              f"{SCAN_TOL}: the check cannot see the carry")
+        zs, zT = _chunk_zeroed(a, b, h0, _control_period(tuple(a.shape)))
+        ctl = _rejected(name, ((zs, want[0]), (zT, want[1])))
     return err, ctl
 
 
+#: the Mamba serve's prompt lengths in submit order: same lengths
+#: adjacent, so each run of them shares one exact-length admit
+MAMBA_PROMPTS = (512, 512, 512, 512, 1000, 256, 256, 100)
+
+
+def _mamba_admits(lengths=MAMBA_PROMPTS):
+    """(n, S) of each admit of prompts of ``lengths`` (the Mamba serve's),
+    in order: the dense engine admits a run of one exact length as one
+    batch (its 8 slots are all free when they arrive); phase 4 checks that
+    it did."""
+    return [(len(list(run)), S) for S, run in itertools.groupby(lengths)]
+
+
 def _ssm_scan_checks(gen, dev, stats, issue):
-    """The selective scan against its plain version: a grid of small
-    shapes (N 8 and 16, S 1 and ragged, an odd D N and a misaligned view,
-    which take the kernel's one-channel threads), then the Mamba serve's
-    admit shapes with the chunk-zeroed control and times."""
+    """The scan kernel at N 8 and 16 against its plain version: a grid of
+    small shapes (N 8 and 16, S 1 and ragged, an odd D N and a misaligned
+    view; the plan runs them on the chunked kernel, the odd and misaligned
+    ones on its one-channel threads), then the Mamba serve's admit shapes
+    on the single walk with the chunk-zeroed control and times, and the
+    chunked kernel forced at the largest of them and over a sweep of
+    channel counts (:func:`_scan_crossover`).  The Mamba serve's op runs
+    the fused kernel (:func:`_fused_scan_checks`)."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, scan_plan
     from repro_torch.kernels import ssm_scan as ss
     worst = 0.0
     grid = [(2, S, 64, N) for N in (8, 16) for S in (1, 37, 130)]
@@ -1817,13 +1964,19 @@ def _ssm_scan_checks(gen, dev, stats, issue):
     err, _ = _scan_check("ssm_scan misaligned view",
                          buf[1:].view(a.shape), b, h0)
     worst = max(worst, err)
+    plans = [scan_plan.split_plan(*g)[:2] for g in grid]
     print(f"[kernels] ssm_scan grid: {len(grid) + 1} checks over (B, S, D, "
-          f"N) in {grid} and a view starting 4 bytes past a 16-byte "
-          f"boundary passed: max |kernel - plain| {worst:.3e} (limit atol="
-          f"rtol={SCAN_TOL})")
-    for B, S in ((4, 512), (1, 1000), (1, 100)):
+          f"N) in {grid} (the plan's (chunk, n_chunks): {plans}) and a "
+          f"view starting 4 bytes past a 16-byte boundary passed: max "
+          f"|kernel - plain| {worst:.3e} (limit atol=rtol={SCAN_TOL})")
+    # its own generator for an admit shape past these three, so that the
+    # checks after this one keep their inputs from ``gen``
+    own = torch.Generator(device=dev).manual_seed(25)
+    for B, S in _mamba_admits():
         D, N = 8192, 16
-        a, b, h0 = _scan_inputs(gen, dev, B, S, D, N)
+        a, b, h0 = _scan_inputs(
+            gen if (B, S) in ((4, 512), (1, 1000), (1, 100)) else own, dev,
+            B, S, D, N)
         err, ctl = _scan_check(f"ssm_scan ({B}, {S}, {D}, {N})", a, b, h0,
                                control=True)
         n_el = B * S * D * N
@@ -1834,20 +1987,241 @@ def _ssm_scan_checks(gen, dev, stats, issue):
                     _time_ms([lambda: ref.ssm_scan_ref(a, b, h0)], iters=2),
                     _time_ms([lambda: torch.cumsum(b, dim=1)], iters=5))
         iss = _issue_ms(lambda: ss.ssm_scan_blocked(a, b, h0), iters=10)
-        print(f"[kernels] ssm_scan ({B}, {S}, {D}, {N}) fp32: "
-              f"max_abs_err={err:.3e} (limit atol=rtol={SCAN_TOL}; control "
-              f"with the carry zeroed every {SCAN_CHUNK} steps: "
-              f"{ctl:.3e}) ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
-              f"yardstick torch.cumsum(b_bar, dim=1) ms="
-              f"{st['library_ms']:.4f} (one tensor read, one written: 2/3 "
+        before = " (this design's earlier record: 1.0865)" \
+            if (B, S) == (4, 512) else ""
+        print(f"[kernels] ssm_scan ({B}, {S}, {D}, {N}) fp32, the single "
+              f"walk (plan: {scan_plan.split_plan(B, S, D, N).n_chunks} "
+              f"chunk): max_abs_err={err:.3e} (limit atol=rtol={SCAN_TOL}; "
+              f"control with the carry zeroed every {SCAN_CHUNK} steps: "
+              f"{ctl:.3e}) ms={st['ms']:.4f}{before} plain_ms="
+              f"{st['plain_ms']:.4f} yardstick torch.cumsum(b_bar, dim=1) "
+              f"ms={st['library_ms']:.4f} (one tensor read, one written: 2/3 "
               f"of the scan's bytes; no PyTorch call computes the "
               f"recurrence) bound_ms={st['bound_ms']:.4f} "
               f"({st['bound_by']}); issued one by one from Python: "
               f"{iss:.4f} ms per call")
-        if (B, S) == (4, 512):
-            stats["ssm_scan"] = dict(st, library_ms=None)
-            issue["ssm_scan"] = iss
         del a, b, h0
+    torch.cuda.empty_cache()
+    _scan_crossover(dev)
+
+
+#: the crossover sweep's shapes at S 512, by single-walk threads (B ceil(D
+#: N / 4)): recurrentgemma-2b's row (640), 4,096 to 65,536, the Mamba 4 x
+#: 512 admit's (131,072)
+CROSSOVER_SHAPES = ((1, 512, 2560, 1), (1, 512, 16384, 1),
+                    (1, 512, 32768, 1), (1, 512, 65536, 1),
+                    (1, 512, 131072, 1), (2, 512, 131072, 1),
+                    (4, 512, 8192, 16))
+
+
+def _scan_crossover(dev):
+    """The scan's two kernels on the same inputs over a sweep of channel
+    counts at S 512: the single walk (``scan_plan.FILL_THREADS`` patched to
+    0) against the chunked kernel (patched above every shape), each held
+    against the plain version and timed, beside the route the plan picks
+    (it takes the single walk from ``FILL_THREADS`` threads up).  Its
+    own generator: the checks after it keep their inputs."""
+    import torch
+    from repro_torch.kernels import scan_plan
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = []
+    for B, S, D, N in CROSSOVER_SHAPES:
+        a, b, h0 = _scan_inputs(gen, dev, B, S, D, N)
+        ms = {}
+        for route, fill in (("single", 0), ("chunked", 2**62)):
+            with mock.patch.object(scan_plan, "FILL_THREADS", fill):
+                plan = scan_plan.split_plan(B, S, D, N)
+                _scan_check(f"ssm_scan {route} ({B}, {S}, {D}, {N})", a, b,
+                            h0)
+                ms[route] = _time_ms(
+                    [lambda: ss.ssm_scan_blocked(a, b, h0)], iters=5)
+                if route == "chunked":
+                    ctas = plan.n_chunks * B * plan.n_tiles
+                    split = f"{plan.chunk} x {plan.n_chunks} chunks"
+        picked = "chunked" if scan_plan.split_plan(B, S, D, N).n_chunks > 1 \
+            else "single"
+        threads = B * -(-D * N // 4)
+        rows.append((threads, ms["single"], ms["chunked"], picked))
+        print(f"[kernels] ssm_scan crossover ({B}, {S}, {D}, {N}): "
+              f"{threads} single-walk threads ms={ms['single']:.4f}; chunked "
+              f"({split}, {ctas} CTAs) ms={ms['chunked']:.4f}; both within "
+              f"atol=rtol={SCAN_TOL} of the plain version; the plan takes "
+              f"the {picked} kernel")
+        del a, b, h0
+    torch.cuda.empty_cache()
+    faster = [t for t, single, chunked, _ in rows if single <= chunked]
+    wrong = [t for t, single, chunked, picked in rows
+             if picked != ("single" if single <= chunked else "chunked")]
+    print(f"[kernels] ssm_scan crossover at S 512: the single walk is no "
+          f"slower than the chunked kernel at "
+          f"{faster or 'none'} single-walk threads of "
+          f"{[t for t, *_ in rows]}; the plan's FILL_THREADS = "
+          f"{scan_plan.FILL_THREADS} picks the slower kernel at "
+          f"{wrong or 'none'}")
+
+
+#: the fused kernel's stage (FCHUNK in csrc/selective_scan.cu): the
+#: control zeroes the carry at its boundaries
+FUSED_STAGE = 32
+#: exponentials a clock on each SM (the special-function units), and SMs
+SFU_PER_CLOCK, H100_SMS = 16, 132
+
+
+def _fused_inputs(gen, dev, B, S, di, N, with_h0=True, dt_rank=7):
+    """The op's inputs as the Mamba block makes them: softplus dt, A =
+    -exp(.), Bc and Cc cut by ``torch.split`` from one projection (strided
+    views, unit stride over N); fp32."""
+    import torch
+    import torch.nn.functional as F
+    rnd = lambda *s: _randn(gen, s, torch.float32, dev)  # noqa: E731
+    xc, dt = rnd(B, S, di), F.softplus(rnd(B, S, di))
+    _, Bc, Cc = torch.split(rnd(B, S, dt_rank + 2 * N), [dt_rank, N, N],
+                            dim=-1)
+    A, D = -torch.exp(rnd(di, N)), rnd(di)
+    return xc, dt, Bc, Cc, A, D, (rnd(B, di, N) if with_h0 else None)
+
+
+def _compose(scan, xc, dt, Bc, Cc, A, D, h0=None):
+    """The op as ``ops.ssm_scan`` composed it before the fused kernel:
+    a_bar and b_bar built in torch, ``scan(a_bar, b_bar, h0)``, the C
+    contraction by einsum.  With the scan kernel it is the route the fused
+    kernel replaces; with :func:`_chunk_zeroed` it is the fused check's
+    control."""
+    import torch
+    a_bar = (dt[..., None] * A).exp_()
+    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]
+    if h0 is None:
+        h0 = torch.zeros((xc.shape[0], xc.shape[2], A.shape[-1]),
+                         dtype=torch.float32, device=xc.device)
+    h_seq, h_fin = scan(a_bar, b_bar, h0)
+    return torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D, h_fin
+
+
+def _composed_route(*args, **kw):
+    """The route the fused kernel replaces: :func:`_compose` around the
+    scan kernel."""
+    from repro_torch.kernels import ssm_scan as ss
+    return _compose(ss.ssm_scan_blocked, *args, **kw)
+
+
+def _fused_check(name, args, control=False):
+    """The fused kernel's (y, h_final) against ``ref.selective_scan_ref``
+    at SCAN_TOL; with ``control`` the carry zeroed every FUSED_STAGE steps
+    must fail it.  Returns (max abs error, the control's or None)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    y, hT = ss.selective_scan_fused(*args)
+    torch.cuda.synchronize()
+    wy, wT = ref.selective_scan_ref(*args)
+    err = _within(name, ((y, wy, "y"), (hT, wT, "h_final")))
+    ctl = None
+    if control:
+        zy, zT = _compose(lambda a, b, h: _chunk_zeroed(a, b, h,
+                                                        FUSED_STAGE), *args)
+        ctl = _rejected(name, ((zy, wy), (zT, wT)))
+    return err, ctl
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def _fused_scan_checks(gen, dev, stats, issue):
+    """The fused selective scan (``ops.ssm_scan`` on a CUDA tensor) against
+    its plain version: the CPU tests' grid (N 3, 8, 16 x S 1, 37, 130, with
+    and without h0, Bc and Cc as strided ``torch.split`` views), the
+    exponential's error, then the Mamba serve's admit shapes with the
+    control, the peak memory of one call, and times: the kernel, the plain
+    version, the route it replaces and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    worst, ctls, n = 0.0, [], 0
+    for N in (3, 8, 16):
+        for S in (1, 37, 130):
+            for with_h0 in (False, True):
+                args = _fused_inputs(gen, dev, 2, S, 64, N, with_h0)
+                err, ctl = _fused_check(f"fused ssm_scan (2, {S}, 64, {N}) "
+                                        f"h0 {with_h0}", args,
+                                        control=S > FUSED_STAGE)
+                worst, n = max(worst, err), n + 1
+                ctls += [ctl] if ctl is not None else []
+    print(f"[kernels] ssm_scan fused: {n} checks over (B 2, S 1/37/130, di "
+          f"64, N 3/8/16) with and without h0, Bc and Cc strided views "
+          f"passed: max |kernel - plain| over y and h_final {worst:.3e} "
+          f"(limit atol=rtol={SCAN_TOL}); the controls (carry zeroed every "
+          f"{FUSED_STAGE} steps) off by {min(ctls):.3e} to {max(ctls):.3e}, "
+          f"each rejected")
+    # the exponential alone: x = 0 and h0 = 1 at S = 1 leave h_final = a
+    dt = torch.rand(1, 1, 64, device=dev, generator=gen) * 5
+    A = -torch.rand(64, 16, device=dev, generator=gen) * 20
+    Bc = torch.zeros(1, 1, 16, device=dev)
+    _, a = ss.selective_scan_fused(torch.zeros_like(dt), dt, Bc, Bc, A,
+                                   torch.zeros(64, device=dev),
+                                   torch.ones(1, 64, 16, device=dev))
+    want = torch.exp(dt[0, 0, :, None].double() * A.double())
+    keep = want > 1e-30
+    rel = ((a[0].double() - want).abs() / want)[keep].max().item()
+    plain = ((torch.exp(dt[0, 0, :, None] * A).double() - want).abs() /
+             want)[keep].max().item()
+    check(rel < SCAN_TOL, f"fused ssm_scan: exp off by {rel:.3e} relative")
+    print(f"[kernels] ssm_scan fused exp (ex2.approx.ftz.f32 of dt (A "
+          f"log2 e)) over dt A in [-100, 0], values above 1e-30: max "
+          f"relative error {rel:.3e} against fp64 exp (torch.exp in fp32: "
+          f"{plain:.3e})")
+    clock = _sm_clock_hz()
+    for B, S in _mamba_admits():
+        di, N = 8192, 16
+        args = _fused_inputs(gen, dev, B, S, di, N)
+        err, ctl = _fused_check(f"fused ssm_scan ({B}, {S}, {di}, {N})",
+                                args, control=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ss.selective_scan_fused(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        n_el = B * S * di * N
+        check(peak < 4 * n_el, f"fused ssm_scan ({B}, {S}): {peak} bytes "
+              f"allocated, a (B, S, di, N) fp32 tensor is {4 * n_el}")
+        by = 4 * (3 * B * S * di + 2 * B * S * N + di * N + di +
+                  2 * B * di * N)
+        n_ops = 6 * n_el + 3 * B * S * di
+        t_exp = n_el / (SFU_PER_CLOCK * H100_SMS * clock) * 1e3
+        st = _stats(err, by, n_ops, "float32",
+                    _time_ms([lambda: ss.selective_scan_fused(*args)],
+                             iters=10),
+                    _time_ms([lambda: ref.selective_scan_ref(*args)],
+                             iters=2), None)
+        t_bytes = by / HBM_BPS * 1e3
+        if t_exp > st["bound_ms"]:
+            st.update(bound_ms=t_exp, bound_by="operations")
+        route_ms = _time_ms([lambda: _composed_route(*args)], iters=2)
+        iss = _issue_ms(lambda: ss.selective_scan_fused(*args), iters=10)
+        print(f"[kernels] ssm_scan fused ({B}, {S}, {di}, {N}) fp32: "
+              f"max_abs_err={err:.3e} (limit atol=rtol={SCAN_TOL}; control "
+              f"with the carry zeroed every {FUSED_STAGE} steps: "
+              f"{ctl:.3e}) ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+              f"the route it replaces (a_bar, b_bar, the scan kernel, "
+              f"einsum) ms={route_ms:.4f} bound_ms={st['bound_ms']:.4f} "
+              f"(bytes {t_bytes:.4f}, fp32 operations "
+              f"{n_ops / PEAK_OPS['float32'] * 1e3:.4f}, exponentials "
+              f"{t_exp:.4f} at {SFU_PER_CLOCK} a clock x {H100_SMS} SMs x "
+              f"{clock / 1e6:.0f} MHz: {'exponentials' if t_exp >= t_bytes else 'bytes'}"
+              f" bind); peak allocation of a call {peak / 2**20:.1f} MiB "
+              f"(a (B, S, di, N) fp32 tensor: {4 * n_el / 2**20:.1f} MiB); "
+              f"issued one by one from Python: {iss:.4f} ms per call; "
+              f"library_ms null (no PyTorch call computes the op)")
+        if (B, S) == (4, 512):
+            stats["ssm_scan_fused"] = dict(st, library_ms=None)
+            issue["ssm_scan_fused"] = iss
+        del args
     torch.cuda.empty_cache()
 
 
@@ -2222,8 +2596,9 @@ def phase_serve():
     and recurrentgemma-2b (G 10, hd 256, RG-LRU) asked for the paged
     engine (they serve dense), falcon-mamba-7b, and
     qwen3-moe-30b-a3b (G 8, 128 experts) both ways; returns each kernel's
-    launches in internlm2's run of its path, and the paged run's
-    tokens."""
+    launches in internlm2's run of its path (the scan kernel's in
+    recurrentgemma-2b's, the fused scan's in falcon-mamba-7b's), and the
+    paged run's tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
     for arch in ("starcoder2-3b", "internvl2-1b", "gemma-7b"):
@@ -2232,9 +2607,12 @@ def phase_serve():
     # gemma3-4b's rings cannot page: asked for the paged engine, it serves
     # dense, counted in engine.paged_fallback_dense
     _serve_path(True, "gemma3-4b")
-    # nor can recurrentgemma-2b's RG-LRU state and rings (max_len 4096)
-    _serve_path(True, "recurrentgemma-2b")
-    launches.update(_serve_mamba())
+    # nor can recurrentgemma-2b's RG-LRU state and rings (max_len 4096);
+    # its RG-LRU recurrence is the scan kernel's path, Mamba's op the fused
+    # kernel's (both count under ssm_scan; the profiles name each kernel)
+    launches["ssm_scan"] = _serve_path(True, "recurrentgemma-2b")[0][
+        "ssm_scan"]
+    launches["ssm_scan_fused"] = _serve_mamba()["ssm_scan"]
     # 57 GiB of weights: served last, each engine alone on the card
     for paged in (True, False):
         _serve_path(paged, "qwen3-moe-30b-a3b")
@@ -2440,6 +2818,7 @@ def _serve_mamba():
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.cluster import tracing
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
     dev = torch.device("cuda", 0)
@@ -2472,10 +2851,10 @@ def _serve_mamba():
     tok = lambda n: rng.randint(0, cfg.vocab, n).astype(np.int32)  # noqa
     _drain(eng, [tok(40)], 8)           # warm-up (cuBLAS, allocator)
     # same lengths adjacent, so each group shares one exact-length admit
-    prompts = [tok(512) for _ in range(4)] + [tok(1000), tok(256), tok(256),
-                                             tok(100)]
+    prompts = [tok(n) for n in MAMBA_PROMPTS]
     max_new = 32
     b0 = eng.metrics.counter("engine.prefill_batches").value
+    seq0 = tracing.current_recorder().last_seq
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_counts()
     torch.cuda.synchronize()
@@ -2485,15 +2864,20 @@ def _serve_mamba():
     wall = time.perf_counter() - t0
     launches, plain = dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS)
     batches = eng.metrics.counter("engine.prefill_batches").value - b0
+    admits = [(e["n"], e["bucket"]) for e in tracing.current_recorder()
+              .events() if e["seq"] > seq0 and e["kind"] == "admit"]
+    check(admits == _mamba_admits(),
+          f"mamba: admits (n, S) {admits}, expected {_mamba_admits()}, the "
+          f"shapes phase 2 held the scan kernels to")
     for r in reqs:
         check(r.finish_reason == "max_new" and
               len(r.out_tokens) == max_new + 1 and
               all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.rid}: {r.finish_reason}, {r.out_tokens}")
-    check(batches == 4 and launches["ssm_scan"] == 64 * batches and
-          sum(launches.values()) == launches["ssm_scan"],
+    check(batches == len(admits) and launches["ssm_scan"] == 64 * batches
+          and sum(launches.values()) == launches["ssm_scan"],
           f"mamba: launches {launches} in {batches} prefill batches, "
-          f"expected ssm_scan = 64 x 4 and no other kernel")
+          f"expected ssm_scan = 64 x {len(admits)} and no other kernel")
     check(not any(plain.values()), f"plain versions ran: {plain}")
     gen = sum(r.decoded for r in reqs)
     ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
@@ -2511,57 +2895,90 @@ def _serve_mamba():
     return {"ssm_scan": launches["ssm_scan"]}
 
 
+def _scan_kernels(rows):
+    """The names of the scan kernels among a profile's rows."""
+    return sorted({re.search(r"ssm_scan\w*kernel", name)[0]
+                   for _, _, name in rows if "ssm_scan" in name})
+
+
 def _profile_admit(eng, tok):
     """One admit of 4 x 512 tokens (64 layers) on the host clock, then the
-    next one under ``torch.profiler``: the scan kernel's device time
-    against what runs around it in torch: the broadcast multiplies that
-    build a_bar and b_bar, the exp of a_bar, the C contraction (a batched
-    GEMV), the projection GEMMs and the rest."""
+    next one under ``torch.profiler`` with the device memory before it and
+    its peak: the scan's device time against what runs around it in
+    torch; then the same admit on the route the fused kernel replaced
+    (``ops.ssm_scan`` patched to a_bar, b_bar, the scan kernel and einsum),
+    profiled the same way: the broadcast multiplies that build a_bar and
+    b_bar, the exp of a_bar, the C contraction (a batched GEMV)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    dev = eng.device
+
+    def submit_and_admit():
+        for _ in range(4):
+            eng.submit(tok(512), max_new=1)
+        eng._admit_fused()
+        torch.cuda.synchronize()
 
     def admit():
-        for _ in range(4):
-            eng.submit(tok(512), max_new=1)
-        eng._admit_fused()
-        torch.cuda.synchronize()
+        submit_and_admit()
         eng.run_until_drained()
 
-    admit()
-    t0 = time.perf_counter()
-    admit()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(4):
-            eng.submit(tok(512), max_new=1)
-        eng._admit_fused()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run_until_drained()
-    busy_us, rows, top = _device_time(prof, "mamba_admit")
-    share = dict.fromkeys(("scan", "mul", "exp", "gemv", "gemm", "other"),
-                          0.0)
-    for us, _, name in rows:
-        low = name.lower()
-        kind = ("scan" if "ssm_scan" in low else
-                "mul" if "mulfunctor<float> > >" in low and
-                "binaryfunctor<float" in low else
-                "exp" if "exp_kernel" in low else
-                "gemv" if "gemv" in low else
-                "gemm" if any(k in low for k in ("nvjet", "gemm", "cutlass",
-                                                 "xmma")) else
-                "other")
-        share[kind] += us / 1e3
-    print(f"[profile mamba admit] one admit of 4 x 512 tokens (64 layers): "
-          f"unprofiled wall {host_ms:.2f}ms with its one-token drain; "
-          f"profiled admit wall={wall_ms:.2f}ms device_busy="
-          f"{busy_us / 1e3:.2f}ms idle_share="
-          f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
-          f"{sum(n for _, n, _ in rows)}; device ms by kind: " +
-          ", ".join(f"{k} {v:.2f}" for k, v in share.items()) +
-          f"; top: {top}")
+    busy = {}
+    for route, patch in (("fused", contextlib.nullcontext()),
+                         ("composed", mock.patch.object(
+                             ops, "ssm_scan", _composed_route))):
+        with patch:
+            admit()
+            t0 = time.perf_counter()
+            admit()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                submit_and_admit()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+            eng.run_until_drained()
+        busy_us, rows, top = _device_time(prof, f"mamba_admit_{route}")
+        want = ["ssm_scan_fused_kernel"] if route == "fused" else \
+            ["ssm_scan_kernel"]
+        check(_scan_kernels(rows) == want, f"mamba {route} admit: scan "
+              f"kernels {_scan_kernels(rows)}, expected {want}")
+        share = dict.fromkeys(("scan", "mul", "exp", "gemv", "gemm",
+                               "other"), 0.0)
+        for us, _, name in rows:
+            low = name.lower()
+            kind = ("scan" if "ssm_scan" in low else
+                    "mul" if "mulfunctor<float> > >" in low and
+                    "binaryfunctor<float" in low else
+                    "exp" if "exp_kernel" in low else
+                    "gemv" if "gemv" in low else
+                    "gemm" if any(k in low for k in ("nvjet", "gemm",
+                                                     "cutlass", "xmma")) else
+                    "other")
+            share[kind] += us / 1e3
+        busy[route] = busy_us / 1e3
+        what = ("the fused kernel" if route == "fused" else
+                "the route it replaced: a_bar, b_bar, the scan kernel, "
+                "einsum")
+        print(f"[profile mamba admit] {what}: one admit of 4 x 512 tokens "
+              f"(64 layers): unprofiled wall {host_ms:.2f}ms with its "
+              f"one-token drain; profiled admit wall={wall_ms:.2f}ms "
+              f"device_busy={busy_us / 1e3:.2f}ms idle_share="
+              f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f} kernels="
+              f"{sum(n for _, n, _ in rows)}; device memory before "
+              f"{before / 2**30:.2f} GiB, peak during the admit "
+              f"{peak / 2**30:.2f} GiB (+{(peak - before) / 2**30:.2f}); "
+              f"device ms by kind: " +
+              ", ".join(f"{k} {v:.2f}" for k, v in share.items()) +
+              f"; top: {top}")
+    print(f"[profile mamba admit] device busy fused / replaced route: "
+          f"{busy['fused']:.2f} / {busy['composed']:.2f} ms "
+          f"({busy['fused'] / busy['composed']:.3f}x)")
 
 
 def _kind_ms(rows):
@@ -2621,6 +3038,9 @@ def _profile_long_admit(eng, tok, label):
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_drained()
     busy_us, rows, top = _device_time(prof, f"{label} long admit")
+    check(_scan_kernels(rows) == ["ssm_scan_chunked_kernel"],
+          f"{label} long admit: scan kernels {_scan_kernels(rows)}, "
+          f"expected the chunked scan")
     print(f"[profile {label} admit] one admit of {S} tokens (batch 1): "
           f"unprofiled wall {host_ms:.2f}ms; profiled wall={wall_ms:.2f}ms "
           f"device_busy={busy_us / 1e3:.2f}ms idle_share="
@@ -3872,7 +4292,8 @@ def phase_list(stats, launches, smi):
               "flash_attention": csrc + "flash_attention.cu",
               "decode_attention": csrc + "decode_attention.cu",
               "pair_score": csrc + "pair_score.cu",
-              "ssm_scan": csrc + "ssm_scan.cu"}
+              "ssm_scan": csrc + "ssm_scan.cu",
+              "ssm_scan_fused": csrc + "selective_scan.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
@@ -3881,14 +4302,16 @@ def phase_list(stats, launches, smi):
                 "decode_attention":
                 "src/repro/kernels/decode_attention.py:40",
                 "pair_score": "src/repro/kernels/pair_score.py:41",
-                "ssm_scan": "src/repro/kernels/ssm_scan.py:44"}
+                "ssm_scan": "src/repro/kernels/ssm_scan.py:44",
+                "ssm_scan_fused": "src/repro/kernels/ssm_scan.py:44 with "
+                                  "src/repro/kernels/ops.py:98-111"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",) +
-               SSM_KERNELS]
+               SSM_KERNELS + ("ssm_scan_fused",)]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "decode_attention.cu", "pair_score.cu", "ssm_scan.cu")
+           "decode_attention.cu", "pair_score.cu", "ssm_scan.cu",
+           "selective_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,8 +14,6 @@ from __future__ import annotations
 
 from typing import Dict
 
-import torch
-
 from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -137,22 +135,16 @@ def pair_score(link_params, claims, evidence):
 def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
     """The selective scan with the contract of ``models.ssm.selective_scan``
     (``repro.kernels.ops.ssm_scan``, ``ops.py:98-111``): xc, dt (B,S,di),
-    Bc, Cc (B,S,N), A (di,N), D (di,), h0 (B,di,N) or None, all fp32 ->
-    (y (B,S,di), h_final (B,di,N)).  The discretisation (``a_bar``,
-    ``b_bar``) and the ``C`` contraction run in torch around the scan, as
-    they run outside the Pallas kernel in JAX."""
-    a_bar = (dt[..., None] * A).exp_()                  # (B,S,di,N)
-    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]    # (B,S,di,N)
-    if h0 is None:
-        h0 = torch.zeros((xc.shape[0], xc.shape[2], A.shape[-1]),
-                         dtype=torch.float32, device=xc.device)
-    if _route("ssm_scan", a_bar):
-        h_seq, h_fin = ss.ssm_scan_blocked(a_bar, b_bar, h0)
-    else:
-        ss.check_args(a_bar, b_bar, h0)
-        h_seq, h_fin = ref.ssm_scan_ref(a_bar, b_bar, h0)
-    y = torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D
-    return y, h_fin
+    Bc, Cc (B,S,N) (unit stride over N: ``torch.split`` views qualify), A
+    (di,N), D (di,), h0 (B,di,N) or None, all fp32 -> (y (B,S,di), h_final
+    (B,di,N)).  A CUDA tensor runs the fused kernel, which keeps the
+    discretisation, the scan and the ``C`` contraction in registers (JAX
+    runs the first and last in jnp around its Pallas kernel); the plain
+    version composes them as JAX does."""
+    if not _route("ssm_scan", xc):
+        ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
+        return ref.selective_scan_ref(xc, dt, Bc, Cc, A, D, h0)
+    return ss.selective_scan_fused(xc, dt, Bc, Cc, A, D, h0)
 
 
 def linear_scan(a, b, h0):

@@ -115,3 +115,19 @@ def ssm_scan_ref(a_bar, b_bar, h0):
         h = a_bar[:, t] * h + b_bar[:, t]
         h_seq[:, t] = h
     return h_seq, h
+
+
+def selective_scan_ref(xc, dt, Bc, Cc, A, D, h0=None):
+    """Mamba-1's selective scan as the op composes it around the scan
+    (``repro.kernels.ops.ssm_scan``, ``ops.py:98-111``): ``a_bar = exp(dt
+    A)``, ``b_bar = (dt xc) Bc`` (both (B,S,di,N)), :func:`ssm_scan_ref`,
+    then ``y = einsum(h_seq, Cc) + xc D``.  xc, dt (B,S,di); Bc, Cc
+    (B,S,N); A (di,N); D (di,); h0 (B,di,N) or None (zeros); fp32.  Returns
+    (y (B,S,di), h_final (B,di,N))."""
+    a_bar = (dt[..., None] * A).exp_()                  # (B,S,di,N)
+    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]    # (B,S,di,N)
+    if h0 is None:
+        h0 = torch.zeros((xc.shape[0], xc.shape[2], A.shape[-1]),
+                         dtype=torch.float32, device=xc.device)
+    h_seq, h_fin = ssm_scan_ref(a_bar, b_bar, h0)
+    return torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D, h_fin

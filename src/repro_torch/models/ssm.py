@@ -2,8 +2,8 @@
 in_proj -> causal depthwise conv -> selective scan -> gate -> out_proj.
 
 Every full-sequence pass (:func:`ssm_forward`) runs its scan through
-:func:`repro_torch.kernels.ops.ssm_scan`: the Hopper kernel on a CUDA
-tensor, the plain sequential recurrence on the CPU.  JAX sends only
+:func:`repro_torch.kernels.ops.ssm_scan`: the fused Hopper kernel on a
+CUDA tensor, the plain sequential recurrence on the CPU.  JAX sends only
 ``S >= 128`` with ``cfg.use_kernels`` to its Pallas kernel and the rest to
 a chunked ``associative_scan``; both compute the same recurrence.  A
 single-token step (:func:`ssm_decode`) has no kernel, in JAX too.
