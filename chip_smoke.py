@@ -19,9 +19,12 @@ on both attention paths, gemma-7b (head dim 256, MHA, GeGLU) on both and
 gemma3-4b (head dim 256, local layers over rings of their window, global
 layers, qk-norm) on the dense one, recurrentgemma-2b (RG-LRU layers, their
 recurrence on the scan kernel at N = 1, and MQA local attention at G 10,
-hd 256) on the dense one, and the telemetry (time series, SLO
-engine, stats server, autoscaler) over process replicas, and holds every
-kernel against its plain PyTorch version.  One line per phase:
+hd 256) on the dense one, deepseek-v2-lite-16b (MLA: its prefill on
+flash at q/k 192 and v 128, its absorbed decode on the MLA decode kernel;
+a dense first layer; shared experts) on the dense one, and the telemetry
+(time series, SLO engine, stats server, autoscaler) over process
+replicas, and holds every kernel against its plain PyTorch version.  One
+line per phase:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -29,9 +32,11 @@ kernel against its plain PyTorch version.  One line per phase:
    registers and spills for the two wgmma attention kernels, the fp32
    flash and extend kernels on the CUDA cores, the split-key decode
    kernel of both decode sources (each at hd 16-256), the pair
-   score's 3xTF32 wgmma kernel and the three scan kernels (the single
-   walk, the chunked scan, the fused selective scan; a spill fails the
-   run);
+   score's 3xTF32 wgmma kernel, the three scan kernels (the single
+   walk, the chunked scan, the fused selective scan) and the MLA decode
+   (bf16 and fp32 at rank 512 / rope 64, fp32 at 32 / 8), with flash's
+   instantiations at (q/k, v) (192, 128) (wgmma and fp32) and (24, 16)
+   (fp32); a spill fails the run;
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -94,7 +99,18 @@ kernel against its plain PyTorch version.  One line per phase:
    and largest chunk, B 2, w % 4 != 0, a misaligned view) and at every
    admit length of its serve (B 1, w 2560) against the plain version, with
    the control's carry zeroed every chunk of the plan, timed at S 512 and
-   2,200 beside its bound and the ``torch.cumsum`` yardstick;
+   2,200 beside its bound and the ``torch.cumsum`` yardstick; last,
+   deepseek-v2-lite-16b: flash at q/k 192, v 128 (H 16, KV 16) at B 1 at
+   each admit length of its phase-4 serve and at (3, 512) (timed, with
+   SDPA), at the wgmma tile edges (S 63, 64, 65, 129, 200 x G 1, 2 x the
+   three masks), and in fp32 at (192, 128) and (24, 16); the MLA decode at
+   the serve's shape (B 8 over L 2048, lengths 301-329), at phase 2's
+   ragged lengths and all 2048 keys, at B 1, length 1 (each timed, with
+   SDPA over the latent kv head as the yardstick), at its chunk edges, a
+   length past L and 0, with the rows past the live keys NaN, in bf16
+   and in fp32 at (512, 64) and (32, 8); flash and the split-K decode at
+   hd 128, G 1 (the dense first layer); each bf16 check with its
+   control (P rounded to bf16);
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -120,7 +136,12 @@ kernel against its plain PyTorch version.  One line per phase:
    (R, R), window 16, max_len 48) dense, kernel and plain, with prompts
    of 1, 2, 3 and past 16 tokens (flash 2, scan 6 a prefill batch), then
    asked for the paged engine: the same tokens, served dense, the
-   fallback counted;
+   fallback counted; and the three-layer fp32 reduced deepseek-v2-lite-16b
+   (D x 1 + M x 2: MLA rank 32, rope 8, q/k 24, v 16, 2 shared experts)
+   on the dense engine, kernel and plain, every admit batch-1, then asked
+   for the paged engine and for speculative decode (both served dense,
+   counted): the same tokens; and its MoE FFN with shared experts under
+   sync debug ``error``;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
@@ -164,7 +185,14 @@ kernel against its plain PyTorch version.  One line per phase:
    of 2,200 tokens; launches exact (flash 8 and the scan 18 a prefill
    batch, the split-K decode 8 a step), a profiled decode sync and
    profiled 2,200-token admit with device time by kind (its scan must be
-   the chunked kernel), and the gates of one layer alone;
+   the chunked kernel), and the gates of one layer alone.  Last, after
+   qwen3's engines are freed, deepseek-v2-lite-16b alone (27 layers:
+   kind D, then 26 MLA + MoE layers of 64 experts top-6 and 2 shared;
+   bf16, seeded, 15.71 B, no cut) asked for the paged engine: it serves
+   dense, counted; launches exact (flash 27 an admit, the split-K decode
+   8 and the MLA decode 208 a sync), every admit batch-1, tok/s, TTFT,
+   memory, and a profiled decode sync with the expert products', the
+   absorption products' and the MLA decode's device time;
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -338,6 +366,7 @@ def phase_device() -> str:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import pair_score as ps
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssm_scan as ss
@@ -351,7 +380,7 @@ def phase_device() -> str:
           f"count={torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.build_all()
-    for module in (pa, fa, da, ps, ss):
+    for module in (pa, fa, da, ps, ss, md):
         module._library()
     ss._fused_library()
     build_s = time.perf_counter() - t0
@@ -361,17 +390,18 @@ def phase_device() -> str:
             f"ptxas: {len(usage)} kernels, e.g. "
             f"{usage[-1] if usage else '-'}")
     print(line)
-    for source, module in (("flash_attention.cu", fa),
-                           ("paged_attention.cu", pa)):
-        smem = {hd: module._library().repro_attention_sm90_smem(hd)
-                for hd in (128, 256)}
+    for source, module, extra in (("flash_attention.cu", fa, ((192, 128),)),
+                                  ("paged_attention.cu", pa, ())):
+        smem = {dims: module._library().repro_attention_sm90_smem(*dims)
+                for dims in ((128, 128), (256, 256)) + extra}
         print(f"[build] {source} "
-              f"{_sm90_usage(build.BUILD_LOG, source, smem)}")
+              f"{_sm90_usage(build.BUILD_LOG, source, smem, extra)}")
     print(f"[build] {_simt_usage(build.BUILD_LOG)}")
     for source in ("paged_attention.cu", "decode_attention.cu"):
         print(f"[build] {source} {_decode_usage(build.BUILD_LOG, source)}")
     print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
     print(f"[build] {_scan_usage(build.BUILD_LOG)}")
+    print(f"[build] mla_decode.cu {_mla_usage(build.BUILD_LOG, md)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -400,20 +430,27 @@ def _ptxas_reports(logs, source, kernel):
     return found
 
 
-def _sm90_usage(logs, source, smem) -> str:
-    """The wgmma kernel of ``source`` at every head dim (each must have a
-    report), shown for hd = 128 and 256 beside ``smem[hd]``, the dynamic
-    shared memory it asks for at launch (``Tile<hd>::SMEM`` in
+def _dims(args):
+    """The head dims in a kernel's mangled template arguments."""
+    return tuple(int(x) for x in re.findall(r"Li(\d+)E", args))
+
+
+def _sm90_usage(logs, source, smem, extra=()) -> str:
+    """The wgmma kernel of ``source`` at every head dim, and at the (q/k,
+    v) pairs ``extra`` (each must have a report), shown at (128, 128),
+    (256, 256) and ``extra`` beside ``smem[dims]``, the dynamic shared
+    memory it asks for at launch (``Ring<hd, hd_v>::SMEM`` in
     csrc/attention_sm90.cuh)."""
     from repro_torch.kernels import HEAD_DIMS
-    found = {int(re.match(r"Li(\d+)E", k)[1]): v for k, v in
+    found = {_dims(k): v for k, v in
              _ptxas_reports(logs, source, "attention_sm90_kernel").items()}
-    check(sorted(found) == list(HEAD_DIMS),
-          f"{source}: ptxas reported attention_sm90_kernel at head dims "
-          f"{sorted(found)}, not {HEAD_DIMS}")
-    return "; ".join(f"attention_sm90_kernel<{hd}>: {found[hd]}; dynamic "
-                     f"shared memory {smem[hd]} bytes" for hd in smem) + \
-        f"; no spills at hd {HEAD_DIMS}"
+    want = sorted([(hd, hd) for hd in HEAD_DIMS] + list(extra))
+    check(sorted(found) == want,
+          f"{source}: ptxas reported attention_sm90_kernel at (q/k, v) head "
+          f"dims {sorted(found)}, not {want}")
+    return "; ".join(f"attention_sm90_kernel<{d[0]}, {d[1]}>: {found[d]}; "
+                     f"dynamic shared memory {smem[d]} bytes"
+                     for d in smem) + f"; no spills at {want}"
 
 
 def _simt_usage(logs) -> str:
@@ -421,17 +458,45 @@ def _simt_usage(logs) -> str:
     dim (each must have a report and no spill), shown at hd 128 and 256
     (hd 256 takes 32 lanes a key and its 64 KiB merge buffer is dynamic
     shared memory, which ptxas does not count)."""
-    from repro_torch.kernels import HEAD_DIMS
+    from repro_torch.kernels import FLASH_QK_V_DIMS, HEAD_DIMS
     parts = []
-    for source, kernel in (("flash_attention.cu", "flash_simt_kernel"),
-                           ("paged_attention.cu", "paged_attention_kernel")):
-        found = {int(re.search(r"Li(\d+)E", k)[1]): v for k, v in
-                 _ptxas_reports(logs, source, kernel).items()}
-        check(sorted(found) == list(HEAD_DIMS),
+    for source, kernel, extra in (
+            ("flash_attention.cu", "flash_simt_kernel",
+             sorted(FLASH_QK_V_DIMS)),
+            ("paged_attention.cu", "paged_attention_kernel", [])):
+        found = {}
+        for k, v in _ptxas_reports(logs, source, kernel).items():
+            d = _dims(k)
+            found[d if len(d) == 2 and extra else (d[0], d[0])] = v
+        want = sorted([(hd, hd) for hd in HEAD_DIMS] + extra)
+        check(sorted(found) == want,
               f"{source}: ptxas reported {kernel} at head dims "
-              f"{sorted(found)}, not {HEAD_DIMS}")
-        parts += [f"{kernel}<{hd}>: {found[hd]}" for hd in (128, 256)]
-    return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS}"
+              f"{sorted(found)}, not {want}")
+        parts += [f"{kernel}<{d[0]}, {d[1]}>: {found[d]}"
+                  for d in [(128, 128), (256, 256)] + extra]
+    return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS} and (q/k, " \
+        f"v) {sorted(FLASH_QK_V_DIMS)}"
+
+
+def _mla_usage(logs, md) -> str:
+    """The MLA decode kernel at each (dtype, r, rope) it is built for (each
+    must have a report and no spill), beside the dynamic shared memory it
+    asks for."""
+    from repro_torch.kernels import MLA_DIMS
+    found = {}
+    for k, v in _ptxas_reports(logs, "mla_decode.cu",
+                               "mla_decode_kernel").items():
+        found[("bf16" if "bfloat16" in k else "fp32",) + _dims(k)] = v
+    want = sorted((str(t).split(".")[1].replace("bfloat16", "bf16")
+                   .replace("float32", "fp32"),) + d
+                  for d, ts in MLA_DIMS.items() for t in ts)
+    check(sorted(found) == want, f"mla_decode.cu: ptxas reported "
+          f"mla_decode_kernel for {sorted(found)}, not {want}")
+    lib = md._library()
+    return "; ".join(f"mla_decode_kernel<{k[0]}, {k[1]}, {k[2]}>: "
+                     f"{found[k]}; dynamic shared memory "
+                     f"{lib.repro_mla_smem(k[1], k[2])} bytes"
+                     for k in want) + "; no spills"
 
 
 def _decode_usage(logs, source) -> str:
@@ -646,7 +711,7 @@ def _rounded_p(q, k, v, keep):
     sc = sc.masked_fill(~keep[:, None, None], -2e38)
     p = torch.softmax(sc, dim=-1).to(torch.bfloat16).float()
     return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
-        B, S, H, hd)
+        B, S, H, v.shape[-1])
 
 
 def _plain_rounded_p(q, kp, vp, bt, pos0):
@@ -743,6 +808,7 @@ def phase_kernels():
         _serve_admits(gen, dev, arch, heads, hd)
     _hd256_checks(gen, dev)
     _recurrentgemma_checks(gen, dev, stats)
+    _deepseek_checks(gen, dev, stats)
     return stats
 
 
@@ -822,6 +888,239 @@ def _recurrentgemma_checks(gen, dev, scan_stats):
                   SERVE_LONG[arch])
     _serve_admits(gen, dev, arch, heads, hd)
     _linear_scan_checks(gen, dev, scan_stats)
+
+
+#: deepseek-v2-lite-16b's attention: its dense first layer (kind D) at 16
+#: heads over 16 (G 1) at hd 128, and its MLA layers: flash at q/k 192 (nope
+#: 128 + rope 64) and v 128 over 16 heads, G 1, and the MLA decode over the
+#: latent cache (rank 512, rope 64), all 16 heads on one latent kv head
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_HEADS = (16, 16)
+MLA_QK, MLA_V, MLA_R, MLA_RH = 192, 128, 512, 64
+#: the MLA decode's edges: lengths one short of, at and one past a chunk
+#: (mla_decode.CHUNK_KEYS) and two, 1, a length past L, and 0 (the mean
+#: of ckv, as the plain version gives)
+MLA_EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 1, 300, 0)
+
+
+def _mla_inputs(gen, dev, B, L, dtype, H=16, r=MLA_R, rh=MLA_RH):
+    return [_randn(gen, sh, dtype, dev) for sh in
+            ((B, H, r), (B, H, rh), (B, L, r), (B, L, rh))]
+
+
+def _mla_rounded_p(q_lat, q_rope, ckv, krope, lengths, scale):
+    """The MLA decode's control: its plain version with P rounded to bf16
+    before P ckv, as JAX's ``mla_decode`` rounds it (``p.astype(x.dtype)``,
+    ``attention.py:641``)."""
+    import torch
+    s = (torch.einsum("bhr,blr->bhl", q_lat.float(), ckv.float()) +
+         torch.einsum("bhd,bld->bhl", q_rope.float(), krope.float())) * scale
+    ok = torch.arange(ckv.shape[1], device=ckv.device)[None, :] < \
+        lengths[:, None].long()
+    p = torch.softmax(s.masked_fill(~ok[:, None], -2e38), dim=-1)
+    return torch.einsum("bhl,blr->bhr", p.to(torch.bfloat16).float(),
+                        ckv.float())
+
+
+def _mla_bytes(lengths, L, B, H, r=MLA_R, rh=MLA_RH, esz=2):
+    """The bytes the MLA decode must move: each live latent row (ckv and
+    krope) once, the queries in and the output out, the lengths."""
+    live = sum(min(max(int(n), 0), L) for n in lengths)
+    return live * (r + rh) * esz + B * H * (2 * r + rh) * esz + 4 * B
+
+
+def _deepseek_checks(gen, dev, stats):
+    """After every earlier check, so that their inputs stay those of
+    earlier runs: flash at q/k 192, v 128 (G 1) at deepseek-v2-lite's
+    prefill shapes (B 1 at each admit length of its phase-4 serve, and B
+    3, S 512), at the wgmma tile edges and in fp32 at (192, 128) and (24,
+    16); the MLA decode at the serve's shape (B 8 over L 2048 at lengths
+    301-329), at B 8 over 2048 keys at phase 2's ragged lengths and all
+    2048, at B 1, length 1, at its chunk edges, a length past L and 0,
+    with rows past the live keys holding NaN, and in fp32 at (512, 64) and
+    (32, 8); flash and the split-K decode at hd 128, G 1 (the dense first
+    layer).  Each bf16 check held to the bf16 rule with its control (P
+    rounded to bf16); the main shapes timed beside their bounds, the plain
+    versions and SDPA (or, for the MLA decode, SDPA over its latent kv
+    head)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import ops, ref
+    bf, (H, KV) = torch.bfloat16, DS_HEADS
+    at = f"(H {H}, KV {KV}, q/k {MLA_QK}, v {MLA_V})"
+
+    # flash at (192, 128): the serve's admits, then B 3, S 512 timed
+    errs, ctls = [], []
+    admits = sorted({S for S, _ in _admit_shapes(DS_ARCH, False)})
+    for S in admits:
+        q = _randn(gen, (1, S, H, MLA_QK), bf, dev)
+        k = _randn(gen, (1, S, KV, MLA_QK), bf, dev)
+        v = _randn(gen, (1, S, KV, MLA_V), bf, dev)
+        want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
+        name = f"flash {DS_ARCH} admit {at} S={S}"
+        errs.append(_compare(name, ops.flash_attention(q, k, v), want)[0])
+        ctls.append(_check_control(
+            name, _rounded_p(q, k, v, _window_keep(S, 0, dev)), want))
+    print(f"[kernels] flash {at} at B 1, S {admits}, the admits of phase "
+          f"4's {DS_ARCH} serve: max_abs_err={max(errs):.3e}, each within "
+          f"the bf16 rule; the bf16-P controls off the rounded result in "
+          f"{min(ctls):.4%} to {max(ctls):.4%} of elements, each rejected")
+    B, S = 3, 512
+    fsets = [[_randn(gen, sh, bf, dev) for sh in
+              ((B, S, H, MLA_QK), (B, S, KV, MLA_QK), (B, S, KV, MLA_V))]
+             for _ in range(3)]
+    q, k, v = fsets[0]
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=True)
+    name = f"flash {at} (3, 512)"
+    err, share = _compare(name, ops.flash_attention(q, k, v), want)
+    ctl = _check_control(name, _rounded_p(
+        q, k, v, _window_keep(S, 0, dev).expand(B, S, S)), want)
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
+    _library_close(name, F.scaled_dot_product_attention(
+        *sd[0], is_causal=True).transpose(1, 2), want)
+    by = (B * S * H * MLA_QK + B * S * KV * MLA_QK + B * S * KV * MLA_V +
+          B * S * H * MLA_V) * 2
+    st = _stats(
+        err, by, 2 * (MLA_QK + MLA_V) * H * B * S * (S + 1) // 2,
+        "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s) for s in fsets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s) for s in fsets]),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=True) for a in sd]))
+    print(f"[kernels] flash_attention {at} (3, 512) causal bf16: "
+          f"max_abs_err={err:.3e} off_rounded={share:.4%} (control with "
+          f"bf16 P: {ctl:.4%}) ms={st['ms']:.4f} plain_ms="
+          f"{st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+          f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}); device ms "
+          f"from a CUDA graph replay")
+    # the tile edges, at G 1 and G 2
+    n = 0
+    for S in FLASH_EDGE_S:
+        for H_, KV_ in ((16, 16), (16, 8)):
+            q = _randn(gen, (2, S, H_, MLA_QK), bf, dev)
+            k = _randn(gen, (2, S, KV_, MLA_QK), bf, dev)
+            v = _randn(gen, (2, S, KV_, MLA_V), bf, dev)
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                _compare(f"flash edge q/k {MLA_QK} v {MLA_V} S={S} G="
+                         f"{H_ // KV_} causal={causal} window={window}",
+                         ops.flash_attention(q, k, v, causal=causal,
+                                             window=window),
+                         ref.flash_attention_ref(*_f32(q, k, v),
+                                                 causal=causal,
+                                                 window=window))
+                n += 1
+    # fp32 on the CUDA cores at both pairs
+    for dqk, dv in ((MLA_QK, MLA_V), (24, 16)):
+        for S in (37, 192):
+            q = _randn(gen, (2, S, 8, dqk), torch.float32, dev)
+            k = _randn(gen, (2, S, 2, dqk), torch.float32, dev)
+            v = _randn(gen, (2, S, 2, dv), torch.float32, dev)
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                _compare(f"flash fp32 q/k {dqk} v {dv} S={S} causal="
+                         f"{causal} window={window}",
+                         ops.flash_attention(q, k, v, causal=causal,
+                                             window=window),
+                         ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window))
+                n += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] flash with a narrower v: {n} checks passed: bf16 (q/k "
+          f"{MLA_QK}, v {MLA_V}) at S {FLASH_EDGE_S} x G 1, 2 x causal / "
+          f"window 64 / bidirectional; fp32 (atol=rtol={FP32_TOL}) at (192, "
+          f"128) and (24, 16), S 37 and 192, the three masks")
+
+    # the MLA decode: the serve's shape (timed), phase 2's ragged decode
+    # and all 2048 keys, B 1 at length 1
+    scale = 1.0 / math.sqrt(MLA_QK)
+    L = 2048
+    shapes = (("the serve's decode", list(range(301, 330, 4)), 8),
+              ("phase 2's ragged decode",
+               [2048, 1, 1537, 300, 16, 977, 2000, 64], 8),
+              ("2048 keys a row", [2048] * 8, 8), ("B 1, length 1", [1], 1))
+    for label, lens, B in shapes:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sets = [_mla_inputs(gen, dev, B, L, bf) for _ in range(3)]
+        a = sets[0]
+        want = ref.mla_decode_attention_ref(*_f32(*a), lengths, scale)
+        name = f"mla_decode_attention at {label}"
+        err, share = _compare(name, ops.mla_decode_attention(
+            *a, lengths, scale), want)
+        ctl = _check_control(name, _mla_rounded_p(*a, lengths, scale),
+                             want) if B > 1 else float("nan")
+        # SDPA over the latent kv head: q (B,H,1,r+rh), k (B,1,L,r+rh),
+        # v (B,1,L,r), the live keys as a mask (built outside the timing)
+        keep = (torch.arange(L, device=dev)[None, :] <
+                lengths[:, None].long())[:, None, None]
+        sd = [(torch.cat([s[0], s[1]], -1)[:, :, None],
+               torch.cat([s[2], s[3]], -1)[:, None], s[2][:, None])
+              for s in sets]
+        lib = lambda x: F.scaled_dot_product_attention(  # noqa: E731
+            *x, attn_mask=keep, scale=scale, enable_gqa=True)
+        _library_close(name, lib(sd[0])[:, :, 0], want)
+        n_tok = sum(min(n, L) for n in lens)
+        st = _stats(
+            err, _mla_bytes(lens, L, B, 16),
+            2 * 16 * (2 * MLA_R + MLA_RH) * n_tok, "bfloat16",
+            _time_ms([lambda s=s: ops.mla_decode_attention(*s, lengths,
+                                                           scale)
+                      for s in sets]),
+            _time_ms([lambda s=s: ref.mla_decode_attention_ref(
+                *s, lengths, scale) for s in sets]),
+            _time_ms([lambda x=x: lib(x) for x in sd]))
+        iss = _issue_ms(lambda: ops.mla_decode_attention(*a, lengths,
+                                                         scale))
+        plan = md.split_plan(B, 16, MLA_R, L)
+        print(f"[kernels] mla_decode_attention at {label} (B {B} over L "
+              f"{L}, lengths {lens[:8]}, r {MLA_R}, rope {MLA_RH}, 16 heads) "
+              f"bf16: max_abs_err={err:.3e} off_rounded={share:.4%} "
+              f"(control with bf16 P: {ctl:.4%}) ms={st['ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} library_ms (SDPA over the "
+              f"latent kv head)={st['library_ms']:.4f} bound_ms="
+              f"{st['bound_ms']:.4f} ({st['bound_by']}); {plan.n_chunks} "
+              f"chunks of {md.CHUNK_KEYS} keys a row; issued one by one "
+              f"from Python: {iss:.4f} ms per call")
+        if label == "the serve's decode":
+            stats["mla_decode_attention"] = st
+    # the edges: chunk boundaries, a length past L, 0; rows past the live
+    # keys NaN; fp32 at (512, 64) and (32, 8)
+    n = 0
+    Le = 300
+    lengths = torch.tensor(MLA_EDGE_LENGTHS, dtype=torch.int32, device=dev)
+    B = len(MLA_EDGE_LENGTHS)
+    for dtype, r, rh, H_ in ((bf, MLA_R, MLA_RH, 16),
+                             (torch.float32, MLA_R, MLA_RH, 16),
+                             (torch.float32, 32, 8, 4)):
+        for nan in (False, True):
+            a = _mla_inputs(gen, dev, B, Le, dtype, H_, r, rh)
+            want = ref.mla_decode_attention_ref(*_f32(*a), lengths, scale)
+            if nan:   # rows past each row's live keys (a row of length 0
+                # sees none and averages all of them: it keeps its rows)
+                for b, n_b in enumerate(MLA_EDGE_LENGTHS):
+                    if 0 < n_b < Le:
+                        a[2][b, n_b:] = float("nan")
+                        a[3][b, n_b:] = float("nan")
+            name = (f"mla_decode_attention edge {str(dtype)[6:]} ({r}, {rh}) "
+                    f"H {H_}{' NaN rows' if nan else ''}")
+            _compare(name, ops.mla_decode_attention(*a, lengths, scale),
+                     want)
+            if dtype == bf and not nan:
+                _check_control(name, _mla_rounded_p(*a, lengths, scale),
+                               want)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] mla_decode_attention edges: {n} checks passed over L "
+          f"{Le} at lengths {MLA_EDGE_LENGTHS} (chunks of "
+          f"{md.CHUNK_KEYS} keys; 300 is all of L; 0 the mean of ckv): bf16 "
+          f"(512, 64) with its control, fp32 (512, 64) and (32, 8) at "
+          f"atol=rtol={FP32_TOL}, each also with the rows past the live "
+          f"keys NaN")
+
+    # the dense first layer: flash and the split-K decode at hd 128, G 1
+    st_, sh_, is_ = {}, {}, {}
+    _dense_main_path(gen, dev, DS_HEADS, st_, sh_, is_, 128)
+    _print_main_path(st_, sh_, is_, f" at {DS_ARCH}'s dense layer (H {H}, "
+                                    f"KV {KV}, G 1, hd 128)")
 
 
 #: the chunked scan's edges at N = 1, (B, S, w, misaligned): S 1, the
@@ -2243,6 +2542,13 @@ def _drain(eng, prompts, max_new):
 PAGED_KERNELS = ("paged_decode_attention", "paged_extend_attention")
 DENSE_KERNELS = ("flash_attention", "decode_attention")
 SSM_KERNELS = ("ssm_scan",)
+MLA_KERNELS = ("mla_decode_attention",)
+
+
+def _dense_kernels(cfg):
+    """The kernels of ``cfg``'s dense path: flash and the split-K decode,
+    and the MLA decode where it has MLA layers."""
+    return DENSE_KERNELS + (MLA_KERNELS if cfg.kv_lora_rank else ())
 
 
 def _forced_plain(plain: bool):
@@ -2319,8 +2625,8 @@ def _token_exact_paths(arch, paths=("paged", "dense"), extra=(), **over):
             ("paged", PAGED_KERNELS, ServeConfig(
                 max_len=64, slots=2, sync_every=4, paged=True,
                 block_size=8)),
-            ("dense", DENSE_KERNELS, ServeConfig(max_len=64, slots=2,
-                                                 sync_every=4))):
+            ("dense", _dense_kernels(cfg), ServeConfig(max_len=64, slots=2,
+                                                       sync_every=4))):
         if label not in paths:
             continue
         kern, k_launch, k_plain, _ = run(scfg, plain=False)
@@ -2349,15 +2655,23 @@ def _token_exact_paths(arch, paths=("paged", "dense"), extra=(), **over):
               f"{arch}: dense tokens {tokens['dense'][:agree]} != paged "
               f"{tokens['paged'][:agree]}")
     n_tok = sum(len(t) for t, _ in tokens[paths[-1]])
-    between = "and between the two paths" if not coupled else \
-        f"and on the first {agree} requests between the two paths (the " \
-        f"last, after a prefix hit: paged == dense " \
-        f"{tokens['dense'][-1] == tokens['paged'][-1]}, not a gate)"
     if len(paths) == 1:
         between = f"(the {paths[0]} path alone)"
+    elif not coupled:
+        between = "and between the two paths"
+    else:
+        between = (f"and on the first {agree} requests between the two "
+                   f"paths (the last, after a prefix hit: paged == dense "
+                   f"{tokens['dense'][-1] == tokens['paged'][-1]}, not a "
+                   f"gate)")
     window = f", window {cfg.window}" if cfg.window else ""
+    mla = (f", MLA rank {cfg.kv_lora_rank} rope {cfg.rope_head_dim} (q/k "
+           f"{cfg.nope_head_dim + cfg.rope_head_dim}, v {cfg.v_head_dim}), "
+           f"{cfg.n_shared_experts} shared experts" if cfg.kv_lora_rank
+           else "")
     print(f"[token-exact] {arch} fp32 {cfg.n_layers}-layer reduced (H "
-          f"{cfg.n_heads}, KV {cfg.n_kv_heads}, hd {cfg.head_dim}{window}, "
+          f"{cfg.n_heads}, KV {cfg.n_kv_heads}, hd {cfg.head_dim}{window}"
+          f"{mla}, "
           f"{cfg.norm}, {cfg.mlp}, {cfg.family}): {len(prompts)} requests "
           f"of {[len(p) for p in prompts]} tokens, {n_tok} tokens identical "
           f"through the kernels and the plain versions on " +
@@ -2399,6 +2713,7 @@ def phase_token_exact():
           f"extend launches, no paged decode) and the plain versions")
     _token_exact_mamba()
     _token_exact_recurrentgemma()
+    _token_exact_deepseek()
 
 
 def _token_exact_gemma():
@@ -2451,12 +2766,16 @@ def _token_exact_moe():
 
 def _moe_never_syncs(arch):
     """One MoE FFN call at an 8-slot decode's shape with CUDA's sync
-    debug mode set to error: the router, the dispatch and the combine
-    read nothing back to the host, so a decode step stays capturable."""
+    debug mode set to error: the router, the dispatch, the combine and the
+    shared experts, where the arch has them, read nothing back to the
+    host, so a decode step stays capturable."""
     import torch
     from repro_torch.models import moe
     cfg, params = _reduced_two_layers(arch)
-    ffn = {k: v[0] for k, v in params["groups"][0][0]["ffn"].items()}
+    gi = next(i for i, g in enumerate(cfg.groups) if "M" in g.pattern)
+    ffn = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in
+                                                  v.items()})
+           for k, v in params["groups"][gi][0]["ffn"].items()}
     x = torch.randn(8, 1, cfg.d_model, device=torch.device("cuda", 0))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2468,9 +2787,11 @@ def _moe_never_syncs(arch):
         torch.cuda.set_sync_debug_mode(0)
     check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux)),
           "apply_moe gave non-finite values")
-    print(f"[token-exact] {arch} apply_moe at (8, 1, {cfg.d_model}) under "
-          f"torch.cuda.set_sync_debug_mode('error'): no synchronising op "
-          f"detected")
+    shared = f" with {cfg.n_shared_experts} shared experts" if \
+        cfg.n_shared_experts else ""
+    print(f"[token-exact] {arch} apply_moe{shared} at (8, 1, {cfg.d_model}) "
+          f"under torch.cuda.set_sync_debug_mode('error'): no synchronising "
+          f"op detected")
 
 
 def _token_exact_mamba():
@@ -2588,6 +2909,55 @@ def _token_exact_recurrentgemma():
           f"dense, paged_fallback_dense 1)")
 
 
+def _token_exact_deepseek():
+    """fp32 reduced deepseek-v2-lite-16b, its dense first layer and 2 MLA
+    layers (``D`` x 1 + ``M`` x 2: R > 1; MLA rank 32, rope 8, q/k 24, v
+    16; 8 experts top-2 and 2 shared experts), on the dense engine through
+    the kernels (flash at (24, 16) and hd 16, the split-K decode, the MLA
+    decode at (32, 8)) and forced through the plain versions: the same
+    tokens, every admit batch-1; then asked for the paged engine (served
+    dense, the fallback counted) and with ``speculative=True`` (off,
+    counted): the same tokens; and one MoE-with-shared-experts FFN call
+    under sync debug ``error``."""
+    from repro_torch.cluster import tracing
+    from repro_torch.configs import ScanGroup
+    from repro_torch.serving import ServeConfig
+    arch = DS_ARCH
+    seq0 = tracing.current_recorder().last_seq
+    run, _, n_tok = _token_exact_paths(
+        arch, paths=("dense",), n_layers=3,
+        groups=(ScanGroup(("D",), 1), ScanGroup(("M",), 2)))
+    admits = [e["n"] for e in tracing.current_recorder().events()
+              if e["seq"] > seq0 and e["kind"] == "admit"]
+    check(admits and set(admits) == {1},
+          f"{arch}: admit batches {admits}, expected all batch-1")
+    base, _, _, _ = run(ServeConfig(max_len=64, slots=2, sync_every=4),
+                        False)
+    want = [(r.out_tokens, r.finish_reason) for r in base]
+    for label, extra, counter in (
+            ("paged asked", dict(paged=True, block_size=8),
+             "engine.paged_fallback_dense"),
+            ("speculative asked", dict(paged=True, block_size=8,
+                                       speculative=True),
+             "engine.spec_fallback")):
+        reqs, launch, calls, eng = run(ServeConfig(
+            max_len=64, slots=2, sync_every=4, **extra), False)
+        got = [(r.out_tokens, r.finish_reason) for r in reqs]
+        fallback = eng.metrics.counter(counter).value
+        check(not eng.paged and not eng.speculative and fallback == 1 and
+              launch["mla_decode_attention"] > 0 and
+              not any(launch[k] for k in PAGED_KERNELS) and
+              not any(calls.values()) and got == want,
+              f"{arch} {label}: paged {eng.paged}, speculative "
+              f"{eng.speculative}, {counter} {fallback}, launches {launch}, "
+              f"plain {calls}, tokens {got} against {want}")
+    print(f"[token-exact] {arch} asked for the paged engine and for "
+          f"speculative decode: served dense (paged_fallback_dense 1, "
+          f"spec_fallback 1), the same {n_tok} tokens; {len(admits)} admits, "
+          f"all batch-1")
+    _moe_never_syncs(arch)
+
+
 # ----------------------------------------------------------------------
 def phase_serve():
     """internlm2-1.8b at full width through the paged path, then through
@@ -2616,6 +2986,10 @@ def phase_serve():
     # 57 GiB of weights: served last, each engine alone on the card
     for paged in (True, False):
         _serve_path(paged, "qwen3-moe-30b-a3b")
+    # then deepseek-v2-lite-16b (29 GiB) alone: MLA's latent cache cannot
+    # page, so asked for the paged engine it serves dense, counted
+    launches.update({k: v for k, v in _serve_path(True, DS_ARCH)[0].items()
+                     if k in MLA_KERNELS})
     return launches, paged_tokens
 
 
@@ -2679,9 +3053,13 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
         label = f"{arch} {label}"
     # layers of a recurrent kind (RG-LRU) scan their admits on the scan
     # kernel; the others run attention
-    n_scan = sum(k in ("R", "S") for g in get_config(arch).groups
+    full = get_config(arch)
+    n_scan = sum(k in ("R", "S") for g in full.groups
                  for k in g.pattern * g.repeats)
-    keys = (PAGED_KERNELS if paged else DENSE_KERNELS) + \
+    # MLA layers decode on the MLA decode kernel, the others on split-K
+    n_mla = sum(k == "M" for g in full.groups
+                for k in g.pattern * g.repeats) if full.kv_lora_rank else 0
+    keys = (PAGED_KERNELS if paged else _dense_kernels(full)) + \
         (SSM_KERNELS if n_scan else ())
     gc.collect()
     torch.cuda.empty_cache()
@@ -2714,9 +3092,18 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           (f", local layers' rings of {rings} rows" if rings else "") +
           (f", {n_scan} RG-LRU layers' fp32 state, lambda fp32"
            if cfg.lru_width else "") +
+          (f", {n_mla} MLA layers' latent caches 8 x {max_len} x "
+           f"({cfg.kv_lora_rank} + {cfg.rope_head_dim})" if n_mla else "") +
           (f", paged_fallback_dense {fallback}" if asked else ""))
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}, expert d_ff "
            f"{cfg.expert_d_ff}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
+    if cfg.n_shared_experts:
+        ffn += (f", {cfg.n_shared_experts} shared experts of d_ff "
+                f"{cfg.shared_d_ff}")
+    if n_mla:
+        ffn += (f", MLA q/k {cfg.nope_head_dim + cfg.rope_head_dim} v "
+                f"{cfg.v_head_dim} rank {cfg.kv_lora_rank}, a dense first "
+                f"layer of d_ff {cfg.dense_d_ff}")
     print(f"[serve {label}] built {arch} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
           f"heads, hd {cfg.head_dim}, {ffn}, {cfg.norm}, {cfg.mlp}, "
@@ -2760,10 +3147,12 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     # and for each of the 8 decode steps of a sync (paged or split-K
     # decode), one a recurrent layer for each admit batch (the scan)
     n_attn = cfg.n_layers - n_scan
-    want = {keys[0 if paged else 1]: n_attn * 8 * syncs,
+    want = {keys[0 if paged else 1]: (n_attn - n_mla) * 8 * syncs,
             keys[1 if paged else 0]: n_attn * batches}
     if n_scan:
         want["ssm_scan"] = n_scan * batches
+    if n_mla:
+        want["mla_decode_attention"] = n_mla * 8 * syncs
     check(all(launches[k] == want[k] for k in keys) and
           sum(launches.values()) == sum(launches[k] for k in keys),
           f"{label}: launches {launches}, expected {want} ({syncs} syncs, "
@@ -2785,8 +3174,10 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
           f": wall={wall:.3f}s decoded={gen} tok/s={gen / wall:.1f} "
           f"ttft_p50={ttft[len(ttft) // 2]:.3f}s ttft_max={ttft[-1]:.3f}s "
           f"prefix_hit_blocks={hits} "
-          f"launches={launches} (= {n_attn} attention layers x {syncs} "
-          f"syncs x 8 steps, x {batches} admit batches" +
+          f"launches={launches} (= {n_attn - n_mla} attention layers x "
+          f"{syncs} syncs x 8 steps, x {batches} admit batches" +
+          (f"; {n_mla} MLA layers x {syncs} syncs x 8 steps on the MLA "
+           f"decode, and in each admit batch's flash" if n_mla else "") +
           (f"; {n_scan} RG-LRU layers x {batches} admit batches"
            if n_scan else "") + f") plain_calls={plain} "
           f"admit batch sizes={admits} "
@@ -3112,8 +3503,8 @@ def _profile_decode_sync(eng, tok, label):
     eng.step()                          # second sync, unprofiled
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(eng.cfg.kv_lora_rank)) as prof:
         t0 = time.perf_counter()
         eng.step()                      # third sync, profiled
         torch.cuda.synchronize()
@@ -3157,6 +3548,28 @@ def _profile_decode_sync(eng, tok, label):
         print(f"[profile {label}] device time by op: " + "; ".join(parts) +
               f"; decode attention kernels {attn_us / 1e3:.3f}ms; busy "
               f"{busy_us / 1e3:.2f}ms")
+    if eng.cfg.kv_lora_rank:
+        # MLA's absorption products (q_nope w_uk, ctx w_uv) are batched
+        # over the heads, the expert products over the experts: the bmm's
+        # first operand tells them apart
+        by = {"expert products": [0.0, 0], "absorption products": [0.0, 0]}
+        for e in prof.key_averages(group_by_input_shape=True):
+            if e.key != "aten::bmm":
+                continue
+            first = e.input_shapes[0] if e.input_shapes else []
+            kind = "expert products" if first and \
+                first[0] == eng.cfg.n_experts else "absorption products"
+            by[kind][0] += getattr(e, "device_time_total", 0.0)
+            by[kind][1] += e.count
+        mla = [(us, n) for us, n, key in rows if "mla_decode" in key]
+        check(mla, f"{label}: the profiled sync ran no mla_decode_kernel")
+        print(f"[profile {label}] MLA sync by kind: " + "; ".join(
+            f"{k} (aten::bmm) {us / 1e3:.3f}ms/{n}x" for k, (us, n) in
+            by.items()) + f"; the MLA decode kernel "
+            f"{sum(us for us, _ in mla) / 1e3:.3f}ms/"
+            f"{sum(n for _, n in mla)}x "
+            f"({sum(us for us, _ in mla) / sum(n for _, n in mla):.2f}us a "
+            f"call); busy {busy_us / 1e3:.2f}ms")
 
 
 # ----------------------------------------------------------------------
@@ -4293,7 +4706,8 @@ def phase_list(stats, launches, smi):
               "decode_attention": csrc + "decode_attention.cu",
               "pair_score": csrc + "pair_score.cu",
               "ssm_scan": csrc + "ssm_scan.cu",
-              "ssm_scan_fused": csrc + "selective_scan.cu"}
+              "ssm_scan_fused": csrc + "selective_scan.cu",
+              "mla_decode_attention": csrc + "mla_decode.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
@@ -4304,14 +4718,18 @@ def phase_list(stats, launches, smi):
                 "pair_score": "src/repro/kernels/pair_score.py:41",
                 "ssm_scan": "src/repro/kernels/ssm_scan.py:44",
                 "ssm_scan_fused": "src/repro/kernels/ssm_scan.py:44 with "
-                                  "src/repro/kernels/ops.py:98-111"}
+                                  "src/repro/kernels/ops.py:98-111",
+                # no TPU kernel: JAX's plain jnp einsum chain
+                "mla_decode_attention":
+                "src/repro/models/attention.py:621 (mla_decode, plain "
+                "jnp; no TPU kernel)"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",) +
-               SSM_KERNELS + ("ssm_scan_fused",)]
+               SSM_KERNELS + ("ssm_scan_fused",) + MLA_KERNELS]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@
 (its token path), ``get_config("gemma-7b")`` and ``get_config("gemma3-4b")``
 (head dim 256; gemma3's local and global layers) and
 ``get_config("recurrentgemma-2b")`` (RG-LRU layers and MQA local
-attention).
+attention) and ``get_config("deepseek-v2-lite-16b")`` (MLA, a dense first
+layer, shared experts).
 
 Only the archs whose path the port runs are registered; any other id
 raises, naming it (the JAX package's registry knows them all)."""
@@ -23,6 +24,7 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "gemma3-4b": "gemma3_4b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -34,7 +36,7 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
                        f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
                        f"Queue 1, item 6 (the other LM families: "
-                       f"deepseek-v2-lite (MLA) next, then whisper-base "
-                       f"(encdec))")
+                       f"whisper-base (encdec) next, with training, "
+                       f"item 7)")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[key]}").CONFIG

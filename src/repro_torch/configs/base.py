@@ -9,7 +9,8 @@ dtype properties differ: ``cfg.dtype`` / ``cfg.param_dtype`` strings map to
 Kind codes (see the JAX module): ``A`` full causal attention, ``L`` local
 sliding-window, ``G`` global, ``R`` RG-LRU, ``M`` MoE, ``S`` Mamba-1,
 ``D`` dense block in a MoE model.  The port runs ``A``, ``L``, ``G``,
-``R``, ``S`` and ``M`` without MLA (``kv_lora_rank``).
+``R``, ``S``, ``D`` and ``M`` (with MLA where ``kv_lora_rank`` is set,
+and shared experts).
 """
 from __future__ import annotations
 

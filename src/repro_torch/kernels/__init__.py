@@ -8,6 +8,14 @@ import torch
 #: codes of their C interfaces
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: flash's (q/k, v) head-dim pairs with a v narrower than q/k (MLA's
+#: prefill: nope + rope over v), and the dtypes each is built for; the
+#: bf16 kernel's Q K^T runs in k-steps of 16, which 24 is not a multiple of
+FLASH_QK_V_DIMS = {(192, 128): (torch.float32, torch.bfloat16),
+                   (24, 16): (torch.float32,)}
+#: the MLA decode's (latent rank r, rope dim) pairs, and their dtypes
+MLA_DIMS = {(512, 64): (torch.float32, torch.bfloat16),
+            (32, 8): (torch.float32,)}
 
 #: kernel launches per wrapper, counted where each wrapper launches its
 #: kernel (one call of ``pair_score`` is its projection and its score
@@ -17,7 +25,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_attention": 0,
                             "decode_attention": 0,
                             "pair_score": 0,
-                            "ssm_scan": 0}
+                            "ssm_scan": 0,
+                            "mla_decode_attention": 0}
 
 _count_lock = threading.Lock()
 
@@ -41,12 +50,11 @@ def check_placement(name: str, tensors: Dict[str, torch.Tensor]) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
-                  floats: Sequence[str]) -> None:
-    """The checks every attention op makes on both routes: the tensors
-    share one device and are contiguous, the ``floats`` share a dtype the
-    kernels are built for, and the first of them ends in a head dim they
-    are built for.  Raises ``ValueError``."""
+def check_floats(name: str, tensors: Dict[str, torch.Tensor],
+                 floats: Sequence[str]) -> torch.dtype:
+    """The tensors share one device and are contiguous, and the ``floats``
+    share a dtype the kernels are built for, which it returns.  Raises
+    ``ValueError``."""
     check_placement(name, tensors)
     dtype = tensors[floats[0]].dtype
     if dtype not in DTYPE_CODE:
@@ -54,9 +62,29 @@ def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
                          f"(float32, bfloat16)")
     if any(tensors[k].dtype != dtype for k in floats):
         raise ValueError(f"{name}: {', '.join(floats)} must share one dtype")
+    return dtype
+
+
+def check_tensors(name: str, tensors: Dict[str, torch.Tensor],
+                  floats: Sequence[str]) -> None:
+    """The checks every attention op makes on both routes:
+    :func:`check_floats`, and the first of the ``floats`` ends in a head
+    dim the kernels are built for.  Raises ``ValueError``."""
+    check_floats(name, tensors, floats)
     hd = tensors[floats[0]].shape[-1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+
+
+def check_dims(name: str, what: str, dims, dtype, built) -> None:
+    """``dims`` is a key of ``built`` (a pair of widths -> the dtypes its
+    kernel is built for) and ``dtype`` one of its dtypes.  Raises
+    ``ValueError``."""
+    if dims not in built or dtype not in built[dims]:
+        raise ValueError(f"{name}: {what} {dims} in {dtype} has no kernel; "
+                         f"built: " + ", ".join(
+                             f"{k} in {[str(t).split('.')[1] for t in v]}"
+                             for k, v in built.items()))
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor]) -> None:
@@ -74,7 +102,7 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor]) -> None:
 
 #: what the attention kernels' C entry points return besides a CUDA error
 LAUNCH_ERRORS = {
-    -1: "no kernel for this dtype and head_dim",
+    -1: "no kernel for this dtype and these widths",
     -2: "cuTensorMapEncodeTiled could not be found through the CUDA "
         "runtime's driver entry point (cudaGetDriverEntryPoint); the TMA "
         "tensor maps need a driver that provides it (CUDA 12 or later)",

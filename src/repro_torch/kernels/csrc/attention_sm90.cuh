@@ -42,6 +42,13 @@
 // that span (128 B for hd >= 64, 64 B at 32, 32 B at 16): TMA writes it,
 // wgmma reads it, and the Q loads apply the same XOR by hand.
 //
+// V's head dim DV may be narrower than the q/k head dim HD (MLA's prefill:
+// q/k 192 = nope 128 + rope 64, v 128): Q K^T runs HD / 16 k-steps over
+// Tile<HD> column blocks of Q and K, while V, P V, the accumulator and the
+// output take Tile<DV>'s.  At (192, 128) Q is 24 KiB and a stage 24 + 16
+// KiB, two stages 107,552 bytes with the barriers and slack, so two CTAs
+// still fit an SM, and the O accumulator is hd 128's.
+//
 // A source (DenseSrc in flash_attention.cu, PagedSrc in paged_attention.cu)
 // gives, for query s of sequence b, the keys lo <= t <= hi it may see, and
 // fills a stage.  Masked scores are the finite NEG_INF, masked keys add
@@ -167,9 +174,20 @@ struct Tile {
   static constexpr int BYTES = NCB * BLOCK;   // bytes of one tile
   static constexpr int NST = HD >= 128 ? 2 : 3;  // K/V stages in the ring
   static constexpr uint64_t SWIZZLE = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
-  // Q, the ring, 2 * NST barriers, and slack to align the base to 1024
-  static constexpr int SMEM = BYTES * (1 + 2 * NST) + 16 * NST + 1024;
   static_assert(HD % 16 == 0 && NCB * BW == HD, "head_dim");
+};
+
+// Shared memory of the kernel at q/k head dim HD and v head dim DV: Q,
+// then NST stages of a K tile and a V tile, then the 2 * NST barriers.
+template <int HD, int DV>
+struct Ring {
+  using TK = Tile<HD>;
+  using TV = Tile<DV>;
+  static constexpr int NST = TK::NST;
+  static constexpr int STAGE = TK::BYTES + TV::BYTES;
+  static constexpr int BARS = TK::BYTES + NST * STAGE;
+  // slack to align the base to 1024
+  static constexpr int SMEM = BARS + 16 * NST + 1024;
 };
 
 // byte offset of (row, 16-byte chunk) inside a column block, swizzled as
@@ -181,7 +199,7 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
 
 struct AttnParams {
   const __nv_bfloat16* q;            // (B, S, KV, G, hd)
-  __nv_bfloat16* out;                // (B, S, KV, G, hd)
+  __nv_bfloat16* out;                // (B, S, KV, G, hd_v)
   const __nv_bfloat16* k;            // the key and value source, as the
   const __nv_bfloat16* v;            //   source reads it
   const int* bt;                     // paged: (B, nb) block table
@@ -197,24 +215,26 @@ struct AttnParams {
 // (b, kv head) over every key they see.  Consumer
 // thread (warp, gq, tq) holds rows row0 + 16 * warp + gq + 8 * h (h = 0,
 // 1) of the mma layout.
-template <int HD, class Src>
+template <int HD, class Src, int DV = HD>
 __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     attention_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const AttnParams p) {
-  using T = Tile<HD>;
+  using R = Ring<HD, DV>;
+  using T = typename R::TK;              // Q and K
+  using TV = typename R::TV;             // V and the output
   constexpr int KS = HD / 16;            // k-steps of Q K^T
-  constexpr int ON = T::BW / 2;          // accumulator floats per block
+  constexpr int ON = TV::BW / 2;         // accumulator floats per block
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* const smem0 = smem_raw - raw;   // generic address of shared 0
   const uint32_t q_s = base;
-  const uint32_t bars = base + T::BYTES * (1 + 2 * T::NST);
-  auto k_s = [&](int st) { return base + T::BYTES * (1 + 2 * st); };
-  auto v_s = [&](int st) { return base + T::BYTES * (2 + 2 * st); };
+  const uint32_t bars = base + R::BARS;
+  auto k_s = [&](int st) { return base + T::BYTES + R::STAGE * st; };
+  auto v_s = [&](int st) { return k_s(st) + T::BYTES; };
   auto full = [&](int st) { return bars + 8 * st; };
-  auto empty = [&](int st) { return bars + 8 * (T::NST + st); };
+  auto empty = [&](int st) { return bars + 8 * (R::NST + st); };
 
   const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
   const int rt = p.n_row_tiles - 1 - blockIdx.y;   // heaviest tiles first
@@ -228,7 +248,7 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
   const int n_tiles = end > beg ? (end - t0 + TILE - 1) / TILE : 0;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < T::NST; ++st) {
+    for (int st = 0; st < R::NST; ++st) {
       mbar_init(full(st), 1);
       mbar_init(empty(st), CONSUMERS / 32);
     }
@@ -240,12 +260,12 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
   if (warp == CONSUMERS / 32) {
     // producer: keep the ring full
     for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % T::NST;
-      if (lane == 0) mbar_wait(empty(st), ((i / T::NST) & 1) ^ 1);
+      const int st = i % R::NST;
+      if (lane == 0) mbar_wait(empty(st), ((i / R::NST) & 1) ^ 1);
       __syncwarp();
-      Src::template load_tile<HD>(p, &kmap, &vmap, b, kvh, t0 + TILE * i,
-                                  k_s(st), v_s(st), full(st), smem0,
-                                  lane);
+      Src::template load_tile<HD, DV>(p, &kmap, &vmap, b, kvh, t0 + TILE * i,
+                                      k_s(st), v_s(st), full(st), smem0,
+                                      lane);
     }
     return;
   }
@@ -270,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
 
   const int gq = lane >> 2, tq = lane & 3;
   int lo[2], hi[2];
-  int64_t off[2];
+  int64_t off[2];                        // the rows' output offsets
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + warp * 16 + gq + 8 * h;
@@ -278,15 +298,15 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     const int2 kb = Src::bounds(p, b, s);
     lo[h] = r < n_rows ? kb.x : INT_MAX;
     hi[h] = r < n_rows ? kb.y : -1;
-    off[h] = (q_row + (int64_t)s * p.KV * p.G + g) * HD;
+    off[h] = (q_row + (int64_t)s * p.KV * p.G + g) * DV;
   }
   // the keys every row of the CTA sees: no mask inside them
   const int all_lo =
       rows == TILE ? Src::bounds(p, b, (row0 + TILE - 1) / p.G).x : INT_MAX;
   const int all_hi = rows == TILE ? Src::bounds(p, b, row0 / p.G).y : -1;
-  float o[T::NCB][ON];
+  float o[TV::NCB][ON];
 #pragma unroll
-  for (int cb = 0; cb < T::NCB; ++cb)
+  for (int cb = 0; cb < TV::NCB; ++cb)
 #pragma unroll
     for (int j = 0; j < ON; ++j) o[cb][j] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -294,17 +314,17 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
   constexpr uint32_t SBO = 8 * T::SWB;   // bytes between 8-row groups
 
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % T::NST, key0 = t0 + TILE * i;
-    mbar_wait(full(st), (i / T::NST) & 1);
+    const int st = i % R::NST, key0 = t0 + TILE * i;
+    mbar_wait(full(st), (i / R::NST) & 1);
     if (end - key0 < TILE) {
       // zero the V rows past the last key any row here may see
       const int z0 = end - key0;
-      for (int idx = threadIdx.x; idx < T::NCB * (TILE - z0) * (T::SWB / 16);
-           idx += CONSUMERS) {
-        const int cb = idx / ((TILE - z0) * (T::SWB / 16));
-        const int rest = idx - cb * (TILE - z0) * (T::SWB / 16);
-        *reinterpret_cast<uint4*>(smem0 + v_s(st) + cb * T::BLOCK +
-                                  z0 * T::SWB + rest * 16) =
+      for (int idx = threadIdx.x;
+           idx < TV::NCB * (TILE - z0) * (TV::SWB / 16); idx += CONSUMERS) {
+        const int cb = idx / ((TILE - z0) * (TV::SWB / 16));
+        const int rest = idx - cb * (TILE - z0) * (TV::SWB / 16);
+        *reinterpret_cast<uint4*>(smem0 + v_s(st) + cb * TV::BLOCK +
+                                  z0 * TV::SWB + rest * 16) =
             make_uint4(0u, 0u, 0u, 0u);
       }
       fence_proxy_async();
@@ -356,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     }
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int cb = 0; cb < T::NCB; ++cb)
+      for (int cb = 0; cb < TV::NCB; ++cb)
 #pragma unroll
         for (int j = 0; j < ON; ++j) o[cb][j] *= corr[(j >> 1) & 1];
     }
@@ -375,21 +395,22 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
 
     // O += P V
 #pragma unroll
-    for (int cb = 0; cb < T::NCB; ++cb) pin(o[cb]);
+    for (int cb = 0; cb < TV::NCB; ++cb) pin(o[cb]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int cb = 0; cb < T::NCB; ++cb) {
+      for (int cb = 0; cb < TV::NCB; ++cb) {
         const uint64_t dv = smem_desc(
-            v_s(st) + cb * T::BLOCK + kk * 16 * T::SWB, SBO, T::SWIZZLE);
-        Wgmma<T::BW>::rs(o[cb], pl[kk], dv);
-        Wgmma<T::BW>::rs(o[cb], ph[kk], dv);
+            v_s(st) + cb * TV::BLOCK + kk * 16 * TV::SWB, 8 * TV::SWB,
+            TV::SWIZZLE);
+        Wgmma<TV::BW>::rs(o[cb], pl[kk], dv);
+        Wgmma<TV::BW>::rs(o[cb], ph[kk], dv);
       }
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int cb = 0; cb < T::NCB; ++cb) pin(o[cb]);
+    for (int cb = 0; cb < TV::NCB; ++cb) pin(o[cb]);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
   }
@@ -402,10 +423,10 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     if (row0 + warp * 16 + gq + 8 * h >= n_rows) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int cb = 0; cb < T::NCB; ++cb)
+    for (int cb = 0; cb < TV::NCB; ++cb)
 #pragma unroll
       for (int c8 = 0; c8 < ON / 4; ++c8)
-        *reinterpret_cast<uint32_t*>(p.out + off[h] + cb * T::BW + 8 * c8 +
+        *reinterpret_cast<uint32_t*>(p.out + off[h] + cb * TV::BW + 8 * c8 +
                                      2 * tq) =
             f_to_bf2(o[cb][4 * c8 + 2 * h] * inv,
                      o[cb][4 * c8 + 2 * h + 1] * inv);
@@ -438,15 +459,15 @@ int encode_map(CUtensorMap* map, const void* base, uint64_t d1, uint64_t d2,
 }
 
 // grid (B * KV, row tiles) of the attention kernel
-template <int HD, class Src>
+template <int HD, class Src, int DV = HD>
 int launch_attention(const CUtensorMap& kmap, const CUtensorMap& vmap,
                      const AttnParams& p, int B, cudaStream_t stream) {
-  constexpr int smem = Tile<HD>::SMEM;
+  constexpr int smem = Ring<HD, DV>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      attention_sm90_kernel<HD, Src>,
+      attention_sm90_kernel<HD, Src, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  attention_sm90_kernel<HD, Src>
+  attention_sm90_kernel<HD, Src, DV>
       <<<dim3(B * p.KV, p.n_row_tiles), THREADS, smem, stream>>>(kmap, vmap,
                                                                 p);
   return (int)cudaGetLastError();
@@ -454,15 +475,17 @@ int launch_attention(const CUtensorMap& kmap, const CUtensorMap& vmap,
 
 }  // namespace
 
-// The dynamic shared memory the kernel asks for at head dim hd, for the
-// build report; 0 for a head dim it has no kernel for.
-extern "C" int repro_attention_sm90_smem(int hd) {
+// The dynamic shared memory the kernel asks for at q/k head dim hd and v
+// head dim hd_v, for the build report; 0 for a pair it has no kernel for.
+extern "C" int repro_attention_sm90_smem(int hd, int hd_v) {
+  if (hd == 192 && hd_v == 128) return Ring<192, 128>::SMEM;
+  if (hd != hd_v) return 0;
   switch (hd) {
-    case 16: return Tile<16>::SMEM;
-    case 32: return Tile<32>::SMEM;
-    case 64: return Tile<64>::SMEM;
-    case 128: return Tile<128>::SMEM;
-    case 256: return Tile<256>::SMEM;
+    case 16: return Ring<16, 16>::SMEM;
+    case 32: return Ring<32, 32>::SMEM;
+    case 64: return Ring<64, 64>::SMEM;
+    case 128: return Ring<128, 128>::SMEM;
+    case 256: return Ring<256, 256>::SMEM;
     default: return 0;
   }
 }

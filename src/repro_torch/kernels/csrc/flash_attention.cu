@@ -7,9 +7,12 @@
 //   src/repro/kernels/flash_attention.py:flash_attention_bhsd
 //     (body _flash_kernel)  -> repro_flash_attention
 //
-// q and out are (B, S, H, hd), k and v (B, S, KV, hd), all contiguous: the
-// kernels read the model's layout directly, with no transposes and no pad
-// copies.  Query s of head h = kvh * G + g sees key t iff t < S, t <= s when
+// q is (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hd_v) and out (B, S,
+// H, hd_v), all contiguous: the kernels read the model's layout directly,
+// with no transposes and no pad copies.  hd_v is hd, or narrower for MLA's
+// prefill (deepseek-v2-lite: q/k 192 = nope 128 + rope 64, v 128; its
+// reduced config: 24 and 16), as the TPU kernel's jnp oracle
+// (flash_attention_jnp) allows; the scale is the caller's, 1/sqrt(hd).  Query s of head h = kvh * G + g sees key t iff t < S, t <= s when
 // causal, and t > s - window when window > 0 (the TPU kernel's masks).
 // Rows are the (query, head) pairs r = s * G + g of one (b, kv head), so the
 // G heads that share a K/V head share every K/V tile a CTA loads.  A CTA
@@ -42,7 +45,9 @@
 // ridge (~295 flops per byte), longer ones above it.  P V costs two wgmma
 // (hi and lo) where a bf16 P would cost one, so the operations the
 // kernel issues are 1.5x the bound's.  fp32 on the CUDA cores is bound by
-// its instructions.
+// its instructions.  MLA's prefill (deepseek-v2-lite: B = 1, S = 512, H =
+// KV = 16, q/k 192, v 128) moves 10.5 MB (3.1 us) for 1.3 GFLOP (1.4 us):
+// bytes again.
 #include <limits.h>
 
 #include "attention_sm90.cuh"
@@ -59,20 +64,24 @@ struct DenseSrc {
     return make_int2(p.window ? max(s - p.window + 1, 0) : 0,
                      p.causal ? s : p.S - 1);
   }
-  // one box per 64-column block of K and of V, lanes 0 .. 2 NCB - 1
-  template <int HD>
+  // one box per 64-column block of K and of V, lanes 0 .. NCB of K + NCB
+  // of V - 1
+  template <int HD, int DV>
   static __device__ __forceinline__ void load_tile(
       const AttnParams&, const CUtensorMap* kmap, const CUtensorMap* vmap,
       int b, int kvh, int key0, uint32_t k_s, uint32_t v_s, uint32_t full,
       uint8_t*, int lane) {
-    using T = Tile<HD>;
-    if (lane == 0) mbar_expect_tx(full, 2 * T::BYTES);
+    using TK = Tile<HD>;
+    using TV = Tile<DV>;
+    if (lane == 0) mbar_expect_tx(full, TK::BYTES + TV::BYTES);
     __syncwarp();
-    if (lane < 2 * T::NCB) {
-      const bool is_k = lane < T::NCB;
-      const int cb = is_k ? lane : lane - T::NCB;
-      tma_load_4d((is_k ? k_s : v_s) + cb * T::BLOCK, is_k ? kmap : vmap,
-                  full, cb * T::BW, kvh, key0, b);
+    if (lane < TK::NCB) {
+      tma_load_4d(k_s + lane * TK::BLOCK, kmap, full, lane * TK::BW, kvh,
+                  key0, b);
+    } else if (lane < TK::NCB + TV::NCB) {
+      const int cb = lane - TK::NCB;
+      tma_load_4d(v_s + cb * TV::BLOCK, vmap, full, cb * TV::BW, kvh, key0,
+                  b);
     }
   }
 };
@@ -83,30 +92,53 @@ constexpr int NW = 8;            // warps per CTA
 constexpr int NT = NW * 32;      // threads per CTA
 constexpr int GR = 8;            // rows per CTA
 
-template <int HD>
+// Lanes a key takes at q/k head dim HD and v head dim DV: lanes_per_key's
+// count (the same for DV == HD), halved until each lane's share of both
+// dims is a multiple of 4 (four floats a load): 16 at (192, 128), 12 and 8
+// dims a lane; 2 at (24, 16).
+template <int HD, int DV>
+__host__ __device__ constexpr int lanes_per_key_qv() {
+  int lpk = lanes_per_key<HD, GR>();
+  while (lpk > 1 && (HD % (4 * lpk) || DV % (4 * lpk))) lpk >>= 1;
+  return lpk;
+}
+
+// Rows a CTA: GR, or GR / 2 where a key takes fewer than 4 lanes (2 at
+// (24, 16): 8 rows' q and acc at 12 + 8 dims a lane spilled)
+template <int HD, int DV>
+__host__ __device__ constexpr int flash_rows() {
+  return lanes_per_key_qv<HD, DV>() < 4 ? GR / 2 : GR;
+}
+
+template <int HD, int DV>
 __global__ void __launch_bounds__(NT) flash_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int S, int KV,
     int G, int causal, int window, float scale) {
-  constexpr int LPK = lanes_per_key<HD, GR>();  // lanes per key
-  constexpr int VEC = HD / LPK;                   // head dims per lane
+  constexpr int RW = flash_rows<HD, DV>();        // rows per CTA
+  constexpr int LPK = lanes_per_key_qv<HD, DV>();  // lanes per key
+  constexpr int VEC = HD / LPK;                   // q/k head dims per lane
+  constexpr int VV = DV / LPK;                    // v head dims per lane
   constexpr int KPW = 32 / LPK;                   // keys a warp reads at once
-  // keys per lane group per step, as many as ~200 registers allow
-  constexpr int UR = (200 - 2 * GR * VEC) / (2 * VEC + GR);
+  // keys per lane group per step, as many as ~200 registers allow at GR
+  // rows (fewer rows keep GR's count: more keys would bring the spills
+  // back)
+  constexpr int UR = (200 - GR * (VEC + VV)) / (VEC + VV + GR);
   constexpr int U = UR < 1 ? 1 : (UR > 8 ? 8 : UR);
   constexpr int STEP = KPW * U;                   // keys per warp step
-  static_assert(VEC % 4 == 0 && 32 % LPK == 0, "head_dim");
+  static_assert(VEC % 4 == 0 && VV % 4 == 0 && 32 % LPK == 0, "head_dim");
 
-  const int b = blockIdx.x, kvh = blockIdx.y, row0 = blockIdx.z * GR;
-  const int rows = min(GR, S * G - row0);
+  const int b = blockIdx.x, kvh = blockIdx.y, row0 = blockIdx.z * RW;
+  const int rows = min(RW, S * G - row0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % LPK, gi = lane / LPK, d0 = sub * VEC;
+  const int e0 = sub * VV;                        // the lane's v dims
   const float qscale = scale * LOG2E;
 
-  float qr[GR][VEC], acc[GR][VEC], m[GR], l[GR];
-  int hi[GR], lo[GR];                           // keys a row may see
+  float qr[RW][VEC], acc[RW][VV], m[RW], l[RW];
+  int hi[RW], lo[RW];                           // keys a row may see
 #pragma unroll
-  for (int i = 0; i < GR; ++i) {
+  for (int i = 0; i < RW; ++i) {
     if (i < rows) {
       const int r = row0 + i, s = r / G, g = r - s * G;
       Vec<float, VEC>::load(
@@ -120,10 +152,9 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
       for (int d = 0; d < VEC; ++d) qr[i][d] = 0.f;
     }
 #pragma unroll
-    for (int d = 0; d < VEC; ++d) {
-      qr[i][d] *= qscale;
-      acc[i][d] = 0.f;
-    }
+    for (int d = 0; d < VEC; ++d) qr[i][d] *= qscale;
+#pragma unroll
+    for (int d = 0; d < VV; ++d) acc[i][d] = 0.f;
     m[i] = NEG_INF;
     l[i] = 0.f;
   }
@@ -131,30 +162,32 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   const int s_first = row0 / G, s_last = (row0 + rows - 1) / G;
   const int n_keys = causal ? s_last + 1 : S;
   const int k_lo = window ? max(s_first - window + 1, 0) : 0;
-  const int64_t key_stride = (int64_t)KV * HD;
-  const int64_t base_kv =
-      (int64_t)b * S * key_stride + (int64_t)kvh * HD + d0;
+  const int64_t base_k =
+      (int64_t)b * S * KV * HD + (int64_t)kvh * HD + d0;
+  const int64_t base_v =
+      (int64_t)b * S * KV * DV + (int64_t)kvh * DV + e0;
 
   // warp-uniform loop: group gi of warp w reads keys base + gi*U + u
   for (int base = k_lo + warp * STEP; base < n_keys; base += NW * STEP) {
-    float kx[U][VEC], vx[U][VEC];
+    float kx[U][VEC], vx[U][VV];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int key = base + gi * U + u;
       if (key < n_keys) {
-        const int64_t off = base_kv + (int64_t)key * key_stride;
-        Vec<float, VEC>::load(k + off, kx[u]);
-        Vec<float, VEC>::load(v + off, vx[u]);
+        Vec<float, VEC>::load(k + base_k + (int64_t)key * KV * HD, kx[u]);
+        Vec<float, VV>::load(v + base_v + (int64_t)key * KV * DV, vx[u]);
       } else {
 #pragma unroll
-        for (int d = 0; d < VEC; ++d) kx[u][d] = vx[u][d] = 0.f;
+        for (int d = 0; d < VEC; ++d) kx[u][d] = 0.f;
+#pragma unroll
+        for (int d = 0; d < VV; ++d) vx[u][d] = 0.f;
       }
     }
-    float sc[U][GR];
+    float sc[U][RW];
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int i = 0; i < GR; ++i) {
+      for (int i = 0; i < RW; ++i) {
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < VEC; ++d) dot += qr[i][d] * kx[u][d];
@@ -165,10 +198,10 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int i = 0; i < GR; ++i)
+        for (int i = 0; i < RW; ++i)
           sc[u][i] += __shfl_xor_sync(0xffffffffu, sc[u][i], sh);
 #pragma unroll
-    for (int i = 0; i < GR; ++i) {
+    for (int i = 0; i < RW; ++i) {
       float mx = m[i];
       bool vis[U];
 #pragma unroll
@@ -182,7 +215,7 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
         const float corr = exp2f(m[i] - mx);
         l[i] *= corr;
 #pragma unroll
-        for (int d = 0; d < VEC; ++d) acc[i][d] *= corr;
+        for (int d = 0; d < VV; ++d) acc[i][d] *= corr;
         m[i] = mx;
       }
 #pragma unroll
@@ -190,24 +223,24 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
         const float p = vis[u] ? exp2f(sc[u][i] - mx) : 0.f;
         l[i] += p;
 #pragma unroll
-        for (int d = 0; d < VEC; ++d) acc[i][d] += p * vx[u][d];
+        for (int d = 0; d < VV; ++d) acc[i][d] += p * vx[u][d];
       }
     }
   }
 
   // merge the groups of a warp
-  merge_lane_groups<GR, VEC, LPK>(m, l, acc);
+  merge_lane_groups<RW, VV, LPK>(m, l, acc);
 
   // merge the warps through shared memory and write the rows (a_s is
   // dynamic shared memory at hd 256: 64 KiB)
-  __shared__ float m_s[NW][GR], l_s[NW][GR];
-  float(*a_s)[GR][HD] = reinterpret_cast<float(*)[GR][HD]>(
-      smem_buffer<NW * GR * HD * 4>());
+  __shared__ float m_s[NW][RW], l_s[NW][RW];
+  float(*a_s)[RW][DV] = reinterpret_cast<float(*)[RW][DV]>(
+      smem_buffer<NW * RW * DV * 4>());
   if (lane < LPK) {
 #pragma unroll
-    for (int i = 0; i < GR; ++i) {
+    for (int i = 0; i < RW; ++i) {
 #pragma unroll
-      for (int d = 0; d < VEC; ++d) a_s[warp][i][d0 + d] = acc[i][d];
+      for (int d = 0; d < VV; ++d) a_s[warp][i][e0 + d] = acc[i][d];
       if (sub == 0) {
         m_s[warp][i] = m[i];
         l_s[warp][i] = l[i];
@@ -216,8 +249,8 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   }
   __syncthreads();
   constexpr int OV = 4;                         // dims per output store
-  for (int e = threadIdx.x; e < rows * (HD / OV); e += NT) {
-    const int i = e / (HD / OV), dv = (e - i * (HD / OV)) * OV;
+  for (int e = threadIdx.x; e < rows * (DV / OV); e += NT) {
+    const int i = e / (DV / OV), dv = (e - i * (DV / OV)) * OV;
     float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][i]);
@@ -234,46 +267,62 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
     for (int d = 0; d < OV; ++d) o[d] *= inv;
     const int r = row0 + i, s = r / G, g = r - s * G;
     Vec<float, OV>::store(
-        out + ((((int64_t)b * S + s) * KV + kvh) * G + g) * HD + dv, o);
+        out + ((((int64_t)b * S + s) * KV + kvh) * G + g) * DV + dv, o);
   }
 }
 
-template <int HD>
+// DV == HD, or (192, 128); (24, 16) has the fp32 kernel only (24 is not
+// a multiple of the bf16 wgmma's 16-deep k-step), and returns -1 in bf16
+template <int HD, int DV = HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
            void* out, int B, int S, int KV, int G, int causal, int window,
            float scale, cudaStream_t stream) {
   if (dtype == 1) {
-    CUtensorMap kmap, vmap;
-    int rc = encode_map<HD>(&kmap, k, KV, S, B, TILE);
-    if (rc == 0) rc = encode_map<HD>(&vmap, v, KV, S, B, TILE);
-    if (rc != 0) return rc;
-    AttnParams p = {};
-    p.q = (const __nv_bfloat16*)q;
-    p.out = (__nv_bfloat16*)out;
-    p.S = S; p.KV = KV; p.G = G;
-    p.causal = causal; p.window = window; p.scale = scale;
-    p.n_row_tiles = (S * G + TILE - 1) / TILE;
-    return launch_attention<HD, DenseSrc>(kmap, vmap, p, B, stream);
+    if constexpr (HD % 16 == 0 && DV % 16 == 0) {
+      CUtensorMap kmap, vmap;
+      int rc = encode_map<HD>(&kmap, k, KV, S, B, TILE);
+      if (rc == 0) rc = encode_map<DV>(&vmap, v, KV, S, B, TILE);
+      if (rc != 0) return rc;
+      AttnParams p = {};
+      p.q = (const __nv_bfloat16*)q;
+      p.out = (__nv_bfloat16*)out;
+      p.S = S; p.KV = KV; p.G = G;
+      p.causal = causal; p.window = window; p.scale = scale;
+      p.n_row_tiles = (S * G + TILE - 1) / TILE;
+      return launch_attention<HD, DenseSrc, DV>(kmap, vmap, p, B, stream);
+    } else {
+      return -1;
+    }
   }
-  const dim3 grid(B, KV, (S * G + GR - 1) / GR);
-  return launch_with_smem<NW * GR * HD * 4>(
-      flash_simt_kernel<HD>, grid, NT, stream, (const float*)q,
+  constexpr int RW = flash_rows<HD, DV>();
+  const dim3 grid(B, KV, (S * G + RW - 1) / RW);
+  return launch_with_smem<NW * RW * DV * 4>(
+      flash_simt_kernel<HD, DV>, grid, NT, stream, (const float*)q,
       (const float*)k, (const float*)v, (float*)out, S, KV, G, causal,
       window, scale);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; causal: 0 or 1; window: 0 for none.
-// Returns cudaGetLastError() after the launch (0 on success), -1 for a
-// dtype / head_dim it has no kernel for, -2 if cuTensorMapEncodeTiled
-// cannot be found, -3 if it refuses a tensor map.
-extern "C" int repro_flash_attention(int dtype, int hd, const void* q,
-                                     const void* k, const void* v, void* out,
-                                     int B, int S, int KV, int G, int causal,
-                                     int window, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; hd_v: v's head dim (hd, or a pair
+// above); causal: 0 or 1; window: 0 for none.  Returns cudaGetLastError()
+// after the launch (0 on success), -1 for a dtype / head dims it has no
+// kernel for, -2 if cuTensorMapEncodeTiled cannot be found, -3 if it
+// refuses a tensor map.
+extern "C" int repro_flash_attention(int dtype, int hd, int hd_v,
+                                     const void* q, const void* k,
+                                     const void* v, void* out, int B, int S,
+                                     int KV, int G, int causal, int window,
+                                     float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 192 && hd_v == 128)
+    return launch<192, 128>(dtype, q, k, v, out, B, S, KV, G, causal,
+                            window, scale, st);
+  if (hd == 24 && hd_v == 16)
+    return launch<24, 16>(dtype, q, k, v, out, B, S, KV, G, causal, window,
+                          scale, st);
+  if (hd_v != hd) return -1;
   switch (hd) {
     case 16: return launch<16>(dtype, q, k, v, out, B, S, KV, G, causal,
                                window, scale, st);

@@ -254,11 +254,12 @@ struct PagedSrc {
                          p.n_pool_rows - 1);
     return make_int2(phys, key - j * p.bs);
   }
-  template <int HD>
+  template <int HD, int DV>
   static __device__ __forceinline__ void load_tile(
       const AttnParams& p, const CUtensorMap* kmap, const CUtensorMap* vmap,
       int b, int kvh, int key0, uint32_t k_s, uint32_t v_s, uint32_t full,
       uint8_t* smem0, int lane) {
+    static_assert(DV == HD, "the extend's K and V share one head dim");
     using T = Tile<HD>;
     if (p.box_rows) {
       // one box of box_rows keys (a page, or the part of one in the tile)

@@ -1,8 +1,9 @@
 """Public kernel ops of the port, with the contracts of
 ``repro.kernels.ops`` (``ops.py:22-111``): attention queries in the
 model's ``(B, [S,] H, hd)`` layout, the phase-2 pair score and the Mamba
-selective scan; and :func:`linear_scan`, the RG-LRU recurrence on the
-scan kernel at N = 1.
+selective scan; :func:`linear_scan`, the RG-LRU recurrence on the scan
+kernel at N = 1; and :func:`mla_decode_attention`, MLA's absorbed decode,
+which JAX computes in plain ``jnp``.
 
 The device of the tensors decides the route: a CUDA tensor launches the
 Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
@@ -17,6 +18,7 @@ from typing import Dict
 from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mla_decode as md
 from repro_torch.kernels import pair_score as ps
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
@@ -52,8 +54,10 @@ def _route(name: str, q) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (B,S,H,hd).  Query s sees key t
-    iff ``t <= s`` when ``causal`` and ``t > s - window`` when ``window``;
+    """q: (B,S,H,hd), k: (B,S,KV,hd), v: (B,S,KV,hd_v) -> (B,S,H,hd_v),
+    at scale 1/sqrt(hd); hd_v is hd, or narrower for MLA's prefill (the
+    pairs of ``kernels.FLASH_QK_V_DIMS``).  Query s sees key t iff ``t <=
+    s`` when ``causal`` and ``t > s - window`` when ``window``;
     ``causal=False, window=0`` is bidirectional."""
     if not _route("flash_attention", q):
         fa.check_args(q, k, v, window)
@@ -70,6 +74,21 @@ def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
         da.check_args(q, k, v, lengths, n_splits)
         return ref.decode_attention_ref(q, k, v, lengths)
     return da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
+    """MLA's absorbed decode attention (``repro.models.attention.mla_decode``,
+    ``attention.py:636-643``, plain ``jnp`` in JAX): q_lat (B,H,r), q_rope
+    (B,H,rh), the latent cache ckv (B,L,r) and krope (B,L,rh), lengths
+    (B,) int32 -> (B,H,r), the softmax of ``(q_lat ckv^T + q_rope
+    krope^T) * scale`` over keys ``< lengths`` (all L past L) times
+    ckv, with P in fp32."""
+    if not _route("mla_decode_attention", q_lat):
+        md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
+        return ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope,
+                                            lengths, scale)
+    return md.mla_decode_attention_bhr(q_lat, q_rope, ckv, krope, lengths,
+                                       scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):

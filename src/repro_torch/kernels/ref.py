@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels (the port of
-``repro.kernels.ref``, ``ref.py:13-115``).
+``repro.kernels.ref``, ``ref.py:13-115``, and of MLA's absorbed decode,
+which JAX computes in plain ``jnp``).
 
 They are the ground truth the CUDA kernels in ``csrc/*.cu`` are held
 against, and what :mod:`repro_torch.kernels.ops` runs for a tensor on the
@@ -17,9 +18,10 @@ NEG_INF = -2.0e38
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd)  k,v: (B,S,KV,hd).  Masked full attention: query s
-    sees key t iff ``t <= s`` (causal) and ``t > s - window`` (window).
-    Returns (B,S,H,hd)."""
+    """q, k: (B,S,H,hd), (B,S,KV,hd); v: (B,S,KV,hd_v), where hd_v may be
+    narrower than hd (MLA's prefill).  Masked full attention at scale
+    1/sqrt(hd): query s sees key t iff ``t <= s`` (causal) and ``t > s -
+    window`` (window).  Returns (B,S,H,hd_v)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -52,6 +54,25 @@ def decode_attention_ref(q, k, v, lengths):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def mla_decode_attention_ref(q_lat, q_rope, ckv, krope, lengths, scale):
+    """MLA's absorbed decode attention (``repro.models.attention.
+    mla_decode``, ``attention.py:636-643``): q_lat (B,H,r) the absorbed
+    query, q_rope (B,H,rh), the latent cache ckv (B,L,r) and its RoPE key
+    krope (B,L,rh), lengths (B,).  Scores ``(q_lat ckv^T + q_rope
+    krope^T) * scale`` in fp32 over keys ``l < lengths`` (a length past L
+    sees all L rows; a length of 0 sees none, and its softmax over the
+    finite NEG_INF is uniform: the mean of ckv), P in fp32 (JAX rounds it
+    to the activation dtype), out ``P ckv``.  Returns (B,H,r) in q_lat's
+    dtype."""
+    s = (torch.einsum("bhr,blr->bhl", q_lat.float(), ckv.float()) +
+         torch.einsum("bhd,bld->bhl", q_rope.float(), krope.float())) * scale
+    L = ckv.shape[1]
+    ok = torch.arange(L, device=q_lat.device)[None, :] < lengths[:, None]
+    s = torch.where(ok[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blr->bhr", p, ckv.float()).to(q_lat.dtype)
 
 
 def _gather(pool, block_tables):

@@ -14,7 +14,10 @@ the card, so it serves as one engine, not as process replicas.
 ``--arch recurrentgemma-2b`` serves the Griffin hybrid family (RG-LRU
 layers and MQA local attention): like Mamba it holds recurrent state, so
 ``--paged`` serves dense; give it ``--max-len`` above its 2,048-key
-window for its local layers to keep rings.
+window for its local layers to keep rings.  ``--arch
+deepseek-v2-lite-16b`` serves MLA (a latent cache, no paging: ``--paged``
+serves dense) with the MoE family's rules; its full-width weights take
+29 GiB of the card.
 
 ``--transport`` picks replica placement:
 
@@ -32,6 +35,8 @@ window for its local layers to keep rings.
         --requests 8 [--paged] [--arch falcon-mamba-7b]
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --arch recurrentgemma-2b --requests 8 --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+        --arch deepseek-v2-lite-16b --requests 8 --max-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduce --arch recurrentgemma-2b --requests 3 --max-new 4 \
         --slots 2 --max-len 64

@@ -22,6 +22,15 @@ package, which sends prefills shorter than 128 tokens to its plain
 ``mha``, every causal prefill goes through ``flash_attention``, so no
 plain attention runs on the card.
 
+MLA (deepseek-v2-lite, ``attention.py:565-646``) keeps a compressed
+cache per layer, ``{"ckv" (B, L, kv_lora_rank), "krope" (B, L,
+rope_head_dim)}``: the normalised latent and the RoPE'd key shared by all
+heads.  Its prefill expands them into q/k of ``nope + rope`` and v of
+``v_head_dim`` per head and runs ``flash_attention`` at every S (JAX runs
+its plain ``mha`` below 1024 tokens, which rounds P to the activation
+dtype); its decode is the absorbed form, through
+``kops.mla_decode_attention`` over the latent cache.
+
 In place, unlike JAX: :func:`batched_cache_update`, :func:`prefill_into_cache`
 and :func:`_paged_scatter` write K/V rows into the cache tensors they are
 given, so the decode, prefill and extend steps update the engine's caches
@@ -258,3 +267,83 @@ def paged_attn_extend(params, x, cache, pos0, bt, cfg, *, kind: str):
     out = kops.paged_extend_attention(q.contiguous(), cache["kp"],
                                       cache["vp"], bt, pos0)
     return out.reshape(B, S, -1) @ params["wo"], cache
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV, absorbed decode
+def init_mla_cache(cfg, batch: int, max_len: int, device):
+    """The latent cache of one MLA layer, zeros (``attention.py:614-618``)."""
+    z = dict(dtype=cfg.act_dtype, device=device)
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), **z),
+            "krope": torch.zeros((batch, max_len, cfg.rope_head_dim), **z)}
+
+
+def _mla_q(params, x, cfg, positions):
+    """(``attention.py:582-588``) -> q_nope (B,S,H,nh), q_rope (B,S,H,rh)
+    RoPE'd at ``positions``."""
+    B, S, _ = x.shape
+    H, rh, nh = cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, nh + rh)
+    return q[..., :nh], apply_rope(q[..., nh:], positions, cfg.rope_base)
+
+
+def _mla_latent(params, x, cfg, positions):
+    """The normalised latent ``ckv`` (B,S,r) and the RoPE'd shared key
+    ``krope`` (B,S,rh) of ``x`` (``attention.py:597-599``)."""
+    ckv = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    krope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
+                       cfg.rope_base)[:, :, 0]
+    return ckv, krope
+
+
+def mla_forward(params, x, cfg, positions=None):
+    """Full-sequence causal MLA (``attention.py:591-611``): per head q and
+    k of ``nope + rope`` and v of ``v_head_dim``, through
+    ``kops.flash_attention`` at every S, scale 1/sqrt(nope + rope).
+    Returns ``(out (B,S,d), (ckv (B,S,r), krope (B,S,rh)))``."""
+    B, S, _ = x.shape
+    H, rh, nh, vh = (cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim,
+                     cfg.v_head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    ckv, krope = _mla_latent(params, x, cfg, positions)
+    k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, nh)
+    v = (ckv @ params["w_uv"]).reshape(B, S, H, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rh)], dim=-1)
+    out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    return out.reshape(B, S, H * vh) @ params["wo"], (ckv, krope)
+
+
+def mla_prefill_into_cache(ckv, krope, cache):
+    """Write the prefill's latent rows into rows ``[0, S)`` of an MLA cache,
+    in place (``transformer.py:155-160``)."""
+    S = ckv.shape[1]
+    cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+    cache["krope"][:, :S] = krope.to(cache["krope"].dtype)
+    return cache
+
+
+def mla_decode(params, x, cache, pos, cfg):
+    """Absorbed decode step (``attention.py:621-646``): the latent row of
+    ``x`` written at ``pos`` in place, the query absorbed into the latent
+    space (``q_nope w_uk``, B x H x r), ``kops.mla_decode_attention`` over
+    keys ``<= pos`` (``lengths = pos + 1``), and the context mapped back
+    through ``w_uv`` and ``wo``.  x: (B,1,d); pos: (B,) int32."""
+    B = x.shape[0]
+    H, rh, nh, vh = (cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim,
+                     cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(params, x, cfg, pos[:, None])
+    ckv_t, krope_t = _mla_latent(params, x, cfg, pos[:, None])
+    batched_cache_update(cache["ckv"], ckv_t[:, 0], pos)
+    batched_cache_update(cache["krope"], krope_t[:, 0], pos)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                         params["w_uk"].reshape(r, H, nh))
+    ctx = kops.mla_decode_attention(
+        q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["ckv"],
+        cache["krope"], pos + 1, 1.0 / math.sqrt(nh + rh))
+    out = torch.einsum("bhr,rhd->bhd", ctx, params["w_uv"].reshape(r, H, vh))
+    return out.reshape(B, 1, H * vh) @ params["wo"], cache

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN of the port (``repro.models.moe.apply_moe``): a
 top-k router and capacity-based dispatch into per-expert buffers, the
-experts' SwiGLU as batched products, and the weighted combine.
+experts' SwiGLU as batched products, the weighted combine, and the shared
+experts' dense MLP where the config has them (deepseek-v2-lite).
 
 Expert capacity couples the rows of a batch: ``cap = int(max(1, (T*k) //
 E * capacity_factor))`` slots an expert, filled in token order, so a
@@ -22,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import apply_mlp
+
 
 def capacity(T: int, cfg) -> int:
     """Slots an expert for ``T`` tokens (``moe.py:51``)."""
@@ -31,11 +34,9 @@ def capacity(T: int, cfg) -> int:
 
 def apply_moe(params, x, cfg):
     """x: (B, S, d) -> (out (B, S, d), aux loss, an fp32 scalar)
-    (``moe.py:33-84``, without the shared experts)."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not in the port yet: ROADMAP.md, Queue 1, "
-            "item 6 (the other LM families)")
+    (``moe.py:33-84``); with shared experts their dense MLP
+    (``params["shared"]``) is added to every token's routed sum
+    (``:82-83``)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -82,5 +83,7 @@ def apply_moe(params, x, cfg):
 
     # combine: each token sums its k weighted picks; a dropped pick weighs 0
     w = (top_p.reshape(-1) * keep).to(x.dtype)
-    out = (eout[dest] * w[:, None]).view(T, k, d).sum(1)
-    return out.reshape(B, S, d), aux
+    out = (eout[dest] * w[:, None]).view(T, k, d).sum(1).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + apply_mlp(params["shared"], x, cfg)
+    return out, aux

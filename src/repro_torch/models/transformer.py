@@ -2,11 +2,14 @@
 (attention: dense prefill and decode, paged decode and extend), ``L`` and
 ``G`` (gemma3's sliding-window local attention, over a ring cache where
 the window is shorter than the cache, and its global attention, each at
-its own RoPE base), ``M`` (the same attention, qk-norm where the config
-asks for it, and the MoE FFN of ``models/moe.py``; MLA, ``kv_lora_rank``,
-is not in the port), ``S`` (Mamba-1: prefill and decode over a
+its own RoPE base), ``D`` (kind ``A``'s attention and an MLP of
+``dense_d_ff``: the dense first layer of a MoE model), ``M`` (the same
+attention, qk-norm where the config asks for it, or MLA where it sets
+``kv_lora_rank``, and the MoE FFN of ``models/moe.py``, with shared
+experts where it has them), ``S`` (Mamba-1: prefill and decode over a
 recurrent state) and ``R`` (recurrentgemma's RG-LRU block,
-``models/rglru.py``, over a recurrent state, then the MLP).
+``models/rglru.py``, over a recurrent state, then the MLP).  MLA's latent
+cache cannot page, so it serves dense (``paged_supported``).
 
 Expert capacity couples the rows of a kind-``M`` batch, so every pass
 keeps every row of its batch: an inactive slot of the decode loop feeds
@@ -17,7 +20,9 @@ Layer weights keep the JAX package's stacked layout: ``params["groups"][gi]
 [pi]`` is a nested dict whose leaves are ``(repeats, ...)`` tensors, and a
 Python loop over the repeats takes the place of ``lax.scan``.  Caches
 mirror it: dense ``caches[gi][pi] = {"k", "v"}`` of ``(repeats, B, L, KV,
-hd)`` (a ring adds ``"pos"`` of ``(repeats, B, L)``), paged ``{"kp",
+hd)`` (a ring adds ``"pos"`` of ``(repeats, B, L)``; MLA's latent cache
+is ``{"ckv", "krope"}`` of ``(repeats, B, L, r)`` and ``(repeats, B, L,
+rh)``), paged ``{"kp",
 "vp"}`` of ``(repeats, num_blocks+1, bs, KV, hd)``, SSM state ``{"conv",
 "h"}`` of ``(repeats, B, K-1, di)`` and ``(repeats, B, di, N)``, RG-LRU
 state ``{"conv", "h"}`` of ``(repeats, B, K-1, w)`` and ``(repeats, B,
@@ -67,28 +72,33 @@ def paged_supported(cfg, max_len: int) -> bool:
 
 
 #: attention kind of each attention layer kind (``transformer.py:162-163``)
-_ATTN_KIND = {"A": "causal", "M": "causal", "L": "local", "G": "global"}
+_ATTN_KIND = {"A": "causal", "M": "causal", "D": "causal", "L": "local",
+              "G": "global"}
 
 
-def _check_kind(kind: str, cfg):
-    if kind not in ("A", "L", "G", "S", "R", "M") or \
-            (kind == "M" and cfg.kv_lora_rank):
-        what = "MLA (kind 'M' with kv_lora_rank)" if kind == "M" else \
-            f"layer kind {kind!r}"
-        raise NotImplementedError(f"{what} " +
+def _check_kind(kind: str):
+    if kind not in ("A", "L", "G", "S", "R", "M", "D"):
+        raise NotImplementedError(f"layer kind {kind!r} " +
                                   _NOT_PORTED.format("6 (the other LM "
                                                      "families)"))
+
+
+def _is_mla(kind: str, cfg) -> bool:
+    return kind == "M" and bool(cfg.kv_lora_rank)
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
     """Dense cache of one layer (``transformer.py:75-83``): K/V for the
     attention kinds, a ring for kind ``L`` whose window is shorter than
-    ``max_len``, the recurrent state for kinds ``S`` and ``R``."""
-    _check_kind(kind, cfg)
+    ``max_len``, the latent cache for MLA, the recurrent state for kinds
+    ``S`` and ``R``."""
+    _check_kind(kind)
     if kind == "S":
         return ssm.init_ssm_state(cfg, batch, device)
     if kind == "R":
         return rglru.init_rglru_state(cfg, batch, device)
+    if _is_mla(kind, cfg):
+        return attn.init_mla_cache(cfg, batch, max_len, device)
     ring = kind == "L" and bool(cfg.window) and cfg.window < max_len
     return attn.init_kv_cache(cfg, batch, max_len, device, ring=ring)
 
@@ -126,11 +136,13 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
 
 
 def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
-    """One layer (``transformer.py:130-210``).  Kinds ``A`` and ``M``:
-    ``prefill`` into a dense cache, ``decode`` over a dense or paged cache,
-    ``extend`` over a paged cache; ``bt`` is the (B, nb) block table of a
-    paged cache.  Kind ``M`` runs the same causal attention and the MoE
-    FFN (``:204-205``).  Kind ``S`` (``:136-143``): a Mamba mixer and no
+    """One layer (``transformer.py:130-210``).  Kinds ``A``, ``D`` and
+    ``M``: ``prefill`` into a dense cache, ``decode`` over a dense or paged
+    cache, ``extend`` over a paged cache; ``bt`` is the (B, nb) block table
+    of a paged cache.  Kind ``M`` runs the same causal attention, or MLA
+    over its latent cache (``:151-160``: prefill and decode, dense only),
+    and the MoE FFN (``:204-205``); kind ``D`` the causal attention and an
+    MLP of ``dense_d_ff``.  Kind ``S`` (``:136-143``): a Mamba mixer and no
     MLP; ``prefill`` runs the whole prompt from a zero state and
     ``decode`` one step from ``cache``, each returning the new state.
     Kind ``R`` (``:145-150``): the RG-LRU mixer the same way, then, unlike
@@ -138,7 +150,7 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     Returns ``(x, cache)``.  The JAX function also returns the aux loss,
     zero but for kind ``M``'s router loss, which serving drops as JAX's
     engine does."""
-    _check_kind(kind, cfg)
+    _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "S":
         if mode == "decode":
@@ -159,6 +171,15 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
         else:
             raise NotImplementedError(f"mode {mode!r} over an RG-LRU "
                                       f"state: the family serves dense")
+    elif _is_mla(kind, cfg):
+        if mode == "decode":
+            mix, cache = attn.mla_decode(p["mixer"], h, cache, pos, cfg)
+        elif mode == "prefill":
+            mix, (ckv, krope) = attn.mla_forward(p["mixer"], h, cfg)
+            cache = attn.mla_prefill_into_cache(ckv, krope, cache)
+        else:
+            raise NotImplementedError(f"mode {mode!r} over an MLA latent "
+                                      f"cache: the family serves dense")
     elif mode == "decode" and paged:
         mix, cache = attn.paged_attn_decode(p["mixer"], h, cache, pos, bt,
                                             cfg, kind=akind)

@@ -17,7 +17,11 @@ leaves.  Kinds ``L`` and ``G`` (gemma3's local and global layers) have
 kind ``A``'s.  qk-norm adds
 ``"q_norm"`` and ``"k_norm"`` (hd,) to the mixer, and a kind-``M`` (MoE)
 layer's ``"ffn"`` is ``{"router" (d, E), "w_gate", "w_up" (E, d, f),
-"w_down" (E, f, d)}`` (``moe.py:16-24``).  A kind-``S`` (Mamba-1) layer
+"w_down" (E, f, d)}`` (``moe.py:16-24``), with shared experts a dense
+``"shared"`` MLP beside them (``:26-28``).  A kind-``D`` layer (the dense
+first layer of a MoE model) is kind ``A``'s at ``dense_d_ff``; an MLA
+layer's mixer is ``{"wq", "w_dkv", "w_krope", "kv_norm", "w_uk", "w_uv",
+"wo"}`` (``attention.py:566-579``).  A kind-``S`` (Mamba-1) layer
 is ``{"ln1": {"w"}, "mixer": {"in_proj", "conv_w", "conv_b", "x_proj",
 "dt_proj", "dt_bias", "A_log", "D", "out_proj"}}`` (``ssm.py:21-36``),
 and a kind-``R`` (RG-LRU) layer is ``{"ln1": {"w"}, "mixer": {"in_x",
@@ -54,6 +58,10 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
     """Flat key -> (repeats or 0 for unstacked, (per-layer shape, init))."""
     d, H, KV, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family is not in the port yet: "
+            f"ROADMAP.md, Queue 1, item 6 (with training, item 7)")
     norm_init = "zeros" if cfg.rms_plus_one else "ones"
     specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding"))}
     specs.update(_norm_specs(cfg, "final_norm", 0, norm_init))
@@ -66,45 +74,35 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
             if kind == "R" and cfg.norm == "rmsnorm" and cfg.mlp == "geglu":
                 specs.update(_rglru_specs(cfg, pre, R, norm_init))
                 continue
-            routed = kind == "M" and not (cfg.kv_lora_rank or
-                                          cfg.n_shared_experts)
-            if not (kind in ("A", "L", "G") or routed) or \
+            if kind not in ("A", "L", "G", "D", "M") or \
                     cfg.mlp not in ("swiglu", "geglu", "gelu_mlp") or \
                     cfg.norm not in ("rmsnorm", "layernorm"):
                 raise NotImplementedError(
-                    f"{cfg.name}: only attention layers of kinds A, L and G "
-                    f"(rmsnorm or layernorm, swiglu, geglu or gelu_mlp, "
-                    f"qk-norm or not), kind-M layers without MLA or shared "
-                    f"experts, and kind-S and kind-R layers are in the port "
+                    f"{cfg.name}: only attention layers of kinds A, L, G, D "
+                    f"and M (rmsnorm or layernorm, swiglu, geglu or "
+                    f"gelu_mlp) and kind-S and kind-R layers are in the port "
                     f"yet: ROADMAP.md, Queue 1, item 6 (the other LM "
-                    f"families: deepseek-v2-lite's MLA next, then "
-                    f"whisper-base's encdec)")
+                    f"families: whisper-base's encdec next)")
             specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
-            specs.update({
-                f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
-                f"{pre}/mixer/wk": (R, ((d, KV * hd), "normal")),
-                f"{pre}/mixer/wv": (R, ((d, KV * hd), "normal")),
-                f"{pre}/mixer/wo": (R, ((H * hd, d), "normal")),
-            })
-            if cfg.qk_norm:
-                specs.update({f"{pre}/mixer/q_norm": (R, ((hd,), "ones")),
-                              f"{pre}/mixer/k_norm": (R, ((hd,), "ones"))})
-            specs.update(_norm_specs(cfg, f"{pre}/ln2", R, norm_init))
-            if routed:
-                specs.update(_moe_specs(cfg, pre, R))
-            elif cfg.mlp in ("swiglu", "geglu"):
-                specs.update({
-                    f"{pre}/ffn/w_gate": (R, ((d, f), "normal")),
-                    f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
-                    f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
-                })
+            if kind == "M" and cfg.kv_lora_rank:
+                specs.update(_mla_specs(cfg, pre, R))
             else:
                 specs.update({
-                    f"{pre}/ffn/w_up": (R, ((d, f), "normal")),
-                    f"{pre}/ffn/b_up": (R, ((f,), "zeros")),
-                    f"{pre}/ffn/w_down": (R, ((f, d), "normal")),
-                    f"{pre}/ffn/b_down": (R, ((d,), "zeros")),
+                    f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
+                    f"{pre}/mixer/wk": (R, ((d, KV * hd), "normal")),
+                    f"{pre}/mixer/wv": (R, ((d, KV * hd), "normal")),
+                    f"{pre}/mixer/wo": (R, ((H * hd, d), "normal")),
                 })
+                if cfg.qk_norm:
+                    specs.update({
+                        f"{pre}/mixer/q_norm": (R, ((hd,), "ones")),
+                        f"{pre}/mixer/k_norm": (R, ((hd,), "ones"))})
+            specs.update(_norm_specs(cfg, f"{pre}/ln2", R, norm_init))
+            if kind == "M":
+                specs.update(_moe_specs(cfg, pre, R))
+            else:
+                f_layer = (cfg.dense_d_ff or f) if kind == "D" else f
+                specs.update(_mlp_specs(cfg, f"{pre}/ffn", R, f_layer))
     if not cfg.tie_embeddings:
         specs["lm_head"] = (0, ((d, cfg.padded_vocab), "normal"))
     return specs
@@ -120,18 +118,55 @@ def _norm_specs(cfg, pre: str, R: int, norm_init: str):
     return {f"{pre}/w": (R, ((d,), norm_init))}
 
 
+def _mlp_specs(cfg, pre: str, R: int, f: int):
+    """A dense MLP of width ``f`` (``layers.py:72-88``): SwiGLU's and
+    GeGLU's three matrices, or the plain MLP's two with their biases."""
+    d = cfg.d_model
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {f"{pre}/w_gate": (R, ((d, f), "normal")),
+                f"{pre}/w_up": (R, ((d, f), "normal")),
+                f"{pre}/w_down": (R, ((f, d), "normal"))}
+    return {f"{pre}/w_up": (R, ((d, f), "normal")),
+            f"{pre}/b_up": (R, ((f,), "zeros")),
+            f"{pre}/w_down": (R, ((f, d), "normal")),
+            f"{pre}/b_down": (R, ((d,), "zeros"))}
+
+
+def _mla_specs(cfg, pre: str, R: int):
+    """The MLA mixer of one stacked kind-``M`` layer (``attention.py:
+    566-579``): the query projection to ``nope + rope`` per head, the
+    latent down-projection ``w_dkv`` and its norm, the shared RoPE key
+    ``w_krope``, the up-projections ``w_uk`` and ``w_uv`` and ``wo``."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    rh, nh, vh = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    m = f"{pre}/mixer"
+    return {f"{m}/wq": (R, ((d, H * (nh + rh)), "normal")),
+            f"{m}/w_dkv": (R, ((d, r), "normal")),
+            f"{m}/w_krope": (R, ((d, rh), "normal")),
+            f"{m}/kv_norm": (R, ((r,), "ones")),
+            f"{m}/w_uk": (R, ((r, H * nh), "normal")),
+            f"{m}/w_uv": (R, ((r, H * vh), "normal")),
+            f"{m}/wo": (R, ((H * vh, d), "normal"))}
+
+
 def _moe_specs(cfg, pre: str, R: int):
-    """The routed experts of one stacked kind-``M`` layer (``moe.py:
-    16-24``): the router at std 0.02 and the experts' SwiGLU weights.  As
-    in JAX's ``dense_init``, an expert leaf's fan-in is its first axis,
-    the expert count E, not the width it multiplies (d or expert_d_ff)."""
+    """The experts of one stacked kind-``M`` layer (``moe.py:16-29``): the
+    router at std 0.02, the routed experts' SwiGLU weights and, where the
+    config has shared experts, one dense MLP of ``shared_d_ff`` (or
+    ``n_shared * expert_d_ff``) under ``"shared"``.  As in JAX's
+    ``dense_init``, an expert leaf's fan-in is its first axis, the expert
+    count E, not the width it multiplies (d or expert_d_ff)."""
     d, E, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
-    return {
+    specs = {
         f"{pre}/ffn/router": (R, ((d, E), "router")),
         f"{pre}/ffn/w_gate": (R, ((E, d, f), "normal")),
         f"{pre}/ffn/w_up": (R, ((E, d, f), "normal")),
         f"{pre}/ffn/w_down": (R, ((E, f, d), "normal")),
     }
+    if cfg.n_shared_experts:
+        shared = cfg.shared_d_ff or cfg.n_shared_experts * f
+        specs.update(_mlp_specs(cfg, f"{pre}/ffn/shared", R, shared))
+    return specs
 
 
 def _ssm_specs(cfg, pre: str, R: int, norm_init: str):
@@ -234,10 +269,17 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 def params_from_numpy(tree: Mapping[str, np.ndarray], cfg, device="cuda"):
     """The JAX package's parameters, as numpy arrays keyed by tree path,
     -> the port's parameter tree on ``device``, each leaf in its spec's
-    dtype (:func:`spec_dtype`)."""
+    dtype (:func:`spec_dtype`).  Every key of ``tree`` must be a leaf of
+    the config's tree: a path the port names otherwise would leave a leaf
+    behind without a word."""
     device = resolve_device(device)
+    specs = param_specs(cfg)
+    extra = sorted(set(tree) - set(specs))
+    if extra:
+        raise KeyError(f"parameters {extra[:8]} of the tree are not leaves "
+                       f"of {cfg.name}'s tree ({len(extra)} in all)")
     flat = {}
-    for key, spec in param_specs(cfg).items():
+    for key, spec in specs.items():
         if key not in tree:
             raise KeyError(f"parameter {key!r} missing from the tree")
         t = _to_tensor(np.asarray(tree[key]))

@@ -1,7 +1,8 @@
 """LM serving engine of the port: ``repro.serving.engine`` with continuous
 batching, on three paths, for the dense GQA family (``internlm2-1.8b``,
 ``starcoder2-3b``, and at head dim 256 ``gemma-7b`` and ``gemma3-4b``), the
-MoE family (``qwen3-moe-30b-a3b``), the token path of the VLM family
+MoE family (``qwen3-moe-30b-a3b``, and ``deepseek-v2-lite-16b``: MLA, a
+dense first layer, shared experts), the token path of the VLM family
 (``internvl2-1b``'s decoder; its patch prefix is not in the port), the
 Mamba-1 family (``falcon-mamba-7b``) and the Griffin hybrid family
 (``recurrentgemma-2b``: RG-LRU layers and MQA local attention).
@@ -44,7 +45,10 @@ window is shorter than ``max_len``.
 The MoE family's expert capacity couples the rows of a batch, so, as in
 JAX, its admits are batch-1 at exact length, speculation falls back to
 plain paged decode (``engine.spec_fallback`` counts it) and an inactive
-slot keeps feeding token 0 through every decode step.
+slot keeps feeding token 0 through every decode step.  deepseek-v2-lite's
+MLA keeps a latent cache that cannot page, so it serves dense
+(``paged=True`` falls back, counted); on CUDA its prefill runs the flash
+kernel at q/k 192 and v 128 and its decode the MLA decode kernel.
 
 Differences from the JAX engine, all confined to the device calls:
 
@@ -232,7 +236,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"Queue 1, {item}")
 
 
-_FAMILIES = "item 6 (the other LM families)"
+_FAMILIES = "item 6 (the other LM families: whisper-base's encdec next, " \
+    "with training, item 7)"
 
 #: the dtype string of a bf16 leaf in a ``KVB1`` frame: ``ml_dtypes``'
 #: bfloat16, as numpy names it in a JAX export; plain numpy has no dtype

@@ -138,8 +138,8 @@ def test_spawned_process_replica_loads_no_jax():
 
 
 def test_unknown_arch_is_named():
-    with pytest.raises(KeyError, match="deepseek-v2-lite"):
-        get_config("deepseek-v2-lite")
+    with pytest.raises(KeyError, match="whisper-base"):
+        get_config("whisper-base")
 
 
 def _run_smoke(cwd):

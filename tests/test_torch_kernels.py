@@ -379,10 +379,14 @@ def test_cpu_route_counts_plain_calls_only():
     xc = torch.rand(1, 3, 4)
     ops.ssm_scan(xc, xc, torch.rand(1, 3, 2), torch.rand(1, 3, 2),
                  -torch.rand(4, 2), torch.rand(4))
+    ops.mla_decode_attention(torch.rand(1, 4, 32), torch.rand(1, 4, 8),
+                             torch.rand(1, 5, 32), torch.rand(1, 5, 8),
+                             torch.tensor([3], dtype=torch.int32), 0.2)
     assert ops.PLAIN_CALLS == {"paged_decode_attention": 1,
                                "paged_extend_attention": 1,
                                "flash_attention": 1, "decode_attention": 1,
-                               "pair_score": 1, "ssm_scan": 1}
+                               "pair_score": 1, "ssm_scan": 1,
+                               "mla_decode_attention": 1}
     assert set(kernels.LAUNCHES.values()) == {0}
     assert pa.LAUNCHES is kernels.LAUNCHES
     ops.reset_counts()

@@ -288,17 +288,27 @@ def test_load_checkpoint_is_exact(model, tmp_path):
 
 
 def test_mla_and_shared_experts_still_raise():
+    """MLA and shared experts are in the port since deepseek-v2-lite
+    (tests/test_torch_mla.py); what still raises is the encoder-decoder
+    family (whisper-base's shape: its weights and its engine) and the
+    encoder's and decoder's ``bidir`` and ``cross`` attention kinds."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import attention as attn
+    whisper = ArchConfig(
+        name="whisper-base", family="encdec", n_layers=2, enc_layers=1,
+        dec_layers=1, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab=256, rope_base=0.0, mlp="gelu_mlp",
+        norm="layernorm", norm_eps=1e-5, dtype="float32",
+        param_dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        weights.param_specs(whisper)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Engine({}, whisper, ServeConfig(max_len=8), device="cpu")
     cfg = reduced(get_config(ARCH))
-    for changed in (cfg.replace(kv_lora_rank=32), cfg.replace(
-            n_shared_experts=2)):
+    x = torch.zeros(1, 4, cfg.d_model)
+    for kind in ("bidir", "cross"):
         with pytest.raises(NotImplementedError, match="item 6"):
-            weights.param_specs(changed)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttfm.init_layer_cache(cfg.replace(kv_lora_rank=32), "M", 1, 8,
-                              "cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        moe.apply_moe({}, torch.zeros(1, 1, 64),
-                      cfg.replace(n_shared_experts=2))
+            attn.attn_forward({}, x, cfg, kind=kind)
 
 
 # ----------------------------------------------------------------------
