@@ -23,8 +23,9 @@ hd 256) on the dense one, deepseek-v2-lite-16b (MLA: its prefill on
 flash at q/k 192 and v 128, its absorbed decode on the MLA decode kernel;
 a dense first layer; shared experts) on the dense one, and the telemetry
 (time series, SLO engine, stats server, autoscaler) over process
-replicas, and holds every kernel against its plain PyTorch version.  One
-line per phase:
+replicas, and holds every kernel against its plain PyTorch version.  Each
+phase ends on a line of its own with its wall time
+(``[smoke] phase N wall``).  The phases:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
@@ -106,11 +107,16 @@ line per phase:
    three masks), and in fp32 at (192, 128) and (24, 16); the MLA decode at
    the serve's shape (B 8 over L 2048, lengths 301-329), at phase 2's
    ragged lengths and all 2048 keys, at B 1, length 1 (each timed, with
-   SDPA over the latent kv head as the yardstick), at its chunk edges, a
-   length past L and 0, with the rows past the live keys NaN, in bf16
-   and in fp32 at (512, 64) and (32, 8); flash and the split-K decode at
-   hd 128, G 1 (the dense first layer); each bf16 check with its
-   control (P rounded to bf16);
+   its grid, S_MAX, MIN_KEYS and splits; beside SDPA over the latent kv
+   head and SDPA with K/V expanded to 16 heads under each backend that
+   takes q/k 576, v 512: the fastest is its library time), at its tile
+   edges, a length past L and 0, with the rows past the live keys NaN,
+   in bf16 and in fp32 at (512, 64) and (32, 8); flash and the split-K
+   decode at hd 128, G 1 (the dense first layer); each bf16 check with
+   its control (P rounded to bf16); after all of them the MLA decode at
+   its split's edges (lengths 1, MIN_KEYS - 1, + 0, + 1, S_MAX MIN_KEYS -
+   1, + 0, + 1 and 2048, at B 8 and at B 1), in bf16 with its control,
+   with NaN rows, and in fp32 at both widths;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -232,7 +238,7 @@ line per phase:
    behind the Router: brownout L1 turns speculation off on both (the spec
    counters stop, every request completes) and a drain with
    ``migrate=True`` ships KV (sessions migrated, the survivor imported
-   blocks); the phase's wall time;
+   blocks);
 8. telemetry: (a) internlm2-1.8b at full width (dense) on 1 process
    replica behind a least-loaded Router, with the serve driver's stats
    stack on its cluster snapshot (a ``TelemetrySampler`` every 0.25 s, an
@@ -246,7 +252,7 @@ line per phase:
    carrying the workers' kernel launches; (b) the sampler's overhead: one
    engine, 16 requests with the stats stack off, on, on, off; (c)
    ``python -m repro_torch.launch.serve --stats-dump`` in a process of its
-   own; the phase's wall time;
+   own;
 9. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
@@ -342,22 +348,31 @@ def main():
              "card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    stats = phase_kernels()
+    smi = _walled(1, phase_device)
+    stats = _walled(2, phase_kernels)
     if kernels_only:
         print("[smoke] --kernels-only: phases 1-2 passed; phases 3-8 and "
               "the result lines skipped")
         return
-    phase_token_exact()
-    launches, paged_tokens = phase_serve()
-    launches.update(phase_margot())
-    phase_cluster()
-    phase_lifecycle(paged_tokens)
-    phase_telemetry()
-    phase_list(stats, launches, smi)
+    _walled(3, phase_token_exact)
+    launches, paged_tokens = _walled(4, phase_serve)
+    launches.update(_walled(5, phase_margot))
+    _walled(6, phase_cluster)
+    _walled(7, phase_lifecycle, paged_tokens)
+    _walled(8, phase_telemetry)
+    _walled(9, phase_list, stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _walled(n, phase, *args):
+    """Run phase ``n`` and print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[smoke] phase {n} wall {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -479,24 +494,27 @@ def _simt_usage(logs) -> str:
 
 
 def _mla_usage(logs, md) -> str:
-    """The MLA decode kernel at each (dtype, r, rope) it is built for (each
-    must have a report and no spill), beside the dynamic shared memory it
-    asks for."""
+    """The MLA decode kernels at each (dtype, r, rope) they are built for
+    (each must have a report and no spill): bf16 on wgmma
+    (``mla_decode_sm90_kernel``), fp32 on the CUDA cores
+    (``mla_decode_kernel``), beside the dynamic shared memory each asks
+    for."""
     from repro_torch.kernels import MLA_DIMS
     found = {}
-    for k, v in _ptxas_reports(logs, "mla_decode.cu",
-                               "mla_decode_kernel").items():
-        found[("bf16" if "bfloat16" in k else "fp32",) + _dims(k)] = v
+    for kernel, dn in (("mla_decode_sm90_kernel", "bf16"),
+                       ("mla_decode_kernel", "fp32")):
+        for k, v in _ptxas_reports(logs, "mla_decode.cu", kernel).items():
+            found[(dn,) + _dims(k)] = (kernel, v)
     want = sorted((str(t).split(".")[1].replace("bfloat16", "bf16")
                    .replace("float32", "fp32"),) + d
                   for d, ts in MLA_DIMS.items() for t in ts)
-    check(sorted(found) == want, f"mla_decode.cu: ptxas reported "
-          f"mla_decode_kernel for {sorted(found)}, not {want}")
+    check(sorted(found) == want, f"mla_decode.cu: ptxas reported the MLA "
+          f"decode kernels for {sorted(found)}, not {want}")
     lib = md._library()
-    return "; ".join(f"mla_decode_kernel<{k[0]}, {k[1]}, {k[2]}>: "
-                     f"{found[k]}; dynamic shared memory "
-                     f"{lib.repro_mla_smem(k[1], k[2])} bytes"
-                     for k in want) + "; no spills"
+    return "; ".join(f"{found[k][0]}<{k[1]}, {k[2]}> ({k[0]}): "
+                     f"{found[k][1]}; dynamic shared memory "
+                     f"{lib.repro_mla_smem(int(k[0] == 'bf16'), k[1], k[2])} "
+                     f"bytes" for k in want) + "; no spills"
 
 
 def _decode_usage(logs, source) -> str:
@@ -809,6 +827,7 @@ def phase_kernels():
     _hd256_checks(gen, dev)
     _recurrentgemma_checks(gen, dev, stats)
     _deepseek_checks(gen, dev, stats)
+    _mla_split_checks(gen, dev)
     return stats
 
 
@@ -897,9 +916,10 @@ def _recurrentgemma_checks(gen, dev, scan_stats):
 DS_ARCH = "deepseek-v2-lite-16b"
 DS_HEADS = (16, 16)
 MLA_QK, MLA_V, MLA_R, MLA_RH = 192, 128, 512, 64
-#: the MLA decode's edges: lengths one short of, at and one past a chunk
-#: (mla_decode.CHUNK_KEYS) and two, 1, a length past L, and 0 (the mean
-#: of ckv, as the plain version gives)
+#: the MLA decode's edges: lengths one short of, at and one past one and
+#: two key tiles (mla_decode.TILE_KEYS), 1, all of L (300 over L 300),
+#: and 0 (the mean of ckv, as the plain version gives); the split's own
+#: edges follow in _mla_split_checks
 MLA_EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 1, 300, 0)
 
 
@@ -927,6 +947,105 @@ def _mla_bytes(lengths, L, B, H, r=MLA_R, rh=MLA_RH, esz=2):
     krope) once, the queries in and the output out, the lengths."""
     live = sum(min(max(int(n), 0), L) for n in lengths)
     return live * (r + rh) * esz + B * H * (2 * r + rh) * esz + 4 * B
+
+
+def _mla_plan(B, L, lens, dev) -> str:
+    """The MLA decode's grid and the splits its rows take."""
+    from repro_torch.kernels import mla_decode as md
+    s_max = md.split_plan(B, 16, MLA_R, L, md._sm_count(dev)).n_chunks
+    runs = {n: md.splits(min(max(n, 0), L), s_max, md.MIN_KEYS)
+            for n in sorted(set(lens))}
+    shown = "; ".join(f"{n}: {len(r)} x {r[0][1] - r[0][0]}" + (
+        f" .. {r[-1][1] - r[-1][0]}" if len(r) > 1 else "") for n, r in
+        list(runs.items())[:4] if r)
+    return (f"grid ({B}, {s_max}) in clusters of (1, {s_max}), S_MAX "
+            f"{s_max}, MIN_KEYS {md.MIN_KEYS}, splits (length: count x "
+            f"keys) {shown}")
+
+
+def _mla_sdpa_backends(name, sd, keep, scale, want):
+    """SDPA on the MLA decode's inputs with K/V expanded to the 16 query
+    heads (copies made outside the timing), under each backend that
+    ``torch.nn.attention.sdpa_kernel`` accepts for q/k 576, v 512 and a
+    mask; returns (the fastest's ms, its name, the names that refused)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ex = [(q, k.expand(-1, q.shape[1], -1, -1).contiguous(),
+           v.expand(-1, q.shape[1], -1, -1).contiguous()) for q, k, v in sd]
+
+    def call(x, backend):
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(*x, attn_mask=keep,
+                                                  scale=scale)
+    times, refused = {}, []
+    for backend in [getattr(SDPBackend, b) for b in (
+            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+            "MATH") if hasattr(SDPBackend, b)]:
+        try:
+            out = call(ex[0], backend)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            refused.append(backend.name)
+            continue
+        _library_close(f"{name} SDPA {backend.name}", out[:, :, 0], want)
+        times[backend.name] = _time_ms([lambda x=x, b=backend: call(x, b)
+                                        for x in ex])
+    check(times, f"{name}: every SDPA backend refused")
+    best = min(times, key=times.get)
+    del ex
+    return times[best], best, refused
+
+
+def _mla_split_checks(gen, dev):
+    """After every other check of phase 2, so that theirs keep their
+    inputs: the MLA decode at its split's edges, lengths 1, MIN_KEYS - 1,
+    MIN_KEYS, MIN_KEYS + 1, S_MAX MIN_KEYS - 1, S_MAX MIN_KEYS, S_MAX
+    MIN_KEYS + 1 and 2048, at B 8 over L 2048 (one row each) and at B 1
+    (each alone), in bf16 with its control (P rounded to bf16) where a
+    row holds more than one key, again with the rows past the live keys
+    NaN, and in fp32 at (512, 64) and (32, 8)."""
+    import torch
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import ops, ref
+    bf, L, scale = torch.bfloat16, 2048, 1.0 / math.sqrt(MLA_QK)
+    s_max = md.split_plan(8, 16, MLA_R, L, md._sm_count(dev)).n_chunks
+    k = md.MIN_KEYS
+    edges = [1, k - 1, k, k + 1, s_max * k - 1, s_max * k, s_max * k + 1, L]
+    n = n_ctl = 0
+    for batch in [edges] + [[e] for e in edges]:
+        lengths = torch.tensor(batch, dtype=torch.int32, device=dev)
+        B = len(batch)
+        for dtype, r, rh, H in ((bf, MLA_R, MLA_RH, 16),
+                                (torch.float32, MLA_R, MLA_RH, 16),
+                                (torch.float32, 32, 8, 4)):
+            for nan in (False, True):
+                a = _mla_inputs(gen, dev, B, L, dtype, H, r, rh)
+                want = ref.mla_decode_attention_ref(*_f32(*a), lengths,
+                                                    scale)
+                if nan:
+                    for b, n_b in enumerate(batch):
+                        if n_b < L:
+                            a[2][b, n_b:] = float("nan")
+                            a[3][b, n_b:] = float("nan")
+                name = (f"mla_decode_attention split edge B {B} lengths "
+                        f"{batch} {str(dtype)[6:]} ({r}, {rh})"
+                        f"{' NaN rows' if nan else ''}")
+                _compare(name, ops.mla_decode_attention(*a, lengths, scale),
+                         want)
+                n += 1
+                if dtype == bf and not nan and max(batch) > 1:
+                    _check_control(name, _mla_rounded_p(*a, lengths, scale),
+                                   want)
+                    n_ctl += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] mla_decode_attention split edges: {n} checks passed "
+          f"over L {L} at lengths {edges} (S_MAX {s_max} at B 8 and "
+          f"{md.split_plan(1, 16, MLA_R, L, md._sm_count(dev)).n_chunks} at "
+          f"B 1, MIN_KEYS {k}), B 8 and each length alone at B 1: bf16 "
+          f"(512, 64) with {n_ctl} bf16-P controls rejected, fp32 (512, "
+          f"64) and (32, 8) at atol=rtol={FP32_TOL}, each also with the "
+          f"rows past the live keys NaN; {_mla_plan(8, L, edges, dev)}")
 
 
 def _deepseek_checks(gen, dev, stats):
@@ -1058,7 +1177,10 @@ def _deepseek_checks(gen, dev, stats):
         lib = lambda x: F.scaled_dot_product_attention(  # noqa: E731
             *x, attn_mask=keep, scale=scale, enable_gqa=True)
         _library_close(name, lib(sd[0])[:, :, 0], want)
+        gqa_ms = _time_ms([lambda x=x: lib(x) for x in sd])
         n_tok = sum(min(n, L) for n in lens)
+        lib_ms, backend, refused = _mla_sdpa_backends(name, sd, keep, scale,
+                                                      want)
         st = _stats(
             err, _mla_bytes(lens, L, B, 16),
             2 * 16 * (2 * MLA_R + MLA_RH) * n_tok, "bfloat16",
@@ -1066,20 +1188,20 @@ def _deepseek_checks(gen, dev, stats):
                                                            scale)
                       for s in sets]),
             _time_ms([lambda s=s: ref.mla_decode_attention_ref(
-                *s, lengths, scale) for s in sets]),
-            _time_ms([lambda x=x: lib(x) for x in sd]))
+                *s, lengths, scale) for s in sets]), lib_ms)
         iss = _issue_ms(lambda: ops.mla_decode_attention(*a, lengths,
                                                          scale))
-        plan = md.split_plan(B, 16, MLA_R, L)
         print(f"[kernels] mla_decode_attention at {label} (B {B} over L "
               f"{L}, lengths {lens[:8]}, r {MLA_R}, rope {MLA_RH}, 16 heads) "
               f"bf16: max_abs_err={err:.3e} off_rounded={share:.4%} "
               f"(control with bf16 P: {ctl:.4%}) ms={st['ms']:.4f} "
-              f"plain_ms={st['plain_ms']:.4f} library_ms (SDPA over the "
-              f"latent kv head)={st['library_ms']:.4f} bound_ms="
-              f"{st['bound_ms']:.4f} ({st['bound_by']}); {plan.n_chunks} "
-              f"chunks of {md.CHUNK_KEYS} keys a row; issued one by one "
-              f"from Python: {iss:.4f} ms per call")
+              f"plain_ms={st['plain_ms']:.4f} library_ms={lib_ms:.4f} (SDPA, "
+              f"K/V expanded to 16 heads, {backend} backend, the fastest "
+              f"that takes q/k {MLA_R + MLA_RH}, v {MLA_R}; refused: "
+              f"{', '.join(refused) or 'none'}; SDPA over the latent kv head "
+              f"with enable_gqa {gqa_ms:.4f}) bound_ms={st['bound_ms']:.4f} "
+              f"({st['bound_by']}); {_mla_plan(B, L, lens, dev)}; issued one "
+              f"by one from Python: {iss:.4f} ms per call")
         if label == "the serve's decode":
             stats["mla_decode_attention"] = st
     # the edges: chunk boundaries, a length past L, 0; rows past the live
@@ -1110,8 +1232,8 @@ def _deepseek_checks(gen, dev, stats):
             n += 1
     torch.cuda.synchronize()
     print(f"[kernels] mla_decode_attention edges: {n} checks passed over L "
-          f"{Le} at lengths {MLA_EDGE_LENGTHS} (chunks of "
-          f"{md.CHUNK_KEYS} keys; 300 is all of L; 0 the mean of ckv): bf16 "
+          f"{Le} at lengths {MLA_EDGE_LENGTHS} (key tiles of "
+          f"{md.TILE_KEYS}; 300 is all of L; 0 the mean of ckv): bf16 "
           f"(512, 64) with its control, fp32 (512, 64) and (32, 8) at "
           f"atol=rtol={FP32_TOL}, each also with the rows past the live "
           f"keys NaN")
@@ -4141,7 +4263,6 @@ def phase_lifecycle(paged_tokens):
 
     import torch
     from repro_torch.launch.serve import build_engine
-    t0 = time.perf_counter()
     base = build_engine("internlm2-1.8b", device=torch.device("cuda", 0),
                         **LIFECYCLE)
     check(base.cfg.n_layers == 24 and base.cfg.d_model == 2048 and
@@ -4157,7 +4278,6 @@ def phase_lifecycle(paged_tokens):
     del base
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[lifecycle] phase 7 wall {time.perf_counter() - t0:.1f}s")
 
 
 def _variant(base, **changes):
@@ -4439,11 +4559,9 @@ def phase_telemetry():
     Router: an autoscaled burst on process replicas with the sampler, the
     SLO engine and the stats server on; the sampler's overhead on one
     engine; the serve driver's ``--stats-dump`` in a process of its own."""
-    t0 = time.perf_counter()
     _telemetry_burst()
     _telemetry_overhead()
     _telemetry_driver()
-    print(f"[telemetry] phase 8 wall {time.perf_counter() - t0:.1f}s")
 
 
 def _fetch_routes(server):

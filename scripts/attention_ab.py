@@ -23,8 +23,14 @@ time, calls issued back to back wait on the card and ``issue_ms`` tracks
 the device; so flash and the extend are also issued at a tiny shape (S=8,
 B=1, pos0 0 for the extend), as the decodes are at (B=1, length 8),
 whose device time is a few microseconds, where ``issue_ms`` is the
-host's cost alone.  Every timed kernel is first held against its plain
-version at chip_smoke's bf16 limits.  Without a card it exits non-zero.
+host's cost alone.  The MLA decode (bf16, 16 heads, r 512, rope 64, L
+2048) is timed the same way at the serve's decode (B=8, lengths
+301-329), at 2,048 keys a row (B=8) and at B=1, length 1; in a tree
+whose wrapper has ``MIN_KEYS`` (the split-by-live-length design), a sweep
+of it (16, 32, 64, 128, 256) at the first two shapes follows, each
+setting also held against the plain version first.  Every timed kernel
+is first held against its plain version at chip_smoke's bf16 limits.
+Without a card it exits non-zero.
 """
 from __future__ import annotations
 
@@ -91,10 +97,52 @@ def run_tree(tree: Path, label: str) -> None:
         for name, st in cs._decode_bench(gen, dev, lengths, max_len).items():
             rows.append((f"{name} at {shape}", st["ms"], st["library_ms"],
                          st["issue_ms"]))
+    rows += _mla_rows(cs, gen, dev)
     for name, ms, sdpa, issue in rows:
         print(f"[ab] {label} {name}: ms={ms:.4f}" +
               (f" sdpa_ms={sdpa:.4f}" if sdpa else "") +
               f" issue_ms={issue:.4f} on {smi}", flush=True)
+
+
+def _mla_rows(cs, gen, dev):
+    """The MLA decode at the serve's decode, 2,048 keys a row and B=1,
+    length 1 (device ms, issue ms), then the MIN_KEYS sweep where the
+    tree's wrapper has one."""
+    import math
+
+    import torch
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import ops, ref
+    bf, L, scale = torch.bfloat16, 2048, 1.0 / math.sqrt(192)
+    shapes = (("serve", list(range(301, 330, 4))), ("2048", [2048] * 8),
+              ("B1 len1", [1]))
+    cases = []
+    for label, lens in shapes:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sets = [cs._mla_inputs(gen, dev, len(lens), L, bf)
+                for _ in range(3)]
+        cases.append((label, lengths, sets, ref.mla_decode_attention_ref(
+            *cs._f32(*sets[0]), lengths, scale)))
+
+    def timed(label, lengths, sets, want):
+        cs._compare(f"mla_decode {label}", ops.mla_decode_attention(
+            *sets[0], lengths, scale), want)
+        return (f"mla_decode at {label}", cs._time_ms(
+            [lambda s=s: ops.mla_decode_attention(*s, lengths, scale)
+             for s in sets]), None, cs._issue_ms(
+            lambda: ops.mla_decode_attention(*sets[0], lengths, scale)))
+    rows = [timed(*c) for c in cases]
+    if hasattr(md, "MIN_KEYS"):
+        chosen = md.MIN_KEYS
+        try:
+            for min_keys in (16, 32, 64, 128, 256):
+                md.MIN_KEYS = min_keys
+                for label, lengths, sets, want in cases[:2]:
+                    rows.append(timed(f"{label} MIN_KEYS {min_keys}",
+                                      lengths, sets, want))
+        finally:
+            md.MIN_KEYS = chosen
+    return rows
 
 
 def main(argv):

@@ -285,6 +285,7 @@ def fake_card(monkeypatch):
 
     monkeypatch.setattr(md, "_library", lambda: Lib())
     monkeypatch.setattr(md, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(md, "_sm_count", lambda dev: 132)   # an H100 SXM
     monkeypatch.setattr(decode_plan, "scratch", lambda plan, dev, st: (
         torch.zeros(plan.ws_floats), torch.zeros(plan.n_tickets,
                                                  dtype=torch.int32)))
@@ -308,12 +309,16 @@ def test_mla_wrapper_passes_the_plan_and_counts_one_launch(fake_card, B, H,
                                       torch.ones(B, dtype=torch.int32), 0.25)
     assert out.shape == (B, H, r) and out.dtype == dtype
     assert kernels.LAUNCHES["mla_decode_attention"] == 1
-    (args,), n_chunks = fake_card, -(-L // md.CHUNK_KEYS)
+    (args,) = fake_card
+    s_max = max(1, min(-(-L // md.MIN_KEYS), md.MAX_SPLITS, 132 // B))
     assert args[:3] == (kernels.DTYPE_CODE[dtype], r, rh)
-    assert args[11:15] == (B, H, L, n_chunks)
-    assert args[15] == 0.25
-    plan = md.split_plan(B, H, r, L)
-    assert plan == (n_chunks, B * H * n_chunks * (r + 2), B)
+    assert args[11:16] == (B, H, L, s_max, md.MIN_KEYS)
+    assert args[16] == 0.25
+    # the bf16 kernel merges in its cluster's shared memory: no scratch
+    bf16 = dtype == torch.bfloat16
+    assert (args[9] is None and args[10] is None) == bf16
+    plan = md.split_plan(B, H, r, L, 132)
+    assert plan == (s_max, B * H * s_max * (r + 2), B)
 
 
 def test_mla_wrapper_raises_on_a_failed_launch(fake_card, monkeypatch):
@@ -330,16 +335,20 @@ def test_mla_wrapper_raises_on_a_failed_launch(fake_card, monkeypatch):
 
 
 def test_kernel_source_holds_the_plan_constants():
-    """The wrapper's chunk and head limit are the kernel's constants."""
+    """The wrapper's grain, head limit, tile and split limit are the
+    kernel's constants."""
     import re
 
     from repro_torch.kernels import build
     assert "mla_decode.cu" in build.SOURCES
     text = (build.CSRC / "mla_decode.cu").read_text()
-    assert re.findall(r"constexpr int MLA_CHUNK = (\d+);", text) == \
-        [str(md.CHUNK_KEYS)]
-    assert re.findall(r"constexpr int MLA_HEADS = (\d+);", text) == \
-        [str(md.MAX_HEADS)]
+    for const, want in (("MLA_GRAIN", md.GRAIN_KEYS),
+                        ("MLA_HEADS", md.MAX_HEADS),
+                        ("MLA_TILE", md.TILE_KEYS),
+                        ("MLA_MAX_SPLITS", md.MAX_SPLITS)):
+        assert re.findall(rf"constexpr int {const} = (\d+);", text) == \
+            [str(want)], const
+    assert md.MIN_KEYS % md.GRAIN_KEYS == 0
     flash = (build.CSRC / "flash_attention.cu").read_text()
     assert "launch<192, 128>" in flash and "launch<24, 16>" in flash
 
