@@ -21,9 +21,12 @@ layers, qk-norm) on the dense one, recurrentgemma-2b (RG-LRU layers, their
 recurrence on the scan kernel at N = 1, and MQA local attention at G 10,
 hd 256) on the dense one, deepseek-v2-lite-16b (MLA: its prefill on
 flash at q/k 192 and v 128, its absorbed decode on the MLA decode kernel;
-a dense first layer; shared experts) on the dense one, and the telemetry
+a dense first layer; shared experts) on the dense one, the telemetry
 (time series, SLO engine, stats server, autoscaler) over process
-replicas, and holds every kernel against its plain PyTorch version.  Each
+replicas, and training (internlm2-1.8b at full width taking AdamW steps
+through ``launch/train.py``, its attention on the flash forward and the
+flash backward kernel, a checkpoint resumed), and holds every kernel
+against its plain PyTorch version.  Each
 phase ends on a line of its own with its wall time
 (``[smoke] phase N wall``).  The phases:
 
@@ -116,7 +119,19 @@ phase ends on a line of its own with its wall time
    its control (P rounded to bf16); after all of them the MLA decode at
    its split's edges (lengths 1, MIN_KEYS - 1, + 0, + 1, S_MAX MIN_KEYS -
    1, + 0, + 1 and 2048, at B 8 and at B 1), in bf16 with its control,
-   with NaN rows, and in fp32 at both widths;
+   with NaN rows, and in fp32 at both widths; last, the flash backward
+   (``csrc/flash_attention_bwd.cu``) against autograd through the plain
+   version in fp32 (each of dq, dk and dv within GRAD_REL of its own
+   largest and of its mean plain magnitude, the forward's log-sum-exp
+   within LSE_TOL, a second call
+   bit for bit): at the training shape (B 4, S 1024, H 16, KV 8, hd 128,
+   causal, bf16; timed beside its bound, the plain version's autograd
+   and SDPA's flash backward, each as a captured ``torch.autograd.grad``),
+   at S 1, 63, 64, 65, 129, 200, at G 1, 2, 8, 12, at hd 16, 32, 64, 256,
+   at gemma3's window 1024 over S 2048, bidirectional with and without a
+   window, in fp32 at every head dim, and its controls (a causal mask one
+   key too wide; dq without the last key tile of the later rows) that the
+   bf16 limit must reject;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -253,7 +268,19 @@ phase ends on a line of its own with its wall time
    engine, 16 requests with the stats stack off, on, on, off; (c)
    ``python -m repro_torch.launch.serve --stats-dump`` in a process of its
    own;
-9. the ``{"kernels": [...]}`` line.
+9. train: (a) the fp32 reduced internlm2-1.8b two layers deep (at head
+   dim 64) takes 3 AdamW steps through the kernels and the same 3
+   through the plain versions: losses, grad norms, parameters and
+   moments agree within TRAIN_RTOL, every gradient finite and non-zero;
+   (b) internlm2-1.8b at full width (bf16 parameters, fp32 moments,
+   remat none) through ``launch/train.py``'s ``train``: B 4 x S 1024 from
+   ``synthetic_tokens``, warmup 2, 8 steps with a ``Checkpointer`` in a
+   temporary directory (each step's loss, grad norm, lr and ms; tokens/s,
+   peak memory), exactly 24 x 8 flash forward and backward launches, one
+   more step profiled (device time by kind), then a run resumed from the
+   step-4 checkpoint that must give step 5's loss bit for bit; (c) the
+   selective scan on inputs that require grad raises;
+10. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -321,6 +348,25 @@ SCAN_CHUNK = 64
 # the partition autotuner's latency budget: the stream's period
 # (configs/margot_svm.py, STREAM)
 STREAM_BUDGET_S = 0.25
+# The flash backward is held against autograd through the plain version in
+# fp32 on the same inputs and the same upstream gradient: for each of dq,
+# dk and dv alone, max |kernel - plain| <= GRAD_REL[dtype] times that
+# gradient's largest plain magnitude, and mean |kernel - plain| <=
+# GRAD_REL[dtype] times its mean plain magnitude (the mean reading sees
+# an error spread over the many rows whose gradients are far below the
+# largest, as a dq row that sees 500 keys is).  fp32: the same arithmetic
+# in another order (the forward's FP32_TOL).  bf16: the kernel keeps P and
+# dS in fp32, but D = rowsum(dO * O) reads the forward's bf16-rounded O
+# and each gradient is rounded to bf16 once (2^-9 relative), so 1%.  The
+# controls must exceed the bf16 limit, or the check could not see what
+# they move: the gradients of the plain version whose causal mask lets
+# each query see one key more (in each of dq, dk and dv), and the plain dq
+# with the last key tile of the second half of the rows left out (in both
+# of its readings).  The forward's log-sum-exp (the backward's input) is held
+# against torch.logsumexp of the masked scaled scores in fp32 at LSE_TOL
+# absolute (fp32 sums of up to 2,048 terms, ex2.approx in the bf16 kernel).
+GRAD_REL = {"float32": FP32_TOL, "bfloat16": 1e-2}
+LSE_TOL = 1e-4
 
 
 def fail(msg: str):
@@ -360,7 +406,8 @@ def main():
     _walled(6, phase_cluster)
     _walled(7, phase_lifecycle, paged_tokens)
     _walled(8, phase_telemetry)
-    _walled(9, phase_list, stats, launches, smi)
+    launches.update(_walled(9, phase_train))
+    _walled(10, phase_list, stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -417,6 +464,8 @@ def phase_device() -> str:
     print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
     print(f"[build] {_scan_usage(build.BUILD_LOG)}")
     print(f"[build] mla_decode.cu {_mla_usage(build.BUILD_LOG, md)}")
+    fa._bwd_library()
+    print(f"[build] flash_attention_bwd.cu {_bwd_usage(build.BUILD_LOG)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -491,6 +540,27 @@ def _simt_usage(logs) -> str:
                   for d in [(128, 128), (256, 256)] + extra]
     return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS} and (q/k, " \
         f"v) {sorted(FLASH_QK_V_DIMS)}"
+
+
+def _bwd_usage(logs) -> str:
+    """The flash backward's two tile kernels at every head dim in fp32
+    (``f``) and bf16 (each must have a report and no spill), shown at hd
+    128 and 256 in bf16."""
+    from repro_torch.kernels import HEAD_DIMS
+    parts = []
+    for kernel in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        found = {(("bf16" if "bfloat16" in k else "fp32"), _dims(k)[0]): v
+                 for k, v in _ptxas_reports(
+                     logs, "flash_attention_bwd.cu", kernel).items()}
+        want = sorted((t, hd) for t in ("bf16", "fp32")
+                      for hd in HEAD_DIMS)
+        check(sorted(found) == want,
+              f"flash_attention_bwd.cu: ptxas reported {kernel} at "
+              f"{sorted(found)}, not {want}")
+        parts += [f"{kernel}<bf16, {hd}>: {found[('bf16', hd)]}"
+                  for hd in (128, 256)]
+    return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS} " \
+        f"in fp32 and bf16"
 
 
 def _mla_usage(logs, md) -> str:
@@ -828,6 +898,10 @@ def phase_kernels():
     _recurrentgemma_checks(gen, dev, stats)
     _deepseek_checks(gen, dev, stats)
     _mla_split_checks(gen, dev)
+    # after every other check, on its own generator, so that theirs keep
+    # their inputs
+    _flash_bwd_checks(torch.Generator(device=dev).manual_seed(27), dev,
+                      stats)
     return stats
 
 
@@ -2108,6 +2182,284 @@ def _flash_long(gen, dev):
           f"{err:.3e} off_rounded={share:.4%} ms={st['ms']:.4f} plain_ms="
           f"{st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
           f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']})")
+
+
+# The flash backward's shapes: the training step's (internlm2-1.8b, B 4 x
+# S 1024), then the edges of its 32-row and 32-key tiles: S one short of,
+# at and one past a tile's 64 (two of its tiles), 129 and 200 (ragged),
+# and 1; G 1, 2, 8 and 12; hd 16, 32, 64 and 256; gemma3-4b's window 1024
+# over S 2048 (H 8, KV 4, hd 256); bidirectional, alone and with a window.
+BWD_TRAIN = (4, 1024, 16, 8, 128)
+BWD_EDGE_S = (1, 63, 64, 65, 129, 200)
+BWD_EDGE_G = ((8, 8), (16, 8), (16, 2), (24, 2))
+BWD_EDGE_HD = (16, 32, 64, 256)
+# the backward kernel's key tile (csrc/flash_attention_bwd.cu), which the
+# dq-only control leaves out
+BWD_KEY_TILE = 32
+
+
+def _plain_scores(q32, k32, causal, window, shift=0):
+    """The masked scaled scores (B, KV, G, S, S) of fp32 q (B,S,H,hd) over
+    k (B,S,KV,hd); with ``shift``, a causal mask that lets query s see
+    keys up to s + shift."""
+    import torch
+    from repro_torch.kernels import ref
+    B, S, H, hd = q32.shape
+    KV = k32.shape[2]
+    qg = q32.reshape(B, S, KV, H // KV, hd)
+    sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k32) / math.sqrt(hd)
+    t = torch.arange(S, device=q32.device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q32.device)
+    if causal:
+        ok &= t[None, :] <= t[:, None] + shift
+    if window:
+        ok &= t[None, :] > t[:, None] - window
+    return torch.where(ok, sc, ref.NEG_INF)
+
+
+def _plain_grads(q, k, v, dout, causal, window, shift=0):
+    """Autograd through the plain version in fp32: (out, lse, (dq, dk,
+    dv)); with ``shift``, the control whose causal mask lets query s see
+    keys up to s + shift."""
+    import torch
+    q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    sc = _plain_scores(q32, k32, causal, window, shift)
+    lse = torch.logsumexp(sc, -1).permute(0, 3, 1, 2).reshape(B, S, H)
+    out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(sc, -1),
+                       v32).reshape(B, S, H, hd)
+    grads = torch.autograd.grad(out, (q32, k32, v32), dout.float())
+    return out.detach(), lse.detach(), grads
+
+
+def _kernel_grads(q, k, v, dout, causal, window):
+    """The forward kernel with its lse, then the backward kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = fa._forward(q, k, v, causal, window, lse)
+    return out, lse, fa.flash_attention_bwd_bshd(
+        q, k, v, out, dout, lse, causal=causal, window=window)
+
+
+def _dq_without_last_tile(q, k, v, dout):
+    """The dq-only control: the plain causal dq in fp32 with each query of
+    the second half of the rows leaving out the keys of its last visible
+    key tile (BWD_KEY_TILE keys, the kernel's), as a kernel that skipped
+    the diagonal tile there would; dk and dv are untouched."""
+    import torch
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    P = torch.softmax(_plain_scores(q32, k32, True, 0), -1)
+    dog = do32.reshape(B, S, KV, H // KV, hd)
+    out = torch.einsum("bkgqs,bskh->bqkgh", P, v32)
+    delta = (dog * out).sum(-1).permute(0, 2, 3, 1)[..., None]
+    dS = P * (torch.einsum("bqkgh,bskh->bkgqs", dog, v32) - delta)
+    t = torch.arange(S, device=q.device)
+    last = t[None, :] >= (t[:, None] // BWD_KEY_TILE) * BWD_KEY_TILE
+    dS = torch.where(last & (t[:, None] >= S // 2), 0.0, dS)
+    return torch.einsum("bkgqs,bskh->bqkgh", dS, k32).reshape(
+        B, S, H, hd) / math.sqrt(hd)
+
+
+def _grad_readings(got, want):
+    """Two readings for each of (dq, dk, dv): max |got - want| over the
+    largest |want| of that gradient, and mean |got - want| over its mean
+    |want|.  A gradient that is zero in the plain result (at S 1 a
+    query's only key gives dq = dk = 0) is read against the largest and
+    the mean magnitude of the three instead."""
+    tops = [w.abs().max().item() for w in want]
+    means = [w.abs().mean().item() for w in want]
+    out = []
+    for g, w, top, mean in zip(got, want, tops, means):
+        err = (g.float() - w).abs()
+        if top == 0:
+            top, mean = max(tops), max(means)
+        out.append((err.max().item() / top, err.mean().item() / mean))
+    return out
+
+
+def _show(readings) -> str:
+    return "/".join(f"{m:.2e} ({a:.2e})" for m, a in readings)
+
+
+def _bwd_check(name, q, k, v, dout, causal, window):
+    """The backward kernel against the plain version's fp32 gradients at
+    GRAD_REL, its lse at LSE_TOL, and a second call bit for bit; prints
+    each reading beside its limit and returns the largest absolute
+    error."""
+    import torch
+    dname = str(q.dtype).split(".")[1]
+    limit = GRAD_REL[dname]
+    _, lse, got = _kernel_grads(q, k, v, dout, causal, window)
+    _, want_lse, want = _plain_grads(q, k, v, dout, causal, window)
+    readings = _grad_readings(got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    check(all(torch.isfinite(g.float()).all() for g in got),
+          f"flash bwd {name}: non-finite gradient")
+    check(max(max(r) for r in readings) <= limit and lse_err <= LSE_TOL,
+          f"flash bwd {name}: dq/dk/dv off the plain fp32 gradients by "
+          f"{_show(readings)} of each one's largest (mean) magnitude "
+          f"(limit {limit}); lse off by {lse_err:.3e} (limit {LSE_TOL})")
+    again = _kernel_grads(q, k, v, dout, causal, window)[2]
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash bwd {name}: a second call gave other bits")
+    print(f"[kernels] flash bwd {name} {dname}: dq/dk/dv "
+          f"{_show(readings)} of each one's max (mean) (limit {limit}); "
+          f"lse {lse_err:.2e} (limit {LSE_TOL}); second call identical")
+    return max((g.float() - w).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def _time_bwd_ms(forward, sets, iters: int = 10) -> float:
+    """Device ms of one backward, as :func:`_time_ms` times a call: each
+    input set's forward runs eagerly on the timing stream (its output
+    requires grad), then ``iters`` calls of ``torch.autograd.grad`` on
+    those graphs, cycling through the sets, are captured in one CUDA graph
+    and a replay is timed with CUDA events, so only the backward's work
+    is counted."""
+    import torch
+    stream = _timing_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs = []
+    with torch.cuda.stream(stream):
+        for inputs, dout in sets:
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            out = forward(*leaves)
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            graphs.append((out, leaves, dout))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for i in range(iters):
+            out, leaves, dout = graphs[i % len(graphs)]
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def _flash_bwd_checks(gen, dev, stats):
+    """The flash backward (``ops.flash_attention`` under grad): at the
+    training shape, timed beside its bound, the plain version's autograd
+    and SDPA's flash backward; at the edges; in fp32; with its control."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+
+    def inputs(B, S, H, KV, hd, dtype):
+        return [_randn(gen, sh, dtype, dev) for sh in
+                ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                 (B, S, H, hd))]
+
+    B, S, H, KV, hd = BWD_TRAIN
+    sets = [inputs(B, S, H, KV, hd, bf) for _ in range(3)]
+    err = _bwd_check(f"training shape (B {B}, S {S}, H {H}, KV {KV}, hd "
+                     f"{hd}) causal", *sets[0], True, 0)
+    n = 1
+    for S_ in BWD_EDGE_S:
+        _bwd_check(f"edge S {S_} (H 4, KV 2, hd 128) causal",
+                   *inputs(2, S_, 4, 2, 128, bf), True, 0)
+        n += 1
+    for H_, KV_ in BWD_EDGE_G:
+        _bwd_check(f"edge G {H_ // KV_} (H {H_}, KV {KV_}, S 129, hd 128)",
+                   *inputs(1, 129, H_, KV_, 128, bf), True, 0)
+        n += 1
+    for hd_ in BWD_EDGE_HD:
+        _bwd_check(f"edge hd {hd_} (S 129, H 8, KV 4) causal",
+                   *inputs(1, 129, 8, 4, hd_, bf), True, 0)
+        n += 1
+    _bwd_check("window 1024 over S 2048 (H 8, KV 4, hd 256)",
+               *inputs(1, 2048, 8, 4, 256, bf), True, 1024)
+    _bwd_check("bidirectional (S 200, H 4, KV 2, hd 128)",
+               *inputs(2, 200, 4, 2, 128, bf), False, 0)
+    _bwd_check("bidirectional window 64 (S 200, H 4, KV 2, hd 128)",
+               *inputs(2, 200, 4, 2, 128, bf), False, 64)
+    n += 3
+    for hd_ in (16, 32, 64, 128, 256):
+        _bwd_check(f"fp32 hd {hd_} (S 65, H 4, KV 2) causal",
+                   *inputs(2, 65, 4, 2, hd_, torch.float32), True, 0)
+        n += 1
+    _bwd_check("fp32 bidirectional (S 65, H 4, KV 2, hd 128)",
+               *inputs(2, 65, 4, 2, 128, torch.float32), False, 0)
+    _bwd_check("fp32 window 16 (S 65, H 4, KV 2, hd 128)",
+               *inputs(2, 65, 4, 2, 128, torch.float32), True, 16)
+    n += 2
+    # the controls: a mask that lets each query see one key too many
+    # (each of dq, dk and dv must move past the limit), and, at the
+    # training shape, dq alone losing the last visible key tile of the
+    # rows that see 512 keys or more (both of its readings past it)
+    bf_limit = GRAD_REL["bfloat16"]
+    q, k, v, dout = inputs(2, 129, 4, 2, 128, bf)
+    want = _plain_grads(q, k, v, dout, True, 0)[2]
+    ctl = _grad_readings(_plain_grads(q, k, v, dout, True, 0, shift=1)[2],
+                         want)
+    check(all(r[0] > bf_limit for r in ctl),
+          f"flash bwd control: a mask one key too wide moves dq/dk/dv by "
+          f"only {_show(ctl)}; the limit {bf_limit} cannot see it in each")
+    dq_want = _plain_grads(*sets[0], True, 0)[2][0]
+    (dq_ctl,) = _grad_readings([_dq_without_last_tile(*sets[0])], [dq_want])
+    check(min(dq_ctl) > bf_limit,
+          f"flash bwd dq control: dq without the last key tile in the "
+          f"second half of the rows moves it by only {_show([dq_ctl])}; "
+          f"the limit {bf_limit} cannot see it")
+    print(f"[kernels] flash bwd controls, beyond the bf16 limit {bf_limit} "
+          f"as they must be: causal mask one key too wide (S 129): dq/dk/dv "
+          f"{_show(ctl)} of max (mean); dq without the last key tile in rows "
+          f"{S // 2}-{S - 1} (training shape): {_show([dq_ctl])}")
+    torch.cuda.synchronize()
+    print(f"[kernels] flash bwd: {n} checks passed (bf16 within "
+          f"{GRAD_REL['bfloat16']} and fp32 within {GRAD_REL['float32']} of "
+          f"each gradient's largest and mean magnitude, lse within "
+          f"{LSE_TOL}); "
+          f"edges S {BWD_EDGE_S}, (H, KV) {BWD_EDGE_G}, hd {BWD_EDGE_HD}")
+
+    # timed at the training shape: the kernel through its autograd
+    # Function, the plain version under autograd, SDPA's flash backward
+    # on K/V expanded to the 16 query heads (its dk/dv are per query head)
+    G = H // KV
+    kernel_sets = [(st[:3], st[3]) for st in sets]
+    sd_sets = [([st[0].transpose(1, 2).contiguous(),
+                 st[1].repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                 st[2].repeat_interleave(G, 2).transpose(1, 2).contiguous()],
+                st[3].transpose(1, 2).contiguous()) for st in sets]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_out = F.scaled_dot_product_attention(*sd_sets[0][0],
+                                                 is_causal=True)
+        _library_close("flash bwd's SDPA forward", lib_out.transpose(1, 2),
+                       ref.flash_attention_ref(*_f32(*sets[0][:3]),
+                                               causal=True))
+        library_ms = _time_bwd_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), sd_sets)
+    ms = _time_bwd_ms(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=True), kernel_sets)
+    plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, causal=True), kernel_sets, iters=3)
+    esz = 2
+    by = (4 * B * S * H * hd + 4 * B * S * KV * hd) * esz + 4 * B * S * H
+    pairs = S * (S + 1) // 2                      # causal: keys seen
+    ops_n = 5 * 2 * hd * pairs * B * H            # S, dV, dP, dK, dQ
+    stats["flash_attention_bwd"] = _stats(err, by, ops_n, "bfloat16", ms,
+                                          plain_ms, library_ms)
+    st = stats["flash_attention_bwd"]
+    print(f"[kernels] flash_attention_bwd at the training shape (B {B}, S "
+          f"{S}, H {H}, KV {KV}, hd {hd}, causal, bf16): max_abs_err="
+          f"{err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (SDPA flash backward) bound_ms="
+          f"{st['bound_ms']:.4f} ({st['bound_by']}: {ops_n / 1e9:.2f} GFLOP, "
+          f"{by / 1e6:.1f} MB)")
 
 
 def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):
@@ -4816,6 +5168,277 @@ def _telemetry_driver():
 
 
 # ----------------------------------------------------------------------
+# the train phase: the reduced check's steps and schedule, and the full-
+# width run's (internlm2-1.8b, bf16 parameters, remat none)
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-2, 1, 10
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME = \
+    4, 1024, 8, 4, 4
+# kernels against plain on the reduced fp32 model, 3 steps: the losses,
+# grad norms and lr within TRAIN_RTOL; the moments within TRAIN_RTOL of
+# each leaf's largest magnitude; the parameters within 1e-3 * lr (Adam
+# moves an element by lr times m/sqrt(v), a ratio that is noise where the
+# element's gradient cancels: tests/test_torch_train.py's rule at a
+# looser rtol for the card's other orders of summation)
+TRAIN_RTOL = 1e-4
+
+
+def phase_train():
+    """Training on the card (``launch/steps.py``, ``launch/train.py``):
+    (a) reduced fp32 internlm2-1.8b two layers deep at head dim 64, 3 steps
+    through the kernels and the same 3 through the plain versions; (b)
+    internlm2-1.8b at full width through ``launch/train.py``'s ``train``,
+    its step-4 checkpoint resumed; (c) a scan that requires grad raises.
+    Returns the launches of (b)."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_reduced()
+    launches = _train_full_width()
+    _train_refusal()
+    return launches
+
+
+def _train_reduced():
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths
+    dev = torch.device("cuda", 0)
+    # head dim 64: the reduced config's 16 is a backward the card has too
+    # (phase 2), but 64 gives its 4 heads the tensor-core tiles of a model
+    cfg, params0 = _reduced_two_layers("internlm2-1.8b", head_dim=64)
+    rng = np.random.RandomState(5)
+    toks = [torch.from_numpy(rng.randint(0, cfg.vocab, (4, 128)).astype(
+        np.int32)).to(dev) for _ in range(3)]
+    runs = {}
+    for plain in (False, True):
+        ops.reset_counts()
+        fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total=TRAIN_TOTAL)
+        params, opt, hist = params0, adamw_init(params0), []
+        with _forced_plain(plain):
+            (_, _), grads = steps.value_and_grad(params, cfg,
+                                                  {"tokens": toks[0]})
+            for tok in toks:
+                params, opt, m = fn(params, opt, {"tokens": tok})
+                hist.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        flat = flatten_with_paths(grads)
+        check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                  for g in flat.values()),
+              f"train (a) {'plain' if plain else 'kernel'}: a gradient is "
+              f"zero or not finite: "
+              f"{[k for k, g in flat.items() if not (g != 0).any()]}")
+        runs[plain] = (hist, flatten_with_paths(params),
+                       flatten_with_paths(opt.m), flatten_with_paths(opt.v),
+                       dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS))
+    (kh, kp, km, kv, kl, _), (ph, pp, pm, pv, pl, pc) = runs[False], \
+        runs[True]
+    check(kl["flash_attention"] == 2 * 4 and
+          kl["flash_attention_bwd"] == 2 * 4 and sum(pl.values()) == 0 and
+          pc["flash_attention"] == 2 * 4,
+          f"train (a): kernel launches {kl}, plain launches {pl}, plain "
+          f"calls {pc}")
+    worst = {}
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        worst[key] = max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                         for a, b in zip(kh, ph))
+    check(max(worst.values()) <= TRAIN_RTOL,
+          f"train (a): kernel vs plain metrics off by {worst} (relative, "
+          f"limit {TRAIN_RTOL})")
+    off = {}
+    for label, got, want, atol in (
+            ("params", kp, pp, lambda w: 1e-3 * TRAIN_LR),
+            ("m", km, pm, lambda w: TRAIN_RTOL * w.abs().max().item()),
+            ("v", kv, pv, lambda w: TRAIN_RTOL * w.abs().max().item())):
+        for k, w in want.items():
+            ok = torch.allclose(got[k], w, rtol=TRAIN_RTOL, atol=atol(w))
+            check(ok, f"train (a): {label} {k} kernel vs plain off by "
+                      f"{(got[k] - w).abs().max().item():.3e}")
+        off[label] = max((got[k] - w).abs().max().item()
+                         for k, w in want.items())
+    print(f"[train] (a) reduced fp32 internlm2-1.8b, 2 layers, hd 64, B 4 x "
+          f"S 128, 3 AdamW steps (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}): "
+          f"losses {[round(h['loss'], 6) for h in kh]} through the kernels "
+          f"({kl['flash_attention']} flash forward and "
+          f"{kl['flash_attention_bwd']} backward launches) and "
+          f"{[round(h['loss'], 6) for h in ph]} through the plain versions; "
+          f"relative gaps {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}"
+          f" (limit {TRAIN_RTOL}); max |gap| params {off['params']:.2e} "
+          f"(limit {1e-3 * TRAIN_LR:.0e} + {TRAIN_RTOL} of each), m "
+          f"{off['m']:.2e}, v {off['v']:.2e} (limits {TRAIN_RTOL} of each "
+          f"leaf's largest + {TRAIN_RTOL} of each); every gradient finite "
+          f"and non-zero")
+
+
+def _train_full_width():
+    """internlm2-1.8b at full width through ``train``: bf16 parameters,
+    remat none, B 4 x S 1024 from synthetic_tokens, 8 AdamW steps with a
+    checkpoint at step 4; exactly 24 x 8 flash forward and backward
+    launches; then a run resumed from the step-4 checkpoint, whose first
+    step (5) must give step 5's loss bit for bit."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda", 0)
+    cfg = get_config("internlm2-1.8b")
+    check(cfg.remat == "none" and cfg.param_dtype == "bfloat16",
+          f"internlm2-1.8b: remat {cfg.remat}, params {cfg.param_dtype}")
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+              warmup=2, ckpt_every=TRAIN_CKPT_EVERY, device=dev)
+
+    def show(rec):
+        print(f"[train] (b) step {rec['step']}: loss={rec['loss']:.6f} "
+              f"grad_norm={rec['grad_norm']:.4f} lr={rec['lr']:.3e} "
+              f"ms={rec['ms']:.1f}", flush=True)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        run = train(cfg, ckpt_dir=str(tmp / "run"), on_step=show, **kw)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hist = run["history"]
+        n_layers = cfg.n_layers
+        check(launches["flash_attention"] == n_layers * TRAIN_STEPS and
+              launches["flash_attention_bwd"] == n_layers * TRAIN_STEPS and
+              sum(launches.values()) == 2 * n_layers * TRAIN_STEPS and
+              not any(ops.PLAIN_CALLS.values()),
+              f"train (b): launches {launches}, plain calls "
+              f"{ops.PLAIN_CALLS}; want {n_layers * TRAIN_STEPS} flash "
+              f"forward and backward each")
+        check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                  for h in hist), f"train (b): non-finite metrics {hist}")
+        check(hist[0]["lr"] == 0.0, f"train (b): step 0's lr {hist[0]['lr']}")
+        steady = hist[1:]
+        tok_s = TRAIN_B * TRAIN_S * len(steady) / (
+            sum(h["ms"] for h in steady) / 1e3)
+        params = sum(p.numel() for p in tree_leaves(run["params"]))
+        _profile_train_step(cfg, run["params"], run["opt"], dev)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train] (b) internlm2-1.8b full width ({params:,} "
+              f"parameters, bf16; fp32 moments), B {TRAIN_B} x S {TRAIN_S}, "
+              f"remat none, {TRAIN_STEPS} steps in {wall:.1f}s (init, "
+              f"checkpoints at steps {TRAIN_CKPT_EVERY} and {TRAIN_STEPS} "
+              f"and the final wait included): {tok_s:,.0f} tokens/s over "
+              f"steps 1-{TRAIN_STEPS - 1} (step 0: {hist[0]['ms']:.1f} ms), "
+              f"peak {peak:.2f} GiB allocated ({held:.2f} GiB held before "
+              f"the run); launches: flash forward "
+              f"{launches['flash_attention']}, backward "
+              f"{launches['flash_attention_bwd']} ({n_layers} layers x "
+              f"{TRAIN_STEPS} steps)")
+        # a run cut after the step-4 checkpoint: that step alone in a new
+        # directory, LATEST at 4
+        resume = tmp / "resume"
+        resume.mkdir()
+        shutil.move(str(tmp / "run" / f"step_{TRAIN_RESUME}"),
+                    str(resume / f"step_{TRAIN_RESUME}"))
+        (resume / "LATEST").write_text(str(TRAIN_RESUME))
+        shutil.rmtree(tmp / "run")
+        t0 = time.perf_counter()
+        again = train(cfg, ckpt_dir=str(resume), **kw)["history"]
+        first, want = again[0], hist[TRAIN_RESUME + 1]
+        check(first["step"] == want["step"] and
+              first["loss"] == want["loss"],
+              f"train (b): resumed from step {TRAIN_RESUME}'s checkpoint, "
+              f"step {first['step']} loss {first['loss']!r} != the "
+              f"uninterrupted run's {want['loss']!r}")
+        later = [a["loss"] == b["loss"] for a, b in
+                 zip(again[1:], hist[TRAIN_RESUME + 2:])]
+        print(f"[train] (b) resumed from the step-{TRAIN_RESUME} checkpoint "
+              f"({TRAIN_RESUME + 1} updates) in "
+              f"{time.perf_counter() - t0:.1f}s: step {want['step']} loss "
+              f"{first['loss']!r}, bit for bit the uninterrupted run's; "
+              f"steps {[a['step'] for a in again[1:]]} equal too: {later}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"flash_attention_bwd": launches["flash_attention_bwd"]}
+
+
+def _profile_train_step(cfg, params, opt, dev):
+    """One more full-width step (the run's next batch) timed on the host
+    clock, then one under ``torch.profiler``: device busy and idle share,
+    device ms by kind of kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.text import synthetic_tokens
+    from repro_torch.launch import steps
+    fn = steps.make_train_step(cfg, warmup=2, total=TRAIN_STEPS)
+    tok = [torch.from_numpy(t).to(dev) for t in itertools.islice(
+        synthetic_tokens(0, TRAIN_B, TRAIN_S, cfg.vocab, TRAIN_STEPS + 2),
+        TRAIN_STEPS, None)]
+    walls = []
+    for i, prof_on in enumerate((False, True)):
+        ctx = profile(activities=[ProfilerActivity.CUDA]) if prof_on else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            new = fn(params, opt, {"tokens": tok[i]})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        del new
+    busy_us, rows, top = _device_time(prof, "train_step")
+    kinds = dict.fromkeys(("flash backward", "flash forward", "GEMMs",
+                           "elementwise", "reductions", "other"), 0.0)
+    for us, _, name in rows:
+        low = name.lower()
+        kind = ("flash backward" if "flash_bwd" in low else
+                "flash forward" if "attention_sm90" in low else
+                "GEMMs" if any(k in low for k in ("gemm", "nvjet", "cutlass",
+                                                  "xmma")) else
+                "reductions" if "reduce" in low else
+                "elementwise" if "elementwise" in low or "vectorized" in low
+                else "other")
+        kinds[kind] += us / 1e3
+    print(f"[profile train step] internlm2-1.8b full width, B {TRAIN_B} x S "
+          f"{TRAIN_S}: unprofiled wall={walls[0]:.2f}ms; profiled wall="
+          f"{walls[1]:.2f}ms device_busy={busy_us / 1e3:.2f}ms idle_share="
+          f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: " +
+          ", ".join(f"{k} {v:.2f}" for k, v in kinds.items()) +
+          f"; top: {top}")
+
+
+def _train_refusal():
+    """(c) the selective scan has no backward kernel: an input that
+    requires grad raises on the card, naming its item."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    g = lambda *s: torch.rand(*s, device=dev).requires_grad_(True)  # noqa
+    raised = None
+    try:
+        ops.ssm_scan(g(1, 3, 4), g(1, 3, 4), g(1, 3, 2), g(1, 3, 2),
+                     -g(4, 2), g(4))
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None and "Queue 2, item 9" in raised,
+          f"train (c): ssm_scan on inputs that require grad gave {raised!r}")
+    print(f"[train] (c) ops.ssm_scan on inputs that require grad raises: "
+          f"{raised}")
+
+
 def phase_list(stats, launches, smi):
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"paged_decode_attention": csrc + "paged_attention.cu",
@@ -4825,7 +5448,8 @@ def phase_list(stats, launches, smi):
               "pair_score": csrc + "pair_score.cu",
               "ssm_scan": csrc + "ssm_scan.cu",
               "ssm_scan_fused": csrc + "selective_scan.cu",
-              "mla_decode_attention": csrc + "mla_decode.cu"}
+              "mla_decode_attention": csrc + "mla_decode.cu",
+              "flash_attention_bwd": csrc + "flash_attention_bwd.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
@@ -4840,14 +5464,20 @@ def phase_list(stats, launches, smi):
                 # no TPU kernel: JAX's plain jnp einsum chain
                 "mla_decode_attention":
                 "src/repro/models/attention.py:621 (mla_decode, plain "
-                "jnp; no TPU kernel)"}
+                "jnp; no TPU kernel)",
+                # no TPU kernel: JAX trains through plain jnp
+                "flash_attention_bwd":
+                "the gradient of src/repro/kernels/flash_attention.py:74 "
+                "(JAX differentiates plain jnp, src/repro/models/"
+                "attention.py:286-301; no TPU kernel)"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",) +
-               SSM_KERNELS + ("ssm_scan_fused",) + MLA_KERNELS]
+               SSM_KERNELS + ("ssm_scan_fused",) + MLA_KERNELS +
+               ("flash_attention_bwd",)]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,1 @@
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: F401

@@ -35,8 +35,7 @@ def get_config(name: str) -> ArchConfig:
     if key not in _MODULES:
         raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
                        f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
-                       f"Queue 1, item 6 (the other LM families: "
-                       f"whisper-base (encdec) next, with training, "
-                       f"item 7)")
+                       f"Queue 1, item 13 (whisper-base, the "
+                       f"encoder-decoder family)")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[key]}").CONFIG

@@ -1,8 +1,8 @@
 """internvl2-1b [arXiv:2404.16821; hf] — VLM: ViT frontend STUB + LM backbone.
 24L d_model=896 14H (kv=2) d_ff=4864 vocab=151655.  The JAX package
 prepends precomputed patch embeddings (B, n_patches, d_model) to the
-tokens; the port serves the backbone on token prompts only (the patch
-prefix comes with ROADMAP.md, Queue 1, item 7).
+tokens; the port serves the backbone on token prompts only, and trains
+it with the patch prefix (``models/vlm.py``).
 """
 from repro_torch.configs.base import ArchConfig, ScanGroup
 

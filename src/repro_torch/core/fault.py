@@ -11,17 +11,23 @@ is counted from when its attempt starts running, where the JAX copy
 counts from submission, so every partition queued behind the workers
 (more partitions than workers) looked like a straggler and ran again;
 and at most two attempts of a partition are in flight, which the JAX
-copy meant (``list(set).count(i) < 2`` is always true).  ``ReplayLog``
-and ``ElasticRunner`` wait for the multi-device port (ROADMAP.md,
-Queue 1, item 8).
+copy meant (``list(set).count(i) < 2`` is always true).
+
+  * ReplayLog: the trainer's append-only jsonl of processed
+    micro-batches (``fault.py:105-133``), a verbatim copy.
+
+``ElasticRunner`` waits for the multi-device port (ROADMAP.md, Queue 1,
+item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 
 # ----------------------------------------------------------------------
@@ -103,3 +109,33 @@ def speculative_map(fn: Callable[[Any], Any], partitions: Sequence[Any],
                         inflight.append(i)
                         launch(i)
     return results, stats
+
+
+# ----------------------------------------------------------------------
+class ReplayLog:
+    """Append-only jsonl of processed micro-batches for crash replay."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def record(self, mb_id: int, offset: int, seed: int = 0, **extra):
+        entry = {"mb_id": mb_id, "offset": offset, "seed": seed,
+                 "t": time.time(), **extra}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(entry) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+    def entries(self) -> List[dict]:
+        if not os.path.exists(self.path):
+            return []
+        with open(self.path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    def resume_point(self, checkpoint_mb: int) -> Optional[dict]:
+        """First entry after the last checkpoint: where replay starts."""
+        for e in self.entries():
+            if e["mb_id"] > checkpoint_mb:
+                return e
+        return None

@@ -144,24 +144,38 @@ class MicrobatchStats:
 class StreamRuntime:
     """Host driver: slices an instance flow into micro-batches and runs the
     step on the models' device; tracks per-micro-batch busy time
-    (fall-behind detection).  Checkpointing waits for the port's
-    checkpointer."""
+    (fall-behind detection).  With a ``checkpointer`` (the port's
+    ``Checkpointer``) it saves ``{"state": ...}`` after every
+    ``checkpoint_every``-th micro-batch under JAX's keys
+    (``state/.claims/.feats``, ..., ``state/.microbatch_id``), the
+    micro-batch id as a 0-d int32 array as JAX keeps it; :meth:`restore`
+    reads such a step, the JAX runtime's included, and the stream goes on
+    from it exactly."""
 
     def __init__(self, models, pcfg: PipelineConfig, scfg: StreamConfig,
-                 checkpointer=None,
+                 checkpointer=None, checkpoint_every: int = 0,
                  metrics: Optional[MetricsRegistry] = None):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "StreamRuntime(checkpointer=...): the port has no "
-                "checkpointer yet; see ROADMAP.md, Queue 1, item 7 "
-                "(training, with the torch checkpointer)")
         self.models = models
         self.pcfg, self.scfg = pcfg, scfg
         self.device = models["link"]["w"].device
         self.step = make_stream_step(pcfg, scfg)
         self.state = init_stream_state(scfg, pcfg, self.device)
         self.stats: List[MicrobatchStats] = []
+        self.checkpointer = checkpointer
+        self.checkpoint_every = checkpoint_every
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+
+    def _saved_state(self) -> StreamState:
+        return self.state._replace(microbatch_id=np.asarray(
+            self.state.microbatch_id, dtype=np.int32))
+
+    def restore(self, step: Optional[int] = None) -> None:
+        """The stream state of checkpoint ``step`` (default the latest),
+        on the models' device in this runtime's dtypes."""
+        self.state = self.checkpointer.restore(
+            {"state": self._saved_state()}, step)["state"]
+        self.state = self.state._replace(
+            microbatch_id=int(self.state.microbatch_id))
 
     def process_microbatch(self, X: np.ndarray, keys: np.ndarray,
                            ts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -203,6 +217,9 @@ class StreamRuntime:
         self.metrics.histogram("stream.busy_s").observe(busy)
         self.metrics.gauge("stream.falling_behind").set(
             float(self.falling_behind()))
+        if self.checkpointer and self.checkpoint_every and \
+                mb_id % self.checkpoint_every == 0:
+            self.checkpointer.save(mb_id, {"state": self._saved_state()})
         return sc, ok
 
     def falling_behind(self, last_k: int = 3) -> bool:

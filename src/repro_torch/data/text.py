@@ -5,7 +5,8 @@ features), and a deterministic synthetic essay corpus standing in for
 the Project Gutenberg essays (DS1-DS4, Table 1).
 
 Everything but :func:`margot_models` is a verbatim numpy copy of the JAX
-package's module and gives the same arrays byte for byte.
+package's module and gives the same arrays byte for byte, the training
+token stream :func:`synthetic_tokens` included.
 """
 from __future__ import annotations
 
@@ -123,3 +124,17 @@ def margot_models(pcfg, link_seed: int = 7, device="cuda"):
                                             device=device),
         "link": {k: v.to(device) for k, v in link.items()},
     }
+
+
+def synthetic_tokens(rng_seed: int, batch: int, seq: int, vocab: int,
+                     n_batches: int) -> Iterator[np.ndarray]:
+    """Deterministic LM token stream (Zipf-ish) for training examples
+    (``text.py:112-120``): ``n_batches`` int32 arrays (batch, seq) from a
+    numpy ``RandomState(rng_seed)``, the JAX package's tokens byte for
+    byte."""
+    rng = np.random.RandomState(rng_seed)
+    ranks = np.arange(1, vocab + 1)
+    p = 1.0 / ranks ** 1.1
+    p /= p.sum()
+    for _ in range(n_batches):
+        yield rng.choice(vocab, size=(batch, seq), p=p).astype(np.int32)

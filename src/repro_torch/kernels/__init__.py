@@ -19,14 +19,16 @@ MLA_DIMS = {(512, 64): (torch.float32, torch.bfloat16),
 
 #: kernel launches per wrapper, counted where each wrapper launches its
 #: kernel (one call of ``pair_score`` is its projection and its score
-#: pass, counted once)
+#: pass, counted once; one call of the flash backward is its three
+#: kernels, counted once)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_extend_attention": 0,
                             "flash_attention": 0,
                             "decode_attention": 0,
                             "pair_score": 0,
                             "ssm_scan": 0,
-                            "mla_decode_attention": 0}
+                            "mla_decode_attention": 0,
+                            "flash_attention_bwd": 0}
 
 _count_lock = threading.Lock()
 

@@ -209,6 +209,8 @@ struct AttnParams {
   int nb, bs, n_pool_rows, box_rows;  // paged
   int n_row_tiles;
   float scale;
+  float* lse;                        // dense: (B, S, KV, G) row log-sum-
+                                     //   exp for the backward, or null
 };
 
 // Grid (B * KV, row tiles), THREADS threads: rows row0 .. row0 + 63 of
@@ -421,6 +423,10 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (row0 + warp * 16 + gq + 8 * h >= n_rows) continue;
+    // the row's natural log-sum-exp of the scaled scores: p = 2^((s - m)
+    // * qscale) = e^((s - m) * scale), so lse = m * scale + ln l
+    if (p.lse != nullptr && tq == 0)
+      p.lse[off[h] / DV] = m[h] * p.scale + logf(fmaxf(l[h], 1e-30f));
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
 #pragma unroll
     for (int cb = 0; cb < TV::NCB; ++cb)

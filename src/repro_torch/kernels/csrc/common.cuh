@@ -14,6 +14,7 @@ namespace {
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // N consecutive elements <-> fp32 registers, in 16-byte (8-byte for 4
 // bf16) loads and stores; N is a multiple of 4 and the address is

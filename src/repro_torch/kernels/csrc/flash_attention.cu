@@ -19,7 +19,10 @@
 // walks only the key tiles its rows can see (the TPU kernel's `needed`
 // skip), keys >= S are never read and rows >= S never written.  Masked
 // scores are the finite NEG_INF and masked keys add p = 0; the output is
-// acc / max(l, 1e-30), as on the TPU.
+// acc / max(l, 1e-30), as on the TPU.  Given an lse pointer (a training
+// step's forward), each row's natural log-sum-exp of its scaled scores is
+// written beside the output for the backward (flash_attention_bwd.cu);
+// serving passes null and writes nothing more.
 //
 // Two kernels:
 //
@@ -113,8 +116,9 @@ __host__ __device__ constexpr int flash_rows() {
 template <int HD, int DV>
 __global__ void __launch_bounds__(NT) flash_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int KV,
-    int G, int causal, int window, float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int S, int KV, int G, int causal, int window,
+    float scale) {
   constexpr int RW = flash_rows<HD, DV>();        // rows per CTA
   constexpr int LPK = lanes_per_key_qv<HD, DV>();  // lanes per key
   constexpr int VEC = HD / LPK;                   // q/k head dims per lane
@@ -266,8 +270,12 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
 #pragma unroll
     for (int d = 0; d < OV; ++d) o[d] *= inv;
     const int r = row0 + i, s = r / G, g = r - s * G;
-    Vec<float, OV>::store(
-        out + ((((int64_t)b * S + s) * KV + kvh) * G + g) * DV + dv, o);
+    const int64_t row = (((int64_t)b * S + s) * KV + kvh) * G + g;
+    Vec<float, OV>::store(out + row * DV + dv, o);
+    // the natural log-sum-exp of the scaled scores (m and l are in the
+    // log2 domain of qscale)
+    if (lse != nullptr && dv == 0)
+      lse[row] = (mx + log2f(fmaxf(li, 1e-30f))) * LN2;
   }
 }
 
@@ -275,8 +283,8 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
 // a multiple of the bf16 wgmma's 16-deep k-step), and returns -1 in bf16
 template <int HD, int DV = HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           void* out, int B, int S, int KV, int G, int causal, int window,
-           float scale, cudaStream_t stream) {
+           void* out, float* lse, int B, int S, int KV, int G, int causal,
+           int window, float scale, cudaStream_t stream) {
   if (dtype == 1) {
     if constexpr (HD % 16 == 0 && DV % 16 == 0) {
       CUtensorMap kmap, vmap;
@@ -288,6 +296,7 @@ int launch(int dtype, const void* q, const void* k, const void* v,
       p.out = (__nv_bfloat16*)out;
       p.S = S; p.KV = KV; p.G = G;
       p.causal = causal; p.window = window; p.scale = scale;
+      p.lse = lse;
       p.n_row_tiles = (S * G + TILE - 1) / TILE;
       return launch_attention<HD, DenseSrc, DV>(kmap, vmap, p, B, stream);
     } else {
@@ -298,43 +307,43 @@ int launch(int dtype, const void* q, const void* k, const void* v,
   const dim3 grid(B, KV, (S * G + RW - 1) / RW);
   return launch_with_smem<NW * RW * DV * 4>(
       flash_simt_kernel<HD, DV>, grid, NT, stream, (const float*)q,
-      (const float*)k, (const float*)v, (float*)out, S, KV, G, causal,
+      (const float*)k, (const float*)v, (float*)out, lse, S, KV, G, causal,
       window, scale);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd_v: v's head dim (hd, or a pair
-// above); causal: 0 or 1; window: 0 for none.  Returns cudaGetLastError()
-// after the launch (0 on success), -1 for a dtype / head dims it has no
-// kernel for, -2 if cuTensorMapEncodeTiled cannot be found, -3 if it
-// refuses a tensor map.
+// above); causal: 0 or 1; window: 0 for none; lse: null, or (B, S, H)
+// fp32 that receives each row's natural log-sum-exp of the scaled scores
+// (the backward's input).  Returns cudaGetLastError() after the launch (0
+// on success), -1 for a dtype / head dims it has no kernel for, -2 if
+// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
 extern "C" int repro_flash_attention(int dtype, int hd, int hd_v,
                                      const void* q, const void* k,
-                                     const void* v, void* out, int B, int S,
-                                     int KV, int G, int causal, int window,
-                                     float scale, void* stream) {
+                                     const void* v, void* out, float* lse,
+                                     int B, int S, int KV, int G, int causal,
+                                     int window, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 192 && hd_v == 128)
-    return launch<192, 128>(dtype, q, k, v, out, B, S, KV, G, causal,
+    return launch<192, 128>(dtype, q, k, v, out, lse, B, S, KV, G, causal,
                             window, scale, st);
   if (hd == 24 && hd_v == 16)
-    return launch<24, 16>(dtype, q, k, v, out, B, S, KV, G, causal, window,
-                          scale, st);
+    return launch<24, 16>(dtype, q, k, v, out, lse, B, S, KV, G, causal,
+                          window, scale, st);
   if (hd_v != hd) return -1;
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, out, B, S, KV, G, causal,
-                               window, scale, st);
-    case 32: return launch<32>(dtype, q, k, v, out, B, S, KV, G, causal,
-                               window, scale, st);
-    case 64: return launch<64>(dtype, q, k, v, out, B, S, KV, G, causal,
-                               window, scale, st);
-    case 128: return launch<128>(dtype, q, k, v, out, B, S, KV, G, causal,
-                                 window, scale, st);
-    case 256: return launch<256>(dtype, q, k, v, out, B, S, KV, G, causal,
-                                 window, scale, st);
+    case 16: return launch<16>(dtype, q, k, v, out, lse, B, S, KV, G,
+                               causal, window, scale, st);
+    case 32: return launch<32>(dtype, q, k, v, out, lse, B, S, KV, G,
+                               causal, window, scale, st);
+    case 64: return launch<64>(dtype, q, k, v, out, lse, B, S, KV, G,
+                               causal, window, scale, st);
+    case 128: return launch<128>(dtype, q, k, v, out, lse, B, S, KV, G,
+                                 causal, window, scale, st);
+    case 256: return launch<256>(dtype, q, k, v, out, lse, B, S, KV, G,
+                                 causal, window, scale, st);
     default: return -1;
   }
 }
-

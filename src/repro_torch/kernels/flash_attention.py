@@ -1,6 +1,9 @@
-"""Launch wrapper for the Hopper flash attention kernel
+"""Launch wrappers for the Hopper flash attention kernel
 (``csrc/flash_attention.cu``), the port of
-``repro.kernels.flash_attention.flash_attention_bhsd``.
+``repro.kernels.flash_attention.flash_attention_bhsd``, and for its
+backward (``csrc/flash_attention_bwd.cu``, port-only: the JAX package
+trains through plain ``jnp`` and has no backward kernel), bound together
+as the ``torch.autograd.Function`` :class:`FlashAttention`.
 
 :func:`flash_attention_bshd` reads q/k/v in the model's ``(B, S, H, hd)``
 / ``(B, S, KV, hd)`` layout, so the TPU wrapper's transposes and pad copies
@@ -10,7 +13,8 @@ the kernel on PyTorch's current stream without synchronising, raises if
 the launch reports an error, and adds one to its count in
 :data:`repro_torch.kernels.LAUNCHES`.  :func:`check_args` validates a call
 for both routes; the plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+:func:`repro_torch.kernels.ref.flash_attention_ref`, and the backward's
+is autograd through it.
 """
 from __future__ import annotations
 
@@ -19,11 +23,12 @@ import math
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, LAUNCHES,
-                                 build, check_cuda, check_dims, check_floats,
-                                 check_launch, check_tensors)
+from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, HEAD_DIMS,
+                                 LAUNCHES, build, check_cuda, check_dims,
+                                 check_floats, check_launch, check_tensors)
 
 _lib = None
+_bwd_lib = None
 
 
 def _library() -> ctypes.CDLL:
@@ -31,14 +36,29 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("flash_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, hd_v, q, k, v, out, B, S, KV, G, causal, window,
-        #  scale, stream)
+        # (dtype, hd, hd_v, q, k, v, out, lse, B, S, KV, G, causal,
+        #  window, scale, stream)
         lib.repro_flash_attention.argtypes = [
-            i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-            ctypes.c_float, ptr]
+            i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, ctypes.c_float, ptr]
         lib.repro_flash_attention.restype = i32
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build.load("flash_attention_bwd.cu")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # (dtype, hd, q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, KV,
+        #  G, causal, window, scale, stream)
+        lib.repro_flash_attention_bwd.argtypes = [
+            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+            i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        lib.repro_flash_attention_bwd.restype = i32
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def check_args(q, k, v, window: int):
@@ -73,13 +93,15 @@ def check_args(q, k, v, window: int):
         raise ValueError(f"{name}: window must be >= 0, got {window}")
 
 
-def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd), k: (B,S,KV,hd), v: (B,S,KV,hd_v) -> (B,S,H,hd_v), at
-    scale 1/sqrt(hd).  Query s sees key t iff ``t <= s`` when ``causal``
-    and ``t > s - window`` when ``window``; ``causal=False, window=0`` is
-    bidirectional."""
+def _forward(q, k, v, causal: bool, window: int, lse=None):
+    """The forward's one launch; with ``lse`` (B,S,H) fp32 it also writes
+    there each row's natural log-sum-exp of its scaled scores, which the
+    backward reads."""
     check_args(q, k, v, window)
-    check_cuda("flash_attention", {"q": q, "k": k, "v": v})
+    tensors = {"q": q, "k": k, "v": v}
+    if lse is not None:
+        tensors["lse"] = lse
+    check_cuda("flash_attention", tensors)
     B, S, H, hd = q.shape
     KV, hd_v = k.shape[2], v.shape[3]
     out = q.new_empty((B, S, H, hd_v))
@@ -87,8 +109,92 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().repro_flash_attention(
             DTYPE_CODE[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, KV, H // KV, int(causal),
-            int(window), 1.0 / math.sqrt(hd), stream)
+            v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, S, KV, H // KV,
+            int(causal), int(window), 1.0 / math.sqrt(hd), stream)
     check_launch("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,S,H,hd), k: (B,S,KV,hd), v: (B,S,KV,hd_v) -> (B,S,H,hd_v), at
+    scale 1/sqrt(hd).  Query s sees key t iff ``t <= s`` when ``causal``
+    and ``t > s - window`` when ``window``; ``causal=False, window=0`` is
+    bidirectional."""
+    return _forward(q, k, v, causal, window)
+
+
+def check_bwd_dims(q, v) -> None:
+    """The backward is built for hd = hd_v in :data:`repro_torch.kernels.
+    HEAD_DIMS`; anything else raises ``NotImplementedError`` naming the
+    ROADMAP item that adds it."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if hd != hd_v or hd not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward kernel at (q/k, v) head dims "
+            f"({hd}, {hd_v}); built for hd = hd_v in {HEAD_DIMS}. "
+            f"MLA's pairs (192, 128) and (24, 16) are ROADMAP.md, Queue 2, "
+            f"item 10")
+
+
+def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
+                             window: int):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_bshd`'s output
+    ``out`` for the upstream gradient ``dout`` (B,S,H,hd), from the
+    forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
+    and dv sum over each kv head's G query heads.  In q's dtype, fp32
+    inside.  CUDA tensors only; one call is three launches, counted once
+    in :data:`repro_torch.kernels.LAUNCHES`."""
+    name = "flash_attention_bwd"
+    check_args(q, k, v, window)
+    check_bwd_dims(q, v)
+    tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
+    check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
+    check_cuda(name, tensors)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: out and dout must be {tuple(q.shape)}, "
+                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
+    B, S, H, hd = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, H):
+        raise ValueError(f"{name}: lse must be fp32 ({B}, {S}, {H}), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    KV = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_library().repro_flash_attention_bwd(
+            DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+            S, KV, H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
+            stream)
+    check_launch(name, rc)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a backward kernel: the forward launches the
+    flash kernel with its log-sum-exp and saves q, k, v, out and lse; the
+    backward launches :func:`flash_attention_bwd_bshd` on them.  The kernel
+    route of ``ops.flash_attention`` when grad is on and an input requires
+    it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        check_bwd_dims(q, v)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_bshd(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None

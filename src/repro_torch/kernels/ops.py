@@ -10,10 +10,20 @@ Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
 check the arguments) or raises; a CPU tensor runs the plain version from
 :mod:`repro_torch.kernels.ref` after the same checks, counted in
 :data:`PLAIN_CALLS`.  Any other device raises.  Each call is checked once.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On a
+CUDA tensor that requires grad (with grad enabled) :func:`flash_attention`
+runs the forward and backward kernels bound as
+``flash_attention.FlashAttention``; every other op has no backward kernel
+yet and raises ``NotImplementedError`` naming its ROADMAP item, so no op
+hands back a tensor without a gradient, and none gives way to its plain
+version on the card.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels import LAUNCHES, count
 from repro_torch.kernels import decode_attention as da
@@ -53,6 +63,26 @@ def _route(name: str, q) -> bool:
     raise ValueError(f"{name}: no route for device {q.device}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
+
+
+#: the ROADMAP items (Queue 2) of the backward kernels still missing
+_SCAN_BACKWARD = 9
+_SERVING_BACKWARD = 11
+
+
+def _no_backward(name: str, item: int, *tensors) -> None:
+    """Raise where a kernel-route input requires grad: ``name`` has no
+    backward kernel, and its forward kernel would return a tensor with no
+    ``grad_fn``."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: an input requires grad, and the op has no backward "
+            f"kernel on the card yet: ROADMAP.md, Queue 2, item {item}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,hd), k: (B,S,KV,hd), v: (B,S,KV,hd_v) -> (B,S,H,hd_v),
     at scale 1/sqrt(hd); hd_v is hd, or narrower for MLA's prefill (the
@@ -62,6 +92,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if not _route("flash_attention", q):
         fa.check_args(q, k, v, window)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v):
+        fa.check_args(q, k, v, window)
+        return fa.FlashAttention.apply(q, k, v, causal, window)
     return fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
 
 
@@ -73,6 +106,7 @@ def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
     if not _route("decode_attention", q):
         da.check_args(q, k, v, lengths, n_splits)
         return ref.decode_attention_ref(q, k, v, lengths)
+    _no_backward("decode_attention", _SERVING_BACKWARD, q, k, v)
     return da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
 
 
@@ -87,6 +121,8 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
         md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
         return ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope,
                                             lengths, scale)
+    _no_backward("mla_decode_attention", _SERVING_BACKWARD, q_lat, q_rope,
+                 ckv, krope)
     return md.mla_decode_attention_bhr(q_lat, q_rope, ckv, krope, lengths,
                                        scale)
 
@@ -102,6 +138,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
         pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
         return ref.paged_decode_attention_ref(q, k_pool, v_pool,
                                               block_tables, lengths)
+    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, H, hd = q.shape
     out = pa.paged_decode_attention_bkgd(q.view(B, H // G, G, hd), k_pool,
                                          v_pool, block_tables, lengths)
@@ -122,6 +159,7 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
         pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
         return ref.paged_extend_attention_ref(q, k_pool, v_pool,
                                               block_tables, pos0)
+    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, S, H, hd = q.shape
     out = pa.paged_extend_attention_bkgd(q.view(B, S, H // G, G, hd),
                                          k_pool, v_pool, block_tables, pos0)
@@ -148,6 +186,7 @@ def pair_score(link_params, claims, evidence):
     if not _route(name, claims):
         ps.check_args(claims, evidence, W, w_c, w_e, bias)
         return ref.pair_score_ref(claims, evidence, W, w_c, w_e, bias)
+    _no_backward(name, _SERVING_BACKWARD, claims, evidence, W, w, bias)
     return ps.pair_score_blocked(claims, evidence, W, w_c, w_e, bias)
 
 
@@ -163,6 +202,7 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
     if not _route("ssm_scan", xc):
         ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
         return ref.selective_scan_ref(xc, dt, Bc, Cc, A, D, h0)
+    _no_backward("ssm_scan", _SCAN_BACKWARD, xc, dt, Bc, Cc, A, D, h0)
     return ss.selective_scan_fused(xc, dt, Bc, Cc, A, D, h0)
 
 
@@ -178,6 +218,7 @@ def linear_scan(a, b, h0):
     a4, b4 = a.contiguous().view(B, S, w, 1), b.contiguous().view(B, S, w, 1)
     h4 = h0.contiguous().view(B, w, 1)
     if _route("ssm_scan", a4):
+        _no_backward("linear_scan", _SCAN_BACKWARD, a, b, h0)
         h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
     else:
         ss.check_args(a4, b4, h4)

@@ -1,0 +1,149 @@
+"""Training driver of the port, after ``repro.launch.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 6 --batch 2 --seq 32 --ckpt-dir "$(mktemp -d)"
+    PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
+        --steps 50 --batch 8 --seq 128 --ckpt-dir "$(mktemp -d)"
+
+It trains the arch's ``reduced()`` config with AdamW from the port's
+seeded init on the ``synthetic_tokens`` stream, saves ``{"params",
+"opt"}`` with a ``Checkpointer`` every ``--ckpt-every`` steps and at the
+end, records each step in a ``ReplayLog`` beside the checkpoints, and
+prints JAX's ``[train]`` lines.  ``--reduced`` is JAX's flag as it is:
+``store_true`` with default True, so the CLI always trains the reduced
+config; :func:`train` takes any config (``chip_smoke.py`` trains
+internlm2-1.8b at full width through it).  ``--device cuda`` (the
+default) runs the kernels, flash forward and backward included; ``cpu``
+runs their plain versions under autograd.  ``--warmup`` is the train
+step's (JAX's driver leaves it at ``make_train_step``'s 100).
+
+Resume: a run whose checkpoint directory holds a step restores it and
+goes on from the optimizer's step count (the number of updates the
+checkpoint holds), drawing the stream's next batch, so a resumed run
+takes the same steps as an uninterrupted one.  JAX's driver resumes at
+the checkpoint's label, which is one short of the updates a periodic
+checkpoint holds, and re-seeds the stream with it (ROADMAP.md, Queue 3).
+So give each run a directory of its own: the default, JAX's
+``/tmp/repro_train`` (under ``$TMPDIR`` where that is set), is shared by
+every run on the machine, and ``Checkpointer.restore`` refuses only a
+step of another shape.
+``--production-mesh`` and any ``--policy`` but ``broadcast`` name
+shardings, which come with the multi-device port (Queue 1, item 8).
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import reduced as reduce_cfg
+from repro_torch.core.fault import ReplayLog
+from repro_torch.data.text import synthetic_tokens
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import api
+from repro_torch.optim import adamw_init
+
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_train")
+_MULTI_DEVICE = "is not in the port yet: ROADMAP.md, Queue 1, item 8 (the " \
+    "multi-device paths)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b", choices=list(ARCH_IDS))
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=100)
+    ap.add_argument("--policy", default="broadcast")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    return ap
+
+
+def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
+          accum: int = 1, lr: float = 3e-4, warmup: int = 100,
+          ckpt_dir: str = DEFAULT_CKPT_DIR, ckpt_every: int = 25,
+          device="cuda", on_step: Optional[Callable[[Dict], None]] = None
+          ) -> Dict:
+    """Train ``cfg`` for ``steps`` steps (resuming from ``ckpt_dir``'s
+    latest checkpoint), as the CLI does.  ``on_step`` gets each step's
+    record: ``step``, ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``
+    (floats) and ``ms``, the step's host wall time up to its metrics on
+    the host.  Returns ``{"params", "opt", "start", "history"}``."""
+    dev = resolve_device(device)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr=lr, warmup=warmup, total=steps,
+                              accum_steps=accum)
+    ck = Checkpointer(ckpt_dir, async_save=True)
+    log = ReplayLog(f"{ckpt_dir}/replay.jsonl")
+
+    start = 0
+    if ck.latest_step() is not None:
+        state = ck.restore({"params": params, "opt": opt})
+        params, opt = state["params"], state["opt"]
+        del state
+        start = int(opt.step)
+        print(f"[train] resumed from checkpoint step {ck.latest_step()} "
+              f"({start} updates)")
+
+    data = itertools.islice(synthetic_tokens(0, batch, seq, cfg.vocab,
+                                             n_batches=steps), start, None)
+    history: List[Dict] = []
+    t0 = time.perf_counter()
+    for i, tokens in enumerate(data):
+        step = start + i
+        t_step = time.perf_counter()
+        params, opt, m = step_fn(
+            params, opt, {"tokens": torch.from_numpy(tokens).to(dev)})
+        rec = {k: float(v) for k, v in m.items()}
+        rec.update(step=step, ms=(time.perf_counter() - t_step) * 1e3)
+        history.append(rec)
+        if on_step is not None:
+            on_step(rec)
+        log.record(step, offset=step * batch)
+        if step % 10 == 0 or step == steps - 1:
+            print(f"[train] step {step:4d} loss={rec['loss']:.4f} "
+                  f"gnorm={rec['grad_norm']:.3f} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+        if ckpt_every and step and step % ckpt_every == 0:
+            ck.save(step, {"params": params, "opt": opt})
+    ck.save(steps, {"params": params, "opt": opt})
+    ck.wait()
+    print(f"[train] done; checkpoints at {ck.steps()}")
+    return {"params": params, "opt": opt, "start": start,
+            "history": history}
+
+
+def main(argv=None) -> Dict:
+    args = build_parser().parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError(f"--production-mesh {_MULTI_DEVICE}")
+    if args.policy != "broadcast":
+        raise NotImplementedError(f"--policy {args.policy} {_MULTI_DEVICE}")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                 accum=args.accum, lr=args.lr, warmup=args.warmup,
+                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 device=args.device)
+
+
+if __name__ == "__main__":
+    main()

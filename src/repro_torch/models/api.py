@@ -1,0 +1,127 @@
+"""Family-dispatching model API of the port (``repro.models.api``).
+
+Every decoder arch the port serves exposes the same step functions
+(dense / moe / ssm / hybrid / vlm):
+
+  init(generator, cfg, device)            -> params
+  loss_fn(params, cfg, batch)             -> (loss, (ce, aux))  [train_step]
+  forward_fn(params, cfg, batch)          -> logits
+  prefill_fn(params, cfg, batch, caches)  -> (logits, caches)
+  decode_fn(params, cfg, batch, caches)   -> (logits, caches)
+  init_caches(cfg, batch, max_len, ...)   -> cache tree
+  input_batch(cfg, shape_kind, batch, seq, generator, device)
+                                          -> concrete inputs
+
+As in JAX, ``input_batch`` gives the modality frontend's stubs: internvl
+gets patch embeddings.  ``init`` returns the parameter tree alone: JAX's
+logical axes name shardings, which come with the multi-device port
+(ROADMAP.md, Queue 1, item 8).  The encoder-decoder family (whisper-base)
+raises in every function (Queue 1, item 13), and the dry run's shape-only
+``abstract_params`` / ``input_specs`` raise until item 9.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models import vlm
+from repro_torch.models.weights import init_params
+
+
+def _no_encdec(cfg, what: str) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{what} for {cfg.name}: the encoder-decoder family is not in "
+            f"the port yet: ROADMAP.md, Queue 1, item 13")
+
+
+def _dry_run(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the dry run's shape-only inputs are not in the port yet: "
+        f"ROADMAP.md, Queue 1, item 9")
+
+
+def init(generator: torch.Generator, cfg, device="cuda"):
+    """The port's seeded init (:func:`weights.init_params`), JAX's
+    distributions drawn from ``generator``, which lives on ``device``."""
+    _no_encdec(cfg, "init")
+    return init_params(cfg, generator, device)
+
+
+def abstract_params(cfg):
+    raise _dry_run("abstract_params")
+
+
+# ----------------------------------------------------------------------
+def loss_fn(params, cfg, batch):
+    """``(loss + aux, (ce, aux))`` of a batch: ``{"tokens"}``, plus
+    ``"patches"`` for the VLM and an optional ``"targets"``."""
+    _no_encdec(cfg, "loss_fn")
+    if cfg.family == "vlm":
+        return vlm.loss(params, cfg, batch["patches"], batch["tokens"])
+    return tfm.lm_loss(params, cfg, batch["tokens"],
+                       targets=batch.get("targets"))
+
+
+def forward_fn(params, cfg, batch):
+    _no_encdec(cfg, "forward_fn")
+    if cfg.family == "vlm":
+        return vlm.forward(params, cfg, batch["patches"], batch["tokens"])[0]
+    return tfm.forward(params, cfg, tokens=batch["tokens"])[0]
+
+
+def init_caches(cfg, batch: int, max_len: int, enc_len: int = 0,
+                device="cuda"):
+    _no_encdec(cfg, "init_caches")
+    return tfm.init_caches(cfg, batch, max_len, resolve_device(device))
+
+
+def prefill_fn(params, cfg, batch, caches):
+    _no_encdec(cfg, "prefill_fn")
+    if cfg.family == "vlm":
+        return vlm.prefill(params, cfg, batch["patches"], batch["tokens"],
+                           caches)
+    return tfm.prefill(params, cfg, batch["tokens"], caches)
+
+
+def decode_fn(params, cfg, batch, caches):
+    _no_encdec(cfg, "decode_fn")
+    return tfm.decode_step(params, cfg, batch["tokens"], caches,
+                           batch["pos"])
+
+
+# ----------------------------------------------------------------------
+def input_batch(cfg, shape_kind: str, batch: int, seq: int,
+                generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    """Concrete random inputs with JAX's shapes and dtypes (``api.py:
+    81-99``): int32 tokens (B, seq) below ``vocab``, the VLM's
+    fp32 patches (B, min(n_patches, seq), d_model) before max(seq -
+    n_patches, 1) tokens; ``decode`` keeps the first token and adds
+    ``pos`` (B,) int32 = seq - 1.  Draws come from ``generator``, which
+    lives on ``device``; they are not JAX's draws."""
+    _no_encdec(cfg, "input_batch")
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    tok_seq = seq
+    if cfg.family == "vlm":
+        npatch = min(cfg.n_patches, seq)
+        out["patches"] = torch.randn((batch, npatch, cfg.d_model),
+                                     generator=generator, device=dev,
+                                     dtype=torch.float32)
+        tok_seq = max(seq - npatch, 1)
+    out["tokens"] = torch.randint(0, cfg.vocab, (batch, tok_seq),
+                                  generator=generator, device=dev,
+                                  dtype=torch.int32)
+    if shape_kind == "decode":
+        out["tokens"] = out["tokens"][:, :1]
+        out["pos"] = torch.full((batch,), seq - 1, dtype=torch.int32,
+                                device=dev)
+    return out
+
+
+def input_specs(cfg, shape_kind: str, batch: int, seq: int,
+                batch_sharding=None):
+    raise _dry_run("input_specs")

@@ -33,10 +33,19 @@ SSM state into the cache tensors they are given, and :func:`decode_loop`
 advances the loop state tensors (``pos``, ``last``, ``active``,
 ``remaining``) where they lie.  Each returns its inputs, so call sites
 read like the JAX ones.
+
+Training (``transformer.py:265-325``, ``:708-718``): :func:`forward` runs
+the backbone in mode ``"full"``, which keeps no cache and writes nothing
+in place (autograd refuses in-place writes to tensors it saved), with
+each repeat's body under the config's ``remat`` (:func:`_remat_wrap`);
+:func:`lm_loss` is JAX's next-token cross-entropy plus the summed router
+aux loss.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
@@ -137,37 +146,45 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
 
 def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     """One layer (``transformer.py:130-210``).  Kinds ``A``, ``D`` and
-    ``M``: ``prefill`` into a dense cache, ``decode`` over a dense or paged
-    cache, ``extend`` over a paged cache; ``bt`` is the (B, nb) block table
-    of a paged cache.  Kind ``M`` runs the same causal attention, or MLA
+    ``M``: ``full`` (a whole sequence, no cache: ``cache`` and ``pos``
+    are None), ``prefill`` into a dense cache, ``decode`` over a dense or
+    paged cache, ``extend`` over a paged cache; ``bt`` is the (B, nb)
+    block table of a paged cache.  Kind ``M`` runs the same causal
+    attention, or MLA
     over its latent cache (``:151-160``: prefill and decode, dense only),
     and the MoE FFN (``:204-205``); kind ``D`` the causal attention and an
     MLP of ``dense_d_ff``.  Kind ``S`` (``:136-143``): a Mamba mixer and no
     MLP; ``prefill`` runs the whole prompt from a zero state and
     ``decode`` one step from ``cache``, each returning the new state.
     Kind ``R`` (``:145-150``): the RG-LRU mixer the same way, then, unlike
-    kind ``S``, ``ln2`` and the MLP.
-    Returns ``(x, cache)``.  The JAX function also returns the aux loss,
-    zero but for kind ``M``'s router loss, which serving drops as JAX's
-    engine does."""
+    kind ``S``, ``ln2`` and the MLP.  Mode ``full`` runs each kind's
+    whole-sequence mixer and returns ``cache`` as given.
+    Returns ``(x, aux, cache)``: aux is kind ``M``'s router loss (an fp32
+    scalar) and the float 0.0 for every other kind, so serving, which
+    drops it as JAX's engine does, adds no device work."""
     _check_kind(kind)
+    aux = 0.0
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "S":
         if mode == "decode":
             mix, cache = ssm.ssm_decode(p["mixer"], h, cache, cfg)
         elif mode == "prefill":
             mix, cache = ssm.ssm_forward(p["mixer"], h, cfg, state=None)
+        elif mode == "full":
+            mix, _ = ssm.ssm_forward(p["mixer"], h, cfg, state=None)
         else:
             raise NotImplementedError(f"mode {mode!r} over an SSM state: "
                                       f"the family serves dense")
-        return x + mix, cache
-    paged = attn.is_paged_cache(cache)
+        return x + mix, aux, cache
+    paged = mode != "full" and attn.is_paged_cache(cache)
     akind = _ATTN_KIND.get(kind)
     if kind == "R":
         if mode == "decode":
             mix, cache = rglru.rglru_decode(p["mixer"], h, cache, cfg)
         elif mode == "prefill":
             mix, cache = rglru.rglru_forward(p["mixer"], h, cfg, state=None)
+        elif mode == "full":
+            mix, _ = rglru.rglru_forward(p["mixer"], h, cfg, state=None)
         else:
             raise NotImplementedError(f"mode {mode!r} over an RG-LRU "
                                       f"state: the family serves dense")
@@ -177,6 +194,8 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
         elif mode == "prefill":
             mix, (ckv, krope) = attn.mla_forward(p["mixer"], h, cfg)
             cache = attn.mla_prefill_into_cache(ckv, krope, cache)
+        elif mode == "full":
+            mix, _ = attn.mla_forward(p["mixer"], h, cfg)
         else:
             raise NotImplementedError(f"mode {mode!r} over an MLA latent "
                                       f"cache: the family serves dense")
@@ -197,6 +216,8 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
         cache = attn.prefill_into_cache(None, k, v, cache, cfg, kind=akind)
         mix = attn.attn_forward(p["mixer"], h, cfg, kind=akind,
                                 qkv=(q, k, v))
+    elif mode == "full":
+        mix = attn.attn_forward(p["mixer"], h, cfg, kind=akind)
     else:
         # JAX's dense extend (``attention.py:411-434``) verifies speculative
         # windows on a gathered dense copy of the pool; the port verifies
@@ -210,33 +231,83 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     x = x + mix
     h2 = apply_norm(p["ln2"], x, cfg)
     if kind == "M":
-        return x + moe.apply_moe(p["ffn"], h2, cfg)[0], cache
-    return x + apply_mlp(p["ffn"], h2, cfg), cache
+        f, aux = moe.apply_moe(p["ffn"], h2, cfg)
+        return x + f, aux, cache
+    return x + apply_mlp(p["ffn"], h2, cfg), aux, cache
 
 
-def _take(tree, r: int):
-    """Repeat ``r`` of a stacked parameter tree (views, no copies)."""
+def _unstack(tree, repeats: int):
+    """All repeats of a stacked parameter tree as ``repeats`` trees of
+    views, one ``torch.unbind`` a leaf: its gradient is one stack of the
+    repeats' gradients, where a view per repeat (``leaf[r]``) would
+    scatter each repeat's gradient into a zero tensor of the whole stack
+    and sum ``repeats`` of them (quadratic in the depth)."""
     if isinstance(tree, dict):
-        return {k: _take(v, r) for k, v in tree.items()}
-    return tree[r]
+        parts = {k: _unstack(v, repeats) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(repeats)]
+    return list(torch.unbind(tree, 0))
 
 
-def run_backbone(params, x, cfg, mode: str, caches, pos, bt=None):
-    """x: (B,S,d) embedded input -> (x, caches), caches updated in place.
-    ``bt``: (B, nb) int32 block table of paged caches, None for dense.
-    Attention writes K/V into its repeat's views itself; a layer that
-    returns new tensors (the SSM state) has them copied into its views."""
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+    plain matrix products (``x @ W``), recompute everything else,
+    batched products (attention, the experts) included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg):
+    """``transformer.py:265-271``: ``none`` runs ``fn`` as it is, ``dots``
+    keeps only the plain products' outputs for the backward, any other
+    value (``full``) keeps only ``fn``'s inputs; both recompute the rest
+    in the backward (``torch.utils.checkpoint``, non-reentrant)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        def context():
+            return create_selective_checkpoint_contexts(_save_plain_products)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None):
+    """x: (B,S,d) embedded input -> (x, aux, caches) (``transformer.py:
+    274-312``); aux sums the layers' router losses (the float 0.0 without
+    a kind-``M`` layer).  Mode ``full`` takes no caches (None) and runs
+    each repeat's body under :func:`_remat_wrap`; the other modes update
+    the caches in place.  ``bt``: (B, nb) int32 block table of paged
+    caches, None for dense.  Attention writes K/V into its repeat's views
+    itself; a layer that returns new tensors (the SSM state) has them
+    copied into its views."""
+    aux = 0.0
     for gi, g in enumerate(cfg.groups):
-        gp, gc = params["groups"][gi], caches[gi]
+        reps = [_unstack(p, g.repeats) for p in params["groups"][gi]]
+        if mode == "full":
+            def body(xx, rep_params, _pattern=g.pattern):
+                a_sum = 0.0
+                for pi, kind in enumerate(_pattern):
+                    xx, a, _ = apply_layer(rep_params[pi], xx, cfg, kind,
+                                           "full", None, None)
+                    a_sum = a_sum + a
+                return xx, a_sum
+
+            body = _remat_wrap(body, cfg)
+            for r in range(g.repeats):
+                x, a = body(x, [rep[r] for rep in reps])
+                aux = aux + a
+            continue
+        gc = caches[gi]
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
                 layer_cache = {key: t[r] for key, t in gc[pi].items()}
-                x, new = apply_layer(_take(gp[pi], r), x, cfg, kind, mode,
-                                     layer_cache, pos, bt)
+                x, _, new = apply_layer(reps[pi][r], x, cfg, kind, mode,
+                                        layer_cache, pos, bt)
                 for key, view in layer_cache.items():
                     if new[key] is not view:
                         view.copy_(new[key])
-    return x, caches
+    return x, aux, caches
 
 
 def _head(params, x, cfg):
@@ -248,13 +319,45 @@ def _head(params, x, cfg):
     return mask_padded_logits(logits, cfg)
 
 
-def prefill(params, cfg, tokens, caches, last_index=None):
-    """Fill dense caches with a full pass over ``tokens (B,S)``; returns
-    ``(logits (B,1,V) at last_index, caches)`` (``transformer.py:327-351``).
-    ``last_index`` is None (the final position) or (B,) per-row last
-    positions of right-padded prompts."""
-    x = embed(params["embedding"], tokens, cfg)
-    x, caches = run_backbone(params, x, cfg, "prefill", caches, None)
+def forward(params, cfg, tokens=None, embeds=None):
+    """Full-sequence causal LM forward (``transformer.py:315-325``):
+    ``tokens`` (B,S), or ``embeds`` (B,S,d) cast to the activation dtype
+    -> ``(logits (B,S,V), aux)``."""
+    if embeds is None:
+        x = embed(params["embedding"], tokens, cfg)
+    else:
+        x = embeds.to(cfg.act_dtype)
+    x, aux, _ = run_backbone(params, x, cfg, "full")
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _head(params, x, cfg), aux
+
+
+def lm_loss(params, cfg, tokens, targets=None, embeds=None):
+    """Next-token cross-entropy (mean over tokens) plus the router aux
+    loss (``transformer.py:708-718``), as JAX computes it: targets default
+    to ``tokens[:, 1:]`` padded with token 0 (so the last position learns
+    to predict token 0), the mask is all ones, the log-softmax is fp32.
+    Returns ``(loss + aux, (loss, aux))``, fp32 scalars."""
+    logits, aux = forward(params, cfg, tokens=tokens, embeds=embeds)
+    if targets is None:
+        targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    mask = torch.ones_like(nll)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, (loss, aux)
+
+
+def prefill(params, cfg, tokens, caches, last_index=None, embeds=None):
+    """Fill dense caches with a full pass over ``tokens (B,S)``, or over
+    ``embeds`` (B,S,d) in the activation dtype where given (the VLM's
+    patch prefix); returns ``(logits (B,1,V) at last_index, caches)``
+    (``transformer.py:327-351``).  ``last_index`` is None (the final
+    position) or (B,) per-row last positions of right-padded prompts."""
+    x = (embed(params["embedding"], tokens, cfg) if embeds is None
+         else embeds.to(cfg.act_dtype))
+    x, _, caches = run_backbone(params, x, cfg, "prefill", caches, None)
     if last_index is None:
         x = x[:, -1:]
     else:
@@ -269,7 +372,7 @@ def decode_step(params, cfg, tokens, caches, pos, bt=None):
     (B, nb) int32 for paged caches, None for dense.  Returns ``(logits
     (B,1,V), caches)``."""
     x = embed(params["embedding"], tokens, cfg)
-    x, caches = run_backbone(params, x, cfg, "decode", caches, pos, bt)
+    x, _, caches = run_backbone(params, x, cfg, "decode", caches, pos, bt)
     x = apply_norm(params["final_norm"], x, cfg)
     return _head(params, x, cfg), caches
 
@@ -280,7 +383,7 @@ def extend_paged(params, cfg, tokens, caches, pos0, bt, last_index):
     through ``bt`` and returning ``(logits (B,1,V) at per-row
     last_index, caches)``.  With ``pos0 == 0`` it is a full prefill."""
     x = embed(params["embedding"], tokens, cfg)
-    x, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
+    x, _, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
     rows = torch.arange(x.shape[0], device=x.device)
     x = x[rows, last_index.long()][:, None]
     x = apply_norm(params["final_norm"], x, cfg)
@@ -391,7 +494,7 @@ def verify_extend(params, cfg, tokens, caches, pos0, bt):
     JAX's dense extend drops such writes and caps its mask at the cache
     length."""
     x = embed(params["embedding"], tokens, cfg)
-    x, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
+    x, _, caches = run_backbone(params, x, cfg, "extend", caches, pos0, bt)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = _head(params, x, cfg)
     return torch.argmax(logits, dim=-1).to(torch.int32), caches

@@ -61,7 +61,7 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not in the port yet: "
-            f"ROADMAP.md, Queue 1, item 6 (with training, item 7)")
+            f"ROADMAP.md, Queue 1, item 13")
     norm_init = "zeros" if cfg.rms_plus_one else "ones"
     specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding"))}
     specs.update(_norm_specs(cfg, "final_norm", 0, norm_init))
@@ -255,10 +255,11 @@ def _unflatten(flat: Mapping[str, torch.Tensor]):
     return listify(root)
 
 
-def _to_tensor(arr: np.ndarray) -> torch.Tensor:
-    """A writable copy of ``arr`` (numpy views of JAX arrays are
-    read-only)."""
-    arr = np.array(arr)
+def tensor_from_numpy(arr: np.ndarray, copy: bool = True) -> torch.Tensor:
+    """A tensor of ``arr``'s values, on a writable copy (numpy views of JAX
+    arrays are read-only); ``copy=False`` shares a writable array's
+    memory instead (an array ``np.load`` just read)."""
+    arr = np.array(arr, copy=copy)
     if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
                                         and arr.dtype.itemsize == 2):
         # ml_dtypes bfloat16 (or its raw 2-byte form after np.savez)
@@ -282,7 +283,7 @@ def params_from_numpy(tree: Mapping[str, np.ndarray], cfg, device="cuda"):
     for key, spec in specs.items():
         if key not in tree:
             raise KeyError(f"parameter {key!r} missing from the tree")
-        t = _to_tensor(np.asarray(tree[key]))
+        t = tensor_from_numpy(np.asarray(tree[key]))
         if tuple(t.shape) != _full_shape(spec):
             raise ValueError(f"parameter {key!r} has shape "
                              f"{tuple(t.shape)}, expected {_full_shape(spec)}")
@@ -291,11 +292,17 @@ def params_from_numpy(tree: Mapping[str, np.ndarray], cfg, device="cuda"):
 
 
 def load_checkpoint(step_dir: str, cfg, device="cuda"):
-    """Read a ``Checkpointer`` step directory's ``arrays.npz`` (written by
-    the JAX package) into the port's parameter tree."""
+    """Read a ``Checkpointer`` step directory's ``arrays.npz`` into the
+    port's parameter tree: a bare parameter tree's step, or a trainer's
+    ``{"params": ..., "opt": ...}`` step (JAX's ``launch/train.py:78-79``,
+    the port's ``launch/train.py``), whose ``params/`` subtree it takes,
+    leaving the optimizer state out."""
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
-        return params_from_numpy({k: data[k] for k in data.files}, cfg,
-                                 device)
+        tree = {k: data[k] for k in data.files}
+    if any(k.startswith("params/") for k in tree):
+        tree = {k[len("params/"):]: a for k, a in tree.items()
+                if k.startswith("params/")}
+    return params_from_numpy(tree, cfg, device)
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):

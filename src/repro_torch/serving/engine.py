@@ -236,8 +236,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"Queue 1, {item}")
 
 
-_FAMILIES = "item 6 (the other LM families: whisper-base's encdec next, " \
-    "with training, item 7)"
+_FAMILIES = "item 13 (whisper-base, the encoder-decoder family)"
 
 #: the dtype string of a bf16 leaf in a ``KVB1`` frame: ``ml_dtypes``'
 #: bfloat16, as numpy names it in a JAX export; plain numpy has no dtype

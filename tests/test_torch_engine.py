@@ -477,7 +477,7 @@ def test_dense_engine_spans_equal_the_jax_engine(model, kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(paged=False, family="encdec"), "other LM families"),
+    (dict(paged=False, family="encdec"), "encoder-decoder family"),
 ])
 def test_engine_outside_slice_raises(model, kw, what):
     _, tcfg, _, tparams = model

@@ -510,8 +510,8 @@ def test_decode_matches_forward_stepwise():
     toks = np.random.RandomState(2).randint(0, tcfg.vocab, (1, T)).astype(
         np.int32)
     x = embed(tparams["embedding"], _t(toks), tcfg)
-    x, _ = ttfm.run_backbone(tparams, x, tcfg, "prefill",
-                             ttfm.init_caches(tcfg, 1, T, "cpu"), None)
+    x, _, _ = ttfm.run_backbone(tparams, x, tcfg, "prefill",
+                                ttfm.init_caches(tcfg, 1, T, "cpu"), None)
     full = ttfm._head(tparams, ttfm.apply_norm(tparams["final_norm"], x,
                                                 tcfg), tcfg)
     tc = ttfm.init_caches(tcfg, 1, T + 1, "cpu")

@@ -290,8 +290,9 @@ def test_load_checkpoint_is_exact(model, tmp_path):
 def test_mla_and_shared_experts_still_raise():
     """MLA and shared experts are in the port since deepseek-v2-lite
     (tests/test_torch_mla.py); what still raises is the encoder-decoder
-    family (whisper-base's shape: its weights and its engine) and the
-    encoder's and decoder's ``bidir`` and ``cross`` attention kinds."""
+    family (whisper-base's shape: its weights and its engine, Queue 1
+    item 13) and the encoder's and decoder's ``bidir`` and ``cross``
+    attention kinds."""
     from repro_torch.configs import ArchConfig
     from repro_torch.models import attention as attn
     whisper = ArchConfig(
@@ -300,9 +301,9 @@ def test_mla_and_shared_experts_still_raise():
         d_ff=128, vocab=256, rope_base=0.0, mlp="gelu_mlp",
         norm="layernorm", norm_eps=1e-5, dtype="float32",
         param_dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         weights.param_specs(whisper)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         Engine({}, whisper, ServeConfig(max_len=8), device="cpu")
     cfg = reduced(get_config(ARCH))
     x = torch.zeros(1, 4, cfg.d_model)

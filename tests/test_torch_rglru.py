@@ -127,7 +127,7 @@ def _mixers(dtype="float32", r=1):
     port's."""
     jcfg, tcfg, jparams, tparams, _ = _model(dtype)
     jp = jax.tree_util.tree_map(lambda a: a[r], jparams["groups"][0][0])
-    tp = ttfm._take(tparams["groups"][0][0], r)
+    tp = ttfm._unstack(tparams["groups"][0][0], tcfg.groups[0].repeats)[r]
     return jcfg, tcfg, jp["mixer"], tp["mixer"]
 
 
@@ -390,7 +390,7 @@ def test_caches_and_layer_kinds():
     plain = ttfm.init_caches(tcfg, 2, 16, "cpu")
     assert "pos" not in plain[0][2]
     assert not ttfm.paged_supported(tcfg, 16)
-    layer = ttfm._take(tparams["groups"][0][0], 0)
+    layer = ttfm._unstack(tparams["groups"][0][0], tcfg.groups[0].repeats)[0]
     with pytest.raises(NotImplementedError, match="RG-LRU"):
         ttfm.apply_layer(layer, torch.zeros(1, 2, tcfg.d_model), tcfg, "R",
                          "extend", rglru.init_rglru_state(tcfg, 1, "cpu"),
@@ -401,11 +401,12 @@ def test_r_layer_runs_its_mlp():
     """Unlike kind S, a kind-R layer adds the MLP after the mixer: the
     layer's output equals x + mix + mlp(ln2(x + mix))."""
     _, tcfg, _, tparams, _ = _model()
-    layer = ttfm._take(tparams["groups"][0][0], 0)
+    layer = ttfm._unstack(tparams["groups"][0][0], tcfg.groups[0].repeats)[0]
     x = _t(np.random.RandomState(3).randn(1, 5, tcfg.d_model).astype(
         np.float32))
-    out, _ = ttfm.apply_layer(layer, x, tcfg, "R", "prefill",
-                              rglru.init_rglru_state(tcfg, 1, "cpu"), None)
+    out, _, _ = ttfm.apply_layer(layer, x, tcfg, "R", "prefill",
+                                 rglru.init_rglru_state(tcfg, 1, "cpu"),
+                                 None)
     mix, _ = rglru.rglru_forward(layer["mixer"],
                                  ttfm.apply_norm(layer["ln1"], x, tcfg), tcfg)
     x1 = x + mix

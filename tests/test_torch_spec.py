@@ -143,8 +143,8 @@ def test_verify_extend_on_the_pool_equals_jax_on_the_gathered_pool(model):
     tc2 = [[{k: _t(pools[gi, pi, k]) for k in c} for pi, c in enumerate(g)]
            for gi, g in enumerate(jc)]
     tx = ttfm.embed(tparams["embedding"], _t(tokens), tcfg)
-    tx, _ = ttfm.run_backbone(tparams, tx, tcfg, "extend", tc2, _t(pos0),
-                              _t(bt))
+    tx, _, _ = ttfm.run_backbone(tparams, tx, tcfg, "extend", tc2,
+                                 _t(pos0), _t(bt))
     tlogits = ttfm._head(tparams, ttfm.apply_norm(tparams["final_norm"], tx,
                                                   tcfg), tcfg)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),

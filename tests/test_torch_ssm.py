@@ -187,7 +187,7 @@ def test_ssm_scan_kernel_takes_cuda_tensors_only():
 def _layer(model):
     jcfg, tcfg, jparams, tparams = model
     jp = jax.tree_util.tree_map(lambda a: a[1], jparams["groups"][0][0])
-    tp = ttfm._take(tparams["groups"][0][0], 1)
+    tp = ttfm._unstack(tparams["groups"][0][0], tcfg.groups[0].repeats)[1]
     return jcfg, tcfg, jp["mixer"], tp["mixer"]
 
 

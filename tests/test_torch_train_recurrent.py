@@ -1,0 +1,58 @@
+"""PyTorch port vs the JAX package: ``models/api.py``'s loss and its
+gradients on the recurrent and MLA decoder archs (falcon-mamba-7b,
+recurrentgemma-2b, deepseek-v2-lite-16b) and on internvl2-1b through
+``vlm.loss`` with patch embeddings, by
+``test_torch_train_archs.check_loss_and_gradients`` (its docstring gives
+the tolerance); and the rest of the API: the forward, prefill and decode
+steps, and what still raises.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import ArchConfig, get_config, reduced  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from test_torch_train_archs import check_loss_and_gradients  # noqa: E402
+
+ARCHS = ["falcon-mamba-7b", "recurrentgemma-2b", "deepseek-v2-lite-16b",
+         "internvl2-1b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_gradients_match_jax(arch):
+    check_loss_and_gradients(arch)
+
+
+def test_api_steps_run_and_encdec_and_dry_run_raise():
+    """forward_fn, prefill_fn and decode_fn on the port's engine paths;
+    whisper-base's family raises naming item 13, the dry run's shape-only
+    entry points item 9."""
+    cfg = reduced(get_config("internlm2-1.8b"))
+    gen = torch.Generator().manual_seed(0)
+    params = api.init(gen, cfg, "cpu")
+    batch = api.input_batch(cfg, "train", 2, 8, gen, device="cpu")
+    with torch.no_grad():
+        logits = api.forward_fn(params, cfg, batch)
+        caches = api.init_caches(cfg, 2, 16, device="cpu")
+        last, caches = steps.make_prefill_step(cfg, 16)(params, batch,
+                                                        caches)
+        nxt, caches = steps.make_decode_step(cfg)(params, {
+            "tokens": batch["tokens"][:, -1:],
+            "pos": torch.full((2,), 8, dtype=torch.int32)}, caches)
+    assert logits.shape == (2, 8, cfg.padded_vocab)
+    torch.testing.assert_close(last[:, 0], logits[:, -1])
+    assert nxt.shape == (2, 1, cfg.padded_vocab)
+    whisper = ArchConfig(name="whisper-base", family="encdec", n_layers=2,
+                         d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                         d_ff=128, vocab=256)
+    for fn, args in ((api.init, (gen, whisper, "cpu")),
+                     (api.loss_fn, ({}, whisper, {})),
+                     (api.init_caches, (whisper, 1, 8))):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            fn(*args)
+    for fn, args in ((api.abstract_params, (cfg,)),
+                     (api.input_specs, (cfg, "train", 1, 8))):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            fn(*args)
