@@ -130,8 +130,12 @@ phase ends on a line of its own with its wall time
    at S 1, 63, 64, 65, 129, 200, at G 1, 2, 8, 12, at hd 16, 32, 64, 256,
    at gemma3's window 1024 over S 2048, bidirectional with and without a
    window, in fp32 at every head dim, and its controls (a causal mask one
-   key too wide; dq without the last key tile of the later rows) that the
-   bf16 limit must reject;
+   key too wide; dq without the last key tile of the later rows; dk and
+   dv without each 128-key tile's diagonal row tile) that the bf16 limit
+   must reject; then S at the bf16 dK / dV kernel's key tile edges (127,
+   128, 255, 256, 257 at hd 128; 63, 65, 127 at hd 256) and whole-query
+   row tiles with rows left over (G 7 at hd 64, G 10 at hd 256; causal,
+   a window, bidirectional);
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -355,15 +359,18 @@ STREAM_BUDGET_S = 0.25
 # GRAD_REL[dtype] times its mean plain magnitude (the mean reading sees
 # an error spread over the many rows whose gradients are far below the
 # largest, as a dq row that sees 500 keys is).  fp32: the same arithmetic
-# in another order (the forward's FP32_TOL).  bf16: the kernel keeps P and
-# dS in fp32, but D = rowsum(dO * O) reads the forward's bf16-rounded O
+# in another order (the forward's FP32_TOL).  bf16: the kernels keep P
+# and dS at fp32 accuracy (bf16 hi + lo into the tensor cores), but D =
+# rowsum(dO * O) reads the forward's bf16-rounded O
 # and each gradient is rounded to bf16 once (2^-9 relative), so 1%.  The
 # controls must exceed the bf16 limit, or the check could not see what
 # they move: the gradients of the plain version whose causal mask lets
 # each query see one key more (in each of dq, dk and dv), and the plain dq
 # with the last key tile of the second half of the rows left out (in both
-# of its readings).  The forward's log-sum-exp (the backward's input) is held
-# against torch.logsumexp of the masked scaled scores in fp32 at LSE_TOL
+# of its readings), and the plain dk and dv with each key tile's diagonal
+# row tile left out (in both readings of each).  The forward's
+# log-sum-exp (the backward's input) is held against torch.logsumexp of
+# the masked scaled scores in fp32 at LSE_TOL
 # absolute (fp32 sums of up to 2,048 terms, ex2.approx in the bf16 kernel).
 GRAD_REL = {"float32": FP32_TOL, "bfloat16": 1e-2}
 LSE_TOL = 1e-4
@@ -464,8 +471,8 @@ def phase_device() -> str:
     print(f"[build] pair_score.cu {_pair_usage(build.BUILD_LOG, ps)}")
     print(f"[build] {_scan_usage(build.BUILD_LOG)}")
     print(f"[build] mla_decode.cu {_mla_usage(build.BUILD_LOG, md)}")
-    fa._bwd_library()
-    print(f"[build] flash_attention_bwd.cu {_bwd_usage(build.BUILD_LOG)}")
+    print(f"[build] flash_attention_bwd.cu "
+          f"{_bwd_usage(build.BUILD_LOG, fa._bwd_library())}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -496,7 +503,7 @@ def _ptxas_reports(logs, source, kernel):
 
 def _dims(args):
     """The head dims in a kernel's mangled template arguments."""
-    return tuple(int(x) for x in re.findall(r"Li(\d+)E", args))
+    return tuple(int(x) for x in re.findall(r"Li(\d+)", args))
 
 
 def _sm90_usage(logs, source, smem, extra=()) -> str:
@@ -542,25 +549,44 @@ def _simt_usage(logs) -> str:
         f"v) {sorted(FLASH_QK_V_DIMS)}"
 
 
-def _bwd_usage(logs) -> str:
-    """The flash backward's two tile kernels at every head dim in fp32
-    (``f``) and bf16 (each must have a report and no spill), shown at hd
-    128 and 256 in bf16."""
+def _bwd_usage(logs, lib) -> str:
+    """The flash backward's tile kernels at every head dim: bf16 on the
+    tensor cores (``flash_bwd_dkdv_sm90_kernel``,
+    ``flash_bwd_dq_sm90_kernel``), fp32 on the CUDA cores
+    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``); each must have a
+    report and no spill.  The bf16 dK / dV kernel moves
+    registers between its warpgroups with setmaxnreg (128 x 40 + 256 x 232
+    of a pool of 384 x 168), so ptxas must give it exactly 168 a thread: a
+    smaller pool would leave its consumers waiting for registers forever,
+    so the run stops before any launch.  Shown: registers at every head
+    dim beside the dynamic shared memory each bf16 kernel asks for
+    (``repro_flash_bwd_smem``), and whether ptxas serialised a wgmma."""
     from repro_torch.kernels import HEAD_DIMS
+    source = "flash_attention_bwd.cu"
     parts = []
-    for kernel in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
-        found = {(("bf16" if "bfloat16" in k else "fp32"), _dims(k)[0]): v
-                 for k, v in _ptxas_reports(
-                     logs, "flash_attention_bwd.cu", kernel).items()}
-        want = sorted((t, hd) for t in ("bf16", "fp32")
-                      for hd in HEAD_DIMS)
-        check(sorted(found) == want,
-              f"flash_attention_bwd.cu: ptxas reported {kernel} at "
-              f"{sorted(found)}, not {want}")
-        parts += [f"{kernel}<bf16, {hd}>: {found[('bf16', hd)]}"
-                  for hd in (128, 256)]
-    return "; ".join(parts) + f"; no spills at hd {HEAD_DIMS} " \
-        f"in fp32 and bf16"
+    for kernel, dn, which in (("flash_bwd_dkdv_sm90_kernel", "bf16", 0),
+                              ("flash_bwd_dq_sm90_kernel", "bf16", 1),
+                              ("flash_bwd_dkdv_kernel", "fp32", None),
+                              ("flash_bwd_dq_kernel", "fp32", None)):
+        found = {_dims(k)[0]: v for k, v in
+                 _ptxas_reports(logs, source, kernel).items()}
+        check(sorted(found) == sorted(HEAD_DIMS),
+              f"{source}: ptxas reported {kernel} at hd {sorted(found)}, "
+              f"not {sorted(HEAD_DIMS)}")
+        regs = {hd: int(re.search(r"Used (\d+) registers", found[hd])[1])
+                for hd in HEAD_DIMS}
+        if kernel == "flash_bwd_dkdv_sm90_kernel":
+            check(set(regs.values()) == {168},
+                  f"{source}: {kernel} has {regs} registers a thread, not "
+                  f"168 at every hd: its setmaxnreg split (128 x 40 + 256 x "
+                  f"232) needs a pool of 384 x 168")
+        smem = "" if which is None else ", smem " + "/".join(
+            str(lib.repro_flash_bwd_smem(hd, which)) for hd in HEAD_DIMS)
+        parts.append(f"{kernel} ({dn}) registers at hd {HEAD_DIMS}: "
+                     f"{'/'.join(str(regs[hd]) for hd in HEAD_DIMS)}{smem}")
+    serial = "wgmma.mma_async instructions are serialized" in logs[source]
+    return "; ".join(parts) + f"; no spills; wgmma serialised by ptxas: " \
+        f"{'yes' if serial else 'no'}"
 
 
 def _mla_usage(logs, md) -> str:
@@ -2185,17 +2211,24 @@ def _flash_long(gen, dev):
 
 
 # The flash backward's shapes: the training step's (internlm2-1.8b, B 4 x
-# S 1024), then the edges of its 32-row and 32-key tiles: S one short of,
-# at and one past a tile's 64 (two of its tiles), 129 and 200 (ragged),
-# and 1; G 1, 2, 8 and 12; hd 16, 32, 64 and 256; gemma3-4b's window 1024
-# over S 2048 (H 8, KV 4, hd 256); bidirectional, alone and with a window.
+# S 1024), then the edges of its tiles: S one short of, at and one past
+# 64 (the dQ kernel's key tile, a warpgroup's keys and, at G 1, a row
+# tile), 129 and 200 (ragged), and 1; G 1, 2, 8 and 12; hd 16, 32, 64 and
+# 256; gemma3-4b's window 1024 over S 2048 (H 8, KV 4, hd 256);
+# bidirectional, alone and with a window.  Then, after those and their
+# controls: S at the edges of the dK / dV kernel's 128-key tile
+# (BWD_EDGE_S_KEYS, and at hd 256 its 64-key tile), and whole-query row
+# tiles with rows left over (BWD_LEFTOVER_G: internvl2-1b's G 7 at hd 64,
+# 63 of 64 rows; recurrentgemma-2b's G 10 at hd 256, 60 rows).
 BWD_TRAIN = (4, 1024, 16, 8, 128)
 BWD_EDGE_S = (1, 63, 64, 65, 129, 200)
 BWD_EDGE_G = ((8, 8), (16, 8), (16, 2), (24, 2))
 BWD_EDGE_HD = (16, 32, 64, 256)
-# the backward kernel's key tile (csrc/flash_attention_bwd.cu), which the
-# dq-only control leaves out
-BWD_KEY_TILE = 32
+BWD_EDGE_S_KEYS = (127, 128, 255, 256, 257)
+BWD_LEFTOVER_G = ((14, 2, 64), (10, 1, 256))
+# the dK / dV kernel's key tile at hd 128 (csrc/flash_attention_bwd.cu,
+# kernels/flash_bwd_plan.py), whose edges the checks above take
+BWD_KEY_TILE = 128
 
 
 def _plain_scores(q32, k32, causal, window, shift=0):
@@ -2243,25 +2276,60 @@ def _kernel_grads(q, k, v, dout, causal, window):
         q, k, v, out, dout, lse, causal=causal, window=window)
 
 
-def _dq_without_last_tile(q, k, v, dout):
-    """The dq-only control: the plain causal dq in fp32 with each query of
-    the second half of the rows leaving out the keys of its last visible
-    key tile (BWD_KEY_TILE keys, the kernel's), as a kernel that skipped
-    the diagonal tile there would; dk and dv are untouched."""
+def _plain_p_ds(q32, k32, v32, do32):
+    """The plain causal P and dS (B, KV, G, S, S) in fp32."""
     import torch
-    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+    B, S, H, hd = q32.shape
+    KV = k32.shape[2]
     P = torch.softmax(_plain_scores(q32, k32, True, 0), -1)
     dog = do32.reshape(B, S, KV, H // KV, hd)
     out = torch.einsum("bkgqs,bskh->bqkgh", P, v32)
     delta = (dog * out).sum(-1).permute(0, 2, 3, 1)[..., None]
     dS = P * (torch.einsum("bqkgh,bskh->bkgqs", dog, v32) - delta)
+    return P, dS, dog
+
+
+def _dq_without_last_tile(q, k, v, dout):
+    """The dq-only control: the plain causal dq in fp32 with each query of
+    the second half of the rows leaving out the keys of its last visible
+    key tile (64 keys, the dQ kernel's), as a kernel that skipped the
+    diagonal tile there would; dk and dv are untouched."""
+    import torch
+    from repro_torch.kernels import flash_bwd_plan as fbp
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    B, S, H, hd = q.shape
+    _, dS, _ = _plain_p_ds(q32, k32, v32, do32)
     t = torch.arange(S, device=q.device)
-    last = t[None, :] >= (t[:, None] // BWD_KEY_TILE) * BWD_KEY_TILE
+    tile = fbp.SUB_TILE
+    last = t[None, :] >= (t[:, None] // tile) * tile
     dS = torch.where(last & (t[:, None] >= S // 2), 0.0, dS)
     return torch.einsum("bkgqs,bskh->bqkgh", dS, k32).reshape(
         B, S, H, hd) / math.sqrt(hd)
+
+
+def _dkdv_without_diagonal(q, k, v, dout):
+    """The dK / dV-only control: the plain causal dk and dv in fp32 with
+    each key tile (BWD_KEY_TILE keys, the dK / dV kernel's at hd 128)
+    leaving out its diagonal row tile, the first its walk visits (the
+    queries of the row tile that holds the tile's first key), as a kernel
+    that skipped it would; dq is untouched."""
+    import torch
+    from repro_torch.kernels import flash_bwd_plan as fbp
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    P, dS, dog = _plain_p_ds(q32, k32, v32, do32)
+    nq = fbp.row_tiles(S, H // KV).nq
+    t = torch.arange(S, device=q.device)
+    first = (t // BWD_KEY_TILE) * BWD_KEY_TILE // nq * nq  # per key
+    drop = (t[:, None] >= first[None, :]) & (t[:, None] < first[None, :] +
+                                             nq)
+    P = torch.where(drop, 0.0, P)
+    dS = torch.where(drop, 0.0, dS)
+    qg = q32.reshape(B, S, KV, H // KV, hd)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", dS, qg) / math.sqrt(hd)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", P, dog)
+    return dk, dv
 
 
 def _grad_readings(got, want):
@@ -2351,7 +2419,8 @@ def _time_bwd_ms(forward, sets, iters: int = 10) -> float:
 def _flash_bwd_checks(gen, dev, stats):
     """The flash backward (``ops.flash_attention`` under grad): at the
     training shape, timed beside its bound, the plain version's autograd
-    and SDPA's flash backward; at the edges; in fp32; with its control."""
+    and SDPA's flash backward; at the edges; in fp32; with its controls;
+    then at the bf16 kernels' own tile edges."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2408,22 +2477,49 @@ def _flash_bwd_checks(gen, dev, stats):
     check(all(r[0] > bf_limit for r in ctl),
           f"flash bwd control: a mask one key too wide moves dq/dk/dv by "
           f"only {_show(ctl)}; the limit {bf_limit} cannot see it in each")
-    dq_want = _plain_grads(*sets[0], True, 0)[2][0]
+    train_want = _plain_grads(*sets[0], True, 0)[2]
+    dq_want = train_want[0]
     (dq_ctl,) = _grad_readings([_dq_without_last_tile(*sets[0])], [dq_want])
     check(min(dq_ctl) > bf_limit,
           f"flash bwd dq control: dq without the last key tile in the "
           f"second half of the rows moves it by only {_show([dq_ctl])}; "
           f"the limit {bf_limit} cannot see it")
+    kv_ctl = _grad_readings(_dkdv_without_diagonal(*sets[0]),
+                            train_want[1:])
+    check(all(min(r) > bf_limit for r in kv_ctl),
+          f"flash bwd dk/dv control: dk and dv without each key tile's "
+          f"diagonal row tile move them by only {_show(kv_ctl)}; the limit "
+          f"{bf_limit} cannot see it in both readings")
     print(f"[kernels] flash bwd controls, beyond the bf16 limit {bf_limit} "
           f"as they must be: causal mask one key too wide (S 129): dq/dk/dv "
           f"{_show(ctl)} of max (mean); dq without the last key tile in rows "
-          f"{S // 2}-{S - 1} (training shape): {_show([dq_ctl])}")
+          f"{S // 2}-{S - 1} (training shape): {_show([dq_ctl])}; dk/dv "
+          f"without each {BWD_KEY_TILE}-key tile's diagonal row tile "
+          f"(training shape): {_show(kv_ctl)}")
+    # after the controls, so that the checks above keep their draws: the
+    # dK / dV kernel's key tile edges, and row tiles with rows left over
+    for S_ in BWD_EDGE_S_KEYS:
+        _bwd_check(f"key tile edge S {S_} (H 4, KV 2, hd 128) causal",
+                   *inputs(2, S_, 4, 2, 128, bf), True, 0)
+        n += 1
+    for S_ in (63, 65, 127):
+        _bwd_check(f"key tile edge S {S_} (H 8, KV 4, hd 256) causal",
+                   *inputs(1, S_, 8, 4, 256, bf), True, 0)
+        n += 1
+    for H_, KV_, hd_ in BWD_LEFTOVER_G:
+        G_ = H_ // KV_
+        for causal, window in ((True, 0), (True, 48), (False, 0)):
+            _bwd_check(f"G {G_} rows left over (H {H_}, KV {KV_}, hd {hd_}, "
+                       f"S 200) causal={causal} window={window}",
+                       *inputs(1, 200, H_, KV_, hd_, bf), causal, window)
+            n += 1
     torch.cuda.synchronize()
     print(f"[kernels] flash bwd: {n} checks passed (bf16 within "
           f"{GRAD_REL['bfloat16']} and fp32 within {GRAD_REL['float32']} of "
           f"each gradient's largest and mean magnitude, lse within "
-          f"{LSE_TOL}); "
-          f"edges S {BWD_EDGE_S}, (H, KV) {BWD_EDGE_G}, hd {BWD_EDGE_HD}")
+          f"{LSE_TOL}); edges S {BWD_EDGE_S} and {BWD_EDGE_S_KEYS}, (H, KV) "
+          f"{BWD_EDGE_G}, hd {BWD_EDGE_HD}, rows left over at (H, KV, hd) "
+          f"{BWD_LEFTOVER_G}")
 
     # timed at the training shape: the kernel through its autograd
     # Function, the plain version under autograd, SDPA's flash backward

@@ -30,7 +30,12 @@ whose wrapper has ``MIN_KEYS`` (the split-by-live-length design), a sweep
 of it (16, 32, 64, 128, 256) at the first two shapes follows, each
 setting also held against the plain version first.  Every timed kernel
 is first held against its plain version at chip_smoke's bf16 limits.
-Without a card it exits non-zero.
+Last, the flash backward (bf16) at the training shape (B 4, S 1024
+causal, H 16, KV 8, hd 128) and at hd 256 with window 1024 over S 2048:
+device ms of one ``torch.autograd.grad`` replayed from a CUDA graph
+(``chip_smoke._time_bwd_ms``, forwards excluded) beside SDPA's backward,
+each first held against the plain fp32 gradients.  Without a card it
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -102,6 +107,56 @@ def run_tree(tree: Path, label: str) -> None:
         print(f"[ab] {label} {name}: ms={ms:.4f}" +
               (f" sdpa_ms={sdpa:.4f}" if sdpa else "") +
               f" issue_ms={issue:.4f} on {smi}", flush=True)
+    for name, ms, sdpa in _bwd_rows(cs, gen, dev):
+        print(f"[ab] {label} {name}: ms={ms:.4f} sdpa_ms={sdpa:.4f} on "
+              f"{smi}", flush=True)
+
+
+def _bwd_rows(cs, gen, dev):
+    """The flash backward (``ops.flash_attention`` under grad) at the
+    training shape (B 4, S 1024 causal, H 16, KV 8, hd 128) and at hd 256
+    with window 1024 over S 2048 (H 8, KV 4): each first held against the
+    plain fp32 gradients (``chip_smoke._bwd_check``: chip_smoke's bf16
+    limit, a second call bit for bit), then device ms of one backward
+    from a captured ``torch.autograd.grad`` (``chip_smoke._time_bwd_ms``),
+    beside SDPA's backward on K/V expanded to the query heads (the flash
+    backend where causal, the band as a mask otherwise)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    rows = []
+    for B, S, H, KV, hd, window in ((4, 1024, 16, 8, 128, 0),
+                                    (1, 2048, 8, 4, 256, 1024)):
+        name = f"flash bwd ({B}, {S}) H {H} KV {KV} hd {hd} causal" + \
+            (f" window {window}" if window else "")
+        sets = [[cs._randn(gen, sh, bf, dev) for sh in
+                 ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                  (B, S, H, hd))] for _ in range(3)]
+        cs._bwd_check(name, *sets[0], True, window)
+        ms = cs._time_bwd_ms(lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=True, window=window),
+            [(st[:3], st[3]) for st in sets])
+        G = H // KV
+        sd = [([st[0].transpose(1, 2).contiguous()] +
+               [t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+                for t in st[1:3]], st[3].transpose(1, 2).contiguous())
+              for st in sets]
+        if window:
+            t = torch.arange(S, device=dev)
+            band = (t[None, :] <= t[:, None]) & \
+                (t[None, :] > t[:, None] - window)
+            sdpa_ms = cs._time_bwd_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band), sd)
+        else:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                sdpa_ms = cs._time_bwd_ms(
+                    lambda q, k, v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), sd)
+        rows.append((name, ms, sdpa_ms))
+    return rows
 
 
 def _mla_rows(cs, gen, dev):

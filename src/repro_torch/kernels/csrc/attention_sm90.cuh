@@ -49,7 +49,7 @@
 // KiB, two stages 107,552 bytes with the barriers and slack, so two CTAs
 // still fit an SM, and the O accumulator is hd 128's.
 //
-// A source (DenseSrc in flash_attention.cu, PagedSrc in paged_attention.cu)
+// A source (DenseSrc below, PagedSrc in paged_attention.cu)
 // gives, for query s of sequence b, the keys lo <= t <= hi it may see, and
 // fills a stage.  Masked scores are the finite NEG_INF, masked keys add
 // p = 0, and the output is acc / max(l, 1e-30).  V rows of the last tile
@@ -72,7 +72,8 @@ namespace {
 
 // ---------------------------------------------------------------------
 // wgmma m64nNk16, bf16 in, fp32 accumulate.  ss: d (+)= A B with A
-// (64 x 16, Q) and B (16 x 64, K^T) both K-major in shared memory.  rs:
+// (64 x 16, Q) and B (16 x N, K^T) both K-major in shared memory (N 64,
+// and 32 for the backward's half row tiles).  rs:
 // d += A B with A (64 x 16, P) in registers and B (16 x N, V) MN-major in
 // shared memory.
 template <int N>
@@ -96,6 +97,20 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
   static __device__ __forceinline__ void rs(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -211,6 +226,40 @@ struct AttnParams {
   float scale;
   float* lse;                        // dense: (B, S, KV, G) row log-sum-
                                      //   exp for the backward, or null
+};
+
+// The dense source (flash_attention.cu; the backward's dQ kernel in
+// flash_attention_bwd.cu): which keys a query sees, and a 64-key tile of
+// a (B, S, KV, hd) K and V.  P is any params struct with S, causal and
+// window.
+struct DenseSrc {
+  // query s sees keys lo <= t <= hi: t <= s when causal, t > s - window
+  // when window > 0, t < S
+  template <class P>
+  static __device__ __forceinline__ int2 bounds(const P& p, int, int s) {
+    return make_int2(p.window ? max(s - p.window + 1, 0) : 0,
+                     p.causal ? s : p.S - 1);
+  }
+  // one box per 64-column block of K and of V, lanes 0 .. NCB of K + NCB
+  // of V - 1
+  template <int HD, int DV, class P>
+  static __device__ __forceinline__ void load_tile(
+      const P&, const CUtensorMap* kmap, const CUtensorMap* vmap, int b,
+      int kvh, int key0, uint32_t k_s, uint32_t v_s, uint32_t full, uint8_t*,
+      int lane) {
+    using TK = Tile<HD>;
+    using TV = Tile<DV>;
+    if (lane == 0) mbar_expect_tx(full, TK::BYTES + TV::BYTES);
+    __syncwarp();
+    if (lane < TK::NCB) {
+      tma_load_4d(k_s + lane * TK::BLOCK, kmap, full, lane * TK::BW, kvh,
+                  key0, b);
+    } else if (lane < TK::NCB + TV::NCB) {
+      const int cb = lane - TK::NCB;
+      tma_load_4d(v_s + cb * TV::BLOCK, vmap, full, cb * TV::BW, kvh, key0,
+                  b);
+    }
+  }
 };
 
 // Grid (B * KV, row tiles), THREADS threads: rows row0 .. row0 + 63 of
@@ -441,27 +490,44 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
 
 // ---------------------------------------------------------------------
 // Host side (the lookup of the tensor-map encoder is in sm90_ptx.cuh).
-// A map over a contiguous bf16 tensor of dims (d3, d2, d1, HD), boxes of
-// {BW columns, 1, box_rows, 1} in the tile's swizzle; coordinates past a
-// dim's end read as zeros.
-template <int HD>
-int encode_map(CUtensorMap* map, const void* base, uint64_t d1, uint64_t d2,
-               uint64_t d3, int box_rows) {
+// A map over a contiguous bf16 tensor whose rows are HD wide and whose
+// outer dims, innermost first, are dims[0 .. RANK - 2], boxes of {BW
+// columns, box[0], .., box[RANK - 2]} in the tile's swizzle; coordinates
+// past a dim's end read as zeros.
+template <int HD, int RANK>
+int encode_tiled(CUtensorMap* map, const void* base, const uint64_t* dims,
+                 const uint32_t* box) {
   using T = Tile<HD>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[4] = {HD, d1, d2, d3};
-  const cuuint64_t strides[3] = {HD * 2, HD * 2 * d1, HD * 2 * d1 * d2};
-  const cuuint32_t box[4] = {T::BW, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint64_t d[RANK] = {HD}, strides[RANK - 1];
+  cuuint32_t bx[RANK] = {T::BW}, elem[RANK];
+  uint64_t stride = HD * 2;
+  for (int i = 0; i < RANK; ++i) elem[i] = 1;
+  for (int i = 1; i < RANK; ++i) {
+    d[i] = dims[i - 1];
+    bx[i] = box[i - 1];
+    strides[i - 1] = stride;
+    stride *= dims[i - 1];
+  }
   const CUtensorMapSwizzle swz = T::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : T::SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK, const_cast<void*>(base),
+      d, strides, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_BAD_MAP;
+}
+
+// dims (d3, d2, d1, HD), boxes of {BW columns, 1, box_rows, 1}: a K/V
+// tile of a (B, S, KV, hd) tensor or of a block pool
+template <int HD>
+int encode_map(CUtensorMap* map, const void* base, uint64_t d1, uint64_t d2,
+               uint64_t d3, int box_rows) {
+  const uint64_t dims[3] = {d1, d2, d3};
+  const uint32_t box[3] = {1, (uint32_t)box_rows, 1};
+  return encode_tiled<HD, 4>(map, base, dims, box);
 }
 
 // grid (B * KV, row tiles) of the attention kernel

@@ -26,7 +26,7 @@
 //
 // Two kernels:
 //
-// bf16: attention_sm90_kernel (attention_sm90.cuh) with DenseSrc below,
+// bf16: attention_sm90_kernel with DenseSrc (both in attention_sm90.cuh),
 // on the tensor cores with wgmma, K/V tiles brought in by TMA into a ring
 // of mbarrier-guarded stages.  A key tile is one 4-d box (64 columns x 1
 // kv head x 64 keys x 1 sequence) per 64-column block of k and of v, from
@@ -56,38 +56,6 @@
 #include "attention_sm90.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------
-// bf16: where a key tile comes from, and which keys a query sees
-struct DenseSrc {
-  // query s sees keys lo <= t <= hi: t <= s when causal, t > s - window
-  // when window > 0, t < S
-  static __device__ __forceinline__ int2 bounds(const AttnParams& p, int,
-                                                int s) {
-    return make_int2(p.window ? max(s - p.window + 1, 0) : 0,
-                     p.causal ? s : p.S - 1);
-  }
-  // one box per 64-column block of K and of V, lanes 0 .. NCB of K + NCB
-  // of V - 1
-  template <int HD, int DV>
-  static __device__ __forceinline__ void load_tile(
-      const AttnParams&, const CUtensorMap* kmap, const CUtensorMap* vmap,
-      int b, int kvh, int key0, uint32_t k_s, uint32_t v_s, uint32_t full,
-      uint8_t*, int lane) {
-    using TK = Tile<HD>;
-    using TV = Tile<DV>;
-    if (lane == 0) mbar_expect_tx(full, TK::BYTES + TV::BYTES);
-    __syncwarp();
-    if (lane < TK::NCB) {
-      tma_load_4d(k_s + lane * TK::BLOCK, kmap, full, lane * TK::BW, kvh,
-                  key0, b);
-    } else if (lane < TK::NCB + TV::NCB) {
-      const int cb = lane - TK::NCB;
-      tma_load_4d(v_s + cb * TV::BLOCK, vmap, full, cb * TV::BW, kvh, key0,
-                  b);
-    }
-  }
-};
 
 // ---------------------------------------------------------------------
 // fp32 on the CUDA cores

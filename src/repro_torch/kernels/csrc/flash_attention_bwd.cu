@@ -1,6 +1,6 @@
-// Flash attention backward for Hopper (sm_90a), on the CUDA cores.
-// Hand-written CUDA C++; built by repro_torch/kernels/build.py into a
-// shared library with a plain C interface and bound with ctypes.
+// Flash attention backward for Hopper (sm_90a).  Hand-written CUDA C++;
+// built by repro_torch/kernels/build.py into a shared library with a
+// plain C interface and bound with ctypes.
 //
 // Replaces no TPU kernel: the JAX package trains through plain jnp
 // (use_kernels=False, src/repro/configs/base.py:106) and has no backward
@@ -19,36 +19,83 @@
 //   D  = rowsum(dO * O)                         flash_bwd_delta_kernel
 //   P  = exp(s * scale - lse), 0 where masked
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D)
-//   dK = scale * dS^T Q                         flash_bwd_dkdv_kernel
-//   dQ = scale * dS K                           flash_bwd_dq_kernel
-// dK and dV sum over the G heads of their kv head.  P and dS are never
-// rounded to bf16 (the forward keeps P in fp32 as the TPU kernel does);
-// dq, dk and dv are rounded once, to the inputs' dtype.
+//   dK = scale * dS^T Q                         the dK / dV kernel
+//   dQ = scale * dS K                           the dQ kernel
+// dK and dV sum over the G heads of their kv head.  P and dS keep fp32
+// accuracy (the forward keeps P in fp32 as the TPU kernel does); dq, dk
+// and dv are rounded once, to the inputs' dtype.  Three launches and no
+// atomics, so two calls give the same bits: a key tile's CTA owns dK and
+// dV over every row that sees its keys, a row tile's CTA owns dQ over
+// every key its rows see, and both recompute S and dP for their tile
+// pairs.  Summing dQ in the dK / dV pass instead would take atomics
+// (other bits on each call) or ordered waits between CTAs (which assume
+// every CTA resident, where the grid is many waves).
 //
-// Three launches and no atomics, so two calls give the same bits:
-// - delta: a warp a row.
-// - dK / dV: grid (B * KV, key tiles of BT keys).  A CTA keeps its key
-//   tile's K and V in shared memory and dK, dV in registers, and walks the
-//   row tiles (BT rows) that can see any of its keys: from query k0 under
-//   causal masking, up to the tile's last key + window - 1 under a window.
-// - dQ: grid (B * KV, row tiles of BT rows).  A CTA keeps its rows' Q, dO,
-//   lse and D in shared memory and dQ in registers, and walks the key
-//   tiles its rows can see (the forward's bounds).
-// Both recompute S and dP for their tile pairs, so the products run seven
-// times where five would do.
+// bf16, on the tensor cores (flash_bwd_dkdv_sm90_kernel,
+// flash_bwd_dq_sm90_kernel): every product is one of the forward's two
+// wgmma forms (attention_sm90.cuh): ss, both operands K-major in shared
+// memory, or rs, A from registers (an accumulator's layout is the A
+// fragment's) and B MN-major in shared memory.  P and dS enter their
+// products as bf16 hi + lo (split_bf2), two wgmma into one fp32
+// accumulator, the forward's rule.  Every tile comes in by TMA.
+//   Row tiles hold whole queries: gt = min(G, 64) heads of nq = 64 / gt
+//   queries (nq * gt <= 64 rows; heads in ngb = ceil(G / gt) blocks past
+//   G 64), one 5-d box {BW, gt, 1, nq, 1} per 64-column block over q or
+//   dout viewed as (B, S, KV, G, hd).  TMA never writes the stage rows
+//   past nq * gt; they are zeroed once at the start (0 * NaN is NaN).
+// - dK / dV: grid (B * KV, key tiles of BWD_KEY_TILE keys, 64 at hd 256),
+//   the first key tiles, the heaviest under causal masking, first.  384
+//   threads: a producer warpgroup (one working warp; setmaxnreg gives its
+//   registers to the consumers) and two consumer warpgroups.  The
+//   producer loads the tile's K and V once, then streams the row tiles
+//   that see any of its keys (from query k0 under causal masking, up to
+//   the tile's last key + window - 1 under a window) through a ring of
+//   NST stages: Q and dO by TMA, and the rows' -lse / scale and -D by
+//   plain loads into the stage, which every lane's arrival on the
+//   stage's "full" barrier publishes.  With the keys as M and the rows as
+//   N, each consumer warpgroup takes a row tile in two halves of 32 rows:
+//   it starts its S^T and dP^T accumulators (m64n32) at the rows' -lse /
+//   scale and -D, runs S^T = K Q^T and dP^T = V dO^T into them (ss), then
+//   P^T = 2^((S^T - lse / scale) scale log2e), masked only on tiles where
+//   some pair is not visible (two row thresholds a key, no division by G
+//   per element), dS^T = P^T * (dP^T - D), then dV += P^T dO and dK +=
+//   dS^T Q (rs, each as hi + lo).  At hd <= 128 the two warpgroups own 64
+//   keys each of a 128-key tile; at hd 256 both own the same 64 keys and
+//   split dK's and dV's columns, 128 each, both computing the tile's S^T
+//   and dP^T.
+//   Registers are what bounds this design: dK and dV are 128 fp32 a
+//   consumer thread at hd 128 and 256, so the producer warpgroup keeps 40
+//   and each consumer takes 232 (setmaxnreg).  ptxas spilled the P / dS
+//   phase while it held 32 + 32 values and their hi + lo halves, or the
+//   rows' lse and D, or an integer division by G per element beside
+//   them; the halves, the accumulators' start values and the thresholds
+//   remove each.
+// - dQ: the forward's structure: grid (B * KV, row tiles), the last row
+//   tiles first; a consumer warpgroup and a producer warp, which loads
+//   the CTA's Q and dO once and K / V tiles through the forward's ring
+//   (Ring, DenseSrc::load_tile).  Each key tile runs S = Q K^T and dP =
+//   dO V^T (ss), P from lse (no online softmax), dS, then dQ += dS K (rs,
+//   K as the MN-major B, hi + lo).
+//
+// fp32, on the CUDA cores (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel):
+// the same split of the work over 32-row and 32-key tiles, every product
+// in fp32 from shared memory.  They serve the fp32 parity runs and the
+// reduced training only, and are not a redesign target.  The wrapper
+// picks the route by dtype.
 //
 // What bounds it: at the training shape (bf16, B 4, S 1024 causal, H 16,
 // KV 8, hd 128) the five products need 43 GFLOP, 0.043 ms at 989 TFLOP/s
 // on the tensor cores, against ~101 MB of inputs and outputs (0.030 ms at
-// 3.35 TB/s): operations.  This first design runs them on the CUDA cores
-// in fp32 (67 TFLOP/s at the most) from operands in shared memory (one
-// float4 read per 4 to 8 FMAs), so shared-memory bandwidth on the CUDA
-// cores bounds it, far above the tensor-core bound.  Moving the products
-// to wgmma with TMA-fed tiles is later work (ROADMAP.md, Queue 2).
-#include "common.cuh"
+// 3.35 TB/s): operations.  The design issues ten tensor passes of the
+// pairs it visits (S and dP twice, P and dS products twice for hi and
+// lo), ~95 GFLOP with the masked halves of the diagonal tiles; on an H100
+// (700 W) the three launches take ~0.22 ms (PERF.md, row 8).
+#include "attention_sm90.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------------
+// fp32 on the CUDA cores
 constexpr int BT = 32;          // rows a row tile, keys a key tile
 constexpr int NT = 256;         // threads a CTA (8 warps)
 constexpr int PAD = 4;          // floats past each shared tile row
@@ -66,6 +113,9 @@ struct BwdParams {
   void* dv;
   int S, KV, G, causal, window;
   float scale;
+  // bf16's row tiles (BwdPlan below): gt heads of nq queries, heads in
+  // ngb blocks; the dQ kernel's row tiles
+  int gt, nq, ngb, n_row_tiles;
 };
 
 // the keys lo <= t <= hi query s sees
@@ -124,7 +174,7 @@ __device__ __forceinline__ int64_t row_index(const BwdParams& p, int b,
 
 // rows r0 .. r0 + BT - 1 of (b, kvh) of a (B, S, KV, G, HD) tensor into
 // dst as fp32, zeros from r_end on
-template <typename T, int HD>
+template <int HD>
 __device__ __forceinline__ void load_rows(float* dst, const void* src,
                                           const BwdParams& p, int b, int kvh,
                                           int r0, int r_end) {
@@ -133,7 +183,7 @@ __device__ __forceinline__ void load_rows(float* dst, const void* src,
     const int i = e / C, d = (e - i * C) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (r0 + i < r_end)
-      Vec<T, 4>::load(reinterpret_cast<const T*>(src) +
+      Vec<float, 4>::load(reinterpret_cast<const float*>(src) +
                           row_index(p, b, kvh, r0 + i) * HD + d, x);
     *reinterpret_cast<float4*>(dst + i * Smem<HD>::LD + d) =
         make_float4(x[0], x[1], x[2], x[3]);
@@ -142,7 +192,7 @@ __device__ __forceinline__ void load_rows(float* dst, const void* src,
 
 // keys t0 .. t0 + BT - 1 of (b, kvh) of a (B, S, KV, HD) tensor into dst
 // as fp32, zeros from t_end on
-template <typename T, int HD>
+template <int HD>
 __device__ __forceinline__ void load_keys(float* dst, const void* src,
                                           const BwdParams& p, int b, int kvh,
                                           int t0, int t_end) {
@@ -151,7 +201,7 @@ __device__ __forceinline__ void load_keys(float* dst, const void* src,
     const int j = e / C, d = (e - j * C) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (t0 + j < t_end)
-      Vec<T, 4>::load(reinterpret_cast<const T*>(src) +
+      Vec<float, 4>::load(reinterpret_cast<const float*>(src) +
                           (((int64_t)b * p.S + t0 + j) * p.KV + kvh) * HD + d,
                       x);
     *reinterpret_cast<float4*>(dst + j * Smem<HD>::LD + d) =
@@ -238,7 +288,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
 }
 
 // dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles)
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const BwdParams p) {
   using SM = Smem<HD>;
@@ -253,8 +303,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x - b * p.KV;
   const int t0 = blockIdx.y * BT, t_end = min(t0 + BT, p.S);
-  load_keys<T, HD>(ks, p.k, p, b, kvh, t0, t_end);
-  load_keys<T, HD>(vs, p.v, p, b, kvh, t0, t_end);
+  load_keys<HD>(ks, p.k, p, b, kvh, t0, t_end);
+  load_keys<HD>(vs, p.v, p, b, kvh, t0, t_end);
   // the rows that see any key of the tile
   const int s_lo = p.causal ? t0 : 0;
   const int s_hi = p.window ? min(p.S - 1, t_end - 1 + p.window - 1)
@@ -270,8 +320,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   }
   for (int r0 = s_lo * p.G; r0 < r_end; r0 += BT) {
     __syncthreads();          // the last row tile's readers are done
-    load_rows<T, HD>(qs, p.q, p, b, kvh, r0, r_end);
-    load_rows<T, HD>(dos, p.dout, p, b, kvh, r0, r_end);
+    load_rows<HD>(qs, p.q, p, b, kvh, r0, r_end);
+    load_rows<HD>(dos, p.dout, p, b, kvh, r0, r_end);
     load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
     __syncthreads();
     tile_p_ds<HD>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, ps, dss);
@@ -296,14 +346,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     if (!Cols<HD>::in(col)) continue;
     float x[4] = {dk[c].x * p.scale, dk[c].y * p.scale, dk[c].z * p.scale,
                   dk[c].w * p.scale};
-    Vec<T, 4>::store(reinterpret_cast<T*>(p.dk) + at + col, x);
+    Vec<float, 4>::store(reinterpret_cast<float*>(p.dk) + at + col, x);
     float y[4] = {dv[c].x, dv[c].y, dv[c].z, dv[c].w};
-    Vec<T, 4>::store(reinterpret_cast<T*>(p.dv) + at + col, y);
+    Vec<float, 4>::store(reinterpret_cast<float*>(p.dv) + at + col, y);
   }
 }
 
 // dQ of one row tile of (b, kv head): grid (B * KV, row tiles)
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const BwdParams p) {
   using SM = Smem<HD>;
@@ -317,8 +367,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x - b * p.KV;
   const int r0 = blockIdx.y * BT, r_end = min(r0 + BT, p.S * p.G);
-  load_rows<T, HD>(qs, p.q, p, b, kvh, r0, r_end);
-  load_rows<T, HD>(dos, p.dout, p, b, kvh, r0, r_end);
+  load_rows<HD>(qs, p.q, p, b, kvh, r0, r_end);
+  load_rows<HD>(dos, p.dout, p, b, kvh, r0, r_end);
   load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
   // the keys any row of the tile sees
   const int k_lo = key_lo(p, r0 / p.G);
@@ -331,8 +381,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t0 = k_lo; t0 <= k_hi; t0 += BT) {
     __syncthreads();          // the last key tile's readers are done
-    load_keys<T, HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.S));
-    load_keys<T, HD>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.S));
+    load_keys<HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.S));
+    load_keys<HD>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.S));
     __syncthreads();
     tile_p_ds<HD>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, nullptr,
                   dss);
@@ -352,33 +402,598 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     if (!Cols<HD>::in(c0 + 32 * c)) continue;
     float x[4] = {dq[c].x * p.scale, dq[c].y * p.scale, dq[c].z * p.scale,
                   dq[c].w * p.scale};
-    Vec<T, 4>::store(reinterpret_cast<T*>(p.dq) + at + c0 + 32 * c, x);
+    Vec<float, 4>::store(reinterpret_cast<float*>(p.dq) + at + c0 + 32 * c, x);
   }
 }
 
+
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+constexpr int BWD_ROW_TILE = 64;        // rows a row tile holds at most
+constexpr int BWD_KEY_TILE = 128;       // keys a dK / dV CTA, hd <= 128
+constexpr int BWD_KEY_TILE_HD256 = 64;  // keys a dK / dV CTA at hd 256
+constexpr int KV_THREADS = 384;         // producer + 2 consumer warpgroups
+constexpr int HALF = TILE / 2;          // rows of a half row tile
+constexpr int PRODUCER_REGS = 40;       // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int CONSUMER_REGS = 232;      //   = 384 x 168, the launch's pool
+static_assert(BWD_ROW_TILE == TILE && BWD_KEY_TILE_HD256 == TILE, "tiles");
+
+// The dK / dV kernel's tiles at head dim HD.  Shared memory: K and V
+// (SUBS 64-key tiles each), NST stages of Q and dO, the stages' lse and
+// D (64 floats each), then the barriers: K/V's, NST "full", NST "empty".
+template <int HD>
+struct KvPlan {
+  using T = Tile<HD>;
+  static constexpr int KEYS = HD <= 128 ? BWD_KEY_TILE : BWD_KEY_TILE_HD256;
+  static constexpr int SUBS = KEYS / TILE;
+  static constexpr bool SPLIT_COLS = KEYS == TILE;   // two warpgroups, one
+                                                     //   key tile
+  static constexpr int NCB_W = SPLIT_COLS ? T::NCB / 2 : T::NCB;
+  static constexpr int NST = HD >= 256 ? 2 : 3;
+  static constexpr int KV_BYTES = SUBS * T::BYTES;
+  static constexpr int STAT = 2 * TILE * 4;          // lse and D of a stage
+  static constexpr int STATS = 2 * KV_BYTES + NST * 2 * T::BYTES;
+  static constexpr int BARS = STATS + NST * STAT;
+  static constexpr int SMEM = BARS + 8 * (1 + 2 * NST) + 1024;
+  static_assert(SUBS * TILE == KEYS && NCB_W >= 1, "key tile");
+};
+
+// The dQ kernel's shared memory: Q and dO, then the forward's ring of K/V
+// stages and its barriers, then Q/dO's barrier.
+template <int HD>
+struct DqPlan {
+  using R = Ring<HD, HD>;
+  static constexpr int QD = 2 * Tile<HD>::BYTES;
+  static constexpr int BARS = QD + R::NST * R::STAGE;
+  static constexpr int SMEM = BARS + 8 * (1 + 2 * R::NST) + 1024;
+};
+
+__device__ __forceinline__ float neg_inf_f() {
+  return __int_as_float(0xff800000);
+}
+
+// Zero the rows n_rows .. 63 of n_blocks consecutive 64-row column blocks
+// from shared address first (the rows no box of a row tile writes), by
+// `threads` threads, then make the zeros visible to TMA and wgmma.
+template <int SWB>
+__device__ __forceinline__ void zero_tail_rows(uint8_t* smem0, uint32_t first,
+                                               int n_blocks, int n_rows,
+                                               int threads) {
+  if (n_rows >= TILE) return;
+  const int per = (TILE - n_rows) * SWB / 16;
+  for (int idx = threadIdx.x; idx < n_blocks * per; idx += threads) {
+    const int blk = idx / per, rest = idx - blk * per;
+    *reinterpret_cast<uint4*>(smem0 + first + blk * TILE * SWB +
+                              n_rows * SWB + rest * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+}
+
+// the row index into lse / delta, and whether it exists, of row i of the
+// row tile (s0, g0): query s0 + i / gt, head g0 + i % gt
+__device__ __forceinline__ bool tile_row(const BwdParams& p, int b, int kvh,
+                                         int s0, int g0, int i,
+                                         int64_t& row) {
+  const int sq = i / p.gt, s = s0 + sq, g = g0 + i - sq * p.gt;
+  row = (((int64_t)b * p.S + s) * p.KV + kvh) * p.G + g;
+  return i < p.nq * p.gt && s < p.S && g < p.G;
+}
+
+// Q and dO boxes of the row tile (s0, g0) into q_s and do_s, lanes 0 ..
+// 2 NCB - 1 of the producer warp, completing `full` (whose expected bytes
+// the caller set)
+template <int HD>
+__device__ __forceinline__ void load_rows_tma(const CUtensorMap* qmap,
+                                              const CUtensorMap* dmap, int b,
+                                              int kvh, int s0, int g0,
+                                              uint32_t q_s, uint32_t do_s,
+                                              uint32_t full, int lane) {
+  using T = Tile<HD>;
+  if (lane < T::NCB)
+    tma_load_5d(q_s + lane * T::BLOCK, qmap, full, lane * T::BW, g0, kvh, s0,
+                b);
+  else if (lane < 2 * T::NCB)
+    tma_load_5d(do_s + (lane - T::NCB) * T::BLOCK, dmap, full,
+                (lane - T::NCB) * T::BW, g0, kvh, s0, b);
+}
+
+// the hi + lo A fragments, KK k-steps of 16, of a 64 x 16 KK accumulator
+// x (the forward's P fragments)
+template <int KK>
+__device__ __forceinline__ void split_frags(const float (&x)[8 * KK],
+                                            uint32_t (&hi)[KK][4],
+                                            uint32_t (&lo)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j0 = 4 * (2 * kk + (a >> 1)) + 2 * (a & 1);
+      split_bf2(x[j0], x[j0 + 1], hi[kk][a], lo[kk][a]);
+    }
+}
+
+// X (64 x HD, K-major at a_s) times Y^T (Y N x HD, K-major at b_s) into
+// d, or added to d with `add`, HD / 16 k-steps of ss wgmma (the forward's
+// S = Q K^T); not committed
+template <int HD, int N>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a_s,
+                                           uint32_t b_s, bool add = false) {
+  using T = Tile<HD>;
+  constexpr uint32_t SBO = 8 * T::SWB;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    const int cb = kc * 16 / T::BW, in = (kc * 16 - cb * T::BW) * 2;
+    Wgmma<N>::ss(d, smem_desc(a_s + cb * T::BLOCK + in, SBO, T::SWIZZLE),
+                 smem_desc(b_s + cb * T::BLOCK + in, SBO, T::SWIZZLE),
+                 add || kc > 0);
+  }
+}
+
+// acc[c] += A B for the column blocks cb0 .. cb0 + N - 1 of the MN-major B
+// whose 16 KK rows start at b_s, with A = hi + lo (the forward's P V); not
+// committed
+template <int HD, int N, int KK>
+__device__ __forceinline__ void rs_product(float (&acc)[N][Tile<HD>::BW / 2],
+                                           const uint32_t (&hi)[KK][4],
+                                           const uint32_t (&lo)[KK][4],
+                                           uint32_t b_s, int cb0) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const uint64_t db =
+          smem_desc(b_s + (cb0 + c) * T::BLOCK + kk * 16 * T::SWB,
+                    8 * T::SWB, T::SWIZZLE);
+      Wgmma<T::BW>::rs(acc[c], lo[kk], db);
+      Wgmma<T::BW>::rs(acc[c], hi[kk], db);
+    }
+}
+
+// dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles),
+// KV_THREADS threads.  Consumer thread (warp, gq, tq) of warpgroup w
+// holds keys kw0 + 16 warp + gq + 8 h (h = 0, 1) of the accumulators, and
+// of S^T and dP^T the rows 8 c8 + 2 tq + e (c8 < 8, e = 0, 1) of the row
+// tile.
+template <int HD>
+__global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap dmap, const BwdParams p) {
+  using L = KvPlan<HD>;
+  using T = Tile<HD>;
+  constexpr int ON = T::BW / 2;          // accumulator floats per block
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem0 = smem_raw - raw;
+  const uint32_t k_s = base, v_s = base + L::KV_BYTES;
+  auto q_s = [&](int st) { return base + 2 * L::KV_BYTES + 2 * T::BYTES * st; };
+  auto do_s = [&](int st) { return q_s(st) + T::BYTES; };
+  auto stat_s = [&](int st) { return base + L::STATS + L::STAT * st; };
+  const uint32_t bars = base + L::BARS, kv_full = bars;
+  auto full = [&](int st) { return bars + 8 + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 + 8 * (L::NST + st); };
+
+  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
+  const int key0 = blockIdx.y * L::KEYS;
+  const int key_end = min(key0 + L::KEYS, p.S);
+  // the queries that see a key of the tile: [s_lo, s_hi]
+  const int s_lo = p.causal ? key0 : 0;
+  const int s_hi =
+      p.window ? min(p.S - 1, key_end - 1 + p.window - 1) : p.S - 1;
+  const int qt0 = s_lo / p.nq;
+  const int n_tiles = (s_hi / p.nq - qt0 + 1) * p.ngb;
+  const int rows_used = p.nq * p.gt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, L::SUBS);
+    for (int st = 0; st < L::NST; ++st) {
+      mbar_init(full(st), 1 + 32);       // the bytes, and every lane's stats
+      mbar_init(empty(st), 2 * CONSUMERS / 32);
+    }
+    fence_mbar_init();
+  }
+  zero_tail_rows<T::SWB>(smem0, q_s(0), L::NST * 2 * T::NCB, rows_used,
+                         KV_THREADS);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x & 31;
+  if (wg == 0) {
+    // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    // K and V once; a 64-key part past S reads from S - 1 (its keys are
+    // masked), so no box lies wholly outside the tensor
+#pragma unroll
+    for (int sub = 0; sub < L::SUBS; ++sub)
+      DenseSrc::load_tile<HD, HD>(p, &kmap, &vmap, b, kvh,
+                                  min(key0 + TILE * sub, p.S - 1),
+                                  k_s + sub * T::BYTES, v_s + sub * T::BYTES,
+                                  kv_full, smem0, lane);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % L::NST, qi = i / p.ngb;
+      const int s0 = (qt0 + qi) * p.nq, g0 = (i - qi * p.ngb) * p.gt;
+      mbar_wait(empty(st), ((i / L::NST) & 1) ^ 1);
+      if (lane == 0)
+        mbar_expect_tx(full(st), 2 * T::NCB * rows_used * T::SWB);
+      __syncwarp();
+      load_rows_tma<HD>(&qmap, &dmap, b, kvh, s0, g0, q_s(st), do_s(st),
+                        full(st), lane);
+      // -lse / scale and -D of the rows, the accumulators' first values;
+      // -inf and 0 where no row is
+      float* stat = reinterpret_cast<float*>(smem0 + stat_s(st));
+      for (int r = lane; r < TILE; r += 32) {
+        int64_t row;
+        const bool ok = tile_row(p, b, kvh, s0, g0, r, row);
+        stat[r] = ok ? -p.lse[row] / p.scale : neg_inf_f();
+        stat[TILE + r] = ok ? -p.delta[row] : 0.f;
+      }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = wg - 1, warp = (threadIdx.x >> 5) & 3;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int kw0 = L::SPLIT_COLS ? key0 : key0 + TILE * w;
+  const uint32_t kw_s = k_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
+  const uint32_t vw_s = v_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
+  const int cb0 = L::SPLIT_COLS ? w * L::NCB_W : 0;
+  const int my_key = kw0 + warp * 16 + gq;   // + 8 h
+  const float qscale = p.scale * LOG2E;
+  float dk[L::NCB_W][ON], dv[L::NCB_W][ON];
+#pragma unroll
+  for (int c = 0; c < L::NCB_W; ++c)
+#pragma unroll
+    for (int j = 0; j < ON; ++j) dk[c][j] = dv[c][j] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % L::NST;
+    const int s0 = (qt0 + i / p.ngb) * p.nq;
+    const int s1 = min(s0 + p.nq, p.S) - 1;   // the tile's last query
+    mbar_wait(full(st), (i / L::NST) & 1);
+    // Masks only where some pair of the tile is not visible.  Key t sees
+    // the rows n (query s0 + n / gt) with from <= n < to: causal, n >= (t
+    // - s0) gt; a window, n < (t - s0 + window) gt; keys >= S none.  Held
+    // as from - 2 tq and to - 2 tq, against the thread's row offsets,
+    // which are constants
+    const bool masked = kw0 < DenseSrc::bounds(p, b, s1).x ||
+                        kw0 + TILE - 1 > DenseSrc::bounds(p, b, s0).y;
+    int from[2] = {0, 0}, to[2] = {0, 0};
+    if (masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = my_key + 8 * h, d = key - s0;
+        from[h] = (p.causal ? d * p.gt
+                            : key < p.S ? 0 : TILE) - 2 * tq;
+        to[h] = (p.window ? min(d + p.window, TILE) * p.gt : TILE * TILE) -
+                2 * tq;
+      }
+    }
+    const float* stat = reinterpret_cast<const float*>(smem0 + stat_s(st));
+
+    // the row tile in two halves of 32 rows, so that the P / dS phase
+    // holds 16 + 16 values beside dK and dV
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r0 = HALF * hf;
+      // S^T - lse / scale = K Q^T and dP^T - D = V dO^T: the accumulators
+      // start at the rows' -lse / scale and -D, so those take no
+      // registers beside them.  sc[4 c8 + j] is key my_key + 8 (j >> 1),
+      // row r0 + 8 c8 + 2 tq + (j & 1)
+      float sc[HALF / 2], dp[HALF / 2];
+#pragma unroll
+      for (int c8 = 0; c8 < HALF / 8; ++c8) {
+        const float2 nl = *reinterpret_cast<const float2*>(
+            stat + r0 + 8 * c8 + 2 * tq);
+        const float2 nd = *reinterpret_cast<const float2*>(
+            stat + TILE + r0 + 8 * c8 + 2 * tq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[4 * c8 + j] = j & 1 ? nl.y : nl.x;
+          dp[4 * c8 + j] = j & 1 ? nd.y : nd.x;
+        }
+      }
+      pin(sc);
+      pin(dp);
+      wgmma_fence();
+      ss_product<HD, HALF>(sc, kw_s, q_s(st) + r0 * T::SWB, true);
+      ss_product<HD, HALF>(dp, vw_s, do_s(st) + r0 * T::SWB, true);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+
+      // P^T = 2^((S^T - lse / scale) scale log2e), dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int c8 = 0; c8 < HALF / 8; ++c8)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int x = 4 * c8 + j, h = j >> 1, n = r0 + 8 * c8 + (j & 1);
+          float pr = ex2(sc[x] * qscale);
+          if (masked && (n < from[h] || n >= to[h])) pr = 0.f;
+          sc[x] = pr;
+          dp[x] *= pr;
+        }
+      uint32_t ph[HALF / 16][4], pl[HALF / 16][4];
+      uint32_t dh[HALF / 16][4], dl[HALF / 16][4];
+      split_frags<HALF / 16>(sc, ph, pl);
+      split_frags<HALF / 16>(dp, dh, dl);
+
+      // dV += P^T dO, dK += dS^T Q over the half's rows
+#pragma unroll
+      for (int c = 0; c < L::NCB_W; ++c) {
+        pin(dv[c]);
+        pin(dk[c]);
+      }
+      wgmma_fence();
+      rs_product<HD, L::NCB_W, HALF / 16>(dv, ph, pl,
+                                          do_s(st) + r0 * T::SWB, cb0);
+      rs_product<HD, L::NCB_W, HALF / 16>(dk, dh, dl, q_s(st) + r0 * T::SWB,
+                                          cb0);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < L::NCB_W; ++c) {
+        pin(dv[c]);
+        pin(dk[c]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // the keys' rows of dK (scaled) and dV
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = my_key + 8 * h;
+    if (key >= p.S) continue;
+    const int64_t at = (((int64_t)b * p.S + key) * p.KV + kvh) * HD;
+    __nv_bfloat16* dkp = reinterpret_cast<__nv_bfloat16*>(p.dk) + at;
+    __nv_bfloat16* dvp = reinterpret_cast<__nv_bfloat16*>(p.dv) + at;
+#pragma unroll
+    for (int c = 0; c < L::NCB_W; ++c)
+#pragma unroll
+      for (int c8 = 0; c8 < ON / 4; ++c8) {
+        const int col = (cb0 + c) * T::BW + 8 * c8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(dkp + col) =
+            f_to_bf2(dk[c][4 * c8 + 2 * h] * p.scale,
+                     dk[c][4 * c8 + 2 * h + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + col) =
+            f_to_bf2(dv[c][4 * c8 + 2 * h], dv[c][4 * c8 + 2 * h + 1]);
+      }
+  }
+}
+
+// dQ of one row tile of (b, kv head): grid (B * KV, row tiles), THREADS
+// threads.  Consumer thread (warp, gq, tq) holds rows 16 warp + gq + 8 h
+// (h = 0, 1) of the row tile.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap dmap,
+                             const BwdParams p) {
+  using Q = DqPlan<HD>;
+  using R = typename Q::R;
+  using T = Tile<HD>;
+  constexpr int ON = T::BW / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem0 = smem_raw - raw;
+  const uint32_t q_s = base, do_s = base + T::BYTES;
+  auto k_s = [&](int st) { return base + Q::QD + R::STAGE * st; };
+  auto v_s = [&](int st) { return k_s(st) + T::BYTES; };
+  const uint32_t bars = base + Q::BARS, qd_full = bars;
+  auto full = [&](int st) { return bars + 8 + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 + 8 * (R::NST + st); };
+
+  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
+  const int rt = p.n_row_tiles - 1 - blockIdx.y;   // heaviest tiles first
+  const int qi = rt / p.ngb;
+  const int s0 = qi * p.nq, g0 = (rt - qi * p.ngb) * p.gt;
+  const int s1 = min(s0 + p.nq, p.S) - 1;
+  const int rows_used = p.nq * p.gt;
+  // the keys any row of the tile sees: [beg, end)
+  const int beg = DenseSrc::bounds(p, b, s0).x;
+  const int end = DenseSrc::bounds(p, b, s1).y + 1;
+  const int t0 = beg & ~(TILE - 1);
+  const int n_tiles = end > beg ? (end - t0 + TILE - 1) / TILE : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < R::NST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS / 32);
+    }
+    fence_mbar_init();
+  }
+  zero_tail_rows<T::SWB>(smem0, q_s, 2 * T::NCB, rows_used, THREADS);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == CONSUMERS / 32) {
+    // producer: the rows' Q and dO, then keep the ring full
+    if (lane == 0) mbar_expect_tx(qd_full, 2 * T::NCB * rows_used * T::SWB);
+    __syncwarp();
+    load_rows_tma<HD>(&qmap, &dmap, b, kvh, s0, g0, q_s, do_s, qd_full,
+                      lane);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % R::NST;
+      if (lane == 0) mbar_wait(empty(st), ((i / R::NST) & 1) ^ 1);
+      __syncwarp();
+      DenseSrc::load_tile<HD, HD>(p, &kmap, &vmap, b, kvh, t0 + TILE * i,
+                                  k_s(st), v_s(st), full(st), smem0, lane);
+    }
+    return;
+  }
+
+  // consumers: the rows' -lse log2e, D and key bounds
+  const int gq = lane >> 2, tq = lane & 3;
+  float neg[2], dd[2];
+  int lo[2], hi[2];
+  int64_t row[2];
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = warp * 16 + gq + 8 * h;
+    ok[h] = tile_row(p, b, kvh, s0, g0, i, row[h]);
+    const int2 kb = DenseSrc::bounds(p, b, s0 + i / p.gt);
+    neg[h] = ok[h] ? -p.lse[row[h]] * LOG2E : neg_inf_f();
+    dd[h] = ok[h] ? p.delta[row[h]] : 0.f;
+    lo[h] = ok[h] ? kb.x : INT_MAX;
+    hi[h] = ok[h] ? kb.y : -1;
+  }
+  // the keys every query of the tile sees: no mask inside them
+  const int all_lo = DenseSrc::bounds(p, b, s1).x;
+  const int all_hi = DenseSrc::bounds(p, b, s0).y;
+  const float qscale = p.scale * LOG2E;
+  float dq[T::NCB][ON];
+#pragma unroll
+  for (int cb = 0; cb < T::NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < ON; ++j) dq[cb][j] = 0.f;
+  mbar_wait(qd_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % R::NST, key0 = t0 + TILE * i;
+    mbar_wait(full(st), (i / R::NST) & 1);
+
+    // S = Q K^T, dP = dO V^T
+    float sc[32], dp[32];
+    wgmma_fence();
+    ss_product<HD, TILE>(sc, q_s, k_s(st));
+    ss_product<HD, TILE>(dp, do_s, v_s(st));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+    pin(dp);
+
+    // dS = P * (dP - D); sc[4 c8 + j] is row gq + 8 (j >> 1), key key0 +
+    // 8 c8 + 2 tq + (j & 1)
+    const bool masked = key0 < all_lo || key0 + TILE - 1 > all_hi;
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int h = j >> 1, x = 4 * c8 + j;
+        float pr = ex2(fmaf(sc[x], qscale, neg[h]));
+        if (masked) {
+          const int key = key0 + 8 * c8 + 2 * tq + (j & 1);
+          if (key < lo[h] || key > hi[h]) pr = 0.f;
+        }
+        dp[x] = pr * (dp[x] - dd[h]);
+      }
+    uint32_t dh[4][4], dl[4][4];
+    split_frags<4>(dp, dh, dl);
+
+    // dQ += dS K
+#pragma unroll
+    for (int cb = 0; cb < T::NCB; ++cb) pin(dq[cb]);
+    wgmma_fence();
+    rs_product<HD, T::NCB, 4>(dq, dh, dl, k_s(st), 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < T::NCB; ++cb) pin(dq[cb]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+    __nv_bfloat16* dqp = reinterpret_cast<__nv_bfloat16*>(p.dq) + row[h] * HD;
+#pragma unroll
+    for (int cb = 0; cb < T::NCB; ++cb)
+#pragma unroll
+      for (int c8 = 0; c8 < ON / 4; ++c8)
+        *reinterpret_cast<uint32_t*>(dqp + cb * T::BW + 8 * c8 + 2 * tq) =
+            f_to_bf2(dq[cb][4 * c8 + 2 * h] * p.scale,
+                     dq[cb][4 * c8 + 2 * h + 1] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------------
+// launches
 template <typename T, int HD>
-int launch(const BwdParams& p, int B, cudaStream_t stream) {
+int launch_delta(const BwdParams& p, int B, cudaStream_t stream) {
   const int64_t n_rows = (int64_t)B * p.S * p.KV * p.G;
   flash_bwd_delta_kernel<T, HD>
       <<<(unsigned)((n_rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
           reinterpret_cast<const T*>(p.out),
           reinterpret_cast<const T*>(p.dout), const_cast<float*>(p.delta),
           n_rows);
-  int rc = (int)cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// fp32: the CUDA-core kernels
+template <int HD>
+int launch_fp32(const BwdParams& p, int B, cudaStream_t stream) {
+  int rc = launch_delta<float, HD>(p, B, stream);
   if (rc != 0) return rc;
   rc = launch_with_smem<Smem<HD>::BYTES>(
-      flash_bwd_dkdv_kernel<T, HD>, dim3(B * p.KV, (p.S + BT - 1) / BT), NT,
-      stream, p);
+      flash_bwd_dkdv_kernel<HD>, dim3(B * p.KV, (p.S + BT - 1) / BT),
+      NT, stream, p);
   if (rc != 0) return rc;
   return launch_with_smem<Smem<HD>::BYTES>(
-      flash_bwd_dq_kernel<T, HD>,
+      flash_bwd_dq_kernel<HD>,
       dim3(B * p.KV, (p.S * p.G + BT - 1) / BT), NT, stream, p);
+}
+
+template <typename Kernel>
+int launch_sm90_kernel(Kernel kernel, dim3 grid, int threads, int smem,
+                       cudaStream_t stream, const CUtensorMap& kmap,
+                       const CUtensorMap& vmap, const CUtensorMap& qmap,
+                       const CUtensorMap& dmap, const BwdParams& p) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, stream>>>(kmap, vmap, qmap, dmap, p);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the row-tile plan, the tensor maps, then the three launches
+template <int HD>
+int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
+  p.gt = min(p.G, BWD_ROW_TILE);
+  p.nq = BWD_ROW_TILE / p.gt;
+  p.ngb = (p.G + p.gt - 1) / p.gt;
+  p.n_row_tiles = (p.S + p.nq - 1) / p.nq * p.ngb;
+  CUtensorMap kmap, vmap, qmap, dmap;
+  const uint64_t rows[4] = {(uint64_t)p.G, (uint64_t)p.KV, (uint64_t)p.S,
+                            (uint64_t)B};
+  const uint32_t box[4] = {(uint32_t)p.gt, 1, (uint32_t)p.nq, 1};
+  int rc = encode_map<HD>(&kmap, p.k, p.KV, p.S, B, TILE);
+  if (rc == 0) rc = encode_map<HD>(&vmap, p.v, p.KV, p.S, B, TILE);
+  if (rc == 0) rc = encode_tiled<HD, 5>(&qmap, p.q, rows, box);
+  if (rc == 0) rc = encode_tiled<HD, 5>(&dmap, p.dout, rows, box);
+  if (rc == 0) rc = launch_delta<__nv_bfloat16, HD>(p, B, stream);
+  if (rc == 0)
+    rc = launch_sm90_kernel(
+        flash_bwd_dkdv_sm90_kernel<HD>,
+        dim3(B * p.KV, (p.S + KvPlan<HD>::KEYS - 1) / KvPlan<HD>::KEYS),
+        KV_THREADS, KvPlan<HD>::SMEM, stream, kmap, vmap, qmap, dmap, p);
+  if (rc == 0)
+    rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD>,
+                            dim3(B * p.KV, p.n_row_tiles), THREADS,
+                            DqPlan<HD>::SMEM, stream, kmap, vmap, qmap, dmap,
+                            p);
+  return rc;
 }
 
 template <int HD>
 int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
-  return dtype == 1 ? launch<__nv_bfloat16, HD>(p, B, stream)
-                    : launch<float, HD>(p, B, stream);
+  return dtype == 1 ? launch_bf16<HD>(p, B, stream)
+                    : launch_fp32<HD>(p, B, stream);
 }
 
 }  // namespace
@@ -387,8 +1002,10 @@ int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
 // lse: the forward's (B, S, H) fp32 log-sum-exp; delta: (B, S, H) fp32
 // scratch; dq, dk, dv: outputs in the inputs' dtype; causal: 0 or 1;
 // window: 0 for none; scale: the forward's.  Launches three kernels on
-// ``stream``; returns cudaGetLastError() after the first that fails (0 on
-// success), -1 for a dtype or head dim it has no kernel for.
+// ``stream``: bf16 the tensor-core kernels, fp32 the CUDA-core ones.
+// Returns cudaGetLastError() after the first that fails (0 on success),
+// -1 for a dtype or head dim it has no kernel for, -2 if
+// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
 extern "C" int repro_flash_attention_bwd(
     int dtype, int hd, const void* q, const void* k, const void* v,
     const void* out, const void* dout, const float* lse, float* delta,
@@ -405,5 +1022,18 @@ extern "C" int repro_flash_attention_bwd(
     case 128: return launch_dtype<128>(dtype, p, B, st);
     case 256: return launch_dtype<256>(dtype, p, B, st);
     default: return -1;
+  }
+}
+
+// The dynamic shared memory of the bf16 dK / dV and dQ kernels at head
+// dim hd, for the build report; 0 for a head dim it has no kernel for.
+extern "C" int repro_flash_bwd_smem(int hd, int which) {
+  switch (hd) {
+    case 16: return which ? DqPlan<16>::SMEM : KvPlan<16>::SMEM;
+    case 32: return which ? DqPlan<32>::SMEM : KvPlan<32>::SMEM;
+    case 64: return which ? DqPlan<64>::SMEM : KvPlan<64>::SMEM;
+    case 128: return which ? DqPlan<128>::SMEM : KvPlan<128>::SMEM;
+    case 256: return which ? DqPlan<256>::SMEM : KvPlan<256>::SMEM;
+    default: return 0;
   }
 }

@@ -1,7 +1,8 @@
 // What the port's Hopper designs share, the wgmma attention
-// (attention_sm90.cuh), the split-key decode (decode_sm90.cuh) and the
-// 3xTF32 pair score (pair_sm90.cuh): PTX wrappers for mbarriers, the proxy
-// fence, the consumers' named barrier, 2^x, the TMA tile copies, wgmma's
+// (attention_sm90.cuh) and its backward (flash_attention_bwd.cu), the
+// split-key decode (decode_sm90.cuh) and the 3xTF32 pair score
+// (pair_sm90.cuh): PTX wrappers for mbarriers, the proxy fence, the
+// consumers' named barrier, 2^x, the TMA tile copies, setmaxnreg, wgmma's
 // fence / commit / wait and shared-memory descriptor, the TF32 split and
 // the TF32 wgmma, the cluster barrier and distributed shared memory, and
 // the lookup of the tensor-map encoder.  Everything has internal linkage,
@@ -80,6 +81,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// a 5-d box (the backward's row tiles of a (B, S, KV, G, hd) tensor)
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
@@ -88,6 +102,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// Warp specialisation: every warp of a warpgroup moves the registers a
+// thread may hold to N (a multiple of 8, 24-256): a producer warpgroup
+// gives its registers back, consumer warpgroups take them (.inc waits
+// until the CTA's pool has them)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------

@@ -3,7 +3,10 @@
 ``repro.kernels.flash_attention.flash_attention_bhsd``, and for its
 backward (``csrc/flash_attention_bwd.cu``, port-only: the JAX package
 trains through plain ``jnp`` and has no backward kernel), bound together
-as the ``torch.autograd.Function`` :class:`FlashAttention`.
+as the ``torch.autograd.Function`` :class:`FlashAttention`.  The backward
+takes its route from the dtype: bf16 runs the tensor-core kernels (their
+tile plan is mirrored in :mod:`repro_torch.kernels.flash_bwd_plan`), fp32
+the CUDA-core ones.
 
 :func:`flash_attention_bshd` reads q/k/v in the model's ``(B, S, H, hd)``
 / ``(B, S, KV, hd)`` layout, so the TPU wrapper's transposes and pad copies
@@ -57,6 +60,8 @@ def _bwd_library() -> ctypes.CDLL:
             i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
             i32, i32, i32, i32, i32, ctypes.c_float, ptr]
         lib.repro_flash_attention_bwd.restype = i32
+        lib.repro_flash_bwd_smem.argtypes = [i32, i32]
+        lib.repro_flash_bwd_smem.restype = i32
         _bwd_lib = lib
     return _bwd_lib
 
@@ -144,8 +149,11 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     ``out`` for the upstream gradient ``dout`` (B,S,H,hd), from the
     forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
     and dv sum over each kv head's G query heads.  In q's dtype, fp32
-    inside.  CUDA tensors only; one call is three launches, counted once
-    in :data:`repro_torch.kernels.LAUNCHES`."""
+    inside.  bf16 runs the kernels on ``wgmma`` (P and dS as bf16 hi +
+    lo), fp32 the kernels on the CUDA cores: the C entry point picks them
+    by the dtype code.  CUDA tensors only; one call is three launches (D,
+    then dK / dV, then dQ), counted once in
+    :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
     check_args(q, k, v, window)
     check_bwd_dims(q, v)

@@ -27,6 +27,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models.attention import flash_attention_jnp  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_bwd_plan as fbp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -89,12 +90,16 @@ def test_cpu_route_builds_a_graph_only_under_grad():
 
 
 # ----------------------------------------------------------------------
-# The backward kernel's arithmetic and tile walk (csrc/flash_attention_bwd.cu)
-# emulated in torch: the same key range per row tile, row range per key
-# tile, masks, P from the forward's lse, and D from the output.
-BT = 32
-
-
+# The bf16 backward kernels' arithmetic and tile walk
+# (csrc/flash_attention_bwd.cu, mirrored in kernels/flash_bwd_plan.py)
+# emulated in torch: the dK / dV kernel's key tiles and the row tiles of
+# whole queries each walks, the dQ kernel's row tiles and the 64-key tiles
+# each walks, the masks only on tiles where some pair is not visible, P
+# from the forward's lse in the log2 domain (the dK / dV kernel's S^T
+# accumulator starts at -lse / scale), D from the output, and P and
+# dS split into bf16 hi + lo (as split_bf2 rounds them) before their
+# products.  With ``lo=False`` P and dS are rounded once to bf16: the
+# control that shows what the lo half buys.
 def _rows(q, b, kvh, G, r0, r1):
     """Rows r0 .. r1 - 1 of (b, kv head): (query s, head kvh * G + g)."""
     r = torch.arange(r0, r1)
@@ -111,51 +116,56 @@ def _visible(r, t, S, G, causal, window):
     return ok
 
 
-def _emulated_bwd(q, k, v, out, dout, lse, causal, window):
+def _split(x, lo=True):
+    """x as bf16 hi and lo (zero without ``lo``), each back in fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, ((x - hi).to(torch.bfloat16).float() if lo
+                else torch.zeros_like(x))
+
+
+def _emulated_bwd(q, k, v, out, dout, lse, causal, window, lo=True):
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G, scale = H // KV, 1.0 / math.sqrt(hd)
+    log2e = math.log2(math.e)
     delta = (dout * out).sum(-1)                       # flash_bwd_delta
     dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
     for b in range(B):
         for kvh in range(KV):
-            def tile(r0, r_end, t0):
-                r = torch.arange(r0, min(r0 + BT, r_end))
-                t = torch.arange(t0, t0 + BT)
-                ok = _visible(r, t, S, G, causal, window)
-                tc = t.clamp(max=S - 1)
-                qs, dos = (_rows(x, b, kvh, G, r[0], r[-1] + 1)
-                           for x in (q, dout))
-                ks = torch.where((t < S)[:, None], k[b, tc, kvh], 0.0)
-                vs = torch.where((t < S)[:, None], v[b, tc, kvh], 0.0)
-                rs = _rows(lse[..., None], b, kvh, G, r[0], r[-1] + 1)[:, 0]
-                ds_ = _rows(delta[..., None], b, kvh, G, r[0],
-                            r[-1] + 1)[:, 0]
-                p = torch.where(ok, torch.exp(qs @ ks.T * scale -
-                                              rs[:, None]), 0.0)
-                ds = p * (dos @ vs.T - ds_[:, None])
-                return r, t, qs, dos, ks, p, ds
-            # dK / dV: grid over key tiles
-            for t0 in range(0, S, BT):
-                t_end = min(t0 + BT, S)
-                s_lo = t0 if causal else 0
-                s_hi = min(S - 1, t_end - 1 + window - 1) if window else S - 1
-                r_end = (s_hi + 1) * G
-                for r0 in range(s_lo * G, r_end, BT):
-                    r, t, qs, dos, ks, p, ds = tile(r0, r_end, t0)
-                    n = t_end - t0
-                    dv[b, t0:t_end, kvh] += (p.T @ dos)[:n]
-                    dk[b, t0:t_end, kvh] += (ds.T @ qs)[:n] * scale
-            # dQ: grid over row tiles
-            for r0 in range(0, S * G, BT):
-                r_end = min(r0 + BT, S * G)
-                s0, s1 = r0 // G, (r_end - 1) // G
-                k_lo = max(s0 - window + 1, 0) if window else 0
-                k_hi = s1 if causal else S - 1
-                for t0 in range(k_lo, k_hi + 1, BT):
-                    r, t, qs, dos, ks, p, ds = tile(r0, r_end, t0)
-                    g = (ds @ ks) * scale
-                    dq[b, r // G, kvh * G + r % G] += g
+            Q, dO = (_rows(x, b, kvh, G, 0, S * G) for x in (q, dout))
+            L = _rows(lse[..., None], b, kvh, G, 0, S * G)[:, 0]
+            D = _rows(delta[..., None], b, kvh, G, 0, S * G)[:, 0]
+            K, V = k[b, :, kvh], v[b, :, kvh]
+
+            def tile(kw0, rt, dkdv):
+                rows, keys, ok = (torch.from_numpy(a) for a in fbp.tile_pairs(
+                    "dkdv" if dkdv else "dq", kw0, rt, S, G, causal,
+                    window))
+                s = Q[rows] @ K[keys].T
+                if dkdv:    # S^T's accumulator starts at -lse / scale
+                    p = torch.exp2((s - L[rows, None] / scale) *
+                                   (scale * log2e))
+                else:       # 2^(s scale log2e - lse log2e)
+                    p = torch.exp2(s * (scale * log2e) -
+                                   L[rows, None] * log2e)
+                p = torch.where(ok, p, 0.0)
+                ds = p * (dO[rows] @ V[keys].T - D[rows, None])
+                return rows, keys, p, ds
+            dkb, dvb, dqb = (torch.zeros_like(x) for x in (K, V, Q))
+            # dK / dV: grid over key tiles, each walking its row tiles
+            for kw0, rt in fbp.walk("dkdv", S, G, hd, causal, window):
+                rows, keys, p, ds = tile(kw0, rt, True)
+                for x, y, acc in ((p, dO, dvb), (ds, Q, dkb)):
+                    hi, low = _split(x, lo)
+                    acc[keys] += hi.T @ y[rows] + low.T @ y[rows]
+            # dQ: grid over row tiles, each walking its key tiles
+            for t0, rt in fbp.walk("dq", S, G, hd, causal, window):
+                rows, keys, p, ds = tile(t0, rt, False)
+                hi, low = _split(ds, lo)
+                dqb[rows] += hi @ K[keys] + low @ K[keys]
+            dk[b, :, kvh] = dkb * scale
+            dv[b, :, kvh] = dvb
+            dq[b, :, kvh * G:(kvh + 1) * G] = (dqb * scale).reshape(S, G, hd)
     return dq, dk, dv
 
 
@@ -195,6 +205,136 @@ def test_emulated_kernel_tiles_match_autograd(B, S, H, KV, causal, window):
     got = _emulated_bwd(q, k, v, out.detach(), dout, lse, causal, window)
     for g, t in zip(got, qkv):
         torch.testing.assert_close(g, t.grad, **TOL)
+
+
+def _emulation_case(B, S, H, KV, hd, causal, window):
+    """Inputs, autograd's gradients through the plain version, and the
+    emulation with and without P's and dS's lo halves."""
+    q, k, v, dout = (torch.from_numpy(a) for a in
+                     _inputs(B, S, H, KV, hd, seed=S + H))
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
+    out.backward(dout)
+    lse = _lse_as_the_kernels_write_it(q, k, causal, window)
+    args = (q, k, v, out.detach(), dout, lse, causal, window)
+    return ([t.grad for t in qkv], _emulated_bwd(*args),
+            _emulated_bwd(*args, lo=False))
+
+
+def _rel(got, want):
+    """max |got - want| over the largest |want| of each gradient."""
+    return [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+
+
+# (B, S, H, KV, hd, causal, window): G 7, 10, 12 and 80 (two head blocks
+# of a row tile), S at and next to the 128-key tile's edges at hd 16 and
+# the 64-key tile's at hd 256, a window, bidirectional
+WALK_CASES = [(1, 130, 7, 1, 16, True, 0), (1, 65, 20, 2, 16, True, 0),
+              (1, 129, 12, 1, 16, True, 40), (1, 20, 80, 1, 16, True, 0),
+              (1, 127, 2, 2, 16, True, 0), (1, 128, 2, 2, 16, True, 0),
+              (1, 129, 2, 1, 16, False, 0), (1, 65, 4, 2, 256, True, 0),
+              (1, 64, 2, 2, 256, False, 0), (1, 200, 10, 1, 256, True, 48)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", WALK_CASES)
+def test_emulated_walk_matches_autograd_at_the_new_tiles(B, S, H, KV, hd,
+                                                         causal, window):
+    """P and dS as hi + lo keep the kernels' gradients within 2e-5 of each
+    one's largest magnitude (the split leaves at most 2^-17 of each
+    element; the emulation reads 1e-6 to 6e-6)."""
+    want, got, _ = _emulation_case(B, S, H, KV, hd, causal, window)
+    rel = _rel(got, want)
+    assert max(rel) <= 2e-5, rel
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window",
+                         [(2, 70, 6, 2, 16, True, 0),
+                          (1, 130, 7, 1, 16, True, 0),
+                          (1, 65, 4, 2, 256, False, 0)])
+def test_rounding_p_and_ds_once_lands_farther(B, S, H, KV, hd, causal,
+                                              window):
+    """The control: P and dS rounded once to bf16, with no lo half, land
+    at least 100x farther from the fp32 gradients than hi + lo does in
+    each of dq, dk and dv, and beyond 2e-4 of each one's largest magnitude
+    (they read 8e-4 to 3e-3, hi + lo 1e-6 to 6e-6)."""
+    want, got, once = _emulation_case(B, S, H, KV, hd, causal, window)
+    for r_hilo, r_once in zip(_rel(got, want), _rel(once, want)):
+        assert r_once > max(100 * r_hilo, 2e-4), (r_hilo, r_once)
+
+
+@pytest.mark.parametrize("kernel", ["dkdv", "dq"])
+@pytest.mark.parametrize("S,G,hd,causal,window", [
+    (1, 1, 128, True, 0), (64, 2, 128, True, 0), (129, 2, 128, True, 0),
+    (257, 1, 128, True, 0), (200, 12, 128, True, 0), (129, 7, 64, True, 0),
+    (200, 10, 256, True, 48), (65, 2, 256, False, 0), (200, 2, 128, False,
+                                                       64),
+    (130, 80, 32, True, 0), (100, 3, 16, True, 1)])
+def test_tile_plan_lets_each_visible_pair_in_once(kernel, S, G, hd, causal,
+                                                  window):
+    """Every (row, key) pair a mask lets through enters each kernel's sums
+    exactly once over its grid, and no masked pair does: the walks cover
+    the visible pairs, and the unmasked-tile shortcut lets nothing past a
+    mask."""
+    got = fbp.coverage(kernel, S, G, hd, causal, window)
+    np.testing.assert_array_equal(got, fbp.visible(S, G, causal, window))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 3),
+                                           (False, 0), (False, 48)])
+@pytest.mark.parametrize("G", [1, 2, 7, 12, 80])
+def test_key_rows_are_the_visible_rows(G, causal, window):
+    """The dK / dV kernel's mask of a masked pair, two row thresholds a
+    key (no division by G per element), lets a key into exactly the rows
+    whose query sees it, for every key near a row tile, keys >= S too."""
+    S = 70
+    gt, nq, _, _ = fbp.row_tiles(S, G)
+    for s0 in range(0, S, nq):
+        for key in range(max(0, s0 - 70), min(S + 70, s0 + 140)):
+            start, end = fbp.key_rows(key, s0, gt, S, causal, window)
+            for n in range(min(nq, S - s0) * gt):
+                lo, hi = fbp.bounds(s0 + n // gt, S, causal, window)
+                assert (start <= n < end) == (lo <= key <= hi < S), \
+                    (s0, key, n)
+
+
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 10, 12, 16, 64, 65, 80])
+def test_row_tiles_hold_whole_queries(G):
+    """A row tile is floor(64 / G) whole queries of G heads up to G 64
+    (the stage rows past them stay zero), and past it one query of 64
+    heads a block."""
+    gt, nq, ngb, n = fbp.row_tiles(100, G)
+    assert gt * nq <= fbp.ROW_TILE and gt * ngb >= G > gt * (ngb - 1)
+    if G <= fbp.ROW_TILE:
+        assert (gt, nq, ngb) == (G, fbp.ROW_TILE // G, 1)
+    else:
+        assert (gt, nq) == (fbp.ROW_TILE, 1)
+    assert n == -(-100 // nq) * ngb
+    s0, s1, g0, g1 = fbp.row_tile(n - 1, 100, G)
+    assert s1 == 100 and g1 == G
+
+
+def test_kernel_source_holds_the_plan_constants():
+    """The mirror's row tile and key tiles are the kernel's constants, and
+    ``chip_smoke.py`` takes the edges of the same key tile."""
+    import re
+
+    from repro_torch.kernels import build
+    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    for const, want in (("BWD_ROW_TILE", fbp.ROW_TILE),
+                        ("BWD_KEY_TILE", fbp.KEY_TILE),
+                        ("BWD_KEY_TILE_HD256", fbp.KEY_TILE_HD256)):
+        assert re.findall(rf"constexpr int {const} = (\d+);", text) == \
+            [str(want)], const
+    assert "HD <= 128 ? BWD_KEY_TILE : BWD_KEY_TILE_HD256" in text
+    # the dK / dV kernel's mask is fbp.key_rows
+    assert "from[h] = (p.causal ? d * p.gt" in text
+    assert "key < p.S ? 0 : TILE) - 2 * tq" in text
+    assert "min(d + p.window, TILE) * p.gt : TILE * TILE" in text
+    assert [fbp.key_tile(hd) for hd in kernels.HEAD_DIMS] == [128] * 4 + [64]
+    smoke = (build.CSRC.parents[3] / "chip_smoke.py").read_text()
+    assert re.findall(r"^BWD_KEY_TILE = (\d+)$", smoke, re.M) == \
+        [str(fbp.KEY_TILE)]
 
 
 # ----------------------------------------------------------------------
