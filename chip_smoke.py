@@ -25,8 +25,11 @@ a dense first layer; shared experts) on the dense one, the telemetry
 (time series, SLO engine, stats server, autoscaler) over process
 replicas, and training (internlm2-1.8b at full width taking AdamW steps
 through ``launch/train.py``, its attention on the flash forward and the
-flash backward kernel, a checkpoint resumed), and holds every kernel
-against its plain PyTorch version.  Each
+flash backward kernel, a checkpoint resumed), whisper-base (the
+encoder-decoder family: a serve through the prefill and decode steps and
+AdamW steps through the train step at full width, its cross attention on
+flash at a kv length of its own, forward and backward), and holds every
+kernel against its plain PyTorch version.  Each
 phase ends on a line of its own with its wall time
 (``[smoke] phase N wall``).  The phases:
 
@@ -135,7 +138,19 @@ phase ends on a line of its own with its wall time
    must reject; then S at the bf16 dK / dV kernel's key tile edges (127,
    128, 255, 256, 257 at hd 128; 63, 65, 127 at hd 256) and whole-query
    row tiles with rows left over (G 7 at hd 64, G 10 at hd 256; causal,
-   a window, bidirectional);
+   a window, bidirectional); after all of those, whisper-base's shapes
+   (H 8, KV 8, hd 64: G 1): flash over T 1,500 encoder states at the
+   serve's cross shapes (B 8 x S 4, B 4 x S 224) and bidirectional at the
+   encoder's (B 8 x S 1,500), each with the bf16 rule, its control, its
+   times, bound and SDPA; flash at T != S at the tiles' edges (T 63, 64,
+   65, 1,500, 1,501 x S 1, 63, 65 x G 1, 2, 8 x hd 64 and 128 in bf16,
+   and a few in fp32); the split-K decode over the self cache (L 448,
+   ragged lengths) and the cross cache (L 1,500, all live), timed; and the
+   backward at a training step's three shapes (B 8: cross S 448 over T
+   1,500, encoder S 1,500 bidirectional, decoder S 448 causal) within
+   GRAD_REL, the cross one with a control (the last 128-key tile's keys
+   dropped) that the bf16 limit must reject, each timed beside the plain
+   version's autograd and SDPA's flash backward;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -166,7 +181,10 @@ phase ends on a line of its own with its wall time
    on the dense engine, kernel and plain, every admit batch-1, then asked
    for the paged engine and for speculative decode (both served dense,
    counted): the same tokens; and its MoE FFN with shared experts under
-   sync debug ``error``;
+   sync debug ``error``; last, the fp32 reduced whisper-base (2 + 2
+   layers, 100 frames, prompts of 5 tokens) greedy for 8 tokens through
+   the prefill and decode steps, kernel and plain: the same tokens,
+   logits within 1e-4;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
@@ -284,7 +302,23 @@ phase ends on a line of its own with its wall time
    more step profiled (device time by kind), then a run resumed from the
    step-4 checkpoint that must give step 5's loss bit for bit; (c) the
    selective scan on inputs that require grad raises;
-10. the ``{"kernels": [...]}`` line.
+10. whisper-base at full width (6 + 6 layers, d_model 512, 8 heads of 64,
+   vocab 51,865 padded to 51,968, 97,318,912 parameters, seeded bf16
+   weights, seeded fp32 stub frames of 1,500 rows): (a) the serve through
+   ``steps.make_prefill_step`` / ``make_decode_step``: B 8 with Whisper's
+   4-token start-of-transcript prompt, 64 greedy tokens, max_len 448,
+   then B 4 with 224-token prompts, 32 tokens (encode, prefill and decode
+   step ms, tok/s; exactly 18 flash launches a prefill and 12 split-K
+   decode launches a step; every logit finite); the fp32 prefill on the
+   card against the same weights' fp32 plain run on the CPU within
+   WHISPER_FP32_ATOL, and the bf16 tokens' agreement with an fp32 kernel
+   serve (not a gate); (b) the fp32 reduced family 3 AdamW steps kernel
+   against plain within TRAIN_RTOL, then 6 AdamW steps at full width
+   through ``steps.make_train_step`` (bf16 parameters, fp32 moments,
+   remat none, B 8 x (1,500 frames, 448 tokens), warmup 2; loss, grad norm
+   and ms a step, decoder tokens/s, peak memory, exactly 18 flash forward
+   and 18 backward launches a step) and one more step profiled;
+11. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -404,7 +438,7 @@ def main():
     smi = _walled(1, phase_device)
     stats = _walled(2, phase_kernels)
     if kernels_only:
-        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-8 and "
+        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-11 and "
               "the result lines skipped")
         return
     _walled(3, phase_token_exact)
@@ -414,7 +448,8 @@ def main():
     _walled(7, phase_lifecycle, paged_tokens)
     _walled(8, phase_telemetry)
     launches.update(_walled(9, phase_train))
-    _walled(10, phase_list, stats, launches, smi)
+    _walled(10, phase_whisper)
+    _walled(11, phase_list, stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -928,6 +963,8 @@ def phase_kernels():
     # their inputs
     _flash_bwd_checks(torch.Generator(device=dev).manual_seed(27), dev,
                       stats)
+    # after every other check, on its own generator
+    _whisper_kernel_checks(torch.Generator(device=dev).manual_seed(29), dev)
     return stats
 
 
@@ -2231,34 +2268,39 @@ BWD_LEFTOVER_G = ((14, 2, 64), (10, 1, 256))
 BWD_KEY_TILE = 128
 
 
-def _plain_scores(q32, k32, causal, window, shift=0):
-    """The masked scaled scores (B, KV, G, S, S) of fp32 q (B,S,H,hd) over
-    k (B,S,KV,hd); with ``shift``, a causal mask that lets query s see
-    keys up to s + shift."""
+def _plain_scores(q32, k32, causal, window, shift=0, t_end=None):
+    """The masked scaled scores (B, KV, G, S, T) of fp32 q (B,S,H,hd) over
+    k (B,T,KV,hd); with ``shift``, a causal mask that lets query s see
+    keys up to s + shift; with ``t_end``, the keys from t_end on
+    masked."""
     import torch
     from repro_torch.kernels import ref
     B, S, H, hd = q32.shape
-    KV = k32.shape[2]
+    T, KV = k32.shape[1], k32.shape[2]
     qg = q32.reshape(B, S, KV, H // KV, hd)
     sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k32) / math.sqrt(hd)
-    t = torch.arange(S, device=q32.device)
-    ok = torch.ones((S, S), dtype=torch.bool, device=q32.device)
+    s = torch.arange(S, device=q32.device)
+    t = torch.arange(T, device=q32.device)
+    ok = torch.ones((S, T), dtype=torch.bool, device=q32.device)
     if causal:
-        ok &= t[None, :] <= t[:, None] + shift
+        ok &= t[None, :] <= s[:, None] + shift
     if window:
-        ok &= t[None, :] > t[:, None] - window
+        ok &= t[None, :] > s[:, None] - window
+    if t_end is not None:
+        ok &= t[None, :] < t_end
     return torch.where(ok, sc, ref.NEG_INF)
 
 
-def _plain_grads(q, k, v, dout, causal, window, shift=0):
+def _plain_grads(q, k, v, dout, causal, window, shift=0, t_end=None):
     """Autograd through the plain version in fp32: (out, lse, (dq, dk,
     dv)); with ``shift``, the control whose causal mask lets query s see
-    keys up to s + shift."""
+    keys up to s + shift; with ``t_end``, the control that drops the keys
+    from t_end on."""
     import torch
     q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    sc = _plain_scores(q32, k32, causal, window, shift)
+    sc = _plain_scores(q32, k32, causal, window, shift, t_end)
     lse = torch.logsumexp(sc, -1).permute(0, 3, 1, 2).reshape(B, S, H)
     out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(sc, -1),
                        v32).reshape(B, S, H, hd)
@@ -2556,6 +2598,213 @@ def _flash_bwd_checks(gen, dev, stats):
           f"library_ms={library_ms:.4f} (SDPA flash backward) bound_ms="
           f"{st['bound_ms']:.4f} ({st['bound_by']}: {ops_n / 1e9:.2f} GFLOP, "
           f"{by / 1e6:.1f} MB)")
+
+
+# whisper-base's attention on the kernels (H 8, KV 8, hd 64: G 1): the
+# encoder's bidirectional flash over S 1,500 frames (30 s of audio), the
+# cross attention's flash over T 1,500 encoder states at the serve's
+# prompts (B 8 x S 4, Whisper's start-of-transcript sequence; B 4 x S
+# 224), the decoder's split-K decode over its self cache (L 448, the
+# serve's max_len, at ragged lengths) and over the cross cache (L 1,500,
+# every row live), and a training step's three backward shapes at B 8:
+# the cross attention (S 448 over T 1,500), the encoder (S 1,500
+# bidirectional) and the decoder (S 448 causal).  Then flash at T != S
+# at the tiles' edges: T one short of, at and one past 64, 1,500 and one
+# past; S 1, 63 and 65; G 1, 2 and 8 at hd 64 and 128.
+WHISPER_HEADS = (8, 8, 64)
+WHISPER_T = 1500
+WHISPER_MAX_LEN = 448
+WHISPER_CROSS = ((8, 4), (4, 224))
+WHISPER_BWD = (("cross", 448, WHISPER_T, False), ("encoder", WHISPER_T,
+                                                  WHISPER_T, False),
+               ("decoder", 448, 448, True))
+WHISPER_EDGE_T = (63, 64, 65, 1500, 1501)
+WHISPER_EDGE_S = (1, 63, 65)
+WHISPER_EDGE_HEADS = ((8, 8), (8, 4), (8, 1))
+WHISPER_SELF_LENGTHS = (5, 68, 127, 128, 129, 300, 447, 448)
+
+
+def _whisper_flash(gen, dev, name, B, S, T, heads, causal):
+    """bf16 flash at S queries over T keys, on 3 copies of the inputs,
+    against the plain version's fp32 result with its control (P rounded
+    to bf16), timed beside the plain version and SDPA, and its bound:
+    (max abs error, share off the rounded result, the control's share,
+    stats)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    H, KV, hd = heads
+    sets = [[_randn(gen, sh, torch.bfloat16, dev) for sh in
+             ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+            for _ in range(3)]
+    q, k, v = sets[0]
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=causal)
+    err, share = _compare(name, ops.flash_attention(q, k, v, causal=causal),
+                          want)
+    keep = torch.ones(S, T, dtype=torch.bool, device=dev)
+    if causal:
+        keep = keep.tril()
+    ctl = _check_control(name, _rounded_p(q, k, v, keep.expand(B, S, T)),
+                         want)
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in sets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0], is_causal=causal, enable_gqa=True).transpose(1, 2)
+    _library_close(name, lib_out, want)
+    by = (2 * B * S * H * hd + 2 * B * T * KV * hd) * 2
+    pairs = S * (S + 1) // 2 if causal else S * T
+    st = _stats(
+        err, by, 4 * hd * H * B * pairs, "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s, causal=causal)
+                  for s in sets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=causal)
+                  for s in sets], iters=3),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a, is_causal=causal, enable_gqa=True) for a in sd]))
+    return err, share, ctl, st
+
+
+def _whisper_decode(gen, dev, name, B, L, lengths, heads):
+    """The split-K decode at G 1 over L rows at ``lengths``, bf16, with its
+    control, timed beside the plain version, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    H, KV, hd = heads
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sets = [[_randn(gen, sh, torch.bfloat16, dev) for sh in
+             ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+            for _ in range(3)]
+    q, k, v = sets[0]
+    want = ref.decode_attention_ref(*_f32(q, k, v), lengths)
+    err, share = _compare(name, ops.decode_attention(q, k, v, lengths), want)
+    keep = (torch.arange(L, device=dev)[None, :] <
+            lengths[:, None].long())[:, None]           # (B, 1, L)
+    ctl = _check_control(name, _rounded_p(q[:, None], k, v, keep), want)
+    sd = [(st[0][:, :, None], st[1].transpose(1, 2).contiguous(),
+           st[2].transpose(1, 2).contiguous(), keep[:, None])
+          for st in sets]
+    lib_out = F.scaled_dot_product_attention(
+        *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
+    _library_close(name, lib_out, want)
+    n_tok = int(lengths.sum())
+    by = 2 * n_tok * KV * hd * 2 + 2 * B * H * hd * 2 + 4 * B
+    st = _stats(
+        err, by, 4 * H * hd * n_tok, "bfloat16",
+        _time_ms([lambda s=s: ops.decode_attention(*s, lengths)
+                  for s in sets]),
+        _time_ms([lambda s=s: ref.decode_attention_ref(*s, lengths)
+                  for s in sets]),
+        _time_ms([lambda a=a: F.scaled_dot_product_attention(
+            *a[:3], attn_mask=a[3], enable_gqa=True) for a in sd]))
+    return share, ctl, st
+
+
+def _row(st) -> str:
+    return (f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+            f"library_ms={st['library_ms']:.4f} bound_ms="
+            f"{st['bound_ms']:.4f} ({st['bound_by']})")
+
+
+def _whisper_kernel_checks(gen, dev):
+    """whisper-base's shapes on flash (T != S for the cross attention),
+    its backward and the split-K decode (the shapes above), each held to
+    its plain version with the bf16 rule and its control (the backward
+    with GRAD_REL and a control that drops the last key tile of the
+    cross attention), and timed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    H, KV, hd = WHISPER_HEADS
+    at = f"H {H}, KV {KV}, hd {hd}"
+    for label, B, S, T, causal in (
+            [("cross", B_, S_, WHISPER_T, False)
+             for B_, S_ in WHISPER_CROSS] +
+            [("encoder", 8, WHISPER_T, WHISPER_T, False)]):
+        name = f"whisper flash {label} (B {B}, S {S}, T {T}, {at})"
+        err, share, ctl, st = _whisper_flash(gen, dev, name, B, S, T,
+                                             WHISPER_HEADS, causal)
+        print(f"[kernels] {name} bf16: max_abs_err={err:.3e} "
+              f"off_rounded={share:.4%} control={ctl:.2%} {_row(st)}")
+    edges = [(bf, H_, KV_, hd_, T, S) for (H_, KV_), hd_, T, S in
+             itertools.product(WHISPER_EDGE_HEADS, (64, 128),
+                               WHISPER_EDGE_T, WHISPER_EDGE_S)]
+    edges += [(torch.float32, H_, KV_, hd_, T, S)
+              for (H_, KV_), hd_ in (((8, 8), 64), ((8, 1), 128))
+              for T, S in itertools.product((63, 65, 1501), (1, 65))]
+    for dtype, H_, KV_, hd_, T, S in edges:
+        q = _randn(gen, (2, S, H_, hd_), dtype, dev)
+        k, v = (_randn(gen, (2, T, KV_, hd_), dtype, dev) for _ in "kv")
+        _compare(f"whisper flash edge {dtype} (S {S}, T {T}, H {H_}, KV "
+                 f"{KV_}, hd {hd_})",
+                 ops.flash_attention(q, k, v, causal=False),
+                 ref.flash_attention_ref(*_f32(q, k, v), causal=False))
+    n = len(edges)
+    torch.cuda.synchronize()
+    print(f"[kernels] whisper flash at T != S: {n} edge checks passed "
+          f"(bf16 at T {WHISPER_EDGE_T} x S {WHISPER_EDGE_S} x (H, KV) "
+          f"{WHISPER_EDGE_HEADS} x hd 64 and 128; fp32 at T 63, 65, 1501 "
+          f"x S 1, 65)")
+
+    for label, L, lengths in (
+            ("self", WHISPER_MAX_LEN, WHISPER_SELF_LENGTHS),
+            ("cross", WHISPER_T, (WHISPER_T,) * 8)):
+        name = f"whisper split-K decode {label} (B 8, L {L}, {at})"
+        share, ctl, st = _whisper_decode(gen, dev, name, 8, L, lengths,
+                                         WHISPER_HEADS)
+        print(f"[kernels] {name} bf16 lengths {lengths}: off_rounded="
+              f"{share:.4%} control={ctl:.2%} {_row(st)}")
+
+    limit = GRAD_REL["bfloat16"]
+    for label, S, T, causal in WHISPER_BWD:
+        B = 8
+        sets = [[_randn(gen, sh, bf, dev) for sh in
+                 ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd),
+                  (B, S, H, hd))] for _ in range(3)]
+        name = f"whisper {label} (B {B}, S {S}, T {T}, {at}) " + (
+            "causal" if causal else "bidirectional")
+        err = _bwd_check(name, *sets[0], causal, 0)
+        if label == "cross":
+            # the control: the keys of the last dK / dV tile (the 128 that
+            # hold T's partial 64-key tile) left out, as a grid one tile
+            # short would; each of dq, dk and dv must move past the limit
+            cut = (T - 1) // BWD_KEY_TILE * BWD_KEY_TILE
+            want = _plain_grads(*sets[0], False, 0)[2]
+            ctl = _grad_readings(_plain_grads(*sets[0], False, 0,
+                                              t_end=cut)[2], want)
+            check(all(r[0] > limit for r in ctl),
+                  f"flash bwd {name} control: keys {cut}-{T - 1} dropped "
+                  f"move dq/dk/dv by only {_show(ctl)}; the limit {limit} "
+                  f"cannot see it in each")
+            print(f"[kernels] flash bwd {name} control, beyond the bf16 "
+                  f"limit {limit} as it must be: keys {cut}-{T - 1} "
+                  f"dropped: dq/dk/dv {_show(ctl)} of max (mean)")
+        kernel_sets = [(st[:3], st[3]) for st in sets]
+        sd_sets = [([t.transpose(1, 2).contiguous() for t in st[:3]],
+                    st[3].transpose(1, 2).contiguous()) for st in sets]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_out = F.scaled_dot_product_attention(*sd_sets[0][0],
+                                                     is_causal=causal)
+            _library_close(f"flash bwd {name}'s SDPA forward",
+                           lib_out.transpose(1, 2),
+                           ref.flash_attention_ref(*_f32(*sets[0][:3]),
+                                                   causal=causal))
+            library_ms = _time_bwd_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), sd_sets)
+        ms = _time_bwd_ms(lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=causal), kernel_sets)
+        plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=causal), kernel_sets, iters=3)
+        by = (4 * B * S * H * hd + 4 * B * T * KV * hd) * 2 + 4 * B * S * H
+        pairs = S * (S + 1) // 2 if causal else S * T
+        ops_n = 5 * 2 * hd * pairs * B * H
+        st = _stats(err, by, ops_n, "bfloat16", ms, plain_ms, library_ms)
+        print(f"[kernels] flash_attention_bwd whisper {label} (B {B}, S {S}, "
+              f"T {T}, {at}, bf16): max_abs_err={err:.3e} {_row(st)} "
+              f"(SDPA flash backward; {ops_n / 1e9:.2f} GFLOP, "
+              f"{by / 1e6:.1f} MB)")
 
 
 def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):
@@ -3284,6 +3533,7 @@ def phase_token_exact():
     _token_exact_mamba()
     _token_exact_recurrentgemma()
     _token_exact_deepseek()
+    _token_exact_whisper()
 
 
 def _token_exact_gemma():
@@ -5495,25 +5745,12 @@ def _profile_train_step(cfg, params, opt, dev):
             walls.append((time.perf_counter() - t0) * 1e3)
         del new
     busy_us, rows, top = _device_time(prof, "train_step")
-    kinds = dict.fromkeys(("flash backward", "flash forward", "GEMMs",
-                           "elementwise", "reductions", "other"), 0.0)
-    for us, _, name in rows:
-        low = name.lower()
-        kind = ("flash backward" if "flash_bwd" in low else
-                "flash forward" if "attention_sm90" in low else
-                "GEMMs" if any(k in low for k in ("gemm", "nvjet", "cutlass",
-                                                  "xmma")) else
-                "reductions" if "reduce" in low else
-                "elementwise" if "elementwise" in low or "vectorized" in low
-                else "other")
-        kinds[kind] += us / 1e3
     print(f"[profile train step] internlm2-1.8b full width, B {TRAIN_B} x S "
           f"{TRAIN_S}: unprofiled wall={walls[0]:.2f}ms; profiled wall="
           f"{walls[1]:.2f}ms device_busy={busy_us / 1e3:.2f}ms idle_share="
           f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
-          f"{sum(n for _, n, _ in rows)}; device ms by kind: " +
-          ", ".join(f"{k} {v:.2f}" for k, v in kinds.items()) +
-          f"; top: {top}")
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: "
+          f"{_train_kinds(rows)}; top: {top}")
 
 
 def _train_refusal():
@@ -5533,6 +5770,401 @@ def _train_refusal():
           f"train (c): ssm_scan on inputs that require grad gave {raised!r}")
     print(f"[train] (c) ops.ssm_scan on inputs that require grad raises: "
           f"{raised}")
+
+
+# ----------------------------------------------------------------------
+# whisper-base, the encoder-decoder family
+WHISPER_LAYERS = 2           # each side of the reduced config
+WHISPER_REDUCED_T = 100      # frames of the reduced runs (not a tile's
+                             #   multiple, and not the prompt's length)
+# Whisper's start-of-transcript sequence: <|startoftranscript|>, <|en|>,
+# <|transcribe|>, <|notimestamps|> (the multilingual vocabulary's ids)
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+WHISPER_SERVES = ((8, 4, 64), (4, 224, 32))   # (B, prompt, new tokens)
+WHISPER_PARAMS = 97_318_912
+# The fp32 prefill's last logits on the card (kernels) against the same
+# weights' fp32 plain run on the CPU: 12 layers of fp32 sums in another
+# order over logits of magnitude ~4 (PERF.md, section 6, predicted before
+# the first run)
+WHISPER_FP32_ATOL = 1e-3
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 8, 448, 6
+
+
+def _whisper_reduced(**over):
+    """The fp32 reduced whisper-base, WHISPER_LAYERS deep on each side, and
+    its seeded weights on the card."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.weights import init_params
+    dev = torch.device("cuda", 0)
+    n = WHISPER_LAYERS
+    cfg = reduced(get_config("whisper-base")).replace(
+        enc_layers=n, dec_layers=n, n_layers=2 * n, **over)
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+
+
+def _whisper_greedy(params, cfg, frames, prompt, new, max_len):
+    """Prefill and ``new - 1`` greedy decode steps through
+    ``steps.make_prefill_step`` / ``make_decode_step``, nothing read back
+    to the host on the way: (tokens (B, new), [logits of each step],
+    events (start, after the prefill, end), finite), where ``finite`` is
+    a device bool of every logit."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    B, S = prompt.shape
+    dev = prompt.device
+    caches = api.init_caches(cfg, B, max_len, frames.shape[1], device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    decode = steps.make_decode_step(cfg)
+    with torch.no_grad():
+        ev[0].record()
+        logits, caches = steps.make_prefill_step(cfg, max_len)(
+            params, {"frames": frames, "tokens": prompt}, caches)
+        ev[1].record()
+        seen, finite = [logits], torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        out = [tok]
+        for i in range(new - 1):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, caches = decode(params, {"tokens": tok[:, None],
+                                             "pos": pos}, caches)
+            finite = finite & torch.isfinite(logits).all()
+            seen.append(logits)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+            out.append(tok)
+        ev[2].record()
+    return torch.stack(out, 1), seen, ev, finite
+
+
+def _token_exact_whisper():
+    """The fp32 reduced whisper-base (2 + 2 layers, 100 frames, prompts of
+    5 tokens), greedy for 8 tokens through the prefill and decode steps on
+    the kernels and forced through the plain versions: the same tokens,
+    every step's logits within 1e-4."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    cfg, params = _whisper_reduced()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn((2, WHISPER_REDUCED_T, cfg.d_model), generator=gen,
+                         device=dev)
+    prompt = torch.randint(0, cfg.vocab, (2, 5), generator=gen, device=dev,
+                           dtype=torch.int32)
+    runs = {}
+    for plain in (False, True):
+        ops.reset_counts()
+        with _forced_plain(plain):
+            tok, seen, _, _ = _whisper_greedy(params, cfg, frames, prompt, 8,
+                                              32)
+        torch.cuda.synchronize()
+        runs[plain] = (tok, seen, dict(kernels.LAUNCHES),
+                       dict(ops.PLAIN_CALLS))
+    (kt, ks, kl, kc), (pt, ps, pl, pc) = runs[False], runs[True]
+    n_flash, n_dec = 3 * WHISPER_LAYERS, 2 * WHISPER_LAYERS * 7
+    want = {"flash_attention": n_flash, "decode_attention": n_dec}
+    check({k: v for k, v in kl.items() if v} == want and
+          not any(kc.values()) and not any(pl.values()) and
+          {k: v for k, v in pc.items() if v} == want,
+          f"token-exact whisper: kernel launches {kl}, plain calls {kc}; "
+          f"forced plain: launches {pl}, plain calls {pc}; want {want}")
+    check(torch.equal(kt, pt), f"token-exact whisper: kernel tokens "
+          f"{kt.tolist()} != plain {pt.tolist()}")
+    gap = max((a - b).abs().max().item() for a, b in zip(ks, ps))
+    check(gap <= 1e-4, f"token-exact whisper: logits off by {gap:.3e} "
+          f"(limit 1e-4)")
+    print(f"[token-exact] fp32 reduced whisper-base ({WHISPER_LAYERS} + "
+          f"{WHISPER_LAYERS} layers, {WHISPER_REDUCED_T} frames, prompts of "
+          f"5): the same 8 x 2 tokens through the kernels ({n_flash} flash, "
+          f"{n_dec} split-K decode launches) and the plain versions; logits "
+          f"within {gap:.2e} (limit 1e-4)")
+
+
+def phase_whisper():
+    """whisper-base at full width: (a) the serve through the prefill and
+    decode steps, (b) training through ``steps.make_train_step``."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _whisper_serve()
+    _train_reduced_whisper()
+    _whisper_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _whisper_inputs(cfg, B, S, dev, seed):
+    """Seeded fp32 stub frames (B, 1,500, d_model) and prompts of S tokens:
+    Whisper's start-of-transcript sequence, then seeded tokens."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn((B, WHISPER_T, cfg.d_model), generator=gen,
+                         device=dev)
+    sot = torch.tensor(WHISPER_SOT, dtype=torch.int32, device=dev)
+    rest = torch.randint(0, cfg.vocab, (B, S - len(WHISPER_SOT)),
+                         generator=gen, device=dev, dtype=torch.int32)
+    return frames, torch.cat([sot.expand(B, -1), rest], 1)
+
+
+def _whisper_serve():
+    """(a) B 8 requests of 1,500 frames with Whisper's 4-token prompt, 64
+    greedy tokens, max_len 448; then B 4 with 224-token prompts, 32
+    tokens; bf16 weights; each timed after an untimed warm-up at its
+    shapes.  Exact launches (18 flash a prefill, 12 split-K
+    decode a step, nothing else), every logit finite; the fp32 prefill on
+    the card against the same weights' fp32 plain run on the CPU; the bf16
+    tokens' agreement with an fp32 kernel serve (printed, not a gate)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, encdec
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda", 0)
+    cfg = get_config("whisper-base")
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == WHISPER_PARAMS, f"whisper-base: {n_params:,} "
+          f"parameters, want {WHISPER_PARAMS:,}")
+    n_enc, n_dec = cfg.enc_layers, cfg.dec_layers
+    for B, S, new in WHISPER_SERVES:
+        frames, prompt = _whisper_inputs(cfg, B, S, dev, seed=B)
+        # one untimed prefill and decode step first, so that the timed run
+        # meets no shape for the first time; then the encoder alone
+        _whisper_greedy(params, cfg, frames, prompt, 2, WHISPER_MAX_LEN)
+        with torch.no_grad():
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            encdec.encode(params, frames, cfg)
+            e1.record()
+        torch.cuda.synchronize()
+        enc_ms = e0.elapsed_time(e1)
+        ops.reset_counts()
+        tok, seen, ev, finite = _whisper_greedy(params, cfg, frames, prompt,
+                                                new, WHISPER_MAX_LEN)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = {"flash_attention": 3 * n_dec,
+                "decode_attention": 2 * n_dec * (new - 1)}
+        check(launches == want and not any(ops.PLAIN_CALLS.values()),
+              f"whisper serve B {B}: launches {launches}, plain calls "
+              f"{ops.PLAIN_CALLS}; want {want} ({n_enc} bidirectional + "
+              f"{n_dec} causal + {n_dec} cross flash a prefill, {2 * n_dec} "
+              f"split-K decodes a step)")
+        check(bool(finite), f"whisper serve B {B}: a bf16 logit is not "
+              f"finite")
+        pre_ms, dec_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        step_ms = dec_ms / (new - 1)
+        print(f"[whisper] (a) serve B {B} x ({WHISPER_T} frames, prompt "
+              f"{S}), {new} greedy tokens, max_len {WHISPER_MAX_LEN}, bf16 "
+              f"({n_params:,} parameters): encode_ms={enc_ms:.2f} "
+              f"prefill_ms={pre_ms:.2f} (encode included) decode_step_ms="
+              f"{step_ms:.3f} tok/s={B * new / ((pre_ms + dec_ms) / 1e3):.0f}"
+              f"; launches {launches} (flash {3 * n_dec} a prefill, split-K "
+              f"decode {2 * n_dec} a step); every logit finite")
+        if B != WHISPER_SERVES[0][0]:
+            continue
+        # the same requests in fp32: on the card (kernels), and its prefill
+        # on the CPU through the plain versions
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        tok32, seen32, _, _ = _whisper_greedy(p32, cfg32, frames, prompt,
+                                              new, WHISPER_MAX_LEN)
+        agree = (tok32 == tok).float().mean().item()
+        first = (tok32 != tok).any(0).nonzero()
+        p_cpu = tree_map(lambda t: t.cpu(), p32)
+        with torch.no_grad():
+            want_cpu, _ = api.prefill_fn(
+                p_cpu, cfg32, {"frames": frames.cpu(), "tokens": prompt.cpu()},
+                api.init_caches(cfg32, B, WHISPER_MAX_LEN, WHISPER_T,
+                                device="cpu"))
+        keep = torch.arange(cfg.padded_vocab) < cfg.vocab
+        gap = (seen32[0].cpu() - want_cpu)[..., keep].abs().max().item()
+        top = want_cpu[..., keep].abs().max().item()
+        check(gap <= WHISPER_FP32_ATOL,
+              f"whisper fp32 prefill: kernel logits off the CPU plain run by "
+              f"{gap:.3e} (limit {WHISPER_FP32_ATOL})")
+        print(f"[whisper] (a) fp32 prefill (B {B}) on the card against the "
+              f"CPU plain run: max |gap| {gap:.3e} over logits up to "
+              f"{top:.2f} (limit {WHISPER_FP32_ATOL}); bf16 tokens agree "
+              f"with the fp32 kernel serve's at {agree:.2%} of {B} x {new} "
+              f"(first difference at step "
+              f"{first[0].item() if len(first) else None}; not a gate)")
+        del p32, p_cpu, seen32
+    del params
+
+
+def _train_reduced_whisper():
+    """(b) first: the fp32 reduced whisper-base (2 + 2 layers, hd 64) takes
+    3 AdamW steps through the kernels and the same 3 through the plain
+    versions, as phase 9 (a) holds internlm2."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths
+    dev = torch.device("cuda", 0)
+    cfg, params0 = _whisper_reduced(head_dim=64)
+    rng = np.random.RandomState(7)
+    batches = [{"frames": torch.from_numpy(rng.randn(
+        4, WHISPER_REDUCED_T, cfg.d_model).astype(np.float32)).to(dev),
+        "tokens": torch.from_numpy(rng.randint(0, cfg.vocab, (4, 48)).astype(
+            np.int32)).to(dev)} for _ in range(3)]
+    runs = {}
+    for plain in (False, True):
+        ops.reset_counts()
+        fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total=TRAIN_TOTAL)
+        params, opt, hist = params0, adamw_init(params0), []
+        with _forced_plain(plain):
+            (_, _), grads = steps.value_and_grad(params, cfg, batches[0])
+            for batch in batches:
+                params, opt, m = fn(params, opt, batch)
+                hist.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        flat = flatten_with_paths(grads)
+        check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                  for g in flat.values()),
+              f"whisper train (b) {'plain' if plain else 'kernel'}: a "
+              f"gradient is zero or not finite")
+        runs[plain] = (hist, flatten_with_paths(params),
+                       flatten_with_paths(opt.m), flatten_with_paths(opt.v),
+                       dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS))
+    (kh, kp, km, kv, kl, _), (ph, pp, pm, pv, pl, pc) = runs[False], \
+        runs[True]
+    n = 4 * 3 * WHISPER_LAYERS        # 4 losses x (enc + dec self + cross)
+    check(kl["flash_attention"] == n and kl["flash_attention_bwd"] == n and
+          sum(pl.values()) == 0 and pc["flash_attention"] == n,
+          f"whisper train (b): kernel launches {kl}, plain launches {pl}, "
+          f"plain calls {pc}")
+    worst = {key: max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                      for a, b in zip(kh, ph))
+             for key in ("loss", "ce", "grad_norm", "lr")}
+    check(max(worst.values()) <= TRAIN_RTOL,
+          f"whisper train (b): kernel vs plain metrics off by {worst}")
+    for label, got, want, atol in (
+            ("params", kp, pp, lambda w: 1e-3 * TRAIN_LR),
+            ("m", km, pm, lambda w: TRAIN_RTOL * w.abs().max().item()),
+            ("v", kv, pv, lambda w: TRAIN_RTOL * w.abs().max().item())):
+        for k, w in want.items():
+            check(torch.allclose(got[k], w, rtol=TRAIN_RTOL, atol=atol(w)),
+                  f"whisper train (b): {label} {k} kernel vs plain off by "
+                  f"{(got[k] - w).abs().max().item():.3e}")
+    print(f"[whisper] (b) reduced fp32 whisper-base ({WHISPER_LAYERS} + "
+          f"{WHISPER_LAYERS} layers, hd 64), B 4 x ({WHISPER_REDUCED_T} "
+          f"frames, 48 tokens), 3 AdamW steps: losses "
+          f"{[round(h['loss'], 6) for h in kh]} through the kernels ({n} "
+          f"flash forward and backward launches) and "
+          f"{[round(h['loss'], 6) for h in ph]} through the plain versions; "
+          f"relative gaps "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (limit "
+          f"{TRAIN_RTOL}); params, m and v within phase 9 (a)'s limits")
+
+
+def _train_kinds(rows):
+    """Device ms by kind of kernel of a training step's profile rows."""
+    kinds = dict.fromkeys(("flash backward", "flash forward", "GEMMs",
+                           "elementwise", "reductions", "other"), 0.0)
+    for us, _, name in rows:
+        low = name.lower()
+        kind = ("flash backward" if "flash_bwd" in low else
+                "flash forward" if "attention_sm90" in low else
+                "GEMMs" if any(k in low for k in ("gemm", "nvjet", "cutlass",
+                                                  "xmma")) else
+                "reductions" if "reduce" in low else
+                "elementwise" if "elementwise" in low or "vectorized" in low
+                else "other")
+        kinds[kind] += us / 1e3
+    return ", ".join(f"{k} {v:.2f}" for k, v in kinds.items())
+
+
+def _whisper_train():
+    """(b) whisper-base at full width through ``steps.make_train_step``:
+    bf16 parameters, fp32 moments, remat none, B 8 x (1,500 frames, 448
+    tokens), warmup 2, 6 AdamW steps; exactly 18 flash forward and 18
+    backward launches a step; one more step profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    dev = torch.device("cuda", 0)
+    cfg = get_config("whisper-base")
+    check(cfg.remat == "none" and cfg.param_dtype == "bfloat16",
+          f"whisper-base: remat {cfg.remat}, params {cfg.param_dtype}")
+    B, S, n_steps = WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    opt = adamw_init(params)
+    fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=2, total=n_steps)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def batch():
+        return {"frames": torch.randn((B, WHISPER_T, cfg.d_model),
+                                      generator=gen, device=dev),
+                "tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+
+    n_attn = cfg.enc_layers + 2 * cfg.dec_layers
+    hist = []
+    for step in range(n_steps):
+        b = batch()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b)
+        rec = {k: float(v) for k, v in m.items()}
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launches == {"flash_attention": n_attn,
+                           "flash_attention_bwd": n_attn} and
+              not any(ops.PLAIN_CALLS.values()),
+              f"whisper train step {step}: launches {launches}, plain calls "
+              f"{ops.PLAIN_CALLS}; want {n_attn} flash forward and backward")
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"whisper train step {step}: {rec}")
+        hist.append(rec)
+        print(f"[whisper] (b) step {step}: loss={rec['loss']:.6f} grad_norm="
+              f"{rec['grad_norm']:.4f} lr={rec['lr']:.3e} ms={rec['ms']:.1f}",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = hist[1:]
+    tok_s = B * S * len(steady) / (sum(h["ms"] for h in steady) / 1e3)
+    b = batch()
+    walls = []
+    for prof_on in (False, True):
+        ctx = profile(activities=[ProfilerActivity.CUDA]) if prof_on else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            new = fn(params, opt, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        del new
+    busy_us, rows, top = _device_time(prof, "whisper_train_step")
+    print(f"[whisper] (b) whisper-base full width (bf16 parameters, fp32 "
+          f"moments, remat none), B {B} x ({WHISPER_T} frames, {S} tokens), "
+          f"{n_steps} steps: {tok_s:,.0f} decoder tokens/s over steps "
+          f"1-{n_steps - 1} (step 0: {hist[0]['ms']:.1f} ms), peak "
+          f"{peak:.2f} GiB allocated; {n_attn} flash forward and backward "
+          f"launches a step")
+    print(f"[profile whisper train step] B {B} x ({WHISPER_T}, {S}): "
+          f"unprofiled wall={walls[0]:.2f}ms; profiled wall={walls[1]:.2f}ms "
+          f"device_busy={busy_us / 1e3:.2f}ms idle_share="
+          f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: "
+          f"{_train_kinds(rows)}; top: {top}")
+    del params, opt
 
 
 def phase_list(stats, launches, smi):

@@ -4,11 +4,12 @@
 (its token path), ``get_config("gemma-7b")`` and ``get_config("gemma3-4b")``
 (head dim 256; gemma3's local and global layers) and
 ``get_config("recurrentgemma-2b")`` (RG-LRU layers and MQA local
-attention) and ``get_config("deepseek-v2-lite-16b")`` (MLA, a dense first
-layer, shared experts).
+attention), ``get_config("deepseek-v2-lite-16b")`` (MLA, a dense first
+layer, shared experts) and ``get_config("whisper-base")`` (the
+encoder-decoder family).
 
-Only the archs whose path the port runs are registered; any other id
-raises, naming it (the JAX package's registry knows them all)."""
+Every arch of the JAX package's registry is registered; any other id
+raises ``KeyError``, naming it."""
 from __future__ import annotations
 
 import importlib
@@ -25,6 +26,7 @@ _MODULES = {
     "gemma3-4b": "gemma3_4b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -33,9 +35,6 @@ ARCH_IDS = tuple(_MODULES)
 def get_config(name: str) -> ArchConfig:
     key = name.replace("_", "-")
     if key not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
-                       f"(ported: {sorted(_MODULES)}); see ROADMAP.md, "
-                       f"Queue 1, item 13 (whisper-base, the "
-                       f"encoder-decoder family)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[key]}").CONFIG

@@ -7,17 +7,20 @@
 //   src/repro/kernels/flash_attention.py:flash_attention_bhsd
 //     (body _flash_kernel)  -> repro_flash_attention
 //
-// q is (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hd_v) and out (B, S,
-// H, hd_v), all contiguous: the kernels read the model's layout directly,
+// q is (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hd_v) and out (B,
+// S, H, hd_v), all contiguous: the kernels read the model's layout directly,
 // with no transposes and no pad copies.  hd_v is hd, or narrower for MLA's
 // prefill (deepseek-v2-lite: q/k 192 = nope 128 + rope 64, v 128; its
 // reduced config: 24 and 16), as the TPU kernel's jnp oracle
-// (flash_attention_jnp) allows; the scale is the caller's, 1/sqrt(hd).  Query s of head h = kvh * G + g sees key t iff t < S, t <= s when
-// causal, and t > s - window when window > 0 (the TPU kernel's masks).
+// (flash_attention_jnp) allows; the scale is the caller's, 1/sqrt(hd).
+// T is S but for a cross attention (whisper's decoder over its encoder
+// states), which has neither mask.  Query s of head h = kvh * G + g sees
+// key t iff t < T, t <= s when causal, and t > s - window when window > 0
+// (the TPU kernel's masks).
 // Rows are the (query, head) pairs r = s * G + g of one (b, kv head), so the
 // G heads that share a K/V head share every K/V tile a CTA loads.  A CTA
 // walks only the key tiles its rows can see (the TPU kernel's `needed`
-// skip), keys >= S are never read and rows >= S never written.  Masked
+// skip), keys >= T are never read and rows >= S never written.  Masked
 // scores are the finite NEG_INF and masked keys add p = 0; the output is
 // acc / max(l, 1e-30), as on the TPU.  Given an lse pointer (a training
 // step's forward), each row's natural log-sum-exp of its scaled scores is
@@ -30,8 +33,8 @@
 // on the tensor cores with wgmma, K/V tiles brought in by TMA into a ring
 // of mbarrier-guarded stages.  A key tile is one 4-d box (64 columns x 1
 // kv head x 64 keys x 1 sequence) per 64-column block of k and of v, from
-// a tensor map over (B, S, KV, hd): the map's own S bound zero-fills keys
-// >= S without reading the next sequence.  The grid launches the last row
+// a tensor map over (B, T, KV, hd): the map's own T bound zero-fills keys
+// >= T without reading the next sequence.  The grid launches the last row
 // tiles, the heaviest under causal masking, first.
 //
 // flash_simt_kernel (fp32), on the CUDA cores, the design of
@@ -85,8 +88,8 @@ template <int HD, int DV>
 __global__ void __launch_bounds__(NT) flash_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
-    float* __restrict__ lse, int S, int KV, int G, int causal, int window,
-    float scale) {
+    float* __restrict__ lse, int S, int T, int KV, int G, int causal,
+    int window, float scale) {
   constexpr int RW = flash_rows<HD, DV>();        // rows per CTA
   constexpr int LPK = lanes_per_key_qv<HD, DV>();  // lanes per key
   constexpr int VEC = HD / LPK;                   // q/k head dims per lane
@@ -115,7 +118,7 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
       const int r = row0 + i, s = r / G, g = r - s * G;
       Vec<float, VEC>::load(
           q + ((((int64_t)b * S + s) * KV + kvh) * G + g) * HD + d0, qr[i]);
-      hi[i] = causal ? s : S - 1;
+      hi[i] = causal ? s : T - 1;
       lo[i] = window ? max(s - window + 1, 0) : 0;
     } else {
       hi[i] = -1;
@@ -132,12 +135,12 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   }
   // the keys any row of the CTA can see: [k_lo, n_keys)
   const int s_first = row0 / G, s_last = (row0 + rows - 1) / G;
-  const int n_keys = causal ? s_last + 1 : S;
+  const int n_keys = causal ? s_last + 1 : T;
   const int k_lo = window ? max(s_first - window + 1, 0) : 0;
   const int64_t base_k =
-      (int64_t)b * S * KV * HD + (int64_t)kvh * HD + d0;
+      (int64_t)b * T * KV * HD + (int64_t)kvh * HD + d0;
   const int64_t base_v =
-      (int64_t)b * S * KV * DV + (int64_t)kvh * DV + e0;
+      (int64_t)b * T * KV * DV + (int64_t)kvh * DV + e0;
 
   // warp-uniform loop: group gi of warp w reads keys base + gi*U + u
   for (int base = k_lo + warp * STEP; base < n_keys; base += NW * STEP) {
@@ -251,18 +254,18 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
 // a multiple of the bf16 wgmma's 16-deep k-step), and returns -1 in bf16
 template <int HD, int DV = HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           void* out, float* lse, int B, int S, int KV, int G, int causal,
-           int window, float scale, cudaStream_t stream) {
+           void* out, float* lse, int B, int S, int T, int KV, int G,
+           int causal, int window, float scale, cudaStream_t stream) {
   if (dtype == 1) {
     if constexpr (HD % 16 == 0 && DV % 16 == 0) {
       CUtensorMap kmap, vmap;
-      int rc = encode_map<HD>(&kmap, k, KV, S, B, TILE);
-      if (rc == 0) rc = encode_map<DV>(&vmap, v, KV, S, B, TILE);
+      int rc = encode_map<HD>(&kmap, k, KV, T, B, TILE);
+      if (rc == 0) rc = encode_map<DV>(&vmap, v, KV, T, B, TILE);
       if (rc != 0) return rc;
       AttnParams p = {};
       p.q = (const __nv_bfloat16*)q;
       p.out = (__nv_bfloat16*)out;
-      p.S = S; p.KV = KV; p.G = G;
+      p.S = S; p.T = T; p.KV = KV; p.G = G;
       p.causal = causal; p.window = window; p.scale = scale;
       p.lse = lse;
       p.n_row_tiles = (S * G + TILE - 1) / TILE;
@@ -275,14 +278,15 @@ int launch(int dtype, const void* q, const void* k, const void* v,
   const dim3 grid(B, KV, (S * G + RW - 1) / RW);
   return launch_with_smem<NW * RW * DV * 4>(
       flash_simt_kernel<HD, DV>, grid, NT, stream, (const float*)q,
-      (const float*)k, (const float*)v, (float*)out, lse, S, KV, G, causal,
-      window, scale);
+      (const float*)k, (const float*)v, (float*)out, lse, S, T, KV, G,
+      causal, window, scale);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd_v: v's head dim (hd, or a pair
-// above); causal: 0 or 1; window: 0 for none; lse: null, or (B, S, H)
+// above); S: queries, T: keys (T != S only with causal = window = 0);
+// causal: 0 or 1; window: 0 for none; lse: null, or (B, S, H)
 // fp32 that receives each row's natural log-sum-exp of the scaled scores
 // (the backward's input).  Returns cudaGetLastError() after the launch (0
 // on success), -1 for a dtype / head dims it has no kernel for, -2 if
@@ -290,27 +294,28 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 extern "C" int repro_flash_attention(int dtype, int hd, int hd_v,
                                      const void* q, const void* k,
                                      const void* v, void* out, float* lse,
-                                     int B, int S, int KV, int G, int causal,
-                                     int window, float scale, void* stream) {
+                                     int B, int S, int T, int KV, int G,
+                                     int causal, int window, float scale,
+                                     void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 192 && hd_v == 128)
-    return launch<192, 128>(dtype, q, k, v, out, lse, B, S, KV, G, causal,
+    return launch<192, 128>(dtype, q, k, v, out, lse, B, S, T, KV, G, causal,
                             window, scale, st);
   if (hd == 24 && hd_v == 16)
-    return launch<24, 16>(dtype, q, k, v, out, lse, B, S, KV, G, causal,
+    return launch<24, 16>(dtype, q, k, v, out, lse, B, S, T, KV, G, causal,
                           window, scale, st);
   if (hd_v != hd) return -1;
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, out, lse, B, S, KV, G,
+    case 16: return launch<16>(dtype, q, k, v, out, lse, B, S, T, KV, G,
                                causal, window, scale, st);
-    case 32: return launch<32>(dtype, q, k, v, out, lse, B, S, KV, G,
+    case 32: return launch<32>(dtype, q, k, v, out, lse, B, S, T, KV, G,
                                causal, window, scale, st);
-    case 64: return launch<64>(dtype, q, k, v, out, lse, B, S, KV, G,
+    case 64: return launch<64>(dtype, q, k, v, out, lse, B, S, T, KV, G,
                                causal, window, scale, st);
-    case 128: return launch<128>(dtype, q, k, v, out, lse, B, S, KV, G,
+    case 128: return launch<128>(dtype, q, k, v, out, lse, B, S, T, KV, G,
                                  causal, window, scale, st);
-    case 256: return launch<256>(dtype, q, k, v, out, lse, B, S, KV, G,
+    case 256: return launch<256>(dtype, q, k, v, out, lse, B, S, T, KV, G,
                                  causal, window, scale, st);
     default: return -1;
   }

@@ -11,10 +11,11 @@
 // two as one torch.autograd.Function -> repro_flash_attention_bwd.
 //
 // Layouts are the forward's: q, out, dout and dq (B, S, H, hd); k, v, dk
-// and dv (B, S, KV, hd); lse and delta (B, S, H) fp32; head h = kvh * G +
-// g.  Rows are the (query, head) pairs r = s * G + g of one (b, kv head).
-// Query s sees key t iff t < S, t <= s when causal, and t > s - window
-// when window > 0 (the forward's masks).  From the forward's natural
+// and dv (B, T, KV, hd), T = S but for a cross attention, which has
+// neither mask; lse and delta (B, S, H) fp32; head h = kvh * G + g.  Rows
+// are the (query, head) pairs r = s * G + g of one (b, kv head).  Query s
+// sees key t iff t < T, t <= s when causal, and t > s - window when
+// window > 0 (the forward's masks).  From the forward's natural
 // log-sum-exp lse of each row's scaled scores, all in fp32:
 //   D  = rowsum(dO * O)                         flash_bwd_delta_kernel
 //   P  = exp(s * scale - lse), 0 where masked
@@ -102,7 +103,7 @@ constexpr int PAD = 4;          // floats past each shared tile row
 
 struct BwdParams {
   const void* q;                // (B, S, KV, G, hd)
-  const void* k;                // (B, S, KV, hd)
+  const void* k;                // (B, T, KV, hd)
   const void* v;
   const void* out;              // (B, S, KV, G, hd)
   const void* dout;
@@ -113,6 +114,7 @@ struct BwdParams {
   void* dv;
   int S, KV, G, causal, window;
   float scale;
+  int T;                        // keys: S but for a cross attention
   // bf16's row tiles (BwdPlan below): gt heads of nq queries, heads in
   // ngb blocks; the dQ kernel's row tiles
   int gt, nq, ngb, n_row_tiles;
@@ -123,7 +125,7 @@ __device__ __forceinline__ int key_lo(const BwdParams& p, int s) {
   return p.window ? max(s - p.window + 1, 0) : 0;
 }
 __device__ __forceinline__ int key_hi(const BwdParams& p, int s) {
-  return p.causal ? s : p.S - 1;
+  return p.causal ? s : p.T - 1;
 }
 
 // Shared memory of the dK/dV and dQ kernels at head dim HD, in floats:
@@ -190,7 +192,7 @@ __device__ __forceinline__ void load_rows(float* dst, const void* src,
   }
 }
 
-// keys t0 .. t0 + BT - 1 of (b, kvh) of a (B, S, KV, HD) tensor into dst
+// keys t0 .. t0 + BT - 1 of (b, kvh) of a (B, T, KV, HD) tensor into dst
 // as fp32, zeros from t_end on
 template <int HD>
 __device__ __forceinline__ void load_keys(float* dst, const void* src,
@@ -202,7 +204,7 @@ __device__ __forceinline__ void load_keys(float* dst, const void* src,
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (t0 + j < t_end)
       Vec<float, 4>::load(reinterpret_cast<const float*>(src) +
-                          (((int64_t)b * p.S + t0 + j) * p.KV + kvh) * HD + d,
+                          (((int64_t)b * p.T + t0 + j) * p.KV + kvh) * HD + d,
                       x);
     *reinterpret_cast<float4*>(dst + j * Smem<HD>::LD + d) =
         make_float4(x[0], x[1], x[2], x[3]);
@@ -253,7 +255,7 @@ __device__ __forceinline__ void tile_p_ds(const BwdParams& p,
   const int r = r0 + i;
   const bool row_ok = r < r_end;
   const int s = row_ok ? r / p.G : 0;
-  const int lo = key_lo(p, s), hi = min(key_hi(p, s), p.S - 1);
+  const int lo = key_lo(p, s), hi = min(key_hi(p, s), p.T - 1);
   const float l = lse_s[i], dd = d_s[i];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -302,7 +304,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   float* d_s = lse_s + BT;
 
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x - b * p.KV;
-  const int t0 = blockIdx.y * BT, t_end = min(t0 + BT, p.S);
+  const int t0 = blockIdx.y * BT, t_end = min(t0 + BT, p.T);
   load_keys<HD>(ks, p.k, p, b, kvh, t0, t_end);
   load_keys<HD>(vs, p.v, p, b, kvh, t0, t_end);
   // the rows that see any key of the tile
@@ -338,8 +340,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     }
   }
   const int t = t0 + j;
-  if (t >= p.S) return;
-  const int64_t at = (((int64_t)b * p.S + t) * p.KV + kvh) * HD;
+  if (t >= p.T) return;
+  const int64_t at = (((int64_t)b * p.T + t) * p.KV + kvh) * HD;
 #pragma unroll
   for (int c = 0; c < Cols<HD>::N; ++c) {
     const int col = c0 + 32 * c;
@@ -372,7 +374,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
   // the keys any row of the tile sees
   const int k_lo = key_lo(p, r0 / p.G);
-  const int k_hi = min(key_hi(p, (r_end - 1) / p.G), p.S - 1);
+  const int k_hi = min(key_hi(p, (r_end - 1) / p.G), p.T - 1);
   // thread (i, c0): row i, columns c0 + 32c
   const int i = threadIdx.x >> 3, c0 = (threadIdx.x & 7) * 4;
   float4 dq[Cols<HD>::N];
@@ -381,8 +383,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t0 = k_lo; t0 <= k_hi; t0 += BT) {
     __syncthreads();          // the last key tile's readers are done
-    load_keys<HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.S));
-    load_keys<HD>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.S));
+    load_keys<HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.T));
+    load_keys<HD>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.T));
     __syncthreads();
     tile_p_ds<HD>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, nullptr,
                   dss);
@@ -579,7 +581,7 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
 
   const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
   const int key0 = blockIdx.y * L::KEYS;
-  const int key_end = min(key0 + L::KEYS, p.S);
+  const int key_end = min(key0 + L::KEYS, p.T);
   // the queries that see a key of the tile: [s_lo, s_hi]
   const int s_lo = p.causal ? key0 : 0;
   const int s_hi =
@@ -605,12 +607,12 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
     // producer
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= 32) return;
-    // K and V once; a 64-key part past S reads from S - 1 (its keys are
+    // K and V once; a 64-key part past T reads from T - 1 (its keys are
     // masked), so no box lies wholly outside the tensor
 #pragma unroll
     for (int sub = 0; sub < L::SUBS; ++sub)
       DenseSrc::load_tile<HD, HD>(p, &kmap, &vmap, b, kvh,
-                                  min(key0 + TILE * sub, p.S - 1),
+                                  min(key0 + TILE * sub, p.T - 1),
                                   k_s + sub * T::BYTES, v_s + sub * T::BYTES,
                                   kv_full, smem0, lane);
     for (int i = 0; i < n_tiles; ++i) {
@@ -660,7 +662,7 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
     mbar_wait(full(st), (i / L::NST) & 1);
     // Masks only where some pair of the tile is not visible.  Key t sees
     // the rows n (query s0 + n / gt) with from <= n < to: causal, n >= (t
-    // - s0) gt; a window, n < (t - s0 + window) gt; keys >= S none.  Held
+    // - s0) gt; a window, n < (t - s0 + window) gt; keys >= T none.  Held
     // as from - 2 tq and to - 2 tq, against the thread's row offsets,
     // which are constants
     const bool masked = kw0 < DenseSrc::bounds(p, b, s1).x ||
@@ -671,7 +673,7 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
       for (int h = 0; h < 2; ++h) {
         const int key = my_key + 8 * h, d = key - s0;
         from[h] = (p.causal ? d * p.gt
-                            : key < p.S ? 0 : TILE) - 2 * tq;
+                            : key < p.T ? 0 : TILE) - 2 * tq;
         to[h] = (p.window ? min(d + p.window, TILE) * p.gt : TILE * TILE) -
                 2 * tq;
       }
@@ -753,8 +755,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = my_key + 8 * h;
-    if (key >= p.S) continue;
-    const int64_t at = (((int64_t)b * p.S + key) * p.KV + kvh) * HD;
+    if (key >= p.T) continue;
+    const int64_t at = (((int64_t)b * p.T + key) * p.KV + kvh) * HD;
     __nv_bfloat16* dkp = reinterpret_cast<__nv_bfloat16*>(p.dk) + at;
     __nv_bfloat16* dvp = reinterpret_cast<__nv_bfloat16*>(p.dv) + at;
 #pragma unroll
@@ -941,7 +943,7 @@ int launch_fp32(const BwdParams& p, int B, cudaStream_t stream) {
   int rc = launch_delta<float, HD>(p, B, stream);
   if (rc != 0) return rc;
   rc = launch_with_smem<Smem<HD>::BYTES>(
-      flash_bwd_dkdv_kernel<HD>, dim3(B * p.KV, (p.S + BT - 1) / BT),
+      flash_bwd_dkdv_kernel<HD>, dim3(B * p.KV, (p.T + BT - 1) / BT),
       NT, stream, p);
   if (rc != 0) return rc;
   return launch_with_smem<Smem<HD>::BYTES>(
@@ -972,15 +974,15 @@ int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
   const uint64_t rows[4] = {(uint64_t)p.G, (uint64_t)p.KV, (uint64_t)p.S,
                             (uint64_t)B};
   const uint32_t box[4] = {(uint32_t)p.gt, 1, (uint32_t)p.nq, 1};
-  int rc = encode_map<HD>(&kmap, p.k, p.KV, p.S, B, TILE);
-  if (rc == 0) rc = encode_map<HD>(&vmap, p.v, p.KV, p.S, B, TILE);
+  int rc = encode_map<HD>(&kmap, p.k, p.KV, p.T, B, TILE);
+  if (rc == 0) rc = encode_map<HD>(&vmap, p.v, p.KV, p.T, B, TILE);
   if (rc == 0) rc = encode_tiled<HD, 5>(&qmap, p.q, rows, box);
   if (rc == 0) rc = encode_tiled<HD, 5>(&dmap, p.dout, rows, box);
   if (rc == 0) rc = launch_delta<__nv_bfloat16, HD>(p, B, stream);
   if (rc == 0)
     rc = launch_sm90_kernel(
         flash_bwd_dkdv_sm90_kernel<HD>,
-        dim3(B * p.KV, (p.S + KvPlan<HD>::KEYS - 1) / KvPlan<HD>::KEYS),
+        dim3(B * p.KV, (p.T + KvPlan<HD>::KEYS - 1) / KvPlan<HD>::KEYS),
         KV_THREADS, KvPlan<HD>::SMEM, stream, kmap, vmap, qmap, dmap, p);
   if (rc == 0)
     rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD>,
@@ -1000,7 +1002,8 @@ int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; hd: q/k/v's head dim, 16 to 256;
 // lse: the forward's (B, S, H) fp32 log-sum-exp; delta: (B, S, H) fp32
-// scratch; dq, dk, dv: outputs in the inputs' dtype; causal: 0 or 1;
+// scratch; dq, dk, dv: outputs in the inputs' dtype; S: queries, T: keys
+// (T != S only with causal = window = 0); causal: 0 or 1;
 // window: 0 for none; scale: the forward's.  Launches three kernels on
 // ``stream``: bf16 the tensor-core kernels, fp32 the CUDA-core ones.
 // Returns cudaGetLastError() after the first that fails (0 on success),
@@ -1009,11 +1012,11 @@ int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
 extern "C" int repro_flash_attention_bwd(
     int dtype, int hd, const void* q, const void* k, const void* v,
     const void* out, const void* dout, const float* lse, float* delta,
-    void* dq, void* dk, void* dv, int B, int S, int KV, int G, int causal,
-    int window, float scale, void* stream) {
+    void* dq, void* dk, void* dv, int B, int S, int T, int KV, int G,
+    int causal, int window, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   BwdParams p = {q, k, v, out, dout, lse, delta, dq, dk, dv,
-                 S, KV, G, causal, window, scale};
+                 S, KV, G, causal, window, scale, T};
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16: return launch_dtype<16>(dtype, p, B, st);

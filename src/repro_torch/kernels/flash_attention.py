@@ -11,7 +11,10 @@ the CUDA-core ones.
 :func:`flash_attention_bshd` reads q/k/v in the model's ``(B, S, H, hd)``
 / ``(B, S, KV, hd)`` layout, so the TPU wrapper's transposes and pad copies
 are gone.  v may be narrower than q and k (MLA's prefill: q/k 192, v 128),
-as the TPU kernel's jnp oracle allows (``flash_attention_jnp``).  It takes CUDA tensors only: it allocates the output, launches
+as the TPU kernel's jnp oracle allows (``flash_attention_jnp``), and k/v
+may hold T keys other than the S queries (whisper's cross attention over
+its encoder states) where neither mask is asked for.  It takes CUDA
+tensors only: it allocates the output, launches
 the kernel on PyTorch's current stream without synchronising, raises if
 the launch reports an error, and adds one to its count in
 :data:`repro_torch.kernels.LAUNCHES`.  :func:`check_args` validates a call
@@ -39,11 +42,11 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("flash_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, hd_v, q, k, v, out, lse, B, S, KV, G, causal,
+        # (dtype, hd, hd_v, q, k, v, out, lse, B, S, T, KV, G, causal,
         #  window, scale, stream)
         lib.repro_flash_attention.argtypes = [
             i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            i32, ctypes.c_float, ptr]
+            i32, i32, ctypes.c_float, ptr]
         lib.repro_flash_attention.restype = i32
         _lib = lib
     return _lib
@@ -54,11 +57,11 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = build.load("flash_attention_bwd.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, KV,
-        #  G, causal, window, scale, stream)
+        # (dtype, hd, q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T,
+        #  KV, G, causal, window, scale, stream)
         lib.repro_flash_attention_bwd.argtypes = [
             i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-            i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+            i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
         lib.repro_flash_attention_bwd.restype = i32
         lib.repro_flash_bwd_smem.argtypes = [i32, i32]
         lib.repro_flash_bwd_smem.restype = i32
@@ -66,11 +69,12 @@ def _bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
-def check_args(q, k, v, window: int):
-    """Validate q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd_v): hd_v is hd,
+def check_args(q, k, v, window: int, causal: bool):
+    """Validate q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,hd_v): hd_v is hd,
     or with hd a pair of :data:`repro_torch.kernels.FLASH_QK_V_DIMS` in a
-    dtype it is built for.  Raises ``ValueError`` on anything the kernel
-    does not take."""
+    dtype it is built for; T is S, or any other key count where neither
+    ``causal`` nor ``window`` masks (a cross attention).  Raises
+    ``ValueError`` on anything the kernel does not take."""
     name = "flash_attention"
     tensors = {"q": q, "k": k, "v": v}
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -85,11 +89,17 @@ def check_args(q, k, v, window: int):
         dtype = check_floats(name, tensors, floats=("q", "k", "v"))
         check_dims(name, "(q/k, v) head dims", (hd, hd_v), dtype,
                    FLASH_QK_V_DIMS)
-    if tuple(k.shape[:2]) != (B, S) or k.shape[3] != hd or \
+    if k.shape[0] != B or k.shape[1] < 1 or k.shape[3] != hd or \
             v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"{name}: k must be (B={B}, S={S}, KV, hd={hd}) "
-                         f"and v (B, S, KV, hd_v), got {tuple(k.shape)} and "
+        raise ValueError(f"{name}: k must be (B={B}, T, KV, hd={hd}) and v "
+                         f"(B, T, KV, hd_v), got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
+    T = k.shape[1]
+    if T != S and (causal or window):
+        raise ValueError(f"{name}: {S} queries over {T} keys take neither "
+                         f"a causal mask nor a window (causal={causal}, "
+                         f"window={window}): only a cross attention has "
+                         f"T != S")
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{name}: {H} query heads do not group over {KV} "
@@ -102,20 +112,20 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
     """The forward's one launch; with ``lse`` (B,S,H) fp32 it also writes
     there each row's natural log-sum-exp of its scaled scores, which the
     backward reads."""
-    check_args(q, k, v, window)
+    check_args(q, k, v, window, causal)
     tensors = {"q": q, "k": k, "v": v}
     if lse is not None:
         tensors["lse"] = lse
     check_cuda("flash_attention", tensors)
     B, S, H, hd = q.shape
-    KV, hd_v = k.shape[2], v.shape[3]
+    T, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((B, S, H, hd_v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().repro_flash_attention(
             DTYPE_CODE[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, S, KV, H // KV,
+            None if lse is None else lse.data_ptr(), B, S, T, KV, H // KV,
             int(causal), int(window), 1.0 / math.sqrt(hd), stream)
     check_launch("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
@@ -123,10 +133,10 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd), k: (B,S,KV,hd), v: (B,S,KV,hd_v) -> (B,S,H,hd_v), at
+    """q: (B,S,H,hd), k: (B,T,KV,hd), v: (B,T,KV,hd_v) -> (B,S,H,hd_v), at
     scale 1/sqrt(hd).  Query s sees key t iff ``t <= s`` when ``causal``
     and ``t > s - window`` when ``window``; ``causal=False, window=0`` is
-    bidirectional."""
+    bidirectional, and only it takes T != S."""
     return _forward(q, k, v, causal, window)
 
 
@@ -148,14 +158,14 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     """The gradients (dq, dk, dv) of :func:`flash_attention_bshd`'s output
     ``out`` for the upstream gradient ``dout`` (B,S,H,hd), from the
     forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
-    and dv sum over each kv head's G query heads.  In q's dtype, fp32
-    inside.  bf16 runs the kernels on ``wgmma`` (P and dS as bf16 hi +
-    lo), fp32 the kernels on the CUDA cores: the C entry point picks them
-    by the dtype code.  CUDA tensors only; one call is three launches (D,
-    then dK / dV, then dQ), counted once in
+    and dv (B,T,KV,hd) sum over each kv head's G query heads.  In q's
+    dtype, fp32 inside.  bf16 runs the kernels on ``wgmma`` (P and dS as
+    bf16 hi + lo), fp32 the kernels on the CUDA cores: the C entry point
+    picks them by the dtype code.  CUDA tensors only; one call is three
+    launches (D, then dK / dV, then dQ), counted once in
     :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
-    check_args(q, k, v, window)
+    check_args(q, k, v, window, causal)
     check_bwd_dims(q, v)
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
@@ -167,7 +177,7 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, H):
         raise ValueError(f"{name}: lse must be fp32 ({B}, {S}, {H}), got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
@@ -176,7 +186,7 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
             DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-            S, KV, H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
+            S, T, KV, H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
             stream)
     check_launch(name, rc)
     LAUNCHES[name] += 1

@@ -13,12 +13,17 @@ kernel gives a CTA one row tile and walks the 64-key tiles its queries
 see (:func:`dq_keys`).  A (64-key, row tile) pair is masked pair by pair
 only where some pair of it is not visible (:func:`tile_masked`).
 
+Keys count T, which is S but for a cross attention (whisper's decoder
+over its encoder states, neither mask): the dK / dV grid runs over the T
+keys, the dQ grid and the row tiles over the S queries.  Every function
+that takes S takes ``T`` too, None for T = S.
+
 Nothing here runs on the card: the kernels compute the same plan from
 the shapes themselves.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, NamedTuple, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -61,65 +66,69 @@ def row_tile(rt: int, S: int, G: int) -> Tuple[int, int, int, int]:
     return qi * nq, min(qi * nq + nq, S), gb * gt, min(gb * gt + gt, G)
 
 
-def bounds(s: int, S: int, causal: bool, window: int) -> Tuple[int, int]:
-    """The keys lo <= t <= hi query s sees (``DenseSrc::bounds``)."""
+def bounds(s: int, T: int, causal: bool, window: int) -> Tuple[int, int]:
+    """The keys lo <= t <= hi query s sees among T keys
+    (``DenseSrc::bounds``)."""
     return (max(s - window + 1, 0) if window else 0,
-            s if causal else S - 1)
+            s if causal else T - 1)
 
 
-def dkdv_queries(k0: int, S: int, hd: int, causal: bool,
-                 window: int) -> Tuple[int, int]:
+def dkdv_queries(k0: int, S: int, hd: int, causal: bool, window: int,
+                 T: Optional[int] = None) -> Tuple[int, int]:
     """The queries [s_lo, s_hi] that see a key of the key tile from k0."""
-    k1 = min(k0 + key_tile(hd), S)
+    k1 = min(k0 + key_tile(hd), S if T is None else T)
     s_lo = k0 if causal else 0
     s_hi = min(S - 1, k1 - 1 + window - 1) if window else S - 1
     return s_lo, s_hi
 
 
 def dkdv_row_tiles(k0: int, S: int, G: int, hd: int, causal: bool,
-                   window: int) -> List[int]:
+                   window: int, T: Optional[int] = None) -> List[int]:
     """The row tiles the key tile from k0 walks, in order."""
     _, nq, ngb, _ = row_tiles(S, G)
-    s_lo, s_hi = dkdv_queries(k0, S, hd, causal, window)
+    s_lo, s_hi = dkdv_queries(k0, S, hd, causal, window, T)
     return list(range(s_lo // nq * ngb, (s_hi // nq + 1) * ngb))
 
 
-def dq_keys(rt: int, S: int, G: int, causal: bool,
-            window: int) -> List[int]:
+def dq_keys(rt: int, S: int, G: int, causal: bool, window: int,
+            T: Optional[int] = None) -> List[int]:
     """The first keys of the 64-key tiles row tile ``rt`` walks."""
+    T = S if T is None else T
     s0, s1, _, _ = row_tile(rt, S, G)
-    beg = bounds(s0, S, causal, window)[0]
-    end = bounds(s1 - 1, S, causal, window)[1] + 1
+    beg = bounds(s0, T, causal, window)[0]
+    end = bounds(s1 - 1, T, causal, window)[1] + 1
     t0 = beg - beg % SUB_TILE
     return list(range(t0, end, SUB_TILE)) if end > beg else []
 
 
-def tile_masked(kw0: int, s0: int, s1: int, S: int, causal: bool,
+def tile_masked(kw0: int, s0: int, s1: int, T: int, causal: bool,
                 window: int) -> bool:
     """Whether the pair (keys kw0 .. kw0 + 63, queries [s0, s1)) is masked
-    pair by pair: some query of it does not see every key (keys >= S
+    pair by pair: some query of it does not see every key (keys >= T
     included)."""
-    return (kw0 < bounds(s1 - 1, S, causal, window)[0] or
-            kw0 + SUB_TILE - 1 > bounds(s0, S, causal, window)[1])
+    return (kw0 < bounds(s1 - 1, T, causal, window)[0] or
+            kw0 + SUB_TILE - 1 > bounds(s0, T, causal, window)[1])
 
 
-def key_rows(key: int, s0: int, gt: int, S: int, causal: bool,
+def key_rows(key: int, s0: int, gt: int, T: int, causal: bool,
              window: int) -> Tuple[int, int]:
     """The rows from <= n < to of a row tile from query s0 (row n is query
     s0 + n // gt) that key ``key`` is visible to, as the dK / dV kernel
     masks a masked pair: causal, n >= (key - s0) gt; a window, n < (key -
-    s0 + window) gt; none for a key >= S."""
+    s0 + window) gt; none for a key >= T."""
     d = key - s0
-    start = d * gt if causal else (0 if key < S else ROW_TILE)
+    start = d * gt if causal else (0 if key < T else ROW_TILE)
     end = min(d + window, ROW_TILE) * gt if window else ROW_TILE ** 2
     return start, end
 
 
-def visible(S: int, G: int, causal: bool, window: int) -> np.ndarray:
-    """(S * G, S) bool: row r = s * G + g sees key t."""
+def visible(S: int, G: int, causal: bool, window: int,
+            T: Optional[int] = None) -> np.ndarray:
+    """(S * G, T) bool: row r = s * G + g sees key t."""
+    T = S if T is None else T
     s = np.arange(S * G)[:, None] // G
-    t = np.arange(S)[None, :]
-    ok = np.ones((S * G, S), dtype=bool)
+    t = np.arange(T)[None, :]
+    ok = np.ones((S * G, T), dtype=bool)
     if causal:
         ok &= t <= s
     if window:
@@ -128,53 +137,55 @@ def visible(S: int, G: int, causal: bool, window: int) -> np.ndarray:
 
 
 def tile_pairs(kernel: str, kw0: int, rt: int, S: int, G: int,
-               causal: bool, window: int
+               causal: bool, window: int, T: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(rows, keys, ok): the existing rows and keys < S of a (64-key part,
+    """(rows, keys, ok): the existing rows and keys < T of a (64-key part,
     row tile) pair, and which pairs of them ``kernel`` lets into its sums:
     all on an unmasked pair; on a masked pair the dK / dV kernel's rows
     :func:`key_rows` of each key, the dQ kernel's keys in each row's
     :func:`bounds`."""
+    T = S if T is None else T
     s0, s1, g0, g1 = row_tile(rt, S, G)
     gt = row_tiles(S, G).gt
     n = (np.arange(s1 - s0)[:, None] * gt +
          np.arange(g1 - g0)[None, :]).ravel()      # row in the tile
     rows = s0 * G + n // gt * G + g0 + n % gt
-    keys = np.arange(kw0, min(kw0 + SUB_TILE, S))
-    if not tile_masked(kw0, s0, s1, S, causal, window):
+    keys = np.arange(kw0, min(kw0 + SUB_TILE, T))
+    if not tile_masked(kw0, s0, s1, T, causal, window):
         ok = np.ones((rows.size, keys.size), dtype=bool)
     elif kernel == "dkdv":
-        span = np.array([key_rows(t, s0, gt, S, causal, window)
+        span = np.array([key_rows(t, s0, gt, T, causal, window)
                          for t in keys]).reshape(-1, 2)
         ok = (n[:, None] >= span[None, :, 0]) & (n[:, None] < span[None, :, 1])
     else:
-        lohi = np.array([bounds(s, S, causal, window) for s in rows // G])
+        lohi = np.array([bounds(s, T, causal, window) for s in rows // G])
         ok = ((keys[None, :] >= lohi[:, :1]) & (keys[None, :] <= lohi[:, 1:]))
     return rows, keys, ok
 
 
-def walk(kernel: str, S: int, G: int, hd: int, causal: bool,
-         window: int) -> Iterator[Tuple[int, int]]:
+def walk(kernel: str, S: int, G: int, hd: int, causal: bool, window: int,
+         T: Optional[int] = None) -> Iterator[Tuple[int, int]]:
     """The (first key of a 64-key part, row tile) pairs ``kernel`` ("dkdv"
     or "dq") visits over its whole grid, each once (at hd 256 the dK / dV
     kernel's two warpgroups share one part)."""
     if kernel == "dkdv":
-        for k0 in range(0, S, key_tile(hd)):
+        for k0 in range(0, S if T is None else T, key_tile(hd)):
             for kw0 in range(k0, k0 + key_tile(hd), SUB_TILE):
-                for rt in dkdv_row_tiles(k0, S, G, hd, causal, window):
+                for rt in dkdv_row_tiles(k0, S, G, hd, causal, window, T):
                     yield kw0, rt
     else:
         for rt in range(row_tiles(S, G).n):
-            for t0 in dq_keys(rt, S, G, causal, window):
+            for t0 in dq_keys(rt, S, G, causal, window, T):
                 yield t0, rt
 
 
 def coverage(kernel: str, S: int, G: int, hd: int, causal: bool,
-             window: int) -> np.ndarray:
-    """(S * G, S) int: how often ``kernel`` lets each (row, key) pair into
+             window: int, T: Optional[int] = None) -> np.ndarray:
+    """(S * G, T) int: how often ``kernel`` lets each (row, key) pair into
     its sums over its whole grid."""
-    cover = np.zeros((S * G, S), dtype=np.int64)
-    for kw0, rt in walk(kernel, S, G, hd, causal, window):
-        rows, keys, ok = tile_pairs(kernel, kw0, rt, S, G, causal, window)
+    cover = np.zeros((S * G, S if T is None else T), dtype=np.int64)
+    for kw0, rt in walk(kernel, S, G, hd, causal, window, T):
+        rows, keys, ok = tile_pairs(kernel, kw0, rt, S, G, causal, window,
+                                    T)
         cover[np.ix_(rows, keys)] += ok
     return cover

@@ -18,18 +18,20 @@ NEG_INF = -2.0e38
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q, k: (B,S,H,hd), (B,S,KV,hd); v: (B,S,KV,hd_v), where hd_v may be
-    narrower than hd (MLA's prefill).  Masked full attention at scale
-    1/sqrt(hd): query s sees key t iff ``t <= s`` (causal) and ``t > s -
-    window`` (window).  Returns (B,S,H,hd_v)."""
+    """q, k: (B,S,H,hd), (B,T,KV,hd); v: (B,T,KV,hd_v), where hd_v may be
+    narrower than hd (MLA's prefill) and T is S, or another key count for
+    a cross attention (``causal=False, window=0``: each query sees all T
+    keys).  Masked full attention at scale 1/sqrt(hd): query s sees key t
+    iff ``t <= s`` (causal) and ``t > s - window`` (window).  Returns
+    (B,S,H,hd_v); under autograd its gradient is the plain backward."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
     qi = torch.arange(S, device=q.device)[:, None]
-    si = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    si = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
         ok &= si <= qi
     if window:

@@ -1,5 +1,9 @@
 """Step builders of the port (``repro.launch.steps``): the train step the
 training driver runs, and the prefill and decode steps of the model API.
+They take every family's batch as ``api`` does: ``{"tokens"}``, with
+``"frames"`` for the encoder-decoder (whisper-base, whose train step runs
+here on ``{"frames", "tokens"}``; the training driver feeds tokens only)
+and ``"patches"`` for the VLM.
 
 The JAX module also builds the sharding specs of every (arch x shape)
 cell (``cache_specs``, ``batch_shardings``, ``opt_shardings``, ...); they

@@ -29,6 +29,11 @@ every run on the machine, and ``Checkpointer.restore`` refuses only a
 step of another shape.
 ``--production-mesh`` and any ``--policy`` but ``broadcast`` name
 shardings, which come with the multi-device port (Queue 1, item 8).
+An encoder-decoder config (whisper-base) raises ``ValueError`` before
+its first step: the driver feeds token batches only, as JAX's does,
+whose first step then fails on the missing ``frames``; its train step
+runs through ``steps.make_train_step`` on a ``{"frames", "tokens"}``
+batch.
 """
 from __future__ import annotations
 
@@ -85,6 +90,13 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
     record: ``step``, ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``
     (floats) and ``ms``, the step's host wall time up to its metrics on
     the host.  Returns ``{"params", "opt", "start", "history"}``."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the training driver feeds token batches only, and "
+            f"the encoder-decoder family's loss needs frames too (JAX's "
+            f"driver fails at its first step on batch['frames']); train it "
+            f"through steps.make_train_step on a {{'frames', 'tokens'}} "
+            f"batch")
     dev = resolve_device(device)
     params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     opt = adamw_init(params)

@@ -1,7 +1,7 @@
 """Family-dispatching model API of the port (``repro.models.api``).
 
-Every decoder arch the port serves exposes the same step functions
-(dense / moe / ssm / hybrid / vlm):
+Every arch of the port exposes the same step functions
+(dense / moe / ssm / hybrid / encdec / vlm):
 
   init(generator, cfg, device)            -> params
   loss_fn(params, cfg, batch)             -> (loss, (ce, aux))  [train_step]
@@ -12,12 +12,11 @@ Every decoder arch the port serves exposes the same step functions
   input_batch(cfg, shape_kind, batch, seq, generator, device)
                                           -> concrete inputs
 
-As in JAX, ``input_batch`` gives the modality frontend's stubs: internvl
-gets patch embeddings.  ``init`` returns the parameter tree alone: JAX's
-logical axes name shardings, which come with the multi-device port
-(ROADMAP.md, Queue 1, item 8).  The encoder-decoder family (whisper-base)
-raises in every function (Queue 1, item 13), and the dry run's shape-only
-``abstract_params`` / ``input_specs`` raise until item 9.
+As in JAX, ``input_batch`` gives the modality frontend's stubs: whisper
+gets frame embeddings, internvl patch embeddings.  ``init`` returns the
+parameter tree alone: JAX's logical axes name shardings, which come with
+the multi-device port (ROADMAP.md, Queue 1, item 8).  The dry run's
+shape-only ``abstract_params`` / ``input_specs`` raise until item 9.
 """
 from __future__ import annotations
 
@@ -26,16 +25,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models import vlm
 from repro_torch.models.weights import init_params
-
-
-def _no_encdec(cfg, what: str) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{what} for {cfg.name}: the encoder-decoder family is not in "
-            f"the port yet: ROADMAP.md, Queue 1, item 13")
 
 
 def _dry_run(what: str) -> NotImplementedError:
@@ -47,7 +40,6 @@ def _dry_run(what: str) -> NotImplementedError:
 def init(generator: torch.Generator, cfg, device="cuda"):
     """The port's seeded init (:func:`weights.init_params`), JAX's
     distributions drawn from ``generator``, which lives on ``device``."""
-    _no_encdec(cfg, "init")
     return init_params(cfg, generator, device)
 
 
@@ -58,8 +50,10 @@ def abstract_params(cfg):
 # ----------------------------------------------------------------------
 def loss_fn(params, cfg, batch):
     """``(loss + aux, (ce, aux))`` of a batch: ``{"tokens"}``, plus
-    ``"patches"`` for the VLM and an optional ``"targets"``."""
-    _no_encdec(cfg, "loss_fn")
+    ``"frames"`` for the encoder-decoder, ``"patches"`` for the VLM and an
+    optional ``"targets"``."""
+    if cfg.family == "encdec":
+        return encdec.loss(params, cfg, batch["frames"], batch["tokens"])
     if cfg.family == "vlm":
         return vlm.loss(params, cfg, batch["patches"], batch["tokens"])
     return tfm.lm_loss(params, cfg, batch["tokens"],
@@ -67,7 +61,9 @@ def loss_fn(params, cfg, batch):
 
 
 def forward_fn(params, cfg, batch):
-    _no_encdec(cfg, "forward_fn")
+    if cfg.family == "encdec":
+        enc = encdec.encode(params, batch["frames"], cfg)
+        return encdec.decode_full(params, batch["tokens"], enc, cfg)
     if cfg.family == "vlm":
         return vlm.forward(params, cfg, batch["patches"], batch["tokens"])[0]
     return tfm.forward(params, cfg, tokens=batch["tokens"])[0]
@@ -75,12 +71,18 @@ def forward_fn(params, cfg, batch):
 
 def init_caches(cfg, batch: int, max_len: int, enc_len: int = 0,
                 device="cuda"):
-    _no_encdec(cfg, "init_caches")
+    """The caches of ``batch`` rows of ``max_len`` positions; the
+    encoder-decoder's cross caches hold ``enc_len or max_len`` rows."""
+    if cfg.family == "encdec":
+        return encdec.init_caches(cfg, batch, max_len, enc_len or max_len,
+                                  resolve_device(device))
     return tfm.init_caches(cfg, batch, max_len, resolve_device(device))
 
 
 def prefill_fn(params, cfg, batch, caches):
-    _no_encdec(cfg, "prefill_fn")
+    if cfg.family == "encdec":
+        return encdec.prefill(params, batch["tokens"], batch["frames"], cfg,
+                              caches)
     if cfg.family == "vlm":
         return vlm.prefill(params, cfg, batch["patches"], batch["tokens"],
                            caches)
@@ -88,7 +90,9 @@ def prefill_fn(params, cfg, batch, caches):
 
 
 def decode_fn(params, cfg, batch, caches):
-    _no_encdec(cfg, "decode_fn")
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, batch["tokens"], caches,
+                                  batch["pos"], cfg)
     return tfm.decode_step(params, cfg, batch["tokens"], caches,
                            batch["pos"])
 
@@ -97,16 +101,20 @@ def decode_fn(params, cfg, batch, caches):
 def input_batch(cfg, shape_kind: str, batch: int, seq: int,
                 generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Concrete random inputs with JAX's shapes and dtypes (``api.py:
-    81-99``): int32 tokens (B, seq) below ``vocab``, the VLM's
-    fp32 patches (B, min(n_patches, seq), d_model) before max(seq -
-    n_patches, 1) tokens; ``decode`` keeps the first token and adds
-    ``pos`` (B,) int32 = seq - 1.  Draws come from ``generator``, which
-    lives on ``device``; they are not JAX's draws."""
-    _no_encdec(cfg, "input_batch")
+    81-99``): int32 tokens (B, seq) below ``vocab``, the encoder-decoder's
+    fp32 frames (B, seq, d_model) beside them, the VLM's fp32 patches (B,
+    min(n_patches, seq), d_model) before max(seq - n_patches, 1) tokens;
+    ``decode`` keeps the first token and adds ``pos`` (B,) int32 = seq -
+    1.  Draws come from ``generator``, which lives on ``device``; they are
+    not JAX's draws."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     tok_seq = seq
-    if cfg.family == "vlm":
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, seq, cfg.d_model),
+                                    generator=generator, device=dev,
+                                    dtype=torch.float32)
+    elif cfg.family == "vlm":
         npatch = min(cfg.n_patches, seq)
         out["patches"] = torch.randn((batch, npatch, cfg.d_model),
                                      generator=generator, device=dev,

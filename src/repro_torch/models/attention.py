@@ -1,7 +1,10 @@
 """Attention of the port, the GQA subset of ``repro.models.attention``:
 full-sequence causal prefill, dense-cache decode, and the paged decode and
 extend steps, for kinds ``causal``, ``global`` and ``local`` (a sliding
-window of ``cfg.window`` keys, RoPE at ``cfg.rope_local_base``).
+window of ``cfg.window`` keys, RoPE at ``cfg.rope_local_base``), and the
+encoder-decoder's full-sequence kinds ``bidir`` (the encoder's
+self-attention) and ``cross`` (the decoder over the encoder states), both
+without RoPE (``attention.py:256-274``).
 
 Dense caches are ``{"k", "v"}`` of ``(B, L, KV, hd)`` per layer.  A local
 layer whose window is shorter than the cache keeps a ring instead
@@ -20,7 +23,10 @@ these paths runs through :mod:`repro_torch.kernels.ops`: the Hopper
 kernels on CUDA tensors, the plain versions on the CPU.  Unlike the JAX
 package, which sends prefills shorter than 128 tokens to its plain
 ``mha``, every causal prefill goes through ``flash_attention``, so no
-plain attention runs on the card.
+plain attention runs on the card.  So do ``bidir`` and ``cross`` (JAX
+runs ``mha`` below 1,024 tokens, which rounds P to the activation dtype;
+flash keeps P in fp32): ``cross`` at a key count T of its own, the
+encoder's length.
 
 MLA (deepseek-v2-lite, ``attention.py:565-646``) keeps a compressed
 cache per layer, ``{"ckv" (B, L, kv_lora_rank), "krope" (B, L,
@@ -98,33 +104,42 @@ _NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item 6 (the " \
 
 
 def _check_kind(kind: str, cfg):
-    if kind not in ("causal", "global", "local"):
+    if kind not in ("causal", "global", "local", "bidir", "cross"):
         raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
     if cfg.attn_softcap:
         raise NotImplementedError(f"attn_softcap {_NOT_PORTED}")
 
 
 def _rope_base(cfg, kind: str) -> float:
-    """gemma3's dual base: local layers rotate at ``rope_local_base``
-    (``attention.py:262-263``)."""
+    """gemma3's dual base: local layers rotate at ``rope_local_base``;
+    ``bidir`` and ``cross`` do not rotate (``attention.py:262-263``)."""
+    if kind in ("bidir", "cross"):
+        return 0.0
     return cfg.rope_local_base if kind == "local" else cfg.rope_base
 
 
-def attn_forward(params, x, cfg, *, kind: str, positions=None, qkv=None):
-    """Full-sequence causal attention (``attention.py:256-301``) for kinds
-    ``causal``, ``global`` and ``local`` (query s sees keys ``t > s -
-    window`` too), through ``kops.flash_attention`` at every S.  x:
-    (B,S,d); ``qkv`` reuses projections the caller already made."""
+def attn_forward(params, x, cfg, *, kind: str, positions=None,
+                 encoder_kv=None, qkv=None):
+    """Full-sequence attention (``attention.py:256-301``) through
+    ``kops.flash_attention`` at every S: causal for kinds ``causal``,
+    ``global`` and ``local`` (query s sees keys ``t > s - window`` too),
+    bidirectional for ``bidir``, and for ``cross`` q from x over k/v
+    projected from ``encoder_kv`` (B,T,d), every query seeing all T keys.
+    x: (B,S,d); ``qkv`` reuses projections the caller already made."""
     _check_kind(kind, cfg)
     B, S, _ = x.shape
     if qkv is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
-        qkv = _project_qkv(params, x, x, cfg, positions, positions,
+        xkv = encoder_kv if kind == "cross" else x
+        pos_kv = positions if kind != "cross" else torch.arange(
+            xkv.shape[1], device=x.device)[None, :]
+        qkv = _project_qkv(params, x, xkv, cfg, positions, pos_kv,
                            _rope_base(cfg, kind))
     q, k, v = (t.contiguous() for t in qkv)
     window = cfg.window if kind == "local" else 0
-    out = kops.flash_attention(q, k, v, causal=True, window=window)
+    causal = kind not in ("bidir", "cross")
+    out = kops.flash_attention(q, k, v, causal=causal, window=window)
     return out.reshape(B, S, -1) @ params["wo"]
 
 

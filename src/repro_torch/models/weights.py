@@ -27,6 +27,11 @@ is ``{"ln1": {"w"}, "mixer": {"in_proj", "conv_w", "conv_b", "x_proj",
 and a kind-``R`` (RG-LRU) layer is ``{"ln1": {"w"}, "mixer": {"in_x",
 "in_gate", "conv_w", "conv_b", "w_a", "b_a", "w_i", "b_i", "lambda",
 "out"}, "ln2": {"w"}, "ffn"}`` (``rglru.py:20-36``).
+The encoder-decoder family (whisper-base) has a tree of its own
+(``encdec.py:41-68``): ``{"embedding": {"table"}, "enc": {"ln1",
+"self": {"wq", "wk", "wv", "wo"}, "ln2", "ffn"}, "dec": {"ln1", "self",
+"ln_x", "cross", "ln2", "ffn"}, "enc_norm", "dec_norm", "lm_head"}``,
+its layers stacked ``(enc_layers, ...)`` and ``(dec_layers, ...)``.
 Layer leaves are stacked ``(repeats, ...)``.  Flat keys are the tree
 paths ``checkpointer.py:25-31`` writes: ``groups/0/0/mixer/wq`` and so
 on.
@@ -56,12 +61,9 @@ _Spec = Tuple[Tuple[int, ...], str]
 
 def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
     """Flat key -> (repeats or 0 for unstacked, (per-layer shape, init))."""
-    d, H, KV, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not in the port yet: "
-            f"ROADMAP.md, Queue 1, item 13")
+        return _encdec_specs(cfg)
     norm_init = "zeros" if cfg.rms_plus_one else "ones"
     specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding"))}
     specs.update(_norm_specs(cfg, "final_norm", 0, norm_init))
@@ -82,17 +84,12 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
                     f"and M (rmsnorm or layernorm, swiglu, geglu or "
                     f"gelu_mlp) and kind-S and kind-R layers are in the port "
                     f"yet: ROADMAP.md, Queue 1, item 6 (the other LM "
-                    f"families: whisper-base's encdec next)")
+                    f"families)")
             specs.update(_norm_specs(cfg, f"{pre}/ln1", R, norm_init))
             if kind == "M" and cfg.kv_lora_rank:
                 specs.update(_mla_specs(cfg, pre, R))
             else:
-                specs.update({
-                    f"{pre}/mixer/wq": (R, ((d, H * hd), "normal")),
-                    f"{pre}/mixer/wk": (R, ((d, KV * hd), "normal")),
-                    f"{pre}/mixer/wv": (R, ((d, KV * hd), "normal")),
-                    f"{pre}/mixer/wo": (R, ((H * hd, d), "normal")),
-                })
+                specs.update(_attn_specs(cfg, f"{pre}/mixer", R))
                 if cfg.qk_norm:
                     specs.update({
                         f"{pre}/mixer/q_norm": (R, ((hd,), "ones")),
@@ -105,6 +102,37 @@ def param_specs(cfg) -> Dict[str, Tuple[int, _Spec]]:
                 specs.update(_mlp_specs(cfg, f"{pre}/ffn", R, f_layer))
     if not cfg.tie_embeddings:
         specs["lm_head"] = (0, ((d, cfg.padded_vocab), "normal"))
+    return specs
+
+
+def _attn_specs(cfg, pre: str, R: int):
+    """An attention's projections (``attention.py:24-33``)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {f"{pre}/wq": (R, ((d, H * hd), "normal")),
+            f"{pre}/wk": (R, ((d, KV * hd), "normal")),
+            f"{pre}/wv": (R, ((d, KV * hd), "normal")),
+            f"{pre}/wo": (R, ((H * hd, d), "normal"))}
+
+
+def _encdec_specs(cfg):
+    """The encoder-decoder's tree (``encdec.py:41-68``): pre-norm encoder
+    layers of self-attention and MLP, decoder layers with a cross
+    attention between them, a norm after each stack and an untied
+    ``lm_head``."""
+    d = cfg.d_model
+    specs = {"embedding/table": (0, ((cfg.padded_vocab, d), "embedding"))}
+    for side, R, attns in (("enc", cfg.enc_layers, ("self",)),
+                           ("dec", cfg.dec_layers, ("self", "cross"))):
+        specs.update(_norm_specs(cfg, f"{side}/ln1", R, "ones"))
+        specs.update(_attn_specs(cfg, f"{side}/self", R))
+        if "cross" in attns:
+            specs.update(_norm_specs(cfg, f"{side}/ln_x", R, "ones"))
+            specs.update(_attn_specs(cfg, f"{side}/cross", R))
+        specs.update(_norm_specs(cfg, f"{side}/ln2", R, "ones"))
+        specs.update(_mlp_specs(cfg, f"{side}/ffn", R, cfg.d_ff))
+    for name in ("enc_norm", "dec_norm"):
+        specs.update(_norm_specs(cfg, name, 0, "ones"))
+    specs["lm_head"] = (0, ((d, cfg.padded_vocab), "normal"))
     return specs
 
 

@@ -231,13 +231,6 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the port yet: ROADMAP.md, "
-                               f"Queue 1, {item}")
-
-
-_FAMILIES = "item 13 (whisper-base, the encoder-decoder family)"
-
 #: the dtype string of a bf16 leaf in a ``KVB1`` frame: ``ml_dtypes``'
 #: bfloat16, as numpy names it in a JAX export; plain numpy has no dtype
 #: that prints so (a 2-byte void is ``|V2``)
@@ -462,8 +455,8 @@ class Engine:
     def __init__(self, params, cfg, scfg: ServeConfig,
                  metrics: Optional[MetricsRegistry] = None, device="cuda"):
         self.device = resolve_device(device)
-        if cfg.family not in ("dense", "ssm", "moe", "vlm", "hybrid"):
-            raise _not_ported(f"{cfg.name} ({cfg.family})", _FAMILIES)
+        if cfg.family == "encdec":
+            raise NotImplementedError("Engine serves decoder-LM families")
         self.params, self.cfg, self.scfg = params, cfg, scfg
         self.fns = EngineFns(cfg, scfg)
         self.metrics = metrics if metrics is not None else MetricsRegistry()

@@ -477,16 +477,19 @@ def test_dense_engine_spans_equal_the_jax_engine(model, kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(paged=False, family="encdec"), "encoder-decoder family"),
+    (dict(paged=False, family="encdec"), "Engine serves decoder-LM families"),
 ])
 def test_engine_outside_slice_raises(model, kw, what):
+    """The Engine refuses the encoder-decoder family with the JAX
+    Engine's reason (``engine.py:551-552``): a refusal that stands, not a
+    part of the port still to come."""
     _, tcfg, _, tparams = model
     kw = dict(kw)
     cfg = tcfg.replace(family=kw.pop("family", tcfg.family))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+    with pytest.raises(NotImplementedError) as e:
         Engine(tparams, cfg, ServeConfig(max_len=32, block_size=8, **kw),
                device="cpu")
-    assert what in str(e.value)
+    assert str(e.value) == what
 
 
 # ----------------------------------------------------------------------

@@ -329,7 +329,7 @@ def test_kernel_source_holds_the_plan_constants():
     assert "HD <= 128 ? BWD_KEY_TILE : BWD_KEY_TILE_HD256" in text
     # the dK / dV kernel's mask is fbp.key_rows
     assert "from[h] = (p.causal ? d * p.gt" in text
-    assert "key < p.S ? 0 : TILE) - 2 * tq" in text
+    assert "key < p.T ? 0 : TILE) - 2 * tq" in text
     assert "min(d + p.window, TILE) * p.gt : TILE * TILE" in text
     assert [fbp.key_tile(hd) for hd in kernels.HEAD_DIMS] == [128] * 4 + [64]
     smoke = (build.CSRC.parents[3] / "chip_smoke.py").read_text()
@@ -381,8 +381,8 @@ def test_kernel_route_binds_forward_and_backward(fake_card, dtype, hd):
     out.backward(torch.ones_like(out))
     (args,) = fake_card["bwd"]
     assert args[:2] == (kernels.DTYPE_CODE[dtype], hd)
-    assert args[12:18] == (B, S, KV, H // KV, 1, 7)
-    assert args[18] == pytest.approx(1.0 / math.sqrt(hd))
+    assert args[12:19] == (B, S, S, KV, H // KV, 1, 7)
+    assert args[19] == pytest.approx(1.0 / math.sqrt(hd))
     assert qg.grad.shape == q.shape and kg.grad.shape == k.shape
     assert vg.grad.dtype == dtype
     assert kernels.LAUNCHES["flash_attention"] == 2

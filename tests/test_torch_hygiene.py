@@ -138,8 +138,13 @@ def test_spawned_process_replica_loads_no_jax():
 
 
 def test_unknown_arch_is_named():
-    with pytest.raises(KeyError, match="whisper-base"):
-        get_config("whisper-base")
+    """Every arch of the JAX registry is in the port's; an id neither
+    knows raises, naming it."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    with pytest.raises(KeyError, match="whisper-large"):
+        get_config("whisper-large")
 
 
 def _run_smoke(cwd):

@@ -296,12 +296,14 @@ def test_prefill_into_cache():
 
 @pytest.mark.parametrize("kind", ["local", "bidir", "cross"])
 def test_dense_attention_outside_slice_raises(kind):
-    """Kinds bidir and cross are not in the port.  Kind local is, with
-    gemma3-4b (tests/test_torch_gemma.py), but not with an attention
-    softcap, which no config the port serves has."""
+    """Kind local is in the port with gemma3-4b (tests/test_torch_gemma.py),
+    and kinds bidir and cross with whisper-base
+    (tests/test_torch_encdec.py), but none of them with an attention
+    softcap, which no config the port serves has (item 6)."""
     _, tcfg = _cfgs()
-    if kind == "local":
-        tcfg = tcfg.replace(window=2, attn_softcap=50.0)
+    tcfg = tcfg.replace(attn_softcap=50.0,
+                        window=2 if kind == "local" else tcfg.window)
     x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tattn.attn_forward({}, x, tcfg, kind=kind)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, "
+                                                  "item 6"):
+        tattn.attn_forward({}, x, tcfg, kind=kind, encoder_kv=x)

@@ -289,10 +289,12 @@ def test_load_checkpoint_is_exact(model, tmp_path):
 
 def test_mla_and_shared_experts_still_raise():
     """MLA and shared experts are in the port since deepseek-v2-lite
-    (tests/test_torch_mla.py); what still raises is the encoder-decoder
-    family (whisper-base's shape: its weights and its engine, Queue 1
-    item 13) and the encoder's and decoder's ``bidir`` and ``cross``
-    attention kinds."""
+    (tests/test_torch_mla.py), and the encoder-decoder family since
+    whisper-base (tests/test_torch_encdec.py); what still raises is the
+    Engine on the encoder-decoder family, with JAX's reason (the
+    family's weights are in the port), and the encoder's and decoder's
+    ``bidir`` and ``cross`` attention kinds with an attention softcap
+    (item 6)."""
     from repro_torch.configs import ArchConfig
     from repro_torch.models import attention as attn
     whisper = ArchConfig(
@@ -301,15 +303,15 @@ def test_mla_and_shared_experts_still_raise():
         d_ff=128, vocab=256, rope_base=0.0, mlp="gelu_mlp",
         norm="layernorm", norm_eps=1e-5, dtype="float32",
         param_dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        weights.param_specs(whisper)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    assert "dec/cross/wq" in weights.param_specs(whisper)
+    with pytest.raises(NotImplementedError,
+                       match="^Engine serves decoder-LM families$"):
         Engine({}, whisper, ServeConfig(max_len=8), device="cpu")
-    cfg = reduced(get_config(ARCH))
+    cfg = reduced(get_config(ARCH)).replace(attn_softcap=50.0)
     x = torch.zeros(1, 4, cfg.d_model)
     for kind in ("bidir", "cross"):
         with pytest.raises(NotImplementedError, match="item 6"):
-            attn.attn_forward({}, x, cfg, kind=kind)
+            attn.attn_forward({}, x, cfg, kind=kind, encoder_kv=x)
 
 
 # ----------------------------------------------------------------------

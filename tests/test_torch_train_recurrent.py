@@ -27,8 +27,10 @@ def test_loss_and_gradients_match_jax(arch):
 
 def test_api_steps_run_and_encdec_and_dry_run_raise():
     """forward_fn, prefill_fn and decode_fn on the port's engine paths;
-    whisper-base's family raises naming item 13, the dry run's shape-only
-    entry points item 9."""
+    the refusals that stand: the training driver on whisper-base's family
+    (it feeds token batches only, as JAX's does, which has no frames for
+    the encoder), and the dry run's shape-only entry points (item 9).
+    The family's API itself runs (tests/test_torch_encdec.py)."""
     cfg = reduced(get_config("internlm2-1.8b"))
     gen = torch.Generator().manual_seed(0)
     params = api.init(gen, cfg, "cpu")
@@ -45,13 +47,17 @@ def test_api_steps_run_and_encdec_and_dry_run_raise():
     torch.testing.assert_close(last[:, 0], logits[:, -1])
     assert nxt.shape == (2, 1, cfg.padded_vocab)
     whisper = ArchConfig(name="whisper-base", family="encdec", n_layers=2,
-                         d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-                         d_ff=128, vocab=256)
-    for fn, args in ((api.init, (gen, whisper, "cpu")),
-                     (api.loss_fn, ({}, whisper, {})),
-                     (api.init_caches, (whisper, 1, 8))):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn(*args)
+                         enc_layers=1, dec_layers=1, d_model=64, n_heads=4,
+                         n_kv_heads=4, head_dim=16, d_ff=128, vocab=256,
+                         rope_base=0.0, mlp="gelu_mlp", norm="layernorm",
+                         dtype="float32", param_dtype="float32")
+    caches = api.init_caches(whisper, 1, 8, device="cpu")
+    assert caches["cross_k"].shape == (1, 1, 8, 4, 16)
+    from repro_torch.launch import train
+    for fn, args in ((train.train, (whisper,)),
+                     (train.train, (reduced(get_config("whisper-base")),))):
+        with pytest.raises(ValueError, match="token batches only"):
+            fn(*args, steps=1, batch=1, seq=8, device="cpu")
     for fn, args in ((api.abstract_params, (cfg,)),
                      (api.input_specs, (cfg, "train", 1, 8))):
         with pytest.raises(NotImplementedError, match="item 9"):
