@@ -28,8 +28,11 @@ through ``launch/train.py``, its attention on the flash forward and the
 flash backward kernel, a checkpoint resumed), whisper-base (the
 encoder-decoder family: a serve through the prefill and decode steps and
 AdamW steps through the train step at full width, its cross attention on
-flash at a kv length of its own, forward and backward), and holds every
-kernel against its plain PyTorch version.  Each
+flash at a kv length of its own, forward and backward), the
+multi-device paths on 2 ranks sharing the card over gloo (the sharded
+MARGOT step, elastic re-placement, the compressed all-reduce,
+data-parallel training, the sequence-sharded prefill on flash at a query
+offset), and holds every kernel against its plain PyTorch version.  Each
 phase ends on a line of its own with its wall time
 (``[smoke] phase N wall``).  The phases:
 
@@ -150,7 +153,15 @@ phase ends on a line of its own with its wall time
    1,500, encoder S 1,500 bidirectional, decoder S 448 causal) within
    GRAD_REL, the cross one with a control (the last 128-key tile's keys
    dropped) that the bf16 limit must reject, each timed beside the plain
-   version's autograd and SDPA's flash backward;
+   version's autograd and SDPA's flash backward; last, flash at a query
+   offset (T > S under a mask: the queries at the last S of T key
+   positions) on a grid ((S, T) (63, 64), (65, 129), (64, 128), (130,
+   195), (200, 900) x causal / window 48 / both x G 1, 2 x hd 64, 128 in
+   fp32 and bf16, each bf16 check with its control), then at the
+   sequence-sharded prefill's shapes: S 2,048 over T 4,096 causal at
+   internlm2-1.8b's heads and gemma3-4b's local heads on a halo (window
+   1,024, S 1,024 over T 2,048), with the bf16 rule, controls, times,
+   bounds and SDPA (lower-right causal; the window's band as a mask);
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -318,7 +329,32 @@ phase ends on a line of its own with its wall time
    remat none, B 8 x (1,500 frames, 448 tokens), warmup 2; loss, grad norm
    and ms a step, decoder tokens/s, peak memory, exactly 18 flash forward
    and 18 backward launches a step) and one more step profiled;
-11. the ``{"kernels": [...]}`` line.
+11. multi-device: first whisper-base's data-parallel steps on one rank
+   here (the reference of (d)), then 2 ranks spawned on cuda:0 over gloo
+   (``collectives.spawn``; NCCL refuses two ranks on one card), each
+   asserting its device and its launches: (a) the sharded MARGOT step
+   (``make_batch_step(PIPELINE, mesh)``) on DS1 and DS2, its gathered
+   links against the shard-local oracle computed on the card with the
+   plain version, a pair-score launch a step, beside the one-device
+   step on the same rows; (b) ``ElasticRunner`` on those models, placed
+   on 2 ranks, rescaled 2 -> 1 -> 2 over 12 documents of DS1 that drop
+   nothing, the same links on each mesh; (c) ``compressed_psum`` of
+   97,318,912 fp32 elements a rank within JAX's bound of the fp32
+   all-reduce; (d) data parallelism: the fp32 reduced whisper-base, 3
+   steps on 2 ranks against one rank within TRAIN_RTOL, then
+   whisper-base at full width, 2 x B 4 of phase 10's B 8, 4 steps, each
+   step's loss and grad norm against the one-rank run within
+   MD_DP_LOSS_REL / MD_DP_GNORM_REL, the parameters bit-identical on
+   both ranks after every step, 18 flash forward and 18 backward
+   launches a step on each; (e) internlm2-1.8b at full width: rank 0's
+   seeded weights placed by ``place_params`` (bytes, seconds), a B 1 x
+   S 4,096 prefill under ``seqtp`` split 2 x 2,048 (24 flash launches a
+   rank, rank 1's at S 2,048 over T 4,096) against rank 0's one-rank
+   prefill: the same greedy token, logits and caches within MD_SEQ_REL;
+   (f) the fp32 reduced gemma3-4b under ``seqtp`` (local layers on the
+   halo, the global one gathered), kernel against plain and against the
+   one-rank run within MD_FP32_TOL;
+12. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -438,7 +474,7 @@ def main():
     smi = _walled(1, phase_device)
     stats = _walled(2, phase_kernels)
     if kernels_only:
-        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-11 and "
+        print("[smoke] --kernels-only: phases 1-2 passed; phases 3-12 and "
               "the result lines skipped")
         return
     _walled(3, phase_token_exact)
@@ -449,7 +485,8 @@ def main():
     _walled(8, phase_telemetry)
     launches.update(_walled(9, phase_train))
     _walled(10, phase_whisper)
-    _walled(11, phase_list, stats, launches, smi)
+    _walled(11, phase_multidevice)
+    _walled(12, phase_list, stats, launches, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -965,6 +1002,9 @@ def phase_kernels():
                       stats)
     # after every other check, on its own generator
     _whisper_kernel_checks(torch.Generator(device=dev).manual_seed(29), dev)
+    # after every other check, on its own generator
+    stats["flash_attention_offset"] = _offset_flash_checks(
+        torch.Generator(device=dev).manual_seed(30), dev)
     return stats
 
 
@@ -2805,6 +2845,129 @@ def _whisper_kernel_checks(gen, dev):
               f"T {T}, {at}, bf16): max_abs_err={err:.3e} {_row(st)} "
               f"(SDPA flash backward; {ops_n / 1e9:.2f} GFLOP, "
               f"{by / 1e6:.1f} MB)")
+
+
+#: flash at a query offset, at the sequence-sharded prefill's shapes: the
+#: second rank's S 2,048 queries over T 4,096 keys at internlm2-1.8b's
+#: heads, causal (phase 11 (e)); gemma3-4b's local heads (hd 256) on a
+#: halo, window 1,024, S 1,024 queries over T = 1,024 + 1,024
+OFFSET_SHAPES = (("internlm2-1.8b", (16, 8), 128, 2048, 4096, 0),
+                 ("gemma3-4b", (8, 4), 256, 1024, 2048, 1024))
+#: the offset grid: (S, T) pairs across the wgmma kernel's 64-row and
+#: 64-key tiles (shifts T - S of 1, 63, 64, 65 and 700) x the three masks
+#: x G 1 and 2, at hd 64 and 128, in fp32 (the CUDA-core kernel) and bf16
+OFFSET_GRID = ((63, 64), (65, 129), (64, 128), (130, 195), (200, 900))
+
+
+def _offset_keep(S, T, window, dev, causal=True):
+    """(1, S, T): query s at key position s + T - S sees key t iff t <= it
+    (where ``causal``) and t > it - window (where ``window``)."""
+    import torch
+    at = torch.arange(S, device=dev)[:, None] + (T - S)
+    t = torch.arange(T, device=dev)[None, :]
+    keep = t <= at if causal else torch.ones_like(t <= at)
+    if window:
+        keep &= t > at - window
+    return keep[None]
+
+
+def _offset_flash(gen, dev, arch, heads, hd, S, T, window):
+    """bf16 flash at a query offset (S queries over T >= S keys) against
+    the plain version with the bf16 rule and its control, kernel, plain
+    and SDPA times, and the bound from the (query, key) pairs the mask
+    lets through.  Causal, SDPA takes ``causal_lower_right(S, T)`` on its
+    fused backends, with K/V expanded to H heads beforehand (that path
+    takes no ``enable_gqa``); a window has no fused form, and SDPA takes
+    the band as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels import ops, ref
+    (H, KV), bf = heads, torch.bfloat16
+    sets = [[_randn(gen, sh, bf, dev) for sh in
+             ((1, S, H, hd), (1, T, KV, hd), (1, T, KV, hd))]
+            for _ in range(3)]
+    q, k, v = sets[0]
+    name = (f"flash at a query offset {arch} (1, S {S} over T {T}) H={H} "
+            f"KV={KV} hd={hd} window={window}")
+    want = ref.flash_attention_ref(*_f32(q, k, v), causal=True,
+                                   window=window)
+    err, share = _compare(name, ops.flash_attention(q, k, v, causal=True,
+                                                    window=window), want)
+    keep = _offset_keep(S, T, window, dev)
+    ctl = _check_control(name, _rounded_p(q, k, v, keep), want)
+    sd = [[t.transpose(1, 2).contiguous() for t in st] for st in sets]
+    if window:
+        def library(a):
+            return F.scaled_dot_product_attention(
+                *a, attn_mask=keep[:, None], enable_gqa=True)
+    else:
+        sd = [[a[0]] + [t.repeat_interleave(H // KV, dim=1) for t in a[1:]]
+              for a in sd]
+        band = causal_lower_right(S, T)
+
+        def library(a):
+            return F.scaled_dot_product_attention(*a, attn_mask=band)
+    _library_close(name, library(sd[0]).transpose(1, 2), want)
+    pairs = int(keep.sum())
+    st = _stats(
+        err, (2 * S * H * hd + 2 * T * KV * hd) * 2, 4 * hd * H * pairs,
+        "bfloat16",
+        _time_ms([lambda s=s: ops.flash_attention(*s, causal=True,
+                                                  window=window)
+                  for s in sets]),
+        _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True,
+                                                      window=window)
+                  for s in sets], iters=3),
+        _time_ms([lambda a=a: library(a) for a in sd]))
+    print(f"[kernels] {name}: max_abs_err={err:.3e} off_rounded="
+          f"{share:.4%} (control with bf16 P: {ctl:.4%}) pairs={pairs} "
+          f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} library_ms="
+          f"{st['library_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
+          f"({st['bound_by']})")
+    return st
+
+
+def _offset_flash_checks(gen, dev):
+    """Flash at a query offset (T > S under a mask): both sources on the
+    offset grid, then the sequence-sharded prefill's two shapes timed.
+    Returns the first shape's stats (PERF.md row 3k)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    n, worst = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            for H, KV in ((4, 4), (8, 4)):
+                for S, T in OFFSET_GRID:
+                    for causal, window in ((True, 0), (False, 48),
+                                           (True, 48)):
+                        q = _randn(gen, (1, S, H, hd), dtype, dev)
+                        k, v = (_randn(gen, (1, T, KV, hd), dtype, dev)
+                                for _ in range(2))
+                        name = (f"flash offset {dtype} hd={hd} G={H // KV} "
+                                f"S={S} T={T} causal={causal} "
+                                f"window={window}")
+                        want = ref.flash_attention_ref(
+                            *_f32(q, k, v), causal=causal, window=window)
+                        err, _ = _compare(name, ops.flash_attention(
+                            q, k, v, causal=causal, window=window), want)
+                        key = str(dtype).split(".")[1]
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        if dtype == torch.bfloat16:
+                            _check_control(name, _rounded_p(q, k, v, (
+                                _offset_keep(S, T, window, dev, causal))),
+                                want)
+                        n += 1
+    print(f"[kernels] flash at a query offset: {n} checks, (S, T) "
+          f"{list(OFFSET_GRID)} x causal / window 48 / both x G 1, 2 x hd "
+          f"64, 128 x fp32 (max_abs_err {worst['float32']:.3e}, atol=rtol="
+          f"{FP32_TOL}) and bf16 (max_abs_err {worst['bfloat16']:.3e}, "
+          f"each within the bf16 rule and its control rejected)")
+    first = None
+    for arch, heads, hd, S, T, window in OFFSET_SHAPES:
+        st = _offset_flash(gen, dev, arch, heads, hd, S, T, window)
+        first = first or st
+    return first
 
 
 def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):
@@ -6165,6 +6328,581 @@ def _whisper_train():
           f"{sum(n for _, n, _ in rows)}; device ms by kind: "
           f"{_train_kinds(rows)}; top: {top}")
     del params, opt
+
+
+# ----------------------------------------------------------------------
+# Phase 11: the multi-device paths, 2 ranks on the one card over gloo
+MD_WORLD = 2
+MD_TIMEOUT_S = 600
+#: data-parallel whisper-base at full width: 2 ranks x B 4 of phase 10's
+#: B 8 x (1,500 frames, 448 tokens), 4 AdamW steps, warmup 2; each step's
+#: loss and grad norm against a one-rank run of the same B 8 steps within
+#: these relative limits (bf16 gradients summed in another order; PERF.md
+#: section 5 states them)
+MD_DP_STEPS = 4
+MD_DP_LOSS_REL = 1e-2
+MD_DP_GNORM_REL = 5e-2
+#: internlm2-1.8b's sequence-sharded prefill: B 1 x S 4,096 over 2 ranks;
+#: against the one-rank prefill of the same tokens: the same greedy token,
+#: the last position's logits within MD_SEQ_REL of their largest
+#: magnitude, each layer's cache K and V within MD_SEQ_REL of their
+#: largest magnitude (bf16)
+MD_SEQ_S = 4096
+MD_SEQ_REL = 2e-2
+#: the fp32 reduced gemma3-4b under seqtp: kernel against plain, and
+#: against the one-rank kernel run, at the token-exact runs' logit limit
+MD_FP32_TOL = 1e-4
+
+
+def phase_multidevice():
+    """Phase 11: the multi-device paths on 2 ranks spawned on the one card
+    (``collectives.spawn``, gloo): (a) the sharded MARGOT step at full
+    size, (b) ``ElasticRunner`` 2 -> 1 -> 2, (c) ``compressed_psum``, (d)
+    data-parallel training (fp32 reduced, then whisper-base at full width
+    against a one-rank run made here first), (e) internlm2-1.8b's
+    sequence-sharded prefill, (f) the fp32 reduced gemma3-4b under seqtp.
+    Every check runs in the ranks; a rank that fails fails the phase."""
+    import gc
+
+    import torch
+    from repro_torch.core import collectives
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _md_dp_reference()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[multi] {MD_WORLD} ranks spawned on cuda:0 over gloo: NCCL "
+          f"refuses two ranks on one card, and gloo moves CUDA tensors "
+          f"through the host; the ranks time-slice the card, so nothing "
+          f"here is a scaling figure", flush=True)
+    t0 = time.perf_counter()
+    try:
+        collectives.spawn(_md_rank, MD_WORLD, backend="gloo", device="cuda",
+                          timeout_s=MD_TIMEOUT_S, args=(ref,))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 11: {e}")
+    print(f"[multi] ranks done in {time.perf_counter() - t0:.1f}s")
+
+
+def _md_dp_batches(cfg, dev, n):
+    """Phase 10's seeded whisper batches: B 8 x (1,500 frames, 448
+    tokens)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, S = WHISPER_TRAIN_B, WHISPER_TRAIN_S
+    return [{"frames": torch.randn((B, WHISPER_T, cfg.d_model),
+                                   generator=gen, device=dev),
+             "tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+            for _ in range(n)]
+
+
+def _md_dp_reference():
+    """One rank, in this process: whisper-base at full width, the
+    MD_DP_STEPS steps of (d) on the whole B 8 batches; their losses and
+    grad norms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    dev = torch.device("cuda", 0)
+    cfg = get_config("whisper-base")
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    opt = adamw_init(params)
+    fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=2,
+                               total=MD_DP_STEPS)
+    out = []
+    for b in _md_dp_batches(cfg, dev, MD_DP_STEPS):
+        params, opt, m = fn(params, opt, b)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    del params, opt
+    print(f"[multi] (d) one-rank reference: whisper-base B "
+          f"{WHISPER_TRAIN_B}, {MD_DP_STEPS} steps: (loss, grad norm) {out}",
+          flush=True)
+    return out
+
+
+def _md_rank(rank, ref):
+    """One rank's body: (a) to (f) in order, each timed."""
+    import torch
+    from repro_torch.launch.mesh import compat_make_mesh
+    dev = torch.device("cuda", 0)
+    mesh = compat_make_mesh((MD_WORLD,), ("data",))
+    check(mesh.device == dev and torch.cuda.current_device() == 0,
+          f"rank {rank}: device {mesh.device}, want cuda:0")
+    for label, fn in (("a", _md_margot), ("b", _md_elastic),
+                      ("c", _md_compressed), ("d", _md_dp),
+                      ("e", _md_seqtp_full), ("f", _md_seqtp_reduced)):
+        t0 = time.perf_counter()
+        fn(rank, mesh, ref)
+        torch.cuda.synchronize()
+        if rank == 0:
+            print(f"[multi] ({label}) wall {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+    return True
+
+
+def _md_say(rank, msg):
+    print(f"[multi r{rank}] {msg}", flush=True)
+
+
+def _md_compare_links(label, got, want):
+    """Link sets (dicts (claim, evidence) -> score) equal up to pairs
+    whose |score| is within PAIR_REL of the largest: the pair score's
+    phase-5 rule."""
+    limit = PAIR_REL * max(abs(x) for x in [*got.values(), *want.values()])
+    only = {p: got.get(p, want.get(p)) for p in got.keys() ^ want.keys()}
+    check(all(abs(x) <= limit for x in only.values()),
+          f"{label}: links differ beyond |score| {limit:.3e}: "
+          f"{list(only.items())[:5]}")
+    diff = max(abs(got[p] - want[p]) for p in got.keys() & want.keys())
+    check(diff <= limit, f"{label}: common scores differ by {diff:.3e}")
+    return len(only), diff, limit
+
+
+def _md_margot(rank, mesh, ref):
+    """(a) DS1 and DS2 (d 1,024, the paper's models) through the sharded
+    step: its gathered links against the shard-local oracle computed on
+    the card with the plain version; pair-score launches and wall time,
+    beside the one-device step on the same rows."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.margot_svm import DATASETS, PIPELINE
+    from repro_torch.core import pipeline
+    from repro_torch.core.collectives import local_block
+    from repro_torch.core.filtering import Compacted
+    from repro_torch.data.text import margot_models
+    from repro_torch.kernels import ops
+    from repro_torch.launch import argmining
+    dev = mesh.device
+    models = margot_models(PIPELINE, device=dev)
+    step = pipeline.make_batch_step(PIPELINE, mesh)
+    for ds in ("DS1", "DS2"):
+        X, keys, _ = argmining.make_corpus(DATASETS[ds], PIPELINE.feat_dim)
+        n = len(X) - len(X) % MD_WORLD
+        Xd = torch.from_numpy(X[:n]).to(dev)
+        kd = torch.from_numpy(keys[:n]).to(dev)
+        Xl, kl = (local_block(t, "data", mesh) for t in (Xd, kd))
+        step(models, Xl, kl)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        out = step(models, Xl, kl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launches == {"pair_score": 1} and
+              not any(ops.PLAIN_CALLS.values()),
+              f"(a) {ds} rank {rank}: launches {launches}")
+        links = {(c, e): s for c, e, s in pipeline.gather_links(out, mesh)}
+        _md_say(rank, f"(a) {ds}: {n} sentences, {n // MD_WORLD} a rank, "
+                      f"sharded step wall={wall * 1e3:.2f}ms, pair_score "
+                      f"launches={launches['pair_score']} (C_total "
+                      f"{out.link_scores.shape[0]} x E_local "
+                      f"{out.link_scores.shape[1]}), n_dropped="
+                      f"{int(out.n_dropped)}, links={len(links)}")
+        if rank:
+            continue
+        # the shard-local oracle: each shard's compaction, every claim
+        # against every evidence, scored by the plain version
+        parts = []
+        for s in range(MD_WORLD):
+            rows = slice(s * (n // MD_WORLD), (s + 1) * (n // MD_WORLD))
+            c, e = pipeline._phase1_local(models, Xd[rows], kd[rows],
+                                          PIPELINE)
+            off = s * (n // MD_WORLD)
+            parts.append([x._replace(index=torch.where(
+                x.valid, x.index + off, -1)) for x in (c, e)])
+        cat = [Compacted(*(torch.cat([p[i][j] for p in parts])
+                           for j in range(5)), n_dropped=0)
+               for i in range(2)]
+        with _forced_plain(True):
+            scores, mask = pipeline._phase2_local(models, *cat)
+        ok = mask & (scores > PIPELINE.threshold)
+        ci, ei = torch.nonzero(ok, as_tuple=True)
+        oracle = {(c, e): sc for c, e, sc in zip(
+            cat[0].index[ci].tolist(), cat[1].index[ei].tolist(),
+            scores[ci, ei].tolist())}
+        n_only, diff, limit = _md_compare_links(f"(a) {ds}", links, oracle)
+        one = pipeline.make_batch_step(PIPELINE)
+        one(models, Xd, kd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(models, Xd, kd)
+        torch.cuda.synchronize()
+        _md_say(rank, f"(a) {ds}: the gathered links equal the shard-local "
+                      f"oracle's {len(oracle)} (plain version on the card; "
+                      f"{n_only} pairs in one set only, each |score| <= "
+                      f"{limit:.3e}; common scores within {diff:.3e}); the "
+                      f"one-device step on all {n} rows: wall="
+                      f"{(time.perf_counter() - t0) * 1e3:.2f}ms (phase 5 "
+                      f"runs DS1 as 12-document partitions)")
+
+
+def _md_elastic(rank, mesh, ref):
+    """(b) ``ElasticRunner`` over the MARGOT models: placed on 2 ranks
+    (rank 0 ships), rescaled to 1 (rank 1 drops its weights) and back to
+    2, the links of a batch that drops nothing equal on each mesh."""
+    import torch
+    from repro_torch.configs.margot_svm import DATASETS, PIPELINE
+    from repro_torch.core import pipeline
+    from repro_torch.core.broadcast import broadcast_bytes
+    from repro_torch.core.collectives import local_block
+    from repro_torch.core.fault import ElasticRunner
+    from repro_torch.data.text import margot_models
+    from repro_torch.launch import argmining
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import svm
+    dev = mesh.device
+    models = margot_models(PIPELINE, device=dev)
+    X, keys, _ = argmining.make_corpus(DATASETS["DS1"], PIPELINE.feat_dim)
+    _, hi = argmining.partition_bounds(keys, 12)[0]
+    n = hi - hi % MD_WORLD
+    Xd, kd = (torch.from_numpy(a[:n]).to(dev) for a in (X, keys))
+    held = models if rank == 0 else {
+        k: {m: torch.empty_like(t, device="meta") for m, t in v.items()}
+        for k, v in models.items()}
+    t0 = time.perf_counter()
+    runner = ElasticRunner(held, svm.param_axes(models), mesh, "broadcast")
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    check(all(torch.equal(runner.params[k][m], models[k][m])
+              for k in models for m in models[k]),
+          f"(b) rank {rank}: the shipped models differ from rank 0's")
+
+    def links(m):
+        out = pipeline.make_batch_step(PIPELINE, m)(
+            runner.params, local_block(Xd, "data", m),
+            local_block(kd, "data", m))
+        return ({(c, e): s for c, e, s in pipeline.gather_links(out, m)},
+                int(out.n_dropped))
+
+    l2, d2 = links(mesh)
+    mesh1 = compat_make_mesh((1,), ("data",))
+    runner.rescale(mesh1)
+    check((runner.params is None) == (rank == 1),
+          f"(b) rank {rank}: holds weights {runner.params is not None} on "
+          f"the 1-rank mesh")
+    s1 = runner.rescale_s
+    if rank == 0:
+        l1, d1 = links(mesh1)
+        check(d2 == 0 and d1 == 0 and l1.keys() == l2.keys(),
+              f"(b) n_dropped {d2} on 2 ranks, {d1} on 1; links "
+              f"{len(l2)} vs {len(l1)}")
+    mesh2 = compat_make_mesh((MD_WORLD,), ("data",))
+    runner.rescale(mesh2)
+    l2b, _ = links(mesh2)
+    check(l2b.keys() == l2.keys() and runner.generation == 2,
+          f"(b) rank {rank}: back on 2 ranks: {len(l2b)} links, generation "
+          f"{runner.generation}")
+    _md_say(rank, f"(b) {n} sentences (12 documents of DS1): n_dropped=0 on "
+                  f"2 ranks and on 1, {len(l2)} links on each; placed on 2 "
+                  f"in {place_s:.3f}s ({broadcast_bytes(models):,} bytes "
+                  f"shipped by rank 0); 2 -> 1 in {s1:.3f}s (rank 1 dropped "
+                  f"its weights); 1 -> 2 in {runner.rescale_s:.3f}s "
+                  f"({runner.shipped_bytes:,} bytes moved at this rank); "
+                  f"generation {runner.generation}")
+
+
+def _md_compressed(rank, mesh, ref):
+    """(c) ``compressed_psum`` of whisper-base-sized fp32 gradients against
+    the uncompressed all-reduce, within JAX's quantisation bound."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.optim.compression import compressed_psum, quantize
+    dev = mesh.device
+    n = WHISPER_PARAMS
+    g = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(
+        100 + rank), device=dev)
+    c, _ = quantize(g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, raw = compressed_psum(c, "data", mesh)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = collectives.psum(g, "data", mesh)
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t0
+    err = float((val - exact).abs().max()) / MD_WORLD
+    bound = float(collectives.pmax(g.abs().max(), "data", mesh)) / 127.0
+    check(err <= bound and raw.dtype == torch.int32,
+          f"(c) rank {rank}: mean off by {err:.3e}, bound {bound:.3e}")
+    if rank == 0:
+        _md_say(rank, f"(c) compressed_psum of {n:,} fp32 elements a rank: "
+                      f"mean within {err:.3e} of the exact all-reduce's "
+                      f"(bound max|g|/127 = {bound:.3e}); int8 payload "
+                      f"{n + 4:,} bytes a rank against {4 * n:,} fp32 (the "
+                      f"gloo reductions move it as int32 and fp32, as JAX's "
+                      f"psums do: {8 * n:,} bytes a rank); {t_c:.3f}s "
+                      f"against {t_e:.3f}s for the fp32 all-reduce "
+                      f"(host-staged)")
+
+
+def _md_params_hash(params):
+    import hashlib
+    from repro_torch.tree import flatten_with_paths
+    h = hashlib.sha256()
+    for v in flatten_with_paths(params).values():
+        h.update(v.detach().cpu().view(-1).view(__import__(
+            "torch").uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _md_dp(rank, mesh, ref):
+    """(d) data parallelism: the fp32 reduced whisper-base, 3 steps on 2
+    ranks against the one-rank steps on the whole batch (TRAIN_RTOL);
+    then whisper-base at full width, MD_DP_STEPS steps of B 4 a rank
+    against ``ref``, the one-rank run of the same B 8 steps."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives
+    from repro_torch.core.broadcast import place_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import api, weights
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths
+    dev = mesh.device
+    dpm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    # fp32 reduced: data parallel against one rank
+    cfg, params0 = _whisper_reduced(head_dim=64)
+    rng = np.random.RandomState(7)
+    batches = [{"frames": torch.from_numpy(rng.randn(
+        4, WHISPER_REDUCED_T, cfg.d_model).astype(np.float32)).to(dev),
+        "tokens": torch.from_numpy(rng.randint(0, cfg.vocab, (4, 48)).astype(
+            np.int32)).to(dev)} for _ in range(3)]
+    runs = {}
+    for label, m in (("dp", dpm), ("one", None)):
+        fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total=TRAIN_TOTAL, mesh=m)
+        params, opt, hist = params0, adamw_init(params0), []
+        for b in batches:
+            params, opt, mt = fn(params, opt, b)
+            hist.append({k: float(v) for k, v in mt.items()})
+        runs[label] = (hist, flatten_with_paths(params))
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(runs["dp"][0], runs["one"][0])
+                for k in ("loss", "grad_norm"))
+    pw = max(float((runs["dp"][1][k] - w).abs().max())
+             for k, w in runs["one"][1].items())
+    check(worst <= TRAIN_RTOL and pw <= 1e-3 * TRAIN_LR,
+          f"(d) fp32 reduced rank {rank}: metrics off by {worst:.3e}, "
+          f"parameters by {pw:.3e}")
+    if rank == 0:
+        _md_say(rank, f"(d) fp32 reduced whisper-base, 3 data-parallel "
+                      f"steps (2 ranks x B 2): losses and grad norms within "
+                      f"{worst:.2e} of the one-rank steps on B 4 (limit "
+                      f"{TRAIN_RTOL}), parameters within {pw:.2e} (limit "
+                      f"{1e-3 * TRAIN_LR:.0e})")
+    # full width, bf16
+    cfg = get_config("whisper-base")
+    if rank == 0:
+        params, axes = api.init(torch.Generator(device=dev).manual_seed(0),
+                                cfg, dev, with_axes=True)
+    else:
+        params, axes = weights.empty_params(cfg, dev), \
+            weights.param_axes(cfg)
+    params, _ = place_params(params, axes, dpm, "broadcast")
+    opt = adamw_init(params)
+    fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=2,
+                               total=MD_DP_STEPS, mesh=dpm)
+    n_attn = cfg.enc_layers + 2 * cfg.dec_layers
+    real_reduce, reduce_s = steps._reduce_grads, [0.0]
+
+    def timed_reduce(*a):
+        # the gradient all-reduce's seconds, between two synchronises
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_reduce(*a)
+        torch.cuda.synchronize()
+        reduce_s[0] = time.perf_counter() - t
+        return out
+
+    hist = []
+    steps._reduce_grads = timed_reduce
+    try:
+        for i, b in enumerate(_md_dp_batches(cfg, dev, MD_DP_STEPS)):
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            params, opt, mt = fn(params, opt, b)
+            loss, gnorm = float(mt["loss"]), float(mt["grad_norm"])
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            check(launches == {"flash_attention": n_attn,
+                               "flash_attention_bwd": n_attn} and
+                  not any(ops.PLAIN_CALLS.values()),
+                  f"(d) rank {rank} step {i}: launches {launches}")
+            hashes = collectives.gather_objects(_md_params_hash(params),
+                                                "data", mesh)
+            check(len(set(hashes)) == 1,
+                  f"(d) step {i}: the ranks' parameters differ")
+            rl, rg = ref[i]
+            dl, dg = abs(loss - rl) / abs(rl), abs(gnorm - rg) / abs(rg)
+            check(dl <= MD_DP_LOSS_REL and dg <= MD_DP_GNORM_REL,
+                  f"(d) step {i}: loss {loss} vs one-rank {rl} ({dl:.2e}), "
+                  f"grad norm {gnorm} vs {rg} ({dg:.2e})")
+            hist.append((ms, reduce_s[0]))
+            if rank == 0:
+                _md_say(rank, f"(d) whisper-base step {i}: loss={loss:.6f} "
+                              f"(one rank {rl:.6f}, rel {dl:.2e}) grad_norm="
+                              f"{gnorm:.4f} (one rank {rg:.4f}, rel "
+                              f"{dg:.2e}) ms={ms:.1f} all_reduce_s="
+                              f"{reduce_s[0]:.3f}; parameters bit-identical "
+                              f"on both ranks; launches {launches}")
+    finally:
+        steps._reduce_grads = real_reduce
+    steady = hist[1:]
+    tok_s = WHISPER_TRAIN_B * WHISPER_TRAIN_S * len(steady) / (
+        sum(ms for ms, _ in steady) / 1e3)
+    if rank == 0:
+        _md_say(rank, f"(d) whisper-base full width, 2 ranks x B "
+                      f"{WHISPER_TRAIN_B // MD_WORLD} x ({WHISPER_T} frames, "
+                      f"{WHISPER_TRAIN_S} tokens): {tok_s:,.0f} decoder "
+                      f"tokens/s over steps 1-{MD_DP_STEPS - 1} (both ranks "
+                      f"on one card), gradient all-reduce "
+                      f"{np.mean([a for _, a in steady]):.3f}s a step "
+                      f"(limits: loss {MD_DP_LOSS_REL}, grad norm "
+                      f"{MD_DP_GNORM_REL})")
+    del params, opt
+
+
+def _md_seqtp_full(rank, mesh, ref):
+    """(e) internlm2-1.8b at full width under seqtp: rank 0's seeded
+    weights shipped by ``place_params``, a B 1 x S 4,096 prefill split
+    2 x 2,048, against rank 0's one-rank prefill of the same tokens."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.broadcast import broadcast_bytes, place_params
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import api, weights
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    dev = mesh.device
+    cfg = get_config("internlm2-1.8b")
+    sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    if rank == 0:
+        params, axes = api.init(torch.Generator(device=dev).manual_seed(0),
+                                cfg, dev, with_axes=True)
+    else:
+        params, axes = weights.empty_params(cfg, dev), \
+            weights.param_axes(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = place_params(params, axes, sm, "broadcast")
+    torch.cuda.synchronize()
+    ship_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab, (1, MD_SEQ_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(21),
+                         dtype=torch.int32)
+    shapes = []
+    real = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+
+    caches = tfm.init_caches(cfg, 1, MD_SEQ_S, dev)
+    for key in attn.SEQSHARD_ROUTES:
+        attn.SEQSHARD_ROUTES[key] = 0
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    with use_sharding(sm, "seqtp"), mock.patch.object(ops, "flash_attention",
+                                                      recording):
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(params, cfg, toks, caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    S_loc = MD_SEQ_S // MD_WORLD
+    want_shape = (S_loc, S_loc * (rank + 1))
+    check(launches == {"flash_attention": cfg.n_layers} and
+          shapes == [want_shape] * cfg.n_layers and
+          attn.SEQSHARD_ROUTES == {"halo": 0, "gather": cfg.n_layers},
+          f"(e) rank {rank}: launches {launches}, flash (S, T) "
+          f"{sorted(set(shapes))}, routes {attn.SEQSHARD_ROUTES}")
+    _md_say(rank, f"(e) internlm2-1.8b seqtp prefill B 1 x S {MD_SEQ_S}: "
+                  f"{cfg.n_layers} flash launches at S {want_shape[0]} over "
+                  f"T {want_shape[1]}, wall={wall * 1e3:.1f}ms; weights "
+                  f"placed in {ship_s:.2f}s ({broadcast_bytes(params):,} "
+                  f"bytes, rank 0 to rank 1)")
+    if rank:
+        return
+    one = tfm.init_caches(cfg, 1, MD_SEQ_S, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits1, one = tfm.prefill(params, cfg, toks, one)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    top = torch.topk(logits1[0, -1].float(), 2).values
+    lg = float((logits.float() - logits1.float()).abs().max())
+    lg_lim = MD_SEQ_REL * float(logits1.float().abs().max())
+    kv = max(float((a.float() - b.float()).abs().max()) /
+             float(b.float().abs().max())
+             for g1, g2 in zip(caches, one) for c1, c2 in zip(g1, g2)
+             for a, b in zip(c1.values(), c2.values()))
+    tok, tok1 = int(logits[0, -1].argmax()), int(logits1[0, -1].argmax())
+    check(tok == tok1 and lg <= lg_lim and kv <= MD_SEQ_REL,
+          f"(e) greedy {tok} vs one-rank {tok1} (top-2 gap "
+          f"{float(top[0] - top[1]):.3e}), logits off by {lg:.3e} (limit "
+          f"{lg_lim:.3e}), cache K/V by {kv:.3e} of their largest (limit "
+          f"{MD_SEQ_REL})")
+    _md_say(rank, f"(e) against the one-rank prefill (wall="
+                  f"{wall1 * 1e3:.1f}ms): greedy token {tok} on both (top-2 "
+                  f"gap {float(top[0] - top[1]):.3e}), last logits within "
+                  f"{lg:.3e} (limit {lg_lim:.3e}), cache K/V within {kv:.3e} "
+                  f"of their largest (limit {MD_SEQ_REL})")
+    del params, caches, one
+
+
+def _md_seqtp_reduced(rank, mesh, ref):
+    """(f) the fp32 reduced gemma3-4b (10 layers, window 16) under seqtp
+    at B 2 x S 1,024: local layers on the halo, the global one gathered;
+    through the kernels against the plain versions, and against the
+    one-rank kernel run."""
+    import torch
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    dev = mesh.device
+    cfg, params = _reduced_two_layers("gemma3-4b")
+    sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         dtype=torch.int32)
+    out = {}
+    for label, plain, m in (("kernel", False, sm), ("plain", True, sm),
+                            ("one", False, None)):
+        for key in attn.SEQSHARD_ROUTES:
+            attn.SEQSHARD_ROUTES[key] = 0
+        with use_sharding(m, "seqtp"), _forced_plain(plain):
+            out[label] = tfm.forward(params, cfg, tokens=toks)[0]
+        routes = dict(attn.SEQSHARD_ROUTES)
+        n_local = sum(k == "L" for g in cfg.groups for k in g.pattern)
+        want = {"halo": n_local, "gather": cfg.n_layers - n_local} \
+            if m is not None else {"halo": 0, "gather": 0}
+        check(routes == want, f"(f) {label}: routes {routes}, want {want}")
+    d_plain = float((out["kernel"] - out["plain"]).abs().max())
+    d_one = float((out["kernel"] - out["one"]).abs().max())
+    check(torch.allclose(out["kernel"], out["plain"], atol=MD_FP32_TOL,
+                         rtol=MD_FP32_TOL) and
+          torch.allclose(out["kernel"], out["one"], atol=MD_FP32_TOL,
+                         rtol=MD_FP32_TOL),
+          f"(f) rank {rank}: kernel vs plain {d_plain:.3e}, vs one rank "
+          f"{d_one:.3e}")
+    _md_say(rank, f"(f) fp32 reduced gemma3-4b ({cfg.n_layers} layers, window "
+                  f"{cfg.window}) seqtp forward B 2 x S 1024: kernel vs plain "
+                  f"max |diff| {d_plain:.3e}, vs the one-rank kernel run "
+                  f"{d_one:.3e} (atol=rtol={MD_FP32_TOL})")
 
 
 def phase_list(stats, launches, smi):

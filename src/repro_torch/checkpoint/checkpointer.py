@@ -14,8 +14,9 @@ A bf16 tensor is written as JAX writes an ``ml_dtypes`` bfloat16 array: a
 back by its bits (:func:`repro_torch.models.weights.tensor_from_numpy`).
 An asynchronous save copies every leaf to the host before its writer
 thread starts, so the caller may update its tensors at once.  The last
-``keep`` steps are kept.  Resharding on restore waits for the
-multi-device port (ROADMAP.md, Queue 1, item 8).
+``keep`` steps are kept.  ``restore(..., shardings=)`` restores across
+meshes (``checkpointer.py:101-117``): each rank keeps its own slice of
+every leaf, as the placement's spec cuts it on its mesh.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ def _like(arr: np.ndarray, ref):
     """``arr`` as a leaf of ``ref``'s kind: a tensor on ``ref``'s device
     in its dtype, a Python number, or a numpy array of its dtype."""
     if isinstance(ref, torch.Tensor):
-        return tensor_from_numpy(arr, copy=False).to(device=ref.device,
+        dev = "cpu" if ref.device.type == "meta" else ref.device
+        return tensor_from_numpy(arr, copy=False).to(device=dev,
                                                      dtype=ref.dtype)
     if isinstance(ref, (bool, int, float)):
         return type(ref)(arr)
@@ -121,11 +123,17 @@ class Checkpointer:
         with open(p) as f:
             return int(f.read().strip())
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Step ``step`` (default the latest) in ``like``'s structure,
         each leaf on ``like``'s device and in its dtype.  Raises
         ``ValueError`` if the step lacks a leaf of ``like`` or stores one
-        at another shape (a checkpoint of another config)."""
+        at another shape (a checkpoint of another config).  With
+        ``shardings`` (a tree of ``core.sharding.NamedSharding`` of
+        ``like``'s structure, as ``core.broadcast.placement_shardings``
+        gives it for a mesh and a policy) each leaf of ``like`` is the
+        whole leaf, and this rank gets its slice of it, on its mesh's
+        device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -144,4 +152,8 @@ class Checkpointer:
                         f"{path}: {key} is stored at {arr.shape}, not "
                         f"{tuple(np.shape(ref))}")
                 leaves[key] = _like(arr, ref)
-        return unflatten_like(like, leaves)
+        tree = unflatten_like(like, leaves)
+        if shardings is not None:
+            tree = tree_map(lambda t, s: s.local_slice(
+                t.to(s.mesh.device)).contiguous(), tree, shardings)
+        return tree

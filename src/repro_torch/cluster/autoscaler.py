@@ -15,10 +15,30 @@ Watches two signals and resizes the replica pool between configured bounds:
 A new replica is whatever ``backend_factory`` returns: a live backend on a
 thread, or a ``BackendSpec`` rebuilt in a spawned worker (``transport=
 "process"`` or ``"socket"``), each worker an engine with its own CUDA
-context, weights and KV.  The JAX module's weight re-placement over a
-device mesh (``elastic=``, ``make_mesh=``) needs ``ElasticRunner``, which
-the port does not have yet (ROADMAP.md, Queue 1, item 8): passing either
-raises instead of scaling without it.
+context, weights and KV.
+
+Weight placement: when a pool resize coincides with a device-mesh change,
+pass an ``ElasticRunner`` (``core.fault``) and a ``make_mesh(n)``
+factory, and each resize re-places the parameters with
+``elastic.rescale(make_mesh(n))`` (``autoscaler.py:106-108``).  JAX has
+one controller for every device; under ``torch.distributed`` each rank
+runs its own, and building a mesh and rescaling are collective.  So the
+protocol is:
+
+  * rank 0 runs the ``Autoscaler``; every other rank runs
+    :func:`follow_rescales` with the same ``make_mesh``;
+  * at each resize rank 0 sends the new size n to every rank
+    (``dist.broadcast`` of one int64 over the world), then every rank,
+    rank 0 included, calls ``make_mesh(n)`` and ``elastic.rescale`` on
+    it together (ranks outside the new mesh drop their weights);
+  * :meth:`Autoscaler.release_followers` sends 0, on which the followers
+    return.  Without an initialised process group, or on a world of one
+    rank, nothing is sent;
+  * ``tick()`` then issues collectives, so on a world of several ranks
+    it runs on the thread that issues rank 0's other collectives, never
+    beside them: ``start()`` refuses ``elastic=`` with ``make_mesh=``
+    there, since its thread would interleave the ranks' collectives in
+    another order and hang them.
 
 ``tick()`` is deliberately pull-based and side-effect-explicit so tests can
 drive it with a fake clock; ``start()`` runs it on a daemon thread.
@@ -66,16 +86,13 @@ class Autoscaler:
         # ``backend_factory`` may return a live backend (placed on a thread)
         # or a serializable ``BackendSpec`` — required when ``transport`` is
         # "process", where the new replica is a spawned worker.
-        if elastic is not None or make_mesh is not None:
-            raise NotImplementedError(
-                "Autoscaler(elastic=, make_mesh=) re-places weights over a "
-                "device mesh with ElasticRunner, which is not in the port "
-                "yet: ROADMAP.md, Queue 1, item 8 (the multi-device paths)")
         self.router = router
         self.backend_factory = backend_factory
         self.transport = transport
         self.cfg = cfg
         self.fall_behind = fall_behind
+        self.elastic = elastic
+        self.make_mesh = make_mesh
         self.metrics = metrics if metrics is not None else null_registry()
         self.clock = clock
         self.events: List[ScaleEvent] = []
@@ -110,6 +127,16 @@ class Autoscaler:
             self._idle_ticks = 0
         return None
 
+    def _replace_weights(self, n: int):
+        if self.elastic is not None and self.make_mesh is not None:
+            _send_size(n)
+            self.elastic.rescale(self.make_mesh(n))
+
+    def release_followers(self):
+        """Tell the ranks in :func:`follow_rescales` to return."""
+        if self.elastic is not None and self.make_mesh is not None:
+            _send_size(0)
+
     def _scale_up(self, now: float, reason: str) -> ScaleEvent:
         # NB: with transport="process" this blocks the tick for the worker
         # spawn (interpreter + backend build; bounded by
@@ -130,6 +157,7 @@ class Autoscaler:
             self.events.append(ev)
             return ev
         n = self.router.n_alive()
+        self._replace_weights(n)
         self._last_action_t = now
         ev = ScaleEvent(now, "up", n, reason)
         self.events.append(ev)
@@ -142,6 +170,7 @@ class Autoscaler:
                      key=lambda w: (w.outstanding_cost(), -w.rid))
         self.router.remove_replica(victim.rid, drain=True)
         n = self.router.n_alive()
+        self._replace_weights(n)
         self._last_action_t = now
         ev = ScaleEvent(now, "down", n, reason)
         self.events.append(ev)
@@ -150,6 +179,13 @@ class Autoscaler:
 
     # -------------------------------------------------- background mode
     def start(self, period_s: float = 0.1) -> "Autoscaler":
+        if self.elastic is not None and self.make_mesh is not None and \
+                _world_size() > 1:
+            raise RuntimeError(
+                "with elastic= and make_mesh= on several ranks, tick() "
+                "issues collectives: call it on rank 0's collective thread, "
+                "not on start()'s own (the protocol in the module docstring)")
+
         def loop():
             while not self._stop.wait(period_s):
                 self.tick()
@@ -162,3 +198,36 @@ class Autoscaler:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+
+# ----------------------------------------------------------------------
+def _world_size() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _send_size(n: int) -> int:
+    """Rank 0's ``n`` on every rank of the world (the resize protocol in
+    the module docstring); ``n`` itself without a world to send to."""
+    import torch
+    import torch.distributed as dist
+    if _world_size() == 1:
+        return n
+    from repro_torch.core.collectives import rank_device
+    t = torch.tensor([n], dtype=torch.int64, device=rank_device())
+    dist.broadcast(t, src=0)
+    return int(t.item())
+
+
+def follow_rescales(elastic, make_mesh: Callable[[int], object]) -> int:
+    """The loop of every rank but 0: wait for rank 0's next pool size,
+    build its mesh and rescale ``elastic`` onto it, until rank 0 sends 0
+    (:meth:`Autoscaler.release_followers`).  Returns the number of
+    rescales taken part in."""
+    done = 0
+    while True:
+        n = _send_size(-1)
+        if n == 0:
+            return done
+        elastic.rescale(make_mesh(n))
+        done += 1

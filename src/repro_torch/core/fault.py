@@ -16,8 +16,11 @@ copy meant (``list(set).count(i) < 2`` is always true).
   * ReplayLog: the trainer's append-only jsonl of processed
     micro-batches (``fault.py:105-133``), a verbatim copy.
 
-``ElasticRunner`` waits for the multi-device port (ROADMAP.md, Queue 1,
-item 8).
+  * ElasticRunner: the weights held across a mesh and re-placed when the
+    mesh is rescaled (node loss, scale-up), on ``torch.distributed``.
+    JAX has one controller for all devices; here each rank runs its own,
+    so every rank of the world builds the new mesh and calls
+    :meth:`ElasticRunner.rescale` together.
 """
 from __future__ import annotations
 
@@ -139,3 +142,65 @@ class ReplayLog:
             if e["mb_id"] > checkpoint_mb:
                 return e
         return None
+
+
+# ----------------------------------------------------------------------
+class ElasticRunner:
+    """Holds ``(params, mesh, policy)`` and re-places the weights when the
+    mesh is rescaled (``fault.py:135-155``).  Construction places the
+    tree (``core.broadcast.place_params``: under ``broadcast`` rank 0 of
+    the mesh ships it); :meth:`rescale` moves it onto a new mesh of the
+    same world and bumps ``generation``.  A rank outside the mesh holds
+    no weights (``params`` None).  ``shipped_bytes`` and ``rescale_s``
+    are the last rescale's bytes moved to or from this rank and its
+    seconds."""
+
+    def __init__(self, params, axes_tree, mesh, policy: str = "broadcast"):
+        import torch
+
+        from repro_torch.core.broadcast import place_params
+        from repro_torch.tree import tree_map
+        self.axes_tree = axes_tree
+        self.policy = policy
+        self.mesh = mesh
+        # shapes and dtypes only: what a rank that joins later allocates
+        self.template = tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), params)
+        self.params, self.shardings = place_params(params, axes_tree, mesh,
+                                                   policy) \
+            if mesh.is_member else (None, None)
+        self.generation = 0
+        self.shipped_bytes = 0
+        self.rescale_s = 0.0
+
+    def rescale(self, new_mesh):
+        """Elastic re-mesh, on every rank of the world at once: the old
+        mesh's ranks rebuild the whole tree from their slices (nothing to
+        do under a replicated policy), the new mesh's rank 0 ships it to
+        the ranks of the new mesh, each keeps what the policy gives it,
+        and a rank outside the new mesh drops its weights.  The new mesh's
+        rank 0 must hold the weights: a mesh over ranks ``0 .. n - 1``
+        (``launch.mesh.compat_make_mesh``) always has it."""
+        from repro_torch.core.broadcast import REPLICATED, place_params, \
+            placement_shardings, ship, unshard
+        t0 = time.perf_counter()
+        full = self.template
+        if self.params is not None:
+            full = self.params if self.policy in REPLICATED else \
+                unshard(self.params, self.shardings)
+        self.params = self.shardings = None
+        self.mesh = new_mesh
+        self.shipped_bytes = 0
+        if new_mesh.is_member:
+            full, self.shipped_bytes = ship(full, new_mesh)
+            if self.policy in REPLICATED:
+                self.params = full
+                self.shardings = placement_shardings(
+                    self.axes_tree, new_mesh, self.policy)
+            else:
+                self.params, self.shardings = place_params(
+                    full, self.axes_tree, new_mesh, self.policy)
+        del full
+        self.generation += 1
+        self.rescale_s = time.perf_counter() - t0
+        return self.params

@@ -1,12 +1,20 @@
 """The two-phase pipeline, the paper's contribution, ported from
-``repro.core.pipeline`` (single device).
+``repro.core.pipeline``.
 
 Phase 1 (map):   every instance is scored independently by the broadcast
                  models (claim + evidence detectors).          [Listing 1]
-Filter:          static-shape compaction of positives, which is what
-                 bounds the phase-2 join.                      [§3.1 / §3.2]
-Phase 2 (join+map): every (claim, evidence) pair of the compacted buffers
-                 is scored, and pairs of one document are valid. [Listing 2]
+Filter:          static-shape compaction of positives (per shard), which
+                 is what bounds the phase-2 shuffle.           [§3.1 / §3.2]
+Phase 2 (join+map): the compacted claims are all-gathered over the data
+                 axis (the shuffle), evidence stays local, and every shard
+                 scores its (C_total x E_local) pair block; pairs of one
+                 document are valid.                           [Listing 2]
+
+On one device the step is :func:`batch_step_local`.  On a mesh
+(``make_batch_step(pcfg, mesh)``) each rank of the ``data`` axis runs
+JAX's ``shard_map`` body on its own rows, over ``torch.distributed``
+(``core.collectives``); ranks that differ only on other axes compute the
+same blocks, as ``shard_map`` replicates over them.
 
 Phase 2's full-rank scoring always runs the hand-written pair-score
 kernel on a CUDA tensor (``svm.link_score_matrix`` ->
@@ -22,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import joins
+from repro_torch.core import collectives, joins
 from repro_torch.core.filtering import Compacted, compact_by_score
 from repro_torch.models import svm as svm_mod
 
@@ -92,15 +100,44 @@ def batch_step_local(models, X, keys, pcfg: PipelineConfig) -> PipelineOut:
                        claims.n_dropped + evid.n_dropped)
 
 
-def make_batch_step(pcfg: PipelineConfig, mesh=None):
-    """``step(models, X, keys) -> PipelineOut`` on one device.  The
-    sharded form (claims all-gathered over a mesh's data axis) waits for
-    the multi-device port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_batch_step(mesh=...): the sharded pipeline is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 8 (multi-device paths)")
-    return functools.partial(batch_step_local, pcfg=pcfg)
+def make_batch_step(pcfg: PipelineConfig, mesh=None,
+                    data_axis: str = "data"):
+    """``step(models, X, keys) -> PipelineOut``.  Without a mesh, on one
+    device.  With one, ``X`` (n_local, d) and ``keys`` (n_local,) are this
+    rank's block of rows along ``data_axis`` (``collectives.local_block``;
+    n_local the same on every rank), and the step is JAX's ``shard_map``
+    body (``pipeline.py:111-132``): phase 1 on the rank's rows, its compacted
+    indices offset by ``axis_index * n_local`` to global row ids, the
+    compacted claims all-gathered in axis order and ``n_dropped`` summed
+    (the shuffle), then phase 2 over (C_total, E_local) pairs.  The
+    output is this rank's blocks as JAX's ``out_specs`` lay them out:
+    ``link_scores`` and ``pair_valid`` (C_total, E_local), the claims'
+    ``claim_index`` / ``claim_keys`` whole, the evidence's its own,
+    ``n_dropped`` the global count."""
+    if mesh is None:
+        return functools.partial(batch_step_local, pcfg=pcfg)
+    mesh.axes_key(data_axis)           # raises for an axis the mesh lacks
+
+    def step(models, X, keys) -> PipelineOut:
+        claims, evid = _phase1_local(models, X, keys, pcfg)
+        offset = collectives.axis_index(data_axis, mesh) * X.shape[0]
+        claims = claims._replace(index=torch.where(
+            claims.valid, claims.index + offset, -1))
+        evid = evid._replace(index=torch.where(
+            evid.valid, evid.index + offset, -1))
+        # THE SHUFFLE: gather only the compacted claims (paper §3.1)
+        claims_all = Compacted(
+            *(collectives.all_gather(t, data_axis, mesh=mesh)
+              for t in claims[:5]),
+            n_dropped=collectives.psum(claims.n_dropped, data_axis, mesh))
+        scores, mask = _phase2_local(models, claims_all, evid)
+        n_drop = claims_all.n_dropped + collectives.psum(
+            evid.n_dropped, data_axis, mesh)
+        return PipelineOut(scores, mask, claims_all.index, evid.index,
+                           claims_all.keys, evid.keys, n_drop)
+
+    return step
+
 
 
 # ----------------------------------------------------------------------
@@ -113,3 +150,15 @@ def extract_links(out: PipelineOut, threshold: float = 0.0):
     cols = out.evid_index[ei].tolist()
     scores = out.link_scores[ci, ei].tolist()
     return list(zip(rows, cols, scores))
+
+
+def gather_links(out: PipelineOut, mesh, data_axis: str = "data",
+                 threshold: float = 0.0):
+    """The global links of a sharded step, on every rank: each rank's
+    :func:`extract_links` of its own (C_total, E_local) block, gathered
+    over ``data_axis`` in axis order, the set JAX's ``extract_links``
+    gives on the whole output (its order is evidence shard, then the
+    block's row-major order)."""
+    parts = collectives.gather_objects(extract_links(out, threshold),
+                                       data_axis, mesh)
+    return [link for part in parts for link in part]

@@ -220,8 +220,9 @@ struct AttnParams {
   const int* bt;                     // paged: (B, nb) block table
   const int* pos0;                   // paged: (B,) first query position
   int S, KV, G;                      // queries, kv heads, heads per kv head
-  int T;                             // dense: keys (S but for a cross
-                                     //   attention's other sequence)
+  int T;                             // dense: keys (S; more for a
+                                     //   shard's masked queries, any for
+                                     //   a cross attention)
   int causal, window;                // dense masks
   int nb, bs, n_pool_rows, box_rows;  // paged
   int n_row_tiles;
@@ -232,15 +233,18 @@ struct AttnParams {
 
 // The dense source (flash_attention.cu; the backward's dQ kernel in
 // flash_attention_bwd.cu): which keys a query sees, and a 64-key tile of
-// a (B, T, KV, hd) K and V.  P is any params struct with T, causal and
-// window (T != S only without either mask).
+// a (B, T, KV, hd) K and V.  P is any params struct with S, T, causal and
+// window.
 struct DenseSrc {
-  // query s sees keys lo <= t <= hi: t <= s when causal, t > s - window
-  // when window > 0, t < T
+  // query s sits at key position a = s + T - S (T > S only under a mask:
+  // a sequence shard's queries over the keys up to its last) and sees
+  // keys lo <= t <= hi: t <= a when causal, t > a - window when window >
+  // 0, t < T
   template <class P>
   static __device__ __forceinline__ int2 bounds(const P& p, int, int s) {
-    return make_int2(p.window ? max(s - p.window + 1, 0) : 0,
-                     p.causal ? s : p.T - 1);
+    const int a = s + p.T - p.S;
+    return make_int2(p.window ? max(a - p.window + 1, 0) : 0,
+                     p.causal ? a : p.T - 1);
   }
   // one box per 64-column block of K and of V, lanes 0 .. NCB of K + NCB
   // of V - 1

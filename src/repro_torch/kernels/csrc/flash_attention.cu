@@ -13,10 +13,13 @@
 // prefill (deepseek-v2-lite: q/k 192 = nope 128 + rope 64, v 128; its
 // reduced config: 24 and 16), as the TPU kernel's jnp oracle
 // (flash_attention_jnp) allows; the scale is the caller's, 1/sqrt(hd).
-// T is S but for a cross attention (whisper's decoder over its encoder
-// states), which has neither mask.  Query s of head h = kvh * G + g sees
-// key t iff t < T, t <= s when causal, and t > s - window when window > 0
-// (the TPU kernel's masks).
+// T is S, or more under a mask (a sequence shard's S queries over the T
+// keys up to its last one: the queries sit at key positions T - S ..
+// T - 1), or any count without a mask (a cross attention: whisper's
+// decoder over its encoder states).  Query s of head h = kvh * G + g sits
+// at position a = s + T - S and sees key t iff t < T, t <= a when causal,
+// and t > a - window when window > 0 (the TPU kernel's masks, with JAX's
+// query offset).
 // Rows are the (query, head) pairs r = s * G + g of one (b, kv head), so the
 // G heads that share a K/V head share every K/V tile a CTA loads.  A CTA
 // walks only the key tiles its rows can see (the TPU kernel's `needed`
@@ -109,6 +112,7 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   const int sub = lane % LPK, gi = lane / LPK, d0 = sub * VEC;
   const int e0 = sub * VV;                        // the lane's v dims
   const float qscale = scale * LOG2E;
+  const int shift = T - S;                        // query s at key s + shift
 
   float qr[RW][VEC], acc[RW][VV], m[RW], l[RW];
   int hi[RW], lo[RW];                           // keys a row may see
@@ -118,8 +122,8 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
       const int r = row0 + i, s = r / G, g = r - s * G;
       Vec<float, VEC>::load(
           q + ((((int64_t)b * S + s) * KV + kvh) * G + g) * HD + d0, qr[i]);
-      hi[i] = causal ? s : T - 1;
-      lo[i] = window ? max(s - window + 1, 0) : 0;
+      hi[i] = causal ? s + shift : T - 1;
+      lo[i] = window ? max(s + shift - window + 1, 0) : 0;
     } else {
       hi[i] = -1;
       lo[i] = INT_MAX;
@@ -135,8 +139,8 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   }
   // the keys any row of the CTA can see: [k_lo, n_keys)
   const int s_first = row0 / G, s_last = (row0 + rows - 1) / G;
-  const int n_keys = causal ? s_last + 1 : T;
-  const int k_lo = window ? max(s_first - window + 1, 0) : 0;
+  const int n_keys = causal ? s_last + shift + 1 : T;
+  const int k_lo = window ? max(s_first + shift - window + 1, 0) : 0;
   const int64_t base_k =
       (int64_t)b * T * KV * HD + (int64_t)kvh * HD + d0;
   const int64_t base_v =
@@ -285,7 +289,8 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd_v: v's head dim (hd, or a pair
-// above); S: queries, T: keys (T != S only with causal = window = 0);
+// above); S: queries, T: keys (T < S only with causal = window = 0; the
+// queries sit at key positions T - S .. T - 1);
 // causal: 0 or 1; window: 0 for none; lse: null, or (B, S, H)
 // fp32 that receives each row's natural log-sum-exp of the scaled scores
 // (the backward's input).  Returns cudaGetLastError() after the launch (0

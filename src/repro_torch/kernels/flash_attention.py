@@ -12,11 +12,14 @@ the CUDA-core ones.
 / ``(B, S, KV, hd)`` layout, so the TPU wrapper's transposes and pad copies
 are gone.  v may be narrower than q and k (MLA's prefill: q/k 192, v 128),
 as the TPU kernel's jnp oracle allows (``flash_attention_jnp``), and k/v
-may hold T keys other than the S queries (whisper's cross attention over
-its encoder states) where neither mask is asked for.  It takes CUDA
-tensors only: it allocates the output, launches
-the kernel on PyTorch's current stream without synchronising, raises if
-the launch reports an error, and adds one to its count in
+may hold T keys other than the S queries: any T where neither mask is
+asked for (whisper's cross attention over its encoder states), and T >= S
+under a causal or window mask, the queries then being the last S of the T
+positions (a sequence shard's queries over the keys before them, JAX's
+``q_offset_dynamic`` / ``kv_offset``).  It takes CUDA tensors only: it
+allocates the output, launches the kernel on PyTorch's current stream
+without synchronising, raises if the launch reports an error, and adds
+one to its count in
 :data:`repro_torch.kernels.LAUNCHES`.  :func:`check_args` validates a call
 for both routes; the plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`, and the backward's
@@ -72,9 +75,10 @@ def _bwd_library() -> ctypes.CDLL:
 def check_args(q, k, v, window: int, causal: bool):
     """Validate q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,hd_v): hd_v is hd,
     or with hd a pair of :data:`repro_torch.kernels.FLASH_QK_V_DIMS` in a
-    dtype it is built for; T is S, or any other key count where neither
-    ``causal`` nor ``window`` masks (a cross attention).  Raises
-    ``ValueError`` on anything the kernel does not take."""
+    dtype it is built for; T is any key count where neither ``causal``
+    nor ``window`` masks (a cross attention), and at least S under a mask
+    (query s at position s + T - S).  Raises ``ValueError`` on anything
+    the kernel does not take."""
     name = "flash_attention"
     tensors = {"q": q, "k": k, "v": v}
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -95,11 +99,12 @@ def check_args(q, k, v, window: int, causal: bool):
                          f"(B, T, KV, hd_v), got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
     T = k.shape[1]
-    if T != S and (causal or window):
+    if T < S and (causal or window):
         raise ValueError(f"{name}: {S} queries over {T} keys take neither "
                          f"a causal mask nor a window (causal={causal}, "
-                         f"window={window}): only a cross attention has "
-                         f"T != S")
+                         f"window={window}): a masked call's queries are "
+                         f"the last S of T >= S positions, and only a "
+                         f"cross attention has fewer keys than queries")
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{name}: {H} query heads do not group over {KV} "
@@ -134,16 +139,23 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,hd), k: (B,T,KV,hd), v: (B,T,KV,hd_v) -> (B,S,H,hd_v), at
-    scale 1/sqrt(hd).  Query s sees key t iff ``t <= s`` when ``causal``
-    and ``t > s - window`` when ``window``; ``causal=False, window=0`` is
-    bidirectional, and only it takes T != S."""
+    scale 1/sqrt(hd).  Query s sits at key position ``s + T - S`` and
+    sees key t iff ``t <= s + T - S`` when ``causal`` and ``t > s + T - S
+    - window`` when ``window``; ``causal=False, window=0`` is
+    bidirectional, and only it takes T < S."""
     return _forward(q, k, v, causal, window)
 
 
-def check_bwd_dims(q, v) -> None:
+def check_bwd_dims(q, k, v, causal: bool, window: int) -> None:
     """The backward is built for hd = hd_v in :data:`repro_torch.kernels.
-    HEAD_DIMS`; anything else raises ``NotImplementedError`` naming the
-    ROADMAP item that adds it."""
+    HEAD_DIMS`, and under a mask for T = S only; anything else raises
+    ``NotImplementedError`` naming the ROADMAP item that adds it."""
+    if (causal or window) and k.shape[1] != q.shape[1]:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward kernel at a query offset "
+            f"({q.shape[1]} masked queries over {k.shape[1]} keys): "
+            f"ROADMAP.md, Queue 2, item 12 (the backward of the sequence-"
+            f"sharded prefill)")
     hd, hd_v = q.shape[-1], v.shape[-1]
     if hd != hd_v or hd not in HEAD_DIMS:
         raise NotImplementedError(
@@ -166,7 +178,7 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
     check_args(q, k, v, window, causal)
-    check_bwd_dims(q, v)
+    check_bwd_dims(q, k, v, causal, window)
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
     check_cuda(name, tensors)
@@ -202,7 +214,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        check_bwd_dims(q, v)
+        check_bwd_dims(q, k, v, causal, window)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, causal, window, lse)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -86,11 +86,12 @@ def _no_backward(name: str, item: int, *tensors) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,hd), k: (B,T,KV,hd), v: (B,T,KV,hd_v) -> (B,S,H,hd_v),
     at scale 1/sqrt(hd); hd_v is hd, or narrower for MLA's prefill (the
-    pairs of ``kernels.FLASH_QK_V_DIMS``).  Query s sees key t iff ``t <=
-    s`` when ``causal`` and ``t > s - window`` when ``window``;
-    ``causal=False, window=0`` is bidirectional, and only it takes T keys
-    other than the S queries (a cross attention); both routes raise
-    ``ValueError`` on a causal or windowed call at T != S."""
+    pairs of ``kernels.FLASH_QK_V_DIMS``).  Query s sits at key position
+    ``s + T - S`` and sees key t iff ``t <= s + T - S`` when ``causal``
+    and ``t > s + T - S - window`` when ``window``; ``causal=False,
+    window=0`` is bidirectional (a cross attention at any T).  Both routes
+    raise ``ValueError`` on a causal or windowed call at T < S; the
+    backward kernel takes a masked call at T = S only."""
     if not _route("flash_attention", q):
         fa.check_args(q, k, v, window, causal)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

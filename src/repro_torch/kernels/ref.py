@@ -19,17 +19,21 @@ NEG_INF = -2.0e38
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q, k: (B,S,H,hd), (B,T,KV,hd); v: (B,T,KV,hd_v), where hd_v may be
-    narrower than hd (MLA's prefill) and T is S, or another key count for
-    a cross attention (``causal=False, window=0``: each query sees all T
-    keys).  Masked full attention at scale 1/sqrt(hd): query s sees key t
-    iff ``t <= s`` (causal) and ``t > s - window`` (window).  Returns
-    (B,S,H,hd_v); under autograd its gradient is the plain backward."""
+    narrower than hd (MLA's prefill).  Masked full attention at scale
+    1/sqrt(hd).  The S queries are the last S of the T key positions:
+    query s sits at position s + T - S and sees key t iff ``t <= s + T -
+    S`` (causal) and ``t > s + T - S - window`` (window).  T == S is a
+    whole prefill; T > S under a mask is a sequence shard's queries over
+    the keys before them (``models.attention.seqshard_attn_forward``);
+    with neither mask each query sees all T keys (a cross attention).
+    Returns (B,S,H,hd_v); under autograd its gradient is the plain
+    backward."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
-    qi = torch.arange(S, device=q.device)[:, None]
+    qi = torch.arange(S, device=q.device)[:, None] + (T - S)
     si = torch.arange(T, device=q.device)[None, :]
     ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:

@@ -5,18 +5,113 @@ They take every family's batch as ``api`` does: ``{"tokens"}``, with
 here on ``{"frames", "tokens"}``; the training driver feeds tokens only)
 and ``"patches"`` for the VLM.
 
-The JAX module also builds the sharding specs of every (arch x shape)
-cell (``cache_specs``, ``batch_shardings``, ``opt_shardings``, ...); they
-come with the multi-device port and the dry run (ROADMAP.md, Queue 1,
-items 8 and 9).
+The sharding specs of every (arch x shape) cell are JAX's
+(``steps.py:21-91``, ``:158-170``): :func:`cache_specs`,
+:func:`batch_shardings`, :func:`shardings_like` and
+:func:`opt_shardings`, as trees of ``core.sharding.NamedSharding`` whose
+specs need the mesh's names and sizes alone (``launch.mesh.
+abstract_mesh``).
+
+Data parallelism (``make_train_step(..., mesh=)`` under ``broadcast``):
+where JAX's GSPMD splits the batch over every device and all-reduces the
+gradients, each rank here takes its own rows of the global batch, and
+the loss and the gradients are summed over the batch's mesh axes
+(``core.collectives``) before the clip, so the clip's global norm and
+AdamW see the same numbers on every rank and the parameters stay
+bit-identical across ranks.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core import collectives
+from repro_torch.core.sharding import NamedSharding, ShardingCtx, _rules, \
+    is_axes
 from repro_torch.models import api
-from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
-from repro_torch.tree import flatten_with_paths, tree_map, unflatten_like
+from repro_torch.optim import AdamWState, adamw_update, clip_by_global_norm, \
+    cosine_schedule
+from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map, \
+    unflatten_like
+
+
+# ----------------------------------------------------------------------
+# cache logical axes (mirrors models/api.init_caches structures)
+def _kv_axes(ring: bool):
+    ax = {"k": ("layers", "batch", "seq", "kv_heads", None),
+          "v": ("layers", "batch", "seq", "kv_heads", None)}
+    if ring:
+        ax["pos"] = ("layers", "batch", "seq")
+    return ax
+
+
+def cache_logical_axes(cfg, max_len: int):
+    """The logical axes of ``api.init_caches``'s tree (``steps.py:
+    32-52``)."""
+    if cfg.family == "encdec":
+        a = ("layers", "batch", "seq", "kv_heads", None)
+        return {"self_k": a, "self_v": a, "cross_k": a, "cross_v": a}
+    groups = []
+    for g in cfg.groups:
+        pos_axes = []
+        for kind in g.pattern:
+            if kind == "S":
+                pos_axes.append({"conv": ("layers", "batch", None, "inner"),
+                                 "h": ("layers", "batch", "inner", None)})
+            elif kind == "R":
+                pos_axes.append({"conv": ("layers", "batch", None, "lru"),
+                                 "h": ("layers", "batch", "lru")})
+            elif kind == "M" and cfg.kv_lora_rank:
+                pos_axes.append({"ckv": ("layers", "batch", "seq", None),
+                                 "krope": ("layers", "batch", "seq", None)})
+            else:
+                ring = kind == "L" and cfg.window and cfg.window < max_len
+                pos_axes.append(_kv_axes(bool(ring)))
+        groups.append(pos_axes)
+    return groups
+
+
+def cache_specs(cfg, mesh, max_len: int, batch: int, policy: str,
+                shard_seq: bool = False):
+    """Shardings of the cache tree (``steps.py:55-82``): the batch over
+    the data axes, or, where ``batch`` is smaller than them, the sequence;
+    ``shard_seq`` adds ``model`` to the sequence; kv heads never split."""
+    rules = dict(_rules(policy, mesh.axis_names))
+    data_axes = rules.get("batch") or ()
+    n_data = math.prod(mesh.shape[a] for a in data_axes) if data_axes else 1
+    seq_axes = []
+    if batch < n_data:
+        rules["batch"] = None
+        seq_axes += list(data_axes)
+    if shard_seq and "model" in mesh.axis_names:
+        seq_axes.append("model")
+    rules["seq"] = tuple(seq_axes) or None
+    rules["kv_heads"] = None
+    ctx = ShardingCtx(mesh, policy, rules)
+    return tree_map(ctx.sharding_for, cache_logical_axes(cfg, max_len),
+                    is_leaf=is_axes)
+
+
+def batch_shardings(cfg, mesh, policy: str, specs):
+    """The batch's leading dimension over the policy's batch axes
+    (``steps.py:85-93``); ``specs`` maps names to anything with a
+    ``shape``."""
+    data_axes = _rules(policy, mesh.axis_names).get("batch") or None
+    return {k: NamedSharding(mesh, (data_axes,) + (None,) * (
+        len(v.shape) - 1)) for k, v in specs.items()}
+
+
+def shardings_like(axes_tree, ctx: ShardingCtx):
+    return tree_map(ctx.sharding_for, axes_tree, is_leaf=is_axes)
+
+
+def opt_shardings(param_shardings):
+    """Adam's moments take the parameters' shardings, the step count is
+    replicated (``steps.py:166-170``)."""
+    mesh = tree_leaves(param_shardings)[0].mesh
+    return AdamWState(NamedSharding(mesh, ()), param_shardings,
+                      param_shardings)
 
 
 def value_and_grad(params, cfg, batch):
@@ -37,35 +132,116 @@ def value_and_grad(params, cfg, batch):
         unflatten_like(params, grads)
 
 
+def check_policy(cfg, policy: str, data_parallel: bool = False):
+    """Raise for a training run the port cannot take: ``seqtp`` (Queue 2
+    item 12), ``tp`` / ``fsdp_tp`` (Queue 1 item 14), and with
+    ``data_parallel`` a MoE config (Queue 1 item 14)."""
+    if policy == "seqtp":
+        raise NotImplementedError(
+            "training under policy 'seqtp': the flash backward at a query "
+            "offset and the backward of the K/V all-gather are not in the "
+            "port yet: ROADMAP.md, Queue 2, item 12")
+    if policy != "broadcast":
+        raise NotImplementedError(
+            f"training under policy {policy!r}: the tensor-parallel layers "
+            f"are not in the port yet: ROADMAP.md, Queue 1, item 14")
+    if data_parallel and any(k == "M" for g in getattr(cfg, "groups", ())
+                             for k in g.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: data-parallel training of MoE layers, whose expert "
+            f"capacity and aux loss depend on the global token count, is "
+            f"not in the port yet: ROADMAP.md, Queue 1, item 14")
+
+
+def local_rows(batch, mesh, policy: str = "broadcast"):
+    """This rank's rows of the global ``batch`` (a dict of tensors with the
+    batch first), split over the policy's batch axes as ``_rules`` says:
+    block ``axis_index`` of ``axis_size`` equal blocks."""
+    axes = _rules(policy, mesh.axis_names).get("batch") or ()
+    if not axes:
+        return batch
+    return tree_map(lambda a: collectives.local_block(a, axes, mesh), batch)
+
+
+_BUCKET = 1 << 26          # elements of one gradient all-reduce (fp32)
+
+
+def _reduce_grads(grads, weight: float, axes, mesh):
+    """``psum(g * weight)`` of every leaf over ``axes``, in fp32 buckets of
+    at most ``_BUCKET`` elements, each leaf back in its dtype."""
+    flat = flatten_with_paths(grads)
+    keys = list(flat)
+    out = {}
+    i = 0
+    while i < len(keys):
+        take, n = [], 0
+        while i < len(keys) and (not take or n + flat[keys[i]].numel()
+                                 <= _BUCKET):
+            take.append(keys[i])
+            n += flat[keys[i]].numel()
+            i += 1
+        buf = torch.cat([flat[k].reshape(-1).float() for k in take]) * weight
+        buf = collectives.psum(buf, axes, mesh)
+        off = 0
+        for k in take:
+            g = flat[k]
+            out[k] = buf[off:off + g.numel()].view(g.shape).to(g.dtype)
+            off += g.numel()
+    return unflatten_like(grads, out)
+
+
 def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
                     total: int = 10_000, clip: float = 1.0,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None,
+                    policy: str = "broadcast"):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``
     (``steps.py:96-144``).  ``accum_steps > 1`` splits the batch into
     micro-batches taken in order, their gradients summed in fp32 and
     averaged, as JAX's ``lax.scan`` does.  The gradients are clipped to
     global norm ``clip``; the learning rate is the cosine schedule at the
     optimizer's step count before this step.  Metrics are fp32 scalars:
-    ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``."""
+    ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``.
+
+    With a ``mesh`` (policy ``broadcast``: data parallelism) every rank
+    is given the global batch and takes its own rows (:func:`local_rows`);
+    the loss is the token-weighted mean over every rank: the ranks' blocks
+    are equal (:func:`local_rows` refuses others), so each rank's mean,
+    weighted by its share ``1 / axis_size`` of the tokens, is all-reduced,
+    and the gradients of each rank's mean, weighted the same way, are
+    all-reduced in fp32 before the clip.  ``seqtp`` raises naming Queue 2
+    item 12, ``tp`` / ``fsdp_tp`` and MoE configs Queue 1 item 14."""
+    if mesh is not None:
+        check_policy(cfg, policy, data_parallel=True)
+        axes = _rules(policy, mesh.axis_names).get("batch") or ()
+        w = 1.0 / mesh.axis_size(axes)
+
+    def local(params, batch):
+        if accum_steps == 1:
+            return value_and_grad(params, cfg, batch)
+        micro = tree_map(lambda a: a.reshape(
+            (accum_steps, a.shape[0] // accum_steps) + a.shape[1:]), batch)
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        loss = ce = aux = 0.0
+        for i in range(accum_steps):
+            mb = tree_map(lambda a: a[i], micro)
+            (l, (c, a)), g = value_and_grad(params, cfg, mb)
+            grads = tree_map(lambda x, y: x + y.float(), grads, g)
+            loss, ce, aux = loss + l, ce + c, aux + a
+        inv = 1.0 / accum_steps
+        grads = tree_map(lambda g: g * inv, grads)
+        return (loss * inv, (ce * inv, aux * inv)), grads
 
     def step(params, opt_state, batch):
-        if accum_steps == 1:
-            (loss, (ce, aux)), grads = value_and_grad(params, cfg, batch)
+        if mesh is None:
+            (loss, (ce, aux)), grads = local(params, batch)
         else:
-            micro = tree_map(lambda a: a.reshape(
-                (accum_steps, a.shape[0] // accum_steps) + a.shape[1:]),
-                batch)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = ce = aux = 0.0
-            for i in range(accum_steps):
-                mb = tree_map(lambda a: a[i], micro)
-                (l, (c, a)), g = value_and_grad(params, cfg, mb)
-                grads = tree_map(lambda x, y: x + y.float(), grads, g)
-                loss, ce, aux = loss + l, ce + c, aux + a
-            inv = 1.0 / accum_steps
-            grads = tree_map(lambda g: g * inv, grads)
-            loss, ce, aux = loss * inv, ce * inv, aux * inv
+            batch = local_rows(batch, mesh, policy)
+            (loss, (ce, aux)), grads = local(params, batch)
+            grads = _reduce_grads(grads, w, axes, mesh)
+            loss, ce, aux = collectives.psum(
+                torch.stack([loss, ce, aux]).float() * w, axes,
+                mesh).unbind()
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, clip)
             lr_t = cosine_schedule(opt_state.step, peak_lr=lr, warmup=warmup,

@@ -27,8 +27,18 @@ So give each run a directory of its own: the default, JAX's
 ``/tmp/repro_train`` (under ``$TMPDIR`` where that is set), is shared by
 every run on the machine, and ``Checkpointer.restore`` refuses only a
 step of another shape.
-``--production-mesh`` and any ``--policy`` but ``broadcast`` name
-shardings, which come with the multi-device port (Queue 1, item 8).
+Several ranks: under ``torchrun`` (``WORLD_SIZE`` > 1) the driver
+starts the process group (``--backend``, by default nccl on ``cuda`` and
+gloo on ``cpu``; nccl refuses more ranks than cards) and trains on the
+local mesh ``(1, world)``, or on the production mesh with
+``--production-mesh`` (which needs 256 ranks, as JAX's needs 256
+devices).  Under ``--policy broadcast`` that is data parallelism
+(``steps.make_train_step(..., mesh=)``): rank 0's initial tree is
+broadcast to every rank, each rank takes its rows of every batch, the
+gradients are all-reduced, and rank 0 alone prints, logs and writes the
+checkpoints.  ``--policy seqtp`` raises naming ROADMAP.md Queue 2 item
+12 (the flash backward at a query offset), ``tp`` and ``fsdp_tp`` Queue
+1 item 14 (the tensor-parallel layers).
 An encoder-decoder config (whisper-base) raises ``ValueError`` before
 its first step: the driver feeds token batches only, as JAX's does,
 whose first step then fails on the missing ``frames``; its train step
@@ -49,16 +59,17 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import reduced as reduce_cfg
+from repro_torch.core import collectives
+from repro_torch.core.broadcast import place_params
 from repro_torch.core.fault import ReplayLog
 from repro_torch.data.text import synthetic_tokens
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.steps import check_policy, make_train_step
 from repro_torch.models import api
 from repro_torch.optim import adamw_init
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_train")
-_MULTI_DEVICE = "is not in the port yet: ROADMAP.md, Queue 1, item 8 (the " \
-    "multi-device paths)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,19 +88,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend under torchrun: nccl "
+                         "(default on cuda) or gloo (default on cpu)")
     return ap
 
 
 def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
           accum: int = 1, lr: float = 3e-4, warmup: int = 100,
           ckpt_dir: str = DEFAULT_CKPT_DIR, ckpt_every: int = 25,
-          device="cuda", on_step: Optional[Callable[[Dict], None]] = None
-          ) -> Dict:
+          device="cuda", on_step: Optional[Callable[[Dict], None]] = None,
+          mesh=None, policy: str = "broadcast") -> Dict:
     """Train ``cfg`` for ``steps`` steps (resuming from ``ckpt_dir``'s
     latest checkpoint), as the CLI does.  ``on_step`` gets each step's
     record: ``step``, ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``
     (floats) and ``ms``, the step's host wall time up to its metrics on
-    the host.  Returns ``{"params", "opt", "start", "history"}``."""
+    the host.  With a ``mesh`` every rank calls it: data parallelism
+    under ``policy`` ``broadcast`` (the module docstring).  Returns
+    ``{"params", "opt", "start", "history"}``."""
     if cfg.family == "encdec":
         raise ValueError(
             f"{cfg.name}: the training driver feeds token batches only, and "
@@ -97,13 +113,18 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
             f"driver fails at its first step on batch['frames']); train it "
             f"through steps.make_train_step on a {{'frames', 'tokens'}} "
             f"batch")
-    dev = resolve_device(device)
-    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.axis_index(mesh.axis_names) == 0
+    params, axes = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev, with_axes=True)
+    if mesh is not None:
+        params, _ = place_params(params, axes, mesh, policy)
     opt = adamw_init(params)
     step_fn = make_train_step(cfg, lr=lr, warmup=warmup, total=steps,
-                              accum_steps=accum)
+                              accum_steps=accum, mesh=mesh, policy=policy)
     ck = Checkpointer(ckpt_dir, async_save=True)
     log = ReplayLog(f"{ckpt_dir}/replay.jsonl")
+    say = print if lead else (lambda *a, **k: None)
 
     start = 0
     if ck.latest_step() is not None:
@@ -111,8 +132,8 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
         params, opt = state["params"], state["opt"]
         del state
         start = int(opt.step)
-        print(f"[train] resumed from checkpoint step {ck.latest_step()} "
-              f"({start} updates)")
+        say(f"[train] resumed from checkpoint step {ck.latest_step()} "
+            f"({start} updates)")
 
     data = itertools.islice(synthetic_tokens(0, batch, seq, cfg.vocab,
                                              n_batches=steps), start, None)
@@ -128,33 +149,50 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
         history.append(rec)
         if on_step is not None:
             on_step(rec)
-        log.record(step, offset=step * batch)
+        if lead:
+            log.record(step, offset=step * batch)
         if step % 10 == 0 or step == steps - 1:
-            print(f"[train] step {step:4d} loss={rec['loss']:.4f} "
-                  f"gnorm={rec['grad_norm']:.3f} "
-                  f"({time.perf_counter() - t0:.1f}s)")
-        if ckpt_every and step and step % ckpt_every == 0:
+            say(f"[train] step {step:4d} loss={rec['loss']:.4f} "
+                f"gnorm={rec['grad_norm']:.3f} "
+                f"({time.perf_counter() - t0:.1f}s)")
+        if lead and ckpt_every and step and step % ckpt_every == 0:
             ck.save(step, {"params": params, "opt": opt})
-    ck.save(steps, {"params": params, "opt": opt})
-    ck.wait()
-    print(f"[train] done; checkpoints at {ck.steps()}")
+    if lead:
+        ck.save(steps, {"params": params, "opt": opt})
+        ck.wait()
+    say(f"[train] done; checkpoints at {ck.steps()}")
     return {"params": params, "opt": opt, "start": start,
             "history": history}
 
 
+def _mesh(args):
+    """The mesh of a run: None on one rank without ``--production-mesh``;
+    under torchrun the process group is started here (a caller that
+    started its own, as ``collectives.spawn`` does, keeps it)."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1 and not dist.is_initialized():
+        backend = args.backend or ("nccl" if args.device == "cuda"
+                                   else "gloo")
+        collectives.init_process_group(
+            backend, int(os.environ["RANK"]), world, "env://", args.device,
+            timeout_s=1800)
+    if args.production_mesh:
+        return make_production_mesh()
+    return make_local_mesh(1, world) if world > 1 else None
+
+
 def main(argv=None) -> Dict:
     args = build_parser().parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError(f"--production-mesh {_MULTI_DEVICE}")
-    if args.policy != "broadcast":
-        raise NotImplementedError(f"--policy {args.policy} {_MULTI_DEVICE}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    check_policy(cfg, args.policy)
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  accum=args.accum, lr=args.lr, warmup=args.warmup,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                 device=args.device)
+                 device=args.device, mesh=_mesh(args), policy=args.policy)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Every arch of the port exposes the same step functions
 (dense / moe / ssm / hybrid / encdec / vlm):
 
-  init(generator, cfg, device)            -> params
+  init(generator, cfg, device[, with_axes]) -> params [, logical_axes]
   loss_fn(params, cfg, batch)             -> (loss, (ce, aux))  [train_step]
   forward_fn(params, cfg, batch)          -> logits
   prefill_fn(params, cfg, batch, caches)  -> (logits, caches)
@@ -14,9 +14,10 @@ Every arch of the port exposes the same step functions
 
 As in JAX, ``input_batch`` gives the modality frontend's stubs: whisper
 gets frame embeddings, internvl patch embeddings.  ``init`` returns the
-parameter tree alone: JAX's logical axes name shardings, which come with
-the multi-device port (ROADMAP.md, Queue 1, item 8).  The dry run's
-shape-only ``abstract_params`` / ``input_specs`` raise until item 9.
+parameter tree, and with ``with_axes=True`` JAX's pair ``(params,
+logical_axes)``: the axes that ``core.sharding`` maps onto a mesh
+(``weights.param_axes``).  The dry run's shape-only ``abstract_params`` /
+``input_specs`` raise until item 9.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models import vlm
-from repro_torch.models.weights import init_params
+from repro_torch.models.weights import init_params, param_axes
 
 
 def _dry_run(what: str) -> NotImplementedError:
@@ -37,10 +38,14 @@ def _dry_run(what: str) -> NotImplementedError:
         f"ROADMAP.md, Queue 1, item 9")
 
 
-def init(generator: torch.Generator, cfg, device="cuda"):
+def init(generator: torch.Generator, cfg, device="cuda",
+         with_axes: bool = False):
     """The port's seeded init (:func:`weights.init_params`), JAX's
-    distributions drawn from ``generator``, which lives on ``device``."""
-    return init_params(cfg, generator, device)
+    distributions drawn from ``generator``, which lives on ``device``;
+    with ``with_axes``, ``(params, logical_axes)`` as JAX's ``init``
+    returns them."""
+    params = init_params(cfg, generator, device)
+    return (params, param_axes(cfg)) if with_axes else params
 
 
 def abstract_params(cfg):

@@ -37,6 +37,14 @@ its plain ``mha`` below 1024 tokens, which rounds P to the activation
 dtype); its decode is the absorbed form, through
 ``kops.mla_decode_attention`` over the latent cache.
 
+Sequence-sharded prefill (``seqtp``, :func:`seqshard_attn_forward`): each
+rank of the mesh's ``model`` axis holds S / n consecutive positions and
+runs flash at a query offset over the keys up to its last position:
+a halo of the previous rank's last W keys for a local layer whose window
+fits the shard, else the K/V of every rank all-gathered.  A local layer
+keeps its window on the gathered route, where JAX's drops it
+(``attention.py:237-242``; ROADMAP.md, Queue 3).
+
 In place, unlike JAX: :func:`batched_cache_update`, :func:`prefill_into_cache`
 and :func:`_paged_scatter` write K/V rows into the cache tensors they are
 given, so the decode, prefill and extend steps update the engine's caches
@@ -48,10 +56,16 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -2.0e38
+#: the shortest sequence JAX shards under ``seqtp`` (``attention.py:18``)
+FLASH_MIN_SEQ = 1024
+#: layer calls of each sequence-sharded route: ``"halo"`` (a local layer
+#: whose window fits the shard) and ``"gather"`` (every other layer)
+SEQSHARD_ROUTES = {"halo": 0, "gather": 0}
 
 
 def _project_qkv(params, xq, xkv, cfg, positions_q, positions_kv, rope_base):
@@ -141,6 +155,58 @@ def attn_forward(params, x, cfg, *, kind: str, positions=None,
     causal = kind not in ("bidir", "cross")
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     return out.reshape(B, S, -1) @ params["wo"]
+
+
+def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
+                          keep_kv: bool = False):
+    """Context-parallel attention of one layer (``attention.py:203-251``)
+    on this rank's S_loc positions ``off .. off + S_loc - 1`` of the
+    ``model`` axis (``off = axis_index * S_loc``), x: (B, S_loc, d).
+
+    RoPE at the global positions.  A local layer whose window W fits the
+    shard (W <= S_loc) takes the previous rank's last W keys and values
+    as a halo (``collectives.ppermute_next``) and runs flash over the W +
+    S_loc keys at window W; rank 0 has no earlier keys and runs over its
+    own S_loc, which is what JAX's ``kv_valid`` mask leaves of its zero
+    halo.  Every other layer all-gathers K/V over the axis and runs flash
+    over the first ``off + S_loc`` of them, causal, with the layer's
+    window where it has one.  Each query thus sits at key position
+    ``T - S_loc + s`` of a call of T keys: flash at a query offset.
+
+    Returns ``(out (B, S_loc, d), kv)``: ``kv`` is the whole sequence's
+    (k, v) (B, S, KV, hd) where the route gathered them or ``keep_kv``
+    asks (a prefill fills its cache from them), else None."""
+    _check_kind(kind, cfg)
+    B, S_loc, _ = x.shape
+    off = collectives.axis_index("model", mesh) * S_loc
+    pos = off + torch.arange(S_loc, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, x, cfg, pos, pos,
+                           _rope_base(cfg, kind))
+    q = q.contiguous()
+    W = cfg.window if kind == "local" else 0
+    kv = None
+    if W and W <= S_loc:
+        SEQSHARD_ROUTES["halo"] += 1
+        k_h = collectives.ppermute_next(k[:, -W:].contiguous(), "model",
+                                        mesh)
+        v_h = collectives.ppermute_next(v[:, -W:].contiguous(), "model",
+                                        mesh)
+        if off:
+            k, v = torch.cat([k_h, k], dim=1), torch.cat([v_h, v], dim=1)
+        out = kops.flash_attention(q, k.contiguous(), v.contiguous(),
+                                   causal=True, window=W)
+        if keep_kv:
+            kv = tuple(collectives.all_gather(t[:, -S_loc:], "model", dim=1,
+                                              mesh=mesh) for t in (k, v))
+    else:
+        SEQSHARD_ROUTES["gather"] += 1
+        kv = tuple(collectives.all_gather(t, "model", dim=1, mesh=mesh)
+                   for t in (k, v))
+        T = off + S_loc
+        out = kops.flash_attention(q, kv[0][:, :T].contiguous(),
+                                   kv[1][:, :T].contiguous(), causal=True,
+                                   window=W)
+    return out.reshape(B, S_loc, -1) @ params["wo"], kv
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device, *,

@@ -26,6 +26,10 @@ The caches are JAX's four stacked tensors (``encdec.py:121-129``):
 port's other caches are.  A decode step writes its self-attention row at
 ``pos`` clamped to the last row, as ``dynamic_update_slice`` clamps, and
 sees rows ``< min(pos + 1, max_len)``.
+
+JAX does not sequence-shard this family: under ``seqtp`` every pass runs
+whole on each rank.  Under a weight-sharded policy (``tp``, ``fsdp_tp``)
+it raises (ROADMAP.md, Queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch.core.sharding import require_replicated_weights
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, embed, mask_padded_logits
@@ -59,6 +64,7 @@ def sinusoid_at(pos, d: int, dtype):
 
 def encode(params, frames, cfg):
     """frames: (B, S_enc, d) stub frame embeddings -> encoder states."""
+    require_replicated_weights(f"{cfg.name}: the encoder")
     x = frames.to(cfg.act_dtype) + sinusoid(
         frames.shape[1], cfg.d_model, cfg.act_dtype, frames.device)[None]
 
@@ -170,6 +176,7 @@ def decode_step(params, tokens, caches, pos, cfg):
     ``< min(pos + 1, max_len)``; the cross attention sees all ``enc_len``
     rows (``encdec.py:165-196``).  Returns ``(logits (B, 1, V),
     caches)``."""
+    require_replicated_weights(f"{cfg.name}: the decode step")
     B = tokens.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     x = embed(params["embedding"], tokens, cfg) + sinusoid_at(

@@ -109,3 +109,19 @@ def models_from_numpy(tree, device="cuda"):
         out[name] = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
                      for k, v in tree[name].items()}
     return out
+
+
+def param_axes(models):
+    """JAX's logical axes of a tree of these models (``svm.py:20-60``):
+    a polynomial SVM's ``sv`` ("sv", "feat") and ``alpha`` ("sv",), a
+    linear SVM's ``w`` ("feat",), the link's ``W`` / ``U`` / ``V``
+    ("feat", None) and its ``w`` (None,), every ``bias`` ()."""
+    def one(tree):
+        if any(k in tree for k in ("W", "U", "V")):       # the link model
+            table = {"W": ("feat", None), "U": ("feat", None),
+                     "V": ("feat", None), "w": (None,), "bias": ()}
+        else:
+            table = {"sv": ("sv", "feat"), "alpha": ("sv",), "w": ("feat",),
+                     "bias": ()}
+        return {k: table[k] for k in tree}
+    return {name: one(tree) for name, tree in models.items()}

@@ -34,6 +34,20 @@ advances the loop state tensors (``pos``, ``last``, ``active``,
 ``remaining``) where they lie.  Each returns its inputs, so call sites
 read like the JAX ones.
 
+Sequence sharding (``seqtp``, ``transformer.py:164-190``): under
+``core.sharding.use_sharding(mesh, "seqtp")``, a ``full`` or ``prefill``
+pass over S >= ``attention.FLASH_MIN_SEQ`` tokens that divide over the
+mesh's ``model`` axis runs each rank's S / n positions through every
+layer, its attention on ``attention.seqshard_attn_forward``, and
+all-gathers the last hidden states, so every rank returns what the
+one-rank pass returns (a prefill's cache filled from the gathered K/V).
+The callers give every rank the whole batch.  Layers whose compute
+couples positions or rows raise there (kinds ``S`` and ``R``, MLA, and
+MoE, whose expert capacity and aux loss depend on the global token
+count: ROADMAP.md, Queue 1, item 14); any other pass runs whole on every
+rank, as JAX's does.  A weight-sharded policy (``tp``, ``fsdp_tp``)
+raises (item 14).
+
 Training (``transformer.py:265-325``, ``:708-718``): :func:`forward` runs
 the backbone in mode ``"full"``, which keeps no cache and writes nothing
 in place (autograd refuses in-place writes to tensors it saved), with
@@ -47,6 +61,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import collectives
+from repro_torch.core.sharding import current_ctx, require_replicated_weights
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, embed, layer_norm,
@@ -144,7 +160,32 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
     return caches
 
 
-def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
+def seqshard_mesh(cfg, S: int, mode: str):
+    """The mesh a pass of ``S`` tokens shards its sequence over, or None:
+    JAX's ``use_seqshard`` (``transformer.py:167-169``).  Raises for the
+    layer kinds the port cannot shard."""
+    ctx = current_ctx()
+    if ctx is None or ctx.policy != "seqtp" or mode not in ("full",
+                                                            "prefill"):
+        return None
+    n = ctx.mesh.shape.get("model", 1)
+    if n == 1 or S < attn.FLASH_MIN_SEQ or S % n:
+        return None
+    for g in cfg.groups:
+        for kind in g.pattern:
+            if kind in ("S", "R", "M"):
+                what = {"S": "Mamba (kind S)", "R": "RG-LRU (kind R)",
+                        "M": "MLA" if cfg.kv_lora_rank else "MoE (kind M)"
+                        }[kind]
+                raise NotImplementedError(
+                    f"{cfg.name}: {what} layers under policy 'seqtp' couple "
+                    f"positions or rows across the shards, and are not in "
+                    f"the port yet: ROADMAP.md, Queue 1, item 14")
+    return ctx.mesh
+
+
+def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None,
+                seq=None):
     """One layer (``transformer.py:130-210``).  Kinds ``A``, ``D`` and
     ``M``: ``full`` (a whole sequence, no cache: ``cache`` and ``pos``
     are None), ``prefill`` into a dense cache, ``decode`` over a dense or
@@ -161,7 +202,9 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     whole-sequence mixer and returns ``cache`` as given.
     Returns ``(x, aux, cache)``: aux is kind ``M``'s router loss (an fp32
     scalar) and the float 0.0 for every other kind, so serving, which
-    drops it as JAX's engine does, adds no device work."""
+    drops it as JAX's engine does, adds no device work.  ``seq`` is the
+    mesh of a sequence-sharded pass (:func:`seqshard_mesh`): x holds this
+    rank's positions."""
     _check_kind(kind)
     aux = 0.0
     h = apply_norm(p["ln1"], x, cfg)
@@ -208,6 +251,13 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None):
     elif mode == "decode":
         mix, cache = attn.attn_decode(p["mixer"], h, cache, pos, cfg,
                                       kind=akind)
+    elif seq is not None:
+        mix, kv = attn.seqshard_attn_forward(p["mixer"], h, cfg, kind=akind,
+                                             mesh=seq,
+                                             keep_kv=mode == "prefill")
+        if mode == "prefill":
+            cache = attn.prefill_into_cache(None, *kv, cache, cfg,
+                                            kind=akind)
     elif mode == "prefill":
         S = h.shape[1]
         positions = torch.arange(S, device=h.device)[None, :]
@@ -272,7 +322,8 @@ def _remat_wrap(fn, cfg):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None):
+def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
+                 last=None):
     """x: (B,S,d) embedded input -> (x, aux, caches) (``transformer.py:
     274-312``); aux sums the layers' router losses (the float 0.0 without
     a kind-``M`` layer).  Mode ``full`` takes no caches (None) and runs
@@ -280,7 +331,17 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None):
     the caches in place.  ``bt``: (B, nb) int32 block table of paged
     caches, None for dense.  Attention writes K/V into its repeat's views
     itself; a layer that returns new tensors (the SSM state) has them
-    copied into its views."""
+    copied into its views.  ``last``: a (B,) int64 position a row, where
+    only x at those positions is wanted (B,1,d).  A sequence-sharded pass
+    (the module docstring) runs this rank's positions and returns the
+    whole sequence's x, or with ``last`` each row's position from the rank
+    that holds it (an all-gather of one row a rank)."""
+    require_replicated_weights(f"{cfg.name}: the model forward")
+    seq = seqshard_mesh(cfg, x.shape[1], mode)
+    if seq is not None:
+        S_loc = x.shape[1] // seq.shape["model"]
+        off = collectives.axis_index("model", seq) * S_loc
+        x = x[:, off:off + S_loc]
     aux = 0.0
     for gi, g in enumerate(cfg.groups):
         reps = [_unstack(p, g.repeats) for p in params["groups"][gi]]
@@ -289,7 +350,7 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None):
                 a_sum = 0.0
                 for pi, kind in enumerate(_pattern):
                     xx, a, _ = apply_layer(rep_params[pi], xx, cfg, kind,
-                                           "full", None, None)
+                                           "full", None, None, seq=seq)
                     a_sum = a_sum + a
                 return xx, a_sum
 
@@ -303,10 +364,19 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None):
             for pi, kind in enumerate(g.pattern):
                 layer_cache = {key: t[r] for key, t in gc[pi].items()}
                 x, _, new = apply_layer(reps[pi][r], x, cfg, kind, mode,
-                                        layer_cache, pos, bt)
+                                        layer_cache, pos, bt, seq=seq)
                 for key, view in layer_cache.items():
                     if new[key] is not view:
                         view.copy_(new[key])
+    if last is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        if seq is None:
+            return x[rows, last][:, None], aux, caches
+        x = collectives.all_gather(x[rows, last % S_loc][:, None], "model",
+                                   dim=1, mesh=seq)
+        return x[rows, last // S_loc][:, None], aux, caches
+    if seq is not None:
+        x = collectives.all_gather(x, "model", dim=1, mesh=seq)
     return x, aux, caches
 
 
@@ -357,12 +427,11 @@ def prefill(params, cfg, tokens, caches, last_index=None, embeds=None):
     position) or (B,) per-row last positions of right-padded prompts."""
     x = (embed(params["embedding"], tokens, cfg) if embeds is None
          else embeds.to(cfg.act_dtype))
-    x, _, caches = run_backbone(params, x, cfg, "prefill", caches, None)
-    if last_index is None:
-        x = x[:, -1:]
-    else:
-        rows = torch.arange(x.shape[0], device=x.device)
-        x = x[rows, last_index.long()][:, None]
+    B, S = x.shape[:2]
+    last = (torch.full((B,), S - 1, dtype=torch.int64, device=x.device)
+            if last_index is None else last_index.long())
+    x, _, caches = run_backbone(params, x, cfg, "prefill", caches, None,
+                                last=last)
     x = apply_norm(params["final_norm"], x, cfg)
     return _head(params, x, cfg), caches
 

@@ -368,3 +368,72 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
                 view.copy_(w.mul_(std))
         flat[key] = out
     return _unflatten(flat)
+
+
+def empty_params(cfg, device="cuda"):
+    """The config's tree of uninitialised tensors, each leaf at its shape
+    and dtype: what a rank that receives the weights (``core.broadcast.
+    place_params``) allocates before they arrive."""
+    device = resolve_device(device)
+    return _unflatten({
+        key: torch.empty(_full_shape(spec), dtype=spec_dtype(spec, cfg),
+                         device=device)
+        for key, spec in param_specs(cfg).items()})
+
+
+# Logical axes of each leaf, one layer's (JAX's ``dense_init`` /
+# ``Param`` axes: attention.py:24-33, 566-579; layers.py:72-88, 107-111;
+# moe.py:16-28; ssm.py:21-36; rglru.py:20-36); a stacked leaf adds
+# "layers" in front (transformer.py:214-235)
+_ATTN_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+              "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+              "q_norm": (None,), "k_norm": (None,)}
+_MLA_AXES = {"wq": ("embed", "heads"), "w_dkv": ("embed", None),
+             "w_krope": ("embed", None), "kv_norm": (None,),
+             "w_uk": (None, "heads"), "w_uv": (None, "heads"),
+             "wo": ("heads", "embed")}
+_MLP_AXES = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+             "w_down": ("ff", "embed"), "b_up": ("ff",), "b_down": ("embed",)}
+_MOE_AXES = {"router": ("embed", None),
+             "w_gate": ("experts", "embed", "ff"),
+             "w_up": ("experts", "embed", "ff"),
+             "w_down": ("experts", "ff", "embed")}
+_SSM_AXES = {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+             "conv_b": ("inner",), "x_proj": ("inner", None),
+             "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+             "A_log": ("inner", None), "D": ("inner",),
+             "out_proj": ("inner", "embed")}
+_RGLRU_AXES = {"in_x": ("embed", "lru"), "in_gate": ("embed", "lru"),
+               "conv_w": (None, "lru"), "conv_b": ("lru",),
+               "w_a": ("lru", None), "b_a": (None,), "w_i": ("lru", None),
+               "b_i": (None,), "lambda": (None,), "out": ("lru", "embed")}
+
+
+def _leaf_axes(cfg, key: str):
+    parts = key.split("/")
+    leaf, block = parts[-1], parts[-2] if len(parts) > 1 else ""
+    if key == "embedding/table":
+        return ("vocab", "embed")
+    if key == "lm_head":
+        return ("embed", "vocab")
+    if block.startswith("ln") or block.endswith("_norm"):
+        return (None,)
+    kind = cfg.groups[int(parts[1])].pattern[int(parts[2])] \
+        if parts[0] == "groups" else "A"
+    if block in ("mixer", "self", "cross"):
+        table = {"S": _SSM_AXES, "R": _RGLRU_AXES}.get(kind, _ATTN_AXES)
+        if kind == "M" and cfg.kv_lora_rank:
+            table = _MLA_AXES
+        return table[leaf]
+    if block == "ffn" and kind == "M":
+        return _MOE_AXES[leaf]
+    return _MLP_AXES[leaf]
+
+
+def param_axes(cfg):
+    """JAX's logical axes of every leaf (``api.init``'s second result),
+    as a tree of the parameter tree's structure with a tuple of axis
+    names (or None) at each leaf."""
+    return _unflatten({
+        key: (("layers",) if spec[0] else ()) + _leaf_axes(cfg, key)
+        for key, spec in param_specs(cfg).items()})

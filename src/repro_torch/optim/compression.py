@@ -6,8 +6,9 @@ against fp32.
 Round-to-nearest rounds half to even in both ``jnp.round`` and
 ``torch.round``, so its int8 payload equals JAX's.  Stochastic rounding
 draws its noise from a ``torch.Generator`` and matches JAX only in
-distribution.  The collective that sums compressed gradients across
-workers (``compressed_psum``) comes with the multi-device port."""
+distribution.  :func:`compressed_psum` sums compressed gradients across
+the ranks of a mesh axis (``core.collectives``), as JAX's does inside
+``shard_map``."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -46,10 +47,19 @@ def dequantize(c: CompressedGrad) -> torch.Tensor:
     return c.q.float() * c.scale
 
 
-def compressed_psum(c: CompressedGrad, axis_name: str):
-    raise NotImplementedError(
-        "compressed_psum: the all-reduce of compressed gradients across "
-        "workers is not in the port yet: ROADMAP.md, Queue 1, item 8")
+def compressed_psum(c: CompressedGrad, axis_name, mesh=None):
+    """All-reduce a compressed gradient over ``axis_name`` of ``mesh``
+    (default: the current sharding context's), JAX's three reductions
+    (``compression.py:50-62``): the int8 payloads summed in int32, the
+    scales maxed, and the payloads rescaled to the max scale summed in
+    fp32.  Returns ``(value, raw int32 sum)``; ``value`` is the sum of
+    every rank's gradient within one scale step a rank."""
+    from repro_torch.core import collectives
+    total = collectives.psum(c.q.to(torch.int32), axis_name, mesh)
+    s_max = collectives.pmax(c.scale, axis_name, mesh)
+    rescaled = collectives.psum(c.q.float() * (c.scale / s_max), axis_name,
+                                mesh)
+    return rescaled * s_max, total
 
 
 def tree_quantize(grads, residuals=None):

@@ -49,14 +49,17 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     return walk(tree, *rest)
 
 
-def flatten_with_paths(tree) -> Dict[str, Any]:
-    """Path string -> leaf, in JAX's leaf order."""
+def flatten_with_paths(tree, is_leaf: Optional[Callable] = None
+                       ) -> Dict[str, Any]:
+    """Path string -> leaf, in JAX's leaf order; a node for which
+    ``is_leaf`` is true is a leaf."""
     out: Dict[str, Any] = {}
 
     def walk(node, prefix):
         if node is None:
             return
-        kids = _children(node)
+        kids = None if is_leaf is not None and is_leaf(node) else \
+            _children(node)
         if kids is None:
             out["/".join(prefix)] = node
             return

@@ -70,10 +70,13 @@ def test_plain_cross_attention_and_gradients_match_jax(B, S, T, H, KV, hd):
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 8),
                                            (True, 8)])
 def test_causal_or_windowed_calls_at_another_kv_length_raise(causal, window):
-    """Only a bidirectional call takes T != S: the plain route, the
+    """A masked call's S queries are the last S of T key positions, so
+    fewer keys than queries (T < S) takes no mask: the plain route, the
     kernel wrappers (before any CUDA check) and the autograd route raise
-    ``ValueError``; at T = S the same masks pass."""
-    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 5, 9, 2, 2, 16))
+    ``ValueError``.  More keys (T > S, a sequence shard's queries) pass
+    the forward's check, and the backward kernel refuses them naming
+    Queue 2 item 12; at T = S the same masks pass."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 9, 5, 2, 2, 16))
     calls = [
         lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
         lambda: ops.flash_attention(q.requires_grad_(True), k, v,
@@ -81,12 +84,17 @@ def test_causal_or_windowed_calls_at_another_kv_length_raise(causal, window):
         lambda: fa.flash_attention_bshd(q, k, v, causal=causal,
                                         window=window),
         lambda: fa.flash_attention_bwd_bshd(
-            q, k, v, q, q, torch.zeros(1, 5, 2), causal=causal,
+            q, k, v, q, q, torch.zeros(1, 9, 2), causal=causal,
             window=window)]
     for call in calls:
         with pytest.raises(ValueError, match="neither a causal mask nor a "
                                              "window"):
             call()
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 5, 9, 2, 2, 16))
+    fa.check_args(q, k, v, window, causal)
+    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+        fa.flash_attention_bwd_bshd(q, k, v, q, q, torch.zeros(1, 5, 2),
+                                    causal=causal, window=window)
     fa.check_args(q, k[:, :5], v[:, :5], window, causal)
     with pytest.raises(ValueError, match=r"k must be \(B=1, T, KV, hd=16\)"):
         fa.check_args(q, k[:, :, :, :8].contiguous(), v, 0, False)

@@ -168,5 +168,18 @@ def test_stochastic_rounding_is_unbiased_and_psum_raises():
     assert torch.equal(c.q, c2.q)
     assert set(c.q[1:].tolist()) == {0, 1}
     assert abs(c.q[1:].float().mean().item() - 0.3) < 0.02
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the psum (the name kept from when it raised): over an axis of one
+    # rank it is the rank's own dequantized gradient and payload; with no
+    # mesh named or in context it raises.  tests/test_torch_dist_pipeline.py
+    # holds it against JAX's shard_map reduction on 4 ranks
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.launch.mesh import abstract_mesh
+    val, raw = compression.compressed_psum(
+        c, "data", abstract_mesh((1,), ("data",)))
+    assert torch.equal(val, compression.dequantize(c))
+    assert raw.dtype == torch.int32 and torch.equal(raw, c.q.int())
+    with use_sharding(abstract_mesh((1, 1), ("data", "model"))):
+        val2, _ = compression.compressed_psum(c, "data")
+    assert torch.equal(val2, val)
+    with pytest.raises(RuntimeError, match="a collective needs a mesh"):
         compression.compressed_psum(c, "data")

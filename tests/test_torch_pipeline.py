@@ -312,8 +312,20 @@ def test_batch_step_matches_jax(corpus, use_pair_kernel):
 
 
 def test_sharded_batch_step_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        pipeline.make_batch_step(PCFG_T, mesh=object())
+    """The sharded step (its name kept from when it raised): on 2 ranks
+    spawned over gloo, the gathered links and the global drop count of
+    the claim shuffle equal the one-device step's where no shard's
+    compaction overflows; a mesh without the ``data`` axis is refused.
+    ``tests/test_torch_dist_pipeline.py`` holds it against JAX's."""
+    import torch_dist_ranks as ranks
+    from repro_torch.core import collectives
+    got = collectives.spawn(ranks.sharded_vs_local_rank, 2, backend="gloo",
+                            device="cpu", timeout_s=60, threads=1)
+    for sharded, local, dropped in got:
+        assert dropped == 0 and sharded == local and len(local) > 20
+    from repro_torch.launch.mesh import abstract_mesh
+    with pytest.raises(ValueError, match="not distinct axes"):
+        pipeline.make_batch_step(PCFG_T, abstract_mesh((2,), ("model",)))
 
 
 def test_speculative_map_keeps_order_and_retries():

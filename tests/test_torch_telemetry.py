@@ -396,12 +396,35 @@ def test_autoscaler_process_events_equal_jax(name):
                                 dict(make_mesh=lambda n: n)],
                          ids=["elastic", "make_mesh"])
 def test_elastic_rescale_raises_naming_item_8(kw):
-    r = Router()
-    try:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Autoscaler(r, lambda: None, **kw)
-    finally:
-        r.stop()
+    """The ``elastic=`` / ``make_mesh=`` wiring (the name kept from when
+    either raised): with one of them alone a resize re-places nothing, as
+    in JAX; with both, every scale-up and scale-down calls
+    ``elastic.rescale(make_mesh(n))`` at the new pool size, and, in a
+    process without a process group, sends the size to no one.
+    ``tests/test_torch_dist_pipeline.py`` runs the protocol on 4 ranks."""
+    from torch_dist_ranks import FakeRouter
+    calls = []
+
+    class Runner:
+        def rescale(self, mesh):
+            calls.append(mesh)
+
+    full = dict(elastic=Runner(), make_mesh=lambda n: ("mesh", n))
+    cfg = AutoscalerConfig(min_replicas=1, max_replicas=4, scale_up_depth=1.0,
+                           scale_down_depth=1.0, cooldown_s=0.0,
+                           idle_ticks_to_drain=1)
+    for given in (kw, full):
+        calls.clear()
+        r = FakeRouter(2)
+        sc = Autoscaler(r, lambda: object(), cfg,
+                        **{k: full[k] if k in kw else v
+                           for k, v in given.items()})
+        r.depth = 100.0
+        assert sc.tick(1.0).action == "up"
+        r.depth = 0.0
+        assert sc.tick(2.0).action == "down"
+        sc.release_followers()
+        assert calls == ([] if given is kw else [("mesh", 3), ("mesh", 2)])
 
 
 def test_stats_server_routes_parse_and_equal_jax():

@@ -204,14 +204,23 @@ def test_cli_resumed_run_equals_an_uninterrupted_one(tmp_path, capsys):
 
 def test_cli_flags_and_refusals(tmp_path):
     """JAX's flags: ``--reduced`` cannot be turned off (store_true with
-    default True); the multi-device flags raise naming item 8; the
-    checkpoint holds JAX's ``params`` / ``opt`` layout."""
+    default True); ``--policy seqtp`` raises naming Queue 2 item 12 (the
+    flash backward at a query offset), ``tp`` and ``fsdp_tp`` Queue 1
+    item 14 (the tensor-parallel layers), ``--production-mesh`` on a world
+    of one rank raises (it needs 256); the checkpoint holds JAX's
+    ``params`` / ``opt`` layout."""
     args = train.build_parser().parse_args([])
     assert args.reduced is True and args.device == "cuda"
     assert (args.steps, args.batch, args.seq, args.lr, args.ckpt_every,
-            args.warmup) == (50, 8, 128, 3e-4, 25, 100)
-    for bad in (["--production-mesh"], ["--policy", "fsdp_tp"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
+            args.warmup, args.policy, args.backend) == \
+        (50, 8, 128, 3e-4, 25, 100, "broadcast", None)
+    for bad, match in ((["--policy", "seqtp"], "Queue 2, item 12"),
+                       (["--policy", "tp"], "Queue 1, item 14"),
+                       (["--policy", "fsdp_tp"], "Queue 1, item 14")):
+        with pytest.raises(NotImplementedError, match=match):
             train.main(["--device", "cpu", *bad])
+    with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
+        train.main(["--device", "cpu", "--production-mesh",
+                    "--ckpt-dir", str(tmp_path / "pm")])
     ck = Checkpointer(str(tmp_path / "x"))
     assert ck.latest_step() is None

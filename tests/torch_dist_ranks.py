@@ -1,0 +1,303 @@
+"""Rank bodies of the port's multi-device tests, run by
+``repro_torch.core.collectives.spawn`` in processes of their own (gloo on
+the CPU).  This module imports torch and the port only, so a spawned
+rank loads no JAX; each body reads its inputs from an ``.npz`` a test
+wrote and returns host values."""
+import numpy as np
+import torch
+
+from repro_torch.core.collectives import local_block
+
+
+def _load(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _margot(d):
+    from repro_torch.models import svm
+    models = {name: {k[len(name) + 1:]: _t(v) for k, v in d.items()
+                     if k.startswith(name + "/")}
+              for name in ("claim", "evidence", "link")}
+    return models, svm.param_axes(models)
+
+
+def _pcfg(d):
+    from repro_torch.core.pipeline import PipelineConfig
+    return PipelineConfig(feat_dim=int(d["feat_dim"]),
+                          claim_capacity=int(d["claim_capacity"]),
+                          evid_capacity=int(d["evid_capacity"]))
+
+
+def _links(out, mesh):
+    from repro_torch.core import pipeline
+    return sorted(pipeline.gather_links(out, mesh))
+
+
+def pipeline_rank(rank, path):
+    """The sharded MARGOT step on a (4,) ``data`` mesh: this rank's
+    output blocks and the gathered links."""
+    from repro_torch.core import pipeline
+    from repro_torch.launch.mesh import compat_make_mesh
+    d = _load(path)
+    models, _ = _margot(d)
+    mesh = compat_make_mesh((4,), ("data",))
+    step = pipeline.make_batch_step(_pcfg(d), mesh)
+    out = step(models, local_block(_t(d["X"]), "data", mesh),
+               local_block(_t(d["keys"]), "data", mesh))
+    return {"out": {k: v.numpy() for k, v in out._asdict().items()},
+            "links": _links(out, mesh)}
+
+
+def sharded_vs_local_rank(rank):
+    """A seeded corpus through the sharded step on a (2,) ``data`` mesh
+    and through the one-device step: (sharded links, one-device links,
+    the sharded step's n_dropped)."""
+    from repro_torch.core import pipeline
+    from repro_torch.data.text import (corpus_arrays, margot_models,
+                                       synthetic_corpus)
+    from repro_torch.launch.mesh import compat_make_mesh
+    pcfg = pipeline.PipelineConfig(feat_dim=256, claim_capacity=48,
+                                   evid_capacity=96)
+    models = margot_models(pcfg, device="cpu")
+    X, keys, _ = corpus_arrays(synthetic_corpus(4, 32, seed=5), dim=256)
+    X, keys = _t(X), _t(keys)
+    mesh = compat_make_mesh((2,), ("data",))
+    out = pipeline.make_batch_step(pcfg, mesh)(
+        models, local_block(X, "data", mesh),
+        local_block(keys, "data", mesh))
+    one = pipeline.make_batch_step(pcfg.__class__(
+        feat_dim=256, claim_capacity=96, evid_capacity=192))(models, X, keys)
+    key = lambda links: sorted((c, e) for c, e, _ in links)  # noqa: E731
+    return (key(pipeline.gather_links(out, mesh)),
+            key(pipeline.extract_links(one)), int(out.n_dropped))
+
+
+class FakeRouter:
+    """The few calls an ``Autoscaler`` makes, over a replica count."""
+
+    def __init__(self, n):
+        self.n, self.depth = n, 0.0
+
+    def n_alive(self):
+        return self.n
+
+    def queue_depth(self):
+        return self.depth
+
+    def add_replica(self, *a, **k):
+        self.n += 1
+
+    def alive_replicas(self):
+        import types
+        return [types.SimpleNamespace(rid=i, outstanding_cost=lambda: 0.0)
+                for i in range(self.n)]
+
+    def remove_replica(self, rid, drain=True):
+        self.n -= 1
+
+
+def elastic_rank(rank, path):
+    """``ElasticRunner`` 4 -> 2 on the MARGOT models (the step's links on
+    each mesh), then the autoscaler's resize protocol: rank 0 scales the
+    pool 2 -> 3 -> 2 and every rank rescales with it."""
+    from repro_torch.cluster.autoscaler import (Autoscaler, AutoscalerConfig,
+                                                follow_rescales)
+    from repro_torch.core import pipeline
+    from repro_torch.core.fault import ElasticRunner
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.tree import flatten_with_paths
+    d = _load(path)
+    models, axes = _margot(d)
+    pcfg = _pcfg(d)
+    X, keys = _t(d["X"]), _t(d["keys"])
+    make = lambda n: compat_make_mesh((n,), ("data",))  # noqa: E731
+    mesh4 = make(4)
+    # rank 0 holds the models; the others only their shapes
+    held = models if rank == 0 else {
+        k: {n: torch.empty_like(t, device="meta") for n, t in v.items()}
+        for k, v in models.items()}
+    runner = ElasticRunner(held, axes, mesh4, policy="broadcast")
+    res = {"placed_equal": all(
+        torch.equal(runner.params[k][n], models[k][n])
+        for k in models for n in models[k])}
+
+    def links(mesh):
+        out = pipeline.make_batch_step(pcfg, mesh)(
+            runner.params, local_block(X, "data", mesh),
+            local_block(keys, "data", mesh))
+        return _links(out, mesh), int(out.n_dropped)
+
+    res["links4"], res["dropped4"] = links(mesh4)
+    mesh2 = make(2)
+    runner.rescale(mesh2)
+    res["gen"] = runner.generation
+    res["member2"] = mesh2.is_member
+    res["dropped_weights"] = runner.params is None
+    res["shipped"] = runner.shipped_bytes
+    if mesh2.is_member:
+        res["links2"], res["dropped2"] = links(mesh2)
+    # the autoscaler's protocol
+    if rank == 0:
+        router = FakeRouter(2)
+        sc = Autoscaler(router, lambda: object(), AutoscalerConfig(
+            min_replicas=1, max_replicas=4, scale_up_depth=1.0,
+            scale_down_depth=1.0, cooldown_s=0.0, idle_ticks_to_drain=1),
+            elastic=runner, make_mesh=make)
+        router.depth = 100.0
+        up = sc.tick(1.0)
+        router.depth = 0.0
+        down = sc.tick(2.0)
+        sc.release_followers()
+        res["events"] = [(e.action, e.n_replicas) for e in (up, down)]
+        try:
+            sc.start()
+            res["start_refused"] = False
+            sc.stop()
+        except RuntimeError as e:
+            res["start_refused"] = "collective thread" in str(e)
+    else:
+        res["followed"] = follow_rescales(runner, make)
+    res["gen_after"] = runner.generation
+    res["holds"] = runner.params is not None
+    if runner.params is not None:
+        res["sum"] = float(sum(t.double().sum() for t in
+                               flatten_with_paths(runner.params).values()))
+    return res
+
+
+def compressed_rank(rank, path):
+    """``compressed_psum`` of this rank's row of G over a (4,) mesh."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.optim.compression import compressed_psum, quantize
+    G = _t(_load(path)["G"])
+    mesh = compat_make_mesh((4,), ("data",))
+    c, _ = quantize(G[rank])
+    val, raw = compressed_psum(c, "data", mesh)
+    return val.numpy(), raw.numpy()
+
+
+def restore_rank(rank, ckpt_dir, arch):
+    """A JAX checkpoint of the reduced ``arch`` restored on a (2, 2) mesh
+    under ``tp``: this rank's slice of every leaf, and the whole leaves
+    rebuilt from every rank's slices."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.broadcast import placement_shardings, unshard
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import weights
+    from repro_torch.tree import flatten_with_paths
+    cfg = reduced(get_config(arch))
+    like = weights.empty_params(cfg, "cpu")
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    sh = placement_shardings(weights.param_axes(cfg), mesh, "tp")
+    ck = Checkpointer(ckpt_dir)
+    part = ck.restore(like, shardings=sh)
+    whole = unshard(part, sh)
+    full = ck.restore(like)
+    return ({k: v.float().numpy() for k, v in
+             flatten_with_paths(part).items()},
+            all(torch.equal(a, b) for a, b in zip(
+                flatten_with_paths(whole).values(),
+                flatten_with_paths(full).values())),
+            {k: tuple(v.shape) for k, v in flatten_with_paths(full).items()})
+
+
+def seqtp_rank(rank, path):
+    """Each case's reduced config under ``seqtp`` on a (1, 2) mesh: the
+    forward's logits, the prefill's last logits and caches, the routes
+    its layers took."""
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import flatten_with_paths
+    mesh = compat_make_mesh((1, 2), ("data", "model"))
+    out = {}
+    for case in SEQTP_CASES:
+        cfg, params, toks = seqtp_inputs(path, case)
+        for key in attn.SEQSHARD_ROUTES:
+            attn.SEQSHARD_ROUTES[key] = 0
+        with use_sharding(mesh, "seqtp"):
+            logits, _ = tfm.forward(params, cfg, tokens=toks)
+            caches = tfm.init_caches(cfg, toks.shape[0], toks.shape[1],
+                                     "cpu")
+            last, caches = tfm.prefill(params, cfg, toks, caches)
+        out[case] = {"logits": logits.numpy(), "last": last.numpy(),
+                     "caches": {k: v.numpy() for k, v in
+                                flatten_with_paths(caches).items()},
+                     "routes": dict(attn.SEQSHARD_ROUTES)}
+    return out
+
+
+def seqtp_inputs(path, case):
+    """``case``'s config, the JAX weights and the tokens from ``path``."""
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    from repro_torch.models import weights
+    d = _load(path)
+    arch, pattern, window = SEQTP_CASES[case]
+    cfg = reduced(get_config(arch)).replace(
+        n_layers=len(pattern), groups=(ScanGroup(pattern, 1),),
+        **({"window": window} if window else {}))
+    pre = case + "/p/"
+    params = weights.params_from_numpy(
+        {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}, cfg,
+        "cpu")
+    return cfg, params, _t(d[case + "/tokens"])
+
+
+#: name -> (arch, layer pattern, window): the two-layer reduced configs
+#: of the seqtp tests; "wide" has a local window of 700 over 512-position
+#: shards (W > S_loc: the gathered route, where JAX drops the window)
+SEQTP_CASES = {"internlm2": ("internlm2-1.8b", ("A", "A"), 0),
+               "gemma3": ("gemma3-4b", ("L", "G"), 0),
+               "wide": ("gemma3-4b", ("L", "G"), 700)}
+
+
+#: name -> (arch, two-layer overrides) of the data-parallel train tests
+DP_CASES = {"internlm2": "internlm2-1.8b", "whisper": "whisper-base"}
+DP_HYPER = dict(lr=1e-2, warmup=1, total=10)
+
+
+def dp_config(case):
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    cfg = reduced(get_config(DP_CASES[case]))
+    if case == "internlm2":
+        return cfg.replace(n_layers=2, groups=(ScanGroup(("A",), 2),))
+    return cfg.replace(enc_layers=2, dec_layers=2, n_layers=4)
+
+
+def dp_rank(rank, path, case):
+    """Three data-parallel AdamW steps of ``case`` on a (1, 2) mesh under
+    ``broadcast``: each step's metrics and a hash of the parameters, and
+    the last step's parameters and moments."""
+    import hashlib
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import weights
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths
+    d = _load(path)
+    cfg = dp_config(case)
+    params = weights.params_from_numpy(
+        {k[2:]: v for k, v in d.items() if k.startswith("p/")}, cfg, "cpu")
+    opt = adamw_init(params)
+    mesh = compat_make_mesh((1, 2), ("data", "model"))
+    fn = steps.make_train_step(cfg, mesh=mesh, **DP_HYPER)
+    out = []
+    for i in range(3):
+        batch = {k: _t(d[f"b{i}/{k}"]) for k in ("tokens", "frames")
+                 if f"b{i}/{k}" in d}
+        params, opt, m = fn(params, opt, batch)
+        h = hashlib.sha256()
+        for v in flatten_with_paths(params).values():
+            h.update(v.numpy().tobytes())
+        out.append(({k: float(v) for k, v in m.items()}, h.hexdigest()))
+    flat = lambda t: {k: v.numpy() for k, v in  # noqa: E731
+                      flatten_with_paths(t).items()}
+    return out, flat(params), flat(opt.m), flat(opt.v)
