@@ -207,7 +207,8 @@ phase ends on a line of its own with its wall time
    LayerNorm, GELU MLP, tied, bf16, seeded random weights, 3.0 B
    parameters) and internvl2-1b's decoder (24 layers, d_model 896, 14
    heads over 2, hd 64, tied, vocab 151,655 padded to 151,680), their
-   launch counts and a profiled decode sync on each path.  Then, with
+   launch counts on each path and a profiled decode sync on the dense
+   one.  Then, with
    those engines freed, falcon-mamba-7b (64 layers,
    d_model 4096, d_inner 8192, bf16, seeded random weights), 8 slots,
    max_len 2048, K=8, 8 requests (4 x 512, 1000, 2 x 256, 100 tokens,
@@ -222,8 +223,9 @@ phase ends on a line of its own with its wall time
    151,936, bf16, seeded random weights, 30.53 B parameters, no cut),
    paged then dense, as internlm2: parameter count, memory after the init
    and peak per serve, launch counts (48 a decode step and 48 an admit),
-   every admit batch-1, tok/s and TTFT, and a profiled decode sync with
-   the expert products' device time beside the attention kernels'.
+   every admit batch-1, tok/s and TTFT, and (paged only) a profiled decode
+   sync with the expert products' device time beside the attention
+   kernels'.
    Before the Mamba serve: gemma-7b (28 layers, d_model 3072, 16 heads
    MHA, hd 256, d_ff 24,576, GeGLU, vocab 256,000, tied, 8.54 B) paged
    and dense, and gemma3-4b (34 layers: 29 local with window 1024 over
@@ -231,7 +233,8 @@ phase ends on a line of its own with its wall time
    vocab 262,144, tied, 3.88 B) asked for the paged engine: it serves
    dense and counts the fallback, with a ninth request of 1,100 tokens
    past the window; each with its launch counts, tok/s, TTFT, memory
-   after the init and at peak, and a profiled decode sync.  After
+   after the init and at peak, and a profiled decode sync (gemma-7b's
+   on the dense engine).  After
    gemma3-4b, recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local over
    2,048-row rings at max_len 4096; 10 heads over 1, hd 256, d_ff 7,680,
    vocab 256,000, tied, 2.89 B, ``lambda`` fp32) asked for the paged
@@ -310,9 +313,19 @@ phase ends on a line of its own with its wall time
    ``synthetic_tokens``, warmup 2, 8 steps with a ``Checkpointer`` in a
    temporary directory (each step's loss, grad norm, lr and ms; tokens/s,
    peak memory), exactly 24 x 8 flash forward and backward launches, one
-   more step profiled (device time by kind), then a run resumed from the
-   step-4 checkpoint that must give step 5's loss bit for bit; (c) the
-   selective scan on inputs that require grad raises;
+   more step profiled (device time by kind), (d) the dry run of one more
+   step (``launch/dryrun_lib.run_cell`` on fake tensors, a 1 x 1 mesh
+   under broadcast; nothing allocated on the card) against that step on
+   the card, once alone and once under ``dryrun_lib.counting``: FLOPs
+   equal, each kernel's calls in the dry run (which launches nothing and
+   leaves ``kernels.LAUNCHES`` at 0) equal to its launches on the card
+   and to the counter's, the args equal to the inputs' bytes
+   on the card, the temp bytes within DRY_TEMP_REL of each step's peak
+   increase, the roofline terms and the step's share of the bf16 peak
+   printed (over the step's host time and the profiled step's device
+   busy time); then a run resumed from the step-4 checkpoint that must give
+   step 5's loss bit for bit; (c) the selective scan on inputs that
+   require grad raises;
 10. whisper-base at full width (6 + 6 layers, d_model 512, 8 heads of 64,
    vocab 51,865 padded to 51,968, 97,318,912 parameters, seeded bf16
    weights, seeded fp32 stub frames of 1,500 rows): (a) the serve through
@@ -378,12 +391,10 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and ops/s in bf16
-# and TF32 on the tensor cores and fp32 on the CUDA cores; "tf32x3" is the
-# rate of fp32-accurate products made of three TF32 ones (the pair score's
-# wgmma route)
-HBM_BPS = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+# The card's peaks (HBM bytes/s, operations/s by type) and each kernel's
+# work, from which every "bound ms" is computed, are those of
+# src/repro_torch/kernels/work.py (``_work()``), which the dry run reads
+# too.
 # Tolerances.  Each kernel is held against its plain version run in fp32
 # on the same inputs.  fp32: atol = rtol = 2e-5 (tests/test_kernels.py:16).
 # bf16: the kernels keep scores and P in fp32, as the TPU kernels do, so
@@ -483,7 +494,7 @@ def main():
     _walled(6, phase_cluster)
     _walled(7, phase_lifecycle, paged_tokens)
     _walled(8, phase_telemetry)
-    launches.update(_walled(9, phase_train))
+    launches.update(_walled(9, phase_train, smi))
     _walled(10, phase_whisper)
     _walled(11, phase_multidevice)
     _walled(12, phase_list, stats, launches, smi)
@@ -1119,13 +1130,6 @@ def _mla_rounded_p(q_lat, q_rope, ckv, krope, lengths, scale):
                         ckv.float())
 
 
-def _mla_bytes(lengths, L, B, H, r=MLA_R, rh=MLA_RH, esz=2):
-    """The bytes the MLA decode must move: each live latent row (ckv and
-    krope) once, the queries in and the output out, the lengths."""
-    live = sum(min(max(int(n), 0), L) for n in lengths)
-    return live * (r + rh) * esz + B * H * (2 * r + rh) * esz + 4 * B
-
-
 def _mla_plan(B, L, lens, dev) -> str:
     """The MLA decode's grid and the splits its rows take."""
     from repro_torch.kernels import mla_decode as md
@@ -1275,11 +1279,8 @@ def _deepseek_checks(gen, dev, stats):
     sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
     _library_close(name, F.scaled_dot_product_attention(
         *sd[0], is_causal=True).transpose(1, 2), want)
-    by = (B * S * H * MLA_QK + B * S * KV * MLA_QK + B * S * KV * MLA_V +
-          B * S * H * MLA_V) * 2
     st = _stats(
-        err, by, 2 * (MLA_QK + MLA_V) * H * B * S * (S + 1) // 2,
-        "bfloat16",
+        err, _work().flash_attention(B, S, S, H, KV, MLA_QK, hd_v=MLA_V),
         _time_ms([lambda s=s: ops.flash_attention(*s) for s in fsets]),
         _time_ms([lambda s=s: ref.flash_attention_ref(*s) for s in fsets]),
         _time_ms([lambda a=a: F.scaled_dot_product_attention(
@@ -1355,12 +1356,11 @@ def _deepseek_checks(gen, dev, stats):
             *x, attn_mask=keep, scale=scale, enable_gqa=True)
         _library_close(name, lib(sd[0])[:, :, 0], want)
         gqa_ms = _time_ms([lambda x=x: lib(x) for x in sd])
-        n_tok = sum(min(n, L) for n in lens)
         lib_ms, backend, refused = _mla_sdpa_backends(name, sd, keep, scale,
                                                       want)
         st = _stats(
-            err, _mla_bytes(lens, L, B, 16),
-            2 * 16 * (2 * MLA_R + MLA_RH) * n_tok, "bfloat16",
+            err, _work().mla_decode_attention(B, 16, MLA_R, MLA_RH, L,
+                                              lengths=lens),
             _time_ms([lambda s=s: ops.mla_decode_attention(*s, lengths,
                                                            scale)
                       for s in sets]),
@@ -1495,8 +1495,7 @@ def _linear_scan_checks(gen, dev, stats):
         sets = [_scan_inputs(gen, dev, 1, S, w, 1) for _ in range(3)]
         a, b, h0 = sets[0]
         err, _ = _scan_check(f"ssm_scan N=1 (1, {S}, {w}) timed", a, b, h0)
-        by = 12 * S * w + 8 * w    # a, b in, h_seq out; h0 in, h_final out
-        st = _stats(err, by, 2 * S * w, "float32",
+        st = _stats(err, _work().ssm_scan(1, S, w, 1),
                     _time_ms([lambda s=s: ss.ssm_scan_blocked(*s)
                               for s in sets]),
                     _time_ms([lambda: ref.ssm_scan_ref(a, b, h0)], iters=2),
@@ -1545,7 +1544,7 @@ def _paged_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     from repro_torch.kernels import ops, ref
     (H, KV), bs, max_len = heads, 16, 2048
     B, at = 8, f" H={H} KV={KV} hd={hd}"
-    nb, esz = max_len // bs, 2
+    nb = max_len // bs
     lengths = torch.tensor([2048, 1, 1537, 300, 16, 977, 2000, 64],
                            dtype=torch.int32, device=dev)
     sets = [_paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd),
@@ -1563,15 +1562,11 @@ def _paged_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
     _library_close("decode" + at, lib_out, want)
-    n_tok = int(lengths.sum())
-    by = (2 * n_tok * KV * hd * esz                 # K and V rows needed
-          + 2 * B * H * hd * esz                    # q in, out
-          + 4 * sum(-(-int(x) // bs) for x in lengths) + 4 * B)  # bt, len
-    ops_n = 4 * H * hd * n_tok                      # QK^T and PV
     issue["paged_decode_attention"] = _issue_ms(
         lambda: ops.paged_decode_attention(q, kp, vp, bt, lengths))
     stats["paged_decode_attention"] = _stats(
-        err, by, ops_n, "bfloat16",
+        err, _work().paged_decode_attention(B, H, KV, hd, bs, nb,
+                                            lengths=lengths.tolist()),
         _time_ms([lambda s=s: ops.paged_decode_attention(
             s[0], s[1], s[2], s[3], lengths) for s in sets]),
         _time_ms([lambda s=s: ref.paged_decode_attention_ref(
@@ -1597,14 +1592,11 @@ def _paged_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True).transpose(1, 2)
     _library_close("extend" + at, lib_out, want)
-    n_keys = [int(p) + S for p in pos0]             # keys each row needs
-    by = (2 * sum(n_keys) * KV * hd * esz + 2 * Be * S * H * hd * esz
-          + 4 * sum(-(-k // bs) for k in n_keys) + 4 * Be)
-    ops_n = 4 * H * hd * sum(S * int(p) + S * (S + 1) // 2 for p in pos0)
     issue["paged_extend_attention"] = _issue_ms(
         lambda: ops.paged_extend_attention(q, kp, vp, bt, pos0))
     stats["paged_extend_attention"] = _stats(
-        err, by, ops_n, "bfloat16",
+        err, _work().paged_extend_attention(Be, S, H, KV, hd, bs, nb,
+                                            pos0=pos0.tolist()),
         _time_ms([lambda s=s: ops.paged_extend_attention(
             s[0], s[1], s[2], s[3], pos0) for s in esets]),
         _time_ms([lambda s=s: ref.paged_extend_attention_ref(
@@ -1761,10 +1753,8 @@ def _flash_window(gen, dev, arch, heads, hd, window, S):
     lib_out = F.scaled_dot_product_attention(
         *sd[0], attn_mask=keep[:, None], enable_gqa=True).transpose(1, 2)
     _library_close(name, lib_out, want)
-    pairs = sum(min(s + 1, window) for s in range(S))
     st = _stats(
-        err, (2 * S * H * hd + 2 * S * KV * hd) * 2, 4 * hd * H * pairs,
-        "bfloat16",
+        err, _work().flash_attention(1, S, S, H, KV, hd, window=window),
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=True,
                                                   window=window)
                   for s in fsets]),
@@ -1806,12 +1796,9 @@ def _verify_shape(gen, dev):
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True).transpose(1, 2)
     _library_close("extend verify shape", lib_out, want)
-    seen = [min(p + s + 1, L) for p in VERIFY_POS0 for s in range(S)]
-    rows = [min(p + S, L) for p in VERIFY_POS0]     # keys each row needs
-    by = (2 * sum(rows) * KV * hd * 2 + 2 * B * S * H * hd * 2
-          + 4 * sum(-(-k // bs) for k in rows) + 4 * B)
     st = _stats(
-        err, by, 4 * H * hd * sum(seen), "bfloat16",
+        err, _work().paged_extend_attention(B, S, H, KV, hd, bs, nb,
+                                            pos0=VERIFY_POS0),
         _time_ms([lambda s=s: ops.paged_extend_attention(
             s[0], s[1], s[2], s[3], pos0) for s in sets]),
         _time_ms([lambda s=s: ref.paged_extend_attention_ref(
@@ -2131,9 +2118,6 @@ def _decode_bench(gen, dev, lengths, max_len):
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     keep = (torch.arange(max_len, device=dev)[None, :] <
             ln[:, None].long())[:, None, None, :]
-    n_tok = sum(lengths)
-    kv_bytes = 2 * n_tok * KV * hd * 2 + 2 * B * H * hd * 2 + 4 * B
-    ops_n = 4 * H * hd * n_tok
     psets = [_paged_inputs(gen, B, nb, bs, KV, hd, (B, H, hd), bf, dev)
              for _ in range(3)]
     dsets = [[_randn(gen, sh, bf, dev) for sh in
@@ -2144,18 +2128,20 @@ def _decode_bench(gen, dev, lengths, max_len):
             psets, ops.paged_decode_attention, ref.paged_decode_attention_ref,
             [_sdpa_args(s[0][:, :, None], s[1], s[2], s[3], keep)
              for s in psets],
-            kv_bytes + 4 * sum(-(-x // bs) for x in lengths)),
+            _work().paged_decode_attention(B, H, KV, hd, bs, nb,
+                                           lengths=lengths)),
         "decode_attention": (
             dsets, ops.decode_attention, ref.decode_attention_ref,
             [(s[0][:, :, None], s[1].transpose(1, 2).contiguous(),
               s[2].transpose(1, 2).contiguous(), keep) for s in dsets],
-            kv_bytes)}
+            _work().decode_attention(B, H, KV, hd, max_len,
+                                     lengths=lengths))}
     out = {}
-    for name, (sets, kernel, plain, sd, nbytes) in cases.items():
+    for name, (sets, kernel, plain, sd, w) in cases.items():
         err, _ = _compare(f"{name} {lengths}", kernel(*sets[0], ln),
                           plain(*_f32(*sets[0][:3]), *sets[0][3:], ln))
         st = _stats(
-            err, nbytes, ops_n, "bfloat16",
+            err, w,
             _time_ms([lambda s=s: kernel(*s, ln) for s in sets]),
             _time_ms([lambda s=s: plain(*s, ln) for s in sets]),
             _time_ms([lambda a=a: F.scaled_dot_product_attention(
@@ -2188,7 +2174,7 @@ def _dense_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    (H, KV), esz, bf = heads, 2, torch.bfloat16
+    (H, KV), bf = heads, torch.bfloat16
     at = f" H={H} KV={KV} hd={hd}"
 
     B, S = 3, 512
@@ -2207,12 +2193,10 @@ def _dense_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     lib_out = F.scaled_dot_product_attention(
         *sd[0], is_causal=True, enable_gqa=True).transpose(1, 2)
     _library_close("flash" + at, lib_out, want)
-    by = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz   # q, k, v, out
-    ops_n = 4 * hd * H * B * S * (S + 1) // 2    # QK^T and PV, causal half
     issue["flash_attention"] = _issue_ms(
         lambda: ops.flash_attention(q, k, v, causal=True))
     stats["flash_attention"] = _stats(
-        err, by, ops_n, "bfloat16",
+        err, _work().flash_attention(B, S, S, H, KV, hd),
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=True)
                   for s in fsets]),
         _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True)
@@ -2241,14 +2225,11 @@ def _dense_main_path(gen, dev, heads, stats, shares, issue, hd=128):
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
     _library_close("split-K decode" + at, lib_out, want)
-    n_tok = int(lengths.sum())
-    by = (2 * n_tok * KV * hd * esz                 # K and V rows needed
-          + 2 * B * H * hd * esz + 4 * B)           # q in, out, lengths
-    ops_n = 4 * H * hd * n_tok                      # QK^T and PV
     issue["decode_attention"] = _issue_ms(
         lambda: ops.decode_attention(q, k, v, lengths))
     stats["decode_attention"] = _stats(
-        err, by, ops_n, "bfloat16",
+        err, _work().decode_attention(B, H, KV, hd, L,
+                                      lengths=lengths.tolist()),
         _time_ms([lambda s=s: ops.decode_attention(*s, lengths)
                   for s in dsets]),
         _time_ms([lambda s=s: ref.decode_attention_ref(*s, lengths)
@@ -2272,9 +2253,8 @@ def _flash_long(gen, dev):
     err, share = _compare("flash (1, 2048)",
                           ops.flash_attention(q, k, v, causal=True), want)
     sd = [[t.transpose(1, 2).contiguous() for t in st] for st in fsets]
-    by = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2
     st = _stats(
-        err, by, 4 * hd * H * B * S * (S + 1) // 2, "bfloat16",
+        err, _work().flash_attention(B, S, S, H, KV, hd),
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=True)
                   for s in fsets]),
         _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=True)
@@ -2625,12 +2605,9 @@ def _flash_bwd_checks(gen, dev, stats):
         q, k, v, causal=True), kernel_sets)
     plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
         q, k, v, causal=True), kernel_sets, iters=3)
-    esz = 2
-    by = (4 * B * S * H * hd + 4 * B * S * KV * hd) * esz + 4 * B * S * H
-    pairs = S * (S + 1) // 2                      # causal: keys seen
-    ops_n = 5 * 2 * hd * pairs * B * H            # S, dV, dP, dK, dQ
-    stats["flash_attention_bwd"] = _stats(err, by, ops_n, "bfloat16", ms,
-                                          plain_ms, library_ms)
+    w = _work().flash_attention_bwd(B, S, S, H, KV, hd)
+    ops_n, by = w.flops, w.bytes
+    stats["flash_attention_bwd"] = _stats(err, w, ms, plain_ms, library_ms)
     st = stats["flash_attention_bwd"]
     print(f"[kernels] flash_attention_bwd at the training shape (B {B}, S "
           f"{S}, H {H}, KV {KV}, hd {hd}, causal, bf16): max_abs_err="
@@ -2690,10 +2667,8 @@ def _whisper_flash(gen, dev, name, B, S, T, heads, causal):
     lib_out = F.scaled_dot_product_attention(
         *sd[0], is_causal=causal, enable_gqa=True).transpose(1, 2)
     _library_close(name, lib_out, want)
-    by = (2 * B * S * H * hd + 2 * B * T * KV * hd) * 2
-    pairs = S * (S + 1) // 2 if causal else S * T
     st = _stats(
-        err, by, 4 * hd * H * B * pairs, "bfloat16",
+        err, _work().flash_attention(B, S, T, H, KV, hd, causal=causal),
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=causal)
                   for s in sets]),
         _time_ms([lambda s=s: ref.flash_attention_ref(*s, causal=causal)
@@ -2726,10 +2701,9 @@ def _whisper_decode(gen, dev, name, B, L, lengths, heads):
     lib_out = F.scaled_dot_product_attention(
         *sd[0][:3], attn_mask=sd[0][3], enable_gqa=True)[:, :, 0]
     _library_close(name, lib_out, want)
-    n_tok = int(lengths.sum())
-    by = 2 * n_tok * KV * hd * 2 + 2 * B * H * hd * 2 + 4 * B
     st = _stats(
-        err, by, 4 * H * hd * n_tok, "bfloat16",
+        err, _work().decode_attention(B, H, KV, hd, L,
+                                      lengths=lengths.tolist()),
         _time_ms([lambda s=s: ops.decode_attention(*s, lengths)
                   for s in sets]),
         _time_ms([lambda s=s: ref.decode_attention_ref(*s, lengths)
@@ -2837,10 +2811,9 @@ def _whisper_kernel_checks(gen, dev):
             q, k, v, causal=causal), kernel_sets)
         plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
             q, k, v, causal=causal), kernel_sets, iters=3)
-        by = (4 * B * S * H * hd + 4 * B * T * KV * hd) * 2 + 4 * B * S * H
-        pairs = S * (S + 1) // 2 if causal else S * T
-        ops_n = 5 * 2 * hd * pairs * B * H
-        st = _stats(err, by, ops_n, "bfloat16", ms, plain_ms, library_ms)
+        w = _work().flash_attention_bwd(B, S, T, H, KV, hd, causal=causal)
+        ops_n, by = w.flops, w.bytes
+        st = _stats(err, w, ms, plain_ms, library_ms)
         print(f"[kernels] flash_attention_bwd whisper {label} (B {B}, S {S}, "
               f"T {T}, {at}, bf16): max_abs_err={err:.3e} {_row(st)} "
               f"(SDPA flash backward; {ops_n / 1e9:.2f} GFLOP, "
@@ -2910,9 +2883,12 @@ def _offset_flash(gen, dev, arch, heads, hd, S, T, window):
             return F.scaled_dot_product_attention(*a, attn_mask=band)
     _library_close(name, library(sd[0]).transpose(1, 2), want)
     pairs = int(keep.sum())
+    w = _work().flash_attention(1, S, T, H, KV, hd, window=window)
+    check(w.flops == 4 * hd * H * pairs,
+          f"{name}: kernels/work.py counts {w.flops} operations, the mask "
+          f"{4 * hd * H * pairs}")
     st = _stats(
-        err, (2 * S * H * hd + 2 * T * KV * hd) * 2, 4 * hd * H * pairs,
-        "bfloat16",
+        err, w,
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=True,
                                                   window=window)
                   for s in sets]),
@@ -3097,17 +3073,16 @@ def _pair_score_checks(gen, dev, stats, issue):
                              ref.pair_score_ref(C, E, W, w[:d], w[d:], b),
                              atol=1e-4, rtol=1e-4),
               "pair_score: the yardstick computes another function")
-        by = 4 * (N * d + M * d + d * d + 2 * d + N * M + 1)
-        n_ops = 2 * N * d * (d + M) + 2 * (N + M) * d
+        w = _work().pair_score(N, M, d)
         st = _stats(
-            read["random"][0], by, n_ops, "tf32x3",
+            read["random"][0], w,
             _time_ms([lambda s=s: ops.pair_score(link(s), s[0], s[1])
                       for s in sets]),
             _time_ms([lambda s=s: ref.pair_score_ref(
                 s[0], s[1], s[2], s[3][:d], s[3][d:], s[4]) for s in sets]),
             _time_ms([lambda s=s: _pair_library(*s) for s in sets]))
         iss = _issue_ms(lambda: ops.pair_score(link(sets[0]), C, E))
-        core_ms = n_ops / PEAK_OPS["float32"] * 1e3
+        core_ms = _work().pair_score(N, M, d, route="simt").bound_ms()[0]
         pl = pair_plan.plan(N, M, d, torch.float32, torch.float32)
         print(f"[kernels] pair_score {label} ({N}, {M}, {d}) fp32, route "
               f"wgmma ({pl.project.ctas} + {pl.score.ctas} CTAs, splits "
@@ -3260,9 +3235,7 @@ def _ssm_scan_checks(gen, dev, stats, issue):
             B, S, D, N)
         err, ctl = _scan_check(f"ssm_scan ({B}, {S}, {D}, {N})", a, b, h0,
                                control=True)
-        n_el = B * S * D * N
-        by = 4 * (3 * n_el + 2 * B * D * N)    # a, b in; h_seq, h0, h_final
-        st = _stats(err, by, 2 * n_el, "float32",
+        st = _stats(err, _work().ssm_scan(B, S, D, N),
                     _time_ms([lambda: ss.ssm_scan_blocked(a, b, h0)],
                              iters=5),
                     _time_ms([lambda: ref.ssm_scan_ref(a, b, h0)], iters=2),
@@ -3345,8 +3318,6 @@ def _scan_crossover(dev):
 #: the fused kernel's stage (FCHUNK in csrc/selective_scan.cu): the
 #: control zeroes the carry at its boundaries
 FUSED_STAGE = 32
-#: exponentials a clock on each SM (the special-function units), and SMs
-SFU_PER_CLOCK, H100_SMS = 16, 132
 
 
 def _fused_inputs(gen, dev, B, S, di, N, with_h0=True, dt_rank=7):
@@ -3471,18 +3442,15 @@ def _fused_scan_checks(gen, dev, stats, issue):
         n_el = B * S * di * N
         check(peak < 4 * n_el, f"fused ssm_scan ({B}, {S}): {peak} bytes "
               f"allocated, a (B, S, di, N) fp32 tensor is {4 * n_el}")
-        by = 4 * (3 * B * S * di + 2 * B * S * N + di * N + di +
-                  2 * B * di * N)
-        n_ops = 6 * n_el + 3 * B * S * di
-        t_exp = n_el / (SFU_PER_CLOCK * H100_SMS * clock) * 1e3
-        st = _stats(err, by, n_ops, "float32",
+        wk = _work()
+        w = wk.selective_scan(B, S, di, N)
+        t_exp = w.exps / (wk.SFU_PER_CLOCK * wk.H100_SMS * clock) * 1e3
+        t_bytes = w.bytes / wk.HBM_BPS * 1e3
+        st = _stats(err, w,
                     _time_ms([lambda: ss.selective_scan_fused(*args)],
                              iters=10),
                     _time_ms([lambda: ref.selective_scan_ref(*args)],
-                             iters=2), None)
-        t_bytes = by / HBM_BPS * 1e3
-        if t_exp > st["bound_ms"]:
-            st.update(bound_ms=t_exp, bound_by="operations")
+                             iters=2), None, clock_hz=clock)
         route_ms = _time_ms([lambda: _composed_route(*args)], iters=2)
         iss = _issue_ms(lambda: ss.selective_scan_fused(*args), iters=10)
         print(f"[kernels] ssm_scan fused ({B}, {S}, {di}, {N}) fp32: "
@@ -3492,8 +3460,9 @@ def _fused_scan_checks(gen, dev, stats, issue):
               f"the route it replaces (a_bar, b_bar, the scan kernel, "
               f"einsum) ms={route_ms:.4f} bound_ms={st['bound_ms']:.4f} "
               f"(bytes {t_bytes:.4f}, fp32 operations "
-              f"{n_ops / PEAK_OPS['float32'] * 1e3:.4f}, exponentials "
-              f"{t_exp:.4f} at {SFU_PER_CLOCK} a clock x {H100_SMS} SMs x "
+              f"{w.flops / wk.PEAK_OPS['float32'] * 1e3:.4f}, exponentials "
+              f"{t_exp:.4f} at {wk.SFU_PER_CLOCK} a clock x {wk.H100_SMS} "
+              f"SMs x "
               f"{clock / 1e6:.0f} MHz: {'exponentials' if t_exp >= t_bytes else 'bytes'}"
               f" bind); peak allocation of a call {peak / 2**20:.1f} MiB "
               f"(a (B, S, di, N) fp32 tensor: {4 * n_el / 2**20:.1f} MiB); "
@@ -3506,12 +3475,31 @@ def _fused_scan_checks(gen, dev, stats, issue):
     torch.cuda.empty_cache()
 
 
-def _stats(err, nbytes, n_ops, dtype, ms, plain_ms, library_ms):
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+def _stats(err, w, ms, plain_ms, library_ms, clock_hz=None):
+    """A kernel row: its readings, and its bound from ``w``, the call's
+    ``kernels/work.py`` Work (the exponentials bind with ``clock_hz``)."""
+    bound, by = w.bound_ms(clock_hz)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+
+
+_WORK = []
+
+
+def _work():
+    """``src/repro_torch/kernels/work.py`` of this checkout, loaded by its
+    path: the A/B scripts run chip_smoke's checks against the package of
+    another checkout, which may predate it."""
+    if not _WORK:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_work", ROOT / "src" / "repro_torch" / "kernels" /
+            "work.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod        # dataclasses look it up
+        spec.loader.exec_module(mod)
+        _WORK.append(mod)
+    return _WORK[0]
 
 
 # ----------------------------------------------------------------------
@@ -3541,7 +3529,7 @@ def _forced_plain(plain: bool):
 
     def plain_route(name, q):
         kernels.count(ops.PLAIN_CALLS, name)
-        return False
+        return "cpu"
     return mock.patch.object(ops, "_route", plain_route) if plain else \
         contextlib.nullcontext()
 
@@ -3954,9 +3942,12 @@ def phase_serve():
     paged run's tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
+    # one profiled decode sync an arch past internlm2-1.8b: the dense
+    # engine's (each arch's paged and dense syncs were within 7% of each
+    # other in device busy, and each profile's trace takes ~35 s)
     for arch in ("starcoder2-3b", "internvl2-1b", "gemma-7b"):
         for paged in (True, False):
-            _serve_path(paged, arch)
+            _serve_path(paged, arch, profile=not paged)
     # gemma3-4b's rings cannot page: asked for the paged engine, it serves
     # dense, counted in engine.paged_fallback_dense
     _serve_path(True, "gemma3-4b")
@@ -3966,9 +3957,11 @@ def phase_serve():
     launches["ssm_scan"] = _serve_path(True, "recurrentgemma-2b")[0][
         "ssm_scan"]
     launches["ssm_scan_fused"] = _serve_mamba()["ssm_scan"]
-    # 57 GiB of weights: served last, each engine alone on the card
+    # 57 GiB of weights: served last, each engine alone on the card; only
+    # the paged one's decode sync is profiled (the two profiles took ~70 s
+    # each for the same expert products, and the run needs the time)
     for paged in (True, False):
-        _serve_path(paged, "qwen3-moe-30b-a3b")
+        _serve_path(paged, "qwen3-moe-30b-a3b", profile=paged)
     # then deepseek-v2-lite-16b (29 GiB) alone: MLA's latent cache cannot
     # page, so asked for the paged engine it serves dense, counted
     launches.update({k: v for k, v in _serve_path(True, DS_ARCH)[0].items()
@@ -4005,7 +3998,8 @@ def _serve_prompts(vocab, long=0):
     return tok, warm, prompts
 
 
-def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
+def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
+                profile: bool = True):
     """``arch`` at full width (bf16, seeded weights) through the paged or
     the dense engine at phase 4's settings: the requests, the path's
     launch counts read right after them (one a layer per admit batch and
@@ -4015,7 +4009,7 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
     (launches, tokens).  An arch that cannot page (gemma3-4b's rings,
     recurrentgemma-2b's state) asked for the paged engine must serve dense
     and count the fallback once.  max_len is 2048, or the arch's
-    SERVE_MAX_LEN."""
+    SERVE_MAX_LEN.  ``profile=False`` skips the profiled decode sync."""
     import gc
 
     import torch
@@ -4165,7 +4159,8 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b"):
            if n_scan else "") + f") plain_calls={plain} "
           f"admit batch sizes={admits} "
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB")
-    _profile_decode_sync(eng, tok, label)
+    if profile:
+        _profile_decode_sync(eng, tok, label)
     if cfg.lru_width:
         _profile_long_admit(eng, tok, label)
     tokens = [r.out_tokens for r in reqs]
@@ -5691,12 +5686,13 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME = \
 TRAIN_RTOL = 1e-4
 
 
-def phase_train():
+def phase_train(smi):
     """Training on the card (``launch/steps.py``, ``launch/train.py``):
     (a) reduced fp32 internlm2-1.8b two layers deep at head dim 64, 3 steps
     through the kernels and the same 3 through the plain versions; (b)
     internlm2-1.8b at full width through ``launch/train.py``'s ``train``,
-    its step-4 checkpoint resumed; (c) a scan that requires grad raises.
+    (d) the dry run of one more step against it, its step-4 checkpoint
+    resumed; (c) a scan that requires grad raises.
     Returns the launches of (b)."""
     import gc
 
@@ -5704,7 +5700,7 @@ def phase_train():
     gc.collect()
     torch.cuda.empty_cache()
     _train_reduced()
-    launches = _train_full_width()
+    launches = _train_full_width(smi)
     _train_refusal()
     return launches
 
@@ -5785,11 +5781,12 @@ def _train_reduced():
           f"and non-zero")
 
 
-def _train_full_width():
+def _train_full_width(smi):
     """internlm2-1.8b at full width through ``train``: bf16 parameters,
     remat none, B 4 x S 1024 from synthetic_tokens, 8 AdamW steps with a
     checkpoint at step 4; exactly 24 x 8 flash forward and backward
-    launches; then a run resumed from the step-4 checkpoint, whose first
+    launches; (d) the dry run of one more step against that step on the
+    card; then a run resumed from the step-4 checkpoint, whose first
     step (5) must give step 5's loss bit for bit."""
     import gc
     import shutil
@@ -5839,7 +5836,8 @@ def _train_full_width():
         tok_s = TRAIN_B * TRAIN_S * len(steady) / (
             sum(h["ms"] for h in steady) / 1e3)
         params = sum(p.numel() for p in tree_leaves(run["params"]))
-        _profile_train_step(cfg, run["params"], run["opt"], dev)
+        busy_ms = _profile_train_step(cfg, run["params"], run["opt"], dev)
+        _train_dry_run(cfg, run["params"], run["opt"], dev, smi, busy_ms)
         del run
         gc.collect()
         torch.cuda.empty_cache()
@@ -5884,10 +5882,147 @@ def _train_full_width():
     return {"flash_attention_bwd": launches["flash_attention_bwd"]}
 
 
+#: phase 9 (d): the dry run's temp bytes against the card's peak increase
+DRY_TEMP_REL = 0.05
+
+
+def _train_dry_run(cfg, params, opt, dev, smi, busy_ms):
+    """(d) ``launch/dryrun_lib.run_cell`` of this step (B 4 x S 1024, the
+    config trained, a 1 x 1 mesh under broadcast) on fake tensors, nothing
+    allocated and nothing launched on the card; then one more step timed
+    alone and one under ``dryrun_lib.counting``, each after
+    ``reset_peak_memory_stats``.  The dry run's FLOPs and each kernel's
+    calls (its ``LAST_OPS``' ``kernel:`` rows) must equal the counted
+    step's, whose launches ``kernels.LAUNCHES`` and the counter both
+    count; its args the bytes of the step's inputs on the card, and its
+    temp bytes be within DRY_TEMP_REL of each step's peak increase over
+    the allocation before it (the step alone too: a reference cycle that
+    held a tree's tensors until Python's cyclic collector ran put it
+    3.78 GB above the counted step, whose Python work ran the collector
+    sooner).  The roofline terms, the step's share of the bf16 peak and
+    the eager per-op bytes over the step's time are printed, not gated,
+    over the step alone on the host clock and over ``busy_ms``, the
+    device's busy time in phase 9's profiled step."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.core import flags
+    from repro_torch.data.text import synthetic_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun_lib, steps
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.tree import tree_leaves
+    sc = ShapeCase("phase9", TRAIN_S, TRAIN_B, "train")
+    mesh = abstract_mesh((1, 1), ("data", "model"), rank0=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = dryrun_lib.run_cell(cfg.name, sc, mesh, policy="broadcast",
+                              cfg_override={"remat": cfg.remat})
+    dry_s = time.perf_counter() - t0
+    dry_launches = {k.split(":", 1)[1]: int(r[0])
+                    for k, r in dryrun_lib.LAST_OPS.items()
+                    if k.startswith("kernel:")}
+    check(res.ok and not res.skipped and res.policy == "broadcast",
+          f"train (d): the dry run of phase 9's step: ok={res.ok} policy="
+          f"{res.policy} error={res.error!r}")
+    check(torch.cuda.memory_allocated(dev) == held,
+          f"train (d): the dry run allocated "
+          f"{torch.cuda.memory_allocated(dev) - held} bytes on the card")
+    check(not any(kernels.LAUNCHES.values()),
+          f"train (d): the dry run counted launches on the card: "
+          f"{kernels.LAUNCHES}")
+    tok = torch.from_numpy(next(itertools.islice(synthetic_tokens(
+        0, TRAIN_B, TRAIN_S, cfg.vocab, TRAIN_STEPS + 3), TRAIN_STEPS + 2,
+        None))).to(dev)
+    batch = {"tokens": tok}
+    args = tree_leaves((params, opt, batch))
+    check(not any(flags.counted(t) for t in args),
+          "train (d): a live input takes the count route")
+    resident = sum(t.numel() * t.element_size() for t in args)
+    fn = steps.make_train_step(cfg)
+    runs = {}
+    for label in ("alone", "counted"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_counts()
+        ctx = dryrun_lib.counting() if label == "counted" else \
+            contextlib.nullcontext((None, None))
+        with ctx as (fc, c):
+            t0 = time.perf_counter()
+            new = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        m = {k: float(v) for k, v in new[2].items()}
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"train (d): step {label}: metrics {m}")
+        runs[label] = dict(ms=ms, peak=torch.cuda.max_memory_allocated(dev)
+                           - base, base=base,
+                           launches={k: v for k, v in kernels.LAUNCHES.items()
+                                     if v})
+        if c is not None:
+            runs[label].update(flops=dryrun_lib.step_flops(fc, c),
+                               tracked=c.peak_bytes, kernels=c.launches())
+        del new
+    live, alone = runs["counted"], runs["alone"]
+    gap = abs(res.temp_bytes_dev - live["peak"]) / live["peak"]
+    gap_alone = abs(res.temp_bytes_dev - alone["peak"]) / alone["peak"]
+    print(f"[train] (d) dry run of this step (B {TRAIN_B} x S {TRAIN_S}, "
+          f"1x1 mesh, broadcast, {dry_s:.1f}s on fake tensors, nothing "
+          f"allocated or launched on the card) against one counted step on "
+          f"{smi}: FLOPs {res.flops_dev:.6e} / {live['flops']:.6e}; kernel "
+          f"calls {dry_launches} / launches on the card {live['launches']} "
+          f"(the counter's: {live['kernels']}); args {res.arg_bytes_dev:,} B "
+          f"/ the inputs on the card {resident:,} B (memory_allocated "
+          f"before the step {live['base']:,} B); temp "
+          f"{res.temp_bytes_dev:,} B / peak increase {live['peak']:,} B, "
+          f"off by {gap:.4%} (limit {DRY_TEMP_REL:.0%}; the tracker on the "
+          f"card's own tensors {live['tracked']:,} B; the step alone "
+          f"{alone['peak']:,} B, off by {gap_alone:.4%}); out "
+          f"{res.out_bytes_dev:,} B", flush=True)
+    step_ms = alone["ms"]
+    print(f"[train] (d) roofline of the step on {smi}: t_compute "
+          f"{res.t_compute * 1e3:.3f} ms (bf16 peak), t_memory "
+          f"{res.t_memory * 1e3:.3f} ms (the eager per-op bytes "
+          f"{res.bytes_dev:.6e} over the HBM rate: an upper bound on the "
+          f"traffic, not a measure of it), t_collective "
+          f"{res.t_collective * 1e3:.3f} ms, dominant {res.dominant}; the "
+          f"step alone {step_ms:.2f} ms on the host clock (counted "
+          f"{live['ms']:.2f} ms), {busy_ms:.2f} ms device busy in the "
+          f"profiled step: t_compute / step = "
+          f"{res.t_compute * 1e3 / step_ms:.4f} of the bf16 peak "
+          f"({res.t_compute * 1e3 / busy_ms:.4f} of the "
+          f"busy time); eager per-op bytes over the step's time = "
+          f"{res.t_memory * 1e3 / step_ms:.4f} of the HBM rate "
+          f"({res.t_memory * 1e3 / busy_ms:.4f} over the busy time); useful "
+          f"ratio {res.useful_ratio:.4f}", flush=True)
+    check(res.flops_dev == live["flops"],
+          f"train (d): the dry run counts {res.flops_dev!r} FLOPs, the "
+          f"step on the card {live['flops']!r}")
+    check(dry_launches == live["launches"] == live["kernels"] and
+          dry_launches == {"flash_attention": cfg.n_layers,
+                           "flash_attention_bwd": cfg.n_layers},
+          f"train (d): kernel calls {dry_launches} dry, launches "
+          f"{live['launches']} on the card, {live['kernels']} counted")
+    check(res.arg_bytes_dev == resident,
+          f"train (d): args {res.arg_bytes_dev} B dry, {resident} B on the "
+          f"card")
+    check(max(gap, gap_alone) <= DRY_TEMP_REL,
+          f"train (d): temp {res.temp_bytes_dev} B dry against a peak "
+          f"increase of {live['peak']} B counted and {alone['peak']} B "
+          f"alone on the card: off by {gap:.4%} and {gap_alone:.4%}, limit "
+          f"{DRY_TEMP_REL:.0%}")
+
+
 def _profile_train_step(cfg, params, opt, dev):
     """One more full-width step (the run's next batch) timed on the host
     clock, then one under ``torch.profiler``: device busy and idle share,
-    device ms by kind of kernel."""
+    device ms by kind of kernel.  Returns the device's busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.text import synthetic_tokens
@@ -5914,6 +6049,7 @@ def _profile_train_step(cfg, params, opt, dev):
           f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
           f"{sum(n for _, n, _ in rows)}; device ms by kind: "
           f"{_train_kinds(rows)}; top: {top}")
+    return busy_us / 1e3
 
 
 def _train_refusal():

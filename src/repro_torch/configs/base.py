@@ -1,8 +1,8 @@
 """Architecture configuration, copied from ``repro.configs.base`` for the
 PyTorch port.
 
-The fields, ``ScanGroup`` patterns and :func:`reduced` are the JAX
-package's, so one config describes the same model on both sides.  Only the
+The fields, ``ScanGroup`` patterns, :func:`reduced` and the dry run's
+input shapes (:class:`ShapeCase`, :data:`SHAPES`) are the JAX package's, so one config describes the same model on both sides.  Only the
 dtype properties differ: ``cfg.dtype`` / ``cfg.param_dtype`` strings map to
 ``torch.dtype`` here instead of ``jax.numpy`` dtypes.
 
@@ -143,6 +143,27 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ----------------------------------------------------------------------
+# Input shapes assigned to every LM-family architecture
+# (``repro.configs.base``, ``base.py:152-166``).
+@dataclasses.dataclass(frozen=True)
+class ShapeCase:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeCase, ...] = (
+    ShapeCase("train_4k", 4_096, 256, "train"),
+    ShapeCase("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCase("decode_32k", 32_768, 128, "decode"),
+    ShapeCase("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -13,6 +13,14 @@ JAX's ``ppermute`` over the pairs (i, i + 1), is an all-gather of every
 rank's rows of which each rank keeps its predecessor's.  A bool tensor
 travels as uint8.  Over an axis of size 1 no collective calls a group.
 
+On a fake tensor (``core.flags.counted``) a collective
+takes the count route: it allocates what it would allocate, calls no
+group, and reports ``(op, buf_bytes, group, wire_bytes)`` to the active
+counter under the HLO op it stands for, with JAX's wire formulas
+(``core.flags.wire_bytes``).  The mesh may then be an abstract one
+acting as a rank (``launch.mesh.abstract_mesh(..., rank0=True)``): no
+process group is needed.
+
 Backends and devices are the caller's: rank r takes ``cuda:(r %
 device_count)`` or the CPU, as :func:`init_process_group` was told, and
 NCCL with more ranks than cards raises (it refuses two ranks on one
@@ -30,6 +38,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import flags
 
 #: the device kind ("cuda" or "cpu") this process's group was started for
 _DEVICE_KIND: list = []
@@ -117,7 +127,11 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0, tiled: bool = True,
         return x if tiled else x.unsqueeze(dim)
     w = _wire(x)
     parts = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(parts, w, group=m.group(axis))
+    if flags.counted(w):
+        flags.add_collective("all-gather",
+                             n * w.numel() * w.element_size(), n)
+    else:
+        dist.all_gather(parts, w, group=m.group(axis))
     parts = [p.to(x.dtype) for p in parts] if w.dtype != x.dtype else parts
     return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
 
@@ -127,7 +141,11 @@ def _all_reduce(x: torch.Tensor, axis, op, mesh) -> torch.Tensor:
     if m.axis_size(axis) == 1:
         return x
     y = x.reshape(1).clone() if x.dim() == 0 else x.clone().contiguous()
-    dist.all_reduce(y, op=op, group=m.group(axis))
+    if flags.counted(y):
+        flags.add_collective("all-reduce", y.numel() * y.element_size(),
+                             m.axis_size(axis))
+    else:
+        dist.all_reduce(y, op=op, group=m.group(axis))
     return y.reshape(x.shape)
 
 
@@ -145,7 +163,9 @@ def ppermute_next(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     """The halo shift: rank i gets rank i - 1's ``x`` along ``axis`` and
     rank 0 gets zeros (``lax.ppermute`` over the pairs (i, i + 1)).  An
     all-gather of every rank's ``x``, since gloo has no CUDA send / recv:
-    keep ``x`` to the rows the next rank needs."""
+    keep ``x`` to the rows the next rank needs.  So a count records the
+    all-gather the port issues, not the collective-permute JAX's HLO
+    holds."""
     m = _mesh(mesh)
     i = m.axis_index(axis)
     if m.axis_size(axis) == 1:
@@ -161,6 +181,10 @@ def broadcast(x: torch.Tensor, mesh=None) -> torch.Tensor:
     if m.size == 1:
         return x
     w = _wire(x)
+    if flags.counted(w):
+        flags.add_collective("collective-broadcast",
+                             w.numel() * w.element_size(), m.size)
+        return x
     dist.broadcast(w, src=m.ranks[0], group=m.group())
     if w is not x:
         x.copy_(w.to(x.dtype))

@@ -32,9 +32,11 @@ import math
 
 import torch
 
+from repro_torch.core import flags
 from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, HEAD_DIMS,
                                  LAUNCHES, build, check_cuda, check_dims,
-                                 check_floats, check_launch, check_tensors)
+                                 check_floats, check_launch, check_tensors,
+                                 count, work)
 
 _lib = None
 _bwd_lib = None
@@ -116,24 +118,31 @@ def check_args(q, k, v, window: int, causal: bool):
 def _forward(q, k, v, causal: bool, window: int, lse=None):
     """The forward's one launch; with ``lse`` (B,S,H) fp32 it also writes
     there each row's natural log-sum-exp of its scaled scores, which the
-    backward reads."""
+    backward reads.  On a fake tensor (``flags.counted``) the launch
+    is skipped and only reported to the active counter: the output is
+    allocated as for a launch and left empty."""
     check_args(q, k, v, window, causal)
-    tensors = {"q": q, "k": k, "v": v}
-    if lse is not None:
-        tensors["lse"] = lse
-    check_cuda("flash_attention", tensors)
     B, S, H, hd = q.shape
     T, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((B, S, H, hd_v))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().repro_flash_attention(
-            DTYPE_CODE[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, S, T, KV, H // KV,
-            int(causal), int(window), 1.0 / math.sqrt(hd), stream)
-    check_launch("flash_attention", rc)
-    LAUNCHES["flash_attention"] += 1
+    if not flags.counted(q):
+        tensors = {"q": q, "k": k, "v": v}
+        if lse is not None:
+            tensors["lse"] = lse
+        check_cuda("flash_attention", tensors)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _library().repro_flash_attention(
+                DTYPE_CODE[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, S, T, KV,
+                H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
+                stream)
+        check_launch("flash_attention", rc)
+        count(LAUNCHES, "flash_attention")
+    flags.add("flash_attention", work.flash_attention, B, S, T, H, KV, hd,
+              hd_v=hd_v, dtype=q.dtype, causal=causal, window=window,
+              lse=lse is not None)
     return out
 
 
@@ -181,7 +190,6 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     check_bwd_dims(q, k, v, causal, window)
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
-    check_cuda(name, tensors)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"{name}: out and dout must be {tuple(q.shape)}, "
                          f"got {tuple(out.shape)} and {tuple(dout.shape)}")
@@ -192,16 +200,20 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     T, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_library().repro_flash_attention_bwd(
-            DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-            S, T, KV, H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
-            stream)
-    check_launch(name, rc)
-    LAUNCHES[name] += 1
+    if not flags.counted(q):
+        check_cuda(name, tensors)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _bwd_library().repro_flash_attention_bwd(
+                DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, S, T, KV, H // KV,
+                int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+        check_launch(name, rc)
+        count(LAUNCHES, name)
+    flags.add(name, work.flash_attention_bwd, B, S, T, H, KV, hd,
+              dtype=q.dtype, causal=causal, window=window)
     return dq, dk, dv
 
 

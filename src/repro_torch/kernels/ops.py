@@ -5,10 +5,19 @@ selective scan; :func:`linear_scan`, the RG-LRU recurrence on the scan
 kernel at N = 1; and :func:`mla_decode_attention`, MLA's absorbed decode,
 which JAX computes in plain ``jnp``.
 
-The device of the tensors decides the route: a CUDA tensor launches the
-Hopper kernel (the ``*_bkgd`` / ``*_bshd`` / ``*_bhd`` wrappers, which
-check the arguments) or raises; a CPU tensor runs the plain version from
-:mod:`repro_torch.kernels.ref` after the same checks, counted in
+The tensors decide the route: a fake tensor
+(:func:`repro_torch.core.flags.counted`, tested before the device, since
+a fake tensor may report ``cuda``) takes the count route: after the
+kernel route's checks and refusals it returns an empty result of the
+kernel's shape and dtype and reports one call of the kernel, under its
+name, with its work (:mod:`repro_torch.kernels.work`) to the active
+counter, launching and building nothing (the dry run,
+``launch/dryrun_lib.py``).  :data:`repro_torch.kernels.LAUNCHES` counts
+the card's launches only.
+A CUDA tensor launches the Hopper kernel (the ``*_bkgd`` / ``*_bshd`` /
+``*_bhd`` wrappers, which check the arguments) or raises, and reports the
+same work where a counter is active; a CPU tensor runs the plain version
+from :mod:`repro_torch.kernels.ref` after the same checks, counted in
 :data:`PLAIN_CALLS`.  Any other device raises.  Each call is checked once.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On a
@@ -17,7 +26,7 @@ runs the forward and backward kernels bound as
 ``flash_attention.FlashAttention``; every other op has no backward kernel
 yet and raises ``NotImplementedError`` naming its ROADMAP item, so no op
 hands back a tensor without a gradient, and none gives way to its plain
-version on the card.
+version on the card.  The count route takes the same paths and refusals.
 """
 from __future__ import annotations
 
@@ -25,12 +34,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, count
+from repro_torch.core import flags
+from repro_torch.kernels import LAUNCHES, count, work
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mla_decode as md
 from repro_torch.kernels import pair_score as ps
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import pair_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
 
@@ -53,14 +64,26 @@ def _heads(name: str, q, k_pool):
     return H // KV
 
 
-def _route(name: str, q) -> bool:
-    """True for the kernel route, False for the plain version."""
+def _route(name: str, q) -> str:
+    """``"count"`` for a fake tensor, ``"cuda"`` for the kernel
+    route, ``"cpu"`` for the plain version."""
+    if flags.counted(q):
+        return "count"
     if q.device.type == "cuda":
-        return True
+        return "cuda"
     if q.device.type == "cpu":
         count(PLAIN_CALLS, name)
-        return False
+        return "cpu"
     raise ValueError(f"{name}: no route for device {q.device}")
+
+
+def _counted(name: str, out, work_fn, *args, **kwargs):
+    """The count route's end: one call of kernel ``name`` and its work
+    (``work_fn(*args, **kwargs)``) reported to the active counter, ``out``
+    (empty tensors of the kernel's results) returned.  Nothing launched,
+    so ``kernels.LAUNCHES`` is left be."""
+    flags.add(name, work_fn, *args, **kwargs)
+    return out
 
 
 def _needs_grad(*tensors) -> bool:
@@ -92,9 +115,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     window=0`` is bidirectional (a cross attention at any T).  Both routes
     raise ``ValueError`` on a causal or windowed call at T < S; the
     backward kernel takes a masked call at T = S only."""
-    if not _route("flash_attention", q):
+    if _route("flash_attention", q) == "cpu":
         fa.check_args(q, k, v, window, causal)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    # the kernel and count routes share the wrappers, which count
     if _needs_grad(q, k, v):
         fa.check_args(q, k, v, window, causal)
         return fa.FlashAttention.apply(q, k, v, causal, window)
@@ -106,11 +130,21 @@ def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
     prefix -> (B,H,hd).  ``n_splits`` is the TPU wrapper's contract and
     is checked; the kernel plans its own split of the keys over CTAs
     (:mod:`repro_torch.kernels.decode_plan`)."""
-    if not _route("decode_attention", q):
+    route = _route("decode_attention", q)
+    if route == "cpu":
         da.check_args(q, k, v, lengths, n_splits)
         return ref.decode_attention_ref(q, k, v, lengths)
     _no_backward("decode_attention", _SERVING_BACKWARD, q, k, v)
-    return da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
+    B, H, hd = q.shape
+    args = (B, H, k.shape[2], hd, k.shape[1])
+    if route == "count":
+        da.check_args(q, k, v, lengths, n_splits)
+        return _counted("decode_attention", q.new_empty(q.shape),
+                        work.decode_attention, *args, dtype=q.dtype)
+    out = da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
+    flags.add("decode_attention", work.decode_attention, *args,
+              dtype=q.dtype)
+    return out
 
 
 def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
@@ -120,14 +154,24 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
     (B,) int32 -> (B,H,r), the softmax of ``(q_lat ckv^T + q_rope
     krope^T) * scale`` over keys ``< lengths`` (all L past L) times
     ckv, with P in fp32."""
-    if not _route("mla_decode_attention", q_lat):
+    route = _route("mla_decode_attention", q_lat)
+    if route == "cpu":
         md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
         return ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope,
                                             lengths, scale)
     _no_backward("mla_decode_attention", _SERVING_BACKWARD, q_lat, q_rope,
                  ckv, krope)
-    return md.mla_decode_attention_bhr(q_lat, q_rope, ckv, krope, lengths,
-                                       scale)
+    B, H, r = q_lat.shape
+    args = (B, H, r, q_rope.shape[-1], ckv.shape[1])
+    if route == "count":
+        md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
+        return _counted("mla_decode_attention", q_lat.new_empty(q_lat.shape),
+                        work.mla_decode_attention, *args, dtype=q_lat.dtype)
+    out = md.mla_decode_attention_bhr(q_lat, q_rope, ckv, krope, lengths,
+                                      scale)
+    flags.add("mla_decode_attention", work.mla_decode_attention, *args,
+              dtype=q_lat.dtype)
+    return out
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -137,14 +181,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, H, hd), got {tuple(q.shape)}")
     G = _heads(name, q, k_pool)
-    if not _route(name, q):
+    route = _route(name, q)
+    if route == "cpu":
         pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
         return ref.paged_decode_attention_ref(q, k_pool, v_pool,
                                               block_tables, lengths)
     _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, H, hd = q.shape
+    args = (B, H, k_pool.shape[2], hd, k_pool.shape[1],
+            block_tables.shape[1])
+    if route == "count":
+        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
+        return _counted(name, q.new_empty(q.shape),
+                        work.paged_decode_attention, *args, dtype=q.dtype)
     out = pa.paged_decode_attention_bkgd(q.view(B, H // G, G, hd), k_pool,
                                          v_pool, block_tables, lengths)
+    flags.add(name, work.paged_decode_attention, *args, dtype=q.dtype)
     return out.view(B, H, hd)
 
 
@@ -158,14 +210,22 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
         raise ValueError(f"{name}: q must be (B, S, H, hd), got "
                          f"{tuple(q.shape)}")
     G = _heads(name, q, k_pool)
-    if not _route(name, q):
+    route = _route(name, q)
+    if route == "cpu":
         pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
         return ref.paged_extend_attention_ref(q, k_pool, v_pool,
                                               block_tables, pos0)
     _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, S, H, hd = q.shape
+    args = (B, S, H, k_pool.shape[2], hd, k_pool.shape[1],
+            block_tables.shape[1])
+    if route == "count":
+        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
+        return _counted(name, q.new_empty(q.shape),
+                        work.paged_extend_attention, *args, dtype=q.dtype)
     out = pa.paged_extend_attention_bkgd(q.view(B, S, H // G, G, hd),
                                          k_pool, v_pool, block_tables, pos0)
+    flags.add(name, work.paged_extend_attention, *args, dtype=q.dtype)
     return out.view(B, S, H, hd)
 
 
@@ -186,11 +246,21 @@ def pair_score(link_params, claims, evidence):
         raise ValueError(f"{name}: w must be ({2 * d},), got "
                          f"{tuple(w.shape)}")
     w_c, w_e = w[:d], w[d:]
-    if not _route(name, claims):
+    route = _route(name, claims)
+    if route == "cpu":
         ps.check_args(claims, evidence, W, w_c, w_e, bias)
         return ref.pair_score_ref(claims, evidence, W, w_c, w_e, bias)
     _no_backward(name, _SERVING_BACKWARD, claims, evidence, W, w, bias)
-    return ps.pair_score_blocked(claims, evidence, W, w_c, w_e, bias)
+    N, M = claims.shape[0], evidence.shape[0]
+    wk = dict(dtype=claims.dtype, route=pair_plan.plan(
+        N, M, d, claims.dtype, W.dtype).route)
+    if route == "count":
+        ps.check_args(claims, evidence, W, w_c, w_e, bias)
+        return _counted(name, claims.new_empty((N, M), dtype=torch.float32),
+                        work.pair_score, N, M, d, **wk)
+    out = ps.pair_score_blocked(claims, evidence, W, w_c, w_e, bias)
+    flags.add(name, work.pair_score, N, M, d, **wk)
+    return out
 
 
 def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
@@ -202,11 +272,21 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
     discretisation, the scan and the ``C`` contraction in registers (JAX
     runs the first and last in jnp around its Pallas kernel); the plain
     version composes them as JAX does."""
-    if not _route("ssm_scan", xc):
+    route = _route("ssm_scan", xc)
+    if route == "cpu":
         ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
         return ref.selective_scan_ref(xc, dt, Bc, Cc, A, D, h0)
     _no_backward("ssm_scan", _SCAN_BACKWARD, xc, dt, Bc, Cc, A, D, h0)
-    return ss.selective_scan_fused(xc, dt, Bc, Cc, A, D, h0)
+    B, S, di = xc.shape
+    args = (B, S, di, A.shape[1])
+    if route == "count":
+        ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
+        return _counted("ssm_scan", (xc.new_empty(xc.shape),
+                                     xc.new_empty((B, di, A.shape[1]))),
+                        work.selective_scan, *args, h0=h0 is not None)
+    out = ss.selective_scan_fused(xc, dt, Bc, Cc, A, D, h0)
+    flags.add("ssm_scan", work.selective_scan, *args, h0=h0 is not None)
+    return out
 
 
 def linear_scan(a, b, h0):
@@ -220,10 +300,18 @@ def linear_scan(a, b, h0):
     B, S, w = a.shape
     a4, b4 = a.contiguous().view(B, S, w, 1), b.contiguous().view(B, S, w, 1)
     h4 = h0.contiguous().view(B, w, 1)
-    if _route("ssm_scan", a4):
-        _no_backward("linear_scan", _SCAN_BACKWARD, a, b, h0)
-        h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
-    else:
+    route = _route("ssm_scan", a4)
+    if route == "cpu":
         ss.check_args(a4, b4, h4)
         h_seq, h_fin = ref.ssm_scan_ref(a4, b4, h4)
+    else:
+        _no_backward("linear_scan", _SCAN_BACKWARD, a, b, h0)
+        if route == "count":
+            ss.check_args(a4, b4, h4)
+            h_seq, h_fin = _counted("ssm_scan", (a4.new_empty(a4.shape),
+                                                 h4.new_empty(h4.shape)),
+                                    work.ssm_scan, B, S, w, 1)
+        else:
+            h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
+            flags.add("ssm_scan", work.ssm_scan, B, S, w, 1)
     return h_seq.view(B, S, w), h_fin.view(B, w)

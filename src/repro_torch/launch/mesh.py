@@ -16,7 +16,9 @@ The spec logic needs no process group: :func:`abstract_mesh` gives a
 mesh of names and sizes alone, from which ``core.sharding`` computes
 specs and ``core.broadcast.per_chip_bytes`` sizes, so the production
 shapes (16, 16) and (2, 16, 16) can be reasoned about without 256 or 512
-ranks.
+ranks; with ``rank0=True`` it acts as the mesh's first rank (coordinates
+all 0), which is how the dry run counts one rank's work on fake tensors
+(the collectives' count route calls no group).
 
 Each rank's device is explicit: ``cuda:(rank % device_count)`` for
 ``"cuda"`` or the CPU, as the process group was started with
@@ -124,9 +126,15 @@ def _line(mesh: Mesh, key: AxesKey, at: Dict[str, int]):
     return out
 
 
-def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
-    """Names and sizes alone: for specs and byte counts, no ranks."""
-    return Mesh(shape, axis_names)
+def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                  rank0: bool = False) -> Mesh:
+    """Names and sizes alone: for specs and byte counts, no ranks; with
+    ``rank0``, acting as rank 0 (every coordinate 0, still no groups)."""
+    mesh = Mesh(shape, axis_names)
+    if rank0:
+        mesh.rank = 0
+        mesh.coords = dict.fromkeys(mesh.axis_names, 0)
+    return mesh
 
 
 def compat_make_mesh(shape: Sequence[int],
@@ -165,13 +173,19 @@ def compat_make_mesh(shape: Sequence[int],
     return mesh
 
 
+def production_shape(multi_pod: bool = False):
+    """The production mesh's shape and axes: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) with ``"pod"``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """(16, 16) over ``("data", "model")``, or (2, 16, 16) with
-    ``"pod"``: the world must hold 256 (512) ranks, as ``jax.make_mesh``
-    fails without the devices."""
+    """:func:`production_shape`'s mesh: the world must hold 256 (512)
+    ranks, as ``jax.make_mesh`` fails without the devices."""
     import torch.distributed as dist
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != math.prod(shape):
         raise ValueError(f"the production mesh {shape} over {axes} needs "

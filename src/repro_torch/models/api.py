@@ -16,8 +16,10 @@ As in JAX, ``input_batch`` gives the modality frontend's stubs: whisper
 gets frame embeddings, internvl patch embeddings.  ``init`` returns the
 parameter tree, and with ``with_axes=True`` JAX's pair ``(params,
 logical_axes)``: the axes that ``core.sharding`` maps onto a mesh
-(``weights.param_axes``).  The dry run's shape-only ``abstract_params`` /
-``input_specs`` raise until item 9.
+(``weights.param_axes``).  The dry run's shape-only entry points,
+``abstract_params`` and ``input_specs``, give the same trees as tensors on
+the ``meta`` device: shapes and dtypes, nothing allocated and nothing
+drawn (``launch/dryrun_lib.py`` makes fake tensors of them).
 """
 from __future__ import annotations
 
@@ -29,13 +31,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models import vlm
-from repro_torch.models.weights import init_params, param_axes
-
-
-def _dry_run(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the dry run's shape-only inputs are not in the port yet: "
-        f"ROADMAP.md, Queue 1, item 9")
+from repro_torch.models.weights import empty_params, init_params, \
+    param_axes
 
 
 def init(generator: torch.Generator, cfg, device="cuda",
@@ -49,7 +46,11 @@ def init(generator: torch.Generator, cfg, device="cuda",
 
 
 def abstract_params(cfg):
-    raise _dry_run("abstract_params")
+    """Shapes-only params for the dry run: ``(params, logical_axes)`` as
+    JAX's ``abstract_params`` returns them, the tree of
+    :func:`weights.init_params` (its shapes, dtypes and stacked
+    ``(repeats, ...)`` leaves) on the ``meta`` device."""
+    return empty_params(cfg, "meta"), param_axes(cfg)
 
 
 # ----------------------------------------------------------------------
@@ -137,4 +138,31 @@ def input_batch(cfg, shape_kind: str, batch: int, seq: int,
 
 def input_specs(cfg, shape_kind: str, batch: int, seq: int,
                 batch_sharding=None):
-    raise _dry_run("input_specs")
+    """Shape-only stand-ins for the dry run (``api.py:102-122``), on the
+    ``meta`` device: decode takes ``tokens`` (B, 1) and ``pos`` (B,)
+    int32 and no frontend inputs; otherwise int32 ``tokens`` (B, seq),
+    with whisper's fp32 ``frames`` (B, seq, d_model) or internvl's fp32
+    ``patches`` (B, min(n_patches, seq), d_model) before max(seq -
+    n_patches, 1) tokens.  With ``batch_sharding`` (a leaf's rank -> its
+    sharding) each leaf carries its sharding as ``.sharding``, as JAX's
+    ``ShapeDtypeStruct`` does."""
+    def sds(shape, dtype):
+        t = torch.empty(shape, dtype=dtype, device="meta")
+        if batch_sharding is not None:
+            t.sharding = batch_sharding(len(shape))
+        return t
+    out: Dict[str, Any] = {}
+    tok_seq = seq
+    if shape_kind == "decode":
+        out["tokens"] = sds((batch, 1), torch.int32)
+        out["pos"] = sds((batch,), torch.int32)
+    else:
+        if cfg.family == "encdec":
+            out["frames"] = sds((batch, seq, cfg.d_model), torch.float32)
+        elif cfg.family == "vlm":
+            npatch = min(cfg.n_patches, seq)
+            out["patches"] = sds((batch, npatch, cfg.d_model),
+                                 torch.float32)
+            tok_seq = max(seq - npatch, 1)
+        out["tokens"] = sds((batch, tok_seq), torch.int32)
+    return out

@@ -28,25 +28,43 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
+def _map(fn, is_leaf, node, others):
+    if node is None:
+        return None
+    if is_leaf is not None and is_leaf(node):
+        return fn(node, *others)
+    if isinstance(node, dict):
+        return {k: _map(fn, is_leaf, node[k], [r[k] for r in others])
+                for k in node}
+    if _is_namedtuple(node):
+        return type(node)(*(_map(fn, is_leaf, c, [r[i] for r in others])
+                            for i, c in enumerate(node)))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(fn, is_leaf, c, [r[i] for r in others])
+                          for i, c in enumerate(node))
+    return fn(node, *others)
+
+
 def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (trees of the same structure), in a tree of that structure;
-    a node for which ``is_leaf`` is true is a leaf, as in JAX."""
-    def walk(node, *others):
-        if node is None:
-            return None
-        if is_leaf is not None and is_leaf(node):
-            return fn(node, *others)
-        if isinstance(node, dict):
-            return {k: walk(node[k], *(r[k] for r in others)) for k in node}
-        if _is_namedtuple(node):
-            return type(node)(*(walk(c, *(r[i] for r in others))
-                                for i, c in enumerate(node)))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c, *(r[i] for r in others))
-                              for i, c in enumerate(node))
-        return fn(node, *others)
-    return walk(tree, *rest)
+    a node for which ``is_leaf`` is true is a leaf, as in JAX.  (The walks
+    here are module-level functions, not recursive closures: a closure
+    that calls itself is a reference cycle, and would hold the tensors it
+    reaches until Python's cyclic collector ran.)"""
+    return _map(fn, is_leaf, tree, rest)
+
+
+def _flatten(node, prefix, is_leaf, out):
+    if node is None:
+        return
+    kids = None if is_leaf is not None and is_leaf(node) else \
+        _children(node)
+    if kids is None:
+        out["/".join(prefix)] = node
+        return
+    for part, child in kids:
+        _flatten(child, prefix + [part], is_leaf, out)
 
 
 def flatten_with_paths(tree, is_leaf: Optional[Callable] = None
@@ -54,19 +72,7 @@ def flatten_with_paths(tree, is_leaf: Optional[Callable] = None
     """Path string -> leaf, in JAX's leaf order; a node for which
     ``is_leaf`` is true is a leaf."""
     out: Dict[str, Any] = {}
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = None if is_leaf is not None and is_leaf(node) else \
-            _children(node)
-        if kids is None:
-            out["/".join(prefix)] = node
-            return
-        for part, child in kids:
-            walk(child, prefix + [part])
-
-    walk(tree, [])
+    _flatten(tree, [], is_leaf, out)
     return out
 
 
@@ -75,18 +81,19 @@ def tree_leaves(tree) -> List[Any]:
     return list(flatten_with_paths(tree).values())
 
 
+def _build(node, prefix, by_path):
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        return by_path["/".join(prefix)]
+    if isinstance(node, dict):
+        return {k: _build(node[k], prefix + [str(k)], by_path) for k in node}
+    parts = [_build(c, prefix + [p], by_path) for p, c in kids]
+    return type(node)(*parts) if _is_namedtuple(node) else type(node)(parts)
+
+
 def unflatten_like(like, by_path: Dict[str, Any]):
     """``like``'s structure with the leaf at each path taken from
     ``by_path``."""
-    def build(node, prefix):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return by_path["/".join(prefix)]
-        if isinstance(node, dict):
-            return {k: build(node[k], prefix + [str(k)]) for k in node}
-        parts = [build(c, prefix + [p]) for p, c in kids]
-        return type(node)(*parts) if _is_namedtuple(node) else \
-            type(node)(parts)
-    return build(like, [])
+    return _build(like, [], by_path)

@@ -14,6 +14,7 @@ torch.set_num_threads(1)
 from repro_torch.configs import ArchConfig, get_config, reduced  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.tree import flatten_with_paths  # noqa: E402
 from test_torch_train_archs import check_loss_and_gradients  # noqa: E402
 
 ARCHS = ["falcon-mamba-7b", "recurrentgemma-2b", "deepseek-v2-lite-16b",
@@ -27,10 +28,12 @@ def test_loss_and_gradients_match_jax(arch):
 
 def test_api_steps_run_and_encdec_and_dry_run_raise():
     """forward_fn, prefill_fn and decode_fn on the port's engine paths;
-    the refusals that stand: the training driver on whisper-base's family
+    the refusal that stands: the training driver on whisper-base's family
     (it feeds token batches only, as JAX's does, which has no frames for
-    the encoder), and the dry run's shape-only entry points (item 9).
-    The family's API itself runs (tests/test_torch_encdec.py)."""
+    the encoder); the family's API itself runs (tests/test_torch_encdec.py).
+    The dry run's shape-only entry points (item 9, which raised until it
+    was ported) give ``init``'s tree and ``input_batch``'s shapes on the
+    ``meta`` device."""
     cfg = reduced(get_config("internlm2-1.8b"))
     gen = torch.Generator().manual_seed(0)
     params = api.init(gen, cfg, "cpu")
@@ -58,7 +61,15 @@ def test_api_steps_run_and_encdec_and_dry_run_raise():
                      (train.train, (reduced(get_config("whisper-base")),))):
         with pytest.raises(ValueError, match="token batches only"):
             fn(*args, steps=1, batch=1, seq=8, device="cpu")
-    for fn, args in ((api.abstract_params, (cfg,)),
-                     (api.input_specs, (cfg, "train", 1, 8))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(*args)
+    abstract, axes = api.abstract_params(cfg)
+    assert {k: (t.shape, t.dtype, t.device.type) for k, t in
+            flatten_with_paths(abstract).items()} == \
+        {k: (t.shape, t.dtype, "meta") for k, t in
+         flatten_with_paths(params).items()}
+    assert axes == api.init(gen, cfg, "cpu", with_axes=True)[1]
+    for kind in ("train", "decode"):
+        specs = api.input_specs(cfg, kind, 2, 8)
+        real = api.input_batch(cfg, kind, 2, 8, gen, device="cpu")
+        assert {k: (t.shape, t.dtype, t.device.type) for k, t in
+                specs.items()} == \
+            {k: (t.shape, t.dtype, "meta") for k, t in real.items()}
