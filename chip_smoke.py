@@ -366,7 +366,21 @@ phase ends on a line of its own with its wall time
    prefill: the same greedy token, logits and caches within MD_SEQ_REL;
    (f) the fp32 reduced gemma3-4b under ``seqtp`` (local layers on the
    halo, the global one gathered), kernel against plain and against the
-   one-rank run within MD_FP32_TOL;
+   one-rank run within MD_FP32_TOL; the tensor-parallel layers, each
+   against a one-rank run made here before the spawn: (g) internlm2-1.8b
+   at full width under ``tp`` on (1, 2) (each rank's bytes against
+   ``per_chip_bytes``), a B 4 x S 512 prefill through
+   ``steps.make_prefill_step`` and 32 greedy steps through
+   ``make_decode_step`` (24 flash launches a prefill and 24 split-K
+   decodes a step a rank, at H 8, KV 4), the gathered prefill logits and
+   every cache within MD_TP_REL (a control with layer 0's ``wo`` sum left
+   out must exceed it), the bf16 tokens' agreement printed, the fp32
+   reduced model token-exact on the kernels; (h) 2 AdamW steps of B 2 x
+   S 1,024 under ``tp`` on (1, 2), loss and grad norm within
+   MD_DP_LOSS_REL / MD_DP_GNORM_REL, 24 flash forward and 24 backward
+   launches a step a rank; (i) the same under ``fsdp_tp`` on (2, 1), 2 x
+   B 1; after each of (h) and (i) the fp32 reduced model's 3 steps within
+   TRAIN_RTOL of one rank; each part's wall printed;
 12. the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
@@ -2615,6 +2629,20 @@ def _flash_bwd_checks(gen, dev, stats):
           f"library_ms={library_ms:.4f} (SDPA flash backward) bound_ms="
           f"{st['bound_ms']:.4f} ({st['bound_by']}: {ops_n / 1e9:.2f} GFLOP, "
           f"{by / 1e6:.1f} MB)")
+    # PERF.md row 8a (gemma3-4b's local layers): the kernel and the plain
+    # version's autograd at B 1, S 2,048, H 8, KV 4, hd 256, window 1,024
+    local = [inputs(1, 2048, 8, 4, 256, bf) for _ in range(3)]
+    local = [(st[:3], st[3]) for st in local]
+    fn = lambda q, k, v: ops.flash_attention(  # noqa: E731
+        q, k, v, causal=True, window=1024)
+    ms_8a = _time_bwd_ms(fn, local)
+    plain_8a = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, causal=True, window=1024), local, iters=3)
+    bound_8a = _work().flash_attention_bwd(1, 2048, 2048, 8, 4, 256,
+                                           window=1024).bound_ms()[0]
+    print(f"[kernels] flash_attention_bwd at row 8a's shape (B 1, S 2048, H "
+          f"8, KV 4, hd 256, window 1024, bf16): ms={ms_8a:.4f} "
+          f"plain_ms={plain_8a:.4f} bound_ms={bound_8a:.4f}")
 
 
 # whisper-base's attention on the kernels (H 8, KV 8, hd 64: G 1): the
@@ -4487,13 +4515,19 @@ def _profile_decode_sync(eng, tok, label):
         eng.step()                      # third sync, profiled
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t_stop = time.perf_counter()
+    parse_s = time.perf_counter() - t_stop
     eng.run_until_drained()
+    t_tables = time.perf_counter()
     busy_us, rows, top = _device_time(prof, label)
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                  reverse=True)[:8]
+    host, by_op, bmm = _op_tables(
+        prof.events(), ("aten::bmm", "aten::mm", "aten::topk", "aten::sort")
+        if eng.cfg.n_experts else (), bmm_by_dim=bool(eng.cfg.kv_lora_rank))
+    top_host = sorted(host.items(), key=lambda kv: kv[1][0],
+                      reverse=True)[:8]
     print(f"[profile {label}] host self time under the profiler, top: " +
-          "; ".join(f"{e.key[:36]} {e.self_cpu_time_total / 1e3:.1f}ms/"
-                    f"{e.count}x" for e in host))
+          "; ".join(f"{key[:36]} {us / 1e3:.1f}ms/{n}x"
+                    for key, (us, n) in top_host))
     print(f"[profile {label}] one decode sync (K=8, 8 slots, ~300-token "
           f"contexts): unprofiled wall={step_ms:.2f}ms; profiled "
           f"wall={wall_ms:.2f}ms"
@@ -4512,16 +4546,13 @@ def _profile_decode_sync(eng, tok, label):
     if eng.cfg.n_experts:
         # device time of each op's kernels: the expert products are the
         # MoE's three bmm a layer, the other GEMMs the projections and head
-        by_op = {e.key: e for e in prof.key_averages()}
         parts = []
         for op, what in (("aten::bmm", "expert products"),
                          ("aten::mm", "other GEMMs"),
                          ("aten::topk", "router top-k"),
                          ("aten::sort", "dispatch sort")):
-            e = by_op.get(op)
-            us = getattr(e, "device_time_total", 0.0) if e else 0.0
-            parts.append(f"{what} ({op}) {us / 1e3:.3f}ms/"
-                         f"{e.count if e else 0}x")
+            us, n = by_op.get(op, (0.0, 0))
+            parts.append(f"{what} ({op}) {us / 1e3:.3f}ms/{n}x")
         attn_us = sum(us for us, _, key in rows if "decode" in key.lower())
         print(f"[profile {label}] device time by op: " + "; ".join(parts) +
               f"; decode attention kernels {attn_us / 1e3:.3f}ms; busy "
@@ -4531,14 +4562,11 @@ def _profile_decode_sync(eng, tok, label):
         # over the heads, the expert products over the experts: the bmm's
         # first operand tells them apart
         by = {"expert products": [0.0, 0], "absorption products": [0.0, 0]}
-        for e in prof.key_averages(group_by_input_shape=True):
-            if e.key != "aten::bmm":
-                continue
-            first = e.input_shapes[0] if e.input_shapes else []
-            kind = "expert products" if first and \
-                first[0] == eng.cfg.n_experts else "absorption products"
-            by[kind][0] += getattr(e, "device_time_total", 0.0)
-            by[kind][1] += e.count
+        for dim, (us, n) in bmm.items():
+            kind = "expert products" if dim == eng.cfg.n_experts else \
+                "absorption products"
+            by[kind][0] += us
+            by[kind][1] += n
         mla = [(us, n) for us, n, key in rows if "mla_decode" in key]
         check(mla, f"{label}: the profiled sync ran no mla_decode_kernel")
         print(f"[profile {label}] MLA sync by kind: " + "; ".join(
@@ -4548,6 +4576,41 @@ def _profile_decode_sync(eng, tok, label):
             f"{sum(n for _, n in mla)}x "
             f"({sum(us for us, _ in mla) / sum(n for _, n in mla):.2f}us a "
             f"call); busy {busy_us / 1e3:.2f}ms")
+    print(f"[profile {label}] the profiler's stop and parse "
+          f"{parse_s:.1f}s; the tables above in "
+          f"{time.perf_counter() - t_tables:.1f}s (one pass over "
+          f"{len(prof.events())} events)")
+
+
+def _op_tables(events, ops=(), bmm_by_dim=False):
+    """One pass over a profile's events (``prof.events()``, parsed once
+    by the profiler), where ``key_averages()`` rebuilt every field of
+    every event at each call: host self time by op (``[us, calls]`` of
+    the CPU events of each name, as ``key_averages`` sums them), device
+    time of the ops in ``ops`` (each op's kernels and its children's),
+    and with ``bmm_by_dim`` ``aten::bmm``'s device time by its first
+    input's leading dimension."""
+    from torch.autograd import DeviceType
+    host, by_op, bmm = {}, {}, {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU:
+            continue
+        key = ev.key
+        row = host.setdefault(key, [0.0, 0])
+        row[0] += ev.self_cpu_time_total
+        row[1] += 1
+        if key in ops or (bmm_by_dim and key == "aten::bmm"):
+            us = getattr(ev, "device_time_total", 0.0)
+            if key in ops:
+                r = by_op.setdefault(key, [0.0, 0])
+                r[0] += us
+                r[1] += 1
+            if bmm_by_dim and key == "aten::bmm":
+                first = ev.input_shapes[0] if ev.input_shapes else []
+                r = bmm.setdefault(first[0] if first else None, [0.0, 0])
+                r[0] += us
+                r[1] += 1
+    return host, by_op, bmm
 
 
 # ----------------------------------------------------------------------
@@ -6488,6 +6551,24 @@ MD_SEQ_REL = 2e-2
 #: the fp32 reduced gemma3-4b under seqtp: kernel against plain, and
 #: against the one-rank kernel run, at the token-exact runs' logit limit
 MD_FP32_TOL = 1e-4
+#: (g)-(i): internlm2-1.8b at full width under the weight-sharded
+#: policies.  (g) serves B 4 x S 512 and 32 greedy steps; (h) and (i) take
+#: 2 AdamW steps of B 2 x S 1,024 (the same batches, 2 x B 1 under
+#: fsdp_tp on (2, 1)); the fp32 reduced model 3 steps and 16 greedy tokens
+MD_TP_B, MD_TP_S, MD_TP_DECODE = 4, 512, 32
+MD_TP_TRAIN_B, MD_TP_TRAIN_S, MD_TP_TRAIN_STEPS = 2, 1024, 2
+MD_TP_REDUCED_S, MD_TP_REDUCED_DECODE = 64, 16
+#: (g)'s bf16 limit on the gathered prefill logits and on every layer's
+#: cache K / V, each of its largest magnitude against the one-rank run.
+#: A row-parallel product rounds twice under tp (each rank's partial to
+#: bf16, then the fp32 sum once more) where one rank rounds once, so each
+#: of the 2 L sums of L layers moves an element by up to bf16's unit
+#: roundoff u = 2^-8 of its magnitude; the residual stream carries those
+#: moves on, where they add as independent errors (the norms keep them
+#: relative): sqrt(2 L) u, 0.027 at L 24, and the limit is twice that.
+#: The control (layer 0's wo sum left out, so the residual stream misses
+#: half that layer's attention output) must exceed it.
+MD_TP_REL = 2 * math.sqrt(2 * 24) * 2 ** -8
 
 
 def phase_multidevice():
@@ -6496,15 +6577,23 @@ def phase_multidevice():
     size, (b) ``ElasticRunner`` 2 -> 1 -> 2, (c) ``compressed_psum``, (d)
     data-parallel training (fp32 reduced, then whisper-base at full width
     against a one-rank run made here first), (e) internlm2-1.8b's
-    sequence-sharded prefill, (f) the fp32 reduced gemma3-4b under seqtp.
-    Every check runs in the ranks; a rank that fails fails the phase."""
+    sequence-sharded prefill, (f) the fp32 reduced gemma3-4b under seqtp,
+    (g) internlm2-1.8b served under ``tp`` on (1, 2), (h) trained under
+    ``tp`` on (1, 2), (i) under ``fsdp_tp`` on (2, 1), each against a
+    one-rank run made here first.  Every check runs in the ranks; a rank
+    that fails fails the phase."""
     import gc
 
     import torch
     from repro_torch.core import collectives
+    import tempfile
     gc.collect()
     torch.cuda.empty_cache()
-    ref = _md_dp_reference()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    t0 = time.perf_counter()
+    ref = {"dp": _md_dp_reference(), "tp": _md_tp_reference(tmp)}
+    print(f"[multi] one-rank references of (d) and (g)-(i) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[multi] {MD_WORLD} ranks spawned on cuda:0 over gloo: NCCL "
@@ -6517,6 +6606,10 @@ def phase_multidevice():
                           timeout_s=MD_TIMEOUT_S, args=(ref,))
     except (RuntimeError, TimeoutError) as e:
         fail(f"phase 11: {e}")
+    finally:
+        for f in tmp.iterdir():
+            f.unlink()
+        tmp.rmdir()
     print(f"[multi] ranks done in {time.perf_counter() - t0:.1f}s")
 
 
@@ -6569,7 +6662,9 @@ def _md_rank(rank, ref):
           f"rank {rank}: device {mesh.device}, want cuda:0")
     for label, fn in (("a", _md_margot), ("b", _md_elastic),
                       ("c", _md_compressed), ("d", _md_dp),
-                      ("e", _md_seqtp_full), ("f", _md_seqtp_reduced)):
+                      ("e", _md_seqtp_full), ("f", _md_seqtp_reduced),
+                      ("g", _md_tp_serve), ("h", _md_tp_train),
+                      ("i", _md_fsdp_train)):
         t0 = time.perf_counter()
         fn(rank, mesh, ref)
         torch.cuda.synchronize()
@@ -6878,7 +6973,7 @@ def _md_dp(rank, mesh, ref):
                                                 "data", mesh)
             check(len(set(hashes)) == 1,
                   f"(d) step {i}: the ranks' parameters differ")
-            rl, rg = ref[i]
+            rl, rg = ref["dp"][i]
             dl, dg = abs(loss - rl) / abs(rl), abs(gnorm - rg) / abs(rg)
             check(dl <= MD_DP_LOSS_REL and dg <= MD_DP_GNORM_REL,
                   f"(d) step {i}: loss {loss} vs one-rank {rl} ({dl:.2e}), "
@@ -7039,6 +7134,384 @@ def _md_seqtp_reduced(rank, mesh, ref):
                   f"{cfg.window}) seqtp forward B 2 x S 1024: kernel vs plain "
                   f"max |diff| {d_plain:.3e}, vs the one-rank kernel run "
                   f"{d_one:.3e} (atol=rtol={MD_FP32_TOL})")
+
+
+# ----------------------------------------------------------------------
+# (g)-(i): the tensor-parallel layers
+def _md_tp_inputs(cfg, dev):
+    """(g)'s prompts and (h) / (i)'s batches, seeded."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(31)
+    prompts = torch.randint(0, cfg.vocab, (MD_TP_B, MD_TP_S), device=dev,
+                            generator=gen, dtype=torch.int32)
+    batches = [{"tokens": torch.randint(
+        0, cfg.vocab, (MD_TP_TRAIN_B, MD_TP_TRAIN_S), device=dev,
+        generator=gen, dtype=torch.int32)} for _ in range(MD_TP_TRAIN_STEPS)]
+    return prompts, batches
+
+
+def _md_greedy(cfg, params, prompts, n, mesh=None, policy="tp",
+               on_prefill=None):
+    """A prefill of ``prompts`` through ``steps.make_prefill_step`` and
+    ``n`` greedy steps through ``make_decode_step`` (under ``policy`` on
+    ``mesh``, if any; the argmax of the gathered logits): ``(gathered
+    prefill logits (B, V) fp32, caches after the prefill, tokens (B, n +
+    1), prefill ms, decode ms a step)``.  ``on_prefill(launches)`` and
+    the decode steps' launches are checked by the caller through
+    ``kernels.LAUNCHES``, reset before each call."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tfm
+    B, S = prompts.shape
+    dev = prompts.device
+    caches = api.init_caches(cfg, B, S + n, device=dev)
+    scope = use_sharding(mesh, policy) if mesh is not None else \
+        contextlib.nullcontext()
+    prefill = steps.make_prefill_step(cfg, S + n)
+    decode = steps.make_decode_step(cfg)
+    with scope, torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts}, caches)
+        logits = tfm.gather_logits(logits)[:, -1].float()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if on_prefill is not None:
+            on_prefill({k: v for k, v in kernels.LAUNCHES.items() if v})
+        after = [[{k: v.clone() for k, v in c.items()} for c in g]
+                 for g in caches]
+        tok = logits.argmax(-1).to(torch.int32)
+        toks, ms = [tok], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            step, caches = decode(params, {"tokens": tok[:, None],
+                                           "pos": pos}, caches)
+            tok = tfm.gather_logits(step)[:, 0].argmax(-1).to(torch.int32)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            check(launches == {"decode_attention": cfg.n_layers},
+                  f"greedy step {i}: launches {launches}")
+    return logits, after, torch.stack(toks, 1), prefill_ms, \
+        sum(ms[1:]) / max(len(ms) - 1, 1)
+
+
+def _md_train_ref(cfg, params, batches, mesh=None, policy="broadcast",
+                  lr=TRAIN_LR, warmup=2, total=MD_TP_TRAIN_STEPS):
+    """AdamW steps of ``batches``: each step's (loss, grad norm, ms,
+    launches) and the parameters and moments after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    opt = adamw_init(params)
+    fn = steps.make_train_step(cfg, lr=lr, warmup=warmup, total=total,
+                               mesh=mesh, policy=policy)
+    out = []
+    for b in batches:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        out.append((loss, gnorm, (time.perf_counter() - t0) * 1e3,
+                    {k: v for k, v in kernels.LAUNCHES.items() if v}))
+    return out, params, opt
+
+
+def _md_tp_reference(tmp):
+    """One rank, in this process: (g)'s prefill logits, caches and greedy
+    tokens at full width (bf16), the fp32 reduced model's greedy tokens
+    and 3 AdamW steps, and (h) / (i)'s 2 steps at full width, written to
+    ``tmp`` (the caches are 402 MB: a path crosses to the ranks, not the
+    tensors)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_paths
+    dev = torch.device("cuda", 0)
+    cfg = get_config("internlm2-1.8b")
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    prompts, batches = _md_tp_inputs(cfg, dev)
+    logits, caches, toks, pre_ms, dec_ms = _md_greedy(cfg, params, prompts,
+                                                      MD_TP_DECODE)
+    print(f"[multi] (g) one-rank reference: prefill B {MD_TP_B} x S "
+          f"{MD_TP_S} {pre_ms:.1f}ms, {MD_TP_DECODE} greedy steps "
+          f"{dec_ms:.2f}ms a step", flush=True)
+    ref = {"logits": logits.cpu(), "tokens": toks.cpu(),
+           "caches": [[{k: v[:, :, :MD_TP_S].cpu() for k, v in c.items()}
+                       for c in g] for g in caches]}
+    del caches
+    hist, _, _ = _md_train_ref(cfg, params, batches)
+    ref["train"] = [(loss, gnorm) for loss, gnorm, _, _ in hist]
+    print(f"[multi] (h)/(i) one-rank reference: B {MD_TP_TRAIN_B} x S "
+          f"{MD_TP_TRAIN_S}, (loss, grad norm) {ref['train']}, ms "
+          f"{[round(h[2], 1) for h in hist]}", flush=True)
+    del params, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcfg, rparams = _reduced_two_layers("internlm2-1.8b")
+    rprompts = torch.randint(0, rcfg.vocab, (MD_TP_B, MD_TP_REDUCED_S),
+                             device=dev, dtype=torch.int32,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(33))
+    ref["reduced_tokens"] = _md_greedy(rcfg, rparams, rprompts,
+                                       MD_TP_REDUCED_DECODE)[2].cpu()
+    rhist, rp, ropt = _md_train_ref(
+        rcfg, rparams, _md_reduced_batches(rcfg, dev), warmup=TRAIN_WARMUP,
+        total=TRAIN_TOTAL)
+    ref["reduced_train"] = ([(loss, gnorm) for loss, gnorm, _, _ in rhist],
+                            {k: v.cpu() for k, v in
+                             flatten_with_paths(rp).items()},
+                            {k: v.cpu() for k, v in
+                             flatten_with_paths(ropt.v).items()})
+    path = tmp / "tp_reference.pt"
+    torch.save(ref, path)
+    return str(path)
+
+
+def _md_reduced_batches(cfg, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(35)
+    return [{"tokens": torch.randint(0, cfg.vocab, (4, 48), device=dev,
+                                     generator=gen, dtype=torch.int32)}
+            for _ in range(3)]
+
+
+def _md_rel(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _md_adam_close(rank, label, hist, params, ref_train):
+    """The fp32 reduced model's 3 steps against one rank: losses and grad
+    norms within TRAIN_RTOL; every parameter within TRAIN_RTOL relative
+    and 1e-3 * lr absolute, or 2 lr where the one-rank v is below 1e-8
+    of its leaf's largest (Adam's m / sqrt(v) of a gradient at its
+    cancellation floor is a ratio of rounding noise: tests/test_torch_tp.py's
+    rule).  Returns the worst of each."""
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    want_hist, want_p, want_v = ref_train
+    worst = max(abs(a - b) / max(abs(b), 1e-30)
+                for (l, g, _, _), (wl, wg) in zip(hist, want_hist)
+                for a, b in ((l, wl), (g, wg)))
+    pw = 0.0
+    for k, t in flatten_with_paths(params).items():
+        w, v = want_p[k].to(t.device), want_v[k].to(t.device)
+        atol = torch.where(v < 1e-8 * v.abs().max(), 2 * TRAIN_LR,
+                           1e-3 * TRAIN_LR)
+        err = (t.float() - w).abs() - TRAIN_RTOL * w.abs()
+        pw = max(pw, float((err / atol).max()))
+    check(worst <= TRAIN_RTOL and pw <= 1.0,
+          f"({label}) fp32 reduced rank {rank}: metrics off by "
+          f"{worst:.3e} (limit {TRAIN_RTOL}), parameters at {pw:.3f} of "
+          f"their limit")
+    return worst, pw
+
+
+def _md_place_whole(cfg, dev, mesh, policy):
+    """The seeded weights (every rank draws the same whole tree, as every
+    process holds the host value of a multi-controller ``device_put``)
+    placed under ``policy``: ``(blocks, shardings, this rank's bytes,
+    per_chip_bytes, whole bytes)``."""
+    from repro_torch.core.broadcast import per_chip_bytes, place_params
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    import torch
+    whole, axes = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev, with_axes=True)
+    params, sh = place_params(whole, axes, mesh, policy)
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in tree_leaves(tree))
+    out = (params, sh, nbytes(params), per_chip_bytes(whole, sh),
+           nbytes(whole))
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_tp_serve(rank, mesh, ref):
+    """(g) internlm2-1.8b served under ``tp`` on (1, 2): each rank's
+    blocks and bytes against ``per_chip_bytes``; a B 4 x S 512 prefill
+    (24 flash launches a rank at H 8, KV 4) and 32 greedy steps (24
+    split-K decodes a step at H 8, KV 4); the gathered prefill logits and
+    every cache against the one-rank run within MD_TP_REL, a control
+    with layer 0's ``wo`` sum left out beyond it; the tokens' agreement
+    printed; then the fp32 reduced model token-exact on the kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.broadcast import place_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import weights
+    dev = mesh.device
+    tm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    cfg = get_config("internlm2-1.8b")
+    want = torch.load(ref["tp"])
+    params, _, mine, jax_count, whole = _md_place_whole(cfg, dev, tm, "tp")
+    check(mine == jax_count, f"(g) rank {rank}: {mine} bytes of blocks, "
+                             f"per_chip_bytes {jax_count}")
+    _md_say(rank, f"(g) tp blocks: {mine:,} bytes on this rank "
+                  f"(per_chip_bytes {jax_count:,}; the whole tree "
+                  f"{whole:,})")
+    prompts, _ = _md_tp_inputs(cfg, dev)
+    shapes = []
+    real_fa, real_da = ops.flash_attention, ops.decode_attention
+
+    def fa_rec(q, k, v, **kw):
+        shapes.append(("flash", q.shape[2], k.shape[2]))
+        return real_fa(q, k, v, **kw)
+
+    def da_rec(q, k, v, lengths, **kw):
+        shapes.append(("decode", q.shape[1], k.shape[2]))
+        return real_da(q, k, v, lengths, **kw)
+
+    pre = {}
+    with mock.patch.object(ops, "flash_attention", fa_rec), \
+            mock.patch.object(ops, "decode_attention", da_rec):
+        logits, caches, toks, pre_ms, dec_ms = _md_greedy(
+            cfg, params, prompts, MD_TP_DECODE, tm,
+            on_prefill=pre.update)
+    heads = (cfg.n_heads // MD_WORLD, cfg.n_kv_heads // MD_WORLD)
+    check(pre == {"flash_attention": cfg.n_layers} and
+          set(shapes) == {("flash",) + heads, ("decode",) + heads},
+          f"(g) rank {rank}: prefill launches {pre}, (kernel, H, KV) "
+          f"{sorted(set(shapes))}")
+    lg = _md_rel(logits, want["logits"].to(dev))
+    kv = max(_md_rel(c1[k][:, :, :MD_TP_S], c2[k].to(dev))
+             for g1, g2 in zip(caches, want["caches"])
+             for c1, c2 in zip(g1, g2) for k in c2)
+    agree = float((toks.cpu() == want["tokens"]).float().mean())
+    # the control: layer 0's wo partial product left unsummed
+    real_out, calls = attn._out_proj, [0]
+
+    def skip_first(params_, o, hb):
+        calls[0] += 1
+        if calls[0] == 1 and hb is not None:
+            B, S = o.shape[:2]
+            o = o.reshape(B, S, -1)[..., hb.c0 - hb.h0 * hb.hd:
+                                    hb.c1 - hb.h0 * hb.hd]
+            return o @ params_["wo"]
+        return real_out(params_, o, hb)
+
+    with mock.patch.object(attn, "_out_proj", skip_first):
+        ctl = _md_greedy(cfg, params, prompts, 0, tm)[0]
+    lg_ctl = _md_rel(ctl, want["logits"].to(dev))
+    check(lg <= MD_TP_REL and kv <= MD_TP_REL and lg_ctl > MD_TP_REL,
+          f"(g) rank {rank}: prefill logits off by {lg:.3e}, caches by "
+          f"{kv:.3e} of their largest (limit {MD_TP_REL:.4f}); the control "
+          f"without layer 0's wo sum {lg_ctl:.3e}, must exceed it")
+    _md_say(rank, f"(g) internlm2-1.8b tp on (1, {MD_WORLD}): prefill B "
+                  f"{MD_TP_B} x S {MD_TP_S} {pre_ms:.1f}ms ({pre}), "
+                  f"{MD_TP_DECODE} greedy steps {dec_ms:.2f}ms a step "
+                  f"({cfg.n_layers} decode_attention launches a step at H "
+                  f"{heads[0]}, KV {heads[1]}); gathered logits within "
+                  f"{lg:.3e} and caches within {kv:.3e} of their largest "
+                  f"(limit {MD_TP_REL:.4f}; the control without layer 0's wo "
+                  f"sum {lg_ctl:.3e}); bf16 tokens agree with the one-rank "
+                  f"run at {agree:.3f} of {toks.numel()} (not a gate)")
+    del params, caches
+    torch.cuda.empty_cache()
+    # fp32 reduced, token-exact
+    rcfg, rparams = _reduced_two_layers("internlm2-1.8b")
+    rparams, _ = place_params(rparams, weights.param_axes(rcfg), tm, "tp")
+    rprompts = torch.randint(0, rcfg.vocab, (MD_TP_B, MD_TP_REDUCED_S),
+                             device=dev, dtype=torch.int32,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(33))
+    rtoks = _md_greedy(rcfg, rparams, rprompts, MD_TP_REDUCED_DECODE, tm)[2]
+    check(torch.equal(rtoks.cpu(), want["reduced_tokens"]),
+          f"(g) rank {rank}: fp32 reduced tokens differ from one rank")
+    _md_say(rank, f"(g) fp32 reduced internlm2-1.8b under tp: "
+                  f"{rtoks.numel()} greedy tokens equal to the one-rank "
+                  f"run's, through the kernels")
+
+
+def _md_tp_train(rank, mesh, ref):
+    """(h) internlm2-1.8b trained under ``tp`` on (1, 2): 2 AdamW steps
+    of B 2 x S 1,024 against the one-rank steps (MD_DP_LOSS_REL /
+    MD_DP_GNORM_REL), 24 flash forward and 24 backward launches a step a
+    rank; then the fp32 reduced model's 3 steps against one rank."""
+    _md_weight_sharded_train(rank, mesh, ref, "h", (1, MD_WORLD), "tp")
+
+
+def _md_fsdp_train(rank, mesh, ref):
+    """(i) the same under ``fsdp_tp`` on (2, 1): each rank B 1 of the
+    same batches, its leaves' ``embed`` blocks gathered at each layer."""
+    _md_weight_sharded_train(rank, mesh, ref, "i", (MD_WORLD, 1),
+                             "fsdp_tp")
+
+
+def _md_weight_sharded_train(rank, mesh, ref, label, shape, policy):
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.broadcast import place_params
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import weights
+    dev = mesh.device
+    m = compat_make_mesh(shape, ("data", "model"))
+    want = torch.load(ref["tp"])
+    cfg = get_config("internlm2-1.8b")
+    params, _, mine, jax_count, whole = _md_place_whole(cfg, dev, m, policy)
+    check(mine == jax_count, f"({label}) rank {rank}: {mine} bytes, "
+                             f"per_chip_bytes {jax_count}")
+    _, batches = _md_tp_inputs(cfg, dev)
+    hist, params, opt = _md_train_ref(cfg, params, batches, m, policy)
+    for i, ((loss, gnorm, ms, launches), (rl, rg)) in enumerate(
+            zip(hist, want["train"])):
+        dl, dg = abs(loss - rl) / abs(rl), abs(gnorm - rg) / abs(rg)
+        check(dl <= MD_DP_LOSS_REL and dg <= MD_DP_GNORM_REL and
+              launches == {"flash_attention": cfg.n_layers,
+                           "flash_attention_bwd": cfg.n_layers},
+              f"({label}) rank {rank} step {i}: loss {loss} vs {rl} "
+              f"({dl:.2e}), grad norm {gnorm} vs {rg} ({dg:.2e}), "
+              f"launches {launches}")
+        if rank == 0:
+            _md_say(rank, f"({label}) internlm2-1.8b {policy} on {shape} "
+                          f"step {i}: loss={loss:.6f} (one rank {rl:.6f}, "
+                          f"rel {dl:.2e}) grad_norm={gnorm:.4f} (one rank "
+                          f"{rg:.4f}, rel {dg:.2e}) ms={ms:.1f}; launches "
+                          f"{launches}")
+    if rank == 0:
+        _md_say(rank, f"({label}) {policy} blocks: {mine:,} bytes on this "
+                      f"rank (per_chip_bytes {jax_count:,}; the whole tree "
+                      f"{whole:,}); this rank's peak "
+                      f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+                      f"GiB (since its process started)")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcfg, rparams = _reduced_two_layers("internlm2-1.8b")
+    rparams, _ = place_params(rparams, weights.param_axes(rcfg), m, policy)
+    rhist, rp, _ = _md_train_ref(rcfg, rparams,
+                                 _md_reduced_batches(rcfg, dev), m, policy,
+                                 warmup=TRAIN_WARMUP, total=TRAIN_TOTAL)
+    from repro_torch.core.broadcast import placement_shardings, unshard
+    rp = unshard(rp, placement_shardings(weights.param_axes(rcfg), m,
+                                         policy))
+    worst, pw = _md_adam_close(rank, label, rhist, rp, want["reduced_train"])
+    if rank == 0:
+        _md_say(rank, f"({label}) fp32 reduced internlm2-1.8b {policy} on "
+                      f"{shape}, 3 steps: losses and grad norms within "
+                      f"{worst:.2e} of one rank (limit {TRAIN_RTOL}), "
+                      f"parameters at {pw:.3f} of their limit")
 
 
 def phase_list(stats, launches, smi):

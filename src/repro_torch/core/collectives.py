@@ -8,18 +8,21 @@ default the mesh of the current sharding context
 (``core.sharding.use_sharding``).  They use only the list forms of
 ``dist.all_gather``, ``dist.all_reduce`` and ``dist.broadcast``, which
 both gloo and NCCL take on CUDA tensors (gloo moves them through the
-host).  Gloo has no CUDA ``send`` / ``recv``, so :func:`ppermute_next`,
-JAX's ``ppermute`` over the pairs (i, i + 1), is an all-gather of every
+host).  The tensor-parallel layers use the differentiable forms
+:func:`tp_enter`, :func:`tp_reduce`, :func:`tp_gather` and
+:func:`tp_reduce_scatter`.  Gloo has no CUDA ``send`` / ``recv``, so
+:func:`ppermute_next`, JAX's ``ppermute`` over the pairs (i, i + 1), is
+an all-gather of every
 rank's rows of which each rank keeps its predecessor's.  A bool tensor
 travels as uint8.  Over an axis of size 1 no collective calls a group.
 
-On a fake tensor (``core.flags.counted``) a collective
-takes the count route: it allocates what it would allocate, calls no
-group, and reports ``(op, buf_bytes, group, wire_bytes)`` to the active
-counter under the HLO op it stands for, with JAX's wire formulas
-(``core.flags.wire_bytes``).  The mesh may then be an abstract one
-acting as a rank (``launch.mesh.abstract_mesh(..., rank0=True)``): no
-process group is needed.
+Every collective reports ``(op, buf_bytes, group, wire_bytes)`` to the
+active counter (``core.flags``), if any, under the HLO op it stands for,
+with JAX's wire formulas (``core.flags.wire_bytes``).  On a fake tensor
+(``core.flags.counted``) a collective takes the count route: it
+allocates what it would allocate and calls no group.  The mesh may then
+be an abstract one acting as a rank (``launch.mesh.abstract_mesh(...,
+rank0=True)``): no process group is needed.
 
 Backends and devices are the caller's: rank r takes ``cuda:(r %
 device_count)`` or the CPU, as :func:`init_process_group` was told, and
@@ -127,10 +130,8 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0, tiled: bool = True,
         return x if tiled else x.unsqueeze(dim)
     w = _wire(x)
     parts = [torch.empty_like(w) for _ in range(n)]
-    if flags.counted(w):
-        flags.add_collective("all-gather",
-                             n * w.numel() * w.element_size(), n)
-    else:
+    flags.add_collective("all-gather", n * w.numel() * w.element_size(), n)
+    if not flags.counted(w):
         dist.all_gather(parts, w, group=m.group(axis))
     parts = [p.to(x.dtype) for p in parts] if w.dtype != x.dtype else parts
     return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
@@ -141,10 +142,9 @@ def _all_reduce(x: torch.Tensor, axis, op, mesh) -> torch.Tensor:
     if m.axis_size(axis) == 1:
         return x
     y = x.reshape(1).clone() if x.dim() == 0 else x.clone().contiguous()
-    if flags.counted(y):
-        flags.add_collective("all-reduce", y.numel() * y.element_size(),
-                             m.axis_size(axis))
-    else:
+    flags.add_collective("all-reduce", y.numel() * y.element_size(),
+                         m.axis_size(axis))
+    if not flags.counted(y):
         dist.all_reduce(y, op=op, group=m.group(axis))
     return y.reshape(x.shape)
 
@@ -202,6 +202,104 @@ def local_block(x: torch.Tensor, axis, mesh=None, dim: int = 0):
                          f"split over {axis} ({n} ranks)")
     step = x.shape[dim] // n
     return x.narrow(dim, m.axis_index(axis) * step, step)
+
+
+# ----------------------------------------------------------------------
+# The tensor-parallel layers' collectives, as autograd Functions (JAX's
+# GSPMD derives them; ``dist`` ops are not differentiable, and
+# ``torch.distributed.nn``'s all-reduce sums in its backward too, which is
+# wrong for a row-parallel exit).  Each sums in fp32 and rounds once; over
+# an axis of size 1 each is the identity and builds no node.
+class _Enter(torch.autograd.Function):
+    """Entering a region whose ranks each use part of ``x``: identity
+    forward, the gradients' sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.float(), ctx.axis, ctx.mesh).to(g.dtype), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Leaving a row-parallel product: the partial products' sum forward,
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return psum(x.float(), axis, mesh).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's block along ``dim`` forward (all-gather); this rank's
+    block of the summed gradient backward (a reduce-scatter, as psum then
+    slice: gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return all_gather(x.contiguous(), axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = psum(g.float(), ctx.axis, ctx.mesh).to(g.dtype)
+        return local_block(s, ctx.axis, ctx.mesh, ctx.dim).contiguous(), \
+            None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """The adjoint of :class:`_Gather`: this rank's block of the sum
+    forward, every rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        s = psum(x.float(), axis, mesh).to(x.dtype)
+        return local_block(s, axis, mesh, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.axis, dim=ctx.dim,
+                          mesh=ctx.mesh), None, None, None
+
+
+def tp_enter(x: torch.Tensor, axis="model", mesh=None) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``axis`` in the backward:
+    a replicated tensor (an activation or a leaf) that each rank uses only
+    in part."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _Enter.apply(x, axis, m)
+
+
+def tp_reduce(x: torch.Tensor, axis="model", mesh=None) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's partial ``x`` (fp32, rounded
+    once to ``x``'s dtype); the gradient passes as it is."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _Reduce.apply(x, axis, m)
+
+
+def tp_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``axis``, concatenated on
+    ``dim``; backward, this rank's block of the summed gradient."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _Gather.apply(x, axis,
+                                                          dim % x.dim(), m)
+
+
+def tp_reduce_scatter(x: torch.Tensor, axis, dim: int,
+                      mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axis`` of every
+    rank's ``x``; backward, the gradient's blocks all-gathered."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _Scatter.apply(
+        x, axis, dim % x.dim(), m)
 
 
 def gather_objects(obj: Any, axis, mesh=None) -> list:

@@ -42,6 +42,11 @@ def set_counter(counter):
     return prev
 
 
+def active() -> bool:
+    """Is a counter active?"""
+    return _COUNTER is not None
+
+
 def add(name: str, work_fn, *args, **kwargs) -> None:
     """Report one call of kernel ``name`` with ``work_fn(*args,
     **kwargs)``'s work (``kernels.work``), where a counter is active."""

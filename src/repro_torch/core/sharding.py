@@ -18,12 +18,19 @@ A spec is JAX's ``PartitionSpec`` as a tuple: one entry a dimension,
 each None, a mesh axis name, or a tuple of names.  Specs need only the
 mesh's axis names and sizes (``launch.mesh.abstract_mesh``).
 
-Unlike GSPMD, nothing here moves activations: under ``broadcast`` and
-``seqtp`` each rank's activations are already its own rows or positions,
-so :func:`shard` checks the rank of ``x`` and returns it.  The compute of
-the weight-sharded policies (tensor-parallel layers) is not in the port:
-a model forward under ``tp`` or ``fsdp_tp`` raises
-(:func:`require_replicated_weights`, ROADMAP.md, Queue 1, item 14).
+Unlike GSPMD, nothing here moves activations: each rank's activations
+are already its own rows (or, under ``seqtp``, positions), so
+:func:`shard` checks the rank of ``x`` and returns it.  Under ``tp`` and
+``fsdp_tp`` the layers compute on their blocks themselves (the
+tensor-parallel layers, Megatron's scheme): a replicated activation
+enters a ``model`` region through ``collectives.tp_enter``, a column
+block's product stays local, a row block's partial product leaves through
+``collectives.tp_reduce``, and under ``fsdp_tp`` a layer's leaves are
+gathered over the data axes at its start (:func:`fsdp_gather`).  The
+helpers here say what a rank holds: :func:`tp_mesh`, :func:`col_block`,
+:func:`head_block` (which heads and kv heads a ``heads`` block computes,
+and whether it cuts a head) and :func:`gathered_columns` (columns of a
+column-sharded matrix outside this rank's block).
 """
 from __future__ import annotations
 
@@ -150,27 +157,153 @@ def use_sharding(mesh, policy: str = "broadcast", rules=None):
         _local.ctx = prev
 
 
-def require_replicated_weights(what: str) -> None:
-    """Raise under a weight-sharded policy, whose layers the port cannot
-    compute yet."""
-    ctx = current_ctx()
-    if ctx is not None and ctx.policy in ("tp", "fsdp_tp"):
-        raise NotImplementedError(
-            f"{what} under policy {ctx.policy!r}: the tensor-parallel "
-            f"layers are not in the port yet: ROADMAP.md, Queue 1, item 14")
-
-
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """JAX's activation constraint: ``x`` as it is (each rank holds its
-    own rows or positions already) after checking its rank; raises under
-    a weight-sharded policy."""
+    own rows or positions already) after checking its rank."""
     ctx = current_ctx()
-    if ctx is None:
-        return x
-    if len(logical_axes) != x.dim():
+    if ctx is not None and len(logical_axes) != x.dim():
         raise ValueError(f"axes {logical_axes} vs rank {x.dim()}")
-    require_replicated_weights("shard")
     return x
+
+
+# ----------------------------------------------------------------------
+# What a rank holds under a weight-sharded policy
+TP_POLICIES = ("tp", "fsdp_tp")
+
+
+def tp_mesh():
+    """The mesh whose ``model`` axis splits the weights: the context's
+    under ``tp`` / ``fsdp_tp`` with more than one rank on ``model``, else
+    None (every layer then runs its one-device code)."""
+    ctx = current_ctx()
+    if ctx is None or ctx.policy not in TP_POLICIES or \
+            ctx.mesh.shape.get("model", 1) == 1:
+        return None
+    return ctx.mesh
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a ``model`` region under ``tp``
+    (``collectives.tp_enter``: its gradient summed over ``model``); ``x``
+    itself otherwise."""
+    mesh = tp_mesh()
+    return x if mesh is None else collectives.tp_enter(x, "model", mesh)
+
+
+def sum_model(x: torch.Tensor) -> torch.Tensor:
+    """A row block's partial product summed over ``model`` under ``tp``
+    (``collectives.tp_reduce``); ``x`` itself otherwise."""
+    mesh = tp_mesh()
+    return x if mesh is None else collectives.tp_reduce(x, "model", mesh)
+
+
+def col_block(n: int, mesh) -> Tuple[int, int]:
+    """This rank's block ``[c0, c1)`` of ``n`` columns split over
+    ``model``."""
+    k = mesh.axis_size("model")
+    if n % k:
+        raise ValueError(f"{n} columns do not split over model ({k} ranks)")
+    i = mesh.axis_index("model")
+    return i * n // k, (i + 1) * n // k
+
+
+class HeadBlock(NamedTuple):
+    """A ``heads`` block's attention: columns ``[c0, c1)`` of the H * hd
+    (the rank's block of ``wq``'s columns and ``wo``'s rows), the heads
+    ``[h0, h1)`` it computes and the kv heads ``[kv0, kv1)`` they read.
+    ``cuts``: the computed heads are not the block's columns (the block
+    cuts a head, or its whole heads do not map onto whole kv heads), so
+    q's columns come from a gather over ``model``."""
+    c0: int
+    c1: int
+    h0: int
+    h1: int
+    kv0: int
+    kv1: int
+    hd: int
+    cuts: bool
+
+    @property
+    def heads(self) -> int:
+        return self.h1 - self.h0
+
+
+def head_block(H: int, KV: int, hd: int, mesh) -> HeadBlock:
+    """The heads this rank computes for its block of the H * hd columns:
+    the whole heads the block touches, which read kv heads ``h // G``
+    (G = H / KV).  Where they span more than one kv head and do not
+    start and end on a group's edge, whole groups are computed, so that
+    the kernels' mapping (q head j reads kv head j // G_local) holds."""
+    c0, c1 = col_block(H * hd, mesh)
+    G = H // KV
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    kv0, kv1 = h0 // G, (h1 - 1) // G + 1
+    if kv1 - kv0 > 1 and (h0 % G or h1 % G):
+        h0, h1 = kv0 * G, kv1 * G
+    return HeadBlock(c0, c1, h0, h1, kv0, kv1, hd,
+                     (h0 * hd, h1 * hd) != (c0, c1))
+
+
+def gathered_columns(x: torch.Tensor, w: torch.Tensor, spans, mesh):
+    """``x @ W[:, lo:hi]`` for each ``(lo, hi)`` of ``spans``, where W is
+    the whole matrix whose column block ``w`` this rank holds: through an
+    all-gather over ``model`` of the smaller of the product's blocks
+    (tokens x columns) and the weight's (rows x columns)."""
+    tokens = x.numel() // max(x.shape[-1], 1)
+    if tokens < w.shape[0]:
+        whole = collectives.tp_gather(x @ w, "model", -1, mesh)
+        return [whole[..., lo:hi] for lo, hi in spans]
+    W = collectives.tp_gather(w, "model", -1, mesh)
+    return [x @ W[:, lo:hi] for lo, hi in spans]
+
+
+def fsdp_active() -> bool:
+    """Does the context split ``embed`` over the data axes (``fsdp_tp``)?"""
+    ctx = current_ctx()
+    return ctx is not None and bool(ctx.rules.get("embed"))
+
+
+def fsdp_gather_leaf(x: torch.Tensor, logical_axes) -> torch.Tensor:
+    """The leaf whole over the data axes under ``fsdp_tp``: each dimension
+    the policy splits over them all-gathered (``collectives.tp_gather``:
+    its gradient reduce-scattered back); ``x`` itself otherwise."""
+    if not fsdp_active():
+        return x
+    ctx = current_ctx()
+    spec = NamedSharding(ctx.mesh, ctx.spec_for(logical_axes))
+    for d in range(len(logical_axes)):
+        axes = tuple(a for a in spec.dim_axes(d) if a != "model")
+        if axes:
+            x = collectives.tp_gather(x, axes, d, ctx.mesh)
+    return x
+
+
+def stack_axes(axes_tree):
+    """One repeat's logical axes of a stacked tree's (each leaf's leading
+    ``"layers"`` dropped), for :func:`fsdp_gather`."""
+    return tree_map(lambda a: a[1:], axes_tree, is_leaf=is_axes)
+
+
+def fsdp_gather(tree, axes_tree):
+    """:func:`fsdp_gather_leaf` of every leaf of ``tree`` (a layer's
+    parameters) with its logical axes from ``axes_tree``; ``tree`` itself
+    where ``axes_tree`` is None."""
+    if axes_tree is None:
+        return tree
+    return tree_map(fsdp_gather_leaf, tree, axes_tree)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The mesh axes the batch's rows are split over under the current
+    context, where each rank holds its own rows (every policy but
+    ``seqtp``, whose callers give every rank the whole batch); ``()``
+    where they are not split."""
+    ctx = current_ctx()
+    if ctx is None or ctx.policy == "seqtp":
+        return ()
+    m = ctx.rules.get("batch") or ()
+    axes = (m,) if isinstance(m, str) else tuple(m)
+    return axes if axes and ctx.mesh.axis_size(axes) > 1 else ()
 
 
 def param_shardings(axes_tree, ctx: Optional[ShardingCtx] = None):

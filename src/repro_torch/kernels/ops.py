@@ -18,7 +18,9 @@ A CUDA tensor launches the Hopper kernel (the ``*_bkgd`` / ``*_bshd`` /
 ``*_bhd`` wrappers, which check the arguments) or raises, and reports the
 same work where a counter is active; a CPU tensor runs the plain version
 from :mod:`repro_torch.kernels.ref` after the same checks, counted in
-:data:`PLAIN_CALLS`.  Any other device raises.  Each call is checked once.
+:data:`PLAIN_CALLS` (and, where a counter is active, reported with the
+kernel's work in place of its own ops, :func:`_plain`).  Any other
+device raises.  Each call is checked once.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On a
 CUDA tensor that requires grad (with grad enabled) :func:`flash_attention`
@@ -33,6 +35,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core import flags
 from repro_torch.kernels import LAUNCHES, count, work
@@ -86,6 +89,21 @@ def _counted(name: str, out, work_fn, *args, **kwargs):
     return out
 
 
+def _plain(name: str, plain, work_fn, *args, **kwargs):
+    """The CPU route's end: ``plain()``, the plain version.  Where a
+    counter is active (the dry run's count of a step on a real CPU rank,
+    ``launch/dryrun_lib.counting``) its eager ops go uncounted and one
+    call of kernel ``name`` with its work is reported instead, as the
+    count and kernel routes report it, so a real rank's count equals the
+    fake one."""
+    if not flags.active():
+        return plain()
+    with _disable_current_modes():
+        out = plain()
+    flags.add(name, work_fn, *args, **kwargs)
+    return out
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         getattr(t, "requires_grad", False) for t in tensors)
@@ -117,7 +135,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     backward kernel takes a masked call at T = S only."""
     if _route("flash_attention", q) == "cpu":
         fa.check_args(q, k, v, window, causal)
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        B, S, H, hd = q.shape
+        return _plain("flash_attention", lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), work.flash_attention, B,
+            S, k.shape[1], H, k.shape[2], hd, hd_v=v.shape[3], dtype=q.dtype,
+            causal=causal, window=window, lse=_needs_grad(q, k, v))
     # the kernel and count routes share the wrappers, which count
     if _needs_grad(q, k, v):
         fa.check_args(q, k, v, window, causal)
@@ -131,12 +153,13 @@ def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
     is checked; the kernel plans its own split of the keys over CTAs
     (:mod:`repro_torch.kernels.decode_plan`)."""
     route = _route("decode_attention", q)
-    if route == "cpu":
-        da.check_args(q, k, v, lengths, n_splits)
-        return ref.decode_attention_ref(q, k, v, lengths)
-    _no_backward("decode_attention", _SERVING_BACKWARD, q, k, v)
     B, H, hd = q.shape
     args = (B, H, k.shape[2], hd, k.shape[1])
+    if route == "cpu":
+        da.check_args(q, k, v, lengths, n_splits)
+        return _plain("decode_attention", lambda: ref.decode_attention_ref(
+            q, k, v, lengths), work.decode_attention, *args, dtype=q.dtype)
+    _no_backward("decode_attention", _SERVING_BACKWARD, q, k, v)
     if route == "count":
         da.check_args(q, k, v, lengths, n_splits)
         return _counted("decode_attention", q.new_empty(q.shape),
@@ -155,14 +178,16 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
     krope^T) * scale`` over keys ``< lengths`` (all L past L) times
     ckv, with P in fp32."""
     route = _route("mla_decode_attention", q_lat)
-    if route == "cpu":
-        md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
-        return ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope,
-                                            lengths, scale)
-    _no_backward("mla_decode_attention", _SERVING_BACKWARD, q_lat, q_rope,
-                 ckv, krope)
     B, H, r = q_lat.shape
     args = (B, H, r, q_rope.shape[-1], ckv.shape[1])
+    if route == "cpu":
+        md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
+        return _plain("mla_decode_attention",
+                      lambda: ref.mla_decode_attention_ref(
+                          q_lat, q_rope, ckv, krope, lengths, scale),
+                      work.mla_decode_attention, *args, dtype=q_lat.dtype)
+    _no_backward("mla_decode_attention", _SERVING_BACKWARD, q_lat, q_rope,
+                 ckv, krope)
     if route == "count":
         md.check_args(q_lat, q_rope, ckv, krope, lengths, scale)
         return _counted("mla_decode_attention", q_lat.new_empty(q_lat.shape),
@@ -182,14 +207,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"{name}: q must be (B, H, hd), got {tuple(q.shape)}")
     G = _heads(name, q, k_pool)
     route = _route(name, q)
-    if route == "cpu":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
-        return ref.paged_decode_attention_ref(q, k_pool, v_pool,
-                                              block_tables, lengths)
-    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, H, hd = q.shape
     args = (B, H, k_pool.shape[2], hd, k_pool.shape[1],
             block_tables.shape[1])
+    if route == "cpu":
+        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
+        return _plain(name, lambda: ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, block_tables, lengths),
+            work.paged_decode_attention, *args, dtype=q.dtype)
+    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     if route == "count":
         pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
         return _counted(name, q.new_empty(q.shape),
@@ -211,14 +237,15 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
                          f"{tuple(q.shape)}")
     G = _heads(name, q, k_pool)
     route = _route(name, q)
-    if route == "cpu":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
-        return ref.paged_extend_attention_ref(q, k_pool, v_pool,
-                                              block_tables, pos0)
-    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     B, S, H, hd = q.shape
     args = (B, S, H, k_pool.shape[2], hd, k_pool.shape[1],
             block_tables.shape[1])
+    if route == "cpu":
+        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
+        return _plain(name, lambda: ref.paged_extend_attention_ref(
+            q, k_pool, v_pool, block_tables, pos0),
+            work.paged_extend_attention, *args, dtype=q.dtype)
+    _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     if route == "count":
         pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
         return _counted(name, q.new_empty(q.shape),
@@ -273,12 +300,14 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
     runs the first and last in jnp around its Pallas kernel); the plain
     version composes them as JAX does."""
     route = _route("ssm_scan", xc)
-    if route == "cpu":
-        ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
-        return ref.selective_scan_ref(xc, dt, Bc, Cc, A, D, h0)
-    _no_backward("ssm_scan", _SCAN_BACKWARD, xc, dt, Bc, Cc, A, D, h0)
     B, S, di = xc.shape
     args = (B, S, di, A.shape[1])
+    if route == "cpu":
+        ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
+        return _plain("ssm_scan", lambda: ref.selective_scan_ref(
+            xc, dt, Bc, Cc, A, D, h0), work.selective_scan, *args,
+            h0=h0 is not None)
+    _no_backward("ssm_scan", _SCAN_BACKWARD, xc, dt, Bc, Cc, A, D, h0)
     if route == "count":
         ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
         return _counted("ssm_scan", (xc.new_empty(xc.shape),
@@ -303,7 +332,8 @@ def linear_scan(a, b, h0):
     route = _route("ssm_scan", a4)
     if route == "cpu":
         ss.check_args(a4, b4, h4)
-        h_seq, h_fin = ref.ssm_scan_ref(a4, b4, h4)
+        h_seq, h_fin = _plain("ssm_scan", lambda: ref.ssm_scan_ref(
+            a4, b4, h4), work.ssm_scan, B, S, w, 1)
     else:
         _no_backward("linear_scan", _SCAN_BACKWARD, a, b, h0)
         if route == "count":

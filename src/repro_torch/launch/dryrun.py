@@ -9,10 +9,11 @@ needed, and nothing is allocated:
 The mesh is rank 0 of (16, 16) (``--mesh single``) or (2, 16, 16)
 (``multi``), ``launch/mesh.abstract_mesh(..., rank0=True)``.  Each cell
 prints an ``OK``, ``SKIP`` or ``FAIL`` line and writes its JSON to
-``--out``; the exit code is 1 if any cell failed.  Under the default
-policies (``fsdp_tp`` for train, ``tp`` for serve) every cell fails,
-naming ROADMAP.md Queue 1 item 14, until the port has tensor-parallel
-layers.
+``--out``; the exit code is 1 if any cell failed.  The default policies
+(``fsdp_tp`` for train, ``tp`` for serve) count the port's
+tensor-parallel step with its collectives; a train cell fails where a
+layer's backward kernel is not on the card yet (the scan's and MLA's:
+ROADMAP.md, Queue 2), as the card would refuse it.
 """
 import argparse
 import sys

@@ -36,8 +36,9 @@ extrapolation).  The training cells' gradient accumulation comes from the
 port's own memory pass (:func:`train_accum`), not from a TPU's table.
 
 Cells under ``tp`` and ``fsdp_tp`` (JAX's defaults: ``fsdp_tp`` for train,
-``tp`` for serve) report ``ok=False`` with the port's refusal: the
-tensor-parallel layers are ROADMAP.md, Queue 1, item 14.
+``tp`` for serve) count the port's tensor-parallel step on rank 0's blocks
+of the leaves, with its collectives (``core.collectives.tp_*``: their
+forward and, in a train cell, backward all-reduces and all-gathers).
 """
 from __future__ import annotations
 
@@ -346,14 +347,14 @@ def build_cell(cfg: ArchConfig, sc: ShapeCase, mesh, policy: str,
     ``FakeTensorMode``).  The parameters and moments are the rank's blocks
     of the policy's specs; a serve step's batch and caches are its rows
     (the port holds a cache whole in the sequence: it has no
-    sequence-sharded cache); a data-parallel train step takes the global
+    sequence-sharded cache), with the recurrent states' channels split as
+    the policy splits ``inner`` / ``lru``; a train step takes the global
     batch and picks its own rows (``steps.local_rows``)."""
     rules = dict(_rules(policy, mesh.axis_names))
     if sc.global_batch < _n_data(mesh):
         rules["batch"] = None                      # don't shard tiny batch
     ctx = ShardingCtx(mesh, policy, rules)
     batch_axes = rules.get("batch") or ()
-    n_batch = mesh.axis_size(batch_axes) if batch_axes else 1
 
     params_abs, axes = api.abstract_params(cfg)
     param_sh = steps_mod.shardings_like(axes, ctx)
@@ -369,17 +370,11 @@ def build_cell(cfg: ArchConfig, sc: ShapeCase, mesh, policy: str,
     batch_sh = {k: v.sharding for k, v in batch_abs.items()}
 
     if sc.kind == "train":
-        steps_mod.check_policy(cfg, policy, data_parallel=n_batch > 1)
         opt = adamw_init(params)
         opt_sh = steps_mod.opt_shardings(param_sh)
-        if n_batch > 1:
-            step = steps_mod.make_train_step(cfg, accum_steps=accum_steps,
-                                             mesh=mesh, policy=policy)
-            batch = {k: _local_empty(v, None) for k, v in batch_abs.items()}
-        else:
-            step = steps_mod.make_train_step(cfg, accum_steps=accum_steps)
-            batch = {k: _local_empty(v, batch_sh[k])
-                     for k, v in batch_abs.items()}
+        step = steps_mod.make_train_step(cfg, accum_steps=accum_steps,
+                                         mesh=mesh, policy=policy)
+        batch = {k: _local_empty(v, None) for k, v in batch_abs.items()}
         metric_sh = {k: repl for k in ("loss", "ce", "aux", "grad_norm", "lr")}
         return (step, (params, opt, batch), (param_sh, opt_sh, batch_sh),
                 (param_sh, opt_sh, metric_sh), (0, 1), rules)
@@ -387,7 +382,10 @@ def build_cell(cfg: ArchConfig, sc: ShapeCase, mesh, policy: str,
     max_len = sc.seq_len
     caches_abs = api.init_caches(cfg, sc.global_batch, max_len,
                                  enc_len=sc.seq_len, device="meta")
-    cache_ctx = ShardingCtx(mesh, policy, {"batch": rules.get("batch")})
+    # the recurrent states' channels split as the weights' (JAX's cache
+    # specs); attention caches whole on every rank of ``model``
+    cache_ctx = ShardingCtx(mesh, policy, {
+        k: rules.get(k) for k in ("batch", "inner", "lru")})
     cache_sh = tree_map(cache_ctx.sharding_for,
                         steps_mod.cache_logical_axes(cfg, max_len),
                         is_leaf=is_axes)

@@ -19,6 +19,19 @@ the loss and the gradients are summed over the batch's mesh axes
 (``core.collectives``) before the clip, so the clip's global norm and
 AdamW see the same numbers on every rank and the parameters stay
 bit-identical across ranks.
+
+Tensor parallelism (``tp``, ``fsdp_tp``, JAX's training default): each
+rank holds its blocks of the leaves (``core.broadcast.place_params``) and
+the layers compute on them (``models/transformer.py``); the gradients
+of a ``model`` region's replicated leaves are summed inside autograd
+(``collectives.tp_enter``), so each rank's gradient is its block of the
+one-device gradient.  Over the data axes, a leaf replicated there has
+its gradient all-reduced as under ``broadcast``; a leaf split there
+(``fsdp_tp``'s ``embed``) was gathered at its layer's start, and that
+gather's backward already summed its gradient over them.  The clip's
+global norm sums each leaf's squares over the axes its spec splits.
+The prefill and decode steps run under ``core.sharding.use_sharding(mesh,
+policy)``, which their callers enter, as JAX's do.
 """
 from __future__ import annotations
 
@@ -27,9 +40,10 @@ import math
 import torch
 
 from repro_torch.core import collectives
-from repro_torch.core.sharding import NamedSharding, ShardingCtx, _rules, \
-    is_axes
+from repro_torch.core.sharding import TP_POLICIES, NamedSharding, \
+    ShardingCtx, _rules, current_ctx, is_axes, use_sharding
 from repro_torch.models import api
+from repro_torch.models.weights import param_axes
 from repro_torch.optim import AdamWState, adamw_update, clip_by_global_norm, \
     cosine_schedule
 from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map, \
@@ -132,32 +146,24 @@ def value_and_grad(params, cfg, batch):
         unflatten_like(params, grads)
 
 
-def check_policy(cfg, policy: str, data_parallel: bool = False):
+def check_policy(policy: str):
     """Raise for a training run the port cannot take: ``seqtp`` (Queue 2
-    item 12), ``tp`` / ``fsdp_tp`` (Queue 1 item 14), and with
-    ``data_parallel`` a MoE config (Queue 1 item 14)."""
+    item 12), or a policy JAX does not have."""
     if policy == "seqtp":
         raise NotImplementedError(
             "training under policy 'seqtp': the flash backward at a query "
             "offset and the backward of the K/V all-gather are not in the "
             "port yet: ROADMAP.md, Queue 2, item 12")
-    if policy != "broadcast":
-        raise NotImplementedError(
-            f"training under policy {policy!r}: the tensor-parallel layers "
-            f"are not in the port yet: ROADMAP.md, Queue 1, item 14")
-    if data_parallel and any(k == "M" for g in getattr(cfg, "groups", ())
-                             for k in g.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: data-parallel training of MoE layers, whose expert "
-            f"capacity and aux loss depend on the global token count, is "
-            f"not in the port yet: ROADMAP.md, Queue 1, item 14")
+    _rules(policy, ("data", "model"))
 
 
-def local_rows(batch, mesh, policy: str = "broadcast"):
+def local_rows(batch, mesh, policy: str = "broadcast", axes=None):
     """This rank's rows of the global ``batch`` (a dict of tensors with the
-    batch first), split over the policy's batch axes as ``_rules`` says:
-    block ``axis_index`` of ``axis_size`` equal blocks."""
-    axes = _rules(policy, mesh.axis_names).get("batch") or ()
+    batch first), split over ``axes`` (by default the policy's batch axes
+    as ``_rules`` says): block ``axis_index`` of ``axis_size`` equal
+    blocks."""
+    if axes is None:
+        axes = _rules(policy, mesh.axis_names).get("batch") or ()
     if not axes:
         return batch
     return tree_map(lambda a: collectives.local_block(a, axes, mesh), batch)
@@ -190,6 +196,43 @@ def _reduce_grads(grads, weight: float, axes, mesh):
     return unflatten_like(grads, out)
 
 
+def _row_axes(ctx):
+    """The mesh axes of more than one rank that the context's batch rule
+    splits the rows over."""
+    rows = ctx.rules.get("batch") or ()
+    rows = (rows,) if isinstance(rows, str) else tuple(rows)
+    return rows if rows and ctx.mesh.axis_size(rows) > 1 else ()
+
+
+def _mesh_grads(grads, cfg, ctx):
+    """Each leaf's gradient over the data axes: a leaf the context's
+    specs split there (gathered at its layer's start, its gradient summed
+    by that gather's backward) is scaled by one over their ranks; the
+    others are all-reduced over the batch's axes, each rank's weighted by
+    its share of the rows.  Returns ``(grads, shardings)``, the latter
+    the leaves' specs under a weight-sharded policy (else None)."""
+    mesh = ctx.mesh
+    rows = _row_axes(ctx)
+    w = 1.0 / mesh.axis_size(rows) if rows else 1.0
+    if ctx.policy not in TP_POLICIES:
+        return (_reduce_grads(grads, w, rows, mesh) if rows else grads), None
+    sh = shardings_like(param_axes(cfg), ctx)
+    flat = flatten_with_paths(grads)
+    flat_sh = flatten_with_paths(sh)
+    split, whole = {}, {}
+    for k, g in flat.items():
+        s = flat_sh[k]
+        data = tuple(a for d in range(len(s.spec)) for a in s.dim_axes(d)
+                     if a != "model")
+        if data:
+            split[k] = g * (1.0 / mesh.axis_size(data))
+        else:
+            whole[k] = g
+    if rows and whole:
+        whole = _reduce_grads(whole, w, rows, mesh)
+    return unflatten_like(grads, {**split, **whole}), sh
+
+
 def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
                     total: int = 10_000, clip: float = 1.0,
                     accum_steps: int = 1, mesh=None,
@@ -202,18 +245,20 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
     optimizer's step count before this step.  Metrics are fp32 scalars:
     ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``.
 
-    With a ``mesh`` (policy ``broadcast``: data parallelism) every rank
-    is given the global batch and takes its own rows (:func:`local_rows`);
-    the loss is the token-weighted mean over every rank: the ranks' blocks
-    are equal (:func:`local_rows` refuses others), so each rank's mean,
-    weighted by its share ``1 / axis_size`` of the tokens, is all-reduced,
-    and the gradients of each rank's mean, weighted the same way, are
-    all-reduced in fp32 before the clip.  ``seqtp`` raises naming Queue 2
-    item 12, ``tp`` / ``fsdp_tp`` and MoE configs Queue 1 item 14."""
+    With a ``mesh`` every rank is given the global batch and takes its
+    own rows (:func:`local_rows`) under the policy's batch rule, and the
+    step runs under ``use_sharding(mesh, policy)`` (or the context the
+    caller entered, whose rules it reads): under ``broadcast`` data
+    parallelism, under ``tp`` / ``fsdp_tp`` the tensor-parallel layers on
+    the rank's blocks of the leaves (the module docstring).  The loss is
+    the token-weighted mean over the batch's ranks: the ranks' blocks are
+    equal (:func:`local_rows` refuses others), so each rank's mean,
+    weighted by its share ``1 / axis_size`` of the tokens, is
+    all-reduced, and so are its gradients, in fp32 before the clip.  A
+    MoE layer's capacity, slots and aux loss are the global batch's
+    (``models/moe.py``).  ``seqtp`` raises naming Queue 2 item 12."""
     if mesh is not None:
-        check_policy(cfg, policy, data_parallel=True)
-        axes = _rules(policy, mesh.axis_names).get("batch") or ()
-        w = 1.0 / mesh.axis_size(axes)
+        check_policy(policy)
 
     def local(params, batch):
         if accum_steps == 1:
@@ -232,24 +277,38 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
         grads = tree_map(lambda g: g * inv, grads)
         return (loss * inv, (ce * inv, aux * inv)), grads
 
-    def step(params, opt_state, batch):
-        if mesh is None:
-            (loss, (ce, aux)), grads = local(params, batch)
-        else:
-            batch = local_rows(batch, mesh, policy)
-            (loss, (ce, aux)), grads = local(params, batch)
-            grads = _reduce_grads(grads, w, axes, mesh)
+    def sharded(params, opt_state, batch):
+        ctx = current_ctx()
+        rows = _row_axes(ctx)
+        batch = local_rows(batch, mesh, policy, rows)
+        (loss, (ce, aux)), grads = local(params, batch)
+        grads, sh = _mesh_grads(grads, cfg, ctx)
+        if rows:
             loss, ce, aux = collectives.psum(
-                torch.stack([loss, ce, aux]).float() * w, axes,
-                mesh).unbind()
+                torch.stack([loss, ce, aux]).float() *
+                (1.0 / mesh.axis_size(rows)), rows, mesh).unbind()
+        return update(params, opt_state, grads, sh, (loss, ce, aux))
+
+    def update(params, opt_state, grads, sh, metrics):
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, clip)
+            grads, gnorm = clip_by_global_norm(grads, clip, sh)
             lr_t = cosine_schedule(opt_state.step, peak_lr=lr, warmup=warmup,
                                    total=total)
             params, opt_state = adamw_update(params, grads, opt_state,
                                              lr=lr_t)
+        loss, ce, aux = metrics
         return params, opt_state, {"loss": loss, "ce": ce, "aux": aux,
                                    "grad_norm": gnorm, "lr": lr_t}
+
+    def step(params, opt_state, batch):
+        if mesh is None:
+            (loss, (ce, aux)), grads = local(params, batch)
+            return update(params, opt_state, grads, None, (loss, ce, aux))
+        ctx = current_ctx()
+        if ctx is not None and ctx.mesh is mesh:
+            return sharded(params, opt_state, batch)
+        with use_sharding(mesh, policy):
+            return sharded(params, opt_state, batch)
 
     return step
 

@@ -36,9 +36,13 @@ devices).  Under ``--policy broadcast`` that is data parallelism
 (``steps.make_train_step(..., mesh=)``): rank 0's initial tree is
 broadcast to every rank, each rank takes its rows of every batch, the
 gradients are all-reduced, and rank 0 alone prints, logs and writes the
-checkpoints.  ``--policy seqtp`` raises naming ROADMAP.md Queue 2 item
-12 (the flash backward at a query offset), ``tp`` and ``fsdp_tp`` Queue
-1 item 14 (the tensor-parallel layers).
+checkpoints.  Under ``tp`` / ``fsdp_tp`` each rank keeps its blocks of
+every leaf and the tensor-parallel layers compute on them (on one rank,
+the mesh ``(1, 1)``, as JAX's driver makes ``make_local_mesh(1, 1)``);
+a checkpoint holds the whole leaves (every rank's blocks gathered,
+``broadcast.unshard``), so any policy and any world restores it.
+``--policy seqtp`` raises naming ROADMAP.md Queue 2 item 12 (the flash
+backward at a query offset).
 An encoder-decoder config (whisper-base) raises ``ValueError`` before
 its first step: the driver feeds token batches only, as JAX's does,
 whose first step then fails on the missing ``frames``; its train step
@@ -60,14 +64,17 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.core import collectives
-from repro_torch.core.broadcast import place_params
+from repro_torch.core.broadcast import REPLICATED, place_params, unshard
 from repro_torch.core.fault import ReplayLog
+from repro_torch.core.sharding import NamedSharding
 from repro_torch.data.text import synthetic_tokens
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_local_mesh, \
+    make_production_mesh
 from repro_torch.launch.steps import check_policy, make_train_step
-from repro_torch.models import api
-from repro_torch.optim import adamw_init
+from repro_torch.models import api, weights
+from repro_torch.optim import AdamWState, adamw_init
+from repro_torch.tree import tree_map
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_train")
 
@@ -117,8 +124,11 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
     lead = mesh is None or mesh.axis_index(mesh.axis_names) == 0
     params, axes = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
                             dev, with_axes=True)
+    sh = None
     if mesh is not None:
-        params, _ = place_params(params, axes, mesh, policy)
+        params, sh = place_params(params, axes, mesh, policy)
+        if policy in REPLICATED:
+            sh = None
     opt = adamw_init(params)
     step_fn = make_train_step(cfg, lr=lr, warmup=warmup, total=steps,
                               accum_steps=accum, mesh=mesh, policy=policy)
@@ -126,9 +136,28 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
     log = ReplayLog(f"{ckpt_dir}/replay.jsonl")
     say = print if lead else (lambda *a, **k: None)
 
+    def whole(params, opt):
+        """The tree a checkpoint holds: every leaf whole."""
+        if sh is None:
+            return {"params": params, "opt": opt}
+        return {"params": unshard(params, sh),
+                "opt": AdamWState(opt.step, unshard(opt.m, sh),
+                                  unshard(opt.v, sh))}
+
     start = 0
     if ck.latest_step() is not None:
-        state = ck.restore({"params": params, "opt": opt})
+        if sh is None:
+            state = ck.restore({"params": params, "opt": opt})
+        else:
+            like = weights.empty_params(cfg, "meta")
+            f32 = lambda p: torch.empty(  # noqa: E731
+                p.shape, dtype=torch.float32, device="meta")
+            state = ck.restore(
+                {"params": like, "opt": AdamWState(
+                    torch.empty((), dtype=torch.int32, device="meta"),
+                    tree_map(f32, like), tree_map(f32, like))},
+                shardings={"params": sh, "opt": AdamWState(
+                    NamedSharding(mesh, ()), sh, sh)})
         params, opt = state["params"], state["opt"]
         del state
         start = int(opt.step)
@@ -155,11 +184,16 @@ def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
             say(f"[train] step {step:4d} loss={rec['loss']:.4f} "
                 f"gnorm={rec['grad_norm']:.3f} "
                 f"({time.perf_counter() - t0:.1f}s)")
-        if lead and ckpt_every and step and step % ckpt_every == 0:
-            ck.save(step, {"params": params, "opt": opt})
+        if ckpt_every and step and step % ckpt_every == 0:
+            tree = whole(params, opt)
+            if lead:
+                ck.save(step, tree)
+            del tree
+    tree = whole(params, opt)
     if lead:
-        ck.save(steps, {"params": params, "opt": opt})
+        ck.save(steps, tree)
         ck.wait()
+    del tree
     say(f"[train] done; checkpoints at {ck.steps()}")
     return {"params": params, "opt": opt, "start": start,
             "history": history}
@@ -180,7 +214,14 @@ def _mesh(args):
             timeout_s=1800)
     if args.production_mesh:
         return make_production_mesh()
-    return make_local_mesh(1, world) if world > 1 else None
+    if world > 1:
+        return make_local_mesh(1, world)
+    if args.policy in ("tp", "fsdp_tp"):
+        # JAX's make_local_mesh(1, 1): one rank, no process group needed
+        # (no collective calls a group over an axis of one rank)
+        return Mesh((1, 1), ("data", "model"), ranks=(0,), rank=0,
+                    device=resolve_device(args.device))
+    return None
 
 
 def main(argv=None) -> Dict:
@@ -188,7 +229,7 @@ def main(argv=None) -> Dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    check_policy(cfg, args.policy)
+    check_policy(args.policy)
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  accum=args.accum, lr=args.lr, warmup=args.warmup,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

@@ -45,6 +45,19 @@ fits the shard, else the K/V of every rank all-gathered.  A local layer
 keeps its window on the gathered route, where JAX's drops it
 (``attention.py:237-242``; ROADMAP.md, Queue 3).
 
+Tensor-parallel (``tp``, ``fsdp_tp``; ``core.sharding.tp_mesh``): q comes
+from the rank's ``wq`` block, the heads of ``core.sharding.head_block``
+(the block's own whole heads; where it cuts a head, or its heads do not
+map onto whole kv heads, the covering heads' columns through a gather
+over ``model``, ``sharding.gathered_columns``).  K and V are computed
+whole from the replicated ``wk`` / ``wv`` (entered into the region, so
+their gradients are summed over ``model``), so every rank writes the
+whole cache, as JAX's cache specs hold it (``kv_heads`` never split);
+the attention reads the kv heads its q heads use, and ``wo``'s row block
+is followed by a sum over ``model``.  MLA splits ``wq``, ``w_uk``,
+``w_uv`` and ``wo`` by heads and keeps the latent projections
+replicated.
+
 In place, unlike JAX: :func:`batched_cache_update`, :func:`prefill_into_cache`
 and :func:`_paged_scatter` write K/V rows into the cache tensors they are
 given, so the decode, prefill and extend steps update the engine's caches
@@ -57,6 +70,7 @@ import math
 import torch
 
 from repro_torch.core import collectives
+from repro_torch.core import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
 
@@ -68,21 +82,74 @@ FLASH_MIN_SEQ = 1024
 SEQSHARD_ROUTES = {"halo": 0, "gather": 0}
 
 
-def _project_qkv(params, xq, xkv, cfg, positions_q, positions_kv, rope_base):
-    """(``attention.py:40-58``) -> q (B,Sq,H,hd), k/v (B,Skv,KV,hd)."""
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (xq @ params["wq"]).reshape(B, Sq, H, hd)
-    k = (xkv @ params["wk"]).reshape(B, Skv, KV, hd)
-    v = (xkv @ params["wv"]).reshape(B, Skv, KV, hd)
+def _head_block(cfg):
+    """This rank's :class:`core.sharding.HeadBlock` under ``tp``, or
+    None."""
+    mesh = sharding.tp_mesh()
+    if mesh is None:
+        return None
+    return sharding.head_block(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               mesh)
+
+
+def _project_q(params, x, cfg, positions, rope_base, hb):
+    """q (B,S,Hc,hd) of the heads ``hb`` computes (all H without tp),
+    qk-normed and rotated; under tp ``x`` has entered the region."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    if hb is not None and hb.cuts:
+        q, = sharding.gathered_columns(x, params["wq"],
+                                       [(hb.h0 * hd, hb.h1 * hd)],
+                                       sharding.tp_mesh())
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, sharding.enter_model(params["q_norm"]), cfg.norm_eps)
     if rope_base:
-        q = apply_rope(q, positions_q, rope_base)
+        q = apply_rope(q, positions, rope_base)
+    return q
+
+
+def _project_qkv(params, xq, xkv, cfg, positions_q, positions_kv, rope_base,
+                 hb=None):
+    """(``attention.py:40-58``) -> q (B,Sq,H,hd), k/v (B,Skv,KV,hd); with
+    a head block ``hb`` (``tp``), q of its heads and k / v whole."""
+    B, Skv = xkv.shape[:2]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    enter = sharding.enter_model
+    same = xkv is xq
+    xq = enter(xq)
+    xkv = xq if same else enter(xkv)
+    q = _project_q(params, xq, cfg, positions_q, rope_base, hb)
+    k = (xkv @ enter(params["wk"])).reshape(B, Skv, KV, hd)
+    v = (xkv @ enter(params["wv"])).reshape(B, Skv, KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, enter(params["k_norm"]), cfg.norm_eps)
+    if rope_base:
         k = apply_rope(k, positions_kv, rope_base)
     return q, k, v
+
+
+def _kv_heads(t, hb):
+    """The kv heads ``[kv0, kv1)`` of a (B, L, KV, hd) tensor that the
+    block's q heads read, contiguous (the kernels take dense tensors);
+    ``t`` itself without tp."""
+    if hb is None or (hb.kv0, hb.kv1) == (0, t.shape[2]):
+        return t
+    return t[:, :, hb.kv0:hb.kv1].contiguous()
+
+
+def _out_proj(params, o, hb):
+    """``o`` (B, S, Hc, hd_v) through ``wo``: under tp the block's columns
+    of the computed heads times ``wo``'s row block, summed over
+    ``model``."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, -1)
+    if hb is None:
+        return o @ params["wo"]
+    o = o[..., hb.c0 - hb.h0 * hb.hd:hb.c1 - hb.h0 * hb.hd]
+    return sharding.sum_model(o @ params["wo"])
 
 
 def mha(q, k, v, mask, softcap: float = 0.0):
@@ -139,9 +206,11 @@ def attn_forward(params, x, cfg, *, kind: str, positions=None,
     ``global`` and ``local`` (query s sees keys ``t > s - window`` too),
     bidirectional for ``bidir``, and for ``cross`` q from x over k/v
     projected from ``encoder_kv`` (B,T,d), every query seeing all T keys.
-    x: (B,S,d); ``qkv`` reuses projections the caller already made."""
+    x: (B,S,d); ``qkv`` reuses projections the caller already made with
+    :func:`_project_qkv` (under tp, of this rank's head block)."""
     _check_kind(kind, cfg)
     B, S, _ = x.shape
+    hb = _head_block(cfg)
     if qkv is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -149,12 +218,14 @@ def attn_forward(params, x, cfg, *, kind: str, positions=None,
         pos_kv = positions if kind != "cross" else torch.arange(
             xkv.shape[1], device=x.device)[None, :]
         qkv = _project_qkv(params, x, xkv, cfg, positions, pos_kv,
-                           _rope_base(cfg, kind))
-    q, k, v = (t.contiguous() for t in qkv)
+                           _rope_base(cfg, kind), hb)
+    q, k, v = qkv
+    q, k, v = q.contiguous(), _kv_heads(k, hb).contiguous(), \
+        _kv_heads(v, hb).contiguous()
     window = cfg.window if kind == "local" else 0
     causal = kind not in ("bidir", "cross")
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, -1) @ params["wo"]
+    return _out_proj(params, out, hb)
 
 
 def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
@@ -247,9 +318,9 @@ def attn_decode(params, x, cache, pos, cfg, *, kind: str):
     entry, and sees its first ``min(pos + 1, L)`` rows (the module
     docstring says why that is JAX's ring mask)."""
     _check_kind(kind, cfg)
-    B = x.shape[0]
+    hb = _head_block(cfg)
     q, k, v = _project_qkv(params, x, x, cfg, pos[:, None], pos[:, None],
-                           _rope_base(cfg, kind))
+                           _rope_base(cfg, kind), hb)
     if is_ring_cache(cache):
         L = cache["k"].shape[1]
         slot = pos % L
@@ -259,9 +330,10 @@ def attn_decode(params, x, cache, pos, cfg, *, kind: str):
         slot, lengths = pos, pos + 1
     batched_cache_update(cache["k"], k[:, 0], slot)
     batched_cache_update(cache["v"], v[:, 0], slot)
-    out = kops.decode_attention(q[:, 0].contiguous(), cache["k"],
-                                cache["v"], lengths)
-    return out.reshape(B, 1, -1) @ params["wo"], cache
+    out = kops.decode_attention(q[:, 0].contiguous(),
+                                _kv_heads(cache["k"], hb),
+                                _kv_heads(cache["v"], hb), lengths)
+    return _out_proj(params, out[:, None], hb), cache
 
 
 def prefill_into_cache(params_unused, k, v, cache, cfg, *, kind: str):
@@ -359,11 +431,34 @@ def init_mla_cache(cfg, batch: int, max_len: int, device):
             "krope": torch.zeros((batch, max_len, cfg.rope_head_dim), **z)}
 
 
-def _mla_q(params, x, cfg, positions):
+def _mla_view(params, x, cfg):
+    """``(params, x, hb, Hc)`` of an MLA layer: without tp the layer's
+    own and all H heads; under tp ``x`` entered into the region, the
+    latent projections entered (their gradients summed over ``model``),
+    and ``wq`` / ``w_uk`` / ``w_uv`` of the heads of the rank's ``wo``
+    block (its own blocks, or the covering heads' columns of the
+    gathered weights where the block cuts a head)."""
+    mesh = sharding.tp_mesh()
+    if mesh is None:
+        return params, x, None, cfg.n_heads
+    H, rh, nh, vh = (cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim,
+                     cfg.v_head_dim)
+    hb = sharding.head_block(H, H, vh, mesh)
+    enter = sharding.enter_model
+    p = {k: enter(params[k]) for k in ("w_dkv", "kv_norm", "w_krope")}
+    p["wo"] = params["wo"]
+    for key, w in (("wq", nh + rh), ("w_uk", nh), ("w_uv", vh)):
+        p[key] = params[key] if not hb.cuts else collectives.tp_gather(
+            params[key], "model", -1, mesh)[:, hb.h0 * w:hb.h1 * w]
+    return p, enter(x), hb, hb.heads
+
+
+def _mla_q(params, x, cfg, positions, H=None):
     """(``attention.py:582-588``) -> q_nope (B,S,H,nh), q_rope (B,S,H,rh)
-    RoPE'd at ``positions``."""
+    RoPE'd at ``positions``; ``H`` the heads of ``params["wq"]``."""
     B, S, _ = x.shape
-    H, rh, nh = cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim
+    H = H or cfg.n_heads
+    rh, nh = cfg.rope_head_dim, cfg.nope_head_dim
     q = (x @ params["wq"]).reshape(B, S, H, nh + rh)
     return q[..., :nh], apply_rope(q[..., nh:], positions, cfg.rope_base)
 
@@ -381,13 +476,14 @@ def mla_forward(params, x, cfg, positions=None):
     """Full-sequence causal MLA (``attention.py:591-611``): per head q and
     k of ``nope + rope`` and v of ``v_head_dim``, through
     ``kops.flash_attention`` at every S, scale 1/sqrt(nope + rope).
-    Returns ``(out (B,S,d), (ckv (B,S,r), krope (B,S,rh)))``."""
+    Returns ``(out (B,S,d), (ckv (B,S,r), krope (B,S,rh)))``; under tp
+    the rank's heads, the latent whole."""
     B, S, _ = x.shape
-    H, rh, nh, vh = (cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim,
-                     cfg.v_head_dim)
+    params, x, hb, H = _mla_view(params, x, cfg)
+    rh, nh, vh = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, H)
     ckv, krope = _mla_latent(params, x, cfg, positions)
     k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, nh)
     v = (ckv @ params["w_uv"]).reshape(B, S, H, vh)
@@ -395,7 +491,7 @@ def mla_forward(params, x, cfg, positions=None):
     k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rh)], dim=-1)
     out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
-    return out.reshape(B, S, H * vh) @ params["wo"], (ckv, krope)
+    return _out_proj(params, out, hb), (ckv, krope)
 
 
 def mla_prefill_into_cache(ckv, krope, cache):
@@ -412,12 +508,12 @@ def mla_decode(params, x, cache, pos, cfg):
     ``x`` written at ``pos`` in place, the query absorbed into the latent
     space (``q_nope w_uk``, B x H x r), ``kops.mla_decode_attention`` over
     keys ``<= pos`` (``lengths = pos + 1``), and the context mapped back
-    through ``w_uv`` and ``wo``.  x: (B,1,d); pos: (B,) int32."""
-    B = x.shape[0]
-    H, rh, nh, vh = (cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim,
-                     cfg.v_head_dim)
+    through ``w_uv`` and ``wo``.  x: (B,1,d); pos: (B,) int32.  Under tp
+    the rank's heads over the whole latent cache."""
+    params, x, hb, H = _mla_view(params, x, cfg)
+    rh, nh, vh = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
-    q_nope, q_rope = _mla_q(params, x, cfg, pos[:, None])
+    q_nope, q_rope = _mla_q(params, x, cfg, pos[:, None], H)
     ckv_t, krope_t = _mla_latent(params, x, cfg, pos[:, None])
     batched_cache_update(cache["ckv"], ckv_t[:, 0], pos)
     batched_cache_update(cache["krope"], krope_t[:, 0], pos)
@@ -427,4 +523,4 @@ def mla_decode(params, x, cache, pos, cfg):
         q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["ckv"],
         cache["krope"], pos + 1, 1.0 / math.sqrt(nh + rh))
     out = torch.einsum("bhr,rhd->bhd", ctx, params["w_uv"].reshape(r, H, vh))
-    return out.reshape(B, 1, H * vh) @ params["wo"], cache
+    return _out_proj(params, out[:, None], hb), cache

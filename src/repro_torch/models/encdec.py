@@ -29,7 +29,10 @@ sees rows ``< min(pos + 1, max_len)``.
 
 JAX does not sequence-shard this family: under ``seqtp`` every pass runs
 whole on each rank.  Under a weight-sharded policy (``tp``, ``fsdp_tp``)
-it raises (ROADMAP.md, Queue 1, item 14).
+every attention, MLP, the embedding, the head and the loss compute on the
+rank's blocks as the decoder LM's do (``models/transformer.py``); the
+four caches stay whole on every rank, and under ``fsdp_tp`` each layer's
+leaves are gathered over the data axes at its start.
 """
 from __future__ import annotations
 
@@ -37,11 +40,15 @@ import math
 
 import torch
 
-from repro_torch.core.sharding import require_replicated_weights
+from repro_torch.core.sharding import (enter_model, fsdp_active,
+                                       fsdp_gather, fsdp_gather_leaf,
+                                       stack_axes)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_mlp, embed, mask_padded_logits
+from repro_torch.models.layers import (apply_mlp, embed, mask_padded_logits,
+                                       token_nll)
 from repro_torch.models.transformer import _remat_wrap, _unstack, apply_norm
+from repro_torch.models.weights import param_axes
 
 
 def _inv_freq(d: int, device):
@@ -62,21 +69,30 @@ def sinusoid_at(pos, d: int, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+def _layers(params, cfg, side: str):
+    """The ``side`` stack's layers, one tree each, beside their logical
+    axes where the context gathers leaves over the data axes (else
+    None)."""
+    n = cfg.enc_layers if side == "enc" else cfg.dec_layers
+    axes = stack_axes(param_axes(cfg)[side]) if fsdp_active() else None
+    return [(lp, axes) for lp in _unstack(params[side], n)]
+
+
 def encode(params, frames, cfg):
     """frames: (B, S_enc, d) stub frame embeddings -> encoder states."""
-    require_replicated_weights(f"{cfg.name}: the encoder")
     x = frames.to(cfg.act_dtype) + sinusoid(
         frames.shape[1], cfg.d_model, cfg.act_dtype, frames.device)[None]
 
-    def body(xx, lp):
+    def body(xx, lp, axes):
+        lp = fsdp_gather(lp, axes)
         h = apply_norm(lp["ln1"], xx, cfg)
         xx = xx + attn.attn_forward(lp["self"], h, cfg, kind="bidir")
         h = apply_norm(lp["ln2"], xx, cfg)
         return xx + apply_mlp(lp["ffn"], h, cfg)
 
     body = _remat_wrap(body, cfg)
-    for lp in _unstack(params["enc"], cfg.enc_layers):
-        x = body(x, lp)
+    for lp, axes in _layers(params, cfg, "enc"):
+        x = body(x, lp, axes)
     return apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -86,8 +102,10 @@ def _embed_tokens(params, tokens, cfg):
 
 
 def _head(params, x, cfg):
-    x = apply_norm(params["dec_norm"], x, cfg)
-    return mask_padded_logits(x @ params["lm_head"], cfg)
+    """Logits over the vocab, under ``tp`` over the rank's block."""
+    x = enter_model(apply_norm(params["dec_norm"], x, cfg))
+    w = fsdp_gather_leaf(params["lm_head"], ("embed", "vocab"))
+    return mask_padded_logits(x @ w, cfg)
 
 
 def decode_full(params, tokens, enc_states, cfg):
@@ -95,7 +113,8 @@ def decode_full(params, tokens, enc_states, cfg):
     (B, S, V)."""
     x = _embed_tokens(params, tokens, cfg)
 
-    def body(xx, lp, enc):
+    def body(xx, lp, axes, enc):
+        lp = fsdp_gather(lp, axes)
         h = apply_norm(lp["ln1"], xx, cfg)
         xx = xx + attn.attn_forward(lp["self"], h, cfg, kind="causal")
         h = apply_norm(lp["ln_x"], xx, cfg)
@@ -105,8 +124,8 @@ def decode_full(params, tokens, enc_states, cfg):
         return xx + apply_mlp(lp["ffn"], h, cfg)
 
     body = _remat_wrap(body, cfg)
-    for lp in _unstack(params["dec"], cfg.dec_layers):
-        x = body(x, lp, enc_states)
+    for lp, axes in _layers(params, cfg, "dec"):
+        x = body(x, lp, axes, enc_states)
     return _head(params, x, cfg)
 
 
@@ -116,9 +135,7 @@ def loss(params, cfg, frames, tokens):
     0))``, fp32 scalars."""
     logits = decode_full(params, tokens, encode(params, frames, cfg), cfg)
     targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    ce = nll.mean()
+    ce = token_nll(logits, targets).mean()
     return ce, (ce, torch.zeros((), dtype=torch.float32, device=ce.device))
 
 
@@ -139,23 +156,25 @@ def prefill(params, tokens, frames, cfg, caches):
     cross caches are written in place where their length is the
     encoder's; JAX replaces them, so another length is replaced too."""
     enc = encode(params, frames, cfg)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     T = enc.shape[1]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hb = attn._head_block(cfg)
     x = _embed_tokens(params, tokens, cfg)
     pos = torch.arange(S, device=tokens.device)[None, :]
+    pos_enc = torch.arange(T, device=tokens.device)[None, :]
     cross = []
-    for li, lp in enumerate(_unstack(params["dec"], cfg.dec_layers)):
+    for li, (lp, axes) in enumerate(_layers(params, cfg, "dec")):
+        lp = fsdp_gather(lp, axes)
         h = apply_norm(lp["ln1"], x, cfg)
-        q, k, v = attn._project_qkv(lp["self"], h, h, cfg, pos, pos, 0.0)
+        q, k, v = attn._project_qkv(lp["self"], h, h, cfg, pos, pos, 0.0,
+                                    hb)
         x = x + attn.attn_forward(lp["self"], h, cfg, kind="causal",
                                   qkv=(q, k, v))
         caches["self_k"][li, :, :S] = k.to(caches["self_k"].dtype)
         caches["self_v"][li, :, :S] = v.to(caches["self_v"].dtype)
         h = apply_norm(lp["ln_x"], x, cfg)
-        qc = (h @ lp["cross"]["wq"]).reshape(B, S, H, hd)
-        ck = (enc @ lp["cross"]["wk"]).reshape(B, T, KV, hd)
-        cv = (enc @ lp["cross"]["wv"]).reshape(B, T, KV, hd)
+        qc, ck, cv = attn._project_qkv(lp["cross"], h, enc, cfg, pos,
+                                       pos_enc, 0.0, hb)
         x = x + attn.attn_forward(lp["cross"], h, cfg, kind="cross",
                                   qkv=(qc, ck, cv))
         h = apply_norm(lp["ln2"], x, cfg)
@@ -176,28 +195,32 @@ def decode_step(params, tokens, caches, pos, cfg):
     ``< min(pos + 1, max_len)``; the cross attention sees all ``enc_len``
     rows (``encdec.py:165-196``).  Returns ``(logits (B, 1, V),
     caches)``."""
-    require_replicated_weights(f"{cfg.name}: the decode step")
     B = tokens.shape[0]
-    H, hd = cfg.n_heads, cfg.head_dim
+    hb = attn._head_block(cfg)
     x = embed(params["embedding"], tokens, cfg) + sinusoid_at(
         pos, cfg.d_model, cfg.act_dtype)[:, None, :]
     L, T = caches["self_k"].shape[2], caches["cross_k"].shape[2]
     lengths = torch.clamp(pos + 1, max=L).to(torch.int32)
     enc_lengths = torch.full((B,), T, dtype=torch.int32, device=pos.device)
-    for li, lp in enumerate(_unstack(params["dec"], cfg.dec_layers)):
+    for li, (lp, axes) in enumerate(_layers(params, cfg, "dec")):
+        lp = fsdp_gather(lp, axes)
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = attn._project_qkv(lp["self"], h, h, cfg, pos[:, None],
-                                    pos[:, None], 0.0)
+                                    pos[:, None], 0.0, hb)
         sk, sv = caches["self_k"][li], caches["self_v"][li]
         attn.batched_cache_update(sk, k[:, 0], pos)
         attn.batched_cache_update(sv, v[:, 0], pos)
-        o = kops.decode_attention(q[:, 0].contiguous(), sk, sv, lengths)
-        x = x + o.reshape(B, 1, -1) @ lp["self"]["wo"]
-        h = apply_norm(lp["ln_x"], x, cfg)
-        qc = (h @ lp["cross"]["wq"]).reshape(B, H, hd)
-        oc = kops.decode_attention(qc, caches["cross_k"][li],
-                                   caches["cross_v"][li], enc_lengths)
-        x = x + oc.reshape(B, 1, -1) @ lp["cross"]["wo"]
+        o = kops.decode_attention(q[:, 0].contiguous(),
+                                  attn._kv_heads(sk, hb),
+                                  attn._kv_heads(sv, hb), lengths)
+        x = x + attn._out_proj(lp["self"], o[:, None], hb)
+        h = enter_model(apply_norm(lp["ln_x"], x, cfg))
+        qc = attn._project_q(lp["cross"], h, cfg, None, 0.0, hb)[:, 0]
+        oc = kops.decode_attention(qc.contiguous(),
+                                   attn._kv_heads(caches["cross_k"][li], hb),
+                                   attn._kv_heads(caches["cross_v"][li], hb),
+                                   enc_lengths)
+        x = x + attn._out_proj(lp["cross"], oc[:, None], hb)
         h = apply_norm(lp["ln2"], x, cfg)
         x = x + apply_mlp(lp["ffn"], h, cfg)
     return _head(params, x, cfg), caches

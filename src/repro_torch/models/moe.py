@@ -17,12 +17,31 @@ each token's k picks, not a scatter-add, so a run's bf16 result does not
 depend on the order of atomics.  The router, the dispatch and the expert
 products are PyTorch ops, as the JAX package computes them in plain
 ``jnp`` outside any Pallas kernel.
+
+On a batch split over mesh axes (``core.sharding.batch_axes``: each rank
+holds its own rows), capacity, slots and the aux loss are the whole
+batch's, as JAX's GSPMD computes them: the ranks' (E,) counts of picks
+and of first picks are all-gathered, a pick's slot is its rank's offset
+(the picks of the ranks before it at that expert, the global token list
+being batch-major) plus its slot among the rank's own picks, and the aux
+loss takes the whole batch's first-pick density times this rank's mean
+router probability, so that the ranks' mean of it (the data-parallel
+step's weighting) is the whole batch's aux loss and so is its gradient.
+A rank's buffers then hold ``min(cap, T_local)`` slots an expert.  Under
+``tp`` (``core.sharding.tp_mesh``) each rank fills and runs its E / n
+experts' buffers; the router runs whole on every rank (its gradient is
+then whole too: the combine weights enter the region, so their gradient
+is summed over ``model`` before it reaches the router, and the aux loss
+is every rank's own), and the combine, with the shared experts' partial
+MLP, is summed over ``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
+from repro_torch.core.sharding import batch_axes, current_ctx, tp_mesh
 from repro_torch.models.layers import apply_mlp
 
 
@@ -42,48 +61,78 @@ def apply_moe(params, x, cfg):
     T = B * S
     dev = x.device
     xf = x.reshape(T, d)
+    tp = tp_mesh()
+    rows = batch_axes()
 
     logits = (xf @ params["router"]).float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                 # (T, k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    # load-balancing aux loss (Switch-style)
+    # picks and first picks an expert, and the same of the whole batch
+    flat_e = top_e.reshape(-1)                                  # (T*k,)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     first = torch.zeros(E, dtype=torch.float32, device=dev).scatter_add_(
         0, top_e[:, 0], torch.ones(T, dtype=torch.float32, device=dev))
-    density = first / T                   # the mean of one_hot(top_e[:, 0])
+    if rows:
+        mesh = current_ctx().mesh
+        every = collectives.all_gather(
+            torch.stack([counts, first.long()]), rows, tiled=False,
+            mesh=mesh)                                          # (n, 2, E)
+        before = every[:collectives.axis_index(rows, mesh), 0].sum(0)
+        T_all = T * every.shape[0]
+        first_all = every[:, 1].sum(0).float()
+        cap = capacity(T_all, cfg)
+        cap_buf = min(cap, T)
+    else:
+        before, T_all, first_all = 0, T, first
+        cap = cap_buf = capacity(T, cfg)
+
+    # load-balancing aux loss (Switch-style)
+    density = first_all / T_all           # the mean of one_hot(top_e[:, 0])
     aux = (density * probs.mean(0)).mean() * (E * E) * cfg.router_aux_weight
 
     # slot of each (token, pick) within its expert: its rank in a stable
     # sort of the flat expert ids, which keeps token order within an
     # expert.  A token's k experts are distinct, so the order of topk's
     # picks within a token does not change any slot.
-    cap = capacity(T, cfg)
-    flat_e = top_e.reshape(-1)                                  # (T*k,)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     slot_sorted = torch.arange(T * k, device=dev) - starts[flat_e[order]]
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    keep = slot < cap
-    dest = flat_e * cap + slot.clamp(0, cap - 1)
+    keep = (slot + before[flat_e] if rows else slot) < cap
+
+    # this rank's experts: all E, or under tp its block of E / n
+    if tp is None:
+        E_loc, e_rel, w_p, xs = E, flat_e, top_p, xf
+    else:
+        E_loc = params["w_gate"].shape[0]
+        e_rel = flat_e - collectives.axis_index("model", tp) * E_loc
+        keep = keep & (e_rel >= 0) & (e_rel < E_loc)
+        e_rel = e_rel.clamp(0, E_loc - 1)
+        w_p = collectives.tp_enter(top_p, "model", tp)
+        xs = collectives.tp_enter(xf, "model", tp)
+    dest = e_rel * cap_buf + slot.clamp(0, cap_buf - 1)
 
     # scatter the kept picks' tokens into (E*cap, d) expert buffers
     src = torch.arange(T * k, device=dev) // k
-    contrib = torch.where(keep[:, None], xf[src],
+    contrib = torch.where(keep[:, None], xs[src],
                           torch.zeros((), dtype=x.dtype, device=dev))
-    buf = torch.zeros(E * cap, d, dtype=x.dtype, device=dev).index_add_(
-        0, dest, contrib).view(E, cap, d)
+    buf = torch.zeros(E_loc * cap_buf, d, dtype=x.dtype,
+                      device=dev).index_add_(0, dest, contrib).view(
+        E_loc, cap_buf, d)
 
     # the experts' SwiGLU, batched over experts
     g = F.silu(torch.bmm(buf, params["w_gate"]))
     h = g * torch.bmm(buf, params["w_up"])
-    eout = torch.bmm(h, params["w_down"]).reshape(E * cap, d)
+    eout = torch.bmm(h, params["w_down"]).reshape(E_loc * cap_buf, d)
 
     # combine: each token sums its k weighted picks; a dropped pick weighs 0
-    w = (top_p.reshape(-1) * keep).to(x.dtype)
+    w = (w_p.reshape(-1) * keep).to(x.dtype)
     out = (eout[dest] * w[:, None]).view(T, k, d).sum(1).reshape(B, S, d)
     if cfg.n_shared_experts:
-        out = out + apply_mlp(params["shared"], x, cfg)
+        out = out + apply_mlp(params["shared"], x, cfg, reduce=tp is None)
+    if tp is not None:
+        out = collectives.tp_reduce(out, "model", tp)
     return out, aux

@@ -17,12 +17,24 @@ The gates are fp32 whatever the model's dtype, in JAX's order of
 operations; ``lambda`` stays fp32 in a bf16 tree.  State per layer:
 ``{"conv": (B, K-1, w), "h": (B, w)}``, both fp32; ``conv`` holds values
 already rounded to the activation dtype.
+
+Under ``tp`` (``core.sharding.tp_mesh``) a rank runs its block of the
+``lru`` channels: ``in_x`` / ``in_gate`` are column blocks and the conv
+is local; ``w_a`` / ``w_i`` are row blocks whose partial products are
+summed over ``model``, of which the rank keeps its own block
+(``collectives.tp_reduce_scatter``); ``b_a``, ``b_i`` and ``lambda`` are
+replicated and entered, the rank taking its block; the scan runs on the
+local channels and ``out``'s row block is summed over ``model``.  The
+state is the rank's channels, as JAX's cache specs split ``lru``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
+from repro_torch.core.sharding import col_block, enter_model, sum_model, \
+    tp_mesh
 from repro_torch.kernels import ops as kops
 
 RG_C = 8.0
@@ -46,9 +58,19 @@ def _conv1d_causal(x, w, b, prev=None):
 def _gates(params, xc):
     """a_t and the gated input, fp32 (``rglru.py:49-57``).  xc: (B,S,w)."""
     xf = xc.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
-    lam = params["lambda"]
+    mesh = tp_mesh()
+    if mesh is None:
+        r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
+        i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
+        lam = params["lambda"]
+    else:
+        c0, c1 = col_block(params["lambda"].shape[0], mesh)
+        own = {k: enter_model(params[k])[c0:c1]
+               for k in ("b_a", "b_i", "lambda")}
+        r, i = (torch.sigmoid(collectives.tp_reduce_scatter(
+            xf @ params[w].float(), "model", -1, mesh) + own[b].float())
+            for w, b in (("w_a", "b_a"), ("w_i", "b_i")))
+        lam = own["lambda"]
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     log_a = -RG_C * softplus * r                               # (B,S,w)
     a = torch.exp(log_a)
@@ -72,6 +94,7 @@ def rglru_forward(params, x, cfg, state=None):
     ``state["h"]``."""
     S = x.shape[1]
     K = cfg.conv_k_rg
+    x = enter_model(x)
     xb = x @ params["in_x"]
     gate = x @ params["in_gate"]
     xc = _conv1d_causal(xb, params["conv_w"], params["conv_b"],
@@ -80,7 +103,7 @@ def rglru_forward(params, x, cfg, state=None):
     h0 = state["h"] if state is not None else None
     h_seq, h_fin = diag_scan(a, gated, h0)
     y = h_seq.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    out = y @ params["out"]
+    out = sum_model(y @ params["out"])
     if S >= K - 1:
         conv = xb[:, -(K - 1):]
     elif state is not None:
@@ -102,6 +125,7 @@ def init_rglru_state(cfg, batch: int, device):
 def rglru_decode(params, x, state, cfg):
     """Single-token step (``rglru.py:127-137``).  x: (B,1,d) -> (out
     (B,1,d), new_state)."""
+    x = enter_model(x)
     xb = x @ params["in_x"]
     gate = x @ params["in_gate"]
     conv_in = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)  # (B,K,w)
@@ -110,5 +134,5 @@ def rglru_decode(params, x, state, cfg):
     a, gated = _gates(params, xc)
     h = a[:, 0] * state["h"] + gated[:, 0]
     y = h[:, None].to(x.dtype) * F.gelu(gate, approximate="tanh")
-    out = y @ params["out"]
+    out = sum_model(y @ params["out"])
     return out, {"conv": conv_in[:, 1:].float(), "h": h}

@@ -9,12 +9,24 @@ a chunked ``associative_scan``; both compute the same recurrence.  A
 single-token step (:func:`ssm_decode`) has no kernel, in JAX too.
 
 State per layer: ``{"conv": (B, K-1, di), "h": (B, di, N)}``, fp32.
+
+Under ``tp`` (``core.sharding.tp_mesh``) a rank runs its block of the
+``inner`` channels: ``in_proj``'s columns hold ``[xs | z]``, so the
+rank's channels of both come from its block through a gather over
+``model`` (``sharding.gathered_columns``); conv, ``dt_proj``, ``A_log``,
+``D`` and the scan run on the local channels; ``x_proj``'s row block
+gives partial dt / B / C, summed over ``model`` and entered again (each
+rank uses them on its channels); ``out_proj``'s row block is summed over
+``model``.  The state is the rank's channels, as JAX's cache specs split
+``inner`` over ``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sharding import col_block, enter_model, \
+    gathered_columns, sum_model, tp_mesh
 from repro_torch.kernels import ops as kops
 
 
@@ -29,11 +41,25 @@ def _conv1d_causal(x, w, b):
     return out + b
 
 
+def _in_proj(params, x, cfg):
+    """xs and z (B,S,di each), or under tp the rank's channels of each."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return (x @ params["in_proj"]).chunk(2, dim=-1)
+    x = enter_model(x)
+    c0, c1 = col_block(cfg.d_inner, mesh)
+    di = cfg.d_inner
+    xs, z = gathered_columns(x, params["in_proj"],
+                             [(c0, c1), (di + c0, di + c1)], mesh)
+    return xs, z
+
+
 def _ssm_params(params, xc, cfg):
     """Per-token dt, B, C (fp32) and A (di,N) from the conv output xc
     (B,S,di) (``ssm.py:47-54``)."""
     N, dtr = cfg.ssm_state, cfg.dt_rank
-    proj = xc @ params["x_proj"]                       # (B,S,dtr+2N)
+    # under tp x_proj's row block: dt / B / C summed, then used in part
+    proj = enter_model(sum_model(xc @ params["x_proj"]))  # (B,S,dtr+2N)
     dt_in, Bc, Cc = torch.split(proj, [dtr, N, N], dim=-1)
     dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())            # (di,N)
@@ -54,7 +80,7 @@ def ssm_forward(params, x, cfg, state=None):
     ``state["h"]``."""
     S = x.shape[1]
     K = cfg.conv_k
-    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    xs, z = _in_proj(params, x, cfg)
     if state is not None:
         xs_ext = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
         conv_full = _conv1d_causal(xs_ext, params["conv_w"],
@@ -67,7 +93,7 @@ def ssm_forward(params, x, cfg, state=None):
     h0 = state["h"] if state is not None else None
     y, h_fin = selective_scan(xc, dt, Bc, Cc, A, params["D"], h0=h0)
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"]
+    out = sum_model(y @ params["out_proj"])
     if S >= K - 1:
         conv = xs[:, -(K - 1):].float()
     elif state is not None:
@@ -89,7 +115,7 @@ def init_ssm_state(cfg, batch: int, device):
 def ssm_decode(params, x, state, cfg):
     """Single-token step, plain torch (``ssm.py:148-164``).  x: (B,1,d)
     -> (out (B,1,d), new_state)."""
-    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)    # (B,1,di)
+    xs, z = _in_proj(params, x, cfg)                    # (B,1,di)
     conv_in = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)  # (B,K,di)
     xc = torch.einsum("bkd,kd->bd", conv_in, params["conv_w"]) + \
         params["conv_b"]
@@ -101,4 +127,5 @@ def ssm_decode(params, x, state, cfg):
     h = a_bar * state["h"] + b_bar
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0]) + xf * params["D"].float()
     y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ params["out_proj"], {"conv": conv_in[:, 1:].float(), "h": h}
+    return sum_model(y @ params["out_proj"]), \
+        {"conv": conv_in[:, 1:].float(), "h": h}

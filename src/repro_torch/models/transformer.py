@@ -45,8 +45,20 @@ The callers give every rank the whole batch.  Layers whose compute
 couples positions or rows raise there (kinds ``S`` and ``R``, MLA, and
 MoE, whose expert capacity and aux loss depend on the global token
 count: ROADMAP.md, Queue 1, item 14); any other pass runs whole on every
-rank, as JAX's does.  A weight-sharded policy (``tp``, ``fsdp_tp``)
-raises (item 14).
+rank, as JAX's does.
+
+Weight-sharded policies (``tp``, ``fsdp_tp``, JAX's defaults for serving
+and training): every layer kind computes on the rank's blocks of its
+leaves (``core.sharding``, ``models/layers.py``, ``attention.py``,
+``moe.py``, ``ssm.py``, ``rglru.py``), with the collectives autograd
+differentiates (``core.collectives.tp_*``); under ``fsdp_tp`` each
+layer's leaves are gathered over the data axes at the layer's start,
+inside its remat body (so they are freed after it and gathered again in
+the backward).  Each rank's activations are its own rows, replicated over
+``model``; the logits are the rank's block of the vocab
+(:func:`gather_logits` gathers a decode step's), and :func:`lm_loss` is a
+vocab-parallel cross entropy.  Attention caches are whole on every rank;
+the recurrent states of kinds ``S`` and ``R`` are the rank's channels.
 
 Training (``transformer.py:265-325``, ``:708-718``): :func:`forward` runs
 the backbone in mode ``"full"``, which keeps no cache and writes nothing
@@ -62,11 +74,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core import collectives
-from repro_torch.core.sharding import current_ctx, require_replicated_weights
+from repro_torch.core.sharding import (current_ctx, enter_model,
+                                       fsdp_active, fsdp_gather,
+                                       fsdp_gather_leaf, stack_axes, tp_mesh)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, embed, layer_norm,
-                                       mask_padded_logits, rms_norm, unembed)
+                                       mask_padded_logits, rms_norm,
+                                       token_nll, unembed)
+from repro_torch.models.weights import param_axes
 
 _NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item {}"
 
@@ -262,7 +278,8 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None,
         S = h.shape[1]
         positions = torch.arange(S, device=h.device)[None, :]
         q, k, v = attn._project_qkv(p["mixer"], h, h, cfg, positions,
-                                    positions, attn._rope_base(cfg, akind))
+                                    positions, attn._rope_base(cfg, akind),
+                                    attn._head_block(cfg))
         cache = attn.prefill_into_cache(None, k, v, cache, cfg, kind=akind)
         mix = attn.attn_forward(p["mixer"], h, cfg, kind=akind,
                                 qkv=(q, k, v))
@@ -336,8 +353,8 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
     (the module docstring) runs this rank's positions and returns the
     whole sequence's x, or with ``last`` each row's position from the rank
     that holds it (an all-gather of one row a rank)."""
-    require_replicated_weights(f"{cfg.name}: the model forward")
     seq = seqshard_mesh(cfg, x.shape[1], mode)
+    axes = stack_axes(param_axes(cfg)["groups"]) if fsdp_active() else None
     if seq is not None:
         S_loc = x.shape[1] // seq.shape["model"]
         off = collectives.axis_index("model", seq) * S_loc
@@ -346,11 +363,13 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
     for gi, g in enumerate(cfg.groups):
         reps = [_unstack(p, g.repeats) for p in params["groups"][gi]]
         if mode == "full":
-            def body(xx, rep_params, _pattern=g.pattern):
+            def body(xx, rep_params, _pattern=g.pattern, _gi=gi):
                 a_sum = 0.0
                 for pi, kind in enumerate(_pattern):
-                    xx, a, _ = apply_layer(rep_params[pi], xx, cfg, kind,
-                                           "full", None, None, seq=seq)
+                    lp = fsdp_gather(rep_params[pi],
+                                     axes and axes[_gi][pi])
+                    xx, a, _ = apply_layer(lp, xx, cfg, kind, "full", None,
+                                           None, seq=seq)
                     a_sum = a_sum + a
                 return xx, a_sum
 
@@ -363,8 +382,9 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
         for r in range(g.repeats):
             for pi, kind in enumerate(g.pattern):
                 layer_cache = {key: t[r] for key, t in gc[pi].items()}
-                x, _, new = apply_layer(reps[pi][r], x, cfg, kind, mode,
-                                        layer_cache, pos, bt, seq=seq)
+                lp = fsdp_gather(reps[pi][r], axes and axes[gi][pi])
+                x, _, new = apply_layer(lp, x, cfg, kind, mode, layer_cache,
+                                        pos, bt, seq=seq)
                 for key, view in layer_cache.items():
                     if new[key] is not view:
                         view.copy_(new[key])
@@ -383,7 +403,8 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
 def _head(params, x, cfg):
     if cfg.tie_embeddings:
         return unembed(params["embedding"], x, cfg)
-    logits = x @ params["lm_head"]
+    logits = enter_model(x) @ fsdp_gather_leaf(params["lm_head"],
+                                               ("embed", "vocab"))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return mask_padded_logits(logits, cfg)
@@ -411,8 +432,7 @@ def lm_loss(params, cfg, tokens, targets=None, embeds=None):
     logits, aux = forward(params, cfg, tokens=tokens, embeds=embeds)
     if targets is None:
         targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    nll = token_nll(logits, targets)
     mask = torch.ones_like(nll)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
@@ -457,6 +477,18 @@ def extend_paged(params, cfg, tokens, caches, pos0, bt, last_index):
     x = x[rows, last_index.long()][:, None]
     x = apply_norm(params["final_norm"], x, cfg)
     return _head(params, x, cfg), caches
+
+
+def gather_logits(logits):
+    """The whole vocab's logits from every rank's block of them (an
+    all-gather over ``model`` under ``tp``), ``logits`` itself otherwise:
+    a greedy step takes the argmax of the whole row.  Gather a decode
+    step's (B, 1, V), never a training step's (B, S, V)."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return logits
+    return collectives.all_gather(logits.contiguous(), "model", dim=-1,
+                                  mesh=mesh)
 
 
 def sample_tokens(logits, temperature: float = 0.0, generator=None):

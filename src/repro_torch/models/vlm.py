@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed
+from repro_torch.models.layers import embed, token_nll
 
 
 def mixed_embeds(params, cfg, patch_embeds, tokens):
@@ -27,9 +27,7 @@ def loss(params, cfg, patch_embeds, tokens):
     P = patch_embeds.shape[1]
     text_logits = logits[:, P:, :]
     targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
-    logp = torch.log_softmax(text_logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    l = torch.mean(nll)                                      # noqa: E741
+    l = torch.mean(token_nll(text_logits, targets))          # noqa: E741
     aux = torch.as_tensor(aux, dtype=torch.float32, device=l.device)
     return l + aux, (l, aux)
 

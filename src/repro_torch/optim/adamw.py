@@ -15,6 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -46,12 +47,29 @@ def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
     return torch.where(step < warmup, warm, cos)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)`` with the
     norm over every leaf in fp32 (``adamw.py:37-41``).  As JAX promotes a
-    bf16 gradient times the fp32 scale, the clipped leaves are fp32."""
+    bf16 gradient times the fp32 scale, the clipped leaves are fp32.
+
+    With ``shardings`` (a tree of ``core.sharding.NamedSharding`` beside
+    ``grads``: each leaf is this rank's block) every leaf counts once:
+    the sums of squares of the leaves that a spec splits over the same
+    mesh axes are added, and that sum is summed over those axes."""
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    if shardings is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in leaves))
+    else:
+        groups = {}
+        for g, s in zip(leaves, tree_leaves(shardings)):
+            axes = tuple(a for d in range(len(s.spec))
+                         for a in s.dim_axes(d))
+            part = torch.sum(torch.square(g.float()))
+            groups[axes] = groups[axes] + part if axes in groups else part
+        mesh = tree_leaves(shardings)[0].mesh
+        gn = torch.sqrt(sum(collectives.psum(v, axes, mesh) if axes else v
+                            for axes, v in groups.items()))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     clip = lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale  # noqa: E731
     return tree_map(clip, grads), gn

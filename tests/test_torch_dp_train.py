@@ -125,16 +125,28 @@ def test_data_parallel_steps_equal_jax_and_one_rank(runs):
 
 
 def test_refusals():
-    """MoE under data parallelism and ``tp`` / ``fsdp_tp`` name Queue 1
-    item 14, ``seqtp`` training Queue 2 item 12, before any collective."""
-    mesh = abstract_mesh((1, 2), ("data", "model"))
+    """MoE under data parallelism now runs (its capacity, slots and aux
+    loss from the whole batch: ``tests/test_torch_tp.py`` holds a (2, 2)
+    run against JAX's whole batch), here a step on rank 0 of a (1, 1)
+    mesh equal to the one-device step; ``tp`` / ``fsdp_tp`` build their
+    steps (item 14's tensor-parallel layers); ``seqtp`` training still
+    raises naming Queue 2 item 12, before any collective."""
     moe = reduced(get_config("qwen3-moe-30b-a3b"))
-    with pytest.raises(NotImplementedError, match="MoE.*Queue 1, item 14"):
-        steps.make_train_step(moe, mesh=mesh)
+    params = weights.init_params(moe, torch.Generator().manual_seed(0),
+                                 "cpu")
+    batch = {"tokens": torch.randint(0, moe.vocab, (2, 8), generator=(
+        torch.Generator().manual_seed(1)), dtype=torch.int32)}
+    one = abstract_mesh((1, 1), ("data", "model"), rank0=True)
+    got = steps.make_train_step(moe, mesh=one)(params, adamw_init(params),
+                                               batch)[2]
+    want = steps.make_train_step(moe)(params, adamw_init(params), batch)[2]
+    assert {k: float(v) for k, v in got.items()} == \
+        {k: float(v) for k, v in want.items()} and float(got["aux"]) > 0
+    mesh = abstract_mesh((1, 2), ("data", "model"))
     dense = reduced(get_config("internlm2-1.8b"))
     for policy in ("tp", "fsdp_tp"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 14"):
-            steps.make_train_step(dense, mesh=mesh, policy=policy)
+        assert callable(steps.make_train_step(dense, mesh=mesh,
+                                              policy=policy))
     with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
         steps.make_train_step(dense, mesh=mesh, policy="seqtp")
     # the batch is cut over every axis of "broadcast"'s batch rule

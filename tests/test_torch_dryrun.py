@@ -399,9 +399,12 @@ def test_flops_near_jax_cost_pass(kind, seq, batch):
 def test_run_cell_on_4x4_mesh():
     """Rank 0 of a (4, 4) mesh at full width: ``broadcast`` cells are ok
     (the train cell's gradients all-reduced over the 16 ranks, its
-    accumulation from the memory pass); the
-    default policies (``fsdp_tp`` for train, ``tp`` for serve) fail,
-    naming item 14, as JAX's ``run_cell`` reports a failing cell."""
+    accumulation from the memory pass); so are the default policies'
+    (``fsdp_tp`` for train, ``tp`` for serve: item 14's tensor-parallel
+    layers), whose serve cells all-reduce over ``model`` twice a layer
+    (attention's ``wo``, the MLP's ``w_down``) and once for the
+    embedding, and whose train cell also all-gathers each layer's leaves
+    over ``data`` (forward, and again in the remat backward)."""
     mesh = _mesh(4, 4)
     for shape in ("decode_32k", "prefill_32k", "train_4k"):
         res = dryrun_lib.run_cell("internlm2-1.8b", shape, mesh,
@@ -416,9 +419,20 @@ def test_run_cell_on_4x4_mesh():
         assert res.dominant in ("compute", "memory", "collective")
         assert 0 < res.useful_ratio <= 2.0
         assert (res.n_collectives > 0) == (shape == "train_4k")
-        bad = dryrun_lib.run_cell("internlm2-1.8b", shape, mesh)
-        assert not bad.ok and "Queue 1, item 14" in bad.error
-        assert bad.policy == ("fsdp_tp" if shape == "train_4k" else "tp")
+        dflt = dryrun_lib.run_cell("internlm2-1.8b", shape, mesh)
+        assert dflt.ok and not dflt.skipped, dflt.error
+        assert dflt.policy.split("+")[0] == ("fsdp_tp" if shape ==
+                                             "train_4k" else "tp")
+        assert dflt.flops_dev > 0 and dflt.temp_bytes_dev > 0
+        ops = dryrun_lib.LAST_OPS
+        if shape == "train_4k":
+            # 7 leaves a layer split over data, gathered in the forward
+            # and again in the remat backward; the table and lm_head once
+            assert ops["collective:all-gather"][0] == 2 * 7 * 24 + 2
+            assert ops["collective:all-reduce"][0] > 2 * (2 * 24 + 1)
+        else:
+            assert ops["collective:all-reduce"][0] == 2 * 24 + 1
+            assert "collective:all-gather" not in ops
     skip = dryrun_lib.run_cell("internlm2-1.8b", "long_500k", mesh)
     assert skip.ok and skip.skipped
 
@@ -446,9 +460,10 @@ def test_train_accum_from_the_memory_pass(monkeypatch):
 
 def test_cli_lines_exit_code_and_results(tmp_path, capsys):
     """JAX's CLI: an OK line and the cell's JSON, SKIP for a long-context
-    cell of a full-attention arch, FAIL naming item 14 and exit code 1
-    under the default policy; ``--verbose-hlo`` adds the per-op table;
-    a memory-only rerun keeps the cost numbers."""
+    cell of a full-attention arch, OK and exit code 0 under the default
+    policy (``fsdp_tp``, its all-reduces and all-gathers counted);
+    ``--verbose-hlo`` adds the per-op table; a memory-only rerun keeps
+    the cost numbers."""
     out = str(tmp_path)
     rc = dryrun.main(["--arch", "internlm2-1.8b", "--shape", "train_4k",
                       "--policy", "broadcast", "--out", out,
@@ -473,8 +488,12 @@ def test_cli_lines_exit_code_and_results(tmp_path, capsys):
     rc = dryrun.main(["--arch", "internlm2-1.8b", "--shape", "train_4k",
                       "--out", out])
     text = capsys.readouterr().out
-    assert rc == 1 and text.startswith("FAIL ") and "item 14" in text
-    assert "failures: 1" in text
+    assert rc == 0 and text.startswith("OK ") and "pol=fsdp_tp" in text
+    assert "failures: 0" in text
+    saved = json.loads((tmp_path / "internlm2-1.8b__train_4k__16x16__"
+                        "fsdp_tp.json").read_text())
+    assert saved["ok"] and saved["coll_by_op"]["all-reduce"] > 0 and \
+        saved["coll_by_op"]["all-gather"] > 0
 
 
 # ----------------------------------------------------------------------

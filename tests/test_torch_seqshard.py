@@ -254,10 +254,31 @@ def test_coupled_layer_kinds_raise_under_seqtp(arch):
 
 @pytest.mark.parametrize("policy", ["tp", "fsdp_tp"])
 def test_weight_sharded_policies_raise_naming_item_14(policy):
+    """Item 14's first half is done: under ``tp`` / ``fsdp_tp`` the
+    forward computes on rank 0's blocks of a (1, 2) mesh (fake tensors:
+    the collectives' count route, no process group) and gives its half of
+    the vocab's logits, with one all-reduce over ``model`` for the
+    embedding and two a layer (attention's ``wo``, the MLP's
+    ``w_down``); nothing names item 14 any more.  The multi-rank results
+    against JAX are ``tests/test_torch_tp.py``'s."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import flags
+    from repro_torch.core.broadcast import placement_shardings
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.models import weights
+    from repro_torch.tree import tree_map
     cfg = reduced(get_config("internlm2-1.8b"))
-    params = api.init(torch.Generator().manual_seed(0), cfg, "cpu")
-    with use_sharding(abstract_mesh((1, 2), ("data", "model")), policy):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 14"):
-            tfm.forward(params, cfg,
-                        tokens=torch.zeros((1, 4), dtype=torch.int32))
-    assert jax.devices()[0].platform == "cpu"
+    mesh = abstract_mesh((1, 2), ("data", "model"), rank0=True)
+    sh = placement_shardings(weights.param_axes(cfg), mesh, policy)
+    with FakeTensorMode():
+        params = tree_map(dryrun_lib._local_empty,
+                          weights.empty_params(cfg, "meta"), sh)
+        toks = torch.zeros((1, 4), dtype=torch.int32)
+        with use_sharding(mesh, policy), dryrun_lib.Counter() as c:
+            logits, _ = tfm.forward(params, cfg, tokens=toks)
+    assert tuple(logits.shape) == (1, 4, cfg.padded_vocab // 2)
+    assert flags.counted(logits)
+    layers = sum(g.repeats * len(g.pattern) for g in cfg.groups)
+    assert [(col["op"], col["group"]) for col in c.colls] == \
+        [("all-reduce", 2)] * (1 + 2 * layers)

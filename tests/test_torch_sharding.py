@@ -211,18 +211,44 @@ def test_nccl_with_more_ranks_than_cards_raises():
 
 
 def test_shard_checks_rank_and_refuses_weight_sharded_policies():
+    """``shard`` checks the rank under every policy and returns ``x``
+    (each rank holds its own rows already); under ``tp`` / ``fsdp_tp`` it
+    no longer refuses (item 14's tensor-parallel layers).  What a rank's
+    ``heads`` block computes at the production mesh's 16-way ``model``
+    axis: whole heads for internlm2-1.8b (one head, G_local 1), half a
+    head for gemma3-4b, 1.5 heads for starcoder2-3b (the two heads it
+    touches, both of one kv head), 160 of recurrentgemma-2b's 256
+    (MQA: kv head 0)."""
     m = tmesh.abstract_mesh((1, 2), ("data", "model"))
     x = torch.zeros(2, 3)
     assert sharding.shard(x, "batch", "embed") is x
-    for policy in ("broadcast", "seqtp"):
+    for policy in ("broadcast", "seqtp", "tp", "fsdp_tp"):
         with sharding.use_sharding(m, policy):
             assert sharding.shard(x, "batch", "embed") is x
             with pytest.raises(ValueError, match="vs rank 2"):
                 sharding.shard(x, "batch")
-    for policy in ("tp", "fsdp_tp"):
-        with sharding.use_sharding(m, policy):
-            with pytest.raises(NotImplementedError, match="item 14"):
-                sharding.shard(x, "batch", "embed")
+            assert (sharding.tp_mesh() is m) == (policy in ("tp",
+                                                            "fsdp_tp"))
+    prod = tmesh.abstract_mesh((16, 16), ("data", "model"), rank0=True)
+    for arch, want in (("internlm2-1.8b", (0, 128, 0, 1, 0, 1, False)),
+                       ("gemma3-4b", (0, 128, 0, 1, 0, 1, True)),
+                       ("starcoder2-3b", (0, 192, 0, 2, 0, 1, True)),
+                       ("recurrentgemma-2b", (0, 160, 0, 1, 0, 1, True))):
+        c = get_config(arch)
+        hb = sharding.head_block(c.n_heads, c.n_kv_heads, c.head_dim, prod)
+        assert (hb.c0, hb.c1, hb.h0, hb.h1, hb.kv0, hb.kv1, hb.cuts) == \
+            want, arch
+    # whole heads of one kv head keep their block; whole heads over two
+    # kv heads that end mid-group take whole groups (gathered q)
+    two = tmesh.abstract_mesh((1, 2), ("data", "model"), rank0=True)
+    two.coords = {"data": 0, "model": 1}
+    hb = sharding.head_block(6, 2, 16, two)          # heads 3..5, G 3
+    assert (hb.h0, hb.h1, hb.kv0, hb.kv1, hb.cuts) == (3, 6, 1, 2, False)
+    hb = sharding.head_block(6, 3, 16, two)          # heads 3..5, G 2
+    assert (hb.h0, hb.h1, hb.kv0, hb.kv1, hb.cuts) == (2, 6, 1, 3, True)
+    hb = sharding.head_block(4, 2, 16, tmesh.abstract_mesh(
+        (1, 4), ("data", "model"), rank0=True))
+    assert (hb.h0, hb.h1, hb.kv0, hb.kv1, hb.cuts) == (0, 1, 0, 1, False)
     assert sharding.current_ctx() is None
     with pytest.raises(ValueError, match="unknown policy"):
         sharding._rules("zero3", ("data",))

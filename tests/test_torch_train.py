@@ -205,20 +205,32 @@ def test_cli_resumed_run_equals_an_uninterrupted_one(tmp_path, capsys):
 def test_cli_flags_and_refusals(tmp_path):
     """JAX's flags: ``--reduced`` cannot be turned off (store_true with
     default True); ``--policy seqtp`` raises naming Queue 2 item 12 (the
-    flash backward at a query offset), ``tp`` and ``fsdp_tp`` Queue 1
-    item 14 (the tensor-parallel layers), ``--production-mesh`` on a world
-    of one rank raises (it needs 256); the checkpoint holds JAX's
+    flash backward at a query offset); ``tp`` and ``fsdp_tp`` train (on
+    one rank the mesh (1, 1), as JAX's driver makes it) the steps of
+    ``broadcast``, and a checkpoint of either resumes under the other
+    (checkpoints hold whole leaves); ``--production-mesh`` on a world of
+    one rank raises (it needs 256); the checkpoint holds JAX's
     ``params`` / ``opt`` layout."""
     args = train.build_parser().parse_args([])
     assert args.reduced is True and args.device == "cuda"
     assert (args.steps, args.batch, args.seq, args.lr, args.ckpt_every,
             args.warmup, args.policy, args.backend) == \
         (50, 8, 128, 3e-4, 25, 100, "broadcast", None)
-    for bad, match in ((["--policy", "seqtp"], "Queue 2, item 12"),
-                       (["--policy", "tp"], "Queue 1, item 14"),
-                       (["--policy", "fsdp_tp"], "Queue 1, item 14")):
-        with pytest.raises(NotImplementedError, match=match):
-            train.main(["--device", "cpu", *bad])
+    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+        train.main(["--device", "cpu", "--policy", "seqtp"])
+    run = ["--device", "cpu", "--batch", "2", "--seq", "16"]
+    loss = {}
+    for policy in ("broadcast", "tp", "fsdp_tp"):
+        out = train.main([*run, "--steps", "2", "--policy", policy,
+                          "--ckpt-dir", str(tmp_path / policy)])
+        loss[policy] = [h["loss"] for h in out["history"]]
+        assert len(loss[policy]) == 2
+    for policy in ("tp", "fsdp_tp"):
+        np.testing.assert_allclose(loss[policy], loss["broadcast"],
+                                   rtol=RTOL)
+    out = train.main([*run, "--steps", "3", "--policy", "fsdp_tp",
+                      "--ckpt-dir", str(tmp_path / "tp")])
+    assert out["start"] == 2 and len(out["history"]) == 1
     with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
         train.main(["--device", "cpu", "--production-mesh",
                     "--ckpt-dir", str(tmp_path / "pm")])

@@ -301,3 +301,203 @@ def dp_rank(rank, path, case):
     flat = lambda t: {k: v.numpy() for k, v in  # noqa: E731
                       flatten_with_paths(t).items()}
     return out, flat(params), flat(opt.m), flat(opt.v)
+
+
+#: name -> (arch, overrides) of the tensor-parallel tests' two-layer
+#: reduced configs: each layer kind and MLP kind once; "cut" has 2 heads
+#: of 16, so a (1, 4) mesh's column block holds half a head
+TP_CASES = {
+    "internlm2": ("internlm2-1.8b", {"groups": (("A",), 2)}),
+    "cut": ("internlm2-1.8b", {"groups": (("A",), 2), "n_heads": 2,
+                               "n_kv_heads": 1}),
+    "starcoder2": ("starcoder2-3b", {"groups": (("A",), 2)}),
+    "gemma3": ("gemma3-4b", {"groups": (("L", "G"), 1)}),
+    "qwen3moe": ("qwen3-moe-30b-a3b", {"groups": (("M",), 2)}),
+    "deepseek": ("deepseek-v2-lite-16b", {}),
+    "mamba": ("falcon-mamba-7b", {"groups": (("S",), 2)}),
+    "rgemma": ("recurrentgemma-2b", {"groups": (("R", "L"), 1)}),
+    "whisper": ("whisper-base", {"enc_layers": 2, "dec_layers": 2,
+                                 "n_layers": 4}),
+    "internvl2": ("internvl2-1b", {"groups": (("A",), 2)}),
+}
+#: prompt rows and length, cache length and greedy decode steps of a case
+TP_B, TP_S, TP_MAX, TP_DECODE = 4, 20, 28, 6
+TP_HYPER = dict(lr=1e-2, warmup=1, total=10)
+
+
+def tp_config(case):
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    arch, over = TP_CASES[case]
+    over = dict(over)
+    if "groups" in over:
+        pattern, reps = over["groups"]
+        over["groups"] = (ScanGroup(pattern, reps),)
+        over["n_layers"] = len(pattern) * reps
+    return reduced(get_config(arch)).replace(**over)
+
+
+def tp_inputs(d, case):
+    """``case``'s config, its whole weights and its three batches."""
+    from repro_torch.models import weights
+    cfg = tp_config(case)
+    pre = case + "/p/"
+    params = weights.params_from_numpy(
+        {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}, cfg,
+        "cpu")
+    batches = [{k.split("/")[-1]: _t(v) for k, v in d.items()
+                if k.startswith(f"{case}/b{i}/")} for i in range(3)]
+    return cfg, params, batches
+
+
+def tp_run(cfg, params, batches, mesh=None, policy=None):
+    """Every entry point of ``cfg`` on ``batches`` under ``policy`` on
+    ``mesh`` (one device where None): the forward's logits, the loss and
+    every gradient of the first batch, a prefill and TP_DECODE greedy
+    decode steps (their tokens and the caches after), and three AdamW
+    steps (their metrics, the parameters and moments after).  Every
+    tensor comes back whole: the ranks' blocks gathered."""
+    import contextlib
+
+    from repro_torch.core import collectives
+    from repro_torch.core.broadcast import place_params, unshard
+    from repro_torch.core.sharding import current_ctx, use_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import api, weights
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    flat = lambda t: {k: v.detach().float().numpy() for k, v in  # noqa: E731
+                      flatten_with_paths(t).items()}
+    batch = batches[0]
+    rows_of = lambda b: b  # noqa: E731
+    whole_rows = lambda t: t  # noqa: E731
+    sh, placed = None, params
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        placed, sh = place_params(params, weights.param_axes(cfg), mesh,
+                                  policy)
+        scope = use_sharding(mesh, policy)
+    out = {}
+    with scope:
+        if mesh is not None:
+            rows = steps._row_axes(current_ctx())
+            rows_of = lambda b: steps.local_rows(  # noqa: E731
+                b, mesh, policy, rows)
+            whole_rows = lambda t: collectives.all_gather(  # noqa: E731
+                t.contiguous(), rows, mesh=mesh) if rows else t
+        mine = rows_of(batch)
+        with torch.no_grad():
+            out["logits"] = whole_rows(tfm.gather_logits(
+                api.forward_fn(placed, cfg, mine))).numpy()
+        (loss, _), grads = steps.value_and_grad(placed, cfg, mine)
+        if mesh is not None:
+            grads, _ = steps._mesh_grads(grads, cfg, current_ctx())
+            grads = unshard(grads, sh)
+            if rows:
+                loss = collectives.psum(loss / mesh.axis_size(rows), rows,
+                                        mesh)
+        out["loss"], out["grads"] = float(loss), flat(grads)
+        out.update(_tp_serve(cfg, placed, mine, mesh, policy, rows_of,
+                             whole_rows))
+        opt = adamw_init(placed)
+        fn = steps.make_train_step(cfg, mesh=mesh, policy=policy or
+                                   "broadcast", **TP_HYPER)
+        out["metrics"] = []
+        for b in batches:
+            placed, opt, m = fn(placed, opt, b)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            placed, m1, v1 = (unshard(t, sh) for t in (placed, opt.m, opt.v))
+        else:
+            m1, v1 = opt.m, opt.v
+        out["final"] = (flat(placed), flat(m1), flat(v1))
+    return out
+
+
+def _tp_serve(cfg, params, batch, mesh, policy, rows_of, whole_rows):
+    """A prefill and TP_DECODE greedy steps of ``batch`` (this rank's
+    rows): the tokens of every row, and the caches after, whole."""
+    from repro_torch.core.broadcast import unshard
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import flatten_with_paths, tree_map
+    B = TP_B
+    enc = batch["frames"].shape[1] if "frames" in batch else 0
+    caches = api.init_caches(cfg, B, TP_MAX, enc_len=enc, device="cpu")
+    sh = None
+    if mesh is not None:
+        sh = steps.cache_specs(cfg, mesh, TP_MAX, B, policy)
+        caches = tree_map(lambda t, s: s.local_slice(t).contiguous(),
+                          caches, sh)
+    with torch.no_grad():
+        logits, caches = api.prefill_fn(params, cfg, batch, caches)
+        tok = torch.argmax(whole_rows(tfm.gather_logits(logits))[:, -1],
+                           -1).to(torch.int32)
+        pos = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                          if "patches" in batch else 0)
+        toks = [tok]
+        for i in range(TP_DECODE):
+            step = rows_of({"tokens": tok[:, None], "pos": torch.full(
+                (B,), pos + i, dtype=torch.int32)})
+            logits, caches = api.decode_fn(params, cfg, step, caches)
+            tok = torch.argmax(whole_rows(tfm.gather_logits(logits))[:, 0],
+                               -1).to(torch.int32)
+            toks.append(tok)
+        if sh is not None:
+            caches = unshard(caches, sh)
+    return {"tokens": torch.stack(toks, 1).numpy(),
+            "caches": {k: v.float().numpy() for k, v in
+                       flatten_with_paths(caches).items()}}
+
+
+def tp_rank(rank, path, shapes, cases, policies):
+    """Each of ``cases`` under each of ``policies`` on each mesh of
+    ``shapes`` over ("data", "model"), in turn, over the first ranks of
+    the world: :func:`tp_run`'s results by shape, from rank 0 (every rank
+    of a mesh computes them: the gathers are collective)."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    d = _load(path)
+    out = {}
+    for shape in shapes:
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        if not mesh.is_member:
+            continue
+        for case in cases:
+            cfg, params, batches = tp_inputs(d, case)
+            for policy in policies:
+                out[shape, case, policy] = tp_run(cfg, params, batches, mesh,
+                                                  policy)
+    return out if rank == 0 else None
+
+
+def tp_count_rank(rank, arch, kinds):
+    """The reduced ``arch``'s ``tp`` cells of ``kinds`` (ShapeCase B 2 x S
+    16) built by the dry run on a real (1, 2) mesh, their leaves and
+    inputs filled with seeded values, each step run once on real tensors
+    under ``dryrun_lib.counting``: its FLOPs, kernel calls and
+    collectives, from rank 0."""
+    from repro_torch.configs import base, get_config, reduced
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = compat_make_mesh((1, 2), ("data", "model"))
+    cfg = reduced(get_config(arch))
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for kind in kinds:
+        sc = base.ShapeCase(kind, 16, 2, kind)
+        fn, args, _, _, _, rules = dryrun_lib.build_cell(cfg, sc, mesh, "tp")
+        for t in tree_leaves(args):
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=g) * 0.02)
+            else:
+                t.zero_()
+        with use_sharding(mesh, "tp", rules=rules), torch.no_grad(), \
+                dryrun_lib.counting() as (fc, c):
+            fn(*args)
+        out[kind] = {"flops": dryrun_lib.step_flops(fc, c),
+                     "launches": c.launches(), "colls": c.colls}
+    return out if rank == 0 else None
