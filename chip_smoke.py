@@ -42,11 +42,14 @@ phase ends on a line of its own with its wall time
    registers and spills for the two wgmma attention kernels, the fp32
    flash and extend kernels on the CUDA cores, the split-key decode
    kernel of both decode sources (each at hd 16-256), the pair
-   score's 3xTF32 wgmma kernel, the three scan kernels (the single
-   walk, the chunked scan, the fused selective scan) and the MLA decode
-   (bf16 and fp32 at rank 512 / rope 64, fp32 at 32 / 8), with flash's
-   instantiations at (q/k, v) (192, 128) (wgmma and fp32) and (24, 16)
-   (fp32); a spill fails the run;
+   score's 3xTF32 wgmma kernel, the scan kernels (the single walk, the
+   chunked scan and its backward, the fused selective scan, serving and
+   checkpointing, its backward and the backward's sums) and the MLA
+   decode (bf16 and fp32 at rank 512 / rope 64, fp32 at 32 / 8), with
+   flash's instantiations, forward and backward, at (q/k, v) (192, 128)
+   (wgmma and fp32) and (24, 16) (fp32), the bf16 backward's shared
+   memory equal to ``kernels/flash_bwd_plan.py``'s; a spill fails the
+   run;
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -162,6 +165,25 @@ phase ends on a line of its own with its wall time
    internlm2-1.8b's heads and gemma3-4b's local heads on a halo (window
    1,024, S 1,024 over T 2,048), with the bf16 rule, controls, times,
    bounds and SDPA (lower-right causal; the window's band as a mask);
+   last, the backwards the recurrent and MLA families train through,
+   each against autograd through its plain version in fp32, each
+   gradient's two readings within its limit and a second call bit for
+   bit: the N = 1 scan's (``ops.linear_scan``) at recurrentgemma-2b's
+   training shape (B 2 x S 1024 x w 2560), at B 1 x S 1000 (off the
+   plan's chunk), S 17 and w 2559, h0 given, within SCAN_GRAD_REL; the
+   fused selective scan's (``ops.ssm_scan``) on a grid of N (3, 8, 32)
+   and at falcon-mamba-7b's training shape (B 4 x S 1024 x di 8192 x N
+   16), at B 1 x S 1000 and with h0 given (B 2 x S 256), within
+   SCAN_GRAD_REL, with the peak allocation of a forward and backward;
+   each with the control (the adjoint's carry dropped at every chunk)
+   that must exceed the limit, timed beside its bound, the plain
+   version's autograd and the torch.cumsum yardstick; then flash's at
+   MLA's (q/k, v) pairs: (192, 128) bf16 at deepseek-v2-lite-16b's
+   training shape (B 4, S 1024, H = KV = 16) and at the tiles' edges (S
+   1, 63, 64, 65, 129, 200; G 1, 2; bidirectional), in fp32 at (192,
+   128) and (24, 16), within GRAD_REL, with the mask-widening control,
+   timed beside its bound, the plain version's autograd and SDPA's
+   backward under the fastest backend that takes the widths;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -324,8 +346,17 @@ phase ends on a line of its own with its wall time
    increase, the roofline terms and the step's share of the bf16 peak
    printed (over the step's host time and the profiled step's device
    busy time); then a run resumed from the step-4 checkpoint that must give
-   step 5's loss bit for bit; (c) the selective scan on inputs that
-   require grad raises;
+   step 5's loss bit for bit; (c) the recurrent and MLA families: (i)
+   the fp32 reduced falcon-mamba-7b (2 layers), recurrentgemma-2b ((R,
+   R, L) + (R, R)) and deepseek-v2-lite-16b (D + M) each take 3 AdamW
+   steps through the kernels and the same 3 through the plain versions
+   (TRAIN_RTOL; every gradient finite and non-zero; exact launches),
+   (ii) each at full width through ``steps.make_train_step`` (bf16
+   parameters, fp32 moments; falcon-mamba-7b 16 of 64 layers at B 4 x S
+   1024, recurrentgemma-2b 17 of 26 ((R, R, L) x 5 + (R, R)) at B 2 x S
+   1024, deepseek-v2-lite-16b its dense layer and 3 of 26 MLA + MoE
+   layers at B 4 x S 1024; each cut where 80 GB forces it), 4 steps: loss, grad norm, ms a step, tokens/s, peak against the
+   prediction, each kernel's launches a step exact, no plain call;
 10. whisper-base at full width (6 + 6 layers, d_model 512, 8 heads of 64,
    vocab 51,865 padded to 51,968, 97,318,912 parameters, seeded bf16
    weights, seeded fp32 stub frames of 1,500 rows): (a) the serve through
@@ -647,40 +678,53 @@ def _simt_usage(logs) -> str:
 
 
 def _bwd_usage(logs, lib) -> str:
-    """The flash backward's tile kernels at every head dim: bf16 on the
-    tensor cores (``flash_bwd_dkdv_sm90_kernel``,
-    ``flash_bwd_dq_sm90_kernel``), fp32 on the CUDA cores
-    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``); each must have a
-    report and no spill.  The bf16 dK / dV kernel moves
-    registers between its warpgroups with setmaxnreg (128 x 40 + 256 x 232
-    of a pool of 384 x 168), so ptxas must give it exactly 168 a thread: a
-    smaller pool would leave its consumers waiting for registers forever,
-    so the run stops before any launch.  Shown: registers at every head
-    dim beside the dynamic shared memory each bf16 kernel asks for
-    (``repro_flash_bwd_smem``), and whether ptxas serialised a wgmma."""
-    from repro_torch.kernels import HEAD_DIMS
+    """The flash backward's tile kernels at every head dim and MLA's (q/k,
+    v) pairs: bf16 on the tensor cores (``flash_bwd_dkdv_sm90_kernel``,
+    ``flash_bwd_dq_sm90_kernel``; (192, 128) too), fp32 on the CUDA cores
+    (``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``; (192, 128) and
+    (24, 16) too); each must have a report and no spill.  The bf16 dK / dV
+    kernel moves registers between its warpgroups with setmaxnreg (128 x
+    40 + 256 x 232 of a pool of 384 x 168), so ptxas must give it exactly
+    168 a thread: a smaller pool would leave its consumers waiting for
+    registers forever, so the run stops before any launch.  Shown:
+    registers at every width beside the dynamic shared memory each bf16
+    kernel asks for (``repro_flash_bwd_smem``, which must be
+    ``kernels/flash_bwd_plan.py``'s mirror), and whether ptxas serialised
+    a wgmma."""
+    import torch
+    from repro_torch.kernels import FLASH_QK_V_DIMS, HEAD_DIMS
+    from repro_torch.kernels import flash_bwd_plan as fbp
     source = "flash_attention_bwd.cu"
     parts = []
     for kernel, dn, which in (("flash_bwd_dkdv_sm90_kernel", "bf16", 0),
                               ("flash_bwd_dq_sm90_kernel", "bf16", 1),
                               ("flash_bwd_dkdv_kernel", "fp32", None),
                               ("flash_bwd_dq_kernel", "fp32", None)):
-        found = {_dims(k)[0]: v for k, v in
+        found = {_dims(k): v for k, v in
                  _ptxas_reports(logs, source, kernel).items()}
-        check(sorted(found) == sorted(HEAD_DIMS),
-              f"{source}: ptxas reported {kernel} at hd {sorted(found)}, "
-              f"not {sorted(HEAD_DIMS)}")
-        regs = {hd: int(re.search(r"Used (\d+) registers", found[hd])[1])
-                for hd in HEAD_DIMS}
+        dtype = torch.bfloat16 if which is not None else torch.float32
+        want = sorted([(hd, hd) for hd in HEAD_DIMS] +
+                      [d for d, ts in FLASH_QK_V_DIMS.items() if dtype in ts])
+        check(sorted(found) == want,
+              f"{source}: ptxas reported {kernel} at (q/k, v) "
+              f"{sorted(found)}, not {want}")
+        regs = {d: int(re.search(r"Used (\d+) registers", found[d])[1])
+                for d in want}
         if kernel == "flash_bwd_dkdv_sm90_kernel":
             check(set(regs.values()) == {168},
                   f"{source}: {kernel} has {regs} registers a thread, not "
-                  f"168 at every hd: its setmaxnreg split (128 x 40 + 256 x "
-                  f"232) needs a pool of 384 x 168")
-        smem = "" if which is None else ", smem " + "/".join(
-            str(lib.repro_flash_bwd_smem(hd, which)) for hd in HEAD_DIMS)
-        parts.append(f"{kernel} ({dn}) registers at hd {HEAD_DIMS}: "
-                     f"{'/'.join(str(regs[hd]) for hd in HEAD_DIMS)}{smem}")
+                  f"168 at every width: its setmaxnreg split (128 x 40 + "
+                  f"256 x 232) needs a pool of 384 x 168")
+        smem = ""
+        if which is not None:
+            got = {d: lib.repro_flash_bwd_smem(*d, which) for d in want}
+            mirror = {d: (fbp.dq_smem if which else fbp.dkdv_smem)(*d)
+                      for d in want}
+            check(got == mirror, f"{source}: {kernel}'s shared memory "
+                  f"{got} is not kernels/flash_bwd_plan.py's {mirror}")
+            smem = ", smem " + "/".join(str(got[d]) for d in want)
+        parts.append(f"{kernel} ({dn}) registers at (q/k, v) {want}: "
+                     f"{'/'.join(str(regs[d]) for d in want)}{smem}")
     serial = "wgmma.mma_async instructions are serialized" in logs[source]
     return "; ".join(parts) + f"; no spills; wgmma serialised by ptxas: " \
         f"{'yes' if serial else 'no'}"
@@ -763,14 +807,20 @@ def _pair_usage(logs, ps) -> str:
 
 
 def _scan_usage(logs) -> str:
-    """ptxas's report of the scan kernels: the single walk at V = 4 and 1
-    and the chunked scan with 16- and 4-byte staging (ssm_scan.cu), and
-    the fused selective scan at each lane count (selective_scan.cu); each
-    must have a report and no spill."""
+    """ptxas's report of the scan kernels: the single walk at V = 4 and 1,
+    the chunked scan and its backward with 16- and 4-byte staging
+    (ssm_scan.cu), and the fused selective scan at each lane count (the
+    serving and the checkpointing forward), its backward at 1-8 lanes and
+    the backward's sums (selective_scan.cu); each must have a report and
+    no spill."""
     parts = []
     for source, kernels in (("ssm_scan.cu", ("ssm_scan_kernel",
-                                             "ssm_scan_chunked_kernel")),
-                            ("selective_scan.cu", ("ssm_scan_fused_kernel",))):
+                                             "ssm_scan_chunked_kernel",
+                                             "linear_scan_bwd_kernel")),
+                            ("selective_scan.cu", (
+                                "ssm_scan_fused_kernel",
+                                "selective_scan_bwd_kernel",
+                                "selective_scan_bwd_reduce_kernel"))):
         check(source in logs, f"{source}: no nvcc report for its library")
         lines = logs[source].splitlines()
         for kernel in kernels:
@@ -1030,6 +1080,10 @@ def phase_kernels():
     # after every other check, on its own generator
     stats["flash_attention_offset"] = _offset_flash_checks(
         torch.Generator(device=dev).manual_seed(30), dev)
+    # the backwards of the recurrent and MLA families' training, after
+    # every other check, each on its own generator
+    _scan_bwd_checks(torch.Generator(device=dev).manual_seed(33), dev, stats)
+    _mla_bwd_checks(torch.Generator(device=dev).manual_seed(34), dev, stats)
     return stats
 
 
@@ -2337,7 +2391,7 @@ def _plain_grads(q, k, v, dout, causal, window, shift=0, t_end=None):
     sc = _plain_scores(q32, k32, causal, window, shift, t_end)
     lse = torch.logsumexp(sc, -1).permute(0, 3, 1, 2).reshape(B, S, H)
     out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(sc, -1),
-                       v32).reshape(B, S, H, hd)
+                       v32).reshape(B, S, H, v.shape[-1])
     grads = torch.autograd.grad(out, (q32, k32, v32), dout.float())
     return out.detach(), lse.detach(), grads
 
@@ -2492,6 +2546,25 @@ def _time_bwd_ms(forward, sets, iters: int = 10) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
+def _time_bwd_once_ms(forward, inputs, dout) -> float:
+    """Device ms of one eager backward, on CUDA events, after its forward:
+    for a plain version whose backward takes seconds (the selective
+    scan's, whose step-by-step writes into h_seq autograd undoes one
+    whole-tensor copy a step), where a captured graph's warm-up and
+    replays would cost minutes."""
+    import torch
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = forward(*leaves)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.autograd.grad(out, leaves, dout)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def _flash_bwd_checks(gen, dev, stats):
     """The flash backward (``ops.flash_attention`` under grad): at the
     training shape, timed beside its bound, the plain version's autograd
@@ -2643,6 +2716,352 @@ def _flash_bwd_checks(gen, dev, stats):
     print(f"[kernels] flash_attention_bwd at row 8a's shape (B 1, S 2048, H "
           f"8, KV 4, hd 256, window 1024, bf16): ms={ms_8a:.4f} "
           f"plain_ms={plain_8a:.4f} bound_ms={bound_8a:.4f}")
+
+
+# The flash backward at MLA's (q/k, v) pairs (deepseek-v2-lite-16b's
+# prefill: q/k 192 = nope 128 + rope 64, v 128, H = KV = 16; its reduced
+# config's 24 and 16): at the full-width training shape (B 4, S 1024,
+# causal, bf16), the wgmma tiles' edges (S 1, 63, 64, 65, 129, 200 at the
+# 64-key dK / dV tile and the 64-row row tile; G 1 and 2), bidirectional,
+# and in fp32 at both pairs, each against autograd through the plain
+# version within GRAD_REL, with the mask-widening control.
+MLA_BWD_TRAIN = (4, 1024, 16, 16, 192, 128)
+MLA_BWD_EDGE_S = (1, 63, 64, 65, 129, 200)
+
+
+def _sdpa_bwd_backends(sets, causal):
+    """SDPA's backward on ``sets`` ((q, k, v) in SDPA's (B, H, S, hd)
+    layout, dout) under each backend ``sdpa_kernel`` accepts for their
+    widths; returns (the fastest's ms, its name, the names that
+    refused)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times, refused = {}, []
+    for backend in [getattr(SDPBackend, b) for b in (
+            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+            "MATH") if hasattr(SDPBackend, b)]:
+        def fwd(q, k, v, b=backend):
+            with sdpa_kernel(b):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        try:
+            leaves = [t.detach().requires_grad_(True) for t in sets[0][0]]
+            torch.autograd.grad(fwd(*leaves), leaves, sets[0][1])
+            torch.cuda.synchronize()
+        except RuntimeError:
+            refused.append(backend.name)
+            continue
+        times[backend.name] = _time_bwd_ms(fwd, sets)
+    check(times, "SDPA backward: every backend refused")
+    best = min(times, key=times.get)
+    print(f"[kernels] SDPA backward by backend: "
+          f"{ {k: round(v, 4) for k, v in times.items()} }")
+    return times[best], best, refused
+
+
+def _mla_bwd_checks(gen, dev, stats):
+    """The flash backward at MLA's (q/k, v) pairs (``ops.flash_attention``
+    under grad): checks, the control, and times at the training shape
+    beside the bound, the plain version's autograd and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+
+    def inputs(B, S, H, KV, hd, hv, dtype):
+        return [_randn(gen, sh, dtype, dev) for sh in
+                ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hv),
+                 (B, S, H, hv))]
+
+    B, S, H, KV, hd, hv = MLA_BWD_TRAIN
+    sets = [inputs(B, S, H, KV, hd, hv, bf) for _ in range(3)]
+    err = _bwd_check(f"MLA training shape (B {B}, S {S}, H {H}, KV {KV}, "
+                     f"q/k {hd}, v {hv}) causal", *sets[0], True, 0)
+    n = 1
+    for S_ in MLA_BWD_EDGE_S:
+        _bwd_check(f"MLA edge S {S_} (H 4, KV 4, q/k 192, v 128) causal",
+                   *inputs(2, S_, 4, 4, 192, 128, bf), True, 0)
+        n += 1
+    _bwd_check("MLA G 2 (H 8, KV 4, S 129, q/k 192, v 128) causal",
+               *inputs(1, 129, 8, 4, 192, 128, bf), True, 0)
+    _bwd_check("MLA bidirectional (S 200, H 4, KV 4, q/k 192, v 128)",
+               *inputs(1, 200, 4, 4, 192, 128, bf), False, 0)
+    n += 2
+    for hd_, hv_, S_, causal in ((192, 128, 65, True), (24, 16, 65, True),
+                                 (24, 16, 37, False), (24, 16, 200, True)):
+        _bwd_check(f"MLA fp32 (S {S_}, H 4, KV 4, q/k {hd_}, v {hv_}) "
+                   f"causal={causal}",
+                   *inputs(2, S_, 4, 4, hd_, hv_, torch.float32), causal, 0)
+        n += 1
+    bf_limit = GRAD_REL["bfloat16"]
+    q, k, v, dout = inputs(2, 129, 4, 4, 192, 128, bf)
+    want = _plain_grads(q, k, v, dout, True, 0)[2]
+    ctl = _grad_readings(_plain_grads(q, k, v, dout, True, 0, shift=1)[2],
+                         want)
+    check(all(r[0] > bf_limit for r in ctl),
+          f"flash bwd MLA control: a mask one key too wide moves dq/dk/dv "
+          f"by only {_show(ctl)}; the limit {bf_limit} cannot see it")
+    torch.cuda.synchronize()
+    print(f"[kernels] flash bwd at MLA's pairs: {n} checks passed (bf16 "
+          f"within {bf_limit}, fp32 within {GRAD_REL['float32']} of each "
+          f"gradient's largest and mean magnitude, lse within {LSE_TOL}, "
+          f"each call repeated bit for bit); control (causal mask one key "
+          f"too wide, S 129): dq/dk/dv {_show(ctl)} of max (mean), beyond "
+          f"{bf_limit} as it must be")
+    kernel_sets = [(st[:3], st[3]) for st in sets]
+    sd_sets = [([t.transpose(1, 2).contiguous() for t in st[:3]],
+                st[3].transpose(1, 2).contiguous()) for st in sets]
+    library_ms, backend, refused = _sdpa_bwd_backends(sd_sets, True)
+    ms = _time_bwd_ms(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=True), kernel_sets)
+    plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, causal=True), kernel_sets, iters=3)
+    w = _work().flash_attention_bwd(B, S, S, H, KV, hd, hd_v=hv)
+    stats["flash_attention_bwd_mla"] = _stats(err, w, ms, plain_ms,
+                                              library_ms)
+    st = stats["flash_attention_bwd_mla"]
+    print(f"[kernels] flash_attention_bwd at MLA's training shape (B {B}, "
+          f"S {S}, H {H}, KV {KV}, q/k {hd}, v {hv}, causal, bf16): "
+          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (SDPA backward, {backend}; refused: "
+          f"{refused or 'none'}) bound_ms={st['bound_ms']:.4f} "
+          f"({st['bound_by']}: {w.flops / 1e9:.2f} GFLOP, "
+          f"{w.bytes / 1e6:.1f} MB)")
+
+
+# The scans' backward kernels (csrc/ssm_scan.cu linear_scan_bwd_kernel,
+# the RG-LRU's recurrence at N = 1; csrc/selective_scan.cu
+# selective_scan_bwd_kernel, Mamba's fused op) against autograd through
+# the plain versions in fp32 on the same inputs and upstream gradients:
+# GRAD_REL's two readings for each gradient alone (max and mean |kernel -
+# plain| over its largest and mean plain magnitude) within SCAN_GRAD_REL,
+# the scans' tolerance (SCAN_TOL, tests/test_kernels.py:199-200): the
+# kernels run the same fp32 recurrence, and only the order of the sums
+# (the look-back's carry chain, the channel and step sums in fixed order)
+# and the exponential (ex2.approx, 2^-22 relative) separate them.  The
+# control, the plain gradients with the adjoint's carry dropped at every
+# chunk boundary (the plan's chunk; the fused kernel's 32 steps), must
+# exceed that limit, or the checks could not see the carry.  Shapes: the
+# training shapes (recurrentgemma-2b B 2 x S 1024 x w 2560; falcon-mamba-
+# 7b B 4 x S 1024 x di 8192 x N 16), batch 1 with S off the chunk, h0
+# given, and a small grid of N.
+SCAN_GRAD_REL = SCAN_TOL
+LINEAR_BWD = ((2, 1024, 2560), (1, 1000, 2560), (1, 17, 2560),
+              (2, 300, 2559))
+SELECTIVE_BWD = ((4, 1024, 8192, 16, False), (1, 1000, 8192, 16, False),
+                 (2, 256, 8192, 16, True))
+SELECTIVE_BWD_GRID = ((2, 37, 64, 3), (2, 130, 64, 8), (1, 70, 200, 32))
+
+
+def _grads_of(fn, leaves, douts):
+    import torch
+    ls = [t.detach().clone().requires_grad_(True) for t in leaves]
+    return torch.autograd.grad(fn(*ls), ls, douts)
+
+
+def _plain_linear(a, b, h0):
+    from repro_torch.kernels import ref
+    hs, hT = ref.ssm_scan_ref(a[..., None], b[..., None], h0[..., None])
+    return hs[..., 0], hT[..., 0]
+
+
+def _linear_dropped(a, b, h0, gy, gT, chunk):
+    """The control: the plain adjoint of the N = 1 scan with its carry
+    dropped at every ``chunk``-step boundary."""
+    import torch
+    from repro_torch.kernels import ref
+    hs, _ = ref.ssm_scan_ref(a, b, h0)
+    S, das, dbs, dh0 = a.shape[1], [], [], None
+    for t0 in range(0, S, chunk):
+        t1 = min(t0 + chunk, S)
+        da, db, d0 = ref.linear_scan_bwd_ref(
+            a[:, t0:t1], hs[:, t0:t1], hs[:, t0 - 1] if t0 else h0,
+            gy[:, t0:t1], gT if t1 == S else torch.zeros_like(gT))
+        das.append(da)
+        dbs.append(db)
+        dh0 = d0 if t0 == 0 else dh0
+    return torch.cat(das, 1), torch.cat(dbs, 1), dh0
+
+
+def _selective_dropped(xc, dt, Bc, Cc, A, D, h0, gy, gT, chunk):
+    """The control: the plain adjoint of the selective scan with its carry
+    dropped at every ``chunk``-step boundary (each chunk's backward from
+    the true h at its start, the upstream h_final gradient in the last
+    chunk only)."""
+    import torch
+    from repro_torch.kernels import ref
+    a_bar = (dt[..., None] * A).exp()
+    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]
+    if h0 is None:
+        h0 = torch.zeros_like(gT)
+    hs, _ = ref.ssm_scan_ref(a_bar, b_bar, h0)
+    del a_bar, b_bar
+    S, parts = xc.shape[1], []
+    for t0 in range(0, S, chunk):
+        t1 = min(t0 + chunk, S)
+        sl = slice(t0, t1)
+        parts.append(ref.selective_scan_bwd_ref(
+            xc[:, sl], dt[:, sl], Bc[:, sl], Cc[:, sl], A, D,
+            hs[:, t0 - 1] if t0 else h0, gy[:, sl],
+            gT if t1 == S else torch.zeros_like(gT)))
+    del hs
+    cat = [torch.cat([p[i] for p in parts], 1) for i in range(4)]
+    return cat + [sum(p[4] for p in parts), sum(p[5] for p in parts),
+                  parts[0][6]]
+
+
+def _scan_bwd_check(name, kernel_fn, plain_fn, leaves, douts, control):
+    """The kernel's gradients against the plain version's autograd in fp32
+    at SCAN_GRAD_REL (both readings of each gradient), a second call bit
+    for bit, and ``control`` (the dropped-carry gradients, or None) past
+    the limit; returns (the largest absolute error, the readings, the
+    control's largest reading)."""
+    import torch
+    got = _grads_of(kernel_fn, leaves, douts)
+    again = _grads_of(kernel_fn, leaves, douts)
+    torch.cuda.synchronize()
+    want = _grads_of(plain_fn, leaves, douts)
+    readings = _grad_readings(got, want)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{name}: a non-finite gradient")
+    check(max(max(r) for r in readings) <= SCAN_GRAD_REL,
+          f"{name}: gradients off the plain fp32 autograd by "
+          f"{_show(readings)} of each one's largest (mean) magnitude "
+          f"(limit {SCAN_GRAD_REL})")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{name}: a second call gave other bits")
+    worst_ctl = None
+    if control is not None:
+        ctl = _grad_readings(control, want)
+        worst_ctl = max(r[0] for r in ctl)
+        check(worst_ctl > SCAN_GRAD_REL, f"{name}: the dropped-carry "
+              f"control reads {_show(ctl)}, within the limit "
+              f"{SCAN_GRAD_REL}: the check cannot see the carry")
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"[kernels] {name}: gradients {_show(readings)} of each one's max "
+          f"(mean) (limit {SCAN_GRAD_REL}); second call identical"
+          + (f"; control (carry dropped every chunk) max reading "
+             f"{worst_ctl:.2e}, rejected" if control is not None else ""))
+    return err, readings, worst_ctl
+
+
+def _scan_bwd_checks(gen, dev, stats):
+    """The two scan backwards: checks, controls and times (kernel, the
+    plain version's autograd, the torch.cumsum yardstick, the bound)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref, scan_plan
+    from repro_torch.kernels import ssm_scan as ss
+    rnd = lambda *s: _randn(gen, s, torch.float32, dev)  # noqa: E731
+
+    def linear_case(B, S, w):
+        a, b, h0 = (x[..., 0] for x in _scan_inputs(gen, dev, B, S, w, 1))
+        return [a, b, h0], (rnd(B, S, w), rnd(B, w))
+    worst = 0.0
+    for B, S, w in LINEAR_BWD:
+        leaves, douts = linear_case(B, S, w)
+        plan = scan_plan.bwd_plan(B, S, w, 1)
+        err, _, _ = _scan_bwd_check(
+            f"linear_scan_bwd ({B}, {S}, {w}) h0 given, plan {plan.n_chunks} "
+            f"chunks of {plan.chunk}", ops.linear_scan, _plain_linear,
+            leaves, douts, _linear_dropped(*leaves, *douts, plan.chunk)
+            if plan.n_chunks > 1 else None)
+        worst = max(worst, err)
+        if (B, S, w) == LINEAR_BWD[0]:
+            train_err, train = err, (leaves, douts)
+    B, S, w = LINEAR_BWD[0]
+    sets = [train] + [linear_case(B, S, w) for _ in range(2)]
+    ms = _time_bwd_ms(ops.linear_scan, [(ls, d) for ls, d in sets])
+    plain_ms = _time_bwd_ms(_plain_linear, [(ls, d) for ls, d in sets[:2]],
+                            iters=2)
+    yard = _time_ms([lambda d=d: torch.cumsum(d[0], dim=1) for _, d in sets])
+    stats["linear_scan_bwd"] = _stats(train_err, _work().linear_scan_bwd(
+        B, S, w, 1), ms, plain_ms, None)
+    st = stats["linear_scan_bwd"]
+    plan = scan_plan.bwd_plan(B, S, w, 1)
+    print(f"[kernels] linear_scan_bwd at recurrentgemma-2b's training shape "
+          f"({B}, {S}, {w}, 1) fp32: max_abs_err={train_err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{st['bound_ms']:.4f} ({st['bound_by']}: 20 bytes a step-channel, "
+          f"12 a channel) yardstick torch.cumsum(g, dim=1) ms={yard:.4f}; "
+          f"plan {plan.n_chunks} chunks of {plan.chunk} x {plan.n_tiles} "
+          f"tiles; library_ms null (no PyTorch call computes it); max abs "
+          f"error over the {len(LINEAR_BWD)} shapes {worst:.3e}")
+    del sets, train
+
+    def selective_case(B, S, di, N, with_h0, r=7):
+        leaves = [rnd(B, S, di), F.softplus(rnd(B, S, di)),
+                  rnd(B, S, r + 2 * N), -torch.exp(rnd(di, N)), rnd(di)]
+        if with_h0:
+            leaves.append(rnd(B, di, N))
+        return leaves, (rnd(B, S, di), rnd(B, di, N))
+
+    def split(fn, N, r=7):
+        def call(xc, dt, proj, A, D, h0=None):
+            _, Bc, Cc = torch.split(proj, [r, N, N], dim=-1)
+            return fn(xc, dt, Bc, Cc, A, D, h0)
+        return call
+
+    def control(leaves, douts, N, r=7):
+        xc, dt, proj, A, D = leaves[:5]
+        d = _selective_dropped(xc, dt, proj[..., r:r + N],
+                               proj[..., r + N:], A, D,
+                               leaves[5] if len(leaves) > 5 else None,
+                               *douts, ss.CHUNK)
+        dproj = torch.cat([torch.zeros_like(proj[..., :r]), d[2], d[3]], -1)
+        return [d[0], d[1], dproj, d[4], d[5]] + \
+            ([d[6]] if len(leaves) > 5 else [])
+    for B, S, di, N in SELECTIVE_BWD_GRID:
+        leaves, douts = selective_case(B, S, di, N, True)
+        _scan_bwd_check(f"selective_scan_bwd ({B}, {S}, {di}, {N}) h0 given",
+                        split(ops.ssm_scan, N), split(ref.selective_scan_ref,
+                                                      N),
+                        leaves, douts, control(leaves, douts, N)
+                        if S > ss.CHUNK else None)
+    clock = _sm_clock_hz()
+    for B, S, di, N, with_h0 in SELECTIVE_BWD:
+        leaves, douts = selective_case(B, S, di, N, with_h0)
+        err, _, _ = _scan_bwd_check(
+            f"selective_scan_bwd ({B}, {S}, {di}, {N}) h0 "
+            f"{'given' if with_h0 else 'none'}", split(ops.ssm_scan, N),
+            split(ref.selective_scan_ref, N), leaves, douts,
+            control(leaves, douts, N))
+        if (B, S, di, N, with_h0) != SELECTIVE_BWD[0]:
+            del leaves, douts
+            continue
+        sets = [(leaves, douts)] + [selective_case(B, S, di, N, with_h0)
+                                    for _ in range(2)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _grads_of(split(ops.ssm_scan, N), leaves, douts)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ms = _time_bwd_ms(split(ops.ssm_scan, N), sets)
+        plain_ms = _time_bwd_once_ms(split(ref.selective_scan_ref, N),
+                                     leaves, douts)
+        yard = _time_ms([lambda d=d: torch.cumsum(d[0], dim=1)
+                         for _, d in sets])
+        wk = _work().selective_scan_bwd(B, S, di, N)
+        stats["selective_scan_bwd"] = _stats(err, wk, ms, plain_ms, None,
+                                             clock_hz=clock)
+        st = stats["selective_scan_bwd"]
+        n_el = B * S * di * N
+        print(f"[kernels] selective_scan_bwd at falcon-mamba-7b's training "
+              f"shape ({B}, {S}, {di}, {N}) fp32: max_abs_err={err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+              f"{st['bound_ms']:.4f} ({st['bound_by']}; {wk.bytes / 1e9:.3f} "
+              f"GB, {wk.exps / 1e6:.0f} M exponentials at "
+              f"{clock / 1e6:.0f} MHz) yardstick torch.cumsum(gy, dim=1) "
+              f"ms={yard:.4f}; peak allocation of a forward and backward "
+              f"{peak / 2**20:.1f} MiB (a (B, S, di, N) fp32 tensor: "
+              f"{4 * n_el / 2**20:.1f} MiB); library_ms null (no PyTorch "
+              f"call computes it)")
+        check(peak < 4 * n_el, f"selective_scan_bwd: a forward and backward "
+              f"allocated {peak} bytes, a (B, S, di, N) fp32 tensor is "
+              f"{4 * n_el}")
+        del sets, leaves, douts
+    torch.cuda.empty_cache()
 
 
 # whisper-base's attention on the kernels (H 8, KV 8, hd 64: G 1): the
@@ -5755,8 +6174,9 @@ def phase_train(smi):
     through the kernels and the same 3 through the plain versions; (b)
     internlm2-1.8b at full width through ``launch/train.py``'s ``train``,
     (d) the dry run of one more step against it, its step-4 checkpoint
-    resumed; (c) a scan that requires grad raises.
-    Returns the launches of (b)."""
+    resumed; (c) falcon-mamba-7b, recurrentgemma-2b and
+    deepseek-v2-lite-16b, reduced kernel against plain and at full width
+    (:func:`_train_families`).  Returns the launches of (b) and (c)."""
     import gc
 
     import torch
@@ -5764,7 +6184,7 @@ def phase_train(smi):
     torch.cuda.empty_cache()
     _train_reduced()
     launches = _train_full_width(smi)
-    _train_refusal()
+    launches.update(_train_families(smi))
     return launches
 
 
@@ -6115,23 +6535,239 @@ def _profile_train_step(cfg, params, opt, dev):
     return busy_us / 1e3
 
 
-def _train_refusal():
-    """(c) the selective scan has no backward kernel: an input that
-    requires grad raises on the card, naming its item."""
+# phase 9 (c): the families that train through the scans' and MLA's
+# backward kernels.  (i) each one's fp32 reduced config (two layers deep
+# where it has one layer kind; the recurrent family keeps reduced()'s
+# (R, R, L) + (R, R), deepseek its D + M), 3 AdamW steps through the
+# kernels and the same 3 through the plain versions, within TRAIN_RTOL;
+# (ii) at full width (every configured width, vocab and expert count),
+# bf16 parameters, fp32 moments, seeded init_params and synthetic_tokens,
+# FAMILY_STEPS AdamW steps through steps.make_train_step; depth cut only
+# where 80 GB forces it: (arch, the scan groups kept or None for all, B,
+# S, activation bytes a token and layer reckoned from the tensors each
+# layer keeps for its backward).  The functional AdamW update holds the
+# old and the new bf16 weights and fp32 moments beside the bf16
+# gradients, 22 bytes a parameter, plus fp32 temporaries of the largest
+# leaf: recurrentgemma-2b's 26 layers (2.89 B parameters, 63.7 GB at the
+# update) ran out of an H100 80GB HBM3 (700 W) at their third update (the
+# step's freed activations left 18.6 GiB in pieces), so it keeps 17 (2.12
+# B, 46.7 GB).
+FAMILY_TRAIN = (
+    ("falcon-mamba-7b", ((("S",), 16),), 4, 1024, 245e3),
+    ("recurrentgemma-2b", ((("R", "R", "L"), 5), (("R", "R"), 1)), 2,
+     1024, 130e3),
+    ("deepseek-v2-lite-16b", ((("D",), 1), (("M",), 3)), 4, 1024, 150e3))
+FAMILY_STEPS = 4
+#: each layer kind's kernel launches a training step (forward and
+#: backward), remat none: Mamba's fused scan and its backward, the RG-LRU's
+#: scan at N = 1 and its backward, flash and its backward
+FAMILY_KERNELS = {"S": {"ssm_scan": 1, "selective_scan_bwd": 1},
+                  "R": {"ssm_scan": 1, "linear_scan_bwd": 1},
+                  "L": {"flash_attention": 1, "flash_attention_bwd": 1},
+                  "D": {"flash_attention": 1, "flash_attention_bwd": 1},
+                  "M": {"flash_attention": 1, "flash_attention_bwd": 1}}
+
+
+def _step_launches(cfg):
+    """Kernel launches a training step of ``cfg`` makes, by kernel."""
+    out = {}
+    for g in cfg.groups:
+        for kind in g.pattern:
+            for name, n in FAMILY_KERNELS[kind].items():
+                out[name] = out.get(name, 0) + n * g.repeats
+    return out
+
+
+def _train_families(smi):
+    """(c) falcon-mamba-7b, recurrentgemma-2b and deepseek-v2-lite-16b
+    train on the card: (i) reduced, kernel against plain; (ii) full
+    width.  Returns the main path's launches of the new backward
+    kernels."""
+    import gc
+
     import torch
+    launches = {}
+    for arch, groups, B, S, act in FAMILY_TRAIN:
+        _train_family_reduced(arch)
+        launches.update(_train_family_full(arch, groups, B, S, act, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _train_family_reduced(arch):
+    import numpy as np
+    import torch
+    from repro_torch import kernels
     from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths
     dev = torch.device("cuda", 0)
-    g = lambda *s: torch.rand(*s, device=dev).requires_grad_(True)  # noqa
-    raised = None
-    try:
-        ops.ssm_scan(g(1, 3, 4), g(1, 3, 4), g(1, 3, 2), g(1, 3, 2),
-                     -g(4, 2), g(4))
-    except NotImplementedError as e:
-        raised = str(e)
-    check(raised is not None and "Queue 2, item 9" in raised,
-          f"train (c): ssm_scan on inputs that require grad gave {raised!r}")
-    print(f"[train] (c) ops.ssm_scan on inputs that require grad raises: "
-          f"{raised}")
+    cfg, params0 = _reduced_two_layers(arch)
+    rng = np.random.RandomState(7)
+    toks = [torch.from_numpy(rng.randint(0, cfg.vocab, (4, 128)).astype(
+        np.int32)).to(dev) for _ in range(3)]
+    runs = {}
+    for plain in (False, True):
+        ops.reset_counts()
+        fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total=TRAIN_TOTAL)
+        params, opt, hist = params0, adamw_init(params0), []
+        with _forced_plain(plain):
+            (_, _), grads = steps.value_and_grad(params, cfg,
+                                                  {"tokens": toks[0]})
+            for tok in toks:
+                params, opt, m = fn(params, opt, {"tokens": tok})
+                hist.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        flat = flatten_with_paths(grads)
+        check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                  for g in flat.values()),
+              f"train (c)(i) {arch} {'plain' if plain else 'kernel'}: a "
+              f"gradient is zero or not finite: "
+              f"{[k for k, g in flat.items() if not (g != 0).any()]}")
+        runs[plain] = (hist, flatten_with_paths(params),
+                       flatten_with_paths(opt.m), flatten_with_paths(opt.v),
+                       dict(kernels.LAUNCHES), dict(ops.PLAIN_CALLS))
+    (kh, kp, km, kv, kl, _), (ph, pp, pm, pv, pl, pc) = runs[False], \
+        runs[True]
+    want = {k: 4 * n for k, n in _step_launches(cfg).items()}
+    got = {k: n for k, n in kl.items() if n}
+    check(got == want and sum(pl.values()) == 0,
+          f"train (c)(i) {arch}: kernel launches {got}, want {want} (the "
+          f"value_and_grad and 3 steps); plain launches {pl}, plain calls "
+          f"{pc}")
+    worst = {}
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        worst[key] = max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                         for a, b in zip(kh, ph))
+    check(max(worst.values()) <= TRAIN_RTOL,
+          f"train (c)(i) {arch}: kernel vs plain metrics off by {worst} "
+          f"(relative, limit {TRAIN_RTOL})")
+    off = {}
+    for label, got_, want_, atol in (
+            ("params", kp, pp, lambda w: 1e-3 * TRAIN_LR),
+            ("m", km, pm, lambda w: TRAIN_RTOL * w.abs().max().item()),
+            ("v", kv, pv, lambda w: TRAIN_RTOL * w.abs().max().item())):
+        for k, w in want_.items():
+            ok = torch.allclose(got_[k], w, rtol=TRAIN_RTOL, atol=atol(w))
+            check(ok, f"train (c)(i) {arch}: {label} {k} kernel vs plain "
+                      f"off by {(got_[k] - w).abs().max().item():.3e}")
+        off[label] = max((got_[k] - w).abs().max().item()
+                         for k, w in want_.items())
+    kinds = "+".join(f"{''.join(g.pattern)}x{g.repeats}" for g in cfg.groups)
+    print(f"[train] (c)(i) reduced fp32 {arch} ({kinds}), B 4 x S 128, 3 "
+          f"AdamW steps: losses {[round(h['loss'], 6) for h in kh]} "
+          f"through the kernels ({got} over the value_and_grad and 3 "
+          f"steps) and {[round(h['loss'], 6) for h in ph]} through the "
+          f"plain versions; relative gaps "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (limit "
+          f"{TRAIN_RTOL}); max |gap| params {off['params']:.2e}, m "
+          f"{off['m']:.2e}, v {off['v']:.2e}; every gradient finite and "
+          f"non-zero", flush=True)
+
+
+def _train_family_full(arch, groups, B, S, act, smi):
+    """(ii) ``arch`` at full width, ``groups`` of its layers (None: all),
+    B x S, FAMILY_STEPS AdamW steps through ``steps.make_train_step``:
+    each step's loss, grad norm and ms, tokens/s, the peak beside its
+    prediction (12 bytes a parameter, ``act`` bytes a token and layer, the
+    logits and their fp32 softmax at 10 bytes a token and vocabulary
+    entry), each kernel's launches a step exact, no plain call.  Returns
+    the launches of the new backwards."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ScanGroup, get_config
+    from repro_torch.data.text import synthetic_tokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.weights import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda", 0)
+    full = get_config(arch)
+    cfg = full
+    if groups is not None:
+        cfg = cfg.replace(groups=tuple(ScanGroup(pat, r) for pat, r in
+                                       groups),
+                          n_layers=sum(len(pat) * r for pat, r in groups))
+    check(cfg.param_dtype == "bfloat16" and cfg.remat == "none",
+          f"{arch}: params {cfg.param_dtype}, remat {cfg.remat}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    T = B * S
+    pred = (12 * n_params + T * cfg.n_layers * act + 10 * T * cfg.vocab)
+    opt = adamw_init(params)
+    fn = steps.make_train_step(cfg, warmup=2, total=FAMILY_STEPS)
+    data = [torch.from_numpy(t).to(dev) for t in synthetic_tokens(
+        0, B, S, cfg.vocab, n_batches=FAMILY_STEPS)]
+    mla = []
+    bwd = fa.flash_attention_bwd_bshd
+
+    def tally(q, k, v, *a, **kw):
+        mla.append(v.shape[-1] != q.shape[-1])
+        return bwd(q, k, v, *a, **kw)
+    ops.reset_counts()
+    hist = []
+    with mock.patch.object(fa, "flash_attention_bwd_bshd", tally):
+        for i, tok in enumerate(data):
+            t0 = time.perf_counter()
+            params, opt, m = fn(params, opt, {"tokens": tok})
+            rec = {k: float(v) for k, v in m.items()}
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+            hist.append(rec)
+            print(f"[train] (c)(ii) {arch} step {i}: loss={rec['loss']:.6f} "
+                  f"grad_norm={rec['grad_norm']:.4f} ms={rec['ms']:.1f}",
+                  flush=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    got = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    want = {k: FAMILY_STEPS * n for k, n in _step_launches(cfg).items()}
+    check(got == want and not any(ops.PLAIN_CALLS.values()),
+          f"train (c)(ii) {arch}: launches {got}, want {want}; plain calls "
+          f"{ops.PLAIN_CALLS}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"train (c)(ii) {arch}: non-finite {hist}")
+    steady = hist[1:]
+    tok_s = T * len(steady) / (sum(h["ms"] for h in steady) / 1e3)
+    per_step = {k: n // FAMILY_STEPS for k, n in got.items()}
+    n_mla = sum(mla)
+    kinds = "+".join(f"{''.join(g.pattern)}x{g.repeats}" for g in cfg.groups)
+    print(f"[train] (c)(ii) {arch} full width ({kinds} of "
+          f"{full.n_layers} layers; {n_params:,} parameters, bf16; fp32 "
+          f"moments), B {B} x S {S}, remat none, {FAMILY_STEPS} steps: "
+          f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}, "
+          f"{sum(h['ms'] for h in steady) / len(steady):.1f} ms a step over "
+          f"steps 1-{FAMILY_STEPS - 1} (step 0: {hist[0]['ms']:.1f} ms), "
+          f"{tok_s:,.0f} tokens/s; peak {peak / 2**30:.2f} GiB over the "
+          f"{held / 2**30:.2f} GiB held before (predicted {pred / 2**30:.2f} "
+          f"GiB: 12 B x {n_params / 1e9:.2f} B parameters "
+          f"{12 * n_params / 2**30:.2f} GiB + activations "
+          f"{T * cfg.n_layers * act / 2**30:.2f} + logits "
+          f"{10 * T * cfg.vocab / 2**30:.2f}; the update's 22 B a parameter: "
+          f"{22 * n_params / 2**30:.2f} GiB); launches a step {per_step} "
+          f"(exact; flash backward at MLA's (192, 128): "
+          f"{n_mla // FAMILY_STEPS} a step); no plain call; on {smi}",
+          flush=True)
+    out = {}
+    if "selective_scan_bwd" in got:
+        out["selective_scan_bwd"] = got["selective_scan_bwd"]
+    if "linear_scan_bwd" in got:
+        out["linear_scan_bwd"] = got["linear_scan_bwd"]
+    if n_mla:
+        out["flash_attention_bwd_mla"] = n_mla
+    del params, opt, data
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -7524,7 +8160,10 @@ def phase_list(stats, launches, smi):
               "ssm_scan": csrc + "ssm_scan.cu",
               "ssm_scan_fused": csrc + "selective_scan.cu",
               "mla_decode_attention": csrc + "mla_decode.cu",
-              "flash_attention_bwd": csrc + "flash_attention_bwd.cu"}
+              "flash_attention_bwd": csrc + "flash_attention_bwd.cu",
+              "flash_attention_bwd_mla": csrc + "flash_attention_bwd.cu",
+              "linear_scan_bwd": csrc + "ssm_scan.cu",
+              "selective_scan_bwd": csrc + "selective_scan.cu"}
     replaces = {"paged_decode_attention":
                 "src/repro/kernels/paged_attention.py:78",
                 "paged_extend_attention":
@@ -7544,7 +8183,21 @@ def phase_list(stats, launches, smi):
                 "flash_attention_bwd":
                 "the gradient of src/repro/kernels/flash_attention.py:74 "
                 "(JAX differentiates plain jnp, src/repro/models/"
-                "attention.py:286-301; no TPU kernel)"}
+                "attention.py:286-301; no TPU kernel)",
+                "flash_attention_bwd_mla":
+                "the gradient of src/repro/kernels/flash_attention.py:74 "
+                "at MLA's (q/k, v) (192, 128) (JAX differentiates plain "
+                "jnp, src/repro/models/attention.py:591-611; no TPU "
+                "kernel)",
+                "linear_scan_bwd":
+                "the gradient of src/repro/kernels/ssm_scan.py:44 at N = 1 "
+                "(JAX differentiates src/repro/models/rglru.py:60 "
+                "diag_scan in plain jnp; no TPU kernel)",
+                "selective_scan_bwd":
+                "the gradient of src/repro/kernels/ssm_scan.py:44 with "
+                "src/repro/kernels/ops.py:98-111 (JAX differentiates "
+                "src/repro/models/ssm.py:57 selective_scan in plain jnp; "
+                "no TPU kernel)"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     **{k: stats[name][k] for k in (
@@ -7552,7 +8205,8 @@ def phase_list(stats, launches, smi):
                         "bound_by", "library_ms")})
                for name in PAGED_KERNELS + DENSE_KERNELS + ("pair_score",) +
                SSM_KERNELS + ("ssm_scan_fused",) + MLA_KERNELS +
-               ("flash_attention_bwd",)]
+               ("flash_attention_bwd", "flash_attention_bwd_mla",
+                "linear_scan_bwd", "selective_scan_bwd")]
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,11 @@ MLA_DIMS = {(512, 64): (torch.float32, torch.bfloat16),
 #: kernel launches per wrapper, counted where each wrapper launches its
 #: kernel (one call of ``pair_score`` is its projection and its score
 #: pass, counted once; one call of the flash backward is its three
-#: kernels, counted once)
+#: kernels, counted once, and one of the selective scan's backward its
+#: two); ``linear_scan_bwd`` is the backward of the scan kernel at N = 1
+#: (``ops.linear_scan``), ``selective_scan_bwd`` that of the fused
+#: selective scan (``ops.ssm_scan``), both counted apart from their
+#: forwards (``ssm_scan``)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_extend_attention": 0,
                             "flash_attention": 0,
@@ -28,7 +32,9 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "pair_score": 0,
                             "ssm_scan": 0,
                             "mla_decode_attention": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "linear_scan_bwd": 0,
+                            "selective_scan_bwd": 0}
 
 _count_lock = threading.Lock()
 

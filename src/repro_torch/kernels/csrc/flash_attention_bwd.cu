@@ -10,9 +10,11 @@
 // training step on the card runs; kernels/flash_attention.py binds the
 // two as one torch.autograd.Function -> repro_flash_attention_bwd.
 //
-// Layouts are the forward's: q, out, dout and dq (B, S, H, hd); k, v, dk
-// and dv (B, T, KV, hd), T = S but for a cross attention, which has
-// neither mask; lse and delta (B, S, H) fp32; head h = kvh * G + g.  Rows
+// Layouts are the forward's: q and dq (B, S, H, hd), out and dout (B, S,
+// H, hd_v); k and dk (B, T, KV, hd), v and dv (B, T, KV, hd_v), T = S but
+// for a cross attention, which has neither mask; hd_v = hd, or MLA's
+// narrower v (the forward's pairs: (192, 128) on both routes, (24, 16) in
+// fp32); lse and delta (B, S, H) fp32; head h = kvh * G + g.  Rows
 // are the (query, head) pairs r = s * G + g of one (b, kv head).  Query s
 // sees key t iff t < T, t <= s when causal, and t > s - window when
 // window > 0 (the forward's masks).  From the forward's natural
@@ -78,6 +80,13 @@
 //   dO V^T (ss), P from lse (no online softmax), dS, then dQ += dS K (rs,
 //   K as the MN-major B, hi + lo).
 //
+// At (192, 128) the products over q/k's width (S, dK, dQ) take Tile<192>'s
+// three column blocks and those over v's (dP, dV) Tile<128>'s two; the dK
+// / dV kernel runs hd 256's plan (64-key tiles, both consumer warpgroups
+// on the same keys), warpgroup 0 holding dK's blocks 0-1 and dV's 0, 1
+// the rest (96 and 64 accumulator registers a thread, against 128 at hd
+// 128 and 256), and the dQ kernel's 96 accumulators take one CTA an SM.
+//
 // fp32, on the CUDA cores (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel):
 // the same split of the work over 32-row and 32-key tiles, every product
 // in fp32 from shared memory.  They serve the fp32 parity runs and the
@@ -128,16 +137,20 @@ __device__ __forceinline__ int key_hi(const BwdParams& p, int s) {
   return p.causal ? s : p.T - 1;
 }
 
-// Shared memory of the dK/dV and dQ kernels at head dim HD, in floats:
-// the Q, dO, K and V tiles (BT rows of LD floats: the pad puts the rows
-// of a quarter-warp's float4 reads in distinct banks), P and dS (BT x
-// PLD), then the rows' lse and D.
-template <int HD>
+// Shared memory of the dK/dV and dQ kernels at q/k head dim HD and v head
+// dim DV, in floats: the Q and K tiles (BT rows of LD floats: the pad puts
+// the rows of a quarter-warp's float4 reads in distinct banks), the dO
+// and V tiles (rows of LDV), P and dS (BT x PLD), then the rows' lse and
+// D.
+template <int HD, int DV>
 struct Smem {
   static constexpr int LD = HD + PAD;
+  static constexpr int LDV = DV + PAD;
   static constexpr int TILE = BT * LD;
+  static constexpr int TILE_V = BT * LDV;
   static constexpr int PLD = BT + 1;
-  static constexpr int BYTES = (4 * TILE + 2 * BT * PLD + 2 * BT) * 4;
+  static constexpr int BYTES =
+      (2 * TILE + 2 * TILE_V + 2 * BT * PLD + 2 * BT) * 4;
 };
 
 // The columns of a thread's accumulators: c0 + 32c for c < N, c0 = 4 *
@@ -174,39 +187,39 @@ __device__ __forceinline__ int64_t row_index(const BwdParams& p, int b,
   return (((int64_t)b * p.S + s) * p.KV + kvh) * p.G + g;
 }
 
-// rows r0 .. r0 + BT - 1 of (b, kvh) of a (B, S, KV, G, HD) tensor into
-// dst as fp32, zeros from r_end on
-template <int HD>
+// rows r0 .. r0 + BT - 1 of (b, kvh) of a (B, S, KV, G, W) tensor into
+// dst (rows of W + PAD floats) as fp32, zeros from r_end on
+template <int W>
 __device__ __forceinline__ void load_rows(float* dst, const void* src,
                                           const BwdParams& p, int b, int kvh,
                                           int r0, int r_end) {
-  constexpr int C = HD / 4;
+  constexpr int C = W / 4;
   for (int e = threadIdx.x; e < BT * C; e += NT) {
     const int i = e / C, d = (e - i * C) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (r0 + i < r_end)
       Vec<float, 4>::load(reinterpret_cast<const float*>(src) +
-                          row_index(p, b, kvh, r0 + i) * HD + d, x);
-    *reinterpret_cast<float4*>(dst + i * Smem<HD>::LD + d) =
+                          row_index(p, b, kvh, r0 + i) * W + d, x);
+    *reinterpret_cast<float4*>(dst + i * (W + PAD) + d) =
         make_float4(x[0], x[1], x[2], x[3]);
   }
 }
 
-// keys t0 .. t0 + BT - 1 of (b, kvh) of a (B, T, KV, HD) tensor into dst
-// as fp32, zeros from t_end on
-template <int HD>
+// keys t0 .. t0 + BT - 1 of (b, kvh) of a (B, T, KV, W) tensor into dst
+// (rows of W + PAD floats) as fp32, zeros from t_end on
+template <int W>
 __device__ __forceinline__ void load_keys(float* dst, const void* src,
                                           const BwdParams& p, int b, int kvh,
                                           int t0, int t_end) {
-  constexpr int C = HD / 4;
+  constexpr int C = W / 4;
   for (int e = threadIdx.x; e < BT * C; e += NT) {
     const int j = e / C, d = (e - j * C) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (t0 + j < t_end)
       Vec<float, 4>::load(reinterpret_cast<const float*>(src) +
-                          (((int64_t)b * p.T + t0 + j) * p.KV + kvh) * HD + d,
+                          (((int64_t)b * p.T + t0 + j) * p.KV + kvh) * W + d,
                       x);
-    *reinterpret_cast<float4*>(dst + j * Smem<HD>::LD + d) =
+    *reinterpret_cast<float4*>(dst + j * (W + PAD) + d) =
         make_float4(x[0], x[1], x[2], x[3]);
   }
 }
@@ -231,26 +244,29 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* d_s,
 // P (if ps) and dS of one (row tile r0, key tile t0) pair into shared
 // memory.  Thread (i, jj) = (tid / 8, tid % 8) takes row i and keys jj +
 // 8c, c < 4; rows from r_end on and masked keys give P = dS = 0.
-template <int HD>
+template <int HD, int DV>
 __device__ __forceinline__ void tile_p_ds(const BwdParams& p,
                                           const float* qs, const float* dos,
                                           const float* ks, const float* vs,
                                           const float* lse_s,
                                           const float* d_s, int r0, int r_end,
                                           int t0, float* ps, float* dss) {
-  using SM = Smem<HD>;
+  using SM = Smem<HD, DV>;
   const int i = threadIdx.x >> 3, jj = threadIdx.x & 7;
   float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
     const float4 qv = ld4(qs + i * SM::LD + d);
-    const float4 ov = ld4(dos + i * SM::LD + d);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = jj + 8 * c;
-      sc[c] = dot4(sc[c], qv, ld4(ks + j * SM::LD + d));
-      dp[c] = dot4(dp[c], ov, ld4(vs + j * SM::LD + d));
-    }
+    for (int c = 0; c < 4; ++c)
+      sc[c] = dot4(sc[c], qv, ld4(ks + (jj + 8 * c) * SM::LD + d));
+  }
+#pragma unroll 4
+  for (int d = 0; d < DV; d += 4) {
+    const float4 ov = ld4(dos + i * SM::LDV + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dp[c] = dot4(dp[c], ov, ld4(vs + (jj + 8 * c) * SM::LDV + d));
   }
   const int r = r0 + i;
   const bool row_ok = r < r_end;
@@ -290,15 +306,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
 }
 
 // dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles)
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const BwdParams p) {
-  using SM = Smem<HD>;
+  using SM = Smem<HD, DV>;
   float* qs = reinterpret_cast<float*>(smem_buffer<SM::BYTES>());
   float* dos = qs + SM::TILE;
-  float* ks = dos + SM::TILE;
+  float* ks = dos + SM::TILE_V;
   float* vs = ks + SM::TILE;
-  float* ps = vs + SM::TILE;
+  float* ps = vs + SM::TILE_V;
   float* dss = ps + BT * SM::PLD;
   float* lse_s = dss + BT * SM::PLD;
   float* d_s = lse_s + BT;
@@ -306,7 +322,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x - b * p.KV;
   const int t0 = blockIdx.y * BT, t_end = min(t0 + BT, p.T);
   load_keys<HD>(ks, p.k, p, b, kvh, t0, t_end);
-  load_keys<HD>(vs, p.v, p, b, kvh, t0, t_end);
+  load_keys<DV>(vs, p.v, p, b, kvh, t0, t_end);
   // the rows that see any key of the tile
   const int s_lo = p.causal ? t0 : 0;
   const int s_hi = p.window ? min(p.S - 1, t_end - 1 + p.window - 1)
@@ -314,63 +330,73 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   const int r_end = (s_hi + 1) * p.G;
   // thread (j, c0): key j, columns c0 + 32c
   const int j = threadIdx.x >> 3, c0 = (threadIdx.x & 7) * 4;
-  float4 dk[Cols<HD>::N], dv[Cols<HD>::N];
+  float4 dk[Cols<HD>::N], dv[Cols<DV>::N];
 #pragma unroll
-  for (int c = 0; c < Cols<HD>::N; ++c) {
+  for (int c = 0; c < Cols<HD>::N; ++c)
     dk[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv[c] = dk[c];
-  }
+#pragma unroll
+  for (int c = 0; c < Cols<DV>::N; ++c)
+    dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int r0 = s_lo * p.G; r0 < r_end; r0 += BT) {
     __syncthreads();          // the last row tile's readers are done
     load_rows<HD>(qs, p.q, p, b, kvh, r0, r_end);
-    load_rows<HD>(dos, p.dout, p, b, kvh, r0, r_end);
+    load_rows<DV>(dos, p.dout, p, b, kvh, r0, r_end);
     load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
     __syncthreads();
-    tile_p_ds<HD>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, ps, dss);
+    tile_p_ds<HD, DV>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, ps,
+                      dss);
     __syncthreads();
     for (int i = 0; i < BT; ++i) {
       const float pr = ps[i * SM::PLD + j], ds = dss[i * SM::PLD + j];
 #pragma unroll
+      for (int c = 0; c < Cols<DV>::N; ++c) {
+        const int col = c0 + 32 * c;
+        if (Cols<DV>::in(col)) axpy4(dv[c], pr, ld4(dos + i * SM::LDV + col));
+      }
+#pragma unroll
       for (int c = 0; c < Cols<HD>::N; ++c) {
         const int col = c0 + 32 * c;
-        if (!Cols<HD>::in(col)) continue;
-        axpy4(dv[c], pr, ld4(dos + i * SM::LD + col));
-        axpy4(dk[c], ds, ld4(qs + i * SM::LD + col));
+        if (Cols<HD>::in(col)) axpy4(dk[c], ds, ld4(qs + i * SM::LD + col));
       }
     }
   }
   const int t = t0 + j;
   if (t >= p.T) return;
-  const int64_t at = (((int64_t)b * p.T + t) * p.KV + kvh) * HD;
+  const int64_t key = ((int64_t)b * p.T + t) * p.KV + kvh;
 #pragma unroll
   for (int c = 0; c < Cols<HD>::N; ++c) {
     const int col = c0 + 32 * c;
     if (!Cols<HD>::in(col)) continue;
     float x[4] = {dk[c].x * p.scale, dk[c].y * p.scale, dk[c].z * p.scale,
                   dk[c].w * p.scale};
-    Vec<float, 4>::store(reinterpret_cast<float*>(p.dk) + at + col, x);
+    Vec<float, 4>::store(reinterpret_cast<float*>(p.dk) + key * HD + col, x);
+  }
+#pragma unroll
+  for (int c = 0; c < Cols<DV>::N; ++c) {
+    const int col = c0 + 32 * c;
+    if (!Cols<DV>::in(col)) continue;
     float y[4] = {dv[c].x, dv[c].y, dv[c].z, dv[c].w};
-    Vec<float, 4>::store(reinterpret_cast<float*>(p.dv) + at + col, y);
+    Vec<float, 4>::store(reinterpret_cast<float*>(p.dv) + key * DV + col, y);
   }
 }
 
 // dQ of one row tile of (b, kv head): grid (B * KV, row tiles)
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const BwdParams p) {
-  using SM = Smem<HD>;
+  using SM = Smem<HD, DV>;
   float* qs = reinterpret_cast<float*>(smem_buffer<SM::BYTES>());
   float* dos = qs + SM::TILE;
-  float* ks = dos + SM::TILE;
+  float* ks = dos + SM::TILE_V;
   float* vs = ks + SM::TILE;
-  float* dss = vs + SM::TILE + BT * SM::PLD;
+  float* dss = vs + SM::TILE_V + BT * SM::PLD;
   float* lse_s = dss + BT * SM::PLD;
   float* d_s = lse_s + BT;
 
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x - b * p.KV;
   const int r0 = blockIdx.y * BT, r_end = min(r0 + BT, p.S * p.G);
   load_rows<HD>(qs, p.q, p, b, kvh, r0, r_end);
-  load_rows<HD>(dos, p.dout, p, b, kvh, r0, r_end);
+  load_rows<DV>(dos, p.dout, p, b, kvh, r0, r_end);
   load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
   // the keys any row of the tile sees
   const int k_lo = key_lo(p, r0 / p.G);
@@ -384,10 +410,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int t0 = k_lo; t0 <= k_hi; t0 += BT) {
     __syncthreads();          // the last key tile's readers are done
     load_keys<HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.T));
-    load_keys<HD>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.T));
+    load_keys<DV>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.T));
     __syncthreads();
-    tile_p_ds<HD>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, nullptr,
-                  dss);
+    tile_p_ds<HD, DV>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, nullptr,
+                      dss);
     __syncthreads();
     for (int j = 0; j < BT; ++j) {
       const float ds = dss[i * SM::PLD + j];
@@ -420,32 +446,50 @@ constexpr int PRODUCER_REGS = 40;       // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int CONSUMER_REGS = 232;      //   = 384 x 168, the launch's pool
 static_assert(BWD_ROW_TILE == TILE && BWD_KEY_TILE_HD256 == TILE, "tiles");
 
-// The dK / dV kernel's tiles at head dim HD.  Shared memory: K and V
-// (SUBS 64-key tiles each), NST stages of Q and dO, the stages' lse and
-// D (64 floats each), then the barriers: K/V's, NST "full", NST "empty".
-template <int HD>
+// The dK / dV kernel's tiles at q/k head dim HD and v head dim DV (Q, K
+// and dK in Tile<HD>'s column blocks, dO, V and dV in Tile<DV>'s, of the
+// same 64 rows x SWB bytes).  Shared memory: K (SUBS 64-key tiles), V (as
+// many), NST stages of Q and dO, the stages' lse and D (64 floats each),
+// then the barriers: K/V's, NST "full", NST "empty".  At hd <= 128 the
+// two consumer warpgroups own 64 keys each and all of dK's and dV's
+// column blocks; past it (hd 256, and MLA's q/k 192) both own the tile's
+// 64 keys, and warpgroup w the column blocks [KB(w), KB(w) + NK(w)) of dK
+// and [VB(w), VB(w) + NV(w)) of dV: the first half of each, rounded up,
+// to warpgroup 0 (at (192, 128): dK's blocks 0-1 and dV's 0 to 0, dK's 2
+// and dV's 1 to 1).
+template <int HD, int DV>
 struct KvPlan {
   using T = Tile<HD>;
+  using TV = Tile<DV>;
   static constexpr int KEYS = HD <= 128 ? BWD_KEY_TILE : BWD_KEY_TILE_HD256;
   static constexpr int SUBS = KEYS / TILE;
   static constexpr bool SPLIT_COLS = KEYS == TILE;   // two warpgroups, one
                                                      //   key tile
-  static constexpr int NCB_W = SPLIT_COLS ? T::NCB / 2 : T::NCB;
+  // warpgroup w's dK blocks NKw from KBw and dV blocks NVw from VBw
+  static constexpr int NK0 = SPLIT_COLS ? (T::NCB + 1) / 2 : T::NCB;
+  static constexpr int NK1 = SPLIT_COLS ? T::NCB / 2 : T::NCB;
+  static constexpr int NV0 = SPLIT_COLS ? (TV::NCB + 1) / 2 : TV::NCB;
+  static constexpr int NV1 = SPLIT_COLS ? TV::NCB / 2 : TV::NCB;
+  static constexpr int KB1 = SPLIT_COLS ? NK0 : 0;
+  static constexpr int VB1 = SPLIT_COLS ? NV0 : 0;
   static constexpr int NST = HD >= 256 ? 2 : 3;
-  static constexpr int KV_BYTES = SUBS * T::BYTES;
+  static constexpr int K_BYTES = SUBS * T::BYTES;
+  static constexpr int V_BYTES = SUBS * TV::BYTES;
+  static constexpr int STAGE = T::BYTES + TV::BYTES;  // Q and dO
   static constexpr int STAT = 2 * TILE * 4;          // lse and D of a stage
-  static constexpr int STATS = 2 * KV_BYTES + NST * 2 * T::BYTES;
+  static constexpr int STATS = K_BYTES + V_BYTES + NST * STAGE;
   static constexpr int BARS = STATS + NST * STAT;
   static constexpr int SMEM = BARS + 8 * (1 + 2 * NST) + 1024;
-  static_assert(SUBS * TILE == KEYS && NCB_W >= 1, "key tile");
+  static_assert(SUBS * TILE == KEYS && NK1 >= 1 && NV1 >= 1, "key tile");
+  static_assert(T::SWB == TV::SWB, "one column block geometry");
 };
 
 // The dQ kernel's shared memory: Q and dO, then the forward's ring of K/V
 // stages and its barriers, then Q/dO's barrier.
-template <int HD>
+template <int HD, int DV>
 struct DqPlan {
-  using R = Ring<HD, HD>;
-  static constexpr int QD = 2 * Tile<HD>::BYTES;
+  using R = Ring<HD, DV>;
+  static constexpr int QD = Tile<HD>::BYTES + Tile<DV>::BYTES;
   static constexpr int BARS = QD + R::NST * R::STAGE;
   static constexpr int SMEM = BARS + 8 * (1 + 2 * R::NST) + 1024;
 };
@@ -483,21 +527,22 @@ __device__ __forceinline__ bool tile_row(const BwdParams& p, int b, int kvh,
 }
 
 // Q and dO boxes of the row tile (s0, g0) into q_s and do_s, lanes 0 ..
-// 2 NCB - 1 of the producer warp, completing `full` (whose expected bytes
-// the caller set)
-template <int HD>
+// NCB(Q) + NCB(dO) - 1 of the producer warp, completing `full` (whose
+// expected bytes the caller set)
+template <int HD, int DV>
 __device__ __forceinline__ void load_rows_tma(const CUtensorMap* qmap,
                                               const CUtensorMap* dmap, int b,
                                               int kvh, int s0, int g0,
                                               uint32_t q_s, uint32_t do_s,
                                               uint32_t full, int lane) {
   using T = Tile<HD>;
+  using TV = Tile<DV>;
   if (lane < T::NCB)
     tma_load_5d(q_s + lane * T::BLOCK, qmap, full, lane * T::BW, g0, kvh, s0,
                 b);
-  else if (lane < 2 * T::NCB)
-    tma_load_5d(do_s + (lane - T::NCB) * T::BLOCK, dmap, full,
-                (lane - T::NCB) * T::BW, g0, kvh, s0, b);
+  else if (lane < T::NCB + TV::NCB)
+    tma_load_5d(do_s + (lane - T::NCB) * TV::BLOCK, dmap, full,
+                (lane - T::NCB) * TV::BW, g0, kvh, s0, b);
 }
 
 // the hi + lo A fragments, KK k-steps of 16, of a 64 x 16 KK accumulator
@@ -553,107 +598,39 @@ __device__ __forceinline__ void rs_product(float (&acc)[N][Tile<HD>::BW / 2],
     }
 }
 
-// dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles),
-// KV_THREADS threads.  Consumer thread (warp, gq, tq) of warpgroup w
-// holds keys kw0 + 16 warp + gq + 8 h (h = 0, 1) of the accumulators, and
-// of S^T and dP^T the rows 8 c8 + 2 tq + e (c8 < 8, e = 0, 1) of the row
+// The consumer warpgroup's walk of the dK / dV kernel over its n_tiles
+// row tiles: NK column blocks of dK from KB and NV of dV from VB (KvPlan),
+// for keys kw0 .. kw0 + 63, K and V of those keys at kw_s and vw_s; then
+// its rows of dK (scaled) and dV.  Consumer thread (warp, gq, tq) holds
+// keys kw0 + 16 warp + gq + 8 h (h = 0, 1) of the accumulators, and of
+// S^T and dP^T the rows 8 c8 + 2 tq + e (c8 < 8, e = 0, 1) of the row
 // tile.
-template <int HD>
-__global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap dmap, const BwdParams p) {
-  using L = KvPlan<HD>;
+template <int HD, int DV, int NK, int NV>
+__device__ __forceinline__ void dkdv_consume(
+    const BwdParams& p, uint8_t* smem0, uint32_t kw_s, uint32_t vw_s,
+    uint32_t stage0, uint32_t stats0, uint32_t bars, int b, int kvh,
+    int kw0, int qt0, int n_tiles, int KB, int VB) {
+  using L = KvPlan<HD, DV>;
   using T = Tile<HD>;
   constexpr int ON = T::BW / 2;          // accumulator floats per block
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  uint8_t* const smem0 = smem_raw - raw;
-  const uint32_t k_s = base, v_s = base + L::KV_BYTES;
-  auto q_s = [&](int st) { return base + 2 * L::KV_BYTES + 2 * T::BYTES * st; };
+  auto q_s = [&](int st) { return stage0 + L::STAGE * st; };
   auto do_s = [&](int st) { return q_s(st) + T::BYTES; };
-  auto stat_s = [&](int st) { return base + L::STATS + L::STAT * st; };
-  const uint32_t bars = base + L::BARS, kv_full = bars;
   auto full = [&](int st) { return bars + 8 + 8 * st; };
   auto empty = [&](int st) { return bars + 8 + 8 * (L::NST + st); };
-
-  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
-  const int key0 = blockIdx.y * L::KEYS;
-  const int key_end = min(key0 + L::KEYS, p.T);
-  // the queries that see a key of the tile: [s_lo, s_hi]
-  const int s_lo = p.causal ? key0 : 0;
-  const int s_hi =
-      p.window ? min(p.S - 1, key_end - 1 + p.window - 1) : p.S - 1;
-  const int qt0 = s_lo / p.nq;
-  const int n_tiles = (s_hi / p.nq - qt0 + 1) * p.ngb;
-  const int rows_used = p.nq * p.gt;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, L::SUBS);
-    for (int st = 0; st < L::NST; ++st) {
-      mbar_init(full(st), 1 + 32);       // the bytes, and every lane's stats
-      mbar_init(empty(st), 2 * CONSUMERS / 32);
-    }
-    fence_mbar_init();
-  }
-  zero_tail_rows<T::SWB>(smem0, q_s(0), L::NST * 2 * T::NCB, rows_used,
-                         KV_THREADS);
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128, lane = threadIdx.x & 31;
-  if (wg == 0) {
-    // producer
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x >= 32) return;
-    // K and V once; a 64-key part past T reads from T - 1 (its keys are
-    // masked), so no box lies wholly outside the tensor
-#pragma unroll
-    for (int sub = 0; sub < L::SUBS; ++sub)
-      DenseSrc::load_tile<HD, HD>(p, &kmap, &vmap, b, kvh,
-                                  min(key0 + TILE * sub, p.T - 1),
-                                  k_s + sub * T::BYTES, v_s + sub * T::BYTES,
-                                  kv_full, smem0, lane);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % L::NST, qi = i / p.ngb;
-      const int s0 = (qt0 + qi) * p.nq, g0 = (i - qi * p.ngb) * p.gt;
-      mbar_wait(empty(st), ((i / L::NST) & 1) ^ 1);
-      if (lane == 0)
-        mbar_expect_tx(full(st), 2 * T::NCB * rows_used * T::SWB);
-      __syncwarp();
-      load_rows_tma<HD>(&qmap, &dmap, b, kvh, s0, g0, q_s(st), do_s(st),
-                        full(st), lane);
-      // -lse / scale and -D of the rows, the accumulators' first values;
-      // -inf and 0 where no row is
-      float* stat = reinterpret_cast<float*>(smem0 + stat_s(st));
-      for (int r = lane; r < TILE; r += 32) {
-        int64_t row;
-        const bool ok = tile_row(p, b, kvh, s0, g0, r, row);
-        stat[r] = ok ? -p.lse[row] / p.scale : neg_inf_f();
-        stat[TILE + r] = ok ? -p.delta[row] : 0.f;
-      }
-      mbar_arrive(full(st));
-    }
-    return;
-  }
-
-  // consumers
-  setmaxnreg_inc<CONSUMER_REGS>();
-  const int w = wg - 1, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int gq = lane >> 2, tq = lane & 3;
-  const int kw0 = L::SPLIT_COLS ? key0 : key0 + TILE * w;
-  const uint32_t kw_s = k_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
-  const uint32_t vw_s = v_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
-  const int cb0 = L::SPLIT_COLS ? w * L::NCB_W : 0;
   const int my_key = kw0 + warp * 16 + gq;   // + 8 h
   const float qscale = p.scale * LOG2E;
-  float dk[L::NCB_W][ON], dv[L::NCB_W][ON];
+  float dk[NK][ON], dv[NV][ON];
 #pragma unroll
-  for (int c = 0; c < L::NCB_W; ++c)
+  for (int c = 0; c < NK; ++c)
 #pragma unroll
-    for (int j = 0; j < ON; ++j) dk[c][j] = dv[c][j] = 0.f;
-  mbar_wait(kv_full, 0);
+    for (int j = 0; j < ON; ++j) dk[c][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+#pragma unroll
+    for (int j = 0; j < ON; ++j) dv[c][j] = 0.f;
+  mbar_wait(bars, 0);                        // K and V
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % L::NST;
@@ -678,7 +655,8 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
                 2 * tq;
       }
     }
-    const float* stat = reinterpret_cast<const float*>(smem0 + stat_s(st));
+    const float* stat =
+        reinterpret_cast<const float*>(smem0 + stats0 + L::STAT * st);
 
     // the row tile in two halves of 32 rows, so that the P / dS phase
     // holds 16 + 16 values beside dK and dV
@@ -706,7 +684,7 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
       pin(dp);
       wgmma_fence();
       ss_product<HD, HALF>(sc, kw_s, q_s(st) + r0 * T::SWB, true);
-      ss_product<HD, HALF>(dp, vw_s, do_s(st) + r0 * T::SWB, true);
+      ss_product<DV, HALF>(dp, vw_s, do_s(st) + r0 * T::SWB, true);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
@@ -730,22 +708,18 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
 
       // dV += P^T dO, dK += dS^T Q over the half's rows
 #pragma unroll
-      for (int c = 0; c < L::NCB_W; ++c) {
-        pin(dv[c]);
-        pin(dk[c]);
-      }
+      for (int c = 0; c < NV; ++c) pin(dv[c]);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) pin(dk[c]);
       wgmma_fence();
-      rs_product<HD, L::NCB_W, HALF / 16>(dv, ph, pl,
-                                          do_s(st) + r0 * T::SWB, cb0);
-      rs_product<HD, L::NCB_W, HALF / 16>(dk, dh, dl, q_s(st) + r0 * T::SWB,
-                                          cb0);
+      rs_product<DV, NV, HALF / 16>(dv, ph, pl, do_s(st) + r0 * T::SWB, VB);
+      rs_product<HD, NK, HALF / 16>(dk, dh, dl, q_s(st) + r0 * T::SWB, KB);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int c = 0; c < L::NCB_W; ++c) {
-        pin(dv[c]);
-        pin(dk[c]);
-      }
+      for (int c = 0; c < NV; ++c) pin(dv[c]);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) pin(dk[c]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
@@ -756,36 +730,147 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
   for (int h = 0; h < 2; ++h) {
     const int key = my_key + 8 * h;
     if (key >= p.T) continue;
-    const int64_t at = (((int64_t)b * p.T + key) * p.KV + kvh) * HD;
-    __nv_bfloat16* dkp = reinterpret_cast<__nv_bfloat16*>(p.dk) + at;
-    __nv_bfloat16* dvp = reinterpret_cast<__nv_bfloat16*>(p.dv) + at;
+    const int64_t at = ((int64_t)b * p.T + key) * p.KV + kvh;
+    __nv_bfloat16* dkp = reinterpret_cast<__nv_bfloat16*>(p.dk) + at * HD;
+    __nv_bfloat16* dvp = reinterpret_cast<__nv_bfloat16*>(p.dv) + at * DV;
 #pragma unroll
-    for (int c = 0; c < L::NCB_W; ++c)
+    for (int c = 0; c < NK; ++c)
 #pragma unroll
-      for (int c8 = 0; c8 < ON / 4; ++c8) {
-        const int col = (cb0 + c) * T::BW + 8 * c8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(dkp + col) =
+      for (int c8 = 0; c8 < ON / 4; ++c8)
+        *reinterpret_cast<uint32_t*>(dkp + (KB + c) * T::BW + 8 * c8 +
+                                     2 * tq) =
             f_to_bf2(dk[c][4 * c8 + 2 * h] * p.scale,
                      dk[c][4 * c8 + 2 * h + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + col) =
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int c8 = 0; c8 < ON / 4; ++c8)
+        *reinterpret_cast<uint32_t*>(dvp + (VB + c) * T::BW + 8 * c8 +
+                                     2 * tq) =
             f_to_bf2(dv[c][4 * c8 + 2 * h], dv[c][4 * c8 + 2 * h + 1]);
+  }
+}
+
+// dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles),
+// KV_THREADS threads: a producer warpgroup, then consumer warpgroups 0
+// and 1 (dkdv_consume).
+template <int HD, int DV>
+__global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap dmap, const BwdParams p) {
+  using L = KvPlan<HD, DV>;
+  using T = Tile<HD>;
+  using TV = Tile<DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem0 = smem_raw - raw;
+  const uint32_t k_s = base, v_s = base + L::K_BYTES;
+  const uint32_t stage0 = base + L::K_BYTES + L::V_BYTES;
+  auto q_s = [&](int st) { return stage0 + L::STAGE * st; };
+  auto do_s = [&](int st) { return q_s(st) + T::BYTES; };
+  auto stat_s = [&](int st) { return base + L::STATS + L::STAT * st; };
+  const uint32_t bars = base + L::BARS, kv_full = bars;
+  auto full = [&](int st) { return bars + 8 + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 + 8 * (L::NST + st); };
+
+  const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
+  const int key0 = blockIdx.y * L::KEYS;
+  const int key_end = min(key0 + L::KEYS, p.T);
+  // the queries that see a key of the tile: [s_lo, s_hi]
+  const int s_lo = p.causal ? key0 : 0;
+  const int s_hi =
+      p.window ? min(p.S - 1, key_end - 1 + p.window - 1) : p.S - 1;
+  const int qt0 = s_lo / p.nq;
+  const int n_tiles = (s_hi / p.nq - qt0 + 1) * p.ngb;
+  const int rows_used = p.nq * p.gt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, L::SUBS);
+    for (int st = 0; st < L::NST; ++st) {
+      mbar_init(full(st), 1 + 32);       // the bytes, and every lane's stats
+      mbar_init(empty(st), 2 * CONSUMERS / 32);
+    }
+    fence_mbar_init();
+  }
+  zero_tail_rows<T::SWB>(smem0, q_s(0), L::NST * (T::NCB + TV::NCB),
+                         rows_used, KV_THREADS);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x & 31;
+  if (wg == 0) {
+    // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    // K and V once; a 64-key part past T reads from T - 1 (its keys are
+    // masked), so no box lies wholly outside the tensor
+#pragma unroll
+    for (int sub = 0; sub < L::SUBS; ++sub)
+      DenseSrc::load_tile<HD, DV>(p, &kmap, &vmap, b, kvh,
+                                  min(key0 + TILE * sub, p.T - 1),
+                                  k_s + sub * T::BYTES, v_s + sub * TV::BYTES,
+                                  kv_full, smem0, lane);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % L::NST, qi = i / p.ngb;
+      const int s0 = (qt0 + qi) * p.nq, g0 = (i - qi * p.ngb) * p.gt;
+      mbar_wait(empty(st), ((i / L::NST) & 1) ^ 1);
+      if (lane == 0)
+        mbar_expect_tx(full(st),
+                       (T::NCB + TV::NCB) * rows_used * T::SWB);
+      __syncwarp();
+      load_rows_tma<HD, DV>(&qmap, &dmap, b, kvh, s0, g0, q_s(st), do_s(st),
+                            full(st), lane);
+      // -lse / scale and -D of the rows, the accumulators' first values;
+      // -inf and 0 where no row is
+      float* stat = reinterpret_cast<float*>(smem0 + stat_s(st));
+      for (int r = lane; r < TILE; r += 32) {
+        int64_t row;
+        const bool ok = tile_row(p, b, kvh, s0, g0, r, row);
+        stat[r] = ok ? -p.lse[row] / p.scale : neg_inf_f();
+        stat[TILE + r] = ok ? -p.delta[row] : 0.f;
       }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = wg - 1;
+  const int kw0 = L::SPLIT_COLS ? key0 : key0 + TILE * w;
+  const uint32_t kw_s = k_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
+  const uint32_t vw_s = v_s + (L::SPLIT_COLS ? 0 : w * TV::BYTES);
+  if constexpr (L::NK0 == L::NK1 && L::NV0 == L::NV1) {
+    dkdv_consume<HD, DV, L::NK0, L::NV0>(
+        p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
+        qt0, n_tiles, w ? L::KB1 : 0, w ? L::VB1 : 0);
+  } else if (w == 0) {
+    dkdv_consume<HD, DV, L::NK0, L::NV0>(
+        p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
+        qt0, n_tiles, 0, 0);
+  } else {
+    dkdv_consume<HD, DV, L::NK1, L::NV1>(
+        p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
+        qt0, n_tiles, L::KB1, L::VB1);
   }
 }
 
 // dQ of one row tile of (b, kv head): grid (B * KV, row tiles), THREADS
 // threads.  Consumer thread (warp, gq, tq) holds rows 16 warp + gq + 8 h
 // (h = 0, 1) of the row tile.
-template <int HD>
-__global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
+template <int HD, int DV>
+__global__ void __launch_bounds__(THREADS, HD > 128 ? 1 : 2)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap dmap,
                              const BwdParams p) {
-  using Q = DqPlan<HD>;
+  using Q = DqPlan<HD, DV>;
   using R = typename Q::R;
   using T = Tile<HD>;
+  using TV = Tile<DV>;
   constexpr int ON = T::BW / 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -818,21 +903,22 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     }
     fence_mbar_init();
   }
-  zero_tail_rows<T::SWB>(smem0, q_s, 2 * T::NCB, rows_used, THREADS);
+  zero_tail_rows<T::SWB>(smem0, q_s, T::NCB + TV::NCB, rows_used, THREADS);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (warp == CONSUMERS / 32) {
     // producer: the rows' Q and dO, then keep the ring full
-    if (lane == 0) mbar_expect_tx(qd_full, 2 * T::NCB * rows_used * T::SWB);
+    if (lane == 0)
+      mbar_expect_tx(qd_full, (T::NCB + TV::NCB) * rows_used * T::SWB);
     __syncwarp();
-    load_rows_tma<HD>(&qmap, &dmap, b, kvh, s0, g0, q_s, do_s, qd_full,
-                      lane);
+    load_rows_tma<HD, DV>(&qmap, &dmap, b, kvh, s0, g0, q_s, do_s, qd_full,
+                          lane);
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % R::NST;
       if (lane == 0) mbar_wait(empty(st), ((i / R::NST) & 1) ^ 1);
       __syncwarp();
-      DenseSrc::load_tile<HD, HD>(p, &kmap, &vmap, b, kvh, t0 + TILE * i,
+      DenseSrc::load_tile<HD, DV>(p, &kmap, &vmap, b, kvh, t0 + TILE * i,
                                   k_s(st), v_s(st), full(st), smem0, lane);
     }
     return;
@@ -873,7 +959,7 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     float sc[32], dp[32];
     wgmma_fence();
     ss_product<HD, TILE>(sc, q_s, k_s(st));
-    ss_product<HD, TILE>(dp, do_s, v_s(st));
+    ss_product<DV, TILE>(dp, do_s, v_s(st));
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
@@ -938,16 +1024,16 @@ int launch_delta(const BwdParams& p, int B, cudaStream_t stream) {
 }
 
 // fp32: the CUDA-core kernels
-template <int HD>
+template <int HD, int DV>
 int launch_fp32(const BwdParams& p, int B, cudaStream_t stream) {
-  int rc = launch_delta<float, HD>(p, B, stream);
+  int rc = launch_delta<float, DV>(p, B, stream);
   if (rc != 0) return rc;
-  rc = launch_with_smem<Smem<HD>::BYTES>(
-      flash_bwd_dkdv_kernel<HD>, dim3(B * p.KV, (p.T + BT - 1) / BT),
+  rc = launch_with_smem<Smem<HD, DV>::BYTES>(
+      flash_bwd_dkdv_kernel<HD, DV>, dim3(B * p.KV, (p.T + BT - 1) / BT),
       NT, stream, p);
   if (rc != 0) return rc;
-  return launch_with_smem<Smem<HD>::BYTES>(
-      flash_bwd_dq_kernel<HD>,
+  return launch_with_smem<Smem<HD, DV>::BYTES>(
+      flash_bwd_dq_kernel<HD, DV>,
       dim3(B * p.KV, (p.S * p.G + BT - 1) / BT), NT, stream, p);
 }
 
@@ -964,7 +1050,7 @@ int launch_sm90_kernel(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 // bf16: the row-tile plan, the tensor maps, then the three launches
-template <int HD>
+template <int HD, int DV>
 int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
   p.gt = min(p.G, BWD_ROW_TILE);
   p.nq = BWD_ROW_TILE / p.gt;
@@ -974,50 +1060,64 @@ int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
   const uint64_t rows[4] = {(uint64_t)p.G, (uint64_t)p.KV, (uint64_t)p.S,
                             (uint64_t)B};
   const uint32_t box[4] = {(uint32_t)p.gt, 1, (uint32_t)p.nq, 1};
+  using L = KvPlan<HD, DV>;
   int rc = encode_map<HD>(&kmap, p.k, p.KV, p.T, B, TILE);
-  if (rc == 0) rc = encode_map<HD>(&vmap, p.v, p.KV, p.T, B, TILE);
+  if (rc == 0) rc = encode_map<DV>(&vmap, p.v, p.KV, p.T, B, TILE);
   if (rc == 0) rc = encode_tiled<HD, 5>(&qmap, p.q, rows, box);
-  if (rc == 0) rc = encode_tiled<HD, 5>(&dmap, p.dout, rows, box);
-  if (rc == 0) rc = launch_delta<__nv_bfloat16, HD>(p, B, stream);
+  if (rc == 0) rc = encode_tiled<DV, 5>(&dmap, p.dout, rows, box);
+  if (rc == 0) rc = launch_delta<__nv_bfloat16, DV>(p, B, stream);
   if (rc == 0)
     rc = launch_sm90_kernel(
-        flash_bwd_dkdv_sm90_kernel<HD>,
-        dim3(B * p.KV, (p.T + KvPlan<HD>::KEYS - 1) / KvPlan<HD>::KEYS),
-        KV_THREADS, KvPlan<HD>::SMEM, stream, kmap, vmap, qmap, dmap, p);
+        flash_bwd_dkdv_sm90_kernel<HD, DV>,
+        dim3(B * p.KV, (p.T + L::KEYS - 1) / L::KEYS), KV_THREADS, L::SMEM,
+        stream, kmap, vmap, qmap, dmap, p);
   if (rc == 0)
-    rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD>,
+    rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD, DV>,
                             dim3(B * p.KV, p.n_row_tiles), THREADS,
-                            DqPlan<HD>::SMEM, stream, kmap, vmap, qmap, dmap,
-                            p);
+                            DqPlan<HD, DV>::SMEM, stream, kmap, vmap, qmap,
+                            dmap, p);
   return rc;
 }
 
-template <int HD>
+// bf16 at the widths the tensor-core kernels take (multiples of 16),
+// fp32 at every width built
+template <int HD, int DV = HD>
 int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
-  return dtype == 1 ? launch_bf16<HD>(p, B, stream)
-                    : launch_fp32<HD>(p, B, stream);
+  if constexpr (HD % 16 == 0 && DV % 16 == 0) {
+    if (dtype == 1) return launch_bf16<HD, DV>(p, B, stream);
+  } else {
+    if (dtype == 1) return -1;
+  }
+  return launch_fp32<HD, DV>(p, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: q/k/v's head dim, 16 to 256;
-// lse: the forward's (B, S, H) fp32 log-sum-exp; delta: (B, S, H) fp32
-// scratch; dq, dk, dv: outputs in the inputs' dtype; S: queries, T: keys
-// (T != S only with causal = window = 0); causal: 0 or 1;
-// window: 0 for none; scale: the forward's.  Launches three kernels on
-// ``stream``: bf16 the tensor-core kernels, fp32 the CUDA-core ones.
-// Returns cudaGetLastError() after the first that fails (0 on success),
-// -1 for a dtype or head dim it has no kernel for, -2 if
-// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
+// dtype: 0 = float32, 1 = bfloat16; hd: q/k's head dim, 16 to 256; hd_v:
+// v's, hd or a pair of the forward's (192, 128) in both dtypes and (24,
+// 16) in fp32; q, dq (B, S, H, hd), out, dout (B, S, H, hd_v), k, dk (B,
+// T, KV, hd), v, dv (B, T, KV, hd_v); lse: the forward's (B, S, H) fp32
+// log-sum-exp; delta: (B, S, H) fp32 scratch; dq, dk, dv: outputs in the
+// inputs' dtype; S: queries, T: keys (T != S only with causal = window =
+// 0); causal: 0 or 1; window: 0 for none; scale: the forward's.
+// Launches three kernels on ``stream``: bf16 the tensor-core kernels, fp32
+// the CUDA-core ones.  Returns cudaGetLastError() after the first that
+// fails (0 on success), -1 for a dtype or head dims it has no kernel for,
+// -2 if cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor
+// map.
 extern "C" int repro_flash_attention_bwd(
-    int dtype, int hd, const void* q, const void* k, const void* v,
-    const void* out, const void* dout, const float* lse, float* delta,
-    void* dq, void* dk, void* dv, int B, int S, int T, int KV, int G,
-    int causal, int window, float scale, void* stream) {
+    int dtype, int hd, int hd_v, const void* q, const void* k,
+    const void* v, const void* out, const void* dout, const float* lse,
+    float* delta, void* dq, void* dk, void* dv, int B, int S, int T, int KV,
+    int G, int causal, int window, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   BwdParams p = {q, k, v, out, dout, lse, delta, dq, dk, dv,
                  S, KV, G, causal, window, scale, T};
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 192 && hd_v == 128)
+    return launch_dtype<192, 128>(dtype, p, B, st);
+  if (hd == 24 && hd_v == 16) return launch_dtype<24, 16>(dtype, p, B, st);
+  if (hd_v != hd) return -1;
   switch (hd) {
     case 16: return launch_dtype<16>(dtype, p, B, st);
     case 32: return launch_dtype<32>(dtype, p, B, st);
@@ -1028,15 +1128,19 @@ extern "C" int repro_flash_attention_bwd(
   }
 }
 
-// The dynamic shared memory of the bf16 dK / dV and dQ kernels at head
-// dim hd, for the build report; 0 for a head dim it has no kernel for.
-extern "C" int repro_flash_bwd_smem(int hd, int which) {
+// The dynamic shared memory of the bf16 dK / dV (which = 0) and dQ (1)
+// kernels at head dims (hd, hd_v), for the build report and
+// kernels/flash_bwd_plan.py; 0 for a pair it has no bf16 kernel for.
+extern "C" int repro_flash_bwd_smem(int hd, int hd_v, int which) {
+  if (hd == 192 && hd_v == 128)
+    return which ? DqPlan<192, 128>::SMEM : KvPlan<192, 128>::SMEM;
+  if (hd != hd_v) return 0;
   switch (hd) {
-    case 16: return which ? DqPlan<16>::SMEM : KvPlan<16>::SMEM;
-    case 32: return which ? DqPlan<32>::SMEM : KvPlan<32>::SMEM;
-    case 64: return which ? DqPlan<64>::SMEM : KvPlan<64>::SMEM;
-    case 128: return which ? DqPlan<128>::SMEM : KvPlan<128>::SMEM;
-    case 256: return which ? DqPlan<256>::SMEM : KvPlan<256>::SMEM;
+    case 16: return which ? DqPlan<16, 16>::SMEM : KvPlan<16, 16>::SMEM;
+    case 32: return which ? DqPlan<32, 32>::SMEM : KvPlan<32, 32>::SMEM;
+    case 64: return which ? DqPlan<64, 64>::SMEM : KvPlan<64, 64>::SMEM;
+    case 128: return which ? DqPlan<128, 128>::SMEM : KvPlan<128, 128>::SMEM;
+    case 256: return which ? DqPlan<256, 256>::SMEM : KvPlan<256, 256>::SMEM;
     default: return 0;
   }
 }

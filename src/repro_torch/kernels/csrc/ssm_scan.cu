@@ -8,6 +8,10 @@
 // Replaces the TPU kernel
 //   src/repro/kernels/ssm_scan.py:ssm_scan_blocked
 //     (body _scan_kernel)                                -> repro_ssm_scan
+// and adds its gradient (port-only: JAX differentiates the RG-LRU's
+// recurrence, src/repro/models/rglru.py:diag_scan, in plain jnp)
+//                                                  -> repro_linear_scan_bwd
+// (linear_scan_bwd_kernel, after the chunked scan below).
 //
 // The TPU grid is (B, D / block_d, S / chunk) with the chunk axis
 // sequential: each grid step loads a (chunk, block_d, N) block into VMEM,
@@ -331,6 +335,146 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (c + 1 == p.n_chunks) p.hT[(int64_t)row * C + c0 + i] = carry;
 }
 
+// The backward of the recurrence (linear_scan_bwd_kernel): the gradients
+// of a, b and h0 for upstream gradients g of h_seq and gT of h_final.
+// The adjoint lam_t (the gradient reaching h_t) runs backwards through the
+// same recurrence: lam_{S-1} = g_{S-1} + gT, lam_t = g_t + a_{t+1}
+// lam_{t+1}; then db_t = lam_t, da_t = lam_t h_{t-1} (h_{-1} = h0, the
+// rest from the forward's h_seq) and dh0 = a_0 lam_0.  The carry between
+// chunks is m_t = a_t lam_t, what step t hands to step t - 1: m_t = a_t
+// (m_{t+1} + g_t), starting from m_S = gT, so dh0 = m_0.  That is the
+// forward's recurrence walked from the end, and the kernel is the chunked
+// scan's design walked from the end: the ticket orders the CTAs by
+// reversed chunk rc = n_chunks - 1 - c (the last chunk first), a CTA
+// stages its chunk of a and g, publishes the chunk's aggregate (the
+// product of its a, and m at its start from m = 0 at its end), looks back
+// over the chunks after it (find_prefix over the reversed chunks' statuses)
+// and folds their aggregates in with the same fixed chain fma(A_k,
+// P_{k-1}, H_k), so the gradients are the same bits on every call; then it
+// rescans its chunk from shared memory from the carry and writes da and db
+// once.  h_seq is read once, in the rescan (h_{t-1} beside step t), from
+// device memory: it is read once only, so it is not staged.
+// Bound on the card: bytes.  a, g and h_seq read and da, db written, 20
+// bytes an element; gT and h0 read and dh0 written, 12 a channel.
+struct BwdArgs {
+  const float* a;
+  const float* g;      // (B, S, C) the gradient of h_seq
+  const float* gT;     // (B, C) the gradient of h_final
+  const float* hs;     // (B, S, C) the forward's h_seq
+  const float* h0;     // (B, C)
+  float* da;
+  float* db;
+  float* dh0;
+  float* agg;          // (B, n_chunks, C) each: A, then H, then P
+  int* flags;          // (B, n_chunks, n_tiles) statuses, then the ticket
+  int B, S, chunk, n_chunks, n_tiles;
+  int64_t C;
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    linear_scan_bwd_kernel(const BwdArgs p) {
+  extern __shared__ __align__(16) float stage[];   // a, then g: [chunk][TILE]
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(p.flags + (int64_t)p.B *
+                                             p.n_chunks * p.n_tiles, 1);
+  __syncthreads();
+  const int tile = s_ticket % p.n_tiles;
+  const int row = s_ticket / p.n_tiles % p.B;
+  const int rc = s_ticket / p.n_tiles / p.B;        // reversed chunk
+  const int t0 = (p.n_chunks - 1 - rc) * p.chunk;
+  const int T = min(p.chunk, p.S - t0);
+  const int64_t C = p.C, c0 = (int64_t)tile * SCAN_TILE;
+  const int i = threadIdx.x;
+  const bool live = c0 + i < C;
+  float* a_s = stage;
+  float* g_s = stage + p.chunk * SCAN_TILE;
+
+  // stage the chunk: step t0 + t of channel c0 + k at [t][k]
+  const int64_t first = ((int64_t)row * p.S + t0) * C + c0;
+  if constexpr (VEC) {
+    const int q = 4 * (i % (SCAN_TILE / 4));
+    if (c0 + q < C)
+      for (int t = i / (SCAN_TILE / 4); t < T; t += 4 * THREADS / SCAN_TILE) {
+        const int64_t gi = first + (int64_t)t * C + q;
+        cp_async16(a_s + t * SCAN_TILE + q, p.a + gi);
+        cp_async16(g_s + t * SCAN_TILE + q, p.g + gi);
+      }
+  } else if (live) {
+    for (int t = 0; t < T; ++t) {
+      const int64_t gi = first + (int64_t)t * C + i;
+      cp_async4(a_s + t * SCAN_TILE + i, p.a + gi);
+      cp_async4(g_s + t * SCAN_TILE + i, p.g + gi);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the chunk's aggregate: m at its start from m = 0 at its end
+  float A = 1.f, H = 0.f;
+  for (int t = T - 1; t >= 0; --t) {
+    const float at = a_s[t * SCAN_TILE + i];
+    H = at * (H + g_s[t * SCAN_TILE + i]);
+    A *= at;
+  }
+
+  const int64_t slab = (int64_t)p.B * p.n_chunks * C;
+  const int64_t mine = ((int64_t)row * p.n_chunks + rc) * C + c0 + i;
+  int* status = p.flags + ((int64_t)row * p.n_chunks + rc) * p.n_tiles +
+                tile;
+  float carry = 0.f;
+  if (rc == 0) {
+    if (live) carry = p.gT[(int64_t)row * C + c0 + i];
+  } else {
+    if (live) {
+      p.agg[mine] = A;
+      p.agg[slab + mine] = H;
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) flag_release(status, 1);
+    int j = find_prefix(p.flags + (int64_t)row * p.n_chunks * p.n_tiles +
+                        tile, p.n_tiles, rc);
+    if (live) {
+      carry = __ldcg(p.agg + 2 * slab + mine - (int64_t)(rc - j) * C);
+      for (++j; j < rc; j += LOOKBACK_BATCH) {
+        float ra[LOOKBACK_BATCH], rh[LOOKBACK_BATCH];
+#pragma unroll
+        for (int u = 0; u < LOOKBACK_BATCH; ++u)
+          if (j + u < rc) {
+            const int64_t k = mine - (int64_t)(rc - j - u) * C;
+            ra[u] = __ldcg(p.agg + k);
+            rh[u] = __ldcg(p.agg + slab + k);
+          }
+#pragma unroll
+        for (int u = 0; u < LOOKBACK_BATCH; ++u)
+          if (j + u < rc) carry = fmaf(ra[u], carry, rh[u]);
+      }
+    }
+  }
+
+  // publish the inclusive prefix, then rescan backwards from the carry
+  if (rc + 1 < p.n_chunks) {
+    if (live) p.agg[2 * slab + mine] = fmaf(A, carry, H);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) flag_release(status, 2);
+  }
+  if (!live) return;
+  const int64_t at = first + i;
+  for (int t = T - 1; t >= 0; --t) {
+    const float lam = carry + g_s[t * SCAN_TILE + i];
+    const float hp = t0 + t > 0
+                         ? __ldcs(p.hs + at + (int64_t)(t - 1) * C)
+                         : p.h0[(int64_t)row * C + c0 + i];
+    __stcs(p.db + at + (int64_t)t * C, lam);
+    __stcs(p.da + at + (int64_t)t * C, lam * hp);
+    carry = a_s[t * SCAN_TILE + i] * lam;
+  }
+  if (rc + 1 == p.n_chunks) p.dh0[(int64_t)row * C + c0 + i] = carry;
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
@@ -383,6 +527,40 @@ extern "C" int repro_ssm_scan(const void* a, const void* b, const void* h0,
     ssm_scan_kernel<1><<<grid, THREADS, 0, st>>>(
         (const float*)a, (const float*)b, (const float*)h0, (float*)hs,
         (float*)hT, S, C);
+  return (int)cudaGetLastError();
+}
+
+// The backward of repro_ssm_scan: a, g, hs, da, db (B, S, D, N) and gT,
+// h0, dh0 (B, D, N), fp32, contiguous; chunks of `chunk` steps
+// (n_chunks >= 1, any count, scan_plan.bwd_plan), with agg 3 B n_chunks D
+// N floats and flags B n_chunks n_tiles + 1 ints zeroed on `stream`.
+// Returns cudaGetLastError() after the launch, or -1 for a shape or plan
+// it does not take.
+extern "C" int repro_linear_scan_bwd(const void* a, const void* g,
+                                     const void* gT, const void* hs,
+                                     const void* h0, void* da, void* db,
+                                     void* dh0, int B, int S, int D, int N,
+                                     int chunk, int n_chunks, void* agg,
+                                     void* flags, void* stream) {
+  if (B < 1 || S < 1 || D < 1 || N < 1 || n_chunks < 1 || chunk < 1 ||
+      chunk > SCAN_CHUNK_MAX || (int64_t)chunk * (n_chunks - 1) >= S ||
+      (int64_t)chunk * n_chunks < S)
+    return -1;
+  const int64_t C = (int64_t)D * N;
+  const bool vec = C % 4 == 0 && aligned16(a) && aligned16(g);
+  const int n_tiles = (int)((C + SCAN_TILE - 1) / SCAN_TILE);
+  const BwdArgs args{(const float*)a, (const float*)g, (const float*)gT,
+                     (const float*)hs, (const float*)h0, (float*)da,
+                     (float*)db, (float*)dh0, (float*)agg, (int*)flags, B,
+                     S, chunk, n_chunks, n_tiles, C};
+  const int64_t ctas = (int64_t)n_chunks * B * n_tiles;
+  const int smem = 2 * chunk * SCAN_TILE * 4;
+  auto kernel = vec ? linear_scan_bwd_kernel<true>
+                    : linear_scan_bwd_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SCAN_SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)ctas, THREADS, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -33,8 +33,8 @@ import math
 import torch
 
 from repro_torch.core import flags
-from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, HEAD_DIMS,
-                                 LAUNCHES, build, check_cuda, check_dims,
+from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, LAUNCHES,
+                                 build, check_cuda, check_dims,
                                  check_floats, check_launch, check_tensors,
                                  count, work)
 
@@ -62,13 +62,13 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = build.load("flash_attention_bwd.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # (dtype, hd, q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T,
-        #  KV, G, causal, window, scale, stream)
+        # (dtype, hd, hd_v, q, k, v, out, dout, lse, delta, dq, dk, dv, B,
+        #  S, T, KV, G, causal, window, scale, stream)
         lib.repro_flash_attention_bwd.argtypes = [
-            i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-            i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+            i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
         lib.repro_flash_attention_bwd.restype = i32
-        lib.repro_flash_bwd_smem.argtypes = [i32, i32]
+        lib.repro_flash_bwd_smem.argtypes = [i32, i32, i32]
         lib.repro_flash_bwd_smem.restype = i32
         _bwd_lib = lib
     return _bwd_lib
@@ -156,33 +156,30 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def check_bwd_dims(q, k, v, causal: bool, window: int) -> None:
-    """The backward is built for hd = hd_v in :data:`repro_torch.kernels.
-    HEAD_DIMS`, and under a mask for T = S only; anything else raises
-    ``NotImplementedError`` naming the ROADMAP item that adds it."""
+    """The backward is built for every head-dim pair and dtype of the
+    forward (hd = hd_v in :data:`repro_torch.kernels.HEAD_DIMS`, and the
+    pairs of :data:`repro_torch.kernels.FLASH_QK_V_DIMS`, which
+    :func:`check_args` checks), and under a mask for T = S only: a masked
+    call at a query offset raises ``NotImplementedError`` naming the
+    ROADMAP item that adds it."""
     if (causal or window) and k.shape[1] != q.shape[1]:
         raise NotImplementedError(
             f"flash_attention_bwd: no backward kernel at a query offset "
             f"({q.shape[1]} masked queries over {k.shape[1]} keys): "
             f"ROADMAP.md, Queue 2, item 12 (the backward of the sequence-"
             f"sharded prefill)")
-    hd, hd_v = q.shape[-1], v.shape[-1]
-    if hd != hd_v or hd not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no backward kernel at (q/k, v) head dims "
-            f"({hd}, {hd_v}); built for hd = hd_v in {HEAD_DIMS}. "
-            f"MLA's pairs (192, 128) and (24, 16) are ROADMAP.md, Queue 2, "
-            f"item 10")
 
 
 def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
                              window: int):
     """The gradients (dq, dk, dv) of :func:`flash_attention_bshd`'s output
-    ``out`` for the upstream gradient ``dout`` (B,S,H,hd), from the
+    ``out`` for the upstream gradient ``dout`` (B,S,H,hd_v), from the
     forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
-    and dv (B,T,KV,hd) sum over each kv head's G query heads.  In q's
-    dtype, fp32 inside.  bf16 runs the kernels on ``wgmma`` (P and dS as
-    bf16 hi + lo), fp32 the kernels on the CUDA cores: the C entry point
-    picks them by the dtype code.  CUDA tensors only; one call is three
+    (B,T,KV,hd) and dv (B,T,KV,hd_v) sum over each kv head's G query
+    heads; hd_v is hd or one of MLA's pairs.  In q's dtype, fp32 inside.
+    bf16 runs the kernels on ``wgmma`` (P and dS as bf16 hi + lo), fp32
+    the kernels on the CUDA cores: the C entry point picks them by the
+    dtype code.  CUDA tensors only; one call is three
     launches (D, then dK / dV, then dQ), counted once in
     :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
@@ -190,10 +187,11 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     check_bwd_dims(q, k, v, causal, window)
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"{name}: out and dout must be {tuple(q.shape)}, "
-                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
     B, S, H, hd = q.shape
+    hd_v = v.shape[3]
+    if out.shape != (B, S, H, hd_v) or dout.shape != out.shape:
+        raise ValueError(f"{name}: out and dout must be {(B, S, H, hd_v)}, "
+                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, H):
         raise ValueError(f"{name}: lse must be fp32 ({B}, {S}, {H}), got "
                          f"{lse.dtype} {tuple(lse.shape)}")
@@ -205,7 +203,7 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = _bwd_library().repro_flash_attention_bwd(
-                DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+                DTYPE_CODE[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, S, T, KV, H // KV,
@@ -213,7 +211,7 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
         check_launch(name, rc)
         count(LAUNCHES, name)
     flags.add(name, work.flash_attention_bwd, B, S, T, H, KV, hd,
-              dtype=q.dtype, causal=causal, window=window)
+              hd_v=hd_v, dtype=q.dtype, causal=causal, window=window)
     return dq, dk, dv
 
 

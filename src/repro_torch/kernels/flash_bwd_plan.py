@@ -18,6 +18,13 @@ over its encoder states, neither mask): the dK / dV grid runs over the T
 keys, the dQ grid and the row tiles over the S queries.  Every function
 that takes S takes ``T`` too, None for T = S.
 
+v may be narrower than q/k (MLA's (192, 128)): the products over q/k's
+width (S, dK, dQ) take hd's column blocks, those over v's (dP, dV)
+hd_v's.  Past hd 128 the dK / dV kernel's two warpgroups share 64 keys
+and split the column blocks (:func:`column_split`); :func:`dkdv_smem`
+and :func:`dq_smem` are the shared memory each kernel asks for
+(``KvPlan<hd, hd_v>::SMEM``, ``DqPlan<hd, hd_v>::SMEM``).
+
 Nothing here runs on the card: the kernels compute the same plan from
 the shapes themselves.
 """
@@ -41,6 +48,49 @@ SUB_TILE = 64
 def key_tile(hd: int) -> int:
     """Keys a dK / dV CTA owns at head dim ``hd``."""
     return KEY_TILE if hd <= 128 else KEY_TILE_HD256
+
+
+def column_blocks(hd: int) -> int:
+    """Column blocks of 64 rows x min(2 hd, 128) bytes a 64-row bf16 tile
+    of width ``hd`` holds (``Tile<hd>::NCB``)."""
+    swb = min(2 * hd, 128)
+    return hd // (swb // 2)
+
+
+def column_split(hd: int, hd_v: int, w: int) -> Tuple[int, int, int, int]:
+    """(first dK block, dK blocks, first dV block, dV blocks) of consumer
+    warpgroup ``w`` (0, 1) of the dK / dV kernel (``KvPlan::kb``, ``nk``,
+    ``vb``, ``nv``): every block to both at hd <= 128 (they own other
+    keys); past it the first half of each, rounded up, to warpgroup 0."""
+    nk, nv = column_blocks(hd), column_blocks(hd_v)
+    if key_tile(hd) == KEY_TILE:
+        return 0, nk, 0, nv
+    nk0, nv0 = -(-nk // 2), -(-nv // 2)
+    return (0, nk0, 0, nv0) if w == 0 else (nk0, nk - nk0, nv0, nv - nv0)
+
+
+def _tile_bytes(hd: int) -> int:
+    return column_blocks(hd) * SUB_TILE * min(2 * hd, 128)
+
+
+def dkdv_smem(hd: int, hd_v: int) -> int:
+    """Dynamic shared memory of the bf16 dK / dV kernel: K and V of the
+    key tile, its stages of Q and dO (3, 2 at hd 256), their lse and D,
+    the barriers and 1024 bytes of alignment slack."""
+    subs = key_tile(hd) // SUB_TILE
+    nst = 2 if hd >= 256 else 3
+    return (subs * (_tile_bytes(hd) + _tile_bytes(hd_v)) +
+            nst * (_tile_bytes(hd) + _tile_bytes(hd_v) + 2 * ROW_TILE * 4) +
+            8 * (1 + 2 * nst) + 1024)
+
+
+def dq_smem(hd: int, hd_v: int) -> int:
+    """Dynamic shared memory of the bf16 dQ kernel: Q and dO, the
+    forward's ring of K / V stages (3, 2 at hd >= 128), the barriers and
+    1024 bytes of slack."""
+    nst = 2 if hd >= 128 else 3
+    return ((1 + nst) * (_tile_bytes(hd) + _tile_bytes(hd_v)) +
+            8 * (1 + 2 * nst) + 1024)
 
 
 class RowTiles(NamedTuple):

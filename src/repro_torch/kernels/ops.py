@@ -23,10 +23,12 @@ kernel's work in place of its own ops, :func:`_plain`).  Any other
 device raises.  Each call is checked once.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On a
-CUDA tensor that requires grad (with grad enabled) :func:`flash_attention`
-runs the forward and backward kernels bound as
-``flash_attention.FlashAttention``; every other op has no backward kernel
-yet and raises ``NotImplementedError`` naming its ROADMAP item, so no op
+CUDA tensor that requires grad (with grad enabled) :func:`flash_attention`,
+:func:`ssm_scan` and :func:`linear_scan` run their forward and backward
+kernels bound as ``torch.autograd.Function`` s
+(``flash_attention.FlashAttention``, ``ssm_scan.SelectiveScan``,
+``ssm_scan.LinearScan``); the serving-only ops have no backward kernel
+and raise ``NotImplementedError`` naming their ROADMAP item, so no op
 hands back a tensor without a gradient, and none gives way to its plain
 version on the card.  The count route takes the same paths and refusals.
 """
@@ -109,8 +111,7 @@ def _needs_grad(*tensors) -> bool:
         getattr(t, "requires_grad", False) for t in tensors)
 
 
-#: the ROADMAP items (Queue 2) of the backward kernels still missing
-_SCAN_BACKWARD = 9
+#: the ROADMAP item (Queue 2) of the ops with no backward kernel
 _SERVING_BACKWARD = 11
 
 
@@ -298,7 +299,9 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
     (B,di,N)).  A CUDA tensor runs the fused kernel, which keeps the
     discretisation, the scan and the ``C`` contraction in registers (JAX
     runs the first and last in jnp around its Pallas kernel); the plain
-    version composes them as JAX does."""
+    version composes them as JAX does.  Under grad the kernel route is
+    ``ssm_scan.SelectiveScan``, whose backward is a kernel too (N <=
+    ``ssm_scan.MAX_BWD_STATES``)."""
     route = _route("ssm_scan", xc)
     B, S, di = xc.shape
     args = (B, S, di, A.shape[1])
@@ -307,7 +310,9 @@ def ssm_scan(xc, dt, Bc, Cc, A, D, h0=None):
         return _plain("ssm_scan", lambda: ref.selective_scan_ref(
             xc, dt, Bc, Cc, A, D, h0), work.selective_scan, *args,
             h0=h0 is not None)
-    _no_backward("ssm_scan", _SCAN_BACKWARD, xc, dt, Bc, Cc, A, D, h0)
+    # the kernel and count routes share the Function, which counts
+    if _needs_grad(xc, dt, Bc, Cc, A, D, h0):
+        return ss.SelectiveScan.apply(xc, dt, Bc, Cc, A, D, h0)
     if route == "count":
         ss.check_fused_args(xc, dt, Bc, Cc, A, D, h0)
         return _counted("ssm_scan", (xc.new_empty(xc.shape),
@@ -323,7 +328,8 @@ def linear_scan(a, b, h0):
     block (``models.rglru.diag_scan``): a, b (B,S,w) and h0 (B,w), fp32 ->
     (h_seq (B,S,w), h_final (B,w)).  It is the contract of the TPU kernel
     ``ssm_scan_blocked`` at N = 1, so the inputs are viewed as (B,S,w,1)
-    and take the scan kernel's route, counted under ``"ssm_scan"``.  JAX
+    and take the scan kernel's route, counted under ``"ssm_scan"``, and
+    under grad its backward kernel (``ssm_scan.LinearScan``).  JAX
     computes it in plain ``jnp`` (chunked ``associative_scan``); the
     kernel scans in order, so fp32 results agree up to summation order."""
     B, S, w = a.shape
@@ -334,14 +340,15 @@ def linear_scan(a, b, h0):
         ss.check_args(a4, b4, h4)
         h_seq, h_fin = _plain("ssm_scan", lambda: ref.ssm_scan_ref(
             a4, b4, h4), work.ssm_scan, B, S, w, 1)
+    elif _needs_grad(a, b, h0):
+        # the kernel and count routes share the Function, which counts
+        h_seq, h_fin = ss.LinearScan.apply(a4, b4, h4)
+    elif route == "count":
+        ss.check_args(a4, b4, h4)
+        h_seq, h_fin = _counted("ssm_scan", (a4.new_empty(a4.shape),
+                                             h4.new_empty(h4.shape)),
+                                work.ssm_scan, B, S, w, 1)
     else:
-        _no_backward("linear_scan", _SCAN_BACKWARD, a, b, h0)
-        if route == "count":
-            ss.check_args(a4, b4, h4)
-            h_seq, h_fin = _counted("ssm_scan", (a4.new_empty(a4.shape),
-                                                 h4.new_empty(h4.shape)),
-                                    work.ssm_scan, B, S, w, 1)
-        else:
-            h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
-            flags.add("ssm_scan", work.ssm_scan, B, S, w, 1)
+        h_seq, h_fin = ss.ssm_scan_blocked(a4, b4, h4)
+        flags.add("ssm_scan", work.ssm_scan, B, S, w, 1)
     return h_seq.view(B, S, w), h_fin.view(B, w)

@@ -4,9 +4,12 @@ which JAX computes in plain ``jnp``).
 
 They are the ground truth the CUDA kernels in ``csrc/*.cu`` are held
 against, and what :mod:`repro_torch.kernels.ops` runs for a tensor on the
-CPU.  All math is fp32 (fp64 inputs stay fp64 in :func:`pair_score_ref`);
-masked scores take the finite ``NEG_INF`` so a fully masked row never
-produces a NaN.
+CPU; a backward kernel's plain version is autograd through its forward's.
+:func:`linear_scan_bwd_ref` and :func:`selective_scan_bwd_ref` write the
+scans' adjoint out step by step, equal to that autograd result, for the
+tests and for ``chip_smoke.py``'s controls.  All math is fp32 (fp64
+inputs stay fp64 in :func:`pair_score_ref`); masked scores take the
+finite ``NEG_INF`` so a fully masked row never produces a NaN.
 """
 from __future__ import annotations
 
@@ -158,3 +161,47 @@ def selective_scan_ref(xc, dt, Bc, Cc, A, D, h0=None):
                          dtype=torch.float32, device=xc.device)
     h_seq, h_fin = ssm_scan_ref(a_bar, b_bar, h0)
     return torch.einsum("bsdn,bsn->bsd", h_seq, Cc) + xc * D, h_fin
+
+
+def linear_scan_bwd_ref(a, hs, h0, g, gT):
+    """The backward of :func:`ssm_scan_ref` written out: the adjoint lam_t
+    (the gradient reaching h_t) walked from the end, ``lam_{S-1} = g_{S-1}
+    + gT``, ``lam_t = g_t + a_{t+1} lam_{t+1}``; ``db_t = lam_t``, ``da_t =
+    lam_t h_{t-1}`` (``h_{-1} = h0``) and ``dh0 = a_0 lam_0``.  a, hs (the
+    forward's h_seq) and g (the gradient of h_seq): (B,S,...); h0 and gT
+    (the gradient of h_final): (B,...).  Returns (da, db, dh0)."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    m = gT
+    for t in range(a.shape[1] - 1, -1, -1):
+        lam = m + g[:, t]
+        db[:, t] = lam
+        da[:, t] = lam * (hs[:, t - 1] if t else h0)
+        m = a[:, t] * lam
+    return da, db, m
+
+
+def selective_scan_bwd_ref(xc, dt, Bc, Cc, A, D, h0, gy, gT):
+    """The backward of :func:`selective_scan_ref` written out, for upstream
+    gradients gy (B,S,di) of y and gT (B,di,N) of h_final: the adjoint of
+    the scan by :func:`linear_scan_bwd_ref` on ``a_bar`` with ``gy C``
+    reaching each h_t, then ``dC = sum_d gy h``, ``dB = sum_d lam dt x``,
+    ``dx = gy D + dt sum_n lam B``, ``ddt = sum_n lam x B + sum_n da_bar
+    a_bar A``, ``dA = sum_{b,s} da_bar a_bar dt``, ``dD = sum_{b,s} gy
+    x``.  Returns (dxc, ddt, dBc, dCc, dA, dD, dh0)."""
+    a_bar = (dt[..., None] * A).exp()                   # (B,S,di,N)
+    b_bar = (dt * xc)[..., None] * Bc[:, :, None, :]
+    if h0 is None:
+        h0 = torch.zeros((xc.shape[0], xc.shape[2], A.shape[-1]),
+                         dtype=torch.float32, device=xc.device)
+    hs, _ = ssm_scan_ref(a_bar, b_bar, h0)
+    da_bar, lam, dh0 = linear_scan_bwd_ref(
+        a_bar, hs, h0, gy[..., None] * Cc[:, :, None, :], gT)
+    lam_b = torch.einsum("bsdn,bsn->bsd", lam, Bc)
+    dA_bar = da_bar * a_bar                             # d/d(dt A)
+    dxc = gy * D + dt * lam_b
+    ddt = lam_b * xc + torch.einsum("bsdn,dn->bsd", dA_bar, A)
+    dBc = torch.einsum("bsdn,bsd->bsn", lam, dt * xc)
+    dCc = torch.einsum("bsdn,bsd->bsn", hs, gy)
+    dA = torch.einsum("bsdn,bsd->dn", dA_bar, dt)
+    dD = (gy * xc).sum((0, 1))
+    return dxc, ddt, dBc, dCc, dA, dD, dh0

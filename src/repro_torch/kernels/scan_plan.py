@@ -25,6 +25,8 @@ before it.  A plan of one chunk is the single walk.
 
 :func:`split_plan` reads shapes only, never the data, so a CUDA graph can
 capture the call; :func:`scratch` allocates the aggregates and the flags.
+:func:`bwd_plan` plans the backward (``linear_scan_bwd_kernel``), the
+chunked design walked from the last chunk, with the same chunks.
 """
 from __future__ import annotations
 
@@ -59,18 +61,33 @@ class Plan(NamedTuple):
     n_flags: int        # one status a (row, chunk, tile), then the ticket
 
 
+def _chunked(B: int, S: int, C: int, n_tiles: int) -> Plan:
+    """Chunks sized for about TARGET_CTAS CTAs of the chunked kernels."""
+    chunk = -(-S * B * n_tiles // TARGET_CTAS)
+    chunk = min(-(-chunk // CHUNK_MIN) * CHUNK_MIN, CHUNK_MAX)
+    n_chunks = -(-S // chunk)
+    return Plan(chunk, n_chunks, n_tiles, 3 * B * n_chunks * C,
+                B * n_chunks * n_tiles + 1)
+
+
 def split_plan(B: int, S: int, D: int, N: int) -> Plan:
     """The plan of a scan over ``(B, S, D, N)``."""
     C = D * N
     n_tiles = -(-C // TILE)
     if B * -(-C // 4) < FILL_THREADS:
-        chunk = -(-S * B * n_tiles // TARGET_CTAS)
-        chunk = min(-(-chunk // CHUNK_MIN) * CHUNK_MIN, CHUNK_MAX)
-        n_chunks = -(-S // chunk)
-        if n_chunks > 1:
-            return Plan(chunk, n_chunks, n_tiles, 3 * B * n_chunks * C,
-                        B * n_chunks * n_tiles + 1)
+        plan = _chunked(B, S, C, n_tiles)
+        if plan.n_chunks > 1:
+            return plan
     return Plan(S, 1, n_tiles, 0, 0)
+
+
+def bwd_plan(B: int, S: int, D: int, N: int) -> Plan:
+    """The plan of the scan's backward (``linear_scan_bwd_kernel``)
+    over ``(B, S, D, N)``: always the chunked design walked from the end,
+    with the forward's chunk sizing, so one chunk (no look-back) where S
+    fits it; there is no single-walk backward."""
+    C = D * N
+    return _chunked(B, S, C, -(-C // TILE))
 
 
 def scratch(plan: Plan, device: torch.device):

@@ -22,6 +22,23 @@ synchronising, raise if the launch reports an error, and add one to
 validate a call for both routes; the plain versions are
 :func:`repro_torch.kernels.ref.ssm_scan_ref` and
 :func:`repro_torch.kernels.ref.selective_scan_ref`.
+
+Their gradients (port-only: JAX differentiates these ops in plain
+``jnp``) are kernels too, bound with the forwards as the
+``torch.autograd.Function`` s :class:`LinearScan` (the scan, which
+``ops.linear_scan`` runs at N = 1; backward :func:`linear_scan_bwd`, the
+chunked scan walked from the end, counted in
+``LAUNCHES["linear_scan_bwd"]``) and
+:class:`SelectiveScan` (``ops.ssm_scan``; the forward keeps h at every
+32-step chunk's start, and :func:`selective_scan_bwd` recomputes each
+chunk's h from it and walks it in reverse, counted in
+``LAUNCHES["selective_scan_bwd"]``).  Their plain versions are autograd
+through the forwards' plain versions, and
+:func:`repro_torch.kernels.ref.linear_scan_bwd_ref` /
+:func:`repro_torch.kernels.ref.selective_scan_bwd_ref` write the same
+adjoint out step by step.  On a fake tensor (``core.flags.counted``) the
+Functions launch nothing and report each call's work to the active
+counter (the dry run).
 """
 from __future__ import annotations
 
@@ -29,8 +46,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core import flags
 from repro_torch.kernels import LAUNCHES, build, check_placement, count
-from repro_torch.kernels import scan_plan
+from repro_torch.kernels import scan_plan, work
 
 NAME = "ssm_scan"
 _lib = None
@@ -47,6 +65,11 @@ def _library() -> ctypes.CDLL:
         lib.repro_ssm_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                        i32, i32, i32, ptr, ptr, ptr]
         lib.repro_ssm_scan.restype = i32
+        # (a, g, gT, hs, h0, da, db, dh0, B, S, D, N, chunk, n_chunks, agg,
+        #  flags, stream)
+        lib.repro_linear_scan_bwd.argtypes = [ptr] * 8 + [i32] * 6 + \
+            [ptr] * 3
+        lib.repro_linear_scan_bwd.restype = i32
         scan_plan.check_library(lib, NAME)
         _lib = lib
     return _lib
@@ -58,10 +81,15 @@ def _fused_library() -> ctypes.CDLL:
         lib = build.load("selective_scan.cu")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         # (xc, dt, Bc, Cc, A, D, h0, y, hT, B, S, di, N, b_batch, b_step,
-        #  c_batch, c_step, stream)
+        #  c_batch, c_step, hck, stream)
         lib.repro_selective_scan_fused.argtypes = (
-            [ptr] * 9 + [i32] * 4 + [i64] * 4 + [ptr])
+            [ptr] * 9 + [i32] * 4 + [i64] * 4 + [ptr, ptr])
         lib.repro_selective_scan_fused.restype = i32
+        # (xc, dt, Bc, Cc, A, D, gy, gT, hck, dx, ddt, dB, dC, dA, dD, dh0,
+        #  ws, B, S, di, N, b_batch, b_step, c_batch, c_step, stream)
+        lib.repro_selective_scan_bwd.argtypes = (
+            [ptr] * 17 + [i32] * 4 + [i64] * 4 + [ptr])
+        lib.repro_selective_scan_bwd.restype = i32
         _fused_lib = lib
     return _fused_lib
 
@@ -69,6 +97,12 @@ def _fused_library() -> ctypes.CDLL:
 #: the fused kernel's largest N: 4 states a lane, 32 lanes a channel
 #: (``SPL * MAX_LANES`` in csrc/selective_scan.cu)
 MAX_STATES = 128
+#: the backward's largest N: 4 states a lane, 8 lanes a channel
+#: (``SPL * MAX_BWD_LANES``: its buffers must fit shared memory)
+MAX_BWD_STATES = 32
+#: steps a chunk of the fused kernel, where the forward keeps h for the
+#: backward (``FCHUNK``), and threads a CTA (``FT``)
+CHUNK, CTA_THREADS = 32, 128
 
 
 def check_args(a_bar, b_bar, h0) -> None:
@@ -171,10 +205,11 @@ def check_fused_args(xc, dt, Bc, Cc, A, D, h0) -> None:
                          f"{tuple(h0.shape)}")
 
 
-def selective_scan_fused(xc, dt, Bc, Cc, A, D, h0=None):
+def selective_scan_fused(xc, dt, Bc, Cc, A, D, h0=None, *, keep=False):
     """xc, dt: (B, S, di); Bc, Cc: (B, S, N); A: (di, N); D: (di,); h0:
     (B, di, N) or None (zeros); fp32 -> (y (B, S, di), h_final (B, di,
-    N))."""
+    N)); with ``keep`` also the backward's checkpoints, h at the start of
+    each :data:`CHUNK`-step chunk, (B, ceil(S / CHUNK), di, N)."""
     check_fused_args(xc, dt, Bc, Cc, A, D, h0)
     _cuda_only(xc)
     B, S, di = xc.shape
@@ -184,15 +219,186 @@ def selective_scan_fused(xc, dt, Bc, Cc, A, D, h0=None):
                          f"rows")
     y = torch.empty_like(xc)
     hT = torch.empty((B, di, N), dtype=torch.float32, device=xc.device)
+    hck = torch.empty((B, -(-S // CHUNK), di, N), dtype=torch.float32,
+                      device=xc.device) if keep else None
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _fused_library().repro_selective_scan_fused(
             xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), hT.data_ptr(), B, S, di, N, Bc.stride(0),
-            Bc.stride(1), Cc.stride(0), Cc.stride(1), stream)
+            Bc.stride(1), Cc.stride(0), Cc.stride(1),
+            None if hck is None else hck.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{NAME}: fused kernel launch failed with CUDA "
                            f"error {rc}")
     count(LAUNCHES, NAME)
-    return y, hT
+    return (y, hT, hck) if keep else (y, hT)
+
+
+# ----------------------------------------------------------------------
+# the backwards
+def _grad(name, t, shape) -> torch.Tensor:
+    """An upstream gradient as the kernels read it: fp32, contiguous, of
+    ``shape``."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: a gradient of shape {tuple(shape)} "
+                         f"expected, got {tuple(t.shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def linear_scan_bwd(a, g, gT, hs, h0):
+    """The backward of :func:`ssm_scan_blocked`: a, g (the gradient of
+    h_seq) and hs (the forward's h_seq) (B, S, D, N); gT (the gradient of
+    h_final) and h0 (B, D, N); fp32 -> (da, db (B, S, D, N), dh0 (B, D,
+    N)).  One launch of ``linear_scan_bwd_kernel`` over
+    :func:`scan_plan.bwd_plan`'s chunks, counted in
+    ``LAUNCHES["linear_scan_bwd"]``."""
+    name = "linear_scan_bwd"
+    check_args(a, hs, h0)
+    g, gT = _grad(name, g, a.shape), _grad(name, gT, h0.shape)
+    B, S, D, N = a.shape
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), \
+        torch.empty_like(h0)
+    if not flags.counted(a):
+        _cuda_only(a)
+        plan = scan_plan.bwd_plan(B, S, D, N)
+        with torch.cuda.device(a.device):
+            agg, flg = scan_plan.scratch(plan, a.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _library().repro_linear_scan_bwd(
+                a.data_ptr(), g.data_ptr(), gT.data_ptr(), hs.data_ptr(),
+                h0.data_ptr(), da.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+                B, S, D, N, plan.chunk, plan.n_chunks, agg.data_ptr(),
+                flg.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {rc}")
+        count(LAUNCHES, name)
+    flags.add(name, work.linear_scan_bwd, B, S, D, N)
+    return da, db, dh0
+
+
+def lanes(N: int) -> int:
+    """Lanes a channel of the fused kernels at N states (``lanes_for`` in
+    csrc/selective_scan.cu): the smallest power of two G with 4 G >= N."""
+    G = 1
+    while 4 * G < N:
+        G *= 2
+    return G
+
+
+def bwd_workspace(B: int, S: int, di: int, N: int) -> int:
+    """Floats of the selective scan backward's partial sums: dB and dC of
+    each CTA's channels (2 x (B, n_dblk, S, N)), dA (B, di, N) and dD (B,
+    di) of each row, n_dblk = ceil(di / (128 / G))."""
+    n_dblk = -(-di // (CTA_THREADS // lanes(N)))
+    return 2 * B * n_dblk * S * N + B * di * N + B * di
+
+
+def _check_bwd_states(A) -> None:
+    if A.shape[1] > MAX_BWD_STATES:
+        raise ValueError(f"selective_scan_bwd: N = {A.shape[1]} is above "
+                         f"the backward kernel's {MAX_BWD_STATES} states")
+
+
+def selective_scan_bwd(xc, dt, Bc, Cc, A, D, gy, gT, hck):
+    """The backward of :func:`selective_scan_fused` from its inputs and
+    its checkpoints ``hck`` (``keep=True``), for upstream gradients gy (B,
+    S, di) of y and gT (B, di, N) of h_final; fp32 -> (dxc, ddt (B, S,
+    di), dBc, dCc (B, S, N), dA (di, N), dD (di,), dh0 (B, di, N)).  Two
+    launches (the reverse walk, then the fixed-order sums of its
+    partials), counted once in ``LAUNCHES["selective_scan_bwd"]``.  N
+    <= :data:`MAX_BWD_STATES`."""
+    name = "selective_scan_bwd"
+    check_fused_args(xc, dt, Bc, Cc, A, D, None)
+    _check_bwd_states(A)
+    B, S, di = xc.shape
+    N = A.shape[1]
+    gy, gT = _grad(name, gy, xc.shape), _grad(name, gT, (B, di, N))
+    if tuple(hck.shape) != (B, -(-S // CHUNK), di, N):
+        raise ValueError(f"{name}: checkpoints of shape "
+                         f"{(B, -(-S // CHUNK), di, N)} expected, got "
+                         f"{tuple(hck.shape)}")
+    dx, ddt = torch.empty_like(xc), torch.empty_like(xc)
+    dB = xc.new_empty((B, S, N))
+    dC = xc.new_empty((B, S, N))
+    dA, dD, dh0 = torch.empty_like(A), torch.empty_like(D), \
+        xc.new_empty((B, di, N))
+    if not flags.counted(xc):
+        _cuda_only(xc)
+        with torch.cuda.device(xc.device):
+            ws = torch.empty(bwd_workspace(B, S, di, N), dtype=torch.float32,
+                             device=xc.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _fused_library().repro_selective_scan_bwd(
+                xc.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                A.data_ptr(), D.data_ptr(), gy.data_ptr(), gT.data_ptr(),
+                hck.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+                ws.data_ptr(), B, S, di, N, Bc.stride(0), Bc.stride(1),
+                Cc.stride(0), Cc.stride(1), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {rc}")
+        count(LAUNCHES, name)
+    flags.add(name, work.selective_scan_bwd, B, S, di, N)
+    return dx, ddt, dB, dC, dA, dD, dh0
+
+
+class LinearScan(torch.autograd.Function):
+    """The scan with a backward kernel, the kernel and count routes of
+    ``ops.linear_scan`` (the RG-LRU's recurrence at N = 1) when grad is on
+    and an input requires it: a_bar, b_bar (B, S, D, N), h0 (B, D, N)
+    fp32 -> (h_seq, h_final).  The forward launches
+    :func:`ssm_scan_blocked` and saves a_bar, h0 and h_seq; the backward
+    launches :func:`linear_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, a_bar, b_bar, h0):
+        check_args(a_bar, b_bar, h0)
+        if flags.counted(a_bar):
+            hs, hT = torch.empty_like(a_bar), torch.empty_like(h0)
+        else:
+            hs, hT = ssm_scan_blocked(a_bar, b_bar, h0)
+        flags.add(NAME, work.ssm_scan, *a_bar.shape)
+        ctx.save_for_backward(a_bar, h0, hs)
+        return hs, hT
+
+    @staticmethod
+    def backward(ctx, g, gT):
+        a_bar, h0, hs = ctx.saved_tensors
+        return linear_scan_bwd(a_bar, g, gT, hs, h0)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The fused selective scan with a backward kernel, the kernel and
+    count routes of ``ops.ssm_scan`` when grad is on and an input
+    requires it.  The forward launches :func:`selective_scan_fused` with
+    ``keep=True`` and saves its inputs and checkpoints; the backward
+    launches :func:`selective_scan_bwd` (dh0 is None where h0 was)."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, Bc, Cc, A, D, h0):
+        check_fused_args(xc, dt, Bc, Cc, A, D, h0)
+        _check_bwd_states(A)
+        B, S, di = xc.shape
+        N = A.shape[1]
+        if flags.counted(xc):
+            y, hT = xc.new_empty(xc.shape), xc.new_empty((B, di, N))
+            hck = xc.new_empty((B, -(-S // CHUNK), di, N))
+        else:
+            y, hT, hck = selective_scan_fused(xc, dt, Bc, Cc, A, D, h0,
+                                              keep=True)
+        flags.add(NAME, work.selective_scan, B, S, di, N,
+                  h0=h0 is not None)
+        ctx.save_for_backward(xc, dt, Bc, Cc, A, D, hck)
+        ctx.has_h0 = h0 is not None
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, gy, gT):
+        xc, dt, Bc, Cc, A, D, hck = ctx.saved_tensors
+        dx, ddt, dB, dC, dA, dD, dh0 = selective_scan_bwd(
+            xc, dt, Bc, Cc, A, D, gy, gT, hck)
+        return dx, ddt, dB, dC, dA, dD, dh0 if ctx.has_h0 else None

@@ -88,15 +88,20 @@ def flash_attention(B, S, T, H, KV, hd, *, hd_v=None, dtype="bfloat16",
     return Work(2 * (hd + hd_v) * H * B * pairs, nbytes, _dtype_name(dtype))
 
 
-def flash_attention_bwd(B, S, T, H, KV, hd, *, dtype="bfloat16",
+def flash_attention_bwd(B, S, T, H, KV, hd, *, hd_v=None, dtype="bfloat16",
                         causal=True, window=0) -> Work:
-    """Flash backward: q, out, dout read and dq written (B,S,H,hd); k, v
-    read and dk, dv written (B,T,KV,hd); the fp32 lse read; S, dV, dP, dK
-    and dQ over the visible pairs."""
+    """Flash backward: q read and dq written (B,S,H,hd), out and dout read
+    (B,S,H,hd_v); k read and dk written (B,T,KV,hd), v read and dv written
+    (B,T,KV,hd_v); the fp32 lse read; S, dK and dQ (over hd) and dP and dV
+    (over hd_v) over the visible pairs.  hd_v is hd, or MLA's narrower
+    v."""
+    hd_v = hd if hd_v is None else hd_v
     esz = _ESZ[_dtype_name(dtype)]
     pairs = visible_pairs(S, T, causal, window)
-    nbytes = (4 * B * S * H * hd + 4 * B * T * KV * hd) * esz + 4 * B * S * H
-    return Work(5 * 2 * hd * pairs * B * H, nbytes, _dtype_name(dtype))
+    nbytes = (2 * B * S * H * (hd + hd_v) +
+              2 * B * T * KV * (hd + hd_v)) * esz + 4 * B * S * H
+    return Work(2 * (3 * hd + 2 * hd_v) * pairs * B * H, nbytes,
+                _dtype_name(dtype))
 
 
 def _live(lengths: Optional[Sequence[int]], B: int, L: int):
@@ -179,3 +184,27 @@ def selective_scan(B, S, di, N, *, h0=True) -> Work:
     nbytes = 4 * (3 * B * S * di + 2 * B * S * N + di * N + di +
                   (2 if h0 else 1) * B * di * N)
     return Work(6 * n_el + 3 * B * S * di, nbytes, "float32", exps=n_el)
+
+
+def linear_scan_bwd(B, S, D, N) -> Work:
+    """The scan's backward (``ops.linear_scan`` under grad), fp32: a, the
+    gradient of h_seq and h_seq read, da and db written (B,S,D,N); the
+    gradient of h_final and h0 read, dh0 written (B,D,N); the adjoint's
+    add, the carry's multiply and da's multiply a step."""
+    n_el = B * S * D * N
+    return Work(3 * n_el, 4 * (5 * n_el + 3 * B * D * N), "float32")
+
+
+def selective_scan_bwd(B, S, di, N) -> Work:
+    """The fused selective scan's backward, fp32: xc, dt and the gradient
+    of y read, dxc and ddt written (B,S,di); Bc and Cc read, dBc and dCc
+    written (B,S,N); the forward's checkpoints of h, one a 32-step chunk,
+    read (B,ceil(S/32),di,N); A and the gradient of h_final and h0's place
+    read, dA and dh0 written (di,N and B,di,N); D read and dD written
+    (di,); the adjoint and the six gradients' terms, and an exponential
+    for every (b, s, d, n) (a_t, which h and the adjoint both need)."""
+    n_el = B * S * di * N
+    n_ck = B * -(-S // 32) * di * N
+    nbytes = 4 * (5 * B * S * di + 4 * B * S * N + n_ck + 2 * di * N +
+                  2 * B * di * N + 2 * di)
+    return Work(16 * n_el + 4 * B * S * di, nbytes, "float32", exps=n_el)

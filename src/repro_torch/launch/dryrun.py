@@ -11,9 +11,9 @@ The mesh is rank 0 of (16, 16) (``--mesh single``) or (2, 16, 16)
 prints an ``OK``, ``SKIP`` or ``FAIL`` line and writes its JSON to
 ``--out``; the exit code is 1 if any cell failed.  The default policies
 (``fsdp_tp`` for train, ``tp`` for serve) count the port's
-tensor-parallel step with its collectives; a train cell fails where a
-layer's backward kernel is not on the card yet (the scan's and MLA's:
-ROADMAP.md, Queue 2), as the card would refuse it.
+tensor-parallel step with its collectives, every train cell with the
+backward kernels of its layers (flash, the selective scan, the scan at
+N = 1); a cell fails where the card would refuse its step.
 """
 import argparse
 import sys

@@ -193,9 +193,11 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
     """Flash under autograd on fake tensors: the forward (with its
     log-sum-exp) and the backward counted once each by the counter and
     never in ``kernels.LAUNCHES``, the gradients of the plain version's
-    shapes; the refusals of the kernel route hold on the
-    count route (a scan input that requires grad, MLA's widths in the
-    backward)."""
+    shapes; so are the other backwards of the kernel route (the scan at
+    N = 1 under grad, flash at MLA's (192, 128), each with its own
+    work); the refusals the kernel route keeps hold on the count
+    route (a masked flash call at a query offset, Queue 2 item 12; a
+    serving-only op's input that requires grad, item 11)."""
     monkeypatch.setattr(build, "load", _no_build)
     with FakeTensorMode():
         q = torch.empty(2, 20, 4, 16, requires_grad=True)
@@ -206,18 +208,40 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
             out = ops.flash_attention(q, k, v, causal=True)
             grads = torch.autograd.grad(out.sum(), [q, k, v])
         assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
-        with pytest.raises(NotImplementedError, match="Queue 2, item 9"):
-            ops.linear_scan(torch.empty(1, 3, 4, requires_grad=True),
-                            torch.empty(1, 3, 4), torch.empty(1, 4))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            qm = torch.empty(1, 8, 2, 192, requires_grad=True)
-            ops.flash_attention(qm, torch.empty(1, 8, 2, 192),
-                                torch.empty(1, 8, 2, 128))
+        a = torch.empty(1, 3, 4, requires_grad=True)
+        qm = torch.empty(1, 8, 2, 192, requires_grad=True)
+        km, vm = torch.empty(1, 8, 2, 192), torch.empty(1, 8, 2, 128)
+        with dryrun_lib.Counter() as c2:
+            hs, hT = ops.linear_scan(a, torch.empty(1, 3, 4),
+                                     torch.empty(1, 4))
+            (ga,) = torch.autograd.grad(hs.sum() + hT.sum(), [a])
+            om = ops.flash_attention(qm, km, vm)
+            (gq,) = torch.autograd.grad(om.sum(), [qm])
+        assert ga.shape == a.shape and gq.shape == qm.shape
+        with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+            ops.flash_attention(qm, torch.empty(1, 16, 2, 192),
+                                torch.empty(1, 16, 2, 128))
+        with pytest.raises(NotImplementedError, match="Queue 2, item 11"):
+            ops.decode_attention(torch.empty(1, 4, 16, requires_grad=True),
+                                 torch.empty(1, 8, 2, 16),
+                                 torch.empty(1, 8, 2, 16),
+                                 torch.ones(1, dtype=torch.int32))
     fwd = work.flash_attention(2, 20, 20, 4, 2, 16, dtype="float32",
                                lse=True)
     bwd = work.flash_attention_bwd(2, 20, 20, 4, 2, 16, dtype="float32")
     assert c.kernels == {"flash_attention": [1, fwd.flops, fwd.bytes],
                          "flash_attention_bwd": [1, bwd.flops, bwd.bytes]}
+    scan = work.ssm_scan(1, 3, 4, 1)
+    scan_bwd = work.linear_scan_bwd(1, 3, 4, 1)
+    mla = work.flash_attention(1, 8, 8, 2, 2, 192, hd_v=128,
+                               dtype="float32", lse=True)
+    mla_bwd = work.flash_attention_bwd(1, 8, 8, 2, 2, 192, hd_v=128,
+                                       dtype="float32")
+    assert c2.kernels == {
+        "ssm_scan": [1, scan.flops, scan.bytes],
+        "linear_scan_bwd": [1, scan_bwd.flops, scan_bwd.bytes],
+        "flash_attention": [1, mla.flops, mla.bytes],
+        "flash_attention_bwd": [1, mla_bwd.flops, mla_bwd.bytes]}
     assert not any(LAUNCHES.values())
 
 
@@ -571,6 +595,10 @@ _ROWS.update({
         8, 1500, 1500, 8, 8, 64, causal=False), 0.0932),
     "8b decoder": (lambda: work.flash_attention_bwd(8, 448, 448, 8, 8, 64),
                    0.0088),
+    "5c": (lambda: work.selective_scan_bwd(4, 1024, 8192, 16), 0.2223),
+    "5d": (lambda: work.linear_scan_bwd(2, 1024, 2560, 1), 0.0313),
+    "8c": (lambda: work.flash_attention_bwd(4, 1024, 1024, 16, 16, 192,
+                                            hd_v=128), 0.0565),
 })
 
 

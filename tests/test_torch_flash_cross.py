@@ -228,7 +228,8 @@ def test_kernel_route_passes_the_kv_length(fake_card, dtype):
     out.backward(torch.ones_like(out))
     (fwd,), (bwd,) = fake_card["fwd"], fake_card["bwd"]
     assert fwd[8:15] == (B, S, T, KV, H // KV, 0, 0)
-    assert bwd[12:19] == (B, S, T, KV, H // KV, 0, 0)
+    assert bwd[1:3] == (hd, hd)                 # q/k's and v's widths
+    assert bwd[13:20] == (B, S, T, KV, H // KV, 0, 0)
     assert kg.grad.shape == (B, T, KV, hd) and qg.grad.shape == q.shape
     assert kernels.LAUNCHES["flash_attention"] == 1
     assert kernels.LAUNCHES["flash_attention_bwd"] == 1

@@ -263,6 +263,99 @@ def test_rounding_p_and_ds_once_lands_farther(B, S, H, KV, hd, causal,
         assert r_once > max(100 * r_hilo, 2e-4), (r_hilo, r_once)
 
 
+# ----------------------------------------------------------------------
+# MLA's (q/k, v) pairs: v narrower than q and k
+def _inputs_qv(B, S, H, KV, hd, hd_v, seed=0):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    return (f(B, S, H, hd), f(B, S, KV, hd), f(B, S, KV, hd_v),
+            f(B, S, H, hd_v))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,hd_v,causal,window", [
+    (2, 19, 4, 4, 24, 16, True, 0), (1, 33, 2, 1, 24, 16, True, 5),
+    (1, 21, 4, 2, 24, 16, False, 0), (1, 40, 2, 2, 192, 128, True, 0),
+    (2, 17, 2, 1, 192, 128, False, 0)])
+def test_cpu_gradients_match_jax_at_mla_pairs(B, S, H, KV, hd, hd_v, causal,
+                                              window):
+    """The plain flash backward at MLA's (q/k, v) pairs, (24, 16) (the
+    reduced deepseek's) and (192, 128): the CPU route's gradients against
+    ``jax.grad`` of ``flash_attention_jnp`` (small chunks) at atol = rtol
+    = 1e-5 (fp32, sums in another order)."""
+    q, k, v, dout = _inputs_qv(B, S, H, KV, hd, hd_v, seed=S + hd)
+    out, grads = _torch_grads(q, k, v, dout, causal, window)
+    assert out.shape == (B, S, H, hd_v)
+    fn = lambda q, k, v: flash_attention_jnp(  # noqa: E731
+        q, k, v, causal=causal, window=window, q_chunk=8, kv_chunk=8)
+    np.testing.assert_allclose(out, np.asarray(jax.jit(fn)(q, k, v)), **TOL)
+    for got, want, name in zip(grads, _jax_grads(fn, q, k, v, dout), "qkv"):
+        assert got.shape == np.asarray(want).shape
+        np.testing.assert_allclose(got, np.asarray(want), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal,window", [
+    (1, 63, 2, 2, True, 0), (1, 65, 4, 4, True, 0), (1, 129, 2, 1, True, 0),
+    (1, 70, 2, 2, False, 0), (1, 90, 2, 2, True, 30)])
+def test_emulated_walk_matches_autograd_at_192_128(B, S, H, KV, causal,
+                                                   window):
+    """The bf16 kernels' walk at q/k 192, v 128 (64-key dK / dV tiles, as
+    at hd 256; dP and dV over v's width): the emulation with P and dS as
+    hi + lo within 2e-5 of each gradient's largest magnitude, and P and dS
+    rounded once beyond 2e-4 (the control)."""
+    q, k, v, dout = (torch.from_numpy(a) for a in
+                     _inputs_qv(B, S, H, KV, 192, 128, seed=S))
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
+    out.backward(dout)
+    lse = _lse_as_the_kernels_write_it(q, k, causal, window)
+    args = (q, k, v, out.detach(), dout, lse, causal, window)
+    want = [t.grad for t in qkv]
+    got = _emulated_bwd(*args)
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in qkv]
+    assert max(_rel(got, want)) <= 2e-5, _rel(got, want)
+    assert min(_rel(_emulated_bwd(*args, lo=False), want)) > 2e-4
+
+
+@pytest.mark.parametrize("hd,hd_v", [(16, 16), (32, 32), (64, 64),
+                                     (128, 128), (256, 256), (192, 128)])
+def test_column_split_gives_each_block_to_one_owner(hd, hd_v):
+    """The dK / dV kernel's two consumer warpgroups: at hd <= 128 each owns
+    every column block of its own 64 keys; past it they share 64 keys and
+    each of dK's and dV's column blocks has exactly one owner, warpgroup 0
+    the first half rounded up (at (192, 128): dK 0-1 and dV 0, then dK 2
+    and dV 1); the shared memory of both kernels fits an SM's 227 KiB."""
+    nk, nv = fbp.column_blocks(hd), fbp.column_blocks(hd_v)
+    parts = [fbp.column_split(hd, hd_v, w) for w in (0, 1)]
+    if fbp.key_tile(hd) == fbp.KEY_TILE:
+        assert parts == [(0, nk, 0, nv)] * 2
+    else:
+        for first, n, total in ((0, 1, nk), (2, 3, nv)):
+            owned = [c for part in parts
+                     for c in range(part[first], part[first] + part[n])]
+            assert owned == list(range(total))
+            assert parts[0][n] == -(-total // 2) and parts[1][n] >= 1
+    if (hd, hd_v) == (192, 128):
+        assert parts == [(0, 2, 0, 1), (2, 1, 1, 1)]
+    assert max(fbp.dkdv_smem(hd, hd_v), fbp.dq_smem(hd, hd_v)) <= 232448
+
+
+def test_kernel_source_builds_the_mla_pairs():
+    """The backward's C entry point dispatches MLA's pairs, (192, 128) on
+    both routes and (24, 16) on the CUDA cores, and its plans are the
+    mirror's (``KvPlan`` / ``DqPlan`` over both widths)."""
+    from repro_torch.kernels import build
+    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "return launch_dtype<192, 128>(dtype, p, B, st);" in text
+    assert "return launch_dtype<24, 16>(dtype, p, B, st);" in text
+    assert "KvPlan<192, 128>::SMEM" in text
+    assert "DqPlan<192, 128>::SMEM" in text
+    assert "if constexpr (HD % 16 == 0 && DV % 16 == 0)" in text
+    assert "NK0 = SPLIT_COLS ? (T::NCB + 1) / 2 : T::NCB;" in text
+    assert kernels.FLASH_QK_V_DIMS == {(192, 128): (torch.float32,
+                                                    torch.bfloat16),
+                                       (24, 16): (torch.float32,)}
+
+
 @pytest.mark.parametrize("kernel", ["dkdv", "dq"])
 @pytest.mark.parametrize("S,G,hd,causal,window", [
     (1, 1, 128, True, 0), (64, 2, 128, True, 0), (129, 2, 128, True, 0),
@@ -380,9 +473,9 @@ def test_kernel_route_binds_forward_and_backward(fake_card, dtype, hd):
     assert out.grad_fn is not None and fake_card["fwd"][1][7] is not None
     out.backward(torch.ones_like(out))
     (args,) = fake_card["bwd"]
-    assert args[:2] == (kernels.DTYPE_CODE[dtype], hd)
-    assert args[12:19] == (B, S, S, KV, H // KV, 1, 7)
-    assert args[19] == pytest.approx(1.0 / math.sqrt(hd))
+    assert args[:3] == (kernels.DTYPE_CODE[dtype], hd, hd)
+    assert args[13:20] == (B, S, S, KV, H // KV, 1, 7)
+    assert args[20] == pytest.approx(1.0 / math.sqrt(hd))
     assert qg.grad.shape == q.shape and kg.grad.shape == k.shape
     assert vg.grad.dtype == dtype
     assert kernels.LAUNCHES["flash_attention"] == 2
@@ -390,13 +483,38 @@ def test_kernel_route_binds_forward_and_backward(fake_card, dtype, hd):
 
 
 def test_backward_refuses_dims_it_has_no_kernel_for(fake_card):
+    """MLA's (q/k, v) pairs take the backward kernel in each dtype their
+    forward is built for (the C entry point gets both widths, dq and dk
+    are q/k's width and dv v's); a pair in a dtype with no kernel ((24,
+    16) in bf16) and a masked call at a query offset (Queue 2 item 12)
+    still raise before anything launches."""
     ops.reset_counts()
-    for hq, hv in ((192, 128), (24, 16)):           # MLA's pairs
-        q = torch.zeros(1, 4, 2, hq, requires_grad=True)
-        k = torch.zeros(1, 4, 2, hq)
-        v = torch.zeros(1, 4, 2, hv)
-        with pytest.raises(NotImplementedError, match="Queue 2, item 10"):
-            ops.flash_attention(q, k, v)
+    cases = [(192, 128, torch.float32), (192, 128, torch.bfloat16),
+             (24, 16, torch.float32)]
+    for hq, hv, dtype in cases:
+        q = torch.zeros(1, 4, 2, hq, dtype=dtype, requires_grad=True)
+        k = torch.zeros(1, 4, 2, hq, dtype=dtype, requires_grad=True)
+        v = torch.zeros(1, 4, 2, hv, dtype=dtype, requires_grad=True)
+        out = ops.flash_attention(q, k, v)
+        assert out.shape == (1, 4, 2, hv) and out.grad_fn is not None
+        out.backward(torch.ones_like(out))
+        assert q.grad.shape == q.shape and k.grad.shape == k.shape
+        assert v.grad.shape == v.shape and v.grad.dtype == dtype
+        assert fake_card["bwd"][-1][:3] == (kernels.DTYPE_CODE[dtype], hq,
+                                            hv)
+        assert fake_card["fwd"][-1][:3] == (kernels.DTYPE_CODE[dtype], hq,
+                                            hv)
+    assert kernels.LAUNCHES["flash_attention"] == len(cases)
+    assert kernels.LAUNCHES["flash_attention_bwd"] == len(cases)
+    ops.reset_counts()
+    q = torch.zeros(1, 4, 2, 24, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match=r"\(24, 16\) in torch.bfloat16"):
+        ops.flash_attention(q, q.detach(), torch.zeros(1, 4, 2, 16,
+                                                       dtype=torch.bfloat16))
+    q = torch.zeros(1, 4, 2, 192, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+        ops.flash_attention(q, torch.zeros(1, 8, 2, 192),
+                            torch.zeros(1, 8, 2, 128))
     assert set(kernels.LAUNCHES.values()) == {0}
 
 
@@ -412,9 +530,10 @@ def test_backward_wrapper_takes_cuda_tensors_only():
 
 
 def test_other_kernel_ops_refuse_inputs_that_require_grad(fake_card):
-    """No op returns a CUDA tensor without a grad_fn: the ops with no
-    backward kernel raise on the kernel route, naming their item, before
-    they launch anything."""
+    """No op returns a CUDA tensor without a grad_fn: the serving-only ops,
+    which have no backward kernel, raise on the kernel route, naming their
+    item, before they launch anything (the scans' backward kernels are
+    tests/test_torch_scan_grad.py's)."""
     g = lambda *s: torch.zeros(*s, requires_grad=True)  # noqa: E731
     lengths = torch.ones(2, dtype=torch.int32)
     bt = torch.zeros(2, 2, dtype=torch.int32)
@@ -430,9 +549,6 @@ def test_other_kernel_ops_refuse_inputs_that_require_grad(fake_card):
         (11, lambda: ops.pair_score({"W": g(8, 8), "w": g(16),
                                      "bias": torch.zeros(())},
                                     g(3, 8), g(4, 8))),
-        (9, lambda: ops.ssm_scan(g(1, 3, 4), g(1, 3, 4), g(1, 3, 2),
-                                 g(1, 3, 2), g(4, 2), g(4))),
-        (9, lambda: ops.linear_scan(g(1, 3, 4), g(1, 3, 4), g(1, 4))),
     ]
     ops.reset_counts()
     for item, call in cases:

@@ -387,7 +387,9 @@ def test_cpu_route_counts_plain_calls_only():
                                "flash_attention": 1, "decode_attention": 1,
                                "pair_score": 1, "ssm_scan": 1,
                                "mla_decode_attention": 1,
-                               "flash_attention_bwd": 0}
+                               "flash_attention_bwd": 0,
+                               "linear_scan_bwd": 0,
+                               "selective_scan_bwd": 0}
     assert set(kernels.LAUNCHES.values()) == {0}
     assert pa.LAUNCHES is kernels.LAUNCHES
     ops.reset_counts()
