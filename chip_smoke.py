@@ -1084,6 +1084,11 @@ def phase_kernels():
     # every other check, each on its own generator
     _scan_bwd_checks(torch.Generator(device=dev).manual_seed(33), dev, stats)
     _mla_bwd_checks(torch.Generator(device=dev).manual_seed(34), dev, stats)
+    # the flash backward at a query offset (seqtp training) and the forward
+    # at an offset at MLA's widths, after every other check, on its own
+    # generator
+    _offset_bwd_checks(torch.Generator(device=dev).manual_seed(34 + 1), dev,
+                       stats)
     return stats
 
 
@@ -3291,25 +3296,28 @@ def _offset_keep(S, T, window, dev, causal=True):
     return keep[None]
 
 
-def _offset_flash(gen, dev, arch, heads, hd, S, T, window):
+def _offset_flash(gen, dev, arch, heads, hd, S, T, window, hd_v=None):
     """bf16 flash at a query offset (S queries over T >= S keys) against
     the plain version with the bf16 rule and its control, kernel, plain
     and SDPA times, and the bound from the (query, key) pairs the mask
     lets through.  Causal, SDPA takes ``causal_lower_right(S, T)`` on its
     fused backends, with K/V expanded to H heads beforehand (that path
     takes no ``enable_gqa``); a window has no fused form, and SDPA takes
-    the band as a boolean mask."""
+    the band as a boolean mask.  ``hd_v``: v's head dim where it is not
+    q/k's (MLA's 128 beside 192)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels import ops, ref
     (H, KV), bf = heads, torch.bfloat16
+    hd_v = hd_v or hd
     sets = [[_randn(gen, sh, bf, dev) for sh in
-             ((1, S, H, hd), (1, T, KV, hd), (1, T, KV, hd))]
+             ((1, S, H, hd), (1, T, KV, hd), (1, T, KV, hd_v))]
             for _ in range(3)]
     q, k, v = sets[0]
     name = (f"flash at a query offset {arch} (1, S {S} over T {T}) H={H} "
-            f"KV={KV} hd={hd} window={window}")
+            f"KV={KV} hd={hd}{f' hd_v={hd_v}' if hd_v != hd else ''} "
+            f"window={window}")
     want = ref.flash_attention_ref(*_f32(q, k, v), causal=True,
                                    window=window)
     err, share = _compare(name, ops.flash_attention(q, k, v, causal=True,
@@ -3330,10 +3338,11 @@ def _offset_flash(gen, dev, arch, heads, hd, S, T, window):
             return F.scaled_dot_product_attention(*a, attn_mask=band)
     _library_close(name, library(sd[0]).transpose(1, 2), want)
     pairs = int(keep.sum())
-    w = _work().flash_attention(1, S, T, H, KV, hd, window=window)
-    check(w.flops == 4 * hd * H * pairs,
+    w = _work().flash_attention(1, S, T, H, KV, hd, hd_v=hd_v,
+                                window=window)
+    check(w.flops == 2 * (hd + hd_v) * H * pairs,
           f"{name}: kernels/work.py counts {w.flops} operations, the mask "
-          f"{4 * hd * H * pairs}")
+          f"{2 * (hd + hd_v) * H * pairs}")
     st = _stats(
         err, w,
         _time_ms([lambda s=s: ops.flash_attention(*s, causal=True,
@@ -3391,6 +3400,204 @@ def _offset_flash_checks(gen, dev):
         st = _offset_flash(gen, dev, arch, heads, hd, S, T, window)
         first = first or st
     return first
+
+
+#: the flash backward at a query offset, at the sequence-sharded
+#: training's shapes (the second rank of two): internlm2-1.8b's heads on
+#: the gathered route, causal, S 2,048 over T 4,096; gemma3-4b's local
+#: heads on the halo route, window 1,024, S 1,024 over T 1,024 + 1,024;
+#: MLA's (q/k, v) (192, 128) at deepseek-v2-lite-16b's 16 heads on the
+#: gathered route, S 2,048 over T 4,096.  (label, (H, KV), hd, hd_v, S,
+#: T, window); B 1
+OFFSET_BWD_SHAPES = (("internlm2-1.8b", (16, 8), 128, 128, 2048, 4096, 0),
+                     ("gemma3-4b local", (8, 4), 256, 256, 1024, 2048,
+                      1024),
+                     ("deepseek-v2-lite-16b MLA", (16, 16), 192, 128, 2048,
+                      4096, 0))
+#: the offset backward's grid: (S, T) pairs across the dK / dV kernel's
+#: 128- and 64-key tiles and the 64-row row tiles (shifts 1, 63, 64, 65,
+#: 700), x causal / window 48 / both, x each (hd, hd_v) the forward takes
+#: (bf16 on wgmma, fp32 on the CUDA cores; (24, 16) in fp32 only), G 2
+OFFSET_BWD_GRID = ((63, 64), (65, 129), (64, 128), (130, 195), (200, 900))
+OFFSET_BWD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256),
+                   (192, 128), (24, 16))
+
+
+def _offset_plain_grads(q, k, v, dout, causal, window, aligned=False):
+    """Autograd through the plain attention in fp32 with the queries at
+    the last S of the T key positions: (out, lse, (dq, dk, dv)); with
+    ``aligned``, the control whose queries sit at positions 0 .. S - 1
+    (the T = S masks a kernel without the shift would apply)."""
+    import torch
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    q32, k32, v32 = (t.detach().float().requires_grad_(True)
+                     for t in (q, k, v))
+    keep = _offset_keep(S, T, window, q.device, causal)[0]
+    if aligned:
+        keep = _offset_keep(S, S, window, q.device, causal)[0]
+        keep = torch.cat([keep, keep.new_zeros(S, T - S)], 1) if causal \
+            else torch.cat([keep, keep.new_ones(S, T - S)], 1)
+    qg = q32.reshape(B, S, KV, H // KV, hd)
+    sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k32) / math.sqrt(hd)
+    sc = torch.where(keep, sc, -2.0e38)
+    lse = torch.logsumexp(sc, -1).permute(0, 3, 1, 2).reshape(B, S, H)
+    out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(sc, -1),
+                       v32).reshape(B, S, H, v.shape[-1])
+    grads = torch.autograd.grad(out, (q32, k32, v32), dout.float())
+    return out.detach(), lse.detach(), grads
+
+
+def _offset_bwd_case(name, q, k, v, dout, causal, window):
+    """The backward kernel at a query offset against the plain fp32
+    gradients at GRAD_REL, its lse at LSE_TOL, a second call bit for bit,
+    and the control (the same masks without the shift) beyond the limit
+    in each of dq, dk and dv.  Returns (the largest reading, the
+    control's smallest, the largest absolute error)."""
+    import torch
+    dname = str(q.dtype).split(".")[1]
+    limit = GRAD_REL[dname]
+    _, lse, got = _kernel_grads(q, k, v, dout, causal, window)
+    _, want_lse, want = _offset_plain_grads(q, k, v, dout, causal, window)
+    readings = _grad_readings(got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    check(all(torch.isfinite(g.float()).all() for g in got),
+          f"flash bwd offset {name}: non-finite gradient")
+    check(max(max(r) for r in readings) <= limit and lse_err <= LSE_TOL,
+          f"flash bwd offset {name}: dq/dk/dv off the plain fp32 gradients "
+          f"by {_show(readings)} of each one's largest (mean) magnitude "
+          f"(limit {limit}); lse off by {lse_err:.3e} (limit {LSE_TOL})")
+    again = _kernel_grads(q, k, v, dout, causal, window)[2]
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash bwd offset {name}: a second call gave other bits")
+    ctl = _grad_readings(_offset_plain_grads(q, k, v, dout, causal, window,
+                                             aligned=True)[2], want)
+    # causal, each of dq, dk and dv must move past the limit; a window
+    # alone at a shift of 1 moves each query's band by one key of 48, so
+    # there the largest of the three must
+    moved = [r[0] > limit for r in ctl]
+    check(all(moved) if causal else any(moved),
+          f"flash bwd offset {name}: the control without the shift moves "
+          f"dq/dk/dv by only {_show(ctl)}; the limit {limit} cannot see it")
+    err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+    return max(max(r) for r in readings), max(r[0] for r in ctl), err
+
+
+def _sdpa_mask_bwd(sets, mask):
+    """SDPA's backward on ``sets`` ((q, k, v) in SDPA's (B, H, S, hd)
+    layout with K/V expanded to H heads, dout) under ``attn_mask`` (a
+    ``causal_lower_right`` bias or a boolean band), under each fused
+    backend that takes it, else the math one; returns (the fastest's ms,
+    its name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for backend in [getattr(SDPBackend, b) for b in (
+            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+            "MATH") if hasattr(SDPBackend, b)]:
+        if times and backend.name == "MATH":
+            break
+
+        def fwd(q, k, v, b=backend):
+            with sdpa_kernel(b):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+        try:
+            leaves = [t.detach().requires_grad_(True) for t in sets[0][0]]
+            torch.autograd.grad(fwd(*leaves), leaves, sets[0][1])
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        times[backend.name] = _time_bwd_ms(fwd, sets)
+    check(times, "SDPA backward at a query offset: every backend refused")
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def _offset_bwd_checks(gen, dev, stats):
+    """The flash backward at a query offset (``ops.flash_attention`` under
+    grad, T > S under a mask: the sequence-sharded training's gathered
+    and halo routes): the grid of (S, T) x masks x head dims in bf16 and
+    fp32 against the plain gradients with the unshifted control, then
+    the three training shapes timed beside the bound, the plain version's
+    autograd and SDPA's backward (PERF.md row 8d); and the forward at an
+    offset at MLA's (192, 128) (row 3l)."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels import ops, ref
+    n, worst, ctl_min = 0, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        for hd, hd_v in OFFSET_BWD_DIMS:
+            if dtype == torch.bfloat16 and (hd, hd_v) == (24, 16):
+                continue
+            for S, T in OFFSET_BWD_GRID:
+                for causal, window in ((True, 0), (False, 48), (True, 48)):
+                    q = _randn(gen, (1, S, 4, hd), dtype, dev)
+                    k = _randn(gen, (1, T, 2, hd), dtype, dev)
+                    v = _randn(gen, (1, T, 2, hd_v), dtype, dev)
+                    dout = _randn(gen, (1, S, 4, hd_v), dtype, dev)
+                    r, c, _ = _offset_bwd_case(
+                        f"{key} hd=({hd}, {hd_v}) S={S} T={T} "
+                        f"causal={causal} window={window}", q, k, v, dout,
+                        causal, window)
+                    worst[key] = max(worst.get(key, 0.0), r)
+                    ctl_min[key] = min(ctl_min.get(key, math.inf), c)
+                    n += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] flash bwd at a query offset: {n} checks, (S, T) "
+          f"{list(OFFSET_BWD_GRID)} x causal / window 48 / both x (hd, "
+          f"hd_v) {list(OFFSET_BWD_DIMS)} (G 2; (24, 16) fp32 only) passed: "
+          f"worst reading fp32 {worst['float32']:.2e} (limit "
+          f"{GRAD_REL['float32']}), bf16 {worst['bfloat16']:.2e} (limit "
+          f"{GRAD_REL['bfloat16']}); the control without the shift moves "
+          f"the gradients by at least fp32 {ctl_min['float32']:.2e}, bf16 "
+          f"{ctl_min['bfloat16']:.2e} of their largest (each of dq, dk, dv "
+          f"past the limit where causal); second calls identical",
+          flush=True)
+    first = None
+    for label, (H, KV), hd, hd_v, S, T, window in OFFSET_BWD_SHAPES:
+        bf = torch.bfloat16
+        sets = [[_randn(gen, sh, bf, dev) for sh in
+                 ((1, S, H, hd), (1, T, KV, hd), (1, T, KV, hd_v),
+                  (1, S, H, hd_v))] for _ in range(3)]
+        name = (f"{label} (1, S {S} over T {T}) H={H} KV={KV} hd=({hd}, "
+                f"{hd_v}) window={window}")
+        reading, ctl, err = _offset_bwd_case(name, *sets[0], True, window)
+        r32 = _offset_bwd_case(name + " fp32", *_f32(*sets[0]), True,
+                               window)[0]
+        kernel_sets = [(st[:3], st[3]) for st in sets]
+        ms = _time_bwd_ms(lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=True, window=window), kernel_sets)
+        plain_ms = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), kernel_sets, iters=3)
+        G = H // KV
+        sd = [([st[0].transpose(1, 2).contiguous()] +
+               [t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+                for t in st[1:3]], st[3].transpose(1, 2).contiguous())
+              for st in sets]
+        mask = (_offset_keep(S, T, window, dev)[:, None] if window
+                else causal_lower_right(S, T))
+        library_ms, backend = _sdpa_mask_bwd(sd, mask)
+        w = _work().flash_attention_bwd(1, S, T, H, KV, hd, hd_v=hd_v,
+                                        window=window)
+        st = _stats(err, w, ms, plain_ms, library_ms)
+        first = first or st
+        print(f"[kernels] flash_attention_bwd at a query offset, {name}, "
+              f"bf16: readings within {reading:.2e} (limit "
+              f"{GRAD_REL['bfloat16']}; fp32 {r32:.2e}, limit "
+              f"{GRAD_REL['float32']}), unshifted control {ctl:.2e}; "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (SDPA {backend}, "
+              f"{'a boolean band' if window else 'causal_lower_right'}) "
+              f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}: "
+              f"{w.flops / 1e9:.2f} GFLOP, {w.bytes / 1e6:.1f} MB)",
+              flush=True)
+    stats["flash_attention_bwd_offset"] = first
+    stats["flash_attention_offset_mla"] = _offset_flash(
+        gen, dev, "deepseek-v2-lite-16b MLA", (16, 16), 192, 2048, 4096, 0,
+        hd_v=128)
 
 
 def _pair_inputs(gen, dev, N, M, d, dtype, wdtype=None):
@@ -6277,6 +6484,7 @@ def _train_full_width(smi):
 
     import torch
     from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
@@ -6298,8 +6506,18 @@ def _train_full_width(smi):
     try:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_counts()
+        real_save = Checkpointer.save
+
+        def save_resume_step(self, step, tree):
+            # the step-4 checkpoint, which the resumed run reads; the
+            # final one (18.9 GB) nothing reads, and writing it took ~20 s
+            # of a one-card run that must stay under 1,200 s
+            if step == TRAIN_RESUME:
+                real_save(self, step, tree)
+
         t0 = time.perf_counter()
-        run = train(cfg, ckpt_dir=str(tmp / "run"), on_step=show, **kw)
+        with mock.patch.object(Checkpointer, "save", save_resume_step):
+            run = train(cfg, ckpt_dir=str(tmp / "run"), on_step=show, **kw)
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -6326,9 +6544,9 @@ def _train_full_width(smi):
         torch.cuda.empty_cache()
         print(f"[train] (b) internlm2-1.8b full width ({params:,} "
               f"parameters, bf16; fp32 moments), B {TRAIN_B} x S {TRAIN_S}, "
-              f"remat none, {TRAIN_STEPS} steps in {wall:.1f}s (init, "
-              f"checkpoints at steps {TRAIN_CKPT_EVERY} and {TRAIN_STEPS} "
-              f"and the final wait included): {tok_s:,.0f} tokens/s over "
+              f"remat none, {TRAIN_STEPS} steps in {wall:.1f}s (init, the "
+              f"step-{TRAIN_RESUME} checkpoint and the final wait "
+              f"included): {tok_s:,.0f} tokens/s over "
               f"steps 1-{TRAIN_STEPS - 1} (step 0: {hist[0]['ms']:.1f} ms), "
               f"peak {peak:.2f} GiB allocated ({held:.2f} GiB held before "
               f"the run); launches: flash forward "
@@ -6344,7 +6562,12 @@ def _train_full_width(smi):
         (resume / "LATEST").write_text(str(TRAIN_RESUME))
         shutil.rmtree(tmp / "run")
         t0 = time.perf_counter()
-        again = train(cfg, ckpt_dir=str(resume), **kw)["history"]
+        # the resumed run writes no checkpoint of its own: the restore is
+        # what it checks, and its 18.9 GB write took ~30 s of a one-card
+        # run that must stay under 1,200 s
+        with mock.patch.object(Checkpointer, "save",
+                               lambda self, step, tree: None):
+            again = train(cfg, ckpt_dir=str(resume), **kw)["history"]
         first, want = again[0], hist[TRAIN_RESUME + 1]
         check(first["step"] == want["step"] and
               first["loss"] == want["loss"],
@@ -7205,6 +7428,37 @@ MD_TP_REDUCED_S, MD_TP_REDUCED_DECODE = 64, 16
 #: The control (layer 0's wo sum left out, so the residual stream misses
 #: half that layer's attention output) must exceed it.
 MD_TP_REL = 2 * math.sqrt(2 * 24) * 2 ** -8
+#: (j): the coupled kinds' sequence-sharded prefill at full width, B 1 x
+#: S 4,096 over 2 ranks against the one-rank prefill
+MD_COUPLED_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
+                    "deepseek-v2-lite-16b")
+#: (k): the six reduced fp32 models under seqtp, B 2 x S 1,024
+MD_REDUCED_SEQ_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
+                        "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b",
+                        "internlm2-1.8b", "gemma3-4b")
+#: (l): internlm2-1.8b trained under seqtp on (1, 2), (h)'s batches (B 2
+#: x S 1,024, split 2 x 512): two replicas of the weights, the gradients
+#: and Adam's moments at ~22 bytes a parameter (PERF.md section 5) are
+#: 83 GB at its 24 layers, past the 80 GB card, so the config keeps 12
+#: (1.14 B parameters, ~25 GB a rank, beside the activations and the
+#: one-rank reference's process).  (h) and (i) train the same 12 layers
+#: against the same one-rank steps: at 24 they took ~50 s of
+#: a one-card run that must stay under 1,200 s
+MD_SEQ_TRAIN_LAYERS = 12
+
+
+def _md_coupled_rel(n_layers: int) -> float:
+    """(j)'s bf16 limit on the last logits and on every cache leaf, each
+    of its largest magnitude against the one-rank prefill: a layer's
+    mixer output differs from the one-rank run's by up to one bf16
+    rounding (u = 2^-8 of its magnitude), where flash at a query offset
+    sums its key tiles in another order, a shard's scan starts from the
+    folded carry instead of the state it reached, and the products' row
+    counts pick other GEMM tilings; the residual stream carries those
+    moves on as independent errors (the norms keep them relative),
+    sqrt(L) u, and the limit is twice that (MD_TP_REL's rule, one
+    rounding a layer)."""
+    return 2 * math.sqrt(n_layers) * 2 ** -8
 
 
 def phase_multidevice():
@@ -7215,9 +7469,12 @@ def phase_multidevice():
     against a one-rank run made here first), (e) internlm2-1.8b's
     sequence-sharded prefill, (f) the fp32 reduced gemma3-4b under seqtp,
     (g) internlm2-1.8b served under ``tp`` on (1, 2), (h) trained under
-    ``tp`` on (1, 2), (i) under ``fsdp_tp`` on (2, 1), each against a
-    one-rank run made here first.  Every check runs in the ranks; a rank
-    that fails fails the phase."""
+    ``tp`` on (1, 2), (i) under ``fsdp_tp`` on (2, 1), (j) falcon-mamba-7b,
+    recurrentgemma-2b and deepseek-v2-lite-16b's sequence-sharded
+    prefills at full width, (k) six reduced fp32 models served and
+    trained under seqtp, (l) internlm2-1.8b trained under seqtp, each
+    against a one-rank run made here first.  Every check runs in the
+    ranks; a rank that fails fails the phase."""
     import gc
 
     import torch
@@ -7227,8 +7484,9 @@ def phase_multidevice():
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
     t0 = time.perf_counter()
-    ref = {"dp": _md_dp_reference(), "tp": _md_tp_reference(tmp)}
-    print(f"[multi] one-rank references of (d) and (g)-(i) in "
+    ref = {"dp": _md_dp_reference(), "tp": _md_tp_reference(tmp),
+           "seq": _md_seq_reference(tmp)}
+    print(f"[multi] one-rank references of (d), (g)-(j) and (l) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7289,7 +7547,7 @@ def _md_dp_reference():
 
 
 def _md_rank(rank, ref):
-    """One rank's body: (a) to (f) in order, each timed."""
+    """One rank's body: (a) to (l) in order, each timed."""
     import torch
     from repro_torch.launch.mesh import compat_make_mesh
     dev = torch.device("cuda", 0)
@@ -7300,7 +7558,9 @@ def _md_rank(rank, ref):
                       ("c", _md_compressed), ("d", _md_dp),
                       ("e", _md_seqtp_full), ("f", _md_seqtp_reduced),
                       ("g", _md_tp_serve), ("h", _md_tp_train),
-                      ("i", _md_fsdp_train)):
+                      ("i", _md_fsdp_train), ("j", _md_seqtp_coupled),
+                      ("k", _md_seqtp_reduced_train),
+                      ("l", _md_seqtp_train)):
         t0 = time.perf_counter()
         fn(rank, mesh, ref)
         torch.cuda.synchronize()
@@ -7639,6 +7899,12 @@ def _md_dp(rank, mesh, ref):
     del params, opt
 
 
+def _md_no_routes():
+    """``SEQSHARD_ROUTES`` with no layer call on any route."""
+    from repro_torch.models import attention as attn
+    return {k: 0 for k in attn.SEQSHARD_ROUTES}
+
+
 def _md_seqtp_full(rank, mesh, ref):
     """(e) internlm2-1.8b at full width under seqtp: rank 0's seeded
     weights shipped by ``place_params``, a B 1 x S 4,096 prefill split
@@ -7693,7 +7959,7 @@ def _md_seqtp_full(rank, mesh, ref):
     want_shape = (S_loc, S_loc * (rank + 1))
     check(launches == {"flash_attention": cfg.n_layers} and
           shapes == [want_shape] * cfg.n_layers and
-          attn.SEQSHARD_ROUTES == {"halo": 0, "gather": cfg.n_layers},
+          attn.SEQSHARD_ROUTES == dict(_md_no_routes(), gather=cfg.n_layers),
           f"(e) rank {rank}: launches {launches}, flash (S, T) "
           f"{sorted(set(shapes))}, routes {attn.SEQSHARD_ROUTES}")
     _md_say(rank, f"(e) internlm2-1.8b seqtp prefill B 1 x S {MD_SEQ_S}: "
@@ -7755,8 +8021,9 @@ def _md_seqtp_reduced(rank, mesh, ref):
             out[label] = tfm.forward(params, cfg, tokens=toks)[0]
         routes = dict(attn.SEQSHARD_ROUTES)
         n_local = sum(k == "L" for g in cfg.groups for k in g.pattern)
-        want = {"halo": n_local, "gather": cfg.n_layers - n_local} \
-            if m is not None else {"halo": 0, "gather": 0}
+        want = dict(_md_no_routes(), **(
+            {"halo": n_local, "gather": cfg.n_layers - n_local}
+            if m is not None else {}))
         check(routes == want, f"(f) {label}: routes {routes}, want {want}")
     d_plain = float((out["kernel"] - out["plain"]).abs().max())
     d_one = float((out["kernel"] - out["one"]).abs().max())
@@ -7868,9 +8135,9 @@ def _md_train_ref(cfg, params, batches, mesh=None, policy="broadcast",
 def _md_tp_reference(tmp):
     """One rank, in this process: (g)'s prefill logits, caches and greedy
     tokens at full width (bf16), the fp32 reduced model's greedy tokens
-    and 3 AdamW steps, and (h) / (i)'s 2 steps at full width, written to
-    ``tmp`` (the caches are 402 MB: a path crosses to the ranks, not the
-    tensors)."""
+    and 3 AdamW steps, written to ``tmp`` (the caches are 402 MB: a path
+    crosses to the ranks, not the tensors); (h) / (i)'s 2 steps are
+    ``_md_seq_reference``'s."""
     import gc
 
     import torch
@@ -7880,7 +8147,7 @@ def _md_tp_reference(tmp):
     dev = torch.device("cuda", 0)
     cfg = get_config("internlm2-1.8b")
     params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    prompts, batches = _md_tp_inputs(cfg, dev)
+    prompts, _ = _md_tp_inputs(cfg, dev)
     logits, caches, toks, pre_ms, dec_ms = _md_greedy(cfg, params, prompts,
                                                       MD_TP_DECODE)
     print(f"[multi] (g) one-rank reference: prefill B {MD_TP_B} x S "
@@ -7889,13 +8156,7 @@ def _md_tp_reference(tmp):
     ref = {"logits": logits.cpu(), "tokens": toks.cpu(),
            "caches": [[{k: v[:, :, :MD_TP_S].cpu() for k, v in c.items()}
                        for c in g] for g in caches]}
-    del caches
-    hist, _, _ = _md_train_ref(cfg, params, batches)
-    ref["train"] = [(loss, gnorm) for loss, gnorm, _, _ in hist]
-    print(f"[multi] (h)/(i) one-rank reference: B {MD_TP_TRAIN_B} x S "
-          f"{MD_TP_TRAIN_S}, (loss, grad norm) {ref['train']}, ms "
-          f"{[round(h[2], 1) for h in hist]}", flush=True)
-    del params, hist
+    del caches, params
     gc.collect()
     torch.cuda.empty_cache()
     rcfg, rparams = _reduced_two_layers("internlm2-1.8b")
@@ -8079,10 +8340,11 @@ def _md_tp_serve(rank, mesh, ref):
 
 
 def _md_tp_train(rank, mesh, ref):
-    """(h) internlm2-1.8b trained under ``tp`` on (1, 2): 2 AdamW steps
-    of B 2 x S 1,024 against the one-rank steps (MD_DP_LOSS_REL /
-    MD_DP_GNORM_REL), 24 flash forward and 24 backward launches a step a
-    rank; then the fp32 reduced model's 3 steps against one rank."""
+    """(h) internlm2-1.8b (MD_SEQ_TRAIN_LAYERS of its 24 layers) trained
+    under ``tp`` on (1, 2): 2 AdamW steps of B 2 x S 1,024 against the
+    one-rank steps (MD_DP_LOSS_REL / MD_DP_GNORM_REL), a flash forward
+    and backward launch a layer and step a rank; then the fp32 reduced
+    model's 3 steps against one rank."""
     _md_weight_sharded_train(rank, mesh, ref, "h", (1, MD_WORLD), "tp")
 
 
@@ -8097,21 +8359,21 @@ def _md_weight_sharded_train(rank, mesh, ref, label, shape, policy):
     import gc
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.broadcast import place_params
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import weights
     dev = mesh.device
     m = compat_make_mesh(shape, ("data", "model"))
     want = torch.load(ref["tp"])
-    cfg = get_config("internlm2-1.8b")
+    want_train = torch.load(ref["seq"])["train"]
+    cfg = _md_seq_train_cfg()
     params, _, mine, jax_count, whole = _md_place_whole(cfg, dev, m, policy)
     check(mine == jax_count, f"({label}) rank {rank}: {mine} bytes, "
                              f"per_chip_bytes {jax_count}")
     _, batches = _md_tp_inputs(cfg, dev)
     hist, params, opt = _md_train_ref(cfg, params, batches, m, policy)
-    for i, ((loss, gnorm, ms, launches), (rl, rg)) in enumerate(
-            zip(hist, want["train"])):
+    for i, ((loss, gnorm, ms, launches), (rl, rg, _)) in enumerate(
+            zip(hist, want_train)):
         dl, dg = abs(loss - rl) / abs(rl), abs(gnorm - rg) / abs(rg)
         check(dl <= MD_DP_LOSS_REL and dg <= MD_DP_GNORM_REL and
               launches == {"flash_attention": cfg.n_layers,
@@ -8120,8 +8382,10 @@ def _md_weight_sharded_train(rank, mesh, ref, label, shape, policy):
               f"({dl:.2e}), grad norm {gnorm} vs {rg} ({dg:.2e}), "
               f"launches {launches}")
         if rank == 0:
-            _md_say(rank, f"({label}) internlm2-1.8b {policy} on {shape} "
-                          f"step {i}: loss={loss:.6f} (one rank {rl:.6f}, "
+            _md_say(rank, f"({label}) internlm2-1.8b ({cfg.n_layers} of 24 "
+                          f"layers: the one-card run's time) {policy} on "
+                          f"{shape} step {i}: loss={loss:.6f} (one rank "
+                          f"{rl:.6f}, "
                           f"rel {dl:.2e}) grad_norm={gnorm:.4f} (one rank "
                           f"{rg:.4f}, rel {dg:.2e}) ms={ms:.1f}; launches "
                           f"{launches}")
@@ -8210,6 +8474,326 @@ def phase_list(stats, launches, smi):
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(f"[kernels] {len(kernels)} ported kernels on {smi}")
     print(json.dumps({"kernels": kernels}))
+
+
+
+# ----------------------------------------------------------------------
+# (j)-(l): every layer kind under seqtp, served and trained
+def _md_seq_prompt(cfg, dev):
+    import torch
+    return torch.randint(0, cfg.vocab, (1, MD_SEQ_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(21),
+                         dtype=torch.int32)
+
+
+def _md_seq_train_cfg():
+    from repro_torch.configs import ScanGroup, get_config
+    cfg = get_config("internlm2-1.8b")
+    return cfg.replace(n_layers=MD_SEQ_TRAIN_LAYERS,
+                       groups=(ScanGroup(("A",), MD_SEQ_TRAIN_LAYERS),))
+
+
+def _md_seq_reference(tmp):
+    """One rank, in this process: (j)'s prefills of the three coupled
+    archs at full width (the last logits and every cache leaf) and (l)'s
+    2 AdamW steps, written to ``tmp``."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import flatten_with_paths
+    dev = torch.device("cuda", 0)
+    ref = {}
+    for arch in MD_COUPLED_ARCHS:
+        cfg = get_config(arch)
+        params = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+        caches = tfm.init_caches(cfg, 1, MD_SEQ_S, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = tfm.prefill(params, cfg,
+                                         _md_seq_prompt(cfg, dev), caches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref[arch] = {"logits": logits[0, -1].float().cpu(), "ms": ms,
+                     "caches": {k: v.cpu() for k, v in
+                                flatten_with_paths(caches).items()}}
+        print(f"[multi] (j) one-rank reference: {arch} prefill B 1 x S "
+              f"{MD_SEQ_S} {ms:.1f}ms", flush=True)
+        del params, caches, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = _md_seq_train_cfg()
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    _, batches = _md_tp_inputs(cfg, dev)
+    hist = _md_train_ref(cfg, params, batches)[0]
+    ref["train"] = [(loss, gnorm, ms) for loss, gnorm, ms, _ in hist]
+    print(f"[multi] (l) one-rank reference: internlm2-1.8b cut to "
+          f"{MD_SEQ_TRAIN_LAYERS} layers, B {MD_TP_TRAIN_B} x S "
+          f"{MD_TP_TRAIN_S}: (loss, grad norm, ms) {ref['train']}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB (this "
+          f"process since it started)", flush=True)
+    del params, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = tmp / "seq_reference.pt"
+    torch.save(ref, path)
+    return str(path)
+
+
+def _md_seqtp_coupled(rank, mesh, ref):
+    """(j) falcon-mamba-7b, recurrentgemma-2b and deepseek-v2-lite-16b at
+    full width under seqtp on (1, 2): every rank draws the same seeded
+    weights (a replica each: 2 x 31.4 GB for deepseek's bf16 tree fits
+    the card), a B 1 x S 4,096 prefill split 2 x 2,048 through the
+    carry, latent and MoE routes, against the one-rank prefill: the same
+    greedy token, the last logits and every cache leaf within
+    ``_md_coupled_rel`` of their largest magnitude."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import flatten_with_paths
+    dev = mesh.device
+    sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    want_all = torch.load(ref["seq"])
+    for arch in MD_COUPLED_ARCHS:
+        want = want_all[arch]
+        cfg = get_config(arch)
+        params = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+        caches = tfm.init_caches(cfg, 1, MD_SEQ_S, dev)
+        for key in attn.SEQSHARD_ROUTES:
+            attn.SEQSHARD_ROUTES[key] = 0
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with use_sharding(sm, "seqtp"), torch.no_grad():
+            logits, caches = tfm.prefill(params, cfg,
+                                         _md_seq_prompt(cfg, dev), caches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        routes = _md_expected_routes(cfg, MD_SEQ_S // MD_WORLD)
+        check(dict(attn.SEQSHARD_ROUTES) == routes and
+              not any(ops.PLAIN_CALLS.values()),
+              f"(j) {arch} rank {rank}: routes {attn.SEQSHARD_ROUTES}, want "
+              f"{routes}; plain calls {ops.PLAIN_CALLS}")
+        rel = _md_coupled_rel(cfg.n_layers)
+        last = logits[0, -1].float().cpu()
+        lg = _md_rel(last, want["logits"])
+        got_c = {k: v.cpu() for k, v in flatten_with_paths(caches).items()}
+        check(set(got_c) == set(want["caches"]),
+              f"(j) {arch}: cache leaves {sorted(got_c)}")
+        worst, at = 0.0, None
+        for k, v in got_c.items():
+            w = want["caches"][k]
+            if not v.is_floating_point():
+                check(torch.equal(v, w), f"(j) {arch}: cache {k} differs")
+                continue
+            r = _md_rel(v, w)
+            worst, at = (r, k) if r > worst else (worst, at)
+        top = torch.topk(want["logits"], 2).values
+        tok, tok1 = int(last.argmax()), int(want["logits"].argmax())
+        check(tok == tok1 and lg <= rel and worst <= rel,
+              f"(j) {arch} rank {rank}: greedy {tok} vs one-rank {tok1} "
+              f"(top-2 gap {float(top[0] - top[1]):.3e}), last logits off "
+              f"by {lg:.3e}, cache {at} by {worst:.3e} of their largest "
+              f"(limit {rel:.4f})")
+        if rank == 0:
+            _md_say(rank, f"(j) {arch} seqtp prefill B 1 x S {MD_SEQ_S} on "
+                          f"(1, {MD_WORLD}): wall={wall:.1f}ms (one rank "
+                          f"{want['ms']:.1f}ms), launches {launches}, "
+                          f"routes {dict(attn.SEQSHARD_ROUTES)}; greedy "
+                          f"token {tok} on both (top-2 gap "
+                          f"{float(top[0] - top[1]):.3e}), last logits "
+                          f"within {lg:.3e}, every cache leaf within "
+                          f"{worst:.3e} ({at}) of their largest (limit "
+                          f"{rel:.4f} = 2 sqrt({cfg.n_layers}) 2^-8); peak "
+                          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+                          f"GiB (this rank's process since it started)")
+        del params, caches, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _md_expected_routes(cfg, S_loc):
+    """The sequence-sharded route of each layer of one pass of ``cfg``:
+    kinds S and R the carry, MLA the latent, MoE its own beside its
+    attention, a local layer whose window fits the shard the halo, every
+    other attention the gathered K/V."""
+    out = {"halo": 0, "gather": 0, "latent": 0, "carry": 0, "moe": 0}
+    for g in cfg.groups:
+        for kind in g.pattern:
+            n = g.repeats
+            if kind in ("S", "R"):
+                out["carry"] += n
+            if kind == "R":
+                continue
+            if kind == "M":
+                out["moe"] += n
+            if kind == "M" and cfg.kv_lora_rank:
+                out["latent"] += n
+            elif kind == "L" and cfg.window and cfg.window <= S_loc:
+                out["halo"] += n
+            elif kind != "S":
+                out["gather"] += n
+    return out
+
+
+def _md_seqtp_reduced_train(rank, mesh, ref):
+    """(k) the six reduced fp32 models (falcon-mamba-7b, recurrentgemma-2b,
+    deepseek-v2-lite-16b, qwen3-moe-30b-a3b, internlm2-1.8b, gemma3-4b)
+    under seqtp on (1, 2) at B 2 x S 1,024: a forward and 2 AdamW steps
+    through the kernels (the flash backward at a query offset, the scans'
+    backwards under the carry), through the plain versions, and through
+    the kernels on one rank; the kernel run's logits, metrics and
+    parameters against the other two (MD_FP32_TOL, TRAIN_RTOL and
+    ``_md_adam_close``'s rule), its routes and its backward launches
+    checked."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.sharding import use_sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_paths, tree_map
+    dev = mesh.device
+    sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    for arch in MD_REDUCED_SEQ_ARCHS:
+        cfg, params0 = _reduced_two_layers(arch)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        toks = [torch.randint(0, cfg.vocab, (2, 1024), device=dev,
+                              generator=gen, dtype=torch.int32)
+                for _ in range(3)]
+        out = {}
+        for label, plain, m in (("kernel", False, sm), ("plain", True, sm),
+                                ("one", False, None)):
+            for key in attn.SEQSHARD_ROUTES:
+                attn.SEQSHARD_ROUTES[key] = 0
+            ops.reset_counts()
+            params = tree_map(torch.clone, params0)
+            opt = adamw_init(params)
+            fn = steps.make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                       total=TRAIN_TOTAL, mesh=m,
+                                       policy="seqtp")
+            hist = []
+            with use_sharding(m, "seqtp"), _forced_plain(plain):
+                with torch.no_grad():
+                    logits = tfm.forward(params, cfg, tokens=toks[0])[0]
+                for b in toks[1:]:
+                    params, opt, mt = fn(params, opt, {"tokens": b})
+                    hist.append((float(mt["loss"]), float(mt["grad_norm"]),
+                                 0.0, None))
+            out[label] = (logits, hist, params, opt,
+                          dict(attn.SEQSHARD_ROUTES),
+                          {k: v for k, v in kernels.LAUNCHES.items() if v},
+                          {k: v for k, v in ops.PLAIN_CALLS.items() if v})
+        logits, hist, params, _, routes, launches, plain_calls = out["kernel"]
+        want = {k: 3 * v for k, v in _md_expected_routes(cfg, 512).items()}
+        bwd = [k for k, on in (
+            ("flash_attention_bwd", any(
+                kind not in "SR" for g in cfg.groups for kind in g.pattern)),
+            ("selective_scan_bwd", any("S" in g.pattern
+                                       for g in cfg.groups)),
+            ("linear_scan_bwd", any("R" in g.pattern for g in cfg.groups)))
+            if on]
+        check(routes == want and not plain_calls and
+              all(launches.get(k, 0) > 0 for k in bwd) and
+              out["plain"][4] == want and out["one"][4] == {
+                  k: 0 for k in want},
+              f"(k) {arch} rank {rank}: routes {routes} (want {want}), "
+              f"launches {launches}, plain calls {plain_calls}")
+        d = {lab: float((logits - out[lab][0]).abs().max())
+             for lab in ("plain", "one")}
+        check(all(torch.allclose(logits, out[lab][0], atol=MD_FP32_TOL,
+                                 rtol=MD_FP32_TOL) for lab in d),
+              f"(k) {arch} rank {rank}: logits vs plain {d['plain']:.3e}, "
+              f"vs one rank {d['one']:.3e}")
+        close = {}
+        for lab in ("plain", "one"):
+            _, h2, p2, o2 = out[lab][:4]
+            close[lab] = _md_adam_close(
+                rank, "k", hist, params,
+                ([(a, b) for a, b, _, _ in h2],
+                 {k: v.cpu() for k, v in flatten_with_paths(p2).items()},
+                 {k: v.cpu() for k, v in flatten_with_paths(o2.v).items()}))
+        if rank == 0:
+            _md_say(rank, f"(k) fp32 reduced {arch} ({cfg.n_layers} layers) "
+                          f"seqtp B 2 x S 1024: forward logits vs plain "
+                          f"{d['plain']:.3e}, vs one rank {d['one']:.3e} "
+                          f"(atol=rtol={MD_FP32_TOL}); 2 AdamW steps: "
+                          f"metrics within {close['plain'][0]:.2e} / "
+                          f"{close['one'][0]:.2e} of plain / one rank (limit "
+                          f"{TRAIN_RTOL}), parameters at "
+                          f"{close['plain'][1]:.3f} / {close['one'][1]:.3f} "
+                          f"of their limit; routes {routes}; kernel launches "
+                          f"{launches}")
+
+
+def _md_seqtp_train(rank, mesh, ref):
+    """(l) internlm2-1.8b (cut to MD_SEQ_TRAIN_LAYERS layers) trained
+    under seqtp on (1, 2): (h)'s 2 AdamW steps of B 2 x S 1,024, each
+    rank its 512 positions, flash and its backward at a query offset on
+    the gathered route, against the one-rank steps (MD_DP_LOSS_REL /
+    MD_DP_GNORM_REL)."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    dev = mesh.device
+    sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
+    want = torch.load(ref["seq"])["train"]
+    cfg = _md_seq_train_cfg()
+    # every rank draws the same seeded tree: the replica seqtp keeps
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    _, batches = _md_tp_inputs(cfg, dev)
+    for key in attn.SEQSHARD_ROUTES:
+        attn.SEQSHARD_ROUTES[key] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist, params, opt = _md_train_ref(cfg, params, batches, sm, "seqtp")
+    L = cfg.n_layers
+    check(attn.SEQSHARD_ROUTES == dict(_md_no_routes(),
+                                       gather=L * len(batches)),
+          f"(l) rank {rank}: routes {attn.SEQSHARD_ROUTES}")
+    for i, ((loss, gnorm, ms, launches), (rl, rg, rms)) in enumerate(
+            zip(hist, want)):
+        dl, dg = abs(loss - rl) / abs(rl), abs(gnorm - rg) / abs(rg)
+        check(dl <= MD_DP_LOSS_REL and dg <= MD_DP_GNORM_REL and
+              launches == {"flash_attention": L, "flash_attention_bwd": L},
+              f"(l) rank {rank} step {i}: loss {loss} vs {rl} ({dl:.2e}), "
+              f"grad norm {gnorm} vs {rg} ({dg:.2e}), launches {launches}")
+        if rank == 0:
+            _md_say(rank, f"(l) internlm2-1.8b ({L} of 24 layers: two "
+                          f"trained replicas of 24 would not fit 80 GB) "
+                          f"seqtp on "
+                          f"(1, {MD_WORLD}) step {i}: loss={loss:.6f} (one "
+                          f"rank {rl:.6f}, rel {dl:.2e}) grad_norm="
+                          f"{gnorm:.4f} (one rank {rg:.4f}, rel {dg:.2e}) "
+                          f"ms={ms:.1f} (one rank {rms:.1f}); launches "
+                          f"{launches}")
+    if rank == 0:
+        _md_say(rank, f"(l) this rank's peak during (l) "
+                      f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+                      f"GiB")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,13 @@ default the mesh of the current sharding context
 both gloo and NCCL take on CUDA tensors (gloo moves them through the
 host).  The tensor-parallel layers use the differentiable forms
 :func:`tp_enter`, :func:`tp_reduce`, :func:`tp_gather` and
-:func:`tp_reduce_scatter`.  Gloo has no CUDA ``send`` / ``recv``, so
+:func:`tp_reduce_scatter`; the sequence-sharded layers (``seqtp``)
+:func:`tp_gather` (K/V, MLA's latent), :func:`halo_cat` (the halo
+shift), :func:`shard_scan` (a recurrence's state passed rank to rank)
+and :func:`seq_gather_same` /
+:func:`seq_sum_same` (a tensor every rank then uses whole, identically:
+the last hidden states, the router's mean probability).  Gloo has no
+CUDA ``send`` / ``recv``, so
 :func:`ppermute_next`, JAX's ``ppermute`` over the pairs (i, i + 1), is
 an all-gather of every
 rank's rows of which each rank keeps its predecessor's.  A bool tensor
@@ -268,6 +274,178 @@ class _Scatter(torch.autograd.Function):
     def backward(ctx, g):
         return all_gather(g.contiguous(), ctx.axis, dim=ctx.dim,
                           mesh=ctx.mesh), None, None, None
+
+
+class _HaloCat(torch.autograd.Function):
+    """The previous rank's last ``rows`` rows of ``x`` (B, S_loc, ...)
+    before ``x``'s own along dim 1 (:func:`ppermute_next`); rank 0 puts
+    zeros there where ``zeros_first``, else returns ``x`` as it is.
+    Backward: each rank's gradient of the rows it received goes back to
+    the rank they came from and is added to its last ``rows`` rows.  The
+    output always holds ``x``, so every rank runs the backward's
+    collective, rank 0 included."""
+
+    @staticmethod
+    def forward(ctx, x, rows, zeros_first, axis, mesh):
+        ctx.rows, ctx.axis, ctx.mesh = rows, axis, mesh
+        h = ppermute_next(x[:, -rows:].contiguous(), axis, mesh)
+        ctx.prepended = mesh.axis_index(axis) > 0 or zeros_first
+        return torch.cat([h, x], dim=1) if ctx.prepended else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, rows = ctx.mesh, ctx.rows
+        i, n = m.axis_index(ctx.axis), m.axis_size(ctx.axis)
+        if ctx.prepended:
+            gh, gx = g[:, :rows], g[:, rows:]
+        else:
+            gh, gx = torch.zeros_like(g[:, -rows:]), g
+        every = all_gather(gh.contiguous(), ctx.axis, dim=0, tiled=False,
+                           mesh=m)
+        if i + 1 < n:
+            gx = torch.cat([gx[:, :-rows], gx[:, -rows:] + every[i + 1]],
+                           dim=1)
+        return gx, None, None, None, None
+
+
+class _Carry(torch.autograd.Function):
+    """The carry of a diagonal recurrence into this rank's shard: from
+    every rank's affine map h -> P_r h + F_r of its shard (gathered), c_0
+    = 0 and c_{r+1} = P_r c_r + F_r, folded in rank order.  Backward, the
+    fold's adjoint from this rank's carry back to every earlier rank's P
+    and F, summed over the ranks (each rank gets the sum of the gradients
+    of its own P and F).  ``through`` passes as it is: each rank routes
+    through it a tensor that its result depends on (rank 0, whose carry
+    is zero, its output; every other rank its second scan's input: the
+    last rank's P and F, read by no rank, need no gradient), so that the
+    Function is in every rank's graph and every rank runs the backward's
+    collective (:func:`shard_scan`)."""
+
+    @staticmethod
+    def forward(ctx, P, F, through, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        every = all_gather(torch.stack([P, F]).contiguous(), axis, dim=0,
+                           tiled=False, mesh=mesh)
+        c = torch.zeros_like(F)
+        for r in range(mesh.axis_index(axis)):
+            c = every[r, 0] * c + every[r, 1]
+        ctx.save_for_backward(every)
+        return c, through.view_as(through)
+
+    @staticmethod
+    def backward(ctx, gc, gt):
+        (every,) = ctx.saved_tensors
+        i = ctx.mesh.axis_index(ctx.axis)
+        cs = [torch.zeros_like(every[0, 1])]
+        for r in range(i):
+            cs.append(every[r, 0] * cs[-1] + every[r, 1])
+        grads = torch.zeros_like(every)
+        lam = gc
+        for r in range(i - 1, -1, -1):
+            grads[r, 1] = lam
+            grads[r, 0] = lam * cs[r]
+            lam = lam * every[r, 0]
+        own = psum(grads, ctx.axis, ctx.mesh)[i]
+        return own[0], own[1], gt, None, None
+
+
+def halo_cat(x: torch.Tensor, rows: int, axis="model", mesh=None,
+             zeros_first: bool = False) -> torch.Tensor:
+    """The previous rank's last ``rows`` rows of ``x`` (B, S_loc, ...)
+    along ``axis`` concatenated before ``x``'s own on dim 1, differentiably
+    (the halo of a sequence shard: a local attention's keys, a causal
+    conv's inputs); rank 0 has no previous rank and gets zeros where
+    ``zeros_first`` (a conv's zero padding), else ``x`` alone."""
+    m = _mesh(mesh)
+    if m.axis_size(axis) == 1:
+        return torch.cat([torch.zeros_like(x[:, :rows]), x], dim=1) \
+            if zeros_first else x
+    return _HaloCat.apply(x, rows, zeros_first, axis, m)
+
+
+def shard_scan(scan: Callable, x: torch.Tensor, P: torch.Tensor,
+               axis="model", mesh=None):
+    """``(out, h_final)`` of this rank's shard of a diagonal recurrence
+    h_t = a_t h_{t-1} + b_t split over ``axis``, where ``scan(x, h0)``
+    runs the shard from the state ``h0`` (None: zeros) and ``P`` is the
+    product of the shard's a_t: each shard is the affine map h -> P h + F
+    (F its final state from zeros); every rank's (P, F) is all-gathered
+    and folded in rank order into the state entering each shard, c_0 = 0
+    (:class:`_Carry`, differentiable), and a shard is scanned again from
+    it.  Rank 0, whose carry is zero, and the last rank, whose F no rank
+    reads, scan once; every other rank twice."""
+    m = _mesh(mesh)
+    i, n = m.axis_index(axis), m.axis_size(axis)
+    if i == n - 1:
+        out0, F = None, torch.zeros_like(P)
+    else:
+        out0, F = scan(x, None)
+    # rank 0's output, and the other ranks' scan input, pass through the
+    # carry, so that it is in every rank's graph
+    c, through = _Carry.apply(P, F, x if i else out0, axis, m)
+    if i == 0:
+        return through, F
+    return scan(through, c)
+
+
+class _GatherSame(torch.autograd.Function):
+    """Every rank's block along ``dim`` forward, a tensor every rank then
+    uses whole in the same way (so the gradient reaching it is the same on
+    every rank); backward, the reduce-scatter of that gradient, which is
+    ``n`` times this rank's block of it: no collective."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return all_gather(x.contiguous(), axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.axis_size(ctx.axis)
+        return (local_block(g, ctx.axis, ctx.mesh, ctx.dim) * n
+                ).contiguous(), None, None, None
+
+
+class _SumSame(torch.autograd.Function):
+    """The sum over ``axis`` of every rank's ``x`` forward, a tensor every
+    rank then uses in the same way; backward, the sum of the ranks' equal
+    gradients, ``n`` times this rank's: no collective."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.n = mesh.axis_size(axis)
+        return psum(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None
+
+
+def seq_gather_same(x: torch.Tensor, axis, dim: int,
+                    mesh=None) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``axis``, concatenated on
+    ``dim``, for a caller whose every rank goes on to compute the same
+    function of the whole (the sequence-sharded forward's last hidden
+    states, before the head and a loss every rank computes whole).  Its
+    backward is :func:`tp_gather`'s reduce-scatter, taken without a
+    collective: each rank's gradient is the same, so the sum over the
+    ranks of this rank's block is ``n`` times its own.  A step that sums
+    the replicated leaves' gradients over ``axis`` weights each rank's by
+    ``1 / n`` (``launch/steps.py``), which leaves the head's leaves, each
+    rank's the whole gradient, counted once."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _GatherSame.apply(
+        x, axis, dim % x.dim(), m)
+
+
+def seq_sum_same(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``x``, for a caller whose
+    every rank uses it in the same way (the router's mean probability
+    under ``seqtp``): backward, ``n`` times the gradient, the sum of the
+    ranks' equal ones, without a collective (:func:`seq_gather_same`'s
+    rule)."""
+    m = _mesh(mesh)
+    return x if m.axis_size(axis) == 1 else _SumSame.apply(x, axis, m)
 
 
 def tp_enter(x: torch.Tensor, axis="model", mesh=None) -> torch.Tensor:

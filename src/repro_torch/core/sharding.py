@@ -295,11 +295,11 @@ def fsdp_gather(tree, axes_tree):
 
 def batch_axes() -> Tuple[str, ...]:
     """The mesh axes the batch's rows are split over under the current
-    context, where each rank holds its own rows (every policy but
-    ``seqtp``, whose callers give every rank the whole batch); ``()``
-    where they are not split."""
+    context, where each rank holds its own rows (under ``seqtp`` the data
+    axes, ``model`` taking the sequence); ``()`` where they are not
+    split."""
     ctx = current_ctx()
-    if ctx is None or ctx.policy == "seqtp":
+    if ctx is None:
         return ()
     m = ctx.rules.get("batch") or ()
     axes = (m,) if isinstance(m, str) else tuple(m)

@@ -11,13 +11,17 @@
 // two as one torch.autograd.Function -> repro_flash_attention_bwd.
 //
 // Layouts are the forward's: q and dq (B, S, H, hd), out and dout (B, S,
-// H, hd_v); k and dk (B, T, KV, hd), v and dv (B, T, KV, hd_v), T = S but
-// for a cross attention, which has neither mask; hd_v = hd, or MLA's
-// narrower v (the forward's pairs: (192, 128) on both routes, (24, 16) in
-// fp32); lse and delta (B, S, H) fp32; head h = kvh * G + g.  Rows
-// are the (query, head) pairs r = s * G + g of one (b, kv head).  Query s
-// sees key t iff t < T, t <= s when causal, and t > s - window when
-// window > 0 (the forward's masks).  From the forward's natural
+// H, hd_v); k and dk (B, T, KV, hd), v and dv (B, T, KV, hd_v): T keys,
+// any T for a cross attention (neither mask), T >= S under a mask, the
+// queries then the last S of the T positions (a sequence shard's queries
+// over the keys up to its last); hd_v = hd, or MLA's narrower v (the
+// forward's pairs: (192, 128) on both routes, (24, 16) in fp32); lse and
+// delta (B, S, H) fp32; head h = kvh * G + g.  Rows are the (query,
+// head) pairs r = s * G + g of one (b, kv head).  Query s sits at key
+// position a = s + T - S and sees key t iff t < T, t <= a when causal,
+// and t > a - window when window > 0 (the forward's masks,
+// DenseSrc::bounds).  A key no query sees (t <= T - S - window under a
+// window) gets dK = dV = 0.  From the forward's natural
 // log-sum-exp lse of each row's scaled scores, all in fp32:
 //   D  = rowsum(dO * O)                         flash_bwd_delta_kernel
 //   P  = exp(s * scale - lse), 0 where masked
@@ -47,12 +51,14 @@
 //   dout viewed as (B, S, KV, G, hd).  TMA never writes the stage rows
 //   past nq * gt; they are zeroed once at the start (0 * NaN is NaN).
 // - dK / dV: grid (B * KV, key tiles of BWD_KEY_TILE keys, 64 at hd 256),
-//   the first key tiles, the heaviest under causal masking, first.  384
+//   the first key tiles, the heaviest under causal masking (at a query
+//   offset the keys before it, which every query sees), first.  384
 //   threads: a producer warpgroup (one working warp; setmaxnreg gives its
 //   registers to the consumers) and two consumer warpgroups.  The
 //   producer loads the tile's K and V once, then streams the row tiles
-//   that see any of its keys (from query k0 under causal masking, up to
-//   the tile's last key + window - 1 under a window) through a ring of
+//   that see any of its keys (key_queries: from the query at key
+//   position k0 under causal masking, up to the one at the tile's last
+//   key + window - 1 under a window) through a ring of
 //   NST stages: Q and dO by TMA, and the rows' -lse / scale and -D by
 //   plain loads into the stage, which every lane's arrival on the
 //   stage's "full" barrier publishes.  With the keys as M and the rows as
@@ -123,18 +129,29 @@ struct BwdParams {
   void* dv;
   int S, KV, G, causal, window;
   float scale;
-  int T;                        // keys: S but for a cross attention
+  int T;                        // keys
+  int qoff;                     // T - S: query s at key position s + qoff
   // bf16's row tiles (BwdPlan below): gt heads of nq queries, heads in
   // ngb blocks; the dQ kernel's row tiles
   int gt, nq, ngb, n_row_tiles;
 };
 
-// the keys lo <= t <= hi query s sees
+// the keys lo <= t <= hi query s sees (DenseSrc::bounds)
 __device__ __forceinline__ int key_lo(const BwdParams& p, int s) {
-  return p.window ? max(s - p.window + 1, 0) : 0;
+  return p.window ? max(s + p.qoff - p.window + 1, 0) : 0;
 }
 __device__ __forceinline__ int key_hi(const BwdParams& p, int s) {
-  return p.causal ? s : p.T - 1;
+  return p.causal ? s + p.qoff : p.T - 1;
+}
+
+// the queries [lo, hi] that see a key of [t0, t_end): causal, a >= t0;
+// a window, a < t_end - 1 + window; empty (lo > hi) where none does
+__device__ __forceinline__ int2 key_queries(const BwdParams& p, int t0,
+                                            int t_end) {
+  const int shift = p.qoff;
+  return make_int2(p.causal ? max(t0 - shift, 0) : 0,
+                   p.window ? min(p.S - 1, t_end - 1 - shift + p.window - 1)
+                            : p.S - 1);
 }
 
 // Shared memory of the dK/dV and dQ kernels at q/k head dim HD and v head
@@ -323,11 +340,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   const int t0 = blockIdx.y * BT, t_end = min(t0 + BT, p.T);
   load_keys<HD>(ks, p.k, p, b, kvh, t0, t_end);
   load_keys<DV>(vs, p.v, p, b, kvh, t0, t_end);
-  // the rows that see any key of the tile
-  const int s_lo = p.causal ? t0 : 0;
-  const int s_hi = p.window ? min(p.S - 1, t_end - 1 + p.window - 1)
-                            : p.S - 1;
-  const int r_end = (s_hi + 1) * p.G;
+  // the rows that see any key of the tile (none where sq.y < sq.x)
+  const int2 sq = key_queries(p, t0, t_end);
+  const int s_lo = sq.x;
+  const int r_end = (sq.y + 1) * p.G;
   // thread (j, c0): key j, columns c0 + 32c
   const int j = threadIdx.x >> 3, c0 = (threadIdx.x & 7) * 4;
   float4 dk[Cols<HD>::N], dv[Cols<DV>::N];
@@ -638,17 +654,18 @@ __device__ __forceinline__ void dkdv_consume(
     const int s1 = min(s0 + p.nq, p.S) - 1;   // the tile's last query
     mbar_wait(full(st), (i / L::NST) & 1);
     // Masks only where some pair of the tile is not visible.  Key t sees
-    // the rows n (query s0 + n / gt) with from <= n < to: causal, n >= (t
-    // - s0) gt; a window, n < (t - s0 + window) gt; keys >= T none.  Held
-    // as from - 2 tq and to - 2 tq, against the thread's row offsets,
-    // which are constants
+    // the rows n (query s0 + n / gt, at key position s0 + n / gt + T - S)
+    // with from <= n < to: causal, n >= (t - s0 - qoff) gt; a window, n
+    // < (t - s0 - qoff + window) gt; keys >= T none.  Held as from - 2 tq
+    // and to - 2 tq, against the thread's row offsets, which are
+    // constants
     const bool masked = kw0 < DenseSrc::bounds(p, b, s1).x ||
                         kw0 + TILE - 1 > DenseSrc::bounds(p, b, s0).y;
     int from[2] = {0, 0}, to[2] = {0, 0};
     if (masked) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int key = my_key + 8 * h, d = key - s0;
+        const int key = my_key + 8 * h, d = key - s0 - p.qoff;
         from[h] = (p.causal ? d * p.gt
                             : key < p.T ? 0 : TILE) - 2 * tq;
         to[h] = (p.window ? min(d + p.window, TILE) * p.gt : TILE * TILE) -
@@ -779,12 +796,11 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
   const int bkv = blockIdx.x, b = bkv / p.KV, kvh = bkv - b * p.KV;
   const int key0 = blockIdx.y * L::KEYS;
   const int key_end = min(key0 + L::KEYS, p.T);
-  // the queries that see a key of the tile: [s_lo, s_hi]
-  const int s_lo = p.causal ? key0 : 0;
-  const int s_hi =
-      p.window ? min(p.S - 1, key_end - 1 + p.window - 1) : p.S - 1;
-  const int qt0 = s_lo / p.nq;
-  const int n_tiles = (s_hi / p.nq - qt0 + 1) * p.ngb;
+  // the queries [sq.x, sq.y] that see a key of the tile, none where sq.y
+  // < sq.x (the tile's dK and dV are then zeros)
+  const int2 sq = key_queries(p, key0, key_end);
+  const int qt0 = sq.x / p.nq;
+  const int n_tiles = sq.y >= sq.x ? (sq.y / p.nq - qt0 + 1) * p.ngb : 0;
   const int rows_used = p.nq * p.gt;
 
   if (threadIdx.x == 0) {
@@ -1098,8 +1114,9 @@ int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
 // 16) in fp32; q, dq (B, S, H, hd), out, dout (B, S, H, hd_v), k, dk (B,
 // T, KV, hd), v, dv (B, T, KV, hd_v); lse: the forward's (B, S, H) fp32
 // log-sum-exp; delta: (B, S, H) fp32 scratch; dq, dk, dv: outputs in the
-// inputs' dtype; S: queries, T: keys (T != S only with causal = window =
-// 0); causal: 0 or 1; window: 0 for none; scale: the forward's.
+// inputs' dtype; S: queries, T: keys (T >= S under a mask, query s at key
+// position s + T - S; any T with causal = window = 0); causal: 0 or 1;
+// window: 0 for none; scale: the forward's.
 // Launches three kernels on ``stream``: bf16 the tensor-core kernels, fp32
 // the CUDA-core ones.  Returns cudaGetLastError() after the first that
 // fails (0 on success), -1 for a dtype or head dims it has no kernel for,
@@ -1112,7 +1129,7 @@ extern "C" int repro_flash_attention_bwd(
     int G, int causal, int window, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   BwdParams p = {q, k, v, out, dout, lse, delta, dq, dk, dv,
-                 S, KV, G, causal, window, scale, T};
+                 S, KV, G, causal, window, scale, T, T - S};
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 192 && hd_v == 128)
     return launch_dtype<192, 128>(dtype, p, B, st);

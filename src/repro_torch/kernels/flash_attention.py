@@ -155,28 +155,17 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
     return _forward(q, k, v, causal, window)
 
 
-def check_bwd_dims(q, k, v, causal: bool, window: int) -> None:
-    """The backward is built for every head-dim pair and dtype of the
-    forward (hd = hd_v in :data:`repro_torch.kernels.HEAD_DIMS`, and the
-    pairs of :data:`repro_torch.kernels.FLASH_QK_V_DIMS`, which
-    :func:`check_args` checks), and under a mask for T = S only: a masked
-    call at a query offset raises ``NotImplementedError`` naming the
-    ROADMAP item that adds it."""
-    if (causal or window) and k.shape[1] != q.shape[1]:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no backward kernel at a query offset "
-            f"({q.shape[1]} masked queries over {k.shape[1]} keys): "
-            f"ROADMAP.md, Queue 2, item 12 (the backward of the sequence-"
-            f"sharded prefill)")
-
-
 def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
                              window: int):
     """The gradients (dq, dk, dv) of :func:`flash_attention_bshd`'s output
     ``out`` for the upstream gradient ``dout`` (B,S,H,hd_v), from the
     forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
     (B,T,KV,hd) and dv (B,T,KV,hd_v) sum over each kv head's G query
-    heads; hd_v is hd or one of MLA's pairs.  In q's dtype, fp32 inside.
+    heads; hd_v is hd or one of MLA's pairs.  It takes every call the
+    forward takes (:func:`check_args`): T keys other than the S queries
+    with no mask, and T >= S under a mask, query s then at key position s
+    + T - S (a sequence shard's); a key that no query sees gets zero
+    gradients.  In q's dtype, fp32 inside.
     bf16 runs the kernels on ``wgmma`` (P and dS as bf16 hi + lo), fp32
     the kernels on the CUDA cores: the C entry point picks them by the
     dtype code.  CUDA tensors only; one call is three
@@ -184,7 +173,6 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
     check_args(q, k, v, window, causal)
-    check_bwd_dims(q, k, v, causal, window)
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
     B, S, H, hd = q.shape
@@ -224,7 +212,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        check_bwd_dims(q, k, v, causal, window)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, causal, window, lse)
         ctx.save_for_backward(q, k, v, out, lse)

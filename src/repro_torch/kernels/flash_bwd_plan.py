@@ -13,10 +13,14 @@ kernel gives a CTA one row tile and walks the 64-key tiles its queries
 see (:func:`dq_keys`).  A (64-key, row tile) pair is masked pair by pair
 only where some pair of it is not visible (:func:`tile_masked`).
 
-Keys count T, which is S but for a cross attention (whisper's decoder
-over its encoder states, neither mask): the dK / dV grid runs over the T
-keys, the dQ grid and the row tiles over the S queries.  Every function
-that takes S takes ``T`` too, None for T = S.
+Keys count T: any T for a cross attention (whisper's decoder over its
+encoder states, neither mask), T >= S under a mask, where the S queries
+are the last S of the T positions (query s at key position s + T - S: a
+sequence shard's queries over the keys up to its last, the gathered and
+halo routes of ``models/attention.seqshard_attn_forward``).  The dK / dV
+grid runs over the T keys, the dQ grid and the row tiles over the S
+queries.  Every function that takes S takes ``T`` too, None for T = S;
+those that take a query position take its ``shift`` T - S.
 
 v may be narrower than q/k (MLA's (192, 128)): the products over q/k's
 width (S, dK, dQ) take hd's column blocks, those over v's (dP, dV)
@@ -116,19 +120,23 @@ def row_tile(rt: int, S: int, G: int) -> Tuple[int, int, int, int]:
     return qi * nq, min(qi * nq + nq, S), gb * gt, min(gb * gt + gt, G)
 
 
-def bounds(s: int, T: int, causal: bool, window: int) -> Tuple[int, int]:
-    """The keys lo <= t <= hi query s sees among T keys
-    (``DenseSrc::bounds``)."""
-    return (max(s - window + 1, 0) if window else 0,
-            s if causal else T - 1)
+def bounds(s: int, T: int, causal: bool, window: int,
+           shift: int = 0) -> Tuple[int, int]:
+    """The keys lo <= t <= hi query s, at key position s + ``shift``,
+    sees among T keys (``DenseSrc::bounds``)."""
+    a = s + shift
+    return (max(a - window + 1, 0) if window else 0,
+            a if causal else T - 1)
 
 
 def dkdv_queries(k0: int, S: int, hd: int, causal: bool, window: int,
                  T: Optional[int] = None) -> Tuple[int, int]:
-    """The queries [s_lo, s_hi] that see a key of the key tile from k0."""
-    k1 = min(k0 + key_tile(hd), S if T is None else T)
-    s_lo = k0 if causal else 0
-    s_hi = min(S - 1, k1 - 1 + window - 1) if window else S - 1
+    """The queries [s_lo, s_hi] that see a key of the key tile from k0
+    (``key_queries``); s_hi < s_lo where none does."""
+    T = S if T is None else T
+    k1, shift = min(k0 + key_tile(hd), T), T - S
+    s_lo = max(k0 - shift, 0) if causal else 0
+    s_hi = min(S - 1, k1 - 1 - shift + window - 1) if window else S - 1
     return s_lo, s_hi
 
 
@@ -137,6 +145,8 @@ def dkdv_row_tiles(k0: int, S: int, G: int, hd: int, causal: bool,
     """The row tiles the key tile from k0 walks, in order."""
     _, nq, ngb, _ = row_tiles(S, G)
     s_lo, s_hi = dkdv_queries(k0, S, hd, causal, window, T)
+    if s_hi < s_lo:
+        return []
     return list(range(s_lo // nq * ngb, (s_hi // nq + 1) * ngb))
 
 
@@ -145,28 +155,29 @@ def dq_keys(rt: int, S: int, G: int, causal: bool, window: int,
     """The first keys of the 64-key tiles row tile ``rt`` walks."""
     T = S if T is None else T
     s0, s1, _, _ = row_tile(rt, S, G)
-    beg = bounds(s0, T, causal, window)[0]
-    end = bounds(s1 - 1, T, causal, window)[1] + 1
+    beg = bounds(s0, T, causal, window, T - S)[0]
+    end = bounds(s1 - 1, T, causal, window, T - S)[1] + 1
     t0 = beg - beg % SUB_TILE
     return list(range(t0, end, SUB_TILE)) if end > beg else []
 
 
 def tile_masked(kw0: int, s0: int, s1: int, T: int, causal: bool,
-                window: int) -> bool:
+                window: int, shift: int = 0) -> bool:
     """Whether the pair (keys kw0 .. kw0 + 63, queries [s0, s1)) is masked
     pair by pair: some query of it does not see every key (keys >= T
     included)."""
-    return (kw0 < bounds(s1 - 1, T, causal, window)[0] or
-            kw0 + SUB_TILE - 1 > bounds(s0, T, causal, window)[1])
+    return (kw0 < bounds(s1 - 1, T, causal, window, shift)[0] or
+            kw0 + SUB_TILE - 1 > bounds(s0, T, causal, window, shift)[1])
 
 
 def key_rows(key: int, s0: int, gt: int, T: int, causal: bool,
-             window: int) -> Tuple[int, int]:
+             window: int, shift: int = 0) -> Tuple[int, int]:
     """The rows from <= n < to of a row tile from query s0 (row n is query
-    s0 + n // gt) that key ``key`` is visible to, as the dK / dV kernel
-    masks a masked pair: causal, n >= (key - s0) gt; a window, n < (key -
-    s0 + window) gt; none for a key >= T."""
-    d = key - s0
+    s0 + n // gt, at key position s0 + n // gt + ``shift``) that key
+    ``key`` is visible to, as the dK / dV kernel masks a masked pair: with
+    d = key - s0 - shift, causal, n >= d gt; a window, n < (d + window)
+    gt; none for a key >= T."""
+    d = key - s0 - shift
     start = d * gt if causal else (0 if key < T else ROW_TILE)
     end = min(d + window, ROW_TILE) * gt if window else ROW_TILE ** 2
     return start, end
@@ -174,9 +185,10 @@ def key_rows(key: int, s0: int, gt: int, T: int, causal: bool,
 
 def visible(S: int, G: int, causal: bool, window: int,
             T: Optional[int] = None) -> np.ndarray:
-    """(S * G, T) bool: row r = s * G + g sees key t."""
+    """(S * G, T) bool: row r = s * G + g, query s at key position s + T
+    - S, sees key t."""
     T = S if T is None else T
-    s = np.arange(S * G)[:, None] // G
+    s = np.arange(S * G)[:, None] // G + (T - S)
     t = np.arange(T)[None, :]
     ok = np.ones((S * G, T), dtype=bool)
     if causal:
@@ -195,20 +207,22 @@ def tile_pairs(kernel: str, kw0: int, rt: int, S: int, G: int,
     :func:`key_rows` of each key, the dQ kernel's keys in each row's
     :func:`bounds`."""
     T = S if T is None else T
+    shift = T - S
     s0, s1, g0, g1 = row_tile(rt, S, G)
     gt = row_tiles(S, G).gt
     n = (np.arange(s1 - s0)[:, None] * gt +
          np.arange(g1 - g0)[None, :]).ravel()      # row in the tile
     rows = s0 * G + n // gt * G + g0 + n % gt
     keys = np.arange(kw0, min(kw0 + SUB_TILE, T))
-    if not tile_masked(kw0, s0, s1, T, causal, window):
+    if not tile_masked(kw0, s0, s1, T, causal, window, shift):
         ok = np.ones((rows.size, keys.size), dtype=bool)
     elif kernel == "dkdv":
-        span = np.array([key_rows(t, s0, gt, T, causal, window)
+        span = np.array([key_rows(t, s0, gt, T, causal, window, shift)
                          for t in keys]).reshape(-1, 2)
         ok = (n[:, None] >= span[None, :, 0]) & (n[:, None] < span[None, :, 1])
     else:
-        lohi = np.array([bounds(s, T, causal, window) for s in rows // G])
+        lohi = np.array([bounds(s, T, causal, window, shift)
+                         for s in rows // G])
         ok = ((keys[None, :] >= lohi[:, :1]) & (keys[None, :] <= lohi[:, 1:]))
     return rows, keys, ok
 

@@ -133,7 +133,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     and ``t > s + T - S - window`` when ``window``; ``causal=False,
     window=0`` is bidirectional (a cross attention at any T).  Both routes
     raise ``ValueError`` on a causal or windowed call at T < S; the
-    backward kernel takes a masked call at T = S only."""
+    backward kernel takes every call the forward takes."""
     if _route("flash_attention", q) == "cpu":
         fa.check_args(q, k, v, window, causal)
         B, S, H, hd = q.shape

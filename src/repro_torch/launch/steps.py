@@ -32,6 +32,15 @@ gather's backward already summed its gradient over them.  The clip's
 global norm sums each leaf's squares over the axes its spec splits.
 The prefill and decode steps run under ``core.sharding.use_sharding(mesh,
 policy)``, which their callers enter, as JAX's do.
+
+Sequence parallelism (``seqtp``): the weights replicated, each rank
+takes its rows over the data axes (JAX's ``"batch"`` rule) and its
+positions over ``model`` (``models/transformer.py``); every rank of
+``model`` computes the whole loss of its rows from the gathered hidden
+states, and its gradients are its share of the replicated leaves' (the
+collectives' backwards route the rest), so every leaf's gradient is
+all-reduced over the data axes and ``model`` with each rank weighted by
+one over their ranks, and the loss over the data axes alone.
 """
 from __future__ import annotations
 
@@ -147,13 +156,7 @@ def value_and_grad(params, cfg, batch):
 
 
 def check_policy(policy: str):
-    """Raise for a training run the port cannot take: ``seqtp`` (Queue 2
-    item 12), or a policy JAX does not have."""
-    if policy == "seqtp":
-        raise NotImplementedError(
-            "training under policy 'seqtp': the flash backward at a query "
-            "offset and the backward of the K/V all-gather are not in the "
-            "port yet: ROADMAP.md, Queue 2, item 12")
+    """Raise for a policy JAX does not have; every one of JAX's trains."""
     _rules(policy, ("data", "model"))
 
 
@@ -204,18 +207,30 @@ def _row_axes(ctx):
     return rows if rows and ctx.mesh.axis_size(rows) > 1 else ()
 
 
+def _grad_axes(ctx):
+    """The axes a replicated leaf's gradient is all-reduced over: the
+    batch's, and under ``seqtp`` ``model`` too (the module docstring)."""
+    rows = _row_axes(ctx)
+    if ctx.policy == "seqtp" and ctx.mesh.axis_size("model") > 1:
+        rows = rows + ("model",)
+    return rows
+
+
 def _mesh_grads(grads, cfg, ctx):
     """Each leaf's gradient over the data axes: a leaf the context's
     specs split there (gathered at its layer's start, its gradient summed
     by that gather's backward) is scaled by one over their ranks; the
-    others are all-reduced over the batch's axes, each rank's weighted by
-    its share of the rows.  Returns ``(grads, shardings)``, the latter
-    the leaves' specs under a weight-sharded policy (else None)."""
+    others are all-reduced over the batch's axes (and under ``seqtp``
+    ``model``), each rank's weighted by one over their ranks.  Returns
+    ``(grads, shardings)``, the latter the leaves' specs under a
+    weight-sharded policy (else None)."""
     mesh = ctx.mesh
+    if ctx.policy not in TP_POLICIES:
+        axes = _grad_axes(ctx)
+        return (_reduce_grads(grads, 1.0 / mesh.axis_size(axes), axes, mesh)
+                if axes else grads), None
     rows = _row_axes(ctx)
     w = 1.0 / mesh.axis_size(rows) if rows else 1.0
-    if ctx.policy not in TP_POLICIES:
-        return (_reduce_grads(grads, w, rows, mesh) if rows else grads), None
     sh = shardings_like(param_axes(cfg), ctx)
     flat = flatten_with_paths(grads)
     flat_sh = flatten_with_paths(sh)
@@ -256,7 +271,9 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
     weighted by its share ``1 / axis_size`` of the tokens, is
     all-reduced, and so are its gradients, in fp32 before the clip.  A
     MoE layer's capacity, slots and aux loss are the global batch's
-    (``models/moe.py``).  ``seqtp`` raises naming Queue 2 item 12."""
+    (``models/moe.py``).  Under ``seqtp`` each rank takes its rows and its
+    positions, and the gradients are summed over ``model`` too (the
+    module docstring)."""
     if mesh is not None:
         check_policy(policy)
 

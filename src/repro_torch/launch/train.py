@@ -41,8 +41,13 @@ every leaf and the tensor-parallel layers compute on them (on one rank,
 the mesh ``(1, 1)``, as JAX's driver makes ``make_local_mesh(1, 1)``);
 a checkpoint holds the whole leaves (every rank's blocks gathered,
 ``broadcast.unshard``), so any policy and any world restores it.
-``--policy seqtp`` raises naming ROADMAP.md Queue 2 item 12 (the flash
-backward at a query offset).
+Under ``seqtp`` the weights are replicated as under ``broadcast`` and
+each rank takes the positions of its shard of ``model`` in every layer
+(at a sequence of at least 1,024 tokens that divides over the ranks, as
+JAX shards; a shorter one runs whole on every rank): the collectives'
+backwards and flash's backward at a query offset give each rank its
+share of the gradients, which are summed over the mesh
+(``launch/steps.py``); on one rank it is the one-device step.
 An encoder-decoder config (whisper-base) raises ``ValueError`` before
 its first step: the driver feeds token batches only, as JAX's does,
 whose first step then fails on the missing ``frames``; its train step

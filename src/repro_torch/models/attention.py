@@ -37,13 +37,18 @@ its plain ``mha`` below 1024 tokens, which rounds P to the activation
 dtype); its decode is the absorbed form, through
 ``kops.mla_decode_attention`` over the latent cache.
 
-Sequence-sharded prefill (``seqtp``, :func:`seqshard_attn_forward`): each
-rank of the mesh's ``model`` axis holds S / n consecutive positions and
-runs flash at a query offset over the keys up to its last position:
-a halo of the previous rank's last W keys for a local layer whose window
-fits the shard, else the K/V of every rank all-gathered.  A local layer
-keeps its window on the gathered route, where JAX's drops it
-(``attention.py:237-242``; ROADMAP.md, Queue 3).
+Sequence-sharded passes (``seqtp``, :func:`seqshard_attn_forward`,
+:func:`seqshard_mla_forward`): each rank of the mesh's ``model`` axis
+holds S / n consecutive positions and runs flash at a query offset over
+the keys up to its last position: a halo of the previous rank's last W
+keys for a local layer whose window fits the shard, else the K/V of
+every rank all-gathered (MLA: the latent, 576 values a token against
+the 5,120 of its expanded K/V, up-projected after the gather).  A local
+layer keeps its window on the gathered route, where JAX's drops it
+(``attention.py:237-242``; ROADMAP.md, Queue 3).  The gathers and the
+halo shift are the differentiable ``collectives.tp_gather`` and
+``collectives.halo_cat``, and flash's backward takes the offset, so the
+same code trains.
 
 Tensor-parallel (``tp``, ``fsdp_tp``; ``core.sharding.tp_mesh``): q comes
 from the rank's ``wq`` block, the heads of ``core.sharding.head_block``
@@ -78,8 +83,12 @@ NEG_INF = -2.0e38
 #: the shortest sequence JAX shards under ``seqtp`` (``attention.py:18``)
 FLASH_MIN_SEQ = 1024
 #: layer calls of each sequence-sharded route: ``"halo"`` (a local layer
-#: whose window fits the shard) and ``"gather"`` (every other layer)
-SEQSHARD_ROUTES = {"halo": 0, "gather": 0}
+#: whose window fits the shard), ``"gather"`` (every other attention
+#: layer), ``"latent"`` (MLA), ``"carry"`` (a Mamba or RG-LRU layer,
+#: ``models/ssm.py``, ``models/rglru.py``) and ``"moe"`` (a MoE FFN whose
+#: capacity is the whole sequence's, ``models/moe.py``)
+SEQSHARD_ROUTES = {"halo": 0, "gather": 0, "latent": 0, "carry": 0,
+                   "moe": 0}
 
 
 def _head_block(cfg):
@@ -236,7 +245,7 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
 
     RoPE at the global positions.  A local layer whose window W fits the
     shard (W <= S_loc) takes the previous rank's last W keys and values
-    as a halo (``collectives.ppermute_next``) and runs flash over the W +
+    as a halo (``collectives.halo_cat``) and runs flash over the W +
     S_loc keys at window W; rank 0 has no earlier keys and runs over its
     own S_loc, which is what JAX's ``kv_valid`` mask leaves of its zero
     halo.  Every other layer all-gathers K/V over the axis and runs flash
@@ -246,7 +255,10 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
 
     Returns ``(out (B, S_loc, d), kv)``: ``kv`` is the whole sequence's
     (k, v) (B, S, KV, hd) where the route gathered them or ``keep_kv``
-    asks (a prefill fills its cache from them), else None."""
+    asks (a prefill fills its cache from them), else None.  Under grad
+    the gather's backward sums every rank's gradient of this rank's
+    keys (a reduce-scatter), and the halo's sends its gradient back to
+    the rank it came from."""
     _check_kind(kind, cfg)
     B, S_loc, _ = x.shape
     off = collectives.axis_index("model", mesh) * S_loc
@@ -258,20 +270,16 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
     kv = None
     if W and W <= S_loc:
         SEQSHARD_ROUTES["halo"] += 1
-        k_h = collectives.ppermute_next(k[:, -W:].contiguous(), "model",
-                                        mesh)
-        v_h = collectives.ppermute_next(v[:, -W:].contiguous(), "model",
-                                        mesh)
-        if off:
-            k, v = torch.cat([k_h, k], dim=1), torch.cat([v_h, v], dim=1)
+        k, v = (collectives.halo_cat(t, W, "model", mesh) for t in (k, v))
         out = kops.flash_attention(q, k.contiguous(), v.contiguous(),
                                    causal=True, window=W)
         if keep_kv:
-            kv = tuple(collectives.all_gather(t[:, -S_loc:], "model", dim=1,
-                                              mesh=mesh) for t in (k, v))
+            kv = tuple(collectives.all_gather(t[:, -S_loc:].contiguous(),
+                                              "model", dim=1, mesh=mesh)
+                       for t in (k, v))
     else:
         SEQSHARD_ROUTES["gather"] += 1
-        kv = tuple(collectives.all_gather(t, "model", dim=1, mesh=mesh)
+        kv = tuple(collectives.tp_gather(t, "model", 1, mesh)
                    for t in (k, v))
         T = off + S_loc
         out = kops.flash_attention(q, kv[0][:, :T].contiguous(),
@@ -492,6 +500,36 @@ def mla_forward(params, x, cfg, positions=None):
     out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
     return _out_proj(params, out, hb), (ckv, krope)
+
+
+def seqshard_mla_forward(params, x, cfg, *, mesh):
+    """MLA on this rank's S_loc positions ``off .. off + S_loc - 1`` of
+    the ``model`` axis (:func:`seqshard_attn_forward`'s layout): q at the
+    global positions, this rank's latent (``ckv``, ``krope``) all-gathered
+    over ``model`` (``collectives.tp_gather``: under grad each rank gets
+    the sum of every rank's gradient of its positions), ``k_nope`` / ``v``
+    up-projected for the keys ``[0, off + S_loc)`` and flash at a query
+    offset at (q/k, v) = (nope + rope, v_head_dim).  Returns ``(out (B,
+    S_loc, d), (ckv (B, S, r), krope (B, S, rh)))``, the whole sequence's
+    latent, which a prefill writes into its cache."""
+    B, S_loc, _ = x.shape
+    SEQSHARD_ROUTES["latent"] += 1
+    H = cfg.n_heads
+    rh, nh, vh = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    off = collectives.axis_index("model", mesh) * S_loc
+    pos = off + torch.arange(S_loc, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, x, cfg, pos, H)
+    ckv, krope = (collectives.tp_gather(t.contiguous(), "model", 1, mesh)
+                  for t in _mla_latent(params, x, cfg, pos))
+    T = off + S_loc
+    ck, kr = ckv[:, :T], krope[:, :T]
+    k_nope = (ck @ params["w_uk"]).reshape(B, T, H, nh)
+    v = (ck @ params["w_uv"]).reshape(B, T, H, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, T, H, rh)], dim=-1)
+    out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    return out.reshape(B, S_loc, -1) @ params["wo"], (ckv, krope)
 
 
 def mla_prefill_into_cache(ckv, krope, cache):

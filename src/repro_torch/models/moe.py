@@ -27,7 +27,21 @@ being batch-major) plus its slot among the rank's own picks, and the aux
 loss takes the whole batch's first-pick density times this rank's mean
 router probability, so that the ranks' mean of it (the data-parallel
 step's weighting) is the whole batch's aux loss and so is its gradient.
-A rank's buffers then hold ``min(cap, T_local)`` slots an expert.  Under
+A rank's buffers then hold ``min(cap, T_local)`` slots an expert.
+
+On a sequence split too (``seqtp`` at a sharded length: ``seq``, the
+rank holding positions ``[off, off + S_loc)`` of each of its rows), the
+global token (b, s) is number b S + s, so a pick at an expert comes
+after every pick of the rows before b on every rank and the picks of row
+b on the ranks of ``model`` before this one: the (row, expert) counts
+are all-gathered over ``model`` and a pick's slot takes those offsets
+(the batch split of the paragraph above is the case of whole rows a
+rank, and the two compose on a (data, model) mesh).  The aux loss's mean
+router probability is then the whole sequence's, summed over ``model``
+(``collectives.seq_sum_same``), so every rank of ``model`` computes the
+same aux loss, the one-rank loss of its rows: over ``model`` the ranks
+compute one loss (the train step weights each rank's gradients by 1 /
+n), over the data axes they take the mean.  Under
 ``tp`` (``core.sharding.tp_mesh``) each rank fills and runs its E / n
 experts' buffers; the router runs whole on every rank (its gradient is
 then whole too: the combine weights enter the region, so their gradient
@@ -42,6 +56,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collectives
 from repro_torch.core.sharding import batch_axes, current_ctx, tp_mesh
+from repro_torch.models.attention import SEQSHARD_ROUTES
 from repro_torch.models.layers import apply_mlp
 
 
@@ -51,11 +66,16 @@ def capacity(T: int, cfg) -> int:
                    cfg.capacity_factor))
 
 
-def apply_moe(params, x, cfg):
+def _exclusive_cumsum(x, dim):
+    return torch.cumsum(x, dim) - x
+
+
+def apply_moe(params, x, cfg, seq=None):
     """x: (B, S, d) -> (out (B, S, d), aux loss, an fp32 scalar)
     (``moe.py:33-84``); with shared experts their dense MLP
     (``params["shared"]``) is added to every token's routed sum
-    (``:82-83``)."""
+    (``:82-83``).  ``seq``: the mesh of a sequence-sharded pass, x this
+    rank's positions of its rows (the module docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -75,23 +95,42 @@ def apply_moe(params, x, cfg):
         0, flat_e, torch.ones_like(flat_e))
     first = torch.zeros(E, dtype=torch.float32, device=dev).scatter_add_(
         0, top_e[:, 0], torch.ones(T, dtype=torch.float32, device=dev))
+    # the picks before this rank's, at each pick's expert: of the rows
+    # before its row on every rank of ``model`` and of its row on the
+    # ranks before this one (a sequence split), then of the data ranks
+    # before this one
+    before, T_all, group, first_all, pm = 0, T, counts, first, None
+    if seq is not None:
+        SEQSHARD_ROUTES["moe"] += 1
+        row_e = (torch.arange(T * k, device=dev) // (k * S)) * E + flat_e
+        C = torch.zeros(B * E, dtype=torch.long, device=dev).scatter_add_(
+            0, row_e, torch.ones_like(flat_e)).view(B, E)
+        every = collectives.all_gather(
+            torch.cat([C, first.long()[None]]), "model", tiled=False,
+            mesh=seq)                                       # (n, B + 1, E)
+        Cm = every[:, :B]
+        i = collectives.axis_index("model", seq)
+        before = (_exclusive_cumsum(Cm.sum(0), 0) + Cm[:i].sum(0) -
+                  _exclusive_cumsum(C, 0)).view(-1)[row_e]
+        T_all = T * every.shape[0]
+        group, first_all = Cm.sum((0, 1)), every[:, B].sum(0).float()
+        pm = collectives.seq_sum_same(probs.sum(0), "model", seq) / T_all
     if rows:
         mesh = current_ctx().mesh
         every = collectives.all_gather(
-            torch.stack([counts, first.long()]), rows, tiled=False,
+            torch.stack([group, first_all.long()]), rows, tiled=False,
             mesh=mesh)                                          # (n, 2, E)
-        before = every[:collectives.axis_index(rows, mesh), 0].sum(0)
-        T_all = T * every.shape[0]
+        before = before + every[:collectives.axis_index(rows, mesh), 0].sum(
+            0)[flat_e]
+        T_all = T_all * every.shape[0]
         first_all = every[:, 1].sum(0).float()
-        cap = capacity(T_all, cfg)
-        cap_buf = min(cap, T)
-    else:
-        before, T_all, first_all = 0, T, first
-        cap = cap_buf = capacity(T, cfg)
+    cap = capacity(T_all, cfg)
+    cap_buf = min(cap, T) if T_all != T else cap
 
     # load-balancing aux loss (Switch-style)
     density = first_all / T_all           # the mean of one_hot(top_e[:, 0])
-    aux = (density * probs.mean(0)).mean() * (E * E) * cfg.router_aux_weight
+    pm = probs.mean(0) if pm is None else pm
+    aux = (density * pm).mean() * (E * E) * cfg.router_aux_weight
 
     # slot of each (token, pick) within its expert: its rank in a stable
     # sort of the flat expert ids, which keeps token order within an
@@ -101,7 +140,7 @@ def apply_moe(params, x, cfg):
     starts = torch.cumsum(counts, 0) - counts
     slot_sorted = torch.arange(T * k, device=dev) - starts[flat_e[order]]
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    keep = (slot + before[flat_e] if rows else slot) < cap
+    keep = slot + before < cap
 
     # this rank's experts: all E, or under tp its block of E / n
     if tp is None:

@@ -26,6 +26,14 @@ summed over ``model``, of which the rank keeps its own block
 replicated and entered, the rank taking its block; the scan runs on the
 local channels and ``out``'s row block is summed over ``model``.  The
 state is the rank's channels, as JAX's cache specs split ``lru``.
+
+Under ``seqtp`` at a sharded length a rank runs its shard of the
+positions as ``models/ssm.py`` does: the conv's first K - 1 inputs from
+the previous rank (``collectives.halo_cat``, zeros on rank 0), and the
+recurrence's state entering the shard folded from every earlier rank's
+map h -> P_r h + F_r, P_r = exp(sum_t log a_t) per (b, channel), then
+the shard scanned again from it (``collectives.shard_scan``; rank 0 and
+the last rank scan once).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.core import collectives
 from repro_torch.core.sharding import col_block, enter_model, sum_model, \
     tp_mesh
 from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import SEQSHARD_ROUTES
 
 RG_C = 8.0
 
@@ -55,8 +64,9 @@ def _conv1d_causal(x, w, b, prev=None):
     return out + b
 
 
-def _gates(params, xc):
-    """a_t and the gated input, fp32 (``rglru.py:49-57``).  xc: (B,S,w)."""
+def _gates(params, xc, log: bool = False):
+    """a_t and the gated input, fp32 (``rglru.py:49-57``), and with
+    ``log`` log a_t too.  xc: (B,S,w)."""
     xf = xc.float()
     mesh = tp_mesh()
     if mesh is None:
@@ -75,7 +85,7 @@ def _gates(params, xc):
     log_a = -RG_C * softplus * r                               # (B,S,w)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
-    return a, gated
+    return (a, gated, log_a) if log else (a, gated)
 
 
 def diag_scan(a, b, h0=None):
@@ -88,22 +98,44 @@ def diag_scan(a, b, h0=None):
     return kops.linear_scan(a, b, h0)
 
 
-def rglru_forward(params, x, cfg, state=None):
+def rglru_forward(params, x, cfg, state=None, seq=None, keep_state=True):
     """x: (B,S,d) -> (out, new_state) (``rglru.py:99-117``); with
     ``state`` the conv continues from ``state["conv"]`` and the scan from
-    ``state["h"]``."""
+    ``state["h"]``.  With ``seq`` (the mesh of a sequence-sharded pass) x
+    is this rank's shard and the state comes from the ranks before it
+    (the module docstring); the new state is the whole sequence's, the
+    last rank's, or None without ``keep_state`` (a ``full`` pass)."""
     S = x.shape[1]
     K = cfg.conv_k_rg
     x = enter_model(x)
     xb = x @ params["in_x"]
     gate = x @ params["in_gate"]
-    xc = _conv1d_causal(xb, params["conv_w"], params["conv_b"],
-                        prev=state["conv"] if state is not None else None)
-    a, gated = _gates(params, xc)
-    h0 = state["h"] if state is not None else None
-    h_seq, h_fin = diag_scan(a, gated, h0)
+    if seq is not None:
+        ext = collectives.halo_cat(xb, K - 1, "model", seq, zeros_first=True)
+        xc = _conv1d_causal(ext[:, K - 1:], params["conv_w"],
+                            params["conv_b"], prev=ext[:, :K - 1])
+    else:
+        xc = _conv1d_causal(xb, params["conv_w"], params["conv_b"],
+                            prev=state["conv"] if state is not None else None)
+    a, gated, log_a = _gates(params, xc, log=True)
+    if seq is not None:
+        SEQSHARD_ROUTES["carry"] += 1
+        h_seq, h_fin = collectives.shard_scan(
+            lambda g, h0: diag_scan(a, g, h0), gated,
+            torch.exp(log_a.sum(1)), "model", seq)
+    else:
+        h0 = state["h"] if state is not None else None
+        h_seq, h_fin = diag_scan(a, gated, h0)
     y = h_seq.to(x.dtype) * F.gelu(gate, approximate="tanh")
     out = sum_model(y @ params["out"])
+    if seq is not None:
+        if not keep_state:
+            return out, None
+        # the last rank's state, on every rank
+        conv, h = (collectives.all_gather(t.contiguous(), "model",
+                                          tiled=False, mesh=seq)[-1]
+                   for t in (xb[:, -(K - 1):].float(), h_fin))
+        return out, {"conv": conv, "h": h}
     if S >= K - 1:
         conv = xb[:, -(K - 1):]
     elif state is not None:

@@ -19,15 +19,32 @@ gives partial dt / B / C, summed over ``model`` and entered again (each
 rank uses them on its channels); ``out_proj``'s row block is summed over
 ``model``.  The state is the rank's channels, as JAX's cache specs split
 ``inner`` over ``model``.
+
+Under ``seqtp`` at a sharded length (``transformer.seqshard_mesh``) a
+rank runs its S_loc positions ``off .. off + S_loc - 1``: the conv's
+first K - 1 inputs are the previous rank's last ones
+(``collectives.halo_cat``; rank 0's are zeros, the unsharded zero pad),
+and the recurrence, diagonal, is an affine map h -> P_r h + F_r of each
+shard, P_r = exp(A sum_t dt_t) (from the summed exponent, not a product
+of rounded factors) and F_r the shard's final state from zeros.  The
+ranks' (P, F) are all-gathered and folded in rank order into the state
+entering each shard, and a rank scans its shard again from it
+(``collectives.shard_scan``: rank 0, whose carry is zero, and the last
+rank, whose F nobody reads, scan once, every other rank twice).  Both
+scans go
+through ``ops.ssm_scan``, whose kernel route's backward gives dh0, the
+carry's gradient.  A prefill's state is the last rank's, on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
 from repro_torch.core.sharding import col_block, enter_model, \
     gathered_columns, sum_model, tp_mesh
 from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import SEQSHARD_ROUTES
 
 
 def _conv1d_causal(x, w, b):
@@ -74,15 +91,20 @@ def selective_scan(xc, dt, Bc, Cc, A, D, h0=None):
     return kops.ssm_scan(xc.float(), dt, Bc, Cc, A, D.float(), h0=h0)
 
 
-def ssm_forward(params, x, cfg, state=None):
+def ssm_forward(params, x, cfg, state=None, seq=None, keep_state=True):
     """x: (B,S,d) -> (out, new_state) (``ssm.py:107-138``).  With
     ``state`` the conv continues from ``state["conv"]`` and the scan from
-    ``state["h"]``."""
+    ``state["h"]``.  With ``seq`` (the mesh of a sequence-sharded pass) x
+    is this rank's shard and the state comes from the ranks before it
+    (the module docstring); the new state is the whole sequence's, the
+    last rank's, or None without ``keep_state`` (a ``full`` pass)."""
     S = x.shape[1]
     K = cfg.conv_k
     xs, z = _in_proj(params, x, cfg)
-    if state is not None:
-        xs_ext = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
+    if state is not None or seq is not None:
+        xs_ext = torch.cat([state["conv"].to(xs.dtype), xs], dim=1) \
+            if seq is None else collectives.halo_cat(xs, K - 1, "model",
+                                                     seq, zeros_first=True)
         conv_full = _conv1d_causal(xs_ext, params["conv_w"],
                                    params["conv_b"])
         xc = conv_full[:, K - 1:]
@@ -90,10 +112,25 @@ def ssm_forward(params, x, cfg, state=None):
         xc = _conv1d_causal(xs, params["conv_w"], params["conv_b"])
     xc = F.silu(xc)
     dt, Bc, Cc, A = _ssm_params(params, xc, cfg)
-    h0 = state["h"] if state is not None else None
-    y, h_fin = selective_scan(xc, dt, Bc, Cc, A, params["D"], h0=h0)
+    if seq is not None:
+        SEQSHARD_ROUTES["carry"] += 1
+        D = params["D"]
+        y, h_fin = collectives.shard_scan(
+            lambda x_, h0: selective_scan(x_, dt, Bc, Cc, A, D, h0=h0), xc,
+            torch.exp(A[None] * dt.sum(1)[..., None]), "model", seq)
+    else:
+        h0 = state["h"] if state is not None else None
+        y, h_fin = selective_scan(xc, dt, Bc, Cc, A, params["D"], h0=h0)
     y = y.to(x.dtype) * F.silu(z)
     out = sum_model(y @ params["out_proj"])
+    if seq is not None:
+        if not keep_state:
+            return out, None
+        # the last rank's state, on every rank
+        conv, h = (collectives.all_gather(t.contiguous(), "model",
+                                          tiled=False, mesh=seq)[-1]
+                   for t in (xs[:, -(K - 1):].float(), h_fin))
+        return out, {"conv": conv, "h": h}
     if S >= K - 1:
         conv = xs[:, -(K - 1):].float()
     elif state is not None:

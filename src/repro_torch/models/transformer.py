@@ -40,12 +40,19 @@ pass over S >= ``attention.FLASH_MIN_SEQ`` tokens that divide over the
 mesh's ``model`` axis runs each rank's S / n positions through every
 layer, its attention on ``attention.seqshard_attn_forward``, and
 all-gathers the last hidden states, so every rank returns what the
-one-rank pass returns (a prefill's cache filled from the gathered K/V).
-The callers give every rank the whole batch.  Layers whose compute
-couples positions or rows raise there (kinds ``S`` and ``R``, MLA, and
-MoE, whose expert capacity and aux loss depend on the global token
-count: ROADMAP.md, Queue 1, item 14); any other pass runs whole on every
-rank, as JAX's does.
+one-rank pass returns (a prefill's cache filled from the gathered K/V,
+MLA's latent, or the last rank's recurrent state).  Every layer kind
+shards: attention at a query offset (``attention.seqshard_attn_forward``,
+``seqshard_mla_forward``), Mamba and the RG-LRU with the state carried
+from rank to rank (``ssm.py``, ``rglru.py``), MoE with the whole
+sequence's capacity and aux loss (``moe.py``); ``SEQSHARD_ROUTES``
+counts each route's layer calls.  The callers give every rank its rows
+of the batch (the policy's data axes; on a mesh of one data rank, the
+whole batch).  Any other pass runs whole on every rank, as JAX's does.
+Under grad the collectives are differentiable and every rank computes
+the same loss from the gathered states (``collectives.seq_gather_same``),
+so a train step sums the ranks' gradients over ``model`` weighted 1 / n
+(``launch/steps.py``).
 
 Weight-sharded policies (``tp``, ``fsdp_tp``, JAX's defaults for serving
 and training): every layer kind computes on the rank's blocks of its
@@ -176,10 +183,10 @@ def init_paged_caches(cfg, num_blocks: int, block_size: int, device):
     return caches
 
 
-def seqshard_mesh(cfg, S: int, mode: str):
+def seqshard_mesh(S: int, mode: str):
     """The mesh a pass of ``S`` tokens shards its sequence over, or None:
-    JAX's ``use_seqshard`` (``transformer.py:167-169``).  Raises for the
-    layer kinds the port cannot shard."""
+    JAX's ``use_seqshard`` (``transformer.py:167-169``), for every layer
+    kind."""
     ctx = current_ctx()
     if ctx is None or ctx.policy != "seqtp" or mode not in ("full",
                                                             "prefill"):
@@ -187,16 +194,6 @@ def seqshard_mesh(cfg, S: int, mode: str):
     n = ctx.mesh.shape.get("model", 1)
     if n == 1 or S < attn.FLASH_MIN_SEQ or S % n:
         return None
-    for g in cfg.groups:
-        for kind in g.pattern:
-            if kind in ("S", "R", "M"):
-                what = {"S": "Mamba (kind S)", "R": "RG-LRU (kind R)",
-                        "M": "MLA" if cfg.kv_lora_rank else "MoE (kind M)"
-                        }[kind]
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} layers under policy 'seqtp' couple "
-                    f"positions or rows across the shards, and are not in "
-                    f"the port yet: ROADMAP.md, Queue 1, item 14")
     return ctx.mesh
 
 
@@ -228,9 +225,11 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None,
         if mode == "decode":
             mix, cache = ssm.ssm_decode(p["mixer"], h, cache, cfg)
         elif mode == "prefill":
-            mix, cache = ssm.ssm_forward(p["mixer"], h, cfg, state=None)
+            mix, cache = ssm.ssm_forward(p["mixer"], h, cfg, state=None,
+                                         seq=seq)
         elif mode == "full":
-            mix, _ = ssm.ssm_forward(p["mixer"], h, cfg, state=None)
+            mix, _ = ssm.ssm_forward(p["mixer"], h, cfg, state=None,
+                                     seq=seq, keep_state=False)
         else:
             raise NotImplementedError(f"mode {mode!r} over an SSM state: "
                                       f"the family serves dense")
@@ -241,20 +240,23 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None,
         if mode == "decode":
             mix, cache = rglru.rglru_decode(p["mixer"], h, cache, cfg)
         elif mode == "prefill":
-            mix, cache = rglru.rglru_forward(p["mixer"], h, cfg, state=None)
+            mix, cache = rglru.rglru_forward(p["mixer"], h, cfg, state=None,
+                                             seq=seq)
         elif mode == "full":
-            mix, _ = rglru.rglru_forward(p["mixer"], h, cfg, state=None)
+            mix, _ = rglru.rglru_forward(p["mixer"], h, cfg, state=None,
+                                         seq=seq, keep_state=False)
         else:
             raise NotImplementedError(f"mode {mode!r} over an RG-LRU "
                                       f"state: the family serves dense")
     elif _is_mla(kind, cfg):
         if mode == "decode":
             mix, cache = attn.mla_decode(p["mixer"], h, cache, pos, cfg)
-        elif mode == "prefill":
-            mix, (ckv, krope) = attn.mla_forward(p["mixer"], h, cfg)
-            cache = attn.mla_prefill_into_cache(ckv, krope, cache)
-        elif mode == "full":
-            mix, _ = attn.mla_forward(p["mixer"], h, cfg)
+        elif mode in ("prefill", "full"):
+            mix, (ckv, krope) = (
+                attn.mla_forward(p["mixer"], h, cfg) if seq is None else
+                attn.seqshard_mla_forward(p["mixer"], h, cfg, mesh=seq))
+            if mode == "prefill":
+                cache = attn.mla_prefill_into_cache(ckv, krope, cache)
         else:
             raise NotImplementedError(f"mode {mode!r} over an MLA latent "
                                       f"cache: the family serves dense")
@@ -298,7 +300,7 @@ def apply_layer(p, x, cfg, kind: str, mode: str, cache, pos, bt=None,
     x = x + mix
     h2 = apply_norm(p["ln2"], x, cfg)
     if kind == "M":
-        f, aux = moe.apply_moe(p["ffn"], h2, cfg)
+        f, aux = moe.apply_moe(p["ffn"], h2, cfg, seq=seq)
         return x + f, aux, cache
     return x + apply_mlp(p["ffn"], h2, cfg), aux, cache
 
@@ -353,7 +355,7 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
     (the module docstring) runs this rank's positions and returns the
     whole sequence's x, or with ``last`` each row's position from the rank
     that holds it (an all-gather of one row a rank)."""
-    seq = seqshard_mesh(cfg, x.shape[1], mode)
+    seq = seqshard_mesh(x.shape[1], mode)
     axes = stack_axes(param_axes(cfg)["groups"]) if fsdp_active() else None
     if seq is not None:
         S_loc = x.shape[1] // seq.shape["model"]
@@ -396,7 +398,7 @@ def run_backbone(params, x, cfg, mode: str, caches=None, pos=None, bt=None,
                                    dim=1, mesh=seq)
         return x[rows, last // S_loc][:, None], aux, caches
     if seq is not None:
-        x = collectives.all_gather(x, "model", dim=1, mesh=seq)
+        x = collectives.seq_gather_same(x, "model", 1, seq)
     return x, aux, caches
 
 

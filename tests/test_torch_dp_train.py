@@ -129,8 +129,10 @@ def test_refusals():
     loss from the whole batch: ``tests/test_torch_tp.py`` holds a (2, 2)
     run against JAX's whole batch), here a step on rank 0 of a (1, 1)
     mesh equal to the one-device step; ``tp`` / ``fsdp_tp`` build their
-    steps (item 14's tensor-parallel layers); ``seqtp`` training still
-    raises naming Queue 2 item 12, before any collective."""
+    steps (item 14's tensor-parallel layers), and so does ``seqtp``
+    (Queue 2 item 12; tests/test_torch_seqshard_coupled.py runs it on 2
+    and 4 ranks), whose step on rank 0 of a (1, 1) mesh equals the
+    one-device step."""
     moe = reduced(get_config("qwen3-moe-30b-a3b"))
     params = weights.init_params(moe, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -147,8 +149,12 @@ def test_refusals():
     for policy in ("tp", "fsdp_tp"):
         assert callable(steps.make_train_step(dense, mesh=mesh,
                                               policy=policy))
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
-        steps.make_train_step(dense, mesh=mesh, policy="seqtp")
+    assert callable(steps.make_train_step(dense, mesh=mesh,
+                                          policy="seqtp"))
+    got = steps.make_train_step(moe, mesh=one, policy="seqtp")(
+        params, adamw_init(params), batch)[2]
+    assert {k: float(v) for k, v in got.items()} == \
+        {k: float(v) for k, v in want.items()}
     # the batch is cut over every axis of "broadcast"'s batch rule
     m = abstract_mesh((2, 2), ("data", "model"))
     m.coords = {"data": 1, "model": 0}

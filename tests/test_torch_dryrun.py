@@ -195,9 +195,10 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
     never in ``kernels.LAUNCHES``, the gradients of the plain version's
     shapes; so are the other backwards of the kernel route (the scan at
     N = 1 under grad, flash at MLA's (192, 128), each with its own
-    work); the refusals the kernel route keeps hold on the count
-    route (a masked flash call at a query offset, Queue 2 item 12; a
-    serving-only op's input that requires grad, item 11)."""
+    work), and so does a masked call at a query offset (Queue 2 item 12:
+    its work counts the pairs its mask lets through); the refusal the
+    kernel route keeps holds on the count route (a serving-only op's
+    input that requires grad, item 11)."""
     monkeypatch.setattr(build, "load", _no_build)
     with FakeTensorMode():
         q = torch.empty(2, 20, 4, 16, requires_grad=True)
@@ -218,9 +219,11 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
             om = ops.flash_attention(qm, km, vm)
             (gq,) = torch.autograd.grad(om.sum(), [qm])
         assert ga.shape == a.shape and gq.shape == qm.shape
-        with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
-            ops.flash_attention(qm, torch.empty(1, 16, 2, 192),
-                                torch.empty(1, 16, 2, 128))
+        with dryrun_lib.Counter() as c3:
+            om = ops.flash_attention(qm, torch.empty(1, 16, 2, 192),
+                                     torch.empty(1, 16, 2, 128))
+            (gq,) = torch.autograd.grad(om.sum(), [qm])
+        assert gq.shape == qm.shape
         with pytest.raises(NotImplementedError, match="Queue 2, item 11"):
             ops.decode_attention(torch.empty(1, 4, 16, requires_grad=True),
                                  torch.empty(1, 8, 2, 16),
@@ -242,6 +245,14 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
         "linear_scan_bwd": [1, scan_bwd.flops, scan_bwd.bytes],
         "flash_attention": [1, mla.flops, mla.bytes],
         "flash_attention_bwd": [1, mla_bwd.flops, mla_bwd.bytes]}
+    off = work.flash_attention(1, 8, 16, 2, 2, 192, hd_v=128,
+                               dtype="float32", lse=True)
+    off_bwd = work.flash_attention_bwd(1, 8, 16, 2, 2, 192, hd_v=128,
+                                       dtype="float32")
+    assert off_bwd.flops == 2 * (3 * 192 + 2 * 128) * 2 * sum(
+        range(9, 17)) and c3.kernels == {
+        "flash_attention": [1, off.flops, off.bytes],
+        "flash_attention_bwd": [1, off_bwd.flops, off_bwd.bytes]}
     assert not any(LAUNCHES.values())
 
 
@@ -628,3 +639,47 @@ def test_decode_counts_every_key_without_lengths():
     dry run's decode at pos = seq - 1 sees them all."""
     assert work.decode_attention(4, 8, 2, 64, 100) == \
         work.decode_attention(4, 8, 2, 64, 100, lengths=[100] * 4)
+
+
+@pytest.mark.parametrize("arch,kind", [("falcon-mamba-7b", "prefill"),
+                                       ("deepseek-v2-lite-16b", "train")])
+def test_seqtp_cells_of_coupled_kinds_count(arch, kind):
+    """Rank 0 of a (1, 4) mesh under ``seqtp`` counts a coupled kind's
+    cells at full width, cut to two layers (Queue 1 item 14): Mamba's
+    prefill scans its first shard once and takes the carry's all-gather
+    (then the conv's halo and the state's gathers); deepseek's train
+    step runs flash and its backward at a query offset for its dense and
+    MLA layers (their work the offset's visible pairs), MoE at the whole
+    sequence's capacity, and all-reduces its replicated gradients over
+    ``model``."""
+    from repro_torch.configs import ScanGroup
+    from repro_torch.models import attention as attn
+    over = {"n_layers": 2, "groups": (ScanGroup(("S",), 2),)} \
+        if kind == "prefill" else \
+        {"n_layers": 2, "groups": (ScanGroup(("D",), 1),
+                                   ScanGroup(("M",), 1))}
+    for key in attn.SEQSHARD_ROUTES:
+        attn.SEQSHARD_ROUTES[key] = 0
+    sc = base.ShapeCase("s", 4096, 1, kind)
+    res = dryrun_lib.run_cell(arch, sc, _mesh(1, 4), policy="seqtp",
+                              cfg_override=over, skip_memory_pass=True)
+    assert res.ok and not res.skipped, res.error
+    ops = dryrun_lib.LAST_OPS
+    routes = dict(attn.SEQSHARD_ROUTES)
+    assert res.flops_dev > 0 and res.n_collectives > 0
+    if kind == "prefill":
+        assert routes["carry"] == 2 and ops["kernel:ssm_scan"][0] == 2
+        assert ops["collective:all-gather"][0] >= 2 * 4
+    else:
+        cfg = get_config(arch)
+        hd = cfg.nope_head_dim + cfg.rope_head_dim
+        fwd = work.flash_attention(1, 1024, 1024, cfg.n_heads, cfg.n_heads,
+                                   hd, hd_v=cfg.v_head_dim, lse=True)
+        # the forward, then again in the backward under remat "full"
+        assert routes == {"halo": 0, "gather": 2, "latent": 2, "carry": 0,
+                          "moe": 2}
+        assert ops["kernel:flash_attention"][0] == 4
+        assert ops["kernel:flash_attention_bwd"][0] == 2
+        # rank 0's queries see only its own keys: T = S_loc = 1,024
+        assert ops["kernel:flash_attention"][1] >= fwd.flops
+        assert ops["collective:all-reduce"][0] > 0

@@ -74,8 +74,10 @@ def test_causal_or_windowed_calls_at_another_kv_length_raise(causal, window):
     fewer keys than queries (T < S) takes no mask: the plain route, the
     kernel wrappers (before any CUDA check) and the autograd route raise
     ``ValueError``.  More keys (T > S, a sequence shard's queries) pass
-    the forward's check, and the backward kernel refuses them naming
-    Queue 2 item 12; at T = S the same masks pass."""
+    the forward's check and the backward kernel's (the wrapper reaches
+    its CUDA check: no refusal), and the CPU route's gradients there are
+    autograd's through the masked softmax; at T = S the same masks
+    pass."""
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 9, 5, 2, 2, 16))
     calls = [
         lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
@@ -92,9 +94,21 @@ def test_causal_or_windowed_calls_at_another_kv_length_raise(causal, window):
             call()
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 5, 9, 2, 2, 16))
     fa.check_args(q, k, v, window, causal)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd_bshd(q, k, v, q, q, torch.zeros(1, 5, 2),
                                     causal=causal, window=window)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.flash_attention(*qkv, causal=causal, window=window).sum().backward()
+    at = torch.arange(5)[:, None] + 4
+    t = torch.arange(9)[None, :]
+    keep = (t <= at if causal else torch.ones(5, 9, dtype=torch.bool)) & \
+        ((t > at - window) if window else True)
+    ref_qkv = [t_.clone().requires_grad_(True) for t_ in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", *ref_qkv[:2]) / 4.0
+    p_ = s.masked_fill(~keep, -2e38).softmax(-1)
+    torch.einsum("bhqk,bkhd->bqhd", p_, ref_qkv[2]).sum().backward()
+    for a, b in zip(qkv, ref_qkv):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
     fa.check_args(q, k[:, :5], v[:, :5], window, causal)
     with pytest.raises(ValueError, match=r"k must be \(B=1, T, KV, hd=16\)"):
         fa.check_args(q, k[:, :, :, :8].contiguous(), v, 0, False)

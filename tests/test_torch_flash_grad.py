@@ -125,7 +125,7 @@ def _split(x, lo=True):
 
 def _emulated_bwd(q, k, v, out, dout, lse, causal, window, lo=True):
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, 1.0 / math.sqrt(hd)
     log2e = math.log2(math.e)
     delta = (dout * out).sum(-1)                       # flash_bwd_delta
@@ -140,7 +140,7 @@ def _emulated_bwd(q, k, v, out, dout, lse, causal, window, lo=True):
             def tile(kw0, rt, dkdv):
                 rows, keys, ok = (torch.from_numpy(a) for a in fbp.tile_pairs(
                     "dkdv" if dkdv else "dq", kw0, rt, S, G, causal,
-                    window))
+                    window, T))
                 s = Q[rows] @ K[keys].T
                 if dkdv:    # S^T's accumulator starts at -lse / scale
                     p = torch.exp2((s - L[rows, None] / scale) *
@@ -153,13 +153,13 @@ def _emulated_bwd(q, k, v, out, dout, lse, causal, window, lo=True):
                 return rows, keys, p, ds
             dkb, dvb, dqb = (torch.zeros_like(x) for x in (K, V, Q))
             # dK / dV: grid over key tiles, each walking its row tiles
-            for kw0, rt in fbp.walk("dkdv", S, G, hd, causal, window):
+            for kw0, rt in fbp.walk("dkdv", S, G, hd, causal, window, T):
                 rows, keys, p, ds = tile(kw0, rt, True)
                 for x, y, acc in ((p, dO, dvb), (ds, Q, dkb)):
                     hi, low = _split(x, lo)
                     acc[keys] += hi.T @ y[rows] + low.T @ y[rows]
             # dQ: grid over row tiles, each walking its key tiles
-            for t0, rt in fbp.walk("dq", S, G, hd, causal, window):
+            for t0, rt in fbp.walk("dq", S, G, hd, causal, window, T):
                 rows, keys, p, ds = tile(t0, rt, False)
                 hi, low = _split(ds, lo)
                 dqb[rows] += hi @ K[keys] + low @ K[keys]
@@ -391,6 +391,94 @@ def test_key_rows_are_the_visible_rows(G, causal, window):
                     (s0, key, n)
 
 
+# (S, T, G, hd, causal, window): queries at the last S of T key positions
+# (the sequence-sharded training's gathered and halo routes), shifts
+# across the 128- and 64-key tiles and the 64-row row tiles, and a
+# window whose first keys no query sees
+OFFSET_PLAN_CASES = [(1, 2, 1, 128, True, 0), (63, 64, 2, 128, True, 0),
+                     (65, 129, 2, 128, True, 0), (64, 200, 7, 64, True, 0),
+                     (130, 260, 1, 256, True, 0), (70, 140, 2, 128, True, 16),
+                     (50, 180, 12, 128, True, 40), (40, 80, 2, 256, False,
+                                                    16),
+                     (33, 100, 80, 32, True, 0), (100, 101, 3, 16, True, 1)]
+
+
+@pytest.mark.parametrize("kernel", ["dkdv", "dq"])
+@pytest.mark.parametrize("S,T,G,hd,causal,window", OFFSET_PLAN_CASES)
+def test_tile_plan_at_a_query_offset_lets_each_visible_pair_in_once(
+        kernel, S, T, G, hd, causal, window):
+    """At a query offset (query s at key position s + T - S) every pair
+    the masks let through enters each kernel's sums exactly once and no
+    other does; a key tile that no query sees walks no row tile (its dK
+    and dV are zeros)."""
+    got = fbp.coverage(kernel, S, G, hd, causal, window, T)
+    want = fbp.visible(S, G, causal, window, T)
+    np.testing.assert_array_equal(got, want)
+    assert want.any(1).all()
+    for k0 in range(0, T, fbp.key_tile(hd)):
+        seen = want[:, k0:k0 + fbp.key_tile(hd)].any()
+        assert bool(fbp.dkdv_row_tiles(k0, S, G, hd, causal, window, T)) \
+            == bool(seen)
+
+
+@pytest.mark.parametrize("shift", [1, 63, 64, 700])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 3),
+                                           (False, 48)])
+@pytest.mark.parametrize("G", [1, 7, 12])
+def test_key_rows_at_a_query_offset_are_the_visible_rows(G, causal, window,
+                                                         shift):
+    """The dK / dV kernel's two row thresholds a key, shifted by T - S,
+    let a key into exactly the rows whose query sees it."""
+    S = 70
+    T = S + shift
+    gt, nq, _, _ = fbp.row_tiles(S, G)
+    for s0 in range(0, S, nq):
+        a0 = s0 + shift
+        for key in range(max(0, a0 - 70), min(T + 10, a0 + 140)):
+            start, end = fbp.key_rows(key, s0, gt, T, causal, window, shift)
+            for n in range(min(nq, S - s0) * gt):
+                lo, hi = fbp.bounds(s0 + n // gt, T, causal, window, shift)
+                assert (start <= n < end) == (lo <= key <= hi < T), \
+                    (s0, key, n)
+
+
+def _offset_lse(q, k, keep):
+    """The lse the kernels write (m * scale + ln l) under ``keep`` (S, T)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G, scale = H // KV, 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(B, S, KV, G, hd), k)
+    s = torch.where(keep, s, ref.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    lse = m[..., 0] * scale + torch.log(torch.exp((s - m) * scale).sum(-1))
+    return lse.permute(0, 3, 1, 2).reshape(B, S, H)
+
+
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window", [
+    (40, 170, 4, 2, 16, True, 0), (65, 130, 6, 2, 16, True, 20),
+    (33, 97, 2, 2, 256, True, 0), (50, 120, 4, 1, 16, False, 30),
+    (1, 64, 2, 1, 16, True, 0)])
+def test_emulated_walk_at_a_query_offset_matches_autograd(S, T, H, KV, hd,
+                                                          causal, window):
+    """The bf16 kernels' walk at a query offset, P and dS as hi + lo,
+    lands within 2e-5 of each of autograd's gradients through the plain
+    version at the same offset (dk and dv zero where no query sees a
+    key)."""
+    rng = np.random.RandomState(S + T)
+    f = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.randn(*sh).astype(np.float32))
+    q, k, v, dout = f(1, S, H, hd), f(1, T, KV, hd), f(1, T, KV, hd), \
+        f(1, S, H, hd)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
+    out.backward(dout)
+    keep = torch.from_numpy(fbp.visible(S, 1, causal, window, T))
+    got = _emulated_bwd(q, k, v, out.detach(), dout, _offset_lse(q, k, keep),
+                        causal, window)
+    rel = _rel(got, [t.grad for t in qkv])
+    assert max(rel) <= 2e-5, rel
+
+
 @pytest.mark.parametrize("G", [1, 2, 7, 8, 10, 12, 16, 64, 65, 80])
 def test_row_tiles_hold_whole_queries(G):
     """A row tile is floor(64 / G) whole queries of G heads up to G 64
@@ -486,8 +574,9 @@ def test_backward_refuses_dims_it_has_no_kernel_for(fake_card):
     """MLA's (q/k, v) pairs take the backward kernel in each dtype their
     forward is built for (the C entry point gets both widths, dq and dk
     are q/k's width and dv v's); a pair in a dtype with no kernel ((24,
-    16) in bf16) and a masked call at a query offset (Queue 2 item 12)
-    still raise before anything launches."""
+    16) in bf16) still raises before anything launches, and a masked
+    call at a query offset (Queue 2 item 12) takes the kernels too, the
+    backward told both lengths."""
     ops.reset_counts()
     cases = [(192, 128, torch.float32), (192, 128, torch.bfloat16),
              (24, 16, torch.float32)]
@@ -511,11 +600,16 @@ def test_backward_refuses_dims_it_has_no_kernel_for(fake_card):
     with pytest.raises(ValueError, match=r"\(24, 16\) in torch.bfloat16"):
         ops.flash_attention(q, q.detach(), torch.zeros(1, 4, 2, 16,
                                                        dtype=torch.bfloat16))
-    q = torch.zeros(1, 4, 2, 192, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
-        ops.flash_attention(q, torch.zeros(1, 8, 2, 192),
-                            torch.zeros(1, 8, 2, 128))
     assert set(kernels.LAUNCHES.values()) == {0}
+    q = torch.zeros(1, 4, 2, 192, requires_grad=True)
+    out = ops.flash_attention(q, torch.zeros(1, 8, 2, 192),
+                              torch.zeros(1, 8, 2, 128))
+    out.backward(torch.ones_like(out))
+    assert q.grad.shape == q.shape
+    # (dtype, hd, hd_v, ..., B, S, T, KV, G, causal, window, scale, stream)
+    assert fake_card["bwd"][-1][13:20] == (1, 4, 8, 2, 1, 1, 0)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
 
 
 def test_backward_wrapper_takes_cuda_tensors_only():

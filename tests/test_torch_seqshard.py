@@ -14,7 +14,8 @@
   one-rank run (1e-4).  A local window of 700 over 512-position shards
   (W > S_loc): the port keeps the window and equals its one-rank run;
   JAX's gathered branch drops it and differs (ROADMAP.md, Queue 3).
-* Kinds S, R, MLA and MoE raise under ``seqtp``, naming Queue 1 item 14.
+* Kinds S, R, MLA and MoE shard under ``seqtp`` too (their multi-rank
+  results against JAX are tests/test_torch_seqshard_coupled.py's).
 """
 import math
 import os
@@ -42,6 +43,8 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+#: no layer call on any sequence-sharded route
+_NO_ROUTES = {"halo": 0, "gather": 0, "latent": 0, "carry": 0, "moe": 0}
 TOL = dict(rtol=1e-4, atol=1e-4)
 S = 1024
 
@@ -100,9 +103,10 @@ def test_flash_at_a_query_offset_equals_jax_halo(B, S_loc, W, H, KV, hd):
 
 def test_offset_refusals_and_unchanged_calls():
     """A masked call with fewer keys than queries raises on both routes;
-    the backward kernel refuses a masked call at T != S (Queue 2 item 12)
-    before any CUDA check; at T == S and unmasked T != S the plain version
-    is the attention it was."""
+    the backward kernel takes a masked call at T > S (Queue 2 item 12):
+    the wrapper and the autograd Function reach their CUDA checks, and
+    the CPU route's gradients there are the plain attention's; at T == S
+    and unmasked T != S the plain version is the attention it was."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 9, 5, 2, 2, 16))
     for causal, window in ((True, 0), (False, 3), (True, 3)):
         with pytest.raises(ValueError, match="a masked call's queries are "
@@ -111,11 +115,21 @@ def test_offset_refusals_and_unchanged_calls():
         with pytest.raises(ValueError, match="the last S of T >= S"):
             fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 5, 9, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd_bshd(q, k, v, q, q, torch.zeros(1, 5, 2),
                                     causal=True, window=0)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.FlashAttention.apply(q, k, v, True, 0)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.flash_attention(*qkv, causal=True, window=3).sum().backward()
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    at = torch.arange(5)[:, None] + 4
+    t = torch.arange(9)[None, :]
+    sc = torch.einsum("bqhd,bkhd->bhqk", *want[:2]) / 4.0
+    sc = sc.masked_fill(~((t <= at) & (t > at - 3)), -2e38)
+    torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), want[2]).sum().backward()
+    for a, b in zip(qkv, want):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
     # T == S: the prefill's mask; unmasked T != S: each query sees all keys
     qs, ks, vs = (torch.from_numpy(a) for a in _qkv(3, 1, 6, 6, 2, 2, 16))
     s = torch.einsum("bqhd,bkhd->bhqk", qs, ks) / 4.0
@@ -214,8 +228,8 @@ def test_seqtp_forward_and_prefill_equal_jax_and_one_rank(runs, case):
             np.testing.assert_allclose(v, caches1[k], **TOL, err_msg=k)
     # a forward and a prefill, each through every layer
     routes = got[case][0]["routes"]
-    assert routes == ({"halo": 0, "gather": 4} if case == "internlm2"
-                      else {"halo": 2, "gather": 2})
+    assert routes == dict(_NO_ROUTES, **(
+        {"gather": 4} if case == "internlm2" else {"halo": 2, "gather": 2}))
 
 
 def test_wide_window_keeps_its_window_where_jax_drops_it(runs):
@@ -227,7 +241,7 @@ def test_wide_window_keeps_its_window_where_jax_drops_it(runs):
     for g in got["wide"]:
         np.testing.assert_allclose(g["logits"], logits1, **TOL)
         np.testing.assert_allclose(g["last"], last1, **TOL)
-        assert g["routes"] == {"halo": 0, "gather": 4}
+        assert g["routes"] == dict(_NO_ROUTES, gather=4)
     # positions past the window in the second shard see more keys in JAX
     late = np.abs(want["wide/logits"][:, 712:] - logits1[:, 712:]).max()
     early = np.abs(want["wide/logits"][:, :512] - logits1[:, :512]).max()
@@ -237,17 +251,41 @@ def test_wide_window_keeps_its_window_where_jax_drops_it(runs):
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b",
                                   "deepseek-v2-lite-16b", "qwen3-moe-30b-a3b"])
 def test_coupled_layer_kinds_raise_under_seqtp(arch):
-    """Mamba, RG-LRU, MLA and MoE layers raise at a sharded length,
-    naming Queue 1 item 14; at a length JAX does not shard they run whole
-    (here, below FLASH_MIN_SEQ)."""
+    """Mamba, RG-LRU, MLA and MoE layers no longer raise (Queue 1 item
+    14 is done): at a sharded length rank 0 of a (1, 2) mesh computes its
+    half of the positions (fake tensors: the collectives' count route, no
+    process group), each coupled layer on its own route, and returns the
+    whole sequence's logits; at a length JAX does not shard they run
+    whole (here, below FLASH_MIN_SEQ).  The multi-rank results against
+    JAX are tests/test_torch_seqshard_coupled.py's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import flags
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.models import attention as attn
+    from repro_torch.models import weights
     cfg = reduced(get_config(arch))
     params = api.init(torch.Generator().manual_seed(0), cfg, "cpu")
-    mesh = abstract_mesh((1, 2), ("data", "model"))
-    toks = torch.zeros((1, S), dtype=torch.int32)
-    with use_sharding(mesh, "seqtp"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 14"):
-            tfm.forward(params, cfg, tokens=toks)
-        logits, _ = tfm.forward(params, cfg, tokens=toks[:, :8])
+    mesh = abstract_mesh((1, 2), ("data", "model"), rank0=True)
+    for key in attn.SEQSHARD_ROUTES:
+        attn.SEQSHARD_ROUTES[key] = 0
+    with FakeTensorMode():
+        fake = weights.empty_params(cfg, "cpu")
+        toks = torch.zeros((1, S), dtype=torch.int32)
+        with use_sharding(mesh, "seqtp"), dryrun_lib.Counter() as c:
+            big, _ = tfm.forward(fake, cfg, tokens=toks)
+    assert tuple(big.shape) == (1, S, cfg.padded_vocab) and \
+        flags.counted(big) and c.colls
+    kinds = [k for g in cfg.groups for k in g.pattern for _ in
+             range(g.repeats)]
+    want = {"carry": sum(k in "SR" for k in kinds),
+            "latent": sum(k == "M" for k in kinds) if cfg.kv_lora_rank
+            else 0,
+            "moe": sum(k == "M" for k in kinds)}
+    assert {k: attn.SEQSHARD_ROUTES[k] for k in want} == want
+    with use_sharding(abstract_mesh((1, 2), ("data", "model")), "seqtp"):
+        logits, _ = tfm.forward(params, cfg, tokens=torch.zeros(
+            (1, 8), dtype=torch.int32))
     assert logits.shape[:2] == (1, 8) and math.isfinite(
         float(logits.float().abs().max()))
 

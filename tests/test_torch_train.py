@@ -204,8 +204,9 @@ def test_cli_resumed_run_equals_an_uninterrupted_one(tmp_path, capsys):
 
 def test_cli_flags_and_refusals(tmp_path):
     """JAX's flags: ``--reduced`` cannot be turned off (store_true with
-    default True); ``--policy seqtp`` raises naming Queue 2 item 12 (the
-    flash backward at a query offset); ``tp`` and ``fsdp_tp`` train (on
+    default True); ``--policy seqtp`` trains (on one rank the one-device
+    step: tests/test_torch_seqshard_coupled.py holds 2 ranks against it);
+    ``tp`` and ``fsdp_tp`` train (on
     one rank the mesh (1, 1), as JAX's driver makes it) the steps of
     ``broadcast``, and a checkpoint of either resumes under the other
     (checkpoints hold whole leaves); ``--production-mesh`` on a world of
@@ -216,15 +217,14 @@ def test_cli_flags_and_refusals(tmp_path):
     assert (args.steps, args.batch, args.seq, args.lr, args.ckpt_every,
             args.warmup, args.policy, args.backend) == \
         (50, 8, 128, 3e-4, 25, 100, "broadcast", None)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 12"):
-        train.main(["--device", "cpu", "--policy", "seqtp"])
     run = ["--device", "cpu", "--batch", "2", "--seq", "16"]
     loss = {}
-    for policy in ("broadcast", "tp", "fsdp_tp"):
+    for policy in ("broadcast", "seqtp", "tp", "fsdp_tp"):
         out = train.main([*run, "--steps", "2", "--policy", policy,
                           "--ckpt-dir", str(tmp_path / policy)])
         loss[policy] = [h["loss"] for h in out["history"]]
         assert len(loss[policy]) == 2
+    assert loss["seqtp"] == loss["broadcast"]
     for policy in ("tp", "fsdp_tp"):
         np.testing.assert_allclose(loss[policy], loss["broadcast"],
                                    rtol=RTOL)

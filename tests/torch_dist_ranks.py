@@ -501,3 +501,159 @@ def tp_count_rank(rank, arch, kinds):
         out[kind] = {"flops": dryrun_lib.step_flops(fc, c),
                      "launches": c.launches(), "colls": c.colls}
     return out if rank == 0 else None
+
+
+#: name -> (arch, layer pattern and repeats or None for reduced()'s own
+#: groups, window): the coupled kinds' seqtp cases (every layer kind of
+#: the registry: S, R with its local layer on the halo, D and MLA with
+#: MoE, MoE alone) and the attention kinds' training cases
+COUPLED_CASES = {"mamba": ("falcon-mamba-7b", None, 0),
+                 "rgemma": ("recurrentgemma-2b", (("R", "L"), 1), 0),
+                 "deepseek": ("deepseek-v2-lite-16b", None, 0),
+                 "qwen3moe": ("qwen3-moe-30b-a3b", None, 0),
+                 "internlm2": ("internlm2-1.8b", (("A", "A"), 1), 0),
+                 "gemma3": ("gemma3-4b", (("L", "G"), 1), 0)}
+
+
+def coupled_config(case):
+    from repro_torch.configs import ScanGroup, get_config, reduced
+    arch, groups, window = COUPLED_CASES[case]
+    cfg = reduced(get_config(arch))
+    if groups is not None:
+        pattern, reps = groups
+        cfg = cfg.replace(n_layers=len(pattern) * reps,
+                          groups=(ScanGroup(pattern, reps),))
+    return cfg.replace(**({"window": window} if window else {}))
+
+
+def coupled_inputs(d, case, name=None):
+    """``case``'s config, the JAX weights and the tokens of run ``name``
+    (by default ``case``) from ``d``."""
+    from repro_torch.models import weights
+    cfg = coupled_config(case)
+    pre = case + "/p/"
+    params = weights.params_from_numpy(
+        {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}, cfg,
+        "cpu")
+    return cfg, params, _t(d[(name or case) + "/tokens"])
+
+
+def carry_inputs(seed=0, B=2, S=64, di=6, N=3):
+    """Seeded selective-scan inputs whose state outlives a 16-step shard
+    (dt ~ 0.01, so exp(A dt) stays near 1): the carry's fold, not the
+    decay, sets each shard's entering state."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+    return (r(B, S, di), 0.01 * torch.rand(B, S, di, generator=g), r(B, S, N),
+            r(B, S, N), -torch.rand(di, N, generator=g) - 0.1, r(di),
+            r(B, S, di))
+
+
+def carry_check(mesh):
+    """``collectives.shard_scan`` of the selective scan on this rank's
+    shard of :func:`carry_inputs` under grad: its y and h_final, and the
+    gradients of sum(y * w) + sum(h_final) of every input, summed over
+    ``model`` as a train step sums a replicated leaf's."""
+    from repro_torch.core import collectives
+    from repro_torch.models import ssm
+    xc, dt, Bc, Cc, A, D, w = carry_inputs()
+    n, i = mesh.axis_size("model"), mesh.axis_index("model")
+    part = lambda t: local_block(t, "model", mesh, 1)  # noqa: E731
+    leaves = [part(t).clone().requires_grad_(True)
+              for t in (xc, dt, Bc, Cc)] + \
+        [t.clone().requires_grad_(True) for t in (A, D)]
+    xc_, dt_, B_, C_, A_, D_ = leaves
+    y, h = collectives.shard_scan(
+        lambda x_, h0: ssm.selective_scan(x_, dt_, B_, C_, A_, D_, h0=h0),
+        xc_, torch.exp(A_[None] * dt_.sum(1)[..., None]), "model", mesh)
+    last = collectives.all_gather(h, "model", tiled=False, mesh=mesh)[-1]
+    loss = (y * part(w)).sum() + (h.sum() if i == n - 1 else 0.0)
+    grads = torch.autograd.grad(loss, leaves)
+    whole = [collectives.all_gather(g, "model", dim=1, mesh=mesh)
+             for g in grads[:4]] + [collectives.psum(g, "model", mesh)
+                                    for g in grads[4:]]
+    return {"y": collectives.all_gather(y, "model", dim=1,
+                                        mesh=mesh).numpy(),
+            "h": last.numpy(), "grads": [g.numpy() for g in whole]}
+
+
+def seqtp_run(cfg, params, toks, mesh=None, grads=True, serve=True):
+    """``cfg`` on ``toks`` under ``seqtp`` on ``mesh`` (one device where
+    None): the forward's logits, the prefill's last logits and caches,
+    the loss and every gradient of ``lm_loss`` (summed over the mesh as
+    the train step sums them), and the routes the layers took; each rank
+    its rows over the data axes, whole over ``model``."""
+    import contextlib
+
+    from repro_torch.core import collectives
+    from repro_torch.core.sharding import current_ctx, use_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import flatten_with_paths
+    flat = lambda t: {k: v.detach().float().numpy() for k, v in  # noqa: E731
+                      flatten_with_paths(t).items()}
+    for key in attn.SEQSHARD_ROUTES:
+        attn.SEQSHARD_ROUTES[key] = 0
+    scope = contextlib.nullcontext() if mesh is None else \
+        use_sharding(mesh, "seqtp")
+    out = {}
+    with scope:
+        rows = steps._row_axes(current_ctx()) if mesh is not None else ()
+        mine = local_block(toks, rows, mesh) if rows else toks
+        if serve:
+            with torch.no_grad():
+                out["logits"] = tfm.forward(params, cfg, tokens=mine)[0]
+                caches = tfm.init_caches(cfg, mine.shape[0], mine.shape[1],
+                                         "cpu")
+                out["last"], caches = tfm.prefill(params, cfg, mine, caches)
+            out = {k: v.numpy() for k, v in out.items()}
+            out["caches"] = flat(caches)
+        if grads:
+            (loss, _), g = steps.value_and_grad(params, cfg,
+                                                {"tokens": mine})
+            if mesh is not None:
+                g, _ = steps._mesh_grads(g, cfg, current_ctx())
+                if rows:
+                    loss = collectives.psum(loss / mesh.axis_size(rows),
+                                            rows, mesh)
+            out["loss"], out["grads"] = float(loss), flat(g)
+    out["routes"] = dict(attn.SEQSHARD_ROUTES)
+    return out
+
+
+def seqtp_coupled_rank(rank, path, shape, runs, carry=False):
+    """Each run ``(case, name)`` of ``runs`` (``case``'s config and
+    weights, run ``name``'s tokens) under ``seqtp`` on the mesh ``shape``
+    over ("data", "model"): :func:`seqtp_run`'s results, every rank's;
+    with ``carry``, :func:`carry_check`'s too."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    d = _load(path)
+    mesh = compat_make_mesh(shape, ("data", "model"))
+    out = {}
+    for case, name in runs:
+        cfg, params, toks = coupled_inputs(d, case, name)
+        out[name] = seqtp_run(cfg, params, toks, mesh,
+                              serve=case in SERVE_CASES)
+    if carry:
+        out["carry"] = carry_check(mesh)
+    return out
+
+
+#: the cases whose forward and prefill the coupled tests check (the
+#: attention kinds' are tests/test_torch_seqshard.py's)
+SERVE_CASES = ("mamba", "rgemma", "deepseek", "qwen3moe")
+
+
+def seqtp_train_rank(rank, ckpt_dir, argv):
+    """``launch/train.py``'s CLI on this rank (its process group started
+    by ``collectives.spawn``): each step's metrics, the final parameters
+    and Adam's second moments."""
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten_with_paths
+    res = train.main(list(argv) + ["--ckpt-dir", f"{ckpt_dir}/r{rank}"])
+    flat = lambda t: {k: v.float().numpy() for k, v in  # noqa: E731
+                      flatten_with_paths(t).items()}
+    return ([{k: h[k] for k in ("loss", "ce", "aux", "grad_norm", "lr")}
+             for h in res["history"]], flat(res["params"]),
+            flat(res["opt"].v))
