@@ -48,8 +48,12 @@ phase ends on a line of its own with its wall time
    decode (bf16 and fp32 at rank 512 / rope 64, fp32 at 32 / 8), with
    flash's instantiations, forward and backward, at (q/k, v) (192, 128)
    (wgmma and fp32) and (24, 16) (fp32), the bf16 backward's shared
-   memory equal to ``kernels/flash_bwd_plan.py``'s; a spill fails the
-   run;
+   memory equal to ``kernels/flash_bwd_plan.py``'s; and the soft-capped
+   instantiations of every attention kernel but MLA's (flash and the
+   extend on wgmma and in fp32, both decodes, the four backward tile
+   kernels; hd 64, 128 and 256), beside every uncapped instantiation's
+   registers and static shared memory, which must equal the parent's
+   (``PARENT_PTXAS``); a spill fails the run;
 2. kernels against their plain versions (``repro_torch.kernels.ref``) at
    the main paths' shapes in bf16 (H=16, KV=8, hd=128; paged: bs=16,
    ragged lengths up to 2048, an extend of S=256 at pos0 > 0; dense: a
@@ -183,7 +187,20 @@ phase ends on a line of its own with its wall time
    1, 63, 64, 65, 129, 200; G 1, 2; bidirectional), in fp32 at (192,
    128) and (24, 16), within GRAD_REL, with the mask-widening control,
    timed beside its bound, the plain version's autograd and SDPA's
-   backward under the fastest backend that takes the widths;
+   backward under the fastest backend that takes the widths; last,
+   attention logit soft-capping (``_softcap_checks``): every capped
+   kernel against its capped plain version, flash causal, windowed,
+   bidirectional, at T != S and at a query offset, the paged extend (the
+   verify shape too), the paged and split-K decodes (a ring, a length-0
+   row), at the main paths' heads and gemma-7b's, gemma3-4b's (window
+   1,024) and whisper-base's, in bf16 (the 1% rule and its control) and
+   fp32 (FP32_TOL of the fp64 plain version) at c 50 over scores of
+   about +-100 and c 5 over +-15, each printing the share of live scores
+   past c / 2 (at least CAP_BITE) and rejecting the uncapped kernel; the
+   capped backward at the training shape, gemma3-4b's window, two query
+   offsets and in fp32, against autograd through the capped plain version
+   with the uncapped backward as its control; each capped kernel timed
+   beside its uncapped time, its plain version and its bound;
 3. token-exact: the two-layer fp32 reduced config served on the card by
    the paged and the dense engine, each through the kernels and forced
    through the plain versions; all four runs give the same tokens, and so
@@ -217,7 +234,10 @@ phase ends on a line of its own with its wall time
    sync debug ``error``; last, the fp32 reduced whisper-base (2 + 2
    layers, 100 frames, prompts of 5 tokens) greedy for 8 tokens through
    the prefill and decode steps, kernel and plain: the same tokens,
-   logits within 1e-4;
+   logits within 1e-4; with ``attn_softcap`` CAP_REDUCED (a cap that
+   bites at the reduced widths), internlm2-1.8b at hd 64 paged, dense and
+   speculative, gemma-7b and gemma3-4b (rings) at hd 256, kernel and
+   plain, the same tokens;
 4. full-width serves: internlm2-1.8b (24 layers, bf16, seeded random
    weights), 8 slots, max_len 2048, K=8, 8 requests of 16-512 tokens, two
    sharing a 256-token prefix, max_new 32, first paged (block_size 16),
@@ -271,7 +291,14 @@ phase ends on a line of its own with its wall time
    dense, counted; launches exact (flash 27 an admit, the split-K decode
    8 and the MLA decode 208 a sync), every admit batch-1, tok/s, TTFT,
    memory, and a profiled decode sync with the expert products', the
-   absorption products' and the MLA decode's device time;
+   absorption products' and the MLA decode's device time.  With
+   ``--profile-syncs`` starcoder2-3b, internvl2-1b and gemma-7b each
+   profile a decode sync of their dense engine too.  Soft-capped:
+   gemma-7b on the dense run's weights with ``attn_softcap`` 50 (Gemma
+   2's), paged then dense, and gemma3-4b dense the same way on its
+   weights, each with the uncapped serve's exact launches and no plain
+   call, its tok/s, TTFT and tokens' agreement with the uncapped serve
+   (not a gate);
 5. MARGOT at full size (d=1024, the paper's dataset sizes): DS1 through
    the kernel and through the plain version (equal link sets), the DS2
    batch through ``repro_torch.launch.argmining`` (its launch counts read
@@ -346,7 +373,11 @@ phase ends on a line of its own with its wall time
    increase, the roofline terms and the step's share of the bf16 peak
    printed (over the step's host time and the profiled step's device
    busy time); then a run resumed from the step-4 checkpoint that must give
-   step 5's loss bit for bit; (c) the recurrent and MLA families: (i)
+   step 5's loss bit for bit; (a) again with ``attn_softcap``
+   CAP_REDUCED, and after (d) 2 AdamW steps of (b)'s tree with
+   ``attn_softcap`` 50 (24 capped flash forward and 24 backward
+   launches a step, every gradient finite); (c) the recurrent and MLA
+   families: (i)
    the fp32 reduced falcon-mamba-7b (2 layers), recurrentgemma-2b ((R,
    R, L) + (R, R)) and deepseek-v2-lite-16b (D + M) each take 3 AdamW
    steps through the kernels and the same 3 through the plain versions
@@ -372,7 +403,9 @@ phase ends on a line of its own with its wall time
    through ``steps.make_train_step`` (bf16 parameters, fp32 moments,
    remat none, B 8 x (1,500 frames, 448 tokens), warmup 2; loss, grad norm
    and ms a step, decoder tokens/s, peak memory, exactly 18 flash forward
-   and 18 backward launches a step) and one more step profiled;
+   and 18 backward launches a step) and one more step profiled; the B 8
+   serve and its fp32 prefill check again with ``attn_softcap``
+   CAP_REDUCED on the same weights;
 11. multi-device: first whisper-base's data-parallel steps on one rank
    here (the reference of (d)), then 2 ranks spawned on cuda:0 over gloo
    (``collectives.spawn``; NCCL refuses two ranks on one card), each
@@ -397,7 +430,8 @@ phase ends on a line of its own with its wall time
    prefill: the same greedy token, logits and caches within MD_SEQ_REL;
    (f) the fp32 reduced gemma3-4b under ``seqtp`` (local layers on the
    halo, the global one gathered), kernel against plain and against the
-   one-rank run within MD_FP32_TOL; the tensor-parallel layers, each
+   one-rank run within MD_FP32_TOL, then the same at hd 64 with
+   ``attn_softcap`` CAP_REDUCED; the tensor-parallel layers, each
    against a one-rank run made here before the spawn: (g) internlm2-1.8b
    at full width under ``tp`` on (1, 2) (each rank's bytes against
    ``per_chip_bytes``), a B 4 x S 512 prefill through
@@ -412,7 +446,8 @@ phase ends on a line of its own with its wall time
    launches a step a rank; (i) the same under ``fsdp_tp`` on (2, 1), 2 x
    B 1; after each of (h) and (i) the fp32 reduced model's 3 steps within
    TRAIN_RTOL of one rank; each part's wall printed;
-12. the ``{"kernels": [...]}`` line.
+12. the ``{"kernels": [...]}`` line; each kernel's ``softcap`` entry
+   says whether it takes the cap, with its tanh and its capped time.
 
 The last line is ``{"ok": true, "device": {...}}``.  With
 ``--kernels-only`` it runs phases 1 and 2 alone (the build and every
@@ -512,11 +547,24 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+#: phase 4 profiles a decode sync of starcoder2-3b, internvl2-1b and
+#: gemma-7b on the dense engine only with ``--profile-syncs`` (their
+#: readings stand in PERF.md, section 5; each trace takes ~35 s)
+PROFILE_SYNCS = []
+#: traces a profiled training step or admit may take before its busy
+#: time is reported as not measured (or its check reads an empty trace):
+#: CUPTI has handed back a trace of a whole internlm2-1.8b step with no
+#: device event in it
+PROFILE_TRIES = 2
+
+
 def main():
-    kernels_only = sys.argv[1:] == ["--kernels-only"]
-    if sys.argv[1:] and not kernels_only:
-        fail(f"usage: python3 chip_smoke.py [--kernels-only]; got "
-             f"{sys.argv[1:]}")
+    args = sys.argv[1:]
+    kernels_only = "--kernels-only" in args
+    PROFILE_SYNCS.append("--profile-syncs" in args)
+    if set(args) - {"--kernels-only", "--profile-syncs"}:
+        fail(f"usage: python3 chip_smoke.py [--kernels-only] "
+             f"[--profile-syncs]; got {args}")
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch not found beside chip_smoke.py: run it from "
              "the root of a checkout of the repository")
@@ -601,6 +649,7 @@ def phase_device() -> str:
     print(f"[build] mla_decode.cu {_mla_usage(build.BUILD_LOG, md)}")
     print(f"[build] flash_attention_bwd.cu "
           f"{_bwd_usage(build.BUILD_LOG, fa._bwd_library())}")
+    print(f"[build] {_softcap_usage(build.BUILD_LOG)}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text("\n".join(
         [smi, line] + [f"== {s}\n{log}" for s, log in
@@ -609,6 +658,118 @@ def phase_device() -> str:
 
 
 # ----------------------------------------------------------------------
+#: ptxas's registers and static shared memory (bytes) of every uncapped
+#: instantiation of the kernels that have soft-capped ones, as they were
+#: built before the soft-cap was added (phase 1's nvcc log of that tree on
+#: an H100; PERF.md, section 6): (source, kernel) -> "key:registers/smem
+#: ...", the key the dtype (b bf16, f fp32; decodes and the fp32 extend)
+#: and the template's widths (q/k x v head dims, or head dim x rows a CTA)
+PARENT_PTXAS = {
+    ("flash_attention.cu", "attention_sm90_kernel"):
+        "128x128:162/0 16x16:102/0 192x128:159/0 256x256:226/0 32x32:114/0 "
+        "64x64:131/0",
+    ("flash_attention.cu", "flash_simt_kernel"):
+        "128x128:255/33280 16x16:255/4608 192x128:236/33280 24x16:234/2304 "
+        "256x256:255/512 32x32:255/8704 64x64:255/16896",
+    ("paged_attention.cu", "attention_sm90_kernel"):
+        "128x128:162/0 16x16:104/0 256x256:219/0 32x32:116/0 64x64:132/0",
+    ("paged_attention.cu", "paged_attention_kernel"):
+        "f128x8:254/33280 f16x8:255/4608 f256x8:255/512 f32x8:255/8704 "
+        "f64x8:255/16896",
+    ("paged_attention.cu", "decode_sm90_kernel"):
+        "b128x1:72/32848 b128x2:72/32848 b128x4:105/32848 b128x8:185/32848 "
+        "b16x1:72/32912 b16x2:72/32912 b16x4:106/32912 b16x8:190/32912 "
+        "b256x1:80/80 b256x2:80/80 b256x4:105/80 b256x8:184/80 "
+        "b32x1:72/32912 b32x2:72/32912 b32x4:103/32912 b32x8:190/32912 "
+        "b64x1:72/32912 b64x2:72/32912 b64x4:104/32912 b64x8:180/32912 "
+        "f128x1:72/32816 f128x2:72/32816 f128x4:80/32816 f128x8:119/32816 "
+        "f16x1:72/32912 f16x2:72/32912 f16x4:80/32912 f16x8:128/32912 "
+        "f256x1:80/48 f256x2:94/48 f256x4:106/48 f256x8:185/48 "
+        "f32x1:72/32912 f32x2:72/32912 f32x4:80/32912 f32x8:118/32912 "
+        "f64x1:72/32848 f64x2:72/32848 f64x4:80/32848 f64x8:120/32848",
+    ("decode_attention.cu", "decode_sm90_kernel"):
+        "b128x1:72/32848 b128x2:72/32848 b128x4:108/32848 b128x8:187/32848 "
+        "b16x1:72/32912 b16x2:72/32912 b16x4:116/32912 b16x8:205/32912 "
+        "b256x1:80/80 b256x2:87/80 b256x4:108/80 b256x8:189/80 "
+        "b32x1:72/32912 b32x2:71/32912 b32x4:127/32912 b32x8:188/32912 "
+        "b64x1:72/32912 b64x2:72/32912 b64x4:107/32912 b64x8:183/32912 "
+        "f128x1:72/32816 f128x2:72/32816 f128x4:102/32816 f128x8:124/32816 "
+        "f16x1:72/32912 f16x2:72/32912 f16x4:102/32912 f16x8:121/32912 "
+        "f256x1:96/48 f256x2:102/48 f256x4:111/48 f256x8:189/48 "
+        "f32x1:72/32912 f32x2:72/32912 f32x4:102/32912 f32x8:123/32912 "
+        "f64x1:72/32848 f64x2:72/32848 f64x4:102/32848 f64x8:124/32848",
+    ("flash_attention_bwd.cu", "flash_bwd_dkdv_sm90_kernel"):
+        "128x128:168/0 16x16:168/0 192x128:168/0 256x256:168/0 32x32:168/0 "
+        "64x64:168/0",
+    ("flash_attention_bwd.cu", "flash_bwd_dq_sm90_kernel"):
+        "128x128:160/0 16x16:108/0 192x128:199/0 256x256:229/0 32x32:115/0 "
+        "64x64:130/0",
+    ("flash_attention_bwd.cu", "flash_bwd_dkdv_kernel"):
+        "128x128:89/0 16x16:49/18944 192x128:80/0 24x16:49/20992 "
+        "256x256:134/0 32x32:56/27136 64x64:73/0",
+    ("flash_attention_bwd.cu", "flash_bwd_dq_kernel"):
+        "128x128:70/0 16x16:59/18944 192x128:72/0 24x16:48/20992 "
+        "256x256:86/0 32x32:48/27136 64x64:74/0",
+}
+
+
+def _ptxas_key(args):
+    """A kernel's mangled template arguments as :data:`PARENT_PTXAS`'s
+    key, and whether it is a capped instantiation (its CAP argument
+    true)."""
+    dt = "b" if "13__nv_bfloat16" in args else "f" if args.startswith(
+        "f") else ""
+    return dt + "x".join(re.findall(r"Li(\d+)E", args)), "Lb1E" in args
+
+
+def _uncapped(found):
+    """The reports of ``found`` (``_ptxas_reports``) without the
+    soft-capped instantiations."""
+    return {k: v for k, v in found.items() if not _ptxas_key(k)[1]}
+
+
+def _softcap_usage(logs) -> str:
+    """Every kernel that takes the soft-cap: its capped instantiations'
+    registers (each must have a report and no spill: every dtype it is
+    built for at hd 64, 128 and 256, all its rows a CTA), and every
+    uncapped instantiation's registers and static shared memory equal to
+    the parent's (:data:`PARENT_PTXAS`), or the run fails."""
+    from repro_torch.kernels import SOFTCAP_HEAD_DIMS
+    parts = []
+    for (source, kernel), parent in PARENT_PTXAS.items():
+        want = {k: tuple(int(x) for x in v.split("/"))
+                for k, v in (e.split(":") for e in parent.split())}
+        now, capped = {}, {}
+        for args, info in _ptxas_reports(logs, source, kernel).items():
+            key, cap = _ptxas_key(args)
+            smem = re.search(r"(\d+) bytes smem", info)
+            (capped if cap else now)[key] = (
+                int(re.search(r"Used (\d+) registers", info)[1]),
+                int(smem[1]) if smem else 0)
+        check(now == want, f"{source}: {kernel}'s uncapped instantiations "
+              f"{sorted(now.items())} are not the parent's "
+              f"{sorted(want.items())}")
+        rows = kernel in ("decode_sm90_kernel", "paged_attention_kernel")
+        dims = lambda k: [int(x) for x in re.findall(r"\d+", k)]  # noqa
+        cap_keys = {k for k in want if dims(k)[0] in SOFTCAP_HEAD_DIMS and
+                    (rows or dims(k)[0] == dims(k)[1])}
+        check(set(capped) == cap_keys, f"{source}: {kernel}'s capped "
+              f"instantiations {sorted(capped)}, not {sorted(cap_keys)}")
+        if kernel == "flash_bwd_dkdv_sm90_kernel":
+            check({r for r, _ in capped.values()} == {168}, f"{source}: "
+                  f"capped {kernel} at {capped}: its setmaxnreg split "
+                  f"needs 168 registers a thread")
+        show = lambda d: ", ".join(  # noqa: E731
+            f"{k} {r}" + (f"/{s} B" if s else "") for k, (r, s) in
+            sorted(d.items(), key=lambda x: dims(x[0])) if
+            k in cap_keys)
+        parts.append(f"{kernel} ({source}) capped: {show(capped)}; "
+                     f"uncapped as the parent's ({len(now)}: {show(now)} "
+                     f"at the capped keys)")
+    return "soft-cap registers[/static smem], no spills: " + "; ".join(
+        parts)
+
+
 def _ptxas_reports(logs, source, kernel):
     """ptxas's report (stack, spills, registers, shared memory) of every
     instantiation of ``kernel`` in ``source``'s build, by its mangled
@@ -641,8 +802,8 @@ def _sm90_usage(logs, source, smem, extra=()) -> str:
     memory it asks for at launch (``Ring<hd, hd_v>::SMEM`` in
     csrc/attention_sm90.cuh)."""
     from repro_torch.kernels import HEAD_DIMS
-    found = {_dims(k): v for k, v in
-             _ptxas_reports(logs, source, "attention_sm90_kernel").items()}
+    found = {_dims(k): v for k, v in _uncapped(
+        _ptxas_reports(logs, source, "attention_sm90_kernel")).items()}
     want = sorted([(hd, hd) for hd in HEAD_DIMS] + list(extra))
     check(sorted(found) == want,
           f"{source}: ptxas reported attention_sm90_kernel at (q/k, v) head "
@@ -664,7 +825,7 @@ def _simt_usage(logs) -> str:
              sorted(FLASH_QK_V_DIMS)),
             ("paged_attention.cu", "paged_attention_kernel", [])):
         found = {}
-        for k, v in _ptxas_reports(logs, source, kernel).items():
+        for k, v in _uncapped(_ptxas_reports(logs, source, kernel)).items():
             d = _dims(k)
             found[d if len(d) == 2 and extra else (d[0], d[0])] = v
         want = sorted([(hd, hd) for hd in HEAD_DIMS] + extra)
@@ -701,7 +862,7 @@ def _bwd_usage(logs, lib) -> str:
                               ("flash_bwd_dkdv_kernel", "fp32", None),
                               ("flash_bwd_dq_kernel", "fp32", None)):
         found = {_dims(k): v for k, v in
-                 _ptxas_reports(logs, source, kernel).items()}
+                 _uncapped(_ptxas_reports(logs, source, kernel)).items()}
         dtype = torch.bfloat16 if which is not None else torch.float32
         want = sorted([(hd, hd) for hd in HEAD_DIMS] +
                       [d for d, ts in FLASH_QK_V_DIMS.items() if dtype in ts])
@@ -762,7 +923,8 @@ def _decode_usage(logs, source) -> str:
     which ptxas does not count)."""
     from repro_torch.kernels import HEAD_DIMS
     found = {}
-    for k, info in _ptxas_reports(logs, source, "decode_sm90_kernel").items():
+    for k, info in _uncapped(
+            _ptxas_reports(logs, source, "decode_sm90_kernel")).items():
         m = re.match(r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", k)
         smem = re.search(r"(\d+) bytes smem", info)
         found[(m[1], int(m[2]), int(m[3]))] = (
@@ -960,22 +1122,24 @@ def _compare(name, out, want):
     return max_err, share
 
 
-def _rounded_p(q, k, v, keep):
+def _rounded_p(q, k, v, keep, softcap=0.0):
     """The control: plain attention of q (B,S,H,hd) over k/v (B,L,KV,hd)
     where keep (B,S,L) allows, with P rounded to bf16 before P.V, as the
-    model's plain mha does."""
+    model's plain mha does; ``softcap`` caps the scores first."""
     import torch
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd).float()
     sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
     sc = sc.masked_fill(~keep[:, None, None], -2e38)
     p = torch.softmax(sc, dim=-1).to(torch.bfloat16).float()
     return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
         B, S, H, v.shape[-1])
 
 
-def _plain_rounded_p(q, kp, vp, bt, pos0):
+def _plain_rounded_p(q, kp, vp, bt, pos0, softcap=0.0):
     """The control of the paged extend (q (B,S,H,hd), queries at
     pos0 + s), on the K/V gathered through the table."""
     import torch
@@ -987,7 +1151,7 @@ def _plain_rounded_p(q, kp, vp, bt, pos0):
     qpos = pos0[:, None].long() + torch.arange(S, device=q.device)[None]
     keep = (torch.arange(nb * bs, device=q.device)[None, None, :] <=
             qpos[:, :, None])
-    return _rounded_p(q, k, v, keep)
+    return _rounded_p(q, k, v, keep, softcap)
 
 
 def _check_control(name, ctl, want):
@@ -1089,6 +1253,9 @@ def phase_kernels():
     # generator
     _offset_bwd_checks(torch.Generator(device=dev).manual_seed(34 + 1), dev,
                        stats)
+    # attention logit soft-capping, after every other check, on its own
+    # generator
+    _softcap_checks(torch.Generator(device=dev).manual_seed(36), dev, stats)
     return stats
 
 
@@ -4129,6 +4296,448 @@ def _fused_scan_checks(gen, dev, stats, issue):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 2, last: attention logit soft-capping on every attention kernel
+# but MLA's, forward and backward
+#: (arch, (H, KV), hd) of the capped checks: the main paths' heads and
+#: gemma-7b's, gemma3-4b's (window 1,024) and whisper-base's
+CAP_HEADS = (("internlm2-1.8b", (16, 8), 128), ("gemma-7b", (16, 16), 256),
+             ("gemma3-4b", (8, 4), 256), ("whisper-base", (8, 8), 64))
+#: each cap -> the spread (std) of the scaled scores of its inputs: Gemma
+#: 2's 50 over scores of about +-100, and 5 over scores of about +-15
+CAP_SPREAD = {50.0: 35.0, 5.0: 5.0}
+#: the share of live scaled scores past c / 2 a capped check needs
+CAP_BITE = 0.25
+#: the extend's pos0 and the decodes' ragged lengths at the main shapes
+CAP_POS0 = (16, 256, 768, 1792)
+CAP_LENGTHS = (2048, 1, 1537, 300, 16, 977, 2000, 64)
+
+
+def _cap_qkv(gen, dev, q_shape, kv_shape, c, dtype, pool=False):
+    """q, k (or a pool's), v whose scaled scores spread to about
+    CAP_SPREAD[c] (std), v of unit scale."""
+    import torch
+    sigma = math.sqrt(CAP_SPREAD[c])
+    q = (_randn(gen, q_shape, torch.float32, dev) * sigma).to(dtype)
+    k = (_randn(gen, kv_shape, torch.float32, dev) * sigma).to(dtype)
+    return q, k, _randn(gen, kv_shape, dtype, dev)
+
+
+def _cap_bite(q, k, keep, c):
+    """The share of live scaled scores of q (B,S,H,hd) over k (B,T,KV,hd)
+    with |s| > c / 2; keep (B or 1, S, T) says which are live."""
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(
+        B, S, KV, H // KV, hd), k.float()).abs() / math.sqrt(hd)
+    live = keep[:, None, None].expand_as(s)
+    return ((s > c / 2) & live).sum().item() / max(live.sum().item(), 1)
+
+
+def _cap_rejected(name, out, want):
+    """The uncapped kernel's ``out`` held to the capped plain ``want``
+    must fail the check: past the fp32 tolerance, or in bf16 off the
+    rounded result in more than BF16_MISMATCH of its elements or off by
+    more than one ulp + BF16_ATOL somewhere.  Returns its reading."""
+    import torch
+    err = (out.double() - want.double()).abs()
+    if out.dtype == torch.float32:
+        bad = not torch.allclose(out.double(), want.double(),
+                                 atol=FP32_TOL, rtol=FP32_TOL)
+        reading = f"{err.max().item():.2e} max abs"
+    else:
+        share = (out != want.to(out.dtype)).float().mean().item()
+        ulp_ok = bool((err <= _bf16_ulp(want.float()) + BF16_ATOL).all())
+        bad = share > BF16_MISMATCH or not ulp_ok
+        reading = f"{share:.2%} off, within one ulp: {ulp_ok}"
+    check(bad, f"softcap {name}: the uncapped kernel passes the capped "
+               f"check ({reading}): the check cannot see the cap")
+    return reading
+
+
+def _cap_check(name, c, kern, plain, rounded, bite):
+    """One capped kernel check: ``kern(c)`` (the kernel at cap c) against
+    ``plain(acc)``, the capped plain version computed in ``acc`` (fp32
+    for bf16 inputs: the bf16 rule; fp64 for fp32 inputs: FP32_TOL), with
+    the controls: ``rounded()`` (the capped plain version with P rounded
+    to bf16, bf16 only) must exceed the 1% rule, and ``kern(0)`` (the
+    uncapped kernel) must be rejected; ``bite`` the share of live scores
+    past c / 2.  Returns the largest absolute error."""
+    import torch
+    out = kern(c)
+    check(bite >= CAP_BITE, f"softcap {name}: only {bite:.3f} of the live "
+          f"scores pass c / 2 = {c / 2} (need {CAP_BITE}): the cap does "
+          f"not bite")
+    if out.dtype == torch.bfloat16:
+        want = plain(torch.float32)
+        err, share = _compare(f"softcap {name}", out, want)
+        ctl = _check_control(f"softcap {name}", rounded(), want)
+        ctl = f"bf16 P {ctl:.2%}"
+        rule = f"{share:.4%} off (limit {BF16_MISMATCH:.0%})"
+    else:
+        want = plain(torch.float64)
+        err = (out.double() - want).abs().max().item()
+        check(torch.allclose(out.double(), want, atol=FP32_TOL,
+                             rtol=FP32_TOL),
+              f"softcap {name}: max_abs_err {err:.3e} off the fp64 plain "
+              f"version (atol=rtol={FP32_TOL})")
+        ctl, rule = "-", f"atol=rtol={FP32_TOL} of the fp64 plain version"
+    unc = _cap_rejected(name, kern(0.0), want)
+    print(f"[kernels] softcap {name} {str(out.dtype)[6:]} c {c:g}: {bite:.3f}"
+          f" of live scores past c/2; max_abs_err {err:.2e}, {rule}; "
+          f"controls: {ctl}, uncapped kernel {unc}")
+    return err
+
+
+def _cap_flash(gen, dev, name, B, S, T, heads, hd, causal, window, c, dtype):
+    """Capped flash at (B, S over T keys), query s at key position s + T -
+    S."""
+    from repro_torch.kernels import ops, ref
+    H, KV = heads
+    q, k, v = _cap_qkv(gen, dev, (B, S, H, hd), (B, T, KV, hd), c, dtype)
+    keep = _offset_keep(S, T, window, dev, causal)
+    return _cap_check(
+        f"flash {name} (B {B}, S {S}, T {T}, H {H}, KV {KV}, hd {hd}, "
+        f"causal={causal}, window={window})", c,
+        lambda cc: ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       softcap=cc),
+        lambda acc: ref.flash_attention_ref(
+            q.to(acc), k.to(acc), v.to(acc), causal=causal, window=window,
+            softcap=c),
+        lambda: _rounded_p(q, k, v, keep.expand(B, S, T), softcap=c),
+        _cap_bite(q, k, keep, c))
+
+
+def _cap_decode(gen, dev, name, L, lengths, heads, hd, c, dtype):
+    """Capped split-K decode over a (B, L) cache (a ring when its lengths
+    reach L): one query a row over rows < lengths."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    H, KV = heads
+    B = len(lengths)
+    q, k, v = _cap_qkv(gen, dev, (B, H, hd), (B, L, KV, hd), c, dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    keep = torch.arange(L, device=dev)[None, None, :] < lens[:, None, None]
+    return _cap_check(
+        f"decode {name} (B {B}, L {L}, H {H}, KV {KV}, hd {hd}, lengths "
+        f"{min(lengths)}-{max(lengths)})", c,
+        lambda cc: ops.decode_attention(q, k, v, lens, softcap=cc),
+        lambda acc: ref.decode_attention_ref(q.to(acc), k.to(acc), v.to(acc),
+                                             lens, c),
+        lambda: _rounded_p(q[:, None], k, v, keep, softcap=c),
+        _cap_bite(q[:, None], k, keep, c))
+
+
+def _cap_paged(gen, dev, name, B, S, bs, nb, heads, hd, c, dtype, at):
+    """Capped paged decode (S None; ``at`` its lengths) or extend (S
+    queries a row at pos0 ``at``) over a pool read through the table."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    H, KV = heads
+    sigma = math.sqrt(CAP_SPREAD[c])
+    q_shape = (B, H, hd) if S is None else (B, S, H, hd)
+    q, kp, vp, bt = _paged_inputs(gen, B, nb, bs, KV, hd, q_shape,
+                                  torch.float32, dev)
+    q, kp, vp = (q * sigma).to(dtype), (kp * sigma).to(dtype), vp.to(dtype)
+    idx = torch.tensor(at, dtype=torch.int32, device=dev)
+    kg = kp[bt.long()].reshape(B, nb * bs, KV, hd)
+    vg = vp[bt.long()].reshape(B, nb * bs, KV, hd)
+    t = torch.arange(nb * bs, device=dev)
+    if S is None:
+        keep = t[None, None, :] < idx[:, None, None]
+        return _cap_check(
+            f"paged decode {name} (B {B}, bs {bs}, nb {nb}, H {H}, KV {KV}, "
+            f"hd {hd}, lengths {min(at)}-{max(at)})", c,
+            lambda cc: ops.paged_decode_attention(q, kp, vp, bt, idx,
+                                                  softcap=cc),
+            lambda acc: ref.paged_decode_attention_ref(
+                q.to(acc), kp.to(acc), vp.to(acc), bt, idx, c),
+            lambda: _rounded_p(q[:, None], kg, vg, keep, softcap=c),
+            _cap_bite(q[:, None], kg, keep, c))
+    qpos = idx[:, None].long() + torch.arange(S, device=dev)[None]
+    keep = t[None, None, :] <= qpos[:, :, None]
+    return _cap_check(
+        f"paged extend {name} (B {B}, S {S}, bs {bs}, nb {nb}, H {H}, KV "
+        f"{KV}, hd {hd}, pos0 {min(at)}-{max(at)})", c,
+        lambda cc: ops.paged_extend_attention(q, kp, vp, bt, idx,
+                                              softcap=cc),
+        lambda acc: ref.paged_extend_attention_ref(
+            q.to(acc), kp.to(acc), vp.to(acc), bt, idx, c),
+        lambda: _plain_rounded_p(q, kp, vp, bt, idx, softcap=c),
+        _cap_bite(q, kg, keep, c))
+
+
+def _cap_grads(q, k, v, dout, causal, window, c, acc):
+    """Autograd through the capped plain version in ``acc``: (lse, (dq,
+    dk, dv)), lse the log-sum-exp of the capped masked scaled scores."""
+    import torch
+    from repro_torch.kernels import ref
+    leaves = [t.to(acc).requires_grad_(True) for t in (q, k, v)]
+    out = ref.flash_attention_ref(*leaves, causal=causal, window=window,
+                                  softcap=c)
+    grads = torch.autograd.grad(out, leaves, dout.to(acc))
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    with torch.no_grad():
+        s = torch.einsum("bqkgh,bskh->bkgqs", leaves[0].reshape(
+            B, S, KV, H // KV, hd), leaves[1]) / math.sqrt(hd)
+        s = torch.tanh(s / c) * c
+        keep = _offset_keep(S, T, window, q.device, causal)[0]
+        s = s.masked_fill(~keep, ref.NEG_INF)
+        lse = torch.logsumexp(s, -1).permute(0, 3, 1, 2).reshape(B, S, H)
+    return lse, grads
+
+
+def _cap_bwd_check(name, q, k, v, dout, causal, window, c):
+    """The capped backward kernel (after the capped forward with its lse)
+    against autograd through the capped plain version (fp32 for bf16
+    inputs, fp64 for fp32) at GRAD_REL and LSE_TOL; the uncapped forward
+    and backward kernels are the control, which each gradient's largest
+    reading must put past the limit.  Returns the largest absolute
+    error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dname = str(q.dtype).split(".")[1]
+    limit = GRAD_REL[dname]
+
+    def kernel(cc):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = fa._forward(q, k, v, causal, window, lse, cc)
+        return lse, fa.flash_attention_bwd_bshd(
+            q, k, v, out, dout, lse, causal=causal, window=window,
+            softcap=cc)
+
+    acc = torch.float32 if q.dtype == torch.bfloat16 else torch.float64
+    lse, got = kernel(c)
+    want_lse, want = _cap_grads(q, k, v, dout, causal, window, c, acc)
+    readings = _grad_readings(got, want)
+    lse_err = (lse.double() - want_lse.double()).abs().max().item()
+    check(all(torch.isfinite(g.float()).all() for g in got) and
+          max(max(r) for r in readings) <= limit and lse_err <= LSE_TOL,
+          f"softcap flash bwd {name}: dq/dk/dv off the capped plain "
+          f"gradients by {_show(readings)} (limit {limit}); lse off by "
+          f"{lse_err:.3e} (limit {LSE_TOL})")
+    ctl = _grad_readings(kernel(0.0)[1], want)
+    check(all(r[0] > limit for r in ctl),
+          f"softcap flash bwd {name}: the uncapped backward moves dq/dk/dv "
+          f"by only {_show(ctl)}; the limit {limit} cannot see the cap")
+    print(f"[kernels] softcap flash bwd {name} {dname} c {c:g}: dq/dk/dv "
+          f"{_show(readings)} of each one's max (mean) (limit {limit}); lse "
+          f"{lse_err:.2e} (limit {LSE_TOL}); control, the uncapped "
+          f"backward: {_show(ctl)}")
+    return max((g.double() - w.double()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def _cap_times(gen, dev, stats):
+    """Each capped kernel at the main paths' shape (bf16, H 16, KV 8, hd
+    128, c 50), timed beside its uncapped time, its plain version's and
+    its bound (``kernels/work.py`` with the cap: a tanh a visible score on
+    the SFUs at the SM clock)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    bf, c = torch.bfloat16, 50.0
+    H, KV = MAIN_HEADS
+    hd, bs, nb = 128, 16, 128
+    clock = _sm_clock_hz()
+    lens = torch.tensor(CAP_LENGTHS, dtype=torch.int32, device=dev)
+    pos0 = torch.tensor(CAP_POS0, dtype=torch.int32, device=dev)
+    w = _work()
+    rows = {}
+
+    def row(key, calls, plain_calls, work, err):
+        ms = _time_ms([lambda f=f: f(c) for f in calls])
+        ms0 = _time_ms([lambda f=f: f(0.0) for f in calls])
+        plain = _time_ms([lambda f=f: f(c) for f in plain_calls], iters=4)
+        bound, by = work.bound_ms(clock)
+        rows[key] = dict(ms=ms, uncapped_ms=ms0, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, max_abs_err=err)
+        print(f"[kernels] softcap time {key} (bf16, c {c:g}): {ms:.4f}ms "
+              f"capped, {ms0:.4f}ms uncapped ({ms / ms0:.2f}x), plain "
+              f"{plain:.4f}ms, bound {bound:.4f}ms ({by}; "
+              f"{work.exps / 1e6:.1f} M tanh)")
+
+    sets = [_cap_qkv(gen, dev, (3, 512, H, hd), (3, 512, KV, hd), c, bf)
+            for _ in range(3)]
+    row("flash_attention",
+        [lambda cc, s=s: ops.flash_attention(*s, softcap=cc) for s in sets],
+        [lambda cc, s=sets[0]: ref.flash_attention_ref(*_f32(*s),
+                                                       softcap=cc)],
+        w.flash_attention(3, 512, 512, H, KV, hd, softcap=c),
+        (ops.flash_attention(*sets[0], softcap=c).float() -
+         ref.flash_attention_ref(*_f32(*sets[0]), softcap=c)).abs().max()
+        .item())
+    paged = []
+    for _ in range(3):
+        q, kp, vp, bt = _paged_inputs(gen, 4, nb, bs, KV, hd,
+                                      (4, 256, H, hd), torch.float32, dev)
+        sig = math.sqrt(CAP_SPREAD[c])
+        paged.append(((q * sig).to(bf), (kp * sig).to(bf), vp.to(bf), bt))
+    row("paged_extend_attention",
+        [lambda cc, s=s: ops.paged_extend_attention(*s, pos0, softcap=cc)
+         for s in paged],
+        [lambda cc, s=paged[0]: ref.paged_extend_attention_ref(
+            *_f32(*s[:3]), s[3], pos0, cc)],
+        w.paged_extend_attention(4, 256, H, KV, hd, bs, nb, pos0=CAP_POS0,
+                                 softcap=c),
+        (ops.paged_extend_attention(*paged[0], pos0, softcap=c).float() -
+         ref.paged_extend_attention_ref(*_f32(*paged[0][:3]), paged[0][3],
+                                        pos0, c)).abs().max().item())
+    pdec = []
+    for _ in range(3):
+        q, kp, vp, bt = _paged_inputs(gen, 8, nb, bs, KV, hd, (8, H, hd),
+                                      torch.float32, dev)
+        pdec.append(((q * sig).to(bf), (kp * sig).to(bf), vp.to(bf), bt))
+    row("paged_decode_attention",
+        [lambda cc, s=s: ops.paged_decode_attention(*s, lens, softcap=cc)
+         for s in pdec],
+        [lambda cc, s=pdec[0]: ref.paged_decode_attention_ref(
+            *_f32(*s[:3]), s[3], lens, cc)],
+        w.paged_decode_attention(8, H, KV, hd, bs, nb, lengths=CAP_LENGTHS,
+                                 softcap=c),
+        (ops.paged_decode_attention(*pdec[0], lens, softcap=c).float() -
+         ref.paged_decode_attention_ref(*_f32(*pdec[0][:3]), pdec[0][3],
+                                        lens, c)).abs().max().item())
+    dec = [_cap_qkv(gen, dev, (8, H, hd), (8, 2048, KV, hd), c, bf)
+           for _ in range(3)]
+    row("decode_attention",
+        [lambda cc, s=s: ops.decode_attention(*s, lens, softcap=cc)
+         for s in dec],
+        [lambda cc, s=dec[0]: ref.decode_attention_ref(*_f32(*s), lens, cc)],
+        w.decode_attention(8, H, KV, hd, 2048, lengths=CAP_LENGTHS,
+                           softcap=c),
+        (ops.decode_attention(*dec[0], lens, softcap=c).float() -
+         ref.decode_attention_ref(*_f32(*dec[0]), lens, c)).abs().max()
+        .item())
+    B, S, H2, KV2, hd2 = BWD_TRAIN
+    bsets = []
+    for _ in range(3):
+        q, k, v = _cap_qkv(gen, dev, (B, S, H2, hd2), (B, S, KV2, hd2), c, bf)
+        bsets.append(((q, k, v), _randn(gen, (B, S, H2, hd2), bf, dev)))
+    ms = {}
+    for cc in (c, 0.0):
+        ms[cc] = _time_bwd_ms(lambda q, k, v, cc=cc: fa.FlashAttention.apply(
+            q, k, v, True, 0, cc), bsets)
+    plain = _time_bwd_ms(lambda q, k, v: ref.flash_attention_ref(
+        q.float(), k.float(), v.float(), softcap=c), bsets[:1], iters=2)
+    bound, by = w.flash_attention_bwd(B, S, S, H2, KV2, hd2,
+                                      softcap=c).bound_ms(clock)
+    rows["flash_attention_bwd"] = dict(ms=ms[c], uncapped_ms=ms[0.0],
+                                       plain_ms=plain, bound_ms=bound,
+                                       bound_by=by)
+    print(f"[kernels] softcap time flash_attention_bwd (bf16, c {c:g}, B {B}"
+          f" x S {S}, H {H2}, KV {KV2}, hd {hd2}): {ms[c]:.4f}ms capped, "
+          f"{ms[0.0]:.4f}ms uncapped ({ms[c] / ms[0.0]:.2f}x), plain "
+          f"{plain:.4f}ms, bound {bound:.4f}ms ({by})")
+    stats["softcap"] = rows
+
+
+def _softcap_checks(gen, dev, stats):
+    """Every capped kernel against its capped plain version: flash under
+    each mask, at T != S and at a query offset, the paged extend (the
+    verify shape too), the paged and the split-K decode (a ring and a
+    length-0 row), at each of CAP_HEADS, bf16 at c 50 and 5 and fp32 at
+    both; the capped backward at the training shape, gemma3's window and
+    a query offset; then each capped kernel timed."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 0
+    for c in (50.0, 5.0):
+        for arch, heads, hd in CAP_HEADS:
+            F = lambda *a, **kw: _cap_flash(gen, dev, arch, *a,  # noqa
+                                            heads=heads, hd=hd, c=c, **kw)
+            if arch == "internlm2-1.8b":
+                F(3, 512, 512, causal=True, window=0, dtype=bf)
+                F(2, 300, 300, causal=True, window=128, dtype=bf)
+                F(2, 300, 300, causal=False, window=0, dtype=bf)
+                F(2, 96, 700, causal=False, window=0, dtype=bf)
+                F(1, 512, 1024, causal=True, window=0, dtype=bf)
+                _cap_paged(gen, dev, arch, 4, 256, 16, 128, heads, hd, c, bf,
+                           CAP_POS0)
+                _cap_paged(gen, dev, arch + " verify", 8, 4, 16, 32, heads,
+                           hd, c, bf, (301, 307, 314, 318, 322, 325, 329, 510))
+                _cap_paged(gen, dev, arch, 8, None, 16, 128, heads, hd, c, bf,
+                           CAP_LENGTHS)
+                _cap_decode(gen, dev, arch + " with a length-0 row", 2048,
+                            CAP_LENGTHS[:7] + (0,), heads, hd, c, bf)
+                n += 9
+            elif arch == "gemma-7b":
+                F(3, 512, 512, causal=True, window=0, dtype=bf)
+                _cap_paged(gen, dev, arch, 4, 256, 16, 128, heads, hd, c, bf,
+                           CAP_POS0)
+                _cap_paged(gen, dev, arch, 8, None, 16, 128, heads, hd, c, bf,
+                           CAP_LENGTHS)
+                _cap_decode(gen, dev, arch, 2048, CAP_LENGTHS, heads, hd, c,
+                            bf)
+                n += 4
+            elif arch == "gemma3-4b":
+                F(1, 2048, 2048, causal=True, window=1024, dtype=bf)
+                F(1, 1024, 2048, causal=True, window=1024, dtype=bf)
+                _cap_decode(gen, dev, arch + " ring", 1024,
+                            (1024, 1024, 513, 1024), heads, hd, c, bf)
+                n += 3
+            else:
+                F(8, 1500, 1500, causal=False, window=0, dtype=bf)
+                F(4, 224, 1500, causal=False, window=0, dtype=bf)
+                _cap_decode(gen, dev, arch + " self", 448,
+                            (5, 68, 127, 128, 129, 300, 447, 448), heads, hd,
+                            c, bf)
+                _cap_decode(gen, dev, arch + " cross", 1500, (1500,) * 8,
+                            heads, hd, c, bf)
+                n += 4
+        # fp32 at every capped head dim, small shapes
+        for hd in (64, 128, 256):
+            heads = (8, 4)
+            F = lambda *a, **kw: _cap_flash(gen, dev, "fp32", *a,  # noqa
+                                            heads=heads, hd=hd, c=c,
+                                            dtype=f32, **kw)
+            F(2, 200, 200, causal=True, window=0)
+            F(2, 200, 200, causal=True, window=64)
+            F(2, 130, 130, causal=False, window=0)
+            F(2, 64, 300, causal=False, window=0)
+            F(2, 100, 300, causal=True, window=0)
+            _cap_paged(gen, dev, "fp32", 4, 40, 16, 20, heads, hd, c, f32,
+                       (0, 100, 250, 17))
+            _cap_paged(gen, dev, "fp32", 4, None, 16, 20, heads, hd, c, f32,
+                       (300, 1, 129, 17))
+            _cap_decode(gen, dev, "fp32", 300, (300, 0, 129, 17), heads, hd,
+                        c, f32)
+            n += 8
+    torch.cuda.synchronize()
+    # the backward
+    B, S, H, KV, hd = BWD_TRAIN
+    err = {}
+
+    def bwd(name, B_, S_, T_, H_, KV_, hd_, causal, window, c, dtype):
+        q, k, v = _cap_qkv(gen, dev, (B_, S_, H_, hd_), (B_, T_, KV_, hd_), c,
+                           dtype)
+        dout = _randn(gen, (B_, S_, H_, hd_), dtype, dev)
+        err[name] = _cap_bwd_check(
+            f"{name} (B {B_}, S {S_}, T {T_}, H {H_}, KV {KV_}, hd {hd_}, "
+            f"causal={causal}, window={window})", q, k, v, dout, causal,
+            window, c)
+
+    bwd("training shape", B, S, S, H, KV, hd, True, 0, 50.0, bf)
+    bwd("gemma3-4b local window", 1, 2048, 2048, 8, 4, 256, True, 1024, 50.0,
+        bf)
+    bwd("query offset", 1, 1024, 2048, H, KV, hd, True, 0, 50.0, bf)
+    bwd("query offset, gemma3-4b's halo", 1, 1024, 2048, 8, 4, 256, True,
+        1024, 50.0, bf)
+    bwd("c 5", 2, 300, 300, H, KV, hd, True, 0, 5.0, bf)
+    for hd_ in (64, 128, 256):
+        bwd(f"fp32 hd {hd_}", 2, 65, 65, 4, 2, hd_, True, 0, 5.0, f32)
+    bwd("fp32 c 50", 2, 65, 65, 4, 2, 128, True, 0, 50.0, f32)
+    bwd("fp32 window 16 at an offset", 2, 65, 130, 4, 2, 128, True, 16, 5.0,
+        f32)
+    torch.cuda.synchronize()
+    print(f"[kernels] softcap: {n} forward and {len(err)} backward checks "
+          f"passed, each cap biting on >= {CAP_BITE} of the live scores, "
+          f"its controls rejected")
+    _cap_times(gen, dev, stats)
+
+
 def _stats(err, w, ms, plain_ms, library_ms, clock_hz=None):
     """A kernel row: its readings, and its bound from ``w``, the call's
     ``kernels/work.py`` Work (the exponentials bind with ``clock_hz``)."""
@@ -4289,6 +4898,8 @@ def _token_exact_paths(arch, paths=("paged", "dense"), extra=(), **over):
                    f"{tokens['dense'][-1] == tokens['paged'][-1]}, not a "
                    f"gate)")
     window = f", window {cfg.window}" if cfg.window else ""
+    if cfg.attn_softcap:
+        window += f", attn_softcap {cfg.attn_softcap:g}"
     mla = (f", MLA rank {cfg.kv_lora_rank} rope {cfg.rope_head_dim} (q/k "
            f"{cfg.nope_head_dim + cfg.rope_head_dim}, v {cfg.v_head_dim}), "
            f"{cfg.n_shared_experts} shared experts" if cfg.kv_lora_rank
@@ -4315,30 +4926,47 @@ def phase_token_exact():
     _token_exact_paths("internvl2-1b")
     _token_exact_gemma()
     _token_exact_moe()
-    # speculative decode: every verify window runs the paged extend, and
-    # greedy tokens are the non-speculative ones on either route
+    _token_exact_spec(run, paged_tokens, n_tok, "")
+    # attention logit soft-capping at a cap that bites (the reduced
+    # widths' scores reach ~4): internlm2-1.8b paged, dense and
+    # speculative at hd 64, gemma-7b and gemma3-4b (rings) at hd 256, the
+    # head dims with capped kernels
+    run, paged_tokens, n_tok = _token_exact_paths(
+        "internlm2-1.8b", head_dim=64, attn_softcap=CAP_REDUCED)
+    _token_exact_spec(run, paged_tokens, n_tok,
+                      f", hd 64, capped {CAP_REDUCED:g}")
+    _token_exact_paths("gemma-7b", head_dim=256, attn_softcap=CAP_REDUCED)
+    _token_exact_paths("gemma3-4b", paths=("dense",), extra=(40,),
+                       head_dim=256, attn_softcap=CAP_REDUCED)
+    _token_exact_mamba()
+    _token_exact_recurrentgemma()
+    _token_exact_deepseek()
+    _token_exact_whisper()
+
+
+def _token_exact_spec(run, paged_tokens, n_tok, label):
+    """Speculative decode: every verify window runs the paged extend, and
+    greedy tokens are the non-speculative ones on either route."""
+    from repro_torch.serving import ServeConfig
     spec = ServeConfig(max_len=64, slots=2, sync_every=4, paged=True,
                        block_size=8, speculative=True)
     for plain in (False, True):
         reqs, launch, calls, _ = run(spec, plain)
         used, unused = (calls, launch) if plain else (launch, calls)
-        label = "plain" if plain else "kernel"
+        route = "plain" if plain else "kernel"
         check(used["paged_extend_attention"] > 0 and
               sum(used.values()) == used["paged_extend_attention"] and
               not any(unused.values()),
-              f"speculative {label} run: launches {launch}, plain {calls}")
+              f"speculative {route} run{label}: launches {launch}, plain "
+              f"{calls}")
         got = [(r.out_tokens, r.finish_reason) for r in reqs]
-        check(got == paged_tokens,
-              f"speculative {label} tokens {got} != paged {paged_tokens}")
+        check(got == paged_tokens, f"speculative {route} tokens{label} "
+              f"{got} != paged {paged_tokens}")
         if not plain:
             n_ext = launch["paged_extend_attention"]
-    print(f"[token-exact] fp32 2-layer reduced, paged speculative (d=3): "
-          f"the same {n_tok} tokens through the kernels ({n_ext} paged "
-          f"extend launches, no paged decode) and the plain versions")
-    _token_exact_mamba()
-    _token_exact_recurrentgemma()
-    _token_exact_deepseek()
-    _token_exact_whisper()
+    print(f"[token-exact] fp32 2-layer reduced{label}, paged speculative "
+          f"(d=3): the same {n_tok} tokens through the kernels ({n_ext} "
+          f"paged extend launches, no paged decode) and the plain versions")
 
 
 def _token_exact_gemma():
@@ -4596,15 +5224,31 @@ def phase_serve():
     paged run's tokens."""
     launches, paged_tokens = _serve_path(True)
     launches.update(_serve_path(False)[0])
-    # one profiled decode sync an arch past internlm2-1.8b: the dense
-    # engine's (each arch's paged and dense syncs were within 7% of each
-    # other in device busy, and each profile's trace takes ~35 s)
+    # with --profile-syncs, one profiled decode sync an arch past
+    # internlm2-1.8b: the dense engine's (each arch's paged and dense syncs
+    # were within 7% of each other in device busy, and each profile's trace
+    # takes ~35 s)
     for arch in ("starcoder2-3b", "internvl2-1b", "gemma-7b"):
+        kept, tokens = [], {}
         for paged in (True, False):
-            _serve_path(paged, arch, profile=not paged)
+            tokens[paged] = _serve_path(
+                paged, arch, profile=not paged and PROFILE_SYNCS[0],
+                keep=None if paged else kept)[1]
+        if arch == "gemma-7b":
+            # the cap (Gemma 2's 50) on the dense run's weights, paged
+            # then dense: the same launches, no plain call
+            for paged in (True, False):
+                _serve_path(paged, arch, profile=False, softcap=CAP_SERVE,
+                            params=kept[-1], against=tokens[paged])
+        del kept
     # gemma3-4b's rings cannot page: asked for the paged engine, it serves
-    # dense, counted in engine.paged_fallback_dense
-    _serve_path(True, "gemma3-4b")
+    # dense, counted in engine.paged_fallback_dense; then capped, dense,
+    # on its weights
+    kept = []
+    g3 = _serve_path(True, "gemma3-4b", keep=kept)[1]
+    _serve_path(False, "gemma3-4b", profile=False, softcap=CAP_SERVE,
+                params=kept[-1], against=g3)
+    del kept
     # nor can recurrentgemma-2b's RG-LRU state and rings (max_len 4096);
     # its RG-LRU recurrence is the scan kernel's path, Mamba's op the fused
     # kernel's (both count under ssm_scan; the profiles name each kernel)
@@ -4622,6 +5266,14 @@ def phase_serve():
                      if k in MLA_KERNELS})
     return launches, paged_tokens
 
+
+#: the cap of phase 4's capped serves (gemma-7b paged and dense, gemma3-4b
+#: dense) and of phase 9 (b)'s capped steps: Gemma 2's
+#: attn_logit_softcapping
+CAP_SERVE = 50.0
+#: the cap of the fp32 reduced runs (phases 3, 9 (a), 10, 11 (f)): their
+#: reduced widths give scaled scores up to ~4, which 50 would not touch
+CAP_REDUCED = 1.0
 
 #: phase 4's ninth request, by arch: gemma3-4b's prompt past its 1,024-key
 #: window, so that flash's window bites at full width and the local
@@ -4653,7 +5305,8 @@ def _serve_prompts(vocab, long=0):
 
 
 def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
-                profile: bool = True):
+                profile: bool = True, softcap: float = 0.0, params=None,
+                against=None, keep=None):
     """``arch`` at full width (bf16, seeded weights) through the paged or
     the dense engine at phase 4's settings: the requests, the path's
     launch counts read right after them (one a layer per admit batch and
@@ -4663,7 +5316,11 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
     (launches, tokens).  An arch that cannot page (gemma3-4b's rings,
     recurrentgemma-2b's state) asked for the paged engine must serve dense
     and count the fallback once.  max_len is 2048, or the arch's
-    SERVE_MAX_LEN.  ``profile=False`` skips the profiled decode sync."""
+    SERVE_MAX_LEN.  ``profile=False`` skips the profiled decode sync.
+    ``softcap`` serves the config with that ``attn_softcap`` on
+    ``params`` (another serve's weights, not drawn again) and prints its
+    tokens' agreement with ``against`` (the uncapped serve's; not a
+    gate); ``keep`` (a list) receives the engine's weights."""
     import gc
 
     import torch
@@ -4673,6 +5330,7 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda", 0)
     max_len = SERVE_MAX_LEN.get(arch, 2048)
     asked, paged = paged, paged and tfm.paged_supported(get_config(arch),
@@ -4682,6 +5340,8 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
         label = "dense fallback"
     if arch != "internlm2-1.8b":
         label = f"{arch} {label}"
+    if softcap:
+        label = f"{label} capped {softcap:g}"
     # layers of a recurrent kind (RG-LRU) scan their admits on the scan
     # kernel; the others run attention
     full = get_config(arch)
@@ -4694,13 +5354,21 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
         (SSM_KERNELS if n_scan else ())
     gc.collect()
     torch.cuda.empty_cache()
-    check(torch.cuda.memory_allocated(dev) < 2**30,
+    held = sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        if params is not None else 0
+    check(torch.cuda.memory_allocated(dev) - held < 2**30,
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
-          f"allocated before the {label} serve")
+          f"allocated before the {label} serve (its weights "
+          f"{held / 2**30:.2f} GiB)")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = build_engine(arch, max_len=max_len, slots=8, sync_every=8,
-                       paged=asked, block_size=16, seed=0, device=dev)
+    if params is None:
+        eng = build_engine(arch, max_len=max_len, slots=8, sync_every=8,
+                           paged=asked, block_size=16, seed=0, device=dev)
+    else:
+        eng = Engine(params, get_config(arch).replace(attn_softcap=softcap),
+                     ServeConfig(max_len=max_len, slots=8, sync_every=8,
+                                 paged=asked, block_size=16), device=dev)
     torch.cuda.synchronize()
     init_mem = torch.cuda.memory_allocated(dev)
     cfg = eng.cfg
@@ -4709,7 +5377,7 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
     fp32 = sorted({k for g in eng.params["groups"] for layer in g
                    for k, t in layer["mixer"].items()
                    if t.dtype == torch.float32})
-    check(cfg == get_config(arch) and
+    check(cfg == get_config(arch).replace(attn_softcap=softcap) and
           eng.params["embedding"]["table"].dtype == torch.bfloat16 and
           fp32 == (["lambda"] if cfg.lru_width else []) and
           eng.paged == paged and fallback == int(asked and not paged),
@@ -4818,6 +5486,13 @@ def _serve_path(paged: bool, arch: str = "internlm2-1.8b",
     if cfg.lru_width:
         _profile_long_admit(eng, tok, label)
     tokens = [r.out_tokens for r in reqs]
+    if against is not None:
+        share, first = _agreement(tokens, against)
+        print(f"[serve {label}] tokens against the uncapped serve's on the "
+              f"same weights: {share:.2%} equal, first differing index by "
+              f"request {first} (not a gate)")
+    if keep is not None:
+        keep.append(eng.params)
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -4956,17 +5631,21 @@ def _profile_admit(eng, tok):
             t0 = time.perf_counter()
             admit()
             host_ms = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                submit_and_admit()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            peak = torch.cuda.max_memory_allocated(dev)
-            eng.run_until_drained()
-        busy_us, rows, top = _device_time(prof, f"mamba_admit_{route}")
+            for _ in range(PROFILE_TRIES):  # a trace may hold no device event
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    submit_and_admit()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated(dev)
+                eng.run_until_drained()
+                busy_us, rows, top = _device_time(prof,
+                                                  f"mamba_admit_{route}")
+                if busy_us > 0:
+                    break
         want = ["ssm_scan_fused_kernel"] if route == "fused" else \
             ["ssm_scan_kernel"]
         check(_scan_kernels(rows) == want, f"mamba {route} admit: scan "
@@ -5001,7 +5680,8 @@ def _profile_admit(eng, tok):
               f"; top: {top}")
     print(f"[profile mamba admit] device busy fused / replaced route: "
           f"{busy['fused']:.2f} / {busy['composed']:.2f} ms "
-          f"({busy['fused'] / busy['composed']:.3f}x)")
+          f"({busy['fused'] / busy['composed']:.3f}x)"
+          if busy["composed"] else "(a trace held no device event)")
 
 
 def _kind_ms(rows):
@@ -5054,13 +5734,16 @@ def _profile_long_admit(eng, tok, label):
     admit()
     host_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_drained()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        admit()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run_until_drained()
-    busy_us, rows, top = _device_time(prof, f"{label} long admit")
+    for _ in range(PROFILE_TRIES):      # a trace may hold no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            admit()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        eng.run_until_drained()
+        busy_us, rows, top = _device_time(prof, f"{label} long admit")
+        if busy_us > 0:
+            break
     check(_scan_kernels(rows) == ["ssm_scan_chunked_kernel"],
           f"{label} long admit: scan kernels {_scan_kernels(rows)}, "
           f"expected the chunked scan")
@@ -6390,12 +7073,14 @@ def phase_train(smi):
     gc.collect()
     torch.cuda.empty_cache()
     _train_reduced()
+    _train_reduced(CAP_REDUCED)
     launches = _train_full_width(smi)
     launches.update(_train_families(smi))
     return launches
 
 
-def _train_reduced():
+def _train_reduced(softcap: float = 0.0):
+    """(a), capped at ``softcap`` where it is set."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -6406,7 +7091,8 @@ def _train_reduced():
     dev = torch.device("cuda", 0)
     # head dim 64: the reduced config's 16 is a backward the card has too
     # (phase 2), but 64 gives its 4 heads the tensor-core tiles of a model
-    cfg, params0 = _reduced_two_layers("internlm2-1.8b", head_dim=64)
+    cfg, params0 = _reduced_two_layers("internlm2-1.8b", head_dim=64,
+                                       attn_softcap=softcap)
     rng = np.random.RandomState(5)
     toks = [torch.from_numpy(rng.randint(0, cfg.vocab, (4, 128)).astype(
         np.int32)).to(dev) for _ in range(3)]
@@ -6457,7 +7143,9 @@ def _train_reduced():
                       f"{(got[k] - w).abs().max().item():.3e}")
         off[label] = max((got[k] - w).abs().max().item()
                          for k, w in want.items())
-    print(f"[train] (a) reduced fp32 internlm2-1.8b, 2 layers, hd 64, B 4 x "
+    capped = f", capped {softcap:g}" if softcap else ""
+    print(f"[train] (a) reduced fp32 internlm2-1.8b{capped}, 2 layers, hd "
+          f"64, B 4 x "
           f"S 128, 3 AdamW steps (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}): "
           f"losses {[round(h['loss'], 6) for h in kh]} through the kernels "
           f"({kl['flash_attention']} flash forward and "
@@ -6539,6 +7227,7 @@ def _train_full_width(smi):
         params = sum(p.numel() for p in tree_leaves(run["params"]))
         busy_ms = _profile_train_step(cfg, run["params"], run["opt"], dev)
         _train_dry_run(cfg, run["params"], run["opt"], dev, smi, busy_ms)
+        _train_capped(cfg, run["params"], run["opt"], dev)
         del run
         gc.collect()
         torch.cuda.empty_cache()
@@ -6588,6 +7277,50 @@ def _train_full_width(smi):
     return {"flash_attention_bwd": launches["flash_attention_bwd"]}
 
 
+def _train_capped(cfg, params, opt, dev):
+    """(b) capped: 2 AdamW steps of (b)'s tree with ``attn_softcap`` 50
+    (Gemma 2's) through ``steps.make_train_step``: 24 flash forward and
+    24 backward launches a step (the capped kernels), no plain call, the
+    loss, the grad norm and every gradient finite."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.text import synthetic_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.tree import flatten_with_paths
+    capped = cfg.replace(attn_softcap=CAP_SERVE)
+    fn = steps.make_train_step(capped, warmup=2, total=TRAIN_STEPS)
+    tok = [torch.from_numpy(t).to(dev) for t in itertools.islice(
+        synthetic_tokens(1, TRAIN_B, TRAIN_S, cfg.vocab, 2), 2)]
+    (loss, _), grads = steps.value_and_grad(params, capped,
+                                            {"tokens": tok[0]})
+    bad = [k for k, g in flatten_with_paths(grads).items()
+           if not bool(torch.isfinite(g).all())]
+    check(math.isfinite(float(loss)) and not bad,
+          f"train (b) capped: loss {float(loss)}, non-finite gradients {bad}")
+    del grads
+    n = cfg.n_layers
+    for i, t in enumerate(tok):
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, {"tokens": t})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launches == {"flash_attention": n, "flash_attention_bwd": n}
+              and not any(ops.PLAIN_CALLS.values()) and
+              math.isfinite(float(m["loss"])) and
+              math.isfinite(float(m["grad_norm"])),
+              f"train (b) capped step {i}: launches {launches}, plain "
+              f"{ops.PLAIN_CALLS}, metrics {m}")
+        print(f"[train] (b) capped (attn_softcap {CAP_SERVE:g}) step {i}: "
+              f"loss={float(m['loss']):.6f} grad_norm="
+              f"{float(m['grad_norm']):.4f} ms={ms:.1f}; launches "
+              f"{launches}; every gradient finite (checked once on the "
+              f"first batch)")
+
+
 #: phase 9 (d): the dry run's temp bytes against the card's peak increase
 DRY_TEMP_REL = 0.05
 
@@ -6608,7 +7341,7 @@ def _train_dry_run(cfg, params, opt, dev, smi, busy_ms):
     sooner).  The roofline terms, the step's share of the bf16 peak and
     the eager per-op bytes over the step's time are printed, not gated,
     over the step alone on the host clock and over ``busy_ms``, the
-    device's busy time in phase 9's profiled step."""
+    device's busy time in phase 9's profiled step (None: not measured)."""
     import gc
 
     import torch
@@ -6692,6 +7425,12 @@ def _train_dry_run(cfg, params, opt, dev, smi, busy_ms):
           f"{alone['peak']:,} B, off by {gap_alone:.4%}); out "
           f"{res.out_bytes_dev:,} B", flush=True)
     step_ms = alone["ms"]
+    busy = (f"{busy_ms:.2f} ms device busy in the profiled step"
+            if busy_ms else "device busy not measured")
+
+    def over(t_s):
+        return f"{t_s * 1e3 / busy_ms:.4f}" if busy_ms else "not measured"
+
     print(f"[train] (d) roofline of the step on {smi}: t_compute "
           f"{res.t_compute * 1e3:.3f} ms (bf16 peak), t_memory "
           f"{res.t_memory * 1e3:.3f} ms (the eager per-op bytes "
@@ -6699,13 +7438,11 @@ def _train_dry_run(cfg, params, opt, dev, smi, busy_ms):
           f"traffic, not a measure of it), t_collective "
           f"{res.t_collective * 1e3:.3f} ms, dominant {res.dominant}; the "
           f"step alone {step_ms:.2f} ms on the host clock (counted "
-          f"{live['ms']:.2f} ms), {busy_ms:.2f} ms device busy in the "
-          f"profiled step: t_compute / step = "
+          f"{live['ms']:.2f} ms), {busy}: t_compute / step = "
           f"{res.t_compute * 1e3 / step_ms:.4f} of the bf16 peak "
-          f"({res.t_compute * 1e3 / busy_ms:.4f} of the "
-          f"busy time); eager per-op bytes over the step's time = "
-          f"{res.t_memory * 1e3 / step_ms:.4f} of the HBM rate "
-          f"({res.t_memory * 1e3 / busy_ms:.4f} over the busy time); useful "
+          f"({over(res.t_compute)} of the busy time); eager per-op bytes "
+          f"over the step's time = {res.t_memory * 1e3 / step_ms:.4f} of the "
+          f"HBM rate ({over(res.t_memory)} over the busy time); useful "
           f"ratio {res.useful_ratio:.4f}", flush=True)
     check(res.flops_dev == live["flops"],
           f"train (d): the dry run counts {res.flops_dev!r} FLOPs, the "
@@ -6728,34 +7465,62 @@ def _train_dry_run(cfg, params, opt, dev, smi, busy_ms):
 def _profile_train_step(cfg, params, opt, dev):
     """One more full-width step (the run's next batch) timed on the host
     clock, then one under ``torch.profiler``: device busy and idle share,
-    device ms by kind of kernel.  Returns the device's busy ms."""
+    device ms by kind of kernel.  Returns the device's busy ms, or None
+    where no trace held device activity."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.text import synthetic_tokens
     from repro_torch.launch import steps
     fn = steps.make_train_step(cfg, warmup=2, total=TRAIN_STEPS)
     tok = [torch.from_numpy(t).to(dev) for t in itertools.islice(
         synthetic_tokens(0, TRAIN_B, TRAIN_S, cfg.vocab, TRAIN_STEPS + 2),
         TRAIN_STEPS, None)]
+    walls, busy_us, rows, top = _profiled_step(
+        lambda i: fn(params, opt, {"tokens": tok[min(i, 1)]}), "train_step")
+    print(f"[profile train step] internlm2-1.8b full width, B {TRAIN_B} x S "
+          f"{TRAIN_S}: unprofiled wall={walls[0]:.2f}ms; profiled wall="
+          f"{walls[-1]:.2f}ms {_busy_text(busy_us, walls)} kernels="
+          f"{sum(n for _, n, _ in rows)}; device ms by kind: "
+          f"{_train_kinds(rows)}; top: {top}")
+    return busy_us / 1e3 if busy_us else None
+
+
+def _profiled_step(step, label, tries=PROFILE_TRIES):
+    """``step(0)`` timed on the host clock, then ``step(1)``, ``step(2)``,
+    ... each under ``torch.profiler`` (CPU and CUDA activities) until a
+    trace holds device activity, at most ``tries`` traces.  Returns the
+    walls in ms (unprofiled first, the kept trace's last) and
+    ``_device_time``'s (busy us, rows, top) of the last trace: busy 0
+    where every trace came back without a device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     walls = []
-    for i, prof_on in enumerate((False, True)):
-        ctx = profile(activities=[ProfilerActivity.CUDA]) if prof_on else \
+    for i in range(1 + tries):
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if i else \
             contextlib.nullcontext()
         torch.cuda.synchronize()
         with ctx as prof:
             t0 = time.perf_counter()
-            new = fn(params, opt, {"tokens": tok[i]})
+            new = step(i)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         del new
-    busy_us, rows, top = _device_time(prof, "train_step")
-    print(f"[profile train step] internlm2-1.8b full width, B {TRAIN_B} x S "
-          f"{TRAIN_S}: unprofiled wall={walls[0]:.2f}ms; profiled wall="
-          f"{walls[1]:.2f}ms device_busy={busy_us / 1e3:.2f}ms idle_share="
-          f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
-          f"{sum(n for _, n, _ in rows)}; device ms by kind: "
-          f"{_train_kinds(rows)}; top: {top}")
-    return busy_us / 1e3
+        if i:
+            busy_us, rows, top = _device_time(prof, label)
+            if busy_us > 0:
+                break
+    return walls, busy_us, rows, top
+
+
+def _busy_text(busy_us, walls):
+    """A profiled step's device busy time and idle share, or why they
+    were not measured."""
+    if not busy_us:
+        return (f"device_busy=not measured (no device event in "
+                f"{len(walls) - 1} traces)")
+    return (f"device_busy={busy_us / 1e3:.2f}ms idle_share="
+            f"{max(0.0, 1 - busy_us / 1e3 / walls[-1]):.3f} (trace "
+            f"{len(walls) - 1})")
 
 
 # phase 9 (c): the families that train through the scans' and MLA's
@@ -7138,7 +7903,10 @@ def _whisper_serve():
     shapes.  Exact launches (18 flash a prefill, 12 split-K
     decode a step, nothing else), every logit finite; the fp32 prefill on
     the card against the same weights' fp32 plain run on the CPU; the bf16
-    tokens' agreement with an fp32 kernel serve (printed, not a gate)."""
+    tokens' agreement with an fp32 kernel serve (printed, not a gate).
+    Then the B 8 serve and its fp32 checks again on the same weights with
+    ``attn_softcap`` CAP_REDUCED, a cap that bites on the seeded weights'
+    scores (up to ~4), on the capped kernels."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -7152,7 +7920,11 @@ def _whisper_serve():
     check(n_params == WHISPER_PARAMS, f"whisper-base: {n_params:,} "
           f"parameters, want {WHISPER_PARAMS:,}")
     n_enc, n_dec = cfg.enc_layers, cfg.dec_layers
-    for B, S, new in WHISPER_SERVES:
+    uncapped = cfg
+    for softcap, B, S, new in [(0.0, *s) for s in WHISPER_SERVES] + [
+            (CAP_REDUCED, *WHISPER_SERVES[0])]:
+        cfg = uncapped.replace(attn_softcap=softcap)
+        capped = f", attn_softcap {softcap:g}" if softcap else ""
         frames, prompt = _whisper_inputs(cfg, B, S, dev, seed=B)
         # one untimed prefill and decode step first, so that the timed run
         # meets no shape for the first time; then the encoder alone
@@ -7181,7 +7953,8 @@ def _whisper_serve():
         pre_ms, dec_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
         step_ms = dec_ms / (new - 1)
         print(f"[whisper] (a) serve B {B} x ({WHISPER_T} frames, prompt "
-              f"{S}), {new} greedy tokens, max_len {WHISPER_MAX_LEN}, bf16 "
+              f"{S}{capped}), {new} greedy tokens, max_len "
+              f"{WHISPER_MAX_LEN}, bf16 "
               f"({n_params:,} parameters): encode_ms={enc_ms:.2f} "
               f"prefill_ms={pre_ms:.2f} (encode included) decode_step_ms="
               f"{step_ms:.3f} tok/s={B * new / ((pre_ms + dec_ms) / 1e3):.0f}"
@@ -7209,10 +7982,10 @@ def _whisper_serve():
         check(gap <= WHISPER_FP32_ATOL,
               f"whisper fp32 prefill: kernel logits off the CPU plain run by "
               f"{gap:.3e} (limit {WHISPER_FP32_ATOL})")
-        print(f"[whisper] (a) fp32 prefill (B {B}) on the card against the "
-              f"CPU plain run: max |gap| {gap:.3e} over logits up to "
-              f"{top:.2f} (limit {WHISPER_FP32_ATOL}); bf16 tokens agree "
-              f"with the fp32 kernel serve's at {agree:.2%} of {B} x {new} "
+        print(f"[whisper] (a) fp32 prefill (B {B}{capped}) on the card "
+              f"against the CPU plain run: max |gap| {gap:.3e} over logits "
+              f"up to {top:.2f} (limit {WHISPER_FP32_ATOL}); bf16 tokens "
+              f"agree with the fp32 kernel serve's at {agree:.2%} of {B} x {new} "
               f"(first difference at step "
               f"{first[0].item() if len(first) else None}; not a gate)")
         del p32, p_cpu, seen32
@@ -7311,7 +8084,6 @@ def _whisper_train():
     tokens), warmup 2, 6 AdamW steps; exactly 18 flash forward and 18
     backward launches a step; one more step profiled."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -7361,18 +8133,8 @@ def _whisper_train():
     steady = hist[1:]
     tok_s = B * S * len(steady) / (sum(h["ms"] for h in steady) / 1e3)
     b = batch()
-    walls = []
-    for prof_on in (False, True):
-        ctx = profile(activities=[ProfilerActivity.CUDA]) if prof_on else \
-            contextlib.nullcontext()
-        torch.cuda.synchronize()
-        with ctx as prof:
-            t0 = time.perf_counter()
-            new = fn(params, opt, b)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        del new
-    busy_us, rows, top = _device_time(prof, "whisper_train_step")
+    walls, busy_us, rows, top = _profiled_step(
+        lambda i: fn(params, opt, b), "whisper_train_step")
     print(f"[whisper] (b) whisper-base full width (bf16 parameters, fp32 "
           f"moments, remat none), B {B} x ({WHISPER_T} frames, {S} tokens), "
           f"{n_steps} steps: {tok_s:,.0f} decoder tokens/s over steps "
@@ -7380,9 +8142,8 @@ def _whisper_train():
           f"{peak:.2f} GiB allocated; {n_attn} flash forward and backward "
           f"launches a step")
     print(f"[profile whisper train step] B {B} x ({WHISPER_T}, {S}): "
-          f"unprofiled wall={walls[0]:.2f}ms; profiled wall={walls[1]:.2f}ms "
-          f"device_busy={busy_us / 1e3:.2f}ms idle_share="
-          f"{max(0.0, 1 - busy_us / 1e3 / walls[1]):.3f} kernels="
+          f"unprofiled wall={walls[0]:.2f}ms; profiled wall="
+          f"{walls[-1]:.2f}ms {_busy_text(busy_us, walls)} kernels="
           f"{sum(n for _, n, _ in rows)}; device ms by kind: "
           f"{_train_kinds(rows)}; top: {top}")
     del params, opt
@@ -8000,14 +8761,20 @@ def _md_seqtp_reduced(rank, mesh, ref):
     """(f) the fp32 reduced gemma3-4b (10 layers, window 16) under seqtp
     at B 2 x S 1,024: local layers on the halo, the global one gathered;
     through the kernels against the plain versions, and against the
-    one-rank kernel run."""
+    one-rank kernel run; then the same capped (``attn_softcap``
+    CAP_REDUCED, hd 64: the capped kernels' widths)."""
+    dev = mesh.device
+    for over in ({}, {"head_dim": 64, "attn_softcap": CAP_REDUCED}):
+        _md_seqtp_reduced_run(rank, dev, *_reduced_two_layers("gemma3-4b",
+                                                              **over))
+
+
+def _md_seqtp_reduced_run(rank, dev, cfg, params):
     import torch
     from repro_torch.core.sharding import use_sharding
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
-    dev = mesh.device
-    cfg, params = _reduced_two_layers("gemma3-4b")
     sm = compat_make_mesh((1, MD_WORLD), ("data", "model"))
     toks = torch.randint(0, cfg.vocab, (2, 1024), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(5),
@@ -8033,10 +8800,12 @@ def _md_seqtp_reduced(rank, mesh, ref):
                          rtol=MD_FP32_TOL),
           f"(f) rank {rank}: kernel vs plain {d_plain:.3e}, vs one rank "
           f"{d_one:.3e}")
+    capped = (f", hd {cfg.head_dim}, attn_softcap {cfg.attn_softcap:g}"
+              if cfg.attn_softcap else "")
     _md_say(rank, f"(f) fp32 reduced gemma3-4b ({cfg.n_layers} layers, window "
-                  f"{cfg.window}) seqtp forward B 2 x S 1024: kernel vs plain "
-                  f"max |diff| {d_plain:.3e}, vs the one-rank kernel run "
-                  f"{d_one:.3e} (atol=rtol={MD_FP32_TOL})")
+                  f"{cfg.window}{capped}) seqtp forward B 2 x S 1024: kernel "
+                  f"vs plain max |diff| {d_plain:.3e}, vs the one-rank "
+                  f"kernel run {d_one:.3e} (atol=rtol={MD_FP32_TOL})")
 
 
 # ----------------------------------------------------------------------
@@ -8462,8 +9231,14 @@ def phase_list(stats, launches, smi):
                 "src/repro/kernels/ops.py:98-111 (JAX differentiates "
                 "src/repro/models/ssm.py:57 selective_scan in plain jnp; "
                 "no TPU kernel)"}
+    # which kernels take the soft-cap, with their tanh and their capped
+    # time at the main paths' shape (phase 2); MLA's are not capped
+    tanh = "tanh_ex2 (ex2.approx, rcp.approx) in bf16, tanhf in fp32"
+    capped = {name: dict(tanh=tanh, **row)
+              for name, row in stats["softcap"].items()}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
+                    softcap=capped.get(name),
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})

@@ -36,6 +36,22 @@ device ms of one ``torch.autograd.grad`` replayed from a CUDA graph
 (``chip_smoke._time_bwd_ms``, forwards excluded) beside SDPA's backward,
 each first held against the plain fp32 gradients.  Without a card it
 exits non-zero.
+
+    python3 scripts/attention_ab.py --softcap [TREE ...]
+
+times instead the soft-capped kernels (c 50, Gemma 2's
+``attn_logit_softcapping``, over inputs whose scaled scores spread to
+about +-100) at the main paths' shapes (bf16, H 16, KV 8, hd 128): flash
+(B 3, S 512 causal), the paged extend (B 4, S 256 at pos0 16-1792), the
+paged and the split-K decode (B 8 at chip_smoke's ragged lengths up to
+2,048) and the flash backward at the training shape (B 4, S 1,024), each
+beside its uncapped time and its library time: FlexAttention
+(``torch.nn.attention.flex_attention`` compiled, a ``c * tanh(score /
+c)`` score_mod and the kernel's mask as a block mask; the decodes and the
+extend over K/V gathered through the table, the gather not timed).  Each
+FlexAttention result is first held to the capped plain version at
+chip_smoke's library tolerance; where it does not compile or run at a
+shape, its time is "none" with the error.
 """
 from __future__ import annotations
 
@@ -46,7 +62,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
-def run_tree(tree: Path, label: str) -> None:
+def run_tree(tree: Path, label: str, softcap: bool = False) -> None:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(REPO))
     import torch
@@ -66,6 +82,12 @@ def run_tree(tree: Path, label: str) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     bf, H, KV, hd = torch.bfloat16, 16, 8, 128
+    if softcap:
+        for name, ms, ms0, flex in _softcap_rows(cs, gen, dev):
+            print(f"[ab] {label} softcap {name}: ms={ms:.4f} "
+                  f"uncapped_ms={ms0:.4f} flex_ms={flex} on {smi}",
+                  flush=True)
+        return
     rows = []
     for B, S in ((3, 512), (1, 2048), (1, 8)):
         sets = [[cs._randn(gen, sh, bf, dev) for sh in
@@ -200,14 +222,167 @@ def _mla_rows(cs, gen, dev):
     return rows
 
 
+def _flex_none(e) -> str:
+    return f"none ({type(e).__name__}: {str(e).splitlines()[0]})"
+
+
+def _flex_close(cs, name, got, want):
+    """FlexAttention's ``got`` within chip_smoke's library tolerance of
+    the plain ``want``, relative to its largest magnitude; raises
+    ``ValueError`` (its row then reads "none") otherwise."""
+    err = (got.float() - want).abs().max().item()
+    top = want.abs().max().item()
+    if err > cs.LIBRARY_TOL * max(top, 1.0):
+        raise ValueError(f"{name} computes another function: max |err| "
+                         f"{err:.3e} over {top:.3e}")
+
+
+def _softcap_rows(cs, gen, dev):
+    """(name, capped ms, uncapped ms, FlexAttention ms or "none (error)")
+    of each capped kernel at the main paths' shapes (the module
+    docstring)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels import ops, ref
+    bf, H, KV, hd, c = torch.bfloat16, 16, 8, 128, 50.0
+    # the backward's timing replays torch.autograd.grad with retain_graph,
+    # which a compiled backward with donated buffers refuses
+    import torch._functorch.config as functorch_config
+    functorch_config.donated_buffer = False
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return c * torch.tanh(score / c)
+
+    def flex_ms(name, want, sets, mask, squeeze):
+        """FlexAttention over ``sets`` ((B, H, S, hd) q and (B, KV, T, hd)
+        k, v) with ``mask``, held to ``want`` (the output through
+        ``squeeze``), then timed; "none (error)" where it fails."""
+        def call(a):
+            return flex(*a, score_mod=cap, block_mask=mask, enable_gqa=True)
+        try:
+            _flex_close(cs, name, squeeze(call(sets[0])), want)
+            return f"{cs._time_ms([lambda a=a: call(a) for a in sets]):.4f}"
+        except Exception as e:       # reported in the row, not raised
+            return _flex_none(e)
+
+    def kernel_ms(fn, sets):
+        return [cs._time_ms([lambda s=s: fn(s, cc) for s in sets])
+                for cc in (c, 0.0)]
+
+    rows = []
+    lens = torch.tensor(cs.CAP_LENGTHS, dtype=torch.int32, device=dev)
+    pos0 = torch.tensor(cs.CAP_POS0, dtype=torch.int32, device=dev)
+    # flash, causal
+    sets = [cs._cap_qkv(gen, dev, (3, 512, H, hd), (3, 512, KV, hd), c, bf)
+            for _ in range(3)]
+    want = ref.flash_attention_ref(*cs._f32(*sets[0]), softcap=c)
+    cs._compare("flash", ops.flash_attention(*sets[0], softcap=c), want)
+    mask = create_block_mask(lambda b, h, q, kv: kv <= q, None, None, 512,
+                             512, device=dev)
+    rows.append(("flash (3, 512) causal", *kernel_ms(
+        lambda s, cc: ops.flash_attention(*s, softcap=cc), sets),
+        flex_ms("flash", want, [[t.transpose(1, 2).contiguous() for t in st]
+                                for st in sets], mask,
+                lambda o: o.transpose(1, 2))))
+    # the paged extend and the paged decode, over the gathered K/V
+    bs, nb = 16, 128
+    sig = cs.CAP_SPREAD[c] ** 0.5
+
+    def paged(B, q_shape):
+        out = []
+        for _ in range(3):
+            q, kp, vp, bt = cs._paged_inputs(gen, B, nb, bs, KV, hd,
+                                             q_shape, torch.float32, dev)
+            out.append(((q * sig).to(bf), (kp * sig).to(bf), vp.to(bf), bt))
+        return out
+
+    def gathered(s):
+        q, kp, vp, bt = s
+        B = bt.shape[0]
+        return [t[bt.long()].reshape(B, nb * bs, KV, hd).transpose(1, 2)
+                .contiguous() for t in (kp, vp)]
+
+    ext = paged(4, (4, 256, H, hd))
+    want = ref.paged_extend_attention_ref(*cs._f32(*ext[0][:3]), ext[0][3],
+                                          pos0, c)
+    cs._compare("extend", ops.paged_extend_attention(*ext[0], pos0,
+                                                     softcap=c), want)
+    mask = create_block_mask(lambda b, h, q, kv: kv <= pos0[b] + q, 4, None,
+                             256, nb * bs, device=dev)
+    rows.append(("paged extend (4, 256) pos0 16-1792", *kernel_ms(
+        lambda s, cc: ops.paged_extend_attention(*s, pos0, softcap=cc), ext),
+        flex_ms("extend", want, [[s[0].transpose(1, 2).contiguous()] +
+                                 gathered(s) for s in ext], mask,
+                lambda o: o.transpose(1, 2))))
+    mask = create_block_mask(lambda b, h, q, kv: kv < lens[b], 8, None, 1,
+                             nb * bs, device=dev)
+    pdec = paged(8, (8, H, hd))
+    want = ref.paged_decode_attention_ref(*cs._f32(*pdec[0][:3]),
+                                          pdec[0][3], lens, c)
+    cs._compare("paged decode", ops.paged_decode_attention(
+        *pdec[0], lens, softcap=c), want)
+    rows.append(("paged decode (8) lengths to 2048", *kernel_ms(
+        lambda s, cc: ops.paged_decode_attention(*s, lens, softcap=cc),
+        pdec), flex_ms("paged decode", want,
+                       [[s[0][:, :, None]] + gathered(s) for s in pdec],
+                       mask, lambda o: o[:, :, 0])))
+    dec = [cs._cap_qkv(gen, dev, (8, H, hd), (8, 2048, KV, hd), c, bf)
+           for _ in range(3)]
+    want = ref.decode_attention_ref(*cs._f32(*dec[0]), lens, c)
+    cs._compare("decode", ops.decode_attention(*dec[0], lens, softcap=c),
+                want)
+    rows.append(("split-K decode (8, 2048) lengths to 2048", *kernel_ms(
+        lambda s, cc: ops.decode_attention(*s, lens, softcap=cc), dec),
+        flex_ms("decode", want, [[q[:, :, None], k.transpose(1, 2)
+                                  .contiguous(), v.transpose(1, 2)
+                                  .contiguous()] for q, k, v in dec], mask,
+                lambda o: o[:, :, 0])))
+    # the backward at the training shape
+    B, S = 4, 1024
+    bsets = []
+    for _ in range(3):
+        q, k, v = cs._cap_qkv(gen, dev, (B, S, H, hd), (B, S, KV, hd), c, bf)
+        bsets.append(((q, k, v), cs._randn(gen, (B, S, H, hd), bf, dev)))
+    (q, k, v), dout = bsets[0]
+    cs._cap_bwd_check("training shape", q, k, v, dout, True, 0, c)
+    ms = [cs._time_bwd_ms(lambda q, k, v, cc=cc: ops.flash_attention(
+        q, k, v, softcap=cc), bsets) for cc in (c, 0.0)]
+    mask = create_block_mask(lambda b, h, q, kv: kv <= q, None, None, S, S,
+                             device=dev)
+    tsets = [([t.transpose(1, 2).contiguous() for t in st],
+              d.transpose(1, 2).contiguous()) for st, d in bsets]
+
+    def fwd(a, b, d):
+        return flex(a, b, d, score_mod=cap, block_mask=mask, enable_gqa=True)
+
+    try:
+        leaves = [t.clone().requires_grad_(True) for t in tsets[0][0]]
+        got = torch.autograd.grad(fwd(*leaves), leaves, tsets[0][1])
+        want = cs._cap_grads(q, k, v, dout, True, 0, c, torch.float32)[1]
+        for g, w in zip(got, want):
+            _flex_close(cs, "flex bwd", g.transpose(1, 2), w)
+        flex_b = f"{cs._time_bwd_ms(fwd, tsets):.4f}"
+    except Exception as e:           # reported in the row, not raised
+        flex_b = _flex_none(e)
+    rows.append((f"flash bwd ({B}, {S}) causal", *ms, flex_b))
+    return rows
+
+
 def main(argv):
+    softcap = "--softcap" in argv
+    argv = [a for a in argv if a != "--softcap"]
     if len(argv) >= 2 and argv[0] == "--one":
-        run_tree(Path(argv[1]).resolve(), argv[2] if len(argv) > 2 else "")
+        run_tree(Path(argv[1]).resolve(), argv[2] if len(argv) > 2 else "",
+                 softcap)
         return
     trees = [Path(t).resolve() for t in argv] or [REPO]
     for i, tree in enumerate(trees):
         subprocess.run([sys.executable, __file__, "--one", str(tree),
-                        f"{i}:{tree.name}"], check=True, timeout=600)
+                        f"{i}:{tree.name}"] +
+                       (["--softcap"] if softcap else []), check=True,
+                       timeout=900)
 
 
 if __name__ == "__main__":

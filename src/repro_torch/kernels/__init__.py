@@ -1,4 +1,5 @@
 """Hopper kernels of the port, their launch wrappers and plain versions."""
+import math
 import threading
 from typing import Dict, Sequence
 
@@ -13,6 +14,11 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: bf16 kernel's Q K^T runs in k-steps of 16, which 24 is not a multiple of
 FLASH_QK_V_DIMS = {(192, 128): (torch.float32, torch.bfloat16),
                    (24, 16): (torch.float32,)}
+#: the head dims at which flash (forward and backward), the paged extend
+#: and both decodes have soft-capped kernels (``csrc/common.cuh``,
+#: ``softcap_dims``; q/k and v of one width): the widths a cap is set on
+#: in practice.  MLA's pairs are not capped, as in JAX.
+SOFTCAP_HEAD_DIMS = (64, 128, 256)
 #: the MLA decode's (latent rank r, rope dim) pairs, and their dtypes
 MLA_DIMS = {(512, 64): (torch.float32, torch.bfloat16),
             (32, 8): (torch.float32,)}
@@ -93,6 +99,24 @@ def check_dims(name: str, what: str, dims, dtype, built) -> None:
                          f"built: " + ", ".join(
                              f"{k} in {[str(t).split('.')[1] for t in v]}"
                              for k, v in built.items()))
+
+
+def check_softcap(name: str, softcap: float) -> None:
+    """An attention logit soft-cap is 0 (none) or a finite positive c of
+    ``c * tanh(s / c)``; raises ``ValueError`` on both routes."""
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"{name}: softcap must be finite and >= 0 (0 for "
+                         f"none), got {softcap}")
+
+
+def check_softcap_dims(name: str, softcap: float, hd: int) -> None:
+    """The kernel and count routes' own check: a cap > 0 only at the head
+    dims of :data:`SOFTCAP_HEAD_DIMS`, where it has kernels.  Raises
+    ``ValueError``."""
+    if softcap and hd not in SOFTCAP_HEAD_DIMS:
+        raise ValueError(f"{name}: no soft-capped kernel at head_dim {hd}; "
+                         f"built at {SOFTCAP_HEAD_DIMS} (the plain version "
+                         f"takes any)")
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor]) -> None:

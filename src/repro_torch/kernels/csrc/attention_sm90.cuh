@@ -57,6 +57,13 @@
 // copy brings in whatever the pool holds there, and 0 * NaN is NaN.
 // A CTA walks every key its rows see; the key range is not split over
 // CTAs.
+//
+// CAP instantiations (softcap_dims: hd 64, 128, 256) cap each raw score
+// right after Q K^T, before the mask and the running max: sc = C tanh(sc /
+// C) with C = c / scale (AttnParams::cap, cap_inv), tanh from ex2.approx
+// and rcp.approx (common.cuh, tanh_ex2): two more SFU operations an
+// element beside the softmax's one.  The lse is then over the capped
+// scores, as the backward reads it.  The uncapped kernels are unchanged.
 #pragma once
 
 #include <limits.h>
@@ -229,6 +236,8 @@ struct AttnParams {
   float scale;
   float* lse;                        // dense: (B, S, KV, G) row log-sum-
                                      //   exp for the backward, or null
+  float cap, cap_inv;                // the soft-cap in raw units, c /
+                                     //   scale, and its inverse (CAP)
 };
 
 // The dense source (flash_attention.cu; the backward's dQ kernel in
@@ -272,7 +281,7 @@ struct DenseSrc {
 // (b, kv head) over every key they see.  Consumer
 // thread (warp, gq, tq) holds rows row0 + 16 * warp + gq + 8 * h (h = 0,
 // 1) of the mma layout.
-template <int HD, class Src, int DV = HD>
+template <int HD, class Src, int DV = HD, bool CAP = false>
 __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     attention_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap,
@@ -402,6 +411,11 @@ __global__ void __launch_bounds__(THREADS, HD >= 256 ? 1 : 2)
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
+    if constexpr (CAP) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        sc[j] = soft_cap<__nv_bfloat16>(sc[j], p.cap, p.cap_inv);
+    }
 
     // mask where some row does not see the whole tile: sc[4 * c8 + j] is
     // row gq + 8 * (j >> 1), key key0 + 8 * c8 + 2 * tq + (j & 1); the
@@ -537,18 +551,32 @@ int encode_map(CUtensorMap* map, const void* base, uint64_t d1, uint64_t d2,
 }
 
 // grid (B * KV, row tiles) of the attention kernel
-template <int HD, class Src, int DV = HD>
-int launch_attention(const CUtensorMap& kmap, const CUtensorMap& vmap,
-                     const AttnParams& p, int B, cudaStream_t stream) {
+template <int HD, class Src, int DV, bool CAP>
+int launch_attention_cap(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                         const AttnParams& p, int B, cudaStream_t stream) {
   constexpr int smem = Ring<HD, DV>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      attention_sm90_kernel<HD, Src, DV>,
+      attention_sm90_kernel<HD, Src, DV, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  attention_sm90_kernel<HD, Src, DV>
+  attention_sm90_kernel<HD, Src, DV, CAP>
       <<<dim3(B * p.KV, p.n_row_tiles), THREADS, smem, stream>>>(kmap, vmap,
                                                                 p);
   return (int)cudaGetLastError();
+}
+
+// the capped kernel where p.cap > 0 (-1 at head dims it is not built
+// for), else the uncapped one
+template <int HD, class Src, int DV = HD>
+int launch_attention(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                     const AttnParams& p, int B, cudaStream_t stream) {
+  if (p.cap > 0.f) {
+    if constexpr (softcap_dims(HD, DV))
+      return launch_attention_cap<HD, Src, DV, true>(kmap, vmap, p, B,
+                                                     stream);
+    return -1;
+  }
+  return launch_attention_cap<HD, Src, DV, false>(kmap, vmap, p, B, stream);
 }
 
 }  // namespace

@@ -1,20 +1,56 @@
 // Helpers shared by the port's attention kernels (paged_attention.cu,
-// flash_attention.cu, decode_attention.cu): fp32 <-> element loads and
-// stores, bf16 pair packing, the hi + lo split that keeps P near fp32 in a
-// bf16 wgmma, and the lane-group pieces of the kernels that run on the
-// CUDA cores.  Each .cu file compiles into its
-// own shared library, so everything here has internal linkage.
+// flash_attention.cu, decode_attention.cu, flash_attention_bwd.cu): fp32
+// <-> element loads and stores, bf16 pair packing, the hi + lo split that
+// keeps P near fp32 in a bf16 wgmma, the logit soft-cap, and the
+// lane-group pieces of the kernels that run on the CUDA cores.  Each .cu
+// file compiles into its own shared library, so everything here has
+// internal linkage.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// Attention logit soft-capping (Gemma 2's attn_logit_softcapping): every
+// visible score s becomes c tanh(s / c) before the mask, so a masked score
+// stays NEG_INF.  A kernel applies it in the units it keeps its scores in
+// (raw q.k where it folds the scale into its exp2, or q.k scale log2 e
+// where q is pre-scaled), as cap = c in those units and inv = 1 / cap.
+// Only these (q/k, v) head dims have capped instantiations: the widths of
+// the configs a cap is set on in practice (Gemma 2 at 256, and 64 and 128).
+__host__ __device__ constexpr bool softcap_dims(int hd, int hd_v) {
+  return hd == hd_v && (hd == 64 || hd == 128 || hd == 256);
+}
+
+// tanh x = 1 - 2 / (e^(2x) + 1), from ex2.approx (2^-22 relative) and
+// rcp.approx: ~3e-7 absolute, so c tanh(s / c) is off by ~3e-7 c (c 50:
+// 1.5e-5 in a score); the bf16 kernels' tanh.  tanh.approx.f32 alone is
+// off by up to ~2^-11 relative, 0.024 in a score at c 50 (2.4% in p).
+// e^(2x) = inf gives 1 and 0 gives -1.
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(x * (2.f * LOG2E)));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(e + 1.f));
+  return fmaf(-2.f, r, 1.f);
+}
+
+// cap tanh(s inv): tanhf (CUDA's accurate tanh, 2 ulp) for the fp32
+// kernels (T = float), tanh_ex2 for the bf16 ones
+template <typename T>
+__device__ __forceinline__ float soft_cap(float s, float cap, float inv) {
+  if constexpr (std::is_same<T, float>::value)
+    return cap * tanhf(s * inv);
+  else
+    return cap * tanh_ex2(s * inv);
+}
 
 // N consecutive elements <-> fp32 registers, in 16-byte (8-byte for 4
 // bf16) loads and stores; N is a multiple of 4 and the address is

@@ -77,12 +77,16 @@ struct DenseRows {
 // after the launch (0 on success), -1 for a dtype / head_dim it has no
 // kernel for, -2 if cuTensorMapEncodeTiled cannot be found, -3 if it
 // refuses a tensor map.
+// softcap: 0 for none, else c of c tanh(s / c), each score capped before
+// the mask (a row of length 0 still gives the mean of V); -1 too for a cap
+// at a head_dim without a capped kernel.
 extern "C" int repro_decode_attention(int dtype, int hd, const void* q,
                                       const void* k, const void* v,
                                       const void* lengths, void* out,
                                       void* ws, void* tickets, int B, int L,
                                       int KV, int G, int n_chunks,
-                                      float scale, void* stream) {
+                                      float scale, float softcap,
+                                      void* stream) {
   DecodeParams p = {};
   p.q = q; p.k = k; p.v = v; p.out = out;
   p.lengths = (const int*)lengths;
@@ -91,5 +95,7 @@ extern "C" int repro_decode_attention(int dtype, int hd, const void* q,
   p.B = B; p.KV = KV; p.G = G; p.n_chunks = n_chunks;
   p.L = L;
   p.scale = scale;
+  p.cap = softcap * LOG2E;                   // the log2 domain of qscale
+  p.cap_inv = softcap > 0.f ? 1.f / p.cap : 0.f;
   return launch_decode<DenseRows>(dtype, hd, p, L, B, 0, stream);
 }

@@ -68,6 +68,11 @@
 //    its ticket to 0, so the counters stay zeroed across calls and graph
 //    replays.
 // The output is acc / max(l, 1e-30); NEG_INF is finite.
+// 5. A soft-cap (DecodeParams::cap > 0, in the log2 domain of the
+//    pre-scaled q: c log2 e) caps each live key's score right after its
+//    dot product, before the max, in the CAP instantiations (hd 64, 128,
+//    256; softcap_dims): tanhf in fp32, tanh_ex2 in bf16 (common.cuh).
+//    The uncapped instantiations are unchanged.
 #pragma once
 
 #include <mutex>
@@ -101,6 +106,8 @@ struct DecodeParams {
   int nb, bs, n_pool_rows;  // paged
   int box_rows;          // key rows a TMA box (divides the stage's keys)
   float scale;
+  float cap, cap_inv;    // the soft-cap in log2 units (c log2 e) and its
+                         //   inverse; cap 0: none
 };
 
 // The ring's bytes at most: 64 KiB at hd 256, where a 16-row bf16 stage
@@ -141,7 +148,7 @@ constexpr int decode_min_ctas() {
 // Both launch bounds are given, so ptxas may use registers up to the limit
 // they set (with the thread count alone it spills to cross an occupancy
 // step).
-template <typename T, int HD, int GR, class Src>
+template <typename T, int HD, int GR, class Src, bool CAP = false>
 __global__ void __launch_bounds__(DECODE_THREADS, decode_min_ctas<HD, GR>())
     decode_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -287,6 +294,13 @@ __global__ void __launch_bounds__(DECODE_THREADS, decode_min_ctas<HD, GR>())
 #pragma unroll
             for (int r = 0; r < GR; ++r)
               sc[u][r] += __shfl_xor_sync(0xffffffffu, sc[u][r], sh);
+        if constexpr (CAP) {
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int r = 0; r < GR; ++r)
+              sc[u][r] = soft_cap<T>(sc[u][r], p.cap, p.cap_inv);
+        }
 #pragma unroll
         for (int r = 0; r < GR; ++r) {
           float mx = m[r];
@@ -475,15 +489,15 @@ int decode_map(CUtensorMap* map, int dtype, int hd, const void* base,
 }
 
 // rows a CTA: the smallest instantiated count that holds the G heads
-template <typename T, int HD, class Src>
+template <typename T, int HD, class Src, bool CAP>
 int launch_decode_rows(const CUtensorMap& kmap, const CUtensorMap& vmap,
                        const DecodeParams& p, cudaStream_t stream) {
 #define REPRO_LAUNCH(GR_)                                                  \
   {                                                                        \
     const dim3 grid(p.KV * ((p.G + GR_ - 1) / GR_), p.B, p.n_chunks);      \
     return launch_with_smem<DecodeRing<T, HD>::BYTES>(                     \
-        decode_sm90_kernel<T, HD, GR_, Src>, grid, DECODE_THREADS, stream, \
-        kmap, vmap, p);                                                    \
+        decode_sm90_kernel<T, HD, GR_, Src, CAP>, grid, DECODE_THREADS,    \
+        stream, kmap, vmap, p);                                            \
   }
   if (p.G <= 1) REPRO_LAUNCH(1);
   if (p.G <= 2) REPRO_LAUNCH(2);
@@ -496,13 +510,15 @@ int launch_decode_rows(const CUtensorMap& kmap, const CUtensorMap& vmap,
 // KV, rows, outer}; a box is a stage's keys, or for pages of page_rows
 // rows (0: no pages) the largest piece of a page that divides them.
 // Returns cudaGetLastError() after the launch (0 on success), -1 for a
-// dtype / head_dim it has no kernel for, ERR_NO_ENCODER or ERR_BAD_MAP for
-// a tensor map.
+// dtype / head_dim it has no kernel for (or p.cap > 0 at a head_dim
+// without a capped kernel), ERR_NO_ENCODER or ERR_BAD_MAP for a tensor
+// map.
 template <class Src>
 int launch_decode(int dtype, int hd, DecodeParams p, uint64_t rows,
                   uint64_t outer, int page_rows, void* stream) {
   if ((dtype != 0 && dtype != 1) ||
-      (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256))
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) ||
+      (p.cap > 0.f && !softcap_dims(hd, hd)))
     return -1;
   p.box_rows = DECODE_STAGE;
   while (page_rows % p.box_rows) p.box_rows >>= 1;
@@ -512,8 +528,13 @@ int launch_decode(int dtype, int hd, DecodeParams p, uint64_t rows,
     rc = decode_map(&vmap, dtype, hd, p.v, p.KV, rows, outer, p.box_rows);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_HD(T_, HD_) \
-  case HD_: return launch_decode_rows<T_, HD_, Src>(kmap, vmap, p, st)
+#define REPRO_HD(T_, HD_)                                                \
+  case HD_:                                                              \
+    if constexpr (softcap_dims(HD_, HD_)) {                              \
+      if (p.cap > 0.f)                                                   \
+        return launch_decode_rows<T_, HD_, Src, true>(kmap, vmap, p, st); \
+    }                                                                    \
+    return launch_decode_rows<T_, HD_, Src, false>(kmap, vmap, p, st)
   if (dtype == 0) {
     switch (hd) {
       REPRO_HD(float, 16); REPRO_HD(float, 32);

@@ -28,7 +28,12 @@
 // acc / max(l, 1e-30), as on the TPU.  Given an lse pointer (a training
 // step's forward), each row's natural log-sum-exp of its scaled scores is
 // written beside the output for the backward (flash_attention_bwd.cu);
-// serving passes null and writes nothing more.
+// serving passes null and writes nothing more.  A soft-cap c > 0 (softcap;
+// Gemma 2's attn_logit_softcapping) turns every score s (scaled by
+// 1/sqrt(hd)) into c tanh(s / c) before the mask, as JAX's jnp path does;
+// both kernels have capped instantiations at hd 64, 128 and 256
+// (softcap_dims in common.cuh), and none at MLA's pairs, whose scores JAX
+// does not cap.
 //
 // Two kernels:
 //
@@ -87,12 +92,13 @@ __host__ __device__ constexpr int flash_rows() {
   return lanes_per_key_qv<HD, DV>() < 4 ? GR / 2 : GR;
 }
 
-template <int HD, int DV>
+// CAP: scores capped by tanhf in the log2 domain of qscale (cap = c log2 e)
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(NT) flash_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int S, int T, int KV, int G, int causal,
-    int window, float scale) {
+    int window, float scale, float cap, float cap_inv) {
   constexpr int RW = flash_rows<HD, DV>();        // rows per CTA
   constexpr int LPK = lanes_per_key_qv<HD, DV>();  // lanes per key
   constexpr int VEC = HD / LPK;                   // q/k head dims per lane
@@ -100,8 +106,8 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   constexpr int KPW = 32 / LPK;                   // keys a warp reads at once
   // keys per lane group per step, as many as ~200 registers allow at GR
   // rows (fewer rows keep GR's count: more keys would bring the spills
-  // back)
-  constexpr int UR = (200 - GR * (VEC + VV)) / (VEC + VV + GR);
+  // back); ~176 beside the capped kernel's tanhf
+  constexpr int UR = ((CAP ? 176 : 200) - GR * (VEC + VV)) / (VEC + VV + GR);
   constexpr int U = UR < 1 ? 1 : (UR > 8 ? 8 : UR);
   constexpr int STEP = KPW * U;                   // keys per warp step
   static_assert(VEC % 4 == 0 && VV % 4 == 0 && 32 % LPK == 0, "head_dim");
@@ -187,6 +193,7 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
       for (int u = 0; u < U; ++u) {
         const int key = base + gi * U + u;
         vis[u] = key < n_keys && key <= hi[i] && key >= lo[i];
+        if constexpr (CAP) sc[u][i] = soft_cap<float>(sc[u][i], cap, cap_inv);
         if (!vis[u]) sc[u][i] = NEG_INF;
         mx = fmaxf(mx, sc[u][i]);
       }
@@ -254,12 +261,30 @@ __global__ void __launch_bounds__(NT) flash_simt_kernel(
   }
 }
 
+// the fp32 kernel, capped (CAP) or not
+template <int HD, int DV, bool CAP>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int S, int T, int KV, int G, int causal,
+                int window, float scale, float softcap,
+                cudaStream_t stream) {
+  constexpr int RW = flash_rows<HD, DV>();
+  const dim3 grid(B, KV, (S * G + RW - 1) / RW);
+  const float cap = softcap * LOG2E;
+  return launch_with_smem<NW * RW * DV * 4>(
+      flash_simt_kernel<HD, DV, CAP>, grid, NT, stream, (const float*)q,
+      (const float*)k, (const float*)v, (float*)out, lse, S, T, KV, G,
+      causal, window, scale, cap, CAP ? 1.f / cap : 0.f);
+}
+
 // DV == HD, or (192, 128); (24, 16) has the fp32 kernel only (24 is not
-// a multiple of the bf16 wgmma's 16-deep k-step), and returns -1 in bf16
+// a multiple of the bf16 wgmma's 16-deep k-step), and returns -1 in bf16;
+// a soft-cap > 0 only at softcap_dims, else -1
 template <int HD, int DV = HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
            void* out, float* lse, int B, int S, int T, int KV, int G,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, float scale, float softcap,
+           cudaStream_t stream) {
+  if (softcap > 0.f && !softcap_dims(HD, DV)) return -1;
   if (dtype == 1) {
     if constexpr (HD % 16 == 0 && DV % 16 == 0) {
       CUtensorMap kmap, vmap;
@@ -272,18 +297,22 @@ int launch(int dtype, const void* q, const void* k, const void* v,
       p.S = S; p.T = T; p.KV = KV; p.G = G;
       p.causal = causal; p.window = window; p.scale = scale;
       p.lse = lse;
+      p.cap = softcap / scale;                 // raw units
+      p.cap_inv = softcap > 0.f ? scale / softcap : 0.f;
       p.n_row_tiles = (S * G + TILE - 1) / TILE;
       return launch_attention<HD, DenseSrc, DV>(kmap, vmap, p, B, stream);
     } else {
       return -1;
     }
   }
-  constexpr int RW = flash_rows<HD, DV>();
-  const dim3 grid(B, KV, (S * G + RW - 1) / RW);
-  return launch_with_smem<NW * RW * DV * 4>(
-      flash_simt_kernel<HD, DV>, grid, NT, stream, (const float*)q,
-      (const float*)k, (const float*)v, (float*)out, lse, S, T, KV, G,
-      causal, window, scale);
+  if constexpr (softcap_dims(HD, DV)) {
+    if (softcap > 0.f)
+      return launch_simt<HD, DV, true>(q, k, v, out, lse, B, S, T, KV, G,
+                                       causal, window, scale, softcap,
+                                       stream);
+  }
+  return launch_simt<HD, DV, false>(q, k, v, out, lse, B, S, T, KV, G,
+                                    causal, window, scale, 0.f, stream);
 }
 
 }  // namespace
@@ -292,36 +321,38 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // above); S: queries, T: keys (T < S only with causal = window = 0; the
 // queries sit at key positions T - S .. T - 1);
 // causal: 0 or 1; window: 0 for none; lse: null, or (B, S, H)
-// fp32 that receives each row's natural log-sum-exp of the scaled scores
-// (the backward's input).  Returns cudaGetLastError() after the launch (0
-// on success), -1 for a dtype / head dims it has no kernel for, -2 if
-// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
+// fp32 that receives each row's natural log-sum-exp of the scaled
+// (capped) scores (the backward's input); softcap: 0 for none, else c of
+// c tanh(s / c).  Returns cudaGetLastError() after the launch (0 on
+// success), -1 for a dtype / head dims (or a cap at head dims) it has no
+// kernel for, -2 if cuTensorMapEncodeTiled cannot be found, -3 if it
+// refuses a tensor map.
 extern "C" int repro_flash_attention(int dtype, int hd, int hd_v,
                                      const void* q, const void* k,
                                      const void* v, void* out, float* lse,
                                      int B, int S, int T, int KV, int G,
                                      int causal, int window, float scale,
-                                     void* stream) {
+                                     float softcap, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 192 && hd_v == 128)
     return launch<192, 128>(dtype, q, k, v, out, lse, B, S, T, KV, G, causal,
-                            window, scale, st);
+                            window, scale, softcap, st);
   if (hd == 24 && hd_v == 16)
     return launch<24, 16>(dtype, q, k, v, out, lse, B, S, T, KV, G, causal,
-                          window, scale, st);
+                          window, scale, softcap, st);
   if (hd_v != hd) return -1;
   switch (hd) {
     case 16: return launch<16>(dtype, q, k, v, out, lse, B, S, T, KV, G,
-                               causal, window, scale, st);
+                               causal, window, scale, softcap, st);
     case 32: return launch<32>(dtype, q, k, v, out, lse, B, S, T, KV, G,
-                               causal, window, scale, st);
+                               causal, window, scale, softcap, st);
     case 64: return launch<64>(dtype, q, k, v, out, lse, B, S, T, KV, G,
-                               causal, window, scale, st);
+                               causal, window, scale, softcap, st);
     case 128: return launch<128>(dtype, q, k, v, out, lse, B, S, T, KV, G,
-                                 causal, window, scale, st);
+                                 causal, window, scale, softcap, st);
     case 256: return launch<256>(dtype, q, k, v, out, lse, B, S, T, KV, G,
-                                 causal, window, scale, st);
+                                 causal, window, scale, softcap, st);
     default: return -1;
   }
 }

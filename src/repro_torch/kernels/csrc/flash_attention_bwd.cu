@@ -28,6 +28,13 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D)
 //   dK = scale * dS^T Q                         the dK / dV kernel
 //   dQ = scale * dS K                           the dQ kernel
+// With a soft-cap c > 0 (the forward's; Gemma 2's attn_logit_softcapping)
+// the forward's scores and lse are of s' = c tanh(s / c), and each kernel
+// recomputes s' from s, then P = exp(s' - lse) and dS = P * (dP - D) *
+// (1 - (s' / c)^2): the derivative of the cap from its value, so one tanh
+// an element (tanhf in fp32, tanh_ex2 in bf16; common.cuh).  The CAP
+// instantiations are built at hd 64, 128 and 256 (softcap_dims); the
+// uncapped ones are unchanged.
 // dK and dV sum over the G heads of their kv head.  P and dS keep fp32
 // accuracy (the forward keeps P in fp32 as the TPU kernel does); dq, dk
 // and dv are rounded once, to the inputs' dtype.  Three launches and no
@@ -106,6 +113,8 @@
 // pairs it visits (S and dP twice, P and dS products twice for hi and
 // lo), ~95 GFLOP with the masked halves of the diagonal tiles; on an H100
 // (700 W) the three launches take ~0.22 ms (PERF.md, row 8).
+#include <type_traits>
+
 #include "attention_sm90.cuh"
 
 namespace {
@@ -135,6 +144,14 @@ struct BwdParams {
   // ngb blocks; the dQ kernel's row tiles
   int gt, nq, ngb, n_row_tiles;
 };
+
+// The capped kernels' parameters: BwdParams and the soft-cap in raw units
+// (c / scale) with its inverse; the uncapped kernels keep BwdParams.
+struct CapBwdParams : BwdParams {
+  float cap, cap_inv;
+};
+template <bool CAP>
+using BwdArgs = std::conditional_t<CAP, CapBwdParams, BwdParams>;
 
 // the keys lo <= t <= hi query s sees (DenseSrc::bounds)
 __device__ __forceinline__ int key_lo(const BwdParams& p, int s) {
@@ -260,9 +277,10 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* d_s,
 
 // P (if ps) and dS of one (row tile r0, key tile t0) pair into shared
 // memory.  Thread (i, jj) = (tid / 8, tid % 8) takes row i and keys jj +
-// 8c, c < 4; rows from r_end on and masked keys give P = dS = 0.
-template <int HD, int DV>
-__device__ __forceinline__ void tile_p_ds(const BwdParams& p,
+// 8c, c < 4; rows from r_end on and masked keys give P = dS = 0.  CAP:
+// the score capped first, and dS times 1 - (s' / C)^2.
+template <int HD, int DV, bool CAP>
+__device__ __forceinline__ void tile_p_ds(const BwdArgs<CAP>& p,
                                           const float* qs, const float* dos,
                                           const float* ks, const float* vs,
                                           const float* lse_s,
@@ -294,9 +312,16 @@ __device__ __forceinline__ void tile_p_ds(const BwdParams& p,
   for (int c = 0; c < 4; ++c) {
     const int j = jj + 8 * c, t = t0 + j;
     const bool vis = row_ok && t >= lo && t <= hi;
-    const float pr = vis ? expf(fmaf(sc[c], p.scale, -l)) : 0.f;
-    if (ps != nullptr) ps[i * SM::PLD + j] = pr;
-    dss[i * SM::PLD + j] = pr * (dp[c] - dd);
+    if constexpr (CAP) {
+      const float th = tanhf(sc[c] * p.cap_inv);
+      const float pr = vis ? expf(fmaf(p.cap * th, p.scale, -l)) : 0.f;
+      if (ps != nullptr) ps[i * SM::PLD + j] = pr;
+      dss[i * SM::PLD + j] = pr * (dp[c] - dd) * fmaf(-th, th, 1.f);
+    } else {
+      const float pr = vis ? expf(fmaf(sc[c], p.scale, -l)) : 0.f;
+      if (ps != nullptr) ps[i * SM::PLD + j] = pr;
+      dss[i * SM::PLD + j] = pr * (dp[c] - dd);
+    }
   }
 }
 
@@ -323,9 +348,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
 }
 
 // dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles)
-template <int HD, int DV>
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
-    const BwdParams p) {
+    const BwdArgs<CAP> p) {
   using SM = Smem<HD, DV>;
   float* qs = reinterpret_cast<float*>(smem_buffer<SM::BYTES>());
   float* dos = qs + SM::TILE;
@@ -359,8 +384,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     load_rows<DV>(dos, p.dout, p, b, kvh, r0, r_end);
     load_row_stats(lse_s, d_s, p, b, kvh, r0, r_end);
     __syncthreads();
-    tile_p_ds<HD, DV>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, ps,
-                      dss);
+    tile_p_ds<HD, DV, CAP>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, ps,
+                           dss);
     __syncthreads();
     for (int i = 0; i < BT; ++i) {
       const float pr = ps[i * SM::PLD + j], ds = dss[i * SM::PLD + j];
@@ -397,9 +422,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 }
 
 // dQ of one row tile of (b, kv head): grid (B * KV, row tiles)
-template <int HD, int DV>
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    const BwdParams p) {
+    const BwdArgs<CAP> p) {
   using SM = Smem<HD, DV>;
   float* qs = reinterpret_cast<float*>(smem_buffer<SM::BYTES>());
   float* dos = qs + SM::TILE;
@@ -428,8 +453,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     load_keys<HD>(ks, p.k, p, b, kvh, t0, min(t0 + BT, p.T));
     load_keys<DV>(vs, p.v, p, b, kvh, t0, min(t0 + BT, p.T));
     __syncthreads();
-    tile_p_ds<HD, DV>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0, nullptr,
-                      dss);
+    tile_p_ds<HD, DV, CAP>(p, qs, dos, ks, vs, lse_s, d_s, r0, r_end, t0,
+                           nullptr, dss);
     __syncthreads();
     for (int j = 0; j < BT; ++j) {
       const float ds = dss[i * SM::PLD + j];
@@ -620,10 +645,12 @@ __device__ __forceinline__ void rs_product(float (&acc)[N][Tile<HD>::BW / 2],
 // its rows of dK (scaled) and dV.  Consumer thread (warp, gq, tq) holds
 // keys kw0 + 16 warp + gq + 8 h (h = 0, 1) of the accumulators, and of
 // S^T and dP^T the rows 8 c8 + 2 tq + e (c8 < 8, e = 0, 1) of the row
-// tile.
-template <int HD, int DV, int NK, int NV>
+// tile.  CAP: the accumulators of S^T start at 0, the capped score s'
+// takes the rows' -lse / scale from the stage after the product, and dS^T
+// carries 1 - (s' / C)^2.
+template <int HD, int DV, int NK, int NV, bool CAP>
 __device__ __forceinline__ void dkdv_consume(
-    const BwdParams& p, uint8_t* smem0, uint32_t kw_s, uint32_t vw_s,
+    const BwdArgs<CAP>& p, uint8_t* smem0, uint32_t kw_s, uint32_t vw_s,
     uint32_t stage0, uint32_t stats0, uint32_t bars, int b, int kvh,
     int kw0, int qt0, int n_tiles, int KB, int VB) {
   using L = KvPlan<HD, DV>;
@@ -693,7 +720,7 @@ __device__ __forceinline__ void dkdv_consume(
             stat + TILE + r0 + 8 * c8 + 2 * tq);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          sc[4 * c8 + j] = j & 1 ? nl.y : nl.x;
+          sc[4 * c8 + j] = CAP ? 0.f : j & 1 ? nl.y : nl.x;
           dp[4 * c8 + j] = j & 1 ? nd.y : nd.x;
         }
       }
@@ -709,15 +736,27 @@ __device__ __forceinline__ void dkdv_consume(
 
       // P^T = 2^((S^T - lse / scale) scale log2e), dS^T = P^T (dP^T - D)
 #pragma unroll
-      for (int c8 = 0; c8 < HALF / 8; ++c8)
+      for (int c8 = 0; c8 < HALF / 8; ++c8) {
+        float2 nl = make_float2(0.f, 0.f);
+        if constexpr (CAP)
+          nl = *reinterpret_cast<const float2*>(stat + r0 + 8 * c8 + 2 * tq);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int x = 4 * c8 + j, h = j >> 1, n = r0 + 8 * c8 + (j & 1);
-          float pr = ex2(sc[x] * qscale);
-          if (masked && (n < from[h] || n >= to[h])) pr = 0.f;
-          sc[x] = pr;
-          dp[x] *= pr;
+          if constexpr (CAP) {
+            const float th = tanh_ex2(sc[x] * p.cap_inv);
+            float pr = ex2(fmaf(p.cap, th, j & 1 ? nl.y : nl.x) * qscale);
+            if (masked && (n < from[h] || n >= to[h])) pr = 0.f;
+            sc[x] = pr;
+            dp[x] *= pr * fmaf(-th, th, 1.f);
+          } else {
+            float pr = ex2(sc[x] * qscale);
+            if (masked && (n < from[h] || n >= to[h])) pr = 0.f;
+            sc[x] = pr;
+            dp[x] *= pr;
+          }
         }
+      }
       uint32_t ph[HALF / 16][4], pl[HALF / 16][4];
       uint32_t dh[HALF / 16][4], dl[HALF / 16][4];
       split_frags<HALF / 16>(sc, ph, pl);
@@ -771,12 +810,12 @@ __device__ __forceinline__ void dkdv_consume(
 // dK and dV of one key tile of (b, kv head): grid (B * KV, key tiles),
 // KV_THREADS threads: a producer warpgroup, then consumer warpgroups 0
 // and 1 (dkdv_consume).
-template <int HD, int DV>
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap dmap, const BwdParams p) {
+    const __grid_constant__ CUtensorMap dmap, const BwdArgs<CAP> p) {
   using L = KvPlan<HD, DV>;
   using T = Tile<HD>;
   using TV = Tile<DV>;
@@ -859,15 +898,15 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
   const uint32_t kw_s = k_s + (L::SPLIT_COLS ? 0 : w * T::BYTES);
   const uint32_t vw_s = v_s + (L::SPLIT_COLS ? 0 : w * TV::BYTES);
   if constexpr (L::NK0 == L::NK1 && L::NV0 == L::NV1) {
-    dkdv_consume<HD, DV, L::NK0, L::NV0>(
+    dkdv_consume<HD, DV, L::NK0, L::NV0, CAP>(
         p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
         qt0, n_tiles, w ? L::KB1 : 0, w ? L::VB1 : 0);
   } else if (w == 0) {
-    dkdv_consume<HD, DV, L::NK0, L::NV0>(
+    dkdv_consume<HD, DV, L::NK0, L::NV0, CAP>(
         p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
         qt0, n_tiles, 0, 0);
   } else {
-    dkdv_consume<HD, DV, L::NK1, L::NV1>(
+    dkdv_consume<HD, DV, L::NK1, L::NV1, CAP>(
         p, smem0, kw_s, vw_s, stage0, base + L::STATS, bars, b, kvh, kw0,
         qt0, n_tiles, L::KB1, L::VB1);
   }
@@ -876,13 +915,13 @@ __global__ void __launch_bounds__(KV_THREADS, 1) flash_bwd_dkdv_sm90_kernel(
 // dQ of one row tile of (b, kv head): grid (B * KV, row tiles), THREADS
 // threads.  Consumer thread (warp, gq, tq) holds rows 16 warp + gq + 8 h
 // (h = 0, 1) of the row tile.
-template <int HD, int DV>
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(THREADS, HD > 128 ? 1 : 2)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap dmap,
-                             const BwdParams p) {
+                             const BwdArgs<CAP> p) {
   using Q = DqPlan<HD, DV>;
   using R = typename Q::R;
   using T = Tile<HD>;
@@ -989,12 +1028,20 @@ __global__ void __launch_bounds__(THREADS, HD > 128 ? 1 : 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int h = j >> 1, x = 4 * c8 + j;
+        float th = 0.f;
+        if constexpr (CAP) {
+          th = tanh_ex2(sc[x] * p.cap_inv);
+          sc[x] = p.cap * th;
+        }
         float pr = ex2(fmaf(sc[x], qscale, neg[h]));
         if (masked) {
           const int key = key0 + 8 * c8 + 2 * tq + (j & 1);
           if (key < lo[h] || key > hi[h]) pr = 0.f;
         }
-        dp[x] = pr * (dp[x] - dd[h]);
+        if constexpr (CAP)
+          dp[x] = pr * (dp[x] - dd[h]) * fmaf(-th, th, 1.f);
+        else
+          dp[x] = pr * (dp[x] - dd[h]);
       }
     uint32_t dh[4][4], dl[4][4];
     split_frags<4>(dp, dh, dl);
@@ -1040,24 +1087,24 @@ int launch_delta(const BwdParams& p, int B, cudaStream_t stream) {
 }
 
 // fp32: the CUDA-core kernels
-template <int HD, int DV>
-int launch_fp32(const BwdParams& p, int B, cudaStream_t stream) {
+template <int HD, int DV, bool CAP>
+int launch_fp32(const BwdArgs<CAP>& p, int B, cudaStream_t stream) {
   int rc = launch_delta<float, DV>(p, B, stream);
   if (rc != 0) return rc;
   rc = launch_with_smem<Smem<HD, DV>::BYTES>(
-      flash_bwd_dkdv_kernel<HD, DV>, dim3(B * p.KV, (p.T + BT - 1) / BT),
-      NT, stream, p);
+      flash_bwd_dkdv_kernel<HD, DV, CAP>,
+      dim3(B * p.KV, (p.T + BT - 1) / BT), NT, stream, p);
   if (rc != 0) return rc;
   return launch_with_smem<Smem<HD, DV>::BYTES>(
-      flash_bwd_dq_kernel<HD, DV>,
+      flash_bwd_dq_kernel<HD, DV, CAP>,
       dim3(B * p.KV, (p.S * p.G + BT - 1) / BT), NT, stream, p);
 }
 
-template <typename Kernel>
+template <typename Kernel, class P>
 int launch_sm90_kernel(Kernel kernel, dim3 grid, int threads, int smem,
                        cudaStream_t stream, const CUtensorMap& kmap,
                        const CUtensorMap& vmap, const CUtensorMap& qmap,
-                       const CUtensorMap& dmap, const BwdParams& p) {
+                       const CUtensorMap& dmap, const P& p) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1066,8 +1113,8 @@ int launch_sm90_kernel(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 // bf16: the row-tile plan, the tensor maps, then the three launches
-template <int HD, int DV>
-int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
+template <int HD, int DV, bool CAP>
+int launch_bf16(BwdArgs<CAP> p, int B, cudaStream_t stream) {
   p.gt = min(p.G, BWD_ROW_TILE);
   p.nq = BWD_ROW_TILE / p.gt;
   p.ngb = (p.G + p.gt - 1) / p.gt;
@@ -1084,11 +1131,11 @@ int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
   if (rc == 0) rc = launch_delta<__nv_bfloat16, DV>(p, B, stream);
   if (rc == 0)
     rc = launch_sm90_kernel(
-        flash_bwd_dkdv_sm90_kernel<HD, DV>,
+        flash_bwd_dkdv_sm90_kernel<HD, DV, CAP>,
         dim3(B * p.KV, (p.T + L::KEYS - 1) / L::KEYS), KV_THREADS, L::SMEM,
         stream, kmap, vmap, qmap, dmap, p);
   if (rc == 0)
-    rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD, DV>,
+    rc = launch_sm90_kernel(flash_bwd_dq_sm90_kernel<HD, DV, CAP>,
                             dim3(B * p.KV, p.n_row_tiles), THREADS,
                             DqPlan<HD, DV>::SMEM, stream, kmap, vmap, qmap,
                             dmap, p);
@@ -1096,15 +1143,29 @@ int launch_bf16(BwdParams p, int B, cudaStream_t stream) {
 }
 
 // bf16 at the widths the tensor-core kernels take (multiples of 16),
-// fp32 at every width built
-template <int HD, int DV = HD>
-int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
+// fp32 at every width built, capped (CAP) or not
+template <int HD, int DV, bool CAP>
+int launch_dtype_cap(int dtype, const BwdArgs<CAP>& p, int B,
+                     cudaStream_t stream) {
   if constexpr (HD % 16 == 0 && DV % 16 == 0) {
-    if (dtype == 1) return launch_bf16<HD, DV>(p, B, stream);
+    if (dtype == 1) return launch_bf16<HD, DV, CAP>(p, B, stream);
   } else {
     if (dtype == 1) return -1;
   }
-  return launch_fp32<HD, DV>(p, B, stream);
+  return launch_fp32<HD, DV, CAP>(p, B, stream);
+}
+
+// the capped kernels where p.cap > 0 (-1 at head dims without them),
+// else the uncapped ones on p's BwdParams
+template <int HD, int DV = HD>
+int launch_dtype(int dtype, const CapBwdParams& p, int B,
+                 cudaStream_t stream) {
+  if (p.cap > 0.f) {
+    if constexpr (softcap_dims(HD, DV))
+      return launch_dtype_cap<HD, DV, true>(dtype, p, B, stream);
+    return -1;
+  }
+  return launch_dtype_cap<HD, DV, false>(dtype, p, B, stream);
 }
 
 }  // namespace
@@ -1116,7 +1177,7 @@ int launch_dtype(int dtype, const BwdParams& p, int B, cudaStream_t stream) {
 // log-sum-exp; delta: (B, S, H) fp32 scratch; dq, dk, dv: outputs in the
 // inputs' dtype; S: queries, T: keys (T >= S under a mask, query s at key
 // position s + T - S; any T with causal = window = 0); causal: 0 or 1;
-// window: 0 for none; scale: the forward's.
+// window: 0 for none; scale, softcap: the forward's (softcap 0 for none).
 // Launches three kernels on ``stream``: bf16 the tensor-core kernels, fp32
 // the CUDA-core ones.  Returns cudaGetLastError() after the first that
 // fails (0 on success), -1 for a dtype or head dims it has no kernel for,
@@ -1126,10 +1187,15 @@ extern "C" int repro_flash_attention_bwd(
     int dtype, int hd, int hd_v, const void* q, const void* k,
     const void* v, const void* out, const void* dout, const float* lse,
     float* delta, void* dq, void* dk, void* dv, int B, int S, int T, int KV,
-    int G, int causal, int window, float scale, void* stream) {
+    int G, int causal, int window, float scale, float softcap,
+    void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
-  BwdParams p = {q, k, v, out, dout, lse, delta, dq, dk, dv,
-                 S, KV, G, causal, window, scale, T, T - S};
+  const BwdParams base = {q, k, v, out, dout, lse, delta, dq, dk, dv,
+                          S, KV, G, causal, window, scale, T, T - S};
+  CapBwdParams p;
+  static_cast<BwdParams&>(p) = base;
+  p.cap = softcap / scale;                   // raw units
+  p.cap_inv = softcap > 0.f ? scale / softcap : 0.f;
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 192 && hd_v == 128)
     return launch_dtype<192, 128>(dtype, p, B, st);

@@ -60,6 +60,14 @@
 // add p = 0, so a row that sees no key gives 0, never a NaN.  The output
 // is acc / max(l, 1e-30), as on the TPU.
 //
+// A soft-cap c > 0 (softcap; Gemma 2's attn_logit_softcapping) turns each
+// score s (scaled by 1/sqrt(hd)) into c tanh(s / c) before the mask, as
+// JAX's jnp path does (its Pallas kernels take no cap).  Every kernel here
+// has capped instantiations at hd 64, 128 and 256 (softcap_dims in
+// common.cuh): the decode and paged_attention_kernel cap in the log2
+// domain of their pre-scaled q (cap = c log2 e), the bf16 extend in raw
+// units (c / scale); tanhf in fp32, tanh_ex2 in bf16.
+//
 // Bound on the card: memory bandwidth for the decode (decode_sm90.cuh).
 // Extend at the main path's shapes (S = 256 after a cached prefix) sits
 // at the bf16 ridge: its bytes (q, K/V, out) and its tensor-core
@@ -79,17 +87,19 @@ constexpr int NT = NW * 32;    // threads per CTA
 // contiguous; bt is (B, nb); query s of sequence b sits at pos0[b] + s.
 // Scores live in the log2 domain (q is scaled by scale * log2 e) so the
 // softmax runs on exp2f; the result is the same softmax.
-template <typename T, int HD, int GR>
+template <typename T, int HD, int GR, bool CAP>
 __global__ void __launch_bounds__(NT) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ bt,
     const int* __restrict__ pos0s, T* __restrict__ out, int S, int KV,
-    int G, int nb, int bs, int n_pool_rows, float scale) {
+    int G, int nb, int bs, int n_pool_rows, float scale, float cap,
+    float cap_inv) {
   constexpr int LPK = lanes_per_key<HD, GR>();  // lanes per key
   constexpr int VEC = HD / LPK;                 // head dims per lane
   constexpr int KPW = 32 / LPK;                 // keys a warp reads at once
-  // keys per lane group per step, as many as ~200 registers allow
-  constexpr int UR = (200 - 2 * GR * VEC) / (2 * VEC + GR);
+  // keys per lane group per step, as many as ~200 registers allow (~176
+  // beside the capped kernel's tanhf)
+  constexpr int UR = ((CAP ? 176 : 200) - 2 * GR * VEC) / (2 * VEC + GR);
   constexpr int U = UR < 1 ? 1 : (UR > 8 ? 8 : UR);
   constexpr int STEP = KPW * U;                 // keys per warp step
   static_assert(VEC % 4 == 0 && 32 % LPK == 0, "head_dim");
@@ -170,6 +180,7 @@ __global__ void __launch_bounds__(NT) paged_attention_kernel(
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int key = base + gi * U + u;
+        if constexpr (CAP) sc[u][i] = soft_cap<T>(sc[u][i], cap, cap_inv);
         if (key >= n_keys || key > lim[i]) sc[u][i] = NEG_INF;
         mx = fmaxf(mx, sc[u][i]);
       }
@@ -300,7 +311,8 @@ template <int HD>
 int launch_extend_bf16(const void* q, const void* k_pool, const void* v_pool,
                        const void* bt, const void* pos0, void* out, int B,
                        int S, int KV, int G, int nb, int bs,
-                       int n_pool_rows, float scale, cudaStream_t stream) {
+                       int n_pool_rows, float scale, float softcap,
+                       cudaStream_t stream) {
   int box = TILE;                          // gcd(bs, TILE)
   while (bs % box) box >>= 1;
   box = box >= 8 ? box : 0;                // 0: the warp copies
@@ -319,22 +331,44 @@ int launch_extend_bf16(const void* q, const void* k_pool, const void* v_pool,
   p.S = S; p.KV = KV; p.G = G;
   p.nb = nb; p.bs = bs; p.n_pool_rows = n_pool_rows; p.box_rows = box;
   p.scale = scale;
+  p.cap = softcap / scale;                   // raw units
+  p.cap_inv = softcap > 0.f ? scale / softcap : 0.f;
   p.n_row_tiles = (S * G + TILE - 1) / TILE;
   return launch_attention<HD, PagedSrc>(kmap, vmap, p, B, stream);
 }
 
-// fp32 extend: paged_attention_kernel, 8 rows a CTA
+// fp32 extend: paged_attention_kernel, 8 rows a CTA, capped (CAP) or not
+template <int HD, bool CAP>
+int launch_extend_f32_cap(const void* q, const void* k_pool,
+                          const void* v_pool, const void* bt,
+                          const void* pos0, void* out, int B, int S, int KV,
+                          int G, int nb, int bs, int n_pool_rows,
+                          float scale, float softcap, cudaStream_t stream) {
+  const dim3 grid(B, KV, (S * G + 7) / 8);
+  const float cap = softcap * LOG2E;
+  return launch_with_smem<NW * 8 * HD * 4>(
+      paged_attention_kernel<float, HD, 8, CAP>, grid, NT, stream,
+      (const float*)q, (const float*)k_pool, (const float*)v_pool,
+      (const int*)bt, (const int*)pos0, (float*)out, S, KV, G, nb, bs,
+      n_pool_rows, scale, cap, CAP ? 1.f / cap : 0.f);
+}
+
 template <int HD>
 int launch_extend_f32(const void* q, const void* k_pool, const void* v_pool,
                       const void* bt, const void* pos0, void* out, int B,
                       int S, int KV, int G, int nb, int bs, int n_pool_rows,
-                      float scale, cudaStream_t stream) {
-  const dim3 grid(B, KV, (S * G + 7) / 8);
-  return launch_with_smem<NW * 8 * HD * 4>(
-      paged_attention_kernel<float, HD, 8>, grid, NT, stream,
-      (const float*)q, (const float*)k_pool, (const float*)v_pool,
-      (const int*)bt, (const int*)pos0, (float*)out, S, KV, G, nb, bs,
-      n_pool_rows, scale);
+                      float scale, float softcap, cudaStream_t stream) {
+  if (softcap > 0.f) {
+    if constexpr (softcap_dims(HD, HD))
+      return launch_extend_f32_cap<HD, true>(q, k_pool, v_pool, bt, pos0,
+                                             out, B, S, KV, G, nb, bs,
+                                             n_pool_rows, scale, softcap,
+                                             stream);
+    return -1;
+  }
+  return launch_extend_f32_cap<HD, false>(q, k_pool, v_pool, bt, pos0, out,
+                                          B, S, KV, G, nb, bs, n_pool_rows,
+                                          scale, 0.f, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -371,15 +405,16 @@ struct PagedRows {
 // dtype: 0 = float32, 1 = bfloat16.  q and out are (B, KV * G, hd); ws is
 // an fp32 workspace of B * KV * G * n_chunks * (hd + 2) floats and tickets
 // B * KV * ceil(G / 8) int32 counters, zero before the first call (the
-// kernel leaves them zero); n_chunks = ceil(nb * bs / DECODE_CHUNK).
-// Returns cudaGetLastError() after the launch (0 on success), -1 for a
-// dtype / head_dim it has no kernel for, -2 if cuTensorMapEncodeTiled
-// cannot be found, -3 if it refuses a tensor map.
+// kernel leaves them zero); n_chunks = ceil(nb * bs / DECODE_CHUNK);
+// softcap: 0 for none, else c of c tanh(s / c).  Returns
+// cudaGetLastError() after the launch (0 on success), -1 for a dtype /
+// head_dim (or a cap at a head_dim) it has no kernel for, -2 if
+// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
 extern "C" int repro_paged_decode_attention(
     int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
     const void* bt, const void* lengths, void* out, void* ws, void* tickets,
     int B, int KV, int G, int nb, int bs, int n_pool_rows, int n_chunks,
-    float scale, void* stream) {
+    float scale, float softcap, void* stream) {
   DecodeParams p = {};
   p.q = q; p.k = k_pool; p.v = v_pool; p.out = out;
   p.lengths = (const int*)lengths;
@@ -389,25 +424,30 @@ extern "C" int repro_paged_decode_attention(
   p.B = B; p.KV = KV; p.G = G; p.n_chunks = n_chunks;
   p.nb = nb; p.bs = bs; p.n_pool_rows = n_pool_rows;
   p.scale = scale;
+  p.cap = softcap * LOG2E;                   // the log2 domain of qscale
+  p.cap_inv = softcap > 0.f ? 1.f / p.cap : 0.f;
   return launch_decode<PagedRows>(dtype, hd, p, bs, n_pool_rows, bs, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success), -1 for a dtype / head_dim it has no kernel for,
-// -2 if cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor
-// map.
+// dtype: 0 = float32, 1 = bfloat16; softcap: 0 for none, else c of c
+// tanh(s / c).  Returns cudaGetLastError() after the launch (0 on
+// success), -1 for a dtype / head_dim (or a cap at a head_dim) it has no
+// kernel for, -2 if cuTensorMapEncodeTiled cannot be found, -3 if it
+// refuses a tensor map.
 extern "C" int repro_paged_extend_attention(
     int dtype, int hd, const void* q, const void* k_pool, const void* v_pool,
     const void* bt, const void* pos0, void* out, int B, int S, int KV, int G,
-    int nb, int bs, int n_pool_rows, float scale, void* stream) {
+    int nb, int bs, int n_pool_rows, float scale, float softcap,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_HD(HD_)                                                        \
   case HD_:                                                                  \
     return dtype == 1                                                        \
         ? launch_extend_bf16<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S,    \
-                                  KV, G, nb, bs, n_pool_rows, scale, st)     \
+                                  KV, G, nb, bs, n_pool_rows, scale,         \
+                                  softcap, st)                               \
         : launch_extend_f32<HD_>(q, k_pool, v_pool, bt, pos0, out, B, S, KV, \
-                                 G, nb, bs, n_pool_rows, scale, st)
+                                 G, nb, bs, n_pool_rows, scale, softcap, st)
   if (dtype != 0 && dtype != 1) return -1;
   switch (hd) {
     REPRO_HD(16);

@@ -10,7 +10,9 @@ kernel (split and merge in one launch) on PyTorch's current stream
 without synchronising, raises if the launch reports an error, and adds
 one to its count in :data:`repro_torch.kernels.LAUNCHES`.
 :func:`check_args` validates a call for both routes; the plain version is
-:func:`repro_torch.kernels.ref.decode_attention_ref`.
+:func:`repro_torch.kernels.ref.decode_attention_ref`.  ``softcap``: 0, or
+the c of ``c * tanh(s / c)`` applied to each scaled score before the
+mask, with capped kernels at :data:`repro_torch.kernels.SOFTCAP_HEAD_DIMS`.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import math
 import torch
 
 from repro_torch.kernels import (DTYPE_CODE, LAUNCHES, build, check_cuda,
-                                 check_launch, check_tensors, decode_plan)
+                                 check_launch, check_softcap,
+                                 check_softcap_dims, check_tensors,
+                                 decode_plan)
 
 _lib = None
 
@@ -31,19 +35,20 @@ def _library() -> ctypes.CDLL:
         lib = build.load("decode_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # (dtype, hd, q, k, v, lengths, out, ws, tickets, B, L, KV, G,
-        #  n_chunks, scale, stream)
+        #  n_chunks, scale, softcap, stream)
         lib.repro_decode_attention.argtypes = [
             i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-            i32, ctypes.c_float, ptr]
+            i32, ctypes.c_float, ctypes.c_float, ptr]
         lib.repro_decode_attention.restype = i32
         decode_plan.check_library(lib, "decode_attention")
         _lib = lib
     return _lib
 
 
-def check_args(q, k, v, lengths, n_splits: int):
-    """Validate q (B,H,hd), k/v (B,L,KV,hd), lengths (B,) int32; raises
-    ``ValueError`` on anything the kernel does not take."""
+def check_args(q, k, v, lengths, n_splits: int, softcap: float = 0.0):
+    """Validate q (B,H,hd), k/v (B,L,KV,hd), lengths (B,) int32 and the
+    soft-cap; raises ``ValueError`` on anything the kernel does not
+    take."""
     name = "decode_attention"
     check_tensors(name, {"q": q, "k": k, "v": v, "lengths": lengths},
                   floats=("q", "k", "v"))
@@ -64,16 +69,19 @@ def check_args(q, k, v, lengths, n_splits: int):
         raise ValueError(f"{name}: lengths must be int32 of shape ({B},)")
     if n_splits < 1:
         raise ValueError(f"{name}: n_splits must be >= 1, got {n_splits}")
+    check_softcap(name, softcap)
 
 
-def decode_attention_bhd(q, k, v, lengths, *, n_splits: int = 8):
+def decode_attention_bhd(q, k, v, lengths, *, n_splits: int = 8,
+                         softcap: float = 0.0):
     """q: (B,H,hd); k/v: (B,L,KV,hd) caches; lengths: (B,) int32 valid
     prefix -> (B,H,hd).  ``n_splits`` is the TPU wrapper's contract
     (``repro.kernels.ops.decode_attention``) and is checked, but the
     kernel plans its own split: chunks of ``decode_plan.CHUNK_KEYS`` keys,
-    from the shapes alone."""
-    check_args(q, k, v, lengths, n_splits)
+    from the shapes alone; ``softcap`` > 0 caps the scaled scores."""
+    check_args(q, k, v, lengths, n_splits, softcap)
     check_cuda("decode_attention", {"q": q, "k": k, "v": v})
+    check_softcap_dims("decode_attention", softcap, q.shape[-1])
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
     plan = decode_plan.split_plan(B, H, KV, hd, L)
@@ -85,7 +93,7 @@ def decode_attention_bhd(q, k, v, lengths, *, n_splits: int = 8):
             DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
             tickets.data_ptr(), B, L, KV, H // KV, plan.n_chunks,
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(hd), float(softcap), stream)
     check_launch("decode_attention", rc)
     LAUNCHES["decode_attention"] += 1
     return out

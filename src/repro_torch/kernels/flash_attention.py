@@ -23,7 +23,13 @@ one to its count in
 :data:`repro_torch.kernels.LAUNCHES`.  :func:`check_args` validates a call
 for both routes; the plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`, and the backward's
-is autograd through it.
+is autograd through it.  Every call takes ``softcap``: 0, or the c of
+Gemma 2's ``attn_logit_softcapping``, each scaled score s becoming ``c *
+tanh(s / c)`` before the masks (JAX's ``flash_attention_jnp(softcap=)``),
+in the forward and, through the forward's lse and the recomputed capped
+score, in the backward; the kernels are built capped at
+:data:`repro_torch.kernels.SOFTCAP_HEAD_DIMS`, and a cap at MLA's (q/k, v)
+pairs is refused, as JAX never asks for it there.
 """
 from __future__ import annotations
 
@@ -35,8 +41,9 @@ import torch
 from repro_torch.core import flags
 from repro_torch.kernels import (DTYPE_CODE, FLASH_QK_V_DIMS, LAUNCHES,
                                  build, check_cuda, check_dims,
-                                 check_floats, check_launch, check_tensors,
-                                 count, work)
+                                 check_floats, check_launch, check_softcap,
+                                 check_softcap_dims, check_tensors, count,
+                                 work)
 
 _lib = None
 _bwd_lib = None
@@ -48,10 +55,10 @@ def _library() -> ctypes.CDLL:
         lib = build.load("flash_attention.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # (dtype, hd, hd_v, q, k, v, out, lse, B, S, T, KV, G, causal,
-        #  window, scale, stream)
+        #  window, scale, softcap, stream)
         lib.repro_flash_attention.argtypes = [
             i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-            i32, i32, ctypes.c_float, ptr]
+            i32, i32, ctypes.c_float, ctypes.c_float, ptr]
         lib.repro_flash_attention.restype = i32
         _lib = lib
     return _lib
@@ -63,10 +70,11 @@ def _bwd_library() -> ctypes.CDLL:
         lib = build.load("flash_attention_bwd.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # (dtype, hd, hd_v, q, k, v, out, dout, lse, delta, dq, dk, dv, B,
-        #  S, T, KV, G, causal, window, scale, stream)
+        #  S, T, KV, G, causal, window, scale, softcap, stream)
         lib.repro_flash_attention_bwd.argtypes = [
             i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+            ctypes.c_float, ptr]
         lib.repro_flash_attention_bwd.restype = i32
         lib.repro_flash_bwd_smem.argtypes = [i32, i32, i32]
         lib.repro_flash_bwd_smem.restype = i32
@@ -74,13 +82,14 @@ def _bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
-def check_args(q, k, v, window: int, causal: bool):
+def check_args(q, k, v, window: int, causal: bool, softcap: float = 0.0):
     """Validate q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,hd_v): hd_v is hd,
     or with hd a pair of :data:`repro_torch.kernels.FLASH_QK_V_DIMS` in a
-    dtype it is built for; T is any key count where neither ``causal``
-    nor ``window`` masks (a cross attention), and at least S under a mask
-    (query s at position s + T - S).  Raises ``ValueError`` on anything
-    the kernel does not take."""
+    dtype it is built for (and then no ``softcap``); T is any key count
+    where neither ``causal`` nor ``window`` masks (a cross attention),
+    and at least S under a mask (query s at position s + T - S);
+    ``softcap`` finite and >= 0.  Raises ``ValueError`` on anything the
+    kernel does not take."""
     name = "flash_attention"
     tensors = {"q": q, "k": k, "v": v}
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -113,15 +122,21 @@ def check_args(q, k, v, window: int, causal: bool):
                          f"kv heads")
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")
+    check_softcap(name, softcap)
+    if softcap and hd_v != hd:
+        raise ValueError(f"{name}: no soft-cap at (q/k, v) head dims "
+                         f"{(hd, hd_v)}: MLA's scores are not capped")
 
 
-def _forward(q, k, v, causal: bool, window: int, lse=None):
+def _forward(q, k, v, causal: bool, window: int, lse=None,
+             softcap: float = 0.0):
     """The forward's one launch; with ``lse`` (B,S,H) fp32 it also writes
-    there each row's natural log-sum-exp of its scaled scores, which the
-    backward reads.  On a fake tensor (``flags.counted``) the launch
-    is skipped and only reported to the active counter: the output is
-    allocated as for a launch and left empty."""
-    check_args(q, k, v, window, causal)
+    there each row's natural log-sum-exp of its scaled (capped) scores,
+    which the backward reads.  On a fake tensor (``flags.counted``) the
+    launch is skipped and only reported to the active counter: the output
+    is allocated as for a launch and left empty."""
+    check_args(q, k, v, window, causal, softcap)
+    check_softcap_dims("flash_attention", softcap, q.shape[3])
     B, S, H, hd = q.shape
     T, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty((B, S, H, hd_v))
@@ -137,26 +152,28 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
                 v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, S, T, KV,
                 H // KV, int(causal), int(window), 1.0 / math.sqrt(hd),
-                stream)
+                float(softcap), stream)
         check_launch("flash_attention", rc)
         count(LAUNCHES, "flash_attention")
     flags.add("flash_attention", work.flash_attention, B, S, T, H, KV, hd,
               hd_v=hd_v, dtype=q.dtype, causal=causal, window=window,
-              lse=lse is not None)
+              lse=lse is not None, softcap=softcap)
     return out
 
 
-def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0):
     """q: (B,S,H,hd), k: (B,T,KV,hd), v: (B,T,KV,hd_v) -> (B,S,H,hd_v), at
     scale 1/sqrt(hd).  Query s sits at key position ``s + T - S`` and
     sees key t iff ``t <= s + T - S`` when ``causal`` and ``t > s + T - S
     - window`` when ``window``; ``causal=False, window=0`` is
-    bidirectional, and only it takes T < S."""
-    return _forward(q, k, v, causal, window)
+    bidirectional, and only it takes T < S.  ``softcap`` > 0 caps each
+    scaled score s as ``softcap * tanh(s / softcap)`` before the masks."""
+    return _forward(q, k, v, causal, window, softcap=softcap)
 
 
 def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
-                             window: int):
+                             window: int, softcap: float = 0.0):
     """The gradients (dq, dk, dv) of :func:`flash_attention_bshd`'s output
     ``out`` for the upstream gradient ``dout`` (B,S,H,hd_v), from the
     forward's ``lse`` (B,S,H) fp32, with the forward's masks and scale; dk
@@ -165,14 +182,17 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
     forward takes (:func:`check_args`): T keys other than the S queries
     with no mask, and T >= S under a mask, query s then at key position s
     + T - S (a sequence shard's); a key that no query sees gets zero
-    gradients.  In q's dtype, fp32 inside.
+    gradients; with the forward's ``softcap`` the kernels recompute the
+    capped score s' and scale dS by ``1 - (s' / softcap)^2``.  In q's
+    dtype, fp32 inside.
     bf16 runs the kernels on ``wgmma`` (P and dS as bf16 hi + lo), fp32
     the kernels on the CUDA cores: the C entry point picks them by the
     dtype code.  CUDA tensors only; one call is three
     launches (D, then dK / dV, then dQ), counted once in
     :data:`repro_torch.kernels.LAUNCHES`."""
     name = "flash_attention_bwd"
-    check_args(q, k, v, window, causal)
+    check_args(q, k, v, window, causal, softcap)
+    check_softcap_dims(name, softcap, q.shape[3])
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse}
     check_floats(name, tensors, floats=("q", "k", "v", "out", "dout"))
     B, S, H, hd = q.shape
@@ -195,27 +215,30 @@ def flash_attention_bwd_bshd(q, k, v, out, dout, lse, *, causal: bool,
                 v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, S, T, KV, H // KV,
-                int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+                int(causal), int(window), 1.0 / math.sqrt(hd),
+                float(softcap), stream)
         check_launch(name, rc)
         count(LAUNCHES, name)
     flags.add(name, work.flash_attention_bwd, B, S, T, H, KV, hd,
-              hd_v=hd_v, dtype=q.dtype, causal=causal, window=window)
+              hd_v=hd_v, dtype=q.dtype, causal=causal, window=window,
+              softcap=softcap)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with a backward kernel: the forward launches the
     flash kernel with its log-sum-exp and saves q, k, v, out and lse; the
-    backward launches :func:`flash_attention_bwd_bshd` on them.  The kernel
-    route of ``ops.flash_attention`` when grad is on and an input requires
-    it."""
+    backward launches :func:`flash_attention_bwd_bshd` on them, with the
+    forward's masks and soft-cap.  The kernel route of
+    ``ops.flash_attention`` when grad is on and an input requires it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                softcap: float = 0.0):
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        out = _forward(q, k, v, causal, window, lse)
+        out = _forward(q, k, v, causal, window, lse, softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -223,5 +246,5 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_bshd(
             q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None

@@ -31,6 +31,12 @@ kernels bound as ``torch.autograd.Function`` s
 and raise ``NotImplementedError`` naming their ROADMAP item, so no op
 hands back a tensor without a gradient, and none gives way to its plain
 version on the card.  The count route takes the same paths and refusals.
+
+Soft-capping: the attention ops take ``softcap`` (0 for none; Gemma 2's
+``attn_logit_softcapping``), each scaled score s becoming ``softcap *
+tanh(s / softcap)`` before the mask, as JAX's ``jnp`` path computes it.
+Both routes refuse a negative or non-finite cap; the kernel and count
+routes also one at a head dim outside ``kernels.SOFTCAP_HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core import flags
-from repro_torch.kernels import LAUNCHES, count, work
+from repro_torch.kernels import LAUNCHES, check_softcap_dims, count, work
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mla_decode as md
@@ -125,7 +131,8 @@ def _no_backward(name: str, item: int, *tensors) -> None:
             f"kernel on the card yet: ROADMAP.md, Queue 2, item {item}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
     """q: (B,S,H,hd), k: (B,T,KV,hd), v: (B,T,KV,hd_v) -> (B,S,H,hd_v),
     at scale 1/sqrt(hd); hd_v is hd, or narrower for MLA's prefill (the
     pairs of ``kernels.FLASH_QK_V_DIMS``).  Query s sits at key position
@@ -133,41 +140,48 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     and ``t > s + T - S - window`` when ``window``; ``causal=False,
     window=0`` is bidirectional (a cross attention at any T).  Both routes
     raise ``ValueError`` on a causal or windowed call at T < S; the
-    backward kernel takes every call the forward takes."""
+    backward kernel takes every call the forward takes.  ``softcap`` > 0
+    caps the scaled scores before the masks (not at MLA's pairs)."""
     if _route("flash_attention", q) == "cpu":
-        fa.check_args(q, k, v, window, causal)
+        fa.check_args(q, k, v, window, causal, softcap)
         B, S, H, hd = q.shape
         return _plain("flash_attention", lambda: ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window), work.flash_attention, B,
-            S, k.shape[1], H, k.shape[2], hd, hd_v=v.shape[3], dtype=q.dtype,
-            causal=causal, window=window, lse=_needs_grad(q, k, v))
+            q, k, v, causal=causal, window=window, softcap=softcap),
+            work.flash_attention, B, S, k.shape[1], H, k.shape[2], hd,
+            hd_v=v.shape[3], dtype=q.dtype, causal=causal, window=window,
+            lse=_needs_grad(q, k, v), softcap=softcap)
     # the kernel and count routes share the wrappers, which count
     if _needs_grad(q, k, v):
-        fa.check_args(q, k, v, window, causal)
-        return fa.FlashAttention.apply(q, k, v, causal, window)
-    return fa.flash_attention_bshd(q, k, v, causal=causal, window=window)
+        fa.check_args(q, k, v, window, causal, softcap)
+        return fa.FlashAttention.apply(q, k, v, causal, window, softcap)
+    return fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
 
 
-def decode_attention(q, k, v, lengths, *, n_splits: int = 8):
+def decode_attention(q, k, v, lengths, *, n_splits: int = 8,
+                     softcap: float = 0.0):
     """q: (B,H,hd); k/v: (B,L,KV,hd) caches; lengths: (B,) int32 valid
     prefix -> (B,H,hd).  ``n_splits`` is the TPU wrapper's contract and
     is checked; the kernel plans its own split of the keys over CTAs
-    (:mod:`repro_torch.kernels.decode_plan`)."""
+    (:mod:`repro_torch.kernels.decode_plan`).  ``softcap`` > 0 caps the
+    scaled scores before the mask."""
     route = _route("decode_attention", q)
     B, H, hd = q.shape
     args = (B, H, k.shape[2], hd, k.shape[1])
+    wk = dict(dtype=q.dtype, softcap=softcap)
     if route == "cpu":
-        da.check_args(q, k, v, lengths, n_splits)
+        da.check_args(q, k, v, lengths, n_splits, softcap)
         return _plain("decode_attention", lambda: ref.decode_attention_ref(
-            q, k, v, lengths), work.decode_attention, *args, dtype=q.dtype)
+            q, k, v, lengths, softcap), work.decode_attention, *args, **wk)
     _no_backward("decode_attention", _SERVING_BACKWARD, q, k, v)
     if route == "count":
-        da.check_args(q, k, v, lengths, n_splits)
+        da.check_args(q, k, v, lengths, n_splits, softcap)
+        check_softcap_dims("decode_attention", softcap, hd)
         return _counted("decode_attention", q.new_empty(q.shape),
-                        work.decode_attention, *args, dtype=q.dtype)
-    out = da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits)
-    flags.add("decode_attention", work.decode_attention, *args,
-              dtype=q.dtype)
+                        work.decode_attention, *args, **wk)
+    out = da.decode_attention_bhd(q, k, v, lengths, n_splits=n_splits,
+                                  softcap=softcap)
+    flags.add("decode_attention", work.decode_attention, *args, **wk)
     return out
 
 
@@ -200,9 +214,11 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale: float):
     return out
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           softcap: float = 0.0):
     """q: (B,H,hd); k_pool/v_pool: (num_blocks, bs, KV, hd) shared pools;
-    block_tables: (B, nb) int32; lengths: (B,) int32 -> (B,H,hd)."""
+    block_tables: (B, nb) int32; lengths: (B,) int32 -> (B,H,hd);
+    ``softcap`` > 0 caps the scaled scores before the mask."""
     name = "paged_decode_attention"
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, H, hd), got {tuple(q.shape)}")
@@ -211,27 +227,34 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     B, H, hd = q.shape
     args = (B, H, k_pool.shape[2], hd, k_pool.shape[1],
             block_tables.shape[1])
+    wk = dict(dtype=q.dtype, softcap=softcap)
     if route == "cpu":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
+        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths,
+                      softcap)
         return _plain(name, lambda: ref.paged_decode_attention_ref(
-            q, k_pool, v_pool, block_tables, lengths),
-            work.paged_decode_attention, *args, dtype=q.dtype)
+            q, k_pool, v_pool, block_tables, lengths, softcap),
+            work.paged_decode_attention, *args, **wk)
     _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     if route == "count":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths)
+        pa.check_args(name, q, k_pool, v_pool, block_tables, lengths,
+                      softcap)
+        check_softcap_dims(name, softcap, hd)
         return _counted(name, q.new_empty(q.shape),
-                        work.paged_decode_attention, *args, dtype=q.dtype)
+                        work.paged_decode_attention, *args, **wk)
     out = pa.paged_decode_attention_bkgd(q.view(B, H // G, G, hd), k_pool,
-                                         v_pool, block_tables, lengths)
-    flags.add(name, work.paged_decode_attention, *args, dtype=q.dtype)
+                                         v_pool, block_tables, lengths,
+                                         softcap)
+    flags.add(name, work.paged_decode_attention, *args, **wk)
     return out.view(B, H, hd)
 
 
-def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
+def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0, *,
+                           softcap: float = 0.0):
     """q: (B,S,H,hd) suffix queries at absolute positions ``pos0 + s``;
     k_pool/v_pool: (num_blocks, bs, KV, hd) with the suffix K/V already
     scattered in; block_tables: (B, nb) int32; pos0: (B,) int32
-    -> (B,S,H,hd).  Key p is visible to query s iff ``p <= pos0 + s``."""
+    -> (B,S,H,hd).  Key p is visible to query s iff ``p <= pos0 + s``;
+    ``softcap`` > 0 caps the scaled scores before the mask."""
     name = "paged_extend_attention"
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, S, H, hd), got "
@@ -241,19 +264,22 @@ def paged_extend_attention(q, k_pool, v_pool, block_tables, pos0):
     B, S, H, hd = q.shape
     args = (B, S, H, k_pool.shape[2], hd, k_pool.shape[1],
             block_tables.shape[1])
+    wk = dict(dtype=q.dtype, softcap=softcap)
     if route == "cpu":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
+        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0, softcap)
         return _plain(name, lambda: ref.paged_extend_attention_ref(
-            q, k_pool, v_pool, block_tables, pos0),
-            work.paged_extend_attention, *args, dtype=q.dtype)
+            q, k_pool, v_pool, block_tables, pos0, softcap),
+            work.paged_extend_attention, *args, **wk)
     _no_backward(name, _SERVING_BACKWARD, q, k_pool, v_pool)
     if route == "count":
-        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0)
+        pa.check_args(name, q, k_pool, v_pool, block_tables, pos0, softcap)
+        check_softcap_dims(name, softcap, hd)
         return _counted(name, q.new_empty(q.shape),
-                        work.paged_extend_attention, *args, dtype=q.dtype)
+                        work.paged_extend_attention, *args, **wk)
     out = pa.paged_extend_attention_bkgd(q.view(B, S, H // G, G, hd),
-                                         k_pool, v_pool, block_tables, pos0)
-    flags.add(name, work.paged_extend_attention, *args, dtype=q.dtype)
+                                         k_pool, v_pool, block_tables, pos0,
+                                         softcap)
+    flags.add(name, work.paged_extend_attention, *args, **wk)
     return out.view(B, S, H, hd)
 
 

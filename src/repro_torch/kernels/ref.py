@@ -8,8 +8,13 @@ CPU; a backward kernel's plain version is autograd through its forward's.
 :func:`linear_scan_bwd_ref` and :func:`selective_scan_bwd_ref` write the
 scans' adjoint out step by step, equal to that autograd result, for the
 tests and for ``chip_smoke.py``'s controls.  All math is fp32 (fp64
-inputs stay fp64 in :func:`pair_score_ref`); masked scores take the
-finite ``NEG_INF`` so a fully masked row never produces a NaN.
+inputs stay fp64 in :func:`pair_score_ref` and the attention versions but
+MLA's); masked scores take the
+finite ``NEG_INF`` so a fully masked row never produces a NaN.  The
+attention versions take ``softcap``: with c > 0 every scaled score s
+becomes ``c * tanh(s / c)`` before the mask, as JAX's plain ``mha`` and
+``flash_attention_jnp`` compute it (``attention.py:69-70``, ``:152-153``),
+so a masked score stays ``NEG_INF``.
 """
 from __future__ import annotations
 
@@ -20,7 +25,19 @@ import torch
 NEG_INF = -2.0e38
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def _acc(t):
+    """The dtype the attention versions compute in: fp32, fp64 for fp64
+    inputs."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _capped(s, softcap: float):
+    """``softcap * tanh(s / softcap)`` for a cap > 0, else ``s``."""
+    return torch.tanh(s / softcap) * softcap if softcap else s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
     """q, k: (B,S,H,hd), (B,T,KV,hd); v: (B,T,KV,hd_v), where hd_v may be
     narrower than hd (MLA's prefill).  Masked full attention at scale
     1/sqrt(hd).  The S queries are the last S of the T key positions:
@@ -29,13 +46,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     whole prefill; T > S under a mask is a sequence shard's queries over
     the keys before them (``models.attention.seqshard_attn_forward``);
     with neither mask each query sees all T keys (a cross attention).
-    Returns (B,S,H,hd_v); under autograd its gradient is the plain
-    backward."""
+    ``softcap`` > 0 caps the scaled scores before the mask.  Returns
+    (B,S,H,hd_v); under autograd its gradient is the plain backward."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.reshape(B, S, KV, G, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    acc = _acc(q)
+    qg = q.reshape(B, S, KV, G, hd).to(acc)
+    s = _capped(torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(acc)) /
+                math.sqrt(hd), softcap)
     qi = torch.arange(S, device=q.device)[:, None] + (T - S)
     si = torch.arange(T, device=q.device)[None, :]
     ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -45,23 +64,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         ok &= si > qi - window
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(acc))
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths):
+def decode_attention_ref(q, k, v, lengths, softcap: float = 0.0):
     """q: (B,H,hd) single query; k,v: (B,L,KV,hd); lengths: (B,) valid
-    prefix.  Returns (B,H,hd)."""
+    prefix; ``softcap`` > 0 caps the scaled scores before the mask.
+    Returns (B,H,hd)."""
     B, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    qg = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) / math.sqrt(hd)
+    acc = _acc(q)
+    qg = q.reshape(B, KV, G, hd).to(acc)
+    s = _capped(torch.einsum("bkgh,bskh->bkgs", qg, k.to(acc)) /
+                math.sqrt(hd), softcap)
     L = k.shape[1]
     ok = torch.arange(L, device=q.device)[None, :] < lengths[:, None]
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.to(acc))
     return o.reshape(B, H, hd).to(q.dtype)
 
 
@@ -91,36 +113,43 @@ def _gather(pool, block_tables):
     return pool[block_tables.long()].reshape(B, nb * bs, *pool.shape[2:])
 
 
-def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
+                               softcap: float = 0.0):
     """Single-query decode attention through a block table.
 
     q: (B,H,hd); k_pool/v_pool: (num_blocks, bs, KV, hd); block_tables:
     (B, nb) physical block ids (padded with the null block); lengths: (B,)
-    valid prefix length.  Returns (B,H,hd)."""
+    valid prefix length; ``softcap`` as in :func:`decode_attention_ref`.
+    Returns (B,H,hd)."""
     return decode_attention_ref(q, _gather(k_pool, block_tables),
-                                _gather(v_pool, block_tables), lengths)
+                                _gather(v_pool, block_tables), lengths,
+                                softcap)
 
 
-def paged_extend_attention_ref(q, k_pool, v_pool, block_tables, pos0):
+def paged_extend_attention_ref(q, k_pool, v_pool, block_tables, pos0,
+                               softcap: float = 0.0):
     """Suffix-extend attention through a block table.
 
     q: (B,S,H,hd) queries at absolute positions ``pos0 + s``; pools and
     tables as in :func:`paged_decode_attention_ref`; pos0: (B,).  Key at
-    virtual position p is visible to query s iff ``p <= pos0 + s``.
-    Returns (B,S,H,hd)."""
+    virtual position p is visible to query s iff ``p <= pos0 + s``;
+    ``softcap`` > 0 caps the scaled scores before the mask.  Returns
+    (B,S,H,hd)."""
     B, S, H, hd = q.shape
     KV = k_pool.shape[2]
     G = H // KV
     k = _gather(k_pool, block_tables)
     v = _gather(v_pool, block_tables)
-    qg = q.reshape(B, S, KV, G, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    acc = _acc(q)
+    qg = q.reshape(B, S, KV, G, hd).to(acc)
+    s = _capped(torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(acc)) /
+                math.sqrt(hd), softcap)
     L = k.shape[1]
     positions = pos0[:, None] + torch.arange(S, device=q.device)[None, :]
     ok = torch.arange(L, device=q.device)[None, None, :] <= positions[:, :, None]
     s = torch.where(ok[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(acc))
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 

@@ -18,6 +18,12 @@ functions take it as host integers where the caller has them (the kernel
 table's shapes); ``None`` counts every key a row could see, which is what
 the dry run's decode at ``pos = seq - 1`` sees, and what a counted call on
 the card counts (it does not read the lengths back).
+
+A soft-capped attention call (``softcap`` > 0) adds one tanh per visible
+score, counted with the exponentials (one special-function operation
+each, as ``tanh.approx`` is); the backward, which recomputes the capped
+score, adds its tanh too and two operations a score for ``dS * (1 -
+t^2)``.  The cap moves the bytes not at all.
 """
 from __future__ import annotations
 
@@ -75,33 +81,42 @@ def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return total
 
 
+def _caps(n_scores: int, softcap: float) -> int:
+    """The tanh a call with ``softcap`` does over ``n_scores`` scores."""
+    return n_scores if softcap else 0
+
+
 def flash_attention(B, S, T, H, KV, hd, *, hd_v=None, dtype="bfloat16",
-                    causal=True, window=0, lse=False) -> Work:
+                    causal=True, window=0, lse=False,
+                    softcap=0.0) -> Work:
     """Flash forward: q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,hd_v) read,
     out (B,S,H,hd_v) written (and the fp32 log-sum-exp (B,S,H) where the
-    training forward writes it); Q K^T and P V over the visible pairs."""
+    training forward writes it); Q K^T and P V over the visible pairs,
+    and a tanh for each under a ``softcap``."""
     hd_v = hd if hd_v is None else hd_v
     esz = _ESZ[_dtype_name(dtype)]
     pairs = visible_pairs(S, T, causal, window)
     nbytes = (B * S * H * hd + B * T * KV * hd + B * T * KV * hd_v +
               B * S * H * hd_v) * esz + (4 * B * S * H if lse else 0)
-    return Work(2 * (hd + hd_v) * H * B * pairs, nbytes, _dtype_name(dtype))
+    return Work(2 * (hd + hd_v) * H * B * pairs, nbytes, _dtype_name(dtype),
+                exps=_caps(B * H * pairs, softcap))
 
 
 def flash_attention_bwd(B, S, T, H, KV, hd, *, hd_v=None, dtype="bfloat16",
-                        causal=True, window=0) -> Work:
+                        causal=True, window=0, softcap=0.0) -> Work:
     """Flash backward: q read and dq written (B,S,H,hd), out and dout read
     (B,S,H,hd_v); k read and dk written (B,T,KV,hd), v read and dv written
     (B,T,KV,hd_v); the fp32 lse read; S, dK and dQ (over hd) and dP and dV
-    (over hd_v) over the visible pairs.  hd_v is hd, or MLA's narrower
-    v."""
+    (over hd_v) over the visible pairs; under a ``softcap`` a tanh and
+    two operations each.  hd_v is hd, or MLA's narrower v."""
     hd_v = hd if hd_v is None else hd_v
     esz = _ESZ[_dtype_name(dtype)]
     pairs = visible_pairs(S, T, causal, window)
     nbytes = (2 * B * S * H * (hd + hd_v) +
               2 * B * T * KV * (hd + hd_v)) * esz + 4 * B * S * H
-    return Work(2 * (3 * hd + 2 * hd_v) * pairs * B * H, nbytes,
-                _dtype_name(dtype))
+    caps = _caps(B * H * pairs, softcap)
+    return Work(2 * (3 * hd + 2 * hd_v) * pairs * B * H + 2 * caps, nbytes,
+                _dtype_name(dtype), exps=caps)
 
 
 def _live(lengths: Optional[Sequence[int]], B: int, L: int):
@@ -111,16 +126,18 @@ def _live(lengths: Optional[Sequence[int]], B: int, L: int):
 
 
 def decode_attention(B, H, KV, hd, L, *, dtype="bfloat16",
-                     lengths=None) -> Work:
-    """Split-K decode: each row's live K and V rows, q in, out, lengths."""
+                     lengths=None, softcap=0.0) -> Work:
+    """Split-K decode: each row's live K and V rows, q in, out, lengths;
+    a tanh a live score under a ``softcap``."""
     esz = _ESZ[_dtype_name(dtype)]
     n_tok = sum(_live(lengths, B, L))
     nbytes = 2 * n_tok * KV * hd * esz + 2 * B * H * hd * esz + 4 * B
-    return Work(4 * H * hd * n_tok, nbytes, _dtype_name(dtype))
+    return Work(4 * H * hd * n_tok, nbytes, _dtype_name(dtype),
+                exps=_caps(H * n_tok, softcap))
 
 
 def paged_decode_attention(B, H, KV, hd, bs, nb, *, dtype="bfloat16",
-                           lengths=None) -> Work:
+                           lengths=None, softcap=0.0) -> Work:
     """Paged decode: as :func:`decode_attention`, plus each row's block
     table entries that hold live keys."""
     esz = _ESZ[_dtype_name(dtype)]
@@ -128,15 +145,17 @@ def paged_decode_attention(B, H, KV, hd, bs, nb, *, dtype="bfloat16",
     n_tok = sum(live)
     nbytes = (2 * n_tok * KV * hd * esz + 2 * B * H * hd * esz +
               4 * sum(-(-n // bs) for n in live) + 4 * B)
-    return Work(4 * H * hd * n_tok, nbytes, _dtype_name(dtype))
+    return Work(4 * H * hd * n_tok, nbytes, _dtype_name(dtype),
+                exps=_caps(H * n_tok, softcap))
 
 
 def paged_extend_attention(B, S, H, KV, hd, bs, nb, *, dtype="bfloat16",
-                           pos0=None) -> Work:
+                           pos0=None, softcap=0.0) -> Work:
     """Paged extend of S queries a row at ``pos0 + s`` over a table of
     ``nb * bs`` keys: the keys each row needs (to its last query, at most
-    the table), q in, out, the table entries, pos0.  ``pos0`` None puts
-    each row's last query on the table's last key."""
+    the table), q in, out, the table entries, pos0; a tanh a visible score
+    under a ``softcap``.  ``pos0`` None puts each row's last query on the
+    table's last key."""
     esz = _ESZ[_dtype_name(dtype)]
     L = nb * bs
     pos0 = [L - S] * B if pos0 is None else [int(p) for p in pos0]
@@ -144,7 +163,8 @@ def paged_extend_attention(B, S, H, KV, hd, bs, nb, *, dtype="bfloat16",
     seen = sum(min(p + s + 1, L) for p in pos0 for s in range(S))
     nbytes = (2 * sum(rows) * KV * hd * esz + 2 * B * S * H * hd * esz +
               4 * sum(-(-k // bs) for k in rows) + 4 * B)
-    return Work(4 * H * hd * seen, nbytes, _dtype_name(dtype))
+    return Work(4 * H * hd * seen, nbytes, _dtype_name(dtype),
+                exps=_caps(H * seen, softcap))
 
 
 def mla_decode_attention(B, H, r, rh, L, *, dtype="bfloat16",

@@ -28,6 +28,15 @@ runs ``mha`` below 1,024 tokens, which rounds P to the activation dtype;
 flash keeps P in fp32): ``cross`` at a key count T of its own, the
 encoder's length.
 
+Attention logit soft-capping (``cfg.attn_softcap`` > 0, Gemma 2's
+``attn_logit_softcapping``): every route here but MLA's passes the cap to
+its kernel op, which caps each scaled score before the mask, as JAX's
+``jnp`` path does on every non-MLA route (``mha``, ``flash_attention_jnp``,
+``_local_attention``); MLA's prefill and absorbed decode are not capped,
+as in JAX (``attention.py:606-609``, ``:621-646``).  JAX's Pallas kernels
+take no cap, so its ``use_kernels`` path drops it; the port follows the
+``jnp`` path (ROADMAP.md, Standing divergences).
+
 MLA (deepseek-v2-lite, ``attention.py:565-646``) keeps a compressed
 cache per layer, ``{"ckv" (B, L, kv_lora_rank), "krope" (B, L,
 rope_head_dim)}``: the normalised latent and the RoPE'd key shared by all
@@ -189,15 +198,12 @@ def causal_mask(Sq: int, Skv: int, offset: int = 0):
     return si <= qi + offset
 
 
-_NOT_PORTED = "is not in the port yet: ROADMAP.md, Queue 1, item 6 (the " \
-              "other LM families)"
-
-
-def _check_kind(kind: str, cfg):
+def _check_kind(kind: str):
+    """JAX's attention kinds (``attention.py:258``); raises ``ValueError``
+    on any other."""
     if kind not in ("causal", "global", "local", "bidir", "cross"):
-        raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
-    if cfg.attn_softcap:
-        raise NotImplementedError(f"attn_softcap {_NOT_PORTED}")
+        raise ValueError(f"attention kind {kind!r}: not one of causal, "
+                         f"global, local, bidir, cross")
 
 
 def _rope_base(cfg, kind: str) -> float:
@@ -216,8 +222,9 @@ def attn_forward(params, x, cfg, *, kind: str, positions=None,
     bidirectional for ``bidir``, and for ``cross`` q from x over k/v
     projected from ``encoder_kv`` (B,T,d), every query seeing all T keys.
     x: (B,S,d); ``qkv`` reuses projections the caller already made with
-    :func:`_project_qkv` (under tp, of this rank's head block)."""
-    _check_kind(kind, cfg)
+    :func:`_project_qkv` (under tp, of this rank's head block).  Scores
+    are capped at ``cfg.attn_softcap`` where it is set."""
+    _check_kind(kind)
     B, S, _ = x.shape
     hb = _head_block(cfg)
     if qkv is None:
@@ -233,7 +240,8 @@ def attn_forward(params, x, cfg, *, kind: str, positions=None,
         _kv_heads(v, hb).contiguous()
     window = cfg.window if kind == "local" else 0
     causal = kind not in ("bidir", "cross")
-    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cfg.attn_softcap)
     return _out_proj(params, out, hb)
 
 
@@ -258,8 +266,8 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
     asks (a prefill fills its cache from them), else None.  Under grad
     the gather's backward sums every rank's gradient of this rank's
     keys (a reduce-scatter), and the halo's sends its gradient back to
-    the rank it came from."""
-    _check_kind(kind, cfg)
+    the rank it came from.  Scores are capped at ``cfg.attn_softcap``."""
+    _check_kind(kind)
     B, S_loc, _ = x.shape
     off = collectives.axis_index("model", mesh) * S_loc
     pos = off + torch.arange(S_loc, device=x.device)[None, :]
@@ -272,7 +280,8 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
         SEQSHARD_ROUTES["halo"] += 1
         k, v = (collectives.halo_cat(t, W, "model", mesh) for t in (k, v))
         out = kops.flash_attention(q, k.contiguous(), v.contiguous(),
-                                   causal=True, window=W)
+                                   causal=True, window=W,
+                                   softcap=cfg.attn_softcap)
         if keep_kv:
             kv = tuple(collectives.all_gather(t[:, -S_loc:].contiguous(),
                                               "model", dim=1, mesh=mesh)
@@ -284,7 +293,7 @@ def seqshard_attn_forward(params, x, cfg, *, kind: str, mesh,
         T = off + S_loc
         out = kops.flash_attention(q, kv[0][:, :T].contiguous(),
                                    kv[1][:, :T].contiguous(), causal=True,
-                                   window=W)
+                                   window=W, softcap=cfg.attn_softcap)
     return out.reshape(B, S_loc, -1) @ params["wo"], kv
 
 
@@ -324,8 +333,9 @@ def attn_decode(params, x, cache, pos, cfg, *, kind: str):
     are visible: the attention is ``kops.decode_attention`` with
     ``lengths = pos + 1``.  A ring writes row ``pos % L`` and its ``"pos"``
     entry, and sees its first ``min(pos + 1, L)`` rows (the module
-    docstring says why that is JAX's ring mask)."""
-    _check_kind(kind, cfg)
+    docstring says why that is JAX's ring mask).  Scores are capped at
+    ``cfg.attn_softcap``."""
+    _check_kind(kind)
     hb = _head_block(cfg)
     q, k, v = _project_qkv(params, x, x, cfg, pos[:, None], pos[:, None],
                            _rope_base(cfg, kind), hb)
@@ -340,7 +350,8 @@ def attn_decode(params, x, cache, pos, cfg, *, kind: str):
     batched_cache_update(cache["v"], v[:, 0], slot)
     out = kops.decode_attention(q[:, 0].contiguous(),
                                 _kv_heads(cache["k"], hb),
-                                _kv_heads(cache["v"], hb), lengths)
+                                _kv_heads(cache["v"], hb), lengths,
+                                softcap=cfg.attn_softcap)
     return _out_proj(params, out[:, None], hb), cache
 
 
@@ -348,7 +359,7 @@ def prefill_into_cache(params_unused, k, v, cache, cfg, *, kind: str):
     """Write full-sequence K/V (B,S,KV,hd) into rows ``[0, S)`` of a
     cache, in place; a ring keeps the last ``min(S, L)`` positions, ``p``
     in row ``p % L`` (``attention.py:437-456``)."""
-    _check_kind(kind, cfg)
+    _check_kind(kind)
     S = k.shape[1]
     if is_ring_cache(cache):
         L = cache["k"].shape[1]
@@ -404,21 +415,24 @@ def _paged_gather(cache, bt):
 def paged_attn_decode(params, x, cache, pos, bt, cfg, *, kind: str):
     """Single decode step over a paged cache (``attention.py:510-532``).
     x: (B,1,d); pos: (B,) int32 absolute write position; bt: (B, nb)
-    int32.  Keys ``<= pos`` are visible."""
+    int32.  Keys ``<= pos`` are visible; scores are capped at
+    ``cfg.attn_softcap``."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, x, cfg, pos[:, None], pos[:, None],
                            _rope_base(cfg, kind))
     cache = _paged_scatter(cache, k, v, pos[:, None], bt)
     out = kops.paged_decode_attention(q[:, 0].contiguous(), cache["kp"],
-                                      cache["vp"], bt, pos + 1)
+                                      cache["vp"], bt, pos + 1,
+                                      softcap=cfg.attn_softcap)
     return out.reshape(B, 1, -1) @ params["wo"], cache
 
 
 def paged_attn_extend(params, x, cache, pos0, bt, cfg, *, kind: str):
     """Prefill a suffix into a paged cache (``attention.py:535-561``): S
     tokens at absolute positions ``pos0 + s`` (per row) attend to the
-    cached prefix blocks and causally within the suffix.  x: (B,S,d);
-    pos0: (B,) int32; bt: (B, nb) int32."""
+    cached prefix blocks and causally within the suffix, scores capped at
+    ``cfg.attn_softcap``.  x: (B,S,d); pos0: (B,) int32; bt: (B, nb)
+    int32."""
     B, S, _ = x.shape
     positions = pos0[:, None] + torch.arange(S, dtype=pos0.dtype,
                                              device=pos0.device)[None, :]
@@ -426,7 +440,8 @@ def paged_attn_extend(params, x, cache, pos0, bt, cfg, *, kind: str):
                            _rope_base(cfg, kind))
     cache = _paged_scatter(cache, k, v, positions, bt)
     out = kops.paged_extend_attention(q.contiguous(), cache["kp"],
-                                      cache["vp"], bt, pos0)
+                                      cache["vp"], bt, pos0,
+                                      softcap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ params["wo"], cache
 
 

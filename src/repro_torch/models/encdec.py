@@ -193,8 +193,9 @@ def decode_step(params, tokens, caches, pos, cfg):
     """tokens: (B, 1); pos: (B,) int32.  The self-attention row is
     written at ``pos`` (clamped to the last row) and the step sees rows
     ``< min(pos + 1, max_len)``; the cross attention sees all ``enc_len``
-    rows (``encdec.py:165-196``).  Returns ``(logits (B, 1, V),
-    caches)``."""
+    rows (``encdec.py:165-196``); both capped at ``cfg.attn_softcap``, as
+    JAX's ``mha`` caps them (``encdec.py:180``, ``:184``).  Returns
+    ``(logits (B, 1, V), caches)``."""
     B = tokens.shape[0]
     hb = attn._head_block(cfg)
     x = embed(params["embedding"], tokens, cfg) + sinusoid_at(
@@ -212,14 +213,15 @@ def decode_step(params, tokens, caches, pos, cfg):
         attn.batched_cache_update(sv, v[:, 0], pos)
         o = kops.decode_attention(q[:, 0].contiguous(),
                                   attn._kv_heads(sk, hb),
-                                  attn._kv_heads(sv, hb), lengths)
+                                  attn._kv_heads(sv, hb), lengths,
+                                  softcap=cfg.attn_softcap)
         x = x + attn._out_proj(lp["self"], o[:, None], hb)
         h = enter_model(apply_norm(lp["ln_x"], x, cfg))
         qc = attn._project_q(lp["cross"], h, cfg, None, 0.0, hb)[:, 0]
         oc = kops.decode_attention(qc.contiguous(),
                                    attn._kv_heads(caches["cross_k"][li], hb),
                                    attn._kv_heads(caches["cross_v"][li], hb),
-                                   enc_lengths)
+                                   enc_lengths, softcap=cfg.attn_softcap)
         x = x + attn._out_proj(lp["cross"], oc[:, None], hb)
         h = apply_norm(lp["ln2"], x, cfg)
         x = x + apply_mlp(lp["ffn"], h, cfg)

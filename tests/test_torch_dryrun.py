@@ -256,6 +256,50 @@ def test_count_route_flash_backward_and_refusals(monkeypatch):
     assert not any(LAUNCHES.values())
 
 
+def test_count_route_capped_work(monkeypatch):
+    """The count route reports the capped work of ``kernels/work.py``: a
+    tanh (an SFU operation) per visible score, forward and backward, and
+    two more operations a score in the backward; the bytes do not move;
+    nothing builds or launches."""
+    monkeypatch.setattr(build, "load", _no_build)
+    cap = 30.0
+    with FakeTensorMode():
+        q = torch.empty(2, 20, 4, 64, requires_grad=True)
+        k = torch.empty(2, 20, 2, 64, requires_grad=True)
+        v = torch.empty(2, 20, 2, 64, requires_grad=True)
+        ops.reset_counts()
+        seen = []
+        real = flags.add
+
+        def spy(name, fn, *args, **kw):
+            seen.append((name, fn(*args, **kw)))
+            return real(name, fn, *args, **kw)
+
+        monkeypatch.setattr(flags, "add", spy)
+        with dryrun_lib.Counter() as c:
+            out = ops.flash_attention(q, k, v, causal=True, softcap=cap)
+            torch.autograd.grad(out.sum(), [q, k, v])
+    fwd = work.flash_attention(2, 20, 20, 4, 2, 64, dtype="float32",
+                               lse=True, softcap=cap)
+    bwd = work.flash_attention_bwd(2, 20, 20, 4, 2, 64, dtype="float32",
+                                   softcap=cap)
+    plain_f = work.flash_attention(2, 20, 20, 4, 2, 64, dtype="float32",
+                                   lse=True)
+    plain_b = work.flash_attention_bwd(2, 20, 20, 4, 2, 64, dtype="float32")
+    scores = 2 * 4 * work.visible_pairs(20, 20, True, 0)
+    assert dict(seen) == {"flash_attention": fwd, "flash_attention_bwd": bwd}
+    assert c.kernels == {"flash_attention": [1, fwd.flops, fwd.bytes],
+                         "flash_attention_bwd": [1, bwd.flops, bwd.bytes]}
+    assert fwd.exps == bwd.exps == scores and plain_f.exps == 0
+    assert fwd.flops == plain_f.flops and fwd.bytes == plain_f.bytes
+    assert bwd.flops == plain_b.flops + 2 * scores
+    assert work.decode_attention(2, 4, 2, 64, 24, lengths=(13, 0),
+                                 softcap=cap).exps == 4 * 13
+    assert work.paged_extend_attention(1, 2, 4, 2, 64, 4, 2, pos0=(3,),
+                                       softcap=cap).exps == 4 * (4 + 5)
+    assert not any(LAUNCHES.values())
+
+
 def test_count_route_without_counter_and_nested_counters(monkeypatch):
     """With no counter active the count route reports nowhere and still
     launches nothing; a counter entered inside another takes the calls

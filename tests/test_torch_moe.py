@@ -292,9 +292,10 @@ def test_mla_and_shared_experts_still_raise():
     (tests/test_torch_mla.py), and the encoder-decoder family since
     whisper-base (tests/test_torch_encdec.py); what still raises is the
     Engine on the encoder-decoder family, with JAX's reason (the
-    family's weights are in the port), and the encoder's and decoder's
-    ``bidir`` and ``cross`` attention kinds with an attention softcap
-    (item 6)."""
+    family's weights are in the port).  The encoder's and decoder's
+    ``bidir`` and ``cross`` attention kinds with an attention softcap,
+    which raised until item 6 was done, now compute JAX's capped
+    attention (its ``mha``), which the uncapped result misses."""
     from repro_torch.configs import ArchConfig
     from repro_torch.models import attention as attn
     whisper = ArchConfig(
@@ -307,11 +308,29 @@ def test_mla_and_shared_experts_still_raise():
     with pytest.raises(NotImplementedError,
                        match="^Engine serves decoder-LM families$"):
         Engine({}, whisper, ServeConfig(max_len=8), device="cpu")
-    cfg = reduced(get_config(ARCH)).replace(attn_softcap=50.0)
-    x = torch.zeros(1, 4, cfg.d_model)
+    from repro.models import attention as jattn
+    cfg = reduced(get_config(ARCH)).replace(attn_softcap=1.0)
+    jcfg = jax_reduced(jax_get_config(ARCH)).replace(attn_softcap=1.0)
+    rng = np.random.RandomState(21)
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {k: (rng.randn(*s) / np.sqrt(s[0])).astype(np.float32)
+         for k, s in (("wq", (d, H * hd)), ("wk", (d, KV * hd)),
+                      ("wv", (d, KV * hd)), ("wo", (H * hd, d)))}
+    if cfg.qk_norm:
+        p.update({k: (1 + 0.1 * rng.randn(hd)).astype(np.float32)
+                  for k in ("q_norm", "k_norm")})
+    x = rng.randn(1, 4, d).astype(np.float32)
+    enc = rng.randn(1, 6, d).astype(np.float32)
     for kind in ("bidir", "cross"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            attn.attn_forward({}, x, cfg, kind=kind, encoder_kv=x)
+        want = np.asarray(jattn.attn_forward(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), jcfg,
+            kind=kind, encoder_kv=jnp.asarray(enc)))
+        got, uncapped = (attn.attn_forward(
+            {k: _t(v) for k, v in p.items()}, _t(x), c, kind=kind,
+            encoder_kv=_t(enc)).numpy()
+            for c in (cfg, cfg.replace(attn_softcap=0.0)))
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        assert np.abs(uncapped - want).max() > 1e-3
 
 
 # ----------------------------------------------------------------------
